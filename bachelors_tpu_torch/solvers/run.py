@@ -1,0 +1,44 @@
+"""Multi-step runners, as host loops.
+
+The port of ``bachelors_tpu/solvers/run.py``: the JAX package keeps its
+loops on the device (``while_loop`` / ``scan``); here PyTorch runs eagerly
+and the adaptive step reads its error on the host anyway, so a plain loop
+is the whole story.  Both keep the JAX rule for when to stop: a step runs
+while its start time is below the target by at least 1e-16
+(`bachelors_tpu/solvers/run.py:42,129`; `main.cpp:518`).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from ..core.state import SimState, StepStats
+from .base import Stepper
+
+END_TOLERANCE = 1e-16
+
+
+def advance_until(stepper: Stepper, state: SimState, t_stop: float,
+                  max_steps: int = 1 << 30) -> SimState:
+    """Step until ``state.t >= t_stop`` (to within 1e-16) or max_steps."""
+    for _ in range(max_steps):
+        if t_stop - state.t < END_TOLERANCE:
+            break
+        state, _stats = stepper(state)
+    return state
+
+
+def advance_collect(stepper: Stepper, state: SimState, n_steps: int,
+                    t_stop: Optional[float] = None
+                    ) -> Tuple[SimState, List[StepStats]]:
+    """Run up to ``n_steps`` steps, returning each step's stats.
+
+    With ``t_stop``, stops before the first step whose start time already
+    reached it (the JAX package masks those steps to no-ops instead).
+    """
+    rows = []
+    for _ in range(n_steps):
+        if t_stop is not None and t_stop - state.t < END_TOLERANCE:
+            break
+        state, stats = stepper(state)
+        rows.append(stats)
+    return state, rows
