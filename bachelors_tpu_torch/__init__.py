@@ -6,8 +6,9 @@ hand-written CUDA kernels for NVIDIA Hopper (``csrc/``, built with nvcc at
 first use).  Module names follow the JAX package's so each counterpart is
 easy to find.  This package never imports jax.
 
-Ported so far: the main path -- adaptive Runge-Kutta-Merson on one device,
-stats and snapshots (see ROADMAP.md for the rest).
+Ported so far, on one device with stats and snapshots: adaptive
+Runge-Kutta-Merson, forward Euler and the semi-implicit CG solver, with
+the corrector loop (see ROADMAP.md for the rest).
 """
 from .core.params import (BoundaryType, SimParams, SolverType,
                           rewire_params_for_exact)

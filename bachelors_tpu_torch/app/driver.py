@@ -8,9 +8,9 @@ triggers (``every`` cadence + ``times`` uniform over the stop time) and a
 ~1 Hz progress log.
 
 The hot loop is a host loop of one step at a time, collecting stats every
-step; each adaptive step already reads its error estimate on the host, so
-there is nothing to gain from the JAX package's device-side runners and
-their dispatch-size probes.
+step; each adaptive step already reads its error estimate on the host, and
+each CG iteration its stop test, so there is nothing to gain from the JAX
+package's device-side runners and their dispatch-size probes.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..solvers.base import make_stepper
 from ..solvers.run import END_TOLERANCE
+from ..solvers.semi_implicit import cg_branch
 from ..utils.logging import SYSTEM, get_logger
 
 log = get_logger("app")
@@ -83,9 +84,6 @@ def check_supported(cfg: SimConfig) -> None:
     if cfg.debug:
         todo.append("[program] debug maps (ROADMAP slice 1, item 3: "
                     "debug_maps)")
-    if cfg.collect_step_residual or cfg.params.do_corrector_loop:
-        todo.append("corrector loop / step residuals (ROADMAP slice 2, "
-                    "item 8: corrector_step)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -120,6 +118,8 @@ def _echo_config(cfg: SimConfig) -> None:
               "min_dt", "L", "xi", "a", "b", "alpha", "beta", "gamma", "Tm",
               "S", "m0", "theta0", "dtype", "backend"):
         log.info(f"{k} = {getattr(p, k)}")
+    if p.solver == SolverType.SEMI_IMPLICIT:
+        log.info(f"semi-implicit phase solve: {cg_branch(p)}")
 
 
 def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
@@ -180,7 +180,8 @@ def run_simulation(cfg: SimConfig, device="cuda",
     if cfg.snapshot_initial_conditions and make_folder:
         _save_snapshot(folder, 0, state, cfg, None, save_config_once)
 
-    if p.dtype == "float32" and min(p.Phi_tolerance, p.T_tolerance) < 1e-6:
+    if (p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE and p.dtype == "float32"
+            and min(p.Phi_tolerance, p.T_tolerance) < 1e-6):
         log.warn(
             f"adaptive tolerance {min(p.Phi_tolerance, p.T_tolerance):g} is "
             "near/below the float32 truncation-noise floor: expect very "

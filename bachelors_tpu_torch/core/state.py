@@ -76,6 +76,11 @@ DELTA_NAMES = ("T_delta_L1", "T_delta_L2", "T_delta_max", "T_delta_min",
                "Phi_delta_L1", "Phi_delta_L2", "Phi_delta_max", "Phi_delta_min")
 
 
+# Order of the four statistics of one corrector step residual in
+# ``StepStats.step_res`` (`bachelors_tpu/io/stats_io.py:61-62`).
+STEP_RES_NAMES = ("step_res_L1", "step_res_L2", "step_res_max", "step_res_min")
+
+
 @dataclasses.dataclass
 class StepStats:
     """Per-step diagnostics (reference ``Sim_Stats``, `simulation.h:56-81`).
@@ -88,8 +93,10 @@ class StepStats:
     for the adaptive solver): ``Phi_iters`` skips the attempt that hits the
     ``min_dt`` floor, ``attempts`` does not.
 
-    The per-corrector-iteration residual slots of the reference arrive with
-    the corrector loop (ROADMAP slice 2); until then every row has none.
+    ``step_res`` holds the corrector loop's step residuals, one row per
+    recorded iteration in the column order of ``STEP_RES_NAMES``, as a
+    float32 tensor on the fields' device; ``None`` when none were recorded
+    (the JAX package's fixed ``step_res_*`` slots and ``step_res_count``).
     """
 
     t: float
@@ -98,6 +105,7 @@ class StepStats:
     T_iters: int
     attempts: int = 1
     deltas: Optional[torch.Tensor] = None
+    step_res: Optional[torch.Tensor] = None
 
 
 def empty_stats(state: SimState) -> StepStats:

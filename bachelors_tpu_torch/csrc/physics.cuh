@@ -28,9 +28,15 @@ struct PhysParams {
   float k0_factor, k1_factor, k2_factor;
   float dt, dt_L, L, Tm;
   float S, m0, theta0;
+  float gamma;  // the semi-implicit scheme's implicitness blend
   int f_bc, u_bc;
   int corrector_guess;
 };
+
+// The image of centre value `c` across a Neumann or Dirichlet edge.
+__device__ __forceinline__ float edge_image(int bc, float c, float d) {
+  return bc == kNeumann ? c : 2.0f * d - c;
+}
 
 // Neighbour value as the padded field holds it.  `cross` says that the step
 // from the cell to this neighbour crosses a domain edge.  A periodic field
@@ -39,7 +45,40 @@ struct PhysParams {
 __device__ __forceinline__ float neighbour(int bc, bool cross, float nb,
                                            float centre, float d) {
   if (!cross || bc == kPeriodic) return nb;
-  return bc == kNeumann ? centre : 2.0f * d - centre;
+  return edge_image(bc, centre, d);
+}
+
+// The four neighbours of cell (i, j) of a (ny, nx) field A whose own value
+// is c, as the padded field holds them: wrapped for a periodic field, the
+// edge image otherwise.  Device memory is read only where the rule needs it.
+struct Cross {
+  float N, S, E, W;
+};
+
+__device__ __forceinline__ Cross cross_of(const float* __restrict__ A, int bc,
+                                          float c, float d, int i, int j,
+                                          int ny, int nx) {
+  const bool img = bc != kPeriodic;
+  Cross n;
+  n.N = (i + 1 == ny) ? (img ? edge_image(bc, c, d) : A[j]) : A[(i + 1) * nx + j];
+  n.S = (i == 0) ? (img ? edge_image(bc, c, d) : A[(ny - 1) * nx + j])
+                 : A[(i - 1) * nx + j];
+  n.E = (j + 1 == nx) ? (img ? edge_image(bc, c, d) : A[i * nx]) : A[i * nx + j + 1];
+  n.W = (j == 0) ? (img ? edge_image(bc, c, d) : A[i * nx + nx - 1])
+                 : A[i * nx + j - 1];
+  return n;
+}
+
+// g(theta) = 1 - S cos(m0 theta + theta0) and |grad Phi| from the central
+// differences; atan2(0, 0) = 0 and |grad| = 0 there
+// (models/allen_cahn.py:_anisotropy).
+__device__ __forceinline__ void anisotropy(const PhysParams& P, float gx,
+                                           float gy, float& g, float& norm) {
+  float r2 = gx * gx + gy * gy;
+  bool zero = r2 == 0.0f;
+  float theta = atan2f(gy, zero ? 1.0f : gx);
+  g = 1.0f - P.S * cosf(P.m0 * theta + P.theta0);
+  norm = zero ? 0.0f : sqrtf(r2);
 }
 
 // (dPhi/dt, dT/dt) at one cell from its own and its four neighbours'
@@ -49,14 +88,8 @@ __device__ __forceinline__ void physics(const PhysParams& P, float Fc,
                                         float Uc, float UN, float US, float UE,
                                         float UW, float fu, float& dF,
                                         float& dU) {
-  float gx = (FE - FW) * P.inv_2dx;
-  float gy = (FN - FS) * P.inv_2dy;
-  // g(theta) and |grad Phi|; atan2(0, 0) = 0 and |grad| = 0 there
-  float r2 = gx * gx + gy * gy;
-  bool zero = r2 == 0.0f;
-  float theta = atan2f(gy, zero ? 1.0f : gx);
-  float g = 1.0f - P.S * cosf(P.m0 * theta + P.theta0);
-  float norm = zero ? 0.0f : sqrtf(r2);
+  float g, norm;
+  anisotropy(P, (FE - FW) * P.inv_2dx, (FN - FS) * P.inv_2dy, g, norm);
 
   float lapF = (FW - 2.0f * Fc + FE) * P.inv_dx2 + (FS - 2.0f * Fc + FN) * P.inv_dy2;
   float lapU = (UW - 2.0f * Uc + UE) * P.inv_dx2 + (US - 2.0f * Uc + UN) * P.inv_dy2;

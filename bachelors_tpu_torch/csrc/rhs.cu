@@ -32,7 +32,21 @@
 //     43.7 KB.  Per-block error maxima go to a partials buffer, reduced by a
 //     second one-block kernel; both keep NaN.
 //
-// Boundary rule (both kernels).  At every stage the *blend* x + sum w_i k_i
+// K7  bt_si_prepare_f32: replaces `_make_kernel` in mode "si_prepare"
+//     (`_make_si_terms` :292, entry `si_prepare_pallas` :612): the
+//     delta-form semi-implicit prepare.  One pass over (F, U) writes the
+//     phase residual r0_F = b_F - A_F Phi, the heat term uterm = dt lap(U)
+//     and, only when the anisotropy map varies per cell (S != 0 or the
+//     corrector guess, `si_s_varies` :283), the map s itself.  Bound by
+//     bytes: 2 fields read, 2 or 3 written, one atan2f + cosf per cell.
+//     Design: K1's, one thread per cell with neighbours from device memory;
+//     the arithmetic is the plain version's
+//     (models/allen_cahn.py:semi_implicit_prepare + solvers/
+//     semi_implicit.py:_lap_from_padded), not the TPU kernel's square-cell
+//     fold, so the two round alike.  Ghosts take Dirichlet value 0, as the
+//     JAX package's prepare does.
+//
+// Boundary rule (K1, K2).  At every stage the *blend* x + sum w_i k_i
 // is imaged at the domain edge, with Dirichlet value d * (1 + sum w_i)
 // (`pallas_rhs.py:1036-1052`, `bachelors_tpu/ops/rhs.py:15-22`).  The apron
 // is indexed by unwrapped global coordinates and loaded with wrapped
@@ -304,6 +318,42 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
+// ---------------------------------------------------------------- K7 ----
+
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    si_prepare_kernel(const float* __restrict__ F, const float* __restrict__ U,
+                      float* __restrict__ r0, float* __restrict__ uterm,
+                      float* __restrict__ s_out, int ny, int nx, PhysParams P) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int c = i * nx + j;
+  const float Fc = F[c], Uc = U[c];
+  const Cross f = cross_of(F, P.f_bc, Fc, 0.0f, i, j, ny, nx);
+  const Cross u = cross_of(U, P.u_bc, Uc, 0.0f, i, j, ny, nx);
+
+  float g, norm;
+  anisotropy(P, (f.E - f.W) * P.inv_2dx, (f.N - f.S) * P.inv_2dy, g, norm);
+  float lapF = (f.W - 2.0f * Fc + f.E) * P.inv_dx2 + (f.S - 2.0f * Fc + f.N) * P.inv_dy2;
+  float lapU = (u.W - 2.0f * Uc + u.E) * P.inv_dx2 + (u.S - 2.0f * Uc + u.N) * P.inv_dy2;
+  float k0 = g * (Fc * (1.0f - Fc) * (Fc - 0.5f)) * P.k0_factor;
+  float k2 = norm * P.k2_factor;
+  float k1 = g * P.k1_factor;
+
+  float r, sv;
+  if (P.corrector_guess) {
+    float corr = 1.0f + k2 * P.dt * P.L;
+    r = P.dt / corr * (k1 * lapF + k0 - k2 * (Uc - P.Tm + P.dt * lapU));
+    sv = P.gamma / corr * k1;
+  } else {
+    r = P.dt * (k1 * lapF + k0 - k2 * (Uc - P.Tm));
+    sv = P.gamma * k1;
+  }
+  r0[c] = r;
+  uterm[c] = P.dt * lapU;
+  if (s_out != nullptr) s_out[c] = sv;
+}
+
 }  // namespace bt
 
 using bt::PhysParams;
@@ -350,6 +400,17 @@ int bt_rkm_attempt_f32(const float* F, const float* U, float* outF,
   if (e != cudaSuccess) return int(e);
   bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
       partials, int(grid.x * grid.y), err);
+  return int(cudaGetLastError());
+}
+
+// K7: r0 = b_F - A_F Phi and uterm = dt lap(U) of the semi-implicit
+// prepare; s gets the per-cell anisotropy map unless it is null.
+int bt_si_prepare_f32(const float* F, const float* U, float* r0, float* uterm,
+                      float* s, int ny, int nx, const PhysParams* P,
+                      cudaStream_t stream) {
+  dim3 block(bt::kK1BlockX, bt::kK1BlockY);
+  dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  bt::si_prepare_kernel<<<grid, block, 0, stream>>>(F, U, r0, uterm, s, ny, nx, *P);
   return int(cudaGetLastError());
 }
 

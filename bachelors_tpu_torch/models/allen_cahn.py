@@ -19,7 +19,8 @@ The optional "corrector guess" variant divides the phase update by
 equation (`simulation.cu:224-227`).
 
 This is the plain version that every kernel of the port is held against
-(``ops/cuda_rhs.py``), and the path the CPU runs.
+(``ops/cuda_rhs.py``), and the path the CPU runs.  ``semi_implicit_prepare``
+builds the semi-implicit solver's phase system from the same terms.
 """
 from __future__ import annotations
 
@@ -128,3 +129,62 @@ def rhs_padded(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams, fu=0.0):
 
     dt_U = lap_U + p.L * dt_F + fu
     return dt_F, dt_U
+
+
+def semi_implicit_prepare(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams):
+    """The semi-implicit phase system in DELTA form: residual r0 and
+    anisotropy map s, from BC-padded fields (`simulation.cu:798-871`).
+
+    Line for line ``bachelors_tpu/models/allen_cahn.semi_implicit_prepare``.
+    Instead of the reference's right-hand side b_F it returns the
+    warm-start residual r0_F = b_F - A_F @ Phi, computed analytically, so CG
+    solves A_F e = r0_F from a zero guess and every iterate lives at the
+    O(dt) delta scale (which keeps the float32 recursive residual
+    meaningful down to the reference's 5e-9 tolerance).  With
+    A_F = I - dt*s*lap (``ops.stencil.anisotropy_matvec``):
+
+      corrector-guess variant (`simulation.cu:806-833`):
+        corr  = 1 + k2*dt*L
+        r0_F  = dt/corr * (k1*lap(Phi) + k0 - k2*(T - Tm + dt*lap(T)))
+        s     = gamma/corr * k1
+      plain variant (`simulation.cu:838-869`):
+        r0_F  = dt * (k1*lap(Phi) + k0 - k2*(T - Tm))
+        s     = gamma * k1
+    """
+    dx, dy = p.dx, p.dy
+    inv_2dx, inv_2dy = 1.0 / (2 * dx), 1.0 / (2 * dy)
+    inv_dx2, inv_dy2 = 1.0 / (dx * dx), 1.0 / (dy * dy)
+    k0_factor = p.a / (p.xi * p.xi * p.alpha)
+    k2_factor = p.b * p.beta / p.alpha
+    k1_factor = 1.0 / p.alpha
+
+    C_F = Fp[1:-1, 1:-1]
+    E_F = Fp[1:-1, 2:]
+    W_F = Fp[1:-1, :-2]
+    N_F = Fp[2:, 1:-1]
+    S_F = Fp[:-2, 1:-1]
+    C_U = Up[1:-1, 1:-1]
+
+    gx = (E_F - W_F) * inv_2dx
+    gy = (N_F - S_F) * inv_2dy
+    g_theta, grad_norm = _anisotropy(gx, gy, p)
+
+    lap_F = (W_F - 2 * C_F + E_F) * inv_dx2 + (S_F - 2 * C_F + N_F) * inv_dy2
+
+    k0 = g_theta * f0(C_F) * k0_factor
+    k2 = grad_norm * k2_factor
+    k1 = g_theta * k1_factor
+
+    if p.do_corrector_guess:
+        E_U = Up[1:-1, 2:]
+        W_U = Up[1:-1, :-2]
+        N_U = Up[2:, 1:-1]
+        S_U = Up[:-2, 1:-1]
+        lap_U = (W_U - 2 * C_U + E_U) * inv_dx2 + (S_U - 2 * C_U + N_U) * inv_dy2
+        corr = 1 + k2 * p.dt * p.L
+        r0_F = p.dt / corr * (k1 * lap_F + k0 - k2 * (C_U - p.Tm + p.dt * lap_U))
+        s = p.gamma / corr * k1
+    else:
+        r0_F = p.dt * (k1 * lap_F + k0 - k2 * (C_U - p.Tm))
+        s = p.gamma * k1
+    return r0_F, s

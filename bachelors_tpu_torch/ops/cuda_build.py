@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` under ``bachelors_tpu_torch/csrc/`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ONE shared library with a plain C interface,
-loaded with ``ctypes``.  The build happens at first use, never at import,
+for Hopper (``sm_90a``), one ``nvcc`` per source and all started together,
+then linked into ONE shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use, never at import,
 and lands in ``bachelors_tpu_torch/_build/<hash>/``, keyed by a hash of the
 sources, the headers and the flags, so a changed source rebuilds and an
 unchanged one loads in milliseconds.  No PyTorch headers are compiled: the
@@ -24,8 +25,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libbt_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Optional[ctypes.CDLL] = None
 
@@ -62,14 +63,27 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    nvcc = find_nvcc()
+    tag = os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmds.append([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)])
+    log = []
+    for batch in (cmds[:-1], cmds[-1:]):  # the sources together, then the link
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in batch]
+        outs = [proc.communicate()[0] for proc in procs]
+        log += [" ".join(cmd) + "\n" + out for cmd, out in zip(batch, outs)]
+        (out_dir / "build.log").write_text("\n".join(log))
+        for cmd, proc, out in zip(batch, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    for obj in objs:
+        obj.unlink()
     return lib
 
 

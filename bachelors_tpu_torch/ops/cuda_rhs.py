@@ -1,7 +1,7 @@
 """The RHS kernels and their plain torch versions.
 
-The port's counterpart of ``bachelors_tpu/ops/pallas_rhs.py``.  Two kernels,
-hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
+The port's counterpart of ``bachelors_tpu/ops/pallas_rhs.py``.  Three
+kernels, hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
 ``ops/cuda_build.py``):
 
   * K1 ``blend_rhs``: the single-stage fused RHS, replacing
@@ -15,9 +15,14 @@ hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     live in shared memory on a tile with a 5-cell apron, so none reaches
     device memory.  It measured 18x its byte floor at 2048^2 on an H100
     (``csrc/rhs.cu``): arithmetic, not bytes, bounds this first version.
+  * K7 ``si_prepare``: the semi-implicit prepare, replacing
+    ``pallas_rhs._make_kernel`` in mode "si_prepare" (``si_prepare_pallas``
+    :612).  One pass over (F, U) writes r0_F, dt*lap(U) and, when
+    ``si_s_varies``, the anisotropy map s.
 
 Beside each is its plain torch version (``blend_rhs_plain``,
-``rkm_attempt_plain``): the staged ``pad2`` + ``rhs_padded`` composition.
+``rkm_attempt_plain``, ``si_prepare_plain``): the staged ``pad2`` +
+``rhs_padded`` (or ``semi_implicit_prepare``) composition.
 The CPU path runs it, the tests hold it to the JAX package, and
 ``chip_smoke.py`` holds each kernel to it on the card.
 
@@ -36,14 +41,15 @@ import torch
 
 from ..core.boundary import pad2
 from ..core.params import BoundaryType, SimParams
-from ..models.allen_cahn import blend, rhs_padded
+from ..models.allen_cahn import blend, rhs_padded, semi_implicit_prepare
 from .reductions import Lmax_norm
+from .stencil import lap_from_padded
 from . import cuda_build
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"blend_rhs": 0, "rkm_attempt": 0}
+LAUNCHES = {"blend_rhs": 0, "rkm_attempt": 0, "si_prepare": 0}
 
 
 def reset_launch_counts() -> None:
@@ -123,13 +129,32 @@ def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
     return nF, nU, emax
 
 
+def si_s_varies(p: SimParams) -> bool:
+    """Whether the semi-implicit anisotropy map s varies per cell
+    (``bachelors_tpu/ops/pallas_rhs.si_s_varies``).  When it does not (S ==
+    0, no corrector guess), s == gamma/alpha everywhere: the prepare emits
+    no map and the CG matvec folds the constant into its coefficients."""
+    return p.S != 0.0 or p.do_corrector_guess
+
+
+def si_prepare_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams):
+    """(r0_F, uterm[, s]) of the delta-form semi-implicit step: pad,
+    ``semi_implicit_prepare``, then uterm = dt*lap(U)
+    (``bachelors_tpu/solvers/semi_implicit.py:144-149``).  s is returned
+    only when ``si_s_varies(p)``."""
+    Up = pad2(U, p.T_boundary)
+    r0_F, s_map = semi_implicit_prepare(pad2(F, p.Phi_boundary), Up, p)
+    uterm = p.dt * lap_from_padded(Up, p)
+    return (r0_F, uterm, s_map) if si_s_varies(p) else (r0_F, uterm)
+
+
 # ------------------------------------------------------------ kernels
 
 _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
             BoundaryType.DIRICHLET: 2}
 _FLOAT_FIELDS = ("inv_2dx", "inv_2dy", "inv_dx2", "inv_dy2", "k0_factor",
                  "k1_factor", "k2_factor", "dt", "dt_L", "L", "Tm", "S", "m0",
-                 "theta0")
+                 "theta0", "gamma")
 
 
 class _Phys(ctypes.Structure):
@@ -151,7 +176,7 @@ def _phys(p: SimParams) -> _Phys:
         k0_factor=p.a / (p.xi * p.xi * p.alpha),
         k1_factor=1.0 / p.alpha, k2_factor=p.b * p.beta / p.alpha,
         dt=p.dt, dt_L=p.dt * p.L, L=p.L, Tm=p.Tm,
-        S=p.S, m0=p.m0, theta0=p.theta0,
+        S=p.S, m0=p.m0, theta0=p.theta0, gamma=p.gamma,
         f_bc=_BC_CODE[p.Phi_boundary], u_bc=_BC_CODE[p.T_boundary],
         corrector_guess=int(p.do_corrector_guess))
 
@@ -176,6 +201,8 @@ def _lib() -> ctypes.CDLL:
         lib.bt_rkm_attempt_f32.argtypes = ([_PTR] * 6 + [_INT, _INT]
                                            + [_F32] * 3 + [phys, _PTR])
         lib.bt_rkm_attempt_f32.restype = _INT
+        lib.bt_si_prepare_f32.argtypes = [_PTR] * 5 + [_INT, _INT, phys, _PTR]
+        lib.bt_si_prepare_f32.restype = _INT
         _LIB = lib
     return _LIB
 
@@ -271,3 +298,20 @@ def rkm_attempt(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
     _raise_on(rc, "rkm_attempt")
     LAUNCHES["rkm_attempt"] += 1
     return out_F, out_U, emax
+
+
+def si_prepare(F: torch.Tensor, U: torch.Tensor, p: SimParams):
+    """K7: the semi-implicit prepare in one pass.  Same contract as
+    ``si_prepare_plain``: (r0_F, uterm[, s])."""
+    if not _on_cuda(F, "si_prepare"):
+        return si_prepare_plain(F, U, p)
+    _check_fields(p, F, U)
+    outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
+    with torch.cuda.device(F.device):
+        rc = _lib().bt_si_prepare_f32(
+            F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if len(outs) == 3 else None, p.ny, p.nx,
+            ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "si_prepare")
+    LAUNCHES["si_prepare"] += 1
+    return tuple(outs)

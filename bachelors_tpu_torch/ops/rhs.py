@@ -1,7 +1,8 @@
 """RHS evaluation chokepoint: blend -> pad -> stencil, and backend choice.
 
 The port's ``bachelors_tpu/ops/rhs.py``.  Every explicit stage funnels
-through ``eval_rhs``; ``resolve_backend`` decides between:
+through ``eval_rhs`` (or ``euler_eval``, its fused Euler write);
+``resolve_backend`` decides between:
 
   * "kernel": the hand-written CUDA kernels (``ops/cuda_rhs.py``);
   * "torch":  the plain torch version (``models/allen_cahn.rhs_padded`` on a
@@ -56,3 +57,19 @@ def eval_rhs(
     if resolve_backend(p, states[0][0].device) == "kernel":
         return cuda_rhs.blend_rhs(states, weights, p, fu, d_eff)
     return cuda_rhs.blend_rhs_plain(states, weights, p, fu, d_eff)
+
+
+def euler_eval(
+    states: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    weights: Sequence,
+    p: SimParams,
+    fu=0.0,
+    dirichlet_value=0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused Euler write ``x + dt * f(x)`` (the IS_EULER=true kernel mode,
+    `simulation.cu:231-240`): K1 in euler mode on the kernel backend.
+    ``dirichlet_value`` pads the blend as it is given, as the JAX package's
+    ``euler_eval`` does."""
+    if resolve_backend(p, states[0][0].device) == "kernel":
+        return cuda_rhs.blend_rhs(states, weights, p, fu, dirichlet_value, is_euler=True)
+    return cuda_rhs.blend_rhs_plain(states, weights, p, fu, dirichlet_value, is_euler=True)

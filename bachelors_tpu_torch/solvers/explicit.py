@@ -1,13 +1,20 @@
-"""Adaptive Runge-Kutta-Merson (RKM) step.
+"""Explicit integrators: forward Euler and adaptive Runge-Kutta-Merson.
 
-The port of ``bachelors_tpu/solvers/explicit.py:rkm_adaptive_step``
-(:316-521), single-device branches only: the whole-attempt kernel
-(``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path.  The retry
-loop runs on the host and reads the two error maxima once per attempt, as
-the reference does (`simulation.cu:427-435`); the JAX package runs the same
-loop as a device ``while_loop``.
+The port of ``bachelors_tpu/solvers/explicit.py``, single-device branches
+only:
 
-Euler and RK4 (ROADMAP slice 2, items 8-9) are not ported yet.
+  * ``euler_step_based`` (:22-73): one K1 launch in euler mode, or in rhs
+    mode for the corrector's re-steps from a frozen temperature base.  The
+    JAX package's fused multi-step Euler (``make_euler_pair_stepper``, K6)
+    is not ported yet (ROADMAP slice 3): runs without stats take single
+    steps, which compute the same numbers.
+  * ``rkm_adaptive_step`` (:316-521): the whole-attempt kernel
+    (``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path.  The retry
+    loop runs on the host and reads the two error maxima once per attempt,
+    as the reference does (`simulation.cu:427-435`); the JAX package runs
+    the same loop as a device ``while_loop``.
+
+RK4 (ROADMAP slice 3) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +24,18 @@ import torch
 from ..core.params import SimParams
 from ..core.state import numpy_dtype
 from ..ops import cuda_rhs
-from ..ops.rhs import resolve_backend
+from ..ops.rhs import euler_eval, eval_rhs, resolve_backend
+
+
+def euler_step_based(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
+                     p: SimParams, fu=0.0, same_base: bool = True):
+    """Forward-Euler step (`simulation.cu:283-311`).  With ``same_base``
+    false (the corrector's re-steps) the RHS is evaluated at (F, U) but the
+    temperature integrates from ``U_base``."""
+    if same_base:
+        return euler_eval([(F, U)], [1.0], p, fu)
+    dF, dU = eval_rhs([(F, U)], [1.0], p, fu)
+    return F + p.dt * dF, U_base + p.dt * dU
 
 
 def rkm_adaptive_step(F: torch.Tensor, U: torch.Tensor, tau0, p: SimParams,

@@ -8,15 +8,18 @@ suite's conftest (which configures JAX):
 
 Inputs are standard-normal float32 fields from a seeded numpy generator;
 tolerances are those of tests/test_pallas.py for an f32 kernel against its
-reference (``torch_parity.assert_match``), and rtol 2e-4 on the Merson error
-maxima.
+reference (``torch_parity.assert_match``), rtol 2e-4 on the Merson error
+maxima, and rtol 1e-5 on the CG kernels' dot products, which the kernel
+and torch.sum add in different orders.
 """
 import numpy as np
 import pytest
 import torch
 
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams
-from bachelors_tpu_torch.ops import cuda_rhs
+from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs
+from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix, cross_matvec
+from bachelors_tpu_torch.solvers import cg
 from torch_parity import assert_match, cuda_device, random_fields  # noqa: F401
 
 BCS = ["periodic", "neumann", "dirichlet"]
@@ -96,3 +99,82 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
     F32 = torch.zeros(8, 16, device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         cuda_rhs.rkm_attempt(F32, F32, np.float32(TAU), p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guess", [False, True])
+@pytest.mark.parametrize("f_bc,u_bc", BC_PAIRS)
+def test_si_prepare_kernel_matches_plain(f_bc, u_bc, guess, gen, cuda_device):  # noqa: F811
+    for (ny, nx), S, m0 in CASES:
+        p = _params(ny, nx, f_bc, u_bc, S, m0).replace(do_corrector_guess=guess, gamma=0.9)
+        (F, U), = _on(random_fields(gen, ny, nx, "float32"), cuda_device)
+        before = cuda_rhs.LAUNCHES["si_prepare"]
+        got = cuda_rhs.si_prepare(F, U, p)
+        assert cuda_rhs.LAUNCHES["si_prepare"] == before + 1
+        want = cuda_rhs.si_prepare_plain(F, U, p)
+        assert len(got) == len(want) == (3 if S != 0.0 or guess else 2)
+        for g, w in zip(got, want):
+            assert_match(g, w)
+
+
+def _operators(bc, dt_dx2=0.08):
+    bc = BoundaryType(bc)
+    return (CrossMatrix(C=1 + 4 * dt_dx2, X=-dt_dx2, Y=-dt_dx2, boundary=bc),
+            AnisotropyMatrix(Cm1=4 * dt_dx2, X=-dt_dx2, Y=-dt_dx2, boundary=bc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", BCS)
+def test_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
+    A_U, A_F = _operators(bc)
+    for ny, nx in ((512, 512), (33, 129), (1, 7)):
+        v, x, r, Ap = (torch.from_numpy(gen.normal(size=(ny, nx)).astype(np.float32))
+                       .to(cuda_device) for _ in range(4))
+        s = torch.from_numpy((0.33 + 0.08 * gen.uniform(-1, 1, size=(ny, nx)))
+                             .astype(np.float32)).to(cuda_device)
+        for got, want in ((cuda_cg.cross_matvec_pAp(A_U, v, out=torch.empty_like(v)),
+                           cuda_cg.cross_matvec_pAp_plain(A_U, v)),
+                          (cuda_cg.aniso_matvec_pAp(A_F, s, v),
+                           cuda_cg.aniso_matvec_pAp_plain(A_F, s, v))):
+            assert_match(got[0], want[0])
+            np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=1e-5)
+        alpha = torch.tensor(0.37, device=cuda_device)
+        got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, alpha)
+        want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
+        assert_match(got[0], want[0])
+        assert_match(got[1], want[1])
+        np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=1e-5)
+        a, b = torch.tensor(1.0, device=cuda_device), torch.tensor(-0.61, device=cuda_device)
+        p_k, p_p = v.clone(), v.clone()
+        assert cuda_cg.axpby_inplace(a, b, r, p_k) is p_k
+        assert_match(p_k, cuda_cg.axpby_inplace_plain(a, b, r, p_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", BCS)
+def test_cg_solve_through_kernels_matches_plain(bc, gen, cuda_device):  # noqa: F811
+    """The kernel loop against the plain loop on the card: the dot
+    products add in other orders, so the iteration counts may differ by
+    one near the stop test; the solutions agree to the tolerance."""
+    A_U, _ = _operators(bc)
+    b = torch.from_numpy(gen.normal(size=(512, 512)).astype(np.float32)).to(cuda_device)
+    kw = dict(tolerance=1e-5, max_iters=100, epsilon=1e-12)
+    cuda_cg.reset_launch_counts()
+    xk, rk = cg.cg_solve(lambda v: cross_matvec(A_U, v), b, **kw,
+                         matvec_pAp=lambda v, out=None: cuda_cg.cross_matvec_pAp(A_U, v, out=out))
+    assert cuda_cg.LAUNCHES["cross_matvec_pAp"] == cuda_cg.LAUNCHES["update_xr_rr"] > 2
+    xp, rp = cg.cg_solve(lambda v: cross_matvec(A_U, v), b, **kw)
+    assert rk.converged and rp.converged and abs(rk.iters - rp.iters) <= 1
+    assert_match(xk, xp)
+
+
+@pytest.mark.cuda
+def test_cg_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
+    A_U, _ = _operators("neumann")
+    v = torch.zeros(8, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="alias"):
+        cuda_cg.cross_matvec_pAp(A_U, v, out=v.view(64).view(8, 8))
+    with pytest.raises(TypeError, match="scalars"):
+        cuda_cg.axpby_inplace(1.0, torch.tensor(0.5, device=cuda_device), v, v.clone())
+    with pytest.raises(NotImplementedError, match="float64"):
+        cuda_cg.cross_matvec_pAp(A_U, v.double())

@@ -208,8 +208,8 @@ def test_resume_continues_the_run(tmp_path):
     ("[tpu]\nensemble", "4", "ensembles"),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),
-    ("[simulation]\nsolver", "explicit", "Euler"),
-    ("[simulation]\nsolver", "semi-implicit", "semi-implicit"),
+    ("[simulation]\nsolver", "explicit-rk4", "RK4"),
+    ("[simulation]\nsolver", "exact", "exact"),
     ("[initial]\nnoise_T", "0.1", "noise"),
     ("[tpu]\ndtype", "bfloat16", "bfloat16"),
 ])
