@@ -7,20 +7,22 @@ first use).  Module names follow the JAX package's so each counterpart is
 easy to find.  This package never imports jax.
 
 Ported so far, on one device with stats and snapshots: adaptive
-Runge-Kutta-Merson, forward Euler and the semi-implicit CG solver, with
-the corrector loop (see ROADMAP.md for the rest).
+Runge-Kutta-Merson, fixed-step RK4, forward Euler (with the multi-step pass
+for runs without stats), the semi-implicit CG solver with the corrector
+loop, and the exact solver (see ROADMAP.md for the rest).  Entry points
+that make tensors run on the card unless given ``device="cpu"``.
 """
 from .core.params import (BoundaryType, SimParams, SolverType,
                           rewire_params_for_exact)
 from .core.state import SimState, StepStats, make_state
 from .models.initial import InitialConditions, make_initial_fields
 from .solvers.base import make_stepper
-from .solvers.run import advance_collect, advance_until
+from .solvers.run import advance_collect, advance_n, advance_until
 
 __version__ = "0.1.0"
 __all__ = [
     "BoundaryType", "SimParams", "SolverType", "rewire_params_for_exact",
     "SimState", "StepStats", "make_state",
     "InitialConditions", "make_initial_fields",
-    "make_stepper", "advance_collect", "advance_until",
+    "make_stepper", "advance_collect", "advance_n", "advance_until",
 ]

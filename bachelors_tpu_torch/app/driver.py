@@ -10,7 +10,11 @@ triggers (``every`` cadence + ``times`` uniform over the stop time) and a
 The hot loop is a host loop of one step at a time, collecting stats every
 step; each adaptive step already reads its error estimate on the host, and
 each CG iteration its stop test, so there is nothing to gain from the JAX
-package's device-side runners and their dispatch-size probes.
+package's device-side runners and their dispatch-size probes.  A fixed-dt
+run that collects no stats counts its steps on the host instead, as the
+JAX driver does (`bachelors_tpu/app/driver.py:437-463`), and advances with
+``advance_n``: forward Euler then takes ``EULER_BLOCK_STEPS`` steps per
+kernel launch (``make_euler_pair_stepper``).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.params import SolverType
 from ..core.state import SimState, make_state, numpy_dtype
 from ..io.config import SimConfig, load_config
@@ -29,7 +34,8 @@ from ..io.snapshot import load_bin_maps, make_save_folder, save_bin_maps
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..solvers.base import make_stepper
-from ..solvers.run import END_TOLERANCE
+from ..solvers.explicit import make_euler_pair_stepper
+from ..solvers.run import END_TOLERANCE, advance_n
 from ..solvers.semi_implicit import cg_branch
 from ..utils.logging import SYSTEM, get_logger
 
@@ -48,16 +54,6 @@ class RunResult:
     @property
     def avg_step_ms(self) -> float:
         return self.runtime / max(self.iters, 1) * 1000
-
-
-def resolve_device(device) -> torch.device:
-    """The run's device; a CUDA device that is not there is an error, never
-    a silent switch to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch sees no CUDA "
-                           "device; pass --device cpu to run on the CPU")
-    return dev
 
 
 def check_supported(cfg: SimConfig) -> None:
@@ -188,24 +184,36 @@ def run_simulation(cfg: SimConfig, device="cuda",
             "small step sizes (the reference runs float64); consider "
             "[tpu] dtype = float64 or a tolerance >= 1e-6 for f32 runs")
 
+    # fixed dt and no stats sink: the step count of each event comes from
+    # iter*dt on the host, exact to f64 rounding (`bachelors_tpu/app/
+    # driver.py:408-411,441-444`)
+    fast = acc is None and p.solver != SolverType.EXPLICIT_RK4_ADAPTIVE
+    pair = make_euler_pair_stepper(p) if fast else None
+
     stop = cfg.stop_time
     last_stats_save = 0.0
     attempts = 0
     t_start = time.perf_counter()
     last_notif = t_start
     for target in snapshot_events(stop, cfg.snapshot_times, cfg.snapshot_every):
-        while target - state.t >= END_TOLERANCE:
-            state, stats = stepper(state)
-            attempts += stats.attempts
-            # the JAX driver gates stats rows on the float32 post-step time
-            t_post = float(np.float32(state.t))
-            if acc is not None and t_post >= last_stats_save + cfg.collect_stats_every:
-                acc.collect(stats)
-                last_stats_save = t_post
-            now = time.perf_counter()
-            if now - last_notif > 1:
-                last_notif = now
-                log.info(f"... completed {min(state.t / stop, 1.0) * 100:.2f}%")
+        t_now = state.iter * p.dt
+        if fast and target - t_now >= p.dt * 1e-9:
+            n = max(int(np.ceil((target - t_now) / p.dt - 1e-9)), 1)
+            state = advance_n(stepper, state, n, pair)
+            attempts += n
+        elif not fast:
+            while target - state.t >= END_TOLERANCE:
+                state, stats = stepper(state)
+                attempts += stats.attempts
+                # the JAX driver gates stats rows on the float32 post-step time
+                t_post = float(np.float32(state.t))
+                if acc is not None and t_post >= last_stats_save + cfg.collect_stats_every:
+                    acc.collect(stats)
+                    last_stats_save = t_post
+                now = time.perf_counter()
+                if now - last_notif > 1:
+                    last_notif = now
+                    log.info(f"... completed {min(state.t / stop, 1.0) * 100:.2f}%")
         snapshots += 1
         if make_folder:
             log.info(f"saving snapshot {snapshots}")

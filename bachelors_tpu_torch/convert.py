@@ -12,6 +12,7 @@ from typing import Any, Mapping
 
 import numpy as np
 
+from .core.device import DEFAULT_DEVICE
 from .core.params import BoundaryType, SimParams, SolverType
 from .core.state import SimState, make_state
 
@@ -36,9 +37,10 @@ def params_from_jax_fields(d: Mapping[str, Any]) -> SimParams:
 
 
 def state_from_numpy(F: np.ndarray, U: np.ndarray, t: float, iter: int,
-                     tau: float, device="cpu") -> SimState:
-    """A state on ``device`` with the fields' own dtype (float32 or float64);
-    ``tau`` becomes a numpy scalar of that dtype."""
+                     tau: float, device=DEFAULT_DEVICE) -> SimState:
+    """A state on ``device`` (the card unless the caller asks for the CPU)
+    with the fields' own dtype (float32 or float64); ``tau`` becomes a numpy
+    scalar of that dtype."""
     F = np.asarray(F)
     dtype = F.dtype.name
     if dtype not in ("float32", "float64"):

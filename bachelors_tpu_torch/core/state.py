@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE, resolve_device
 from .params import SimParams
 
 _TORCH_DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -59,8 +60,11 @@ class SimState:
 
 
 def make_state(F, U, p: SimParams, t: float = 0.0, it: int = 0,
-               device="cpu") -> SimState:
+               device=DEFAULT_DEVICE) -> SimState:
+    """A state with the fields on ``device`` (the card unless the caller
+    asks for the CPU; see ``core/device.py``)."""
     dtype = torch_dtype(p)
+    device = resolve_device(device)
     return SimState(
         F=torch.as_tensor(F, dtype=dtype, device=device).contiguous(),
         U=torch.as_tensor(U, dtype=dtype, device=device).contiguous(),

@@ -14,6 +14,14 @@
 //     0.082 ms against a 0.050 ms byte floor (168 MB at 3.35 TB/s) on an
 //     H100 80GB HBM3 at 700 W.
 //
+// K4  bt_rk4_final_f32: replaces `_make_kernel` in mode "rk4_combine"
+//     (:433-440, entry `rk4_final_stage_pallas` :1359): k4 = f(x + dt k3)
+//     and x + dt/6 (k1 + 2 k2 + 2 k3 + k4) in one pass; k4 is never stored.
+//     Bound by bytes: it reads 8 fields and writes 2 (40 B per cell).
+//     Design: K1's, one thread per cell; the blend [x, k3] is formed in
+//     registers at the cell and its four neighbours (`blend_rhs_at`, shared
+//     with K1) and the combination is done in the same thread.
+//
 // K2  bt_rkm_attempt_f32: replaces `_make_fullstep_kernel` (:941) with
 //     scheme "rkm" (entry `rkm_attempt_pallas` :1163): one whole Merson
 //     attempt -- stages k1..k5, the update x + tau/6 (k1 + 4 k4 + k5), and
@@ -23,14 +31,32 @@
 //     (H100 80GB HBM3, 700 W), so this first version is bound by what it
 //     computes, not by bytes: atan2f + cosf + ~60 flops per cell in each of
 //     5 stages, on 1.42x the owned cells because of the shrinking apron,
-//     all through shared memory.  Design: one block per 32x16 output tile.  The
-//     tile plus a 5-cell apron on all four sides is loaded once into shared
-//     memory; stage s is evaluated on the tile grown by 5 - s cells, so k1
-//     is valid to depth 4, ..., k5 on the tile itself, and no stage value
-//     ever leaves the SM.  Shared memory holds x, k1, k2 (reused for k3), k4
-//     and the current blend for both fields: 10 arrays of 42x26 floats,
-//     43.7 KB.  Per-block error maxima go to a partials buffer, reduced by a
-//     second one-block kernel; both keep NaN.
+//     all through shared memory.  Design: the apron tile below with A = 5;
+//     shared memory holds x, k1, k2 (reused for k3), k4 and the current
+//     blend for both fields: 10 arrays of 42x26 floats, 43.7 KB.  Per-block
+//     error maxima go to a partials buffer, reduced by a second one-block
+//     kernel; both keep NaN.
+//
+// K3  bt_rk4_full_f32: replaces `_make_fullstep_kernel` (:941) with scheme
+//     "rk4" (entry `rk4_full_pallas` :1156): one whole RK4 step,
+//     x + dt/6 (k1 + 2 k2 + 2 k3 + k4).  It reads 2 fields and writes 2 (the
+//     staged route moves 4, 6, 6 and 10 fields for its four launches).
+//     Design: K2's tile with A = 4 and the RK4 tableau; shared memory holds
+//     x, k1, k2, k3 and the blend for both fields, 10 arrays of 40x24
+//     floats, 38.4 KB.  Like K2 it is likely bound by what it computes:
+//     4 stages of atan2f + cosf + ~50 flops per cell on 1.31x the owned
+//     cells.
+//
+// K6  bt_euler_steps_f32: replaces `_make_euler2_kernel` (:797, entry
+//     `euler2_pallas` :1272): T forward-Euler steps per pass over device
+//     memory, a template parameter (2 <= T <= 7, as the JAX kernel allows),
+//     built for T = 4, the path's depth.  It reads 2 fields and writes 2 for
+//     T steps, 16 B per cell.  Design: the apron tile below with A = T;
+//     step s is evaluated on the tile grown by T - 1 - s cells into the
+//     other of two buffers (4 arrays of (32 + 2T)x(16 + 2T) floats, 15.4 KB
+//     at T = 4), so no intermediate step leaves the SM.  The JAX kernel
+//     resets each field's ghost rows to its own boundary image before every
+//     step; here the boundary rule below applies at every step instead.
 //
 // K7  bt_si_prepare_f32: replaces `_make_kernel` in mode "si_prepare"
 //     (`_make_si_terms` :292, entry `si_prepare_pallas` :612): the
@@ -46,23 +72,24 @@
 //     fold, so the two round alike.  Ghosts take Dirichlet value 0, as the
 //     JAX package's prepare does.
 //
-// Boundary rule (K1, K2).  At every stage the *blend* x + sum w_i k_i
+// Boundary rule (K1-K4, K6).  At every stage the *blend* x + sum w_i k_i
 // is imaged at the domain edge, with Dirichlet value d * (1 + sum w_i)
-// (`pallas_rhs.py:1036-1052`, `bachelors_tpu/ops/rhs.py:15-22`).  The apron
-// is indexed by unwrapped global coordinates and loaded with wrapped
-// values.  A neighbour read that crosses a domain edge takes, for a
-// Neumann/Dirichlet field, the image of the cell's own blend value, and for
-// a periodic field the apron cell, whose stages were computed like an
-// interior cell's.  Stage values at apron cells outside the domain are
-// computed but read only by periodic fields, for which they are exactly the
-// wrapped cell's values -- so mixed Phi/T boundary types are exact too.
+// (`pallas_rhs.py:1036-1052`, `bachelors_tpu/ops/rhs.py:15-22`); K4 and
+// K6 take d as given, as their JAX kernels do.  The apron is indexed by
+// unwrapped global coordinates and loaded with wrapped values.  A neighbour
+// read that crosses a domain edge takes, for a Neumann/Dirichlet field, the
+// image of the cell's own blend value, and for a periodic field the apron
+// cell, whose stages were computed like an interior cell's.  Stage values at
+// apron cells outside the domain are computed but read only by periodic
+// fields, for which they are exactly the wrapped cell's values -- so mixed
+// Phi/T boundary types are exact too.
 #include <cuda_runtime.h>
 
 #include "physics.cuh"
 
 namespace bt {
 
-// ---------------------------------------------------------------- K1 ----
+// ------------------------------------------------------------- K1, K4 ----
 
 constexpr int kK1BlockX = 32;
 constexpr int kK1BlockY = 8;
@@ -82,6 +109,38 @@ __device__ __forceinline__ float blend_at(const float* const* A,
   return v;
 }
 
+// The blend sum_k w_k (F_k, U_k) at cell (i, j), as (Fc, Uc), and the RHS
+// there, as (dF, dU), with the boundary rule applied to the blend.
+template <int NS>
+__device__ __forceinline__ void blend_rhs_at(const BlendArgs& a, int i, int j,
+                                             int ny, int nx, float d, float fu,
+                                             const PhysParams& P, float& Fc,
+                                             float& Uc, float& dF, float& dU) {
+  bool cN = i + 1 == ny, cS = i == 0, cE = j + 1 == nx, cW = j == 0;
+  int row = i * nx;
+  int rowN = (cN ? 0 : i + 1) * nx, rowS = (cS ? ny - 1 : i - 1) * nx;
+  int jE = cE ? 0 : j + 1, jW = cW ? nx - 1 : j - 1;
+
+  const float fc = blend_at<NS>(a.F, a.w, row + j);
+  const float uc = blend_at<NS>(a.U, a.w, row + j);
+  // only touch a neighbour that the boundary rule actually reads
+  auto nbF = [&](bool cross, int idx) {
+    return (cross && P.f_bc != kPeriodic) ? neighbour(P.f_bc, true, 0.0f, fc, d)
+                                          : blend_at<NS>(a.F, a.w, idx);
+  };
+  auto nbU = [&](bool cross, int idx) {
+    return (cross && P.u_bc != kPeriodic) ? neighbour(P.u_bc, true, 0.0f, uc, d)
+                                          : blend_at<NS>(a.U, a.w, idx);
+  };
+  float FN = nbF(cN, rowN + j), FS = nbF(cS, rowS + j);
+  float FE = nbF(cE, row + jE), FW = nbF(cW, row + jW);
+  float UN = nbU(cN, rowN + j), US = nbU(cS, rowS + j);
+  float UE = nbU(cE, row + jE), UW = nbU(cW, row + jW);
+  physics(P, fc, FN, FS, FE, FW, uc, UN, US, UE, UW, fu, dF, dU);
+  Fc = fc;
+  Uc = uc;
+}
+
 template <int NS>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     blend_rhs_kernel(BlendArgs a, float* __restrict__ outF,
@@ -90,55 +149,52 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
-  bool cN = i + 1 == ny, cS = i == 0, cE = j + 1 == nx, cW = j == 0;
-  int row = i * nx;
-  int rowN = (cN ? 0 : i + 1) * nx, rowS = (cS ? ny - 1 : i - 1) * nx;
-  int jE = cE ? 0 : j + 1, jW = cW ? nx - 1 : j - 1;
-
-  float Fc = blend_at<NS>(a.F, a.w, row + j);
-  float Uc = blend_at<NS>(a.U, a.w, row + j);
-  // only touch a neighbour that the boundary rule actually reads
-  auto nbF = [&](bool cross, int idx) {
-    return (cross && P.f_bc != kPeriodic) ? neighbour(P.f_bc, true, 0.0f, Fc, d)
-                                          : blend_at<NS>(a.F, a.w, idx);
-  };
-  auto nbU = [&](bool cross, int idx) {
-    return (cross && P.u_bc != kPeriodic) ? neighbour(P.u_bc, true, 0.0f, Uc, d)
-                                          : blend_at<NS>(a.U, a.w, idx);
-  };
-  float FN = nbF(cN, rowN + j), FS = nbF(cS, rowS + j);
-  float FE = nbF(cE, row + jE), FW = nbF(cW, row + jW);
-  float UN = nbU(cN, rowN + j), US = nbU(cS, rowS + j);
-  float UE = nbU(cE, row + jE), UW = nbU(cW, row + jW);
-
-  float dF, dU;
-  physics(P, Fc, FN, FS, FE, FW, Uc, UN, US, UE, UW, fu, dF, dU);
+  float Fc, Uc, dF, dU;
+  blend_rhs_at<NS>(a, i, j, ny, nx, d, fu, P, Fc, Uc, dF, dU);
   if (is_euler) {
     dF = Fc + P.dt * dF;
     dU = Uc + P.dt * dU;
   }
-  outF[row + j] = dF;
-  outU[row + j] = dU;
+  outF[i * nx + j] = dF;
+  outU[i * nx + j] = dU;
 }
 
-// ---------------------------------------------------------------- K2 ----
+// K4: a = {x, k3} with weights {1, dt}; the combination in the JAX
+// kernel's order, x + c6 (((k1 + 2 k2) + 2 k3) + k4)
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    rk4_final_kernel(BlendArgs a, const float* __restrict__ k1F,
+                     const float* __restrict__ k1U, const float* __restrict__ k2F,
+                     const float* __restrict__ k2U, float* __restrict__ outF,
+                     float* __restrict__ outU, int ny, int nx, float c6, float d,
+                     float fu, PhysParams P) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  float Fc, Uc, k4F, k4U;
+  blend_rhs_at<2>(a, i, j, ny, nx, d, fu, P, Fc, Uc, k4F, k4U);
+  const int c = i * nx + j;
+  outF[c] = a.F[0][c] + c6 * (k1F[c] + 2.0f * k2F[c] + 2.0f * a.F[1][c] + k4F);
+  outU[c] = a.U[0][c] + c6 * (k1U[c] + 2.0f * k2U[c] + 2.0f * a.U[1][c] + k4U);
+}
 
-constexpr int kTX = 32;   // tile width (x, contiguous)
-constexpr int kTY = 16;   // tile height (y)
-constexpr int kApron = 5; // Merson reads 5 stages deep
-constexpr int kRW = kTX + 2 * kApron;
-constexpr int kRH = kTY + 2 * kApron;
-constexpr int kRN = kRW * kRH;
-constexpr int kK2Threads = 256;
+// -------------------------------------------------- apron tiles: K2, K3, K6 ----
+//
+// One block per 32x16 output tile.  The tile plus an apron of A cells on all
+// four sides -- the depth of the stage chain -- is loaded once into shared
+// memory; stage s is evaluated on the tile grown by the depth that the later
+// stages still read, so no stage value leaves the SM.
+
+constexpr int kTX = 32;  // tile width (x, contiguous)
+constexpr int kTY = 16;  // tile height (y)
+constexpr int kTileThreads = 256;
 constexpr int kReduceThreads = 256;
 
-struct TileSmem {
-  float xF[kRN], xU[kRN];    // the attempt's start state
-  float k1F[kRN], k1U[kRN];
-  float kaF[kRN], kaU[kRN];  // k2, then k3
-  float k4F[kRN], k4U[kRN];
-  float bF[kRN], bU[kRN];    // the current stage's blend
-  float redF[kK2Threads], redU[kK2Threads];
+// The shared-memory region of a tile with an A-cell apron.
+template <int A>
+struct Region {
+  static constexpr int W = kTX + 2 * A;
+  static constexpr int H = kTY + 2 * A;
+  static constexpr int N = W * H;
 };
 
 // Where a tile's cells sit: region cell (ry, rx) is unwrapped global cell
@@ -147,104 +203,163 @@ struct Tile {
   int gy0, gx0, ny, nx;
 };
 
-// k = f(b) on the tile grown by `depth` cells, b valid one cell deeper.
+template <int A>
+__device__ __forceinline__ Tile block_tile(int ny, int nx) {
+  return Tile{int(blockIdx.y) * kTY - A, int(blockIdx.x) * kTX - A, ny, nx};
+}
+
+// (F, U) on the whole region, read at wrapped global coordinates.
+template <int A>
+__device__ __forceinline__ void load_region(const Tile& T, const float* __restrict__ F,
+                                            const float* __restrict__ U,
+                                            float* sF, float* sU) {
+  for (int t = threadIdx.x; t < Region<A>::N; t += kTileThreads) {
+    int g = wrap(T.gy0 + t / Region<A>::W, T.ny) * T.nx +
+            wrap(T.gx0 + t % Region<A>::W, T.nx);
+    sF[t] = F[g];
+    sU[t] = U[g];
+  }
+}
+
+// The RHS of the state (bF, bU) at region cell (ry, rx), with the boundary
+// rule at Dirichlet value dv.
+template <int A>
+__device__ __forceinline__ void rhs_at(const Tile& T, const PhysParams& P,
+                                       const float* bF, const float* bU, int ry,
+                                       int rx, float dv, float fu, float& dF,
+                                       float& dU) {
+  constexpr int W = Region<A>::W;
+  int gy = T.gy0 + ry, gx = T.gx0 + rx;
+  bool cN = wrap(gy + 1, T.ny) == 0, cS = wrap(gy, T.ny) == 0;
+  bool cE = wrap(gx + 1, T.nx) == 0, cW = wrap(gx, T.nx) == 0;
+  int c = ry * W + rx;
+  float Fc = bF[c], Uc = bU[c];
+  physics(P, Fc, neighbour(P.f_bc, cN, bF[c + W], Fc, dv),
+          neighbour(P.f_bc, cS, bF[c - W], Fc, dv),
+          neighbour(P.f_bc, cE, bF[c + 1], Fc, dv),
+          neighbour(P.f_bc, cW, bF[c - 1], Fc, dv), Uc,
+          neighbour(P.u_bc, cN, bU[c + W], Uc, dv),
+          neighbour(P.u_bc, cS, bU[c - W], Uc, dv),
+          neighbour(P.u_bc, cE, bU[c + 1], Uc, dv),
+          neighbour(P.u_bc, cW, bU[c - 1], Uc, dv), fu, dF, dU);
+}
+
+// k = f(b) -- with EULER, k = b + dt f(b) -- on the tile grown by `depth`
+// cells; b must be valid one cell deeper.
+template <int A, bool EULER = false>
 __device__ __forceinline__ void eval_stage(const Tile& T, const PhysParams& P,
                                            const float* bF, const float* bU,
                                            float* kF, float* kU, int depth,
                                            float dv, float fu) {
-  const int w = kTX + 2 * depth, h = kTY + 2 * depth, lo = kApron - depth;
-  for (int t = threadIdx.x; t < w * h; t += kK2Threads) {
+  const int w = kTX + 2 * depth, h = kTY + 2 * depth, lo = A - depth;
+  for (int t = threadIdx.x; t < w * h; t += kTileThreads) {
     int ry = lo + t / w, rx = lo + t % w;
-    int gy = T.gy0 + ry, gx = T.gx0 + rx;
-    bool cN = wrap(gy + 1, T.ny) == 0, cS = wrap(gy, T.ny) == 0;
-    bool cE = wrap(gx + 1, T.nx) == 0, cW = wrap(gx, T.nx) == 0;
-    int c = ry * kRW + rx;
-    float Fc = bF[c], Uc = bU[c];
+    int c = ry * Region<A>::W + rx;
     float dF, dU;
-    physics(P, Fc, neighbour(P.f_bc, cN, bF[c + kRW], Fc, dv),
-            neighbour(P.f_bc, cS, bF[c - kRW], Fc, dv),
-            neighbour(P.f_bc, cE, bF[c + 1], Fc, dv),
-            neighbour(P.f_bc, cW, bF[c - 1], Fc, dv), Uc,
-            neighbour(P.u_bc, cN, bU[c + kRW], Uc, dv),
-            neighbour(P.u_bc, cS, bU[c - kRW], Uc, dv),
-            neighbour(P.u_bc, cE, bU[c + 1], Uc, dv),
-            neighbour(P.u_bc, cW, bU[c - 1], Uc, dv), fu, dF, dU);
+    rhs_at<A>(T, P, bF, bU, ry, rx, dv, fu, dF, dU);
+    if (EULER) {
+      dF = bF[c] + P.dt * dF;
+      dU = bU[c] + P.dt * dU;
+    }
     kF[c] = dF;
     kU[c] = dU;
   }
 }
 
 // b = x + sum_i w_i k_i on the tile grown by `depth` cells, summed in order.
-template <int NK>
-__device__ __forceinline__ void eval_blend(TileSmem& s, const float* const* kF,
+template <int A, int NK>
+__device__ __forceinline__ void eval_blend(const float* xF, const float* xU,
+                                           const float* const* kF,
                                            const float* const* kU,
-                                           const float* w, int depth) {
-  const int wd = kTX + 2 * depth, h = kTY + 2 * depth, lo = kApron - depth;
-  for (int t = threadIdx.x; t < wd * h; t += kK2Threads) {
-    int c = (lo + t / wd) * kRW + lo + t % wd;
-    float vF = s.xF[c], vU = s.xU[c];
+                                           const float* w, float* bF, float* bU,
+                                           int depth) {
+  const int wd = kTX + 2 * depth, h = kTY + 2 * depth, lo = A - depth;
+  for (int t = threadIdx.x; t < wd * h; t += kTileThreads) {
+    int c = (lo + t / wd) * Region<A>::W + lo + t % wd;
+    float vF = xF[c], vU = xU[c];
 #pragma unroll
     for (int k = 0; k < NK; ++k) {
       vF = vF + kF[k][c] * w[k];
       vU = vU + kU[k][c] * w[k];
     }
-    s.bF[c] = vF;
-    s.bU[c] = vU;
+    bF[c] = vF;
+    bU[c] = vU;
   }
 }
 
-__global__ void __launch_bounds__(kK2Threads)
+// f(ry, rx, g) for every owned cell of the tile inside the domain; g is the
+// cell's index in the (ny, nx) field.
+template <int A, class Fn>
+__device__ __forceinline__ void for_owned(const Tile& T, Fn f) {
+  for (int t = threadIdx.x; t < kTX * kTY; t += kTileThreads) {
+    int ry = A + t / kTX, rx = A + t % kTX;
+    int gy = T.gy0 + ry, gx = T.gx0 + rx;
+    if (gy >= T.ny || gx >= T.nx) continue;  // ragged tile edge
+    f(ry, rx, gy * T.nx + gx);
+  }
+}
+
+// ---------------------------------------------------------------- K2 ----
+
+constexpr int kK2Apron = 5;  // Merson reads 5 stages deep
+constexpr int kK2N = Region<kK2Apron>::N;
+
+struct RkmSmem {
+  float xF[kK2N], xU[kK2N];    // the attempt's start state
+  float k1F[kK2N], k1U[kK2N];
+  float kaF[kK2N], kaU[kK2N];  // k2, then k3
+  float k4F[kK2N], k4U[kK2N];
+  float bF[kK2N], bU[kK2N];    // the current stage's blend
+  float redF[kTileThreads], redU[kTileThreads];
+};
+
+__global__ void __launch_bounds__(kTileThreads)
     rkm_attempt_kernel(const float* __restrict__ F, const float* __restrict__ U,
                        float* __restrict__ outF, float* __restrict__ outU,
                        float* __restrict__ partials, int ny, int nx, float tau,
                        float d, float fu, PhysParams P) {
-  __shared__ TileSmem s;
-  const Tile T{int(blockIdx.y) * kTY - kApron, int(blockIdx.x) * kTX - kApron,
-               ny, nx};
-
-  for (int t = threadIdx.x; t < kRN; t += kK2Threads) {
-    int g = wrap(T.gy0 + t / kRW, ny) * nx + wrap(T.gx0 + t % kRW, nx);
-    s.xF[t] = F[g];
-    s.xU[t] = U[g];
-  }
+  constexpr int A = kK2Apron;
+  __shared__ RkmSmem s;
+  const Tile T = block_tile<A>(ny, nx);
+  load_region<A>(T, F, U, s.xF, s.xU);
   __syncthreads();
 
   // Merson tableau (`simulation.cu:400-404`); weights in float, as the
   // staged path computes them from a float tau
-  eval_stage(T, P, s.xF, s.xU, s.k1F, s.k1U, 4, d, fu);
+  eval_stage<A>(T, P, s.xF, s.xU, s.k1F, s.k1U, 4, d, fu);
   __syncthreads();
   {
     const float* kF[1] = {s.k1F};
     const float* kU[1] = {s.k1U};
     const float w[1] = {tau / 3.0f};
-    eval_blend<1>(s, kF, kU, w, 4);
+    eval_blend<A, 1>(s.xF, s.xU, kF, kU, w, s.bF, s.bU, 4);
     __syncthreads();
-    eval_stage(T, P, s.bF, s.bU, s.kaF, s.kaU, 3, d * (1.0f + w[0]), fu);
+    eval_stage<A>(T, P, s.bF, s.bU, s.kaF, s.kaU, 3, d * (1.0f + w[0]), fu);
     __syncthreads();
   }
   {
     const float* kF[2] = {s.k1F, s.kaF};
     const float* kU[2] = {s.k1U, s.kaU};
     const float w[2] = {tau / 6.0f, tau / 6.0f};
-    eval_blend<2>(s, kF, kU, w, 3);
+    eval_blend<A, 2>(s.xF, s.xU, kF, kU, w, s.bF, s.bU, 3);
     __syncthreads();  // k2 is dead from here: k3 takes its arrays
-    eval_stage(T, P, s.bF, s.bU, s.kaF, s.kaU, 2, d * (1.0f + w[0] + w[1]), fu);
+    eval_stage<A>(T, P, s.bF, s.bU, s.kaF, s.kaU, 2, d * (1.0f + w[0] + w[1]), fu);
     __syncthreads();
   }
   {
     const float* kF[2] = {s.k1F, s.kaF};
     const float* kU[2] = {s.k1U, s.kaU};
     const float w[2] = {tau / 8.0f, 3.0f * tau / 8.0f};
-    eval_blend<2>(s, kF, kU, w, 2);
+    eval_blend<A, 2>(s.xF, s.xU, kF, kU, w, s.bF, s.bU, 2);
     __syncthreads();
-    eval_stage(T, P, s.bF, s.bU, s.k4F, s.k4U, 1, d * (1.0f + w[0] + w[1]), fu);
+    eval_stage<A>(T, P, s.bF, s.bU, s.k4F, s.k4U, 1, d * (1.0f + w[0] + w[1]), fu);
     __syncthreads();
   }
   const float w5[3] = {tau / 2.0f, -3.0f * tau / 2.0f, 2.0f * tau};
   {
     const float* kF[3] = {s.k1F, s.kaF, s.k4F};
     const float* kU[3] = {s.k1U, s.kaU, s.k4U};
-    eval_blend<3>(s, kF, kU, w5, 1);
+    eval_blend<A, 3>(s.xF, s.xU, kF, kU, w5, s.bF, s.bU, 1);
     __syncthreads();
   }
 
@@ -252,33 +367,20 @@ __global__ void __launch_bounds__(kK2Threads)
   const float dv = d * (1.0f + w5[0] + w5[1] + w5[2]);
   const float c6 = tau / 6.0f;
   float eF = 0.0f, eU = 0.0f;
-  for (int t = threadIdx.x; t < kTX * kTY; t += kK2Threads) {
-    int ry = kApron + t / kTX, rx = kApron + t % kTX;
-    int gy = T.gy0 + ry, gx = T.gx0 + rx;
-    if (gy >= ny || gx >= nx) continue;  // ragged tile edge
-    bool cN = gy + 1 == ny, cS = gy == 0, cE = gx + 1 == nx, cW = gx == 0;
-    int c = ry * kRW + rx;
-    float Fc = s.bF[c], Uc = s.bU[c];
+  for_owned<A>(T, [&](int ry, int rx, int g) {
+    const int c = ry * Region<A>::W + rx;
     float k5F, k5U;
-    physics(P, Fc, neighbour(P.f_bc, cN, s.bF[c + kRW], Fc, dv),
-            neighbour(P.f_bc, cS, s.bF[c - kRW], Fc, dv),
-            neighbour(P.f_bc, cE, s.bF[c + 1], Fc, dv),
-            neighbour(P.f_bc, cW, s.bF[c - 1], Fc, dv), Uc,
-            neighbour(P.u_bc, cN, s.bU[c + kRW], Uc, dv),
-            neighbour(P.u_bc, cS, s.bU[c - kRW], Uc, dv),
-            neighbour(P.u_bc, cE, s.bU[c + 1], Uc, dv),
-            neighbour(P.u_bc, cW, s.bU[c - 1], Uc, dv), fu, k5F, k5U);
-    int g = gy * nx + gx;
+    rhs_at<A>(T, P, s.bF, s.bU, ry, rx, dv, fu, k5F, k5U);
     outF[g] = s.xF[c] + c6 * (s.k1F[c] + 4.0f * s.k4F[c] + k5F);
     outU[g] = s.xU[c] + c6 * (s.k1U[c] + 4.0f * s.k4U[c] + k5U);
     eF = nan_max(eF, fabsf(0.2f * s.k1F[c] - 0.9f * s.kaF[c] + 0.8f * s.k4F[c] - 0.1f * k5F));
     eU = nan_max(eU, fabsf(0.2f * s.k1U[c] - 0.9f * s.kaU[c] + 0.8f * s.k4U[c] - 0.1f * k5U));
-  }
+  });
 
   s.redF[threadIdx.x] = eF;
   s.redU[threadIdx.x] = eU;
   __syncthreads();
-  for (int half = kK2Threads / 2; half > 0; half >>= 1) {
+  for (int half = kTileThreads / 2; half > 0; half >>= 1) {
     if (threadIdx.x < half) {
       s.redF[threadIdx.x] = nan_max(s.redF[threadIdx.x], s.redF[threadIdx.x + half]);
       s.redU[threadIdx.x] = nan_max(s.redU[threadIdx.x], s.redU[threadIdx.x + half]);
@@ -316,6 +418,99 @@ __global__ void __launch_bounds__(kReduceThreads)
     err[0] = rF[0];
     err[1] = rU[0];
   }
+}
+
+// ---------------------------------------------------------------- K3 ----
+
+constexpr int kK3Apron = 4;  // RK4 reads 4 stages deep
+constexpr int kK3N = Region<kK3Apron>::N;
+
+struct Rk4Smem {
+  float xF[kK3N], xU[kK3N];  // the step's start state
+  float k1F[kK3N], k1U[kK3N];
+  float k2F[kK3N], k2U[kK3N];
+  float k3F[kK3N], k3U[kK3N];
+  float bF[kK3N], bU[kK3N];  // the current stage's blend
+};
+
+// RK4 (`simulation.cu:313-348`): k1 = f(x), k2 = f(x + h k1),
+// k3 = f(x + h k2), k4 = f(x + dt k3) with h = dt/2, then
+// x + c6 (k1 + 2 k2 + 2 k3 + k4), c6 = dt/6 -- the weights as the host
+// rounds them, as the JAX kernel takes them.
+__global__ void __launch_bounds__(kTileThreads)
+    rk4_full_kernel(const float* __restrict__ F, const float* __restrict__ U,
+                    float* __restrict__ outF, float* __restrict__ outU, int ny,
+                    int nx, float h, float dt, float c6, float d, float fu,
+                    PhysParams P) {
+  constexpr int A = kK3Apron;
+  __shared__ Rk4Smem s;
+  const Tile T = block_tile<A>(ny, nx);
+  load_region<A>(T, F, U, s.xF, s.xU);
+  __syncthreads();
+
+  eval_stage<A>(T, P, s.xF, s.xU, s.k1F, s.k1U, 3, d, fu);
+  __syncthreads();
+  const float wh[1] = {h}, wdt[1] = {dt};
+  const float dh = d * (1.0f + h);
+  {
+    const float* kF[1] = {s.k1F};
+    const float* kU[1] = {s.k1U};
+    eval_blend<A, 1>(s.xF, s.xU, kF, kU, wh, s.bF, s.bU, 3);
+    __syncthreads();
+    eval_stage<A>(T, P, s.bF, s.bU, s.k2F, s.k2U, 2, dh, fu);
+    __syncthreads();
+  }
+  {
+    const float* kF[1] = {s.k2F};
+    const float* kU[1] = {s.k2U};
+    eval_blend<A, 1>(s.xF, s.xU, kF, kU, wh, s.bF, s.bU, 2);
+    __syncthreads();
+    eval_stage<A>(T, P, s.bF, s.bU, s.k3F, s.k3U, 1, dh, fu);
+    __syncthreads();
+  }
+  {
+    const float* kF[1] = {s.k3F};
+    const float* kU[1] = {s.k3U};
+    eval_blend<A, 1>(s.xF, s.xU, kF, kU, wdt, s.bF, s.bU, 1);
+    __syncthreads();
+  }
+
+  // k4 on the owned cells and the combination
+  const float dv = d * (1.0f + dt);
+  for_owned<A>(T, [&](int ry, int rx, int g) {
+    const int c = ry * Region<A>::W + rx;
+    float k4F, k4U;
+    rhs_at<A>(T, P, s.bF, s.bU, ry, rx, dv, fu, k4F, k4U);
+    outF[g] = s.xF[c] + c6 * (s.k1F[c] + 2.0f * s.k2F[c] + 2.0f * s.k3F[c] + k4F);
+    outU[g] = s.xU[c] + c6 * (s.k1U[c] + 2.0f * s.k2U[c] + 2.0f * s.k3U[c] + k4U);
+  });
+}
+
+// ---------------------------------------------------------------- K6 ----
+
+template <int STEPS>
+__global__ void __launch_bounds__(kTileThreads)
+    euler_steps_kernel(const float* __restrict__ F, const float* __restrict__ U,
+                       float* __restrict__ outF, float* __restrict__ outU,
+                       int ny, int nx, float d, float fu, PhysParams P) {
+  // (F, U) of two successive steps: buf[0..1], then buf[2..3], in turns
+  __shared__ float buf[4][Region<STEPS>::N];
+  const Tile T = block_tile<STEPS>(ny, nx);
+  load_region<STEPS>(T, F, U, buf[0], buf[1]);
+  __syncthreads();
+#pragma unroll
+  for (int step = 0; step < STEPS; ++step) {
+    const int cur = 2 * (step & 1), nxt = 2 - cur;
+    eval_stage<STEPS, true>(T, P, buf[cur], buf[cur + 1], buf[nxt], buf[nxt + 1],
+                            STEPS - 1 - step, d, fu);
+    __syncthreads();
+  }
+  constexpr int last = 2 * (STEPS & 1);
+  for_owned<STEPS>(T, [&](int ry, int rx, int g) {
+    const int c = ry * Region<STEPS>::W + rx;
+    outF[g] = buf[last][c];
+    outU[g] = buf[last + 1][c];
+  });
 }
 
 // ---------------------------------------------------------------- K7 ----
@@ -358,6 +553,19 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 
 using bt::PhysParams;
 
+namespace {
+
+dim3 k1_grid(int ny, int nx) {
+  return dim3((nx + bt::kK1BlockX - 1) / bt::kK1BlockX,
+              (ny + bt::kK1BlockY - 1) / bt::kK1BlockY);
+}
+
+dim3 tile_grid(int ny, int nx) {
+  return dim3((nx + bt::kTX - 1) / bt::kTX, (ny + bt::kTY - 1) / bt::kTY);
+}
+
+}  // namespace
+
 extern "C" {
 
 // K1: out = f(sum_k w_k (F_k, U_k)), or the blend + dt * f in euler mode.
@@ -369,8 +577,7 @@ int bt_blend_rhs_f32(const float* F0, const float* U0, const float* F1,
                      int nx, float d, float fu, int is_euler,
                      const PhysParams* P, cudaStream_t stream) {
   bt::BlendArgs a{{F0, F1, F2, F3}, {U0, U1, U2, U3}, {1.0f, w1, w2, w3}};
-  dim3 block(bt::kK1BlockX, bt::kK1BlockY);
-  dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
+  dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
   switch (n_states) {
     case 1: bt::blend_rhs_kernel<1><<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu, is_euler, *P); break;
     case 2: bt::blend_rhs_kernel<2><<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu, is_euler, *P); break;
@@ -381,9 +588,25 @@ int bt_blend_rhs_f32(const float* F0, const float* U0, const float* F1,
   return int(cudaGetLastError());
 }
 
+// K4: k4 = f(x + dt k3) at Dirichlet value d, out = x + c6 (k1 + 2 k2 +
+// 2 k3 + k4).  c6 is dt/6 as the host rounds it.
+int bt_rk4_final_f32(const float* xF, const float* xU, const float* k1F,
+                     const float* k1U, const float* k2F, const float* k2U,
+                     const float* k3F, const float* k3U, float* outF,
+                     float* outU, int ny, int nx, float dt, float c6, float d,
+                     float fu, const PhysParams* P, cudaStream_t stream) {
+  bt::BlendArgs a{{xF, k3F, nullptr, nullptr}, {xU, k3U, nullptr, nullptr},
+                  {1.0f, dt, 0.0f, 0.0f}};
+  dim3 block(bt::kK1BlockX, bt::kK1BlockY);
+  bt::rk4_final_kernel<<<k1_grid(ny, nx), block, 0, stream>>>(
+      a, k1F, k1U, k2F, k2U, outF, outU, ny, nx, c6, d, fu, *P);
+  return int(cudaGetLastError());
+}
+
 // Number of float pairs the K2 partials buffer holds (2 * this many floats).
 int bt_rkm_num_blocks(int ny, int nx) {
-  return ((nx + bt::kTX - 1) / bt::kTX) * ((ny + bt::kTY - 1) / bt::kTY);
+  dim3 g = tile_grid(ny, nx);
+  return int(g.x * g.y);
 }
 
 // K2: one Merson attempt.  outF/outU get x + tau/6 (k1 + 4 k4 + k5);
@@ -393,13 +616,33 @@ int bt_rkm_attempt_f32(const float* F, const float* U, float* outF,
                        float* outU, float* partials, float* err, int ny,
                        int nx, float tau, float d, float fu,
                        const PhysParams* P, cudaStream_t stream) {
-  dim3 grid((nx + bt::kTX - 1) / bt::kTX, (ny + bt::kTY - 1) / bt::kTY);
-  bt::rkm_attempt_kernel<<<grid, bt::kK2Threads, 0, stream>>>(
+  dim3 grid = tile_grid(ny, nx);
+  bt::rkm_attempt_kernel<<<grid, bt::kTileThreads, 0, stream>>>(
       F, U, outF, outU, partials, ny, nx, tau, d, fu, *P);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
       partials, int(grid.x * grid.y), err);
+  return int(cudaGetLastError());
+}
+
+// K3: one RK4 step, out = x + c6 (k1 + 2 k2 + 2 k3 + k4).  h = dt/2 and
+// c6 = dt/6 as the host rounds them; d is the state's Dirichlet value, and
+// each stage's blend takes d (1 + its weight).
+int bt_rk4_full_f32(const float* F, const float* U, float* outF, float* outU,
+                    int ny, int nx, float h, float dt, float c6, float d,
+                    float fu, const PhysParams* P, cudaStream_t stream) {
+  bt::rk4_full_kernel<<<tile_grid(ny, nx), bt::kTileThreads, 0, stream>>>(
+      F, U, outF, outU, ny, nx, h, dt, c6, d, fu, *P);
+  return int(cudaGetLastError());
+}
+
+// K6: 4 forward-Euler steps, each at Dirichlet value d.
+int bt_euler4_f32(const float* F, const float* U, float* outF, float* outU,
+                  int ny, int nx, float d, float fu, const PhysParams* P,
+                  cudaStream_t stream) {
+  bt::euler_steps_kernel<4><<<tile_grid(ny, nx), bt::kTileThreads, 0, stream>>>(
+      F, U, outF, outU, ny, nx, d, fu, *P);
   return int(cudaGetLastError());
 }
 
@@ -409,8 +652,7 @@ int bt_si_prepare_f32(const float* F, const float* U, float* r0, float* uterm,
                       float* s, int ny, int nx, const PhysParams* P,
                       cudaStream_t stream) {
   dim3 block(bt::kK1BlockX, bt::kK1BlockY);
-  dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y);
-  bt::si_prepare_kernel<<<grid, block, 0, stream>>>(F, U, r0, uterm, s, ny, nx, *P);
+  bt::si_prepare_kernel<<<k1_grid(ny, nx), block, 0, stream>>>(F, U, r0, uterm, s, ny, nx, *P);
   return int(cudaGetLastError());
 }
 

@@ -62,11 +62,11 @@ def _anisotropy(gx, gy, p: SimParams):
     zero = r2 == 0
     theta = torch.atan2(gy32, torch.where(zero, 1.0, gx32))
     g = 1 - p.S * torch.cos(p.m0 * theta + p.theta0)
-    norm = torch.where(zero, 0.0, _sqrt(torch.where(zero, 1.0, r2)))
+    norm = torch.where(zero, 0.0, sqrt_rounded(torch.where(zero, 1.0, r2)))
     return g.to(gx.dtype), norm.to(gx.dtype)
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
+def sqrt_rounded(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded sqrt.  torch's vectorized float32 sqrt on the CPU
     is not (it was measured 2 ulp off with AVX512); the float64 sqrt
     rounded to float32 is, since 53 >= 2*24 + 2 bits makes the double

@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.params import SimParams
 from ..core.state import torch_dtype
 from . import exact as exact_mod
@@ -37,8 +38,11 @@ class InitialConditions:
     noise_seed: int = 0
 
 
-def make_initial_fields(p: SimParams, ic: InitialConditions, device="cpu"):
-    """Returns (F0, U0) with shape (ny, nx), dtype p.dtype, on ``device``."""
+def make_initial_fields(p: SimParams, ic: InitialConditions,
+                        device=DEFAULT_DEVICE):
+    """Returns (F0, U0) with shape (ny, nx), dtype p.dtype, on ``device``
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     if ic.noise_T != 0.0 or ic.noise_phi != 0.0:
         raise NotImplementedError(
             "noise initial conditions (noise_T / noise_phi) are not ported "
@@ -55,7 +59,7 @@ def make_initial_fields(p: SimParams, ic: InitialConditions, device="cpu"):
         ey = Y - p.L0 / 2
         r = torch.sqrt(ex * ex + ey * ey)
         return (exact_mod.exact_phi_ini(r, p.xi).to(dtype),
-                exact_mod.exact_u0(r).to(dtype))
+                exact_mod.exact_u(0.0, r).to(dtype))
 
     lo = ic.circle_radius - p.xi * ic.circle_fade / 2
     hi = ic.circle_radius + p.xi * ic.circle_fade / 2

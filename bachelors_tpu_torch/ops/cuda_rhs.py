@@ -1,6 +1,6 @@
 """The RHS kernels and their plain torch versions.
 
-The port's counterpart of ``bachelors_tpu/ops/pallas_rhs.py``.  Three
+The port's counterpart of ``bachelors_tpu/ops/pallas_rhs.py``.  Six
 kernels, hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
 ``ops/cuda_build.py``):
 
@@ -9,19 +9,28 @@ kernels, hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     (``blend_rhs_pallas`` :555).  Blend of 1-4 states + boundary image +
     physics in one pass; bound by bytes (2 fields read per state, 2
     written), so the blend stays in registers.
+  * K4 ``rk4_final_stage``: RK4's fourth stage and combination, replacing
+    ``_make_kernel`` in mode "rk4_combine" (``rk4_final_stage_pallas``
+    :1359).  K1's design; 8 fields read, 2 written, k4 never stored.
   * K2 ``rkm_attempt``: one whole Merson attempt, replacing
     ``pallas_rhs._make_fullstep_kernel`` (:941) with scheme "rkm"
     (``rkm_attempt_pallas`` :1163).  2 fields read, 2 written; the stages
     live in shared memory on a tile with a 5-cell apron, so none reaches
     device memory.  It measured 18x its byte floor at 2048^2 on an H100
     (``csrc/rhs.cu``): arithmetic, not bytes, bounds this first version.
+  * K3 ``rk4_full``: one whole RK4 step, the same kernel with scheme "rk4"
+    (``rk4_full_pallas`` :1156); K2's tile with a 4-cell apron.
+  * K6 ``euler_steps``: T forward-Euler steps per pass over device memory,
+    replacing ``_make_euler2_kernel`` (:797, ``euler2_pallas`` :1272);
+    K2's tile with a T-cell apron.
   * K7 ``si_prepare``: the semi-implicit prepare, replacing
     ``pallas_rhs._make_kernel`` in mode "si_prepare" (``si_prepare_pallas``
     :612).  One pass over (F, U) writes r0_F, dt*lap(U) and, when
     ``si_s_varies``, the anisotropy map s.
 
 Beside each is its plain torch version (``blend_rhs_plain``,
-``rkm_attempt_plain``, ``si_prepare_plain``): the staged ``pad2`` +
+``rk4_final_stage_plain``, ``rkm_attempt_plain``, ``rk4_full_plain``,
+``euler_steps_plain``, ``si_prepare_plain``): the staged ``pad2`` +
 ``rhs_padded`` (or ``semi_implicit_prepare``) composition.
 The CPU path runs it, the tests hold it to the JAX package, and
 ``chip_smoke.py`` holds each kernel to it on the card.
@@ -49,7 +58,13 @@ from . import cuda_build
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # Kernel launches per wrapper since the last reset_launch_counts().
-LAUNCHES = {"blend_rhs": 0, "rkm_attempt": 0, "si_prepare": 0}
+LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
+            "rk4_full": 0, "euler_steps": 0, "si_prepare": 0}
+
+# The depths the multi-step Euler pass takes (`bachelors_tpu/ops/
+# pallas_rhs.py:822`), and the one K6 is built for (the path's).
+EULER_STEPS_RANGE = range(2, 8)
+K6_STEPS = 4
 
 
 def reset_launch_counts() -> None:
@@ -92,6 +107,51 @@ def blend_rhs_plain(states: Sequence[Pair], weights: Sequence, p: SimParams,
     if is_euler:
         return Fb + p.dt * dF, Ub + p.dt * dU
     return dF, dU
+
+
+def rk4_final_stage_plain(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
+                          fu=0.0, dirichlet_value=0.0) -> Pair:
+    """k4 = f(x + dt*k3), then x + dt/6 (k1 + 2 k2 + 2 k3 + k4), in the
+    order of ``pallas_rhs.py:438-440``.  ``dirichlet_value`` pads the blend
+    as it is given, as ``rk4_final_stage_pallas`` passes it (``rk4_step``
+    passes none)."""
+    k4 = blend_rhs_plain([x, k3], [1.0, p.dt], p, fu, dirichlet_value)
+    c = p.dt / 6
+    return tuple(x[i] + c * (k1[i] + 2 * k2[i] + 2 * k3[i] + k4[i]) for i in (0, 1))
+
+
+def rk4_full_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
+                   dirichlet_value=0.0) -> Pair:
+    """One classic RK4 step, stage by stage (`simulation.cu:313-348`).
+    Each stage pads its blend with the effective Dirichlet value
+    d * (1 + w), as ``eval_rhs`` and the whole-step kernel do."""
+    x = (F, U)
+    h = p.dt / 2
+
+    def stage(k, w):
+        return blend_rhs_plain([x, k], [1.0, w], p, fu,
+                               effective_dirichlet(dirichlet_value, [1.0, w]))
+
+    k1 = blend_rhs_plain([x], [1.0], p, fu, dirichlet_value)
+    k2 = stage(k1, h)
+    k3 = stage(k2, h)
+    return rk4_final_stage_plain(x, k1, k2, k3, p, fu,
+                                 effective_dirichlet(dirichlet_value, [1.0, p.dt]))
+
+
+def _check_steps(steps: int) -> None:
+    if steps not in EULER_STEPS_RANGE:
+        raise ValueError(f"euler_steps takes 2..7 steps per pass, got {steps}")
+
+
+def euler_steps_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams,
+                      steps: int, fu=0.0, dirichlet_value=0.0) -> Pair:
+    """``steps`` single forward-Euler steps, each padded with
+    ``dirichlet_value`` as it is given (``euler2_pallas``'s contract)."""
+    _check_steps(steps)
+    for _ in range(steps):
+        F, U = blend_rhs_plain([(F, U)], [1.0], p, fu, dirichlet_value, is_euler=True)
+    return F, U
 
 
 def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
@@ -203,6 +263,14 @@ def _lib() -> ctypes.CDLL:
         lib.bt_rkm_attempt_f32.restype = _INT
         lib.bt_si_prepare_f32.argtypes = [_PTR] * 5 + [_INT, _INT, phys, _PTR]
         lib.bt_si_prepare_f32.restype = _INT
+        lib.bt_rk4_final_f32.argtypes = ([_PTR] * 10 + [_INT, _INT] + [_F32] * 4
+                                         + [phys, _PTR])
+        lib.bt_rk4_final_f32.restype = _INT
+        lib.bt_rk4_full_f32.argtypes = ([_PTR] * 4 + [_INT, _INT] + [_F32] * 5
+                                        + [phys, _PTR])
+        lib.bt_rk4_full_f32.restype = _INT
+        lib.bt_euler4_f32.argtypes = [_PTR] * 4 + [_INT] * 2 + [_F32] * 2 + [phys, _PTR]
+        lib.bt_euler4_f32.restype = _INT
         _LIB = lib
     return _LIB
 
@@ -216,9 +284,9 @@ def _check_fields(p: SimParams, *tensors: torch.Tensor) -> None:
             raise ValueError(f"fields on {t.device} and {dev}")
         if t.dtype == torch.float64:
             raise NotImplementedError(
-                "float64 kernels are not ported yet (ROADMAP slice 3, item "
-                "12: dtype = float64); use [tpu] backend = torch for f64 "
-                "on the GPU")
+                "float64 kernels are not ported yet (ROADMAP item 12: dtype "
+                "= float64, the next slice); use [tpu] backend = torch for "
+                "f64 on the GPU")
         if t.dtype != torch.float32:
             raise TypeError(f"kernel takes float32 fields, got {t.dtype}")
         if tuple(t.shape) != (p.ny, p.nx):
@@ -315,3 +383,62 @@ def si_prepare(F: torch.Tensor, U: torch.Tensor, p: SimParams):
     _raise_on(rc, "si_prepare")
     LAUNCHES["si_prepare"] += 1
     return tuple(outs)
+
+
+def rk4_final_stage(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
+                    fu=0.0, dirichlet_value=0.0) -> Pair:
+    """K4: RK4's fourth stage and combination in one pass.  Same contract
+    as ``rk4_final_stage_plain``."""
+    if not _on_cuda(x[0], "rk4_final_stage"):
+        return rk4_final_stage_plain(x, k1, k2, k3, p, fu, dirichlet_value)
+    fields = [*x, *k1, *k2, *k3]
+    _check_fields(p, *fields)
+    out_F, out_U = torch.empty_like(x[0]), torch.empty_like(x[1])
+    with torch.cuda.device(out_F.device):
+        rc = _lib().bt_rk4_final_f32(
+            *(t.data_ptr() for t in fields), out_F.data_ptr(), out_U.data_ptr(),
+            p.ny, p.nx, float(p.dt), float(p.dt / 6), float(dirichlet_value),
+            float(fu), ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "rk4_final_stage")
+    LAUNCHES["rk4_final_stage"] += 1
+    return out_F, out_U
+
+
+def rk4_full(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
+             dirichlet_value=0.0) -> Pair:
+    """K3: one whole RK4 step in one pass.  Same contract as
+    ``rk4_full_plain``."""
+    if not _on_cuda(F, "rk4_full"):
+        return rk4_full_plain(F, U, p, fu, dirichlet_value)
+    _check_fields(p, F, U)
+    out_F, out_U = torch.empty_like(F), torch.empty_like(U)
+    with torch.cuda.device(F.device):
+        rc = _lib().bt_rk4_full_f32(
+            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+            p.ny, p.nx, float(p.dt / 2), float(p.dt), float(p.dt / 6),
+            float(dirichlet_value), float(fu), ctypes.byref(_phys(p)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "rk4_full")
+    LAUNCHES["rk4_full"] += 1
+    return out_F, out_U
+
+
+def euler_steps(F: torch.Tensor, U: torch.Tensor, p: SimParams, steps: int,
+                fu=0.0, dirichlet_value=0.0) -> Pair:
+    """K6: ``steps`` forward-Euler steps in one pass.  Same contract as
+    ``euler_steps_plain``; the kernel is built for ``K6_STEPS`` steps."""
+    _check_steps(steps)
+    if not _on_cuda(F, "euler_steps"):
+        return euler_steps_plain(F, U, p, steps, fu, dirichlet_value)
+    if steps != K6_STEPS:
+        raise ValueError(f"K6 is built for {K6_STEPS} steps per pass, got {steps}")
+    _check_fields(p, F, U)
+    out_F, out_U = torch.empty_like(F), torch.empty_like(U)
+    with torch.cuda.device(F.device):
+        rc = _lib().bt_euler4_f32(
+            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+            p.ny, p.nx, float(dirichlet_value), float(fu),
+            ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "euler_steps")
+    LAUNCHES["euler_steps"] += 1
+    return out_F, out_U

@@ -1,28 +1,34 @@
-"""Explicit integrators: forward Euler and adaptive Runge-Kutta-Merson.
+"""Explicit integrators: forward Euler, classic RK4 and adaptive
+Runge-Kutta-Merson.
 
 The port of ``bachelors_tpu/solvers/explicit.py``, single-device branches
 only:
 
   * ``euler_step_based`` (:22-73): one K1 launch in euler mode, or in rhs
-    mode for the corrector's re-steps from a frozen temperature base.  The
-    JAX package's fused multi-step Euler (``make_euler_pair_stepper``, K6)
-    is not ported yet (ROADMAP slice 3): runs without stats take single
-    steps, which compute the same numbers.
+    mode for the corrector's re-steps from a frozen temperature base.
+  * ``make_euler_pair_stepper`` (:90-239): ``EULER_BLOCK_STEPS`` Euler steps
+    per pass over device memory (``ops/cuda_rhs.euler_steps``, K6) for runs
+    that collect nothing per step.
+  * ``rk4_step`` (:242-313): the whole-step kernel (K3) from
+    ``RK4_FULLSTEP_MIN_CELLS`` cells, else K1 for k1..k3 and K4 for the
+    fourth stage and the combination.
   * ``rkm_adaptive_step`` (:316-521): the whole-attempt kernel
     (``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path.  The retry
     loop runs on the host and reads the two error maxima once per attempt,
     as the reference does (`simulation.cu:427-435`); the JAX package runs
     the same loop as a device ``while_loop``.
 
-RK4 (ROADMAP slice 3) is not ported yet.
+The routing constants are the JAX package's, measured on a TPU; the port
+keeps them so that it routes as the reference does (PERF.md holds the
+H100's own crossovers).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.params import SimParams
-from ..core.state import numpy_dtype
+from ..core.params import SimParams, SolverType
+from ..core.state import SimState, numpy_dtype
 from ..ops import cuda_rhs
 from ..ops.rhs import euler_eval, eval_rhs, resolve_backend
 
@@ -36,6 +42,80 @@ def euler_step_based(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
         return euler_eval([(F, U)], [1.0], p, fu)
     dF, dU = eval_rhs([(F, U)], [1.0], p, fu)
     return F + p.dt * dF, U_base + p.dt * dU
+
+
+EULER_BLOCK_STEPS = 4  # Euler steps per pass of K6 (JAX :76)
+
+# RK4 runs the whole-step kernel K3 from this many cells on (JAX :87); below
+# it the staged route (K1 x 3, then K4).
+RK4_FULLSTEP_MIN_CELLS = 8 * 1024 * 1024
+
+# Grids of more than 2M and fewer than 10M cells take single Euler steps
+# (JAX :226-231).
+EULER_PAIR_GAP = (2 * 1024 * 1024, 10 * 1024 * 1024)
+
+
+def euler_pair(p: SimParams):
+    """state -> the state ``EULER_BLOCK_STEPS`` Euler steps later, in one
+    pass of K6 on the kernel backend (as many plain steps otherwise), with
+    no gate; the function carries ``.block_steps``.
+    ``make_euler_pair_stepper`` decides when a run uses it."""
+    T = EULER_BLOCK_STEPS
+
+    def pair(state: SimState) -> SimState:
+        if resolve_backend(p, state.F.device) == "kernel":
+            F, U = cuda_rhs.euler_steps(state.F, state.U, p, T)
+        else:
+            F, U = cuda_rhs.euler_steps_plain(state.F, state.U, p, T)
+        it = state.iter + T
+        return state.replace(F=F, U=U, t=it * p.dt, iter=it)
+
+    pair.block_steps = T
+    return pair
+
+
+def make_euler_pair_stepper(p: SimParams):
+    """``euler_pair(p)``, or ``None`` where a run must take single steps:
+    solvers other than Euler, the exact forcing (it changes every step),
+    per-step stats or step residuals (a pair emits none), the corrector
+    loop, float64 (its kernels are ROADMAP item 12), and grids inside
+    ``EULER_PAIR_GAP``.  The single-device f32 branch of the JAX package's
+    ``make_euler_pair_stepper``; the port's kernel takes every grid, so the
+    JAX tile gate has no counterpart."""
+    if p.solver != SolverType.EXPLICIT_EULER:
+        return None
+    if p.do_exact or p.do_stats or p.do_stats_step_residual:
+        return None
+    if p.do_corrector_loop and p.corrector_max_iters > 0:
+        return None
+    if p.dtype == "float64":
+        return None
+    lo, hi = EULER_PAIR_GAP
+    if lo < p.N < hi:
+        return None
+    return euler_pair(p)
+
+
+def rk4_step(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0):
+    """Classic fixed-step RK4 (`simulation.cu:313-348`): one K3 launch from
+    ``RK4_FULLSTEP_MIN_CELLS`` cells on, else three K1 launches (k1..k3) and
+    one K4 launch (k4 and the combination).  The plain backend takes the
+    staged plain step."""
+    if resolve_backend(p, F.device) != "kernel":
+        return cuda_rhs.rk4_full_plain(F, U, p, fu)
+    if p.N >= RK4_FULLSTEP_MIN_CELLS:
+        return cuda_rhs.rk4_full(F, U, p, fu)
+    return rk4_staged(F, U, p, fu)
+
+
+def rk4_staged(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0):
+    """RK4's staged route on the kernel backend: K1 for k1, k2 and k3, then
+    K4."""
+    x, h = (F, U), p.dt / 2
+    k1 = eval_rhs([x], [1.0], p, fu)
+    k2 = eval_rhs([x, k1], [1.0, h], p, fu)
+    k3 = eval_rhs([x, k2], [1.0, h], p, fu)
+    return cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, fu)
 
 
 def rkm_adaptive_step(F: torch.Tensor, U: torch.Tensor, tau0, p: SimParams,

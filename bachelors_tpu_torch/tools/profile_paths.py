@@ -3,7 +3,8 @@
     python -m bachelors_tpu_torch.tools.profile_paths [--out FILE]
 
 Steps the shipped 512x512 ``config.ini`` on the card to a point mid-run
-(RKM as shipped; semi-implicit at the CG tolerance 5e-9; forward Euler),
+(RKM as shipped; semi-implicit at the CG tolerance 5e-9; forward Euler;
+fixed-step RK4, which takes the staged route K1 x 3 + K4 at this size),
 then over a window of 200 steps from that one state:
 
   * ms/step with stats on, as the driver's loop takes a step and collects
@@ -13,8 +14,15 @@ then over a window of 200 steps from that one state:
     only), the busy share (that device time over the unprofiled ms/step
     with stats on) and the device events that take the most time.
 
-Prints one JSON line per path and writes them all to ``--out`` as one JSON
-object.  Imports nothing of JAX.
+Then the routes, each from the config's initial fields at each size (dt
+scaled by (512/n)^2, the 512^2 run's stability ratio), stats off: RK4's
+staged route against its whole-step kernel K3 at 512^2 to 4096^2, and
+Euler in blocks of 4 steps (K6) against single steps (K1) at 512^2,
+2048^2 and 4096^2 -- ms/step on the host clock to a device sync, and
+device µs/step under ``torch.profiler``.
+
+Prints one JSON line per path and per route table, and writes them all to
+``--out`` as one JSON object.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from ..io.config import load_config
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..ops import cuda_build, cuda_cg, cuda_rhs
-from ..solvers import cg
+from ..solvers import cg, explicit
 from ..solvers.base import make_stepper
 
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -43,9 +51,20 @@ PATHS = {
                        "Phi_tolerance = 5e-9\n"], 4000),
     "rkm": ([], 1400),
     "euler": (["[simulation]\nsolver = explicit\n"], 4000),
+    "rk4": (["[simulation]\nsolver = explicit-rk4\n"], 4000),
 }
 WINDOW = 200
 TOP = 25
+# route -> (steps per call, the call on (F, U, p)), per solver, and sizes
+ROUTES = {
+    "rk4": {"staged": (1, lambda F, U, p: explicit.rk4_staged(F, U, p)),
+            "whole step (K3)": (1, lambda F, U, p: cuda_rhs.rk4_full(F, U, p))},
+    "euler": {"blocks of 4 (K6)": (4, lambda F, U, p: cuda_rhs.euler_steps(F, U, p, 4)),
+              "single (K1)": (1, lambda F, U, p: cuda_rhs.blend_rhs(
+                  [(F, U)], [1.0], p, is_euler=True))},
+}
+ROUTE_SIZES = {"rk4": (512, 1024, 2048, 4096), "euler": (512, 2048, 4096)}
+ROUTE_STEPS = 200
 
 
 def run_window(stepper, state, n: int, collect: bool) -> float:
@@ -101,6 +120,52 @@ def profile_path(name: str, window: int) -> dict:
     }
 
 
+def device_ms(fn, calls: int) -> float:
+    """Device time of ``calls`` calls of ``fn`` under torch.profiler, in ms,
+    summed over device-side events only."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def profile_routes(solver: str) -> dict:
+    """Each route of ``solver`` at each of its sizes: ms/step on the host
+    clock and device µs/step, from the config's initial fields."""
+    out = {"solver": solver, "steps": ROUTE_STEPS, "sizes": {}}
+    for n in ROUTE_SIZES[solver]:
+        cfg = load_config(CONFIG, [f"[simulation]\nmesh_size_x = {n}\nmesh_size_y = {n}\n"
+                                   f"dt = {5e-6 * (512 / n) ** 2!r}\n"])
+        p = cfg.params
+        F0, U0 = make_initial_fields(p, cfg.initial, device="cuda")
+        row = {}
+        for route, (per_call, call) in ROUTES[solver].items():
+            calls = ROUTE_STEPS // per_call
+            state = [F0, U0]
+
+            def step():
+                state[:] = call(state[0], state[1], p)
+
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (calls * per_call)
+            dev_ms = device_ms(step, calls)
+            if dev_ms <= 0:
+                raise RuntimeError("torch.profiler recorded no device time")
+            row[route] = {"ms_per_step": ms, "device_us_per_step":
+                          dev_ms * 1e3 / (calls * per_call)}
+        out["sizes"][f"{n}^2"] = row
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write all paths' results here")
@@ -115,6 +180,9 @@ def main() -> None:
     for name in PATHS:
         results[name] = profile_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)
+    for solver in ROUTES:
+        results[f"{solver} routes"] = profile_routes(solver)
+        print(json.dumps({"card": card, **results[f"{solver} routes"]}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

@@ -13,7 +13,12 @@ what it wrote and that every step went through the path's kernels:
     kernels K8 (matvec + <p, Ap>), K9 (x/r update + <r, r>) and K10 (axpby);
     then the same with the corrector loop and step residuals, cut to 800
     steps;
-  * forward Euler: K1 in euler mode.
+  * forward Euler: K1 in euler mode; then with ``collect_stats = false``,
+    K6 (4 Euler steps per launch);
+  * fixed-step RK4: K1 for k1..k3 and K4 (k4 + the combination) at 512^2;
+    K3 (the whole step) on a 4096^2 cut of 300 steps, where the run routes
+    to it;
+  * the exact solver, 100 steps: no kernel.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
@@ -21,9 +26,11 @@ non-zero without printing the final line:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 The line before it lists each kernel with its launches on its path, its
-largest disagreement with the plain version, and both times.  Without a
-CUDA device, or without the package beside it, the script fails.  It
-imports nothing of JAX.
+largest disagreement with the plain version, both times, its bound (the
+least time the card could take, from the bytes and operations of the
+timed call) and the time of one PyTorch call computing the same function
+where there is one.  Without a CUDA device, or without the package beside
+it, the script fails.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -51,14 +58,14 @@ from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
 from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs  # noqa: E402
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix  # noqa: E402
-from bachelors_tpu_torch.solvers import cg, semi_implicit  # noqa: E402
+from bachelors_tpu_torch.solvers import cg, explicit, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.base import make_stepper  # noqa: E402
 from bachelors_tpu_torch.utils.logging import SYSTEM  # noqa: E402
 
 DEVICE = "cuda"
 BCS = ("periodic", "neumann", "dirichlet")
 BC_PAIRS = (("periodic", None), ("neumann", None), ("dirichlet", None),
-            ("periodic", "dirichlet"))
+            ("periodic", "dirichlet"), ("periodic", "neumann"))
 TAU = 3.7e-6   # a Merson step size of the order the 512^2 run takes
 FIELD_TOL = 2e-5  # max|kernel - plain| <= FIELD_TOL * max(|plain|, 1)
 ERR_RTOL = 2e-4   # on the two error maxima
@@ -69,11 +76,52 @@ SEMI = "[simulation]\nsolver = semi-implicit\nT_tolerance = 5e-9\nPhi_tolerance 
 CORRECTOR = ("[simulation]\nstop_after = 0.004\ndo_corrector_loop = true\n"
              "corrector_max_iters = 3\n[program]\ncollect_step_residual = true\n")
 EULER = "[simulation]\nsolver = explicit\n"
+NO_STATS = "[program]\ncollect_stats = false\n"
+RK4 = "[simulation]\nsolver = explicit-rk4\n"
+# RK4 routes to K3 from 8M cells: a 4096^2 cut at dt 5e-6 * (512/4096)^2,
+# the 512^2 run's stability ratio (explicit RK4 at dt 5e-6 is unstable at
+# this spacing), 300 steps, stats on, the initial and the final frame
+CUT = ("[simulation]\nmesh_size_x = 4096\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
+       "stop_after = 2.34375e-5\n[snapshot]\ntimes = 1\n")
+EXACT = "[simulation]\nsolver = exact\ndo_exact = true\nstop_after = 0.0005\n[snapshot]\ntimes = 1\n"
 # every plain version a path could fall back to, by module
-PLAIN = {cuda_rhs: ("blend_rhs_plain", "rkm_attempt_plain", "si_prepare_plain"),
+PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
+                    "rk4_full_plain", "euler_steps_plain", "si_prepare_plain"),
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
                    "update_xr_rr_plain", "axpby_inplace_plain"),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
+
+
+# The card's published peaks (H100 SXM at 700 W): device memory and
+# float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per cell counted from csrc/*.cu as written, each atan2f, cosf
+# and sqrtf as one: the physics body (physics.cuh), and per kernel that
+# body times its stages plus its blends, updates and combinations.
+PHYS_OPS = 48
+OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
+       "K4": PHYS_OPS + 4 + 14,          # [x, k3] blend, RK4 combination
+       "K2": 5 * PHYS_OPS + 32 + 10 + 18,  # blends, update, error maxima
+       "K3": 4 * PHYS_OPS + 12 + 14,     # blends, RK4 combination
+       "K6": 4 * (PHYS_OPS + 4),         # 4 Euler steps
+       "K7": PHYS_OPS,
+       "K8 cross": 9, "K8 aniso": 13, "K9": 6, "K10": 3}
+# Bytes per cell: each input field read once, each output written once.
+BYTES = {"K1": 4 * (2 * 4 + 2), "K4": 4 * (8 + 2), "K2": 4 * (2 + 2),
+         "K3": 4 * (2 + 2), "K6": 4 * (2 + 2), "K7": 4 * (2 + 3),
+         "K8 cross": 4 * (1 + 1), "K8 aniso": 4 * (2 + 1), "K9": 4 * (4 + 2),
+         "K10": 4 * (2 + 1)}
+
+
+def bound(name: str, cells: int) -> dict:
+    """The least time the card could take for kernel ``name`` on ``cells``
+    cells: the larger of its bytes over the memory rate and its operations
+    over the float32 rate."""
+    t_bytes = cells * BYTES[name] / HBM_BYTES_PER_S * 1e3
+    t_ops = cells * OPS[name] / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase(name: str, **fields) -> None:
@@ -135,6 +183,36 @@ def fields(rng, ny, nx, n=1):
                   for _ in range(2)) for _ in range(n)]
 
 
+def seeded(rng, ny, nx):
+    """A solid disc in an undercooled melt plus noise, on the card: several
+    Euler or RK4 stages from a standard-normal field blow up."""
+    y = (np.arange(ny)[:, None] + 0.5) / ny * 4.0
+    x = (np.arange(nx)[None, :] + 0.5) / nx * 4.0
+    F = np.clip((0.8 - np.hypot(x - 1.3, y - 2.6)) / 0.2 + 0.5, 0, 1)
+    F = F + 0.05 * rng.normal(size=(ny, nx))
+    U = -0.2 + 0.05 * rng.normal(size=(ny, nx))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(DEVICE) for a in (F, U))
+
+
+def hold(name, got, want, what, worst) -> None:
+    """Each field of ``got`` within FIELD_TOL of ``want``; the largest
+    relative and absolute gaps go into ``worst``."""
+    for g, w in zip(got, want):
+        e = field_err(g, w)
+        worst[0] = max(worst[0], e)
+        worst[1] = max(worst[1], (g - w).abs().max().item())
+        if not e <= FIELD_TOL:
+            raise AssertionError(f"{name} disagrees: {e:.3g} > {FIELD_TOL} ({what})")
+
+
+def entry_numbers(name, times, at, worst_abs, library_ms=None) -> dict:
+    """A kernel's entry numbers: its and the plain version's time at size
+    ``at``, its bound there, and the library call's time where one PyTorch
+    call computes the same function (else None)."""
+    return {"max_abs_err": worst_abs, "ms": times[at][0], "plain_ms": times[at][1],
+            **bound(name, at * at), "library_ms": library_ms}
+
+
 def check_k1(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
     worst = worst_abs = 0.0
     cases = 0
@@ -170,8 +248,7 @@ def check_k1(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
     phase("K1 blend_rhs vs plain", cases=cases, max_rel_err=worst,
           max_abs_err=worst_abs, tol=FIELD_TOL,
           ms_4states={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return {"max_abs_err": worst_abs, "ms": times[timed[0]][0],
-            "plain_ms": times[timed[0]][1]}
+    return entry_numbers("K1", times, timed[0], worst_abs)
 
 
 def check_k2(rng, initial_fields, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
@@ -215,8 +292,7 @@ def check_k2(rng, initial_fields, sizes=((512, 512), (33, 129)), timed=(512, 204
           max_abs_err=worst_abs, max_err_maxima_rel=worst_e, tol=FIELD_TOL,
           err_rtol=ERR_RTOL,
           ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return {"max_abs_err": worst_abs, "ms": times[timed[0]][0],
-            "plain_ms": times[timed[0]][1]}
+    return entry_numbers("K2", times, timed[0], worst_abs)
 
 
 def check_k7(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
@@ -254,8 +330,96 @@ def check_k7(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
     phase("K7 si_prepare vs plain", cases=cases, max_rel_err=worst,
           max_abs_err=worst_abs, tol=FIELD_TOL,
           ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return {"max_abs_err": worst_abs, "ms": times[timed[0]][0],
-            "plain_ms": times[timed[0]][1]}
+    return entry_numbers("K7", times, timed[0], worst_abs)
+
+
+def check_k4(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
+    """K4 against its plain version: every BC pair, with and without
+    anisotropy, fu != 0, a Dirichlet value where a field has one."""
+    worst = [0.0, 0.0]
+    cases = 0
+    for ny, nx in sizes:
+        for f_bc, u_bc in BC_PAIRS:
+            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
+                p = params(ny, nx, f_bc, S, m0, u_bc)
+                x, k1, k2, k3 = fields(rng, ny, nx, 4)
+                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+                hold("K4", cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, 0.03, d),
+                     cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p, 0.03, d),
+                     f"{ny}x{nx} {f_bc}/{u_bc} S={S} m0={m0}", worst)
+                cases += 1
+    torch.cuda.synchronize()
+    times = {}
+    for size in timed:
+        p = params(size, size, "neumann")
+        x, k1, k2, k3 = fields(rng, size, size, 4)
+        times[size] = time_pair(lambda: cuda_rhs.rk4_final_stage(x, k1, k2, k3, p),
+                                lambda: cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p),
+                                reps=50 if size == 512 else 10)
+    phase("K4 rk4_final_stage vs plain", cases=cases, max_rel_err=worst[0],
+          max_abs_err=worst[1], tol=FIELD_TOL, library="none: no PyTorch call computes it",
+          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
+    return entry_numbers("K4", times, timed[0], worst[1])
+
+
+def check_k3(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048, 4096)) -> dict:
+    """K3 against the staged plain step from a seeded state: every BC pair,
+    with and without anisotropy, fu != 0.  Its entry is timed at 4096^2,
+    the size at which a run routes to it."""
+    worst = [0.0, 0.0]
+    cases = 0
+    for ny, nx in sizes:
+        for f_bc, u_bc in BC_PAIRS:
+            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
+                p = params(ny, nx, f_bc, S, m0, u_bc)
+                F, U = seeded(rng, ny, nx)
+                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+                hold("K3", cuda_rhs.rk4_full(F, U, p, 0.03, d),
+                     cuda_rhs.rk4_full_plain(F, U, p, 0.03, d),
+                     f"{ny}x{nx} {f_bc}/{u_bc} S={S} m0={m0}", worst)
+                cases += 1
+    torch.cuda.synchronize()
+    times = {}
+    for size in timed:
+        p = params(size, size, "neumann").replace(dt=5e-6 * (512 / size) ** 2)
+        F, U = seeded(rng, size, size)
+        times[size] = time_pair(lambda: cuda_rhs.rk4_full(F, U, p),
+                                lambda: cuda_rhs.rk4_full_plain(F, U, p),
+                                reps={512: 50, 2048: 10}.get(size, 5))
+    phase("K3 rk4_full vs plain", cases=cases, max_rel_err=worst[0], max_abs_err=worst[1],
+          tol=FIELD_TOL, library="none: no PyTorch call computes it",
+          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
+    return entry_numbers("K3", times, timed[-1], worst[1])
+
+
+def check_k6(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
+    """K6 at the path's depth against as many plain Euler steps from a
+    seeded state: every BC pair, with and without anisotropy, fu != 0."""
+    worst = [0.0, 0.0]
+    cases = 0
+    steps = explicit.EULER_BLOCK_STEPS
+    for ny, nx in sizes:
+        for f_bc, u_bc in BC_PAIRS:
+            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
+                p = params(ny, nx, f_bc, S, m0, u_bc)
+                F, U = seeded(rng, ny, nx)
+                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+                hold("K6", cuda_rhs.euler_steps(F, U, p, steps, 0.03, d),
+                     cuda_rhs.euler_steps_plain(F, U, p, steps, 0.03, d),
+                     f"{ny}x{nx} {f_bc}/{u_bc} S={S} m0={m0}", worst)
+                cases += 1
+    torch.cuda.synchronize()
+    times = {}
+    for size in timed:
+        p = params(size, size, "neumann")
+        F, U = seeded(rng, size, size)
+        times[size] = time_pair(lambda: cuda_rhs.euler_steps(F, U, p, steps),
+                                lambda: cuda_rhs.euler_steps_plain(F, U, p, steps),
+                                reps=50 if size == 512 else 10)
+    phase("K6 euler_steps vs plain", steps=steps, cases=cases, max_rel_err=worst[0],
+          max_abs_err=worst[1], tol=FIELD_TOL, library="none: no PyTorch call computes it",
+          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
+    return entry_numbers("K6", times, timed[0], worst[1])
 
 
 def cg_operators(p: SimParams, bc: str):
@@ -337,6 +501,9 @@ def check_cg_kernels(rng, p0: SimParams, sizes=((512, 512), (33, 129)),
         alpha = torch.tensor(1e-3, device=DEVICE)
         a, b = torch.tensor(1.0, device=DEVICE), torch.tensor(0.5, device=DEVICE)
         reps = 50 if size == 512 else 10
+        if size == timed[0]:
+            # K10 at a = 1, its only call site (solvers/cg.py), is r + b p
+            library_k10 = time_ms(lambda: torch.addcmul(r, b, Ap), reps)
         for name, kernel, plain in (
                 ("K8 cross", lambda: cuda_cg.cross_matvec_pAp(A_U, v, out=dead),
                  lambda: cuda_cg.cross_matvec_pAp_plain(A_U, v)),
@@ -352,11 +519,22 @@ def check_cg_kernels(rng, p0: SimParams, sizes=((512, 512), (33, 129)),
           max_abs_err={k: w[1] for k, w in worst.items()},
           max_dot_rel_err=worst_sum, tol=FIELD_TOL, dot_rtol=SUM_RTOL,
           ms={name: {f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in t.items()}
-              for name, t in times.items()})
+              for name, t in times.items()},
+          library={"K10": f"torch.addcmul(r, b, p): {library_k10} ms at {timed[0]}^2",
+                   "K8, K9": "none: no PyTorch call computes them"})
     first = timed[0]
+
+    def mean(values):
+        values = list(values)
+        return sum(values) / len(values)
+
+    # K8's entry is the mean of its cross and anisotropy forms
     return {name: {"max_abs_err": worst[name][1],
-                   "ms": sum(times[t][first][0] for t in keys) / len(keys),
-                   "plain_ms": sum(times[t][first][1] for t in keys) / len(keys)}
+                   "ms": mean(times[t][first][0] for t in keys),
+                   "plain_ms": mean(times[t][first][1] for t in keys),
+                   "bound_ms": mean(bound(t, first * first)["bound_ms"] for t in keys),
+                   "bound_by": bound(keys[0], first * first)["bound_by"],
+                   "library_ms": library_k10 if name == "K10" else None}
             for name, keys in (("K8", ("K8 cross", "K8 aniso")), ("K9", ("K9",)),
                                ("K10", ("K10",)))}
 
@@ -386,22 +564,37 @@ def check_lockstep(cfg, F0, U0, steps=5) -> None:
     phase("lockstep kernel vs plain", steps=steps, max_rel_err=worst, tol=FIELD_TOL)
 
 
+def hold_step(k_state, p_state, state, worst, what) -> None:
+    """One step through the kernels against the same step through the plain
+    versions, from ``state``.  A step moves the fields by ~1e-3, far below
+    FIELD_TOL of the fields, so the step increments next - state are held
+    too: to FIELD_TOL of their own max, plus the two float32 ulps of the
+    field that rounding state + increment leaves.  ``worst`` gathers the
+    largest field and increment gaps."""
+    for g, w, base in ((k_state.F, p_state.F, state.F), (k_state.U, p_state.U, state.U)):
+        worst[0] = max(worst[0], field_err(g, w))
+        inc = w - base
+        size = inc.abs().max().item()
+        d = ((g - base) - inc).abs().max().item()
+        worst[1] = max(worst[1], d / size if size else d)
+        if not d <= FIELD_TOL * size + 2 * EPS32 * w.abs().max().item():
+            raise AssertionError(f"{what}: step increments disagree by {d:.3g} of {size:.3g}")
+    if not worst[0] <= FIELD_TOL:
+        raise AssertionError(f"{what}: fields disagree by {worst[0]:.3g}")
+
+
 def check_si_lockstep(cfg, F0, U0, steps=5) -> None:
     """The semi-implicit path's first steps through the kernels against the
     same steps through the plain versions on the card, each from the same
     state.  The dot products add in other orders, so a solve may stop one
     CG iteration earlier or later near the 5e-9 stop test: counts must
-    agree to within one, and how many steps differ is printed.
-
-    A step moves Phi and T by ~1e-3, far below FIELD_TOL of the fields, so
-    the step increments next - state are held too: to FIELD_TOL of their
-    own max, plus the two float32 ulps of the field that rounding
-    state + increment leaves."""
+    agree to within one, and how many steps differ is printed.  Fields and
+    step increments are held as ``hold_step`` says."""
     p = cfg.params
     kernel_step = make_stepper(p)
     plain_step = make_stepper(p.replace(backend="torch"))
     state = make_state(F0, U0, p, device=DEVICE)
-    worst = worst_inc = 0.0
+    worst = [0.0, 0.0]
     off_by_one = 0
     iters = []
     for _ in range(steps):
@@ -412,28 +605,44 @@ def check_si_lockstep(cfg, F0, U0, steps=5) -> None:
             raise AssertionError(f"semi-implicit lockstep: CG iterations {k_it} vs {p_it}")
         off_by_one += k_it != p_it
         iters.append([k_it, p_it])
-        for g, w, base in ((k_state.F, p_state.F, state.F), (k_state.U, p_state.U, state.U)):
-            worst = max(worst, field_err(g, w))
-            inc = w - base
-            size = inc.abs().max().item()
-            d = ((g - base) - inc).abs().max().item()
-            worst_inc = max(worst_inc, d / size)
-            if not d <= FIELD_TOL * size + 2 * EPS32 * w.abs().max().item():
-                raise AssertionError(f"semi-implicit lockstep: step increments disagree "
-                                     f"by {d:.3g} of {size:.3g}")
-        if not worst <= FIELD_TOL:
-            raise AssertionError(f"semi-implicit lockstep: fields disagree by {worst:.3g}")
+        hold_step(k_state, p_state, state, worst, "semi-implicit lockstep")
         state = p_state
-    phase("semi-implicit lockstep kernel vs plain", steps=steps, max_rel_err=worst,
-          tol=FIELD_TOL, max_increment_rel_err=worst_inc,
+    phase("semi-implicit lockstep kernel vs plain", steps=steps, max_rel_err=worst[0],
+          tol=FIELD_TOL, max_increment_rel_err=worst[1],
           increment_tol="FIELD_TOL * max|increment| + 2 ulp(max|field|)",
           steps_with_cg_iters_off_by_one=off_by_one, cg_iters_kernel_vs_plain=iters)
 
 
-def check_run(res, cfg) -> tuple:
+def check_rk4_lockstep(routes, steps=5) -> None:
+    """The RK4 path's first steps through the kernels against the same
+    steps through the plain step on the card, each from the same state, on
+    both routes: the staged one (K1 x 3 + K4) at 512^2 and K3 on the
+    4096^2 cut.  Fields and step increments are held as ``hold_step``
+    says."""
+    out = {}
+    for name, cfg in routes:
+        p = cfg.params
+        kernel_step = make_stepper(p)
+        plain_step = make_stepper(p.replace(backend="torch"))
+        state = make_state(*make_initial_fields(p, cfg.initial, device=DEVICE), p,
+                           device=DEVICE)
+        worst = [0.0, 0.0]
+        for _ in range(steps):
+            k_state, _ = kernel_step(state)
+            p_state, _ = plain_step(state)
+            hold_step(k_state, p_state, state, worst, f"RK4 lockstep ({name})")
+            state = p_state
+        out[name] = {"max_rel_err": worst[0], "max_increment_rel_err": worst[1]}
+    phase("RK4 lockstep kernels vs plain", steps=steps, tol=FIELD_TOL,
+          increment_tol="FIELD_TOL * max|increment| + 2 ulp(max|field|)", routes=out)
+
+
+def check_run(res, cfg, grow=True) -> tuple:
     """What a run wrote: 1 + times frames of the config's size, finite, Phi
-    in [-0.1, 1.1], a seed that grew, and one stats row per step.  Returns
-    the stats header and rows."""
+    in [-0.1, 1.1], a seed that grew (with ``grow`` false: that did not
+    shrink), and one stats row per step, or no stats.csv when the run
+    collects no stats.  Returns the stats header and rows (None without
+    stats), the first and last solid fraction and the number of frames."""
     p = cfg.params
     frames = sorted(f for f in os.listdir(res.save_folder) if f.endswith(".bin"))
     if len(frames) != 1 + cfg.snapshot_times:
@@ -448,10 +657,16 @@ def check_run(res, cfg) -> tuple:
             raise AssertionError(f"{name}: non-finite fields")
         if not (F.min() >= -0.1 and F.max() <= 1.1):
             raise AssertionError(f"{name}: Phi in [{F.min()}, {F.max()}]")
-        solid.append(float(F.mean()))
-    if not solid[-1] > solid[0]:
-        raise AssertionError(f"the seed did not grow: solid fraction {solid}")
-    with open(os.path.join(res.save_folder, "stats.csv")) as f:
+        solid.append(float(F.astype(np.float64).mean()))
+    if not (solid[-1] > solid[0] if grow else solid[-1] >= solid[0]):
+        raise AssertionError(f"the seed did not {'grow' if grow else 'hold'}: "
+                             f"solid fraction {solid}")
+    stats_csv = os.path.join(res.save_folder, "stats.csv")
+    if not cfg.collect_stats:
+        if os.path.exists(stats_csv):
+            raise AssertionError("stats.csv written by a run that collects no stats")
+        return None, None, [solid[0], solid[-1]], len(frames)
+    with open(stats_csv) as f:
         lines = f.read().splitlines()
     header = [c.strip('"') for c in lines[1].split(",")]
     rows = np.array([[float(v) if v else np.nan for v in ln.split(",")] for ln in lines[2:]])
@@ -460,7 +675,7 @@ def check_run(res, cfg) -> tuple:
     return header, rows, [solid[0], solid[-1]], len(frames)
 
 
-def drive(overrides) -> dict:
+def drive(overrides, grow=True) -> dict:
     """``run_config_file`` on the card with every kernel launch, every CG
     host read and every call of a plain version counted (each count set to 0
     just before the run and read just after), then what it wrote checked.
@@ -491,7 +706,7 @@ def drive(overrides) -> dict:
             for (mod, name), fn in originals.items():
                 setattr(mod, name, fn)
             SYSTEM.set_file(None)  # the run's log.txt lives in the temp folder
-        header, rows, solid, n_frames = check_run(res, cfg)
+        header, rows, solid, n_frames = check_run(res, cfg, grow)
     if plain_calls:
         raise AssertionError(f"the path left the kernels: {plain_calls}")
     p = cfg.params
@@ -500,7 +715,8 @@ def drive(overrides) -> dict:
                 summary=dict(grid=f"{p.ny}x{p.nx}", dtype=p.dtype, solver=p.solver.value,
                              stop_after=cfg.stop_time, steps=res.iters,
                              runtime_s=res.runtime, ms_per_step=res.avg_step_ms,
-                             frames=n_frames, stats_rows=len(rows), solid_fraction=solid,
+                             frames=n_frames, stats_rows=None if rows is None else len(rows),
+                             solid_fraction=solid,
                              launches={k: v for k, v in launches.items() if v},
                              plain_calls=plain_calls))
 
@@ -565,6 +781,52 @@ def euler_path() -> dict:
     return n
 
 
+def euler_no_stats_path() -> dict:
+    """Forward Euler without stats: each event's steps counted on the host,
+    taken 4 at a time through K6, and any rest through K1."""
+    run = drive([EULER, NO_STATS])
+    n, steps = run["launches"], run["res"].iters
+    expect(n["euler_steps"] > 0 and 4 * n["euler_steps"] + n["blend_rhs"] == steps
+           and sum(n.values()) == n["euler_steps"] + n["blend_rhs"],
+           "K6 for 4 steps per launch, K1 for the rest, nothing else", run)
+    phase("Euler path, stats off", **run["summary"])
+    return n
+
+
+def rk4_path() -> dict:
+    """RK4 at 512^2, below RK4_FULLSTEP_MIN_CELLS: K1 for k1, k2 and k3,
+    then K4, once per step."""
+    run = drive([RK4])
+    n, steps = run["launches"], run["res"].iters
+    expect(steps > 0 and n["blend_rhs"] == 3 * steps and n["rk4_final_stage"] == steps
+           and sum(n.values()) == 4 * steps, "K1 x 3 + K4 per step, nothing else", run)
+    phase("RK4 path (512^2, staged route)", **run["summary"])
+    return n
+
+
+def rk4_cut_path() -> dict:
+    """RK4 on the 4096^2 cut, above RK4_FULLSTEP_MIN_CELLS: K3 once per
+    step.  300 steps move the front by a small part of a cell, so the run
+    is held to a solid fraction that did not fall; the RK4 lockstep holds
+    this route's steps to the plain step."""
+    run = drive([RK4, CUT], grow=False)
+    n, steps = run["launches"], run["res"].iters
+    expect(steps > 0 and n["rk4_full"] == steps and sum(n.values()) == steps,
+           "K3 once per step, nothing else", run)
+    solid = run["summary"]["solid_fraction"]
+    phase("RK4 path (4096^2 cut, whole-step route)", solid_fraction_held="did not fall",
+          grew=solid[1] > solid[0], **run["summary"])
+    return n
+
+
+def exact_path() -> None:
+    """The exact solver (analytic fields at each step's start time): no
+    kernel."""
+    run = drive([EXACT])
+    expect(run["res"].iters > 0 and sum(run["launches"].values()) == 0, "no kernel", run)
+    phase("exact solver path", **run["summary"])
+
+
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
     return {"name": name, "route": "cuda", "source": f"bachelors_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, **measured}
@@ -590,21 +852,39 @@ def main() -> None:
     si_cfg = load_config(CONFIG, [SEMI])
     k1 = check_k1(rng)
     k2 = check_k2(rng, (cfg.params, F0, U0))
+    k4 = check_k4(rng)
+    k3 = check_k3(rng)
+    k6 = check_k6(rng)
     k7 = check_k7(rng)
     k8_10 = check_cg_kernels(rng, si_cfg.params)
     check_lockstep(cfg, F0, U0)
     check_si_lockstep(si_cfg, F0, U0)
+    check_rk4_lockstep([("512^2, staged", load_config(CONFIG, [RK4])),
+                        ("4096^2 cut, K3", load_config(CONFIG, [RK4, CUT]))])
 
     rkm = rkm_path()
     si = si_path([SEMI], "semi-implicit path")
     si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
     euler = euler_path()
+    euler_fast = euler_no_stats_path()
+    rk4 = rk4_path()
+    rk4_cut = rk4_cut_path()
+    exact_path()
 
     print(json.dumps({"kernels": [
-        kernel_entry("K1 blend_rhs (single-stage RHS; Euler path, euler mode)", "rhs.cu",
-                     "bachelors_tpu/ops/pallas_rhs.py:344", euler["blend_rhs"], k1),
+        kernel_entry("K1 blend_rhs (single-stage RHS; Euler path in euler mode, RK4 path "
+                     "for k1-k3)", "rhs.cu", "bachelors_tpu/ops/pallas_rhs.py:344",
+                     euler["blend_rhs"] + rk4["blend_rhs"], k1),
         kernel_entry("K2 rkm_attempt (whole Merson attempt; RKM path)", "rhs.cu",
                      "bachelors_tpu/ops/pallas_rhs.py:941", rkm["rkm_attempt"], k2),
+        kernel_entry("K3 rk4_full (whole RK4 step; RK4 path on the 4096^2 cut)", "rhs.cu",
+                     "bachelors_tpu/ops/pallas_rhs.py:1156", rk4_cut["rk4_full"], k3),
+        kernel_entry("K4 rk4_final_stage (RK4 stage 4 + combination; RK4 path at 512^2)",
+                     "rhs.cu", "bachelors_tpu/ops/pallas_rhs.py:433",
+                     rk4["rk4_final_stage"], k4),
+        kernel_entry("K6 euler_steps (4 Euler steps per pass; Euler path with stats off)",
+                     "rhs.cu", "bachelors_tpu/ops/pallas_rhs.py:797",
+                     euler_fast["euler_steps"], k6),
         kernel_entry("K7 si_prepare (semi-implicit prepare)", "rhs.cu",
                      "bachelors_tpu/ops/pallas_rhs.py:612", si["si_prepare"], k7),
         kernel_entry("K8 matvec_pAp (CG matvec + <p,Ap>, cross and aniso)", "cg.cu",

@@ -20,7 +20,7 @@ from bachelors_tpu_torch.core.params import BoundaryType, SimParams
 from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix, cross_matvec
 from bachelors_tpu_torch.solvers import cg
-from torch_parity import assert_match, cuda_device, random_fields  # noqa: F401
+from torch_parity import assert_match, cuda_device, random_fields, seed_fields  # noqa: F401
 
 BCS = ["periodic", "neumann", "dirichlet"]
 BC_PAIRS = [("periodic", "periodic"), ("neumann", "neumann"),
@@ -45,6 +45,16 @@ def _on(states, device):
 
 CASES = [((512, 512), 0.25, 6.0), ((33, 129), 0.25, 4.5), ((33, 129), 0.0, 6.0),
          ((1, 7), 0.25, 6.0)]
+# K3, K4 and K6 also at the mixed pairs the JAX fused kernels get wrong
+# (ROADMAP §3)
+ALL_PAIRS = BC_PAIRS + [("periodic", "neumann"), ("neumann", "periodic")]
+
+
+def _seeded(gen, ny, nx, device):
+    """A smooth seed with noise: several Euler or RK4 stages from a
+    standard-normal field blow up and amplify rounding."""
+    F, U = seed_fields(gen, ny, nx, "float32")
+    return torch.from_numpy(F).to(device), torch.from_numpy(U).to(device)
 
 
 @pytest.mark.cuda
@@ -82,6 +92,49 @@ def test_rkm_attempt_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_rk4_final_stage_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa: F811
+    for (ny, nx), S, m0 in CASES:
+        p = _params(ny, nx, f_bc, u_bc, S, m0)
+        x, k1, k2, k3 = _on(random_fields(gen, ny, nx, "float32", 4), cuda_device)
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        before = cuda_rhs.LAUNCHES["rk4_final_stage"]
+        got = cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, 0.03, d)
+        assert cuda_rhs.LAUNCHES["rk4_final_stage"] == before + 1
+        for g, w in zip(got, cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p, 0.03, d)):
+            assert_match(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_rk4_full_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa: F811
+    for (ny, nx), S, m0 in CASES:
+        p = _params(ny, nx, f_bc, u_bc, S, m0)
+        F, U = _seeded(gen, ny, nx, cuda_device)
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        before = cuda_rhs.LAUNCHES["rk4_full"]
+        got = cuda_rhs.rk4_full(F, U, p, 0.03, d)
+        assert cuda_rhs.LAUNCHES["rk4_full"] == before + 1
+        for g, w in zip(got, cuda_rhs.rk4_full_plain(F, U, p, 0.03, d)):
+            assert_match(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_euler_steps_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa: F811
+    steps = cuda_rhs.K6_STEPS
+    for (ny, nx), S, m0 in CASES:
+        p = _params(ny, nx, f_bc, u_bc, S, m0)
+        F, U = _seeded(gen, ny, nx, cuda_device)
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        before = cuda_rhs.LAUNCHES["euler_steps"]
+        got = cuda_rhs.euler_steps(F, U, p, steps, 0.03, d)
+        assert cuda_rhs.LAUNCHES["euler_steps"] == before + 1
+        for g, w in zip(got, cuda_rhs.euler_steps_plain(F, U, p, steps, 0.03, d)):
+            assert_match(g, w)
+
+
+@pytest.mark.cuda
 def test_rkm_attempt_error_keeps_nan(gen, cuda_device):  # noqa: F811
     p = _params(64, 64, "neumann", "neumann", 0.25, 6.0)
     (F, U), = _on(random_fields(gen, 64, 64, "float32"), cuda_device)
@@ -96,6 +149,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
     F = torch.zeros(8, 8, dtype=torch.float64, device=cuda_device)
     with pytest.raises(NotImplementedError, match="float64"):
         cuda_rhs.rkm_attempt(F, F, np.float64(TAU), p)
+    for call in (lambda: cuda_rhs.rk4_full(F, F, p),
+                 lambda: cuda_rhs.rk4_final_stage((F, F), (F, F), (F, F), (F, F), p),
+                 lambda: cuda_rhs.euler_steps(F, F, p, 4)):
+        with pytest.raises(NotImplementedError, match="float64"):
+            call()
+    with pytest.raises(ValueError, match="built for 4 steps"):
+        cuda_rhs.euler_steps(F.float(), F.float(), p, 2)
     F32 = torch.zeros(8, 16, device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         cuda_rhs.rkm_attempt(F32, F32, np.float32(TAU), p)

@@ -125,7 +125,7 @@ def test_exact_mode_fields_and_forcing_match_jax():
         Phi_tolerance=1e-6, T_tolerance=1e-6))
     tp = params_from_jax_fields(dataclasses.asdict(jp))
     jF, jU = jax_initial(jp, JIC(circle_radius=0.25))
-    tF, tU = make_initial_fields(tp, InitialConditions(circle_radius=0.25))
+    tF, tU = make_initial_fields(tp, InitialConditions(circle_radius=0.25), device="cpu")
     np.testing.assert_allclose(tF.numpy(), np.asarray(jF), rtol=1e-12, atol=1e-15)
     np.testing.assert_allclose(tU.numpy(), np.asarray(jU), rtol=1e-12, atol=1e-15)
 
@@ -133,7 +133,8 @@ def test_exact_mode_fields_and_forcing_match_jax():
     js = jax_make_state(jF, jU, jp)
     for _ in range(4):
         ts, tstats = tstep(state_from_numpy(np.array(js.F), np.array(js.U),
-                                            float(js.t), int(js.iter), float(js.tau)))
+                                            float(js.t), int(js.iter), float(js.tau),
+                                            device="cpu"))
         js, jstats = jstep(js)
         assert (ts.iter, tstats.Phi_iters) == (int(js.iter), int(jstats.Phi_iters))
         assert ts.t == pytest.approx(float(js.t), rel=1e-12)
@@ -162,7 +163,7 @@ def test_runners_match_jax(rng):
     F, U = seed_fields(rng, 32, 32, "float64")
     jstep, tstep = jax_make_stepper(jp), make_stepper(tp)
     js = jax.jit(lambda s: jax_until(jstep, s, 1e-6))(jax_make_state(F, U, jp))
-    ts = advance_until(tstep, make_state(F, U, tp), 1e-6)
+    ts = advance_until(tstep, make_state(F, U, tp, device="cpu"), 1e-6)
     assert ts.iter == int(js.iter) > 3
     assert ts.t == pytest.approx(float(js.t), rel=TIME_RTOL)
     np.testing.assert_allclose(ts.F.numpy(), np.asarray(js.F), rtol=1e-12, atol=FIELD_ATOL)
@@ -170,7 +171,8 @@ def test_runners_match_jax(rng):
     t_stop = 5e-7
     jf, jstats, jmask = jax.jit(lambda s: jax_collect(jstep, s, 16, t_stop=t_stop))(
         jax_make_state(F, U, jp))
-    tf, rows = advance_collect(tstep, make_state(F, U, tp), 16, t_stop=t_stop)
+    tf, rows = advance_collect(tstep, make_state(F, U, tp, device="cpu"), 16,
+                               t_stop=t_stop)
     live = int(np.asarray(jmask).sum())
     assert len(rows) == live == tf.iter == int(jf.iter) < 16
     assert [r.Phi_iters for r in rows] == np.asarray(jstats.Phi_iters)[:live].tolist()
@@ -208,8 +210,8 @@ def test_resume_continues_the_run(tmp_path):
     ("[tpu]\nensemble", "4", "ensembles"),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),
-    ("[simulation]\nsolver", "explicit-rk4", "RK4"),
-    ("[simulation]\nsolver", "exact", "exact"),
+    ("[program]\ndebug", "true", "debug"),
+    ("[snapshot]\nnetcdf", "true", "netcdf"),
     ("[initial]\nnoise_T", "0.1", "noise"),
     ("[tpu]\ndtype", "bfloat16", "bfloat16"),
 ])
@@ -225,6 +227,23 @@ def test_cuda_device_without_card_is_an_error(tmp_path, monkeypatch):
         run_config_file(CONFIG, _overrides(tmp_path), device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["make_state", "make_initial_fields", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Called without a device, an entry point that makes tensors runs on
+    the card: with none there it raises, and never falls back to the CPU."""
+    import bachelors_tpu_torch as bt
+    from bachelors_tpu_torch.convert import state_from_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = bt.SimParams(nx=8, ny=8)
+    F = np.zeros((8, 8), np.float32)
+    calls = {"make_state": lambda: bt.make_state(F, F, p),
+             "make_initial_fields": lambda: bt.make_initial_fields(p, bt.InitialConditions()),
+             "state_from_numpy": lambda: state_from_numpy(F, F, 0.0, 0, 5e-6)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
 def test_port_imports_and_steps_without_jax(tmp_path):
     code = textwrap.dedent(f"""
         import sys
@@ -234,8 +253,9 @@ def test_port_imports_and_steps_without_jax(tmp_path):
         import bachelors_tpu_torch as bt
         from bachelors_tpu_torch.app.driver import main
         p = bt.SimParams(nx=16, ny=16, S=0.25)
-        F, U = bt.make_initial_fields(p, bt.InitialConditions(circle_radius=0.5))
-        state, stats = bt.make_stepper(p)(bt.make_state(F, U, p))
+        F, U = bt.make_initial_fields(p, bt.InitialConditions(circle_radius=0.5),
+                                      device="cpu")
+        state, stats = bt.make_stepper(p)(bt.make_state(F, U, p, device="cpu"))
         assert state.iter == 1 and stats.attempts >= 1
         assert main([{CONFIG!r}, "--device", "cpu",
                      "--set", "simulation.mesh_size_x=16",

@@ -1,9 +1,11 @@
-"""The slice's solvers end to end: config -> initial fields -> semi-implicit
-(with and without the corrector loop) or Euler steps -> stats -> .bin
-frames, through the JAX package's driver (XLA path on the CPU) and the
-port's driver on the CPU, on a 64^2 cut of the shipped config.ini at
-float64, compared frame by frame and stats.csv row by row -- the CG
-iteration counts and the step-residual columns included.
+"""The fixed-dt solvers end to end: config -> initial fields ->
+semi-implicit (with and without the corrector loop), Euler or RK4 steps ->
+stats -> .bin frames, through the JAX package's driver (XLA path on the
+CPU) and the port's driver on the CPU, on a 64^2 cut of the shipped
+config.ini at float64, compared frame by frame and stats.csv row by row --
+the CG iteration counts and the step-residual columns included.  Euler
+with ``collect_stats = false`` takes the driver's host-counted path, in
+blocks of 4 steps (``make_euler_pair_stepper``), and writes no stats.csv.
 
 Fixed-dt runs have no step-size controller to amplify rounding
 (tests/test_torch_driver.py), so the frames hold to the one-step contract
@@ -23,6 +25,7 @@ from bachelors_tpu.io import config as jconfig
 from bachelors_tpu.io.snapshot import load_bin_maps as jax_load_bin_maps
 from bachelors_tpu_torch.app.driver import run_simulation
 from bachelors_tpu_torch.io import config as tconfig
+from bachelors_tpu_torch.ops import cuda_rhs
 
 torch.set_num_threads(2)
 
@@ -37,15 +40,45 @@ RUNS = {
     "semi-implicit": (SEMI, {}),
     "semi-implicit+corrector": (CORRECTOR, {"collect_step_residual": "true"}),
     "explicit": ({"solver": "explicit"}, {}),
+    "explicit, no stats": ({"solver": "explicit"}, {"collect_stats": "false"}),
+    "explicit-rk4": ({"solver": "explicit-rk4"}, {}),
 }
 
 
-def _overrides(folder, sim, program):
+def _overrides(folder, sim, program, dtype="float64"):
     sim = {"mesh_size_x": 64, "mesh_size_y": 64, "stop_after": 4e-4, **sim}
     return ["[simulation]\n" + "".join(f"{k} = {v}\n" for k, v in sim.items()),
             "[program]\n" + "".join(f"{k} = {v}\n" for k, v in program.items()),
             f"[snapshot]\ntimes = 2\nfolder = {folder}\n",
-            "[tpu]\ndtype = float64\n"]
+            f"[tpu]\ndtype = {dtype}\n"]
+
+
+def _spy_blocks(monkeypatch):
+    """The depths of the blocks of Euler steps the run takes (the pair
+    stepper's plain version on the CPU)."""
+    blocks = []
+    plain = cuda_rhs.euler_steps_plain
+
+    def spy(F, U, p, steps, *a):
+        blocks.append(steps)
+        return plain(F, U, p, steps, *a)
+
+    monkeypatch.setattr(cuda_rhs, "euler_steps_plain", spy)
+    return blocks
+
+
+def _run_both(tmp_path, sim, program, dtype="float64"):
+    text = open(CONFIG).read()
+    cfgs = []
+    for mod, name in ((jconfig, "jax"), (tconfig, "torch")):
+        cfg = mod.parse_config(text, _overrides(tmp_path / name, sim, program, dtype))
+        cfg.params = cfg.params.replace(f32_transcendentals=False)
+        cfgs.append(cfg)
+    jres = jax_run_simulation(cfgs[0])
+    tres = run_simulation(cfgs[1], device="cpu")
+    assert (tres.iters, tres.snapshots) == (jres.iters, jres.snapshots) == (80, 2)
+    assert tres.sim_time == pytest.approx(jres.sim_time, rel=1e-12)
+    return tres, _run_folder(tmp_path / "jax"), _run_folder(tmp_path / "torch")
 
 
 def _run_folder(root):
@@ -59,19 +92,11 @@ def _read_csv(path):
 
 
 @pytest.mark.parametrize("run", list(RUNS))
-def test_solver_runs_match_jax_f64(run, tmp_path):
+def test_solver_runs_match_jax_f64(run, tmp_path, monkeypatch):
     sim, program = RUNS[run]
-    text = open(CONFIG).read()
-    cfgs = []
-    for mod, name in ((jconfig, "jax"), (tconfig, "torch")):
-        cfg = mod.parse_config(text, _overrides(tmp_path / name, sim, program))
-        cfg.params = cfg.params.replace(f32_transcendentals=False)
-        cfgs.append(cfg)
-    jres = jax_run_simulation(cfgs[0])
-    tres = run_simulation(cfgs[1], device="cpu")
-    assert (tres.iters, tres.snapshots) == (jres.iters, jres.snapshots) == (80, 2)
-    assert tres.sim_time == pytest.approx(jres.sim_time, rel=1e-12)
-    jdir, tdir = _run_folder(tmp_path / "jax"), _run_folder(tmp_path / "torch")
+    blocks = _spy_blocks(monkeypatch)
+    tres, jdir, tdir = _run_both(tmp_path, sim, program)
+    assert blocks == []  # float64 takes single steps until its kernels land
 
     frames = sorted(f for f in os.listdir(jdir) if f.endswith(".bin"))
     assert frames == sorted(f for f in os.listdir(tdir) if f.endswith(".bin"))
@@ -86,6 +111,9 @@ def test_solver_runs_match_jax_f64(run, tmp_path):
             np.testing.assert_allclose(got.maps[k], want.maps[k], rtol=1e-12,
                                        atol=1e-13, err_msg=f"{name}:{k}")
 
+    if program.get("collect_stats") == "false":
+        assert not any(os.path.exists(os.path.join(d, "stats.csv")) for d in (jdir, tdir))
+        return
     jrows = _read_csv(os.path.join(jdir, "stats.csv"))
     trows = _read_csv(os.path.join(tdir, "stats.csv"))
     assert trows[:2] == jrows[:2]  # "nx,ny,dt" line and the column header
@@ -114,3 +142,24 @@ def test_f32_tolerance_warning_only_for_rkm(solver, warns, tmp_path, capsys):
     assert ("float32 truncation-noise floor" in err) == warns
     assert ("semi-implicit phase solve: CG on the per-cell anisotropy operator"
             in err) == (not warns)
+
+
+def test_euler_without_stats_runs_in_blocks_f32(tmp_path, monkeypatch):
+    """config.ini with forward Euler and collect_stats = false at float32:
+    the driver counts each event's steps on the host and takes them in
+    blocks of 4 (2 events of 40 steps, so 20 blocks and no single step);
+    the frames agree with the JAX driver's single steps at f32's rtol
+    1e-5."""
+    blocks = _spy_blocks(monkeypatch)
+    _, jdir, tdir = _run_both(tmp_path, {"solver": "explicit"}, {"collect_stats": "false"},
+                              "float32")
+    assert blocks == [4] * 20
+    for name in ("maps_0001.bin", "maps_0002.bin"):
+        want = jax_load_bin_maps(os.path.join(jdir, name))
+        got = jax_load_bin_maps(os.path.join(tdir, name))
+        assert got.iter == want.iter and got.time == pytest.approx(want.time, rel=1e-12)
+        for k in ("F", "U"):
+            scale = np.abs(want.maps[k]).max()
+            np.testing.assert_allclose(got.maps[k], want.maps[k], rtol=1e-5,
+                                       atol=1e-5 * scale, err_msg=f"{name}:{k}")
+    assert not any(os.path.exists(os.path.join(d, "stats.csv")) for d in (jdir, tdir))

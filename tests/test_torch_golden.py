@@ -1,5 +1,5 @@
-"""The port's Euler and semi-implicit steppers against the committed golden
-frames (tests/golden/{euler,semi}_64.bin), with the parameters and bars of
+"""The port's Euler, RK4 and semi-implicit steppers against the committed
+golden frames (tests/golden/{euler,rk4,semi}_64.bin), with the parameters and bars of
 tests/test_golden.py: float64 to rtol 1e-12 / atol 1e-13 with the same
 iteration count, float32 to a relative L2 error below 2e-5.  These pin the
 port to the reference's committed numbers, not only to the JAX package."""
@@ -16,6 +16,7 @@ torch.set_num_threads(2)
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 CASES = {"euler": (bt.SolverType.EXPLICIT_EULER, 100),
+         "rk4": (bt.SolverType.EXPLICIT_RK4, 20),
          "semi": (bt.SolverType.SEMI_IMPLICIT, 20)}
 
 
@@ -25,8 +26,8 @@ def _run(solver, nsteps, dtype):
                      Phi_tolerance=1e-10, T_tolerance=1e-10,
                      Phi_max_iters=100, T_max_iters=100)
     F, U = bt.make_initial_fields(p, bt.InitialConditions(
-        circle_center=(2.0, 2.0), circle_radius=0.3, circle_fade=4.0))
-    state, step = bt.make_state(F, U, p), bt.make_stepper(p)
+        circle_center=(2.0, 2.0), circle_radius=0.3, circle_fade=4.0), device="cpu")
+    state, step = bt.make_state(F, U, p, device="cpu"), bt.make_stepper(p)
     for _ in range(nsteps):
         state, _ = step(state)
     return state

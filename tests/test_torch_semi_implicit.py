@@ -163,7 +163,7 @@ def test_back_substitution_of_the_ports_step(S, guess):
     import bachelors_tpu_torch as bt
 
     F, U = bt.make_initial_fields(tp, bt.InitialConditions(
-        circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=8.0))
+        circle_center=(2.0, 2.0), circle_radius=0.4, circle_fade=8.0), device="cpu")
     nF, nU, rF, rU = tsi.semi_implicit_step_based(F, U, U, tp)
     assert rF.converged and rU.converged
     eF, eU = tsi.back_substitution_error(nF, nU, F, U, U, tp)
@@ -195,7 +195,8 @@ def _run_steppers(jp, tp, F, U, n):
     rows = []
     for _ in range(n):
         ts, tstats = tstep(state_from_numpy(np.array(js.F), np.array(js.U),
-                                            float(js.t), int(js.iter), float(js.tau)))
+                                            float(js.t), int(js.iter), float(js.tau),
+                                            device="cpu"))
         js, jstats = jstep(js)
         rows.append((js, jstats, ts, tstats))
     return rows
