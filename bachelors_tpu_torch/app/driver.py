@@ -13,8 +13,10 @@ each CG iteration its stop test, so there is nothing to gain from the JAX
 package's device-side runners and their dispatch-size probes.  A fixed-dt
 run that collects no stats counts its steps on the host instead, as the
 JAX driver does (`bachelors_tpu/app/driver.py:437-463`), and advances with
-``advance_n``: forward Euler then takes ``EULER_BLOCK_STEPS`` steps per
-kernel launch (``make_euler_pair_stepper``).
+``advance_n``: forward Euler then takes 4 steps per kernel launch, or 8 on
+float64 grids from 1M cells (``make_euler_pair_stepper``).  A float64 run
+computes in double throughout, on the same kernels instantiated for it; its
+snapshots hold the doubles.
 """
 from __future__ import annotations
 
@@ -103,7 +105,7 @@ def _initial_state(cfg: SimConfig, device: torch.device) -> SimState:
     return make_state(F, U, p, device=device)
 
 
-def _echo_config(cfg: SimConfig) -> None:
+def _echo_config(cfg: SimConfig, device: torch.device) -> None:
     p = cfg.params
     log.info(f"solver = {p.solver.value}")
     log.info(f"T_boundary = {p.T_boundary.value}")
@@ -115,7 +117,7 @@ def _echo_config(cfg: SimConfig) -> None:
               "S", "m0", "theta0", "dtype", "backend"):
         log.info(f"{k} = {getattr(p, k)}")
     if p.solver == SolverType.SEMI_IMPLICIT:
-        log.info(f"semi-implicit phase solve: {cg_branch(p)}")
+        log.info(f"semi-implicit phase solve: {cg_branch(p, device)}")
 
 
 def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
@@ -166,7 +168,7 @@ def run_simulation(cfg: SimConfig, device="cuda",
         folder = make_save_folder(cfg.snapshot_folder, cfg.snapshot_prefix,
                                   cfg.snapshot_postfix, p.solver.value)
         SYSTEM.set_file(os.path.join(folder, "log.txt"))
-    _echo_config(cfg)
+    _echo_config(cfg, dev)
     log.info(f"device = {dev}"
              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
 

@@ -4,8 +4,15 @@
 // entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().  Scalars that the loop computes on the device
 // (alpha, a, b) are read through pointers, so the host never fetches them.
+// Each kernel is a template on the field type: entry points `bt_*_f32` run
+// it at float32, `bt_*_f64` at float64.  The float64 semi-implicit step
+// follows the JAX package's accelerator route (`bachelors_tpu/solvers/
+// semi_implicit.py:_semi_implicit_step_dd` :234): a CG solve, the true
+// residual of its result (K14), a second CG solve on that residual.  The
+// TPU solves in float32 and takes the residual in float32 pairs because it
+// has no float64 ALU; the H100 has one, so here both run in double.
 //
-// K8  bt_matvec_pAp_f32: replaces `bachelors_tpu/ops/pallas_cg.py:_matvec_pAp`
+// K8  bt_matvec_pAp: replaces `bachelors_tpu/ops/pallas_cg.py:_matvec_pAp`
 //     (:49) with blend=False (entries `cross_matvec_pAp` :205 and
 //     `aniso_matvec_pAp` :214).  Ap for the 5-point operator, either the
 //     constant cross form C p + X (E+W) + Y (N+S) or the per-cell form
@@ -17,19 +24,34 @@
 //     per block, then a one-block kernel adds the partials.  The output may
 //     be a dead buffer the caller passes in, never p (the wrapper checks).
 //
-// K9  bt_update_xr_rr_f32: replaces `pallas_cg.py:_update_xr_rr` (:310,
+// K9  bt_update_xr_rr: replaces `pallas_cg.py:_update_xr_rr` (:310,
 //     entry `update_xr_rr` :343).  x += alpha p and r -= alpha Ap in place,
 //     and <r', r'> of the new r: block partials, then the one-block sum.
 //     Pointwise, so in place is safe.  Bound by bytes (4 fields read, 2
 //     written).
 //
-// K10 bt_axpby_f32: replaces `pallas_cg.py:_axpby_inplace` (:274, entry
+// K10 bt_axpby: replaces `pallas_cg.py:_axpby_inplace` (:274, entry
 //     `axpby_inplace` :300).  p = a r + b p in place.  Bound by bytes.
+//
+// K14 bt_si_residual: replaces `bachelors_tpu/ops/pallas_dd.py:
+//     _make_cross_residual_kernel` (:749, via `_cross_residual_call` :882;
+//     entries `cross_residual_dd` :940, `aniso_residual_dd` :950,
+//     `heat_residual_dd` :960).  The refinement residual r1 = r0 - A e of
+//     the float64 semi-implicit step, A the constant cross operator (mode
+//     0), the per-cell anisotropy operator with map s (mode 1), or in heat
+//     mode the cross operator with r0 built in the kernel as
+//     L (e1_F + e2_F) + uterm (mode 2) plus the corrector/gamma terms
+//     (mode 3).  The TPU kernel carries r0 and the products in float32
+//     pairs; here they are Real.  Ghosts take Dirichlet value 0, as K8's.
+//     Bound by bytes (2-5 fields read, 1 written).  Design: K8's matvec,
+//     one thread per cell, without the dot product.  The output must not
+//     overlap e, whose neighbours it reads.
 //
 // The partial sums are added by a second kernel (`sum_partials_kernel`),
 // as K2's error maxima are, never by a library reduction.  Block sums run
 // in a fixed tree order, so a result does not change from run to run; it
-// differs from torch.sum's order by ~1e-7 relative in float32.
+// differs from torch.sum's order by ~1e-7 relative in float32 (~1e-16 in
+// float64).
 #include <cuda_runtime.h>
 
 #include "physics.cuh"
@@ -42,16 +64,16 @@ constexpr int kCgThreads = kCgBlockX * kCgBlockY;
 constexpr int kSumThreads = 1024;
 
 // Sum of v over the block's threads (a multiple of 32), valid in thread 0.
-// `red` holds one float per warp.
-template <int THREADS>
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// `red` holds one value per warp.
+template <int THREADS, class Real>
+__device__ __forceinline__ Real block_sum(Real v, Real* red) {
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   if ((tid & 31) == 0) red[tid >> 5] = v;
   __syncthreads();
   if (tid < 32) {
-    v = tid < THREADS / 32 ? red[tid] : 0.0f;
+    v = tid < THREADS / 32 ? red[tid] : Real(0);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
@@ -60,74 +82,110 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // ---------------------------------------------------------------- K8 ----
 
-template <bool WITH_S>
+template <bool WITH_S, class Real>
 __global__ void __launch_bounds__(kCgThreads)
-    matvec_pAp_kernel(const float* __restrict__ p, const float* __restrict__ s,
-                      float* __restrict__ out, float* __restrict__ partials,
-                      int ny, int nx, int bc, float C, float X, float Y) {
-  __shared__ float red[kCgThreads / 32];
+    matvec_pAp_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
+                      Real* __restrict__ out, Real* __restrict__ partials, int ny,
+                      int nx, int bc, Real C, Real X, Real Y) {
+  __shared__ Real red[kCgThreads / 32];
   const int j = blockIdx.x * kCgBlockX + threadIdx.x;
   const int i = blockIdx.y * kCgBlockY + threadIdx.y;
-  float pAp = 0.0f;
+  Real pAp = Real(0);
   if (i < ny && j < nx) {
     const int c = i * nx + j;
-    const float pc = p[c];
-    const Cross n = cross_of(p, bc, pc, 0.0f, i, j, ny, nx);
-    float Av;
+    const Real pc = p[c];
+    const Cross<Real> n = cross_of(p, bc, pc, Real(0), i, j, ny, nx);
+    Real Av;
     if (WITH_S) {
-      const float sv = s[c];
-      Av = (1.0f + C * sv) * pc + (X * sv) * (n.E + n.W) + (Y * sv) * (n.N + n.S);
+      const Real sv = s[c];
+      Av = (Real(1) + C * sv) * pc + (X * sv) * (n.E + n.W) + (Y * sv) * (n.N + n.S);
     } else {
       Av = C * pc + X * (n.E + n.W) + Y * (n.N + n.S);
     }
     out[c] = Av;
     pAp = pc * Av;
   }
-  const float total = block_sum<kCgThreads>(pAp, red);
+  const Real total = block_sum<kCgThreads>(pAp, red);
   if (threadIdx.x == 0 && threadIdx.y == 0)
     partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
 }
 
 // ---------------------------------------------------------------- K9 ----
 
+template <class Real>
 __global__ void __launch_bounds__(kCgThreads)
-    update_xr_rr_kernel(float* __restrict__ x, float* __restrict__ r,
-                        const float* __restrict__ p, const float* __restrict__ Ap,
-                        const float* __restrict__ alpha,
-                        float* __restrict__ partials, int n) {
-  __shared__ float red[kCgThreads / 32];
+    update_xr_rr_kernel(Real* __restrict__ x, Real* __restrict__ r,
+                        const Real* __restrict__ p, const Real* __restrict__ Ap,
+                        const Real* __restrict__ alpha, Real* __restrict__ partials,
+                        int n) {
+  __shared__ Real red[kCgThreads / 32];
   const int c = blockIdx.x * kCgThreads + threadIdx.x;
-  float rr = 0.0f;
+  Real rr = Real(0);
   if (c < n) {
-    const float a = *alpha;
+    const Real a = *alpha;
     x[c] = x[c] + a * p[c];
-    const float rn = r[c] - a * Ap[c];
+    const Real rn = r[c] - a * Ap[c];
     r[c] = rn;
     rr = rn * rn;
   }
-  const float total = block_sum<kCgThreads>(rr, red);
+  const Real total = block_sum<kCgThreads>(rr, red);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
 // --------------------------------------------------------------- K10 ----
 
+template <class Real>
 __global__ void __launch_bounds__(kCgThreads)
-    axpby_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const float* __restrict__ r, float* __restrict__ p, int n) {
+    axpby_kernel(const Real* __restrict__ a, const Real* __restrict__ b,
+                 const Real* __restrict__ r, Real* __restrict__ p, int n) {
   const int c = blockIdx.x * kCgThreads + threadIdx.x;
   if (c < n) p[c] = (*a) * r[c] + (*b) * p[c];
+}
+
+// --------------------------------------------------------------- K14 ----
+
+constexpr int kResCross = 0;
+constexpr int kResAniso = 1;
+constexpr int kResHeat = 2;
+constexpr int kResHeatExtra = 3;
+
+// a: the map s (aniso) or e1_F (heat); b: e2_F (heat); x: the extra heat
+// terms (heat + extra)
+template <int MODE, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    si_residual_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
+                       const Real* __restrict__ a, const Real* __restrict__ b,
+                       const Real* __restrict__ x, Real* __restrict__ out, int ny, int nx,
+                       int bc, Real C, Real X, Real Y, Real L) {
+  const int j = blockIdx.x * kCgBlockX + threadIdx.x;
+  const int i = blockIdx.y * kCgBlockY + threadIdx.y;
+  if (i >= ny || j >= nx) return;
+  const int c = i * nx + j;
+  const Real ec = e[c];
+  const Cross<Real> n = cross_of(e, bc, ec, Real(0), i, j, ny, nx);
+  Real Ae;
+  if (MODE == kResAniso) {
+    const Real sv = a[c];
+    Ae = (Real(1) + C * sv) * ec + (X * sv) * (n.E + n.W) + (Y * sv) * (n.N + n.S);
+  } else {
+    Ae = C * ec + X * (n.E + n.W) + Y * (n.N + n.S);
+  }
+  Real r = r0[c];
+  if (MODE >= kResHeat) r = L * (a[c] + b[c]) + r;
+  if (MODE == kResHeatExtra) r = r + x[c];
+  out[c] = r - Ae;
 }
 
 // ------------------------------------------------------- partial sums ----
 
 // out[0] = sum of partials[0:n], in one block and a fixed order.
+template <class Real>
 __global__ void __launch_bounds__(kSumThreads)
-    sum_partials_kernel(const float* __restrict__ partials, int n,
-                        float* __restrict__ out) {
-  __shared__ float red[kSumThreads / 32];
-  float v = 0.0f;
+    sum_partials_kernel(const Real* __restrict__ partials, int n, Real* __restrict__ out) {
+  __shared__ Real red[kSumThreads / 32];
+  Real v = Real(0);
   for (int k = threadIdx.x; k < n; k += kSumThreads) v += partials[k];
-  const float total = block_sum<kSumThreads>(v, red);
+  const Real total = block_sum<kSumThreads>(v, red);
   if (threadIdx.x == 0) out[0] = total;
 }
 
@@ -137,53 +195,112 @@ inline dim3 matvec_grid(int ny, int nx) {
 
 inline int pointwise_blocks(int n) { return (n + kCgThreads - 1) / kCgThreads; }
 
+template <class Real>
+int matvec_pAp(const Real* p, const Real* s, Real* out, Real* partials, Real* pAp,
+               int ny, int nx, int bc, Real C, Real X, Real Y, cudaStream_t stream) {
+  dim3 grid = matvec_grid(ny, nx);
+  dim3 block(kCgBlockX, kCgBlockY);
+  if (s != nullptr)
+    matvec_pAp_kernel<true><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y);
+  else
+    matvec_pAp_kernel<false><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(static_cast<const Real*>(partials),
+                                                     int(grid.x * grid.y), pAp);
+  return int(cudaGetLastError());
+}
+
+template <class Real>
+int update_xr_rr(Real* x, Real* r, const Real* p, const Real* Ap, const Real* alpha,
+                 Real* partials, Real* rr, int n, cudaStream_t stream) {
+  int blocks = pointwise_blocks(n);
+  update_xr_rr_kernel<<<blocks, kCgThreads, 0, stream>>>(x, r, p, Ap, alpha, partials, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(static_cast<const Real*>(partials),
+                                                     blocks, rr);
+  return int(cudaGetLastError());
+}
+
+template <class Real>
+int axpby(const Real* a, const Real* b, const Real* r, Real* p, int n,
+          cudaStream_t stream) {
+  axpby_kernel<<<pointwise_blocks(n), kCgThreads, 0, stream>>>(a, b, r, p, n);
+  return int(cudaGetLastError());
+}
+
+template <class Real>
+int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, const Real* x,
+                Real* out, int ny, int nx, int bc, int mode, Real C, Real X, Real Y, Real L,
+                cudaStream_t stream) {
+  dim3 grid = matvec_grid(ny, nx);
+  dim3 block(kCgBlockX, kCgBlockY);
+  switch (mode) {
+    case kResCross:
+      si_residual_kernel<kResCross><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      break;
+    case kResAniso:
+      si_residual_kernel<kResAniso><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      break;
+    case kResHeat:
+      si_residual_kernel<kResHeat><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      break;
+    case kResHeatExtra:
+      si_residual_kernel<kResHeatExtra><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      break;
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
 }  // namespace bt
+
+// The C interface: `bt_*_f32` on float32 fields and scalars, `bt_*_f64` on
+// float64 ones (SFX, type S).
+//   K8 bt_matvec_pAp: out = A p and pAp[0] = <p, A p>.  s null: the cross
+//      operator C p + X (E+W) + Y (N+S); s given: (1 + C s) p + X s (E+W) +
+//      Y s (N+S).  bc: the field's BoundaryType (0 periodic, 1 Neumann, 2
+//      Dirichlet at 0).  out must not overlap p.
+//   K9 bt_update_xr_rr: x += alpha p, r -= alpha Ap (in place, n cells),
+//      rr[0] = <r, r>.
+//   K10 bt_axpby: p = a r + b p in place (n cells); a, b are device scalars.
+//   K14 bt_si_residual: out = r0 - A e for mode 0 (cross: C e + X (E+W) +
+//      Y (N+S)) and 1 (aniso with map a: (1 + C a) e + X a (E+W) + Y a
+//      (N+S)); modes 2 and 3 take r0 := L (a + b) + r0 [+ x] first, with
+//      the cross operator.  Pointers a mode does not read may be null.
+//      out must not overlap e.
+#define BT_CG_ENTRIES(SFX, S)                                                         \
+  int bt_matvec_pAp_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp,       \
+                          int ny, int nx, int bc, S C, S X, S Y, cudaStream_t stream) { \
+    return bt::matvec_pAp<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y, stream); \
+  }                                                                                   \
+  int bt_update_xr_rr_##SFX(S* x, S* r, const S* p, const S* Ap, const S* alpha,     \
+                            S* partials, S* rr, int n, cudaStream_t stream) {         \
+    return bt::update_xr_rr<S>(x, r, p, Ap, alpha, partials, rr, n, stream);         \
+  }                                                                                   \
+  int bt_axpby_##SFX(const S* a, const S* b, const S* r, S* p, int n,                \
+                     cudaStream_t stream) {                                           \
+    return bt::axpby<S>(a, b, r, p, n, stream);                                      \
+  }                                                                                   \
+  int bt_si_residual_##SFX(const S* e, const S* r0, const S* a, const S* b,          \
+                           const S* x, S* out, int ny, int nx, int bc, int mode,      \
+                           S C, S X, S Y, S L, cudaStream_t stream) {                 \
+    return bt::si_residual<S>(e, r0, a, b, x, out, ny, nx, bc, mode, C, X, Y, L,     \
+                              stream);                                                \
+  }
 
 extern "C" {
 
-// Floats the partials buffer of K8 and K9 must hold for a (ny, nx) field.
+// Values the partials buffer of K8 and K9 must hold for a (ny, nx) field.
 int bt_cg_num_partials(int ny, int nx) {
   dim3 g = bt::matvec_grid(ny, nx);
   int a = int(g.x * g.y), b = bt::pointwise_blocks(ny * nx);
   return a > b ? a : b;
 }
 
-// K8: out = A p and pAp[0] = <p, A p>.  s null: the cross operator
-// C p + X (E+W) + Y (N+S); s given: (1 + C s) p + X s (E+W) + Y s (N+S).
-// bc: the field's BoundaryType (0 periodic, 1 Neumann, 2 Dirichlet at 0).
-// out must not overlap p.
-int bt_matvec_pAp_f32(const float* p, const float* s, float* out,
-                      float* partials, float* pAp, int ny, int nx, int bc,
-                      float C, float X, float Y, cudaStream_t stream) {
-  dim3 grid = bt::matvec_grid(ny, nx);
-  dim3 block(bt::kCgBlockX, bt::kCgBlockY);
-  if (s != nullptr)
-    bt::matvec_pAp_kernel<true><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y);
-  else
-    bt::matvec_pAp_kernel<false><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  bt::sum_partials_kernel<<<1, bt::kSumThreads, 0, stream>>>(partials, int(grid.x * grid.y), pAp);
-  return int(cudaGetLastError());
-}
-
-// K9: x += alpha p, r -= alpha Ap (in place, n cells), rr[0] = <r, r>.
-int bt_update_xr_rr_f32(float* x, float* r, const float* p, const float* Ap,
-                        const float* alpha, float* partials, float* rr, int n,
-                        cudaStream_t stream) {
-  int blocks = bt::pointwise_blocks(n);
-  bt::update_xr_rr_kernel<<<blocks, bt::kCgThreads, 0, stream>>>(x, r, p, Ap, alpha, partials, n);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  bt::sum_partials_kernel<<<1, bt::kSumThreads, 0, stream>>>(partials, blocks, rr);
-  return int(cudaGetLastError());
-}
-
-// K10: p = a r + b p in place (n cells); a, b are device scalars.
-int bt_axpby_f32(const float* a, const float* b, const float* r, float* p, int n,
-                 cudaStream_t stream) {
-  bt::axpby_kernel<<<bt::pointwise_blocks(n), bt::kCgThreads, 0, stream>>>(a, b, r, p, n);
-  return int(cudaGetLastError());
-}
+BT_CG_ENTRIES(f32, float)
+BT_CG_ENTRIES(f64, double)
 
 }  // extern "C"

@@ -6,8 +6,12 @@
 // atan2f/cosf, as the oracle has it, so the integer-m0 recurrence
 // `_g_theta_vpu` (:199) and its gate on m0 are gone.  Built without
 // --use_fast_math: atan2f, cosf, sqrtf and the division are the accurate
-// versions.  nvcc contracts mul+add into FMA, so results differ from the
-// CPU's in the last bits; compare with tolerances.
+// versions.  nvcc contracts float mul+add into FMA, so the float32 results
+// differ from the CPU's in the last bits; compare with tolerances.
+//
+// Everything here is a template on the arithmetic type Real: `float` for
+// the float32 kernels, `Rn` (below) for the float64 ones.  The float code
+// is the same code with Real = float, literal for literal.
 //
 // Layout: fields are (ny, nx), row-major, y on axis 0.  N is row i+1, S is
 // row i-1, E is column j+1, W is column j-1.
@@ -17,33 +21,65 @@
 
 namespace bt {
 
+// A double rounded at every operation, in the order the source writes
+// (`__dadd_rn`/`__dmul_rn`, which nvcc never contracts into an FMA).  The
+// float64 kernels compute in it so that they round as the plain torch
+// version does, one elementwise operation at a time.  That matters under
+// `f32_transcendentals` (the default): the gradient is rounded to float
+// there, and a one-ulp double difference upstream would now and then round
+// it the other way, moving g(theta) and |grad Phi| by a float ulp (~6e-8),
+// far outside a float64 tolerance.  Same layout as a double: device memory
+// holds plain doubles.
+struct Rn {
+  double v;
+  Rn() = default;
+  __host__ __device__ constexpr Rn(double x) : v(x) {}
+};
+
+__device__ __forceinline__ Rn operator+(Rn a, Rn b) { return __dadd_rn(a.v, b.v); }
+__device__ __forceinline__ Rn operator-(Rn a, Rn b) { return __dsub_rn(a.v, b.v); }
+__device__ __forceinline__ Rn operator*(Rn a, Rn b) { return __dmul_rn(a.v, b.v); }
+__device__ __forceinline__ Rn operator/(Rn a, Rn b) { return __ddiv_rn(a.v, b.v); }
+__device__ __forceinline__ bool operator==(Rn a, Rn b) { return a.v == b.v; }
+__device__ __forceinline__ bool operator!=(Rn a, Rn b) { return a.v != b.v; }
+__device__ __forceinline__ bool operator>(Rn a, Rn b) { return a.v > b.v; }
+
+__device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
+__device__ __forceinline__ Rn abs_of(Rn a) { return fabs(a.v); }
+
 // BoundaryType, as numbered by ops/cuda_rhs.py
 enum Bc : int { kPeriodic = 0, kNeumann = 1, kDirichlet = 2 };
 
-// Coefficients of one configuration, computed on the host in double and
-// rounded to float once (as the JAX package rounds its Python-float
-// constants against float32 arrays).  Mirrored by ops/cuda_rhs.py:_Phys.
+// Coefficients of one configuration, computed on the host in double: the
+// float32 kernels take them rounded to float once (as the JAX package
+// rounds its Python-float constants against float32 arrays), the float64
+// kernels as Python computes them.  Mirrored by ops/cuda_rhs.py:_Phys and
+// _Phys64.
+template <class Real>
 struct PhysParams {
-  float inv_2dx, inv_2dy, inv_dx2, inv_dy2;
-  float k0_factor, k1_factor, k2_factor;
-  float dt, dt_L, L, Tm;
-  float S, m0, theta0;
-  float gamma;  // the semi-implicit scheme's implicitness blend
+  Real inv_2dx, inv_2dy, inv_dx2, inv_dy2;
+  Real k0_factor, k1_factor, k2_factor;
+  Real dt, dt_L, L, Tm;
+  Real S, m0, theta0;
+  Real gamma;  // the semi-implicit scheme's implicitness blend
   int f_bc, u_bc;
   int corrector_guess;
+  int f32_transcendentals;  // float64 only: atan2, cos and sqrt in float
 };
 
 // The image of centre value `c` across a Neumann or Dirichlet edge.
-__device__ __forceinline__ float edge_image(int bc, float c, float d) {
-  return bc == kNeumann ? c : 2.0f * d - c;
+template <class Real>
+__device__ __forceinline__ Real edge_image(int bc, Real c, Real d) {
+  return bc == kNeumann ? c : Real(2) * d - c;
 }
 
 // Neighbour value as the padded field holds it.  `cross` says that the step
 // from the cell to this neighbour crosses a domain edge.  A periodic field
 // reads the wrapped neighbour `nb`; Neumann clamps to the cell's own value;
 // Dirichlet mirrors it through d: 2*d - centre (core/boundary.py:pad2).
-__device__ __forceinline__ float neighbour(int bc, bool cross, float nb,
-                                           float centre, float d) {
+template <class Real>
+__device__ __forceinline__ Real neighbour(int bc, bool cross, Real nb, Real centre,
+                                          Real d) {
   if (!cross || bc == kPeriodic) return nb;
   return edge_image(bc, centre, d);
 }
@@ -51,15 +87,17 @@ __device__ __forceinline__ float neighbour(int bc, bool cross, float nb,
 // The four neighbours of cell (i, j) of a (ny, nx) field A whose own value
 // is c, as the padded field holds them: wrapped for a periodic field, the
 // edge image otherwise.  Device memory is read only where the rule needs it.
+template <class Real>
 struct Cross {
-  float N, S, E, W;
+  Real N, S, E, W;
 };
 
-__device__ __forceinline__ Cross cross_of(const float* __restrict__ A, int bc,
-                                          float c, float d, int i, int j,
-                                          int ny, int nx) {
+template <class Real>
+__device__ __forceinline__ Cross<Real> cross_of(const Real* __restrict__ A, int bc,
+                                                Real c, Real d, int i, int j,
+                                                int ny, int nx) {
   const bool img = bc != kPeriodic;
-  Cross n;
+  Cross<Real> n;
   n.N = (i + 1 == ny) ? (img ? edge_image(bc, c, d) : A[j]) : A[(i + 1) * nx + j];
   n.S = (i == 0) ? (img ? edge_image(bc, c, d) : A[(ny - 1) * nx + j])
                  : A[(i - 1) * nx + j];
@@ -72,7 +110,7 @@ __device__ __forceinline__ Cross cross_of(const float* __restrict__ A, int bc,
 // g(theta) = 1 - S cos(m0 theta + theta0) and |grad Phi| from the central
 // differences; atan2(0, 0) = 0 and |grad| = 0 there
 // (models/allen_cahn.py:_anisotropy).
-__device__ __forceinline__ void anisotropy(const PhysParams& P, float gx,
+__device__ __forceinline__ void anisotropy(const PhysParams<float>& P, float gx,
                                            float gy, float& g, float& norm) {
   float r2 = gx * gx + gy * gy;
   bool zero = r2 == 0.0f;
@@ -81,25 +119,48 @@ __device__ __forceinline__ void anisotropy(const PhysParams& P, float gx,
   norm = zero ? 0.0f : sqrtf(r2);
 }
 
+// The same at float64.  With f32_transcendentals (`simulation.cu:14-17`) the
+// gradient is rounded to float and r2, atan2, cos, g and sqrt are evaluated
+// in float, one correctly rounded operation at a time as the plain version's
+// float32 tensor ops are (`__fmul_rn`/`__fadd_rn`: no FMA), then widened.
+__device__ __forceinline__ void anisotropy(const PhysParams<Rn>& P, Rn gx, Rn gy,
+                                           Rn& g, Rn& norm) {
+  if (P.f32_transcendentals) {
+    const float x = float(gx.v), y = float(gy.v);
+    const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+    const bool zero = r2 == 0.0f;
+    const float theta = atan2f(y, zero ? 1.0f : x);
+    const float arg = __fadd_rn(__fmul_rn(float(P.m0.v), theta), float(P.theta0.v));
+    g = double(__fsub_rn(1.0f, __fmul_rn(float(P.S.v), cosf(arg))));
+    norm = zero ? 0.0 : double(sqrtf(r2));
+  } else {
+    const Rn r2 = gx * gx + gy * gy;
+    const bool zero = r2 == Rn(0);
+    const Rn theta = atan2(gy.v, zero ? 1.0 : gx.v);
+    g = Rn(1) - P.S * Rn(cos((P.m0 * theta + P.theta0).v));
+    norm = zero ? 0.0 : sqrt(r2.v);
+  }
+}
+
 // (dPhi/dt, dT/dt) at one cell from its own and its four neighbours'
 // values (`simulation.cu:201-230`).
-__device__ __forceinline__ void physics(const PhysParams& P, float Fc,
-                                        float FN, float FS, float FE, float FW,
-                                        float Uc, float UN, float US, float UE,
-                                        float UW, float fu, float& dF,
-                                        float& dU) {
-  float g, norm;
+template <class Real>
+__device__ __forceinline__ void physics(const PhysParams<Real>& P, Real Fc, Real FN,
+                                        Real FS, Real FE, Real FW, Real Uc, Real UN,
+                                        Real US, Real UE, Real UW, Real fu, Real& dF,
+                                        Real& dU) {
+  Real g, norm;
   anisotropy(P, (FE - FW) * P.inv_2dx, (FN - FS) * P.inv_2dy, g, norm);
 
-  float lapF = (FW - 2.0f * Fc + FE) * P.inv_dx2 + (FS - 2.0f * Fc + FN) * P.inv_dy2;
-  float lapU = (UW - 2.0f * Uc + UE) * P.inv_dx2 + (US - 2.0f * Uc + UN) * P.inv_dy2;
+  Real lapF = (FW - Real(2) * Fc + FE) * P.inv_dx2 + (FS - Real(2) * Fc + FN) * P.inv_dy2;
+  Real lapU = (UW - Real(2) * Uc + UE) * P.inv_dx2 + (US - Real(2) * Uc + UN) * P.inv_dy2;
 
-  float k0 = g * (Fc * (1.0f - Fc) * (Fc - 0.5f)) * P.k0_factor;
-  float k2 = norm * P.k2_factor;
-  float k1 = g * P.k1_factor;
+  Real k0 = g * (Fc * (Real(1) - Fc) * (Fc - Real(0.5))) * P.k0_factor;
+  Real k2 = norm * P.k2_factor;
+  Real k1 = g * P.k1_factor;
 
   if (P.corrector_guess) {
-    float corr = 1.0f + k2 * P.dt_L;
+    Real corr = Real(1) + k2 * P.dt_L;
     dF = (k1 * lapF + k0 - k2 * (Uc - P.Tm + P.dt * lapU)) / corr;
   } else {
     dF = k1 * lapF + k0 - k2 * (Uc - P.Tm);
@@ -109,7 +170,8 @@ __device__ __forceinline__ void physics(const PhysParams& P, float Fc,
 
 // max that keeps a NaN from either side (fmaxf would drop it): an error
 // estimate that is NaN must never read as converged.
-__device__ __forceinline__ float nan_max(float a, float b) {
+template <class Real>
+__device__ __forceinline__ Real nan_max(Real a, Real b) {
   return (b > a || b != b) ? b : a;
 }
 

@@ -1,8 +1,10 @@
 """The conjugate-gradient kernels and their plain torch versions.
 
-The port's counterpart of ``bachelors_tpu/ops/pallas_cg.py``.  Three
-kernels, hand-written in CUDA C++ for Hopper (``csrc/cg.cu``, built by
-``ops/cuda_build.py``), for the CG loop of ``solvers/cg.cg_solve``:
+The port's counterpart of ``bachelors_tpu/ops/pallas_cg.py`` and of the
+refinement residual of ``bachelors_tpu/ops/pallas_dd.py``.  Four kernels,
+hand-written in CUDA C++ for Hopper (``csrc/cg.cu``, built by
+``ops/cuda_build.py``), three for the CG loop of ``solvers/cg.cg_solve``
+and one for the float64 semi-implicit step:
 
   * K8 ``cross_matvec_pAp`` / ``aniso_matvec_pAp``: (A p, <p, A p>) in one
     read of p, for the constant cross operator or the per-cell anisotropy
@@ -13,13 +15,26 @@ kernels, hand-written in CUDA C++ for Hopper (``csrc/cg.cu``, built by
     <r', r'> (``pallas_cg._update_xr_rr`` :310).
   * K10 ``axpby_inplace``: p = a r + b p in place
     (``pallas_cg._axpby_inplace`` :274).
+  * K14 ``cross_residual`` / ``aniso_residual`` / ``heat_residual``: the
+    refinement residual r1 = r0 - A e, for the cross operator, the
+    anisotropy operator, or the heat system with r0 = L (e1_F + e2_F) +
+    uterm [+ extra] built in the kernel (``pallas_dd.cross_residual_dd``
+    :940, ``aniso_residual_dd`` :950, ``heat_residual_dd`` :960; the
+    kernel ``_make_cross_residual_kernel`` :749).  The TPU kernel keeps r0
+    and the products in float32 pairs; this one computes in the field
+    dtype.
 
 alpha, a and b are 0-dim tensors on the fields' device, read by the
 kernels through pointers; the dot products come back as 0-dim tensors
 there too.  Nothing here reads a value back to the host.  The kernels sum
 their per-block partials with a second one-block kernel (``csrc/cg.cu``);
 the plain versions use ``torch.sum``, which adds in another order (~1e-7
-relative in float32).
+relative in float32, ~1e-16 in float64).
+
+Every kernel runs on float32 and on float64 tensors (``bt_*_f32`` and
+``bt_*_f64`` in ``csrc/cg.cu``), dispatched on their dtype, which the
+fields and scalars of one call share: the float64 semi-implicit step runs
+its CG and its refinement residual natively in double.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches or raises, and each launch adds one to its entry
@@ -39,7 +54,8 @@ from .stencil import AnisotropyMatrix, CrossMatrix, anisotropy_matvec, cross_mat
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
-            "axpby_inplace": 0}
+            "axpby_inplace": 0, "cross_residual": 0, "aniso_residual": 0,
+            "heat_residual": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,13 +96,45 @@ def axpby_inplace_plain(a, b, r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def cross_residual_plain(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix) -> torch.Tensor:
+    """r0 - A e for the constant cross operator."""
+    return r0 - cross_matvec(A, e)
+
+
+def aniso_residual_plain(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
+                         s: torch.Tensor) -> torch.Tensor:
+    """r0 - A(s) e for the per-cell anisotropy operator."""
+    return r0 - anisotropy_matvec(A, s, e)
+
+
+def heat_rhs(uterm: torch.Tensor, eF_pair, L: float,
+             extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The heat system's delta right-hand side L (e1_F + e2_F) + uterm
+    [+ extra], in the order K14's heat mode builds it."""
+    r0 = L * (eF_pair[0] + eF_pair[1]) + uterm
+    return r0 if extra is None else r0 + extra
+
+
+def heat_residual_plain(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
+                        L: float, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """heat_rhs(uterm, eF_pair, L, extra) - A e."""
+    return heat_rhs(uterm, eF_pair, L, extra) - cross_matvec(A, e)
+
+
 # ------------------------------------------------------------ kernels
 
 _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
             BoundaryType.DIRICHLET: 2}
 _PTR = ctypes.c_void_p
-_F32 = ctypes.c_float
 _INT = ctypes.c_int
+_REAL = cuda_rhs._REAL
+# Each entry's arguments, as ``cuda_rhs._ENTRIES`` has them.
+_ENTRIES = {"matvec_pAp": [_PTR] * 5 + [_INT, _INT, _INT] + [_REAL] * 3 + [_PTR],
+            "update_xr_rr": [_PTR] * 7 + [_INT, _PTR],
+            "axpby": [_PTR] * 4 + [_INT, _PTR],
+            "si_residual": [_PTR] * 6 + [_INT] * 4 + [_REAL] * 4 + [_PTR]}
+# K14's modes (csrc/cg.cu)
+_RES_CROSS, _RES_ANISO, _RES_HEAT, _RES_HEAT_EXTRA = range(4)
 _LIB = None
 
 
@@ -96,39 +144,30 @@ def _lib() -> ctypes.CDLL:
         lib = cuda_rhs.cuda_build.load()
         lib.bt_cg_num_partials.argtypes = [_INT, _INT]
         lib.bt_cg_num_partials.restype = _INT
-        lib.bt_matvec_pAp_f32.argtypes = ([_PTR] * 5 + [_INT, _INT, _INT]
-                                          + [_F32] * 3 + [_PTR])
-        lib.bt_matvec_pAp_f32.restype = _INT
-        lib.bt_update_xr_rr_f32.argtypes = [_PTR] * 7 + [_INT, _PTR]
-        lib.bt_update_xr_rr_f32.restype = _INT
-        lib.bt_axpby_f32.argtypes = [_PTR] * 4 + [_INT, _PTR]
-        lib.bt_axpby_f32.restype = _INT
+        cuda_rhs.bind(lib, _ENTRIES)
         _LIB = lib
     return _LIB
 
 
 def _check(fields, scalars=()) -> None:
-    """What the kernels take: contiguous float32 fields of one 2D shape and
-    0-dim float32 scalars, all on one CUDA device."""
-    dev, shape = fields[0].device, fields[0].shape
+    """What the kernels take: contiguous fields of one 2D shape and 0-dim
+    scalars, all of one dtype (float32 or float64) on one CUDA device."""
+    dev, shape, dtype = fields[0].device, fields[0].shape, fields[0].dtype
+    if dtype not in cuda_rhs._SUFFIX:
+        raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")
     for t in fields:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
-        if t.dtype == torch.float64:
-            raise NotImplementedError(
-                "float64 kernels are not ported yet (ROADMAP slice 3, item "
-                "12: dtype = float64); use [tpu] backend = torch for f64 "
-                "on the GPU")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32 fields, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"fields of one call share a dtype: {t.dtype} and {dtype}")
         if t.dim() != 2 or t.shape != shape:
             raise ValueError(f"field shape {tuple(t.shape)} != {tuple(shape)}")
         if not t.is_contiguous():
             raise ValueError("kernel takes contiguous fields")
     for t in scalars:
         if not (isinstance(t, torch.Tensor) and t.dim() == 0
-                and t.dtype == torch.float32 and t.device == dev):
-            raise TypeError(f"kernel takes 0-dim float32 scalars on {dev}")
+                and t.dtype == dtype and t.device == dev):
+            raise TypeError(f"kernel takes 0-dim {dtype} scalars on {dev}")
 
 
 def _stream() -> int:
@@ -138,8 +177,8 @@ def _stream() -> int:
 def _scratch(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-block partials buffer and the 0-dim result of one launch."""
     n = _lib().bt_cg_num_partials(v.shape[0], v.shape[1])
-    return (torch.empty(n, dtype=torch.float32, device=v.device),
-            torch.empty((), dtype=torch.float32, device=v.device))
+    return (torch.empty(n, dtype=v.dtype, device=v.device),
+            torch.empty((), dtype=v.dtype, device=v.device))
 
 
 def _check_out(out: Optional[torch.Tensor], *inputs) -> None:
@@ -160,7 +199,7 @@ def _matvec_pAp(name, v, s, out, bc, C, X, Y):
         out = torch.empty_like(v)
     partials, pAp = _scratch(v)
     with torch.cuda.device(v.device):
-        rc = _lib().bt_matvec_pAp_f32(
+        rc = cuda_rhs.entry(_lib(), "matvec_pAp", v.dtype)(
             v.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
             partials.data_ptr(), pAp.data_ptr(), v.shape[0], v.shape[1],
             _BC_CODE[bc], float(C), float(X), float(Y), _stream())
@@ -197,7 +236,7 @@ def update_xr_rr(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     _check([x, r, p, Ap], [alpha])
     partials, rr = _scratch(x)
     with torch.cuda.device(x.device):
-        rc = _lib().bt_update_xr_rr_f32(
+        rc = cuda_rhs.entry(_lib(), "update_xr_rr", x.dtype)(
             x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(),
             alpha.data_ptr(), partials.data_ptr(), rr.data_ptr(), x.numel(),
             _stream())
@@ -212,8 +251,50 @@ def axpby_inplace(a, b, r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         return axpby_inplace_plain(a, b, r, p)
     _check([r, p], [a, b])
     with torch.cuda.device(p.device):
-        rc = _lib().bt_axpby_f32(a.data_ptr(), b.data_ptr(), r.data_ptr(),
-                                 p.data_ptr(), p.numel(), _stream())
+        rc = cuda_rhs.entry(_lib(), "axpby", p.dtype)(a.data_ptr(), b.data_ptr(), r.data_ptr(),
+                                      p.data_ptr(), p.numel(), _stream())
     cuda_rhs._raise_on(rc, "axpby_inplace")
     LAUNCHES["axpby_inplace"] += 1
     return p
+
+
+def _residual(name, mode, e, r0, a, b, x, bc, C, X, Y, L=0.0) -> torch.Tensor:
+    inputs = [t for t in (e, r0, a, b, x) if t is not None]
+    _check(inputs)
+    out = torch.empty_like(e)
+    with torch.cuda.device(e.device):
+        rc = cuda_rhs.entry(_lib(), "si_residual", e.dtype)(
+            *(None if t is None else t.data_ptr() for t in (e, r0, a, b, x)),
+            out.data_ptr(), e.shape[0], e.shape[1], _BC_CODE[bc], mode,
+            float(C), float(X), float(Y), float(L), _stream())
+    cuda_rhs._raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def cross_residual(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix) -> torch.Tensor:
+    """K14, cross form: r0 - A e, in a new tensor."""
+    if not cuda_rhs._on_cuda(e, "cross_residual"):
+        return cross_residual_plain(r0, e, A)
+    return _residual("cross_residual", _RES_CROSS, e, r0, None, None, None,
+                     A.boundary, A.C, A.X, A.Y)
+
+
+def aniso_residual(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
+                   s: torch.Tensor) -> torch.Tensor:
+    """K14, per-cell form: r0 - A(s) e with the anisotropy map s."""
+    if not cuda_rhs._on_cuda(e, "aniso_residual"):
+        return aniso_residual_plain(r0, e, A, s)
+    return _residual("aniso_residual", _RES_ANISO, e, r0, s, None, None,
+                     A.boundary, A.Cm1, A.X, A.Y)
+
+
+def heat_residual(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
+                  L: float, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K14, heat form: (L (e1_F + e2_F) + uterm [+ extra]) - A e, the
+    heat system's right-hand side (``heat_rhs``) built in the kernel."""
+    if not cuda_rhs._on_cuda(e, "heat_residual"):
+        return heat_residual_plain(uterm, eF_pair, e, A, L, extra)
+    mode = _RES_HEAT if extra is None else _RES_HEAT_EXTRA
+    return _residual("heat_residual", mode, e, uterm, eF_pair[0], eF_pair[1], extra,
+                     A.boundary, A.C, A.X, A.Y, L)

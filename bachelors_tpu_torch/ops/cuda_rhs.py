@@ -35,6 +35,13 @@ Beside each is its plain torch version (``blend_rhs_plain``,
 The CPU path runs it, the tests hold it to the JAX package, and
 ``chip_smoke.py`` holds each kernel to it on the card.
 
+Every kernel runs on float32 and on float64 fields (``bt_*_f32`` and
+``bt_*_f64`` in ``csrc/rhs.cu``), dispatched on the fields' dtype; all the
+fields of one call share it.  At float64 K2, K3, K6 and K7 stand in for the
+JAX package's pair-arithmetic kernel K13 (``pallas_dd.py:
+_make_fullstep_kernel_dd`` :272), and K6 also runs 8 steps per pass, the
+depth K13 takes from 1M cells (``K6_STEPS``).
+
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each launch
 adds one to the wrapper's entry in ``LAUNCHES``.
@@ -61,10 +68,12 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rk4_full": 0, "euler_steps": 0, "si_prepare": 0}
 
-# The depths the multi-step Euler pass takes (`bachelors_tpu/ops/
-# pallas_rhs.py:822`), and the one K6 is built for (the path's).
-EULER_STEPS_RANGE = range(2, 8)
-K6_STEPS = 4
+# Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
+# float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
+# (`pallas_dd.py:306`) -- and those K6 is built for, the paths' own
+# (`solvers/explicit.py`).
+EULER_STEPS_RANGE = {torch.float32: range(2, 8), torch.float64: range(2, 9)}
+K6_STEPS = {torch.float32: (4,), torch.float64: (4, 8)}
 
 
 def reset_launch_counts() -> None:
@@ -139,16 +148,18 @@ def rk4_full_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
                                  effective_dirichlet(dirichlet_value, [1.0, p.dt]))
 
 
-def _check_steps(steps: int) -> None:
-    if steps not in EULER_STEPS_RANGE:
-        raise ValueError(f"euler_steps takes 2..7 steps per pass, got {steps}")
+def _check_steps(steps: int, dtype: torch.dtype) -> None:
+    allowed = EULER_STEPS_RANGE[dtype]
+    if steps not in allowed:
+        raise ValueError(f"euler_steps takes {allowed[0]}..{allowed[-1]} steps per "
+                         f"pass at {dtype}, got {steps}")
 
 
 def euler_steps_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams,
                       steps: int, fu=0.0, dirichlet_value=0.0) -> Pair:
     """``steps`` single forward-Euler steps, each padded with
     ``dirichlet_value`` as it is given (``euler2_pallas``'s contract)."""
-    _check_steps(steps)
+    _check_steps(steps, F.dtype)
     for _ in range(steps):
         F, U = blend_rhs_plain([(F, U)], [1.0], p, fu, dirichlet_value, is_euler=True)
     return F, U
@@ -212,25 +223,38 @@ def si_prepare_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams):
 
 _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
             BoundaryType.DIRICHLET: 2}
-_FLOAT_FIELDS = ("inv_2dx", "inv_2dy", "inv_dx2", "inv_dy2", "k0_factor",
-                 "k1_factor", "k2_factor", "dt", "dt_L", "L", "Tm", "S", "m0",
-                 "theta0", "gamma")
+_REAL_FIELDS = ("inv_2dx", "inv_2dy", "inv_dx2", "inv_dy2", "k0_factor",
+                "k1_factor", "k2_factor", "dt", "dt_L", "L", "Tm", "S", "m0",
+                "theta0", "gamma")
+_INT_FIELDS = ("f_bc", "u_bc", "corrector_guess", "f32_transcendentals")
 
 
 class _Phys(ctypes.Structure):
-    """Mirror of ``bt::PhysParams`` in ``csrc/physics.cuh``."""
+    """Mirror of ``bt::PhysParams<float>`` in ``csrc/physics.cuh``."""
 
-    _fields_ = ([(n, ctypes.c_float) for n in _FLOAT_FIELDS]
-                + [("f_bc", ctypes.c_int), ("u_bc", ctypes.c_int),
-                   ("corrector_guess", ctypes.c_int)])
+    _fields_ = ([(n, ctypes.c_float) for n in _REAL_FIELDS]
+                + [(n, ctypes.c_int) for n in _INT_FIELDS])
+
+
+class _Phys64(ctypes.Structure):
+    """Mirror of ``bt::PhysParams<bt::Rn>`` (doubles) in
+    ``csrc/physics.cuh``."""
+
+    _fields_ = ([(n, ctypes.c_double) for n in _REAL_FIELDS]
+                + [(n, ctypes.c_int) for n in _INT_FIELDS])
+
+
+_PHYS = {torch.float32: _Phys, torch.float64: _Phys64}
 
 
 @functools.lru_cache(maxsize=16)
-def _phys(p: SimParams) -> _Phys:
+def _phys(p: SimParams, dtype: torch.dtype = torch.float32):
     """The physics coefficients of ``p`` as ``rhs_padded`` computes them,
-    one struct per configuration: one build serves every config."""
+    one struct per configuration and field dtype: one build serves every
+    config.  At float32 ctypes rounds each double to float once; at
+    float64 they are the Python doubles themselves."""
     dx, dy = p.dx, p.dy
-    return _Phys(
+    return _PHYS[dtype](
         inv_2dx=1.0 / (2 * dx), inv_2dy=1.0 / (2 * dy),
         inv_dx2=1.0 / (dx * dx), inv_dy2=1.0 / (dy * dy),
         k0_factor=p.a / (p.xi * p.xi * p.alpha),
@@ -238,57 +262,77 @@ def _phys(p: SimParams) -> _Phys:
         dt=p.dt, dt_L=p.dt * p.L, L=p.L, Tm=p.Tm,
         S=p.S, m0=p.m0, theta0=p.theta0, gamma=p.gamma,
         f_bc=_BC_CODE[p.Phi_boundary], u_bc=_BC_CODE[p.T_boundary],
-        corrector_guess=int(p.do_corrector_guess))
+        corrector_guess=int(p.do_corrector_guess),
+        f32_transcendentals=int(p.f32_transcendentals))
 
 
 _PTR = ctypes.c_void_p
-_F32 = ctypes.c_float
 _INT = ctypes.c_int
+_REAL = object()  # stands for the entry's scalar type in the tables below
+_PHYS_PTR = object()  # and for its PhysParams pointer
+# Each entry's arguments, in order, with the scalars of the field type as
+# _REAL: the float32 entry takes them as c_float, the float64 one as
+# c_double.  A wrong prototype would pass garbage silently.
+_ENTRIES = {
+    "blend_rhs": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _REAL,
+                                                      _REAL, _INT, _PHYS_PTR, _PTR],
+    "rkm_attempt": [_PTR] * 6 + [_INT, _INT] + [_REAL] * 3 + [_PHYS_PTR, _PTR],
+    "si_prepare": [_PTR] * 5 + [_INT, _INT, _PHYS_PTR, _PTR],
+    "rk4_final": [_PTR] * 10 + [_INT, _INT] + [_REAL] * 4 + [_PHYS_PTR, _PTR],
+    "rk4_full": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 5 + [_PHYS_PTR, _PTR],
+    "euler_steps": [_PTR] * 4 + [_INT] * 3 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
+}
+_SUFFIX = {torch.float32: ("f32", ctypes.c_float), torch.float64: ("f64", ctypes.c_double)}
 _LIB = None
+
+
+def bind(lib: ctypes.CDLL, entries) -> None:
+    """Declare the prototypes of the ``bt_<name>_f32`` and ``bt_<name>_f64``
+    functions of each entry of ``entries`` (argument lists in the form of
+    ``_ENTRIES``)."""
+    for name, args in entries.items():
+        for dtype, (sfx, real) in _SUFFIX.items():
+            fn = getattr(lib, f"bt_{name}_{sfx}")
+            phys = ctypes.POINTER(_PHYS[dtype])
+            fn.argtypes = [real if a is _REAL else phys if a is _PHYS_PTR else a
+                           for a in args]
+            fn.restype = _INT
+
+
+def entry(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
+    """The C function ``bt_<name>_f32`` or ``bt_<name>_f64`` of ``lib``."""
+    return getattr(lib, f"bt_{name}_{_SUFFIX[dtype][0]}")
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = cuda_build.load()
-        phys = ctypes.POINTER(_Phys)
-        lib.bt_blend_rhs_f32.argtypes = ([_PTR] * 8 + [_INT] + [_F32] * 3
-                                         + [_PTR, _PTR, _INT, _INT, _F32, _F32,
-                                            _INT, phys, _PTR])
-        lib.bt_blend_rhs_f32.restype = _INT
-        lib.bt_rkm_num_blocks.argtypes = [_INT, _INT]
-        lib.bt_rkm_num_blocks.restype = _INT
-        lib.bt_rkm_attempt_f32.argtypes = ([_PTR] * 6 + [_INT, _INT]
-                                           + [_F32] * 3 + [phys, _PTR])
-        lib.bt_rkm_attempt_f32.restype = _INT
-        lib.bt_si_prepare_f32.argtypes = [_PTR] * 5 + [_INT, _INT, phys, _PTR]
-        lib.bt_si_prepare_f32.restype = _INT
-        lib.bt_rk4_final_f32.argtypes = ([_PTR] * 10 + [_INT, _INT] + [_F32] * 4
-                                         + [phys, _PTR])
-        lib.bt_rk4_final_f32.restype = _INT
-        lib.bt_rk4_full_f32.argtypes = ([_PTR] * 4 + [_INT, _INT] + [_F32] * 5
-                                        + [phys, _PTR])
-        lib.bt_rk4_full_f32.restype = _INT
-        lib.bt_euler4_f32.argtypes = [_PTR] * 4 + [_INT] * 2 + [_F32] * 2 + [phys, _PTR]
-        lib.bt_euler4_f32.restype = _INT
+        bind(lib, _ENTRIES)
+        for name, nargs in (("bt_rkm_num_blocks", 2), ("bt_tile_smem_bytes", 3)):
+            getattr(lib, name).argtypes = [_INT] * nargs
+            getattr(lib, name).restype = _INT
         _LIB = lib
     return _LIB
 
 
+def tile_smem_bytes(kernel: int, steps: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of tile kernel K2, K3 or K6 (``kernel`` 2, 3
+    or 6; ``steps`` for K6) at ``dtype``: ptxas does not report it."""
+    return _lib().bt_tile_smem_bytes(kernel, steps, int(dtype == torch.float64))
+
+
 def _check_fields(p: SimParams, *tensors: torch.Tensor) -> None:
-    """What the kernels take: contiguous float32 (ny, nx) tensors on one
-    CUDA device."""
-    dev = tensors[0].device
+    """What the kernels take: contiguous (ny, nx) tensors of one dtype,
+    float32 or float64, on one CUDA device."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"fields on {t.device} and {dev}")
-        if t.dtype == torch.float64:
-            raise NotImplementedError(
-                "float64 kernels are not ported yet (ROADMAP item 12: dtype "
-                "= float64, the next slice); use [tpu] backend = torch for "
-                "f64 on the GPU")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel takes float32 fields, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"fields of one call share a dtype: {t.dtype} and {dtype}")
         if tuple(t.shape) != (p.ny, p.nx):
             raise ValueError(f"field shape {tuple(t.shape)} != {(p.ny, p.nx)}")
         if not t.is_contiguous():
@@ -333,11 +377,12 @@ def blend_rhs(states: Sequence[Pair], weights: Sequence, p: SimParams, fu=0.0,
     w = [float(x) for x in weights[1:]] + [0.0] * (4 - n)
     out_F = torch.empty_like(states[0][0])
     out_U = torch.empty_like(states[0][1])
+    dtype = out_F.dtype
     with torch.cuda.device(out_F.device):
-        rc = _lib().bt_blend_rhs_f32(
+        rc = entry(_lib(), "blend_rhs", dtype)(
             *ptrs, n, *w, out_F.data_ptr(), out_U.data_ptr(), p.ny, p.nx,
             float(dirichlet_value), float(fu), int(is_euler),
-            ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+            ctypes.byref(_phys(p, dtype)), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "blend_rhs")
     LAUNCHES["blend_rhs"] += 1
     return out_F, out_U
@@ -351,17 +396,16 @@ def rkm_attempt(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
     if not _on_cuda(F, "rkm_attempt"):
         return rkm_attempt_plain(F, U, tau, p, fu, dirichlet_value)
     _check_fields(p, F, U)
-    lib = _lib()
     out_F = torch.empty_like(F)
     out_U = torch.empty_like(U)
-    partials = torch.empty(2 * lib.bt_rkm_num_blocks(p.ny, p.nx),
-                           dtype=torch.float32, device=F.device)
-    emax = torch.empty(2, dtype=torch.float32, device=F.device)
+    partials = torch.empty(2 * _lib().bt_rkm_num_blocks(p.ny, p.nx),
+                           dtype=F.dtype, device=F.device)
+    emax = torch.empty(2, dtype=F.dtype, device=F.device)
     with torch.cuda.device(F.device):
-        rc = lib.bt_rkm_attempt_f32(
+        rc = entry(_lib(), "rkm_attempt", F.dtype)(
             F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
             partials.data_ptr(), emax.data_ptr(), p.ny, p.nx, float(tau),
-            float(dirichlet_value), float(fu), ctypes.byref(_phys(p)),
+            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "rkm_attempt")
     LAUNCHES["rkm_attempt"] += 1
@@ -376,10 +420,10 @@ def si_prepare(F: torch.Tensor, U: torch.Tensor, p: SimParams):
     _check_fields(p, F, U)
     outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
     with torch.cuda.device(F.device):
-        rc = _lib().bt_si_prepare_f32(
+        rc = entry(_lib(), "si_prepare", F.dtype)(
             F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr() if len(outs) == 3 else None, p.ny, p.nx,
-            ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+            ctypes.byref(_phys(p, F.dtype)), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "si_prepare")
     LAUNCHES["si_prepare"] += 1
     return tuple(outs)
@@ -395,10 +439,11 @@ def rk4_final_stage(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
     _check_fields(p, *fields)
     out_F, out_U = torch.empty_like(x[0]), torch.empty_like(x[1])
     with torch.cuda.device(out_F.device):
-        rc = _lib().bt_rk4_final_f32(
+        rc = entry(_lib(), "rk4_final", out_F.dtype)(
             *(t.data_ptr() for t in fields), out_F.data_ptr(), out_U.data_ptr(),
             p.ny, p.nx, float(p.dt), float(p.dt / 6), float(dirichlet_value),
-            float(fu), ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+            float(fu), ctypes.byref(_phys(p, out_F.dtype)),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "rk4_final_stage")
     LAUNCHES["rk4_final_stage"] += 1
     return out_F, out_U
@@ -413,10 +458,10 @@ def rk4_full(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
     _check_fields(p, F, U)
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
     with torch.cuda.device(F.device):
-        rc = _lib().bt_rk4_full_f32(
+        rc = entry(_lib(), "rk4_full", F.dtype)(
             F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
             p.ny, p.nx, float(p.dt / 2), float(p.dt), float(p.dt / 6),
-            float(dirichlet_value), float(fu), ctypes.byref(_phys(p)),
+            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "rk4_full")
     LAUNCHES["rk4_full"] += 1
@@ -426,19 +471,22 @@ def rk4_full(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
 def euler_steps(F: torch.Tensor, U: torch.Tensor, p: SimParams, steps: int,
                 fu=0.0, dirichlet_value=0.0) -> Pair:
     """K6: ``steps`` forward-Euler steps in one pass.  Same contract as
-    ``euler_steps_plain``; the kernel is built for ``K6_STEPS`` steps."""
-    _check_steps(steps)
+    ``euler_steps_plain``; the kernel is built for the depths in
+    ``K6_STEPS`` of the fields' dtype."""
+    _check_steps(steps, F.dtype)
     if not _on_cuda(F, "euler_steps"):
         return euler_steps_plain(F, U, p, steps, fu, dirichlet_value)
-    if steps != K6_STEPS:
-        raise ValueError(f"K6 is built for {K6_STEPS} steps per pass, got {steps}")
     _check_fields(p, F, U)
+    built = K6_STEPS[F.dtype]
+    if steps not in built:
+        raise ValueError(f"K6 is built for {built} steps per pass at {F.dtype}, "
+                         f"got {steps}")
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
     with torch.cuda.device(F.device):
-        rc = _lib().bt_euler4_f32(
+        rc = entry(_lib(), "euler_steps", F.dtype)(
             F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            p.ny, p.nx, float(dirichlet_value), float(fu),
-            ctypes.byref(_phys(p)), torch.cuda.current_stream().cuda_stream)
+            p.ny, p.nx, steps, float(dirichlet_value), float(fu),
+            ctypes.byref(_phys(p, F.dtype)), torch.cuda.current_stream().cuda_stream)
     _raise_on(rc, "euler_steps")
     LAUNCHES["euler_steps"] += 1
     return out_F, out_U

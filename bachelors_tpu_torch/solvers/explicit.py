@@ -6,9 +6,11 @@ only:
 
   * ``euler_step_based`` (:22-73): one K1 launch in euler mode, or in rhs
     mode for the corrector's re-steps from a frozen temperature base.
-  * ``make_euler_pair_stepper`` (:90-239): ``EULER_BLOCK_STEPS`` Euler steps
-    per pass over device memory (``ops/cuda_rhs.euler_steps``, K6) for runs
-    that collect nothing per step.
+  * ``make_euler_pair_stepper`` (:90-239): several Euler steps per pass
+    over device memory (``ops/cuda_rhs.euler_steps``, K6) for runs that
+    collect nothing per step: ``EULER_BLOCK_STEPS`` at float32, and at
+    float64 the depth of the JAX package's df64 kernel
+    (``euler_dd_block_steps``).
   * ``rk4_step`` (:242-313): the whole-step kernel (K3) from
     ``RK4_FULLSTEP_MIN_CELLS`` cells, else K1 for k1..k3 and K4 for the
     fourth stage and the combination.
@@ -18,9 +20,10 @@ only:
     as the reference does (`simulation.cu:427-435`); the JAX package runs
     the same loop as a device ``while_loop``.
 
-The routing constants are the JAX package's, measured on a TPU; the port
-keeps them so that it routes as the reference does (PERF.md holds the
-H100's own crossovers).
+Every path runs at float32 and at float64, on the same kernels
+instantiated for each.  The routing constants are the JAX package's,
+measured on a TPU; the port keeps them so that it routes as the reference
+does (PERF.md holds the H100's own crossovers).
 """
 from __future__ import annotations
 
@@ -44,23 +47,38 @@ def euler_step_based(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
     return F + p.dt * dF, U_base + p.dt * dU
 
 
-EULER_BLOCK_STEPS = 4  # Euler steps per pass of K6 (JAX :76)
+EULER_BLOCK_STEPS = 4  # Euler steps per pass of K6 at float32 (JAX :76)
+
+# At float64, 4 Euler steps per pass below 1M cells and 8 from there
+# (`bachelors_tpu/ops/pallas_dd.py:50-65`), with no single-step window.
+EULER_F64_BLOCK_STEPS = 4
+EULER_F64_BLOCK_STEPS_LARGE = 8
+EULER_F64_LARGE_MIN_CELLS = 1 << 20
+
+
+def euler_dd_block_steps(cells: int) -> int:
+    """The float64 Euler pass's depth for a grid of ``cells`` cells, as
+    ``bachelors_tpu/ops/pallas_dd.euler_dd_block_steps`` chooses it."""
+    return (EULER_F64_BLOCK_STEPS_LARGE if cells >= EULER_F64_LARGE_MIN_CELLS
+            else EULER_F64_BLOCK_STEPS)
+
 
 # RK4 runs the whole-step kernel K3 from this many cells on (JAX :87); below
 # it the staged route (K1 x 3, then K4).
 RK4_FULLSTEP_MIN_CELLS = 8 * 1024 * 1024
 
-# Grids of more than 2M and fewer than 10M cells take single Euler steps
-# (JAX :226-231).
+# Float32 grids of more than 2M and fewer than 10M cells take single Euler
+# steps (JAX :226-231).
 EULER_PAIR_GAP = (2 * 1024 * 1024, 10 * 1024 * 1024)
 
 
 def euler_pair(p: SimParams):
-    """state -> the state ``EULER_BLOCK_STEPS`` Euler steps later, in one
-    pass of K6 on the kernel backend (as many plain steps otherwise), with
-    no gate; the function carries ``.block_steps``.
+    """state -> the state T Euler steps later, in one pass of K6 on the
+    kernel backend (T plain steps otherwise), with no gate; T is
+    ``EULER_BLOCK_STEPS`` at float32 and ``euler_dd_block_steps(p.N)`` at
+    float64, and the function carries it as ``.block_steps``.
     ``make_euler_pair_stepper`` decides when a run uses it."""
-    T = EULER_BLOCK_STEPS
+    T = euler_dd_block_steps(p.N) if p.dtype == "float64" else EULER_BLOCK_STEPS
 
     def pair(state: SimState) -> SimState:
         if resolve_backend(p, state.F.device) == "kernel":
@@ -78,20 +96,18 @@ def make_euler_pair_stepper(p: SimParams):
     """``euler_pair(p)``, or ``None`` where a run must take single steps:
     solvers other than Euler, the exact forcing (it changes every step),
     per-step stats or step residuals (a pair emits none), the corrector
-    loop, float64 (its kernels are ROADMAP item 12), and grids inside
-    ``EULER_PAIR_GAP``.  The single-device f32 branch of the JAX package's
-    ``make_euler_pair_stepper``; the port's kernel takes every grid, so the
-    JAX tile gate has no counterpart."""
+    loop, and float32 grids inside ``EULER_PAIR_GAP``.  The single-device
+    branches of the JAX package's ``make_euler_pair_stepper``, its df64
+    branch at float64 (every grid size, the depth by cells); the port's
+    kernel takes every grid, so the JAX tile gates have no counterpart."""
     if p.solver != SolverType.EXPLICIT_EULER:
         return None
     if p.do_exact or p.do_stats or p.do_stats_step_residual:
         return None
     if p.do_corrector_loop and p.corrector_max_iters > 0:
         return None
-    if p.dtype == "float64":
-        return None
     lo, hi = EULER_PAIR_GAP
-    if lo < p.N < hi:
+    if p.dtype != "float64" and lo < p.N < hi:
         return None
     return euler_pair(p)
 

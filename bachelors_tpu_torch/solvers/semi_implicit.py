@@ -16,8 +16,21 @@ The CG iterations run K8-K10 (``ops/cuda_cg``) on the kernel backend.  The
 phase system takes Jacobi preconditioning when its diagonal varies by more
 than 10% (``_wants_jacobi``); that branch runs plain torch ops on any
 device, as the JAX package runs it in XLA.  ``cg_branch`` names the branch
-a configuration takes.  The df64 path of the JAX package has no
-counterpart: at float64 the plain version runs (ROADMAP slice 3).
+a configuration takes.
+
+float64 on the card (``refines``) takes the JAX package's accelerator route,
+``_semi_implicit_step_dd`` (:234), in ``semi_implicit_step_refined``: per
+system a CG solve, the true residual r1 = r0 - A e1 of its result (K14,
+``ops/cuda_cg.*_residual``), a second CG solve A e2 = r1, and x + e1 + e2;
+plain CG without Jacobi, as there.  The TPU runs that route in float32 CG
+and float32-pair residuals because it has no float64 ALU; here K7, K8-K10
+and K14 all run at double.  r1 then starts below the stop test, so the
+second solve stops after one iteration, which its count (like the
+reference's) leaves out, having taken most of what the first solve left of
+the true residual.  Everywhere else -- float32, float64 on the CPU,
+``backend = xla`` -- the step is the JAX package's
+``semi_implicit_step_based`` as its XLA path runs it (two solves), as the
+JAX package itself does off its accelerator.
 """
 from __future__ import annotations
 
@@ -56,8 +69,21 @@ def _wants_jacobi(p: SimParams) -> bool:
     return spread > 0.10
 
 
-def cg_branch(p: SimParams) -> str:
-    """Which phase-system CG a configuration runs, in words."""
+def refines(p: SimParams, device: torch.device) -> bool:
+    """Whether a step of ``p`` on ``device`` takes the refined float64 route
+    (``semi_implicit_step_refined``).  The JAX gate (``pallas_dd.wants_dd``
+    via ``wants_dd_si``): float64, not ``backend = xla``, on the
+    accelerator; the plain backend on the card takes the route too, in
+    plain torch ops, so the kernels can be held to it."""
+    return p.dtype == "float64" and p.backend != "xla" and device.type == "cuda"
+
+
+def cg_branch(p: SimParams, device: torch.device = torch.device("cpu")) -> str:
+    """Which phase-system CG a configuration runs on ``device``, in words."""
+    if refines(p, device):
+        form = "K8 aniso form" if cuda_rhs.si_s_varies(p) else "K8 cross form"
+        return (f"float64 CG on the phase operator ({form}), refined once by "
+                "the true residual (K14) and a second solve")
     if _wants_jacobi(p):
         return "Jacobi-preconditioned CG (plain torch ops)"
     if cuda_rhs.si_s_varies(p):
@@ -68,6 +94,8 @@ def cg_branch(p: SimParams) -> str:
 def semi_implicit_step_based(F: torch.Tensor, U: torch.Tensor,
                              U_base: torch.Tensor, p: SimParams):
     """One semi-implicit step.  Returns (next_F, next_U, res_F, res_U)."""
+    if refines(p, F.device):
+        return semi_implicit_step_refined(F, U, U_base, p)
     kernel = resolve_backend(p, F.device) == "kernel"
     s_const = not cuda_rhs.si_s_varies(p)
     prep = (cuda_rhs.si_prepare if kernel else cuda_rhs.si_prepare_plain)(F, U, p)
@@ -107,6 +135,66 @@ def semi_implicit_step_based(F: torch.Tensor, U: torch.Tensor,
         tolerance=p.T_tolerance, max_iters=p.T_max_iters, epsilon=EPSILON,
         matvec_pAp=mv_U)
     next_U = U + e_U
+    return next_F, next_U, res_F, res_U
+
+
+def semi_implicit_step_refined(F: torch.Tensor, U: torch.Tensor,
+                               U_base: torch.Tensor, p: SimParams):
+    """One semi-implicit step with one round of iterative refinement per
+    system (``bachelors_tpu/solvers/semi_implicit._semi_implicit_step_dd``
+    :234).  Returns (next_F, next_U, res_F, res_U): each result carries the
+    second solve's error, the two solves' iterations, and converged when
+    both are."""
+    kernel = resolve_backend(p, F.device) == "kernel"
+    prep = (cuda_rhs.si_prepare if kernel else cuda_rhs.si_prepare_plain)(F, U, p)
+    r0_F, uterm = prep[0], prep[1]
+
+    # the corrector / gamma heat-rhs terms (none on the plain path: U_base
+    # IS U there and gamma == 1)
+    extra = None
+    if U_base is not U:
+        extra = U_base - U
+    if p.gamma != 1.0:
+        g_term = p.dt * (1.0 - p.gamma) * U_base
+        extra = g_term if extra is None else extra + g_term
+
+    A_F = AnisotropyMatrix.implicit_phase(p)
+    A_U = CrossMatrix.implicit_heat(p)
+    if len(prep) == 2:
+        s = p.gamma / p.alpha  # constant: no anisotropy, no corrector guess
+        A_Fc = CrossMatrix(C=1 + A_F.Cm1 * s, X=A_F.X * s, Y=A_F.Y * s,
+                           boundary=p.Phi_boundary)
+        mv_F = lambda v, out=None: cuda_cg.cross_matvec_pAp(A_Fc, v, out=out)  # noqa: E731
+        residual = cuda_cg.cross_residual if kernel else cuda_cg.cross_residual_plain
+        refine_F = lambda e1: residual(r0_F, e1, A_Fc)  # noqa: E731
+    else:
+        s = prep[2]
+        mv_F = lambda v, out=None: cuda_cg.aniso_matvec_pAp(A_F, s, v, out=out)  # noqa: E731
+        residual = cuda_cg.aniso_residual if kernel else cuda_cg.aniso_residual_plain
+        refine_F = lambda e1: residual(r0_F, e1, A_F, s)  # noqa: E731
+    mv_U = lambda v, out=None: cuda_cg.cross_matvec_pAp(A_U, v, out=out)  # noqa: E731
+    heat_residual = cuda_cg.heat_residual if kernel else cuda_cg.heat_residual_plain
+
+    def solve(matvec, mv, b, tol, iters):
+        return cg_solve(matvec, b, tolerance=tol, max_iters=iters, epsilon=EPSILON,
+                        matvec_pAp=mv if kernel else None)
+
+    mvx_F = lambda v: anisotropy_matvec(A_F, s, v)  # noqa: E731
+    mvx_U = lambda v: cross_matvec(A_U, v)  # noqa: E731
+    e1_F, res1_F = solve(mvx_F, mv_F, r0_F, p.Phi_tolerance, p.Phi_max_iters)
+    e2_F, res_F = solve(mvx_F, mv_F, refine_F(e1_F), p.Phi_tolerance, p.Phi_max_iters)
+    eF_pair = (e1_F, e2_F)
+    e1_U, res1_U = solve(mvx_U, mv_U, cuda_cg.heat_rhs(uterm, eF_pair, p.L, extra),
+                         p.T_tolerance, p.T_max_iters)
+    r1_U = heat_residual(uterm, eF_pair, e1_U, A_U, p.L, extra)
+    e2_U, res_U = solve(mvx_U, mv_U, r1_U, p.T_tolerance, p.T_max_iters)
+
+    # add back x + e1 + e2 in that order, as the JAX package's pair sums do
+    next_F = (F + e1_F) + e2_F
+    next_U = (U + e1_U) + e2_U
+    for first, res in ((res1_F, res_F), (res1_U, res_U)):
+        res.iters += first.iters
+        res.converged = res.converged and first.converged
     return next_F, next_U, res_F, res_U
 
 

@@ -14,12 +14,19 @@ then over a window of 200 steps from that one state:
     only), the busy share (that device time over the unprofiled ms/step
     with stats on) and the device events that take the most time.
 
+Then the float64 paths: the reference's own benchmark configs
+``bench_sweep_f64/*_512_f64.ini`` (RKM, Euler, RK4, semi-implicit; no
+stats, as they ship), stepped as the driver steps them -- Euler through
+the pair stepper, K6 at double -- to about half of each run, then timed
+and traced over a window from there in the same way, stats off.
+
 Then the routes, each from the config's initial fields at each size (dt
 scaled by (512/n)^2, the 512^2 run's stability ratio), stats off: RK4's
-staged route against its whole-step kernel K3 at 512^2 to 4096^2, and
-Euler in blocks of 4 steps (K6) against single steps (K1) at 512^2,
-2048^2 and 4096^2 -- ms/step on the host clock to a device sync, and
-device µs/step under ``torch.profiler``.
+staged route against its whole-step kernel K3 at 512^2 to 4096^2, Euler
+in blocks of 4 steps (K6) against single steps (K1) at 512^2, 2048^2 and
+4096^2, and at float64 K6 in blocks of 4 against blocks of 8 and single
+steps at 512^2, 1024^2 and 2048^2 -- ms/step on the host clock to a
+device sync, and device µs/step under ``torch.profiler``.
 
 Prints one JSON line per path and per route table, and writes them all to
 ``--out`` as one JSON object.  Imports nothing of JAX.
@@ -43,8 +50,8 @@ from ..ops import cuda_build, cuda_cg, cuda_rhs
 from ..solvers import cg, explicit
 from ..solvers.base import make_stepper
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "config.ini")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CONFIG = os.path.join(ROOT, "config.ini")
 # (overrides, steps to the window): about half of each full run
 PATHS = {
     "semi-implicit": (["[simulation]\nsolver = semi-implicit\nT_tolerance = 5e-9\n"
@@ -53,17 +60,34 @@ PATHS = {
     "euler": (["[simulation]\nsolver = explicit\n"], 4000),
     "rk4": (["[simulation]\nsolver = explicit-rk4\n"], 4000),
 }
+# the float64 sweep configs at 512^2, as they ship: (file, steps to the
+# window), about half of each run (RKM takes ~9500 steps)
+F64_PATHS = {
+    "rkm f64": ("config_explicit-rk4-adaptive_512_f64.ini", 4800),
+    "euler f64": ("config_explicit_512_f64.ini", 4000),
+    "rk4 f64": ("config_explicit-rk4_512_f64.ini", 4000),
+    "semi-implicit f64": ("config_semi-implicit_512_f64.ini", 4000),
+}
 WINDOW = 200
 TOP = 25
+
+
+def _euler_single(F, U, p):
+    return cuda_rhs.blend_rhs([(F, U)], [1.0], p, is_euler=True)
+
+
 # route -> (steps per call, the call on (F, U, p)), per solver, and sizes
 ROUTES = {
     "rk4": {"staged": (1, lambda F, U, p: explicit.rk4_staged(F, U, p)),
             "whole step (K3)": (1, lambda F, U, p: cuda_rhs.rk4_full(F, U, p))},
     "euler": {"blocks of 4 (K6)": (4, lambda F, U, p: cuda_rhs.euler_steps(F, U, p, 4)),
-              "single (K1)": (1, lambda F, U, p: cuda_rhs.blend_rhs(
-                  [(F, U)], [1.0], p, is_euler=True))},
+              "single (K1)": (1, _euler_single)},
+    "euler f64": {"blocks of 4 (K6)": (4, lambda F, U, p: cuda_rhs.euler_steps(F, U, p, 4)),
+                  "blocks of 8 (K6)": (8, lambda F, U, p: cuda_rhs.euler_steps(F, U, p, 8)),
+                  "single (K1)": (1, _euler_single)},
 }
-ROUTE_SIZES = {"rk4": (512, 1024, 2048, 4096), "euler": (512, 2048, 4096)}
+ROUTE_SIZES = {"rk4": (512, 1024, 2048, 4096), "euler": (512, 2048, 4096),
+               "euler f64": (512, 1024, 2048)}
 ROUTE_STEPS = 200
 
 
@@ -78,6 +102,68 @@ def run_window(stepper, state, n: int, collect: bool) -> float:
             acc.collect(stats)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
+
+
+def traced_ms(fn, window: int):
+    """(device ms per step, the device events by time) of ``fn``, which
+    takes ``window`` steps, under torch.profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
+    if device_ms <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    device.sort(key=lambda e: -e.self_device_time_total)
+    return device_ms, [[e.key[:90], e.self_device_time_total / window, e.count / window]
+                       for e in device[:TOP]]
+
+
+def profile_f64_path(name: str, window: int) -> dict:
+    """A float64 sweep config, stepped as the driver steps it (no stats;
+    Euler in blocks through the pair stepper): ms/step on the host clock
+    over ``window`` steps from about half the run, work per step, and
+    device time per step under torch.profiler."""
+    path, warm = F64_PATHS[name]
+    cfg = load_config(os.path.join(ROOT, "bench_sweep_f64", path))
+    p = cfg.params
+    state = make_state(*make_initial_fields(p, cfg.initial, device="cuda"), p, device="cuda")
+    single = make_stepper(p)
+    pair = explicit.make_euler_pair_stepper(p)
+    per_call = pair.block_steps if pair else 1
+
+    def step(s):
+        return pair(s) if pair else single(s)[0]
+
+    for _ in range(warm // per_call):
+        state = step(state)
+    calls = window // per_call
+
+    def run():
+        s = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            s = step(s)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (calls * per_call)
+
+    cuda_rhs.reset_launch_counts()
+    cuda_cg.reset_launch_counts()
+    cg.reset_host_reads()
+    ms = run()
+    steps = calls * per_call
+    launches = {k: v / steps for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items()
+                if v}
+    host_reads = cg.HOST_READS["cg_stop_test"] / steps
+    dev_ms, top = traced_ms(run, steps)
+    return {"path": name, "config": f"bench_sweep_f64/{path}", "grid": f"{p.ny}x{p.nx}",
+            "dtype": p.dtype, "window_after_steps": warm, "window_steps": steps,
+            "steps_per_call": per_call, "ms_per_step_stats_off": ms,
+            "launches_per_step": launches, "host_reads_per_step": host_reads,
+            "device_ms_per_step": dev_ms, "busy_share": dev_ms / ms,
+            "top_device_us_per_step": top}
 
 
 def profile_path(name: str, window: int) -> dict:
@@ -100,23 +186,16 @@ def profile_path(name: str, window: int) -> dict:
     off_ms = run_window(make_stepper(p.replace(do_stats=False)), state, window,
                         collect=False)
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        profiled_ms = run_window(stepper, state, window, collect=True)
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
-    if device_ms <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    device.sort(key=lambda e: -e.self_device_time_total)
+    profiled = []
+    device_ms, top = traced_ms(
+        lambda: profiled.append(run_window(stepper, state, window, collect=True)), window)
     return {
         "path": name, "grid": f"{p.ny}x{p.nx}", "window_after_steps": warm,
         "window_steps": window, "ms_per_step_stats_on": on_ms,
         "ms_per_step_stats_off": off_ms, "launches_per_step": launches,
-        "host_reads_per_step": host_reads, "profiled_ms_per_step": profiled_ms,
+        "host_reads_per_step": host_reads, "profiled_ms_per_step": profiled[0],
         "device_ms_per_step": device_ms, "busy_share": device_ms / on_ms,
-        "top_device_us_per_step": [[e.key[:90], e.self_device_time_total / window,
-                                    e.count / window] for e in device[:TOP]],
+        "top_device_us_per_step": top,
     }
 
 
@@ -135,10 +214,11 @@ def device_ms(fn, calls: int) -> float:
 def profile_routes(solver: str) -> dict:
     """Each route of ``solver`` at each of its sizes: ms/step on the host
     clock and device µs/step, from the config's initial fields."""
-    out = {"solver": solver, "steps": ROUTE_STEPS, "sizes": {}}
+    dtype = "float64" if solver.endswith("f64") else "float32"
+    out = {"solver": solver, "dtype": dtype, "steps": ROUTE_STEPS, "sizes": {}}
     for n in ROUTE_SIZES[solver]:
         cfg = load_config(CONFIG, [f"[simulation]\nmesh_size_x = {n}\nmesh_size_y = {n}\n"
-                                   f"dt = {5e-6 * (512 / n) ** 2!r}\n"])
+                                   f"dt = {5e-6 * (512 / n) ** 2!r}\n[tpu]\ndtype = {dtype}\n"])
         p = cfg.params
         F0, U0 = make_initial_fields(p, cfg.initial, device="cuda")
         row = {}
@@ -179,6 +259,9 @@ def main() -> None:
     results = {"card": card}
     for name in PATHS:
         results[name] = profile_path(name, WINDOW)
+        print(json.dumps({"card": card, **results[name]}), flush=True)
+    for name in F64_PATHS:
+        results[name] = profile_f64_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)
     for solver in ROUTES:
         results[f"{solver} routes"] = profile_routes(solver)

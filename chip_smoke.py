@@ -3,10 +3,11 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from ``bachelors_tpu_torch/csrc``, holds each
-against its plain torch version on the card at its path's shapes, times
-both, then drives each path through ``run_config_file`` on the shipped
-512x512 ``config.ini`` (float32, stats every step, 11 snapshots) and checks
-what it wrote and that every step went through the path's kernels:
+against its plain torch version on the card at its path's shapes, at float32
+and at float64, times both, then drives each path through
+``run_config_file`` and checks what it wrote and that every step went
+through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
+(stats every step, 11 snapshots):
 
   * RKM, the shipped solver: K2 (the whole Merson attempt);
   * semi-implicit at the CG tolerance 5e-9: K7 (the prepare) and the CG
@@ -20,17 +21,28 @@ what it wrote and that every step went through the path's kernels:
     to it;
   * the exact solver, 100 steps: no kernel.
 
+At float64, the reference's own benchmark configs ``bench_sweep_f64/*.ini``
+(isotropic, no stats, CG and Merson tolerances 5e-9), each beside the
+reference's A100 time (``BASELINE.md:14-20``), plus an initial frame:
+
+  * RKM at 512^2: K2 at double, within 1% of the 9539 steps the JAX
+    package's float64 controller takes (``RESULTS.md:140-145``);
+  * Euler at 512^2: K6 at double, 4 steps per launch; at 1024^2, 8;
+  * RK4 at 512^2: K1 x 3 + K4 at double; on a 4096^2 cut, K3 at double;
+  * semi-implicit at 512^2: K7 and K8-K10 at double, and K14 (the
+    refinement residual between each system's two CG solves).
+
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-The line before it lists each kernel with its launches on its path, its
-largest disagreement with the plain version, both times, its bound (the
-least time the card could take, from the bytes and operations of the
-timed call) and the time of one PyTorch call computing the same function
-where there is one.  Without a CUDA device, or without the package beside
-it, the script fails.  It imports nothing of JAX.
+The line before it lists each kernel, at each dtype, with its launches on
+its path, its largest disagreement with the plain version, both times, its
+bound (the least time the card could take, from the bytes and operations of
+the timed call) and the time of one PyTorch call computing the same
+function where there is one.  Without a CUDA device, or without the package
+beside it, the script fails.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -50,7 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "config.ini")  # the main path: the shipped config
 sys.path.insert(0, ROOT)
 
-from bachelors_tpu_torch.app.driver import run_config_file  # noqa: E402
+from bachelors_tpu_torch.app.driver import run_config_file, snapshot_events  # noqa: E402
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams  # noqa: E402
 from bachelors_tpu_torch.core.state import make_state  # noqa: E402
 from bachelors_tpu_torch.io.config import load_config  # noqa: E402
@@ -58,7 +70,7 @@ from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
 from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs  # noqa: E402
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix  # noqa: E402
-from bachelors_tpu_torch.solvers import cg, explicit, semi_implicit  # noqa: E402
+from bachelors_tpu_torch.solvers import cg, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.base import make_stepper  # noqa: E402
 from bachelors_tpu_torch.utils.logging import SYSTEM  # noqa: E402
 
@@ -70,7 +82,23 @@ TAU = 3.7e-6   # a Merson step size of the order the 512^2 run takes
 FIELD_TOL = 2e-5  # max|kernel - plain| <= FIELD_TOL * max(|plain|, 1)
 ERR_RTOL = 2e-4   # on the two error maxima
 SUM_RTOL = 1e-5   # on the CG dot products (summed in another order)
-EPS32 = float(np.finfo(np.float32).eps)
+# Per field dtype: the physics of the kernel checks, the numbers of blended
+# states K1 is held at, and the tolerances.  At
+# float64 the RHS kernels round every operation as the plain version does
+# (csrc/physics.cuh), so fields and Merson maxima may differ only where
+# atan2/cos/sqrt do (none on the card: the same libdevice), and the dot
+# products by the order of their sums (~1e-16 each).
+PRECISION = {
+    "float32": dict(field_tol=FIELD_TOL, err_rtol=ERR_RTOL,
+                    sum_rtol=SUM_RTOL, states=(1, 4),
+                    physics=(dict(S=0.25, m0=6.0), dict(S=0.25, m0=4.5),
+                             dict(S=0.0, m0=6.0))),
+    "float64": dict(field_tol=1e-11, err_rtol=1e-9, sum_rtol=1e-9,
+                    states=(1, 2, 3, 4),
+                    physics=(dict(S=0.25, f32_transcendentals=True),
+                             dict(S=0.25, f32_transcendentals=False),
+                             dict(S=0.0, f32_transcendentals=True))),
+}
 # the semi-implicit path: config.ini with the CG tolerance of the reference
 SEMI = "[simulation]\nsolver = semi-implicit\nT_tolerance = 5e-9\nPhi_tolerance = 5e-9\n"
 CORRECTOR = ("[simulation]\nstop_after = 0.004\ndo_corrector_loop = true\n"
@@ -84,48 +112,77 @@ RK4 = "[simulation]\nsolver = explicit-rk4\n"
 CUT = ("[simulation]\nmesh_size_x = 4096\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
        "stop_after = 2.34375e-5\n[snapshot]\ntimes = 1\n")
 EXACT = "[simulation]\nsolver = exact\ndo_exact = true\nstop_after = 0.0005\n[snapshot]\ntimes = 1\n"
+# The float64 paths: the reference's benchmark configs as they ship, with an
+# initial frame (written before the timed loop) to check the seed's growth
+# against, and the reference's A100 run time of each (BASELINE.md:14-20)
+F64_DIR = os.path.join(ROOT, "bench_sweep_f64")
+F64_RUNS = {"rkm": ("config_explicit-rk4-adaptive_512_f64.ini", 5.39),
+            "euler": ("config_explicit_512_f64.ini", 0.66),
+            "euler 1024": ("config_explicit_1024_f64.ini", 1.64),
+            "rk4": ("config_explicit-rk4_512_f64.ini", 2.88),
+            "semi-implicit": ("config_semi-implicit_512_f64.ini", 5.67)}
+FIRST_FRAME = "[snapshot]\nsnapshot_initial_conditions = 1\n"
+RKM_F64_STEPS = 9539  # the JAX package's f64 controller on this workload
 # every plain version a path could fall back to, by module
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain"),
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
-                   "update_xr_rr_plain", "axpby_inplace_plain"),
+                   "update_xr_rr_plain", "axpby_inplace_plain", "cross_residual_plain",
+                   "aniso_residual_plain", "heat_residual_plain"),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
 
 
-# The card's published peaks (H100 SXM at 700 W): device memory and
-# float32 outside the tensor cores.
+# The card's published peaks (H100 SXM at 700 W): device memory, and float32
+# and float64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 # Operations per cell counted from csrc/*.cu as written, each atan2f, cosf
 # and sqrtf as one: the physics body (physics.cuh), and per kernel that
 # body times its stages plus its blends, updates and combinations.
 PHYS_OPS = 48
+# Of those, the ones a float64 kernel does in float under
+# f32_transcendentals (the timed calls'): r2 (3), atan2f, m0 theta + theta0
+# (2), cosf, 1 - S cos (2), sqrtf.
+PHYS_F32_OPS = 10
 OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K4": PHYS_OPS + 4 + 14,          # [x, k3] blend, RK4 combination
        "K2": 5 * PHYS_OPS + 32 + 10 + 18,  # blends, update, error maxima
        "K3": 4 * PHYS_OPS + 12 + 14,     # blends, RK4 combination
        "K6": 4 * (PHYS_OPS + 4),         # 4 Euler steps
+       "K6 T=8": 8 * (PHYS_OPS + 4),     # 8 Euler steps
        "K7": PHYS_OPS,
-       "K8 cross": 9, "K8 aniso": 13, "K9": 6, "K10": 3}
-# Bytes per cell: each input field read once, each output written once.
-BYTES = {"K1": 4 * (2 * 4 + 2), "K4": 4 * (8 + 2), "K2": 4 * (2 + 2),
-         "K3": 4 * (2 + 2), "K6": 4 * (2 + 2), "K7": 4 * (2 + 3),
-         "K8 cross": 4 * (1 + 1), "K8 aniso": 4 * (2 + 1), "K9": 4 * (4 + 2),
-         "K10": 4 * (2 + 1)}
+       "K8 cross": 9, "K8 aniso": 13, "K9": 6, "K10": 3,
+       "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11}
+PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1}
+# Fields per cell: each input read once, each output written once.
+FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
+          "K6 T=8": 2 + 2, "K7": 2 + 3, "K8 cross": 1 + 1, "K8 aniso": 2 + 1,
+          "K9": 4 + 2, "K10": 2 + 1, "K14 cross": 2 + 1, "K14 aniso": 3 + 1,
+          "K14 heat": 4 + 1}
 
 
-def bound(name: str, cells: int) -> dict:
+def bound(name: str, cells: int, dtype: str = "float32") -> dict:
     """The least time the card could take for kernel ``name`` on ``cells``
     cells: the larger of its bytes over the memory rate and its operations
-    over the float32 rate."""
-    t_bytes = cells * BYTES[name] / HBM_BYTES_PER_S * 1e3
-    t_ops = cells * OPS[name] / F32_OPS_PER_S * 1e3
+    over the rate of their type."""
+    t_bytes = cells * FIELDS[name] * np.dtype(dtype).itemsize / HBM_BYTES_PER_S * 1e3
+    if dtype == "float32":
+        t_ops = cells * OPS[name] / F32_OPS_PER_S * 1e3
+    else:
+        f32_ops = PHYSICS_PER_CELL.get(name, 0) * PHYS_F32_OPS
+        t_ops = cells * ((OPS[name] - f32_ops) / F64_OPS_PER_S + f32_ops / F32_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def titled(name: str, dtype: str) -> str:
+    """A phase name, marked when it is a float64 one."""
+    return name if dtype == "float32" else f"{name} (float64)"
 
 
 def field_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -171,19 +228,38 @@ def card() -> str:
     return name
 
 
-def params(ny, nx, bc, S=0.25, m0=6.0, u_bc=None):
+def ptxas_report(log: str) -> dict:
+    """ptxas's registers, shared memory and spills per kernel instantiation
+    (demangled where c++filt is there), from the build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split("info    :")[-1].strip())
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = list(out)
+    if len(names) != len(out):
+        names = list(out)
+    return {n: " | ".join(v) for n, v in zip(names, out.values())}
+
+
+def params(ny, nx, bc, S=0.25, m0=6.0, u_bc=None, dtype="float32", **kw):
     return SimParams(ny=ny, nx=nx, S=S, m0=m0, theta0=0.1,
                      Phi_boundary=BoundaryType(bc),
-                     T_boundary=BoundaryType(u_bc or bc))
+                     T_boundary=BoundaryType(u_bc or bc), dtype=dtype, **kw)
 
 
-def fields(rng, ny, nx, n=1):
-    """n (F, U) pairs of standard-normal float32 fields on the card."""
-    return [tuple(torch.from_numpy(rng.normal(size=(ny, nx)).astype(np.float32)).to(DEVICE)
+def fields(rng, ny, nx, n=1, dtype="float32"):
+    """n (F, U) pairs of standard-normal fields on the card."""
+    return [tuple(torch.from_numpy(rng.normal(size=(ny, nx)).astype(dtype)).to(DEVICE)
                   for _ in range(2)) for _ in range(n)]
 
 
-def seeded(rng, ny, nx):
+def seeded(rng, ny, nx, dtype="float32"):
     """A solid disc in an undercooled melt plus noise, on the card: several
     Euler or RK4 stages from a standard-normal field blow up."""
     y = (np.arange(ny)[:, None] + 0.5) / ny * 4.0
@@ -191,235 +267,227 @@ def seeded(rng, ny, nx):
     F = np.clip((0.8 - np.hypot(x - 1.3, y - 2.6)) / 0.2 + 0.5, 0, 1)
     F = F + 0.05 * rng.normal(size=(ny, nx))
     U = -0.2 + 0.05 * rng.normal(size=(ny, nx))
-    return tuple(torch.from_numpy(a.astype(np.float32)).to(DEVICE) for a in (F, U))
+    return tuple(torch.from_numpy(a.astype(dtype)).to(DEVICE) for a in (F, U))
 
 
-def hold(name, got, want, what, worst) -> None:
-    """Each field of ``got`` within FIELD_TOL of ``want``; the largest
+def hold(name, got, want, what, worst, tol=FIELD_TOL) -> None:
+    """Each field of ``got`` within ``tol`` of ``want``; the largest
     relative and absolute gaps go into ``worst``."""
     for g, w in zip(got, want):
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{name} returned {g.dtype}, plain {w.dtype} ({what})")
         e = field_err(g, w)
         worst[0] = max(worst[0], e)
         worst[1] = max(worst[1], (g - w).abs().max().item())
-        if not e <= FIELD_TOL:
-            raise AssertionError(f"{name} disagrees: {e:.3g} > {FIELD_TOL} ({what})")
+        if not e <= tol:
+            raise AssertionError(f"{name} disagrees: {e:.3g} > {tol} ({what})")
 
 
-def entry_numbers(name, times, at, worst_abs, library_ms=None) -> dict:
+def check_cases(dtype, sizes, pairs=BC_PAIRS, physics=None):
+    """(p, Dirichlet value, description) for each size, BC pair and physics
+    case (by default ``dtype``'s)."""
+    for ny, nx in sizes:
+        for f_bc, u_bc in pairs:
+            for ph in physics or PRECISION[dtype]["physics"]:
+                yield (params(ny, nx, f_bc, u_bc=u_bc, dtype=dtype, **ph),
+                       0.25 if "dirichlet" in (f_bc, u_bc) else 0.0,
+                       f"{ny}x{nx} {f_bc}/{u_bc or f_bc} {ph}")
+
+
+def entry_numbers(name, times, at, worst_abs, library_ms=None, dtype="float32") -> dict:
     """A kernel's entry numbers: its and the plain version's time at size
     ``at``, its bound there, and the library call's time where one PyTorch
     call computes the same function (else None)."""
     return {"max_abs_err": worst_abs, "ms": times[at][0], "plain_ms": times[at][1],
-            **bound(name, at * at), "library_ms": library_ms}
+            **bound(name, at * at, dtype), "library_ms": library_ms}
 
 
-def check_k1(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
-    worst = worst_abs = 0.0
+def ms_table(times) -> dict:
+    return {f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()}
+
+
+def check_k1(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
+    """K1 against its plain version: 1-4 blended states, both modes, fu !=
+    0, a Dirichlet value where a field has one."""
+    prec = PRECISION[dtype]
+    worst = [0.0, 0.0]
     cases = 0
-    for ny, nx in sizes:
-        for bc in BCS:
-            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
-                for n in (1, 4):
-                    p = params(ny, nx, bc, S, m0)
-                    states = fields(rng, ny, nx, n)
-                    w = [1.0] + [float(x) * 1e-2 for x in rng.normal(size=n - 1)]
-                    d = 0.25 if bc == "dirichlet" else 0.0
-                    for is_euler in (False, True):
-                        got = cuda_rhs.blend_rhs(states, w, p, 0.03, d, is_euler)
-                        want = cuda_rhs.blend_rhs_plain(states, w, p, 0.03, d, is_euler)
-                        for g, wt in zip(got, want):
-                            e = field_err(g, wt)
-                            worst = max(worst, e)
-                            worst_abs = max(worst_abs, (g - wt).abs().max().item())
-                            if not e <= FIELD_TOL:
-                                raise AssertionError(
-                                    f"K1 disagrees: {e:.3g} > {FIELD_TOL} at {ny}x{nx} "
-                                    f"bc={bc} S={S} m0={m0} n={n} euler={is_euler}")
-                        cases += 1
+    for p, d, what in check_cases(dtype, sizes, tuple((bc, None) for bc in BCS)
+                                  if dtype == "float32" else BC_PAIRS):
+        for n in prec["states"]:
+            states = fields(rng, p.ny, p.nx, n, dtype)
+            w = [1.0] + [float(x) * 1e-2 for x in rng.normal(size=n - 1)]
+            for is_euler in (False, True):
+                hold("K1", cuda_rhs.blend_rhs(states, w, p, 0.03, d, is_euler),
+                     cuda_rhs.blend_rhs_plain(states, w, p, 0.03, d, is_euler),
+                     f"{what} n={n} euler={is_euler}", worst, prec["field_tol"])
+                cases += 1
     torch.cuda.synchronize()
     times = {}
     for size in timed:
-        p = params(size, size, "neumann")
-        states = fields(rng, size, size, 4)
+        p = params(size, size, "neumann", dtype=dtype)
+        states = fields(rng, size, size, 4, dtype)
         w = [1.0, 1e-6, -2e-6, 3e-6]
         times[size] = time_pair(lambda: cuda_rhs.blend_rhs(states, w, p),
                                 lambda: cuda_rhs.blend_rhs_plain(states, w, p),
                                 reps=50 if size == 512 else 10)
-    phase("K1 blend_rhs vs plain", cases=cases, max_rel_err=worst,
-          max_abs_err=worst_abs, tol=FIELD_TOL,
-          ms_4states={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return entry_numbers("K1", times, timed[0], worst_abs)
+    phase(titled("K1 blend_rhs vs plain", dtype), cases=cases, max_rel_err=worst[0],
+          max_abs_err=worst[1], tol=prec["field_tol"], ms_4states=ms_table(times))
+    return entry_numbers("K1", times, timed[0], worst[1], dtype=dtype)
 
 
-def check_k2(rng, initial_fields, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
-    worst = worst_abs = worst_e = 0.0
-    cases = []
-    for ny, nx in sizes:
-        for f_bc, u_bc in BC_PAIRS:
-            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
-                cases.append((params(ny, nx, f_bc, S, m0, u_bc),
-                              fields(rng, ny, nx)[0], np.float32(TAU),
-                              0.25 if "dirichlet" in (f_bc, u_bc) else 0.0))
-    # the main path's own input: config.ini's initial fields and first tau
+def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129)),
+             timed=(512, 2048)) -> dict:
+    prec = PRECISION[dtype]
+    c = np.dtype(dtype).type
+    worst = [0.0, 0.0]
+    worst_e = 0.0
+    cases = [(p, fields(rng, p.ny, p.nx, 1, dtype)[0], c(TAU), d, what)
+             for p, d, what in check_cases(dtype, sizes)]
+    # the main path's own input: its config's initial fields and first tau
     p0, F0, U0 = initial_fields
-    cases.append((p0, (F0, U0), np.float32(p0.dt), 0.0))
-    for p, (F, U), tau, d in cases:
+    cases.append((p0, (F0, U0), c(p0.dt), 0.0, "the path's initial fields"))
+    for p, (F, U), tau, d, what in cases:
         got = cuda_rhs.rkm_attempt(F, U, tau, p, 0.03, d)
         want = cuda_rhs.rkm_attempt_plain(F, U, tau, p, 0.03, d)
-        for g, wt in zip(got[:2], want[:2]):
-            e = field_err(g, wt)
-            worst = max(worst, e)
-            worst_abs = max(worst_abs, (g - wt).abs().max().item())
-            if not e <= FIELD_TOL:
-                raise AssertionError(f"K2 field disagrees: {e:.3g} > {FIELD_TOL} "
-                                     f"at {p.ny}x{p.nx} {p.Phi_boundary}/{p.T_boundary}")
+        hold("K2 field", got[:2], want[:2], what, worst, prec["field_tol"])
         ge, we = got[2].cpu().numpy(), want[2].cpu().numpy()
         rel = float((np.abs(ge - we) / np.maximum(np.abs(we), 1e-30)).max())
-        if not rel <= ERR_RTOL:
-            raise AssertionError(f"K2 error maxima disagree: {ge} vs {we} at "
-                                 f"{p.ny}x{p.nx} {p.Phi_boundary}/{p.T_boundary}")
+        if not rel <= prec["err_rtol"]:
+            raise AssertionError(f"K2 error maxima disagree: {ge} vs {we} ({what})")
         worst_e = max(worst_e, rel)
     torch.cuda.synchronize()
     times = {}
     for size in timed:
-        p = params(size, size, "neumann")
-        (F, U), = fields(rng, size, size)
-        tau = np.float32(TAU)
+        p = params(size, size, "neumann", dtype=dtype)
+        (F, U), = fields(rng, size, size, 1, dtype)
+        tau = c(TAU)
         times[size] = time_pair(lambda: cuda_rhs.rkm_attempt(F, U, tau, p),
                                 lambda: cuda_rhs.rkm_attempt_plain(F, U, tau, p),
                                 reps=50 if size == 512 else 10)
-    phase("K2 rkm_attempt vs plain", cases=len(cases), max_rel_err=worst,
-          max_abs_err=worst_abs, max_err_maxima_rel=worst_e, tol=FIELD_TOL,
-          err_rtol=ERR_RTOL,
-          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return entry_numbers("K2", times, timed[0], worst_abs)
+    phase(titled("K2 rkm_attempt vs plain", dtype), cases=len(cases), max_rel_err=worst[0],
+          max_abs_err=worst[1], max_err_maxima_rel=worst_e, tol=prec["field_tol"],
+          err_rtol=prec["err_rtol"], ms=ms_table(times))
+    return entry_numbers("K2", times, timed[0], worst[1], dtype=dtype)
 
 
-def check_k7(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
-    """K7 against the plain prepare: every BC pair, S = 0.25 (the map s is
-    emitted) and S = 0, the corrector guess on and off."""
-    worst = worst_abs = 0.0
+def check_k7(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
+    """K7 against the plain prepare: every BC pair and physics case (S !=
+    0: the map s is emitted; S = 0: not), the corrector guess on and off."""
+    prec = PRECISION[dtype]
+    worst = [0.0, 0.0]
     cases = 0
-    for ny, nx in sizes:
-        for f_bc, u_bc in BC_PAIRS:
-            for S in (0.25, 0.0):
-                for guess in (False, True):
-                    p = params(ny, nx, f_bc, S, u_bc=u_bc).replace(do_corrector_guess=guess)
-                    (F, U), = fields(rng, ny, nx)
-                    got = cuda_rhs.si_prepare(F, U, p)
-                    want = cuda_rhs.si_prepare_plain(F, U, p)
-                    if len(got) != len(want):
-                        raise AssertionError(f"K7 returned {len(got)} fields, plain {len(want)}")
-                    for g, wt in zip(got, want):
-                        e = field_err(g, wt)
-                        worst = max(worst, e)
-                        worst_abs = max(worst_abs, (g - wt).abs().max().item())
-                        if not e <= FIELD_TOL:
-                            raise AssertionError(
-                                f"K7 disagrees: {e:.3g} > {FIELD_TOL} at {ny}x{nx} "
-                                f"bc={f_bc}/{u_bc} S={S} guess={guess}")
-                    cases += 1
+    # at float32, S = 0.25 and S = 0 (m0 does not change what K7 computes)
+    physics = (dict(S=0.25), dict(S=0.0)) if dtype == "float32" else None
+    for p, _, what in check_cases(dtype, sizes, physics=physics):
+        for guess in (False, True):
+            q = p.replace(do_corrector_guess=guess)
+            (F, U), = fields(rng, p.ny, p.nx, 1, dtype)
+            got = cuda_rhs.si_prepare(F, U, q)
+            want = cuda_rhs.si_prepare_plain(F, U, q)
+            if len(got) != len(want):
+                raise AssertionError(f"K7 returned {len(got)} fields, plain {len(want)}")
+            hold("K7", got, want, f"{what} guess={guess}", worst, prec["field_tol"])
+            cases += 1
     torch.cuda.synchronize()
     times = {}
     for size in timed:
-        p = params(size, size, "neumann")
-        (F, U), = fields(rng, size, size)
+        p = params(size, size, "neumann", dtype=dtype)
+        (F, U), = fields(rng, size, size, 1, dtype)
         times[size] = time_pair(lambda: cuda_rhs.si_prepare(F, U, p),
                                 lambda: cuda_rhs.si_prepare_plain(F, U, p),
                                 reps=50 if size == 512 else 10)
-    phase("K7 si_prepare vs plain", cases=cases, max_rel_err=worst,
-          max_abs_err=worst_abs, tol=FIELD_TOL,
-          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return entry_numbers("K7", times, timed[0], worst_abs)
+    phase(titled("K7 si_prepare vs plain", dtype), cases=cases, max_rel_err=worst[0],
+          max_abs_err=worst[1], tol=prec["field_tol"], ms=ms_table(times))
+    return entry_numbers("K7", times, timed[0], worst[1], dtype=dtype)
 
 
-def check_k4(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
-    """K4 against its plain version: every BC pair, with and without
-    anisotropy, fu != 0, a Dirichlet value where a field has one."""
+def check_k4(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
+    """K4 against its plain version: every BC pair and physics case, fu !=
+    0, a Dirichlet value where a field has one."""
+    prec = PRECISION[dtype]
     worst = [0.0, 0.0]
     cases = 0
-    for ny, nx in sizes:
-        for f_bc, u_bc in BC_PAIRS:
-            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
-                p = params(ny, nx, f_bc, S, m0, u_bc)
-                x, k1, k2, k3 = fields(rng, ny, nx, 4)
-                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
-                hold("K4", cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, 0.03, d),
-                     cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p, 0.03, d),
-                     f"{ny}x{nx} {f_bc}/{u_bc} S={S} m0={m0}", worst)
-                cases += 1
+    for p, d, what in check_cases(dtype, sizes):
+        x, k1, k2, k3 = fields(rng, p.ny, p.nx, 4, dtype)
+        hold("K4", cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, 0.03, d),
+             cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p, 0.03, d), what, worst,
+             prec["field_tol"])
+        cases += 1
     torch.cuda.synchronize()
     times = {}
     for size in timed:
-        p = params(size, size, "neumann")
-        x, k1, k2, k3 = fields(rng, size, size, 4)
+        p = params(size, size, "neumann", dtype=dtype)
+        x, k1, k2, k3 = fields(rng, size, size, 4, dtype)
         times[size] = time_pair(lambda: cuda_rhs.rk4_final_stage(x, k1, k2, k3, p),
                                 lambda: cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p),
                                 reps=50 if size == 512 else 10)
-    phase("K4 rk4_final_stage vs plain", cases=cases, max_rel_err=worst[0],
-          max_abs_err=worst[1], tol=FIELD_TOL, library="none: no PyTorch call computes it",
-          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return entry_numbers("K4", times, timed[0], worst[1])
+    phase(titled("K4 rk4_final_stage vs plain", dtype), cases=cases, max_rel_err=worst[0],
+          max_abs_err=worst[1], tol=prec["field_tol"],
+          library="none: no PyTorch call computes it", ms=ms_table(times))
+    return entry_numbers("K4", times, timed[0], worst[1], dtype=dtype)
 
 
-def check_k3(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048, 4096)) -> dict:
-    """K3 against the staged plain step from a seeded state: every BC pair,
-    with and without anisotropy, fu != 0.  Its entry is timed at 4096^2,
-    the size at which a run routes to it."""
+def check_k3(rng, dtype="float32", sizes=((512, 512), (33, 129)),
+             timed=(512, 2048, 4096)) -> dict:
+    """K3 against the staged plain step from a seeded state: every BC pair
+    and physics case, fu != 0.  Its entry is timed at 4096^2, the size at
+    which a run routes to it."""
+    prec = PRECISION[dtype]
     worst = [0.0, 0.0]
     cases = 0
-    for ny, nx in sizes:
-        for f_bc, u_bc in BC_PAIRS:
-            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
-                p = params(ny, nx, f_bc, S, m0, u_bc)
-                F, U = seeded(rng, ny, nx)
-                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
-                hold("K3", cuda_rhs.rk4_full(F, U, p, 0.03, d),
-                     cuda_rhs.rk4_full_plain(F, U, p, 0.03, d),
-                     f"{ny}x{nx} {f_bc}/{u_bc} S={S} m0={m0}", worst)
-                cases += 1
+    for p, d, what in check_cases(dtype, sizes):
+        F, U = seeded(rng, p.ny, p.nx, dtype)
+        hold("K3", cuda_rhs.rk4_full(F, U, p, 0.03, d),
+             cuda_rhs.rk4_full_plain(F, U, p, 0.03, d), what, worst, prec["field_tol"])
+        cases += 1
     torch.cuda.synchronize()
     times = {}
     for size in timed:
-        p = params(size, size, "neumann").replace(dt=5e-6 * (512 / size) ** 2)
-        F, U = seeded(rng, size, size)
+        p = params(size, size, "neumann", dtype=dtype).replace(dt=5e-6 * (512 / size) ** 2)
+        F, U = seeded(rng, size, size, dtype)
         times[size] = time_pair(lambda: cuda_rhs.rk4_full(F, U, p),
                                 lambda: cuda_rhs.rk4_full_plain(F, U, p),
                                 reps={512: 50, 2048: 10}.get(size, 5))
-    phase("K3 rk4_full vs plain", cases=cases, max_rel_err=worst[0], max_abs_err=worst[1],
-          tol=FIELD_TOL, library="none: no PyTorch call computes it",
-          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return entry_numbers("K3", times, timed[-1], worst[1])
+    phase(titled("K3 rk4_full vs plain", dtype), cases=cases, max_rel_err=worst[0],
+          max_abs_err=worst[1], tol=prec["field_tol"],
+          library="none: no PyTorch call computes it", ms=ms_table(times))
+    return entry_numbers("K3", times, timed[-1], worst[1], dtype=dtype)
 
 
-def check_k6(rng, sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
-    """K6 at the path's depth against as many plain Euler steps from a
-    seeded state: every BC pair, with and without anisotropy, fu != 0."""
-    worst = [0.0, 0.0]
+def check_k6(rng, dtype="float32", sizes=((512, 512), (33, 129))) -> dict:
+    """K6 at each depth it is built for against as many plain Euler steps
+    from a seeded state: every BC pair and physics case, fu != 0.  Timed at
+    512^2 and 2048^2, and at 1024^2, where a float64 run takes 8 steps per
+    pass; each depth's entry at the size of its path."""
+    prec = PRECISION[dtype]
+    depths = cuda_rhs.K6_STEPS[getattr(torch, dtype)]
+    worst = {T: [0.0, 0.0] for T in depths}
     cases = 0
-    steps = explicit.EULER_BLOCK_STEPS
-    for ny, nx in sizes:
-        for f_bc, u_bc in BC_PAIRS:
-            for S, m0 in ((0.25, 6.0), (0.25, 4.5), (0.0, 6.0)):
-                p = params(ny, nx, f_bc, S, m0, u_bc)
-                F, U = seeded(rng, ny, nx)
-                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
-                hold("K6", cuda_rhs.euler_steps(F, U, p, steps, 0.03, d),
-                     cuda_rhs.euler_steps_plain(F, U, p, steps, 0.03, d),
-                     f"{ny}x{nx} {f_bc}/{u_bc} S={S} m0={m0}", worst)
-                cases += 1
+    for p, d, what in check_cases(dtype, sizes):
+        F, U = seeded(rng, p.ny, p.nx, dtype)
+        for T in depths:
+            hold(f"K6 T={T}", cuda_rhs.euler_steps(F, U, p, T, 0.03, d),
+                 cuda_rhs.euler_steps_plain(F, U, p, T, 0.03, d), what, worst[T],
+                 prec["field_tol"])
+            cases += 1
     torch.cuda.synchronize()
-    times = {}
-    for size in timed:
-        p = params(size, size, "neumann")
-        F, U = seeded(rng, size, size)
-        times[size] = time_pair(lambda: cuda_rhs.euler_steps(F, U, p, steps),
-                                lambda: cuda_rhs.euler_steps_plain(F, U, p, steps),
-                                reps=50 if size == 512 else 10)
-    phase("K6 euler_steps vs plain", steps=steps, cases=cases, max_rel_err=worst[0],
-          max_abs_err=worst[1], tol=FIELD_TOL, library="none: no PyTorch call computes it",
-          ms={f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in times.items()})
-    return entry_numbers("K6", times, timed[0], worst[1])
+    times = {T: {} for T in depths}
+    for size in ((512, 2048) if dtype == "float32" else (512, 1024, 2048)):
+        p = params(size, size, "neumann", dtype=dtype)
+        F, U = seeded(rng, size, size, dtype)
+        for T in depths:
+            times[T][size] = time_pair(lambda: cuda_rhs.euler_steps(F, U, p, T),
+                                       lambda: cuda_rhs.euler_steps_plain(F, U, p, T),
+                                       reps=50 if size == 512 else 10)
+    phase(titled("K6 euler_steps vs plain", dtype), steps=list(depths), cases=cases,
+          max_rel_err={T: w[0] for T, w in worst.items()},
+          max_abs_err={T: w[1] for T, w in worst.items()}, tol=prec["field_tol"],
+          library="none: no PyTorch call computes it",
+          ms={f"T={T}": ms_table(t) for T, t in times.items()})
+    at = {4: 512, 8: 1024}
+    return {T: entry_numbers("K6" if T == 4 else "K6 T=8", times[T], at[T], worst[T][1],
+                             dtype=dtype) for T in depths}
 
 
 def cg_operators(p: SimParams, bc: str):
@@ -429,43 +497,44 @@ def cg_operators(p: SimParams, bc: str):
             dataclasses.replace(AnisotropyMatrix.implicit_phase(p), boundary=b))
 
 
-def s_map(rng, ny, nx):
+def s_map(rng, ny, nx, dtype="float32"):
     """An anisotropy map like the prepare's: g/alpha in [0.25, 0.42]."""
     return torch.from_numpy((0.33 * (1 + 0.25 * rng.uniform(-1, 1, size=(ny, nx))))
-                            .astype(np.float32)).to(DEVICE)
+                            .astype(dtype)).to(DEVICE)
 
 
-def check_cg_kernels(rng, p0: SimParams, sizes=((512, 512), (33, 129)),
+def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33, 129)),
                      timed=(512, 2048)) -> dict:
-    """K8 (cross and anisotropy forms), K9 and K10 against their plain
-    versions, on the slice's operators with each BC.  Fields at FIELD_TOL,
-    dot products at SUM_RTOL; K8 must write its dead output buffer and
-    never p."""
-    worst = {k: [0.0, 0.0] for k in ("K8", "K9", "K10")}  # rel, abs
+    """K8 (cross and anisotropy forms), K9, K10 and K14 (its four modes)
+    against their plain versions, on the slice's operators with each BC.
+    Fields at the dtype's field tolerance, dot products at its sum
+    tolerance; K8 must write its dead output buffer and never p."""
+    prec = PRECISION[dtype]
+    tdt = getattr(torch, dtype)
+    worst = {k: [0.0, 0.0] for k in ("K8", "K9", "K10", "K14")}  # rel, abs
     worst_sum = 0.0
     cases = 0
 
     def compare(name, got, want, what):
-        e = field_err(got, want)
-        worst[name][0] = max(worst[name][0], e)
-        worst[name][1] = max(worst[name][1], (got - want).abs().max().item())
-        if not e <= FIELD_TOL:
-            raise AssertionError(f"{name} disagrees: {e:.3g} > {FIELD_TOL} ({what})")
+        hold(name, [got], [want], what, worst[name], prec["field_tol"])
 
     def compare_sum(name, got, want, what):
         nonlocal worst_sum
         g, w = got.item(), want.item()
         rel = abs(g - w) / max(abs(w), 1e-30)
         worst_sum = max(worst_sum, rel)
-        if not rel <= SUM_RTOL:
+        if not rel <= prec["sum_rtol"]:
             raise AssertionError(f"{name} dot product {g} vs {w} ({what})")
+
+    def scalar(v):
+        return torch.tensor(v, dtype=tdt, device=DEVICE)
 
     for ny, nx in sizes:
         p = p0.replace(ny=ny, nx=nx)
         for bc in BCS:
             A_U, A_F = cg_operators(p, bc)
-            v, x, r, Ap = (fields(rng, ny, nx)[0] + fields(rng, ny, nx)[0])
-            s = s_map(rng, ny, nx)
+            v, x, r, Ap = fields(rng, ny, nx, 1, dtype)[0] + fields(rng, ny, nx, 1, dtype)[0]
+            s = s_map(rng, ny, nx, dtype)
             what = f"{ny}x{nx} bc={bc}"
             for form, got, want in (
                     ("cross", cuda_cg.cross_matvec_pAp(A_U, v, out=torch.empty_like(v)),
@@ -481,25 +550,37 @@ def check_cg_kernels(rng, p0: SimParams, sizes=((512, 512), (33, 129)),
                 raise AssertionError("K8 did not write its output buffer")
             if not torch.equal(v, v0):
                 raise AssertionError("K8 wrote into p")
-            alpha = torch.tensor(0.37, device=DEVICE)
+            alpha = scalar(0.37)
             got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, alpha)
             want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
             compare("K9", got[0], want[0], what)
             compare("K9", got[1], want[1], what)
             compare_sum("K9", got[2], want[2], what)
-            a, b = torch.tensor(1.0, device=DEVICE), torch.tensor(-0.61, device=DEVICE)
+            a, b = scalar(1.0), scalar(-0.61)
             compare("K10", cuda_cg.axpby_inplace(a, b, r, v.clone()),
                     cuda_cg.axpby_inplace_plain(a, b, r, v.clone()), what)
+            e2 = 1e-4 * Ap
+            for form, got, want in (
+                    ("cross", cuda_cg.cross_residual(r, v, A_U),
+                     cuda_cg.cross_residual_plain(r, v, A_U)),
+                    ("aniso", cuda_cg.aniso_residual(r, v, A_F, s),
+                     cuda_cg.aniso_residual_plain(r, v, A_F, s)),
+                    ("heat", cuda_cg.heat_residual(r, (x, e2), v, A_U, p.L),
+                     cuda_cg.heat_residual_plain(r, (x, e2), v, A_U, p.L)),
+                    ("heat + extra", cuda_cg.heat_residual(r, (x, e2), v, A_U, p.L, Ap),
+                     cuda_cg.heat_residual_plain(r, (x, e2), v, A_U, p.L, Ap))):
+                compare("K14", got, want, f"{form} {what}")
             cases += 1
     torch.cuda.synchronize()
-    times = {"K8 cross": {}, "K8 aniso": {}, "K9": {}, "K10": {}}
+    times = {"K8 cross": {}, "K8 aniso": {}, "K9": {}, "K10": {}, "K14 cross": {},
+             "K14 heat": {}}
     for size in timed:
         p = p0.replace(ny=size, nx=size)
         A_U, A_F = cg_operators(p, "neumann")
-        v, x, r, Ap = (fields(rng, size, size)[0] + fields(rng, size, size)[0])
-        s, dead = s_map(rng, size, size), torch.empty_like(v)
-        alpha = torch.tensor(1e-3, device=DEVICE)
-        a, b = torch.tensor(1.0, device=DEVICE), torch.tensor(0.5, device=DEVICE)
+        v, x, r, Ap = fields(rng, size, size, 1, dtype)[0] + fields(rng, size, size, 1, dtype)[0]
+        s, dead = s_map(rng, size, size, dtype), torch.empty_like(v)
+        alpha = scalar(1e-3)
+        a, b = scalar(1.0), scalar(0.5)
         reps = 50 if size == 512 else 10
         if size == timed[0]:
             # K10 at a = 1, its only call site (solvers/cg.py), is r + b p
@@ -512,34 +593,39 @@ def check_cg_kernels(rng, p0: SimParams, sizes=((512, 512), (33, 129)),
                 ("K9", lambda: cuda_cg.update_xr_rr(x, r, v, Ap, alpha),
                  lambda: cuda_cg.update_xr_rr_plain(x, r, v, Ap, alpha)),
                 ("K10", lambda: cuda_cg.axpby_inplace(a, b, r, Ap),
-                 lambda: cuda_cg.axpby_inplace_plain(a, b, r, Ap))):
+                 lambda: cuda_cg.axpby_inplace_plain(a, b, r, Ap)),
+                ("K14 cross", lambda: cuda_cg.cross_residual(r, v, A_U),
+                 lambda: cuda_cg.cross_residual_plain(r, v, A_U)),
+                ("K14 heat", lambda: cuda_cg.heat_residual(r, (x, Ap), v, A_U, p.L),
+                 lambda: cuda_cg.heat_residual_plain(r, (x, Ap), v, A_U, p.L))):
             times[name][size] = time_pair(kernel, plain, reps)
-    phase("K8-K10 CG kernels vs plain", cases=cases,
+    phase(titled("CG kernels K8-K10 and K14 vs plain", dtype), cases=cases,
           max_rel_err={k: w[0] for k, w in worst.items()},
           max_abs_err={k: w[1] for k, w in worst.items()},
-          max_dot_rel_err=worst_sum, tol=FIELD_TOL, dot_rtol=SUM_RTOL,
-          ms={name: {f"{s}^2": {"kernel": k, "plain": pl} for s, (k, pl) in t.items()}
-              for name, t in times.items()},
+          max_dot_rel_err=worst_sum, tol=prec["field_tol"], dot_rtol=prec["sum_rtol"],
+          ms={name: ms_table(t) for name, t in times.items()},
           library={"K10": f"torch.addcmul(r, b, p): {library_k10} ms at {timed[0]}^2",
-                   "K8, K9": "none: no PyTorch call computes them"})
+                   "K8, K9, K14": "none: no PyTorch call computes them"})
     first = timed[0]
 
     def mean(values):
         values = list(values)
         return sum(values) / len(values)
 
-    # K8's entry is the mean of its cross and anisotropy forms
+    # K8's entry is the mean of its cross and anisotropy forms, K14's of its
+    # cross and heat forms (the float64 sweep config's)
     return {name: {"max_abs_err": worst[name][1],
                    "ms": mean(times[t][first][0] for t in keys),
                    "plain_ms": mean(times[t][first][1] for t in keys),
-                   "bound_ms": mean(bound(t, first * first)["bound_ms"] for t in keys),
-                   "bound_by": bound(keys[0], first * first)["bound_by"],
+                   "bound_ms": mean(bound(t, first * first, dtype)["bound_ms"] for t in keys),
+                   "bound_by": bound(keys[0], first * first, dtype)["bound_by"],
                    "library_ms": library_k10 if name == "K10" else None}
             for name, keys in (("K8", ("K8 cross", "K8 aniso")), ("K9", ("K9",)),
-                               ("K10", ("K10",)))}
+                               ("K10", ("K10",)), ("K14", ("K14 cross", "K14 heat")))}
 
 
-def check_lockstep(cfg, F0, U0, steps=5) -> None:
+def check_lockstep(cfg, F0, U0, steps=5, tol=FIELD_TOL,
+                   name="lockstep kernel vs plain") -> None:
     """The main path's first steps through the kernel against the same steps
     through the plain version on the card, each from the same state."""
     p = cfg.params
@@ -558,32 +644,34 @@ def check_lockstep(cfg, F0, U0, steps=5) -> None:
                                  f"{p_state.t - state.t}")
         for g, w in ((k_state.F, p_state.F), (k_state.U, p_state.U)):
             worst = max(worst, field_err(g, w))
-        if not worst <= FIELD_TOL:
+        if not worst <= tol:
             raise AssertionError(f"lockstep: fields disagree by {worst:.3g}")
         state = p_state
-    phase("lockstep kernel vs plain", steps=steps, max_rel_err=worst, tol=FIELD_TOL)
+    phase(name, steps=steps, max_rel_err=worst, tol=tol)
 
 
-def hold_step(k_state, p_state, state, worst, what) -> None:
+def hold_step(k_state, p_state, state, worst, what, tol=FIELD_TOL) -> None:
     """One step through the kernels against the same step through the plain
     versions, from ``state``.  A step moves the fields by ~1e-3, far below
-    FIELD_TOL of the fields, so the step increments next - state are held
-    too: to FIELD_TOL of their own max, plus the two float32 ulps of the
-    field that rounding state + increment leaves.  ``worst`` gathers the
-    largest field and increment gaps."""
+    ``tol`` of the fields, so the step increments next - state are held
+    too: to ``tol`` of their own max, plus the two ulps of the field that
+    rounding state + increment leaves.  ``worst`` gathers the largest field
+    and increment gaps."""
     for g, w, base in ((k_state.F, p_state.F, state.F), (k_state.U, p_state.U, state.U)):
         worst[0] = max(worst[0], field_err(g, w))
         inc = w - base
         size = inc.abs().max().item()
         d = ((g - base) - inc).abs().max().item()
         worst[1] = max(worst[1], d / size if size else d)
-        if not d <= FIELD_TOL * size + 2 * EPS32 * w.abs().max().item():
+        eps = float(torch.finfo(w.dtype).eps)
+        if not d <= tol * size + 2 * eps * w.abs().max().item():
             raise AssertionError(f"{what}: step increments disagree by {d:.3g} of {size:.3g}")
-    if not worst[0] <= FIELD_TOL:
+    if not worst[0] <= tol:
         raise AssertionError(f"{what}: fields disagree by {worst[0]:.3g}")
 
 
-def check_si_lockstep(cfg, F0, U0, steps=5) -> None:
+def check_si_lockstep(cfg, F0, U0, steps=5, tol=FIELD_TOL,
+                      name="semi-implicit lockstep kernel vs plain") -> None:
     """The semi-implicit path's first steps through the kernels against the
     same steps through the plain versions on the card, each from the same
     state.  The dot products add in other orders, so a solve may stop one
@@ -605,22 +693,22 @@ def check_si_lockstep(cfg, F0, U0, steps=5) -> None:
             raise AssertionError(f"semi-implicit lockstep: CG iterations {k_it} vs {p_it}")
         off_by_one += k_it != p_it
         iters.append([k_it, p_it])
-        hold_step(k_state, p_state, state, worst, "semi-implicit lockstep")
+        hold_step(k_state, p_state, state, worst, "semi-implicit lockstep", tol)
         state = p_state
-    phase("semi-implicit lockstep kernel vs plain", steps=steps, max_rel_err=worst[0],
-          tol=FIELD_TOL, max_increment_rel_err=worst[1],
-          increment_tol="FIELD_TOL * max|increment| + 2 ulp(max|field|)",
+    phase(name, steps=steps, max_rel_err=worst[0], tol=tol, max_increment_rel_err=worst[1],
+          increment_tol="tol * max|increment| + 2 ulp(max|field|)",
           steps_with_cg_iters_off_by_one=off_by_one, cg_iters_kernel_vs_plain=iters)
 
 
-def check_rk4_lockstep(routes, steps=5) -> None:
+def check_rk4_lockstep(routes, steps=5, tol=FIELD_TOL,
+                       name="RK4 lockstep kernels vs plain") -> None:
     """The RK4 path's first steps through the kernels against the same
     steps through the plain step on the card, each from the same state, on
     both routes: the staged one (K1 x 3 + K4) at 512^2 and K3 on the
     4096^2 cut.  Fields and step increments are held as ``hold_step``
     says."""
     out = {}
-    for name, cfg in routes:
+    for route, cfg in routes:
         p = cfg.params
         kernel_step = make_stepper(p)
         plain_step = make_stepper(p.replace(backend="torch"))
@@ -630,23 +718,26 @@ def check_rk4_lockstep(routes, steps=5) -> None:
         for _ in range(steps):
             k_state, _ = kernel_step(state)
             p_state, _ = plain_step(state)
-            hold_step(k_state, p_state, state, worst, f"RK4 lockstep ({name})")
+            hold_step(k_state, p_state, state, worst, f"RK4 lockstep ({route})", tol)
             state = p_state
-        out[name] = {"max_rel_err": worst[0], "max_increment_rel_err": worst[1]}
-    phase("RK4 lockstep kernels vs plain", steps=steps, tol=FIELD_TOL,
-          increment_tol="FIELD_TOL * max|increment| + 2 ulp(max|field|)", routes=out)
+        out[route] = {"max_rel_err": worst[0], "max_increment_rel_err": worst[1]}
+    phase(name, steps=steps, tol=tol,
+          increment_tol="tol * max|increment| + 2 ulp(max|field|)", routes=out)
 
 
 def check_run(res, cfg, grow=True) -> tuple:
-    """What a run wrote: 1 + times frames of the config's size, finite, Phi
-    in [-0.1, 1.1], a seed that grew (with ``grow`` false: that did not
-    shrink), and one stats row per step, or no stats.csv when the run
-    collects no stats.  Returns the stats header and rows (None without
-    stats), the first and last solid fraction and the number of frames."""
+    """What a run wrote: a frame of the config's size per snapshot event
+    (and the initial one when asked), finite, Phi in [-0.1, 1.1], a seed
+    that grew (with ``grow`` false: that did not shrink), and one stats row
+    per step, or no stats.csv when the run collects no stats.  Returns the
+    stats header and rows (None without stats), the first and last solid
+    fraction and the number of frames."""
     p = cfg.params
     frames = sorted(f for f in os.listdir(res.save_folder) if f.endswith(".bin"))
-    if len(frames) != 1 + cfg.snapshot_times:
-        raise AssertionError(f"{len(frames)} frames, want {1 + cfg.snapshot_times}")
+    want = int(cfg.snapshot_initial_conditions) + len(snapshot_events(
+        cfg.stop_time, cfg.snapshot_times, cfg.snapshot_every))
+    if len(frames) != want or len(frames) < 2:
+        raise AssertionError(f"{len(frames)} frames, want {want} (at least 2)")
     solid = []
     for name in frames:
         snap = load_bin_maps(os.path.join(res.save_folder, name))
@@ -675,12 +766,12 @@ def check_run(res, cfg, grow=True) -> tuple:
     return header, rows, [solid[0], solid[-1]], len(frames)
 
 
-def drive(overrides, grow=True) -> dict:
+def drive(overrides, grow=True, config=CONFIG) -> dict:
     """``run_config_file`` on the card with every kernel launch, every CG
     host read and every call of a plain version counted (each count set to 0
     just before the run and read just after), then what it wrote checked.
     Any plain call fails: a path on the card runs its kernels."""
-    cfg = load_config(CONFIG, overrides)
+    cfg = load_config(config, overrides)
     plain_calls = {}
     originals = {(mod, name): getattr(mod, name) for mod, names in PLAIN.items()
                  for name in names}
@@ -698,7 +789,7 @@ def drive(overrides, grow=True) -> dict:
         cuda_cg.reset_launch_counts()
         cg.reset_host_reads()
         try:
-            res = run_config_file(CONFIG, overrides + [f"[snapshot]\nfolder = {out}\n"],
+            res = run_config_file(config, overrides + [f"[snapshot]\nfolder = {out}\n"],
                                   device=DEVICE)
         finally:
             launches = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}
@@ -712,7 +803,8 @@ def drive(overrides, grow=True) -> dict:
     p = cfg.params
     return dict(cfg=cfg, res=res, launches=launches, host_reads=host_reads,
                 header=header, rows=rows,
-                summary=dict(grid=f"{p.ny}x{p.nx}", dtype=p.dtype, solver=p.solver.value,
+                summary=dict(config=os.path.relpath(config, ROOT), grid=f"{p.ny}x{p.nx}",
+                             dtype=p.dtype, solver=p.solver.value,
                              stop_after=cfg.stop_time, steps=res.iters,
                              runtime_s=res.runtime, ms_per_step=res.avg_step_ms,
                              frames=n_frames, stats_rows=None if rows is None else len(rows),
@@ -733,8 +825,7 @@ def rkm_path() -> dict:
     n = run["launches"]
     expect(n["rkm_attempt"] > 0 and n["rkm_attempt"] == run["res"].attempts
            and sum(n.values()) == n["rkm_attempt"], "K2 once per attempt, nothing else", run)
-    phase("main path (RKM)", config=os.path.relpath(CONFIG, ROOT),
-          attempts=run["res"].attempts, **run["summary"])
+    phase("main path (RKM)", attempts=run["res"].attempts, **run["summary"])
     return n
 
 
@@ -751,6 +842,8 @@ def si_path(overrides, name) -> dict:
            and n["aniso_matvec_pAp"] + n["cross_matvec_pAp"] == cg_iters,
            "K8 and K9 once per CG iteration, K10 launched", run)
     expect(n["blend_rhs"] == n["rkm_attempt"] == 0, "no RHS kernels", run)
+    expect(n["cross_residual"] == n["aniso_residual"] == n["heat_residual"] == 0,
+           "no refinement at float32", run)
     if run["host_reads"] != cg_iters:
         raise AssertionError(f"{run['host_reads']} host reads for {cg_iters} CG iterations")
     h, rows = run["header"], run["rows"]
@@ -767,7 +860,7 @@ def si_path(overrides, name) -> dict:
           max_Phi_iters=int(rows[:, h.index("Phi_iters")].max()),
           max_T_iters=int(rows[:, h.index("T_iters")].max()),
           cg_iterations=cg_iters, host_reads=run["host_reads"],
-          host_reads_per_step=run["host_reads"] / steps, cg_branch=semi_implicit.cg_branch(p),
+          host_reads_per_step=run["host_reads"] / steps, cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE)),
           **extra)
     return n
 
@@ -781,41 +874,58 @@ def euler_path() -> dict:
     return n
 
 
-def euler_no_stats_path() -> dict:
+def beside_a100(run: str, summary: dict) -> dict:
+    """The run's wall time beside the reference's A100 time of its config
+    (none for a path that is not one of the float64 sweep configs)."""
+    if run is None:
+        return {}
+    a100 = F64_RUNS[run][1]
+    return {"a100_runtime_s": a100, "runtime_vs_a100": summary["runtime_s"] / a100}
+
+
+def sweep(run: str) -> str:
+    return os.path.join(F64_DIR, F64_RUNS[run][0])
+
+
+def euler_blocks_path(overrides, T, name, f64_run=None, want_launches=None) -> dict:
     """Forward Euler without stats: each event's steps counted on the host,
-    taken 4 at a time through K6, and any rest through K1."""
-    run = drive([EULER, NO_STATS])
+    taken T at a time through K6, and any rest through K1.  ``f64_run``
+    names a float64 sweep config to run instead of config.ini."""
+    run = drive(overrides, config=sweep(f64_run) if f64_run else CONFIG)
     n, steps = run["launches"], run["res"].iters
-    expect(n["euler_steps"] > 0 and 4 * n["euler_steps"] + n["blend_rhs"] == steps
+    expect(n["euler_steps"] > 0 and T * n["euler_steps"] + n["blend_rhs"] == steps
            and sum(n.values()) == n["euler_steps"] + n["blend_rhs"],
-           "K6 for 4 steps per launch, K1 for the rest, nothing else", run)
-    phase("Euler path, stats off", **run["summary"])
+           f"K6 for {T} steps per launch, K1 for the rest, nothing else", run)
+    if want_launches is not None:
+        expect(n["euler_steps"] == want_launches, f"{want_launches} K6 launches", run)
+    phase(name, steps_per_K6_launch=T, single_steps_K1=n["blend_rhs"],
+          **beside_a100(f64_run, run["summary"]), **run["summary"])
     return n
 
 
-def rk4_path() -> dict:
-    """RK4 at 512^2, below RK4_FULLSTEP_MIN_CELLS: K1 for k1, k2 and k3,
-    then K4, once per step."""
-    run = drive([RK4])
+def rk4_staged_path(overrides, name, f64_run=None) -> dict:
+    """RK4 below RK4_FULLSTEP_MIN_CELLS: K1 for k1, k2 and k3, then K4, once
+    per step."""
+    run = drive(overrides, config=sweep(f64_run) if f64_run else CONFIG)
     n, steps = run["launches"], run["res"].iters
     expect(steps > 0 and n["blend_rhs"] == 3 * steps and n["rk4_final_stage"] == steps
            and sum(n.values()) == 4 * steps, "K1 x 3 + K4 per step, nothing else", run)
-    phase("RK4 path (512^2, staged route)", **run["summary"])
+    phase(name, **beside_a100(f64_run, run["summary"]), **run["summary"])
     return n
 
 
-def rk4_cut_path() -> dict:
+def rk4_cut_path(overrides, name, config=CONFIG) -> dict:
     """RK4 on the 4096^2 cut, above RK4_FULLSTEP_MIN_CELLS: K3 once per
     step.  300 steps move the front by a small part of a cell, so the run
     is held to a solid fraction that did not fall; the RK4 lockstep holds
     this route's steps to the plain step."""
-    run = drive([RK4, CUT], grow=False)
+    run = drive(overrides, grow=False, config=config)
     n, steps = run["launches"], run["res"].iters
     expect(steps > 0 and n["rk4_full"] == steps and sum(n.values()) == steps,
            "K3 once per step, nothing else", run)
     solid = run["summary"]["solid_fraction"]
-    phase("RK4 path (4096^2 cut, whole-step route)", solid_fraction_held="did not fall",
-          grew=solid[1] > solid[0], **run["summary"])
+    phase(name, solid_fraction_held="did not fall", grew=solid[1] > solid[0],
+          **run["summary"])
     return n
 
 
@@ -825,6 +935,48 @@ def exact_path() -> None:
     run = drive([EXACT])
     expect(run["res"].iters > 0 and sum(run["launches"].values()) == 0, "no kernel", run)
     phase("exact solver path", **run["summary"])
+
+
+# ------------------------------------------------------------- float64 paths
+
+
+def rkm_f64_path() -> dict:
+    """The float64 RKM sweep config: every Merson attempt through K2 at
+    double, and within 1% of the JAX package's 9539 steps."""
+    run = drive([FIRST_FRAME], config=sweep("rkm"))
+    n, steps = run["launches"], run["res"].iters
+    expect(n["rkm_attempt"] > 0 and n["rkm_attempt"] == run["res"].attempts
+           and sum(n.values()) == n["rkm_attempt"], "K2 once per attempt, nothing else", run)
+    expect(abs(steps - RKM_F64_STEPS) <= 0.01 * RKM_F64_STEPS,
+           f"within 1% of {RKM_F64_STEPS} steps", run)
+    phase("float64 RKM path (5e-9)", attempts=run["res"].attempts,
+          steps_jax_f64=RKM_F64_STEPS, **beside_a100("rkm", run["summary"]), **run["summary"])
+    return n
+
+
+def si_f64_path() -> dict:
+    """The float64 semi-implicit sweep config: K7 once per step, then per
+    system float64 CG on K8-K10, K14 for the true residual of its result
+    and a second CG solve on that; one host read per CG iteration."""
+    run = drive([FIRST_FRAME], config=sweep("semi-implicit"))
+    n, steps = run["launches"], run["res"].iters
+    cg_iters = n["update_xr_rr"]
+    expect(steps == 8000 and n["si_prepare"] == steps, "K7 once per step", run)
+    expect(n["cross_matvec_pAp"] == cg_iters > 0 and n["axpby_inplace"] > 0
+           and n["aniso_matvec_pAp"] == n["blend_rhs"] == n["rkm_attempt"] == 0,
+           "K8 (cross) and K9 once per CG iteration, K10 launched, nothing else", run)
+    expect(n["cross_residual"] == n["heat_residual"] == steps and n["aniso_residual"] == 0,
+           "K14 once per system and step (cross and heat forms)", run)
+    if run["host_reads"] != cg_iters:
+        raise AssertionError(f"{run['host_reads']} host reads for {cg_iters} CG iterations")
+    phase("float64 semi-implicit path (5e-9)", cg_iterations=cg_iters,
+          cg_iterations_per_step=cg_iters / steps,
+          refinement_residuals_per_step=(n["cross_residual"] + n["heat_residual"]) / steps,
+          host_reads=run["host_reads"],
+          host_reads_per_step=run["host_reads"] / steps,
+          cg_branch=semi_implicit.cg_branch(run["cfg"].params, torch.device(DEVICE)),
+          **beside_a100("semi-implicit", run["summary"]), **run["summary"])
+    return n
 
 
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
@@ -842,10 +994,14 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = cuda_build.build()
     cuda_build.load()
-    ptxas = [ln.strip() for ln in cuda_build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+    smem = {f"{k}{f' T={T}' if T else ''} {dtype}":
+            cuda_rhs.tile_smem_bytes(int(k[1]), T, getattr(torch, dtype))
+            for k, T, dtype in (("K2", 0, "float32"), ("K2", 0, "float64"),
+                                ("K3", 0, "float32"), ("K3", 0, "float64"),
+                                ("K6", 4, "float32"), ("K6", 4, "float64"),
+                                ("K6", 8, "float64"))}
     phase("build", seconds=time.perf_counter() - t0, library=os.path.relpath(lib, ROOT),
-          ptxas=ptxas)
+          ptxas=ptxas_report(cuda_build.build_log()), dynamic_smem_bytes=smem)
 
     cfg = load_config(CONFIG)
     F0, U0 = make_initial_fields(cfg.params, cfg.initial, device=DEVICE)
@@ -857,43 +1013,100 @@ def main() -> None:
     k6 = check_k6(rng)
     k7 = check_k7(rng)
     k8_10 = check_cg_kernels(rng, si_cfg.params)
+
+    f64 = {name: load_config(sweep(name)) for name in F64_RUNS}
+    F64, U64 = make_initial_fields(f64["rkm"].params, f64["rkm"].initial, device=DEVICE)
+    d1 = check_k1(rng, "float64")
+    d2 = check_k2(rng, (f64["rkm"].params, F64, U64), "float64")
+    d4 = check_k4(rng, "float64")
+    d3 = check_k3(rng, "float64")
+    d6 = check_k6(rng, "float64")
+    d7 = check_k7(rng, "float64")
+    d8_10 = check_cg_kernels(rng, f64["semi-implicit"].params, "float64")
+
     check_lockstep(cfg, F0, U0)
     check_si_lockstep(si_cfg, F0, U0)
     check_rk4_lockstep([("512^2, staged", load_config(CONFIG, [RK4])),
                         ("4096^2 cut, K3", load_config(CONFIG, [RK4, CUT]))])
+    tol64 = PRECISION["float64"]["field_tol"]
+    check_lockstep(f64["rkm"], F64, U64, tol=tol64, name="float64 RKM lockstep kernel vs plain")
+    check_si_lockstep(f64["semi-implicit"], F64, U64, tol=tol64,
+                      name="float64 semi-implicit lockstep kernels vs plain")
+    check_rk4_lockstep([("512^2, staged", f64["rk4"]),
+                        ("4096^2 cut, K3", load_config(sweep("rk4"), [CUT]))], tol=tol64,
+                       name="float64 RK4 lockstep kernels vs plain")
 
     rkm = rkm_path()
     si = si_path([SEMI], "semi-implicit path")
     si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
     euler = euler_path()
-    euler_fast = euler_no_stats_path()
-    rk4 = rk4_path()
-    rk4_cut = rk4_cut_path()
+    euler_fast = euler_blocks_path([EULER, NO_STATS], 4, "Euler path, stats off")
+    rk4 = rk4_staged_path([RK4], "RK4 path (512^2, staged route)")
+    rk4_cut = rk4_cut_path([RK4, CUT], "RK4 path (4096^2 cut, whole-step route)")
     exact_path()
 
+    rkm64 = rkm_f64_path()
+    si64 = si_f64_path()
+    euler64 = euler_blocks_path([FIRST_FRAME], 4, "float64 Euler path (512^2, stats off)",
+                                "euler", want_launches=2000)
+    euler64_1024 = euler_blocks_path([FIRST_FRAME], 8, "float64 Euler path (1024^2, stats off)",
+                                     "euler 1024", want_launches=1000)
+    rk4_64 = rk4_staged_path([FIRST_FRAME], "float64 RK4 path (512^2, staged route)", "rk4")
+    rk4_64_cut = rk4_cut_path([FIRST_FRAME, CUT], "float64 RK4 path (4096^2 cut, K3)",
+                              sweep("rk4"))
+
+    rhs_src, cg_src = "rhs.cu", "cg.cu"
+    pallas_rhs, pallas_cg = "bachelors_tpu/ops/pallas_rhs.py", "bachelors_tpu/ops/pallas_cg.py"
+    k13 = "bachelors_tpu/ops/pallas_dd.py:272"
     print(json.dumps({"kernels": [
         kernel_entry("K1 blend_rhs (single-stage RHS; Euler path in euler mode, RK4 path "
-                     "for k1-k3)", "rhs.cu", "bachelors_tpu/ops/pallas_rhs.py:344",
+                     "for k1-k3)", rhs_src, f"{pallas_rhs}:344",
                      euler["blend_rhs"] + rk4["blend_rhs"], k1),
-        kernel_entry("K2 rkm_attempt (whole Merson attempt; RKM path)", "rhs.cu",
-                     "bachelors_tpu/ops/pallas_rhs.py:941", rkm["rkm_attempt"], k2),
-        kernel_entry("K3 rk4_full (whole RK4 step; RK4 path on the 4096^2 cut)", "rhs.cu",
-                     "bachelors_tpu/ops/pallas_rhs.py:1156", rk4_cut["rk4_full"], k3),
+        kernel_entry("K2 rkm_attempt (whole Merson attempt; RKM path)", rhs_src,
+                     f"{pallas_rhs}:941", rkm["rkm_attempt"], k2),
+        kernel_entry("K3 rk4_full (whole RK4 step; RK4 path on the 4096^2 cut)", rhs_src,
+                     f"{pallas_rhs}:1156", rk4_cut["rk4_full"], k3),
         kernel_entry("K4 rk4_final_stage (RK4 stage 4 + combination; RK4 path at 512^2)",
-                     "rhs.cu", "bachelors_tpu/ops/pallas_rhs.py:433",
-                     rk4["rk4_final_stage"], k4),
+                     rhs_src, f"{pallas_rhs}:433", rk4["rk4_final_stage"], k4),
         kernel_entry("K6 euler_steps (4 Euler steps per pass; Euler path with stats off)",
-                     "rhs.cu", "bachelors_tpu/ops/pallas_rhs.py:797",
-                     euler_fast["euler_steps"], k6),
-        kernel_entry("K7 si_prepare (semi-implicit prepare)", "rhs.cu",
-                     "bachelors_tpu/ops/pallas_rhs.py:612", si["si_prepare"], k7),
-        kernel_entry("K8 matvec_pAp (CG matvec + <p,Ap>, cross and aniso)", "cg.cu",
-                     "bachelors_tpu/ops/pallas_cg.py:49",
-                     si["cross_matvec_pAp"] + si["aniso_matvec_pAp"], k8_10["K8"]),
-        kernel_entry("K9 update_xr_rr (CG x/r update + <r,r>)", "cg.cu",
-                     "bachelors_tpu/ops/pallas_cg.py:310", si["update_xr_rr"], k8_10["K9"]),
-        kernel_entry("K10 axpby_inplace (CG direction update)", "cg.cu",
-                     "bachelors_tpu/ops/pallas_cg.py:274", si["axpby_inplace"], k8_10["K10"]),
+                     rhs_src, f"{pallas_rhs}:797", euler_fast["euler_steps"], k6[4]),
+        kernel_entry("K7 si_prepare (semi-implicit prepare)", rhs_src,
+                     f"{pallas_rhs}:612", si["si_prepare"], k7),
+        kernel_entry("K8 matvec_pAp (CG matvec + <p,Ap>, cross and aniso)", cg_src,
+                     f"{pallas_cg}:49", si["cross_matvec_pAp"] + si["aniso_matvec_pAp"],
+                     k8_10["K8"]),
+        kernel_entry("K9 update_xr_rr (CG x/r update + <r,r>)", cg_src,
+                     f"{pallas_cg}:310", si["update_xr_rr"], k8_10["K9"]),
+        kernel_entry("K10 axpby_inplace (CG direction update)", cg_src,
+                     f"{pallas_cg}:274", si["axpby_inplace"], k8_10["K10"]),
+        kernel_entry("K1 blend_rhs at float64 (float64 RK4 path, k1-k3)", rhs_src,
+                     f"{pallas_rhs}:344", rk4_64["blend_rhs"], d1),
+        kernel_entry("K2 rkm_attempt at float64 (K13's scheme rkm; float64 RKM path)",
+                     rhs_src, k13, rkm64["rkm_attempt"], d2),
+        kernel_entry("K3 rk4_full at float64 (K13's scheme rk4; float64 RK4 path on the "
+                     "4096^2 cut)", rhs_src, k13, rk4_64_cut["rk4_full"], d3),
+        kernel_entry("K4 rk4_final_stage at float64 (float64 RK4 path at 512^2)", rhs_src,
+                     f"{pallas_rhs}:433", rk4_64["rk4_final_stage"], d4),
+        kernel_entry("K6 euler_steps at float64, 4 steps per pass (K13's scheme euler; "
+                     "float64 Euler path at 512^2)", rhs_src, k13,
+                     euler64["euler_steps"], d6[4]),
+        kernel_entry("K6 euler_steps at float64, 8 steps per pass (K13's scheme euler; "
+                     "float64 Euler path at 1024^2)", rhs_src, k13,
+                     euler64_1024["euler_steps"], d6[8]),
+        kernel_entry("K7 si_prepare at float64 (K13's scheme si; float64 semi-implicit "
+                     "path)", rhs_src, k13, si64["si_prepare"], d7),
+        kernel_entry("K8 matvec_pAp at float64 (float64 CG)", cg_src,
+                     f"{pallas_cg}:49", si64["cross_matvec_pAp"] + si64["aniso_matvec_pAp"],
+                     d8_10["K8"]),
+        kernel_entry("K9 update_xr_rr at float64 (float64 CG)", cg_src,
+                     f"{pallas_cg}:310", si64["update_xr_rr"], d8_10["K9"]),
+        kernel_entry("K10 axpby_inplace at float64 (float64 CG)", cg_src,
+                     f"{pallas_cg}:274", si64["axpby_inplace"], d8_10["K10"]),
+        kernel_entry("K14 si_residual at float64 (refinement residual r0 - A e, cross "
+                     "and heat forms; float64 semi-implicit path)", cg_src,
+                     "bachelors_tpu/ops/pallas_dd.py:749",
+                     si64["cross_residual"] + si64["aniso_residual"] + si64["heat_residual"],
+                     d8_10["K14"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -10,7 +10,11 @@ Inputs are standard-normal float32 fields from a seeded numpy generator;
 tolerances are those of tests/test_pallas.py for an f32 kernel against its
 reference (``torch_parity.assert_match``), rtol 2e-4 on the Merson error
 maxima, and rtol 1e-5 on the CG kernels' dot products, which the kernel
-and torch.sum add in different orders.
+and torch.sum add in different orders.  The float64 kernels are held to
+max|kernel - plain| <= 1e-11 max(|plain|, 1) on fields and rtol 1e-9 on
+the Merson maxima and the dot products (chip_smoke.py's tolerances): the
+RHS kernels round each operation as the plain version does, so only the
+order of the sums differs.
 """
 import numpy as np
 import pytest
@@ -19,7 +23,7 @@ import torch
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams
 from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix, cross_matvec
-from bachelors_tpu_torch.solvers import cg
+from bachelors_tpu_torch.solvers import cg, semi_implicit
 from torch_parity import assert_match, cuda_device, random_fields, seed_fields  # noqa: F401
 
 BCS = ["periodic", "neumann", "dirichlet"]
@@ -122,7 +126,7 @@ def test_rk4_full_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa: F
 @pytest.mark.cuda
 @pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
 def test_euler_steps_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa: F811
-    steps = cuda_rhs.K6_STEPS
+    steps = cuda_rhs.K6_STEPS[torch.float32][0]
     for (ny, nx), S, m0 in CASES:
         p = _params(ny, nx, f_bc, u_bc, S, m0)
         F, U = _seeded(gen, ny, nx, cuda_device)
@@ -147,15 +151,17 @@ def test_rkm_attempt_error_keeps_nan(gen, cuda_device):  # noqa: F811
 def test_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
     p = _params(8, 8, "neumann", "neumann", 0.0, 6.0)
     F = torch.zeros(8, 8, dtype=torch.float64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="float64"):
-        cuda_rhs.rkm_attempt(F, F, np.float64(TAU), p)
-    for call in (lambda: cuda_rhs.rk4_full(F, F, p),
-                 lambda: cuda_rhs.rk4_final_stage((F, F), (F, F), (F, F), (F, F), p),
-                 lambda: cuda_rhs.euler_steps(F, F, p, 4)):
-        with pytest.raises(NotImplementedError, match="float64"):
+    with pytest.raises(TypeError, match="share a dtype"):
+        cuda_rhs.rkm_attempt(F, F.float(), np.float64(TAU), p)
+    for call in (lambda: cuda_rhs.rk4_full(F, F.float(), p),
+                 lambda: cuda_rhs.rk4_final_stage((F, F), (F, F), (F, F), (F.float(), F), p),
+                 lambda: cuda_rhs.euler_steps(F, F.float(), p, 4)):
+        with pytest.raises(TypeError, match="share a dtype"):
             call()
-    with pytest.raises(ValueError, match="built for 4 steps"):
+    with pytest.raises(ValueError, match=r"built for \(4,\) steps"):
         cuda_rhs.euler_steps(F.float(), F.float(), p, 2)
+    with pytest.raises(ValueError, match=r"built for \(4, 8\) steps"):
+        cuda_rhs.euler_steps(F, F, p, 6)
     F32 = torch.zeros(8, 16, device=cuda_device)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         cuda_rhs.rkm_attempt(F32, F32, np.float32(TAU), p)
@@ -236,5 +242,130 @@ def test_cg_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
         cuda_cg.cross_matvec_pAp(A_U, v, out=v.view(64).view(8, 8))
     with pytest.raises(TypeError, match="scalars"):
         cuda_cg.axpby_inplace(1.0, torch.tensor(0.5, device=cuda_device), v, v.clone())
-    with pytest.raises(NotImplementedError, match="float64"):
-        cuda_cg.cross_matvec_pAp(A_U, v.double())
+    with pytest.raises(TypeError, match="share a dtype"):
+        cuda_cg.cross_matvec_pAp(A_U, v.double(), out=v.clone())
+
+
+# ------------------------------------------------------------- float64
+
+F64_TOL = 1e-11   # max|kernel - plain| <= F64_TOL * max(|plain|, 1)
+F64_RTOL = 1e-9   # Merson error maxima and CG dot products
+F64_PAIRS = BC_PAIRS + [("periodic", "neumann")]
+F64_PHYSICS = {"S=0.25, f32 transcendentals": dict(S=0.25, f32_transcendentals=True),
+               "S=0.25, f64 transcendentals": dict(S=0.25, f32_transcendentals=False),
+               "S=0": dict(S=0.0, f32_transcendentals=True)}
+
+
+def _f64_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float64
+        gap = (g - w).abs().max().item()
+        assert gap <= F64_TOL * max(w.abs().max().item(), 1.0), gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", list(F64_PHYSICS))
+@pytest.mark.parametrize("f_bc,u_bc", F64_PAIRS)
+def test_f64_rhs_kernels_match_plain(f_bc, u_bc, physics, gen, cuda_device):  # noqa: F811
+    """K1 (1 and 4 states, both modes), K4, K2, K3, K6 (4 and 8 steps) and
+    K7 (both s forms) at double against their plain versions at double."""
+    for ny, nx in ((512, 512), (33, 129)):
+        p = SimParams(ny=ny, nx=nx, m0=6.0, theta0=0.1, dtype="float64",
+                      Phi_boundary=BoundaryType(f_bc), T_boundary=BoundaryType(u_bc),
+                      **F64_PHYSICS[physics])
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        st = _on(random_fields(gen, ny, nx, "float64", 4), cuda_device)
+        for n in (1, 4):
+            w = [1.0] + [float(x) * 1e-2 for x in gen.normal(size=n - 1)]
+            for is_euler in (False, True):
+                _f64_close(cuda_rhs.blend_rhs(st[:n], w, p, 0.03, d, is_euler),
+                           cuda_rhs.blend_rhs_plain(st[:n], w, p, 0.03, d, is_euler))
+        _f64_close(cuda_rhs.rk4_final_stage(*st, p, 0.03, d),
+                   cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d))
+        F, U = st[0]
+        got = cuda_rhs.rkm_attempt(F, U, np.float64(TAU), p, 0.03, d)
+        want = cuda_rhs.rkm_attempt_plain(F, U, np.float64(TAU), p, 0.03, d)
+        _f64_close(got[:2], want[:2])
+        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=F64_RTOL)
+        for guess in (False, True):
+            q = p.replace(do_corrector_guess=guess)
+            _f64_close(cuda_rhs.si_prepare(F, U, q), cuda_rhs.si_prepare_plain(F, U, q))
+        Fs, Us = (torch.from_numpy(a).to(cuda_device)
+                  for a in seed_fields(gen, ny, nx, "float64"))
+        _f64_close(cuda_rhs.rk4_full(Fs, Us, p, 0.03, d),
+                   cuda_rhs.rk4_full_plain(Fs, Us, p, 0.03, d))
+        for steps in cuda_rhs.K6_STEPS[torch.float64]:
+            _f64_close(cuda_rhs.euler_steps(Fs, Us, p, steps, 0.03, d),
+                       cuda_rhs.euler_steps_plain(Fs, Us, p, steps, 0.03, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bc", BCS)
+def test_f64_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
+    A_U, A_F = _operators(bc)
+    for ny, nx in ((512, 512), (33, 129)):
+        v, x, r, Ap = (torch.from_numpy(gen.normal(size=(ny, nx))).to(cuda_device)
+                       for _ in range(4))
+        s = torch.from_numpy(0.33 + 0.08 * gen.uniform(-1, 1, size=(ny, nx))).to(cuda_device)
+        for got, want in ((cuda_cg.cross_matvec_pAp(A_U, v, out=torch.empty_like(v)),
+                           cuda_cg.cross_matvec_pAp_plain(A_U, v)),
+                          (cuda_cg.aniso_matvec_pAp(A_F, s, v),
+                           cuda_cg.aniso_matvec_pAp_plain(A_F, s, v))):
+            _f64_close(got[:1], want[:1])
+            np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=F64_RTOL)
+        alpha = torch.tensor(0.37, dtype=torch.float64, device=cuda_device)
+        got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, alpha)
+        want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
+        _f64_close(got[:2], want[:2])
+        np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=F64_RTOL)
+        a, b = (torch.tensor(c, dtype=torch.float64, device=cuda_device) for c in (1.0, -0.61))
+        _f64_close([cuda_cg.axpby_inplace(a, b, r, v.clone())],
+                   [cuda_cg.axpby_inplace_plain(a, b, r, v.clone())])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+def test_residual_kernel_matches_plain(bc, dtype, gen, cuda_device):  # noqa: F811
+    """K14 in its four modes (cross, anisotropy, heat, heat with the extra
+    terms) against its plain version: at double to F64_TOL, at float to
+    the f32 kernel tolerance."""
+    A_U, A_F = _operators(bc)
+    for ny, nx in ((512, 512), (33, 129)):
+        e, r0, e1, e2, x = (torch.from_numpy(gen.normal(size=(ny, nx)).astype(dtype))
+                            .to(cuda_device) for _ in range(5))
+        s = torch.from_numpy((0.33 + 0.08 * gen.uniform(-1, 1, size=(ny, nx)))
+                             .astype(dtype)).to(cuda_device)
+        pairs = [(cuda_cg.cross_residual(r0, e, A_U), cuda_cg.cross_residual_plain(r0, e, A_U)),
+                 (cuda_cg.aniso_residual(r0, e, A_F, s),
+                  cuda_cg.aniso_residual_plain(r0, e, A_F, s))]
+        for extra in (None, x):
+            pairs.append((cuda_cg.heat_residual(r0, (e1, e2), e, A_U, 2.0, extra),
+                          cuda_cg.heat_residual_plain(r0, (e1, e2), e, A_U, 2.0, extra)))
+        for got, want in pairs:
+            if dtype == "float64":
+                _f64_close([got], [want])
+            else:
+                assert_match(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,guess", [(0.0, False), (0.25, False), (0.25, True)])
+def test_f64_refined_step_kernels_match_plain(S, guess, gen, cuda_device):  # noqa: F811
+    """The float64 semi-implicit step on the card (the refined route: K7,
+    K8-K10, K14) against the same route in plain torch ops: equal CG
+    counts, fields to F64_TOL."""
+    p = SimParams(ny=64, nx=128, S=S, m0=6.0, theta0=0.1, dtype="float64", dt=5e-4,
+                  do_corrector_guess=guess, Phi_tolerance=1e-7, T_tolerance=1e-7,
+                  Phi_max_iters=100, T_max_iters=100)
+    F, U = (torch.from_numpy(a).to(cuda_device) for a in seed_fields(gen, 64, 128, "float64"))
+    assert semi_implicit.refines(p, F.device)
+    before = dict(cuda_cg.LAUNCHES)
+    got = semi_implicit.semi_implicit_step_based(F, U, U, p)
+    residual = "cross_residual" if S == 0.0 and not guess else "aniso_residual"
+    for name in (residual, "heat_residual"):
+        assert cuda_cg.LAUNCHES[name] == before[name] + 1
+    want = semi_implicit.semi_implicit_step_based(F, U, U, p.replace(backend="torch"))
+    for g, w in zip(got[2:], want[2:]):
+        assert (g.iters, g.converged) == (w.iters, w.converged)
+    _f64_close(got[:2], want[:2])

@@ -5,7 +5,8 @@ CPU) and the port's driver on the CPU, on a 64^2 cut of the shipped
 config.ini at float64, compared frame by frame and stats.csv row by row --
 the CG iteration counts and the step-residual columns included.  Euler
 with ``collect_stats = false`` takes the driver's host-counted path, in
-blocks of 4 steps (``make_euler_pair_stepper``), and writes no stats.csv.
+blocks of 4 steps (``make_euler_pair_stepper``) at both dtypes, and writes
+no stats.csv.
 
 Fixed-dt runs have no step-size controller to amplify rounding
 (tests/test_torch_driver.py), so the frames hold to the one-step contract
@@ -96,7 +97,9 @@ def test_solver_runs_match_jax_f64(run, tmp_path, monkeypatch):
     sim, program = RUNS[run]
     blocks = _spy_blocks(monkeypatch)
     tres, jdir, tdir = _run_both(tmp_path, sim, program)
-    assert blocks == []  # float64 takes single steps until its kernels land
+    # without stats the driver counts steps on the host and takes them in
+    # blocks of 4 (2 events of 40 steps, below 1M cells); else single steps
+    assert blocks == ([4] * 20 if program.get("collect_stats") == "false" else [])
 
     frames = sorted(f for f in os.listdir(jdir) if f.endswith(".bin"))
     assert frames == sorted(f for f in os.listdir(tdir) if f.endswith(".bin"))

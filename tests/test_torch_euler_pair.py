@@ -107,8 +107,8 @@ def test_jax_fused_kernels_at_mixed_types(f_bc, u_bc, rng):
 
 def test_pair_stepper_gates():
     """None wherever the JAX package's single-device f32 branch returns
-    None (`bachelors_tpu/solvers/explicit.py:107-231`), and for float64
-    until its kernels land."""
+    None (`bachelors_tpu/solvers/explicit.py:107-231`); float64 has its own
+    gate (tests/test_torch_f64.py)."""
     _, base = both_params(ny=64, nx=64, solver=JST.EXPLICIT_EULER)
     pair = explicit.make_euler_pair_stepper(base)
     assert pair is not None and pair.block_steps == explicit.EULER_BLOCK_STEPS == 4
@@ -117,8 +117,7 @@ def test_pair_stepper_gates():
     assert lo < side * side < hi
     for kw in (dict(do_stats=True), dict(do_exact=True), dict(do_stats_step_residual=True),
                dict(do_corrector_loop=True), dict(solver=SolverType.EXPLICIT_RK4),
-               dict(solver=SolverType.SEMI_IMPLICIT), dict(dtype="float64"),
-               dict(nx=side, ny=side)):
+               dict(solver=SolverType.SEMI_IMPLICIT), dict(nx=side, ny=side)):
         assert explicit.make_euler_pair_stepper(base.replace(**kw)) is None, kw
     # the corrector loop with no iterations is a plain step
     assert explicit.make_euler_pair_stepper(
