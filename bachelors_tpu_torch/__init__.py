@@ -9,7 +9,8 @@ easy to find.  This package never imports jax.
 Ported so far, on one device with stats and snapshots: adaptive
 Runge-Kutta-Merson, fixed-step RK4, forward Euler (with the multi-step pass
 for runs without stats), the semi-implicit CG solver with the corrector
-loop, and the exact solver (see ROADMAP.md for the rest).  Entry points
+loop, and the exact solver; adaptive RKM also on y, x and 2D meshes of
+devices (``parallel/``; see ROADMAP.md for the rest).  Entry points
 that make tensors run on the card unless given ``device="cpu"``.
 """
 from .core.params import (BoundaryType, SimParams, SolverType,

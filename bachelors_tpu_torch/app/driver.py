@@ -7,6 +7,10 @@ per-run file logger, echo the config, then run with time-based snapshot
 triggers (``every`` cadence + ``times`` uniform over the stop time) and a
 ~1 Hz progress log.
 
+With ``[tpu] shards_y/shards_x`` the adaptive RKM solver runs on a mesh of
+devices (``parallel/``); the state is gathered before each write, so the
+files are those of a single-device run.
+
 The hot loop is a host loop of one step at a time, collecting stats every
 step; each adaptive step already reads its error estimate on the host, and
 each CG iteration its stop test, so there is nothing to gain from the JAX
@@ -23,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,9 @@ from ..io.config import SimConfig, load_config
 from ..io.snapshot import load_bin_maps, make_save_folder, save_bin_maps
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
+from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
+from ..parallel.sharded import make_sharded_stepper
+from ..parallel.topology import Topology
 from ..solvers.base import make_stepper
 from ..solvers.explicit import make_euler_pair_stepper
 from ..solvers.run import END_TOLERANCE, advance_n
@@ -63,14 +70,16 @@ def check_supported(cfg: SimConfig) -> None:
     ROADMAP item that brings each, instead of ignoring them."""
     cfg.params.validate()
     todo = []
-    if cfg.shards_y > 1 or cfg.shards_x > 1:
-        todo.append("[tpu] shards_y/shards_x > 1 (ROADMAP slice 5, item 15: "
-                    "multi-GPU meshes)")
+    if (cfg.shards_y > 1 or cfg.shards_x > 1) and (
+            cfg.params.solver != SolverType.EXPLICIT_RK4_ADAPTIVE):
+        todo.append(f"[tpu] shards_y/shards_x > 1 with solver = "
+                    f"{cfg.params.solver.value} (ROADMAP slice 5b, item 15: the seam "
+                    "twins of Euler, RK4 and semi-implicit)")
     if cfg.ensemble > 1 or cfg.batch_shards > 1:
         todo.append("[tpu] ensemble/batch_shards > 1 (ROADMAP slice 4, "
                     "item 13: ensembles)")
     if cfg.multihost:
-        todo.append("[tpu] multihost (ROADMAP slice 5, item 15)")
+        todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")
     if cfg.interactive:
         todo.append("[program] interactive = true (ROADMAP slice 6, item 17: "
                     "the viewer)")
@@ -123,6 +132,7 @@ def _echo_config(cfg: SimConfig, device: torch.device) -> None:
 def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
                    acc: Optional[StatsAccumulator], save_config_once: List[int]) -> None:
     p = cfg.params
+    state = gather_state(state)  # a mesh's shards joined: the same bytes
     maps = {"F": state.F.cpu().numpy(), "U": state.U.cpu().numpy()}
     if p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE:
         # the adaptive step size as a constant full map (the .bin header
@@ -155,13 +165,35 @@ def snapshot_events(stop: float, times: int, every: float) -> List[float]:
     return events
 
 
+def _devices(cfg: SimConfig, device) -> Tuple[torch.device, Optional[Mesh], Topology]:
+    """The run's first device, and its mesh and Topology (None and
+    ``Topology()`` on one device).  ``device`` is one device or a list; a
+    mesh takes one device per shard from the list, and ``"cuda"`` alone
+    stands for every visible card.  Too few raise."""
+    names = list(device) if isinstance(device, (list, tuple)) else [device]
+    if cfg.shards_y * cfg.shards_x == 1:
+        return resolve_device(names[0]), None, Topology()
+    devices = [resolve_device(d) for d in names]
+    mesh, topo = make_mesh(cfg.shards_y, cfg.shards_x,
+                           None if names == ["cuda"] else devices)
+    return mesh.devices[0], mesh, topo
+
+
 def run_simulation(cfg: SimConfig, device="cuda",
                    make_folder: bool = True) -> RunResult:
+    """Run ``cfg`` on ``device``, one device or a list of them: with
+    ``[tpu] shards_y * shards_x > 1`` the grid is sharded over a mesh of
+    those devices (a device may repeat), and the state is gathered for each
+    frame and stats.csv write."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev, mesh, topo = _devices(cfg, device)
     p = cfg.params
     state = _initial_state(cfg, dev)
-    stepper = make_stepper(p)
+    if mesh is None:
+        stepper = make_stepper(p)
+    else:
+        stepper = make_sharded_stepper(p, mesh, topo)
+        state = shard_state(state, mesh, topo)
 
     folder = ""
     if make_folder:
@@ -171,6 +203,9 @@ def run_simulation(cfg: SimConfig, device="cuda",
     _echo_config(cfg, dev)
     log.info(f"device = {dev}"
              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
+    if mesh is not None:
+        log.info(f"sharding over a {topo.shards_y}x{topo.shards_x} mesh on "
+                 f"{[str(d) for d in mesh.devices]}")
 
     acc = StatsAccumulator() if cfg.collect_stats else None
     save_config_once = [0]
@@ -221,8 +256,9 @@ def run_simulation(cfg: SimConfig, device="cuda",
             log.info(f"saving snapshot {snapshots}")
             _save_snapshot(folder, snapshots, state, cfg, acc, save_config_once)
 
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    for d in set(mesh.devices if mesh is not None else [dev]):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     runtime = time.perf_counter() - t_start
     log.info("Finished!")
     log.info(f"runtime: {runtime:.2f}s | iters: {state.iter} | attempts: "
@@ -243,12 +279,15 @@ def run_config_file(path: str, overrides: Optional[List[str]] = None,
 
 USAGE = """\
 usage: python -m bachelors_tpu_torch [CONFIG.ini ...] [--set section.key=value ...]
-                                     [--device cuda|cpu]
+                                     [--device cuda|cpu|DEV,DEV,...]
 
 Runs each config sequentially (reference-compatible INI keys; see
 io/config.py).  The default device is cuda, and a missing card is an error.
   --set simulation.stop_after=0.002   override any key
   --device cpu                        run the plain torch path on the CPU
+  --device cuda:0,cuda:0              one device per shard of a [tpu]
+                                      shards_y x shards_x mesh (may repeat;
+                                      "cuda" alone: every visible card)
 """
 
 
@@ -263,7 +302,8 @@ def parse_args(argv: List[str]):
             overrides.append(f"[{sect}]\n{key} = {val}\n")
             i += 2
         elif argv[i] == "--device" and i + 1 < len(argv):
-            device = argv[i + 1]
+            device = argv[i + 1].split(",")
+            device = device[0] if len(device) == 1 else device
             i += 2
         else:
             paths.append(argv[i])

@@ -11,10 +11,13 @@ import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
-from .core.device import DEFAULT_DEVICE
+from .core.device import DEFAULT_DEVICE, resolve_device
 from .core.params import BoundaryType, SimParams, SolverType
-from .core.state import SimState, make_state
+from .core.state import Shards, SimState, make_state
+from .parallel.mesh import field_spec
+from .parallel.topology import Topology
 
 _ENUM_FIELDS = {"solver": SolverType, "T_boundary": BoundaryType,
                 "Phi_boundary": BoundaryType}
@@ -48,3 +51,20 @@ def state_from_numpy(F: np.ndarray, U: np.ndarray, t: float, iter: int,
     state = make_state(F, np.asarray(U, F.dtype), SimParams(dtype=dtype),
                        t=t, it=iter, device=device)
     return state.replace(tau=F.dtype.type(tau))
+
+
+def shards_from_numpy(A: np.ndarray, shards_y: int, shards_x: int,
+                      devices=None) -> Shards:
+    """A (ny, nx) array split over a ``shards_y x shards_x`` mesh, block
+    (i, j) on ``devices[i * shards_x + j]`` (every shard on the card by
+    default), as ``parallel/mesh.shard_state`` splits a field."""
+    n = shards_y * shards_x
+    devices = [resolve_device(d) for d in (devices or [DEFAULT_DEVICE] * n)]
+    spec = field_spec(Topology(shards_y, shards_x), *A.shape)
+    return Shards(tuple(torch.from_numpy(np.ascontiguousarray(A[r, c])).to(d)
+                        for (r, c), d in zip(spec, devices)), (shards_y, shards_x))
+
+
+def shards_to_numpy(A: Shards) -> np.ndarray:
+    """The whole (ny, nx) field of a ``Shards`` as one numpy array."""
+    return A.gather(torch.device("cpu")).numpy()

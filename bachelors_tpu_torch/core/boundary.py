@@ -12,8 +12,14 @@ The semantics of the reference's per-sample ``boundary_sample``
 Corner cells of the pad ring clamp both coordinates, exactly like CLAMP in
 the reference.  The pad is a gather with wrapped or clamped indices, so it
 works for any grid size, including 1.
+
+On a mesh, a shard pads from the ghost rows and columns its neighbours
+sent (``Halo``, ``pad_halo``; the exchange is ``parallel/topology.py``).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,6 +55,72 @@ def pad2(A: torch.Tensor, bc: BoundaryType, dirichlet_value=0.0) -> torch.Tensor
     ring = torch.ones(P.shape, dtype=torch.bool, device=A.device)
     ring[1:-1, 1:-1] = False
     return _mirror(P, ring, dirichlet_value)
+
+
+@dataclasses.dataclass(frozen=True)
+class Halo:
+    """What one shard of a mesh sees beyond its own edges at one stage.
+
+    ``rows``: (2, k, nx_l), the ghost rows below the shard's row 0 (side 0)
+    and above its last row (side 1), one per field (k = 1 or 2, Phi then
+    T); ``None`` where the y axis is not sharded.  ``cols``: (2, k, ny_l),
+    the ghost columns west of column 0 and east of the last one; ``None``
+    where x is not sharded.  ``edges`` says which global domain edges the
+    shard holds: (first row, last row, first column, last column).  Across
+    a global edge a Neumann or Dirichlet field takes its boundary image and
+    ignores the ghost; a periodic field reads the ghost, which the ring
+    exchange filled from the shard on the other side of the domain
+    (``bachelors_tpu/parallel/topology.py:_halo_pad_1d`` :30-66).
+    """
+
+    rows: Optional[torch.Tensor] = None
+    cols: Optional[torch.Tensor] = None
+    edges: Tuple[bool, bool, bool, bool] = (True, True, True, True)
+
+
+def edge_image(edge: torch.Tensor, bc: BoundaryType, dirichlet_value) -> torch.Tensor:
+    """The ghost value across a Neumann (the value itself) or Dirichlet
+    (``2*d - value``) edge, as ``pad2`` computes it."""
+    if bc == BoundaryType.NEUMANN:
+        return edge
+    d = torch.as_tensor(dirichlet_value, dtype=edge.dtype, device=edge.device)
+    return 2 * d - edge
+
+
+def pad_halo(A: torch.Tensor, bc: BoundaryType, halo: Halo, field: int = 0,
+             dirichlet_value=0.0) -> torch.Tensor:
+    """Pad a shard (ny_l, nx_l) of one field by one ghost cell on every side
+    from ``halo`` (field ``field`` of its ghosts) -> (ny_l+2, nx_l+2).
+
+    Along an axis that is not sharded the pad is ``pad2``'s; along a
+    sharded one it is the ghost, or the boundary image at a global edge of
+    a Neumann or Dirichlet field.  The corners are 0: the 5-point stencil
+    never reads them."""
+    ny, nx = A.shape
+    P = A.new_zeros((ny + 2, nx + 2))
+    P[1:-1, 1:-1] = A
+    for axis, ghost, (first, last) in ((0, halo.rows, halo.edges[:2]),
+                                       (1, halo.cols, halo.edges[2:])):
+        lo_edge, hi_edge = A.narrow(axis, 0, 1), A.narrow(axis, A.shape[axis] - 1, 1)
+        if ghost is None:
+            if bc == BoundaryType.PERIODIC:
+                lo, hi = hi_edge, lo_edge
+            else:
+                lo = edge_image(lo_edge, bc, dirichlet_value)
+                hi = edge_image(hi_edge, bc, dirichlet_value)
+        else:
+            shape = lo_edge.shape
+            lo, hi = ghost[0, field].reshape(shape), ghost[1, field].reshape(shape)
+            if bc != BoundaryType.PERIODIC:
+                if first:
+                    lo = edge_image(lo_edge, bc, dirichlet_value)
+                if last:
+                    hi = edge_image(hi_edge, bc, dirichlet_value)
+        if axis == 0:
+            P[0, 1:-1], P[-1, 1:-1] = lo[0], hi[0]
+        else:
+            P[1:-1, 0], P[1:-1, -1] = lo[:, 0], hi[:, 0]
+    return P
 
 
 def pad_axis(A: torch.Tensor, bc: BoundaryType, axis: int,

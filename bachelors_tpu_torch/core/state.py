@@ -1,7 +1,7 @@
 """Simulation state and per-step stats.
 
-``SimState`` holds the two fields as tensors on one device and the clock as
-host scalars:
+``SimState`` holds the two fields as tensors on one device, or as
+``Shards`` over a mesh, and the clock as host scalars:
 
   * ``t`` is a Python float, i.e. float64, whatever the field dtype.  The
     reference accumulates time in host f64 (`main.cpp:553`), and so does the
@@ -16,7 +16,7 @@ host scalars:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,12 +36,60 @@ def numpy_dtype(p: SimParams):
     return _NUMPY_DTYPES[p.dtype]
 
 
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """A field split over a mesh of ``grid`` = (shards_y, shards_x) blocks,
+    each a (ny_l, nx_l) tensor on its shard's device, in row-major order
+    (``parallel/mesh.shard_state`` makes one, ``gather`` joins it).  The
+    port's counterpart of a JAX array sharded by ``field_spec``."""
+
+    blocks: Tuple[torch.Tensor, ...]
+    grid: Tuple[int, int]
+
+    def block(self, i: int, j: int) -> torch.Tensor:
+        return self.blocks[i * self.grid[1] + j]
+
+    def map(self, fn, *others: "Shards") -> "Shards":
+        """Shards of ``fn(block, *other blocks)``, shard by shard."""
+        return Shards(tuple(fn(*bs) for bs in zip(self.blocks, *(o.blocks for o in others))),
+                      self.grid)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        sy, sx = self.grid
+        return (sum(self.block(i, 0).shape[0] for i in range(sy)),
+                sum(self.block(0, j).shape[1] for j in range(sx)))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device: where reductions over the mesh land."""
+        return self.blocks[0].device
+
+    def numel(self) -> int:
+        return sum(b.numel() for b in self.blocks)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole (ny, nx) field on ``device`` (the first shard's by
+        default)."""
+        device = self.device if device is None else device
+        sy, sx = self.grid
+        return torch.cat([torch.cat([self.block(i, j).to(device) for j in range(sx)], 1)
+                          for i in range(sy)], 0)
+
+
+Field = Union[torch.Tensor, Shards]
+
+
 @dataclasses.dataclass
 class SimState:
     """Fields + clock + adaptive step size of one simulation.
 
-    F:    phase field Phi, shape (ny, nx)
-    U:    temperature T, shape (ny, nx)
+    F:    phase field Phi, shape (ny, nx), or its ``Shards`` on a mesh
+    U:    temperature T, shape (ny, nx), or its ``Shards``
     t:    simulation time (host float64)
     iter: iteration counter (host int)
     tau:  current adaptive step size (numpy scalar of the field dtype;
@@ -49,8 +97,8 @@ class SimState:
           function-static (`simulation.cu:363-365,486`).
     """
 
-    F: torch.Tensor
-    U: torch.Tensor
+    F: Field
+    U: Field
     t: float
     iter: int
     tau: np.floating

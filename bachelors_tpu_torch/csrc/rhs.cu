@@ -75,6 +75,33 @@
 //     fold, so the two round alike.  Ghosts take Dirichlet value 0, as the
 //     JAX package's prepare does.
 //
+// K5  bt_rkm_final_f32: replaces `_make_kernel` in mode "rkm_final" (:441,
+//     entry `rkm_final_stage_pallas` :1373; on a mesh
+//     `rkm_final_stage_pallas_sharded` :767): k5 = f(x + tau/2 k1 - 3tau/2 k3
+//     + 2tau k4), x + tau/6 (k1 + 4 k4 + k5) and the per-block maxima of
+//     |0.2 k1 - 0.9 k3 + 0.8 k4 - 0.1 k5|, reduced as K2's.  Bound by bytes:
+//     it reads 8 fields and writes 2.  Design: K1's, one thread per cell,
+//     k5 in registers (never stored); the block's maxima through shared
+//     memory.  On one device no path launches it (K2 takes every grid); the
+//     x and 2D meshes do, with ghosts.
+//
+// K12.1 bt_blend_rhs_halo_f32 and bt_halo_edges_f32: replaces
+//     `_stage_call_sharded` (:705) -> `_call` (:539) with ghost rows and
+//     columns, and the edge blends of `_ghost_rows` (:634) / `_ghost_cols`
+//     (:672).  K1 on a shard, reading a Halo (below) at seams: the blend of
+//     the neighbour's edge row or column, gathered by one launch of
+//     halo_edges per shard and stage (both fields, rows and columns; the
+//     strided columns never go through a torch copy) and exchanged by tensor
+//     copies.  Bound by bytes like K1; the gather moves 2 rows or columns.
+//
+// K12.2 bt_rkm_attempt_slabs_f32: replaces `_fullstep_call_sharded` (:1185,
+//     via `rkm_attempt_pallas_sharded` :1245).  K2's kernel itself, its
+//     apron rows beyond a y-mesh shard loaded from the neighbours' ghost
+//     slabs (5 rows, K2's apron; JAX's 8 are Mosaic's sublane padding) and
+//     its edge test on global rows, so the boundary image applies only at
+//     true domain edges and every cell runs K2's arithmetic: a y-mesh equals
+//     K2 on the whole grid bit for bit.
+//
 // Float64: the counterpart of K13, `bachelors_tpu/ops/pallas_dd.py:
 // _make_fullstep_kernel_dd` (:272, via `_fullstep_impl_dd` :607), which runs
 // schemes euler (T <= 8), rk4, rkm and si on (hi, lo) float32 pairs because
@@ -128,11 +155,35 @@ __device__ __forceinline__ Real blend_at(const Real* const* A, const Real* w, in
   return v;
 }
 
+// What a shard of a mesh sees beyond its edges (K12.1, K5 on a mesh):
+// ghost rows below row 0 (side 0) and above row ny-1 (side 1), ghost columns
+// west of column 0 (side 0) and east of column nx-1 (side 1), each (2
+// sides, 2 fields, n) with Phi before T; null along an axis that is not
+// sharded.  `edges` has a bit for each global domain edge the shard holds.
+// Across one a Neumann or Dirichlet field takes its image and ignores the
+// ghost; a periodic field reads the ghost, which the ring exchange filled
+// from the other side of the domain.  The whole grid is the halo
+// {null, null, kAllEdges}: K1's own rule.
+enum : int { kEdgeS = 1, kEdgeN = 2, kEdgeW = 4, kEdgeE = 8, kAllEdges = 15 };
+
+template <class Real>
+struct Halo {
+  const Real* rows;
+  const Real* cols;
+  int edges;
+};
+
+template <class Real>
+__host__ __device__ __forceinline__ Halo<Real> whole_grid() {
+  return Halo<Real>{nullptr, nullptr, kAllEdges};
+}
+
 // The blend sum_k w_k (F_k, U_k) at cell (i, j), as (Fc, Uc), and the RHS
-// there, as (dF, dU), with the boundary rule applied to the blend.
+// there, as (dF, dU), with the boundary rule applied to the blend, or the
+// halo's ghosts at a shard's seams.
 template <int NS, class Real>
-__device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, int i, int j,
-                                             int ny, int nx, Real d, Real fu,
+__device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Halo<Real>& h,
+                                             int i, int j, int ny, int nx, Real d, Real fu,
                                              const PhysParams<Real>& P, Real& Fc,
                                              Real& Uc, Real& dF, Real& dU) {
   bool cN = i + 1 == ny, cS = i == 0, cE = j + 1 == nx, cW = j == 0;
@@ -142,34 +193,43 @@ __device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, int i, in
 
   const Real fc = blend_at<NS>(a.F, a.w, row + j);
   const Real uc = blend_at<NS>(a.U, a.w, row + j);
-  // only touch a neighbour that the boundary rule actually reads
-  auto nbF = [&](bool cross, int idx) {
-    return (cross && P.f_bc != kPeriodic) ? neighbour(P.f_bc, true, Real(0), fc, d)
-                                          : blend_at<NS>(a.F, a.w, idx);
+  // the neighbour at `idx` of field f (0: Phi, 1: T) whose blend here is c;
+  // `cross`: the step leaves the shard on `side` of `ghost` (n per side and
+  // field, at position g), over global edge `bit` if the shard holds it.
+  // Only touch a value that the rule actually reads.
+  auto nb = [&](const Real* const* A, int bc, int f, Real c, bool cross,
+                const Real* ghost, int n, int side, int bit, int g, int idx) -> Real {
+    if (cross) {
+      if (bc != kPeriodic && (ghost == nullptr || (h.edges & bit)))
+        return neighbour(bc, true, Real(0), c, d);
+      if (ghost != nullptr) return ghost[(side * 2 + f) * n + g];
+    }
+    return blend_at<NS>(A, a.w, idx);
   };
-  auto nbU = [&](bool cross, int idx) {
-    return (cross && P.u_bc != kPeriodic) ? neighbour(P.u_bc, true, Real(0), uc, d)
-                                          : blend_at<NS>(a.U, a.w, idx);
-  };
-  Real FN = nbF(cN, rowN + j), FS = nbF(cS, rowS + j);
-  Real FE = nbF(cE, row + jE), FW = nbF(cW, row + jW);
-  Real UN = nbU(cN, rowN + j), US = nbU(cS, rowS + j);
-  Real UE = nbU(cE, row + jE), UW = nbU(cW, row + jW);
+  Real FN = nb(a.F, P.f_bc, 0, fc, cN, h.rows, nx, 1, kEdgeN, j, rowN + j);
+  Real FS = nb(a.F, P.f_bc, 0, fc, cS, h.rows, nx, 0, kEdgeS, j, rowS + j);
+  Real FE = nb(a.F, P.f_bc, 0, fc, cE, h.cols, ny, 1, kEdgeE, i, row + jE);
+  Real FW = nb(a.F, P.f_bc, 0, fc, cW, h.cols, ny, 0, kEdgeW, i, row + jW);
+  Real UN = nb(a.U, P.u_bc, 1, uc, cN, h.rows, nx, 1, kEdgeN, j, rowN + j);
+  Real US = nb(a.U, P.u_bc, 1, uc, cS, h.rows, nx, 0, kEdgeS, j, rowS + j);
+  Real UE = nb(a.U, P.u_bc, 1, uc, cE, h.cols, ny, 1, kEdgeE, i, row + jE);
+  Real UW = nb(a.U, P.u_bc, 1, uc, cW, h.cols, ny, 0, kEdgeW, i, row + jW);
   physics(P, fc, FN, FS, FE, FW, uc, UN, US, UE, UW, fu, dF, dU);
   Fc = fc;
   Uc = uc;
 }
 
+// K1 and, with a halo, K12.1
 template <int NS, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     blend_rhs_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
                      Real* __restrict__ outU, int ny, int nx, Real d, Real fu,
-                     int is_euler, PhysParams<Real> P) {
+                     int is_euler, Halo<Real> h, PhysParams<Real> P) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   Real Fc, Uc, dF, dU;
-  blend_rhs_at<NS>(a, i, j, ny, nx, d, fu, P, Fc, Uc, dF, dU);
+  blend_rhs_at<NS>(a, h, i, j, ny, nx, d, fu, P, Fc, Uc, dF, dU);
   if (is_euler) {
     dF = Fc + P.dt * dF;
     dU = Uc + P.dt * dU;
@@ -191,10 +251,83 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   Real Fc, Uc, k4F, k4U;
-  blend_rhs_at<2>(a, i, j, ny, nx, d, fu, P, Fc, Uc, k4F, k4U);
+  blend_rhs_at<2>(a, whole_grid<Real>(), i, j, ny, nx, d, fu, P, Fc, Uc, k4F, k4U);
   const int c = i * nx + j;
   outF[c] = a.F[0][c] + c6 * (k1F[c] + Real(2) * k2F[c] + Real(2) * a.F[1][c] + k4F);
   outU[c] = a.U[0][c] + c6 * (k1U[c] + Real(2) * k2U[c] + Real(2) * a.U[1][c] + k4U);
+}
+
+// ------------------------------------------------- K5, K12.1's ghost gather ----
+
+// K5: a = {x, k1, k3, k4} with weights {1, tau/2, -3 tau/2, 2 tau}; k5 at the
+// cell, the update x + c6 (k1 + 4 k4 + k5) and the error |0.2 k1 - 0.9 k3 +
+// 0.8 k4 - 0.1 k5| in the JAX kernel's order (`pallas_rhs.py:441-454`), its
+// per-block maxima (NaN kept) into `partials` for reduce_partials_kernel.
+template <class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    rkm_final_kernel(BlendArgs<Real> a, Real c6, Real* __restrict__ outF,
+                     Real* __restrict__ outU, Real* __restrict__ partials, int ny, int nx,
+                     Real d, Real fu, Halo<Real> h, PhysParams<Real> P) {
+  constexpr int kThreads = kK1BlockX * kK1BlockY;
+  __shared__ Real redF[kThreads], redU[kThreads];
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  Real eF = Real(0), eU = Real(0);
+  if (i < ny && j < nx) {  // no early return: every thread joins the reduction
+    Real Fc, Uc, k5F, k5U;
+    blend_rhs_at<4>(a, h, i, j, ny, nx, d, fu, P, Fc, Uc, k5F, k5U);
+    const int c = i * nx + j;
+    const Real k1F = a.F[1][c], k3F = a.F[2][c], k4F = a.F[3][c];
+    const Real k1U = a.U[1][c], k3U = a.U[2][c], k4U = a.U[3][c];
+    outF[c] = a.F[0][c] + c6 * (k1F + Real(4) * k4F + k5F);
+    outU[c] = a.U[0][c] + c6 * (k1U + Real(4) * k4U + k5U);
+    eF = abs_of(Real(0.2) * k1F - Real(0.9) * k3F + Real(0.8) * k4F - Real(0.1) * k5F);
+    eU = abs_of(Real(0.2) * k1U - Real(0.9) * k3U + Real(0.8) * k4U - Real(0.1) * k5U);
+  }
+  redF[tid] = eF;
+  redU[tid] = eU;
+  __syncthreads();
+  for (int half = kThreads / 2; half > 0; half >>= 1) {
+    if (tid < half) {
+      redF[tid] = nan_max(redF[tid], redF[tid + half]);
+      redU[tid] = nan_max(redU[tid], redU[tid + half]);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const int b = blockIdx.y * gridDim.x + blockIdx.x;
+    partials[b] = redF[0];
+    partials[gridDim.x * gridDim.y + b] = redU[0];
+  }
+}
+
+constexpr int kEdgeThreads = 256;
+
+// K12.1's ghost gather: the blend's first and last row (into `rows`, (2
+// sides, 2 fields, nx)) and first and last column (`cols`, (2, 2, ny)), each
+// null if not wanted; one thread per edge cell, K1's blend_at, so a seam
+// reads exactly the blend the neighbour's own K1 forms.
+template <int NS, class Real>
+__global__ void __launch_bounds__(kEdgeThreads)
+    halo_edges_kernel(BlendArgs<Real> a, Real* __restrict__ rows,
+                      Real* __restrict__ cols, int ny, int nx) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_rows = rows != nullptr ? 2 * nx : 0;
+  if (t < n_rows) {
+    const int side = t / nx, j = t - side * nx;
+    const int idx = (side ? ny - 1 : 0) * nx + j;
+    rows[(side * 2) * nx + j] = blend_at<NS>(a.F, a.w, idx);
+    rows[(side * 2 + 1) * nx + j] = blend_at<NS>(a.U, a.w, idx);
+    return;
+  }
+  t -= n_rows;
+  if (cols != nullptr && t < 2 * ny) {
+    const int side = t / ny, i = t - side * ny;
+    const int idx = i * nx + (side ? nx - 1 : 0);
+    cols[(side * 2) * ny + i] = blend_at<NS>(a.F, a.w, idx);
+    cols[(side * 2 + 1) * ny + i] = blend_at<NS>(a.U, a.w, idx);
+  }
 }
 
 // -------------------------------------------------- apron tiles: K2, K3, K6 ----
@@ -221,26 +354,46 @@ struct Region {
 };
 
 // Where a tile's cells sit: region cell (ry, rx) is unwrapped global cell
-// (gy0 + ry, gx0 + rx).
+// (gy0 + ry, gx0 + rx) of the (ny, nx) grid.  The block's fields hold global
+// rows [y0, y0 + ny_l): the whole grid (y0 = 0, ny_l = ny), or one shard of
+// a y-mesh (K12.2).
 struct Tile {
-  int gy0, gx0, ny, nx;
+  int gy0, gx0, ny, nx, y0, ny_l;
 };
 
 template <int A>
-__device__ __forceinline__ Tile block_tile(int ny, int nx) {
-  return Tile{int(blockIdx.y) * kTY - A, int(blockIdx.x) * kTX - A, ny, nx};
+__device__ __forceinline__ Tile block_tile(int ny, int nx, int y0 = 0, int ny_l = -1) {
+  return Tile{y0 + int(blockIdx.y) * kTY - A, int(blockIdx.x) * kTX - A, ny, nx, y0,
+              ny_l < 0 ? ny : ny_l};
 }
 
-// (F, U) on the whole region, read at wrapped global coordinates.
+// (F, U) on the whole region.  On the whole grid (`slabs` null) every row
+// is read at its wrapped global coordinate.  On a y-mesh shard the rows
+// beyond the shard come from the neighbours' ghost slabs, (2 sides, 2
+// fields, A rows, nx): side 0 holds the A rows below the shard, side 1 the
+// A rows above it, in ring order, so at a periodic global edge they are the
+// wrapped rows, as on the whole grid.  Region rows more than A beyond a
+// ragged last tile feed no owned cell; they repeat the slab's last row.
 template <int A, class Real>
 __device__ __forceinline__ void load_region(const Tile& T, const Real* __restrict__ F,
-                                            const Real* __restrict__ U, Real* sF,
+                                            const Real* __restrict__ U,
+                                            const Real* __restrict__ slabs, Real* sF,
                                             Real* sU) {
   for (int t = threadIdx.x; t < Region<A>::N; t += kTileThreads) {
-    int g = wrap(T.gy0 + t / Region<A>::W, T.ny) * T.nx +
-            wrap(T.gx0 + t % Region<A>::W, T.nx);
-    sF[t] = F[g];
-    sU[t] = U[g];
+    const int gy = T.gy0 + t / Region<A>::W;
+    const int gx = wrap(T.gx0 + t % Region<A>::W, T.nx);
+    const int ly = gy - T.y0;
+    if (slabs == nullptr || (ly >= 0 && ly < T.ny_l)) {
+      const int g = (slabs == nullptr ? wrap(gy, T.ny) : ly) * T.nx + gx;
+      sF[t] = F[g];
+      sU[t] = U[g];
+    } else {
+      const int side = ly >= 0;
+      const int r = side ? min(ly - T.ny_l, A - 1) : ly + A;
+      const Real* s = slabs + (size_t(side) * 2 * A + r) * T.nx + gx;
+      sF[t] = s[0];
+      sU[t] = s[size_t(A) * T.nx];
+    }
   }
 }
 
@@ -306,15 +459,15 @@ __device__ __forceinline__ void eval_blend(const Real* xF, const Real* xU,
   }
 }
 
-// f(ry, rx, g) for every owned cell of the tile inside the domain; g is the
-// cell's index in the (ny, nx) field.
+// f(ry, rx, g) for every owned cell of the tile inside the block's rows; g
+// is the cell's index in the block's (ny_l, nx) fields.
 template <int A, class Fn>
 __device__ __forceinline__ void for_owned(const Tile& T, Fn f) {
   for (int t = threadIdx.x; t < kTX * kTY; t += kTileThreads) {
     int ry = A + t / kTX, rx = A + t % kTX;
-    int gy = T.gy0 + ry, gx = T.gx0 + rx;
-    if (gy >= T.ny || gx >= T.nx) continue;  // ragged tile edge
-    f(ry, rx, gy * T.nx + gx);
+    int ly = T.gy0 + ry - T.y0, gx = T.gx0 + rx;
+    if (ly >= T.ny_l || gx >= T.nx) continue;  // ragged tile edge
+    f(ry, rx, ly * T.nx + gx);
   }
 }
 
@@ -337,12 +490,13 @@ template <class Real>
 __global__ void __launch_bounds__(kTileThreads)
     rkm_attempt_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                        Real* __restrict__ outF, Real* __restrict__ outU,
-                       Real* __restrict__ partials, int ny, int nx, Real tau, Real d,
-                       Real fu, PhysParams<Real> P) {
+                       Real* __restrict__ partials, const Real* __restrict__ slabs,
+                       int y0, int ny_l, int ny, int nx, Real tau, Real d, Real fu,
+                       PhysParams<Real> P) {
   constexpr int A = kK2Apron;
   RkmSmem<Real>& s = *reinterpret_cast<RkmSmem<Real>*>(tile_smem);
-  const Tile T = block_tile<A>(ny, nx);
-  load_region<A>(T, F, U, s.xF, s.xU);
+  const Tile T = block_tile<A>(ny, nx, y0, ny_l);
+  load_region<A>(T, F, U, slabs, s.xF, s.xU);
   __syncthreads();
 
   // Merson tableau (`simulation.cu:400-404`); weights in the field type, as
@@ -470,7 +624,7 @@ __global__ void __launch_bounds__(kTileThreads)
   constexpr int A = kK3Apron;
   Rk4Smem<Real>& s = *reinterpret_cast<Rk4Smem<Real>*>(tile_smem);
   const Tile T = block_tile<A>(ny, nx);
-  load_region<A>(T, F, U, s.xF, s.xU);
+  load_region<A>(T, F, U, static_cast<const Real*>(nullptr), s.xF, s.xU);
   __syncthreads();
 
   eval_stage<A>(T, P, s.xF, s.xU, s.k1F, s.k1U, 3, d, fu);
@@ -528,7 +682,7 @@ __global__ void __launch_bounds__(kTileThreads)
   constexpr int N = Region<STEPS>::N;
   Real(*buf)[N] = reinterpret_cast<Real(*)[N]>(tile_smem);
   const Tile T = block_tile<STEPS>(ny, nx);
-  load_region<STEPS>(T, F, U, buf[0], buf[1]);
+  load_region<STEPS>(T, F, U, static_cast<const Real*>(nullptr), buf[0], buf[1]);
   __syncthreads();
 #pragma unroll
   for (int step = 0; step < STEPS; ++step) {
@@ -641,19 +795,29 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 template <class S>
+bt::BlendArgs<Ar<S>> blend_args(const S* F0, const S* U0, const S* F1, const S* U1,
+                                const S* F2, const S* U2, const S* F3, const S* U3, S w1,
+                                S w2, S w3) {
+  using R = Ar<S>;
+  return bt::BlendArgs<R>{{ar(F0), ar(F1), ar(F2), ar(F3)},
+                          {ar(U0), ar(U1), ar(U2), ar(U3)},
+                          {R(1), R(w1), R(w2), R(w3)}};
+}
+
+// K1 on the whole grid (h = whole_grid) or, with a halo, K12.1 on a shard
+template <class S>
 int blend_rhs(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
               const S* U2, const S* F3, const S* U3, int n_states, S w1, S w2, S w3,
               S* outF, S* outU, int ny, int nx, S d, S fu, int is_euler,
-              const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+              bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
-  bt::BlendArgs<R> a{{ar(F0), ar(F1), ar(F2), ar(F3)}, {ar(U0), ar(U1), ar(U2), ar(U3)},
-                     {R(1), R(w1), R(w2), R(w3)}};
+  bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, F3, U3, w1, w2, w3);
   dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
   switch (n_states) {
-    case 1: bt::blend_rhs_kernel<1><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, *P); break;
-    case 2: bt::blend_rhs_kernel<2><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, *P); break;
-    case 3: bt::blend_rhs_kernel<3><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, *P); break;
-    case 4: bt::blend_rhs_kernel<4><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, *P); break;
+    case 1: bt::blend_rhs_kernel<1><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
+    case 2: bt::blend_rhs_kernel<2><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
+    case 3: bt::blend_rhs_kernel<3><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
+    case 4: bt::blend_rhs_kernel<4><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
@@ -673,17 +837,20 @@ int rk4_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k2F
   return int(cudaGetLastError());
 }
 
+// K2 on the whole grid (slabs null, y0 = 0, ny_l = ny) or, with slabs,
+// K12.2 on the y-mesh shard holding global rows [y0, y0 + ny_l)
 template <class S>
-int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err, int ny,
-                int nx, S tau, S d, S fu, const PhysParams<Ar<S>>* P,
-                cudaStream_t stream) {
+int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
+                const S* slabs, int y0, int ny_l, int ny, int nx, S tau, S d, S fu,
+                const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = int(sizeof(bt::RkmSmem<R>));
   static const cudaError_t attr = allow_smem(bt::rkm_attempt_kernel<R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  dim3 grid = tile_grid(ny, nx);
+  dim3 grid = tile_grid(ny_l, nx);
   bt::rkm_attempt_kernel<<<grid, bt::kTileThreads, smem, stream>>>(
-      ar(F), ar(U), ar(outF), ar(outU), ar(partials), ny, nx, R(tau), R(d), R(fu), *P);
+      ar(F), ar(U), ar(outF), ar(outU), ar(partials), ar(slabs), y0, ny_l, ny, nx,
+      R(tau), R(d), R(fu), *P);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
@@ -736,6 +903,47 @@ int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
   return int(cudaGetLastError());
 }
 
+// K5 on the whole grid (h = whole_grid) or on a shard: a = {x, k1, k3, k4}
+template <class S>
+int rkm_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k3F,
+              const S* k3U, const S* k4F, const S* k4U, S w1, S w2, S w3, S c6, S* outF,
+              S* outU, S* partials, S* err, int ny, int nx, S d, S fu, bt::Halo<Ar<S>> h,
+              const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  using R = Ar<S>;
+  bt::BlendArgs<R> a = blend_args(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3);
+  dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
+  bt::rkm_final_kernel<<<grid, block, 0, stream>>>(a, R(c6), ar(outF), ar(outU),
+                                                   ar(partials), ny, nx, R(d), R(fu), h, *P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
+      ar(static_cast<const S*>(partials)), int(grid.x * grid.y), ar(err));
+  return int(cudaGetLastError());
+}
+
+template <class S>
+int halo_edges(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
+               const S* U2, const S* F3, const S* U3, int n_states, S w1, S w2, S w3,
+               S* rows, S* cols, int ny, int nx, cudaStream_t stream) {
+  bt::BlendArgs<Ar<S>> a = blend_args(F0, U0, F1, U1, F2, U2, F3, U3, w1, w2, w3);
+  const int n = (rows ? 2 * nx : 0) + (cols ? 2 * ny : 0);
+  if (n == 0) return int(cudaSuccess);
+  dim3 grid((n + bt::kEdgeThreads - 1) / bt::kEdgeThreads);
+  switch (n_states) {
+    case 1: bt::halo_edges_kernel<1><<<grid, bt::kEdgeThreads, 0, stream>>>(a, ar(rows), ar(cols), ny, nx); break;
+    case 2: bt::halo_edges_kernel<2><<<grid, bt::kEdgeThreads, 0, stream>>>(a, ar(rows), ar(cols), ny, nx); break;
+    case 3: bt::halo_edges_kernel<3><<<grid, bt::kEdgeThreads, 0, stream>>>(a, ar(rows), ar(cols), ny, nx); break;
+    case 4: bt::halo_edges_kernel<4><<<grid, bt::kEdgeThreads, 0, stream>>>(a, ar(rows), ar(cols), ny, nx); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+template <class S>
+bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
+  return bt::Halo<Ar<S>>{ar(rows), ar(cols), edges};
+}
+
 }  // namespace
 
 // The C interface: one set of entry points per field type, `bt_*_f32` on
@@ -765,7 +973,8 @@ int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
                          int nx, S d, S fu, int is_euler, const PhysParams<Ar<S>>* P, \
                          cudaStream_t stream) {                                       \
     return blend_rhs<S>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,  \
-                        outU, ny, nx, d, fu, is_euler, P, stream);                   \
+                        outU, ny, nx, d, fu, is_euler, bt::whole_grid<Ar<S>>(), P,   \
+                        stream);                                                      \
   }                                                                                   \
   int bt_rk4_final_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,       \
                          const S* k2F, const S* k2U, const S* k3F, const S* k3U,     \
@@ -777,8 +986,8 @@ int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
   int bt_rkm_attempt_##SFX(const S* F, const S* U, S* outF, S* outU, S* partials,    \
                            S* err, int ny, int nx, S tau, S d, S fu,                 \
                            const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
-    return rkm_attempt<S>(F, U, outF, outU, partials, err, ny, nx, tau, d, fu, P,    \
-                          stream);                                                    \
+    return rkm_attempt<S>(F, U, outF, outU, partials, err, nullptr, 0, ny, ny, nx,   \
+                          tau, d, fu, P, stream);                                     \
   }                                                                                   \
   int bt_rk4_full_##SFX(const S* F, const S* U, S* outF, S* outU, int ny, int nx,    \
                         S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,      \
@@ -799,6 +1008,65 @@ extern "C" {
 
 BT_RHS_ENTRIES(f32, float)
 BT_RHS_ENTRIES(f64, double)
+
+// The mesh kernels, float32 only (their float64 twins: ROADMAP slice 5b).
+// `rows`/`cols` are a shard's ghosts, (2 sides, 2 fields, nx) and (2, 2,
+// ny), null along an axis that is not sharded; `edges` has bit 0..3 set
+// when the shard holds the grid's first row, last row, first column, last
+// column.
+//   K12.1 ghost gather bt_halo_edges: the blend's first and last rows into
+//      rows, first and last columns into cols (each skipped if null).
+//   K12.1 bt_blend_rhs_halo: K1 in rhs mode on a shard.
+//   K5 bt_rkm_final: a = {x, k1, k3, k4} with weights {1, w1, w2, w3} =
+//      {1, tau/2, -3 tau/2, 2 tau}: outF/outU = x + c6 (k1 + 4 k4 + k5),
+//      err as K2's; partials holds 2 * bt_stage_num_blocks values.  On the
+//      whole grid: null ghosts and all four edge bits.
+//   K12.2 bt_rkm_attempt_slabs: K2 on the y-mesh shard holding global rows
+//      [y0, y0 + ny_l) of the (ny, nx) grid, slabs (2 sides, 2 fields, 5,
+//      nx) from the neighbours; partials holds 2 * bt_rkm_num_blocks(ny_l,
+//      nx) values.
+int bt_halo_edges_f32(const float* F0, const float* U0, const float* F1, const float* U1,
+                      const float* F2, const float* U2, const float* F3, const float* U3,
+                      int n_states, float w1, float w2, float w3, float* rows, float* cols,
+                      int ny, int nx, cudaStream_t stream) {
+  return halo_edges<float>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, rows,
+                           cols, ny, nx, stream);
+}
+
+int bt_blend_rhs_halo_f32(const float* F0, const float* U0, const float* F1,
+                          const float* U1, const float* F2, const float* U2,
+                          const float* F3, const float* U3, int n_states, float w1,
+                          float w2, float w3, float* outF, float* outU, int ny, int nx,
+                          float d, float fu, const float* rows, const float* cols,
+                          int edges, const PhysParams<float>* P, cudaStream_t stream) {
+  return blend_rhs<float>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,
+                          outU, ny, nx, d, fu, 0, halo_of(rows, cols, edges), P, stream);
+}
+
+int bt_rkm_final_f32(const float* xF, const float* xU, const float* k1F, const float* k1U,
+                     const float* k3F, const float* k3U, const float* k4F,
+                     const float* k4U, float w1, float w2, float w3, float c6, float* outF,
+                     float* outU, float* partials, float* err, int ny, int nx, float d,
+                     float fu, const float* rows, const float* cols, int edges,
+                     const PhysParams<float>* P, cudaStream_t stream) {
+  return rkm_final<float>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3, c6, outF,
+                          outU, partials, err, ny, nx, d, fu, halo_of(rows, cols, edges),
+                          P, stream);
+}
+
+int bt_rkm_attempt_slabs_f32(const float* F, const float* U, float* outF, float* outU,
+                             float* partials, float* err, const float* slabs, int y0,
+                             int ny_l, int ny, int nx, float tau, float d, float fu,
+                             const PhysParams<float>* P, cudaStream_t stream) {
+  return rkm_attempt<float>(F, U, outF, outU, partials, err, slabs, y0, ny_l, ny, nx, tau,
+                            d, fu, P, stream);
+}
+
+// Number of value pairs the K5 partials buffer holds (2 * this many values).
+int bt_stage_num_blocks(int ny, int nx) {
+  dim3 g = k1_grid(ny, nx);
+  return int(g.x * g.y);
+}
 
 // Number of value pairs the K2 partials buffer holds (2 * this many values).
 int bt_rkm_num_blocks(int ny, int nx) {

@@ -87,6 +87,16 @@ def rhs_padded(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams, fu=0.0):
     (`simulation.cu:209`), as in the JAX package; the two agree on the
     square cells of every shipped config.
     """
+    return rhs_neighbours(
+        (Fp[1:-1, 1:-1], Fp[2:, 1:-1], Fp[:-2, 1:-1], Fp[1:-1, 2:], Fp[1:-1, :-2]),
+        (Up[1:-1, 1:-1], Up[2:, 1:-1], Up[:-2, 1:-1], Up[1:-1, 2:], Up[1:-1, :-2]),
+        p, fu)
+
+
+def rhs_neighbours(F5, U5, p: SimParams, fu=0.0):
+    """``rhs_padded`` from each field's centre and its four neighbours,
+    (C, N, S, E, W), given apart: for a caller whose neighbours are not one
+    padded field (``ops/cuda_rhs.rkm_attempt_sharded_plain``)."""
     dx = p.dx
     dy = p.dy
     inv_2dx = 1.0 / (2 * dx)
@@ -98,17 +108,8 @@ def rhs_padded(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams, fu=0.0):
     k1_factor = 1.0 / p.alpha
     dt_L = p.dt * p.L
 
-    C_F = Fp[1:-1, 1:-1]
-    E_F = Fp[1:-1, 2:]
-    W_F = Fp[1:-1, :-2]
-    N_F = Fp[2:, 1:-1]
-    S_F = Fp[:-2, 1:-1]
-
-    C_U = Up[1:-1, 1:-1]
-    E_U = Up[1:-1, 2:]
-    W_U = Up[1:-1, :-2]
-    N_U = Up[2:, 1:-1]
-    S_U = Up[:-2, 1:-1]
+    C_F, N_F, S_F, E_F, W_F = F5
+    C_U, N_U, S_U, E_U, W_U = U5
 
     gx = (E_F - W_F) * inv_2dx
     gy = (N_F - S_F) * inv_2dy

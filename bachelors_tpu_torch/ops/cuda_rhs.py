@@ -1,7 +1,7 @@
 """The RHS kernels and their plain torch versions.
 
-The port's counterpart of ``bachelors_tpu/ops/pallas_rhs.py``.  Six
-kernels, hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
+The port's counterpart of ``bachelors_tpu/ops/pallas_rhs.py``.  Its
+kernels are hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
 ``ops/cuda_build.py``):
 
   * K1 ``blend_rhs``: the single-stage fused RHS, replacing
@@ -27,15 +27,31 @@ kernels, hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     ``pallas_rhs._make_kernel`` in mode "si_prepare" (``si_prepare_pallas``
     :612).  One pass over (F, U) writes r0_F, dt*lap(U) and, when
     ``si_s_varies``, the anisotropy map s.
+  * K5 ``rkm_final_stage``: Merson's fifth stage, the update and the error
+    maxima in one pass, replacing ``_make_kernel`` in mode "rkm_final"
+    (:441, ``rkm_final_stage_pallas`` :1373); K1's design, 8 fields read,
+    2 written, k5 never stored.  With a ``Halo`` it runs on one shard of a
+    mesh (``rkm_final_stage_pallas_sharded`` :767).
+  * K12.1 ``blend_rhs_sharded``: K1 in rhs mode on a shard, its seams read
+    from ghost rows and columns (``_stage_call_sharded`` :705), and
+    ``halo_edges``, its ghost gather: the blend's edge rows and columns in
+    one launch, what ``_ghost_rows`` :634 and ``_ghost_cols`` :672 send.
+  * K12.2 ``rkm_attempt_sharded``: K2 on a y-mesh shard, its apron beyond
+    the shard loaded from the neighbours' ghost slabs
+    (``_fullstep_call_sharded`` :1185); K2's arithmetic per cell.
 
-Beside each is its plain torch version (``blend_rhs_plain``,
-``rk4_final_stage_plain``, ``rkm_attempt_plain``, ``rk4_full_plain``,
-``euler_steps_plain``, ``si_prepare_plain``): the staged ``pad2`` +
-``rhs_padded`` (or ``semi_implicit_prepare``) composition.
+The mesh kernels are built for float32 only (their float64 twins are
+ROADMAP slice 5b).  Beside each kernel is its plain torch version
+(``blend_rhs_plain``, ``rk4_final_stage_plain``, ``rkm_attempt_plain``,
+``rk4_full_plain``, ``euler_steps_plain``, ``si_prepare_plain``,
+``rkm_final_stage_plain``, ``blend_rhs_sharded_plain``,
+``halo_edges_plain``, ``rkm_attempt_sharded_plain``): the staged ``pad2``
+(``pad_halo`` on a shard) + ``rhs_padded`` (or ``semi_implicit_prepare``)
+composition.
 The CPU path runs it, the tests hold it to the JAX package, and
 ``chip_smoke.py`` holds each kernel to it on the card.
 
-Every kernel runs on float32 and on float64 fields (``bt_*_f32`` and
+Every single-device kernel runs on float32 and on float64 fields (``bt_*_f32`` and
 ``bt_*_f64`` in ``csrc/rhs.cu``), dispatched on the fields' dtype; all the
 fields of one call share it.  At float64 K2, K3, K6 and K7 stand in for the
 JAX package's pair-arithmetic kernel K13 (``pallas_dd.py:
@@ -55,9 +71,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.boundary import pad2
+from ..core.boundary import Halo, edge_image, pad2, pad_axis, pad_halo
 from ..core.params import BoundaryType, SimParams
-from ..models.allen_cahn import blend, rhs_padded, semi_implicit_prepare
+from ..models.allen_cahn import blend, rhs_neighbours, rhs_padded, semi_implicit_prepare
 from .reductions import Lmax_norm
 from .stencil import lap_from_padded
 from . import cuda_build
@@ -66,7 +82,9 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
-            "rk4_full": 0, "euler_steps": 0, "si_prepare": 0}
+            "rk4_full": 0, "euler_steps": 0, "si_prepare": 0,
+            "rkm_final_stage": 0, "halo_edges": 0, "blend_rhs_sharded": 0,
+            "rkm_attempt_sharded": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -97,7 +115,7 @@ def effective_dirichlet(dirichlet_value, weights):
     return type(acc)(dirichlet_value) * acc
 
 
-def _blend_states(states: Sequence[Pair], weights):
+def blend_states(states: Sequence[Pair], weights):
     if len(states) == 1:
         # the single-state weight is exactly 1 at every call site
         return states[0]
@@ -109,7 +127,7 @@ def blend_rhs_plain(states: Sequence[Pair], weights: Sequence, p: SimParams,
                     fu=0.0, dirichlet_value=0.0, is_euler: bool = False) -> Pair:
     """RHS at ``sum_i w_i * (F_i, U_i)``: blend, pad with the *effective*
     Dirichlet value, evaluate.  In euler mode returns blend + dt * RHS."""
-    Fb, Ub = _blend_states(states, weights)
+    Fb, Ub = blend_states(states, weights)
     d = float(dirichlet_value)
     dF, dU = rhs_padded(pad2(Fb, p.Phi_boundary, d), pad2(Ub, p.T_boundary, d),
                         p, float(fu))
@@ -165,6 +183,56 @@ def euler_steps_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams,
     return F, U
 
 
+def merson_stages(stage, tau: np.floating, k1: Pair = None):
+    """k1, k3 and k4 of one Merson attempt (`simulation.cu:400-404`), each
+    ``stage(ks, ws)`` = f(x + sum_i ws_i ks_i) with the weights computed in
+    the precision of ``tau``, a numpy scalar of the field dtype.  ``k1``
+    may be passed in: it does not depend on tau."""
+    c = type(tau)
+    if k1 is None:
+        k1 = stage([], [])
+    k2 = stage([k1], [tau / c(3)])
+    k3 = stage([k1, k2], [tau / c(6), tau / c(6)])
+    k4 = stage([k1, k3], [tau / c(8), c(3) * tau / c(8)])
+    return k1, k3, k4
+
+
+def k5_weights(tau: np.floating):
+    """The blend weights of Merson's fifth stage, [1, tau/2, -3 tau/2,
+    2 tau], in the precision of ``tau``."""
+    c = type(tau)
+    return [c(1), tau / c(2), c(-3) * tau / c(2), c(2) * tau]
+
+
+def merson_finish(x: Pair, k1: Pair, k3: Pair, k4: Pair, k5: Pair, tau: np.floating):
+    """(x + tau/6 (k1 + 4 k4 + k5), max|0.2 k1 - 0.9 k3 + 0.8 k4 - 0.1 k5|
+    per field as a (2,) tensor), in the order of `pallas_rhs.py:441-454`."""
+    c6 = float(tau / type(tau)(6))
+    nF = x[0] + c6 * (k1[0] + 4 * k4[0] + k5[0])
+    nU = x[1] + c6 * (k1[1] + 4 * k4[1] + k5[1])
+    emax = torch.stack([
+        Lmax_norm(0.2 * k1[i] - 0.9 * k3[i] + 0.8 * k4[i] - 0.1 * k5[i])
+        for i in (0, 1)])
+    return nF, nU, emax
+
+
+def rkm_final_stage_plain(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
+                          p: SimParams, fu=0.0, dirichlet_value=0.0,
+                          halo: Halo = None):
+    """Merson's fifth stage k5 = f(x + tau/2 k1 - 3tau/2 k3 + 2tau k4), the
+    update and the error maxima (``merson_finish``): (next_F, next_U,
+    emax).  ``dirichlet_value`` pads the blend as it is given
+    (``rkm_final_stage_pallas``'s contract).  With a ``halo`` the fields
+    are one shard of a mesh, padded from it (``blend_rhs_sharded_plain``)
+    and the maxima are the shard's own."""
+    states, w = [x, k1, k3, k4], k5_weights(tau)
+    if halo is None:
+        k5 = blend_rhs_plain(states, w, p, fu, dirichlet_value)
+    else:
+        k5 = blend_rhs_sharded_plain(states, w, p, halo, fu, dirichlet_value)
+    return merson_finish(x, k1, k3, k4, k5, tau)
+
+
 def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
                       p: SimParams, fu=0.0, dirichlet_value=0.0,
                       k1: Pair = None):
@@ -185,19 +253,87 @@ def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
         return blend_rhs_plain([x] + ks, weights, p, fu,
                                effective_dirichlet(dirichlet_value, weights))
 
-    if k1 is None:
-        k1 = stage([], [])
-    k2 = stage([k1], [tau / c(3)])
-    k3 = stage([k1, k2], [tau / c(6), tau / c(6)])
-    k4 = stage([k1, k3], [tau / c(8), c(3) * tau / c(8)])
-    k5 = stage([k1, k3, k4], [tau / c(2), c(-3) * tau / c(2), c(2) * tau])
-    c6 = float(tau / c(6))
-    nF = F + c6 * (k1[0] + 4 * k4[0] + k5[0])
-    nU = U + c6 * (k1[1] + 4 * k4[1] + k5[1])
-    emax = torch.stack([
-        Lmax_norm(0.2 * k1[i] - 0.9 * k3[i] + 0.8 * k4[i] - 0.1 * k5[i])
-        for i in (0, 1)])
-    return nF, nU, emax
+    k1, k3, k4 = merson_stages(stage, tau, k1)
+    return rkm_final_stage_plain(x, k1, k3, k4, tau, p, fu,
+                                 effective_dirichlet(dirichlet_value, k5_weights(tau)))
+
+
+# ------------------------------------------------- plain versions on a mesh
+
+# Rows of each neighbour's field a y-mesh shard takes for a whole Merson
+# attempt: K2's apron, the depth of the stage chain (`csrc/rhs.cu:kK2Apron`;
+# the JAX package's 8 rows are its sublane padding).
+SLAB_ROWS = 5
+
+
+def _edges_of(A: torch.Tensor, B: torch.Tensor, rows: bool, cols: bool):
+    return (torch.stack([torch.stack([A[0], B[0]]), torch.stack([A[-1], B[-1]])])
+            if rows else None,
+            torch.stack([torch.stack([A[:, 0], B[:, 0]]), torch.stack([A[:, -1], B[:, -1]])])
+            if cols else None)
+
+
+def halo_edges_plain(states: Sequence[Pair], weights: Sequence, rows: bool, cols: bool):
+    """What a shard sends its neighbours at one stage: the blend's first and
+    last row, (2 sides, 2 fields, nx_l), if ``rows``, and its first and
+    last column, (2, 2, ny_l), if ``cols`` (``_ghost_rows`` :634 and
+    ``_ghost_cols`` :672 before their ``ppermute``: rows of a blend are the
+    blend of rows)."""
+    Fb, Ub = blend_states(states, weights)
+    return _edges_of(Fb, Ub, rows, cols)
+
+
+def blend_rhs_sharded_plain(states: Sequence[Pair], weights: Sequence, p: SimParams,
+                            halo: Halo, fu=0.0, dirichlet_value=0.0) -> Pair:
+    """``blend_rhs_plain`` on one shard of a mesh: blend, pad from the halo
+    (``core/boundary.pad_halo``), evaluate.  ``p`` is the whole grid's."""
+    Fb, Ub = blend_states(states, weights)
+    d = float(dirichlet_value)
+    return rhs_padded(pad_halo(Fb, p.Phi_boundary, halo, 0, d),
+                      pad_halo(Ub, p.T_boundary, halo, 1, d), p, float(fu))
+
+
+def _slab_neighbours(B: torch.Tensor, bc: BoundaryType, cross_n, cross_s, dv):
+    """(C, N, S, E, W) of a shard extended by its slabs: rows read their
+    neighbours in the extended block, except across a global edge, where a
+    Neumann or Dirichlet field takes its image; x is not sharded."""
+    N = torch.cat([B[1:], B[-1:]])
+    S = torch.cat([B[:1], B[:-1]])
+    if bc != BoundaryType.PERIODIC:
+        img = edge_image(B, bc, dv)
+        N, S = torch.where(cross_n, img, N), torch.where(cross_s, img, S)
+    P = pad_axis(B, bc, 1, dv)
+    return B, N, S, P[:, 2:], P[:, :-2]
+
+
+def rkm_attempt_sharded_plain(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor,
+                              y0: int, tau: np.floating, p: SimParams, fu=0.0,
+                              dirichlet_value=0.0):
+    """One Merson attempt on a y-mesh shard holding global rows [y0, y0 +
+    ny_l) of the (p.ny, p.nx) grid, from its neighbours' ghost slabs
+    (``Topology.slabs``: (2, 2, SLAB_ROWS, nx)): the shard extended by the
+    slabs goes through the five stages; each stage is exact one row less
+    deep, so the owned rows are exact after five.  The boundary rule
+    applies across global edges only.  Same contract as
+    ``rkm_attempt_plain``, with the shard's own error maxima."""
+    A, ny_l = slabs.shape[2], F.shape[0]
+    c = type(tau)
+    x = (torch.cat([slabs[0, 0], F, slabs[1, 0]]), torch.cat([slabs[0, 1], U, slabs[1, 1]]))
+    gy = torch.arange(y0 - A, y0 + ny_l + A, device=F.device)[:, None]
+    cross_n, cross_s = (gy + 1) % p.ny == 0, gy % p.ny == 0
+
+    def stage(ks, ws):
+        weights = [c(1)] + ws
+        dv = float(effective_dirichlet(dirichlet_value, weights))
+        Fb, Ub = blend_states([x] + ks, weights)
+        return rhs_neighbours(_slab_neighbours(Fb, p.Phi_boundary, cross_n, cross_s, dv),
+                              _slab_neighbours(Ub, p.T_boundary, cross_n, cross_s, dv),
+                              p, float(fu))
+
+    k1, k3, k4 = merson_stages(stage, tau)
+    k5 = stage([k1, k3, k4], k5_weights(tau)[1:])
+    own = [tuple(f[A:A + ny_l] for f in pair) for pair in (x, k1, k3, k4, k5)]
+    return merson_finish(*own, tau)
 
 
 def si_s_varies(p: SimParams) -> bool:
@@ -282,16 +418,28 @@ _ENTRIES = {
     "rk4_full": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 5 + [_PHYS_PTR, _PTR],
     "euler_steps": [_PTR] * 4 + [_INT] * 3 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
 }
+# The mesh kernels (K5, K12.1 and its ghost gather, K12.2) are built for
+# float32 only: their float64 twins are ROADMAP slice 5b.
+_F32_ENTRIES = {
+    "halo_edges": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _PTR],
+    "blend_rhs_halo": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _REAL,
+                                                           _REAL, _PTR, _PTR, _INT,
+                                                           _PHYS_PTR, _PTR],
+    "rkm_final": [_PTR] * 8 + [_REAL] * 4 + [_PTR] * 4 + [_INT, _INT, _REAL, _REAL, _PTR,
+                                                          _PTR, _INT, _PHYS_PTR, _PTR],
+    "rkm_attempt_slabs": [_PTR] * 7 + [_INT] * 4 + [_REAL] * 3 + [_PHYS_PTR, _PTR],
+}
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float), torch.float64: ("f64", ctypes.c_double)}
 _LIB = None
 
 
-def bind(lib: ctypes.CDLL, entries) -> None:
+def bind(lib: ctypes.CDLL, entries, dtypes=tuple(_SUFFIX)) -> None:
     """Declare the prototypes of the ``bt_<name>_f32`` and ``bt_<name>_f64``
-    functions of each entry of ``entries`` (argument lists in the form of
-    ``_ENTRIES``)."""
+    functions (those of ``dtypes``) of each entry of ``entries`` (argument
+    lists in the form of ``_ENTRIES``)."""
     for name, args in entries.items():
-        for dtype, (sfx, real) in _SUFFIX.items():
+        for dtype in dtypes:
+            sfx, real = _SUFFIX[dtype]
             fn = getattr(lib, f"bt_{name}_{sfx}")
             phys = ctypes.POINTER(_PHYS[dtype])
             fn.argtypes = [real if a is _REAL else phys if a is _PHYS_PTR else a
@@ -309,7 +457,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = cuda_build.load()
         bind(lib, _ENTRIES)
-        for name, nargs in (("bt_rkm_num_blocks", 2), ("bt_tile_smem_bytes", 3)):
+        bind(lib, _F32_ENTRIES, (torch.float32,))
+        for name, nargs in (("bt_rkm_num_blocks", 2), ("bt_stage_num_blocks", 2),
+                            ("bt_tile_smem_bytes", 3)):
             getattr(lib, name).argtypes = [_INT] * nargs
             getattr(lib, name).restype = _INT
         _LIB = lib
@@ -490,3 +640,155 @@ def euler_steps(F: torch.Tensor, U: torch.Tensor, p: SimParams, steps: int,
     _raise_on(rc, "euler_steps")
     LAUNCHES["euler_steps"] += 1
     return out_F, out_U
+
+
+# ------------------------------------------------------------ mesh kernels
+
+
+def _check_shard(*tensors: torch.Tensor) -> None:
+    """What the mesh kernels take: contiguous float32 tensors of one shape
+    on one CUDA device."""
+    dev, shape = tensors[0].device, tuple(tensors[0].shape)
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the mesh kernels take float32 fields, got {t.dtype} "
+                            "(float64 on a mesh: ROADMAP slice 5b)")
+        if t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"shard fields of one call differ: {t.device} {tuple(t.shape)} "
+                             f"vs {dev} {shape}")
+        if not t.is_contiguous():
+            raise ValueError("kernel takes contiguous fields")
+
+
+def _state_ptrs(states: Sequence[Pair]):
+    """The 8 field pointers and 3 extra weights of K1's blend arguments."""
+    ptrs = []
+    for k in range(4):
+        F, U = states[k] if k < len(states) else (None, None)
+        ptrs += [F.data_ptr() if F is not None else None,
+                 U.data_ptr() if U is not None else None]
+    return ptrs
+
+
+def _halo_args(halo: Halo, ny: int, nx: int):
+    """(rows pointer, cols pointer, edge bits) of a halo for the kernels;
+    bit 0..3: the shard holds the first row, last row, first column, last
+    column of the grid."""
+    for ghost, n in ((halo.rows, nx), (halo.cols, ny)):
+        if ghost is not None:
+            if tuple(ghost.shape) != (2, 2, n) or not ghost.is_contiguous():
+                raise ValueError(f"ghosts must be contiguous (2, 2, {n}), got "
+                                 f"{tuple(ghost.shape)}")
+    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
+    return (halo.rows.data_ptr() if halo.rows is not None else None,
+            halo.cols.data_ptr() if halo.cols is not None else None, bits)
+
+
+def halo_edges(states: Sequence[Pair], weights: Sequence, rows: bool, cols: bool):
+    """K12.1's ghost gather: one launch writes the blend's edge rows and/or
+    columns for both fields.  Same contract as ``halo_edges_plain``; the
+    blend is K1's, so a seam sees what the shard's own K1 would."""
+    if not _on_cuda(states[0][0], "halo_edges"):
+        return halo_edges_plain(states, weights, rows, cols)
+    _check_shard(*(t for s in states for t in s))
+    F0 = states[0][0]
+    ny, nx = F0.shape
+    out_r = F0.new_empty((2, 2, nx)) if rows else None
+    out_c = F0.new_empty((2, 2, ny)) if cols else None
+    w = [float(x) for x in weights[1:]] + [0.0] * (4 - len(states))
+    with torch.cuda.device(F0.device):
+        rc = entry(_lib(), "halo_edges", F0.dtype)(
+            *_state_ptrs(states), len(states), *w,
+            out_r.data_ptr() if rows else None, out_c.data_ptr() if cols else None,
+            ny, nx, torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "halo_edges")
+    LAUNCHES["halo_edges"] += 1
+    return out_r, out_c
+
+
+def blend_rhs_sharded(states: Sequence[Pair], weights: Sequence, p: SimParams,
+                      halo: Halo, fu=0.0, dirichlet_value=0.0) -> Pair:
+    """K12.1: K1 in rhs mode on one shard of a mesh, reading the halo's
+    ghost rows and columns at seams (``_stage_call_sharded`` :705 ->
+    ``_call`` :539 with ghosts).  Same contract as
+    ``blend_rhs_sharded_plain``."""
+    n = len(states)
+    if not 1 <= n <= 4 or float(weights[0]) != 1.0:
+        raise ValueError("1..4 blend states with a first weight of 1.0")
+    if not _on_cuda(states[0][0], "blend_rhs_sharded"):
+        return blend_rhs_sharded_plain(states, weights, p, halo, fu, dirichlet_value)
+    _check_shard(*(t for s in states for t in s))
+    F0 = states[0][0]
+    ny, nx = F0.shape
+    out_F, out_U = torch.empty_like(F0), torch.empty_like(F0)
+    w = [float(x) for x in weights[1:]] + [0.0] * (4 - n)
+    with torch.cuda.device(F0.device):
+        rc = entry(_lib(), "blend_rhs_halo", F0.dtype)(
+            *_state_ptrs(states), n, *w, out_F.data_ptr(), out_U.data_ptr(), ny, nx,
+            float(dirichlet_value), float(fu), *_halo_args(halo, ny, nx),
+            ctypes.byref(_phys(p, F0.dtype)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "blend_rhs_sharded")
+    LAUNCHES["blend_rhs_sharded"] += 1
+    return out_F, out_U
+
+
+def rkm_final_stage(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
+                    p: SimParams, fu=0.0, dirichlet_value=0.0, halo: Halo = None):
+    """K5: Merson's fifth stage, the update and the error maxima in one
+    pass (plus K2's one-block reduction of the per-block maxima), on the
+    whole grid or, with a ``halo``, on one shard (``rkm_final_stage_pallas``
+    :1373 and its sharded form :767).  Same contract as
+    ``rkm_final_stage_plain``."""
+    if not _on_cuda(x[0], "rkm_final_stage"):
+        return rkm_final_stage_plain(x, k1, k3, k4, tau, p, fu, dirichlet_value, halo)
+    fields = [*x, *k1, *k3, *k4]
+    _check_shard(*fields)
+    ny, nx = x[0].shape
+    if halo is None:
+        if (ny, nx) != (p.ny, p.nx):
+            raise ValueError(f"field shape {(ny, nx)} != {(p.ny, p.nx)}")
+        halo = Halo()
+    w = k5_weights(tau)
+    c6 = tau / type(tau)(6)
+    out_F, out_U = torch.empty_like(x[0]), torch.empty_like(x[0])
+    partials = x[0].new_empty(2 * _lib().bt_stage_num_blocks(ny, nx))
+    emax = x[0].new_empty(2)
+    with torch.cuda.device(out_F.device):
+        rc = entry(_lib(), "rkm_final", out_F.dtype)(
+            *(t.data_ptr() for t in fields), *(float(v) for v in w[1:]), float(c6),
+            out_F.data_ptr(), out_U.data_ptr(), partials.data_ptr(), emax.data_ptr(),
+            ny, nx, float(dirichlet_value), float(fu), *_halo_args(halo, ny, nx),
+            ctypes.byref(_phys(p, out_F.dtype)), torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "rkm_final_stage")
+    LAUNCHES["rkm_final_stage"] += 1
+    return out_F, out_U, emax
+
+
+def rkm_attempt_sharded(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,
+                        tau: np.floating, p: SimParams, fu=0.0, dirichlet_value=0.0):
+    """K12.2: K2 on a y-mesh shard, its apron rows beyond the shard loaded
+    from the neighbours' ghost slabs and the boundary rule applied at
+    global rows (``_fullstep_call_sharded`` :1185 via
+    ``rkm_attempt_pallas_sharded`` :1245).  Same contract as
+    ``rkm_attempt_sharded_plain``."""
+    if not _on_cuda(F, "rkm_attempt_sharded"):
+        return rkm_attempt_sharded_plain(F, U, slabs, y0, tau, p, fu, dirichlet_value)
+    _check_shard(F, U)
+    ny_l, nx = F.shape
+    if nx != p.nx or tuple(slabs.shape) != (2, 2, SLAB_ROWS, nx) or ny_l < SLAB_ROWS:
+        raise ValueError(f"a y-mesh shard of {ny_l}x{nx} rows (at least {SLAB_ROWS}) "
+                         f"of the {p.ny}x{p.nx} grid takes (2, 2, {SLAB_ROWS}, {p.nx}) "
+                         f"slabs, got {tuple(slabs.shape)}")
+    _check_shard(slabs)
+    out_F, out_U = torch.empty_like(F), torch.empty_like(U)
+    partials = F.new_empty(2 * _lib().bt_rkm_num_blocks(ny_l, nx))
+    emax = F.new_empty(2)
+    with torch.cuda.device(F.device):
+        rc = entry(_lib(), "rkm_attempt_slabs", F.dtype)(
+            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+            partials.data_ptr(), emax.data_ptr(), slabs.data_ptr(), y0, ny_l, p.ny, nx,
+            float(tau), float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "rkm_attempt_sharded")
+    LAUNCHES["rkm_attempt_sharded"] += 1
+    return out_F, out_U, emax

@@ -1,14 +1,19 @@
 """Field statistics and norms.
 
 The port's copy of ``bachelors_tpu/ops/reductions.py`` (reference
-``Reduce::Stats``, `cuda_reduction.cuh:333-406`) on one device.  Plain torch
-reductions, as the JAX package leaves these to XLA.
+``Reduce::Stats``, `cuda_reduction.cuh:333-406`).  Plain torch reductions,
+as the JAX package leaves these to XLA; on a mesh each shard reduces its
+block and ``Topology`` combines the partials (`:33-55`), so sums add in
+another order than on one device.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..core.state import Field
+from ..parallel.topology import ONE_DEVICE, Topology
 
 
 @dataclasses.dataclass
@@ -22,27 +27,33 @@ class Stats:
     max: torch.Tensor
 
 
-def field_stats(A: torch.Tensor) -> Stats:
+def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
     """{norms, extrema} of a field.
 
     L1 and L2 are *mean* norms, matching the reference's convention
     (`cuda_reduction.cuh:390-406`): L1 = sum|x|/N, L2 = sqrt(sum x^2 / N).
     """
-    n = A.numel()
+    n = topo.count(A)
     return Stats(
-        L1=A.abs().sum() / n,
-        L2=torch.sqrt((A * A).sum() / n),
-        min=A.min(),
-        max=A.max(),
+        L1=topo.sum(_map(A, torch.abs)) / n,
+        L2=torch.sqrt(topo.sum(_map(A, lambda a: a * a)) / n),
+        min=topo.min(A),
+        max=topo.max(A),
     )
 
 
-def stats_delta(A: torch.Tensor, B: torch.Tensor) -> Stats:
+def stats_delta(A: Field, B: Field, topo: Topology = ONE_DEVICE) -> Stats:
     """Stats of (B - A): the per-step field-delta diagnostic
     (`cuda_reduction.cuh` ``cuda_stats_delta``, used at `simulation.cu:1126-1142`)."""
-    return field_stats(B - A)
+    if isinstance(A, torch.Tensor):
+        return field_stats(B - A, topo)
+    return field_stats(B.map(lambda b, a: b - a, A), topo)
 
 
 def Lmax_norm(A: torch.Tensor) -> torch.Tensor:
     """max|A|; NaN if A holds one (torch's max propagates NaN)."""
     return A.abs().max()
+
+
+def _map(A: Field, fn) -> Field:
+    return fn(A) if isinstance(A, torch.Tensor) else A.map(fn)

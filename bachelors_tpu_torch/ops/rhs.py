@@ -13,6 +13,10 @@ version for CPU tensors; "kernel" (or "pallas") always takes the kernel, and
 raises for CPU tensors; "torch" (or "xla") always takes the plain version.
 The port never picks the plain version for a CUDA tensor on its own.
 
+On a mesh every stage also takes the mesh's ``Topology`` (``eval_rhs``'s
+``topo``): fields are then ``Shards``, and each shard reads its
+neighbours' edges through a halo exchange.
+
 Blend-vs-pad ordering: the reference applies the BC to each state and then
 blends the samples (`simulation.cu:193-197`); the Dirichlet image is affine,
 so blending first and padding once with d_eff = d * sum(weights) is the same
@@ -20,11 +24,15 @@ so blending first and padding once with d_eff = d * sum(weights) is the same
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
+from ..core.boundary import Halo
 from ..core.params import KERNEL_BACKENDS, PLAIN_BACKENDS, SimParams
+from ..core.state import Field, Shards
+from ..models.allen_cahn import rhs_padded
+from ..parallel.topology import ONE_DEVICE, Topology
 from . import cuda_rhs
 
 
@@ -43,20 +51,62 @@ def resolve_backend(p: SimParams, device: torch.device) -> str:
 
 
 def eval_rhs(
-    states: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+    states: Sequence[Tuple[Field, Field]],
     weights: Sequence,
     p: SimParams,
     fu=0.0,
     dirichlet_value=0.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    topo: Topology = ONE_DEVICE,
+) -> Tuple[Field, Field]:
     """Evaluate the PDE RHS at the blended state sum_i w_i * (F_i, U_i).
 
-    Returns (dPhi_dt, dT_dt).
+    Returns (dPhi_dt, dT_dt).  On a mesh (``topo`` sharded, fields
+    ``Shards``) the kernel backend runs K12.1 on every shard from ghosts
+    exchanged once per stage (``stage_halos``); the plain version pads each
+    shard's blend by ``topo.pad``'s halo exchange
+    (``bachelors_tpu/ops/rhs.py:52-86``).
     """
     d_eff = cuda_rhs.effective_dirichlet(dirichlet_value, weights)
-    if resolve_backend(p, states[0][0].device) == "kernel":
+    kernel = resolve_backend(p, states[0][0].device) == "kernel"
+    if topo.is_sharded:
+        return _eval_rhs_sharded(states, weights, p, fu, d_eff, topo, kernel)
+    if kernel:
         return cuda_rhs.blend_rhs(states, weights, p, fu, d_eff)
     return cuda_rhs.blend_rhs_plain(states, weights, p, fu, d_eff)
+
+
+def shard_states(states, k: int):
+    """Shard ``k``'s blocks of each (F, U) pair of ``Shards``."""
+    return [(F.blocks[k], U.blocks[k]) for F, U in states]
+
+
+def stage_halos(states, weights, topo: Topology) -> List[Halo]:
+    """Each shard's ghosts for the stage blending ``states``: every shard
+    gathers its blend's edge rows and columns (K12.1's ghost gather, one
+    launch per shard; blending before the exchange keeps it two copies
+    per shard per sharded axis, whatever the number of states,
+    ``pallas_rhs.py:639-641``), then the ring exchange."""
+    n = len(states[0][0].blocks)
+    edges = [cuda_rhs.halo_edges(shard_states(states, k), weights,
+                                 topo.axis_y is not None, topo.axis_x is not None)
+             for k in range(n)]
+    return topo.exchange(edges)
+
+
+def _eval_rhs_sharded(states, weights, p, fu, d_eff, topo: Topology, kernel: bool):
+    grid = states[0][0].grid
+    if kernel:
+        halos = stage_halos(states, weights, topo)
+        out = [cuda_rhs.blend_rhs_sharded(shard_states(states, k), weights, p, h, fu, d_eff)
+               for k, h in enumerate(halos)]
+    else:
+        blends = [cuda_rhs.blend_states(shard_states(states, k), weights)
+                  for k in range(len(states[0][0].blocks))]
+        Fp = topo.pad(Shards(tuple(b[0] for b in blends), grid), p.Phi_boundary, d_eff)
+        Up = topo.pad(Shards(tuple(b[1] for b in blends), grid), p.T_boundary, d_eff)
+        out = [rhs_padded(f, u, p, float(fu)) for f, u in zip(Fp.blocks, Up.blocks)]
+    dF, dU = zip(*out)
+    return Shards(dF, grid), Shards(dU, grid)
 
 
 def euler_eval(

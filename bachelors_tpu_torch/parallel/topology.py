@@ -1,0 +1,175 @@
+"""Topology: how a step pads and reduces, on one device or on a mesh.
+
+The port of ``bachelors_tpu/parallel/topology.py`` (:30-134).  Every solver
+is written once against this interface:
+
+  * one device -> ``Topology()``: pads are ``pad2``, reductions plain torch
+    reductions;
+  * a mesh of ``shards_y x shards_x`` shards -> ``Topology(shards_y,
+    shards_x)``: fields are ``Shards``; a pad becomes a halo exchange and a
+    reduction combines per-shard partials on the first shard's device.
+
+The JAX package runs the per-shard code inside ``shard_map`` and exchanges
+halos with ``lax.ppermute``.  Here one process drives every shard, each on
+its own device (a device may repeat: several shards on one card), and an
+exchange is a set of tensor copies, each from the neighbour's tensor into
+the receiver's ghost buffer: no kernel reads another device's memory.
+Multi-process meshes (``torch.distributed``) are ROADMAP slice 5c.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..core.boundary import Halo, pad2, pad_halo
+from ..core.params import BoundaryType
+from ..core.state import Shards
+
+# Per shard, the edges a stage sends to its neighbours: (rows, cols), rows
+# (2, k, nx_l) = the shard's first and last row of k fields, cols (2, k,
+# ny_l) its first and last column; None along an axis that is not sharded.
+Edges = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def _combine(values: Sequence[torch.Tensor], op) -> torch.Tensor:
+    """One value per shard, combined on the first shard's device."""
+    dev = values[0].device
+    return op(torch.stack([v.to(dev) for v in values]), 0)
+
+
+def _ring_copy(buf: torch.Tensor, sources: Sequence[torch.Tensor]) -> torch.Tensor:
+    for k, src in enumerate(sources):
+        buf[k].copy_(src)
+    return buf
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Execution context: the mesh shape (1 x 1 = one device)."""
+
+    shards_y: int = 1   # shards along grid rows (dim 0)
+    shards_x: int = 1   # shards along grid columns (dim 1)
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return (self.shards_y, self.shards_x)
+
+    @property
+    def axis_y(self) -> Optional[str]:
+        """"y" when rows are sharded, else None (the JAX package's name)."""
+        return "y" if self.shards_y > 1 else None
+
+    @property
+    def axis_x(self) -> Optional[str]:
+        return "x" if self.shards_x > 1 else None
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.shards_y * self.shards_x > 1
+
+    def shard_edges(self, i: int, j: int) -> Tuple[bool, bool, bool, bool]:
+        """Which global edges shard (i, j) holds: first and last row, first
+        and last column."""
+        return (i == 0, i == self.shards_y - 1, j == 0, j == self.shards_x - 1)
+
+    # ---- halo exchange ------------------------------------------------------
+    def exchange(self, edges: Sequence[Edges]) -> List[Halo]:
+        """Each shard's ghosts from its neighbours' edges, in ring order
+        along each sharded axis: the ghost row below a shard is its
+        predecessor's last row, the one above its successor's first row
+        (the first shard's predecessor is the last shard), and likewise
+        for columns.  Two copies per shard per sharded axis, each carrying
+        every field of the edges."""
+        sy, sx = self.grid
+        halos = []
+        for i in range(sy):
+            for j in range(sx):
+                rows, cols = edges[i * sx + j]
+                if rows is not None:
+                    rows = _ring_copy(torch.empty_like(rows),
+                                      (edges[(i - 1) % sy * sx + j][0][1],
+                                       edges[(i + 1) % sy * sx + j][0][0]))
+                if cols is not None:
+                    cols = _ring_copy(torch.empty_like(cols),
+                                      (edges[i * sx + (j - 1) % sx][1][1],
+                                       edges[i * sx + (j + 1) % sx][1][0]))
+                halos.append(Halo(rows, cols, self.shard_edges(i, j)))
+        return halos
+
+    def slabs(self, F: Shards, U: Shards, depth: int) -> List[torch.Tensor]:
+        """The y-mesh's ghost slabs, once per step: for each shard a (2, 2,
+        depth, nx) buffer holding its predecessor's last ``depth`` rows
+        (side 0) and its successor's first ``depth`` rows (side 1) of both
+        fields, in ring order (``bachelors_tpu/ops/pallas_rhs.py:
+        _ghost_slabs`` :897).  The kernel applies the boundary rule at the
+        global edges itself."""
+        if self.shards_x != 1:
+            raise ValueError("ghost slabs are for meshes that shard rows only")
+        n = self.shards_y
+        out = []
+        for i in range(n):
+            lo, hi = F.blocks[(i - 1) % n], F.blocks[(i + 1) % n]
+            lo_u, hi_u = U.blocks[(i - 1) % n], U.blocks[(i + 1) % n]
+            if min(lo.shape[0], hi.shape[0]) < depth:
+                raise ValueError(f"ghost slabs of {depth} rows need shards of at "
+                                 f"least {depth} rows, got {lo.shape[0]}")
+            buf = F.blocks[i].new_empty((2, 2, depth, F.blocks[i].shape[1]))
+            _ring_copy(buf.view(4, depth, -1), (lo[-depth:], lo_u[-depth:],
+                                                 hi[:depth], hi_u[:depth]))
+            out.append(buf)
+        return out
+
+    # ---- ghost-cell padding -------------------------------------------------
+    def pad(self, A: Union[torch.Tensor, Shards], bc: BoundaryType,
+            dirichlet_value=0.0):
+        """(ny, nx) -> (ny+2, nx+2) with BC-correct ghost cells; on a mesh,
+        each shard padded from a halo exchange (``_halo_pad_1d`` :30-66).
+        The 5-point stencil never reads the corners."""
+        if not self.is_sharded:
+            return pad2(A, bc, dirichlet_value)
+        sy, sx = self.grid
+        edges = [(torch.stack([b[0], b[-1]])[:, None] if sy > 1 else None,
+                  torch.stack([b[:, 0], b[:, -1]])[:, None] if sx > 1 else None)
+                 for b in A.blocks]
+        halos = self.exchange(edges)
+        return Shards(tuple(pad_halo(b, bc, h, 0, dirichlet_value)
+                            for b, h in zip(A.blocks, halos)), A.grid)
+
+    # ---- reductions ---------------------------------------------------------
+    # The reference's device-wide reduction trees (`cuda_reduction.cuh:
+    # 131-214`) as torch reductions per shard plus a combine over the mesh.
+    def _all(self, A, reduce, op):
+        if isinstance(A, Shards):
+            return _combine([reduce(b) for b in A.blocks], op)
+        return reduce(A)
+
+    def sum(self, A) -> torch.Tensor:
+        return self._all(A, torch.sum, torch.sum)
+
+    def max(self, A) -> torch.Tensor:
+        return self._all(A, torch.max, torch.amax)
+
+    def min(self, A) -> torch.Tensor:
+        return self._all(A, torch.min, torch.amin)
+
+    def dot(self, A, B) -> torch.Tensor:
+        if isinstance(A, Shards):
+            return _combine([torch.vdot(a.flatten(), b.flatten())
+                             for a, b in zip(A.blocks, B.blocks)], torch.sum)
+        return torch.vdot(A.flatten(), B.flatten())
+
+    def count(self, A) -> int:
+        return A.numel()
+
+    # values already reduced per shard (fused kernels' partials), one per
+    # shard; NaN survives the max
+    def allsum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+        return _combine(values, torch.sum)
+
+    def allmax(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
+        return _combine(values, torch.amax)
+
+
+ONE_DEVICE = Topology()

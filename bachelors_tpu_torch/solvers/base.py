@@ -15,6 +15,7 @@ from ..core.params import SimParams, SolverType
 from ..core.state import SimState, StepStats, empty_stats, numpy_dtype
 from ..models import exact as exact_mod
 from ..ops.reductions import stats_delta
+from ..parallel.topology import ONE_DEVICE, Topology
 from .corrector import corrector_step
 from .explicit import euler_step_based, rk4_step, rkm_adaptive_step
 from .semi_implicit import semi_implicit_step_based
@@ -22,11 +23,17 @@ from .semi_implicit import semi_implicit_step_based
 Stepper = Callable[[SimState], Tuple[SimState, StepStats]]
 
 
-def make_stepper(p: SimParams) -> Stepper:
-    """Build the per-step function for ``p.solver``."""
+def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
+    """Build the per-step function for ``p.solver``; with a sharded
+    ``topo``, for states whose fields are ``Shards`` over that mesh
+    (``parallel/sharded.make_sharded_stepper``), where the port runs the
+    adaptive RKM solver so far."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
+    if topo.is_sharded and p.solver != SolverType.EXPLICIT_RK4_ADAPTIVE:
+        raise NotImplementedError(f"solver {p.solver.value} on a mesh (ROADMAP slice 5b: "
+                                  "the seam twins of Euler, RK4 and semi-implicit)")
     c = numpy_dtype(p)
 
     def forcing(state: SimState):
@@ -44,8 +51,8 @@ def make_stepper(p: SimParams) -> Stepper:
         stats.T_iters = int(t_iters)
         stats.attempts = int(attempts)
         if p.do_stats:
-            f = stats_delta(state.F, next_F)
-            u = stats_delta(state.U, next_U)
+            f = stats_delta(state.F, next_F, topo)
+            u = stats_delta(state.U, next_U, topo)
             # order: core.state.DELTA_NAMES; cast to float32 as stored
             stats.deltas = torch.stack([u.L1, u.L2, u.max, u.min,
                                         f.L1, f.L2, f.max, f.min]).float()
@@ -113,7 +120,7 @@ def make_stepper(p: SimParams) -> Stepper:
 
     def step(state: SimState):
         nF, nU, used_tau, next_tau, iters, attempts, _conv = rkm_adaptive_step(
-            state.F, state.U, state.tau, p, forcing(state))
+            state.F, state.U, state.tau, p, forcing(state), topo)
         return finish(state, nF, nU, used_tau, iters, iters, attempts, next_tau)
 
     return step

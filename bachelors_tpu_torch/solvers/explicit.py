@@ -1,8 +1,8 @@
 """Explicit integrators: forward Euler, classic RK4 and adaptive
 Runge-Kutta-Merson.
 
-The port of ``bachelors_tpu/solvers/explicit.py``, single-device branches
-only:
+The port of ``bachelors_tpu/solvers/explicit.py``: its single-device
+branches, and the RKM step on a mesh:
 
   * ``euler_step_based`` (:22-73): one K1 launch in euler mode, or in rhs
     mode for the corrector's re-steps from a frozen temperature base.
@@ -15,7 +15,8 @@ only:
     ``RK4_FULLSTEP_MIN_CELLS`` cells, else K1 for k1..k3 and K4 for the
     fourth stage and the combination.
   * ``rkm_adaptive_step`` (:316-521): the whole-attempt kernel
-    (``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path.  The retry
+    (``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path; on a
+    mesh, float32, K12.2 on y-meshes and K12.1 + K5 on x and 2D meshes.  The retry
     loop runs on the host and reads the two error maxima once per attempt,
     as the reference does (`simulation.cu:427-435`); the JAX package runs
     the same loop as a device ``while_loop``.
@@ -31,9 +32,10 @@ import numpy as np
 import torch
 
 from ..core.params import SimParams, SolverType
-from ..core.state import SimState, numpy_dtype
+from ..core.state import Field, Shards, SimState, numpy_dtype
 from ..ops import cuda_rhs
-from ..ops.rhs import euler_eval, eval_rhs, resolve_backend
+from ..ops.rhs import euler_eval, eval_rhs, resolve_backend, shard_states, stage_halos
+from ..parallel.topology import ONE_DEVICE, Topology
 
 
 def euler_step_based(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
@@ -134,8 +136,61 @@ def rk4_staged(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0):
     return cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, fu)
 
 
-def rkm_adaptive_step(F: torch.Tensor, U: torch.Tensor, tau0, p: SimParams,
-                      fu=0.0):
+def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
+    """attempt(tau) -> (next_F, next_U, emax) on a mesh, routed as the JAX
+    package routes (``bachelors_tpu/solvers/explicit.py:386-460``):
+
+      * kernel backend, y-mesh: K12.2, the whole attempt per shard; the
+        ghost slabs are exchanged once per step, here, outside the retry
+        loop (:401-408);
+      * kernel backend, x or 2D mesh: the staged attempt, k1 once per step
+        and k2..k4 by K12.1, then K5 with ghosts for k5, the update and the
+        shard's error maxima (:449-460);
+      * plain backend: the staged attempt padded by ``topo.pad``.
+
+    The shards' maxima are combined on the first shard's device
+    (``topo.allmax``), so the retry loop keeps one host read per attempt."""
+    kernel = resolve_backend(p, F.device) == "kernel"
+
+    def joined(out):
+        nF, nU, emax = zip(*out)
+        return Shards(nF, F.grid), Shards(nU, F.grid), topo.allmax(emax)
+
+    if kernel and topo.axis_x is None:
+        slabs = topo.slabs(F, U, cuda_rhs.SLAB_ROWS)
+        y0 = np.cumsum([0] + [b.shape[0] for b in F.blocks[:-1]])
+
+        def attempt(tau):
+            return joined([cuda_rhs.rkm_attempt_sharded(f, u, s, int(y), tau, p, fu)
+                           for f, u, s, y in zip(F.blocks, U.blocks, slabs, y0)])
+
+        return attempt
+
+    x = (F, U)
+
+    def stage(ks, ws):
+        return eval_rhs([x] + ks, [1.0] + ws, p, fu, topo=topo)
+
+    k1 = stage([], [])  # once per step: it does not depend on tau
+
+    def attempt(tau):
+        _, k3, k4 = cuda_rhs.merson_stages(stage, tau, k1)
+        states = [x, k1, k3, k4]
+        if kernel:
+            halos = stage_halos(states, cuda_rhs.k5_weights(tau), topo)
+            out = [cuda_rhs.rkm_final_stage(*shard_states(states, k), tau, p, fu, halo=h)
+                   for k, h in enumerate(halos)]
+        else:
+            k5 = stage([k1, k3, k4], cuda_rhs.k5_weights(tau)[1:])
+            out = [cuda_rhs.merson_finish(*shard_states(states + [k5], k), tau)
+                   for k in range(len(F.blocks))]
+        return joined(out)
+
+    return attempt
+
+
+def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
+                      topo: Topology = ONE_DEVICE):
     """Adaptive Runge-Kutta-Merson step (`simulation.cu:350-497`).
 
     Tableau (`simulation.cu:400-404`):
@@ -170,7 +225,9 @@ def rkm_adaptive_step(F: torch.Tensor, U: torch.Tensor, tau0, p: SimParams,
     tol_U = c(p.T_tolerance)
     tiny = c(1e-20)
 
-    if resolve_backend(p, F.device) == "kernel":
+    if topo.is_sharded:
+        attempt = _mesh_attempt(F, U, p, fu, topo)
+    elif resolve_backend(p, F.device) == "kernel":
         def attempt(tau):
             return cuda_rhs.rkm_attempt(F, U, tau, p, fu)
     else:

@@ -14,6 +14,9 @@ then over a window of 200 steps from that one state:
     only), the busy share (that device time over the unprofiled ms/step
     with stats on) and the device events that take the most time.
 
+Then the RKM path the same way on y(2), x(2) and 2x2 meshes, every shard
+on the one card (K12.2; K12.1 + K5 and the ghost gather).
+
 Then the float64 paths: the reference's own benchmark configs
 ``bench_sweep_f64/*_512_f64.ini`` (RKM, Euler, RK4, semi-implicit; no
 stats, as they ship), stepped as the driver steps them -- Euler through
@@ -48,6 +51,8 @@ from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..ops import cuda_build, cuda_cg, cuda_rhs
 from ..solvers import cg, explicit
+from ..parallel.mesh import make_mesh, shard_state
+from ..parallel.sharded import make_sharded_stepper
 from ..solvers.base import make_stepper
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -68,6 +73,8 @@ F64_PATHS = {
     "rk4 f64": ("config_explicit-rk4_512_f64.ini", 4000),
     "semi-implicit f64": ("config_semi-implicit_512_f64.ini", 4000),
 }
+# the RKM path on meshes of the one card: (shards_y, shards_x)
+MESHES = {"y(2)": (2, 1), "x(2)": (1, 2), "2x2": (2, 2)}
 WINDOW = 200
 TOP = 25
 
@@ -166,13 +173,21 @@ def profile_f64_path(name: str, window: int) -> dict:
             "top_device_us_per_step": top}
 
 
-def profile_path(name: str, window: int) -> dict:
+def profile_path(name: str, window: int, shards=(1, 1)) -> dict:
+    """One path of the shipped config, on one card or on a (shards_y,
+    shards_x) mesh with every shard on that card."""
     overrides, warm = PATHS[name]
     cfg = load_config(CONFIG, overrides)
     p = cfg.params
     F, U = make_initial_fields(p, cfg.initial, device="cuda")
     state = make_state(F, U, p, device="cuda")
-    stepper = make_stepper(p)
+    if shards == (1, 1):
+        stepper, off_stepper = make_stepper(p), make_stepper(p.replace(do_stats=False))
+    else:
+        mesh, topo = make_mesh(*shards, ["cuda"] * (shards[0] * shards[1]))
+        state = shard_state(state, mesh, topo)
+        stepper = make_sharded_stepper(p, mesh, topo)
+        off_stepper = make_sharded_stepper(p.replace(do_stats=False), mesh, topo)
     for _ in range(warm):
         state, _ = stepper(state)
 
@@ -183,14 +198,14 @@ def profile_path(name: str, window: int) -> dict:
     launches = {k: v / window for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items()
                 if v}
     host_reads = cg.HOST_READS["cg_stop_test"] / window
-    off_ms = run_window(make_stepper(p.replace(do_stats=False)), state, window,
-                        collect=False)
+    off_ms = run_window(off_stepper, state, window, collect=False)
 
     profiled = []
     device_ms, top = traced_ms(
         lambda: profiled.append(run_window(stepper, state, window, collect=True)), window)
     return {
-        "path": name, "grid": f"{p.ny}x{p.nx}", "window_after_steps": warm,
+        "path": name, "grid": f"{p.ny}x{p.nx}", "shards": list(shards),
+        "window_after_steps": warm,
         "window_steps": window, "ms_per_step_stats_on": on_ms,
         "ms_per_step_stats_off": off_ms, "launches_per_step": launches,
         "host_reads_per_step": host_reads, "profiled_ms_per_step": profiled[0],
@@ -260,6 +275,9 @@ def main() -> None:
     for name in PATHS:
         results[name] = profile_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)
+    for mname, shards in MESHES.items():
+        results[f"rkm on {mname}"] = profile_path("rkm", WINDOW, shards)
+        print(json.dumps({"card": card, **results[f"rkm on {mname}"]}), flush=True)
     for name in F64_PATHS:
         results[name] = profile_f64_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)

@@ -19,7 +19,14 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
   * fixed-step RK4: K1 for k1..k3 and K4 (k4 + the combination) at 512^2;
     K3 (the whole step) on a 4096^2 cut of 300 steps, where the run routes
     to it;
-  * the exact solver, 100 steps: no kernel.
+  * the exact solver, 100 steps: no kernel;
+  * RKM on y(2), x(2) and 2x2 meshes with every shard on the one card:
+    K12.2 (K2 with ghost slabs) on the y-mesh, K12.1 (K1 with ghost rows
+    and columns, after its ghost gather) and K5 (Merson's fifth stage with
+    ghosts) on the others, each run within 1% of the single-device steps;
+    then a 2048^2 cut on a y(4) mesh.  Before them, K5, K12.1, the gather
+    and K12.2 against their plain versions on those meshes, and a lockstep
+    of each mesh against the single-device K2 stepper.
 
 At float64, the reference's own benchmark configs ``bench_sweep_f64/*.ini``
 (isotropic, no stats, CG and Merson tolerances 5e-9), each beside the
@@ -69,7 +76,11 @@ from bachelors_tpu_torch.io.config import load_config  # noqa: E402
 from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
 from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs  # noqa: E402
+from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos  # noqa: E402
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix  # noqa: E402
+from bachelors_tpu_torch.parallel.mesh import (gather_state, make_mesh, shard_field,  # noqa: E402
+                                               shard_state)
+from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper  # noqa: E402
 from bachelors_tpu_torch.solvers import cg, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.base import make_stepper  # noqa: E402
 from bachelors_tpu_torch.utils.logging import SYSTEM  # noqa: E402
@@ -122,10 +133,22 @@ F64_RUNS = {"rkm": ("config_explicit-rk4-adaptive_512_f64.ini", 5.39),
             "rk4": ("config_explicit-rk4_512_f64.ini", 2.88),
             "semi-implicit": ("config_semi-implicit_512_f64.ini", 5.67)}
 FIRST_FRAME = "[snapshot]\nsnapshot_initial_conditions = 1\n"
+# The meshes, each on the one card (a device per shard, repeated), and the
+# shipped config's step count on one device (PRs 1-4, and this run's own)
+MESHES = {"y(2)": (2, 1), "x(2)": (1, 2), "2x2": (2, 2)}
+RKM_STEPS = 2769
+# RKM where users shard: a 2048^2 cut on a y(4) mesh, tau from dt 5e-6
+# (512/2048)^2, stats on, the initial and the final frame; the controller
+# grows tau, so the stop time of 640 such dts takes at least 300 steps
+CUT_2048 = ("[simulation]\nmesh_size_x = 2048\nmesh_size_y = 2048\ndt = 3.125e-7\n"
+            "stop_after = 2e-4\n[snapshot]\ntimes = 1\n")
+CUT_2048_STEPS = 300
 RKM_F64_STEPS = 9539  # the JAX package's f64 controller on this workload
 # every plain version a path could fall back to, by module
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
-                    "rk4_full_plain", "euler_steps_plain", "si_prepare_plain"),
+                    "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
+                    "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
+                    "rkm_attempt_sharded_plain", "merson_finish"),
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
                    "update_xr_rr_plain", "axpby_inplace_plain", "cross_residual_plain",
                    "aniso_residual_plain", "heat_residual_plain"),
@@ -146,6 +169,10 @@ PHYS_OPS = 48
 # (2), cosf, 1 - S cos (2), sqrtf.
 PHYS_F32_OPS = 10
 OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
+       "K5": PHYS_OPS + 12 + 10 + 18,    # 4-state blend, update, error maxima
+       "K12.1": PHYS_OPS + 8,            # K1 on a shard, 3-state blend (k3, k4)
+       "K12.1 gather": 8,                # 3-state blend of both fields, per edge cell
+       "K12.2": 5 * PHYS_OPS + 32 + 10 + 18,  # K2 on a shard
        "K4": PHYS_OPS + 4 + 14,          # [x, k3] blend, RK4 combination
        "K2": 5 * PHYS_OPS + 32 + 10 + 18,  # blends, update, error maxima
        "K3": 4 * PHYS_OPS + 12 + 14,     # blends, RK4 combination
@@ -154,9 +181,11 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K7": PHYS_OPS,
        "K8 cross": 9, "K8 aniso": 13, "K9": 6, "K10": 3,
        "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11}
-PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1}
+PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1,
+                    "K5": 1, "K12.1": 1, "K12.2": 5}
 # Fields per cell: each input read once, each output written once.
-FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
+FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
+          "K12.1 gather": 2 * 3 + 2, "K12.2": 2 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
           "K6 T=8": 2 + 2, "K7": 2 + 3, "K8 cross": 1 + 1, "K8 aniso": 2 + 1,
           "K9": 4 + 2, "K10": 2 + 1, "K14 cross": 2 + 1, "K14 aniso": 3 + 1,
           "K14 heat": 4 + 1}
@@ -766,7 +795,7 @@ def check_run(res, cfg, grow=True) -> tuple:
     return header, rows, [solid[0], solid[-1]], len(frames)
 
 
-def drive(overrides, grow=True, config=CONFIG) -> dict:
+def drive(overrides, grow=True, config=CONFIG, device=None) -> dict:
     """``run_config_file`` on the card with every kernel launch, every CG
     host read and every call of a plain version counted (each count set to 0
     just before the run and read just after), then what it wrote checked.
@@ -790,7 +819,7 @@ def drive(overrides, grow=True, config=CONFIG) -> dict:
         cg.reset_host_reads()
         try:
             res = run_config_file(config, overrides + [f"[snapshot]\nfolder = {out}\n"],
-                                  device=DEVICE)
+                                  device=device or DEVICE)
         finally:
             launches = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}
             host_reads = cg.HOST_READS["cg_stop_test"]
@@ -826,7 +855,7 @@ def rkm_path() -> dict:
     expect(n["rkm_attempt"] > 0 and n["rkm_attempt"] == run["res"].attempts
            and sum(n.values()) == n["rkm_attempt"], "K2 once per attempt, nothing else", run)
     phase("main path (RKM)", attempts=run["res"].attempts, **run["summary"])
-    return n
+    return n, run["summary"]
 
 
 def si_path(overrides, name) -> dict:
@@ -937,6 +966,188 @@ def exact_path() -> None:
     phase("exact solver path", **run["summary"])
 
 
+# ------------------------------------------------------------------ the mesh
+
+
+def on_mesh(sy: int, sx: int):
+    """A (sy, sx) mesh with every shard on the one card, and its Topology."""
+    return make_mesh(sy, sx, [DEVICE] * (sy * sx))
+
+
+def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
+    """K5 (on the whole grid and with ghosts), K12.1 and its ghost gather,
+    and K12.2 against their plain versions, shard by shard, on y(2), x(2)
+    and 2x2 meshes of the one card, at every BC pair, 512^2 and 66x258
+    (uneven tiles per shard); K12.2's joined result also against K2 on the
+    whole grid.  Timed on one shard of the 512^2 mesh each runs on: K5,
+    K12.1 (3 states, k3's and k4's) and its gather on x(2), K12.2 on y(2)."""
+    worst = {k: [0.0, 0.0] for k in ("K5", "K12.1", "K12.1 gather", "K12.2")}
+    worst_e, k2_gap, cases = 0.0, 0.0, 0
+    tau = np.float32(TAU)
+    w = cuda_rhs.k5_weights(tau)
+
+    def maxima(got, want, what):
+        nonlocal worst_e
+        ge, we = got.cpu().numpy(), want.cpu().numpy()
+        rel = float((np.abs(ge - we) / np.maximum(np.abs(we), 1e-30)).max())
+        if not rel <= ERR_RTOL:
+            raise AssertionError(f"error maxima disagree: {ge} vs {we} ({what})")
+        worst_e = max(worst_e, rel)
+
+    for p, d, what in check_cases("float32", sizes, physics=(dict(S=0.25, m0=6.0),
+                                                             dict(S=0.0, m0=6.0))):
+        x, k1, k3, k4 = fields(rng, p.ny, p.nx, 4)
+        got = cuda_rhs.rkm_final_stage(x, k1, k3, k4, tau, p, 0.03, d)
+        want = cuda_rhs.rkm_final_stage_plain(x, k1, k3, k4, tau, p, 0.03, d)
+        hold("K5", got[:2], want[:2], what, worst["K5"])
+        maxima(got[2], want[2], f"K5 {what}")
+        for mname, (sy, sx) in MESHES.items():
+            mesh, topo = on_mesh(sy, sx)
+            states = [tuple(shard_field(t, mesh, topo) for t in pair)
+                      for pair in (x, k1, k3, k4)]
+            for k, h in enumerate(stage_halos(states, w, topo)):
+                st, on = shard_states(states, k), f"{what} {mname} shard {k}"
+                for g, wt in zip(cuda_rhs.halo_edges(st, w, sy > 1, sx > 1),
+                                 cuda_rhs.halo_edges_plain(st, w, sy > 1, sx > 1)):
+                    if g is not None:
+                        hold("K12.1 gather", [g], [wt], on, worst["K12.1 gather"])
+                hold("K12.1", cuda_rhs.blend_rhs_sharded(st, w, p, h, 0.03, d),
+                     cuda_rhs.blend_rhs_sharded_plain(st, w, p, h, 0.03, d), on,
+                     worst["K12.1"])
+                got = cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h)
+                want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
+                hold("K5 with ghosts", got[:2], want[:2], on, worst["K5"])
+                maxima(got[2], want[2], f"K5 {on}")
+            if sx == 1:
+                F, U = states[0]
+                slabs = topo.slabs(F, U, cuda_rhs.SLAB_ROWS)
+                out = []
+                for k, (f, u, sl) in enumerate(zip(F.blocks, U.blocks, slabs)):
+                    y0 = k * (p.ny // sy)
+                    got = cuda_rhs.rkm_attempt_sharded(f, u, sl, y0, tau, p, 0.03, d)
+                    want = cuda_rhs.rkm_attempt_sharded_plain(f, u, sl, y0, tau, p, 0.03, d)
+                    hold("K12.2", got[:2], want[:2], f"{what} {mname} shard {k}",
+                         worst["K12.2"])
+                    maxima(got[2], want[2], f"K12.2 {what} {mname}")
+                    out.append(got)
+                whole = cuda_rhs.rkm_attempt(x[0], x[1], tau, p, 0.03, d)
+                joined = [torch.cat([o[i] for o in out]) for i in (0, 1)]
+                k2_gap = max([k2_gap, *((a - b).abs().max().item()
+                                        for a, b in zip(joined, whole[:2])),
+                              (topo.allmax([o[2] for o in out]) - whole[2]).abs().max().item()])
+            cases += 1
+    torch.cuda.synchronize()
+
+    # timed on the shards of the 512^2 runs
+    p = params(512, 512, "neumann")
+    x, k1, k3, k4 = fields(rng, 512, 512, 4)
+    mesh, topo = on_mesh(1, 2)
+    states = [tuple(shard_field(t, mesh, topo) for t in pair) for pair in (x, k1, k3, k4)]
+    h = stage_halos(states, w, topo)[0]
+    st = shard_states(states, 0)
+    w3 = [1.0, 1e-6, 2e-6]
+    ymesh, ytopo = on_mesh(2, 1)
+    F, U = (shard_field(t, ymesh, ytopo) for t in x)
+    slab = ytopo.slabs(F, U, cuda_rhs.SLAB_ROWS)[0]
+    f0, u0 = F.blocks[0], U.blocks[0]
+    timed = {
+        "K5": (lambda: cuda_rhs.rkm_final_stage(*st, tau, p, halo=h),
+               lambda: cuda_rhs.rkm_final_stage_plain(*st, tau, p, halo=h), 512 * 256),
+        "K12.1": (lambda: cuda_rhs.blend_rhs_sharded(st[:3], w3, p, h),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(st[:3], w3, p, h), 512 * 256),
+        "K12.1 gather": (lambda: cuda_rhs.halo_edges(st[:3], w3, False, True),
+                         lambda: cuda_rhs.halo_edges_plain(st[:3], w3, False, True), 2 * 512),
+        "K12.2": (lambda: cuda_rhs.rkm_attempt_sharded(f0, u0, slab, 0, tau, p),
+                  lambda: cuda_rhs.rkm_attempt_sharded_plain(f0, u0, slab, 0, tau, p),
+                  256 * 512),
+    }
+    entries = {}
+    for name, (kernel, plain, cells) in timed.items():
+        ms, plain_ms = time_pair(kernel, plain, reps=50)
+        entries[name] = {"max_abs_err": worst[name][1], "ms": ms, "plain_ms": plain_ms,
+                         **bound(name, cells), "library_ms": None}
+    phase("mesh kernels K5, K12.1 (+ ghost gather), K12.2 vs plain", cases=cases,
+          meshes=list(MESHES), max_rel_err={k: v[0] for k, v in worst.items()},
+          max_abs_err={k: v[1] for k, v in worst.items()}, max_err_maxima_rel=worst_e,
+          tol=FIELD_TOL, err_rtol=ERR_RTOL, k12_2_joined_vs_k2_max_abs=k2_gap,
+          library="none: no PyTorch call computes them",
+          ms_one_shard_512={k: {"kernel": v["ms"], "plain": v["plain_ms"]}
+                            for k, v in entries.items()})
+    return entries
+
+
+def check_mesh_lockstep(cfg, F0, U0, steps=5) -> None:
+    """The main path's first steps on each mesh (the sharded stepper on its
+    kernels) against the single-device K2 stepper, each from the same
+    state: equal attempts, step sizes within 1e-4 of the step, fields within
+    FIELD_TOL.  The y-mesh runs K2's arithmetic per cell (K12.2), so its
+    gap is expected to be 0."""
+    p = cfg.params
+    one = make_stepper(p)
+    out = {}
+    for mname, (sy, sx) in MESHES.items():
+        mesh, topo = on_mesh(sy, sx)
+        step = make_sharded_stepper(p, mesh, topo)
+        state = make_state(F0, U0, p, device=DEVICE)
+        worst, gap, dtau = 0.0, 0.0, 0.0
+        for _ in range(steps):
+            a, sa = one(state)
+            b, sb = step(shard_state(state, mesh, topo))
+            b = gather_state(b)
+            if sa.attempts != sb.attempts:
+                raise AssertionError(f"mesh lockstep {mname}: {sb.attempts} attempts, "
+                                     f"one device {sa.attempts}")
+            if not abs(b.t - a.t) <= 1e-4 * (a.t - state.t):
+                raise AssertionError(f"mesh lockstep {mname}: step sizes {b.t - state.t} "
+                                     f"vs {a.t - state.t}")
+            for g, wt in ((b.F, a.F), (b.U, a.U)):
+                worst = max(worst, field_err(g, wt))
+                gap = max(gap, (g - wt).abs().max().item())
+            dtau = max(dtau, abs(float(b.tau) - float(a.tau)) / float(a.tau))
+            if not worst <= FIELD_TOL:
+                raise AssertionError(f"mesh lockstep {mname}: fields disagree by {worst:.3g}")
+            state = a
+        out[mname] = {"max_rel_err": worst, "max_abs_err": gap, "next_tau_rel_diff": dtau}
+    phase("mesh lockstep vs single-device K2", steps=steps, tol=FIELD_TOL, meshes=out)
+
+
+def mesh_path(name, sy, sx, single, overrides=(), grow=True) -> dict:
+    """The shipped config (or a cut of it) through ``run_config_file`` on a
+    (sy, sx) mesh of the one card: on a y-mesh K12.2 once per attempt per
+    shard; on x and 2D meshes K12.1 for k1 once per step and k2..k4 per
+    attempt, K5 once per attempt, and the ghost gather before each of
+    them, per shard; nothing else.  ``single``: the one-device run's
+    summary, whose step count (and 2769) it must be within 1% of; without
+    it (the 2048^2 cut), at least CUT_2048_STEPS steps."""
+    n = sy * sx
+    run = drive([f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n", *overrides], grow=grow,
+                device=[DEVICE] * n)
+    L, steps, attempts = run["launches"], run["res"].iters, run["res"].attempts
+    if sx == 1:
+        expect(L["rkm_attempt_sharded"] == attempts * n > 0
+               and sum(L.values()) == L["rkm_attempt_sharded"],
+               "K12.2 once per attempt and shard, nothing else", run)
+    else:
+        expect(L["blend_rhs_sharded"] == (steps + 3 * attempts) * n
+               and L["rkm_final_stage"] == attempts * n > 0
+               and L["halo_edges"] == (steps + 4 * attempts) * n
+               and sum(L.values()) == sum(L[k] for k in ("blend_rhs_sharded", "rkm_final_stage",
+                                                          "halo_edges")),
+               "K12.1 (steps + 3 attempts), K5 (attempts), the gather (steps + 4 "
+               "attempts), per shard; nothing else", run)
+    extra = {}
+    if single is not None:
+        for want in (single["steps"], RKM_STEPS):
+            expect(abs(steps - want) <= 0.01 * want, f"within 1% of {want} steps", run)
+        extra = {"single_device_steps": single["steps"],
+                 "single_device_ms_per_step": single["ms_per_step"],
+                 "ms_per_step_vs_single": run["summary"]["ms_per_step"] / single["ms_per_step"]}
+    else:
+        expect(steps >= CUT_2048_STEPS, f"at least {CUT_2048_STEPS} steps", run)
+    phase(name, shards=[sy, sx], attempts=attempts, **extra, **run["summary"])
+    return L
+
+
 # ------------------------------------------------------------- float64 paths
 
 
@@ -1013,6 +1224,7 @@ def main() -> None:
     k6 = check_k6(rng)
     k7 = check_k7(rng)
     k8_10 = check_cg_kernels(rng, si_cfg.params)
+    mesh_k = check_mesh_kernels(rng)
 
     f64 = {name: load_config(sweep(name)) for name in F64_RUNS}
     F64, U64 = make_initial_fields(f64["rkm"].params, f64["rkm"].initial, device=DEVICE)
@@ -1025,6 +1237,7 @@ def main() -> None:
     d8_10 = check_cg_kernels(rng, f64["semi-implicit"].params, "float64")
 
     check_lockstep(cfg, F0, U0)
+    check_mesh_lockstep(cfg, F0, U0)
     check_si_lockstep(si_cfg, F0, U0)
     check_rk4_lockstep([("512^2, staged", load_config(CONFIG, [RK4])),
                         ("4096^2 cut, K3", load_config(CONFIG, [RK4, CUT]))])
@@ -1036,7 +1249,10 @@ def main() -> None:
                         ("4096^2 cut, K3", load_config(sweep("rk4"), [CUT]))], tol=tol64,
                        name="float64 RK4 lockstep kernels vs plain")
 
-    rkm = rkm_path()
+    rkm, rkm_one = rkm_path()
+    mesh_runs = {name: mesh_path(f"main path (RKM) on a {name} mesh", *shape, rkm_one)
+                 for name, shape in MESHES.items()}
+    cut = mesh_path("RKM, 2048^2 cut on a y(4) mesh", 4, 1, None, [CUT_2048], grow=False)
     si = si_path([SEMI], "semi-implicit path")
     si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
     euler = euler_path()
@@ -1079,6 +1295,22 @@ def main() -> None:
                      f"{pallas_cg}:310", si["update_xr_rr"], k8_10["K9"]),
         kernel_entry("K10 axpby_inplace (CG direction update)", cg_src,
                      f"{pallas_cg}:274", si["axpby_inplace"], k8_10["K10"]),
+        kernel_entry("K5 rkm_final_stage (Merson stage 5 + update + error maxima, with "
+                     "ghosts; RKM on x(2) and 2x2 meshes)", rhs_src, f"{pallas_rhs}:441",
+                     sum(mesh_runs[m]["rkm_final_stage"] for m in ("x(2)", "2x2")),
+                     mesh_k["K5"]),
+        kernel_entry("K12.1 blend_rhs_sharded (K1 with ghost rows/columns; RKM k1-k4 on "
+                     "x(2) and 2x2 meshes)", rhs_src, f"{pallas_rhs}:705",
+                     sum(mesh_runs[m]["blend_rhs_sharded"] for m in ("x(2)", "2x2")),
+                     mesh_k["K12.1"]),
+        kernel_entry("K12.1 ghost gather halo_edges (the blend's edge rows/columns that "
+                     "_ghost_rows/_ghost_cols send; same runs)", rhs_src, f"{pallas_rhs}:634",
+                     sum(mesh_runs[m]["halo_edges"] for m in ("x(2)", "2x2")),
+                     mesh_k["K12.1 gather"]),
+        kernel_entry("K12.2 rkm_attempt_sharded (K2 with ghost slabs; RKM on y(2) and the "
+                     "2048^2 y(4) cut)", rhs_src, f"{pallas_rhs}:1185",
+                     mesh_runs["y(2)"]["rkm_attempt_sharded"] + cut["rkm_attempt_sharded"],
+                     mesh_k["K12.2"]),
         kernel_entry("K1 blend_rhs at float64 (float64 RK4 path, k1-k3)", rhs_src,
                      f"{pallas_rhs}:344", rk4_64["blend_rhs"], d1),
         kernel_entry("K2 rkm_attempt at float64 (K13's scheme rkm; float64 RKM path)",

@@ -369,3 +369,106 @@ def test_f64_refined_step_kernels_match_plain(S, guess, gen, cuda_device):  # no
     for g, w in zip(got[2:], want[2:]):
         assert (g.iters, g.converged) == (w.iters, w.converged)
     _f64_close(got[:2], want[:2])
+
+
+# ---------------------------------------------------------------- the mesh
+# A mesh on one card: every shard on the same device, as chip_smoke.py runs
+# it.  K5, K12.1 (with its ghost gather) and K12.2 against their plain
+# versions, at the f32 tolerances above.
+
+MESH_PAIRS = ALL_PAIRS
+MESH_SIZES = [(64, 256), (66, 258)]
+
+
+def _mesh_states(gen, ny, nx, sy, sx, n, device):
+    from bachelors_tpu_torch.convert import shards_from_numpy
+
+    return [tuple(shards_from_numpy(a, sy, sx, [device] * (sy * sx)) for a in pair)
+            for pair in random_fields(gen, ny, nx, "float32", n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
+def test_mesh_stage_kernels_match_plain(f_bc, u_bc, sy, sx, gen, cuda_device):  # noqa: F811
+    """K12.1's ghost gather, K12.1 and K5 with ghosts, shard by shard."""
+    from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo = Topology(sy, sx)
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    for ny, nx in MESH_SIZES:
+        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+        states = _mesh_states(gen, ny, nx, sy, sx, 4, cuda_device)
+        w = [1.0, 1e-2, -2e-2, 3e-2]
+        before = dict(cuda_rhs.LAUNCHES)
+        halos = stage_halos(states, w, topo)
+        assert cuda_rhs.LAUNCHES["halo_edges"] == before["halo_edges"] + sy * sx
+        for k, h in enumerate(halos):
+            st = shard_states(states, k)
+            for got, want in zip(cuda_rhs.halo_edges(st, w, sy > 1, sx > 1),
+                                 cuda_rhs.halo_edges_plain(st, w, sy > 1, sx > 1)):
+                assert (got is None) == (want is None)
+                if got is not None:
+                    assert_match(got, want)
+            for g, wt in zip(cuda_rhs.blend_rhs_sharded(st, w, p, h, 0.03, d),
+                             cuda_rhs.blend_rhs_sharded_plain(st, w, p, h, 0.03, d)):
+                assert_match(g, wt)
+            tau = np.float32(TAU)
+            got = cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h)
+            want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
+            assert_match(got[0], want[0])
+            assert_match(got[1], want[1])
+            np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                                       rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
+def test_k5_kernel_matches_plain_whole_grid(f_bc, u_bc, gen, cuda_device):  # noqa: F811
+    for (ny, nx), S, m0 in CASES:
+        p = _params(ny, nx, f_bc, u_bc, S, m0)
+        x, k1, k3, k4 = _on(random_fields(gen, ny, nx, "float32", 4), cuda_device)
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        before = cuda_rhs.LAUNCHES["rkm_final_stage"]
+        got = cuda_rhs.rkm_final_stage(x, k1, k3, k4, np.float32(TAU), p, 0.03, d)
+        assert cuda_rhs.LAUNCHES["rkm_final_stage"] == before + 1
+        want = cuda_rhs.rkm_final_stage_plain(x, k1, k3, k4, np.float32(TAU), p, 0.03, d)
+        assert_match(got[0], want[0])
+        assert_match(got[1], want[1])
+        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(), rtol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
+def test_k12_2_matches_plain_and_k2(f_bc, u_bc, shards, gen, cuda_device):  # noqa: F811
+    """K12.2 on a y-mesh against its plain version, and the y-mesh's joined
+    result against K2 on the whole grid: the same arithmetic per cell, so
+    equal bit for bit (the maxima too)."""
+    from bachelors_tpu_torch.core.state import Shards
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo = Topology(shards, 1)
+    for ny, nx in MESH_SIZES:
+        if ny % shards:
+            continue
+        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+        (F, U), = _mesh_states(gen, ny, nx, shards, 1, 1, cuda_device)
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        tau = np.float32(TAU)
+        slabs = topo.slabs(F, U, cuda_rhs.SLAB_ROWS)
+        rows = ny // shards
+        out = []
+        for k, (f, u, s) in enumerate(zip(F.blocks, U.blocks, slabs)):
+            got = cuda_rhs.rkm_attempt_sharded(f, u, s, k * rows, tau, p, 0.03, d)
+            want = cuda_rhs.rkm_attempt_sharded_plain(f, u, s, k * rows, tau, p, 0.03, d)
+            assert_match(got[0], want[0])
+            assert_match(got[1], want[1])
+            np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                                       rtol=2e-4)
+            out.append(got)
+        whole = cuda_rhs.rkm_attempt(F.gather(), U.gather(), tau, p, 0.03, d)
+        for i in (0, 1):
+            assert torch.equal(Shards(tuple(o[i] for o in out), (shards, 1)).gather(), whole[i])
+        assert torch.equal(topo.allmax([o[2] for o in out]), whole[2])
