@@ -7,9 +7,9 @@ per-run file logger, echo the config, then run with time-based snapshot
 triggers (``every`` cadence + ``times`` uniform over the stop time) and a
 ~1 Hz progress log.
 
-With ``[tpu] shards_y/shards_x`` the adaptive RKM solver runs on a mesh of
-devices (``parallel/``); the state is gathered before each write, so the
-files are those of a single-device run.
+With ``[tpu] shards_y/shards_x`` every solver but semi-implicit runs on a
+mesh of devices (``parallel/``); the state is gathered before each write,
+so the files are those of a single-device run.
 
 The hot loop is a host loop of one step at a time, collecting stats every
 step; each adaptive step already reads its error estimate on the host, and
@@ -18,7 +18,8 @@ package's device-side runners and their dispatch-size probes.  A fixed-dt
 run that collects no stats counts its steps on the host instead, as the
 JAX driver does (`bachelors_tpu/app/driver.py:437-463`), and advances with
 ``advance_n``: forward Euler then takes 4 steps per kernel launch, or 8 on
-float64 grids from 1M cells (``make_euler_pair_stepper``).  A float64 run
+float64 grids from 1M cells, and 4 per launch on each shard of a float32
+y-mesh (``make_euler_pair_stepper``).  A float64 run
 computes in double throughout, on the same kernels instantiated for it; its
 snapshots hold the doubles.
 """
@@ -71,10 +72,10 @@ def check_supported(cfg: SimConfig) -> None:
     cfg.params.validate()
     todo = []
     if (cfg.shards_y > 1 or cfg.shards_x > 1) and (
-            cfg.params.solver != SolverType.EXPLICIT_RK4_ADAPTIVE):
+            cfg.params.solver == SolverType.SEMI_IMPLICIT):
         todo.append(f"[tpu] shards_y/shards_x > 1 with solver = "
-                    f"{cfg.params.solver.value} (ROADMAP slice 5b, item 15: the seam "
-                    "twins of Euler, RK4 and semi-implicit)")
+                    f"{cfg.params.solver.value} (ROADMAP slice 5b.2, item 15: the seam "
+                    "twins of K7 and K8)")
     if cfg.ensemble > 1 or cfg.batch_shards > 1:
         todo.append("[tpu] ensemble/batch_shards > 1 (ROADMAP slice 4, "
                     "item 13: ensembles)")
@@ -225,7 +226,7 @@ def run_simulation(cfg: SimConfig, device="cuda",
     # iter*dt on the host, exact to f64 rounding (`bachelors_tpu/app/
     # driver.py:408-411,441-444`)
     fast = acc is None and p.solver != SolverType.EXPLICIT_RK4_ADAPTIVE
-    pair = make_euler_pair_stepper(p) if fast else None
+    pair = make_euler_pair_stepper(p, topo, mesh) if fast else None
 
     stop = cfg.stop_time
     last_stats_save = 0.0

@@ -102,6 +102,30 @@
 //     true domain edges and every cell runs K2's arithmetic: a y-mesh equals
 //     K2 on the whole grid bit for bit.
 //
+// K12.3 bt_blend_rhs_halo_f32 with is_euler: replaces
+//     `blend_rhs_pallas_sharded` (:744) with is_euler=True, through
+//     `_stage_call_sharded` (:705): K12.1 in K1's euler mode, x + dt f(x) on a
+//     shard from the ghosts of x.  Bound by bytes like K1 (2 fields read, 2
+//     written).
+//
+// K12.4 bt_rk4_final_halo_f32: replaces `rk4_final_stage_pallas_sharded`
+//     (:756): K4 with a Halo, the ghosts those of the blend [x, k3] at weights
+//     [1, dt] from the same gather.  Bound by bytes like K4 (8 fields read, 2
+//     written).
+//
+// K12.5 bt_euler_steps_slabs_f32: replaces `_euler2_call_sharded` (:1315, via
+//     `euler2_pallas_sharded` :1346; slabs `_ghost_slabs` :897, edge flags
+//     `_edge_flags` :1222).  K6's kernel itself with K12.2's loader: T = 4
+//     Euler steps per pass on a y-mesh shard from ghost slabs T rows deep
+//     (JAX's 8 are sublane padding), the boundary image at global rows only.
+//     A y-mesh runs K6's arithmetic per cell, so it equals K6 on the whole
+//     grid bit for bit.  Bound like K6.
+//
+// K12.6 bt_rk4_full_slabs_f32: replaces `rk4_full_pallas_sharded` (:1231,
+//     through `_fullstep_call_sharded` :1185 with scheme rk4).  K3's kernel
+//     with the same loader, slabs 4 rows deep (K3's apron): a y-mesh equals
+//     K3 on the whole grid bit for bit.  Bound like K3.
+//
 // Float64: the counterpart of K13, `bachelors_tpu/ops/pallas_dd.py:
 // _make_fullstep_kernel_dd` (:272, via `_fullstep_impl_dd` :607), which runs
 // schemes euler (T <= 8), rk4, rkm and si on (hi, lo) float32 pairs because
@@ -239,19 +263,20 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 }
 
 // K4: a = {x, k3} with weights {1, dt}; the combination in the JAX
-// kernel's order, x + c6 (((k1 + 2 k2) + 2 k3) + k4)
+// kernel's order, x + c6 (((k1 + 2 k2) + 2 k3) + k4).  With a halo, K12.4 on
+// a shard: the ghosts are those of the blend [x, k3].
 template <class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     rk4_final_kernel(BlendArgs<Real> a, const Real* __restrict__ k1F,
                      const Real* __restrict__ k1U, const Real* __restrict__ k2F,
                      const Real* __restrict__ k2U, Real* __restrict__ outF,
                      Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
-                     Real fu, PhysParams<Real> P) {
+                     Real fu, Halo<Real> h, PhysParams<Real> P) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   Real Fc, Uc, k4F, k4U;
-  blend_rhs_at<2>(a, whole_grid<Real>(), i, j, ny, nx, d, fu, P, Fc, Uc, k4F, k4U);
+  blend_rhs_at<2>(a, h, i, j, ny, nx, d, fu, P, Fc, Uc, k4F, k4U);
   const int c = i * nx + j;
   outF[c] = a.F[0][c] + c6 * (k1F[c] + Real(2) * k2F[c] + Real(2) * a.F[1][c] + k4F);
   outU[c] = a.U[0][c] + c6 * (k1U[c] + Real(2) * k2U[c] + Real(2) * a.U[1][c] + k4U);
@@ -616,15 +641,18 @@ struct Rk4Smem {
 // k3 = f(x + h k2), k4 = f(x + dt k3) with h = dt/2, then
 // x + c6 (k1 + 2 k2 + 2 k3 + k4), c6 = dt/6 -- the weights as the host
 // rounds them, as the JAX kernel takes them.
+// With slabs (4 rows, K3's apron), K12.6 on the y-mesh shard holding global
+// rows [y0, y0 + ny_l), as K12.2 is K2 on one.
 template <class Real>
 __global__ void __launch_bounds__(kTileThreads)
     rk4_full_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
-                    Real* __restrict__ outF, Real* __restrict__ outU, int ny, int nx,
+                    Real* __restrict__ outF, Real* __restrict__ outU,
+                    const Real* __restrict__ slabs, int y0, int ny_l, int ny, int nx,
                     Real h, Real dt, Real c6, Real d, Real fu, PhysParams<Real> P) {
   constexpr int A = kK3Apron;
   Rk4Smem<Real>& s = *reinterpret_cast<Rk4Smem<Real>*>(tile_smem);
-  const Tile T = block_tile<A>(ny, nx);
-  load_region<A>(T, F, U, static_cast<const Real*>(nullptr), s.xF, s.xU);
+  const Tile T = block_tile<A>(ny, nx, y0, ny_l);
+  load_region<A>(T, F, U, slabs, s.xF, s.xU);
   __syncthreads();
 
   eval_stage<A>(T, P, s.xF, s.xU, s.k1F, s.k1U, 3, d, fu);
@@ -673,16 +701,19 @@ constexpr int euler_smem_bytes() {
   return 4 * Region<STEPS>::N * int(sizeof(Real));
 }
 
+// With slabs (STEPS rows, its apron), K12.5 on the y-mesh shard holding
+// global rows [y0, y0 + ny_l), as K12.2 is K2 on one.
 template <int STEPS, class Real>
 __global__ void __launch_bounds__(kTileThreads)
     euler_steps_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
-                       Real* __restrict__ outF, Real* __restrict__ outU, int ny, int nx,
+                       Real* __restrict__ outF, Real* __restrict__ outU,
+                       const Real* __restrict__ slabs, int y0, int ny_l, int ny, int nx,
                        Real d, Real fu, PhysParams<Real> P) {
   // (F, U) of two successive steps: buf[0..1], then buf[2..3], in turns
   constexpr int N = Region<STEPS>::N;
   Real(*buf)[N] = reinterpret_cast<Real(*)[N]>(tile_smem);
-  const Tile T = block_tile<STEPS>(ny, nx);
-  load_region<STEPS>(T, F, U, static_cast<const Real*>(nullptr), buf[0], buf[1]);
+  const Tile T = block_tile<STEPS>(ny, nx, y0, ny_l);
+  load_region<STEPS>(T, F, U, slabs, buf[0], buf[1]);
   __syncthreads();
 #pragma unroll
   for (int step = 0; step < STEPS; ++step) {
@@ -823,17 +854,19 @@ int blend_rhs(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
   return int(cudaGetLastError());
 }
 
+// K4 on the whole grid (h = whole_grid) or, with a halo, K12.4 on a shard
 template <class S>
 int rk4_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k2F,
               const S* k2U, const S* k3F, const S* k3U, S* outF, S* outU, int ny, int nx,
-              S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+              S dt, S c6, S d, S fu, bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P,
+              cudaStream_t stream) {
   using R = Ar<S>;
   bt::BlendArgs<R> a{{ar(xF), ar(k3F), nullptr, nullptr}, {ar(xU), ar(k3U), nullptr, nullptr},
                      {R(1), R(dt), R(0), R(0)}};
   dim3 block(bt::kK1BlockX, bt::kK1BlockY);
   bt::rk4_final_kernel<<<k1_grid(ny, nx), block, 0, stream>>>(
       a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU), ny, nx, R(c6), R(d),
-      R(fu), *P);
+      R(fu), h, *P);
   return int(cudaGetLastError());
 }
 
@@ -858,38 +891,48 @@ int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
   return int(cudaGetLastError());
 }
 
+// K3 on the whole grid (slabs null, y0 = 0, ny_l = ny) or, with slabs,
+// K12.6 on the y-mesh shard holding global rows [y0, y0 + ny_l)
 template <class S>
-int rk4_full(const S* F, const S* U, S* outF, S* outU, int ny, int nx, S h, S dt, S c6,
-             S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+int rk4_full(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0, int ny_l,
+             int ny, int nx, S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,
+             cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = int(sizeof(bt::Rk4Smem<R>));
   static const cudaError_t attr = allow_smem(bt::rk4_full_kernel<R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  bt::rk4_full_kernel<<<tile_grid(ny, nx), bt::kTileThreads, smem, stream>>>(
-      ar(F), ar(U), ar(outF), ar(outU), ny, nx, R(h), R(dt), R(c6), R(d), R(fu), *P);
+  bt::rk4_full_kernel<<<tile_grid(ny_l, nx), bt::kTileThreads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ar(slabs), y0, ny_l, ny, nx, R(h), R(dt), R(c6),
+      R(d), R(fu), *P);
   return int(cudaGetLastError());
 }
 
 template <class S, int STEPS>
-int euler_steps_at(const S* F, const S* U, S* outF, S* outU, int ny, int nx, S d, S fu,
-                   const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+int euler_steps_at(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0,
+                   int ny_l, int ny, int nx, S d, S fu, const PhysParams<Ar<S>>* P,
+                   cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = bt::euler_smem_bytes<R, STEPS>();
   static const cudaError_t attr = allow_smem(bt::euler_steps_kernel<STEPS, R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  bt::euler_steps_kernel<STEPS><<<tile_grid(ny, nx), bt::kTileThreads, smem, stream>>>(
-      ar(F), ar(U), ar(outF), ar(outU), ny, nx, R(d), R(fu), *P);
+  bt::euler_steps_kernel<STEPS><<<tile_grid(ny_l, nx), bt::kTileThreads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ar(slabs), y0, ny_l, ny, nx, R(d), R(fu), *P);
   return int(cudaGetLastError());
 }
 
 // K6 is built for the depths its paths take: 4 at float32, 4 and 8 at
-// float64 (`pallas_dd.py:euler_dd_block_steps`).
+// float64 (`pallas_dd.py:euler_dd_block_steps`); K12.5 (slabs of `steps`
+// rows) for 4 at float32.
 template <class S>
-int euler_steps(const S* F, const S* U, S* outF, S* outU, int ny, int nx, int steps,
-                S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
-  if (steps == 4) return euler_steps_at<S, 4>(F, U, outF, outU, ny, nx, d, fu, P, stream);
+int euler_steps(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0, int ny_l,
+                int ny, int nx, int steps, S d, S fu, const PhysParams<Ar<S>>* P,
+                cudaStream_t stream) {
+  if (steps == 4)
+    return euler_steps_at<S, 4>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, d, fu, P, stream);
   if constexpr (sizeof(S) == 8) {
-    if (steps == 8) return euler_steps_at<S, 8>(F, U, outF, outU, ny, nx, d, fu, P, stream);
+    if (steps == 8)
+      return euler_steps_at<S, 8>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, d, fu, P,
+                                  stream);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -981,7 +1024,7 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
                          S* outF, S* outU, int ny, int nx, S dt, S c6, S d, S fu,    \
                          const PhysParams<Ar<S>>* P, cudaStream_t stream) {          \
     return rk4_final<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx,    \
-                        dt, c6, d, fu, P, stream);                                    \
+                        dt, c6, d, fu, bt::whole_grid<Ar<S>>(), P, stream);           \
   }                                                                                   \
   int bt_rkm_attempt_##SFX(const S* F, const S* U, S* outF, S* outU, S* partials,    \
                            S* err, int ny, int nx, S tau, S d, S fu,                 \
@@ -992,12 +1035,14 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
   int bt_rk4_full_##SFX(const S* F, const S* U, S* outF, S* outU, int ny, int nx,    \
                         S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,      \
                         cudaStream_t stream) {                                        \
-    return rk4_full<S>(F, U, outF, outU, ny, nx, h, dt, c6, d, fu, P, stream);       \
+    return rk4_full<S>(F, U, outF, outU, nullptr, 0, ny, ny, nx, h, dt, c6, d, fu, P, \
+                       stream);                                                       \
   }                                                                                   \
   int bt_euler_steps_##SFX(const S* F, const S* U, S* outF, S* outU, int ny, int nx, \
                            int steps, S d, S fu, const PhysParams<Ar<S>>* P,         \
                            cudaStream_t stream) {                                     \
-    return euler_steps<S>(F, U, outF, outU, ny, nx, steps, d, fu, P, stream);        \
+    return euler_steps<S>(F, U, outF, outU, nullptr, 0, ny, ny, nx, steps, d, fu, P,  \
+                          stream);                                                    \
   }                                                                                   \
   int bt_si_prepare_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s, int ny,     \
                           int nx, const PhysParams<Ar<S>>* P, cudaStream_t stream) { \
@@ -1009,14 +1054,17 @@ extern "C" {
 BT_RHS_ENTRIES(f32, float)
 BT_RHS_ENTRIES(f64, double)
 
-// The mesh kernels, float32 only (their float64 twins: ROADMAP slice 5b).
+// The mesh kernels, float32 only (their float64 twins: ROADMAP slice 5b.3).
 // `rows`/`cols` are a shard's ghosts, (2 sides, 2 fields, nx) and (2, 2,
 // ny), null along an axis that is not sharded; `edges` has bit 0..3 set
 // when the shard holds the grid's first row, last row, first column, last
 // column.
 //   K12.1 ghost gather bt_halo_edges: the blend's first and last rows into
 //      rows, first and last columns into cols (each skipped if null).
-//   K12.1 bt_blend_rhs_halo: K1 in rhs mode on a shard.
+//   K12.1 bt_blend_rhs_halo: K1 on a shard, in rhs mode (K12.1) or in euler
+//      mode (K12.3).
+//   K12.4 bt_rk4_final_halo: K4 on a shard, the halo that of the blend [x, k3]
+//      with weights [1, dt].
 //   K5 bt_rkm_final: a = {x, k1, k3, k4} with weights {1, w1, w2, w3} =
 //      {1, tau/2, -3 tau/2, 2 tau}: outF/outU = x + c6 (k1 + 4 k4 + k5),
 //      err as K2's; partials holds 2 * bt_stage_num_blocks values.  On the
@@ -1025,6 +1073,8 @@ BT_RHS_ENTRIES(f64, double)
 //      [y0, y0 + ny_l) of the (ny, nx) grid, slabs (2 sides, 2 fields, 5,
 //      nx) from the neighbours; partials holds 2 * bt_rkm_num_blocks(ny_l,
 //      nx) values.
+//   K12.5 bt_euler_steps_slabs: K6 on such a shard, slabs of `steps` rows.
+//   K12.6 bt_rk4_full_slabs: K3 on such a shard, slabs of 4 rows (kK3Apron).
 int bt_halo_edges_f32(const float* F0, const float* U0, const float* F1, const float* U1,
                       const float* F2, const float* U2, const float* F3, const float* U3,
                       int n_states, float w1, float w2, float w3, float* rows, float* cols,
@@ -1037,10 +1087,22 @@ int bt_blend_rhs_halo_f32(const float* F0, const float* U0, const float* F1,
                           const float* U1, const float* F2, const float* U2,
                           const float* F3, const float* U3, int n_states, float w1,
                           float w2, float w3, float* outF, float* outU, int ny, int nx,
-                          float d, float fu, const float* rows, const float* cols,
-                          int edges, const PhysParams<float>* P, cudaStream_t stream) {
+                          float d, float fu, int is_euler, const float* rows,
+                          const float* cols, int edges, const PhysParams<float>* P,
+                          cudaStream_t stream) {
   return blend_rhs<float>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,
-                          outU, ny, nx, d, fu, 0, halo_of(rows, cols, edges), P, stream);
+                          outU, ny, nx, d, fu, is_euler, halo_of(rows, cols, edges), P,
+                          stream);
+}
+
+int bt_rk4_final_halo_f32(const float* xF, const float* xU, const float* k1F,
+                          const float* k1U, const float* k2F, const float* k2U,
+                          const float* k3F, const float* k3U, float* outF, float* outU,
+                          int ny, int nx, float dt, float c6, float d, float fu,
+                          const float* rows, const float* cols, int edges,
+                          const PhysParams<float>* P, cudaStream_t stream) {
+  return rk4_final<float>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx, dt, c6,
+                          d, fu, halo_of(rows, cols, edges), P, stream);
 }
 
 int bt_rkm_final_f32(const float* xF, const float* xU, const float* k1F, const float* k1U,
@@ -1060,6 +1122,22 @@ int bt_rkm_attempt_slabs_f32(const float* F, const float* U, float* outF, float*
                              const PhysParams<float>* P, cudaStream_t stream) {
   return rkm_attempt<float>(F, U, outF, outU, partials, err, slabs, y0, ny_l, ny, nx, tau,
                             d, fu, P, stream);
+}
+
+int bt_euler_steps_slabs_f32(const float* F, const float* U, float* outF, float* outU,
+                             const float* slabs, int y0, int ny_l, int ny, int nx,
+                             int steps, float d, float fu, const PhysParams<float>* P,
+                             cudaStream_t stream) {
+  return euler_steps<float>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, steps, d, fu, P,
+                            stream);
+}
+
+int bt_rk4_full_slabs_f32(const float* F, const float* U, float* outF, float* outU,
+                          const float* slabs, int y0, int ny_l, int ny, int nx, float h,
+                          float dt, float c6, float d, float fu, const PhysParams<float>* P,
+                          cudaStream_t stream) {
+  return rk4_full<float>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, h, dt, c6, d, fu, P,
+                         stream);
 }
 
 // Number of value pairs the K5 partials buffer holds (2 * this many values).

@@ -19,13 +19,13 @@ from .topology import Topology
 def make_sharded_stepper(p: SimParams, mesh: Mesh, topo: Topology) -> Stepper:
     """A single simulation, its grid sharded over the mesh: ``state ->
     (state, stats)`` on states from ``parallel/mesh.shard_state``.  On the
-    card the mesh kernels are float32 (their float64 twins are slice 5b);
+    card the mesh kernels are float32 (their float64 twins are slice 5b.3);
     the CPU's plain versions run either precision."""
     if mesh.shape != topo.grid:
         raise ValueError(f"mesh {mesh.shape} and topology {topo.grid} differ")
     if p.dtype != "float32" and resolve_backend(p, mesh.devices[0]) == "kernel":
         raise NotImplementedError("not ported yet: [tpu] dtype = float64 on a mesh on the "
-                                  "card (ROADMAP slice 5b, item 15: the float64 seam "
+                                  "card (ROADMAP slice 5b.3, item 15: the float64 seam "
                                   "twins); the CPU runs it")
     inner = make_stepper(p, topo)
 

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..core.params import SimParams, SolverType
-from ..core.state import SimState, StepStats, empty_stats, numpy_dtype
+from ..core.state import Shards, SimState, StepStats, empty_stats, numpy_dtype
 from ..models import exact as exact_mod
 from ..ops.reductions import stats_delta
 from ..parallel.topology import ONE_DEVICE, Topology
@@ -26,14 +26,14 @@ Stepper = Callable[[SimState], Tuple[SimState, StepStats]]
 def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
     """Build the per-step function for ``p.solver``; with a sharded
     ``topo``, for states whose fields are ``Shards`` over that mesh
-    (``parallel/sharded.make_sharded_stepper``), where the port runs the
-    adaptive RKM solver so far."""
+    (``parallel/sharded.make_sharded_stepper``), where the port runs every
+    solver but semi-implicit so far."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
-    if topo.is_sharded and p.solver != SolverType.EXPLICIT_RK4_ADAPTIVE:
-        raise NotImplementedError(f"solver {p.solver.value} on a mesh (ROADMAP slice 5b: "
-                                  "the seam twins of Euler, RK4 and semi-implicit)")
+    if topo.is_sharded and p.solver == SolverType.SEMI_IMPLICIT:
+        raise NotImplementedError(f"solver {p.solver.value} on a mesh (ROADMAP slice 5b.2: "
+                                  "K7's and K8's seam twins)")
     c = numpy_dtype(p)
 
     def forcing(state: SimState):
@@ -77,10 +77,10 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
             fu = forcing(state)
 
             def step_based(F, U, U_base, same_base):
-                nF, nU = euler_step_based(F, U, U_base, p, fu, same_base)
+                nF, nU = euler_step_based(F, U, U_base, p, fu, same_base, topo)
                 return nF, nU, (1, 1)
 
-            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, step_based)
+            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, topo, step_based)
             return finish(state, nF, nU, p.dt, aux[0], aux[1], residuals=residuals)
 
         return step
@@ -92,7 +92,7 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
                 nF, nU, res_F, res_U = semi_implicit_step_based(F, U, U_base, p)
                 return nF, nU, (res_F.iters, res_U.iters)
 
-            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, step_based)
+            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, topo, step_based)
             return finish(state, nF, nU, p.dt, aux[0], aux[1], residuals=residuals)
 
         return step
@@ -100,21 +100,31 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
     if p.solver == SolverType.EXPLICIT_RK4:
 
         def step(state: SimState):
-            nF, nU = rk4_step(state.F, state.U, p, forcing(state))
+            nF, nU = rk4_step(state.F, state.U, p, forcing(state), topo)
             return finish(state, nF, nU, p.dt, 1, 1)
 
         return step
 
     if p.solver == SolverType.EXACT:
 
+        def fields(F: torch.Tensor, t: float, y0: int = 0, x0: int = 0):
+            # the analytic fields at time t on the cell centres of F's
+            # block from global cell (y0, x0) (`bachelors_tpu/solvers/
+            # base.py:128-147`)
+            r = exact_mod.radius_grid(p.nx, p.ny, p.L0, dtype=F.dtype, device=F.device,
+                                      y0=y0, x0=x0, shape=F.shape)
+            tt = torch.tensor(t, dtype=F.dtype, device=F.device)
+            return exact_mod.exact_phi(tt, r), exact_mod.exact_u(tt, r)
+
         def step(state: SimState):
-            # the analytic fields at the step's start time, on the cell
-            # centres (`bachelors_tpu/solvers/base.py:128-147`)
-            r = exact_mod.radius_grid(p.nx, p.ny, p.L0, dtype=state.F.dtype,
-                                      device=state.F.device)
-            t = torch.tensor(state.t, dtype=state.F.dtype, device=state.F.device)
-            return finish(state, exact_mod.exact_phi(t, r), exact_mod.exact_u(t, r),
-                          p.dt, 1, 1)
+            if not isinstance(state.F, Shards):
+                return finish(state, *fields(state.F, state.t), p.dt, 1, 1)
+            sy, sx = state.F.grid
+            ly, lx = state.F.blocks[0].shape
+            out = [fields(state.F.block(i, j), state.t, i * ly, j * lx)
+                   for i in range(sy) for j in range(sx)]
+            nF, nU = (Shards(blocks, state.F.grid) for blocks in zip(*out))
+            return finish(state, nF, nU, p.dt, 1, 1)
 
         return step
 

@@ -1,19 +1,22 @@
 """Explicit integrators: forward Euler, classic RK4 and adaptive
 Runge-Kutta-Merson.
 
-The port of ``bachelors_tpu/solvers/explicit.py``: its single-device
-branches, and the RKM step on a mesh:
+The port of ``bachelors_tpu/solvers/explicit.py``, on one device and on
+y, x and 2D meshes (``topo``; fields are then ``Shards``):
 
   * ``euler_step_based`` (:22-73): one K1 launch in euler mode, or in rhs
-    mode for the corrector's re-steps from a frozen temperature base.
+    mode for the corrector's re-steps from a frozen temperature base; on a
+    mesh K12.3 (K12.1 for the re-steps) per shard after the ghost gather.
   * ``make_euler_pair_stepper`` (:90-239): several Euler steps per pass
     over device memory (``ops/cuda_rhs.euler_steps``, K6) for runs that
     collect nothing per step: ``EULER_BLOCK_STEPS`` at float32, and at
     float64 the depth of the JAX package's df64 kernel
-    (``euler_dd_block_steps``).
+    (``euler_dd_block_steps``); on float32 y-meshes K12.5 per shard from
+    one slab exchange per pass.
   * ``rk4_step`` (:242-313): the whole-step kernel (K3) from
     ``RK4_FULLSTEP_MIN_CELLS`` cells, else K1 for k1..k3 and K4 for the
-    fourth stage and the combination.
+    fourth stage and the combination; on a y-mesh from as many local cells
+    K12.6 per shard, else K12.1 x 3 and K12.4.
   * ``rkm_adaptive_step`` (:316-521): the whole-attempt kernel
     (``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path; on a
     mesh, float32, K12.2 on y-meshes and K12.1 + K5 on x and 2D meshes.  The retry
@@ -21,10 +24,14 @@ branches, and the RKM step on a mesh:
     as the reference does (`simulation.cu:427-435`); the JAX package runs
     the same loop as a device ``while_loop``.
 
-Every path runs at float32 and at float64, on the same kernels
-instantiated for each.  The routing constants are the JAX package's,
-measured on a TPU; the port keeps them so that it routes as the reference
-does (PERF.md holds the H100's own crossovers).
+The slab kernels (K12.2, K12.5, K12.6) take y-mesh shards at least as deep
+as their slabs; a thinner shard takes the staged route, as JAX sends a
+shard that fails ``supports_fullstep_sharded`` to it.  Every path runs at
+float32 and at float64, on the same kernels instantiated for each (the
+mesh kernels at float32; float64 meshes run the plain versions on the
+CPU).  The routing constants are the JAX package's, measured on a TPU,
+and gate on a shard's local cells as JAX does; the port keeps them so that
+it routes as the reference does (PERF.md holds the H100's own crossovers).
 """
 from __future__ import annotations
 
@@ -38,15 +45,37 @@ from ..ops.rhs import euler_eval, eval_rhs, resolve_backend, shard_states, stage
 from ..parallel.topology import ONE_DEVICE, Topology
 
 
-def euler_step_based(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
-                     p: SimParams, fu=0.0, same_base: bool = True):
+def _axpy(A: Field, c: float, B: Field) -> Field:
+    """A + c * B, shard by shard on a mesh."""
+    if isinstance(A, Shards):
+        return A.map(lambda a, b: a + c * b, B)
+    return A + c * B
+
+
+def euler_step_based(F: Field, U: Field, U_base: Field, p: SimParams, fu=0.0,
+                     same_base: bool = True, topo: Topology = ONE_DEVICE):
     """Forward-Euler step (`simulation.cu:283-311`).  With ``same_base``
     false (the corrector's re-steps) the RHS is evaluated at (F, U) but the
     temperature integrates from ``U_base``."""
     if same_base:
-        return euler_eval([(F, U)], [1.0], p, fu)
-    dF, dU = eval_rhs([(F, U)], [1.0], p, fu)
-    return F + p.dt * dF, U_base + p.dt * dU
+        return euler_eval([(F, U)], [1.0], p, fu, topo=topo)
+    dF, dU = eval_rhs([(F, U)], [1.0], p, fu, topo=topo)
+    return _axpy(F, p.dt, dF), _axpy(U_base, p.dt, dU)
+
+
+def _takes_slabs(topo: Topology, ny_l: int, depth: int) -> bool:
+    """Whether a slab kernel of ``depth`` rows takes the mesh's shards of
+    ``ny_l`` rows: a y-mesh (x is not sharded) of shards at least that deep
+    (the JAX package's ``supports_fullstep_sharded`` in the port's terms:
+    its kernels take any grid, so the gate is the depth)."""
+    return topo.axis_x is None and ny_l >= depth
+
+
+def _slab_shards(F: Shards, U: Shards, topo: Topology, depth: int):
+    """(F, U, ghost slabs ``depth`` rows deep, global first row) of each
+    y-mesh shard, from one slab exchange."""
+    y0 = np.cumsum([0] + [b.shape[0] for b in F.blocks[:-1]])
+    return list(zip(F.blocks, U.blocks, topo.slabs(F, U, depth), (int(y) for y in y0)))
 
 
 EULER_BLOCK_STEPS = 4  # Euler steps per pass of K6 at float32 (JAX :76)
@@ -74,16 +103,25 @@ RK4_FULLSTEP_MIN_CELLS = 8 * 1024 * 1024
 EULER_PAIR_GAP = (2 * 1024 * 1024, 10 * 1024 * 1024)
 
 
-def euler_pair(p: SimParams):
+def euler_pair(p: SimParams, topo: Topology = ONE_DEVICE):
     """state -> the state T Euler steps later, in one pass of K6 on the
     kernel backend (T plain steps otherwise), with no gate; T is
     ``EULER_BLOCK_STEPS`` at float32 and ``euler_dd_block_steps(p.N)`` at
-    float64, and the function carries it as ``.block_steps``.
-    ``make_euler_pair_stepper`` decides when a run uses it."""
+    float64, and the function carries it as ``.block_steps``.  On a
+    y-mesh (``Shards`` over ``topo``) one slab exchange T rows deep, then
+    K12.5 (or its plain version) per shard.  ``make_euler_pair_stepper``
+    decides when a run uses it."""
     T = euler_dd_block_steps(p.N) if p.dtype == "float64" else EULER_BLOCK_STEPS
 
     def pair(state: SimState) -> SimState:
-        if resolve_backend(p, state.F.device) == "kernel":
+        kernel = resolve_backend(p, state.F.device) == "kernel"
+        if topo.is_sharded:
+            steps = (cuda_rhs.euler_steps_sharded if kernel
+                     else cuda_rhs.euler_steps_sharded_plain)
+            out = [steps(f, u, s, y0, p, T) for f, u, s, y0 in
+                   _slab_shards(state.F, state.U, topo, T)]
+            F, U = (Shards(blocks, state.F.grid) for blocks in zip(*out))
+        elif kernel:
             F, U = cuda_rhs.euler_steps(state.F, state.U, p, T)
         else:
             F, U = cuda_rhs.euler_steps_plain(state.F, state.U, p, T)
@@ -94,14 +132,18 @@ def euler_pair(p: SimParams):
     return pair
 
 
-def make_euler_pair_stepper(p: SimParams):
-    """``euler_pair(p)``, or ``None`` where a run must take single steps:
-    solvers other than Euler, the exact forcing (it changes every step),
-    per-step stats or step residuals (a pair emits none), the corrector
-    loop, and float32 grids inside ``EULER_PAIR_GAP``.  The single-device
-    branches of the JAX package's ``make_euler_pair_stepper``, its df64
-    branch at float64 (every grid size, the depth by cells); the port's
-    kernel takes every grid, so the JAX tile gates have no counterpart."""
+def make_euler_pair_stepper(p: SimParams, topo: Topology = ONE_DEVICE, mesh=None):
+    """``euler_pair(p, topo)``, or ``None`` where a run must take single
+    steps: solvers other than Euler, the exact forcing (it changes every
+    step), per-step stats or step residuals (a pair emits none), the
+    corrector loop, and float32 grids inside ``EULER_PAIR_GAP``.  The
+    branches of the JAX package's ``make_euler_pair_stepper``: its df64
+    branch at float64 on one device (every grid size, the depth by cells);
+    on a mesh (``mesh`` given, as the JAX driver passes it) float32 y-meshes
+    only, gated on the shard's local cells, and their shards at least T
+    rows deep, K12.5's slab depth.  The port's kernels take every grid, so
+    the JAX tile gates have no counterpart; its float64 mesh twins are
+    slice 5b.3, so a float64 mesh takes single steps."""
     if p.solver != SolverType.EXPLICIT_EULER:
         return None
     if p.do_exact or p.do_stats or p.do_stats_step_residual:
@@ -109,17 +151,37 @@ def make_euler_pair_stepper(p: SimParams):
     if p.do_corrector_loop and p.corrector_max_iters > 0:
         return None
     lo, hi = EULER_PAIR_GAP
+    if topo.is_sharded:
+        if mesh is None or p.dtype == "float64":
+            return None
+        ny_l = p.ny // topo.shards_y
+        if not _takes_slabs(topo, ny_l, EULER_BLOCK_STEPS) or lo < ny_l * p.nx < hi:
+            return None
+        return euler_pair(p, topo)
     if p.dtype != "float64" and lo < p.N < hi:
         return None
     return euler_pair(p)
 
 
-def rk4_step(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0):
+def rk4_step(F: Field, U: Field, p: SimParams, fu=0.0, topo: Topology = ONE_DEVICE):
     """Classic fixed-step RK4 (`simulation.cu:313-348`): one K3 launch from
     ``RK4_FULLSTEP_MIN_CELLS`` cells on, else three K1 launches (k1..k3) and
     one K4 launch (k4 and the combination).  The plain backend takes the
-    staged plain step."""
-    if resolve_backend(p, F.device) != "kernel":
+    staged plain step.  On a mesh (``bachelors_tpu/solvers/explicit.py:
+    280-313``): K12.6 per y-mesh shard from one slab exchange, from as many
+    local cells and for shards at least RK4_SLAB_ROWS deep; else the staged
+    route, K12.1 for k1..k3 and K12.4, or the plain stages padded by
+    ``topo.pad``."""
+    kernel = resolve_backend(p, F.device) == "kernel"
+    if topo.is_sharded:
+        ny_l, nx_l = F.blocks[0].shape
+        if (kernel and ny_l * nx_l >= RK4_FULLSTEP_MIN_CELLS
+                and _takes_slabs(topo, ny_l, cuda_rhs.RK4_SLAB_ROWS)):
+            out = [cuda_rhs.rk4_full_sharded(f, u, s, y0, p, fu)
+                   for f, u, s, y0 in _slab_shards(F, U, topo, cuda_rhs.RK4_SLAB_ROWS)]
+            return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
+        return _rk4_staged_mesh(F, U, p, fu, topo, kernel)
+    if not kernel:
         return cuda_rhs.rk4_full_plain(F, U, p, fu)
     if p.N >= RK4_FULLSTEP_MIN_CELLS:
         return cuda_rhs.rk4_full(F, U, p, fu)
@@ -136,14 +198,35 @@ def rk4_staged(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0):
     return cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, fu)
 
 
+def _rk4_staged_mesh(F: Shards, U: Shards, p: SimParams, fu, topo: Topology, kernel: bool):
+    """RK4's staged route on a mesh: K12.1 for k1..k3 and K12.4 per shard,
+    each after a ghost gather; with ``kernel`` false the plain stages
+    padded by ``topo.pad`` and the combination per shard."""
+    x, h = (F, U), p.dt / 2
+    k1 = eval_rhs([x], [1.0], p, fu, topo=topo)
+    k2 = eval_rhs([x, k1], [1.0, h], p, fu, topo=topo)
+    k3 = eval_rhs([x, k2], [1.0, h], p, fu, topo=topo)
+    states = [x, k1, k2, k3]
+    if kernel:
+        halos = stage_halos([x, k3], [1.0, p.dt], topo)
+        out = [cuda_rhs.rk4_final_stage(*shard_states(states, k), p, fu, halo=h)
+               for k, h in enumerate(halos)]
+    else:
+        k4 = eval_rhs([x, k3], [1.0, p.dt], p, fu, topo=topo)
+        out = [cuda_rhs.rk4_combine(*shard_states(states + [k4], k), p.dt)
+               for k in range(len(F.blocks))]
+    return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
+
+
 def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
     """attempt(tau) -> (next_F, next_U, emax) on a mesh, routed as the JAX
     package routes (``bachelors_tpu/solvers/explicit.py:386-460``):
 
-      * kernel backend, y-mesh: K12.2, the whole attempt per shard; the
-        ghost slabs are exchanged once per step, here, outside the retry
-        loop (:401-408);
-      * kernel backend, x or 2D mesh: the staged attempt, k1 once per step
+      * kernel backend, y-mesh of shards at least SLAB_ROWS deep: K12.2,
+        the whole attempt per shard; the ghost slabs are exchanged once
+        per step, here, outside the retry loop (:401-408);
+      * kernel backend, x or 2D mesh, or thinner y-shards (:386-393): the
+        staged attempt, k1 once per step
         and k2..k4 by K12.1, then K5 with ghosts for k5, the update and the
         shard's error maxima (:449-460);
       * plain backend: the staged attempt padded by ``topo.pad``.
@@ -156,13 +239,12 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
         nF, nU, emax = zip(*out)
         return Shards(nF, F.grid), Shards(nU, F.grid), topo.allmax(emax)
 
-    if kernel and topo.axis_x is None:
-        slabs = topo.slabs(F, U, cuda_rhs.SLAB_ROWS)
-        y0 = np.cumsum([0] + [b.shape[0] for b in F.blocks[:-1]])
+    if kernel and _takes_slabs(topo, F.blocks[0].shape[0], cuda_rhs.SLAB_ROWS):
+        shards = _slab_shards(F, U, topo, cuda_rhs.SLAB_ROWS)
 
         def attempt(tau):
-            return joined([cuda_rhs.rkm_attempt_sharded(f, u, s, int(y), tau, p, fu)
-                           for f, u, s, y in zip(F.blocks, U.blocks, slabs, y0)])
+            return joined([cuda_rhs.rkm_attempt_sharded(f, u, s, y0, tau, p, fu)
+                           for f, u, s, y0 in shards])
 
         return attempt
 

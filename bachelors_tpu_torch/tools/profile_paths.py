@@ -14,8 +14,12 @@ then over a window of 200 steps from that one state:
     only), the busy share (that device time over the unprofiled ms/step
     with stats on) and the device events that take the most time.
 
-Then the RKM path the same way on y(2), x(2) and 2x2 meshes, every shard
-on the one card (K12.2; K12.1 + K5 and the ghost gather).
+Then the RKM, Euler and RK4 paths the same way on y(2), x(2) and 2x2
+meshes, every shard on the one card (RKM: K12.2, or K12.1 + K5 and the
+ghost gather; Euler: K12.3 and the gather; RK4: K12.1 x 3 + K12.4 and four
+gathers).  Each traced device event is listed with its device µs per step,
+its count per step (the exchange copies are the ``Memcpy DtoD`` events)
+and its device µs per launch.
 
 Then the float64 paths: the reference's own benchmark configs
 ``bench_sweep_f64/*_512_f64.ini`` (RKM, Euler, RK4, semi-implicit; no
@@ -28,8 +32,12 @@ scaled by (512/n)^2, the 512^2 run's stability ratio), stats off: RK4's
 staged route against its whole-step kernel K3 at 512^2 to 4096^2, Euler
 in blocks of 4 steps (K6) against single steps (K1) at 512^2, 2048^2 and
 4096^2, and at float64 K6 in blocks of 4 against blocks of 8 and single
-steps at 512^2, 1024^2 and 2048^2 -- ms/step on the host clock to a
-device sync, and device µs/step under ``torch.profiler``.
+steps at 512^2, 1024^2 and 2048^2; on a y(2) mesh of the one card, RK4's
+staged route (K12.1 x 3 + K12.4) against its whole step per shard (K12.6)
+and Euler in blocks of 4 (K12.5, the pair stepper) against single steps
+(K12.3), at 512^2, 2048^2 and 4096^2 -- ms/step on the host clock to a
+device sync, and device µs/step under ``torch.profiler`` (and each
+kernel's device µs per launch).
 
 Prints one JSON line per path and per route table, and writes them all to
 ``--out`` as one JSON object.  Imports nothing of JAX.
@@ -45,14 +53,16 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from ..core.state import make_state
+from ..core.state import Shards, SimState, make_state
 from ..io.config import load_config
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..ops import cuda_build, cuda_cg, cuda_rhs
+from ..ops.rhs import euler_eval
 from ..solvers import cg, explicit
-from ..parallel.mesh import make_mesh, shard_state
+from ..parallel.mesh import make_mesh, shard_field, shard_state
 from ..parallel.sharded import make_sharded_stepper
+from ..parallel.topology import Topology
 from ..solvers.base import make_stepper
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -73,8 +83,9 @@ F64_PATHS = {
     "rk4 f64": ("config_explicit-rk4_512_f64.ini", 4000),
     "semi-implicit f64": ("config_semi-implicit_512_f64.ini", 4000),
 }
-# the RKM path on meshes of the one card: (shards_y, shards_x)
+# the paths on meshes of the one card: (shards_y, shards_x)
 MESHES = {"y(2)": (2, 1), "x(2)": (1, 2), "2x2": (2, 2)}
+MESH_PATHS = ("rkm", "euler", "rk4")
 WINDOW = 200
 TOP = 25
 
@@ -93,8 +104,33 @@ ROUTES = {
                   "blocks of 8 (K6)": (8, lambda F, U, p: cuda_rhs.euler_steps(F, U, p, 8)),
                   "single (K1)": (1, _euler_single)},
 }
+Y2 = Topology(2, 1)
+
+
+def _euler_pair_y2(F, U, p):
+    state = explicit.euler_pair(p, Y2)(SimState(F=F, U=U, t=0.0, iter=0, tau=None))
+    return state.F, state.U
+
+
+def _rk4_whole_y2(F, U, p):
+    out = [cuda_rhs.rk4_full_sharded(f, u, s, y0, p) for f, u, s, y0 in
+           explicit._slab_shards(F, U, Y2, cuda_rhs.RK4_SLAB_ROWS)]
+    return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
+
+
+# the same on a y(2) mesh of the one card (fields as Shards)
+MESH_ROUTES = {
+    "rk4 on y(2)": {"staged (K12.1 x 3 + K12.4)":
+                    (1, lambda F, U, p: explicit._rk4_staged_mesh(F, U, p, 0.0, Y2, True)),
+                    "whole step (K12.6)": (1, _rk4_whole_y2)},
+    "euler on y(2)": {"blocks of 4 (K12.5)": (4, _euler_pair_y2),
+                      "single (K12.3)": (1, lambda F, U, p: euler_eval([(F, U)], [1.0], p,
+                                                                       topo=Y2))},
+}
+ROUTES.update(MESH_ROUTES)
 ROUTE_SIZES = {"rk4": (512, 1024, 2048, 4096), "euler": (512, 2048, 4096),
-               "euler f64": (512, 1024, 2048)}
+               "euler f64": (512, 1024, 2048), "rk4 on y(2)": (512, 2048, 4096),
+               "euler on y(2)": (512, 2048, 4096)}
 ROUTE_STEPS = 200
 
 
@@ -123,8 +159,8 @@ def traced_ms(fn, window: int):
     if device_ms <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     device.sort(key=lambda e: -e.self_device_time_total)
-    return device_ms, [[e.key[:90], e.self_device_time_total / window, e.count / window]
-                       for e in device[:TOP]]
+    return device_ms, [[e.key[:90], e.self_device_time_total / window, e.count / window,
+                        e.self_device_time_total / e.count] for e in device[:TOP]]
 
 
 def profile_f64_path(name: str, window: int) -> dict:
@@ -214,16 +250,24 @@ def profile_path(name: str, window: int, shards=(1, 1)) -> dict:
     }
 
 
-def device_ms(fn, calls: int) -> float:
-    """Device time of ``calls`` calls of ``fn`` under torch.profiler, in ms,
-    summed over device-side events only."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
+def device_ms(fn, calls: int, tries: int = 3):
+    """(device time of ``calls`` calls of ``fn`` under torch.profiler in ms,
+    summed over device-side events only; the device µs per launch of each
+    of the port's kernels among them, by name).  A trace that recorded no
+    device event (CUPTI drops one now and then) is taken
+    again, up to ``tries`` traces in all."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if any(e.self_device_time_total > 0 for e in events):
+            break
+    kernels = {e.key.split("(")[0].replace("void ", ""): e.self_device_time_total / e.count
+               for e in events if e.key.startswith("void bt::") and e.count}
+    return sum(e.self_device_time_total for e in events) / 1e3, kernels
 
 
 def profile_routes(solver: str) -> dict:
@@ -236,6 +280,9 @@ def profile_routes(solver: str) -> dict:
                                    f"dt = {5e-6 * (512 / n) ** 2!r}\n[tpu]\ndtype = {dtype}\n"])
         p = cfg.params
         F0, U0 = make_initial_fields(p, cfg.initial, device="cuda")
+        if solver in MESH_ROUTES:
+            mesh, topo = make_mesh(*Y2.grid, ["cuda"] * 2)
+            F0, U0 = shard_field(F0, mesh, topo), shard_field(U0, mesh, topo)
         row = {}
         for route, (per_call, call) in ROUTES[solver].items():
             calls = ROUTE_STEPS // per_call
@@ -252,11 +299,12 @@ def profile_routes(solver: str) -> dict:
                 step()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / (calls * per_call)
-            dev_ms = device_ms(step, calls)
+            dev_ms, kernels = device_ms(step, calls)
             if dev_ms <= 0:
                 raise RuntimeError("torch.profiler recorded no device time")
             row[route] = {"ms_per_step": ms, "device_us_per_step":
-                          dev_ms * 1e3 / (calls * per_call)}
+                          dev_ms * 1e3 / (calls * per_call),
+                          "kernel_device_us_per_launch": kernels}
         out["sizes"][f"{n}^2"] = row
     return out
 
@@ -275,9 +323,10 @@ def main() -> None:
     for name in PATHS:
         results[name] = profile_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)
-    for mname, shards in MESHES.items():
-        results[f"rkm on {mname}"] = profile_path("rkm", WINDOW, shards)
-        print(json.dumps({"card": card, **results[f"rkm on {mname}"]}), flush=True)
+    for name in MESH_PATHS:
+        for mname, shards in MESHES.items():
+            results[f"{name} on {mname}"] = profile_path(name, WINDOW, shards)
+            print(json.dumps({"card": card, **results[f"{name} on {mname}"]}), flush=True)
     for name in F64_PATHS:
         results[name] = profile_f64_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)

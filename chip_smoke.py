@@ -26,7 +26,19 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
     ghosts) on the others, each run within 1% of the single-device steps;
     then a 2048^2 cut on a y(4) mesh.  Before them, K5, K12.1, the gather
     and K12.2 against their plain versions on those meshes, and a lockstep
-    of each mesh against the single-device K2 stepper.
+    of each mesh against the single-device K2 stepper;
+  * Euler on the same meshes: K12.3 (K12.1 in euler mode) after one ghost
+    gather per shard and step; without stats on y(2), K12.5 (K6 with ghost
+    slabs, 4 steps per launch); with the corrector loop on x(2), K12.3 and
+    K12.1 for the re-steps; RK4 on the same meshes, K12.1 for k1..k3 and
+    K12.4 (K4 with ghosts); RK4 on the 4096^2 cut on y(2), K12.6 (K3 with
+    ghost slabs); the exact solver on 2x2, no kernel, frames equal to one
+    device's; and RKM on a 32-row cut on y(8), whose 4-row shards are
+    thinner than K12.2's slabs, on the staged route (K12.1 + K5).  Each
+    fixed-dt run takes the one-device step count exactly.  Before them,
+    K12.3-K12.6 against their plain versions on those meshes (K12.5 and
+    K12.6 joined over a y-mesh against K6 and K3 on the whole grid), and a
+    lockstep of each route against the single-device kernel stepper.
 
 At float64, the reference's own benchmark configs ``bench_sweep_f64/*.ini``
 (isotropic, no stats, CG and Merson tolerances 5e-9), each beside the
@@ -83,6 +95,7 @@ from bachelors_tpu_torch.parallel.mesh import (gather_state, make_mesh, shard_fi
 from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper  # noqa: E402
 from bachelors_tpu_torch.solvers import cg, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.base import make_stepper  # noqa: E402
+from bachelors_tpu_torch.solvers.explicit import make_euler_pair_stepper  # noqa: E402
 from bachelors_tpu_torch.utils.logging import SYSTEM  # noqa: E402
 
 DEVICE = "cuda"
@@ -143,12 +156,20 @@ RKM_STEPS = 2769
 CUT_2048 = ("[simulation]\nmesh_size_x = 2048\nmesh_size_y = 2048\ndt = 3.125e-7\n"
             "stop_after = 2e-4\n[snapshot]\ntimes = 1\n")
 CUT_2048_STEPS = 300
+# RKM on a y(8) mesh of 4-row shards, thinner than K12.2's slabs (ROADMAP
+# §3, fault 1): 32 rows of the shipped config, a seed wide enough to span
+# rows of that height, to 0.004
+THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
+        "circle_radius = 0.3\n[snapshot]\ntimes = 1\n")
+# the exact solver on the 2x2 mesh: 100 steps, as on one device
+EXACT_MESH = "2x2"
 RKM_F64_STEPS = 9539  # the JAX package's f64 controller on this workload
 # every plain version a path could fall back to, by module
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
                     "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
-                    "rkm_attempt_sharded_plain", "merson_finish"),
+                    "rkm_attempt_sharded_plain", "merson_finish",
+                    "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine"),
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
                    "update_xr_rr_plain", "axpby_inplace_plain", "cross_residual_plain",
                    "aniso_residual_plain", "heat_residual_plain"),
@@ -173,6 +194,10 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K12.1": PHYS_OPS + 8,            # K1 on a shard, 3-state blend (k3, k4)
        "K12.1 gather": 8,                # 3-state blend of both fields, per edge cell
        "K12.2": 5 * PHYS_OPS + 32 + 10 + 18,  # K2 on a shard
+       "K12.3": PHYS_OPS + 4,            # K1 in euler mode on a shard, 1 state
+       "K12.4": PHYS_OPS + 4 + 14,       # K4 on a shard
+       "K12.5": 4 * (PHYS_OPS + 4),      # K6 on a shard, 4 Euler steps
+       "K12.6": 4 * PHYS_OPS + 12 + 14,  # K3 on a shard
        "K4": PHYS_OPS + 4 + 14,          # [x, k3] blend, RK4 combination
        "K2": 5 * PHYS_OPS + 32 + 10 + 18,  # blends, update, error maxima
        "K3": 4 * PHYS_OPS + 12 + 14,     # blends, RK4 combination
@@ -185,7 +210,8 @@ PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K
                     "K5": 1, "K12.1": 1, "K12.2": 5}
 # Fields per cell: each input read once, each output written once.
 FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
-          "K12.1 gather": 2 * 3 + 2, "K12.2": 2 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
+          "K12.1 gather": 2 * 3 + 2, "K12.2": 2 + 2, "K12.3": 2 + 2, "K12.4": 8 + 2,
+          "K12.5": 2 + 2, "K12.6": 2 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
           "K6 T=8": 2 + 2, "K7": 2 + 3, "K8 cross": 1 + 1, "K8 aniso": 2 + 1,
           "K9": 4 + 2, "K10": 2 + 1, "K14 cross": 2 + 1, "K14 aniso": 3 + 1,
           "K14 heat": 4 + 1}
@@ -795,11 +821,12 @@ def check_run(res, cfg, grow=True) -> tuple:
     return header, rows, [solid[0], solid[-1]], len(frames)
 
 
-def drive(overrides, grow=True, config=CONFIG, device=None) -> dict:
+def drive(overrides, grow=True, config=CONFIG, device=None, frames=False) -> dict:
     """``run_config_file`` on the card with every kernel launch, every CG
     host read and every call of a plain version counted (each count set to 0
     just before the run and read just after), then what it wrote checked.
-    Any plain call fails: a path on the card runs its kernels."""
+    Any plain call fails: a path on the card runs its kernels.  With
+    ``frames``, the result also holds every frame's maps by file name."""
     cfg = load_config(config, overrides)
     plain_calls = {}
     originals = {(mod, name): getattr(mod, name) for mod, names in PLAIN.items()
@@ -827,11 +854,14 @@ def drive(overrides, grow=True, config=CONFIG, device=None) -> dict:
                 setattr(mod, name, fn)
             SYSTEM.set_file(None)  # the run's log.txt lives in the temp folder
         header, rows, solid, n_frames = check_run(res, cfg, grow)
+        maps = ({name: load_bin_maps(os.path.join(res.save_folder, name)).maps
+                 for name in os.listdir(res.save_folder) if name.endswith(".bin")}
+                if frames else None)
     if plain_calls:
         raise AssertionError(f"the path left the kernels: {plain_calls}")
     p = cfg.params
     return dict(cfg=cfg, res=res, launches=launches, host_reads=host_reads,
-                header=header, rows=rows,
+                header=header, rows=rows, frames=maps,
                 summary=dict(config=os.path.relpath(config, ROOT), grid=f"{p.ny}x{p.nx}",
                              dtype=p.dtype, solver=p.solver.value,
                              stop_after=cfg.stop_time, steps=res.iters,
@@ -900,7 +930,7 @@ def euler_path() -> dict:
     n, steps = run["launches"], run["res"].iters
     expect(n["blend_rhs"] == steps > 0 and sum(n.values()) == steps, "K1 once per step", run)
     phase("Euler path", **run["summary"])
-    return n
+    return n, run["summary"]
 
 
 def beside_a100(run: str, summary: dict) -> dict:
@@ -929,7 +959,7 @@ def euler_blocks_path(overrides, T, name, f64_run=None, want_launches=None) -> d
         expect(n["euler_steps"] == want_launches, f"{want_launches} K6 launches", run)
     phase(name, steps_per_K6_launch=T, single_steps_K1=n["blend_rhs"],
           **beside_a100(f64_run, run["summary"]), **run["summary"])
-    return n
+    return n, run["summary"]
 
 
 def rk4_staged_path(overrides, name, f64_run=None) -> dict:
@@ -940,7 +970,7 @@ def rk4_staged_path(overrides, name, f64_run=None) -> dict:
     expect(steps > 0 and n["blend_rhs"] == 3 * steps and n["rk4_final_stage"] == steps
            and sum(n.values()) == 4 * steps, "K1 x 3 + K4 per step, nothing else", run)
     phase(name, **beside_a100(f64_run, run["summary"]), **run["summary"])
-    return n
+    return n, run["summary"]
 
 
 def rk4_cut_path(overrides, name, config=CONFIG) -> dict:
@@ -955,15 +985,16 @@ def rk4_cut_path(overrides, name, config=CONFIG) -> dict:
     solid = run["summary"]["solid_fraction"]
     phase(name, solid_fraction_held="did not fall", grew=solid[1] > solid[0],
           **run["summary"])
-    return n
+    return n, run["summary"]
 
 
-def exact_path() -> None:
+def exact_path() -> dict:
     """The exact solver (analytic fields at each step's start time): no
-    kernel."""
-    run = drive([EXACT])
+    kernel.  Returns the run (its frames kept)."""
+    run = drive([EXACT], frames=True)
     expect(run["res"].iters > 0 and sum(run["launches"].values()) == 0, "no kernel", run)
     phase("exact solver path", **run["summary"])
+    return run
 
 
 # ------------------------------------------------------------------ the mesh
@@ -1148,6 +1179,203 @@ def mesh_path(name, sy, sx, single, overrides=(), grow=True) -> dict:
     return L
 
 
+def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
+    """K12.3 (an Euler step) and K12.4 (RK4's last stage) on y(2), x(2) and
+    2x2, K12.5 (4 Euler steps) and K12.6 (an RK4 step) on y(2) and y(4)
+    (66 rows do not split in 4), against their plain versions shard by
+    shard, at every BC pair, 512^2 and 66x258, from a seeded state; K12.5's
+    and K12.6's joined results also against K6 and K3 on the whole grid.
+    Timed on one shard of the mesh each runs on in a run: K12.3 and K12.4
+    on x(2) at 512^2 (512x256), K12.5 on y(2) at 512^2 (256x512), K12.6 on
+    y(2) of the 4096^2 cut (2048x4096)."""
+    names = ("K12.3", "K12.4", "K12.5", "K12.6")
+    worst = {k: [0.0, 0.0] for k in names}
+    joined = {"K12.5 vs K6": [0.0, 0.0], "K12.6 vs K3": [0.0, 0.0]}
+    cases = 0
+    slab_kernels = (
+        ("K12.5", "K12.5 vs K6", 4,
+         lambda f, u, sl, y0, p, d: cuda_rhs.euler_steps_sharded(f, u, sl, y0, p, 4, 0.03, d),
+         lambda f, u, sl, y0, p, d: cuda_rhs.euler_steps_sharded_plain(f, u, sl, y0, p, 4,
+                                                                        0.03, d),
+         lambda F, U, p, d: cuda_rhs.euler_steps(F, U, p, 4, 0.03, d)),
+        ("K12.6", "K12.6 vs K3", cuda_rhs.RK4_SLAB_ROWS,
+         lambda f, u, sl, y0, p, d: cuda_rhs.rk4_full_sharded(f, u, sl, y0, p, 0.03, d),
+         lambda f, u, sl, y0, p, d: cuda_rhs.rk4_full_sharded_plain(f, u, sl, y0, p, 0.03, d),
+         lambda F, U, p, d: cuda_rhs.rk4_full(F, U, p, 0.03, d)))
+    for p, d, what in check_cases("float32", sizes, physics=(dict(S=0.25, m0=6.0),
+                                                             dict(S=0.0, m0=6.0))):
+        x = seeded(rng, p.ny, p.nx)
+        k1, k2, k3 = fields(rng, p.ny, p.nx, 3)
+        for mname, (sy, sx) in MESHES.items():
+            mesh, topo = on_mesh(sy, sx)
+            sh = [tuple(shard_field(t, mesh, topo) for t in pair) for pair in (x, k1, k2, k3)]
+            for k, h in enumerate(stage_halos(sh[:1], [1.0], topo)):
+                st = shard_states(sh[:1], k)
+                hold("K12.3",
+                     cuda_rhs.blend_rhs_sharded(st, [1.0], p, h, 0.03, d, is_euler=True),
+                     cuda_rhs.blend_rhs_sharded_plain(st, [1.0], p, h, 0.03, d, is_euler=True),
+                     f"{what} {mname} shard {k}", worst["K12.3"])
+            for k, h in enumerate(stage_halos([sh[0], sh[3]], [1.0, p.dt], topo)):
+                st = shard_states(sh, k)
+                hold("K12.4", cuda_rhs.rk4_final_stage(*st, p, 0.03, d, halo=h),
+                     cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d, halo=h),
+                     f"{what} {mname} shard {k}", worst["K12.4"])
+        for sy in (2, 4):
+            if p.ny % sy:
+                continue
+            mesh, topo = on_mesh(sy, 1)
+            F, U = (shard_field(t, mesh, topo) for t in x)
+            for name, gap, depth, kernel, plain, whole in slab_kernels:
+                out = []
+                slabs = topo.slabs(F, U, depth)
+                for k, (f, u, sl) in enumerate(zip(F.blocks, U.blocks, slabs)):
+                    y0 = k * (p.ny // sy)
+                    got = kernel(f, u, sl, y0, p, d)
+                    hold(name, got, plain(f, u, sl, y0, p, d), f"{what} y({sy}) shard {k}",
+                         worst[name])
+                    out.append(got)
+                hold(gap, [torch.cat([o[i] for o in out]) for i in (0, 1)], whole(*x, p, d),
+                     f"{what} y({sy})", joined[gap])
+        cases += 1
+    torch.cuda.synchronize()
+
+    p = params(512, 512, "neumann")
+    x = seeded(rng, 512, 512)
+    xmesh, xtopo = on_mesh(1, 2)
+    sh = [tuple(shard_field(t, xmesh, xtopo) for t in pair)
+          for pair in [x] + fields(rng, 512, 512, 3)]
+    h1 = stage_halos(sh[:1], [1.0], xtopo)[0]
+    h4 = stage_halos([sh[0], sh[3]], [1.0, p.dt], xtopo)[0]
+    st1, st4 = shard_states(sh[:1], 0), shard_states(sh, 0)
+    ymesh, ytopo = on_mesh(2, 1)
+    f0, u0 = (shard_field(t, ymesh, ytopo).blocks[0] for t in x)
+    F, U = (shard_field(t, ymesh, ytopo) for t in x)
+    slab = ytopo.slabs(F, U, 4)[0]
+    big = load_config(CONFIG, [RK4, CUT]).params
+    Fb, Ub = (shard_field(t, ymesh, ytopo) for t in seeded(rng, big.ny, big.nx))
+    fb, ub = Fb.blocks[0], Ub.blocks[0]
+    big_slab = ytopo.slabs(Fb, Ub, cuda_rhs.RK4_SLAB_ROWS)[0]
+    timed = {
+        "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(st1, [1.0], p, h1, is_euler=True),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(st1, [1.0], p, h1, is_euler=True),
+                  512 * 256, 50),
+        "K12.4": (lambda: cuda_rhs.rk4_final_stage(*st4, p, halo=h4),
+                  lambda: cuda_rhs.rk4_final_stage_plain(*st4, p, halo=h4), 512 * 256, 50),
+        "K12.5": (lambda: cuda_rhs.euler_steps_sharded(f0, u0, slab, 0, p, 4),
+                  lambda: cuda_rhs.euler_steps_sharded_plain(f0, u0, slab, 0, p, 4),
+                  256 * 512, 50),
+        "K12.6": (lambda: cuda_rhs.rk4_full_sharded(fb, ub, big_slab, 0, big),
+                  lambda: cuda_rhs.rk4_full_sharded_plain(fb, ub, big_slab, 0, big),
+                  2048 * 4096, 5),
+    }
+    entries = {}
+    for name, (kernel, plain, cells, reps) in timed.items():
+        ms, plain_ms = time_pair(kernel, plain, reps=reps)
+        entries[name] = {"max_abs_err": worst[name][1], "ms": ms, "plain_ms": plain_ms,
+                         **bound(name, cells), "library_ms": None}
+    phase("mesh kernels K12.3, K12.4 (y(2), x(2), 2x2), K12.5, K12.6 (y(2), y(4)) vs plain",
+          cases=cases, meshes=list(MESHES) + ["y(4)"],
+          max_rel_err={k: v[0] for k, v in worst.items()},
+          max_abs_err={k: v[1] for k, v in worst.items()}, tol=FIELD_TOL,
+          joined_over_y_mesh_vs_whole_grid_max_abs={k: v[1] for k, v in joined.items()},
+          library="none: no PyTorch call computes them",
+          ms_one_shard={k: {"kernel": v["ms"], "plain": v["plain_ms"],
+                            "cells": timed[k][2]} for k, v in entries.items()})
+    return entries
+
+
+def check_mesh_fixed_locksteps(F0, U0, steps=5) -> None:
+    """The first steps of Euler (stats on) and RK4 (staged) on each mesh,
+    and of the Euler pair on y(2), against the single-device kernel stepper
+    (K1, K1 x 3 + K4, K6), each from the same state; fields and step
+    increments held as ``hold_step`` says.  The routes run K1's, K4's and
+    K6's arithmetic per cell, so their gaps are expected to be 0."""
+    out = {}
+    for route, overrides in (("Euler", [EULER]), ("RK4 staged", [RK4])):
+        p = load_config(CONFIG, overrides).params
+        one = make_stepper(p)
+        for mname, (sy, sx) in MESHES.items():
+            mesh, topo = on_mesh(sy, sx)
+            step = make_sharded_stepper(p, mesh, topo)
+            state = make_state(F0, U0, p, device=DEVICE)
+            worst = [0.0, 0.0]
+            for _ in range(steps):
+                a, _ = one(state)
+                b, _ = step(shard_state(state, mesh, topo))
+                hold_step(gather_state(b), a, state, worst, f"{route} lockstep on {mname}")
+                state = a
+            out[f"{route} on {mname}"] = {"max_rel_err": worst[0],
+                                          "max_increment_rel_err": worst[1]}
+    p = load_config(CONFIG, [EULER, NO_STATS]).params
+    mesh, topo = on_mesh(2, 1)
+    one, pair = make_euler_pair_stepper(p), make_euler_pair_stepper(p, topo, mesh)
+    if one is None or pair is None:
+        raise AssertionError("the Euler pair declined the shipped config on y(2)")
+    state = make_state(F0, U0, p, device=DEVICE)
+    worst = [0.0, 0.0]
+    for _ in range(steps):
+        a = one(state)
+        b = gather_state(pair(shard_state(state, mesh, topo)))
+        hold_step(b, a, state, worst, "Euler pair lockstep on y(2)")
+        state = a
+    out["Euler pair (K12.5 vs K6) on y(2)"] = {"max_rel_err": worst[0],
+                                               "max_increment_rel_err": worst[1]}
+    phase("mesh locksteps, Euler, Euler pair and RK4, vs single-device kernels", steps=steps,
+          tol=FIELD_TOL, increment_tol="tol * max|increment| + 2 ulp(max|field|)", routes=out)
+
+
+def corrector_path() -> dict:
+    """Euler with the corrector loop on one device (3 iterations, step
+    residuals, 800 steps): K1 in euler mode once per step and in rhs mode
+    for each re-step; the yardstick of its mesh run."""
+    run = drive([EULER, CORRECTOR])
+    n, steps = run["launches"], run["res"].iters
+    expect(steps > 0 and n["blend_rhs"] == 4 * steps and sum(n.values()) == 4 * steps,
+           "K1 once per step and once per re-step", run)
+    phase("Euler corrector path", **run["summary"])
+    return run["summary"]
+
+
+def mesh_fixed_path(name, sy, sx, overrides, single, want, grow=True, frames=False) -> dict:
+    """A fixed-dt path through ``run_config_file`` on a (sy, sx) mesh of the
+    one card: exactly the one-device run's step count (``single``, its
+    summary), and exactly the launches ``want(steps, shards)``, nothing
+    else.  Returns the run."""
+    n = sy * sx
+    run = drive([f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n", *overrides], grow=grow,
+                device=[DEVICE] * n, frames=frames)
+    L, steps = run["launches"], run["res"].iters
+    expect(steps == single["steps"], f"the one-device {single['steps']} steps", run)
+    expected = want(steps, n)
+    expect({k: v for k, v in L.items() if v} == expected, f"launches {expected}", run)
+    phase(name, shards=[sy, sx], single_device_steps=single["steps"],
+          single_device_ms_per_step=single["ms_per_step"],
+          ms_per_step_vs_single=run["summary"]["ms_per_step"] / single["ms_per_step"],
+          **run["summary"])
+    return run
+
+
+def thin_shards_path() -> dict:
+    """ROADMAP §3 fault 1: RKM on a 32-row cut on y(8), shards of 4 rows,
+    thinner than K12.2's 5-row slabs: the staged attempt (K12.1 for k1
+    once per step and k2..k4 per attempt, K5 per attempt, the gather before
+    each, per shard), within 1% of the one-device run's steps."""
+    one = drive([THIN])
+    expect(one["launches"]["rkm_attempt"] == one["res"].attempts > 0, "K2 per attempt", one)
+    run = drive(["[tpu]\nshards_y = 8\n", THIN], device=[DEVICE] * 8)
+    L, steps, attempts = run["launches"], run["res"].iters, run["res"].attempts
+    want = {"blend_rhs_sharded": (steps + 3 * attempts) * 8,
+            "rkm_final_stage": attempts * 8, "halo_edges": (steps + 4 * attempts) * 8}
+    expect({k: v for k, v in L.items() if v} == want, f"the staged attempt: {want}", run)
+    expect(abs(steps - one["res"].iters) <= 0.01 * one["res"].iters,
+           f"within 1% of the one-device {one['res'].iters} steps", run)
+    phase("RKM, 32-row cut on a y(8) mesh (4-row shards: staged route)", shards=[8, 1],
+          shard_rows=4, attempts=attempts, single_device_steps=one["res"].iters,
+          single_device_attempts=one["res"].attempts,
+          single_device_ms_per_step=one["summary"]["ms_per_step"], **run["summary"])
+    return L
+
+
 # ------------------------------------------------------------- float64 paths
 
 
@@ -1225,6 +1453,7 @@ def main() -> None:
     k7 = check_k7(rng)
     k8_10 = check_cg_kernels(rng, si_cfg.params)
     mesh_k = check_mesh_kernels(rng)
+    mesh_fixed_k = check_mesh_fixed_kernels(rng)
 
     f64 = {name: load_config(sweep(name)) for name in F64_RUNS}
     F64, U64 = make_initial_fields(f64["rkm"].params, f64["rkm"].initial, device=DEVICE)
@@ -1238,6 +1467,7 @@ def main() -> None:
 
     check_lockstep(cfg, F0, U0)
     check_mesh_lockstep(cfg, F0, U0)
+    check_mesh_fixed_locksteps(F0, U0)
     check_si_lockstep(si_cfg, F0, U0)
     check_rk4_lockstep([("512^2, staged", load_config(CONFIG, [RK4])),
                         ("4096^2 cut, K3", load_config(CONFIG, [RK4, CUT]))])
@@ -1255,21 +1485,55 @@ def main() -> None:
     cut = mesh_path("RKM, 2048^2 cut on a y(4) mesh", 4, 1, None, [CUT_2048], grow=False)
     si = si_path([SEMI], "semi-implicit path")
     si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
-    euler = euler_path()
-    euler_fast = euler_blocks_path([EULER, NO_STATS], 4, "Euler path, stats off")
-    rk4 = rk4_staged_path([RK4], "RK4 path (512^2, staged route)")
-    rk4_cut = rk4_cut_path([RK4, CUT], "RK4 path (4096^2 cut, whole-step route)")
-    exact_path()
+    euler, euler_one = euler_path()
+    euler_fast, euler_fast_one = euler_blocks_path([EULER, NO_STATS], 4,
+                                                   "Euler path, stats off")
+    rk4, rk4_one = rk4_staged_path([RK4], "RK4 path (512^2, staged route)")
+    rk4_cut, rk4_cut_one = rk4_cut_path([RK4, CUT], "RK4 path (4096^2 cut, whole-step route)")
+    exact = exact_path()
+
+    # the same fixed-dt paths on meshes of the one card, each to the
+    # one-device step count
+    euler_mesh = {m: mesh_fixed_path(
+        f"Euler path on a {m} mesh", *shape, [EULER], euler_one,
+        lambda steps, n: {"blend_rhs_sharded_euler": steps * n, "halo_edges": steps * n})
+        for m, shape in MESHES.items()}
+    euler_pair_mesh = mesh_fixed_path(
+        "Euler path, stats off, on a y(2) mesh", 2, 1, [EULER, NO_STATS], euler_fast_one,
+        lambda steps, n: {"euler_steps_sharded": steps // 4 * n})
+    corrector_mesh = mesh_fixed_path(
+        "Euler corrector path on an x(2) mesh", 1, 2, [EULER, CORRECTOR], corrector_path(),
+        lambda steps, n: {"blend_rhs_sharded_euler": steps * n,
+                          "blend_rhs_sharded": 3 * steps * n, "halo_edges": 4 * steps * n})
+    rk4_mesh = {m: mesh_fixed_path(
+        f"RK4 path on a {m} mesh (staged)", *shape, [RK4], rk4_one,
+        lambda steps, n: {"blend_rhs_sharded": 3 * steps * n,
+                          "rk4_final_stage_sharded": steps * n, "halo_edges": 4 * steps * n})
+        for m, shape in MESHES.items()}
+    rk4_cut_mesh = mesh_fixed_path(
+        "RK4 path, 4096^2 cut on a y(2) mesh (whole step per shard)", 2, 1, [RK4, CUT],
+        rk4_cut_one, lambda steps, n: {"rk4_full_sharded": steps * n}, grow=False)
+    exact_mesh = mesh_fixed_path(
+        f"exact solver path on a {EXACT_MESH} mesh", *MESHES[EXACT_MESH], [EXACT],
+        exact["summary"], lambda steps, n: {}, frames=True)
+    if exact_mesh["frames"].keys() != exact["frames"].keys() or not all(
+            np.array_equal(exact_mesh["frames"][f][k], exact["frames"][f][k])
+            for f in exact["frames"] for k in ("F", "U")):
+        raise AssertionError("the exact solver's mesh frames differ from one device's")
+    phase("exact solver on a mesh: frames equal to one device's", mesh=EXACT_MESH,
+          frames=sorted(exact["frames"]), equal="bit for bit")
+    thin_shards_path()
 
     rkm64 = rkm_f64_path()
     si64 = si_f64_path()
-    euler64 = euler_blocks_path([FIRST_FRAME], 4, "float64 Euler path (512^2, stats off)",
-                                "euler", want_launches=2000)
-    euler64_1024 = euler_blocks_path([FIRST_FRAME], 8, "float64 Euler path (1024^2, stats off)",
-                                     "euler 1024", want_launches=1000)
-    rk4_64 = rk4_staged_path([FIRST_FRAME], "float64 RK4 path (512^2, staged route)", "rk4")
-    rk4_64_cut = rk4_cut_path([FIRST_FRAME, CUT], "float64 RK4 path (4096^2 cut, K3)",
-                              sweep("rk4"))
+    euler64, _ = euler_blocks_path([FIRST_FRAME], 4, "float64 Euler path (512^2, stats off)",
+                                   "euler", want_launches=2000)
+    euler64_1024, _ = euler_blocks_path([FIRST_FRAME], 8,
+                                        "float64 Euler path (1024^2, stats off)",
+                                        "euler 1024", want_launches=1000)
+    rk4_64, _ = rk4_staged_path([FIRST_FRAME], "float64 RK4 path (512^2, staged route)", "rk4")
+    rk4_64_cut, _ = rk4_cut_path([FIRST_FRAME, CUT], "float64 RK4 path (4096^2 cut, K3)",
+                                 sweep("rk4"))
 
     rhs_src, cg_src = "rhs.cu", "cg.cu"
     pallas_rhs, pallas_cg = "bachelors_tpu/ops/pallas_rhs.py", "bachelors_tpu/ops/pallas_cg.py"
@@ -1311,6 +1575,23 @@ def main() -> None:
                      "2048^2 y(4) cut)", rhs_src, f"{pallas_rhs}:1185",
                      mesh_runs["y(2)"]["rkm_attempt_sharded"] + cut["rkm_attempt_sharded"],
                      mesh_k["K12.2"]),
+        kernel_entry("K12.3 blend_rhs_sharded, euler mode (K1's Euler step with ghosts; "
+                     "Euler on y(2), x(2), 2x2 and the corrector's first pass on x(2))",
+                     rhs_src, f"{pallas_rhs}:744",
+                     sum(r["launches"]["blend_rhs_sharded_euler"]
+                         for r in [*euler_mesh.values(), corrector_mesh]),
+                     mesh_fixed_k["K12.3"]),
+        kernel_entry("K12.4 rk4_final_stage with ghosts (RK4 stage 4 + combination; RK4 on "
+                     "y(2), x(2), 2x2)", rhs_src, f"{pallas_rhs}:756",
+                     sum(r["launches"]["rk4_final_stage_sharded"] for r in rk4_mesh.values()),
+                     mesh_fixed_k["K12.4"]),
+        kernel_entry("K12.5 euler_steps_sharded (K6 with ghost slabs, 4 Euler steps per "
+                     "pass; Euler without stats on y(2))", rhs_src, f"{pallas_rhs}:1315",
+                     euler_pair_mesh["launches"]["euler_steps_sharded"],
+                     mesh_fixed_k["K12.5"]),
+        kernel_entry("K12.6 rk4_full_sharded (K3 with ghost slabs; RK4 on the 4096^2 cut on "
+                     "y(2))", rhs_src, f"{pallas_rhs}:1231",
+                     rk4_cut_mesh["launches"]["rk4_full_sharded"], mesh_fixed_k["K12.6"]),
         kernel_entry("K1 blend_rhs at float64 (float64 RK4 path, k1-k3)", rhs_src,
                      f"{pallas_rhs}:344", rk4_64["blend_rhs"], d1),
         kernel_entry("K2 rkm_attempt at float64 (K13's scheme rkm; float64 RKM path)",

@@ -472,3 +472,78 @@ def test_k12_2_matches_plain_and_k2(f_bc, u_bc, shards, gen, cuda_device):  # no
         for i in (0, 1):
             assert torch.equal(Shards(tuple(o[i] for o in out), (shards, 1)).gather(), whole[i])
         assert torch.equal(topo.allmax([o[2] for o in out]), whole[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
+def test_mesh_euler_and_rk4_stage_kernels_match_plain(f_bc, u_bc, sy, sx, gen,
+                                                      cuda_device):  # noqa: F811
+    """K12.3 (K12.1 in euler mode) and K12.4 (K4 with the ghosts of [x, k3])
+    shard by shard against their plain versions, each counted under its
+    own name."""
+    from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo = Topology(sy, sx)
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    for ny, nx in MESH_SIZES:
+        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+        x, k1, k2, k3 = _mesh_states(gen, ny, nx, sy, sx, 4, cuda_device)
+        for k, h in enumerate(stage_halos([x], [1.0], topo)):
+            st = shard_states([x], k)
+            before = cuda_rhs.LAUNCHES["blend_rhs_sharded_euler"]
+            got = cuda_rhs.blend_rhs_sharded(st, [1.0], p, h, 0.03, d, is_euler=True)
+            assert cuda_rhs.LAUNCHES["blend_rhs_sharded_euler"] == before + 1
+            want = cuda_rhs.blend_rhs_sharded_plain(st, [1.0], p, h, 0.03, d, is_euler=True)
+            for g, wt in zip(got, want):
+                assert_match(g, wt)
+        states = [x, k1, k2, k3]
+        for k, h in enumerate(stage_halos([x, k3], [1.0, p.dt], topo)):
+            st = shard_states(states, k)
+            before = cuda_rhs.LAUNCHES["rk4_final_stage_sharded"]
+            got = cuda_rhs.rk4_final_stage(*st, p, 0.03, d, halo=h)
+            assert cuda_rhs.LAUNCHES["rk4_final_stage_sharded"] == before + 1
+            want = cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d, halo=h)
+            for g, wt in zip(got, want):
+                assert_match(g, wt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
+def test_k12_5_and_k12_6_match_plain_and_whole_grid(f_bc, u_bc, shards, gen,
+                                                     cuda_device):  # noqa: F811
+    """K12.5 (4 Euler steps) and K12.6 (an RK4 step) on a y-mesh from ghost
+    slabs against their plain versions, and the y-mesh's joined result
+    against K6 and K3 on the whole grid: the same arithmetic per cell, so
+    equal bit for bit."""
+    from bachelors_tpu_torch.core.state import Shards
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo = Topology(shards, 1)
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    for ny, nx in MESH_SIZES:
+        if ny % shards:
+            continue
+        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+        F0, U0 = _seeded(gen, ny, nx, cuda_device)
+        F, U = (Shards(tuple(a.split(ny // shards)), (shards, 1)) for a in (F0, U0))
+        F, U = (Shards(tuple(b.contiguous() for b in S.blocks), S.grid) for S in (F, U))
+        for depth, kernel, plain, whole in (
+                (4, lambda *a: cuda_rhs.euler_steps_sharded(*a[:5], 4, 0.03, d),
+                 lambda *a: cuda_rhs.euler_steps_sharded_plain(*a[:5], 4, 0.03, d),
+                 cuda_rhs.euler_steps(F0, U0, p, 4, 0.03, d)),
+                (cuda_rhs.RK4_SLAB_ROWS,
+                 lambda *a: cuda_rhs.rk4_full_sharded(*a, 0.03, d),
+                 lambda *a: cuda_rhs.rk4_full_sharded_plain(*a, 0.03, d),
+                 cuda_rhs.rk4_full(F0, U0, p, 0.03, d))):
+            slabs = topo.slabs(F, U, depth)
+            out = []
+            for k, (f, u, s) in enumerate(zip(F.blocks, U.blocks, slabs)):
+                got = kernel(f, u, s, k * (ny // shards), p)
+                for g, wt in zip(got, plain(f, u, s, k * (ny // shards), p)):
+                    assert_match(g, wt)
+                out.append(got)
+            for i in (0, 1):
+                assert torch.equal(torch.cat([o[i] for o in out]), whole[i])

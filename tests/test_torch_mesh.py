@@ -8,6 +8,9 @@ JAX package on the conftest's 8 virtual CPU devices.
     f32: fields to 2e-5 max(|x|, 1), the error maxima to rtol 1e-4;
   * K12.1's plain version, with the port's ghost gather and exchange,
     against ``blend_rhs_pallas_sharded`` on a 2x2 mesh, in interpret mode;
+    so K12.3's (K12.1 in euler mode) with ``is_euler=True``, and K12.4's
+    (K4 with the ghosts of [x, k3]) against
+    ``rk4_final_stage_pallas_sharded``;
   * ``make_mesh`` with too few devices.
 
 The JAX ghost kernels take shards of at least 16 rows and a multiple of
@@ -181,6 +184,60 @@ def test_plain_k12_1_matches_pallas_interpret(bc, n, rng):
     sh = _shards_of(states, 2, 2)
     halos = stage_halos(sh, w, topo)
     out = [cuda_rhs.blend_rhs_sharded(shard_states(sh, k), w, tp, h, 0.03, d)
+           for k, h in enumerate(halos)]
+    for f in (0, 1):
+        assert_match(shards_to_numpy(Shards(tuple(o[f] for o in out), (2, 2))), want[f])
+
+
+@pytest.mark.parametrize("bc", BCS)
+def test_plain_k12_3_matches_pallas_interpret(bc, rng):
+    """An Euler step on a 2x2 mesh: ghost gather, exchange and plain K12.3
+    per shard, against ``blend_rhs_pallas_sharded(is_euler=True)``, with a
+    Dirichlet value (as given) where the field has one."""
+    jp, tp = both_params(ny=64, nx=256, S=0.3, m0=6.0, theta0=0.1,
+                         Phi_boundary=JBC(bc), T_boundary=JBC(bc), dtype="float32")
+    (F, U), = random_fields(rng, 64, 256, "float32")
+    d = 0.25 if bc == "dirichlet" else 0.0
+
+    def jax_euler(t, f, u):
+        return pallas_rhs.blend_rhs_pallas_sharded([(f, u)], [1.0], jp, t.axis_y, fu=0.03,
+                                                   dirichlet_value=d, is_euler=True,
+                                                   interpret=True, axis_x=t.axis_x)
+
+    fn, mesh = _shard_map(jax_euler, 2, 2, 2, lambda s: (s, s))
+    with jax.set_mesh(mesh):
+        want = fn(jnp.asarray(F), jnp.asarray(U))
+    topo = Topology(2, 2)
+    sh = _shards_of([(F, U)], 2, 2)
+    out = [cuda_rhs.blend_rhs_sharded(shard_states(sh, k), [1.0], tp, h, 0.03, d,
+                                      is_euler=True)
+           for k, h in enumerate(stage_halos(sh, [1.0], topo))]
+    for f in (0, 1):
+        assert_match(shards_to_numpy(Shards(tuple(o[f] for o in out), (2, 2))), want[f])
+
+
+def test_plain_k12_4_matches_pallas_interpret(rng):
+    """RK4's fourth stage and combination on a 2x2 mesh: the ghosts of [x,
+    k3] at weights [1, dt], then plain K12.4 per shard, against
+    ``rk4_final_stage_pallas_sharded`` with a Dirichlet value as given."""
+    jp, tp = both_params(ny=64, nx=256, S=0.3, m0=6.0, theta0=0.1, dt=1e-3,
+                         Phi_boundary=JBC.DIRICHLET, T_boundary=JBC.DIRICHLET,
+                         dtype="float32")
+    states = random_fields(rng, 64, 256, "float32", 4)
+
+    def jax_k4(t, *a):
+        x, k1, k2, k3 = [(a[2 * i], a[2 * i + 1]) for i in range(4)]
+        return pallas_rhs.rk4_final_stage_pallas_sharded(
+            x, k1, k2, k3, jp, t.axis_y, fu=0.03, dirichlet_value=0.25, interpret=True,
+            axis_x=t.axis_x)
+
+    fn, mesh = _shard_map(jax_k4, 2, 2, 8, lambda s: (s, s))
+    with jax.set_mesh(mesh):
+        want = fn(*[jnp.asarray(a) for s in states for a in s])
+    topo = Topology(2, 2)
+    sh = _shards_of(states, 2, 2)
+    halos = stage_halos([sh[0], sh[3]], [1.0, tp.dt], topo)
+    out = [cuda_rhs.rk4_final_stage(*shard_states(sh, k), tp, 0.03, 0.25, halo=h)
            for k, h in enumerate(halos)]
     for f in (0, 1):
         assert_match(shards_to_numpy(Shards(tuple(o[f] for o in out), (2, 2))), want[f])
