@@ -71,11 +71,6 @@ def check_supported(cfg: SimConfig) -> None:
     ROADMAP item that brings each, instead of ignoring them."""
     cfg.params.validate()
     todo = []
-    if (cfg.shards_y > 1 or cfg.shards_x > 1) and (
-            cfg.params.solver == SolverType.SEMI_IMPLICIT):
-        todo.append(f"[tpu] shards_y/shards_x > 1 with solver = "
-                    f"{cfg.params.solver.value} (ROADMAP slice 5b.2, item 15: the seam "
-                    "twins of K7 and K8)")
     if cfg.ensemble > 1 or cfg.batch_shards > 1:
         todo.append("[tpu] ensemble/batch_shards > 1 (ROADMAP slice 4, "
                     "item 13: ensembles)")
@@ -115,7 +110,7 @@ def _initial_state(cfg: SimConfig, device: torch.device) -> SimState:
     return make_state(F, U, p, device=device)
 
 
-def _echo_config(cfg: SimConfig, device: torch.device) -> None:
+def _echo_config(cfg: SimConfig, device: torch.device, topo: Topology) -> None:
     p = cfg.params
     log.info(f"solver = {p.solver.value}")
     log.info(f"T_boundary = {p.T_boundary.value}")
@@ -127,7 +122,7 @@ def _echo_config(cfg: SimConfig, device: torch.device) -> None:
               "S", "m0", "theta0", "dtype", "backend"):
         log.info(f"{k} = {getattr(p, k)}")
     if p.solver == SolverType.SEMI_IMPLICIT:
-        log.info(f"semi-implicit phase solve: {cg_branch(p, device)}")
+        log.info(f"semi-implicit phase solve: {cg_branch(p, device, topo)}")
 
 
 def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
@@ -201,7 +196,7 @@ def run_simulation(cfg: SimConfig, device="cuda",
         folder = make_save_folder(cfg.snapshot_folder, cfg.snapshot_prefix,
                                   cfg.snapshot_postfix, p.solver.value)
         SYSTEM.set_file(os.path.join(folder, "log.txt"))
-    _echo_config(cfg, dev)
+    _echo_config(cfg, dev, topo)
     log.info(f"device = {dev}"
              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
     if mesh is not None:

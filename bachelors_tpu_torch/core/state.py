@@ -84,6 +84,13 @@ class Shards:
 Field = Union[torch.Tensor, Shards]
 
 
+def each(fn, *fields: Field) -> Field:
+    """``fn`` of the fields' tensors; on a mesh, shard by shard."""
+    if isinstance(fields[0], Shards):
+        return fields[0].map(fn, *fields[1:])
+    return fn(*fields)
+
+
 @dataclasses.dataclass
 class SimState:
     """Fields + clock + adaptive step size of one simulation.

@@ -24,6 +24,17 @@
 //     per block, then a one-block kernel adds the partials.  The output may
 //     be a dead buffer the caller passes in, never p (the wrapper checks).
 //
+// K12.8 bt_matvec_pAp_halo_f32: replaces `pallas_cg.py:
+//     cross_matvec_pAp_sharded` (:238) and `aniso_matvec_pAp_sharded` (:249),
+//     both `_matvec_pAp` with ghost rows and columns (`_ghost_kw` :223).  K8
+//     itself with a Halo (physics.cuh): at a seam it reads p's ghost row or
+//     column (the ghost gather of (p, p), as `_ghost_kw` sends it, exchanged
+//     by the caller), at a global edge the image at value 0 (-p for
+//     Dirichlet), or the ghost for a periodic field.  Its <p, Ap> is the
+//     shard's own; the caller adds the shards' partials.  Each cell runs K8's
+//     arithmetic on the values K8 reads, so the joined A p equals K8's bit for
+//     bit; the dot adds in another order.  Bound by bytes like K8.
+//
 // K9  bt_update_xr_rr: replaces `pallas_cg.py:_update_xr_rr` (:310,
 //     entry `update_xr_rr` :343).  x += alpha p and r -= alpha Ap in place,
 //     and <r', r'> of the new r: block partials, then the one-block sum.
@@ -82,11 +93,14 @@ __device__ __forceinline__ Real block_sum(Real v, Real* red) {
 
 // ---------------------------------------------------------------- K8 ----
 
+// K8 on the whole grid (h = whole_grid) or, with a halo (field 0 of its
+// ghosts is p's), K12.8 on a shard; the partials then sum the shard's own
+// cells only.
 template <bool WITH_S, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     matvec_pAp_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
                       Real* __restrict__ out, Real* __restrict__ partials, int ny,
-                      int nx, int bc, Real C, Real X, Real Y) {
+                      int nx, int bc, Real C, Real X, Real Y, Halo<Real> h) {
   __shared__ Real red[kCgThreads / 32];
   const int j = blockIdx.x * kCgBlockX + threadIdx.x;
   const int i = blockIdx.y * kCgBlockY + threadIdx.y;
@@ -94,7 +108,7 @@ __global__ void __launch_bounds__(kCgThreads)
   if (i < ny && j < nx) {
     const int c = i * nx + j;
     const Real pc = p[c];
-    const Cross<Real> n = cross_of(p, bc, pc, Real(0), i, j, ny, nx);
+    const Cross<Real> n = cross_at(Load<Real>{p}, bc, 0, pc, Real(0), h, i, j, ny, nx);
     Real Av;
     if (WITH_S) {
       const Real sv = s[c];
@@ -162,7 +176,8 @@ __global__ void __launch_bounds__(kCgThreads)
   if (i >= ny || j >= nx) return;
   const int c = i * nx + j;
   const Real ec = e[c];
-  const Cross<Real> n = cross_of(e, bc, ec, Real(0), i, j, ny, nx);
+  const Cross<Real> n =
+      cross_at(Load<Real>{e}, bc, 0, ec, Real(0), whole_grid<Real>(), i, j, ny, nx);
   Real Ae;
   if (MODE == kResAniso) {
     const Real sv = a[c];
@@ -197,13 +212,14 @@ inline int pointwise_blocks(int n) { return (n + kCgThreads - 1) / kCgThreads; }
 
 template <class Real>
 int matvec_pAp(const Real* p, const Real* s, Real* out, Real* partials, Real* pAp,
-               int ny, int nx, int bc, Real C, Real X, Real Y, cudaStream_t stream) {
+               int ny, int nx, int bc, Real C, Real X, Real Y, Halo<Real> h,
+               cudaStream_t stream) {
   dim3 grid = matvec_grid(ny, nx);
   dim3 block(kCgBlockX, kCgBlockY);
   if (s != nullptr)
-    matvec_pAp_kernel<true><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y);
+    matvec_pAp_kernel<true><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y, h);
   else
-    matvec_pAp_kernel<false><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y);
+    matvec_pAp_kernel<false><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y, h);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(static_cast<const Real*>(partials),
@@ -274,7 +290,8 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 #define BT_CG_ENTRIES(SFX, S)                                                         \
   int bt_matvec_pAp_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp,       \
                           int ny, int nx, int bc, S C, S X, S Y, cudaStream_t stream) { \
-    return bt::matvec_pAp<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y, stream); \
+    return bt::matvec_pAp<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y,          \
+                             bt::whole_grid<S>(), stream);                            \
   }                                                                                   \
   int bt_update_xr_rr_##SFX(S* x, S* r, const S* p, const S* Ap, const S* alpha,     \
                             S* partials, S* rr, int n, cudaStream_t stream) {         \
@@ -302,5 +319,18 @@ int bt_cg_num_partials(int ny, int nx) {
 
 BT_CG_ENTRIES(f32, float)
 BT_CG_ENTRIES(f64, double)
+
+// K12.8, float32 only (its float64 twin: ROADMAP slice 5b.3): K8 on a shard
+// of a mesh.  `rows`/`cols` are the ghosts of p, (2 sides, 2 fields, nx) and
+// (2, 2, ny) with p in field 0, null along an axis that is not sharded;
+// `edges` has bit 0..3 set when the shard holds the grid's first row, last
+// row, first column, last column.  pAp[0] = the shard's own <p, A p>.
+int bt_matvec_pAp_halo_f32(const float* p, const float* s, float* out, float* partials,
+                           float* pAp, int ny, int nx, int bc, float C, float X, float Y,
+                           const float* rows, const float* cols, int edges,
+                           cudaStream_t stream) {
+  return bt::matvec_pAp<float>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y,
+                               bt::Halo<float>{rows, cols, edges}, stream);
+}
 
 }  // extern "C"

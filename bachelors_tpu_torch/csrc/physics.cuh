@@ -73,7 +73,8 @@ __device__ __forceinline__ Real edge_image(int bc, Real c, Real d) {
   return bc == kNeumann ? c : Real(2) * d - c;
 }
 
-// Neighbour value as the padded field holds it.  `cross` says that the step
+// Neighbour value in an apron tile as the padded field holds it (K2, K3, K6
+// and their slab twins).  `cross` says that the step
 // from the cell to this neighbour crosses a domain edge.  A periodic field
 // reads the wrapped neighbour `nb`; Neumann clamps to the cell's own value;
 // Dirichlet mirrors it through d: 2*d - centre (core/boundary.py:pad2).
@@ -84,28 +85,71 @@ __device__ __forceinline__ Real neighbour(int bc, bool cross, Real nb, Real cent
   return edge_image(bc, centre, d);
 }
 
-// The four neighbours of cell (i, j) of a (ny, nx) field A whose own value
-// is c, as the padded field holds them: wrapped for a periodic field, the
-// edge image otherwise.  Device memory is read only where the rule needs it.
+// What a shard of a mesh sees beyond its edges (K5 on a mesh, K12.1, K12.3,
+// K12.4, K12.7, K12.8): ghost rows below row 0 (side 0) and above row ny-1
+// (side 1), ghost columns west of column 0 (side 0) and east of column nx-1
+// (side 1), each (2 sides, 2 fields, n) with Phi before T; null along an
+// axis that is not sharded.  `edges` has a bit for each global domain edge
+// the shard holds.  Across one a Neumann or Dirichlet field takes its image
+// and ignores the ghost; a periodic field reads the ghost, which the ring
+// exchange filled from the other side of the domain.  The whole grid is the
+// halo {null, null, kAllEdges}: the single-device kernels' own rule.
+enum : int { kEdgeS = 1, kEdgeN = 2, kEdgeW = 4, kEdgeE = 8, kAllEdges = 15 };
+
+template <class Real>
+struct Halo {
+  const Real* rows;
+  const Real* cols;
+  int edges;
+};
+
+template <class Real>
+__host__ __device__ __forceinline__ Halo<Real> whole_grid() {
+  return Halo<Real>{nullptr, nullptr, kAllEdges};
+}
+
+// The four neighbours of cell (i, j) of a (ny, nx) shard of field f (0: Phi,
+// 1: T) whose own value is c, as the padded field holds them: `at(idx)` is
+// the shard's value at flat index idx (a load, or K1's blend of states);
+// across an edge a periodic field reads the wrapped cell or the ghost, a
+// Neumann or Dirichlet field at a global edge its image at value d, and at a
+// seam the ghost.  Only a value that the rule reads is touched.
 template <class Real>
 struct Cross {
   Real N, S, E, W;
 };
 
-template <class Real>
-__device__ __forceinline__ Cross<Real> cross_of(const Real* __restrict__ A, int bc,
-                                                Real c, Real d, int i, int j,
-                                                int ny, int nx) {
-  const bool img = bc != kPeriodic;
+template <class Real, class At>
+__device__ __forceinline__ Cross<Real> cross_at(const At& at, int bc, int f, Real c, Real d,
+                                                const Halo<Real>& h, int i, int j, int ny,
+                                                int nx) {
+  // `cross`: the step leaves the shard on `side` of `ghost` (n per side and
+  // field, at position g), over global edge `bit` if the shard holds it
+  auto nb = [&](bool cross, const Real* ghost, int n, int side, int bit, int g,
+                int idx) -> Real {
+    if (cross) {
+      if (bc != kPeriodic && (ghost == nullptr || (h.edges & bit)))
+        return edge_image(bc, c, d);
+      if (ghost != nullptr) return ghost[(side * 2 + f) * n + g];
+    }
+    return at(idx);
+  };
+  const bool cN = i + 1 == ny, cS = i == 0, cE = j + 1 == nx, cW = j == 0;
+  const int row = i * nx;
   Cross<Real> n;
-  n.N = (i + 1 == ny) ? (img ? edge_image(bc, c, d) : A[j]) : A[(i + 1) * nx + j];
-  n.S = (i == 0) ? (img ? edge_image(bc, c, d) : A[(ny - 1) * nx + j])
-                 : A[(i - 1) * nx + j];
-  n.E = (j + 1 == nx) ? (img ? edge_image(bc, c, d) : A[i * nx]) : A[i * nx + j + 1];
-  n.W = (j == 0) ? (img ? edge_image(bc, c, d) : A[i * nx + nx - 1])
-                 : A[i * nx + j - 1];
+  n.N = nb(cN, h.rows, nx, 1, kEdgeN, j, (cN ? 0 : i + 1) * nx + j);
+  n.S = nb(cS, h.rows, nx, 0, kEdgeS, j, (cS ? ny - 1 : i - 1) * nx + j);
+  n.E = nb(cE, h.cols, ny, 1, kEdgeE, i, row + (cE ? 0 : j + 1));
+  n.W = nb(cW, h.cols, ny, 0, kEdgeW, i, row + (cW ? nx - 1 : j - 1));
   return n;
 }
+
+// `cross_at`'s reader of a field held in device memory.
+template <class Real>
+struct Load {
+  const Real* A;
+  __device__ __forceinline__ Real operator()(int idx) const { return A[idx]; }
+};
 
 // g(theta) = 1 - S cos(m0 theta + theta0) and |grad Phi| from the central
 // differences; atan2(0, 0) = 0 and |grad| = 0 there

@@ -88,7 +88,7 @@
 // K12.1 bt_blend_rhs_halo_f32 and bt_halo_edges_f32: replaces
 //     `_stage_call_sharded` (:705) -> `_call` (:539) with ghost rows and
 //     columns, and the edge blends of `_ghost_rows` (:634) / `_ghost_cols`
-//     (:672).  K1 on a shard, reading a Halo (below) at seams: the blend of
+//     (:672).  K1 on a shard, reading a Halo (physics.cuh) at seams: the blend of
 //     the neighbour's edge row or column, gathered by one launch of
 //     halo_edges per shard and stage (both fields, rows and columns; the
 //     strided columns never go through a torch copy) and exchanged by tensor
@@ -125,6 +125,15 @@
 //     through `_fullstep_call_sharded` :1185 with scheme rk4).  K3's kernel
 //     with the same loader, slabs 4 rows deep (K3's apron): a y-mesh equals
 //     K3 on the whole grid bit for bit.  Bound like K3.
+//
+// K12.7 bt_si_prepare_halo_f32: replaces `si_prepare_pallas_sharded` (:625,
+//     through `_stage_call_sharded` :705 -> `_call` :539 in mode si_prepare).
+//     K7 with a Halo: at a seam it reads the neighbour's edge row or column
+//     of F and U (the ghost gather of (F, U) at weight 1, K12.1's), at a
+//     global edge it takes the image at value 0, or the ghost for a periodic
+//     field, by the rule `cross_at` shares with K12.1 (physics.cuh).  Each
+//     cell runs K7's arithmetic on the values K7 reads, so a mesh equals K7
+//     on the whole grid bit for bit.  Bound by bytes like K7.
 //
 // Float64: the counterpart of K13, `bachelors_tpu/ops/pallas_dd.py:
 // _make_fullstep_kernel_dd` (:272, via `_fullstep_impl_dd` :607), which runs
@@ -179,66 +188,22 @@ __device__ __forceinline__ Real blend_at(const Real* const* A, const Real* w, in
   return v;
 }
 
-// What a shard of a mesh sees beyond its edges (K12.1, K5 on a mesh):
-// ghost rows below row 0 (side 0) and above row ny-1 (side 1), ghost columns
-// west of column 0 (side 0) and east of column nx-1 (side 1), each (2
-// sides, 2 fields, n) with Phi before T; null along an axis that is not
-// sharded.  `edges` has a bit for each global domain edge the shard holds.
-// Across one a Neumann or Dirichlet field takes its image and ignores the
-// ghost; a periodic field reads the ghost, which the ring exchange filled
-// from the other side of the domain.  The whole grid is the halo
-// {null, null, kAllEdges}: K1's own rule.
-enum : int { kEdgeS = 1, kEdgeN = 2, kEdgeW = 4, kEdgeE = 8, kAllEdges = 15 };
-
-template <class Real>
-struct Halo {
-  const Real* rows;
-  const Real* cols;
-  int edges;
-};
-
-template <class Real>
-__host__ __device__ __forceinline__ Halo<Real> whole_grid() {
-  return Halo<Real>{nullptr, nullptr, kAllEdges};
-}
-
 // The blend sum_k w_k (F_k, U_k) at cell (i, j), as (Fc, Uc), and the RHS
 // there, as (dF, dU), with the boundary rule applied to the blend, or the
-// halo's ghosts at a shard's seams.
+// halo's ghosts (physics.cuh) at a shard's seams.
 template <int NS, class Real>
 __device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Halo<Real>& h,
                                              int i, int j, int ny, int nx, Real d, Real fu,
                                              const PhysParams<Real>& P, Real& Fc,
                                              Real& Uc, Real& dF, Real& dU) {
-  bool cN = i + 1 == ny, cS = i == 0, cE = j + 1 == nx, cW = j == 0;
-  int row = i * nx;
-  int rowN = (cN ? 0 : i + 1) * nx, rowS = (cS ? ny - 1 : i - 1) * nx;
-  int jE = cE ? 0 : j + 1, jW = cW ? nx - 1 : j - 1;
-
-  const Real fc = blend_at<NS>(a.F, a.w, row + j);
-  const Real uc = blend_at<NS>(a.U, a.w, row + j);
-  // the neighbour at `idx` of field f (0: Phi, 1: T) whose blend here is c;
-  // `cross`: the step leaves the shard on `side` of `ghost` (n per side and
-  // field, at position g), over global edge `bit` if the shard holds it.
-  // Only touch a value that the rule actually reads.
-  auto nb = [&](const Real* const* A, int bc, int f, Real c, bool cross,
-                const Real* ghost, int n, int side, int bit, int g, int idx) -> Real {
-    if (cross) {
-      if (bc != kPeriodic && (ghost == nullptr || (h.edges & bit)))
-        return neighbour(bc, true, Real(0), c, d);
-      if (ghost != nullptr) return ghost[(side * 2 + f) * n + g];
-    }
-    return blend_at<NS>(A, a.w, idx);
-  };
-  Real FN = nb(a.F, P.f_bc, 0, fc, cN, h.rows, nx, 1, kEdgeN, j, rowN + j);
-  Real FS = nb(a.F, P.f_bc, 0, fc, cS, h.rows, nx, 0, kEdgeS, j, rowS + j);
-  Real FE = nb(a.F, P.f_bc, 0, fc, cE, h.cols, ny, 1, kEdgeE, i, row + jE);
-  Real FW = nb(a.F, P.f_bc, 0, fc, cW, h.cols, ny, 0, kEdgeW, i, row + jW);
-  Real UN = nb(a.U, P.u_bc, 1, uc, cN, h.rows, nx, 1, kEdgeN, j, rowN + j);
-  Real US = nb(a.U, P.u_bc, 1, uc, cS, h.rows, nx, 0, kEdgeS, j, rowS + j);
-  Real UE = nb(a.U, P.u_bc, 1, uc, cE, h.cols, ny, 1, kEdgeE, i, row + jE);
-  Real UW = nb(a.U, P.u_bc, 1, uc, cW, h.cols, ny, 0, kEdgeW, i, row + jW);
-  physics(P, fc, FN, FS, FE, FW, uc, UN, US, UE, UW, fu, dF, dU);
+  const int c = i * nx + j;
+  const Real fc = blend_at<NS>(a.F, a.w, c);
+  const Real uc = blend_at<NS>(a.U, a.w, c);
+  const Cross<Real> f = cross_at([&](int idx) { return blend_at<NS>(a.F, a.w, idx); },
+                                 P.f_bc, 0, fc, d, h, i, j, ny, nx);
+  const Cross<Real> u = cross_at([&](int idx) { return blend_at<NS>(a.U, a.w, idx); },
+                                 P.u_bc, 1, uc, d, h, i, j, ny, nx);
+  physics(P, fc, f.N, f.S, f.E, f.W, uc, u.N, u.S, u.E, u.W, fu, dF, dU);
   Fc = fc;
   Uc = uc;
 }
@@ -730,20 +695,24 @@ __global__ void __launch_bounds__(kTileThreads)
   });
 }
 
-// ---------------------------------------------------------------- K7 ----
+// ----------------------------------------------------------- K7, K12.7 ----
 
+// K7 on the whole grid (h = whole_grid) or, with a halo (the ghosts of F and
+// U), K12.7 on a shard.  Ghosts and images take Dirichlet value 0, as the
+// JAX package's prepare does.
 template <class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     si_prepare_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                       Real* __restrict__ r0, Real* __restrict__ uterm,
-                      Real* __restrict__ s_out, int ny, int nx, PhysParams<Real> P) {
+                      Real* __restrict__ s_out, int ny, int nx, Halo<Real> h,
+                      PhysParams<Real> P) {
   int j = blockIdx.x * blockDim.x + threadIdx.x;
   int i = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int c = i * nx + j;
   const Real Fc = F[c], Uc = U[c];
-  const Cross<Real> f = cross_of(F, P.f_bc, Fc, Real(0), i, j, ny, nx);
-  const Cross<Real> u = cross_of(U, P.u_bc, Uc, Real(0), i, j, ny, nx);
+  const Cross<Real> f = cross_at(Load<Real>{F}, P.f_bc, 0, Fc, Real(0), h, i, j, ny, nx);
+  const Cross<Real> u = cross_at(Load<Real>{U}, P.u_bc, 1, Uc, Real(0), h, i, j, ny, nx);
 
   Real g, norm;
   anisotropy(P, (f.E - f.W) * P.inv_2dx, (f.N - f.S) * P.inv_2dy, g, norm);
@@ -937,12 +906,13 @@ int euler_steps(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0
   return int(cudaErrorInvalidValue);
 }
 
+// K7 on the whole grid (h = whole_grid) or, with a halo, K12.7 on a shard
 template <class S>
 int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
-               const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+               bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   dim3 block(bt::kK1BlockX, bt::kK1BlockY);
   bt::si_prepare_kernel<<<k1_grid(ny, nx), block, 0, stream>>>(
-      ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx, *P);
+      ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx, h, *P);
   return int(cudaGetLastError());
 }
 
@@ -1046,7 +1016,8 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
   }                                                                                   \
   int bt_si_prepare_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s, int ny,     \
                           int nx, const PhysParams<Ar<S>>* P, cudaStream_t stream) { \
-    return si_prepare<S>(F, U, r0, uterm, s, ny, nx, P, stream);                     \
+    return si_prepare<S>(F, U, r0, uterm, s, ny, nx, bt::whole_grid<Ar<S>>(), P,     \
+                         stream);                                                     \
   }
 
 extern "C" {
@@ -1065,6 +1036,7 @@ BT_RHS_ENTRIES(f64, double)
 //      mode (K12.3).
 //   K12.4 bt_rk4_final_halo: K4 on a shard, the halo that of the blend [x, k3]
 //      with weights [1, dt].
+//   K12.7 bt_si_prepare_halo: K7 on a shard, the halo that of (F, U).
 //   K5 bt_rkm_final: a = {x, k1, k3, k4} with weights {1, w1, w2, w3} =
 //      {1, tau/2, -3 tau/2, 2 tau}: outF/outU = x + c6 (k1 + 4 k4 + k5),
 //      err as K2's; partials holds 2 * bt_stage_num_blocks values.  On the
@@ -1093,6 +1065,12 @@ int bt_blend_rhs_halo_f32(const float* F0, const float* U0, const float* F1,
   return blend_rhs<float>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,
                           outU, ny, nx, d, fu, is_euler, halo_of(rows, cols, edges), P,
                           stream);
+}
+
+int bt_si_prepare_halo_f32(const float* F, const float* U, float* r0, float* uterm, float* s,
+                           int ny, int nx, const float* rows, const float* cols, int edges,
+                           const PhysParams<float>* P, cudaStream_t stream) {
+  return si_prepare<float>(F, U, r0, uterm, s, ny, nx, halo_of(rows, cols, edges), P, stream);
 }
 
 int bt_rk4_final_halo_f32(const float* xF, const float* xU, const float* k1F,

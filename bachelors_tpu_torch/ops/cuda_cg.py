@@ -11,6 +11,11 @@ and one for the float64 semi-implicit step:
     operator (``pallas_cg._matvec_pAp`` :49, blend=False).  Ap may be
     written into a dead buffer ``out`` that the caller passes in, never
     into p: the kernel reads p's neighbours.
+  * K12.8 ``cross_matvec_pAp_sharded`` / ``aniso_matvec_pAp_sharded``: K8
+    on one shard of a mesh, reading p's ghost rows and columns at seams
+    (``pallas_cg.cross_matvec_pAp_sharded`` :238, ``aniso_matvec_pAp_sharded``
+    :249, ghosts by ``_ghost_kw`` :223), float32 only; the <p, A p> it
+    returns is the shard's own, and the caller adds the shards' partials.
   * K9 ``update_xr_rr``: x += alpha p, r -= alpha Ap in place, and
     <r', r'> (``pallas_cg._update_xr_rr`` :310).
   * K10 ``axpby_inplace``: p = a r + b p in place
@@ -48,14 +53,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.boundary import Halo, pad_halo
 from ..core.params import BoundaryType
 from . import cuda_rhs
-from .stencil import AnisotropyMatrix, CrossMatrix, anisotropy_matvec, cross_matvec
+from .stencil import (AnisotropyMatrix, CrossMatrix, aniso_from_padded, anisotropy_matvec,
+                      cross_from_padded, cross_matvec)
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
             "axpby_inplace": 0, "cross_residual": 0, "aniso_residual": 0,
-            "heat_residual": 0}
+            "heat_residual": 0, "cross_matvec_pAp_sharded": 0,
+            "aniso_matvec_pAp_sharded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,6 +86,23 @@ def aniso_matvec_pAp_plain(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor
                            out: Optional[torch.Tensor] = None):
     """(A v, <v, A v>) for (1 + Cm1*s) v + X*s (E+W) + Y*s (N+S)."""
     Av = anisotropy_matvec(A, s, v)
+    return Av, torch.sum(v * Av)
+
+
+def cross_matvec_pAp_sharded_plain(A: CrossMatrix, v: torch.Tensor, halo: Halo,
+                                   out: Optional[torch.Tensor] = None):
+    """``cross_matvec_pAp_plain`` on one shard of a mesh: v padded from the
+    halo (field 0 of its ghosts) at Dirichlet value 0; the dot product is
+    the shard's own."""
+    Av = cross_from_padded(A, pad_halo(v, A.boundary, halo, 0))
+    return Av, torch.sum(v * Av)
+
+
+def aniso_matvec_pAp_sharded_plain(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
+                                   halo: Halo, out: Optional[torch.Tensor] = None):
+    """``aniso_matvec_pAp_plain`` on one shard of a mesh (see
+    ``cross_matvec_pAp_sharded_plain``)."""
+    Av = aniso_from_padded(A, s, pad_halo(v, A.boundary, halo, 0))
     return Av, torch.sum(v * Av)
 
 
@@ -145,6 +170,9 @@ def _lib() -> ctypes.CDLL:
         lib.bt_cg_num_partials.argtypes = [_INT, _INT]
         lib.bt_cg_num_partials.restype = _INT
         cuda_rhs.bind(lib, _ENTRIES)
+        # K12.8, float32 only: K8's arguments and a halo's (rows, cols, edges)
+        cuda_rhs.bind(lib, {"matvec_pAp_halo": _ENTRIES["matvec_pAp"][:-1]
+                            + [_PTR, _PTR, _INT, _PTR]}, (torch.float32,))
         _LIB = lib
     return _LIB
 
@@ -192,17 +220,23 @@ def _check_out(out: Optional[torch.Tensor], *inputs) -> None:
                              "kernel reads p's neighbours")
 
 
-def _matvec_pAp(name, v, s, out, bc, C, X, Y):
+def _matvec_pAp(name, v, s, out, bc, C, X, Y, halo: Optional[Halo] = None):
     inputs = [v] if s is None else [v, s]
     _check(inputs + ([] if out is None else [out]))
     if out is None:
         out = torch.empty_like(v)
     partials, pAp = _scratch(v)
+    ny, nx = v.shape
+    if halo is None:
+        kernel, ghosts = "matvec_pAp", ()
+    else:
+        cuda_rhs._check_shard(*inputs)
+        kernel, ghosts = "matvec_pAp_halo", cuda_rhs._halo_args(halo, ny, nx)
     with torch.cuda.device(v.device):
-        rc = cuda_rhs.entry(_lib(), "matvec_pAp", v.dtype)(
+        rc = cuda_rhs.entry(_lib(), kernel, v.dtype)(
             v.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), pAp.data_ptr(), v.shape[0], v.shape[1],
-            _BC_CODE[bc], float(C), float(X), float(Y), _stream())
+            partials.data_ptr(), pAp.data_ptr(), ny, nx, _BC_CODE[bc], float(C), float(X),
+            float(Y), *ghosts, _stream())
     cuda_rhs._raise_on(rc, name)
     LAUNCHES[name] += 1
     return out, pAp
@@ -225,6 +259,30 @@ def aniso_matvec_pAp(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
     if not cuda_rhs._on_cuda(v, "aniso_matvec_pAp"):
         return aniso_matvec_pAp_plain(A, s, v, out)
     return _matvec_pAp("aniso_matvec_pAp", v, s, out, A.boundary, A.Cm1, A.X, A.Y)
+
+
+def cross_matvec_pAp_sharded(A: CrossMatrix, v: torch.Tensor, halo: Halo,
+                             out: Optional[torch.Tensor] = None):
+    """K12.8, cross form: ``cross_matvec_pAp`` on one shard of a mesh, p's
+    seams read from the halo (``ops/rhs.stage_halos([(v, v)], [1.0],
+    topo)``'s); returns (A v, the shard's own <v, A v>).  ``out`` as for
+    K8."""
+    _check_out(out, v)
+    if not cuda_rhs._on_cuda(v, "cross_matvec_pAp_sharded"):
+        return cross_matvec_pAp_sharded_plain(A, v, halo, out)
+    return _matvec_pAp("cross_matvec_pAp_sharded", v, None, out, A.boundary, A.C, A.X, A.Y,
+                       halo)
+
+
+def aniso_matvec_pAp_sharded(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
+                             halo: Halo, out: Optional[torch.Tensor] = None):
+    """K12.8, per-cell form: ``aniso_matvec_pAp`` on one shard of a mesh
+    (see ``cross_matvec_pAp_sharded``)."""
+    _check_out(out, v, s)
+    if not cuda_rhs._on_cuda(v, "aniso_matvec_pAp_sharded"):
+        return aniso_matvec_pAp_sharded_plain(A, s, v, halo, out)
+    return _matvec_pAp("aniso_matvec_pAp_sharded", v, s, out, A.boundary, A.Cm1, A.X, A.Y,
+                       halo)
 
 
 def update_xr_rr(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,

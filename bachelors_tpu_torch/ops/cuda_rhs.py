@@ -47,6 +47,8 @@ kernels are hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     T rows deep (``_euler2_call_sharded`` :1315).
   * K12.6 ``rk4_full_sharded``: K3 on a y-mesh shard from ghost slabs 4
     rows deep (``rk4_full_pallas_sharded`` :1231).
+  * K12.7 ``si_prepare_sharded``: K7 on a shard, its seams read from the
+    ghost rows and columns of (F, U) (``si_prepare_pallas_sharded`` :625).
 
 The mesh kernels are built for float32 only (their float64 twins are
 ROADMAP slice 5b.3).  Beside each kernel is its plain torch version
@@ -54,7 +56,8 @@ ROADMAP slice 5b.3).  Beside each kernel is its plain torch version
 ``rk4_full_plain``, ``euler_steps_plain``, ``si_prepare_plain``,
 ``rkm_final_stage_plain``, ``blend_rhs_sharded_plain``,
 ``halo_edges_plain``, ``rkm_attempt_sharded_plain``,
-``euler_steps_sharded_plain``, ``rk4_full_sharded_plain``): the staged
+``euler_steps_sharded_plain``, ``rk4_full_sharded_plain``,
+``si_prepare_sharded_plain``): the staged
 ``pad2`` (``pad_halo`` on a shard, the slab-extended block on a y-mesh
 shard) + ``rhs_padded`` (or ``semi_implicit_prepare``) composition.
 The CPU path runs it, the tests hold it to the JAX package, and
@@ -95,7 +98,7 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rkm_final_stage": 0, "halo_edges": 0, "blend_rhs_sharded": 0,
             "rkm_attempt_sharded": 0, "blend_rhs_sharded_euler": 0,
             "rk4_final_stage_sharded": 0, "euler_steps_sharded": 0,
-            "rk4_full_sharded": 0}
+            "rk4_full_sharded": 0, "si_prepare_sharded": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -414,15 +417,26 @@ def si_s_varies(p: SimParams) -> bool:
     return p.S != 0.0 or p.do_corrector_guess
 
 
-def si_prepare_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams):
-    """(r0_F, uterm[, s]) of the delta-form semi-implicit step: pad,
-    ``semi_implicit_prepare``, then uterm = dt*lap(U)
-    (``bachelors_tpu/solvers/semi_implicit.py:144-149``).  s is returned
-    only when ``si_s_varies(p)``."""
-    Up = pad2(U, p.T_boundary)
-    r0_F, s_map = semi_implicit_prepare(pad2(F, p.Phi_boundary), Up, p)
+def si_terms(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams):
+    """(r0_F, uterm[, s]) from the padded fields: ``semi_implicit_prepare``,
+    then uterm = dt*lap(U) (``bachelors_tpu/solvers/semi_implicit.py:
+    144-149``).  s is returned only when ``si_s_varies(p)``."""
+    r0_F, s_map = semi_implicit_prepare(Fp, Up, p)
     uterm = p.dt * lap_from_padded(Up, p)
     return (r0_F, uterm, s_map) if si_s_varies(p) else (r0_F, uterm)
+
+
+def si_prepare_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams):
+    """(r0_F, uterm[, s]) of the delta-form semi-implicit step: ``pad2`` at
+    Dirichlet value 0, then ``si_terms``."""
+    return si_terms(pad2(F, p.Phi_boundary), pad2(U, p.T_boundary), p)
+
+
+def si_prepare_sharded_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, halo: Halo):
+    """``si_prepare_plain`` on one shard of a mesh: each field padded from
+    the halo (``core/boundary.pad_halo``) at Dirichlet value 0, then
+    ``si_terms``.  ``p`` is the whole grid's."""
+    return si_terms(pad_halo(F, p.Phi_boundary, halo, 0), pad_halo(U, p.T_boundary, halo, 1), p)
 
 
 # ------------------------------------------------------------ kernels
@@ -488,7 +502,7 @@ _ENTRIES = {
     "rk4_full": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 5 + [_PHYS_PTR, _PTR],
     "euler_steps": [_PTR] * 4 + [_INT] * 3 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
 }
-# The mesh kernels (K5, K12.1 and its ghost gather, K12.2-K12.6) are built
+# The mesh kernels (K5, K12.1 and its ghost gather, K12.2-K12.7) are built
 # for float32 only: their float64 twins are ROADMAP slice 5b.3.
 _F32_ENTRIES = {
     "halo_edges": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _PTR],
@@ -497,6 +511,7 @@ _F32_ENTRIES = {
                                                            _PHYS_PTR, _PTR],
     "rk4_final_halo": [_PTR] * 10 + [_INT, _INT] + [_REAL] * 4 + [_PTR, _PTR, _INT,
                                                                    _PHYS_PTR, _PTR],
+    "si_prepare_halo": [_PTR] * 5 + [_INT, _INT, _PTR, _PTR, _INT, _PHYS_PTR, _PTR],
     "rkm_final": [_PTR] * 8 + [_REAL] * 4 + [_PTR] * 4 + [_INT, _INT, _REAL, _REAL, _PTR,
                                                           _PTR, _INT, _PHYS_PTR, _PTR],
     "rkm_attempt_slabs": [_PTR] * 7 + [_INT] * 4 + [_REAL] * 3 + [_PHYS_PTR, _PTR],
@@ -914,6 +929,28 @@ def euler_steps_sharded(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y
     _raise_on(rc, "euler_steps_sharded")
     LAUNCHES["euler_steps_sharded"] += 1
     return out_F, out_U
+
+
+def si_prepare_sharded(F: torch.Tensor, U: torch.Tensor, p: SimParams, halo: Halo):
+    """K12.7: K7 on one shard of a mesh, reading the halo's ghost rows and
+    columns of (F, U) at seams (``si_prepare_pallas_sharded`` :625 ->
+    ``_stage_call_sharded`` :705 in mode si_prepare); the halo is
+    ``ops/rhs.stage_halos([(F, U)], [1.0], topo)``'s.  Same contract as
+    ``si_prepare_sharded_plain``."""
+    if not _on_cuda(F, "si_prepare_sharded"):
+        return si_prepare_sharded_plain(F, U, p, halo)
+    _check_shard(F, U)
+    ny, nx = F.shape
+    outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
+    with torch.cuda.device(F.device):
+        rc = entry(_lib(), "si_prepare_halo", F.dtype)(
+            F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if len(outs) == 3 else None, ny, nx,
+            *_halo_args(halo, ny, nx), ctypes.byref(_phys(p, F.dtype)),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(rc, "si_prepare_sharded")
+    LAUNCHES["si_prepare_sharded"] += 1
+    return tuple(outs)
 
 
 def rk4_full_sharded(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,

@@ -1,11 +1,13 @@
 """5-point stencil linear operators for the semi-implicit (CG) path.
 
-The port of ``bachelors_tpu/ops/stencil.py`` on one device: the
-reference's matrix-free operators
+The port of ``bachelors_tpu/ops/stencil.py``: the reference's matrix-free
+operators
   * ``cross_matvec``      <-> ``cross_matrix_static_multiply`` (`simulation.cu:528-549`)
   * ``anisotropy_matvec`` <-> ``anisotrophy_matrix_multiply`` (`simulation.cu:551-578`)
-over fields padded by ``core/boundary.pad2`` with Dirichlet value 0.  These
-are the plain versions of the CG matvec kernel (``ops/cuda_cg.py``, K8).
+over fields padded with Dirichlet value 0 by ``topo.pad``: ``pad2`` on one
+device, and on a mesh (fields ``Shards``) each shard padded from a halo
+exchange (JAX :45-93).  These are the plain versions of the CG matvec
+kernels (``ops/cuda_cg.py``, K8 and its mesh twin K12.8).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 
 from ..core.boundary import pad2
 from ..core.params import BoundaryType, SimParams
+from ..core.state import Field, Shards, each
+from ..parallel.topology import ONE_DEVICE, Topology
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +45,17 @@ class CrossMatrix:
         )
 
 
-def cross_matvec(A: CrossMatrix, v: torch.Tensor) -> torch.Tensor:
-    vp = pad2(v, A.boundary)
+def cross_from_padded(A: CrossMatrix, vp: torch.Tensor) -> torch.Tensor:
+    """A v from v padded by one ghost cell."""
     return (
         A.C * vp[1:-1, 1:-1]
         + A.X * (vp[1:-1, 2:] + vp[1:-1, :-2])
         + A.Y * (vp[2:, 1:-1] + vp[:-2, 1:-1])
     )
+
+
+def cross_matvec(A: CrossMatrix, v: Field, topo: Topology = ONE_DEVICE) -> Field:
+    return each(lambda vp: cross_from_padded(A, vp), topo.pad(v, A.boundary))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,14 +84,24 @@ class AnisotropyMatrix:
         )
 
 
-def anisotropy_matvec(A: AnisotropyMatrix, s, v: torch.Tensor) -> torch.Tensor:
-    """``s`` is the per-cell map, or a Python float where it is constant."""
-    vp = pad2(v, A.boundary)
+def aniso_from_padded(A: AnisotropyMatrix, s, vp: torch.Tensor) -> torch.Tensor:
+    """A(s) v from v padded by one ghost cell; ``s`` is the per-cell map,
+    or a Python float where it is constant."""
     return (
         (1 + A.Cm1 * s) * vp[1:-1, 1:-1]
         + (A.X * s) * (vp[1:-1, 2:] + vp[1:-1, :-2])
         + (A.Y * s) * (vp[2:, 1:-1] + vp[:-2, 1:-1])
     )
+
+
+def anisotropy_matvec(A: AnisotropyMatrix, s, v: Field,
+                      topo: Topology = ONE_DEVICE) -> Field:
+    """``s`` is the per-cell map (``Shards`` on a mesh), or a Python float
+    where it is constant."""
+    vp = topo.pad(v, A.boundary)
+    if isinstance(s, Shards):
+        return each(lambda b, sb: aniso_from_padded(A, sb, b), vp, s)
+    return each(lambda b: aniso_from_padded(A, s, b), vp)
 
 
 def lap_from_padded(vp: torch.Tensor, p: SimParams) -> torch.Tensor:

@@ -164,12 +164,13 @@ class Topology:
         return A.numel()
 
     # values already reduced per shard (fused kernels' partials), one per
-    # shard; NaN survives the max
-    def allsum(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
-        return _combine(values, torch.sum)
+    # shard; NaN survives the max.  On one device the value itself, as the
+    # JAX package's collectives over no axis.
+    def allsum(self, values) -> torch.Tensor:
+        return _combine(values, torch.sum) if self.is_sharded else values
 
-    def allmax(self, values: Sequence[torch.Tensor]) -> torch.Tensor:
-        return _combine(values, torch.amax)
+    def allmax(self, values) -> torch.Tensor:
+        return _combine(values, torch.amax) if self.is_sharded else values
 
 
 ONE_DEVICE = Topology()

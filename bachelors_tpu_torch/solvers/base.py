@@ -26,14 +26,10 @@ Stepper = Callable[[SimState], Tuple[SimState, StepStats]]
 def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
     """Build the per-step function for ``p.solver``; with a sharded
     ``topo``, for states whose fields are ``Shards`` over that mesh
-    (``parallel/sharded.make_sharded_stepper``), where the port runs every
-    solver but semi-implicit so far."""
+    (``parallel/sharded.make_sharded_stepper``)."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
-    if topo.is_sharded and p.solver == SolverType.SEMI_IMPLICIT:
-        raise NotImplementedError(f"solver {p.solver.value} on a mesh (ROADMAP slice 5b.2: "
-                                  "K7's and K8's seam twins)")
     c = numpy_dtype(p)
 
     def forcing(state: SimState):
@@ -89,7 +85,7 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
 
         def step(state: SimState):
             def step_based(F, U, U_base, same_base):
-                nF, nU, res_F, res_U = semi_implicit_step_based(F, U, U_base, p)
+                nF, nU, res_F, res_U = semi_implicit_step_based(F, U, U_base, p, topo)
                 return nF, nU, (res_F.iters, res_U.iters)
 
             nF, nU, aux, residuals = corrector_step(state.F, state.U, p, topo, step_based)

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.params import SimParams, SolverType
-from ..core.state import Field, Shards, SimState, numpy_dtype
+from ..core.state import Field, Shards, SimState, each, numpy_dtype
 from ..ops import cuda_rhs
 from ..ops.rhs import euler_eval, eval_rhs, resolve_backend, shard_states, stage_halos
 from ..parallel.topology import ONE_DEVICE, Topology
@@ -47,9 +47,7 @@ from ..parallel.topology import ONE_DEVICE, Topology
 
 def _axpy(A: Field, c: float, B: Field) -> Field:
     """A + c * B, shard by shard on a mesh."""
-    if isinstance(A, Shards):
-        return A.map(lambda a, b: a + c * b, B)
-    return A + c * B
+    return each(lambda a, b: a + c * b, A, B)
 
 
 def euler_step_based(F: Field, U: Field, U_base: Field, p: SimParams, fu=0.0,

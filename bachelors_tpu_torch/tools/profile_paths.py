@@ -14,10 +14,11 @@ then over a window of 200 steps from that one state:
     only), the busy share (that device time over the unprofiled ms/step
     with stats on) and the device events that take the most time.
 
-Then the RKM, Euler and RK4 paths the same way on y(2), x(2) and 2x2
-meshes, every shard on the one card (RKM: K12.2, or K12.1 + K5 and the
-ghost gather; Euler: K12.3 and the gather; RK4: K12.1 x 3 + K12.4 and four
-gathers).  Each traced device event is listed with its device µs per step,
+Then the RKM, Euler, RK4 and semi-implicit paths the same way on y(2),
+x(2) and 2x2 meshes, every shard on the one card (RKM: K12.2, or K12.1 +
+K5 and the ghost gather; Euler: K12.3 and the gather; RK4: K12.1 x 3 +
+K12.4 and four gathers; semi-implicit: K12.7 and a gather per step, K12.8,
+a gather, K9 and K10 per CG iteration).  Each traced device event is listed with its device µs per step,
 its count per step (the exchange copies are the ``Memcpy DtoD`` events)
 and its device µs per launch.
 
@@ -85,7 +86,7 @@ F64_PATHS = {
 }
 # the paths on meshes of the one card: (shards_y, shards_x)
 MESHES = {"y(2)": (2, 1), "x(2)": (1, 2), "2x2": (2, 2)}
-MESH_PATHS = ("rkm", "euler", "rk4")
+MESH_PATHS = ("rkm", "euler", "rk4", "semi-implicit")
 WINDOW = 200
 TOP = 25
 

@@ -38,7 +38,17 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
     fixed-dt run takes the one-device step count exactly.  Before them,
     K12.3-K12.6 against their plain versions on those meshes (K12.5 and
     K12.6 joined over a y-mesh against K6 and K3 on the whole grid), and a
-    lockstep of each route against the single-device kernel stepper.
+    lockstep of each route against the single-device kernel stepper;
+  * semi-implicit on the same meshes, cut to 1000 steps beside a one-device
+    run of the same cut: K12.7 (K7 with ghost rows and columns) once per
+    shard and step, K12.8 (K8 with ghosts, the anisotropy form for the
+    phase system and the cross form for heat) once per shard and CG
+    iteration, each after one ghost gather per shard, K9 and K10 per
+    shard, one host read per CG iteration, the one-device step count
+    exactly and CG iterations within 2% of one device's; with the corrector
+    loop on x(2), 800 steps.  Before them, K12.7 and K12.8 against their
+    plain versions on those meshes (joined, against K7 and K8 on the whole
+    grid), and a lockstep of each mesh against the single-device kernels.
 
 At float64, the reference's own benchmark configs ``bench_sweep_f64/*.ini``
 (isotropic, no stats, CG and Merson tolerances 5e-9), each beside the
@@ -83,7 +93,7 @@ sys.path.insert(0, ROOT)
 
 from bachelors_tpu_torch.app.driver import run_config_file, snapshot_events  # noqa: E402
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams  # noqa: E402
-from bachelors_tpu_torch.core.state import make_state  # noqa: E402
+from bachelors_tpu_torch.core.state import Shards, make_state  # noqa: E402
 from bachelors_tpu_torch.io.config import load_config  # noqa: E402
 from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
@@ -136,6 +146,9 @@ RK4 = "[simulation]\nsolver = explicit-rk4\n"
 CUT = ("[simulation]\nmesh_size_x = 4096\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
        "stop_after = 2.34375e-5\n[snapshot]\ntimes = 1\n")
 EXACT = "[simulation]\nsolver = exact\ndo_exact = true\nstop_after = 0.0005\n[snapshot]\ntimes = 1\n"
+# the semi-implicit path cut to 1000 steps, on one device and on the meshes
+SI_CUT = "[simulation]\nstop_after = 0.005\n"
+SI_CG_ITERS_RTOL = 0.02  # a mesh run's CG iterations against one device's
 # The float64 paths: the reference's benchmark configs as they ship, with an
 # initial frame (written before the timed loop) to check the seed's growth
 # against, and the reference's A100 run time of each (BASELINE.md:14-20)
@@ -169,10 +182,12 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
                     "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
                     "rkm_attempt_sharded_plain", "merson_finish",
-                    "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine"),
+                    "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine",
+                    "si_prepare_sharded_plain", "si_terms"),
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
                    "update_xr_rr_plain", "axpby_inplace_plain", "cross_residual_plain",
-                   "aniso_residual_plain", "heat_residual_plain"),
+                   "aniso_residual_plain", "heat_residual_plain",
+                   "cross_matvec_pAp_sharded_plain", "aniso_matvec_pAp_sharded_plain"),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
 
 
@@ -203,8 +218,9 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K3": 4 * PHYS_OPS + 12 + 14,     # blends, RK4 combination
        "K6": 4 * (PHYS_OPS + 4),         # 4 Euler steps
        "K6 T=8": 8 * (PHYS_OPS + 4),     # 8 Euler steps
-       "K7": PHYS_OPS,
+       "K7": PHYS_OPS, "K12.7": PHYS_OPS,  # K7 on a shard
        "K8 cross": 9, "K8 aniso": 13, "K9": 6, "K10": 3,
+       "K12.8 cross": 9, "K12.8 aniso": 13,  # K8 on a shard
        "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11}
 PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1,
                     "K5": 1, "K12.1": 1, "K12.2": 5}
@@ -213,6 +229,7 @@ FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
           "K12.1 gather": 2 * 3 + 2, "K12.2": 2 + 2, "K12.3": 2 + 2, "K12.4": 8 + 2,
           "K12.5": 2 + 2, "K12.6": 2 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
           "K6 T=8": 2 + 2, "K7": 2 + 3, "K8 cross": 1 + 1, "K8 aniso": 2 + 1,
+          "K12.7": 2 + 3, "K12.8 cross": 1 + 1, "K12.8 aniso": 2 + 1,
           "K9": 4 + 2, "K10": 2 + 1, "K14 cross": 2 + 1, "K14 aniso": 3 + 1,
           "K14 heat": 4 + 1}
 
@@ -888,9 +905,11 @@ def rkm_path() -> dict:
     return n, run["summary"]
 
 
-def si_path(overrides, name) -> dict:
+def si_path(overrides, name):
     """The semi-implicit solver: K7 once per step (and per corrector pass),
-    the CG iterations through K8-K10 and one host read each."""
+    the CG iterations through K8-K10 and one host read each.  Returns the
+    launches and the run's summary with its CG iterations and their means
+    per step, the yardstick of its mesh runs."""
     run = drive(overrides)
     n, steps, p = run["launches"], run["res"].iters, run["cfg"].params
     passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
@@ -913,15 +932,19 @@ def si_path(overrides, name) -> dict:
             raise AssertionError(f"step residual columns {h[12:]} not all present and finite")
         extra = {"step_res_columns": len(res_cols),
                  "step_res_L1_last_iter_mean": float(rows[:, res_cols[-4]].mean())}
-    phase(name, **run["summary"],
-          mean_Phi_iters=float(rows[:, h.index("Phi_iters")].mean()),
-          mean_T_iters=float(rows[:, h.index("T_iters")].mean()),
+    summary = dict(run["summary"], cg_iterations=cg_iters, **cg_means(run))
+    phase(name, **summary,
           max_Phi_iters=int(rows[:, h.index("Phi_iters")].max()),
           max_T_iters=int(rows[:, h.index("T_iters")].max()),
-          cg_iterations=cg_iters, host_reads=run["host_reads"],
-          host_reads_per_step=run["host_reads"] / steps, cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE)),
-          **extra)
-    return n
+          host_reads=run["host_reads"], host_reads_per_step=run["host_reads"] / steps,
+          cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE)), **extra)
+    return n, summary
+
+
+def cg_means(run) -> dict:
+    """The mean Phi and T CG iterations per step of a run's stats.csv."""
+    h, rows = run["header"], run["rows"]
+    return {f"mean_{k}": float(rows[:, h.index(k)].mean()) for k in ("Phi_iters", "T_iters")}
 
 
 def euler_path() -> dict:
@@ -1324,6 +1347,192 @@ def check_mesh_fixed_locksteps(F0, U0, steps=5) -> None:
           tol=FIELD_TOL, increment_tol="tol * max|increment| + 2 ulp(max|field|)", routes=out)
 
 
+def check_mesh_si_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
+    """K12.7 (the prepare, the corrector guess on and off) and K12.8 (cross
+    and anisotropy forms) against their plain versions, shard by shard, on
+    y(2), x(2) and 2x2 meshes of the one card, at every BC pair, 512^2 and
+    66x258, S = 0.25 and 0; joined over each mesh, against K7 and K8 on the
+    whole grid (fields: each cell runs the same arithmetic on the same
+    values, so the gap is expected to be 0 and held to FIELD_TOL; the
+    shards' <p, A p> summed: SUM_RTOL).  Timed on one shard of the 512^2
+    x(2) mesh (512x256)."""
+    worst = {"K12.7": [0.0, 0.0], "K12.8": [0.0, 0.0]}
+    joined = {"K12.7 vs K7": 0.0, "K12.8 vs K8": 0.0}
+    dots = {"K12.8 vs plain": 0.0, "K12.8 summed vs K8": 0.0}
+    cases = 0
+
+    def hold_dot(key, got, want, what):
+        rel = abs(got.item() - want.item()) / max(abs(want.item()), 1e-30)
+        dots[key] = max(dots[key], rel)
+        if not rel <= SUM_RTOL:
+            raise AssertionError(f"{key}: <p, Ap> {got.item()} vs {want.item()} ({what})")
+
+    def hold_joined(key, out, topo, want, what):
+        gap = (Shards(tuple(out), topo.grid).gather() - want).abs().max().item()
+        joined[key] = max(joined[key], gap)
+        if not gap <= FIELD_TOL * max(want.abs().max().item(), 1.0):
+            raise AssertionError(f"{key}: joined fields differ by {gap:.3g} ({what})")
+
+    for p, _, what in check_cases("float32", sizes, physics=(dict(S=0.25), dict(S=0.0))):
+        (F, U), (v, _) = fields(rng, p.ny, p.nx, 2)
+        s = s_map(rng, p.ny, p.nx)
+        A_U, A_F = CrossMatrix.implicit_heat(p), AnisotropyMatrix.implicit_phase(p)
+        prep = {g: cuda_rhs.si_prepare(F, U, p.replace(do_corrector_guess=g))
+                for g in (False, True)}
+        forms = (("cross", lambda b, sb, h, o: cuda_cg.cross_matvec_pAp_sharded(A_U, b, h, out=o),
+                  lambda b, sb, h: cuda_cg.cross_matvec_pAp_sharded_plain(A_U, b, h),
+                  cuda_cg.cross_matvec_pAp(A_U, v)),
+                 ("aniso",
+                  lambda b, sb, h, o: cuda_cg.aniso_matvec_pAp_sharded(A_F, sb, b, h, out=o),
+                  lambda b, sb, h: cuda_cg.aniso_matvec_pAp_sharded_plain(A_F, sb, b, h),
+                  cuda_cg.aniso_matvec_pAp(A_F, s, v)))
+        for mname, (sy, sx) in MESHES.items():
+            mesh, topo = on_mesh(sy, sx)
+            Fs, Us, vs, ss = (shard_field(t, mesh, topo) for t in (F, U, v, s))
+            for guess, whole in prep.items():
+                q, on = p.replace(do_corrector_guess=guess), f"{what} {mname} guess={guess}"
+                out = []
+                for f, u, h in zip(Fs.blocks, Us.blocks, stage_halos([(Fs, Us)], [1.0], topo)):
+                    got = cuda_rhs.si_prepare_sharded(f, u, q, h)
+                    want = cuda_rhs.si_prepare_sharded_plain(f, u, q, h)
+                    if len(got) != len(want) or len(got) != len(whole):
+                        raise AssertionError(f"K12.7 returned {len(got)} fields, plain "
+                                             f"{len(want)}, K7 {len(whole)} ({on})")
+                    hold("K12.7", got, want, on, worst["K12.7"])
+                    out.append(got)
+                for i, w in enumerate(whole):
+                    hold_joined("K12.7 vs K7", [o[i] for o in out], topo, w, on)
+            halos = stage_halos([(vs, vs)], [1.0], topo)
+            for form, kernel, plain, whole in forms:
+                on, out = f"{what} {mname} {form}", []
+                for b, sb, h in zip(vs.blocks, ss.blocks, halos):
+                    dead = torch.empty_like(b)
+                    got, want = kernel(b, sb, h, dead), plain(b, sb, h)
+                    if got[0].data_ptr() != dead.data_ptr():
+                        raise AssertionError(f"K12.8 did not write its output buffer ({on})")
+                    hold("K12.8", [got[0]], [want[0]], on, worst["K12.8"])
+                    hold_dot("K12.8 vs plain", got[1], want[1], on)
+                    out.append(got)
+                hold_joined("K12.8 vs K8", [o[0] for o in out], topo, whole[0], on)
+                hold_dot("K12.8 summed vs K8", topo.allsum([o[1] for o in out]), whole[1], on)
+        cases += 1
+    torch.cuda.synchronize()
+
+    p = params(512, 512, "neumann")
+    (F, U), (v, _) = fields(rng, 512, 512, 2)
+    mesh, topo = on_mesh(1, 2)
+    Fs, Us, vs, ss = (shard_field(t, mesh, topo) for t in (F, U, v, s_map(rng, 512, 512)))
+    h = stage_halos([(Fs, Us)], [1.0], topo)[0]
+    hv = stage_halos([(vs, vs)], [1.0], topo)[0]
+    f0, u0, v0, s0 = Fs.blocks[0], Us.blocks[0], vs.blocks[0], ss.blocks[0]
+    dead = torch.empty_like(v0)
+    A_U, A_F = CrossMatrix.implicit_heat(p), AnisotropyMatrix.implicit_phase(p)
+    timed = {
+        "K12.7": (lambda: cuda_rhs.si_prepare_sharded(f0, u0, p, h),
+                  lambda: cuda_rhs.si_prepare_sharded_plain(f0, u0, p, h)),
+        "K12.8 cross": (lambda: cuda_cg.cross_matvec_pAp_sharded(A_U, v0, hv, out=dead),
+                        lambda: cuda_cg.cross_matvec_pAp_sharded_plain(A_U, v0, hv)),
+        "K12.8 aniso": (lambda: cuda_cg.aniso_matvec_pAp_sharded(A_F, s0, v0, hv, out=dead),
+                        lambda: cuda_cg.aniso_matvec_pAp_sharded_plain(A_F, s0, v0, hv)),
+    }
+    cells = 512 * 256
+    times = {name: time_pair(kernel, plain, reps=50) for name, (kernel, plain) in timed.items()}
+    phase("mesh kernels K12.7, K12.8 (cross, aniso) vs plain", cases=cases,
+          meshes=list(MESHES), max_rel_err={k: v[0] for k, v in worst.items()},
+          max_abs_err={k: v[1] for k, v in worst.items()}, tol=FIELD_TOL,
+          max_dot_rel_err=dots, dot_rtol=SUM_RTOL,
+          joined_over_mesh_vs_whole_grid_max_abs=joined,
+          library="none: no PyTorch call computes a ghosted stencil and its dot",
+          ms_one_shard_512x256={k: {"kernel": t[0], "plain": t[1]} for k, t in times.items()})
+
+    def mean(values):
+        values = list(values)
+        return sum(values) / len(values)
+
+    # K12.8's entry is the mean of its cross and anisotropy forms, as K8's
+    forms = ("K12.8 cross", "K12.8 aniso")
+    return {"K12.7": {"max_abs_err": worst["K12.7"][1], "ms": times["K12.7"][0],
+                      "plain_ms": times["K12.7"][1], **bound("K12.7", cells),
+                      "library_ms": None},
+            "K12.8": {"max_abs_err": worst["K12.8"][1],
+                      "ms": mean(times[f][0] for f in forms),
+                      "plain_ms": mean(times[f][1] for f in forms),
+                      "bound_ms": mean(bound(f, cells)["bound_ms"] for f in forms),
+                      "bound_by": bound(forms[0], cells)["bound_by"], "library_ms": None}}
+
+
+def check_mesh_si_lockstep(cfg, F0, U0, steps=5) -> None:
+    """The semi-implicit path's first steps on each mesh (K12.7, K12.8, K9,
+    K10 per shard) against the single-device kernel stepper, each from the
+    same state.  The dot products add in other orders, so a solve may stop
+    one CG iteration earlier or later near the 5e-9 test: counts within one,
+    and how many steps differ is printed.  Fields and step increments are
+    held as ``hold_step`` says."""
+    p = cfg.params
+    one = make_stepper(p)
+    out = {}
+    for mname, (sy, sx) in MESHES.items():
+        mesh, topo = on_mesh(sy, sx)
+        step = make_sharded_stepper(p, mesh, topo)
+        state = make_state(F0, U0, p, device=DEVICE)
+        worst, off_by_one, iters = [0.0, 0.0], 0, []
+        for _ in range(steps):
+            a, sa = one(state)
+            b, sb = step(shard_state(state, mesh, topo))
+            ka, kb = (sa.Phi_iters, sa.T_iters), (sb.Phi_iters, sb.T_iters)
+            if any(abs(x - y) > 1 for x, y in zip(ka, kb)):
+                raise AssertionError(f"semi-implicit lockstep on {mname}: CG iterations "
+                                     f"{kb} vs one device's {ka}")
+            off_by_one += ka != kb
+            iters.append([kb, ka])
+            hold_step(gather_state(b), a, state, worst, f"semi-implicit lockstep on {mname}")
+            state = a
+        out[mname] = {"max_rel_err": worst[0], "max_increment_rel_err": worst[1],
+                      "steps_with_cg_iters_off_by_one": off_by_one,
+                      "cg_iters_mesh_vs_one_device": iters}
+    phase("semi-implicit mesh lockstep vs single-device kernels", steps=steps, tol=FIELD_TOL,
+          increment_tol="tol * max|increment| + 2 ulp(max|field|)", meshes=out)
+
+
+def si_mesh_path(name, sy, sx, overrides, single) -> dict:
+    """Semi-implicit through ``run_config_file`` on a (sy, sx) mesh of the
+    one card: exactly the one-device run's step count (``single``, its
+    summary from ``si_path``); per shard K12.7 once per pass, K12.8 (the
+    anisotropy and cross forms) and K9 once per CG iteration, a ghost
+    gather before each K12.7 and K12.8, K10 launched and at most once per
+    CG iteration, nothing else; one host read per CG iteration, and CG
+    iterations within SI_CG_ITERS_RTOL of one device's."""
+    n = sy * sx
+    run = drive([f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n", *overrides],
+                device=[DEVICE] * n)
+    L, steps, p = run["launches"], run["res"].iters, run["cfg"].params
+    passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
+    expect(steps == single["steps"], f"the one-device {single['steps']} steps", run)
+    k9 = L["update_xr_rr"]
+    iters = k9 // n
+    expect(k9 == iters * n and run["host_reads"] == iters,
+           f"K9 per shard once per CG iteration, one host read each ({run['host_reads']})", run)
+    matvecs = {k: L[k] for k in ("cross_matvec_pAp_sharded", "aniso_matvec_pAp_sharded")}
+    want = {"si_prepare_sharded": passes * steps * n, "halo_edges": (passes * steps + iters) * n,
+            "update_xr_rr": k9, **matvecs}
+    expect(min(matvecs.values()) > 0 and sum(matvecs.values()) == k9
+           and {k: v for k, v in L.items() if v and k != "axpby_inplace"} == want
+           and 0 < L["axpby_inplace"] <= k9, f"launches {want}, K10 in (0, {k9}]", run)
+    diff = iters - single["cg_iterations"]
+    expect(abs(diff) <= SI_CG_ITERS_RTOL * single["cg_iterations"],
+           f"CG iterations {iters} within {SI_CG_ITERS_RTOL:.0%} of one device's "
+           f"{single['cg_iterations']}", run)
+    phase(name, shards=[sy, sx], cg_iterations=iters,
+          single_device_cg_iterations=single["cg_iterations"], cg_iterations_diff=diff,
+          **cg_means(run), single_device_mean_Phi_iters=single["mean_Phi_iters"],
+          single_device_mean_T_iters=single["mean_T_iters"], host_reads=run["host_reads"],
+          single_device_steps=single["steps"], single_device_ms_per_step=single["ms_per_step"],
+          ms_per_step_vs_single=run["summary"]["ms_per_step"] / single["ms_per_step"],
+          cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE), on_mesh(sy, sx)[1]),
+          **run["summary"])
+    return L
+
+
 def corrector_path() -> dict:
     """Euler with the corrector loop on one device (3 iterations, step
     residuals, 800 steps): K1 in euler mode once per step and in rhs mode
@@ -1454,6 +1663,7 @@ def main() -> None:
     k8_10 = check_cg_kernels(rng, si_cfg.params)
     mesh_k = check_mesh_kernels(rng)
     mesh_fixed_k = check_mesh_fixed_kernels(rng)
+    mesh_si_k = check_mesh_si_kernels(rng)
 
     f64 = {name: load_config(sweep(name)) for name in F64_RUNS}
     F64, U64 = make_initial_fields(f64["rkm"].params, f64["rkm"].initial, device=DEVICE)
@@ -1468,6 +1678,7 @@ def main() -> None:
     check_lockstep(cfg, F0, U0)
     check_mesh_lockstep(cfg, F0, U0)
     check_mesh_fixed_locksteps(F0, U0)
+    check_mesh_si_lockstep(si_cfg, F0, U0)
     check_si_lockstep(si_cfg, F0, U0)
     check_rk4_lockstep([("512^2, staged", load_config(CONFIG, [RK4])),
                         ("4096^2 cut, K3", load_config(CONFIG, [RK4, CUT]))])
@@ -1483,8 +1694,8 @@ def main() -> None:
     mesh_runs = {name: mesh_path(f"main path (RKM) on a {name} mesh", *shape, rkm_one)
                  for name, shape in MESHES.items()}
     cut = mesh_path("RKM, 2048^2 cut on a y(4) mesh", 4, 1, None, [CUT_2048], grow=False)
-    si = si_path([SEMI], "semi-implicit path")
-    si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
+    si, _ = si_path([SEMI], "semi-implicit path")
+    _, si_corrector_one = si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
     euler, euler_one = euler_path()
     euler_fast, euler_fast_one = euler_blocks_path([EULER, NO_STATS], 4,
                                                    "Euler path, stats off")
@@ -1523,6 +1734,12 @@ def main() -> None:
     phase("exact solver on a mesh: frames equal to one device's", mesh=EXACT_MESH,
           frames=sorted(exact["frames"]), equal="bit for bit")
     thin_shards_path()
+    # semi-implicit on the meshes, each against a one-device run in this call
+    _, si_cut_one = si_path([SEMI, SI_CUT], "semi-implicit path, 1000-step cut")
+    si_mesh = [si_mesh_path(f"semi-implicit path, 1000-step cut, on a {m} mesh", *shape,
+                            [SEMI, SI_CUT], si_cut_one) for m, shape in MESHES.items()]
+    si_mesh.append(si_mesh_path("semi-implicit corrector path on an x(2) mesh", 1, 2,
+                                [SEMI, CORRECTOR], si_corrector_one))
 
     rkm64 = rkm_f64_path()
     si64 = si_f64_path()
@@ -1592,6 +1809,14 @@ def main() -> None:
         kernel_entry("K12.6 rk4_full_sharded (K3 with ghost slabs; RK4 on the 4096^2 cut on "
                      "y(2))", rhs_src, f"{pallas_rhs}:1231",
                      rk4_cut_mesh["launches"]["rk4_full_sharded"], mesh_fixed_k["K12.6"]),
+        kernel_entry("K12.7 si_prepare_sharded (K7 with ghost rows/columns; semi-implicit on "
+                     "y(2), x(2), 2x2 and its corrector loop on x(2))", rhs_src,
+                     f"{pallas_rhs}:625", sum(L["si_prepare_sharded"] for L in si_mesh),
+                     mesh_si_k["K12.7"]),
+        kernel_entry("K12.8 matvec_pAp_sharded (K8 with ghost rows/columns, cross and aniso "
+                     "forms; the same runs)", cg_src, f"{pallas_cg}:238",
+                     sum(L["cross_matvec_pAp_sharded"] + L["aniso_matvec_pAp_sharded"]
+                         for L in si_mesh), mesh_si_k["K12.8"]),
         kernel_entry("K1 blend_rhs at float64 (float64 RK4 path, k1-k3)", rhs_src,
                      f"{pallas_rhs}:344", rk4_64["blend_rhs"], d1),
         kernel_entry("K2 rkm_attempt at float64 (K13's scheme rkm; float64 RKM path)",

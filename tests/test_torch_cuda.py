@@ -547,3 +547,70 @@ def test_k12_5_and_k12_6_match_plain_and_whole_grid(f_bc, u_bc, shards, gen,
                 out.append(got)
             for i in (0, 1):
                 assert torch.equal(torch.cat([o[i] for o in out]), whole[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
+def test_k12_7_and_k12_8_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
+                                                    cuda_device):  # noqa: F811
+    """K12.7 (the semi-implicit prepare, the corrector guess on and off,
+    S = 0.25 and 0) and K12.8 (both matvec forms) shard by shard against
+    their plain versions, each counted under its own name.  Joined over the
+    mesh, K12.7's fields and K12.8's A v equal K7's and K8's on the whole
+    grid bit for bit (each cell runs the same arithmetic on the same
+    values); the shards' <v, A v> add to K8's to rtol 1e-5 (another
+    order)."""
+    from bachelors_tpu_torch.core.state import Shards
+    from bachelors_tpu_torch.ops.rhs import stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo = Topology(sy, sx)
+
+    def joined(out, i):
+        return Shards(tuple(o[i] for o in out), (sy, sx)).gather()
+
+    for ny, nx in MESH_SIZES:
+        (F, U), = _mesh_states(gen, ny, nx, sy, sx, 1, cuda_device)
+        for S in (0.25, 0.0):
+            for guess in (False, True):
+                p = _params(ny, nx, f_bc, u_bc, S, 6.0).replace(do_corrector_guess=guess)
+                out = []
+                for f, u, h in zip(F.blocks, U.blocks, stage_halos([(F, U)], [1.0], topo)):
+                    before = cuda_rhs.LAUNCHES["si_prepare_sharded"]
+                    got = cuda_rhs.si_prepare_sharded(f, u, p, h)
+                    assert cuda_rhs.LAUNCHES["si_prepare_sharded"] == before + 1
+                    want = cuda_rhs.si_prepare_sharded_plain(f, u, p, h)
+                    assert len(got) == len(want) == (3 if S != 0.0 or guess else 2)
+                    for g, w in zip(got, want):
+                        assert_match(g, w)
+                    out.append(got)
+                for i, w in enumerate(cuda_rhs.si_prepare(F.gather(), U.gather(), p)):
+                    assert torch.equal(joined(out, i), w)
+        A_U, A_F = _operators(u_bc)[0], _operators(f_bc)[1]
+        (v, s), = _mesh_states(gen, ny, nx, sy, sx, 1, cuda_device)
+        s = s.map(lambda b: 0.33 + 0.08 * torch.tanh(b))
+        halos = stage_halos([(v, v)], [1.0], topo)
+        for name, kernel, plain, whole in (
+                ("cross_matvec_pAp_sharded",
+                 lambda b, sb, h, out: cuda_cg.cross_matvec_pAp_sharded(A_U, b, h, out=out),
+                 lambda b, sb, h: cuda_cg.cross_matvec_pAp_sharded_plain(A_U, b, h),
+                 cuda_cg.cross_matvec_pAp(A_U, v.gather())),
+                ("aniso_matvec_pAp_sharded",
+                 lambda b, sb, h, out: cuda_cg.aniso_matvec_pAp_sharded(A_F, sb, b, h, out=out),
+                 lambda b, sb, h: cuda_cg.aniso_matvec_pAp_sharded_plain(A_F, sb, b, h),
+                 cuda_cg.aniso_matvec_pAp(A_F, s.gather(), v.gather()))):
+            out = []
+            for b, sb, h in zip(v.blocks, s.blocks, halos):
+                before = cuda_cg.LAUNCHES[name]
+                dead = torch.empty_like(b)
+                got = kernel(b, sb, h, dead)
+                assert cuda_cg.LAUNCHES[name] == before + 1
+                assert got[0].data_ptr() == dead.data_ptr() and got[1].dim() == 0
+                want = plain(b, sb, h)
+                assert_match(got[0], want[0])
+                np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=1e-5)
+                out.append(got)
+            assert torch.equal(joined(out, 0), whole[0])
+            np.testing.assert_allclose(topo.allsum([o[1] for o in out]).item(),
+                                       whole[1].item(), rtol=1e-5)

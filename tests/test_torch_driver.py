@@ -206,7 +206,7 @@ def test_resume_continues_the_run(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("[simulation]\nsolver = semi-implicit\n[tpu]\nshards_y", "2", "slice 5b.2"),
+    ("[tpu]\nbatch_shards", "2", "ensembles"),
     ("[tpu]\nensemble", "4", "ensembles"),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),

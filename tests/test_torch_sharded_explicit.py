@@ -23,8 +23,9 @@ the JAX package and to the port's own single-device path.
     and RK4 take the staged routes, the Euler pair declines;
   * the Euler pair's gates on a mesh;
   * ``run_simulation`` of Euler without stats on a y(2) mesh of two CPU
-    devices writes a single-device run's frames;
-  * semi-implicit on a mesh raises (slice 5b.2).
+    devices writes a single-device run's frames.
+
+Semi-implicit on a mesh: ``tests/test_torch_sharded_si.py``.
 """
 import functools
 import os
@@ -399,11 +400,3 @@ def test_run_simulation_euler_on_a_y_mesh_writes_the_single_device_frames(
         assert (x.time, x.iter) == (y.time, y.iter)
         for k in x.maps:
             np.testing.assert_allclose(y.maps[k], x.maps[k], rtol=1e-12, atol=1e-12)
-
-
-def test_semi_implicit_on_a_mesh_raises():
-    """Semi-implicit does not run on a mesh yet (slice 5b.2), and falls
-    back to nothing."""
-    mesh, topo = make_mesh(2, 1, _cpu(2))
-    with pytest.raises(NotImplementedError, match="slice 5b.2"):
-        make_sharded_stepper(_f32_params(solver=JST.SEMI_IMPLICIT), mesh, topo)
