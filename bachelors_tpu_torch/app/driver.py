@@ -7,9 +7,9 @@ per-run file logger, echo the config, then run with time-based snapshot
 triggers (``every`` cadence + ``times`` uniform over the stop time) and a
 ~1 Hz progress log.
 
-With ``[tpu] shards_y/shards_x`` every solver but semi-implicit runs on a
-mesh of devices (``parallel/``); the state is gathered before each write,
-so the files are those of a single-device run.
+With ``[tpu] shards_y/shards_x`` every solver runs on a mesh of devices
+(``parallel/``), at float32 and float64; the state is gathered before each
+write, so the files are those of a single-device run.
 
 The hot loop is a host loop of one step at a time, collecting stats every
 step; each adaptive step already reads its error estimate on the host, and
@@ -18,8 +18,9 @@ package's device-side runners and their dispatch-size probes.  A fixed-dt
 run that collects no stats counts its steps on the host instead, as the
 JAX driver does (`bachelors_tpu/app/driver.py:437-463`), and advances with
 ``advance_n``: forward Euler then takes 4 steps per kernel launch, or 8 on
-float64 grids from 1M cells, and 4 per launch on each shard of a float32
-y-mesh (``make_euler_pair_stepper``).  A float64 run
+float64 grids from 1M cells, and as many on each shard of a mesh, float32
+y-meshes and float64 meshes of any shape (``make_euler_pair_stepper``).
+A float64 run
 computes in double throughout, on the same kernels instantiated for it; its
 snapshots hold the doubles.
 """

@@ -14,7 +14,8 @@ the reference.  The pad is a gather with wrapped or clamped indices, so it
 works for any grid size, including 1.
 
 On a mesh, a shard pads from the ghost rows and columns its neighbours
-sent (``Halo``, ``pad_halo``; the exchange is ``parallel/topology.py``).
+sent (``Halo``, ``pad_halo``), and a whole-step kernel reads an apron of
+them (``Apron``); the exchanges are ``parallel/topology.py``.
 """
 from __future__ import annotations
 
@@ -76,6 +77,32 @@ class Halo:
     rows: Optional[torch.Tensor] = None
     cols: Optional[torch.Tensor] = None
     edges: Tuple[bool, bool, bool, bool] = (True, True, True, True)
+
+
+@dataclasses.dataclass(frozen=True)
+class Apron:
+    """What one shard of a mesh sees beyond its edges for a whole-step
+    kernel A stages deep (the apron tile kernels, ``csrc/rhs.cu``): the
+    shard holds global rows [y0, y0 + ny_l) and columns [x0, x0 + nx_l).
+
+    ``rows``: (2 sides, 2 fields, A, W), the A rows below the shard (side 0)
+    and above it (side 1) of Phi and T, in ring order; W = nx_l + 2A when
+    the x axis is sharded too (columns [x0 - A, x0 + nx_l + A): the rows
+    carry the diagonal neighbours' corners), else nx_l.  ``cols``: (2, 2,
+    ny_l, A), the A columns west and east.  Each is ``None`` along an axis
+    that is not sharded.  Unlike a ``Halo``, ghosts are raw neighbour cells
+    whatever the boundary type: the kernel applies the boundary rule at
+    global edges itself, at every stage (``parallel/topology.Topology.apron``
+    fills it)."""
+
+    rows: Optional[torch.Tensor]
+    cols: Optional[torch.Tensor]
+    y0: int = 0
+    x0: int = 0
+
+    @property
+    def depth(self) -> int:
+        return (self.rows.shape[2] if self.rows is not None else self.cols.shape[3])
 
 
 def edge_image(edge: torch.Tensor, bc: BoundaryType, dirichlet_value) -> torch.Tensor:

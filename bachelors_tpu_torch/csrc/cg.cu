@@ -24,7 +24,7 @@
 //     per block, then a one-block kernel adds the partials.  The output may
 //     be a dead buffer the caller passes in, never p (the wrapper checks).
 //
-// K12.8 bt_matvec_pAp_halo_f32: replaces `pallas_cg.py:
+// K12.8 bt_matvec_pAp_halo: replaces `pallas_cg.py:
 //     cross_matvec_pAp_sharded` (:238) and `aniso_matvec_pAp_sharded` (:249),
 //     both `_matvec_pAp` with ghost rows and columns (`_ghost_kw` :223).  K8
 //     itself with a Halo (physics.cuh): at a seam it reads p's ghost row or
@@ -57,6 +57,17 @@
 //     Bound by bytes (2-5 fields read, 1 written).  Design: K8's matvec,
 //     one thread per cell, without the dot product.  The output must not
 //     overlap e, whose neighbours it reads.
+//
+// K14 twin bt_si_residual_halo: replaces `pallas_dd.py:
+//     cross_residual_dd_sharded` (:1014), `aniso_residual_dd_sharded` (:1027)
+//     and `heat_residual_dd_sharded` (:1039), `_cross_residual_call` (:882)
+//     with e's ghost rows and columns (`_ghost_rows_e` :976, `_ghost_cols_e`
+//     :984).  K14 with a Halo, as K12.8 is K8 with one: at a seam it reads
+//     e's ghost (the gather of (e, e), field 0), at a global edge the image
+//     at value 0 (-e for Dirichlet, `_ghost_cols_e`'s sign), or the ghost
+//     for a periodic field.  The other planes are pointwise.  Each cell runs
+//     K14's arithmetic on the values K14 reads, so a mesh equals K14 on the
+//     whole grid bit for bit.  Bound by bytes like K14.
 //
 // The partial sums are added by a second kernel (`sum_partials_kernel`),
 // as K2's error maxima are, never by a library reduction.  Block sums run
@@ -165,19 +176,20 @@ constexpr int kResHeatExtra = 3;
 
 // a: the map s (aniso) or e1_F (heat); b: e2_F (heat); x: the extra heat
 // terms (heat + extra)
+// On the whole grid (h = whole_grid) or, with a halo (field 0 of its ghosts
+// is e's), the K14 twin on a shard.
 template <int MODE, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     si_residual_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
                        const Real* __restrict__ a, const Real* __restrict__ b,
                        const Real* __restrict__ x, Real* __restrict__ out, int ny, int nx,
-                       int bc, Real C, Real X, Real Y, Real L) {
+                       int bc, Real C, Real X, Real Y, Real L, Halo<Real> h) {
   const int j = blockIdx.x * kCgBlockX + threadIdx.x;
   const int i = blockIdx.y * kCgBlockY + threadIdx.y;
   if (i >= ny || j >= nx) return;
   const int c = i * nx + j;
   const Real ec = e[c];
-  const Cross<Real> n =
-      cross_at(Load<Real>{e}, bc, 0, ec, Real(0), whole_grid<Real>(), i, j, ny, nx);
+  const Cross<Real> n = cross_at(Load<Real>{e}, bc, 0, ec, Real(0), h, i, j, ny, nx);
   Real Ae;
   if (MODE == kResAniso) {
     const Real sv = a[c];
@@ -249,21 +261,21 @@ int axpby(const Real* a, const Real* b, const Real* r, Real* p, int n,
 template <class Real>
 int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, const Real* x,
                 Real* out, int ny, int nx, int bc, int mode, Real C, Real X, Real Y, Real L,
-                cudaStream_t stream) {
+                Halo<Real> h, cudaStream_t stream) {
   dim3 grid = matvec_grid(ny, nx);
   dim3 block(kCgBlockX, kCgBlockY);
   switch (mode) {
     case kResCross:
-      si_residual_kernel<kResCross><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      si_residual_kernel<kResCross><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L, h);
       break;
     case kResAniso:
-      si_residual_kernel<kResAniso><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      si_residual_kernel<kResAniso><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L, h);
       break;
     case kResHeat:
-      si_residual_kernel<kResHeat><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      si_residual_kernel<kResHeat><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L, h);
       break;
     case kResHeatExtra:
-      si_residual_kernel<kResHeatExtra><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L);
+      si_residual_kernel<kResHeatExtra><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L, h);
       break;
     default:
       return int(cudaErrorInvalidValue);
@@ -287,6 +299,12 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 //      (N+S)); modes 2 and 3 take r0 := L (a + b) + r0 [+ x] first, with
 //      the cross operator.  Pointers a mode does not read may be null.
 //      out must not overlap e.
+//   K12.8 bt_matvec_pAp_halo and the K14 twin bt_si_residual_halo: K8 and
+//      K14 on a shard of a mesh.  `rows`/`cols` are the ghosts of p (of e),
+//      (2 sides, 2 fields, nx) and (2, 2, ny) with p (e) in field 0, null
+//      along an axis that is not sharded; `edges` has bit 0..3 set when the
+//      shard holds the grid's first row, last row, first column, last
+//      column.  pAp[0] = the shard's own <p, A p>.
 #define BT_CG_ENTRIES(SFX, S)                                                         \
   int bt_matvec_pAp_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp,       \
                           int ny, int nx, int bc, S C, S X, S Y, cudaStream_t stream) { \
@@ -305,7 +323,20 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
                            const S* x, S* out, int ny, int nx, int bc, int mode,      \
                            S C, S X, S Y, S L, cudaStream_t stream) {                 \
     return bt::si_residual<S>(e, r0, a, b, x, out, ny, nx, bc, mode, C, X, Y, L,     \
-                              stream);                                                \
+                              bt::whole_grid<S>(), stream);                           \
+  }                                                                                   \
+  int bt_matvec_pAp_halo_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp,  \
+                               int ny, int nx, int bc, S C, S X, S Y, const S* rows,  \
+                               const S* cols, int edges, cudaStream_t stream) {       \
+    return bt::matvec_pAp<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y,          \
+                             bt::Halo<S>{rows, cols, edges}, stream);                 \
+  }                                                                                   \
+  int bt_si_residual_halo_##SFX(const S* e, const S* r0, const S* a, const S* b,     \
+                                const S* x, S* out, int ny, int nx, int bc, int mode, \
+                                S C, S X, S Y, S L, const S* rows, const S* cols,     \
+                                int edges, cudaStream_t stream) {                     \
+    return bt::si_residual<S>(e, r0, a, b, x, out, ny, nx, bc, mode, C, X, Y, L,     \
+                              bt::Halo<S>{rows, cols, edges}, stream);                \
   }
 
 extern "C" {
@@ -319,18 +350,5 @@ int bt_cg_num_partials(int ny, int nx) {
 
 BT_CG_ENTRIES(f32, float)
 BT_CG_ENTRIES(f64, double)
-
-// K12.8, float32 only (its float64 twin: ROADMAP slice 5b.3): K8 on a shard
-// of a mesh.  `rows`/`cols` are the ghosts of p, (2 sides, 2 fields, nx) and
-// (2, 2, ny) with p in field 0, null along an axis that is not sharded;
-// `edges` has bit 0..3 set when the shard holds the grid's first row, last
-// row, first column, last column.  pAp[0] = the shard's own <p, A p>.
-int bt_matvec_pAp_halo_f32(const float* p, const float* s, float* out, float* partials,
-                           float* pAp, int ny, int nx, int bc, float C, float X, float Y,
-                           const float* rows, const float* cols, int edges,
-                           cudaStream_t stream) {
-  return bt::matvec_pAp<float>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y,
-                               bt::Halo<float>{rows, cols, edges}, stream);
-}
 
 }  // extern "C"

@@ -75,7 +75,7 @@
 //     fold, so the two round alike.  Ghosts take Dirichlet value 0, as the
 //     JAX package's prepare does.
 //
-// K5  bt_rkm_final_f32: replaces `_make_kernel` in mode "rkm_final" (:441,
+// K5  bt_rkm_final: replaces `_make_kernel` in mode "rkm_final" (:441,
 //     entry `rkm_final_stage_pallas` :1373; on a mesh
 //     `rkm_final_stage_pallas_sharded` :767): k5 = f(x + tau/2 k1 - 3tau/2 k3
 //     + 2tau k4), x + tau/6 (k1 + 4 k4 + k5) and the per-block maxima of
@@ -85,7 +85,7 @@
 //     memory.  On one device no path launches it (K2 takes every grid); the
 //     x and 2D meshes do, with ghosts.
 //
-// K12.1 bt_blend_rhs_halo_f32 and bt_halo_edges_f32: replaces
+// K12.1 bt_blend_rhs_halo and bt_halo_edges: replaces
 //     `_stage_call_sharded` (:705) -> `_call` (:539) with ghost rows and
 //     columns, and the edge blends of `_ghost_rows` (:634) / `_ghost_cols`
 //     (:672).  K1 on a shard, reading a Halo (physics.cuh) at seams: the blend of
@@ -97,18 +97,18 @@
 // K12.2 bt_rkm_attempt_slabs_f32: replaces `_fullstep_call_sharded` (:1185,
 //     via `rkm_attempt_pallas_sharded` :1245).  K2's kernel itself, its
 //     apron rows beyond a y-mesh shard loaded from the neighbours' ghost
-//     slabs (5 rows, K2's apron; JAX's 8 are Mosaic's sublane padding) and
-//     its edge test on global rows, so the boundary image applies only at
-//     true domain edges and every cell runs K2's arithmetic: a y-mesh equals
-//     K2 on the whole grid bit for bit.
+//     slabs (an `Apron` of ghost rows only: 5 rows, K2's apron; JAX's 8 are
+//     Mosaic's sublane padding) and its edge test on global rows, so the
+//     boundary image applies only at true domain edges and every cell runs
+//     K2's arithmetic: a y-mesh equals K2 on the whole grid bit for bit.
 //
-// K12.3 bt_blend_rhs_halo_f32 with is_euler: replaces
+// K12.3 bt_blend_rhs_halo with is_euler: replaces
 //     `blend_rhs_pallas_sharded` (:744) with is_euler=True, through
 //     `_stage_call_sharded` (:705): K12.1 in K1's euler mode, x + dt f(x) on a
 //     shard from the ghosts of x.  Bound by bytes like K1 (2 fields read, 2
 //     written).
 //
-// K12.4 bt_rk4_final_halo_f32: replaces `rk4_final_stage_pallas_sharded`
+// K12.4 bt_rk4_final_halo: replaces `rk4_final_stage_pallas_sharded`
 //     (:756): K4 with a Halo, the ghosts those of the blend [x, k3] at weights
 //     [1, dt] from the same gather.  Bound by bytes like K4 (8 fields read, 2
 //     written).
@@ -126,7 +126,7 @@
 //     with the same loader, slabs 4 rows deep (K3's apron): a y-mesh equals
 //     K3 on the whole grid bit for bit.  Bound like K3.
 //
-// K12.7 bt_si_prepare_halo_f32: replaces `si_prepare_pallas_sharded` (:625,
+// K12.7 bt_si_prepare_halo: replaces `si_prepare_pallas_sharded` (:625,
 //     through `_stage_call_sharded` :705 -> `_call` :539 in mode si_prepare).
 //     K7 with a Halo: at a seam it reads the neighbour's edge row or column
 //     of F and U (the ghost gather of (F, U) at weight 1, K12.1's), at a
@@ -147,7 +147,33 @@
 // 49,152 B, above the 48 KB a static array may take, so every tile kernel
 // takes dynamic shared memory, allowed once per instantiation
 // (`cudaFuncSetAttribute`) before its first launch.  The tiles keep their
-// float32 size, so K2 and K3 fit two blocks per SM at double.
+// float32 size, so K2 and K3 fit two blocks per SM at double.  Every mesh
+// kernel (K5, K12.1-K12.4, K12.7) is built at double too.
+//
+// K13 twins bt_rkm_attempt_apron_f64, bt_rk4_full_apron_f64 and
+//     bt_euler_steps_apron_f64 (T = 4, 8): replace the sharded whole steps
+//     of `pallas_dd.py` (`rkm_attempt_dd_pair_sharded` :1198,
+//     `rk4_full_dd_pair_sharded` :1186, `euler_steps_dd_pair_sharded`
+//     :1171, all through `_fullstep_impl_dd` :607 with ghost slabs and
+//     ghost columns, the kernel's modes :323-457).  K2, K3 and K6 at double
+//     on a shard of a y, x or 2D mesh, from an apron A cells deep (the
+//     stage chain's depth: 5, 4, T) that `Topology.apron` fills once per
+//     step: ghost rows and ghost columns of both fields, the rows widened
+//     by A columns on a 2D mesh so that they carry the diagonal shards'
+//     corners -- what JAX's two-phase exchange (`ghost_cols_dd` :1116, then
+//     `ghost_slabs_dd` :1076, `_dd_ghosts` :1148) delivers.  The loader
+//     (`load_region`) reads rows beyond the shard from the ghost rows,
+//     columns beyond it from the ghost columns, corners from the widened
+//     rows; the boundary rule stays at global coordinates (`rhs_at`), so a
+//     cell past a non-periodic global edge is never read, a Dirichlet
+//     corner of a 2D mesh comes out as on the whole grid, and every cell
+//     runs K2's, K3's or K6's arithmetic on the values they read: a mesh
+//     equals them on the whole grid bit for bit.  JAX's kernel applies the
+//     per-stage images to its ghost planes in y-then-x order (`fix` :381,
+//     `fix_x` :408); reading the image at the crossing needs no order.
+//     Bound like K2, K3 and K6; shared memory does not grow (the region is
+//     the one-device kernel's).  The float32 slab twins (K12.2, K12.5,
+//     K12.6) are the y-mesh case of the same loader.
 //
 // Boundary rule (K1-K4, K6).  At every stage the *blend* x + sum w_i k_i
 // is imaged at the domain edge, with Dirichlet value d * (1 + sum w_i)
@@ -343,46 +369,93 @@ struct Region {
   static constexpr int N = W * H;
 };
 
-// Where a tile's cells sit: region cell (ry, rx) is unwrapped global cell
-// (gy0 + ry, gx0 + rx) of the (ny, nx) grid.  The block's fields hold global
-// rows [y0, y0 + ny_l): the whole grid (y0 = 0, ny_l = ny), or one shard of
-// a y-mesh (K12.2).
-struct Tile {
-  int gy0, gx0, ny, nx, y0, ny_l;
+// What lies beyond a block's own fields (K12.2, K12.5, K12.6 and the K13
+// twins).  The fields hold global rows [y0, y0 + ny_l) and columns [x0, x0 +
+// nx_l) of the (ny, nx) grid: the whole grid, or one shard of a mesh.  Along
+// an axis that is not sharded the block holds every row (column) and the
+// apron wraps; along a sharded one it reads the neighbours' ghosts, in ring
+// order, so at a periodic global edge they are the wrapped cells:
+//   rows: (2 sides, 2 fields, A, W) -- side 0 the A rows below the shard,
+//         side 1 the A rows above it; W = nx_l + 2A when columns are
+//         sharded too (the ghost rows then carry the diagonal neighbours'
+//         corners: columns [x0 - A, x0 + nx_l + A)), else W = nx_l = nx;
+//   cols: (2 sides, 2 fields, ny_l, A) -- the A columns west and east.
+// Null along an axis that is not sharded.
+template <class Real>
+struct Apron {
+  const Real* rows;
+  const Real* cols;
+  int y0, ny_l, x0, nx_l;
 };
 
-template <int A>
-__device__ __forceinline__ Tile block_tile(int ny, int nx, int y0 = 0, int ny_l = -1) {
-  return Tile{y0 + int(blockIdx.y) * kTY - A, int(blockIdx.x) * kTX - A, ny, nx, y0,
-              ny_l < 0 ? ny : ny_l};
+template <class Real>
+__host__ __device__ __forceinline__ Apron<Real> whole_apron(int ny, int nx) {
+  return Apron<Real>{nullptr, nullptr, 0, ny, 0, nx};
 }
 
-// (F, U) on the whole region.  On the whole grid (`slabs` null) every row
-// is read at its wrapped global coordinate.  On a y-mesh shard the rows
-// beyond the shard come from the neighbours' ghost slabs, (2 sides, 2
-// fields, A rows, nx): side 0 holds the A rows below the shard, side 1 the
-// A rows above it, in ring order, so at a periodic global edge they are the
-// wrapped rows, as on the whole grid.  Region rows more than A beyond a
-// ragged last tile feed no owned cell; they repeat the slab's last row.
+// Where a tile's cells sit: region cell (ry, rx) is unwrapped global cell
+// (gy0 + ry, gx0 + rx) of the (ny, nx) grid; the block's fields hold the
+// apron's rows [y0, y0 + ny_l) and columns [x0, x0 + nx_l).
+struct Tile {
+  int gy0, gx0, ny, nx, y0, ny_l, x0, nx_l;
+};
+
 template <int A, class Real>
+__device__ __forceinline__ Tile block_tile(int ny, int nx, const Apron<Real>& ap) {
+  return Tile{ap.y0 + int(blockIdx.y) * kTY - A, ap.x0 + int(blockIdx.x) * kTX - A, ny, nx,
+              ap.y0, ap.ny_l, ap.x0, ap.nx_l};
+}
+
+// (F, U) on the whole region.  Without GHOSTS (the whole grid) every cell
+// is read at its wrapped coordinate, and the ghost branches are not built:
+// on the whole grid they cost the tile kernels 2-7% (PERF.md §6).
+// With them, along an axis without ghosts every cell is read at its wrapped
+// coordinate; along one with ghosts the cells beyond the block come from
+// them: rows beyond it from the ghost rows, columns beyond it from the ghost
+// columns (at the wrapped row on an x-mesh, whose shards hold every row),
+// and the corners from the ghost rows' widened ends.  Region cells more
+// than A beyond a ragged last tile feed no owned cell; they repeat the last
+// ghost row or column.
+template <int A, bool GHOSTS, class Real>
 __device__ __forceinline__ void load_region(const Tile& T, const Real* __restrict__ F,
-                                            const Real* __restrict__ U,
-                                            const Real* __restrict__ slabs, Real* sF,
-                                            Real* sU) {
-  for (int t = threadIdx.x; t < Region<A>::N; t += kTileThreads) {
-    const int gy = T.gy0 + t / Region<A>::W;
-    const int gx = wrap(T.gx0 + t % Region<A>::W, T.nx);
-    const int ly = gy - T.y0;
-    if (slabs == nullptr || (ly >= 0 && ly < T.ny_l)) {
-      const int g = (slabs == nullptr ? wrap(gy, T.ny) : ly) * T.nx + gx;
+                                            const Real* __restrict__ U, const Apron<Real>& ap,
+                                            Real* sF, Real* sU) {
+  if constexpr (!GHOSTS) {
+    for (int t = threadIdx.x; t < Region<A>::N; t += kTileThreads) {
+      const int g = wrap(T.gy0 + t / Region<A>::W, T.ny) * T.nx +
+                    wrap(T.gx0 + t % Region<A>::W, T.nx);
       sF[t] = F[g];
       sU[t] = U[g];
-    } else {
-      const int side = ly >= 0;
-      const int r = side ? min(ly - T.ny_l, A - 1) : ly + A;
-      const Real* s = slabs + (size_t(side) * 2 * A + r) * T.nx + gx;
+    }
+  } else {
+    const int row_w = ap.cols != nullptr ? T.nx_l + 2 * A : T.nx_l;
+    for (int t = threadIdx.x; t < Region<A>::N; t += kTileThreads) {
+      const int gy = T.gy0 + t / Region<A>::W, gx = T.gx0 + t % Region<A>::W;
+      const int ly = ap.rows != nullptr ? gy - T.y0 : wrap(gy, T.ny);
+      const int lx = ap.cols != nullptr ? gx - T.x0 : wrap(gx, T.nx);
+      const bool in_y = ly >= 0 && ly < T.ny_l, in_x = lx >= 0 && lx < T.nx_l;
+      if (in_y && in_x) {
+        const int g = ly * T.nx_l + lx;
+        sF[t] = F[g];
+        sU[t] = U[g];
+        continue;
+      }
+      const Real* s;
+      size_t field;  // the offset from a ghost's F value to its U value
+      if (!in_y) {
+        const int side = ly >= 0;
+        const int r = side ? min(ly - T.ny_l, A - 1) : ly + A;
+        const int c = ap.cols != nullptr ? min(lx + A, row_w - 1) : lx;
+        s = ap.rows + (size_t(side) * 2 * A + r) * row_w + c;
+        field = size_t(A) * row_w;
+      } else {
+        const int side = lx >= 0;
+        const int c = side ? min(lx - T.nx_l, A - 1) : lx + A;
+        s = ap.cols + (size_t(side) * 2 * T.ny_l + ly) * A + c;
+        field = size_t(T.ny_l) * A;
+      }
       sF[t] = s[0];
-      sU[t] = s[size_t(A) * T.nx];
+      sU[t] = s[field];
     }
   }
 }
@@ -449,15 +522,15 @@ __device__ __forceinline__ void eval_blend(const Real* xF, const Real* xU,
   }
 }
 
-// f(ry, rx, g) for every owned cell of the tile inside the block's rows; g
-// is the cell's index in the block's (ny_l, nx) fields.
+// f(ry, rx, g) for every owned cell of the tile inside the block; g is the
+// cell's index in the block's (ny_l, nx_l) fields.
 template <int A, class Fn>
 __device__ __forceinline__ void for_owned(const Tile& T, Fn f) {
   for (int t = threadIdx.x; t < kTX * kTY; t += kTileThreads) {
     int ry = A + t / kTX, rx = A + t % kTX;
-    int ly = T.gy0 + ry - T.y0, gx = T.gx0 + rx;
-    if (ly >= T.ny_l || gx >= T.nx) continue;  // ragged tile edge
-    f(ry, rx, ly * T.nx + gx);
+    int ly = T.gy0 + ry - T.y0, lx = T.gx0 + rx - T.x0;
+    if (ly >= T.ny_l || lx >= T.nx_l) continue;  // ragged tile edge
+    f(ry, rx, ly * T.nx_l + lx);
   }
 }
 
@@ -476,17 +549,16 @@ struct RkmSmem {
   Real redF[kTileThreads], redU[kTileThreads];
 };
 
-template <class Real>
+template <bool GHOSTS, class Real>
 __global__ void __launch_bounds__(kTileThreads)
     rkm_attempt_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                        Real* __restrict__ outF, Real* __restrict__ outU,
-                       Real* __restrict__ partials, const Real* __restrict__ slabs,
-                       int y0, int ny_l, int ny, int nx, Real tau, Real d, Real fu,
-                       PhysParams<Real> P) {
+                       Real* __restrict__ partials, Apron<Real> ap, int ny, int nx,
+                       Real tau, Real d, Real fu, PhysParams<Real> P) {
   constexpr int A = kK2Apron;
   RkmSmem<Real>& s = *reinterpret_cast<RkmSmem<Real>*>(tile_smem);
-  const Tile T = block_tile<A>(ny, nx, y0, ny_l);
-  load_region<A>(T, F, U, slabs, s.xF, s.xU);
+  const Tile T = block_tile<A>(ny, nx, ap);
+  load_region<A, GHOSTS>(T, F, U, ap, s.xF, s.xU);
   __syncthreads();
 
   // Merson tableau (`simulation.cu:400-404`); weights in the field type, as
@@ -606,18 +678,18 @@ struct Rk4Smem {
 // k3 = f(x + h k2), k4 = f(x + dt k3) with h = dt/2, then
 // x + c6 (k1 + 2 k2 + 2 k3 + k4), c6 = dt/6 -- the weights as the host
 // rounds them, as the JAX kernel takes them.
-// With slabs (4 rows, K3's apron), K12.6 on the y-mesh shard holding global
-// rows [y0, y0 + ny_l), as K12.2 is K2 on one.
-template <class Real>
+// With ghosts 4 deep (K3's apron), K12.6 on a y-mesh shard and the K13
+// twin on any shard, as K12.2 is K2 on a y-mesh shard.
+template <bool GHOSTS, class Real>
 __global__ void __launch_bounds__(kTileThreads)
     rk4_full_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                     Real* __restrict__ outF, Real* __restrict__ outU,
-                    const Real* __restrict__ slabs, int y0, int ny_l, int ny, int nx,
-                    Real h, Real dt, Real c6, Real d, Real fu, PhysParams<Real> P) {
+                    Apron<Real> ap, int ny, int nx, Real h, Real dt, Real c6, Real d,
+                    Real fu, PhysParams<Real> P) {
   constexpr int A = kK3Apron;
   Rk4Smem<Real>& s = *reinterpret_cast<Rk4Smem<Real>*>(tile_smem);
-  const Tile T = block_tile<A>(ny, nx, y0, ny_l);
-  load_region<A>(T, F, U, slabs, s.xF, s.xU);
+  const Tile T = block_tile<A>(ny, nx, ap);
+  load_region<A, GHOSTS>(T, F, U, ap, s.xF, s.xU);
   __syncthreads();
 
   eval_stage<A>(T, P, s.xF, s.xU, s.k1F, s.k1U, 3, d, fu);
@@ -666,19 +738,19 @@ constexpr int euler_smem_bytes() {
   return 4 * Region<STEPS>::N * int(sizeof(Real));
 }
 
-// With slabs (STEPS rows, its apron), K12.5 on the y-mesh shard holding
-// global rows [y0, y0 + ny_l), as K12.2 is K2 on one.
-template <int STEPS, class Real>
+// With ghosts STEPS deep (its apron), K12.5 on a y-mesh shard and the K13
+// twin on any shard, as K12.2 is K2 on a y-mesh shard.
+template <int STEPS, bool GHOSTS, class Real>
 __global__ void __launch_bounds__(kTileThreads)
     euler_steps_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                        Real* __restrict__ outF, Real* __restrict__ outU,
-                       const Real* __restrict__ slabs, int y0, int ny_l, int ny, int nx,
-                       Real d, Real fu, PhysParams<Real> P) {
+                       Apron<Real> ap, int ny, int nx, Real d, Real fu,
+                       PhysParams<Real> P) {
   // (F, U) of two successive steps: buf[0..1], then buf[2..3], in turns
   constexpr int N = Region<STEPS>::N;
   Real(*buf)[N] = reinterpret_cast<Real(*)[N]>(tile_smem);
-  const Tile T = block_tile<STEPS>(ny, nx, y0, ny_l);
-  load_region<STEPS>(T, F, U, slabs, buf[0], buf[1]);
+  const Tile T = block_tile<STEPS>(ny, nx, ap);
+  load_region<STEPS, GHOSTS>(T, F, U, ap, buf[0], buf[1]);
   __syncthreads();
 #pragma unroll
   for (int step = 0; step < STEPS; ++step) {
@@ -839,20 +911,34 @@ int rk4_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k2F
   return int(cudaGetLastError());
 }
 
-// K2 on the whole grid (slabs null, y0 = 0, ny_l = ny) or, with slabs,
-// K12.2 on the y-mesh shard holding global rows [y0, y0 + ny_l)
+// The tile kernels' apron in their arithmetic type: the whole (ny, nx) grid
+// with null ghosts, or a shard holding rows [y0, y0 + ny_l) and columns
+// [x0, x0 + nx_l) with the ghosts of its sharded axes.
 template <class S>
-int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
-                const S* slabs, int y0, int ny_l, int ny, int nx, S tau, S d, S fu,
-                const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+bt::Apron<Ar<S>> apron_of(const S* rows, const S* cols, int y0, int ny_l, int x0, int nx_l) {
+  return bt::Apron<Ar<S>>{ar(rows), ar(cols), y0, ny_l, x0, nx_l};
+}
+
+// Whether a tile kernel's apron holds ghosts: the whole grid (null ghosts)
+// takes the kernel instantiation built without the ghost branches.
+template <class R>
+bool has_ghosts(const bt::Apron<R>& ap) {
+  return ap.rows != nullptr || ap.cols != nullptr;
+}
+
+// K2 on the whole grid (bt::whole_apron) or on a shard with its ghosts:
+// K12.2 (a y-mesh, float32) or the K13 twin (any mesh, float64)
+template <class S, bool GHOSTS>
+int rkm_attempt_on(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
+                   bt::Apron<Ar<S>> ap, int ny, int nx, S tau, S d, S fu,
+                   const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = int(sizeof(bt::RkmSmem<R>));
-  static const cudaError_t attr = allow_smem(bt::rkm_attempt_kernel<R>, smem);
+  static const cudaError_t attr = allow_smem(bt::rkm_attempt_kernel<GHOSTS, R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  dim3 grid = tile_grid(ny_l, nx);
-  bt::rkm_attempt_kernel<<<grid, bt::kTileThreads, smem, stream>>>(
-      ar(F), ar(U), ar(outF), ar(outU), ar(partials), ar(slabs), y0, ny_l, ny, nx,
-      R(tau), R(d), R(fu), *P);
+  dim3 grid = tile_grid(ap.ny_l, ap.nx_l);
+  bt::rkm_attempt_kernel<GHOSTS><<<grid, bt::kTileThreads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ar(partials), ap, ny, nx, R(tau), R(d), R(fu), *P);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
@@ -860,48 +946,68 @@ int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
   return int(cudaGetLastError());
 }
 
-// K3 on the whole grid (slabs null, y0 = 0, ny_l = ny) or, with slabs,
-// K12.6 on the y-mesh shard holding global rows [y0, y0 + ny_l)
 template <class S>
-int rk4_full(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0, int ny_l,
-             int ny, int nx, S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,
-             cudaStream_t stream) {
+int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
+                bt::Apron<Ar<S>> ap, int ny, int nx, S tau, S d, S fu,
+                const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  return (has_ghosts(ap) ? rkm_attempt_on<S, true> : rkm_attempt_on<S, false>)(
+      F, U, outF, outU, partials, err, ap, ny, nx, tau, d, fu, P, stream);
+}
+
+// K3 on the whole grid or on a shard: K12.6 (float32) or the K13 twin
+// (float64)
+template <class S, bool GHOSTS>
+int rk4_full_on(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
+                int nx, S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,
+                cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = int(sizeof(bt::Rk4Smem<R>));
-  static const cudaError_t attr = allow_smem(bt::rk4_full_kernel<R>, smem);
+  static const cudaError_t attr = allow_smem(bt::rk4_full_kernel<GHOSTS, R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  bt::rk4_full_kernel<<<tile_grid(ny_l, nx), bt::kTileThreads, smem, stream>>>(
-      ar(F), ar(U), ar(outF), ar(outU), ar(slabs), y0, ny_l, ny, nx, R(h), R(dt), R(c6),
-      R(d), R(fu), *P);
+  bt::rk4_full_kernel<GHOSTS>
+      <<<tile_grid(ap.ny_l, ap.nx_l), bt::kTileThreads, smem, stream>>>(
+          ar(F), ar(U), ar(outF), ar(outU), ap, ny, nx, R(h), R(dt), R(c6), R(d), R(fu),
+          *P);
+  return int(cudaGetLastError());
+}
+
+template <class S>
+int rk4_full(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny, int nx,
+             S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  return (has_ghosts(ap) ? rk4_full_on<S, true> : rk4_full_on<S, false>)(
+      F, U, outF, outU, ap, ny, nx, h, dt, c6, d, fu, P, stream);
+}
+
+template <class S, int STEPS, bool GHOSTS>
+int euler_steps_on(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
+                   int nx, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  using R = Ar<S>;
+  constexpr int smem = bt::euler_smem_bytes<R, STEPS>();
+  static const cudaError_t attr = allow_smem(bt::euler_steps_kernel<STEPS, GHOSTS, R>, smem);
+  if (attr != cudaSuccess) return int(attr);
+  bt::euler_steps_kernel<STEPS, GHOSTS>
+      <<<tile_grid(ap.ny_l, ap.nx_l), bt::kTileThreads, smem, stream>>>(
+          ar(F), ar(U), ar(outF), ar(outU), ap, ny, nx, R(d), R(fu), *P);
   return int(cudaGetLastError());
 }
 
 template <class S, int STEPS>
-int euler_steps_at(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0,
-                   int ny_l, int ny, int nx, S d, S fu, const PhysParams<Ar<S>>* P,
-                   cudaStream_t stream) {
-  using R = Ar<S>;
-  constexpr int smem = bt::euler_smem_bytes<R, STEPS>();
-  static const cudaError_t attr = allow_smem(bt::euler_steps_kernel<STEPS, R>, smem);
-  if (attr != cudaSuccess) return int(attr);
-  bt::euler_steps_kernel<STEPS><<<tile_grid(ny_l, nx), bt::kTileThreads, smem, stream>>>(
-      ar(F), ar(U), ar(outF), ar(outU), ar(slabs), y0, ny_l, ny, nx, R(d), R(fu), *P);
-  return int(cudaGetLastError());
+int euler_steps_at(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
+                   int nx, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  return (has_ghosts(ap) ? euler_steps_on<S, STEPS, true> : euler_steps_on<S, STEPS, false>)(
+      F, U, outF, outU, ap, ny, nx, d, fu, P, stream);
 }
 
-// K6 is built for the depths its paths take: 4 at float32, 4 and 8 at
-// float64 (`pallas_dd.py:euler_dd_block_steps`); K12.5 (slabs of `steps`
-// rows) for 4 at float32.
+// K6 (and its twins on a shard) is built for the depths its paths take: 4
+// at float32, 4 and 8 at float64 (`pallas_dd.py:euler_dd_block_steps`).
 template <class S>
-int euler_steps(const S* F, const S* U, S* outF, S* outU, const S* slabs, int y0, int ny_l,
-                int ny, int nx, int steps, S d, S fu, const PhysParams<Ar<S>>* P,
+int euler_steps(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
+                int nx, int steps, S d, S fu, const PhysParams<Ar<S>>* P,
                 cudaStream_t stream) {
-  if (steps == 4)
-    return euler_steps_at<S, 4>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, d, fu, P, stream);
+  if (steps == 4) return euler_steps_at<S, 4>(F, U, outF, outU, ap, ny, nx, d, fu, P, stream);
   if constexpr (sizeof(S) == 8) {
     if (steps == 8)
-      return euler_steps_at<S, 8>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, d, fu, P,
-                                  stream);
+      return euler_steps_at<S, 8>(F, U, outF, outU, ap, ny, nx, d, fu, P, stream);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -999,20 +1105,21 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
   int bt_rkm_attempt_##SFX(const S* F, const S* U, S* outF, S* outU, S* partials,    \
                            S* err, int ny, int nx, S tau, S d, S fu,                 \
                            const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
-    return rkm_attempt<S>(F, U, outF, outU, partials, err, nullptr, 0, ny, ny, nx,   \
-                          tau, d, fu, P, stream);                                     \
+    return rkm_attempt<S>(F, U, outF, outU, partials, err,                           \
+                          bt::whole_apron<Ar<S>>(ny, nx), ny, nx, tau, d, fu, P,     \
+                          stream);                                                    \
   }                                                                                   \
   int bt_rk4_full_##SFX(const S* F, const S* U, S* outF, S* outU, int ny, int nx,    \
                         S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,      \
                         cudaStream_t stream) {                                        \
-    return rk4_full<S>(F, U, outF, outU, nullptr, 0, ny, ny, nx, h, dt, c6, d, fu, P, \
-                       stream);                                                       \
+    return rk4_full<S>(F, U, outF, outU, bt::whole_apron<Ar<S>>(ny, nx), ny, nx, h,  \
+                       dt, c6, d, fu, P, stream);                                     \
   }                                                                                   \
   int bt_euler_steps_##SFX(const S* F, const S* U, S* outF, S* outU, int ny, int nx, \
                            int steps, S d, S fu, const PhysParams<Ar<S>>* P,         \
                            cudaStream_t stream) {                                     \
-    return euler_steps<S>(F, U, outF, outU, nullptr, 0, ny, ny, nx, steps, d, fu, P,  \
-                          stream);                                                    \
+    return euler_steps<S>(F, U, outF, outU, bt::whole_apron<Ar<S>>(ny, nx), ny, nx,  \
+                          steps, d, fu, P, stream);                                   \
   }                                                                                   \
   int bt_si_prepare_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s, int ny,     \
                           int nx, const PhysParams<Ar<S>>* P, cudaStream_t stream) { \
@@ -1020,16 +1127,10 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
                          stream);                                                     \
   }
 
-extern "C" {
-
-BT_RHS_ENTRIES(f32, float)
-BT_RHS_ENTRIES(f64, double)
-
-// The mesh kernels, float32 only (their float64 twins: ROADMAP slice 5b.3).
-// `rows`/`cols` are a shard's ghosts, (2 sides, 2 fields, nx) and (2, 2,
-// ny), null along an axis that is not sharded; `edges` has bit 0..3 set
-// when the shard holds the grid's first row, last row, first column, last
-// column.
+// The mesh kernels on a shard, at both field types.  `rows`/`cols` are a
+// shard's ghosts, (2 sides, 2 fields, nx) and (2, 2, ny), null along an axis
+// that is not sharded; `edges` has bit 0..3 set when the shard holds the
+// grid's first row, last row, first column, last column.
 //   K12.1 ghost gather bt_halo_edges: the blend's first and last rows into
 //      rows, first and last columns into cols (each skipped if null).
 //   K12.1 bt_blend_rhs_halo: K1 on a shard, in rhs mode (K12.1) or in euler
@@ -1041,81 +1142,116 @@ BT_RHS_ENTRIES(f64, double)
 //      {1, tau/2, -3 tau/2, 2 tau}: outF/outU = x + c6 (k1 + 4 k4 + k5),
 //      err as K2's; partials holds 2 * bt_stage_num_blocks values.  On the
 //      whole grid: null ghosts and all four edge bits.
-//   K12.2 bt_rkm_attempt_slabs: K2 on the y-mesh shard holding global rows
-//      [y0, y0 + ny_l) of the (ny, nx) grid, slabs (2 sides, 2 fields, 5,
-//      nx) from the neighbours; partials holds 2 * bt_rkm_num_blocks(ny_l,
-//      nx) values.
-//   K12.5 bt_euler_steps_slabs: K6 on such a shard, slabs of `steps` rows.
-//   K12.6 bt_rk4_full_slabs: K3 on such a shard, slabs of 4 rows (kK3Apron).
-int bt_halo_edges_f32(const float* F0, const float* U0, const float* F1, const float* U1,
-                      const float* F2, const float* U2, const float* F3, const float* U3,
-                      int n_states, float w1, float w2, float w3, float* rows, float* cols,
-                      int ny, int nx, cudaStream_t stream) {
-  return halo_edges<float>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, rows,
-                           cols, ny, nx, stream);
-}
+#define BT_MESH_ENTRIES(SFX, S)                                                          \
+  int bt_halo_edges_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,           \
+                          const S* F2, const S* U2, const S* F3, const S* U3,           \
+                          int n_states, S w1, S w2, S w3, S* rows, S* cols, int ny,     \
+                          int nx, cudaStream_t stream) {                                 \
+    return halo_edges<S>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, rows,    \
+                         cols, ny, nx, stream);                                          \
+  }                                                                                      \
+  int bt_blend_rhs_halo_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,       \
+                              const S* F2, const S* U2, const S* F3, const S* U3,       \
+                              int n_states, S w1, S w2, S w3, S* outF, S* outU, int ny, \
+                              int nx, S d, S fu, int is_euler, const S* rows,           \
+                              const S* cols, int edges, const PhysParams<Ar<S>>* P,     \
+                              cudaStream_t stream) {                                     \
+    return blend_rhs<S>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,     \
+                        outU, ny, nx, d, fu, is_euler, halo_of(rows, cols, edges), P,   \
+                        stream);                                                         \
+  }                                                                                      \
+  int bt_si_prepare_halo_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s, int ny,   \
+                               int nx, const S* rows, const S* cols, int edges,         \
+                               const PhysParams<Ar<S>>* P, cudaStream_t stream) {       \
+    return si_prepare<S>(F, U, r0, uterm, s, ny, nx, halo_of(rows, cols, edges), P,     \
+                         stream);                                                        \
+  }                                                                                      \
+  int bt_rk4_final_halo_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,     \
+                              const S* k2F, const S* k2U, const S* k3F, const S* k3U,   \
+                              S* outF, S* outU, int ny, int nx, S dt, S c6, S d, S fu,  \
+                              const S* rows, const S* cols, int edges,                  \
+                              const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
+    return rk4_final<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx, dt,   \
+                        c6, d, fu, halo_of(rows, cols, edges), P, stream);               \
+  }                                                                                      \
+  int bt_rkm_final_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,          \
+                         const S* k3F, const S* k3U, const S* k4F, const S* k4U, S w1,  \
+                         S w2, S w3, S c6, S* outF, S* outU, S* partials, S* err,       \
+                         int ny, int nx, S d, S fu, const S* rows, const S* cols,       \
+                         int edges, const PhysParams<Ar<S>>* P, cudaStream_t stream) {  \
+    return rkm_final<S>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3, c6, outF,     \
+                        outU, partials, err, ny, nx, d, fu, halo_of(rows, cols, edges), \
+                        P, stream);                                                      \
+  }
 
-int bt_blend_rhs_halo_f32(const float* F0, const float* U0, const float* F1,
-                          const float* U1, const float* F2, const float* U2,
-                          const float* F3, const float* U3, int n_states, float w1,
-                          float w2, float w3, float* outF, float* outU, int ny, int nx,
-                          float d, float fu, int is_euler, const float* rows,
-                          const float* cols, int edges, const PhysParams<float>* P,
-                          cudaStream_t stream) {
-  return blend_rhs<float>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,
-                          outU, ny, nx, d, fu, is_euler, halo_of(rows, cols, edges), P,
-                          stream);
-}
+// The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +
+// ny_l) and columns [x0, x0 + nx_l), from its ghosts (bt::Apron):
+//   float32, y-meshes (x0 = 0, nx_l = nx, `slabs` the ghost rows):
+//     K12.2 bt_rkm_attempt_slabs (slabs 5 rows deep; partials holds 2 *
+//     bt_rkm_num_blocks(ny_l, nx) values), K12.5 bt_euler_steps_slabs (slabs
+//     of `steps` rows), K12.6 bt_rk4_full_slabs (slabs 4 rows deep);
+//   float64, y, x and 2D meshes -- the K13 twins -- with `rows` (2, 2, A,
+//     nx_l + 2A, or nx_l wide when x is not sharded) and `cols` (2, 2, ny_l,
+//     A), each null along an axis that is not sharded:
+//     bt_rkm_attempt_apron (A = 5; partials 2 * bt_rkm_num_blocks(ny_l,
+//     nx_l)), bt_euler_steps_apron (A = steps, 4 or 8), bt_rk4_full_apron
+//     (A = 4).
+extern "C" {
 
-int bt_si_prepare_halo_f32(const float* F, const float* U, float* r0, float* uterm, float* s,
-                           int ny, int nx, const float* rows, const float* cols, int edges,
-                           const PhysParams<float>* P, cudaStream_t stream) {
-  return si_prepare<float>(F, U, r0, uterm, s, ny, nx, halo_of(rows, cols, edges), P, stream);
-}
-
-int bt_rk4_final_halo_f32(const float* xF, const float* xU, const float* k1F,
-                          const float* k1U, const float* k2F, const float* k2U,
-                          const float* k3F, const float* k3U, float* outF, float* outU,
-                          int ny, int nx, float dt, float c6, float d, float fu,
-                          const float* rows, const float* cols, int edges,
-                          const PhysParams<float>* P, cudaStream_t stream) {
-  return rk4_final<float>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx, dt, c6,
-                          d, fu, halo_of(rows, cols, edges), P, stream);
-}
-
-int bt_rkm_final_f32(const float* xF, const float* xU, const float* k1F, const float* k1U,
-                     const float* k3F, const float* k3U, const float* k4F,
-                     const float* k4U, float w1, float w2, float w3, float c6, float* outF,
-                     float* outU, float* partials, float* err, int ny, int nx, float d,
-                     float fu, const float* rows, const float* cols, int edges,
-                     const PhysParams<float>* P, cudaStream_t stream) {
-  return rkm_final<float>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3, c6, outF,
-                          outU, partials, err, ny, nx, d, fu, halo_of(rows, cols, edges),
-                          P, stream);
-}
+BT_RHS_ENTRIES(f32, float)
+BT_RHS_ENTRIES(f64, double)
+BT_MESH_ENTRIES(f32, float)
+BT_MESH_ENTRIES(f64, double)
 
 int bt_rkm_attempt_slabs_f32(const float* F, const float* U, float* outF, float* outU,
                              float* partials, float* err, const float* slabs, int y0,
                              int ny_l, int ny, int nx, float tau, float d, float fu,
                              const PhysParams<float>* P, cudaStream_t stream) {
-  return rkm_attempt<float>(F, U, outF, outU, partials, err, slabs, y0, ny_l, ny, nx, tau,
-                            d, fu, P, stream);
+  return rkm_attempt<float>(F, U, outF, outU, partials, err,
+                            apron_of<float>(slabs, nullptr, y0, ny_l, 0, nx), ny, nx, tau, d,
+                            fu, P, stream);
 }
 
 int bt_euler_steps_slabs_f32(const float* F, const float* U, float* outF, float* outU,
                              const float* slabs, int y0, int ny_l, int ny, int nx,
                              int steps, float d, float fu, const PhysParams<float>* P,
                              cudaStream_t stream) {
-  return euler_steps<float>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, steps, d, fu, P,
-                            stream);
+  return euler_steps<float>(F, U, outF, outU, apron_of<float>(slabs, nullptr, y0, ny_l, 0, nx),
+                            ny, nx, steps, d, fu, P, stream);
 }
 
 int bt_rk4_full_slabs_f32(const float* F, const float* U, float* outF, float* outU,
                           const float* slabs, int y0, int ny_l, int ny, int nx, float h,
                           float dt, float c6, float d, float fu, const PhysParams<float>* P,
                           cudaStream_t stream) {
-  return rk4_full<float>(F, U, outF, outU, slabs, y0, ny_l, ny, nx, h, dt, c6, d, fu, P,
-                         stream);
+  return rk4_full<float>(F, U, outF, outU, apron_of<float>(slabs, nullptr, y0, ny_l, 0, nx),
+                         ny, nx, h, dt, c6, d, fu, P, stream);
+}
+
+int bt_rkm_attempt_apron_f64(const double* F, const double* U, double* outF, double* outU,
+                             double* partials, double* err, const double* rows,
+                             const double* cols, int y0, int ny_l, int x0, int nx_l, int ny,
+                             int nx, double tau, double d, double fu,
+                             const PhysParams<bt::Rn>* P, cudaStream_t stream) {
+  return rkm_attempt<double>(F, U, outF, outU, partials, err,
+                             apron_of<double>(rows, cols, y0, ny_l, x0, nx_l), ny, nx, tau, d,
+                             fu, P, stream);
+}
+
+int bt_euler_steps_apron_f64(const double* F, const double* U, double* outF, double* outU,
+                             const double* rows, const double* cols, int y0, int ny_l,
+                             int x0, int nx_l, int ny, int nx, int steps, double d, double fu,
+                             const PhysParams<bt::Rn>* P, cudaStream_t stream) {
+  return euler_steps<double>(F, U, outF, outU, apron_of<double>(rows, cols, y0, ny_l, x0, nx_l),
+                             ny, nx, steps, d, fu, P, stream);
+}
+
+int bt_rk4_full_apron_f64(const double* F, const double* U, double* outF, double* outU,
+                          const double* rows, const double* cols, int y0, int ny_l, int x0,
+                          int nx_l, int ny, int nx, double h, double dt, double c6, double d,
+                          double fu, const PhysParams<bt::Rn>* P, cudaStream_t stream) {
+  return rk4_full<double>(F, U, outF, outU, apron_of<double>(rows, cols, y0, ny_l, x0, nx_l),
+                          ny, nx, h, dt, c6, d, fu, P, stream);
 }
 
 // Number of value pairs the K5 partials buffer holds (2 * this many values).

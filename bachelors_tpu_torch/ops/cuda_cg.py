@@ -14,8 +14,8 @@ and one for the float64 semi-implicit step:
   * K12.8 ``cross_matvec_pAp_sharded`` / ``aniso_matvec_pAp_sharded``: K8
     on one shard of a mesh, reading p's ghost rows and columns at seams
     (``pallas_cg.cross_matvec_pAp_sharded`` :238, ``aniso_matvec_pAp_sharded``
-    :249, ghosts by ``_ghost_kw`` :223), float32 only; the <p, A p> it
-    returns is the shard's own, and the caller adds the shards' partials.
+    :249, ghosts by ``_ghost_kw`` :223); the <p, A p> it returns is the
+    shard's own, and the caller adds the shards' partials.
   * K9 ``update_xr_rr``: x += alpha p, r -= alpha Ap in place, and
     <r', r'> (``pallas_cg._update_xr_rr`` :310).
   * K10 ``axpby_inplace``: p = a r + b p in place
@@ -27,7 +27,9 @@ and one for the float64 semi-implicit step:
     :940, ``aniso_residual_dd`` :950, ``heat_residual_dd`` :960; the
     kernel ``_make_cross_residual_kernel`` :749).  The TPU kernel keeps r0
     and the products in float32 pairs; this one computes in the field
-    dtype.
+    dtype.  With a ``Halo`` (the ghosts of (e, e)) each runs as K14's twin
+    on one shard of a mesh (``*_residual_dd_sharded`` :1014-1039), counted
+    as ``*_residual_sharded``.
 
 alpha, a and b are 0-dim tensors on the fields' device, read by the
 kernels through pointers; the dot products come back as 0-dim tensors
@@ -53,7 +55,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.boundary import Halo, pad_halo
+from ..core.boundary import Halo, pad2, pad_halo
 from ..core.params import BoundaryType
 from . import cuda_rhs
 from .stencil import (AnisotropyMatrix, CrossMatrix, aniso_from_padded, anisotropy_matvec,
@@ -63,7 +65,8 @@ from .stencil import (AnisotropyMatrix, CrossMatrix, aniso_from_padded, anisotro
 LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
             "axpby_inplace": 0, "cross_residual": 0, "aniso_residual": 0,
             "heat_residual": 0, "cross_matvec_pAp_sharded": 0,
-            "aniso_matvec_pAp_sharded": 0}
+            "aniso_matvec_pAp_sharded": 0, "cross_residual_sharded": 0,
+            "aniso_residual_sharded": 0, "heat_residual_sharded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -121,15 +124,24 @@ def axpby_inplace_plain(a, b, r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def cross_residual_plain(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix) -> torch.Tensor:
-    """r0 - A e for the constant cross operator."""
-    return r0 - cross_matvec(A, e)
+def _padded(e: torch.Tensor, bc: BoundaryType, halo: Optional[Halo]) -> torch.Tensor:
+    """e padded at Dirichlet value 0: ``pad2`` on the whole grid, on a shard
+    from the halo of (e, e) (``pad_halo``, field 0)."""
+    return pad2(e, bc) if halo is None else pad_halo(e, bc, halo, 0)
+
+
+def cross_residual_plain(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
+                         halo: Optional[Halo] = None) -> torch.Tensor:
+    """r0 - A e for the constant cross operator; with a ``halo``, on one
+    shard of a mesh."""
+    return r0 - cross_from_padded(A, _padded(e, A.boundary, halo))
 
 
 def aniso_residual_plain(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
-                         s: torch.Tensor) -> torch.Tensor:
-    """r0 - A(s) e for the per-cell anisotropy operator."""
-    return r0 - anisotropy_matvec(A, s, e)
+                         s: torch.Tensor, halo: Optional[Halo] = None) -> torch.Tensor:
+    """r0 - A(s) e for the per-cell anisotropy operator; with a ``halo``, on
+    one shard of a mesh."""
+    return r0 - aniso_from_padded(A, s, _padded(e, A.boundary, halo))
 
 
 def heat_rhs(uterm: torch.Tensor, eF_pair, L: float,
@@ -141,9 +153,11 @@ def heat_rhs(uterm: torch.Tensor, eF_pair, L: float,
 
 
 def heat_residual_plain(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
-                        L: float, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """heat_rhs(uterm, eF_pair, L, extra) - A e."""
-    return heat_rhs(uterm, eF_pair, L, extra) - cross_matvec(A, e)
+                        L: float, extra: Optional[torch.Tensor] = None,
+                        halo: Optional[Halo] = None) -> torch.Tensor:
+    """heat_rhs(uterm, eF_pair, L, extra) - A e; with a ``halo``, on one
+    shard of a mesh."""
+    return heat_rhs(uterm, eF_pair, L, extra) - cross_from_padded(A, _padded(e, A.boundary, halo))
 
 
 # ------------------------------------------------------------ kernels
@@ -170,9 +184,10 @@ def _lib() -> ctypes.CDLL:
         lib.bt_cg_num_partials.argtypes = [_INT, _INT]
         lib.bt_cg_num_partials.restype = _INT
         cuda_rhs.bind(lib, _ENTRIES)
-        # K12.8, float32 only: K8's arguments and a halo's (rows, cols, edges)
-        cuda_rhs.bind(lib, {"matvec_pAp_halo": _ENTRIES["matvec_pAp"][:-1]
-                            + [_PTR, _PTR, _INT, _PTR]}, (torch.float32,))
+        # K12.8 and K14's twin: K8's and K14's arguments and a halo's (rows,
+        # cols, edges)
+        cuda_rhs.bind(lib, {f"{name}_halo": _ENTRIES[name][:-1] + [_PTR, _PTR, _INT, _PTR]
+                            for name in ("matvec_pAp", "si_residual")})
         _LIB = lib
     return _LIB
 
@@ -316,43 +331,60 @@ def axpby_inplace(a, b, r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def _residual(name, mode, e, r0, a, b, x, bc, C, X, Y, L=0.0) -> torch.Tensor:
+def _residual(name, mode, e, r0, a, b, x, bc, C, X, Y, L=0.0,
+              halo: Optional[Halo] = None) -> torch.Tensor:
     inputs = [t for t in (e, r0, a, b, x) if t is not None]
     _check(inputs)
     out = torch.empty_like(e)
+    ny, nx = e.shape
+    if halo is None:
+        kernel, ghosts = "si_residual", ()
+    else:
+        cuda_rhs._check_shard(*inputs)
+        kernel, ghosts = "si_residual_halo", cuda_rhs._halo_args(halo, ny, nx)
+        name += "_sharded"
     with torch.cuda.device(e.device):
-        rc = cuda_rhs.entry(_lib(), "si_residual", e.dtype)(
+        rc = cuda_rhs.entry(_lib(), kernel, e.dtype)(
             *(None if t is None else t.data_ptr() for t in (e, r0, a, b, x)),
-            out.data_ptr(), e.shape[0], e.shape[1], _BC_CODE[bc], mode,
-            float(C), float(X), float(Y), float(L), _stream())
+            out.data_ptr(), ny, nx, _BC_CODE[bc], mode,
+            float(C), float(X), float(Y), float(L), *ghosts, _stream())
     cuda_rhs._raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
 
 
-def cross_residual(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix) -> torch.Tensor:
-    """K14, cross form: r0 - A e, in a new tensor."""
+def cross_residual(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
+                   halo: Optional[Halo] = None) -> torch.Tensor:
+    """K14, cross form: r0 - A e, in a new tensor; with a ``halo`` (the
+    ghosts of (e, e), ``ops/rhs.stage_halos([(e, e)], [1.0], topo)``'s), its
+    twin on one shard of a mesh (``pallas_dd.cross_residual_dd_sharded``
+    :1014), counted as ``cross_residual_sharded``."""
     if not cuda_rhs._on_cuda(e, "cross_residual"):
-        return cross_residual_plain(r0, e, A)
+        return cross_residual_plain(r0, e, A, halo)
     return _residual("cross_residual", _RES_CROSS, e, r0, None, None, None,
-                     A.boundary, A.C, A.X, A.Y)
+                     A.boundary, A.C, A.X, A.Y, halo=halo)
 
 
 def aniso_residual(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
-                   s: torch.Tensor) -> torch.Tensor:
-    """K14, per-cell form: r0 - A(s) e with the anisotropy map s."""
+                   s: torch.Tensor, halo: Optional[Halo] = None) -> torch.Tensor:
+    """K14, per-cell form: r0 - A(s) e with the anisotropy map s; with a
+    ``halo``, its twin on a shard (``aniso_residual_dd_sharded`` :1027),
+    counted as ``aniso_residual_sharded``."""
     if not cuda_rhs._on_cuda(e, "aniso_residual"):
-        return aniso_residual_plain(r0, e, A, s)
+        return aniso_residual_plain(r0, e, A, s, halo)
     return _residual("aniso_residual", _RES_ANISO, e, r0, s, None, None,
-                     A.boundary, A.Cm1, A.X, A.Y)
+                     A.boundary, A.Cm1, A.X, A.Y, halo=halo)
 
 
 def heat_residual(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
-                  L: float, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  L: float, extra: Optional[torch.Tensor] = None,
+                  halo: Optional[Halo] = None) -> torch.Tensor:
     """K14, heat form: (L (e1_F + e2_F) + uterm [+ extra]) - A e, the
-    heat system's right-hand side (``heat_rhs``) built in the kernel."""
+    heat system's right-hand side (``heat_rhs``) built in the kernel; with a
+    ``halo``, its twin on a shard (``heat_residual_dd_sharded`` :1039),
+    counted as ``heat_residual_sharded``."""
     if not cuda_rhs._on_cuda(e, "heat_residual"):
-        return heat_residual_plain(uterm, eF_pair, e, A, L, extra)
+        return heat_residual_plain(uterm, eF_pair, e, A, L, extra, halo)
     mode = _RES_HEAT if extra is None else _RES_HEAT_EXTRA
     return _residual("heat_residual", mode, e, uterm, eF_pair[0], eF_pair[1], extra,
-                     A.boundary, A.C, A.X, A.Y, L)
+                     A.boundary, A.C, A.X, A.Y, L, halo=halo)

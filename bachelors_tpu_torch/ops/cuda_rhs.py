@@ -36,32 +36,41 @@ kernels are hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     from ghost rows and columns (``_stage_call_sharded`` :705), and
     ``halo_edges``, its ghost gather: the blend's edge rows and columns in
     one launch, what ``_ghost_rows`` :634 and ``_ghost_cols`` :672 send.
-  * K12.2 ``rkm_attempt_sharded``: K2 on a y-mesh shard, its apron beyond
-    the shard loaded from the neighbours' ghost slabs
+  * K12.2 ``rkm_attempt_sharded``: K2 on a float32 y-mesh shard, its apron
+    beyond the shard loaded from the neighbours' ghost slabs
     (``_fullstep_call_sharded`` :1185); K2's arithmetic per cell.
   * K12.3 ``blend_rhs_sharded(..., is_euler=True)``: K12.1 in K1's euler
     mode (``blend_rhs_pallas_sharded`` :744 with ``is_euler``).
   * K12.4 ``rk4_final_stage(..., halo=)``: K4 on a shard
     (``rk4_final_stage_pallas_sharded`` :756).
-  * K12.5 ``euler_steps_sharded``: K6 on a y-mesh shard from ghost slabs
-    T rows deep (``_euler2_call_sharded`` :1315).
-  * K12.6 ``rk4_full_sharded``: K3 on a y-mesh shard from ghost slabs 4
-    rows deep (``rk4_full_pallas_sharded`` :1231).
+  * K12.5 ``euler_steps_sharded``: K6 on a float32 y-mesh shard from ghost
+    slabs T rows deep (``_euler2_call_sharded`` :1315).
+  * K12.6 ``rk4_full_sharded``: K3 on a float32 y-mesh shard from ghost
+    slabs 4 rows deep (``rk4_full_pallas_sharded`` :1231).
   * K12.7 ``si_prepare_sharded``: K7 on a shard, its seams read from the
     ghost rows and columns of (F, U) (``si_prepare_pallas_sharded`` :625).
+  * The K13 twins, the same three wrappers at float64
+    (``rkm_attempt_sharded``, ``euler_steps_sharded``,
+    ``rk4_full_sharded``, counted as ``*_apron``): K2, K3 and K6 at double on
+    a shard of a y, x or 2D mesh, from an apron of ghost rows and columns
+    with the diagonal shards' corners (``core/boundary.Apron``, filled by
+    ``parallel/topology.Topology.apron``; ``pallas_dd.py``'s
+    ``*_dd_pair_sharded`` :1171-1198 on ``_dd_ghosts`` :1148).
 
-The mesh kernels are built for float32 only (their float64 twins are
-ROADMAP slice 5b.3).  Beside each kernel is its plain torch version
-(``blend_rhs_plain``, ``rk4_final_stage_plain``, ``rkm_attempt_plain``,
-``rk4_full_plain``, ``euler_steps_plain``, ``si_prepare_plain``,
-``rkm_final_stage_plain``, ``blend_rhs_sharded_plain``,
-``halo_edges_plain``, ``rkm_attempt_sharded_plain``,
-``euler_steps_sharded_plain``, ``rk4_full_sharded_plain``,
-``si_prepare_sharded_plain``): the staged
-``pad2`` (``pad_halo`` on a shard, the slab-extended block on a y-mesh
-shard) + ``rhs_padded`` (or ``semi_implicit_prepare``) composition.
-The CPU path runs it, the tests hold it to the JAX package, and
-``chip_smoke.py`` holds each kernel to it on the card.
+The mesh kernels with a ``Halo`` (K5, K12.1, K12.3, K12.4, K12.7) run at
+both dtypes; the tile kernels on a shard run at float32 on y-meshes (the
+slab twins; float32 x and 2D meshes take the staged routes, as the JAX
+package's do) and at float64 on every mesh (the K13 twins).  Beside each
+kernel is its plain torch version (``blend_rhs_plain``,
+``rk4_final_stage_plain``, ``rkm_attempt_plain``, ``rk4_full_plain``,
+``euler_steps_plain``, ``si_prepare_plain``, ``rkm_final_stage_plain``,
+``blend_rhs_sharded_plain``, ``halo_edges_plain``,
+``rkm_attempt_sharded_plain``, ``euler_steps_sharded_plain``,
+``rk4_full_sharded_plain``, ``si_prepare_sharded_plain``): the staged
+``pad2`` (``pad_halo`` on a shard, the apron-extended block for a whole
+step on a shard) + ``rhs_padded`` (or ``semi_implicit_prepare``)
+composition.  The CPU path runs it, the tests hold it to the JAX package,
+and ``chip_smoke.py`` holds each kernel to it on the card.
 
 Every single-device kernel runs on float32 and on float64 fields (``bt_*_f32`` and
 ``bt_*_f64`` in ``csrc/rhs.cu``), dispatched on the fields' dtype; all the
@@ -83,7 +92,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.boundary import Halo, edge_image, pad2, pad_axis, pad_halo
+from ..core.boundary import Apron, Halo, edge_image, pad2, pad_axis, pad_halo
 from ..core.params import BoundaryType, SimParams
 from ..models.allen_cahn import blend, rhs_neighbours, rhs_padded, semi_implicit_prepare
 from .reductions import Lmax_norm
@@ -98,7 +107,8 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rkm_final_stage": 0, "halo_edges": 0, "blend_rhs_sharded": 0,
             "rkm_attempt_sharded": 0, "blend_rhs_sharded_euler": 0,
             "rk4_final_stage_sharded": 0, "euler_steps_sharded": 0,
-            "rk4_full_sharded": 0, "si_prepare_sharded": 0}
+            "rk4_full_sharded": 0, "si_prepare_sharded": 0, "rkm_attempt_apron": 0,
+            "euler_steps_apron": 0, "rk4_full_apron": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -287,11 +297,11 @@ def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
 
 # ------------------------------------------------- plain versions on a mesh
 
-# Rows of each neighbour's field a y-mesh shard takes for its slab kernel:
-# the kernel's apron, the depth of its stage chain (the JAX package's 8 rows
-# are its sublane padding).  K12.2, a whole Merson attempt: K2's 5
-# (`csrc/rhs.cu:kK2Apron`); K12.6, a whole RK4 step: K3's 4 (`kK3Apron`);
-# K12.5 reads as many rows as it takes Euler steps per pass.
+# The apron a whole-step kernel takes on a shard: the depth of its stage
+# chain (the JAX package's 8 rows and columns are its sublane and lane
+# padding).  A whole Merson attempt (K12.2, K2's twin): K2's 5
+# (`csrc/rhs.cu:kK2Apron`); a whole RK4 step (K12.6, K3's twin): K3's 4
+# (`kK3Apron`); K6's twins read as deep as they take Euler steps per pass.
 SLAB_ROWS = 5
 RK4_SLAB_ROWS = 4
 
@@ -328,55 +338,79 @@ def blend_rhs_sharded_plain(states: Sequence[Pair], weights: Sequence, p: SimPar
     return dF, dU
 
 
-def _slab_neighbours(B: torch.Tensor, bc: BoundaryType, cross_n, cross_s, dv):
-    """(C, N, S, E, W) of a shard extended by its slabs: rows read their
-    neighbours in the extended block, except across a global edge, where a
-    Neumann or Dirichlet field takes its image; x is not sharded."""
-    N = torch.cat([B[1:], B[-1:]])
-    S = torch.cat([B[:1], B[:-1]])
-    if bc != BoundaryType.PERIODIC:
-        img = edge_image(B, bc, dv)
-        N, S = torch.where(cross_n, img, N), torch.where(cross_s, img, S)
-    P = pad_axis(B, bc, 1, dv)
-    return B, N, S, P[:, 2:], P[:, :-2]
+def _apron_neighbours(B: torch.Tensor, bc: BoundaryType, cross, dv):
+    """(C, N, S, E, W) of a shard's state extended by its apron.  Along an
+    axis with ghosts (``cross``: per axis the masks of the cells whose step
+    north and south, or east and west, crosses a global edge; None along an
+    axis without ghosts) a cell reads its neighbour in the extended block,
+    except across a global edge, where a Neumann or Dirichlet field takes
+    its image; along an axis without ghosts, ``pad_axis``'s rule."""
+    img = edge_image(B, bc, dv) if bc != BoundaryType.PERIODIC else None
+    out = []
+    for axis, masks in enumerate(cross):
+        n = B.shape[axis]
+        if masks is None:
+            P = pad_axis(B, bc, axis, dv)
+            out += [P.narrow(axis, 2, n), P.narrow(axis, 0, n)]
+            continue
+        hi = torch.cat([B.narrow(axis, 1, n - 1), B.narrow(axis, n - 1, 1)], axis)
+        lo = torch.cat([B.narrow(axis, 0, 1), B.narrow(axis, 0, n - 1)], axis)
+        if img is not None:
+            hi, lo = torch.where(masks[0], img, hi), torch.where(masks[1], img, lo)
+        out += [hi, lo]
+    return (B, *out)
 
 
-def _slab_extended(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,
-                   p: SimParams, fu):
-    """A y-mesh shard holding global rows [y0, y0 + ny_l) of the (p.ny,
-    p.nx) grid, extended by its neighbours' ghost slabs (``Topology.slabs``:
-    (2, 2, A, nx)): (x, stage, own).  ``x`` is the extended (F, U);
+def _apron_extended(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams, fu):
+    """A shard holding global rows [y0, y0 + ny_l) and columns [x0, x0 +
+    nx_l) of the (p.ny, p.nx) grid, extended by its apron (``Topology.
+    apron``): (x, stage, own).  ``x`` is the extended (F, U);
     ``stage(states, weights, dv)`` the RHS of their blend on the extended
     block at Dirichlet value dv, the boundary rule across global edges
-    only; ``own(pair)`` a pair's owned rows.  A stage is exact one row less
-    deep than its input, so the owned rows are exact after A stages (the
-    slab kernels' apron)."""
-    A, ny_l = slabs.shape[2], F.shape[0]
-    x = (torch.cat([slabs[0, 0], F, slabs[1, 0]]), torch.cat([slabs[0, 1], U, slabs[1, 1]]))
-    gy = torch.arange(y0 - A, y0 + ny_l + A, device=F.device)[:, None]
-    cross_n, cross_s = (gy + 1) % p.ny == 0, gy % p.ny == 0
+    only; ``own(pair)`` a pair's owned cells.  A stage is exact one cell
+    less deep than its input, so the owned cells are exact after A stages
+    (the apron tile kernels' depth)."""
+    A, (ny_l, nx_l) = ap.depth, F.shape
+
+    def extend(B, f):
+        if ap.cols is not None:
+            B = torch.cat([ap.cols[0, f], B, ap.cols[1, f]], 1)
+        if ap.rows is not None:
+            B = torch.cat([ap.rows[0, f], B, ap.rows[1, f]], 0)
+        return B
+
+    def masks(ghosts, start, n, total, shape):
+        if ghosts is None:
+            return None
+        g = torch.arange(start - A, start + n + A, device=F.device).reshape(shape)
+        return (g + 1) % total == 0, g % total == 0
+
+    x = (extend(F, 0), extend(U, 1))
+    cross = (masks(ap.rows, ap.y0, ny_l, p.ny, (-1, 1)),
+             masks(ap.cols, ap.x0, nx_l, p.nx, (1, -1)))
+    ys = slice(A, A + ny_l) if ap.rows is not None else slice(None)
+    xs = slice(A, A + nx_l) if ap.cols is not None else slice(None)
 
     def stage(states, weights, dv):
         Fb, Ub = blend_states(states, weights)
         dv = float(dv)
-        return rhs_neighbours(_slab_neighbours(Fb, p.Phi_boundary, cross_n, cross_s, dv),
-                              _slab_neighbours(Ub, p.T_boundary, cross_n, cross_s, dv),
+        return rhs_neighbours(_apron_neighbours(Fb, p.Phi_boundary, cross, dv),
+                              _apron_neighbours(Ub, p.T_boundary, cross, dv),
                               p, float(fu))
 
     def own(pair):
-        return tuple(f[A:A + ny_l] for f in pair)
+        return tuple(f[ys, xs] for f in pair)
 
     return x, stage, own
 
 
-def rkm_attempt_sharded_plain(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor,
-                              y0: int, tau: np.floating, p: SimParams, fu=0.0,
-                              dirichlet_value=0.0):
-    """One Merson attempt on a y-mesh shard from ghost slabs of SLAB_ROWS
-    rows (``_slab_extended``): the five stages on the extended block.  Same
+def rkm_attempt_sharded_plain(F: torch.Tensor, U: torch.Tensor, ap: Apron,
+                              tau: np.floating, p: SimParams, fu=0.0, dirichlet_value=0.0):
+    """One Merson attempt on a shard from its apron, SLAB_ROWS deep
+    (``_apron_extended``): the five stages on the extended block.  Same
     contract as ``rkm_attempt_plain``, with the shard's own error maxima."""
     c = type(tau)
-    x, rhs, own = _slab_extended(F, U, slabs, y0, p, fu)
+    x, rhs, own = _apron_extended(F, U, ap, p, fu)
 
     def stage(ks, ws):
         weights = [c(1)] + ws
@@ -387,25 +421,24 @@ def rkm_attempt_sharded_plain(F: torch.Tensor, U: torch.Tensor, slabs: torch.Ten
     return merson_finish(*(own(pair) for pair in (x, k1, k3, k4, k5)), tau)
 
 
-def euler_steps_sharded_plain(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor,
-                              y0: int, p: SimParams, steps: int, fu=0.0,
-                              dirichlet_value=0.0) -> Pair:
-    """``steps`` Euler steps on a y-mesh shard from ghost slabs ``steps``
-    rows deep (``_slab_extended``), each padded with ``dirichlet_value`` as
-    it is given.  Same contract as ``euler_steps_plain``."""
+def euler_steps_sharded_plain(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams,
+                              steps: int, fu=0.0, dirichlet_value=0.0) -> Pair:
+    """``steps`` Euler steps on a shard from its apron ``steps`` cells deep
+    (``_apron_extended``), each padded with ``dirichlet_value`` as it is
+    given.  Same contract as ``euler_steps_plain``."""
     _check_steps(steps, F.dtype)
-    x, rhs, own = _slab_extended(F, U, slabs, y0, p, fu)
+    x, rhs, own = _apron_extended(F, U, ap, p, fu)
     for _ in range(steps):
         dF, dU = rhs([x], [1.0], dirichlet_value)
         x = (x[0] + p.dt * dF, x[1] + p.dt * dU)
     return own(x)
 
 
-def rk4_full_sharded_plain(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,
-                           p: SimParams, fu=0.0, dirichlet_value=0.0) -> Pair:
-    """One RK4 step on a y-mesh shard from ghost slabs of RK4_SLAB_ROWS rows
-    (``_slab_extended``).  Same contract as ``rk4_full_plain``."""
-    x, rhs, own = _slab_extended(F, U, slabs, y0, p, fu)
+def rk4_full_sharded_plain(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams,
+                           fu=0.0, dirichlet_value=0.0) -> Pair:
+    """One RK4 step on a shard from its apron, RK4_SLAB_ROWS deep
+    (``_apron_extended``).  Same contract as ``rk4_full_plain``."""
+    x, rhs, own = _apron_extended(F, U, ap, p, fu)
     return own(_rk4_step(x, rhs, p.dt, dirichlet_value))
 
 
@@ -501,10 +534,8 @@ _ENTRIES = {
     "rk4_final": [_PTR] * 10 + [_INT, _INT] + [_REAL] * 4 + [_PHYS_PTR, _PTR],
     "rk4_full": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 5 + [_PHYS_PTR, _PTR],
     "euler_steps": [_PTR] * 4 + [_INT] * 3 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
-}
-# The mesh kernels (K5, K12.1 and its ghost gather, K12.2-K12.7) are built
-# for float32 only: their float64 twins are ROADMAP slice 5b.3.
-_F32_ENTRIES = {
+    # the mesh kernels with a Halo (K5, K12.1 and its ghost gather, K12.3,
+    # K12.4, K12.7)
     "halo_edges": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _PTR],
     "blend_rhs_halo": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _REAL,
                                                            _REAL, _INT, _PTR, _PTR, _INT,
@@ -514,9 +545,18 @@ _F32_ENTRIES = {
     "si_prepare_halo": [_PTR] * 5 + [_INT, _INT, _PTR, _PTR, _INT, _PHYS_PTR, _PTR],
     "rkm_final": [_PTR] * 8 + [_REAL] * 4 + [_PTR] * 4 + [_INT, _INT, _REAL, _REAL, _PTR,
                                                           _PTR, _INT, _PHYS_PTR, _PTR],
+}
+# The tile kernels on a shard: the float32 slab twins take y-meshes (K12.2,
+# K12.5, K12.6), the float64 apron twins -- K13's -- every mesh.
+_F32_ENTRIES = {
     "rkm_attempt_slabs": [_PTR] * 7 + [_INT] * 4 + [_REAL] * 3 + [_PHYS_PTR, _PTR],
     "euler_steps_slabs": [_PTR] * 5 + [_INT] * 5 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
     "rk4_full_slabs": [_PTR] * 5 + [_INT] * 4 + [_REAL] * 5 + [_PHYS_PTR, _PTR],
+}
+_F64_ENTRIES = {
+    "rkm_attempt_apron": [_PTR] * 8 + [_INT] * 6 + [_REAL] * 3 + [_PHYS_PTR, _PTR],
+    "euler_steps_apron": [_PTR] * 6 + [_INT] * 7 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
+    "rk4_full_apron": [_PTR] * 6 + [_INT] * 6 + [_REAL] * 5 + [_PHYS_PTR, _PTR],
 }
 _SUFFIX = {torch.float32: ("f32", ctypes.c_float), torch.float64: ("f64", ctypes.c_double)}
 _LIB = None
@@ -547,6 +587,7 @@ def _lib() -> ctypes.CDLL:
         lib = cuda_build.load()
         bind(lib, _ENTRIES)
         bind(lib, _F32_ENTRIES, (torch.float32,))
+        bind(lib, _F64_ENTRIES, (torch.float64,))
         for name, nargs in (("bt_rkm_num_blocks", 2), ("bt_stage_num_blocks", 2),
                             ("bt_tile_smem_bytes", 3)):
             getattr(lib, name).argtypes = [_INT] * nargs
@@ -744,16 +785,15 @@ def euler_steps(F: torch.Tensor, U: torch.Tensor, p: SimParams, steps: int,
 
 
 def _check_shard(*tensors: torch.Tensor) -> None:
-    """What the mesh kernels take: contiguous float32 tensors of one shape
-    on one CUDA device."""
-    dev, shape = tensors[0].device, tuple(tensors[0].shape)
+    """What the mesh kernels take: contiguous float32 or float64 tensors of
+    one dtype and shape on one CUDA device."""
+    dev, shape, dtype = tensors[0].device, tuple(tensors[0].shape), tensors[0].dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the mesh kernels take float32 or float64 fields, got {dtype}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the mesh kernels take float32 fields, got {t.dtype} "
-                            "(float64 on a mesh: ROADMAP slice 5b.3)")
-        if t.device != dev or tuple(t.shape) != shape:
+        if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"shard fields of one call differ: {t.device} {tuple(t.shape)} "
-                             f"vs {dev} {shape}")
+                             f"{t.dtype} vs {dev} {shape} {dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel takes contiguous fields")
 
@@ -867,67 +907,91 @@ def rkm_final_stage(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
     return out_F, out_U, emax
 
 
-def _check_slabs(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, depth: int,
-                 p: SimParams) -> None:
-    """What the slab kernels take: a y-mesh shard of at least ``depth`` rows
-    and the whole grid's width, with (2, 2, depth, nx) ghost slabs."""
+def _apron_args(F: torch.Tensor, U: torch.Tensor, ap: Apron, depth: int, p: SimParams):
+    """(entry suffix, count suffix, the entry's ghost arguments) of a tile
+    kernel on a shard from ``ap``, checked: at float32 a y-mesh shard of
+    the whole grid's width with ghost rows ``depth`` deep (the slab twins
+    K12.2, K12.5, K12.6: slabs, y0, ny_l, ny, nx); at float64 any shard with
+    the ghosts of its sharded axes (the K13 twins: rows, cols, y0, ny_l, x0,
+    nx_l, ny, nx)."""
     _check_shard(F, U)
-    ny_l, nx = F.shape
-    if nx != p.nx or tuple(slabs.shape) != (2, 2, depth, nx) or ny_l < depth:
-        raise ValueError(f"a y-mesh shard of {ny_l}x{nx} rows (at least {depth}) "
-                         f"of the {p.ny}x{p.nx} grid takes (2, 2, {depth}, {p.nx}) "
-                         f"slabs, got {tuple(slabs.shape)}")
-    _check_shard(slabs)
+    ny_l, nx_l = F.shape
+    shapes = {"rows": (ap.rows, (2, 2, depth, nx_l + 2 * depth if ap.cols is not None
+                                  else nx_l), ny_l, p.ny),
+              "cols": (ap.cols, (2, 2, ny_l, depth), nx_l, p.nx)}
+    for what, (g, shape, n, whole) in shapes.items():
+        if g is None:
+            if n != whole:
+                raise ValueError(f"a shard without ghost {what} holds the whole grid's "
+                                 f"{whole}, not {n}")
+            continue
+        if tuple(g.shape) != shape or n < depth:
+            raise ValueError(f"a {ny_l}x{nx_l} shard takes ghost {what} {shape} (at least "
+                             f"{depth} across), got {tuple(g.shape)}")
+        if g.dtype != F.dtype or g.device != F.device or not g.is_contiguous():
+            raise ValueError(f"ghost {what} must be contiguous {F.dtype} on {F.device}")
+    if ap.rows is None and ap.cols is None:
+        raise ValueError("an apron with no ghosts: take the whole-grid kernel")
+    if F.dtype == torch.float32:
+        if ap.cols is not None:
+            raise ValueError("at float32 the tile kernels take y-mesh shards only (x and 2D "
+                             "meshes take the staged routes)")
+        return "slabs", "sharded", (ap.rows.data_ptr(), ap.y0, ny_l, p.ny, p.nx)
+    ptr = [None if g is None else g.data_ptr() for g in (ap.rows, ap.cols)]
+    return "apron", "apron", (*ptr, ap.y0, ny_l, ap.x0, nx_l, p.ny, p.nx)
 
 
-def rkm_attempt_sharded(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,
-                        tau: np.floating, p: SimParams, fu=0.0, dirichlet_value=0.0):
-    """K12.2: K2 on a y-mesh shard, its apron rows beyond the shard loaded
-    from the neighbours' ghost slabs and the boundary rule applied at
-    global rows (``_fullstep_call_sharded`` :1185 via
-    ``rkm_attempt_pallas_sharded`` :1245).  Same contract as
+def rkm_attempt_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, tau: np.floating,
+                        p: SimParams, fu=0.0, dirichlet_value=0.0):
+    """K2 on a shard of a mesh, its apron beyond the shard loaded from the
+    neighbours' ghosts (``Topology.apron``, SLAB_ROWS deep) and the boundary
+    rule applied at global edges: at float32 K12.2 on a y-mesh shard
+    (``_fullstep_call_sharded`` :1185 via ``rkm_attempt_pallas_sharded``
+    :1245), counted as ``rkm_attempt_sharded``; at float64 the K13 twin on
+    a shard of any mesh (``pallas_dd.rkm_attempt_dd_pair_sharded`` :1198),
+    counted as ``rkm_attempt_apron``.  Same contract as
     ``rkm_attempt_sharded_plain``."""
     if not _on_cuda(F, "rkm_attempt_sharded"):
-        return rkm_attempt_sharded_plain(F, U, slabs, y0, tau, p, fu, dirichlet_value)
-    _check_slabs(F, U, slabs, SLAB_ROWS, p)
-    ny_l, nx = F.shape
+        return rkm_attempt_sharded_plain(F, U, ap, tau, p, fu, dirichlet_value)
+    sfx, count, ghosts = _apron_args(F, U, ap, SLAB_ROWS, p)
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
-    partials = F.new_empty(2 * _lib().bt_rkm_num_blocks(ny_l, nx))
+    partials = F.new_empty(2 * _lib().bt_rkm_num_blocks(*F.shape))
     emax = F.new_empty(2)
     with torch.cuda.device(F.device):
-        rc = entry(_lib(), "rkm_attempt_slabs", F.dtype)(
+        rc = entry(_lib(), f"rkm_attempt_{sfx}", F.dtype)(
             F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            partials.data_ptr(), emax.data_ptr(), slabs.data_ptr(), y0, ny_l, p.ny, nx,
-            float(tau), float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
+            partials.data_ptr(), emax.data_ptr(), *ghosts, float(tau),
+            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "rkm_attempt_sharded")
-    LAUNCHES["rkm_attempt_sharded"] += 1
+    _raise_on(rc, f"rkm_attempt_{count}")
+    LAUNCHES[f"rkm_attempt_{count}"] += 1
     return out_F, out_U, emax
 
 
-def euler_steps_sharded(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,
-                        p: SimParams, steps: int, fu=0.0, dirichlet_value=0.0) -> Pair:
-    """K12.5: K6 on a y-mesh shard, ``steps`` Euler steps per pass from
-    ghost slabs ``steps`` rows deep (``_euler2_call_sharded`` :1315 via
-    ``euler2_pallas_sharded`` :1346); built for float32's depth in
+def euler_steps_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams,
+                        steps: int, fu=0.0, dirichlet_value=0.0) -> Pair:
+    """K6 on a shard of a mesh, ``steps`` Euler steps per pass from an apron
+    ``steps`` cells deep: at float32 K12.5 on a y-mesh shard
+    (``_euler2_call_sharded`` :1315 via ``euler2_pallas_sharded`` :1346),
+    counted as ``euler_steps_sharded``; at float64 the K13 twin on a shard
+    of any mesh (``pallas_dd.euler_steps_dd_pair_sharded`` :1171), counted
+    as ``euler_steps_apron``; each built for its dtype's depths in
     ``K6_STEPS``.  Same contract as ``euler_steps_sharded_plain``."""
     _check_steps(steps, F.dtype)
     if not _on_cuda(F, "euler_steps_sharded"):
-        return euler_steps_sharded_plain(F, U, slabs, y0, p, steps, fu, dirichlet_value)
-    _check_slabs(F, U, slabs, steps, p)
-    if steps not in K6_STEPS[torch.float32]:
-        raise ValueError(f"K12.5 is built for {K6_STEPS[torch.float32]} steps per pass, "
-                         f"got {steps}")
-    ny_l, nx = F.shape
+        return euler_steps_sharded_plain(F, U, ap, p, steps, fu, dirichlet_value)
+    sfx, count, ghosts = _apron_args(F, U, ap, steps, p)
+    if steps not in K6_STEPS[F.dtype]:
+        raise ValueError(f"K6's twins are built for {K6_STEPS[F.dtype]} steps per pass at "
+                         f"{F.dtype}, got {steps}")
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
     with torch.cuda.device(F.device):
-        rc = entry(_lib(), "euler_steps_slabs", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            slabs.data_ptr(), y0, ny_l, p.ny, nx, steps, float(dirichlet_value),
-            float(fu), ctypes.byref(_phys(p, F.dtype)),
+        rc = entry(_lib(), f"euler_steps_{sfx}", F.dtype)(
+            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(), *ghosts, steps,
+            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "euler_steps_sharded")
-    LAUNCHES["euler_steps_sharded"] += 1
+    _raise_on(rc, f"euler_steps_{count}")
+    LAUNCHES[f"euler_steps_{count}"] += 1
     return out_F, out_U
 
 
@@ -953,22 +1017,23 @@ def si_prepare_sharded(F: torch.Tensor, U: torch.Tensor, p: SimParams, halo: Hal
     return tuple(outs)
 
 
-def rk4_full_sharded(F: torch.Tensor, U: torch.Tensor, slabs: torch.Tensor, y0: int,
-                     p: SimParams, fu=0.0, dirichlet_value=0.0) -> Pair:
-    """K12.6: K3 on a y-mesh shard, from ghost slabs RK4_SLAB_ROWS deep
-    (``rk4_full_pallas_sharded`` :1231 via ``_fullstep_call_sharded``
-    :1185).  Same contract as ``rk4_full_sharded_plain``."""
+def rk4_full_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams, fu=0.0,
+                     dirichlet_value=0.0) -> Pair:
+    """K3 on a shard of a mesh from an apron RK4_SLAB_ROWS deep: at float32
+    K12.6 on a y-mesh shard (``rk4_full_pallas_sharded`` :1231 via
+    ``_fullstep_call_sharded`` :1185), counted as ``rk4_full_sharded``; at
+    float64 the K13 twin on a shard of any mesh
+    (``pallas_dd.rk4_full_dd_pair_sharded`` :1186), counted as
+    ``rk4_full_apron``.  Same contract as ``rk4_full_sharded_plain``."""
     if not _on_cuda(F, "rk4_full_sharded"):
-        return rk4_full_sharded_plain(F, U, slabs, y0, p, fu, dirichlet_value)
-    _check_slabs(F, U, slabs, RK4_SLAB_ROWS, p)
-    ny_l, nx = F.shape
+        return rk4_full_sharded_plain(F, U, ap, p, fu, dirichlet_value)
+    sfx, count, ghosts = _apron_args(F, U, ap, RK4_SLAB_ROWS, p)
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
     with torch.cuda.device(F.device):
-        rc = entry(_lib(), "rk4_full_slabs", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            slabs.data_ptr(), y0, ny_l, p.ny, nx, float(p.dt / 2), float(p.dt),
-            float(p.dt / 6), float(dirichlet_value), float(fu),
+        rc = entry(_lib(), f"rk4_full_{sfx}", F.dtype)(
+            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(), *ghosts,
+            float(p.dt / 2), float(p.dt), float(p.dt / 6), float(dirichlet_value), float(fu),
             ctypes.byref(_phys(p, F.dtype)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "rk4_full_sharded")
-    LAUNCHES["rk4_full_sharded"] += 1
+    _raise_on(rc, f"rk4_full_{count}")
+    LAUNCHES[f"rk4_full_{count}"] += 1
     return out_F, out_U

@@ -6,8 +6,9 @@ is written once against this interface:
   * one device -> ``Topology()``: pads are ``pad2``, reductions plain torch
     reductions;
   * a mesh of ``shards_y x shards_x`` shards -> ``Topology(shards_y,
-    shards_x)``: fields are ``Shards``; a pad becomes a halo exchange and a
-    reduction combines per-shard partials on the first shard's device.
+    shards_x)``: fields are ``Shards``; a pad becomes a halo exchange
+    (``exchange``; ``apron`` for the whole-step kernels) and a reduction
+    combines per-shard partials on the first shard's device.
 
 The JAX package runs the per-shard code inside ``shard_map`` and exchanges
 halos with ``lax.ppermute``.  Here one process drives every shard, each on
@@ -23,7 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..core.boundary import Halo, pad2, pad_halo
+from ..core.boundary import Apron, Halo, pad2, pad_halo
 from ..core.params import BoundaryType
 from ..core.state import Shards
 
@@ -98,27 +99,61 @@ class Topology:
                 halos.append(Halo(rows, cols, self.shard_edges(i, j)))
         return halos
 
-    def slabs(self, F: Shards, U: Shards, depth: int) -> List[torch.Tensor]:
-        """The y-mesh's ghost slabs, once per step: for each shard a (2, 2,
-        depth, nx) buffer holding its predecessor's last ``depth`` rows
-        (side 0) and its successor's first ``depth`` rows (side 1) of both
-        fields, in ring order (``bachelors_tpu/ops/pallas_rhs.py:
-        _ghost_slabs`` :897).  The kernel applies the boundary rule at the
-        global edges itself."""
-        if self.shards_x != 1:
-            raise ValueError("ghost slabs are for meshes that shard rows only")
-        n = self.shards_y
+    def apron(self, F: Shards, U: Shards, depth: int) -> List[Apron]:
+        """Each shard's apron ``depth`` cells deep for a whole-step kernel,
+        once per step: the port of the JAX package's two-phase exchange
+        (``ops/pallas_dd.py``: ``ghost_cols_dd`` :1116, then
+        ``ghost_slabs_dd`` :1076 on the column-extended planes, ``_dd_ghosts``
+        :1148; on a y-mesh ``pallas_rhs._ghost_slabs`` :897).  For shard
+        (i, j), in ring order on both axes:
+
+          * ghost rows: the last ``depth`` rows of shard (i - 1, j) (side 0)
+            and the first of (i + 1, j) (side 1); on a 2D mesh widened by
+            ``depth`` columns of the diagonal shards (i -+ 1, j - 1) and
+            (i -+ 1, j + 1), the corners that JAX's y exchange carries in
+            its column-extended slabs;
+          * ghost columns: the last ``depth`` columns of (i, j - 1) (side 0)
+            and the first of (i, j + 1) (side 1).
+
+        One process drives every shard, so a corner is copied from the
+        diagonal shard directly.  Copies per shard, each of both fields
+        apart: a y-mesh 4 (contiguous rows), an x-mesh 4 (strided
+        columns), a 2D mesh 16 (4 row blocks into the widened rows, 8
+        corners and 4 columns, all strided).  The kernels apply the
+        boundary rule at the global edges themselves.  A sharded axis needs
+        shards at least ``depth`` cells across: a neighbour's neighbour is
+        never read."""
+        sy, sx = self.grid
+        ny_l, nx_l = F.blocks[0].shape
+        if (sy > 1 and ny_l < depth) or (sx > 1 and nx_l < depth):
+            raise ValueError(f"an apron {depth} cells deep needs shards of at least {depth} "
+                             f"cells along each sharded axis, got {ny_l}x{nx_l}")
+        d = depth
+        near = (slice(ny_l - d, ny_l), slice(0, d))  # rows (columns) sent to side 0, 1
+        near_x = (slice(nx_l - d, nx_l), slice(0, d))
         out = []
-        for i in range(n):
-            lo, hi = F.blocks[(i - 1) % n], F.blocks[(i + 1) % n]
-            lo_u, hi_u = U.blocks[(i - 1) % n], U.blocks[(i + 1) % n]
-            if min(lo.shape[0], hi.shape[0]) < depth:
-                raise ValueError(f"ghost slabs of {depth} rows need shards of at "
-                                 f"least {depth} rows, got {lo.shape[0]}")
-            buf = F.blocks[i].new_empty((2, 2, depth, F.blocks[i].shape[1]))
-            _ring_copy(buf.view(4, depth, -1), (lo[-depth:], lo_u[-depth:],
-                                                 hi[:depth], hi_u[:depth]))
-            out.append(buf)
+        for i in range(sy):
+            for j in range(sx):
+                rows = cols = None
+                if sy > 1:
+                    rows = F.blocks[0].new_empty((2, 2, d, nx_l + 2 * d if sx > 1 else nx_l))
+                    for side, ii in enumerate(((i - 1) % sy, (i + 1) % sy)):
+                        for f, A in enumerate((F, U)):
+                            src = A.block(ii, j)[near[side]]
+                            if sx == 1:
+                                rows[side, f].copy_(src)
+                                continue
+                            rows[side, f, :, d:d + nx_l].copy_(src)
+                            rows[side, f, :, :d].copy_(
+                                A.block(ii, (j - 1) % sx)[near[side], near_x[0]])
+                            rows[side, f, :, d + nx_l:].copy_(
+                                A.block(ii, (j + 1) % sx)[near[side], near_x[1]])
+                if sx > 1:
+                    cols = F.blocks[0].new_empty((2, 2, ny_l, d))
+                    for side, jj in enumerate(((j - 1) % sx, (j + 1) % sx)):
+                        for f, A in enumerate((F, U)):
+                            cols[side, f].copy_(A.block(i, jj)[:, near_x[side]])
+                out.append(Apron(rows, cols, i * ny_l, j * nx_l))
         return out
 
     # ---- ghost-cell padding -------------------------------------------------

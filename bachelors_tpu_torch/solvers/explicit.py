@@ -11,27 +11,30 @@ y, x and 2D meshes (``topo``; fields are then ``Shards``):
     over device memory (``ops/cuda_rhs.euler_steps``, K6) for runs that
     collect nothing per step: ``EULER_BLOCK_STEPS`` at float32, and at
     float64 the depth of the JAX package's df64 kernel
-    (``euler_dd_block_steps``); on float32 y-meshes K12.5 per shard from
-    one slab exchange per pass.
+    (``euler_dd_block_steps``, by the shard's cells on a mesh); on a mesh
+    K6's twin per shard from one apron exchange per pass (K12.5 on float32
+    y-meshes, the K13 twin on float64 y, x and 2D meshes).
   * ``rk4_step`` (:242-313): the whole-step kernel (K3) from
     ``RK4_FULLSTEP_MIN_CELLS`` cells, else K1 for k1..k3 and K4 for the
-    fourth stage and the combination; on a y-mesh from as many local cells
-    K12.6 per shard, else K12.1 x 3 and K12.4.
+    fourth stage and the combination; on a mesh from as many local cells
+    K3's twin per shard (K12.6 on float32 y-meshes, the K13 twin on float64
+    meshes), else K12.1 x 3 and K12.4.
   * ``rkm_adaptive_step`` (:316-521): the whole-attempt kernel
     (``ops/cuda_rhs.rkm_attempt``, K2) and the staged plain path; on a
-    mesh, float32, K12.2 on y-meshes and K12.1 + K5 on x and 2D meshes.  The retry
+    mesh K2's twin per shard (K12.2 on float32 y-meshes, the K13 twin on
+    float64 y, x and 2D meshes), else the staged K12.1 + K5.  The retry
     loop runs on the host and reads the two error maxima once per attempt,
     as the reference does (`simulation.cu:427-435`); the JAX package runs
     the same loop as a device ``while_loop``.
 
-The slab kernels (K12.2, K12.5, K12.6) take y-mesh shards at least as deep
-as their slabs; a thinner shard takes the staged route, as JAX sends a
-shard that fails ``supports_fullstep_sharded`` to it.  Every path runs at
-float32 and at float64, on the same kernels instantiated for each (the
-mesh kernels at float32; float64 meshes run the plain versions on the
-CPU).  The routing constants are the JAX package's, measured on a TPU,
-and gate on a shard's local cells as JAX does; the port keeps them so that
-it routes as the reference does (PERF.md holds the H100's own crossovers).
+The whole-step twins take meshes whose shards are at least as deep as
+their apron along each sharded axis (``_takes_apron``); a thinner shard
+takes the staged route, as JAX sends a shard that fails
+``supports_fullstep_sharded`` or ``supports_dd_sharded`` to it.  Every
+path runs at float32 and at float64, on the same kernels instantiated for
+each.  The routing constants are the JAX package's, measured on a TPU, and
+gate on a shard's local cells as JAX does; the port keeps them so that it
+routes as the reference does (PERF.md holds the H100's own crossovers).
 """
 from __future__ import annotations
 
@@ -61,19 +64,26 @@ def euler_step_based(F: Field, U: Field, U_base: Field, p: SimParams, fu=0.0,
     return _axpy(F, p.dt, dF), _axpy(U_base, p.dt, dU)
 
 
-def _takes_slabs(topo: Topology, ny_l: int, depth: int) -> bool:
-    """Whether a slab kernel of ``depth`` rows takes the mesh's shards of
-    ``ny_l`` rows: a y-mesh (x is not sharded) of shards at least that deep
-    (the JAX package's ``supports_fullstep_sharded`` in the port's terms:
-    its kernels take any grid, so the gate is the depth)."""
-    return topo.axis_x is None and ny_l >= depth
+def _takes_apron(topo: Topology, ny_l: int, nx_l: int, depth: int, dtype: str) -> bool:
+    """Whether a whole-step kernel ``depth`` stages deep takes the mesh's
+    shards of ny_l x nx_l cells: shards at least that deep along each
+    sharded axis, so that an apron reads no neighbour's neighbour; at
+    float32 on a y-mesh only (the slab twins: the JAX package's float32
+    x and 2D meshes take the staged routes), at float64 on every mesh (the
+    K13 twins).  The JAX package's ``supports_fullstep_sharded`` and
+    ``supports_dd_sharded``/``wants_dd_sharded`` (``pallas_dd.py``
+    :1053/:1064) in the port's terms: its kernels take any grid, so the
+    gate is the depth."""
+    if dtype != "float64" and topo.axis_x is not None:
+        return False
+    return ((topo.axis_y is None or ny_l >= depth)
+            and (topo.axis_x is None or nx_l >= depth))
 
 
-def _slab_shards(F: Shards, U: Shards, topo: Topology, depth: int):
-    """(F, U, ghost slabs ``depth`` rows deep, global first row) of each
-    y-mesh shard, from one slab exchange."""
-    y0 = np.cumsum([0] + [b.shape[0] for b in F.blocks[:-1]])
-    return list(zip(F.blocks, U.blocks, topo.slabs(F, U, depth), (int(y) for y in y0)))
+def _apron_shards(F: Shards, U: Shards, topo: Topology, depth: int):
+    """(F, U, apron ``depth`` cells deep) of each shard, from one exchange
+    (``Topology.apron``)."""
+    return list(zip(F.blocks, U.blocks, topo.apron(F, U, depth)))
 
 
 EULER_BLOCK_STEPS = 4  # Euler steps per pass of K6 at float32 (JAX :76)
@@ -104,20 +114,22 @@ EULER_PAIR_GAP = (2 * 1024 * 1024, 10 * 1024 * 1024)
 def euler_pair(p: SimParams, topo: Topology = ONE_DEVICE):
     """state -> the state T Euler steps later, in one pass of K6 on the
     kernel backend (T plain steps otherwise), with no gate; T is
-    ``EULER_BLOCK_STEPS`` at float32 and ``euler_dd_block_steps(p.N)`` at
-    float64, and the function carries it as ``.block_steps``.  On a
-    y-mesh (``Shards`` over ``topo``) one slab exchange T rows deep, then
-    K12.5 (or its plain version) per shard.  ``make_euler_pair_stepper``
-    decides when a run uses it."""
-    T = euler_dd_block_steps(p.N) if p.dtype == "float64" else EULER_BLOCK_STEPS
+    ``EULER_BLOCK_STEPS`` at float32 and ``euler_dd_block_steps`` of the
+    shard's cells at float64, and the function carries it as
+    ``.block_steps``.  On a mesh (``Shards`` over ``topo``) one apron
+    exchange T cells deep, then K6's twin per shard (K12.5 on a float32
+    y-mesh, the K13 twin at float64) or its plain version.
+    ``make_euler_pair_stepper`` decides when a run uses it."""
+    T = (euler_dd_block_steps(p.N // (topo.shards_y * topo.shards_x))
+         if p.dtype == "float64" else EULER_BLOCK_STEPS)
 
     def pair(state: SimState) -> SimState:
         kernel = resolve_backend(p, state.F.device) == "kernel"
         if topo.is_sharded:
             steps = (cuda_rhs.euler_steps_sharded if kernel
                      else cuda_rhs.euler_steps_sharded_plain)
-            out = [steps(f, u, s, y0, p, T) for f, u, s, y0 in
-                   _slab_shards(state.F, state.U, topo, T)]
+            out = [steps(f, u, ap, p, T) for f, u, ap in
+                   _apron_shards(state.F, state.U, topo, T)]
             F, U = (Shards(blocks, state.F.grid) for blocks in zip(*out))
         elif kernel:
             F, U = cuda_rhs.euler_steps(state.F, state.U, p, T)
@@ -136,12 +148,12 @@ def make_euler_pair_stepper(p: SimParams, topo: Topology = ONE_DEVICE, mesh=None
     step), per-step stats or step residuals (a pair emits none), the
     corrector loop, and float32 grids inside ``EULER_PAIR_GAP``.  The
     branches of the JAX package's ``make_euler_pair_stepper``: its df64
-    branch at float64 on one device (every grid size, the depth by cells);
-    on a mesh (``mesh`` given, as the JAX driver passes it) float32 y-meshes
-    only, gated on the shard's local cells, and their shards at least T
-    rows deep, K12.5's slab depth.  The port's kernels take every grid, so
-    the JAX tile gates have no counterpart; its float64 mesh twins are
-    slice 5b.3, so a float64 mesh takes single steps."""
+    branch at float64 on one device (every grid size, the depth by cells)
+    and on y, x and 2D meshes (the depth by the shard's cells); on a float32
+    mesh y-meshes only, gated on the shard's local cells.  On a mesh
+    (``mesh`` given, as the JAX driver passes it) the shards must be at
+    least T cells across each sharded axis, the apron's depth.  The port's
+    kernels take every grid, so the JAX tile gates have no counterpart."""
     if p.solver != SolverType.EXPLICIT_EULER:
         return None
     if p.do_exact or p.do_stats or p.do_stats_step_residual:
@@ -150,12 +162,15 @@ def make_euler_pair_stepper(p: SimParams, topo: Topology = ONE_DEVICE, mesh=None
         return None
     lo, hi = EULER_PAIR_GAP
     if topo.is_sharded:
-        if mesh is None or p.dtype == "float64":
+        if mesh is None:
             return None
-        ny_l = p.ny // topo.shards_y
-        if not _takes_slabs(topo, ny_l, EULER_BLOCK_STEPS) or lo < ny_l * p.nx < hi:
+        pair = euler_pair(p, topo)
+        ny_l, nx_l = p.ny // topo.shards_y, p.nx // topo.shards_x
+        if not _takes_apron(topo, ny_l, nx_l, pair.block_steps, p.dtype):
             return None
-        return euler_pair(p, topo)
+        if p.dtype != "float64" and lo < ny_l * nx_l < hi:
+            return None
+        return pair
     if p.dtype != "float64" and lo < p.N < hi:
         return None
     return euler_pair(p)
@@ -166,17 +181,18 @@ def rk4_step(F: Field, U: Field, p: SimParams, fu=0.0, topo: Topology = ONE_DEVI
     ``RK4_FULLSTEP_MIN_CELLS`` cells on, else three K1 launches (k1..k3) and
     one K4 launch (k4 and the combination).  The plain backend takes the
     staged plain step.  On a mesh (``bachelors_tpu/solvers/explicit.py:
-    280-313``): K12.6 per y-mesh shard from one slab exchange, from as many
-    local cells and for shards at least RK4_SLAB_ROWS deep; else the staged
+    250-313``): K3's twin per shard from one apron exchange, from as many
+    local cells and for shards at least RK4_SLAB_ROWS across (K12.6 on a
+    float32 y-mesh, the K13 twin on any float64 mesh); else the staged
     route, K12.1 for k1..k3 and K12.4, or the plain stages padded by
     ``topo.pad``."""
     kernel = resolve_backend(p, F.device) == "kernel"
     if topo.is_sharded:
         ny_l, nx_l = F.blocks[0].shape
         if (kernel and ny_l * nx_l >= RK4_FULLSTEP_MIN_CELLS
-                and _takes_slabs(topo, ny_l, cuda_rhs.RK4_SLAB_ROWS)):
-            out = [cuda_rhs.rk4_full_sharded(f, u, s, y0, p, fu)
-                   for f, u, s, y0 in _slab_shards(F, U, topo, cuda_rhs.RK4_SLAB_ROWS)]
+                and _takes_apron(topo, ny_l, nx_l, cuda_rhs.RK4_SLAB_ROWS, p.dtype)):
+            out = [cuda_rhs.rk4_full_sharded(f, u, ap, p, fu)
+                   for f, u, ap in _apron_shards(F, U, topo, cuda_rhs.RK4_SLAB_ROWS)]
             return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
         return _rk4_staged_mesh(F, U, p, fu, topo, kernel)
     if not kernel:
@@ -220,13 +236,15 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
     """attempt(tau) -> (next_F, next_U, emax) on a mesh, routed as the JAX
     package routes (``bachelors_tpu/solvers/explicit.py:386-460``):
 
-      * kernel backend, y-mesh of shards at least SLAB_ROWS deep: K12.2,
-        the whole attempt per shard; the ghost slabs are exchanged once
-        per step, here, outside the retry loop (:401-408);
-      * kernel backend, x or 2D mesh, or thinner y-shards (:386-393): the
-        staged attempt, k1 once per step
-        and k2..k4 by K12.1, then K5 with ghosts for k5, the update and the
-        shard's error maxima (:449-460);
+      * kernel backend, shards at least SLAB_ROWS across each sharded
+        axis, on a float32 y-mesh or any float64 mesh: the whole attempt
+        per shard, K12.2 or the K13 twin (float64, :351-370, 420-435); the
+        apron is exchanged once per step, here, outside the retry loop
+        (:401-408);
+      * kernel backend otherwise -- a float32 x or 2D mesh, thinner shards
+        (:386-393): the staged attempt, k1 once per step and k2..k4 by
+        K12.1, then K5 with ghosts for k5, the update and the shard's
+        error maxima (:449-460);
       * plain backend: the staged attempt padded by ``topo.pad``.
 
     The shards' maxima are combined on the first shard's device
@@ -237,12 +255,12 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
         nF, nU, emax = zip(*out)
         return Shards(nF, F.grid), Shards(nU, F.grid), topo.allmax(emax)
 
-    if kernel and _takes_slabs(topo, F.blocks[0].shape[0], cuda_rhs.SLAB_ROWS):
-        shards = _slab_shards(F, U, topo, cuda_rhs.SLAB_ROWS)
+    if kernel and _takes_apron(topo, *F.blocks[0].shape, cuda_rhs.SLAB_ROWS, p.dtype):
+        shards = _apron_shards(F, U, topo, cuda_rhs.SLAB_ROWS)
 
         def attempt(tau):
-            return joined([cuda_rhs.rkm_attempt_sharded(f, u, s, y0, tau, p, fu)
-                           for f, u, s, y0 in shards])
+            return joined([cuda_rhs.rkm_attempt_sharded(f, u, ap, tau, p, fu)
+                           for f, u, ap in shards])
 
         return attempt
 

@@ -14,7 +14,7 @@ The port of ``bachelors_tpu/solvers/semi_implicit.py``
   4. CG-solve A_U e_U = r0_U; next_U = T + e_U (`simulation.cu:901-908`).
 
 The CG iterations run K8-K10 (``ops/cuda_cg``) on the kernel backend.  On
-a float32 mesh on the card the prepare is K12.7 and the matvecs K12.8, per
+a mesh on the card the prepare is K12.7 and the matvecs K12.8, per
 shard, each after one ghost gather per shard (``ops/rhs.stage_halos``: of
 (F, U) for the prepare, of (p, p) for a matvec, as JAX's ``_ghost_kw``
 sends it) and the ring exchange; K9 and K10 run per shard, and the CG
@@ -29,7 +29,9 @@ float64 on the card (``refines``) takes the JAX package's accelerator route,
 ``_semi_implicit_step_dd`` (:234), in ``semi_implicit_step_refined``: per
 system a CG solve, the true residual r1 = r0 - A e1 of its result (K14,
 ``ops/cuda_cg.*_residual``), a second CG solve A e2 = r1, and x + e1 + e2;
-plain CG without Jacobi, as there.  The TPU runs that route in float32 CG
+plain CG without Jacobi, as there.  On a mesh the same route runs K12.7
+and K12.8 at double and K14's twin (K14 with a halo, after the ghost
+gather of (e, e)) per shard, the CG combining the shards' dots.  The TPU runs that route in float32 CG
 and float32-pair residuals because it has no float64 ALU; here K7, K8-K10
 and K14 all run at double.  r1 then starts below the stop test, so the
 second solve stops after one iteration, which its count (like the
@@ -37,8 +39,7 @@ reference's) leaves out, having taken most of what the first solve left of
 the true residual.  Everywhere else -- float32, float64 on the CPU,
 ``backend = xla`` -- the step is the JAX package's
 ``semi_implicit_step_based`` as its XLA path runs it (two solves), as the
-JAX package itself does off its accelerator; so does a float64 mesh on the
-CPU (on the card it is ROADMAP slice 5b.3).
+JAX package itself does off its accelerator, on one device or a mesh.
 """
 from __future__ import annotations
 
@@ -91,11 +92,12 @@ def cg_branch(p: SimParams, device: torch.device = torch.device("cpu"),
               topo: Topology = ONE_DEVICE) -> str:
     """Which phase-system CG a configuration runs on ``device`` (its first
     shard's on a mesh), in words."""
-    if not topo.is_sharded and refines(p, device):
-        form = "K8 aniso form" if cuda_rhs.si_s_varies(p) else "K8 cross form"
-        return (f"float64 CG on the phase operator ({form}), refined once by "
-                "the true residual (K14) and a second solve")
     kernel = "K12.8, per shard after a ghost gather," if topo.is_sharded else "K8"
+    if refines(p, device):
+        form = "aniso form" if cuda_rhs.si_s_varies(p) else "cross form"
+        k14 = "K14's twin per shard" if topo.is_sharded else "K14"
+        return (f"float64 CG on the phase operator ({kernel} {form}), refined once by "
+                f"the true residual ({k14}) and a second solve")
     if _wants_jacobi(p):
         return "Jacobi-preconditioned CG (plain torch ops)"
     if cuda_rhs.si_s_varies(p):
@@ -158,8 +160,8 @@ def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
                              topo: Topology = ONE_DEVICE):
     """One semi-implicit step, on one device or, with a sharded ``topo``,
     on its mesh.  Returns (next_F, next_U, res_F, res_U)."""
-    if not topo.is_sharded and refines(p, F.device):
-        return semi_implicit_step_refined(F, U, U_base, p)
+    if refines(p, F.device):
+        return semi_implicit_step_refined(F, U, U_base, p, topo)
     kernel = resolve_backend(p, F.device) == "kernel"
     s_const = not cuda_rhs.si_s_varies(p)
     prep = _prepare(F, U, p, topo, kernel)
@@ -202,25 +204,46 @@ def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
     return next_F, next_U, res_F, res_U
 
 
-def semi_implicit_step_refined(F: torch.Tensor, U: torch.Tensor,
-                               U_base: torch.Tensor, p: SimParams):
+def _block(a, k):
+    """Shard ``k``'s block of a ``Shards`` (the field itself on one device,
+    ``k`` None; anything else as it is)."""
+    return a.blocks[k] if k is not None and isinstance(a, Shards) else a
+
+
+def _per_shard(e: Field, topo: Topology, fn) -> Field:
+    """``fn(k, e, halo)``: on one device ``fn(None, e, None)``; on a mesh
+    per shard k, with the halo of the ghost gather of (e, e) and the
+    exchange, as JAX's ``_ghost_e_kw`` sends it (``pallas_dd.py:1002``)."""
+    if not topo.is_sharded:
+        return fn(None, e, None)
+    halos = stage_halos([(e, e)], [1.0], topo)
+    return Shards(tuple(fn(k, b, h) for k, (b, h) in enumerate(zip(e.blocks, halos))),
+                  e.grid)
+
+
+def semi_implicit_step_refined(F: Field, U: Field, U_base: Field, p: SimParams,
+                               topo: Topology = ONE_DEVICE):
     """One semi-implicit step with one round of iterative refinement per
     system (``bachelors_tpu/solvers/semi_implicit._semi_implicit_step_dd``
-    :234).  Returns (next_F, next_U, res_F, res_U): each result carries the
-    second solve's error, the two solves' iterations, and converged when
-    both are."""
+    :234), on one device or, with a sharded ``topo``, on its mesh: the
+    prepare K12.7, the matvecs K12.8 and K14's twins per shard
+    (``si_prepare_dd_pair_sharded`` :1216, ``*_residual_dd_sharded``
+    :1014-1039), each after its ghost gather, and the CG's dots combined
+    over the shards.  Returns (next_F, next_U, res_F, res_U): each result
+    carries the second solve's error, the two solves' iterations, and
+    converged when both are."""
     kernel = resolve_backend(p, F.device) == "kernel"
-    prep = (cuda_rhs.si_prepare if kernel else cuda_rhs.si_prepare_plain)(F, U, p)
+    prep = _prepare(F, U, p, topo, kernel)
     r0_F, uterm = prep[0], prep[1]
 
     # the corrector / gamma heat-rhs terms (none on the plain path: U_base
     # IS U there and gamma == 1)
     extra = None
     if U_base is not U:
-        extra = U_base - U
+        extra = each(torch.sub, U_base, U)
     if p.gamma != 1.0:
-        g_term = p.dt * (1.0 - p.gamma) * U_base
-        extra = g_term if extra is None else extra + g_term
+        g_term = each(lambda u: p.dt * (1.0 - p.gamma) * u, U_base)
+        extra = g_term if extra is None else each(torch.add, extra, g_term)
 
     A_F = AnisotropyMatrix.implicit_phase(p)
     A_U = CrossMatrix.implicit_heat(p)
@@ -228,34 +251,40 @@ def semi_implicit_step_refined(F: torch.Tensor, U: torch.Tensor,
         s = p.gamma / p.alpha  # constant: no anisotropy, no corrector guess
         A_Fc = CrossMatrix(C=1 + A_F.Cm1 * s, X=A_F.X * s, Y=A_F.Y * s,
                            boundary=p.Phi_boundary)
-        mv_F = _matvec_pAp(A_Fc, None, ONE_DEVICE)
+        mv_F = _matvec_pAp(A_Fc, None, topo)
         residual = cuda_cg.cross_residual if kernel else cuda_cg.cross_residual_plain
-        refine_F = lambda e1: residual(r0_F, e1, A_Fc)  # noqa: E731
+        refine_F = lambda k, e1, h: residual(_block(r0_F, k), e1, A_Fc, halo=h)  # noqa: E731
     else:
         s = prep[2]
-        mv_F = _matvec_pAp(A_F, s, ONE_DEVICE)
+        mv_F = _matvec_pAp(A_F, s, topo)
         residual = cuda_cg.aniso_residual if kernel else cuda_cg.aniso_residual_plain
-        refine_F = lambda e1: residual(r0_F, e1, A_F, s)  # noqa: E731
-    mv_U = _matvec_pAp(A_U, None, ONE_DEVICE)
+        refine_F = lambda k, e1, h: residual(_block(r0_F, k), e1, A_F, _block(s, k),  # noqa: E731
+                                             halo=h)
+    mv_U = _matvec_pAp(A_U, None, topo)
     heat_residual = cuda_cg.heat_residual if kernel else cuda_cg.heat_residual_plain
 
     def solve(matvec, mv, b, tol, iters):
         return cg_solve(matvec, b, tolerance=tol, max_iters=iters, epsilon=EPSILON,
-                        matvec_pAp=mv if kernel else None)
+                        matvec_pAp=mv if kernel else None, topo=topo)
 
-    mvx_F = lambda v: anisotropy_matvec(A_F, s, v)  # noqa: E731
-    mvx_U = lambda v: cross_matvec(A_U, v)  # noqa: E731
+    def refine_U(k, e1, h):
+        pair = (_block(e1_F, k), _block(e2_F, k))
+        return heat_residual(_block(uterm, k), pair, e1, A_U, p.L, _block(extra, k), halo=h)
+
+    mvx_F = lambda v: anisotropy_matvec(A_F, s, v, topo)  # noqa: E731
+    mvx_U = lambda v: cross_matvec(A_U, v, topo)  # noqa: E731
     e1_F, res1_F = solve(mvx_F, mv_F, r0_F, p.Phi_tolerance, p.Phi_max_iters)
-    e2_F, res_F = solve(mvx_F, mv_F, refine_F(e1_F), p.Phi_tolerance, p.Phi_max_iters)
-    eF_pair = (e1_F, e2_F)
-    e1_U, res1_U = solve(mvx_U, mv_U, cuda_cg.heat_rhs(uterm, eF_pair, p.L, extra),
-                         p.T_tolerance, p.T_max_iters)
-    r1_U = heat_residual(uterm, eF_pair, e1_U, A_U, p.L, extra)
-    e2_U, res_U = solve(mvx_U, mv_U, r1_U, p.T_tolerance, p.T_max_iters)
+    e2_F, res_F = solve(mvx_F, mv_F, _per_shard(e1_F, topo, refine_F), p.Phi_tolerance,
+                        p.Phi_max_iters)
+    b_U = each(lambda u, a, b, *x: cuda_cg.heat_rhs(u, (a, b), p.L, *x), uterm, e1_F, e2_F,
+               *(() if extra is None else (extra,)))
+    e1_U, res1_U = solve(mvx_U, mv_U, b_U, p.T_tolerance, p.T_max_iters)
+    e2_U, res_U = solve(mvx_U, mv_U, _per_shard(e1_U, topo, refine_U), p.T_tolerance,
+                        p.T_max_iters)
 
     # add back x + e1 + e2 in that order, as the JAX package's pair sums do
-    next_F = (F + e1_F) + e2_F
-    next_U = (U + e1_U) + e2_U
+    next_F = each(lambda x, a, b: (x + a) + b, F, e1_F, e2_F)
+    next_U = each(lambda x, a, b: (x + a) + b, U, e1_U, e2_U)
     for first, res in ((res1_F, res_F), (res1_U, res_U)):
         res.iters += first.iters
         res.converged = res.converged and first.converged

@@ -25,8 +25,11 @@ and its device µs per launch.
 Then the float64 paths: the reference's own benchmark configs
 ``bench_sweep_f64/*_512_f64.ini`` (RKM, Euler, RK4, semi-implicit; no
 stats, as they ship), stepped as the driver steps them -- Euler through
-the pair stepper, K6 at double -- to about half of each run, then timed
-and traced over a window from there in the same way, stats off.
+the pair stepper, K6 at double -- to about half of each run on one card,
+then timed and traced over a window from that state in the same way,
+stats off, on one card and on y(2), x(2) and 2x2 meshes of it (RKM: K2's
+K13 twin per shard; Euler: K6's twin; RK4: K12.1 x 3 + K12.4 at double;
+semi-implicit: K12.7, K12.8, K9, K10 and K14's twin at double).
 
 Then the routes, each from the config's initial fields at each size (dt
 scaled by (512/n)^2, the 512^2 run's stability ratio), stats off: RK4's
@@ -114,8 +117,8 @@ def _euler_pair_y2(F, U, p):
 
 
 def _rk4_whole_y2(F, U, p):
-    out = [cuda_rhs.rk4_full_sharded(f, u, s, y0, p) for f, u, s, y0 in
-           explicit._slab_shards(F, U, Y2, cuda_rhs.RK4_SLAB_ROWS)]
+    out = [cuda_rhs.rk4_full_sharded(f, u, ap, p) for f, u, ap in
+           explicit._apron_shards(F, U, Y2, cuda_rhs.RK4_SLAB_ROWS)]
     return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
 
 
@@ -164,50 +167,67 @@ def traced_ms(fn, window: int):
                         e.self_device_time_total / e.count] for e in device[:TOP]]
 
 
-def profile_f64_path(name: str, window: int) -> dict:
+def _steppers(p, shards):
+    """(state -> state after one call, steps per call, the state's layout)
+    for the driver's way of stepping ``p`` without stats -- Euler in blocks
+    through the pair stepper -- on one card or a (shards_y, shards_x) mesh
+    of it."""
+    if shards == (1, 1):
+        single, pair, place = make_stepper(p), explicit.make_euler_pair_stepper(p), None
+    else:
+        mesh, topo = make_mesh(*shards, ["cuda"] * (shards[0] * shards[1]))
+        single = make_sharded_stepper(p, mesh, topo)
+        pair = explicit.make_euler_pair_stepper(p, topo, mesh)
+        place = (mesh, topo)
+    return ((pair if pair else lambda s: single(s)[0]), pair.block_steps if pair else 1,
+            place)
+
+
+def profile_f64_paths(name: str, window: int) -> dict:
     """A float64 sweep config, stepped as the driver steps it (no stats;
-    Euler in blocks through the pair stepper): ms/step on the host clock
-    over ``window`` steps from about half the run, work per step, and
-    device time per step under torch.profiler."""
+    Euler in blocks through the pair stepper) to about half the run on one
+    card, then from that state on one card and on each mesh of it: ms/step
+    on the host clock over ``window`` steps, work per step, and device time
+    per step under torch.profiler.  Rows by "one device" and mesh name."""
     path, warm = F64_PATHS[name]
     cfg = load_config(os.path.join(ROOT, "bench_sweep_f64", path))
     p = cfg.params
     state = make_state(*make_initial_fields(p, cfg.initial, device="cuda"), p, device="cuda")
-    single = make_stepper(p)
-    pair = explicit.make_euler_pair_stepper(p)
-    per_call = pair.block_steps if pair else 1
-
-    def step(s):
-        return pair(s) if pair else single(s)[0]
-
+    step, per_call, _ = _steppers(p, (1, 1))
     for _ in range(warm // per_call):
         state = step(state)
-    calls = window // per_call
+    rows = {}
+    for where, shards in {"one device": (1, 1), **MESHES}.items():
+        step, per_call, place = _steppers(p, shards)
+        start = state if place is None else shard_state(state, *place)
+        calls = window // per_call
 
-    def run():
-        s = state
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            s = step(s)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / (calls * per_call)
+        def run():
+            s = start
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                s = step(s)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / (calls * per_call)
 
-    cuda_rhs.reset_launch_counts()
-    cuda_cg.reset_launch_counts()
-    cg.reset_host_reads()
-    ms = run()
-    steps = calls * per_call
-    launches = {k: v / steps for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items()
-                if v}
-    host_reads = cg.HOST_READS["cg_stop_test"] / steps
-    dev_ms, top = traced_ms(run, steps)
-    return {"path": name, "config": f"bench_sweep_f64/{path}", "grid": f"{p.ny}x{p.nx}",
-            "dtype": p.dtype, "window_after_steps": warm, "window_steps": steps,
-            "steps_per_call": per_call, "ms_per_step_stats_off": ms,
-            "launches_per_step": launches, "host_reads_per_step": host_reads,
-            "device_ms_per_step": dev_ms, "busy_share": dev_ms / ms,
-            "top_device_us_per_step": top}
+        cuda_rhs.reset_launch_counts()
+        cuda_cg.reset_launch_counts()
+        cg.reset_host_reads()
+        ms = run()
+        steps = calls * per_call
+        launches = {k: v / steps for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items()
+                    if v}
+        host_reads = cg.HOST_READS["cg_stop_test"] / steps
+        dev_ms, top = traced_ms(run, steps)
+        rows[where] = {"path": name, "config": f"bench_sweep_f64/{path}",
+                       "grid": f"{p.ny}x{p.nx}", "shards": list(shards), "dtype": p.dtype,
+                       "window_after_steps": warm, "window_steps": steps,
+                       "steps_per_call": per_call, "ms_per_step_stats_off": ms,
+                       "launches_per_step": launches, "host_reads_per_step": host_reads,
+                       "device_ms_per_step": dev_ms, "busy_share": dev_ms / ms,
+                       "top_device_us_per_step": top}
+    return rows
 
 
 def profile_path(name: str, window: int, shards=(1, 1)) -> dict:
@@ -329,8 +349,10 @@ def main() -> None:
             results[f"{name} on {mname}"] = profile_path(name, WINDOW, shards)
             print(json.dumps({"card": card, **results[f"{name} on {mname}"]}), flush=True)
     for name in F64_PATHS:
-        results[name] = profile_f64_path(name, WINDOW)
-        print(json.dumps({"card": card, **results[name]}), flush=True)
+        for where, row in profile_f64_paths(name, WINDOW).items():
+            key = name if where == "one device" else f"{name} on {where}"
+            results[key] = row
+            print(json.dumps({"card": card, **row}), flush=True)
     for solver in ROUTES:
         results[f"{solver} routes"] = profile_routes(solver)
         print(json.dumps({"card": card, **results[f"{solver} routes"]}), flush=True)

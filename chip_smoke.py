@@ -59,7 +59,25 @@ reference's A100 time (``BASELINE.md:14-20``), plus an initial frame:
   * Euler at 512^2: K6 at double, 4 steps per launch; at 1024^2, 8;
   * RK4 at 512^2: K1 x 3 + K4 at double; on a 4096^2 cut, K3 at double;
   * semi-implicit at 512^2: K7 and K8-K10 at double, and K14 (the
-    refinement residual between each system's two CG solves).
+    refinement residual between each system's two CG solves);
+  * on y(2), x(2) and 2x2 meshes of the one card, each beside a one-device
+    run of the same cut in this call: RKM cut to at least 800 steps (K2's
+    K13 twin per shard on its apron), on y(4) and 2x2 at 2048^2 (at least
+    300 steps), and on a 32-row cut on y(8) (4-row shards: the staged
+    route, K12.1 + K5 at double); semi-implicit cut to 500 steps (K12.7,
+    K12.8, K9, K10 and two K14 twins per shard and step) and its corrector
+    loop on x(2), 200 steps (the heat twin's extra terms); Euler without
+    stats whole (K6's twin, 2000 launches per shard) and at 2048^2 on 2x2
+    (T = 8 at 1M local cells, 200 launches); the Euler corrector on x(2)
+    (K12.3, K12.1 at double); RK4 cut to 2000 steps (K12.1 x 3 + K12.4 at
+    double) and the 4096^2 cut on x(2) (K3's twin: 8M local cells); the
+    exact solver on 2x2 (frames equal to one device's).  Fixed-dt runs take
+    exactly the one-device step count, RKM within 1%, CG iterations within
+    2%.  Before them, every float64 mesh kernel against its plain version
+    on those meshes at 512^2 and 66x258, joined against its one-device
+    kernel (the apron kernels, K12.7, K12.8's A v and K14's twin bit for
+    bit, 2x2 Dirichlet corners included), and locksteps of RKM, refined
+    semi-implicit, the Euler pair and RK4 on each mesh against one device.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
@@ -177,6 +195,32 @@ THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
 # the exact solver on the 2x2 mesh: 100 steps, as on one device
 EXACT_MESH = "2x2"
 RKM_F64_STEPS = 9539  # the JAX package's f64 controller on this workload
+# float64 on the meshes: the sweep configs cut in time, each beside a
+# one-device run of the same cut: RKM to at least 800 steps, semi-implicit
+# 500 steps, RK4 (staged) 2000 steps; Euler without stats runs whole (2000
+# launches of K6's twin per shard)
+F64_RKM_CUT = "[simulation]\nstop_after = 0.004\n"
+F64_RKM_CUT_STEPS = 800
+F64_SI_CUT = "[simulation]\nstop_after = 0.0025\n"
+F64_RK4_CUT = "[simulation]\nstop_after = 0.01\n"
+# at 2048^2, dt 5e-6 (512/2048)^2 as CUT_2048: RKM (on y(4) and 2x2) to at
+# least CUT_2048_STEPS steps; Euler on 2x2, whose 1M local cells take T = 8,
+# 1600 steps: 200 launches
+F64_2048 = "[simulation]\nmesh_size_x = 2048\nmesh_size_y = 2048\ndt = 3.125e-7\n"
+F64_RKM_2048 = F64_2048 + "stop_after = 2e-4\n"
+F64_EULER_2048 = F64_2048 + "stop_after = 5e-4\n"
+# the corrector loop (3 iterations), 200 steps: semi-implicit (the heat
+# form of K14's twin with the extra terms) and Euler (K12.3, K12.1) on x(2)
+F64_CORRECTOR = ("[simulation]\nstop_after = 0.001\ndo_corrector_loop = true\n"
+                 "corrector_max_iters = 3\n")
+# joined over a mesh, these float64 kernels must equal their one-device
+# kernels bit for bit (each cell runs the same arithmetic on the same values)
+F64_MESH_EXACT = ("K12.7", "K12.8", "K14 twin", "K2 twin", "K3 twin", "K6 twin T=4",
+                  "K6 twin T=8")
+# RKM on a 32-row cut on y(8): 4-row shards, thinner than the apron (5):
+# the staged route, K12.1 + K5 at double; a seed wide enough for the rows
+F64_THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
+            "circle_radius = 0.3\n")
 # every plain version a path could fall back to, by module
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
@@ -223,7 +267,7 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K12.8 cross": 9, "K12.8 aniso": 13,  # K8 on a shard
        "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11}
 PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1,
-                    "K5": 1, "K12.1": 1, "K12.2": 5}
+                    "K5": 1, "K12.1": 1, "K12.2": 5, "K12.3": 1, "K12.4": 1, "K12.7": 1}
 # Fields per cell: each input read once, each output written once.
 FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
           "K12.1 gather": 2 * 3 + 2, "K12.2": 2 + 2, "K12.3": 2 + 2, "K12.4": 8 + 2,
@@ -287,13 +331,18 @@ def time_pair(kernel, plain, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def card_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+
+
 def card() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch sees no CUDA device; this script "
                          "runs on an NVIDIA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
+    smi = card_limit()
     name = torch.cuda.get_device_name(0)
     phase("device", torch_name=name, nvidia_smi=smi, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
@@ -1074,12 +1123,11 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                 maxima(got[2], want[2], f"K5 {on}")
             if sx == 1:
                 F, U = states[0]
-                slabs = topo.slabs(F, U, cuda_rhs.SLAB_ROWS)
+                aprons = topo.apron(F, U, cuda_rhs.SLAB_ROWS)
                 out = []
-                for k, (f, u, sl) in enumerate(zip(F.blocks, U.blocks, slabs)):
-                    y0 = k * (p.ny // sy)
-                    got = cuda_rhs.rkm_attempt_sharded(f, u, sl, y0, tau, p, 0.03, d)
-                    want = cuda_rhs.rkm_attempt_sharded_plain(f, u, sl, y0, tau, p, 0.03, d)
+                for k, (f, u, ap) in enumerate(zip(F.blocks, U.blocks, aprons)):
+                    got = cuda_rhs.rkm_attempt_sharded(f, u, ap, tau, p, 0.03, d)
+                    want = cuda_rhs.rkm_attempt_sharded_plain(f, u, ap, tau, p, 0.03, d)
                     hold("K12.2", got[:2], want[:2], f"{what} {mname} shard {k}",
                          worst["K12.2"])
                     maxima(got[2], want[2], f"K12.2 {what} {mname}")
@@ -1102,7 +1150,7 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     w3 = [1.0, 1e-6, 2e-6]
     ymesh, ytopo = on_mesh(2, 1)
     F, U = (shard_field(t, ymesh, ytopo) for t in x)
-    slab = ytopo.slabs(F, U, cuda_rhs.SLAB_ROWS)[0]
+    slab = ytopo.apron(F, U, cuda_rhs.SLAB_ROWS)[0]
     f0, u0 = F.blocks[0], U.blocks[0]
     timed = {
         "K5": (lambda: cuda_rhs.rkm_final_stage(*st, tau, p, halo=h),
@@ -1111,8 +1159,8 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                   lambda: cuda_rhs.blend_rhs_sharded_plain(st[:3], w3, p, h), 512 * 256),
         "K12.1 gather": (lambda: cuda_rhs.halo_edges(st[:3], w3, False, True),
                          lambda: cuda_rhs.halo_edges_plain(st[:3], w3, False, True), 2 * 512),
-        "K12.2": (lambda: cuda_rhs.rkm_attempt_sharded(f0, u0, slab, 0, tau, p),
-                  lambda: cuda_rhs.rkm_attempt_sharded_plain(f0, u0, slab, 0, tau, p),
+        "K12.2": (lambda: cuda_rhs.rkm_attempt_sharded(f0, u0, slab, tau, p),
+                  lambda: cuda_rhs.rkm_attempt_sharded_plain(f0, u0, slab, tau, p),
                   256 * 512),
     }
     entries = {}
@@ -1130,12 +1178,13 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     return entries
 
 
-def check_mesh_lockstep(cfg, F0, U0, steps=5) -> None:
+def check_mesh_lockstep(cfg, F0, U0, steps=5, tol=FIELD_TOL,
+                        name="mesh lockstep vs single-device K2") -> None:
     """The main path's first steps on each mesh (the sharded stepper on its
     kernels) against the single-device K2 stepper, each from the same
     state: equal attempts, step sizes within 1e-4 of the step, fields within
-    FIELD_TOL.  The y-mesh runs K2's arithmetic per cell (K12.2), so its
-    gap is expected to be 0."""
+    ``tol``.  The y-mesh runs K2's arithmetic per cell (K12.2; at float64
+    every mesh, the K13 twin), so its gap is expected to be 0."""
     p = cfg.params
     one = make_stepper(p)
     out = {}
@@ -1158,11 +1207,11 @@ def check_mesh_lockstep(cfg, F0, U0, steps=5) -> None:
                 worst = max(worst, field_err(g, wt))
                 gap = max(gap, (g - wt).abs().max().item())
             dtau = max(dtau, abs(float(b.tau) - float(a.tau)) / float(a.tau))
-            if not worst <= FIELD_TOL:
+            if not worst <= tol:
                 raise AssertionError(f"mesh lockstep {mname}: fields disagree by {worst:.3g}")
             state = a
         out[mname] = {"max_rel_err": worst, "max_abs_err": gap, "next_tau_rel_diff": dtau}
-    phase("mesh lockstep vs single-device K2", steps=steps, tol=FIELD_TOL, meshes=out)
+    phase(name, steps=steps, tol=tol, meshes=out)
 
 
 def mesh_path(name, sy, sx, single, overrides=(), grow=True) -> dict:
@@ -1217,13 +1266,12 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     cases = 0
     slab_kernels = (
         ("K12.5", "K12.5 vs K6", 4,
-         lambda f, u, sl, y0, p, d: cuda_rhs.euler_steps_sharded(f, u, sl, y0, p, 4, 0.03, d),
-         lambda f, u, sl, y0, p, d: cuda_rhs.euler_steps_sharded_plain(f, u, sl, y0, p, 4,
-                                                                        0.03, d),
+         lambda f, u, ap, p, d: cuda_rhs.euler_steps_sharded(f, u, ap, p, 4, 0.03, d),
+         lambda f, u, ap, p, d: cuda_rhs.euler_steps_sharded_plain(f, u, ap, p, 4, 0.03, d),
          lambda F, U, p, d: cuda_rhs.euler_steps(F, U, p, 4, 0.03, d)),
         ("K12.6", "K12.6 vs K3", cuda_rhs.RK4_SLAB_ROWS,
-         lambda f, u, sl, y0, p, d: cuda_rhs.rk4_full_sharded(f, u, sl, y0, p, 0.03, d),
-         lambda f, u, sl, y0, p, d: cuda_rhs.rk4_full_sharded_plain(f, u, sl, y0, p, 0.03, d),
+         lambda f, u, ap, p, d: cuda_rhs.rk4_full_sharded(f, u, ap, p, 0.03, d),
+         lambda f, u, ap, p, d: cuda_rhs.rk4_full_sharded_plain(f, u, ap, p, 0.03, d),
          lambda F, U, p, d: cuda_rhs.rk4_full(F, U, p, 0.03, d)))
     for p, d, what in check_cases("float32", sizes, physics=(dict(S=0.25, m0=6.0),
                                                              dict(S=0.0, m0=6.0))):
@@ -1250,11 +1298,9 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
             F, U = (shard_field(t, mesh, topo) for t in x)
             for name, gap, depth, kernel, plain, whole in slab_kernels:
                 out = []
-                slabs = topo.slabs(F, U, depth)
-                for k, (f, u, sl) in enumerate(zip(F.blocks, U.blocks, slabs)):
-                    y0 = k * (p.ny // sy)
-                    got = kernel(f, u, sl, y0, p, d)
-                    hold(name, got, plain(f, u, sl, y0, p, d), f"{what} y({sy}) shard {k}",
+                for k, (f, u, ap) in enumerate(zip(F.blocks, U.blocks, topo.apron(F, U, depth))):
+                    got = kernel(f, u, ap, p, d)
+                    hold(name, got, plain(f, u, ap, p, d), f"{what} y({sy}) shard {k}",
                          worst[name])
                     out.append(got)
                 hold(gap, [torch.cat([o[i] for o in out]) for i in (0, 1)], whole(*x, p, d),
@@ -1273,22 +1319,22 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     ymesh, ytopo = on_mesh(2, 1)
     f0, u0 = (shard_field(t, ymesh, ytopo).blocks[0] for t in x)
     F, U = (shard_field(t, ymesh, ytopo) for t in x)
-    slab = ytopo.slabs(F, U, 4)[0]
+    slab = ytopo.apron(F, U, 4)[0]
     big = load_config(CONFIG, [RK4, CUT]).params
     Fb, Ub = (shard_field(t, ymesh, ytopo) for t in seeded(rng, big.ny, big.nx))
     fb, ub = Fb.blocks[0], Ub.blocks[0]
-    big_slab = ytopo.slabs(Fb, Ub, cuda_rhs.RK4_SLAB_ROWS)[0]
+    big_slab = ytopo.apron(Fb, Ub, cuda_rhs.RK4_SLAB_ROWS)[0]
     timed = {
         "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(st1, [1.0], p, h1, is_euler=True),
                   lambda: cuda_rhs.blend_rhs_sharded_plain(st1, [1.0], p, h1, is_euler=True),
                   512 * 256, 50),
         "K12.4": (lambda: cuda_rhs.rk4_final_stage(*st4, p, halo=h4),
                   lambda: cuda_rhs.rk4_final_stage_plain(*st4, p, halo=h4), 512 * 256, 50),
-        "K12.5": (lambda: cuda_rhs.euler_steps_sharded(f0, u0, slab, 0, p, 4),
-                  lambda: cuda_rhs.euler_steps_sharded_plain(f0, u0, slab, 0, p, 4),
+        "K12.5": (lambda: cuda_rhs.euler_steps_sharded(f0, u0, slab, p, 4),
+                  lambda: cuda_rhs.euler_steps_sharded_plain(f0, u0, slab, p, 4),
                   256 * 512, 50),
-        "K12.6": (lambda: cuda_rhs.rk4_full_sharded(fb, ub, big_slab, 0, big),
-                  lambda: cuda_rhs.rk4_full_sharded_plain(fb, ub, big_slab, 0, big),
+        "K12.6": (lambda: cuda_rhs.rk4_full_sharded(fb, ub, big_slab, big),
+                  lambda: cuda_rhs.rk4_full_sharded_plain(fb, ub, big_slab, big),
                   2048 * 4096, 5),
     }
     entries = {}
@@ -1461,7 +1507,8 @@ def check_mesh_si_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                       "bound_by": bound(forms[0], cells)["bound_by"], "library_ms": None}}
 
 
-def check_mesh_si_lockstep(cfg, F0, U0, steps=5) -> None:
+def check_mesh_si_lockstep(cfg, F0, U0, steps=5, tol=FIELD_TOL,
+                           name="semi-implicit mesh lockstep vs single-device kernels") -> None:
     """The semi-implicit path's first steps on each mesh (K12.7, K12.8, K9,
     K10 per shard) against the single-device kernel stepper, each from the
     same state.  The dot products add in other orders, so a solve may stop
@@ -1485,12 +1532,13 @@ def check_mesh_si_lockstep(cfg, F0, U0, steps=5) -> None:
                                      f"{kb} vs one device's {ka}")
             off_by_one += ka != kb
             iters.append([kb, ka])
-            hold_step(gather_state(b), a, state, worst, f"semi-implicit lockstep on {mname}")
+            hold_step(gather_state(b), a, state, worst, f"semi-implicit lockstep on {mname}",
+                      tol)
             state = a
         out[mname] = {"max_rel_err": worst[0], "max_increment_rel_err": worst[1],
                       "steps_with_cg_iters_off_by_one": off_by_one,
                       "cg_iters_mesh_vs_one_device": iters}
-    phase("semi-implicit mesh lockstep vs single-device kernels", steps=steps, tol=FIELD_TOL,
+    phase(name, steps=steps, tol=tol,
           increment_tol="tol * max|increment| + 2 ulp(max|field|)", meshes=out)
 
 
@@ -1545,19 +1593,26 @@ def corrector_path() -> dict:
     return run["summary"]
 
 
-def mesh_fixed_path(name, sy, sx, overrides, single, want, grow=True, frames=False) -> dict:
-    """A fixed-dt path through ``run_config_file`` on a (sy, sx) mesh of the
-    one card: exactly the one-device run's step count (``single``, its
-    summary), and exactly the launches ``want(steps, shards)``, nothing
-    else.  Returns the run."""
+def mesh_fixed_path(name, sy, sx, overrides, single, want, grow=True, frames=False,
+                    config=CONFIG, steps_rtol=0.0) -> dict:
+    """A path of ``config`` (the shipped one by default), cut by
+    ``overrides``, through ``run_config_file`` on a (sy, sx) mesh of the one
+    card: the one-device run's step count (``single``, its summary) exactly
+    -- within ``steps_rtol`` for RKM -- and exactly the launches
+    ``want(steps, shards, attempts)``, nothing else, with their count per
+    shard printed.  Returns the run."""
     n = sy * sx
     run = drive([f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n", *overrides], grow=grow,
-                device=[DEVICE] * n, frames=frames)
-    L, steps = run["launches"], run["res"].iters
-    expect(steps == single["steps"], f"the one-device {single['steps']} steps", run)
-    expected = want(steps, n)
+                config=config, device=[DEVICE] * n, frames=frames)
+    L, steps, attempts = run["launches"], run["res"].iters, run["res"].attempts
+    expect(abs(steps - single["steps"]) <= steps_rtol * single["steps"],
+           f"the one-device {single['steps']} steps (within {steps_rtol:.0%})", run)
+    expected = want(steps, n, attempts)
     expect({k: v for k, v in L.items() if v} == expected, f"launches {expected}", run)
-    phase(name, shards=[sy, sx], single_device_steps=single["steps"],
+    phase(name, shards=[sy, sx], attempts=attempts, single_device_steps=single["steps"],
+          single_device_attempts=single.get("attempts"),
+          launches_per_shard={k: v / n for k, v in expected.items()},
+          single_device_launches=single["launches"],
           single_device_ms_per_step=single["ms_per_step"],
           ms_per_step_vs_single=run["summary"]["ms_per_step"] / single["ms_per_step"],
           **run["summary"])
@@ -1627,6 +1682,483 @@ def si_f64_path() -> dict:
     return n
 
 
+# ------------------------------------------------------ float64 on meshes
+
+
+def check_mesh_f64_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
+    """At float64, on y(2), x(2) and 2x2 meshes of the one card, at every BC
+    pair and float64 physics case, 512^2 and 66x258 (uneven tiles per shard
+    along both axes): K12.1 (3 states) and its ghost gather, K12.3, K12.4,
+    K5 with ghosts, K12.7 (the corrector guess off and on), K12.8 (both
+    forms) and K14's twin (cross, aniso, heat + extra) against their plain
+    versions shard by shard, and the K13 twins -- K2, K3 and K6 (T = 4, 8)
+    on the apron -- from seeded fields; tolerance 1e-11 of max(|plain|, 1),
+    rtol 1e-9 on maxima and dots.  Joined over each mesh, each against its
+    one-device kernel: the apron kernels (maxima included), K12.7, K12.8's
+    A v and K14's twin must be equal bit for bit; the other joins are
+    printed.  Timed on one shard of the mesh each runs on in a run: the
+    stage kernels, K12.7, K12.8, K14's twin, K2's and K6 T=4's twins on
+    x(2) at 512^2 (512x256), K6 T=8's on 2x2 at 2048^2 (1024^2), K3's on
+    x(2) of the 4096^2 cut (4096x2048)."""
+    prec = PRECISION["float64"]
+    tol = prec["field_tol"]
+    names = ("K12.1", "K12.1 gather", "K12.3", "K12.4", "K5", "K12.7", "K12.8", "K14 twin",
+             "K2 twin", "K3 twin", "K6 twin T=4", "K6 twin T=8")
+    worst = {k: [0.0, 0.0] for k in names}
+    joined = {k: 0.0 for k in names if k != "K12.1 gather"}
+    exact = F64_MESH_EXACT
+    rel = {"maxima": 0.0, "dots": 0.0}
+    tau, cases = np.float64(TAU), 0
+
+    def close(name, got, want, what):
+        hold(name, got, want, what, worst[name], tol)
+
+    def scalar(key, got, want, what):
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        r = float((np.abs(g - w) / np.maximum(np.abs(w), 1e-300)).max())
+        rel[key] = max(rel[key], r)
+        if not r <= prec["err_rtol"]:
+            raise AssertionError(f"{key} disagree: {g} vs {w} ({what})")
+
+    def join(name, out, topo, want, what):
+        gap = (Shards(tuple(out), topo.grid).gather() - want).abs().max().item()
+        joined[name] = max(joined[name], gap)
+        limit = 0.0 if name in exact else tol * max(want.abs().max().item(), 1.0)
+        if not gap <= limit:
+            raise AssertionError(f"{name} joined over the mesh differs from the one-device "
+                                 f"kernel by {gap:.3g} ({what})")
+
+    for p, d, what in check_cases("float64", sizes):
+        whole = fields(rng, p.ny, p.nx, 4, "float64")
+        seed = seeded(rng, p.ny, p.nx, "float64")
+        v, s = fields(rng, p.ny, p.nx, 1, "float64")[0]
+        s = 0.33 + 0.08 * torch.tanh(s)
+        r0, xtra = fields(rng, p.ny, p.nx, 1, "float64")[0]
+        A_U, A_F = CrossMatrix.implicit_heat(p), AnisotropyMatrix.implicit_phase(p)
+        w3 = [1.0, 1e-2, -2e-2]
+        one = {"K12.1": cuda_rhs.blend_rhs(whole[:3], w3, p, 0.03, d),
+               "K12.3": cuda_rhs.blend_rhs(whole[:1], [1.0], p, 0.03, d, is_euler=True),
+               "K12.4": cuda_rhs.rk4_final_stage(*whole, p, 0.03, d),
+               "K5": cuda_rhs.rkm_final_stage(*whole, tau, p, 0.03, d),
+               "K2 twin": cuda_rhs.rkm_attempt(*seed, tau, p, 0.03, d),
+               "K3 twin": cuda_rhs.rk4_full(*seed, p, 0.03, d),
+               "K6 twin T=4": cuda_rhs.euler_steps(*seed, p, 4, 0.03, d),
+               "K6 twin T=8": cuda_rhs.euler_steps(*seed, p, 8, 0.03, d)}
+        k8 = {"cross": cuda_cg.cross_matvec_pAp(A_U, v),
+              "aniso": cuda_cg.aniso_matvec_pAp(A_F, s, v)}
+        k14 = {"cross": cuda_cg.cross_residual(r0, v, A_U),
+               "aniso": cuda_cg.aniso_residual(r0, v, A_F, s),
+               "heat + extra": cuda_cg.heat_residual(xtra, (r0, 1e-4 * xtra), v, A_U, p.L, s)}
+        for mname, (sy, sx) in MESHES.items():
+            mesh, topo = on_mesh(sy, sx)
+            on = f"{what} {mname}"
+            st = [tuple(shard_field(t, mesh, topo) for t in pair) for pair in whole]
+            out = {k: [] for k in one}
+            for k, h in enumerate(stage_halos(st[:3], w3, topo)):
+                sk = shard_states(st[:3], k)
+                for g, wt in zip(cuda_rhs.halo_edges(sk, w3, sy > 1, sx > 1),
+                                 cuda_rhs.halo_edges_plain(sk, w3, sy > 1, sx > 1)):
+                    if g is not None:
+                        close("K12.1 gather", [g], [wt], on)
+                out["K12.1"].append(cuda_rhs.blend_rhs_sharded(sk, w3, p, h, 0.03, d))
+                close("K12.1", out["K12.1"][-1],
+                      cuda_rhs.blend_rhs_sharded_plain(sk, w3, p, h, 0.03, d), on)
+            for k, h in enumerate(stage_halos(st[:1], [1.0], topo)):
+                sk = shard_states(st[:1], k)
+                out["K12.3"].append(cuda_rhs.blend_rhs_sharded(sk, [1.0], p, h, 0.03, d,
+                                                               is_euler=True))
+                close("K12.3", out["K12.3"][-1], cuda_rhs.blend_rhs_sharded_plain(
+                    sk, [1.0], p, h, 0.03, d, is_euler=True), on)
+            for k, h in enumerate(stage_halos([st[0], st[3]], [1.0, p.dt], topo)):
+                sk = shard_states(st, k)
+                out["K12.4"].append(cuda_rhs.rk4_final_stage(*sk, p, 0.03, d, halo=h))
+                close("K12.4", out["K12.4"][-1],
+                      cuda_rhs.rk4_final_stage_plain(*sk, p, 0.03, d, halo=h), on)
+            for k, h in enumerate(stage_halos(st, cuda_rhs.k5_weights(tau), topo)):
+                sk = shard_states(st, k)
+                got = cuda_rhs.rkm_final_stage(*sk, tau, p, 0.03, d, halo=h)
+                want = cuda_rhs.rkm_final_stage_plain(*sk, tau, p, 0.03, d, halo=h)
+                close("K5", got[:2], want[:2], on)
+                scalar("maxima", got[2], want[2], f"K5 {on}")
+                out["K5"].append(got)
+            F, U = (shard_field(t, mesh, topo) for t in seed)
+            twins = {"K2 twin": (cuda_rhs.SLAB_ROWS,
+                                 lambda f, u, ap, fn: fn(f, u, ap, tau, p, 0.03, d),
+                                 cuda_rhs.rkm_attempt_sharded, cuda_rhs.rkm_attempt_sharded_plain),
+                     "K3 twin": (cuda_rhs.RK4_SLAB_ROWS,
+                                 lambda f, u, ap, fn: fn(f, u, ap, p, 0.03, d),
+                                 cuda_rhs.rk4_full_sharded, cuda_rhs.rk4_full_sharded_plain)}
+            for T in (4, 8):
+                twins[f"K6 twin T={T}"] = (T, lambda f, u, ap, fn, T=T: fn(f, u, ap, p, T, 0.03, d),
+                                           cuda_rhs.euler_steps_sharded,
+                                           cuda_rhs.euler_steps_sharded_plain)
+            for name, (depth, call, kernel, plain) in twins.items():
+                for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, depth)):
+                    got, want = call(f, u, ap, kernel), call(f, u, ap, plain)
+                    close(name, got[:2], want[:2], on)
+                    if len(got) == 3:
+                        scalar("maxima", got[2], want[2], f"{name} {on}")
+                    out[name].append(got)
+            for name, want in one.items():
+                for i in (0, 1):
+                    join(name, [o[i] for o in out[name]], topo, want[i], on)
+                if len(want) == 3:
+                    gap = (topo.allmax([o[2] for o in out[name]]) - want[2]).abs().max().item()
+                    joined[name] = max(joined[name], gap)
+                    if name in exact and gap != 0:
+                        raise AssertionError(f"{name}: joined maxima differ by {gap} ({on})")
+            Fs, Us = (shard_field(t, mesh, topo) for t in whole[0])
+            for guess in (False, True):
+                q = p.replace(do_corrector_guess=guess)
+                out_p = []
+                for f, u, h in zip(Fs.blocks, Us.blocks, stage_halos([(Fs, Us)], [1.0], topo)):
+                    got = cuda_rhs.si_prepare_sharded(f, u, q, h)
+                    close("K12.7", got, cuda_rhs.si_prepare_sharded_plain(f, u, q, h), on)
+                    out_p.append(got)
+                for i, want in enumerate(cuda_rhs.si_prepare(*whole[0], q)):
+                    join("K12.7", [o[i] for o in out_p], topo, want, f"{on} guess={guess}")
+            vs, ss, r0s, xs = (shard_field(t, mesh, topo) for t in (v, s, r0, xtra))
+            halos = stage_halos([(vs, vs)], [1.0], topo)
+            for form, want in k8.items():
+                out_m = []
+                for k, h in enumerate(halos):
+                    args = (A_U,) if form == "cross" else (A_F, ss.blocks[k])
+                    got = getattr(cuda_cg, f"{form}_matvec_pAp_sharded")(*args, vs.blocks[k], h)
+                    ref = getattr(cuda_cg, f"{form}_matvec_pAp_sharded_plain")(*args,
+                                                                              vs.blocks[k], h)
+                    close("K12.8", got[:1], ref[:1], f"{on} {form}")
+                    scalar("dots", got[1], ref[1], f"K12.8 {on} {form}")
+                    out_m.append(got)
+                join("K12.8", [o[0] for o in out_m], topo, want[0], f"{on} {form}")
+                scalar("dots", topo.allsum([o[1] for o in out_m]), want[1],
+                       f"K12.8 summed {on} {form}")
+            residuals = {
+                "cross": lambda k, h, fn: fn(r0s.blocks[k], vs.blocks[k], A_U, halo=h),
+                "aniso": lambda k, h, fn: fn(r0s.blocks[k], vs.blocks[k], A_F, ss.blocks[k],
+                                             halo=h),
+                "heat + extra": lambda k, h, fn: fn(
+                    xs.blocks[k], (r0s.blocks[k], 1e-4 * xs.blocks[k]), vs.blocks[k], A_U,
+                    p.L, ss.blocks[k], halo=h)}
+            for form, call in residuals.items():
+                name = "cross" if form == "cross" else form.split()[0]
+                out_r = []
+                for k, h in enumerate(halos):
+                    got = call(k, h, getattr(cuda_cg, f"{name}_residual"))
+                    close("K14 twin", [got], [call(k, h, getattr(cuda_cg, f"{name}_residual_plain"))],
+                          f"{on} {form}")
+                    out_r.append(got)
+                join("K14 twin", out_r, topo, k14[form], f"{on} {form}")
+        cases += 1
+    torch.cuda.synchronize()
+    phase("float64 mesh kernels (K12.1, gather, K12.3, K12.4, K5, K12.7, K12.8, K14 twin; "
+          "K2, K3, K6 on the apron) vs plain", cases=cases, meshes=list(MESHES),
+          max_rel_err={k: v[0] for k, v in worst.items()},
+          max_abs_err={k: v[1] for k, v in worst.items()}, tol=tol,
+          max_rel_err_maxima_and_dots=rel, rtol=prec["err_rtol"],
+          joined_over_mesh_vs_one_device_max_abs=joined, held_exact=list(exact))
+    return {k: v[1] for k, v in worst.items()}
+
+
+def check_large_f64_twins(cases) -> dict:
+    """The K13 twins at the shard shapes of their own runs, where the tile
+    grids are largest: each shard's kernel output against its plain
+    version at the float64 tolerance, and the shards joined against the
+    one-device kernel, bit for bit (``F64_MESH_EXACT``).  ``cases`` maps a
+    name to (topology, F, U, the aprons, call, kernel, plain, one-device
+    output, where).  Returns each one's largest gap from its plain version."""
+    tol = PRECISION["float64"]["field_tol"]
+    worst, joined = {}, {}
+    for name, (topo, F, U, aprons, call, kernel, plain, want, where) in cases.items():
+        worst[name] = [0.0, 0.0]
+        out = []
+        for f, u, ap in zip(F.blocks, U.blocks, aprons):
+            got = call(f, u, ap, kernel)
+            hold(name, got, call(f, u, ap, plain), where, worst[name], tol)
+            out.append(got)
+        gaps = [(Shards(tuple(o[i] for o in out), topo.grid).gather() - want[i]).abs().max().item()
+                for i in (0, 1)]
+        joined[name] = max(gaps)
+        limit = 0.0 if name in F64_MESH_EXACT else tol * max(w.abs().max().item() for w in want)
+        if not joined[name] <= limit:
+            raise AssertionError(f"{name} joined over {where} differs from the one-device "
+                                 f"kernel by {joined[name]:.3g}")
+    torch.cuda.synchronize()
+    phase("float64 K13 twins at their runs' shard shapes vs plain, joined vs one device",
+          cases={k: v[-1] for k, v in cases.items()}, tol=tol,
+          max_rel_err={k: v[0] for k, v in worst.items()},
+          max_abs_err={k: v[1] for k, v in worst.items()},
+          joined_over_mesh_vs_one_device_max_abs=joined,
+          held_exact=[k for k in cases if k in F64_MESH_EXACT])
+    return {k: v[1] for k, v in worst.items()}
+
+
+def time_mesh_f64_kernels(rng, worst_abs) -> dict:
+    """The float64 mesh kernels' entries: each timed with its plain version
+    on one shard of the mesh it runs on in a run -- the stage kernels,
+    K12.7, K12.8, K14's twin, K2's and K6 T=4's twins on x(2) at 512^2
+    (512x256), K6 T=8's on 2x2 at 2048^2 (1024^2), K3's on x(2) of the
+    4096^2 cut (4096x2048) -- beside its bound; ``worst_abs`` holds each
+    one's largest gap from ``check_mesh_f64_kernels``.  The last two are
+    first held to their plain versions and joined against the one-device
+    kernels at those shapes (``check_large_f64_twins``)."""
+    tau = np.float64(TAU)
+    p = params(512, 512, "neumann", S=0.0, dtype="float64")
+    xmesh, xtopo = on_mesh(1, 2)
+    sh = [tuple(shard_field(t, xmesh, xtopo) for t in pair)
+          for pair in fields(rng, 512, 512, 4, "float64")]
+    w3 = [1.0, 1e-6, 2e-6]
+    h3 = stage_halos(sh[:3], w3, xtopo)[0]
+    h1 = stage_halos(sh[:1], [1.0], xtopo)[0]
+    h4 = stage_halos([sh[0], sh[3]], [1.0, p.dt], xtopo)[0]
+    h5 = stage_halos(sh, cuda_rhs.k5_weights(tau), xtopo)[0]
+    s3, s1, s4 = shard_states(sh[:3], 0), shard_states(sh[:1], 0), shard_states(sh, 0)
+    v0, r00 = s4[0][0], s4[1][0]
+    hv = stage_halos([sh[0]], [1.0], xtopo)[0]  # the gather of (v, v) for v = x's Phi
+    F, U = (shard_field(t, xmesh, xtopo) for t in seeded(rng, 512, 512, "float64"))
+    f0, u0 = F.blocks[0], U.blocks[0]
+    ap5, ap4 = (xtopo.apron(F, U, A)[0] for A in (cuda_rhs.SLAB_ROWS, 4))
+    A_U = CrossMatrix.implicit_heat(p)
+    dead = torch.empty_like(v0)
+    cut = load_config(sweep("rk4"), [CUT]).params
+    seed_b = seeded(rng, cut.ny, cut.nx, "float64")
+    Fb, Ub = (shard_field(t, xmesh, xtopo) for t in seed_b)
+    apb = xtopo.apron(Fb, Ub, cuda_rhs.RK4_SLAB_ROWS)
+    q = load_config(sweep("euler"), [F64_EULER_2048]).params  # its run's dt: 8 steps stay finite
+    qmesh, qtopo = on_mesh(2, 2)
+    seed_q = seeded(rng, 2048, 2048, "float64")
+    Fq, Uq = (shard_field(t, qmesh, qtopo) for t in seed_q)
+    ap8 = qtopo.apron(Fq, Uq, 8)
+    held = check_large_f64_twins({
+        "K3 twin": (xtopo, Fb, Ub, apb, lambda f, u, ap, fn: fn(f, u, ap, cut),
+                    cuda_rhs.rk4_full_sharded, cuda_rhs.rk4_full_sharded_plain,
+                    cuda_rhs.rk4_full(*seed_b, cut), "x(2), 4096^2 cut"),
+        "K6 twin T=8": (qtopo, Fq, Uq, ap8, lambda f, u, ap, fn: fn(f, u, ap, q, 8),
+                        cuda_rhs.euler_steps_sharded, cuda_rhs.euler_steps_sharded_plain,
+                        cuda_rhs.euler_steps(*seed_q, q, 8), "2x2, 2048^2")})
+    worst_abs = {**worst_abs, **{k: max(worst_abs[k], v) for k, v in held.items()}}
+    apb, ap8 = apb[0], ap8[0]
+    half, quarter = 512 * 256, 1024 * 1024
+    timed = {
+        "K12.1": (lambda: cuda_rhs.blend_rhs_sharded(s3, w3, p, h3),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(s3, w3, p, h3), half, 50),
+        "K12.1 gather": (lambda: cuda_rhs.halo_edges(s3, w3, False, True),
+                         lambda: cuda_rhs.halo_edges_plain(s3, w3, False, True), 2 * 512, 50),
+        "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(s1, [1.0], p, h1, is_euler=True),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(s1, [1.0], p, h1, is_euler=True),
+                  half, 50),
+        "K12.4": (lambda: cuda_rhs.rk4_final_stage(*s4, p, halo=h4),
+                  lambda: cuda_rhs.rk4_final_stage_plain(*s4, p, halo=h4), half, 50),
+        "K5": (lambda: cuda_rhs.rkm_final_stage(*s4, tau, p, halo=h5),
+               lambda: cuda_rhs.rkm_final_stage_plain(*s4, tau, p, halo=h5), half, 50),
+        "K12.7": (lambda: cuda_rhs.si_prepare_sharded(*s1[0], p, h1),
+                  lambda: cuda_rhs.si_prepare_sharded_plain(*s1[0], p, h1), half, 50),
+        "K12.8": (lambda: cuda_cg.cross_matvec_pAp_sharded(A_U, v0, hv, out=dead),
+                  lambda: cuda_cg.cross_matvec_pAp_sharded_plain(A_U, v0, hv), half, 50),
+        "K14 twin": (lambda: cuda_cg.cross_residual(r00, v0, A_U, halo=hv),
+                     lambda: cuda_cg.cross_residual_plain(r00, v0, A_U, halo=hv), half, 50),
+        "K2 twin": (lambda: cuda_rhs.rkm_attempt_sharded(f0, u0, ap5, tau, p),
+                    lambda: cuda_rhs.rkm_attempt_sharded_plain(f0, u0, ap5, tau, p), half, 50),
+        "K6 twin T=4": (lambda: cuda_rhs.euler_steps_sharded(f0, u0, ap4, p, 4),
+                        lambda: cuda_rhs.euler_steps_sharded_plain(f0, u0, ap4, p, 4), half, 50),
+        "K6 twin T=8": (lambda: cuda_rhs.euler_steps_sharded(Fq.blocks[0], Uq.blocks[0], ap8, q, 8),
+                        lambda: cuda_rhs.euler_steps_sharded_plain(Fq.blocks[0], Uq.blocks[0],
+                                                                   ap8, q, 8), quarter, 10),
+        "K3 twin": (lambda: cuda_rhs.rk4_full_sharded(Fb.blocks[0], Ub.blocks[0], apb, cut),
+                    lambda: cuda_rhs.rk4_full_sharded_plain(Fb.blocks[0], Ub.blocks[0], apb, cut),
+                    cut.N // 2, 5),
+    }
+    bound_as = {"K14 twin": "K14 cross", "K12.8": "K12.8 cross", "K2 twin": "K2",
+                "K3 twin": "K3", "K6 twin T=4": "K6", "K6 twin T=8": "K6 T=8"}
+    entries = {}
+    for name, (kernel, plain, cells, reps) in timed.items():
+        ms, plain_ms = time_pair(kernel, plain, reps=reps)
+        entries[name] = {"max_abs_err": worst_abs[name], "ms": ms, "plain_ms": plain_ms,
+                         **bound(bound_as.get(name, name), cells, "float64"),
+                         "library_ms": None}
+    phase("float64 mesh kernel times, one shard", card=card_limit(),
+          library="none: no PyTorch call computes a ghosted stencil step",
+          ms_one_shard={k: {"kernel": v["ms"], "plain": v["plain_ms"], "cells": timed[k][2],
+                            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
+                        for k, v in entries.items()})
+    return entries
+
+
+def check_mesh_f64_locksteps(f64, F0, U0, steps=5) -> None:
+    """float64, the first steps on each mesh against the one-device kernel
+    stepper from the same state, at the float64 tolerance: RKM (the K2
+    twin on every mesh against K2), the refined semi-implicit step (K12.7,
+    K12.8 and K14's twin against K7, K8 and K14; CG counts within one), the
+    Euler pair (K6's twin against K6) and RK4 (staged: K12.1 x 3 + K12.4
+    against K1 x 3 + K4), fields and increments as ``hold_step`` says."""
+    tol = PRECISION["float64"]["field_tol"]
+    check_mesh_lockstep(f64["rkm"], F0, U0, steps, tol,
+                        "float64 mesh lockstep, RKM (K2 twin) vs single-device K2")
+    check_mesh_si_lockstep(f64["semi-implicit"], F0, U0, steps, tol,
+                           "float64 mesh lockstep, refined semi-implicit vs single-device "
+                           "kernels")
+    out = {}
+    for route, cfg in (("Euler pair", f64["euler"]), ("RK4 staged", f64["rk4"])):
+        p = cfg.params
+        pair = route == "Euler pair"
+        one = make_euler_pair_stepper(p) if pair else make_stepper(p)
+        for mname, (sy, sx) in MESHES.items():
+            mesh, topo = on_mesh(sy, sx)
+            step = make_euler_pair_stepper(p, topo, mesh) if pair else make_sharded_stepper(
+                p, mesh, topo)
+            if step is None or one is None:
+                raise AssertionError(f"the float64 Euler pair declined {mname}")
+            state = make_state(F0, U0, p, device=DEVICE)
+            worst = [0.0, 0.0]
+            for _ in range(steps):
+                a = one(state) if pair else one(state)[0]
+                b = step(shard_state(state, mesh, topo))
+                hold_step(gather_state(b if pair else b[0]), a, state, worst,
+                          f"float64 {route} lockstep on {mname}", tol)
+                state = a
+            out[f"{route} on {mname}"] = {"max_rel_err": worst[0],
+                                          "max_increment_rel_err": worst[1]}
+    phase("float64 mesh locksteps, Euler pair and RK4, vs single-device kernels", steps=steps,
+          tol=tol, increment_tol="tol * max|increment| + 2 ulp(max|field|)", routes=out)
+
+
+def f64_one(run, overrides, name, grow=True, frames=False) -> dict:
+    """A float64 sweep config, cut by ``overrides``, on one device: the
+    yardstick of its mesh runs in this call, on the one-device kernels.
+    Returns the run's summary with its attempts, host reads (one per CG
+    iteration) and, with ``frames``, its frames."""
+    out = drive([FIRST_FRAME, *overrides], grow=grow, config=sweep(run), frames=frames)
+    mesh_kernels = {k: v for k, v in out["launches"].items() if v and (
+        k.endswith(("_sharded", "_apron", "_euler")) or k in ("halo_edges", "rkm_final_stage"))}
+    if out["res"].iters <= 0 or mesh_kernels:
+        raise AssertionError(f"{name}: {out['summary']}")
+    phase(name, attempts=out["res"].attempts, host_reads=out["host_reads"], **out["summary"])
+    return dict(out["summary"], attempts=out["res"].attempts, host_reads=out["host_reads"],
+                frames=out["frames"])
+
+
+def si_f64_mesh_path(name, sy, sx, overrides, single) -> dict:
+    """The float64 semi-implicit sweep config, cut by ``overrides``, on a
+    (sy, sx) mesh of the one card beside ``single`` (the one-device run of
+    the cut): exactly its step count; per shard K12.7 once per pass, K14's
+    twin once per system and pass (the cross form for the phase system: S
+    = 0; the heat form, with the extra terms on the corrector's re-steps),
+    a ghost gather before each K12.7, K12.8 and K14 twin, K12.8 (cross) and
+    K9 once per CG iteration, K10 at most once; one host read per CG
+    iteration, and CG iterations within SI_CG_ITERS_RTOL of one device's."""
+    n = sy * sx
+    out = drive([FIRST_FRAME, f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n", *overrides],
+                config=sweep("semi-implicit"), device=[DEVICE] * n)
+    L, steps, p = out["launches"], out["res"].iters, out["cfg"].params
+    passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
+    expect(steps == single["steps"], f"the one-device {single['steps']} steps", out)
+    iters = out["host_reads"]
+    pairs = passes * steps * n
+    want = {"si_prepare_sharded": pairs, "cross_residual_sharded": pairs,
+            "heat_residual_sharded": pairs, "halo_edges": 3 * pairs + iters * n,
+            "cross_matvec_pAp_sharded": iters * n, "update_xr_rr": iters * n}
+    expect({k: v for k, v in L.items() if v and k != "axpby_inplace"} == want
+           and 0 < L["axpby_inplace"] <= iters * n, f"launches {want}, K10 in (0, K9]", out)
+    one_iters = single["host_reads"]
+    expect(abs(iters - one_iters) <= SI_CG_ITERS_RTOL * one_iters,
+           f"CG iterations {iters} within {SI_CG_ITERS_RTOL:.0%} of one device's {one_iters}",
+           out)
+    phase(name, shards=[sy, sx], cg_iterations=iters, single_device_cg_iterations=one_iters,
+          cg_iterations_diff=iters - one_iters,
+          refinement_residuals_per_shard_and_step=(L["cross_residual_sharded"]
+                                                   + L["heat_residual_sharded"]) / n / steps,
+          launches_per_shard={k: v / n for k, v in want.items()},
+          single_device_steps=single["steps"], single_device_ms_per_step=single["ms_per_step"],
+          ms_per_step_vs_single=out["summary"]["ms_per_step"] / single["ms_per_step"],
+          cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE), on_mesh(sy, sx)[1]),
+          **out["summary"])
+    return out
+
+
+def f64_mesh_runs(euler64_one, rk4_cut_one) -> dict:
+    """The float64 mesh runs, each beside a one-device run of the same cut
+    made in this call (the whole 512^2 Euler run and the 4096^2 RK4 cut:
+    the float64 paths' own), and each at the one-device step count (RKM:
+    within 1%); every launch counted, no plain call.  Returns each run's
+    launches by name."""
+    L = {}
+
+    def f64_mesh_path(name, sy, sx, run, overrides, single, want, **kw):
+        return mesh_fixed_path(name, sy, sx, [FIRST_FRAME, *overrides], single, want,
+                               config=sweep(run), **kw)
+    staged = (lambda steps, n, attempts: {"blend_rhs_sharded": (steps + 3 * attempts) * n,
+                                          "rkm_final_stage": attempts * n,
+                                          "halo_edges": (steps + 4 * attempts) * n})
+    twin = lambda steps, n, attempts: {"rkm_attempt_apron": attempts * n}  # noqa: E731
+    one = f64_one("rkm", [F64_RKM_CUT], "float64 RKM, 512^2 cut, one device")
+    if one["steps"] < F64_RKM_CUT_STEPS:
+        raise AssertionError(f"the float64 RKM cut took {one['steps']} steps")
+    for m, shape in MESHES.items():
+        L[f"rkm {m}"] = f64_mesh_path(f"float64 RKM, 512^2 cut, on a {m} mesh (K2 twin)",
+                                      *shape, "rkm", [F64_RKM_CUT], one, twin,
+                                      steps_rtol=0.01)["launches"]
+    one = f64_one("rkm", [F64_RKM_2048], "float64 RKM, 2048^2 cut, one device", grow=False)
+    if one["steps"] < CUT_2048_STEPS:
+        raise AssertionError(f"the float64 2048^2 RKM cut took {one['steps']} steps")
+    for m, shape in (("y(4)", (4, 1)), ("2x2", (2, 2))):
+        L[f"rkm 2048 {m}"] = f64_mesh_path(
+            f"float64 RKM, 2048^2 cut, on a {m} mesh (K2 twin)", *shape, "rkm", [F64_RKM_2048],
+            one, twin, steps_rtol=0.01, grow=False)["launches"]
+    one = f64_one("rkm", [F64_THIN], "float64 RKM, 32-row cut, one device")
+    L["rkm thin"] = f64_mesh_path("float64 RKM, 32-row cut on a y(8) mesh (4-row shards: "
+                                  "staged route, K12.1 + K5 at double)", 8, 1, "rkm", [F64_THIN],
+                                  one, staged, steps_rtol=0.01)["launches"]
+    one = f64_one("semi-implicit", [F64_SI_CUT], "float64 semi-implicit, 500-step cut, "
+                  "one device")
+    for m, shape in MESHES.items():
+        L[f"si {m}"] = si_f64_mesh_path(f"float64 semi-implicit, 500-step cut, on a {m} mesh",
+                                        *shape, [F64_SI_CUT], one)["launches"]
+    one = f64_one("semi-implicit", [F64_CORRECTOR], "float64 semi-implicit corrector, "
+                  "200 steps, one device")
+    L["si corrector x(2)"] = si_f64_mesh_path(
+        "float64 semi-implicit corrector, 200 steps, on an x(2) mesh", 1, 2, [F64_CORRECTOR],
+        one)["launches"]
+    for m, shape in MESHES.items():
+        L[f"euler {m}"] = f64_mesh_path(
+            f"float64 Euler, stats off, on a {m} mesh (K6 twin, T = 4)", *shape, "euler", [],
+            euler64_one, lambda steps, n, attempts: {"euler_steps_apron": steps // 4 * n}
+        )["launches"]
+    one = f64_one("euler", [F64_EULER_2048], "float64 Euler, 2048^2 cut, one device (T = 8)",
+                  grow=False)
+    L["euler 2048 2x2"] = f64_mesh_path(
+        "float64 Euler, 2048^2 cut, on a 2x2 mesh (K6 twin, T = 8 at 1M local cells)", 2, 2,
+        "euler", [F64_EULER_2048], one,
+        lambda steps, n, attempts: {"euler_steps_apron": steps // 8 * n}, grow=False)["launches"]
+    one = f64_one("euler", [F64_CORRECTOR], "float64 Euler corrector, 200 steps, one device")
+    L["euler corrector x(2)"] = f64_mesh_path(
+        "float64 Euler corrector, 200 steps, on an x(2) mesh (K12.3, K12.1 at double)", 1, 2,
+        "euler", [F64_CORRECTOR], one,
+        lambda steps, n, attempts: {"blend_rhs_sharded_euler": steps * n,
+                                    "blend_rhs_sharded": 3 * steps * n,
+                                    "halo_edges": 4 * steps * n})["launches"]
+    one = f64_one("rk4", [F64_RK4_CUT], "float64 RK4, 2000-step cut, one device")
+    for m, shape in MESHES.items():
+        L[f"rk4 {m}"] = f64_mesh_path(
+            f"float64 RK4, 2000-step cut, on a {m} mesh (staged: K12.1 x 3 + K12.4 at double)",
+            *shape, "rk4", [F64_RK4_CUT], one,
+            lambda steps, n, attempts: {"blend_rhs_sharded": 3 * steps * n,
+                                        "rk4_final_stage_sharded": steps * n,
+                                        "halo_edges": 4 * steps * n})["launches"]
+    L["rk4 4096 x(2)"] = f64_mesh_path(
+        "float64 RK4, 4096^2 cut, on an x(2) mesh (K3 twin: 8M local cells)", 1, 2, "rk4",
+        [CUT], rk4_cut_one, lambda steps, n, attempts: {"rk4_full_apron": steps * n},
+        grow=False)["launches"]
+    one = f64_one("rkm", [EXACT], "float64 exact solver, one device", frames=True)
+    mesh_run = f64_mesh_path("float64 exact solver on a 2x2 mesh", 2, 2, "rkm", [EXACT], one,
+                             lambda steps, n, attempts: {}, frames=True)
+    if mesh_run["frames"].keys() != one["frames"].keys() or not all(
+            np.array_equal(mesh_run["frames"][f][k], one["frames"][f][k])
+            for f in one["frames"] for k in ("F", "U")):
+        raise AssertionError("the float64 exact solver's mesh frames differ from one device's")
+    phase("float64 exact solver on a 2x2 mesh: frames equal to one device's",
+          frames=sorted(one["frames"]), equal="bit for bit")
+    return L
+
+
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
     return {"name": name, "route": "cuda", "source": f"bachelors_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, **measured}
@@ -1674,6 +2206,7 @@ def main() -> None:
     d6 = check_k6(rng, "float64")
     d7 = check_k7(rng, "float64")
     d8_10 = check_cg_kernels(rng, f64["semi-implicit"].params, "float64")
+    mesh64_k = time_mesh_f64_kernels(rng, check_mesh_f64_kernels(rng))
 
     check_lockstep(cfg, F0, U0)
     check_mesh_lockstep(cfg, F0, U0)
@@ -1689,6 +2222,7 @@ def main() -> None:
     check_rk4_lockstep([("512^2, staged", f64["rk4"]),
                         ("4096^2 cut, K3", load_config(sweep("rk4"), [CUT]))], tol=tol64,
                        name="float64 RK4 lockstep kernels vs plain")
+    check_mesh_f64_locksteps(f64, F64, U64)
 
     rkm, rkm_one = rkm_path()
     mesh_runs = {name: mesh_path(f"main path (RKM) on a {name} mesh", *shape, rkm_one)
@@ -1707,26 +2241,26 @@ def main() -> None:
     # one-device step count
     euler_mesh = {m: mesh_fixed_path(
         f"Euler path on a {m} mesh", *shape, [EULER], euler_one,
-        lambda steps, n: {"blend_rhs_sharded_euler": steps * n, "halo_edges": steps * n})
+        lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n, "halo_edges": steps * n})
         for m, shape in MESHES.items()}
     euler_pair_mesh = mesh_fixed_path(
         "Euler path, stats off, on a y(2) mesh", 2, 1, [EULER, NO_STATS], euler_fast_one,
-        lambda steps, n: {"euler_steps_sharded": steps // 4 * n})
+        lambda steps, n, _: {"euler_steps_sharded": steps // 4 * n})
     corrector_mesh = mesh_fixed_path(
         "Euler corrector path on an x(2) mesh", 1, 2, [EULER, CORRECTOR], corrector_path(),
-        lambda steps, n: {"blend_rhs_sharded_euler": steps * n,
+        lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n,
                           "blend_rhs_sharded": 3 * steps * n, "halo_edges": 4 * steps * n})
     rk4_mesh = {m: mesh_fixed_path(
         f"RK4 path on a {m} mesh (staged)", *shape, [RK4], rk4_one,
-        lambda steps, n: {"blend_rhs_sharded": 3 * steps * n,
+        lambda steps, n, _: {"blend_rhs_sharded": 3 * steps * n,
                           "rk4_final_stage_sharded": steps * n, "halo_edges": 4 * steps * n})
         for m, shape in MESHES.items()}
     rk4_cut_mesh = mesh_fixed_path(
         "RK4 path, 4096^2 cut on a y(2) mesh (whole step per shard)", 2, 1, [RK4, CUT],
-        rk4_cut_one, lambda steps, n: {"rk4_full_sharded": steps * n}, grow=False)
+        rk4_cut_one, lambda steps, n, _: {"rk4_full_sharded": steps * n}, grow=False)
     exact_mesh = mesh_fixed_path(
         f"exact solver path on a {EXACT_MESH} mesh", *MESHES[EXACT_MESH], [EXACT],
-        exact["summary"], lambda steps, n: {}, frames=True)
+        exact["summary"], lambda steps, n, _: {}, frames=True)
     if exact_mesh["frames"].keys() != exact["frames"].keys() or not all(
             np.array_equal(exact_mesh["frames"][f][k], exact["frames"][f][k])
             for f in exact["frames"] for k in ("F", "U")):
@@ -1743,14 +2277,23 @@ def main() -> None:
 
     rkm64 = rkm_f64_path()
     si64 = si_f64_path()
-    euler64, _ = euler_blocks_path([FIRST_FRAME], 4, "float64 Euler path (512^2, stats off)",
-                                   "euler", want_launches=2000)
+    euler64, euler64_one = euler_blocks_path([FIRST_FRAME], 4,
+                                             "float64 Euler path (512^2, stats off)", "euler",
+                                             want_launches=2000)
     euler64_1024, _ = euler_blocks_path([FIRST_FRAME], 8,
                                         "float64 Euler path (1024^2, stats off)",
                                         "euler 1024", want_launches=1000)
     rk4_64, _ = rk4_staged_path([FIRST_FRAME], "float64 RK4 path (512^2, staged route)", "rk4")
-    rk4_64_cut, _ = rk4_cut_path([FIRST_FRAME, CUT], "float64 RK4 path (4096^2 cut, K3)",
-                                 sweep("rk4"))
+    rk4_64_cut, rk4_64_cut_one = rk4_cut_path([FIRST_FRAME, CUT],
+                                              "float64 RK4 path (4096^2 cut, K3)", sweep("rk4"))
+    m64 = f64_mesh_runs(euler64_one, rk4_64_cut_one)
+
+    def m64_sum(key, *runs):
+        return sum(m64[r][key] for r in runs)
+
+    meshes = list(MESHES)
+    staged64 = [f"rk4 {m}" for m in meshes] + ["rkm thin", "euler corrector x(2)"]
+    si64_runs = [f"si {m}" for m in meshes] + ["si corrector x(2)"]
 
     rhs_src, cg_src = "rhs.cu", "cg.cu"
     pallas_rhs, pallas_cg = "bachelors_tpu/ops/pallas_rhs.py", "bachelors_tpu/ops/pallas_cg.py"
@@ -1845,6 +2388,54 @@ def main() -> None:
                      "bachelors_tpu/ops/pallas_dd.py:749",
                      si64["cross_residual"] + si64["aniso_residual"] + si64["heat_residual"],
                      d8_10["K14"]),
+        kernel_entry("K2 rkm_attempt on the apron at float64 (K13 twin; float64 RKM on y(2), "
+                     "x(2), 2x2 and the 2048^2 cuts on y(4), 2x2)", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:1198",
+                     m64_sum("rkm_attempt_apron", *(f"rkm {m}" for m in meshes),
+                             "rkm 2048 y(4)", "rkm 2048 2x2"), mesh64_k["K2 twin"]),
+        kernel_entry("K3 rk4_full on the apron at float64 (K13 twin; float64 RK4 on the "
+                     "4096^2 cut on x(2))", rhs_src, "bachelors_tpu/ops/pallas_dd.py:1186",
+                     m64["rk4 4096 x(2)"]["rk4_full_apron"], mesh64_k["K3 twin"]),
+        kernel_entry("K6 euler_steps on the apron at float64, 4 steps per pass (K13 twin; "
+                     "float64 Euler on y(2), x(2), 2x2)", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:1171",
+                     m64_sum("euler_steps_apron", *(f"euler {m}" for m in meshes)),
+                     mesh64_k["K6 twin T=4"]),
+        kernel_entry("K6 euler_steps on the apron at float64, 8 steps per pass (K13 twin; "
+                     "float64 Euler on the 2048^2 cut on 2x2)", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:1171",
+                     m64["euler 2048 2x2"]["euler_steps_apron"], mesh64_k["K6 twin T=8"]),
+        kernel_entry("K12.1 blend_rhs_sharded at float64 (float64 RK4 k1-k3 on the meshes, "
+                     "staged RKM on y(8), Euler corrector re-steps on x(2))", rhs_src,
+                     f"{pallas_rhs}:705", m64_sum("blend_rhs_sharded", *staged64),
+                     mesh64_k["K12.1"]),
+        kernel_entry("K12.1 ghost gather halo_edges at float64 (every float64 mesh run's "
+                     "stages, CG iterations and residuals)", rhs_src, f"{pallas_rhs}:634",
+                     m64_sum("halo_edges", *m64), mesh64_k["K12.1 gather"]),
+        kernel_entry("K12.3 blend_rhs_sharded, euler mode, at float64 (float64 Euler "
+                     "corrector on x(2))", rhs_src, "bachelors_tpu/ops/pallas_dd.py:1171",
+                     m64["euler corrector x(2)"]["blend_rhs_sharded_euler"], mesh64_k["K12.3"]),
+        kernel_entry("K12.4 rk4_final_stage with ghosts at float64 (float64 RK4 on y(2), "
+                     "x(2), 2x2)", rhs_src, f"{pallas_rhs}:756",
+                     m64_sum("rk4_final_stage_sharded", *(f"rk4 {m}" for m in meshes)),
+                     mesh64_k["K12.4"]),
+        kernel_entry("K5 rkm_final_stage with ghosts at float64 (float64 RKM, staged, on "
+                     "the y(8) cut)", rhs_src, f"{pallas_rhs}:767",
+                     m64["rkm thin"]["rkm_final_stage"], mesh64_k["K5"]),
+        kernel_entry("K12.7 si_prepare_sharded at float64 (float64 semi-implicit on y(2), "
+                     "x(2), 2x2 and its corrector on x(2))", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:1216",
+                     m64_sum("si_prepare_sharded", *si64_runs), mesh64_k["K12.7"]),
+        kernel_entry("K12.8 matvec_pAp_sharded at float64 (cross form; the same runs)",
+                     cg_src, f"{pallas_cg}:238",
+                     m64_sum("cross_matvec_pAp_sharded", *si64_runs)
+                     + m64_sum("aniso_matvec_pAp_sharded", *si64_runs), mesh64_k["K12.8"]),
+        kernel_entry("K14 twin si_residual_halo at float64 (refinement residual on a shard, "
+                     "cross and heat forms; the same runs)", cg_src,
+                     "bachelors_tpu/ops/pallas_dd.py:1014",
+                     m64_sum("cross_residual_sharded", *si64_runs)
+                     + m64_sum("aniso_residual_sharded", *si64_runs)
+                     + m64_sum("heat_residual_sharded", *si64_runs), mesh64_k["K14 twin"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -457,12 +457,10 @@ def test_k12_2_matches_plain_and_k2(f_bc, u_bc, shards, gen, cuda_device):  # no
         (F, U), = _mesh_states(gen, ny, nx, shards, 1, 1, cuda_device)
         d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
         tau = np.float32(TAU)
-        slabs = topo.slabs(F, U, cuda_rhs.SLAB_ROWS)
-        rows = ny // shards
         out = []
-        for k, (f, u, s) in enumerate(zip(F.blocks, U.blocks, slabs)):
-            got = cuda_rhs.rkm_attempt_sharded(f, u, s, k * rows, tau, p, 0.03, d)
-            want = cuda_rhs.rkm_attempt_sharded_plain(f, u, s, k * rows, tau, p, 0.03, d)
+        for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, cuda_rhs.SLAB_ROWS)):
+            got = cuda_rhs.rkm_attempt_sharded(f, u, ap, tau, p, 0.03, d)
+            want = cuda_rhs.rkm_attempt_sharded_plain(f, u, ap, tau, p, 0.03, d)
             assert_match(got[0], want[0])
             assert_match(got[1], want[1])
             np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
@@ -531,18 +529,17 @@ def test_k12_5_and_k12_6_match_plain_and_whole_grid(f_bc, u_bc, shards, gen,
         F, U = (Shards(tuple(a.split(ny // shards)), (shards, 1)) for a in (F0, U0))
         F, U = (Shards(tuple(b.contiguous() for b in S.blocks), S.grid) for S in (F, U))
         for depth, kernel, plain, whole in (
-                (4, lambda *a: cuda_rhs.euler_steps_sharded(*a[:5], 4, 0.03, d),
-                 lambda *a: cuda_rhs.euler_steps_sharded_plain(*a[:5], 4, 0.03, d),
+                (4, lambda *a: cuda_rhs.euler_steps_sharded(*a, 4, 0.03, d),
+                 lambda *a: cuda_rhs.euler_steps_sharded_plain(*a, 4, 0.03, d),
                  cuda_rhs.euler_steps(F0, U0, p, 4, 0.03, d)),
                 (cuda_rhs.RK4_SLAB_ROWS,
                  lambda *a: cuda_rhs.rk4_full_sharded(*a, 0.03, d),
                  lambda *a: cuda_rhs.rk4_full_sharded_plain(*a, 0.03, d),
                  cuda_rhs.rk4_full(F0, U0, p, 0.03, d))):
-            slabs = topo.slabs(F, U, depth)
             out = []
-            for k, (f, u, s) in enumerate(zip(F.blocks, U.blocks, slabs)):
-                got = kernel(f, u, s, k * (ny // shards), p)
-                for g, wt in zip(got, plain(f, u, s, k * (ny // shards), p)):
+            for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, depth)):
+                got = kernel(f, u, ap, p)
+                for g, wt in zip(got, plain(f, u, ap, p)):
                     assert_match(g, wt)
                 out.append(got)
             for i in (0, 1):
@@ -614,3 +611,238 @@ def test_k12_7_and_k12_8_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
             assert torch.equal(joined(out, 0), whole[0])
             np.testing.assert_allclose(topo.allsum([o[1] for o in out]).item(),
                                        whole[1].item(), rtol=1e-5)
+
+
+# ------------------------------------------------------ float64 on a mesh
+
+
+def _f64_on_mesh(arrays, sy, sx, device):
+    from bachelors_tpu_torch.convert import shards_from_numpy
+
+    return [tuple(shards_from_numpy(a, sy, sx, [device] * (sy * sx)) for a in pair)
+            for pair in arrays]
+
+
+def _joined(out, i, grid):
+    from bachelors_tpu_torch.core.state import Shards
+
+    return Shards(tuple(o[i] for o in out), grid).gather()
+
+
+def _counted(launches, name, fn):
+    """fn(), checking that it adds exactly one launch to ``launches[name]``."""
+    before = launches[name]
+    out = fn()
+    assert launches[name] == before + 1, name
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("f_bc,u_bc", F64_PAIRS)
+def test_f64_mesh_stage_kernels_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
+                                                           cuda_device):  # noqa: F811
+    """At double, shard by shard against their plain versions (F64_TOL,
+    F64_RTOL on maxima and dots), each counted under its own name: K12.1's
+    ghost gather, K12.1 (3 states), K12.3, K12.4, K5 with ghosts, K12.7
+    (corrector guess off and on), K12.8 (both forms) and K14's twin (cross,
+    aniso, heat, heat + extra).  Joined over the mesh, each equals its
+    one-device kernel bit for bit (each cell runs the same arithmetic on the
+    same values); the shards' <v, A v> add to K8's at F64_RTOL."""
+    from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo, grid = Topology(sy, sx), (sy, sx)
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    tau = np.float64(TAU)
+    for ny, nx in MESH_SIZES:
+        for physics in F64_PHYSICS.values():
+            p = SimParams(ny=ny, nx=nx, m0=6.0, theta0=0.1, dtype="float64",
+                          Phi_boundary=BoundaryType(f_bc), T_boundary=BoundaryType(u_bc),
+                          **physics)
+            whole = _on(random_fields(gen, ny, nx, "float64", 4), cuda_device)
+            states = _f64_on_mesh([tuple(t.cpu().numpy() for t in s) for s in whole], sy, sx,
+                                  cuda_device)
+            for n, weights, is_euler, whole_fn in (
+                    (3, [1.0, 1e-2, -2e-2], False,
+                     lambda w: cuda_rhs.blend_rhs(whole[:3], w, p, 0.03, d)),
+                    (1, [1.0], True,
+                     lambda w: cuda_rhs.blend_rhs(whole[:1], w, p, 0.03, d, True))):
+                count = "blend_rhs_sharded_euler" if is_euler else "blend_rhs_sharded"
+                out = []
+                for k, h in enumerate(stage_halos(states[:n], weights, topo)):
+                    st = shard_states(states[:n], k)
+                    for g, w in zip(cuda_rhs.halo_edges(st, weights, sy > 1, sx > 1),
+                                    cuda_rhs.halo_edges_plain(st, weights, sy > 1, sx > 1)):
+                        if g is not None:
+                            _f64_close([g], [w])
+                    got = _counted(cuda_rhs.LAUNCHES, count, lambda: cuda_rhs.blend_rhs_sharded(
+                        st, weights, p, h, 0.03, d, is_euler))
+                    _f64_close(got, cuda_rhs.blend_rhs_sharded_plain(st, weights, p, h, 0.03, d,
+                                                                     is_euler))
+                    out.append(got)
+                for i, w in enumerate(whole_fn(weights)):
+                    assert torch.equal(_joined(out, i, grid), w)
+            rk4_states = [states[0], states[1], states[2], states[3]]
+            out = []
+            for k, h in enumerate(stage_halos([states[0], states[3]], [1.0, p.dt], topo)):
+                st = shard_states(rk4_states, k)
+                got = _counted(cuda_rhs.LAUNCHES, "rk4_final_stage_sharded",
+                               lambda: cuda_rhs.rk4_final_stage(*st, p, 0.03, d, halo=h))
+                _f64_close(got, cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d, halo=h))
+                out.append(got)
+            for i, w in enumerate(cuda_rhs.rk4_final_stage(*whole, p, 0.03, d)):
+                assert torch.equal(_joined(out, i, grid), w)
+            out = []
+            for k, h in enumerate(stage_halos(states, cuda_rhs.k5_weights(tau), topo)):
+                st = shard_states(states, k)
+                got = _counted(cuda_rhs.LAUNCHES, "rkm_final_stage",
+                               lambda: cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h))
+                want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
+                _f64_close(got[:2], want[:2])
+                np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                                           rtol=F64_RTOL)
+                out.append(got)
+            want = cuda_rhs.rkm_final_stage(*whole, tau, p, 0.03, d)
+            for i in (0, 1):
+                assert torch.equal(_joined(out, i, grid), want[i])
+            assert torch.equal(topo.allmax([o[2] for o in out]), want[2])
+            (F, U), = states[:1]
+            for guess in (False, True):
+                q = p.replace(do_corrector_guess=guess)
+                out = []
+                for f, u, h in zip(F.blocks, U.blocks, stage_halos([(F, U)], [1.0], topo)):
+                    got = _counted(cuda_rhs.LAUNCHES, "si_prepare_sharded",
+                                   lambda: cuda_rhs.si_prepare_sharded(f, u, q, h))
+                    _f64_close(got, cuda_rhs.si_prepare_sharded_plain(f, u, q, h))
+                    out.append(got)
+                for i, w in enumerate(cuda_rhs.si_prepare(*whole[0], q)):
+                    assert torch.equal(_joined(out, i, grid), w)
+        A_U, A_F = _operators(u_bc)[0], _operators(f_bc)[1]
+        (v, s), (r0, x) = _f64_on_mesh(random_fields(gen, ny, nx, "float64", 2), sy, sx,
+                                       cuda_device)
+        s = s.map(lambda b: 0.33 + 0.08 * torch.tanh(b))
+        v_w, s_w, r0_w, x_w = (t.gather() for t in (v, s, r0, x))
+        halos = stage_halos([(v, v)], [1.0], topo)
+        for name, kernel, plain, whole in (
+                ("cross_matvec_pAp_sharded",
+                 lambda k, h: cuda_cg.cross_matvec_pAp_sharded(A_U, v.blocks[k], h),
+                 lambda k, h: cuda_cg.cross_matvec_pAp_sharded_plain(A_U, v.blocks[k], h),
+                 cuda_cg.cross_matvec_pAp(A_U, v_w)),
+                ("aniso_matvec_pAp_sharded",
+                 lambda k, h: cuda_cg.aniso_matvec_pAp_sharded(A_F, s.blocks[k], v.blocks[k], h),
+                 lambda k, h: cuda_cg.aniso_matvec_pAp_sharded_plain(A_F, s.blocks[k],
+                                                                     v.blocks[k], h),
+                 cuda_cg.aniso_matvec_pAp(A_F, s_w, v_w))):
+            out = []
+            for k, h in enumerate(halos):
+                got = _counted(cuda_cg.LAUNCHES, name, lambda: kernel(k, h))
+                want = plain(k, h)
+                _f64_close(got[:1], want[:1])
+                np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=F64_RTOL)
+                out.append(got)
+            assert torch.equal(_joined(out, 0, grid), whole[0])
+            np.testing.assert_allclose(topo.allsum([o[1] for o in out]).item(),
+                                       whole[1].item(), rtol=F64_RTOL)
+        pair = (r0, x.map(lambda b: 1e-4 * b))
+        for name, kernel, whole in (
+                ("cross_residual",
+                 lambda k, h, f: f(r0.blocks[k], v.blocks[k], A_U, halo=h),
+                 cuda_cg.cross_residual(r0_w, v_w, A_U)),
+                ("aniso_residual",
+                 lambda k, h, f: f(r0.blocks[k], v.blocks[k], A_F, s.blocks[k], halo=h),
+                 cuda_cg.aniso_residual(r0_w, v_w, A_F, s_w)),
+                ("heat_residual",
+                 lambda k, h, f: f(x.blocks[k], (pair[0].blocks[k], pair[1].blocks[k]),
+                                   v.blocks[k], A_U, 0.7, halo=h),
+                 cuda_cg.heat_residual(x_w, (r0_w, pair[1].gather()), v_w, A_U, 0.7)),
+                ("heat_residual",
+                 lambda k, h, f: f(x.blocks[k], (pair[0].blocks[k], pair[1].blocks[k]),
+                                   v.blocks[k], A_U, 0.7, s.blocks[k], halo=h),
+                 cuda_cg.heat_residual(x_w, (r0_w, pair[1].gather()), v_w, A_U, 0.7, s_w))):
+            out = []
+            for k, h in enumerate(halos):
+                got = _counted(cuda_cg.LAUNCHES, f"{name}_sharded",
+                               lambda: kernel(k, h, getattr(cuda_cg, name)))
+                _f64_close([got], [kernel(k, h, getattr(cuda_cg, f"{name}_plain"))])
+                out.append((got,))
+            assert torch.equal(_joined(out, 0, grid), whole)
+
+
+@pytest.mark.cuda
+def test_apron_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
+    """At float32 the tile kernels take y-mesh shards only (x and 2D meshes
+    take the staged routes); an apron of the wrong depth or width, and a
+    shard thinner than the apron, raise before any launch."""
+    from bachelors_tpu_torch.core.boundary import Apron
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    p = _params(16, 16, "neumann", "neumann", 0.0, 6.0)
+    (F, U), = _f64_on_mesh([(np.zeros((16, 16)), np.zeros((16, 16)))], 1, 2, cuda_device)
+    ap = Topology(1, 2).apron(F, U, cuda_rhs.SLAB_ROWS)[0]
+    f, u = F.blocks[0], U.blocks[0]
+    launches = dict(cuda_rhs.LAUNCHES)
+    with pytest.raises(ValueError, match="y-mesh shards only"):
+        cuda_rhs.rkm_attempt_sharded(f.float(), u.float(),
+                                     Apron(None, ap.cols.float(), ap.y0, ap.x0),
+                                     np.float32(TAU), p)
+    with pytest.raises(ValueError, match="ghost cols"):
+        cuda_rhs.euler_steps_sharded(f, u, ap, p.replace(dtype="float64"), 4)
+    with pytest.raises(ValueError, match="ghost cols"):
+        cuda_rhs.rkm_attempt_sharded(f, u, Apron(None, ap.cols[..., :3].contiguous(), 0, 0),
+                                     np.float64(TAU), p.replace(dtype="float64"))
+    assert cuda_rhs.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
+@pytest.mark.parametrize("f_bc,u_bc", F64_PAIRS)
+def test_f64_apron_kernels_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
+                                                      cuda_device):  # noqa: F811
+    """The K13 twins -- K2, K3 and K6 (4 and 8 steps) at double on a shard
+    from its apron (``Topology.apron``: ghost rows and columns, the rows
+    carrying the diagonal shards' corners on 2x2) -- against their plain
+    versions (F64_TOL; F64_RTOL on the maxima), each counted under its own
+    name, and joined over the mesh against K2, K3 and K6 on the whole grid:
+    bit for bit, the maxima too, Dirichlet corners included.  66x258 tiles
+    each shard raggedly along both axes."""
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo, grid = Topology(sy, sx), (sy, sx)
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    tau = np.float64(TAU)
+    for ny, nx in MESH_SIZES:
+        for physics in F64_PHYSICS.values():
+            p = SimParams(ny=ny, nx=nx, m0=6.0, theta0=0.1, dtype="float64", dt=1e-5,
+                          Phi_boundary=BoundaryType(f_bc), T_boundary=BoundaryType(u_bc),
+                          **physics)
+            arrays = seed_fields(gen, ny, nx, "float64")
+            F0, U0 = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+            (F, U), = _f64_on_mesh([arrays], sy, sx, cuda_device)
+            cases = [("rkm_attempt_apron", cuda_rhs.SLAB_ROWS,
+                      lambda f, u, ap, fn: fn(f, u, ap, tau, p, 0.03, d),
+                      cuda_rhs.rkm_attempt_sharded, cuda_rhs.rkm_attempt_sharded_plain,
+                      cuda_rhs.rkm_attempt(F0, U0, tau, p, 0.03, d)),
+                     ("rk4_full_apron", cuda_rhs.RK4_SLAB_ROWS,
+                      lambda f, u, ap, fn: fn(f, u, ap, p, 0.03, d),
+                      cuda_rhs.rk4_full_sharded, cuda_rhs.rk4_full_sharded_plain,
+                      cuda_rhs.rk4_full(F0, U0, p, 0.03, d))]
+            for T in cuda_rhs.K6_STEPS[torch.float64]:
+                cases.append(("euler_steps_apron", T,
+                              lambda f, u, ap, fn, T=T: fn(f, u, ap, p, T, 0.03, d),
+                              cuda_rhs.euler_steps_sharded, cuda_rhs.euler_steps_sharded_plain,
+                              cuda_rhs.euler_steps(F0, U0, p, T, 0.03, d)))
+            for name, depth, call, kernel, plain, whole in cases:
+                out = []
+                for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, depth)):
+                    got = _counted(cuda_rhs.LAUNCHES, name, lambda: call(f, u, ap, kernel))
+                    want = call(f, u, ap, plain)
+                    _f64_close(got[:2], want[:2])
+                    if len(got) == 3:
+                        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                                                   rtol=F64_RTOL)
+                    out.append(got)
+                for i in (0, 1):
+                    assert torch.equal(_joined(out, i, grid), whole[i]), (name, i)
+                if len(whole) == 3:
+                    assert torch.equal(topo.allmax([o[2] for o in out]), whole[2])

@@ -122,8 +122,8 @@ def _y4_slab_kernel(jax_fn, port_fn, bc, depth, rng):
         want = fn(jnp.asarray(F), jnp.asarray(U))
     topo = Topology(4, 1)
     Fs, Us = (shards_from_numpy(a, 4, 1, _cpu(4)) for a in (F, U))
-    out = [port_fn(f, u, s, 16 * k, tp, d)
-           for k, (f, u, s) in enumerate(zip(Fs.blocks, Us.blocks, topo.slabs(Fs, Us, depth)))]
+    out = [port_fn(f, u, ap, tp, d)
+           for f, u, ap in zip(Fs.blocks, Us.blocks, topo.apron(Fs, Us, depth))]
     for i in (0, 1):
         assert_match(shards_to_numpy(Shards(tuple(o[i] for o in out), (4, 1))), want[i])
 
@@ -135,7 +135,7 @@ def test_plain_k12_5_matches_pallas_interpret(bc, rng):
     _y4_slab_kernel(
         lambda f, u, jp, d: pallas_rhs.euler2_pallas_sharded(
             f, u, jp, "y", fu=FU, dirichlet_value=d, interpret=True, T=4),
-        lambda f, u, s, y0, p, d: cuda_rhs.euler_steps_sharded(f, u, s, y0, p, 4, FU, d),
+        lambda f, u, ap, p, d: cuda_rhs.euler_steps_sharded(f, u, ap, p, 4, FU, d),
         bc, 4, rng)
 
 
@@ -145,7 +145,7 @@ def test_plain_k12_6_matches_pallas_interpret(bc, rng):
     _y4_slab_kernel(
         lambda f, u, jp, d: pallas_rhs.rk4_full_pallas_sharded(
             f, u, jp, "y", fu=FU, dirichlet_value=d, interpret=True),
-        lambda f, u, s, y0, p, d: cuda_rhs.rk4_full_sharded(f, u, s, y0, p, FU, d),
+        lambda f, u, ap, p, d: cuda_rhs.rk4_full_sharded(f, u, ap, p, FU, d),
         bc, cuda_rhs.RK4_SLAB_ROWS, rng)
 
 
@@ -345,8 +345,9 @@ def test_euler_pair_gates_on_a_mesh(monkeypatch):
     """Where ``make_euler_pair_stepper`` declines on a mesh at f32: x and 2D
     meshes, no mesh passed, the per-step stats, the corrector loop, the
     exact forcing, and local cells inside EULER_PAIR_GAP (the JAX package's
-    gates, `bachelors_tpu/solvers/explicit.py:107-196`); float64 meshes
-    take single steps (their twin is slice 5b.3)."""
+    gates, `bachelors_tpu/solvers/explicit.py:107-196`); float64 takes the
+    pair on y, x and 2D meshes, T = 4 below 1M local cells, and declines
+    for shards thinner than T."""
     tp = _f32_params(solver=JST.EXPLICIT_EULER, do_stats=False)
     mesh, topo = make_mesh(2, 1, _cpu(2))
     pair = explicit.make_euler_pair_stepper(tp, topo, mesh)
@@ -355,9 +356,16 @@ def test_euler_pair_gates_on_a_mesh(monkeypatch):
         m, t = make_mesh(sy, sx, _cpu(sy * sx))
         assert explicit.make_euler_pair_stepper(tp, t, m) is None
     assert explicit.make_euler_pair_stepper(tp, topo) is None
-    for kw in (dict(do_stats=True), dict(do_corrector_loop=True),
-               dict(do_exact=True), dict(dtype="float64")):
+    for kw in (dict(do_stats=True), dict(do_corrector_loop=True), dict(do_exact=True)):
         assert explicit.make_euler_pair_stepper(tp.replace(**kw), topo, mesh) is None, kw
+    f64 = tp.replace(dtype="float64")
+    for sy, sx in ((2, 1), (1, 2), (2, 2)):
+        m, t = make_mesh(sy, sx, _cpu(sy * sx))
+        pair = explicit.make_euler_pair_stepper(f64, t, m)
+        assert pair is not None and pair.block_steps == 4, (sy, sx)
+    m, t = make_mesh(1, 8, _cpu(8))
+    assert explicit.make_euler_pair_stepper(f64, t, m) is not None  # 4 columns: T = 4 fits
+    assert explicit.make_euler_pair_stepper(f64.replace(nx=24), t, m) is None  # 3 columns
     # 16x32 local cells inside a gap patched down to (256, 1024)
     monkeypatch.setattr(explicit, "EULER_PAIR_GAP", (256, 1024))
     assert explicit.make_euler_pair_stepper(tp, topo, mesh) is None
@@ -379,18 +387,17 @@ def _run(tmp_path, name, shards_y, device, dtype):
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_run_simulation_euler_on_a_y_mesh_writes_the_single_device_frames(
         tmp_path, dtype, spy):
-    """Euler without stats on y(2): the float64 run takes single steps on
-    the mesh (its pair twin is slice 5b.3), the float32 run the pair
-    stepper (K12.5's plain version); both write one device's frames (f64
-    to 1e-12; f32 bit for bit, K6's arithmetic per cell)."""
+    """Euler without stats on y(2): both runs take the pair stepper on the
+    mesh (the plain version of K12.5 at float32, of K6's K13 twin at
+    float64; 4 steps per pass at 32x64 local cells) and write one device's
+    frames (f64 to 1e-12; f32 bit for bit, K6's arithmetic per cell)."""
     one = _run(tmp_path, "one", 1, "cpu", dtype)
     before = dict(spy)
     two = _run(tmp_path, "two", 2, ["cpu", "cpu"], dtype)
     assert two.iters == one.iters == 30
     mesh_calls = {k: v - before.get(k, 0) for k, v in spy.items() if v != before.get(k, 0)}
     # two events of 15 steps: 3 passes of 4 per shard, then 3 single steps
-    assert mesh_calls == ({"euler_steps_sharded_plain": 2 * 3 * 2} if dtype == "float32"
-                          else {})
+    assert mesh_calls == {"euler_steps_sharded_plain": 2 * 3 * 2}
     frames = sorted(f for f in os.listdir(one.save_folder) if f.endswith(".bin"))
     assert frames == sorted(f for f in os.listdir(two.save_folder) if f.endswith(".bin"))
     assert len(frames) == 3

@@ -42,7 +42,7 @@ from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper
 from bachelors_tpu_torch.parallel.topology import Topology
 from bachelors_tpu_torch.solvers import explicit
 from bachelors_tpu_torch.solvers.base import make_stepper
-from torch_parity import assert_match, both_params, random_fields
+from torch_parity import assert_match, both_params, random_fields, seed_fields
 
 torch.set_num_threads(2)
 
@@ -84,9 +84,9 @@ def test_plain_k12_2_matches_pallas_interpret(bc, rng):
         want = fn(jnp.asarray(F), jnp.asarray(U))
     topo = Topology(4, 1)
     Fs, Us = (shards_from_numpy(a, 4, 1, _cpu(4)) for a in (F, U))
-    slabs = topo.slabs(Fs, Us, cuda_rhs.SLAB_ROWS)
-    out = [cuda_rhs.rkm_attempt_sharded(f, u, s, 16 * k, np.float32(TAU), tp, 0.03)
-           for k, (f, u, s) in enumerate(zip(Fs.blocks, Us.blocks, slabs))]
+    aprons = topo.apron(Fs, Us, cuda_rhs.SLAB_ROWS)
+    out = [cuda_rhs.rkm_attempt_sharded(f, u, ap, np.float32(TAU), tp, 0.03)
+           for f, u, ap in zip(Fs.blocks, Us.blocks, aprons)]
     for i in (0, 1):
         assert_match(shards_to_numpy(Shards(tuple(o[i] for o in out), (4, 1))), want[i])
     np.testing.assert_allclose(topo.allmax([o[2] for o in out]).numpy(),
@@ -238,11 +238,47 @@ def test_nan_on_one_shard_never_converges(sy, sx):
     assert (iters, attempts, converged) == (3, 3, False)
 
 
-def test_float64_mesh_on_the_kernel_backend_raises(monkeypatch):
-    from bachelors_tpu_torch.parallel import sharded
+@pytest.mark.parametrize("sy,sx", MESHES)
+def test_float64_mesh_on_the_kernel_backend_takes_the_twins(sy, sx, kernel_routes,
+                                                            monkeypatch):
+    """float64 on a mesh on the card's routes (each wrapper's plain version
+    on the CPU): the whole Merson attempt per shard on its apron (K2's K13
+    twin) on y, x and 2D meshes alike, the apron exchanged once per step
+    however many attempts the step makes; shards thinner than the apron
+    take the staged attempt (K12.1 + K5).  Both equal the one-device step
+    (rtol 1e-12)."""
+    calls = {}
 
-    monkeypatch.setattr(sharded, "resolve_backend", lambda p, device: "kernel")
-    _, tp = both_params(ny=16, nx=16, dtype="float64")
-    mesh, topo = make_mesh(2, 1, _cpu(2))
-    with pytest.raises(NotImplementedError, match="slice 5b.3"):
-        make_sharded_stepper(tp, mesh, topo)
+    def counted(owner, name):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        monkeypatch.setattr(owner, name, wrapper)
+
+    for name in ("rkm_attempt_sharded", "rkm_final_stage", "blend_rhs_sharded"):
+        counted(cuda_rhs, name)
+    counted(Topology, "apron")
+    for ny, nx, twin in ((32, 32, True), (4 * sy, 4 * sx, False)):
+        _, tp = both_params(nx=nx, ny=ny, L0=4.0, dt=1e-4, dtype="float64",
+                            f32_transcendentals=False, S=0.25, m0=6.0, Phi_tolerance=1e-6,
+                            T_tolerance=1e-6, min_dt=1e-12,
+                            solver=jbt.SolverType.EXPLICIT_RK4_ADAPTIVE)
+        F, U = seed_fields(np.random.default_rng(5), ny, nx, "float64")
+        st = state_from_numpy(F, U, 0.0, 0, tp.dt, device="cpu")
+        one, one_stats = make_stepper(tp)(st)
+        calls.clear()
+        mesh, topo = make_mesh(sy, sx, _cpu(sy * sx))
+        got, stats = make_sharded_stepper(tp, mesh, topo)(shard_state(st, mesh, topo))
+        got = gather_state(got)
+        n, attempts = sy * sx, stats.attempts
+        assert attempts == one_stats.attempts > 1
+        if twin:
+            assert calls == {"apron": 1, "rkm_attempt_sharded": attempts * n}
+        else:
+            assert calls == {"rkm_final_stage": attempts * n,
+                             "blend_rhs_sharded": (1 + 3 * attempts) * n}
+        np.testing.assert_allclose(got.F.numpy(), one.F.numpy(), rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(got.U.numpy(), one.U.numpy(), rtol=1e-12, atol=1e-12)
+        assert float(got.tau) == pytest.approx(float(one.tau), rel=1e-12)
