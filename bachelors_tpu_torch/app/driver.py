@@ -80,9 +80,8 @@ def check_supported(cfg: SimConfig) -> None:
     if cfg.interactive:
         todo.append("[program] interactive = true (ROADMAP slice 6, item 17: "
                     "the viewer)")
-    if cfg.run_tests or cfg.run_benchmarks:
-        todo.append("[program] run_tests/run_benchmarks (ROADMAP slice 6, "
-                    "items 16-17: bench and selftests)")
+    if cfg.run_tests:
+        todo.append("[program] run_tests (ROADMAP slice 6, item 17: the selftests)")
     if cfg.snapshot_netcdf:
         todo.append("[snapshot] netcdf (ROADMAP slice 6, item 17: io/netcdf)")
     if cfg.debug:
@@ -269,6 +268,13 @@ def run_config_file(path: str, overrides: Optional[List[str]] = None,
                     make_folder: bool = True, device="cuda") -> Optional[RunResult]:
     cfg = load_config(path, overrides)
     check_supported(cfg)
+    if cfg.run_benchmarks:
+        # the reduction sweep up to the config's cell count, on the run's
+        # first device (JAX :570-573)
+        from ..bench.microbench import run_reduction_benchmark
+
+        first = device[0] if isinstance(device, (list, tuple)) else device
+        run_reduction_benchmark(cfg.params.nx * cfg.params.ny, first)
     if not cfg.run_simulation:
         return None
     return run_simulation(cfg, device=device, make_folder=make_folder)

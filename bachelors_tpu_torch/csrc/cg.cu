@@ -35,6 +35,23 @@
 //     arithmetic on the values K8 reads, so the joined A p equals K8's bit for
 //     bit; the dot adds in another order.  Bound by bytes like K8.
 //
+// K8b bt_advance_p_matvec: replaces `pallas_cg.py:_matvec_pAp` (:49) with
+//     blend=True (entries `cross_advance_p_matvec` :258 and
+//     `aniso_advance_p_matvec` :265), the direction update of
+//     `cg_solve_fused` folded into K8: p' = r + beta p is formed at every
+//     cell K8 reads (its own and its four neighbours, as JAX forms the blend
+//     on its haloed tiles, :101-104), p' is written, and A p' and <p', A p'>
+//     come out as K8's.  The edge image -v is linear, so the image of the
+//     blend is the blend of the images.  beta is a device scalar, read
+//     through a pointer.  At float the blend keeps its FMA; at double it is
+//     rounded twice (`blend_of`), as the plain version's r + beta * p is.
+//     Bound by bytes (r, p [, s] read, p' and A p' written).  Design: K8's
+//     one thread per cell, the blend re-formed at each of the five reads
+//     (L1 catches the reuse).  p' goes to its own buffer, never p or r,
+//     whose neighbours other threads read; A p' may go over the dead Ap.
+//     One device only: JAX raises for ghost columns with the blend (:72-74)
+//     and no path wires ghost rows.
+//
 // K9  bt_update_xr_rr: replaces `pallas_cg.py:_update_xr_rr` (:310,
 //     entry `update_xr_rr` :343).  x += alpha p and r -= alpha Ap in place,
 //     and <r', r'> of the new r: block partials, then the one-block sum.
@@ -104,22 +121,52 @@ __device__ __forceinline__ Real block_sum(Real v, Real* red) {
 
 // ---------------------------------------------------------------- K8 ----
 
+// r + beta p: at float with its FMA, at double rounded at each operation,
+// as the plain version's two tensor ops are.
+__device__ __forceinline__ float blend_of(float r, float beta, float p) { return r + beta * p; }
+__device__ __forceinline__ double blend_of(double r, double beta, double p) {
+  return __dadd_rn(r, __dmul_rn(beta, p));
+}
+
+// `cross_at`'s reader of K8b's direction p' = r + beta p, formed at each read.
+template <class Real>
+struct BlendLoad {
+  const Real* r;
+  const Real* p;
+  Real beta;
+  __device__ __forceinline__ Real operator()(int idx) const {
+    return blend_of(r[idx], beta, p[idx]);
+  }
+};
+
 // K8 on the whole grid (h = whole_grid) or, with a halo (field 0 of its
 // ghosts is p's), K12.8 on a shard; the partials then sum the shard's own
-// cells only.
-template <bool WITH_S, class Real>
+// cells only.  BLEND: K8b, which reads p' = r + *beta p through `BlendLoad`
+// and writes it to p_out (whole grid only).
+template <bool WITH_S, bool BLEND, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     matvec_pAp_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
-                      Real* __restrict__ out, Real* __restrict__ partials, int ny,
-                      int nx, int bc, Real C, Real X, Real Y, Halo<Real> h) {
+                      const Real* __restrict__ r, const Real* __restrict__ beta,
+                      Real* __restrict__ p_out, Real* __restrict__ out,
+                      Real* __restrict__ partials, int ny, int nx, int bc, Real C, Real X,
+                      Real Y, Halo<Real> h) {
   __shared__ Real red[kCgThreads / 32];
   const int j = blockIdx.x * kCgBlockX + threadIdx.x;
   const int i = blockIdx.y * kCgBlockY + threadIdx.y;
   Real pAp = Real(0);
   if (i < ny && j < nx) {
     const int c = i * nx + j;
-    const Real pc = p[c];
-    const Cross<Real> n = cross_at(Load<Real>{p}, bc, 0, pc, Real(0), h, i, j, ny, nx);
+    Real pc;
+    Cross<Real> n;
+    if (BLEND) {
+      const BlendLoad<Real> at{r, p, *beta};
+      pc = at(c);
+      n = cross_at(at, bc, 0, pc, Real(0), h, i, j, ny, nx);
+      p_out[c] = pc;
+    } else {
+      pc = p[c];
+      n = cross_at(Load<Real>{p}, bc, 0, pc, Real(0), h, i, j, ny, nx);
+    }
     Real Av;
     if (WITH_S) {
       const Real sv = s[c];
@@ -222,16 +269,28 @@ inline dim3 matvec_grid(int ny, int nx) {
 
 inline int pointwise_blocks(int n) { return (n + kCgThreads - 1) / kCgThreads; }
 
+// K8 (r null) or K8b (r, beta and p_out given): out = A p (or A p', p_out
+// = p'), *pAp = the dot product.
 template <class Real>
-int matvec_pAp(const Real* p, const Real* s, Real* out, Real* partials, Real* pAp,
-               int ny, int nx, int bc, Real C, Real X, Real Y, Halo<Real> h,
-               cudaStream_t stream) {
+int matvec_pAp(const Real* p, const Real* s, const Real* r, const Real* beta, Real* p_out,
+               Real* out, Real* partials, Real* pAp, int ny, int nx, int bc, Real C, Real X,
+               Real Y, Halo<Real> h, cudaStream_t stream) {
   dim3 grid = matvec_grid(ny, nx);
   dim3 block(kCgBlockX, kCgBlockY);
-  if (s != nullptr)
-    matvec_pAp_kernel<true><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y, h);
-  else
-    matvec_pAp_kernel<false><<<grid, block, 0, stream>>>(p, s, out, partials, ny, nx, bc, C, X, Y, h);
+#define BT_MATVEC(WS, BL)                                                                  \
+  matvec_pAp_kernel<WS, BL><<<grid, block, 0, stream>>>(p, s, r, beta, p_out, out, partials, \
+                                                        ny, nx, bc, C, X, Y, h)
+  if (r != nullptr) {
+    if (s != nullptr)
+      BT_MATVEC(true, true);
+    else
+      BT_MATVEC(false, true);
+  } else if (s != nullptr) {
+    BT_MATVEC(true, false);
+  } else {
+    BT_MATVEC(false, false);
+  }
+#undef BT_MATVEC
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(static_cast<const Real*>(partials),
@@ -291,6 +350,9 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 //      operator C p + X (E+W) + Y (N+S); s given: (1 + C s) p + X s (E+W) +
 //      Y s (N+S).  bc: the field's BoundaryType (0 periodic, 1 Neumann, 2
 //      Dirichlet at 0).  out must not overlap p.
+//   K8b bt_advance_p_matvec: p_out = p' = r + beta[0] p, out = A p' and
+//      pAp[0] = <p', A p'>, A as for K8.  p_out and out overlap none of r,
+//      p, s and each other.
 //   K9 bt_update_xr_rr: x += alpha p, r -= alpha Ap (in place, n cells),
 //      rr[0] = <r, r>.
 //   K10 bt_axpby: p = a r + b p in place (n cells); a, b are device scalars.
@@ -308,8 +370,14 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 #define BT_CG_ENTRIES(SFX, S)                                                         \
   int bt_matvec_pAp_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp,       \
                           int ny, int nx, int bc, S C, S X, S Y, cudaStream_t stream) { \
-    return bt::matvec_pAp<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y,          \
-                             bt::whole_grid<S>(), stream);                            \
+    return bt::matvec_pAp<S>(p, s, nullptr, nullptr, nullptr, out, partials, pAp, ny, nx, \
+                             bc, C, X, Y, bt::whole_grid<S>(), stream);               \
+  }                                                                                   \
+  int bt_advance_p_matvec_##SFX(const S* r, const S* p, const S* s, const S* beta,   \
+                                S* p_out, S* out, S* partials, S* pAp, int ny, int nx, \
+                                int bc, S C, S X, S Y, cudaStream_t stream) {         \
+    return bt::matvec_pAp<S>(p, s, r, beta, p_out, out, partials, pAp, ny, nx, bc, C, \
+                             X, Y, bt::whole_grid<S>(), stream);                      \
   }                                                                                   \
   int bt_update_xr_rr_##SFX(S* x, S* r, const S* p, const S* Ap, const S* alpha,     \
                             S* partials, S* rr, int n, cudaStream_t stream) {         \
@@ -328,8 +396,8 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
   int bt_matvec_pAp_halo_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp,  \
                                int ny, int nx, int bc, S C, S X, S Y, const S* rows,  \
                                const S* cols, int edges, cudaStream_t stream) {       \
-    return bt::matvec_pAp<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y,          \
-                             bt::Halo<S>{rows, cols, edges}, stream);                 \
+    return bt::matvec_pAp<S>(p, s, nullptr, nullptr, nullptr, out, partials, pAp, ny, nx, \
+                             bc, C, X, Y, bt::Halo<S>{rows, cols, edges}, stream);    \
   }                                                                                   \
   int bt_si_residual_halo_##SFX(const S* e, const S* r0, const S* a, const S* b,     \
                                 const S* x, S* out, int ny, int nx, int bc, int mode, \

@@ -28,6 +28,7 @@ from typing import Sequence
 
 import torch
 
+from ..core.device import warm_cpu_math
 from ..core.params import SimParams
 
 
@@ -54,6 +55,8 @@ def _anisotropy(gx, gy, p: SimParams):
     gradients are evaluated in f32 and cast back, as the reference does
     (`simulation.cu:14-17`).
     """
+    if gx.device.type == "cpu":
+        warm_cpu_math()
     if p.f32_transcendentals and gx.dtype != torch.float32:
         gx32, gy32 = gx.float(), gy.float()
     else:

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.device import warm_cpu_math
 from .allen_cahn import sqrt_rounded
 
 
@@ -67,6 +68,8 @@ def exact_U(t, p: ExactParams = DEFAULT):
 def exact_T_profile(s, p: ExactParams = DEFAULT) -> torch.Tensor:
     """Outer similarity temperature profile T(s), s = r/R(t) >= 1."""
     s = as_tensor(s)
+    if s.device.type == "cpu":
+        warm_cpu_math()
     lam = p.lam
     sqrtl2 = math.sqrt(lam / 2.0)
     integral = (math.exp(-lam / 2)

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.device import DEFAULT_DEVICE, resolve_device, warm_cpu_math
 from ..core.params import SimParams
 from ..core.state import torch_dtype
 from . import exact as exact_mod
@@ -43,6 +43,8 @@ def make_initial_fields(p: SimParams, ic: InitialConditions,
     """Returns (F0, U0) with shape (ny, nx), dtype p.dtype, on ``device``
     (the card unless the caller asks for the CPU)."""
     device = resolve_device(device)
+    if device.type == "cpu":
+        warm_cpu_math()
     if ic.noise_T != 0.0 or ic.noise_phi != 0.0:
         raise NotImplementedError(
             "noise initial conditions (noise_T / noise_phi) are not ported "

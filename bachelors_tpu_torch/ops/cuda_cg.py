@@ -1,10 +1,10 @@
 """The conjugate-gradient kernels and their plain torch versions.
 
 The port's counterpart of ``bachelors_tpu/ops/pallas_cg.py`` and of the
-refinement residual of ``bachelors_tpu/ops/pallas_dd.py``.  Four kernels,
+refinement residual of ``bachelors_tpu/ops/pallas_dd.py``.  Kernels
 hand-written in CUDA C++ for Hopper (``csrc/cg.cu``, built by
-``ops/cuda_build.py``), three for the CG loop of ``solvers/cg.cg_solve``
-and one for the float64 semi-implicit step:
+``ops/cuda_build.py``) for the CG loops of ``solvers/cg`` and one for the
+float64 semi-implicit step:
 
   * K8 ``cross_matvec_pAp`` / ``aniso_matvec_pAp``: (A p, <p, A p>) in one
     read of p, for the constant cross operator or the per-cell anisotropy
@@ -16,6 +16,12 @@ and one for the float64 semi-implicit step:
     (``pallas_cg.cross_matvec_pAp_sharded`` :238, ``aniso_matvec_pAp_sharded``
     :249, ghosts by ``_ghost_kw`` :223); the <p, A p> it returns is the
     shard's own, and the caller adds the shards' partials.
+  * K8b ``cross_advance_p_matvec`` / ``aniso_advance_p_matvec``: the
+    direction update folded into K8 (``pallas_cg._matvec_pAp`` with
+    blend=True, ``cross_advance_p_matvec`` :258, ``aniso_advance_p_matvec``
+    :265): p' = r + beta p formed in the kernel, and (p', A p', <p', A p'>),
+    for ``cg_solve_fused``.  p' goes into ``p_out``, never into p or r (the
+    kernel reads their neighbours); A p' may go into a dead ``out``.
   * K9 ``update_xr_rr``: x += alpha p, r -= alpha Ap in place, and
     <r', r'> (``pallas_cg._update_xr_rr`` :310).
   * K10 ``axpby_inplace``: p = a r + b p in place
@@ -66,7 +72,8 @@ LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
             "axpby_inplace": 0, "cross_residual": 0, "aniso_residual": 0,
             "heat_residual": 0, "cross_matvec_pAp_sharded": 0,
             "aniso_matvec_pAp_sharded": 0, "cross_residual_sharded": 0,
-            "aniso_residual_sharded": 0, "heat_residual_sharded": 0}
+            "aniso_residual_sharded": 0, "heat_residual_sharded": 0,
+            "cross_advance_p_matvec": 0, "aniso_advance_p_matvec": 0}
 
 
 def reset_launch_counts() -> None:
@@ -107,6 +114,23 @@ def aniso_matvec_pAp_sharded_plain(A: AnisotropyMatrix, s: torch.Tensor, v: torc
     ``cross_matvec_pAp_sharded_plain``)."""
     Av = aniso_from_padded(A, s, pad_halo(v, A.boundary, halo, 0))
     return Av, torch.sum(v * Av)
+
+
+def cross_advance_p_matvec_plain(A: CrossMatrix, r: torch.Tensor, p: torch.Tensor, beta,
+                                 out: Optional[torch.Tensor] = None,
+                                 p_out: Optional[torch.Tensor] = None):
+    """(p', A p', <p', A p'>) with p' = r + beta p.  Like K8's plain version
+    it leaves ``out`` and ``p_out`` alone and returns new tensors."""
+    pn = r + beta * p
+    return (pn, *cross_matvec_pAp_plain(A, pn))
+
+
+def aniso_advance_p_matvec_plain(A: AnisotropyMatrix, s: torch.Tensor, r: torch.Tensor,
+                                 p: torch.Tensor, beta, out: Optional[torch.Tensor] = None,
+                                 p_out: Optional[torch.Tensor] = None):
+    """``cross_advance_p_matvec_plain`` for the anisotropy operator."""
+    pn = r + beta * p
+    return (pn, *aniso_matvec_pAp_plain(A, s, pn))
 
 
 def update_xr_rr_plain(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
@@ -169,6 +193,7 @@ _INT = ctypes.c_int
 _REAL = cuda_rhs._REAL
 # Each entry's arguments, as ``cuda_rhs._ENTRIES`` has them.
 _ENTRIES = {"matvec_pAp": [_PTR] * 5 + [_INT, _INT, _INT] + [_REAL] * 3 + [_PTR],
+            "advance_p_matvec": [_PTR] * 8 + [_INT, _INT, _INT] + [_REAL] * 3 + [_PTR],
             "update_xr_rr": [_PTR] * 7 + [_INT, _PTR],
             "axpby": [_PTR] * 4 + [_INT, _PTR],
             "si_residual": [_PTR] * 6 + [_INT] * 4 + [_REAL] * 4 + [_PTR]}
@@ -225,14 +250,14 @@ def _scratch(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _check_out(out: Optional[torch.Tensor], *inputs) -> None:
-    """The dead buffer Av may go to shares no storage with what the matvec
-    reads: the kernel reads p's neighbours, and a view of p would hide the
-    alias from a plain pointer test."""
+    """The dead buffer a matvec writes shares no storage with what it reads:
+    the kernel reads p's neighbours (K8b: r's and p's), and a view of p
+    would hide the alias from a plain pointer test."""
     for t in inputs:
         if (out is not None and isinstance(t, torch.Tensor)
                 and out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()):
-            raise ValueError("matvec output must not alias p (or s): the "
-                             "kernel reads p's neighbours")
+            raise ValueError("matvec output must not alias its inputs (p, r, s) or "
+                             "its other output: the kernel reads p's neighbours")
 
 
 def _matvec_pAp(name, v, s, out, bc, C, X, Y, halo: Optional[Halo] = None):
@@ -298,6 +323,56 @@ def aniso_matvec_pAp_sharded(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tens
         return aniso_matvec_pAp_sharded_plain(A, s, v, halo, out)
     return _matvec_pAp("aniso_matvec_pAp_sharded", v, s, out, A.boundary, A.Cm1, A.X, A.Y,
                        halo)
+
+
+def _check_advance_out(r, p, s, out, p_out) -> None:
+    """K8b's two outputs share no storage with r, p, s or each other."""
+    for buf in (out, p_out):
+        _check_out(buf, r, p, s)
+    _check_out(out, p_out)
+
+
+def _advance_p_matvec(name, r, p, s, beta, out, p_out, bc, C, X, Y):
+    inputs = [r, p] if s is None else [r, p, s]
+    _check(inputs + [t for t in (out, p_out) if t is not None], [beta])
+    out = torch.empty_like(p) if out is None else out
+    p_out = torch.empty_like(p) if p_out is None else p_out
+    partials, pAp = _scratch(p)
+    ny, nx = p.shape
+    with torch.cuda.device(p.device):
+        rc = cuda_rhs.entry(_lib(), "advance_p_matvec", p.dtype)(
+            r.data_ptr(), p.data_ptr(), None if s is None else s.data_ptr(), beta.data_ptr(),
+            p_out.data_ptr(), out.data_ptr(), partials.data_ptr(), pAp.data_ptr(), ny, nx,
+            _BC_CODE[bc], float(C), float(X), float(Y), _stream())
+    cuda_rhs._raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return p_out, out, pAp
+
+
+def cross_advance_p_matvec(A: CrossMatrix, r: torch.Tensor, p: torch.Tensor, beta,
+                           out: Optional[torch.Tensor] = None,
+                           p_out: Optional[torch.Tensor] = None):
+    """K8b, cross form: p' = r + beta p and (p', A p', <p', A p'>), beta a
+    0-dim tensor on the fields' device.  p' goes into ``p_out`` and A p'
+    into ``out`` when given (dead buffers; neither may share storage with r
+    or p, whose neighbours the kernel reads)."""
+    _check_advance_out(r, p, None, out, p_out)
+    if not cuda_rhs._on_cuda(p, "cross_advance_p_matvec"):
+        return cross_advance_p_matvec_plain(A, r, p, beta, out, p_out)
+    return _advance_p_matvec("cross_advance_p_matvec", r, p, None, beta, out, p_out,
+                             A.boundary, A.C, A.X, A.Y)
+
+
+def aniso_advance_p_matvec(A: AnisotropyMatrix, s: torch.Tensor, r: torch.Tensor,
+                           p: torch.Tensor, beta, out: Optional[torch.Tensor] = None,
+                           p_out: Optional[torch.Tensor] = None):
+    """K8b, per-cell form: ``cross_advance_p_matvec`` with the anisotropy
+    map s."""
+    _check_advance_out(r, p, s, out, p_out)
+    if not cuda_rhs._on_cuda(p, "aniso_advance_p_matvec"):
+        return aniso_advance_p_matvec_plain(A, s, r, p, beta, out, p_out)
+    return _advance_p_matvec("aniso_advance_p_matvec", r, p, s, beta, out, p_out,
+                             A.boundary, A.Cm1, A.X, A.Y)
 
 
 def update_xr_rr(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,

@@ -28,8 +28,12 @@ partials: JAX :111-114), alpha and beta are formed there and moved to each
 shard's device, and the loop still reads one value per iteration, the
 combined <r', r'>.
 
-``cg_solve_fused`` and ``cg_solve_diff`` are not ported: no path engages
-the first (``SI_FUSED_CG_MIN_CELLS = None``), and differentiable runs raise.
+``cg_solve_fused`` (JAX :263) is the same recurrence with the direction
+update folded into the matvec, on one device: per iteration K9 and K8b
+(``ops/cuda_cg.*_advance_p_matvec``) in place of K8, K9 and K10, one
+launch fewer, and still one host read.  ``solvers/semi_implicit``'s gate
+(``_cg_variant``) chooses it.  ``cg_solve_diff`` is not ported:
+differentiable runs raise.
 """
 from __future__ import annotations
 
@@ -175,6 +179,57 @@ def cg_solve(
             p = _axpy(r, rr_new / torch.clamp(rr, min=epsilon), p)
             rr = rr_new
             it += 1
+    return x, CGResult(error=torch.sqrt(rr / float(N)), iters=it,
+                       converged=it != max_iters)
+
+
+def cg_solve_fused(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    matvec_pAp: Callable,
+    advance_p_matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tolerance: float = 1.0e-5,
+    max_iters: int = 10,
+    epsilon: float = 1.0e-10,
+):
+    """``cg_solve`` with the direction update fused into the matvec
+    (``bachelors_tpu/solvers/cg.cg_solve_fused`` :263), on one device.
+    Returns (x, CGResult) with ``cg_solve``'s iterations, stop test and one
+    host read per iteration.
+
+    ``matvec_pAp(p)`` -> (A p, <p, A p>) runs once, before the loop (K8);
+    ``advance_p_matvec(r, p, beta, out=, p_out=)`` -> (p', A p', <p', A p'>)
+    with p' = r + beta p (K8b) ends each iteration that does not stop, the
+    matvec of iteration k + 1 hoisted to the bottom of iteration k.  A p'
+    goes over the dead A p, p' into a spare buffer allocated once per solve,
+    and the two directions swap, so a steady iteration allocates no field.
+    ``b`` is not modified."""
+    N, scaled_tol2 = _tolerance(b, tolerance)
+    if x0 is not None:
+        x = x0.clone()
+        r = b - matvec(x0)
+    else:
+        x = torch.zeros_like(b)
+        r = b.clone()  # K9 updates r in place
+    rr = torch.sum(r * r)
+    p = r.clone()
+    Ap, pAp = matvec_pAp(p)
+    spare = torch.empty_like(p)
+
+    it = 0
+    while it < max_iters:
+        alpha = rr / torch.clamp(pAp, min=epsilon)
+        x, r, rr_new = cuda_cg.update_xr_rr(x, r, p, Ap, alpha)
+        if _stop(rr_new, scaled_tol2):
+            rr = rr_new  # the JAX loop keeps p, Ap here
+            break
+        beta = rr_new / torch.clamp(rr, min=epsilon)
+        p_new, Ap, pAp = advance_p_matvec(r, p, beta, out=Ap, p_out=spare)
+        p, spare = p_new, p
+        rr = rr_new
+        it += 1
     return x, CGResult(error=torch.sqrt(rr / float(N)), iters=it,
                        converged=it != max_iters)
 

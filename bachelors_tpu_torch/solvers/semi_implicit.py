@@ -13,7 +13,10 @@ The port of ``bachelors_tpu/solvers/semi_implicit.py``
      reference has it);
   4. CG-solve A_U e_U = r0_U; next_U = T + e_U (`simulation.cu:901-908`).
 
-The CG iterations run K8-K10 (``ops/cuda_cg``) on the kernel backend.  On
+The CG iterations run K8-K10 (``ops/cuda_cg``) on the kernel backend, or
+on one device, when ``_cg_variant`` says "fused", ``cg_solve_fused``: K8
+once per solve, then K9 and K8b (the direction update folded into the
+matvec) per iteration, one launch fewer.  On
 a mesh on the card the prepare is K12.7 and the matvecs K12.8, per
 shard, each after one ghost gather per shard (``ops/rhs.stage_halos``: of
 (F, U) for the prepare, of (p, p) for a matvec, as JAX's ``_ghost_kw``
@@ -53,9 +56,25 @@ from ..ops.rhs import resolve_backend, stage_halos
 from ..ops.stencil import (AnisotropyMatrix, CrossMatrix, anisotropy_matvec,
                            cross_matvec, lap_from_padded)
 from ..parallel.topology import ONE_DEVICE, Topology
-from .cg import cg_solve
+from .cg import cg_solve, cg_solve_fused
 
 EPSILON = 1.0e-12  # the CG alpha/beta guard of the semi-implicit solves
+
+# The CG variant of the one-device kernel route (JAX :55-72): "pAp" runs
+# K8, K9 and K10 per iteration (``cg_solve``), "fused" K9 and K8b
+# (``cg_solve_fused``).  The fused variant engages from this many cells;
+# None: never, unless forced.  ``tools/ab_runs --cg-variant`` measures the
+# two on the card (PERF.md §5).
+SI_FUSED_CG_MIN_CELLS = None
+_FORCE_CG_VARIANT = None  # A/B and test hook: None | "pAp" | "fused"
+
+
+def _cg_variant(n_cells: int) -> str:
+    if _FORCE_CG_VARIANT is not None:
+        return _FORCE_CG_VARIANT
+    if SI_FUSED_CG_MIN_CELLS is not None and n_cells >= SI_FUSED_CG_MIN_CELLS:
+        return "fused"
+    return "pAp"
 
 
 def _wants_jacobi(p: SimParams) -> bool:
@@ -100,6 +119,8 @@ def cg_branch(p: SimParams, device: torch.device = torch.device("cpu"),
                 f"the true residual ({k14}) and a second solve")
     if _wants_jacobi(p):
         return "Jacobi-preconditioned CG (plain torch ops)"
+    if not topo.is_sharded and _cg_variant(p.ny * p.nx) == "fused":
+        kernel = "K8 once, then K8b per iteration,"
     if cuda_rhs.si_s_varies(p):
         return f"CG on the per-cell anisotropy operator ({kernel} aniso form)"
     return f"CG on the constant-s operator folded into a cross stencil ({kernel} cross form)"
@@ -156,6 +177,18 @@ def _matvec_pAp(A, s, topo: Topology):
     return mv
 
 
+def _advance_p_matvec(A, s):
+    """(r, p, beta, out=None, p_out=None) -> (p', A p', <p', A p'>) with p' =
+    r + beta p: K8b for the cross operator ``A`` (``s`` None) or the
+    anisotropy operator ``A`` with the map ``s``, on one device."""
+    def adv(r, p, beta, out=None, p_out=None):
+        if s is None:
+            return cuda_cg.cross_advance_p_matvec(A, r, p, beta, out=out, p_out=p_out)
+        return cuda_cg.aniso_advance_p_matvec(A, s, r, p, beta, out=out, p_out=p_out)
+
+    return adv
+
+
 def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
                              topo: Topology = ONE_DEVICE):
     """One semi-implicit step, on one device or, with a sharded ``topo``,
@@ -175,6 +208,11 @@ def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
 
     A_F = AnisotropyMatrix.implicit_phase(p)
     jacobi = _wants_jacobi(p)
+    # the fused variant's gate (JAX :163-224): one device, the kernel route
+    # (never differentiable: such params raise), and for the phase system no
+    # Jacobi
+    fused = kernel and not topo.is_sharded and _cg_variant(F.numel()) == "fused"
+    adv_F = None
     if jacobi or not kernel:
         mv_F = None
     elif s_const:
@@ -183,23 +221,34 @@ def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
         A_Fc = CrossMatrix(C=1 + A_F.Cm1 * s, X=A_F.X * s, Y=A_F.Y * s,
                            boundary=p.Phi_boundary)
         mv_F = _matvec_pAp(A_Fc, None, topo)
+        adv_F = _advance_p_matvec(A_Fc, None)
     else:
         mv_F = _matvec_pAp(A_F, s, topo)
-    e_F, res_F = cg_solve(
-        lambda v: anisotropy_matvec(A_F, s, v, topo), r0_F,
-        tolerance=p.Phi_tolerance, max_iters=p.Phi_max_iters, epsilon=EPSILON,
-        matvec_pAp=mv_F, diag=each(lambda m: 1 + A_F.Cm1 * m, s) if jacobi else None,
-        topo=topo)
+        adv_F = _advance_p_matvec(A_F, s)
+    mvx_F = lambda v: anisotropy_matvec(A_F, s, v, topo)  # noqa: E731
+    if fused and adv_F is not None:
+        e_F, res_F = cg_solve_fused(mvx_F, mv_F, adv_F, r0_F, tolerance=p.Phi_tolerance,
+                                    max_iters=p.Phi_max_iters, epsilon=EPSILON)
+    else:
+        e_F, res_F = cg_solve(
+            mvx_F, r0_F, tolerance=p.Phi_tolerance, max_iters=p.Phi_max_iters,
+            epsilon=EPSILON, matvec_pAp=mv_F,
+            diag=each(lambda m: 1 + A_F.Cm1 * m, s) if jacobi else None, topo=topo)
     next_F = each(torch.add, F, e_F)
 
     r0_U = each(lambda *a: _heat_rhs(*a, p), U_base, U, e_F, uterm)
 
     A_U = CrossMatrix.implicit_heat(p)
     mv_U = _matvec_pAp(A_U, None, topo) if kernel else None
-    e_U, res_U = cg_solve(
-        lambda v: cross_matvec(A_U, v, topo), r0_U,
-        tolerance=p.T_tolerance, max_iters=p.T_max_iters, epsilon=EPSILON,
-        matvec_pAp=mv_U, topo=topo)
+    mvx_U = lambda v: cross_matvec(A_U, v, topo)  # noqa: E731
+    if fused:  # heat always in the cross form
+        e_U, res_U = cg_solve_fused(mvx_U, mv_U, _advance_p_matvec(A_U, None), r0_U,
+                                    tolerance=p.T_tolerance, max_iters=p.T_max_iters,
+                                    epsilon=EPSILON)
+    else:
+        e_U, res_U = cg_solve(mvx_U, r0_U, tolerance=p.T_tolerance,
+                              max_iters=p.T_max_iters, epsilon=EPSILON, matvec_pAp=mv_U,
+                              topo=topo)
     next_U = each(torch.add, U, e_U)
     return next_F, next_U, res_F, res_U
 

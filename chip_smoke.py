@@ -10,10 +10,16 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
 (stats every step, 11 snapshots):
 
   * RKM, the shipped solver: K2 (the whole Merson attempt);
-  * semi-implicit at the CG tolerance 5e-9: K7 (the prepare) and the CG
-    kernels K8 (matvec + <p, Ap>), K9 (x/r update + <r, r>) and K10 (axpby);
-    then the same with the corrector loop and step residuals, cut to 800
-    steps;
+  * semi-implicit at the CG tolerance 5e-9, under both CG variants: "pAp",
+    K7 (the prepare) and the CG kernels K8 (matvec + <p, Ap>), K9 (x/r
+    update + <r, r>) and K10 (axpby); "fused", K8 once per solve, then K9
+    and K8b (the direction update folded into the matvec) per iteration;
+    then, with the gate's variant, the corrector loop and step residuals,
+    cut to 800 steps;
+  * the reduction microbench (``bench/microbench``) to 2*4096^2 values:
+    torch.amax, the plain stats pass and K11 (sum, L1, L2, min, max in one
+    read), in GB/s; and the shipped RKM run with ``[program]
+    run_benchmarks = true``, which runs that sweep up to 512^2 first;
   * forward Euler: K1 in euler mode; then with ``collect_stats = false``,
     K6 (4 Euler steps per launch);
   * fixed-step RK4: K1 for k1..k3 and K4 (k4 + the combination) at 512^2;
@@ -84,6 +90,11 @@ non-zero without printing the final line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
+Before the paths, K8b and K11 are held to their plain versions as the
+other kernels are (K8b at both dtypes, every BC pair; K11 at each sweep
+size, 2*4096^2 and a ragged size), and a lockstep of the fused variant
+against the plain step.
+
 The line before it lists each kernel, at each dtype, with its launches on
 its path, its largest disagreement with the plain version, both times, its
 bound (the least time the card could take, from the bytes and operations of
@@ -115,7 +126,8 @@ from bachelors_tpu_torch.core.state import Shards, make_state  # noqa: E402
 from bachelors_tpu_torch.io.config import load_config  # noqa: E402
 from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
-from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs  # noqa: E402
+from bachelors_tpu_torch.bench import microbench  # noqa: E402
+from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs, cuda_stats  # noqa: E402
 from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos  # noqa: E402
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix  # noqa: E402
 from bachelors_tpu_torch.parallel.mesh import (gather_state, make_mesh, shard_field,  # noqa: E402
@@ -167,6 +179,15 @@ EXACT = "[simulation]\nsolver = exact\ndo_exact = true\nstop_after = 0.0005\n[sn
 # the semi-implicit path cut to 1000 steps, on one device and on the meshes
 SI_CUT = "[simulation]\nstop_after = 0.005\n"
 SI_CG_ITERS_RTOL = 0.02  # a mesh run's CG iterations against one device's
+# K11 and the reduction microbench: the sweep's sizes up to 2 * 4096^2, that
+# size itself and a ragged one; sum, L1 and L2 held at K11_RTOL (the plain
+# version sums in float32, the kernel in float64), min and max exactly
+K11_SIZES = (*microbench.reduction_sizes(microbench.DEFAULT_N_MAX), microbench.DEFAULT_N_MAX,
+             1_000_003)
+K11_RTOL = 1e-5
+# the driver's hook: the reduction sweep up to the config's 512^2 cells,
+# then the shipped RKM run
+RUN_BENCHMARKS = "[program]\nrun_benchmarks = true\n"
 # The float64 paths: the reference's benchmark configs as they ship, with an
 # initial frame (written before the timed loop) to check the seed's growth
 # against, and the reference's A100 run time of each (BASELINE.md:14-20)
@@ -231,7 +252,9 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
                    "update_xr_rr_plain", "axpby_inplace_plain", "cross_residual_plain",
                    "aniso_residual_plain", "heat_residual_plain",
-                   "cross_matvec_pAp_sharded_plain", "aniso_matvec_pAp_sharded_plain"),
+                   "cross_matvec_pAp_sharded_plain", "aniso_matvec_pAp_sharded_plain",
+                   "cross_advance_p_matvec_plain", "aniso_advance_p_matvec_plain"),
+         cuda_stats: ("field_stats_plain",),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
 
 
@@ -264,6 +287,11 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K6 T=8": 8 * (PHYS_OPS + 4),     # 8 Euler steps
        "K7": PHYS_OPS, "K12.7": PHYS_OPS,  # K7 on a shard
        "K8 cross": 9, "K8 aniso": 13, "K9": 6, "K10": 3,
+       # K8b: K8 plus the blend r + beta p at each of its five reads
+       "K8b cross": 9 + 10, "K8b aniso": 13 + 10,
+       # per value: 3 adds and a square (in double: at 34 TFLOP/s still ~10x
+       # under the byte bound), min, max
+       "K11": 6,
        "K12.8 cross": 9, "K12.8 aniso": 13,  # K8 on a shard
        "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11}
 PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1,
@@ -275,6 +303,7 @@ FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
           "K6 T=8": 2 + 2, "K7": 2 + 3, "K8 cross": 1 + 1, "K8 aniso": 2 + 1,
           "K12.7": 2 + 3, "K12.8 cross": 1 + 1, "K12.8 aniso": 2 + 1,
           "K9": 4 + 2, "K10": 2 + 1, "K14 cross": 2 + 1, "K14 aniso": 3 + 1,
+          "K8b cross": 2 + 2, "K8b aniso": 3 + 2, "K11": 1,
           "K14 heat": 4 + 1}
 
 
@@ -329,6 +358,23 @@ def time_pair(kernel, plain, reps: int):
     k2 = time_ms(kernel, reps)
     p2 = time_ms(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_us(fn, reps: int, kernel: str):
+    """Device µs per launch of the kernels whose name holds ``kernel``, over
+    ``reps`` calls of ``fn`` under torch.profiler (device events only), or
+    None where the trace recorded none of them (CUPTI drops events now and
+    then on that machine)."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return (sum(e.self_device_time_total for e in ev) / reps) if ev else None
 
 
 def card_limit() -> str:
@@ -625,14 +671,19 @@ def s_map(rng, ny, nx, dtype="float32"):
 
 
 def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33, 129)),
-                     timed=(512, 2048)) -> dict:
+                     timed=(512, 2048), k8b_rng=None) -> dict:
     """K8 (cross and anisotropy forms), K9, K10 and K14 (its four modes)
-    against their plain versions, on the slice's operators with each BC.
+    against their plain versions, on the slice's operators with each BC,
+    and K8b (the blended matvec, both forms) with each BC pair, the heat
+    operator at the T boundary and the phase operator at the Phi one.
     Fields at the dtype's field tolerance, dot products at its sum
-    tolerance; K8 must write its dead output buffer and never p."""
+    tolerance; K8 must write its dead output buffer and never p, K8b its
+    two buffers and never r or p.  K8b's fields come from ``k8b_rng``, so
+    the checks of the other kernels, here and after, see the fields they
+    saw before K8b was added."""
     prec = PRECISION[dtype]
     tdt = getattr(torch, dtype)
-    worst = {k: [0.0, 0.0] for k in ("K8", "K9", "K10", "K14")}  # rel, abs
+    worst = {k: [0.0, 0.0] for k in ("K8", "K9", "K10", "K14", "K8b", "K8b p'")}  # rel, abs
     worst_sum = 0.0
     cases = 0
 
@@ -692,14 +743,37 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                      cuda_cg.heat_residual_plain(r, (x, e2), v, A_U, p.L, Ap))):
                 compare("K14", got, want, f"{form} {what}")
             cases += 1
+        for f_bc, u_bc in BC_PAIRS:
+            A_U = cg_operators(p, u_bc or f_bc)[0]
+            A_F = cg_operators(p, f_bc)[1]
+            (r, v), s = fields(k8b_rng, ny, nx, 1, dtype)[0], s_map(k8b_rng, ny, nx, dtype)
+            r0, v0, beta = r.clone(), v.clone(), scalar(0.43)
+            what = f"{ny}x{nx} {f_bc}/{u_bc or f_bc}"
+            for form, call, plain in (
+                    ("cross", lambda **kw: cuda_cg.cross_advance_p_matvec(A_U, r, v, beta, **kw),
+                     lambda: cuda_cg.cross_advance_p_matvec_plain(A_U, r, v, beta)),
+                    ("aniso", lambda **kw: cuda_cg.aniso_advance_p_matvec(A_F, s, r, v, beta, **kw),
+                     lambda: cuda_cg.aniso_advance_p_matvec_plain(A_F, s, r, v, beta))):
+                out, p_out = torch.empty_like(v), torch.empty_like(v)
+                got, want = call(out=out, p_out=p_out), plain()
+                if got[0] is not p_out or got[1] is not out:
+                    raise AssertionError(f"K8b did not write its buffers ({form} {what})")
+                compare("K8b p'", got[0], want[0], f"{form} {what}")
+                compare("K8b", got[1], want[1], f"{form} {what}")
+                compare_sum("K8b", got[2], want[2], f"{form} {what}")
+            if not (torch.equal(r, r0) and torch.equal(v, v0)):
+                raise AssertionError(f"K8b wrote into r or p ({what})")
+            cases += 1
     torch.cuda.synchronize()
     times = {"K8 cross": {}, "K8 aniso": {}, "K9": {}, "K10": {}, "K14 cross": {},
-             "K14 heat": {}}
+             "K14 heat": {}, "K8b cross": {}, "K8b aniso": {}}
+    k8b_us = {}  # device µs per call (both launches), by form and size
     for size in timed:
         p = p0.replace(ny=size, nx=size)
         A_U, A_F = cg_operators(p, "neumann")
         v, x, r, Ap = fields(rng, size, size, 1, dtype)[0] + fields(rng, size, size, 1, dtype)[0]
         s, dead = s_map(rng, size, size, dtype), torch.empty_like(v)
+        dead_p, beta = torch.empty_like(v), scalar(0.43)
         alpha = scalar(1e-3)
         a, b = scalar(1.0), scalar(0.5)
         reps = 50 if size == 512 else 10
@@ -718,23 +792,39 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                 ("K14 cross", lambda: cuda_cg.cross_residual(r, v, A_U),
                  lambda: cuda_cg.cross_residual_plain(r, v, A_U)),
                 ("K14 heat", lambda: cuda_cg.heat_residual(r, (x, Ap), v, A_U, p.L),
-                 lambda: cuda_cg.heat_residual_plain(r, (x, Ap), v, A_U, p.L))):
+                 lambda: cuda_cg.heat_residual_plain(r, (x, Ap), v, A_U, p.L)),
+                ("K8b cross", lambda: cuda_cg.cross_advance_p_matvec(A_U, r, v, beta, out=dead,
+                                                                     p_out=dead_p),
+                 lambda: cuda_cg.cross_advance_p_matvec_plain(A_U, r, v, beta)),
+                ("K8b aniso", lambda: cuda_cg.aniso_advance_p_matvec(A_F, s, r, v, beta,
+                                                                     out=dead, p_out=dead_p),
+                 lambda: cuda_cg.aniso_advance_p_matvec_plain(A_F, s, r, v, beta))):
             times[name][size] = time_pair(kernel, plain, reps)
-    phase(titled("CG kernels K8-K10 and K14 vs plain", dtype), cases=cases,
+        # K8b's two launches (the blended matvec, then the one-block sum)
+        for form, call in (
+                ("cross", lambda: cuda_cg.cross_advance_p_matvec(A_U, r, v, beta, out=dead,
+                                                                 p_out=dead_p)),
+                ("aniso", lambda: cuda_cg.aniso_advance_p_matvec(A_F, s, r, v, beta, out=dead,
+                                                                 p_out=dead_p))):
+            k8b_us[f"{form} {size}^2"] = device_us(call, reps, "bt::")
+    phase(titled("CG kernels K8-K10, K14 and K8b vs plain", dtype), cases=cases,
           max_rel_err={k: w[0] for k, w in worst.items()},
           max_abs_err={k: w[1] for k, w in worst.items()},
           max_dot_rel_err=worst_sum, tol=prec["field_tol"], dot_rtol=prec["sum_rtol"],
           ms={name: ms_table(t) for name, t in times.items()},
           library={"K10": f"torch.addcmul(r, b, p): {library_k10} ms at {timed[0]}^2",
-                   "K8, K9, K14": "none: no PyTorch call computes them"})
+                   "K8, K8b, K9, K14": "none: no PyTorch call computes them"},
+          K8b_device_us_per_call=k8b_us, card=card_limit())
     first = timed[0]
 
     def mean(values):
         values = list(values)
         return sum(values) / len(values)
 
-    # K8's entry is the mean of its cross and anisotropy forms, K14's of its
-    # cross and heat forms (the float64 sweep config's)
+    # K8's and K8b's entries are the means of their cross and anisotropy
+    # forms, K14's of its cross and heat forms (the float64 sweep config's);
+    # K8b's error is the larger of p''s and A p''s
+    worst["K8b"][1] = max(worst["K8b"][1], worst["K8b p'"][1])
     return {name: {"max_abs_err": worst[name][1],
                    "ms": mean(times[t][first][0] for t in keys),
                    "plain_ms": mean(times[t][first][1] for t in keys),
@@ -742,7 +832,8 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                    "bound_by": bound(keys[0], first * first, dtype)["bound_by"],
                    "library_ms": library_k10 if name == "K10" else None}
             for name, keys in (("K8", ("K8 cross", "K8 aniso")), ("K9", ("K9",)),
-                               ("K10", ("K10",)), ("K14", ("K14 cross", "K14 heat")))}
+                               ("K10", ("K10",)), ("K14", ("K14 cross", "K14 heat")),
+                               ("K8b", ("K8b cross", "K8b aniso")))}
 
 
 def check_lockstep(cfg, F0, U0, steps=5, tol=FIELD_TOL,
@@ -819,6 +910,97 @@ def check_si_lockstep(cfg, F0, U0, steps=5, tol=FIELD_TOL,
     phase(name, steps=steps, max_rel_err=worst[0], tol=tol, max_increment_rel_err=worst[1],
           increment_tol="tol * max|increment| + 2 ulp(max|field|)",
           steps_with_cg_iters_off_by_one=off_by_one, cg_iters_kernel_vs_plain=iters)
+
+
+def check_fused_si_lockstep(cfg, F0, U0, steps=5) -> None:
+    """``check_si_lockstep`` with the fused CG variant forced: the kernel
+    step runs K8 once per solve, then K9 and K8b per iteration and no K10,
+    against the plain step on the card; CG counts within one."""
+    forced = semi_implicit._FORCE_CG_VARIANT
+    semi_implicit._FORCE_CG_VARIANT = "fused"
+    cuda_cg.reset_launch_counts()
+    try:
+        check_si_lockstep(cfg, F0, U0, steps,
+                          name="semi-implicit lockstep, fused CG variant (K8b), kernels vs plain")
+    finally:
+        semi_implicit._FORCE_CG_VARIANT = forced
+    n = cuda_cg.LAUNCHES
+    if not (min(n["aniso_advance_p_matvec"], n["cross_advance_p_matvec"]) > 0
+            and n["axpby_inplace"] == 0):
+        raise AssertionError(f"the fused lockstep did not run K8b without K10: {n}")
+
+
+def check_k11() -> dict:
+    """K11 against its plain version on the microbench's data (uniform in
+    [0, 1), from a generator seeded 0) at each size of ``K11_SIZES``: min
+    and max exactly, sum, L1 and L2 within ``K11_RTOL``; a NaN reaches all
+    five.  Timed at 2 * 4096^2 beside ``torch.amax`` of the same tensor,
+    which computes one of the five values."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    worst = [0.0, 0.0]  # rel, abs
+    for n in K11_SIZES:
+        x = torch.rand(n, generator=gen, device=DEVICE)
+        got, want = cuda_stats.cuda_field_stats(x), cuda_stats.field_stats_plain(x)
+        for k in ("min", "max", "sum", "L1", "L2"):
+            g, w = getattr(got, k).item(), getattr(want, k).item()
+            worst[0] = max(worst[0], abs(g - w) / max(abs(w), 1e-30))
+            worst[1] = max(worst[1], abs(g - w))
+            if not (g == w if k in ("min", "max") else abs(g - w) <= K11_RTOL * abs(w)):
+                raise AssertionError(f"K11 {k} {g} vs plain {w} at n = {n}")
+    x[n // 2] = float("nan")
+    if not all(np.isnan(v.item()) for v in dataclasses.astuple(cuda_stats.cuda_field_stats(x))):
+        raise AssertionError("K11 dropped a NaN")
+    n = microbench.DEFAULT_N_MAX
+    x = torch.rand(n, generator=gen, device=DEVICE)
+    ms, plain_ms = time_pair(lambda: cuda_stats.cuda_field_stats(x),
+                             lambda: cuda_stats.field_stats_plain(x), 20)
+    library_ms = time_ms(lambda: torch.amax(x), 20)
+    dev_us = device_us(lambda: cuda_stats.cuda_field_stats(x), 20, "bt::field_stats")
+    entry = {"max_abs_err": worst[1], "ms": ms, "plain_ms": plain_ms, **bound("K11", n),
+             "library_ms": library_ms}
+    phase("K11 field_stats vs plain", sizes=list(K11_SIZES), max_rel_err=worst[0],
+          max_abs_err=worst[1], rtol=K11_RTOL, min_max="exact", nan="propagated",
+          timed_n=n, card=card_limit(), ms=ms, device_us_per_call=dev_us, plain_ms=plain_ms,
+          bound_ms=entry["bound_ms"],
+          share_of_bound=entry["bound_ms"] / ms,
+          library="torch.amax (one of the five values)", library_ms=library_ms)
+    return entry
+
+
+def microbench_path() -> dict:
+    """The reduction microbench as the port runs it, to 2 * 4096^2: the
+    three rivals' GB/s per size, K11 launched (counted from 0 around the
+    sweep) and no plain version called."""
+    plain = cuda_stats.field_stats_plain
+    calls = []
+    cuda_stats.field_stats_plain = lambda *a, **kw: calls.append(1) or plain(*a, **kw)
+    cuda_stats.reset_launch_counts()
+    try:
+        results = microbench.run_reduction_benchmark(microbench.DEFAULT_N_MAX)
+    finally:
+        cuda_stats.field_stats_plain = plain
+    launches = cuda_stats.LAUNCHES["field_stats"]
+    if calls or not launches or [r["n"] for r in results] != list(K11_SIZES[:-2]):
+        raise AssertionError(f"microbench: {len(calls)} plain calls, {launches} K11 "
+                             f"launches, sizes {[r['n'] for r in results]}")
+    phase("reduction microbench to 2*4096^2 (GB/s: torch.amax, plain stats pass, K11)",
+          card=card_limit(), results=results, K11_launches=launches)
+    return {"field_stats": launches}
+
+
+def benchmarks_hook_path(rkm_one) -> dict:
+    """The shipped config with ``[program] run_benchmarks = true``: the
+    reduction sweep up to its 512^2 cells through K11, then the RKM run,
+    whose steps and attempts are the plain RKM run's of this call."""
+    run = drive([RUN_BENCHMARKS])
+    n = run["launches"]
+    expect(n["field_stats"] > 0 and n["rkm_attempt"] == run["res"].attempts
+           and run["res"].iters == rkm_one["steps"],
+           "the sweep through K11, then the RKM run at its step count", run)
+    phase("driver hook run_benchmarks = true (the sweep at 512^2, then the RKM run)",
+          sweep_sizes=microbench.reduction_sizes(512 * 512), K11_launches=n["field_stats"],
+          attempts=run["res"].attempts, **run["summary"])
+    return n
 
 
 def check_rk4_lockstep(routes, steps=5, tol=FIELD_TOL,
@@ -909,12 +1091,13 @@ def drive(overrides, grow=True, config=CONFIG, device=None, frames=False) -> dic
             setattr(mod, name, counted(f"{mod.__name__.rsplit('.', 1)[1]}.{name}", fn))
         cuda_rhs.reset_launch_counts()
         cuda_cg.reset_launch_counts()
+        cuda_stats.reset_launch_counts()
         cg.reset_host_reads()
         try:
             res = run_config_file(config, overrides + [f"[snapshot]\nfolder = {out}\n"],
                                   device=device or DEVICE)
         finally:
-            launches = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}
+            launches = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES, **cuda_stats.LAUNCHES}
             host_reads = cg.HOST_READS["cg_stop_test"]
             for (mod, name), fn in originals.items():
                 setattr(mod, name, fn)
@@ -954,20 +1137,38 @@ def rkm_path() -> dict:
     return n, run["summary"]
 
 
-def si_path(overrides, name):
+def si_path(overrides, name, variant=None):
     """The semi-implicit solver: K7 once per step (and per corrector pass),
-    the CG iterations through K8-K10 and one host read each.  Returns the
-    launches and the run's summary with its CG iterations and their means
-    per step, the yardstick of its mesh runs."""
-    run = drive(overrides)
+    the CG iterations through K8-K10 ("pAp") or, with the fused variant, K8
+    once per solve and K9 and K8b per iteration, no K10; one host read per
+    iteration.  ``variant`` forces the CG variant
+    (``semi_implicit._FORCE_CG_VARIANT``) for the run; by default the gate
+    chooses.  Returns the launches and the run's summary with its CG
+    iterations and their means per step, the yardstick of its mesh runs."""
+    forced = semi_implicit._FORCE_CG_VARIANT
+    semi_implicit._FORCE_CG_VARIANT = variant
+    try:
+        run = drive(overrides)
+        branch = semi_implicit.cg_branch(run["cfg"].params, torch.device(DEVICE))
+    finally:
+        semi_implicit._FORCE_CG_VARIANT = forced
     n, steps, p = run["launches"], run["res"].iters, run["cfg"].params
+    variant = variant or semi_implicit._cg_variant(p.ny * p.nx)
     passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
     cg_iters = n["update_xr_rr"]
+    k8 = n["aniso_matvec_pAp"] + n["cross_matvec_pAp"]
+    k8b = n["aniso_advance_p_matvec"] + n["cross_advance_p_matvec"]
     expect(steps == round(run["cfg"].stop_time / p.dt), "one step per dt", run)
     expect(n["si_prepare"] == passes * steps, "K7 once per pass", run)
-    expect(min(n["aniso_matvec_pAp"], n["cross_matvec_pAp"], n["axpby_inplace"]) > 0
-           and n["aniso_matvec_pAp"] + n["cross_matvec_pAp"] == cg_iters,
-           "K8 and K9 once per CG iteration, K10 launched", run)
+    if variant == "fused":
+        expect(min(n["aniso_matvec_pAp"], n["cross_matvec_pAp"], n["aniso_advance_p_matvec"],
+                   n["cross_advance_p_matvec"]) > 0 and k8 == 2 * n["si_prepare"]
+               and k8 + k8b == cg_iters and n["axpby_inplace"] == 0,
+               "K8 once per solve, K8b and K9 once per CG iteration, no K10", run)
+    else:
+        expect(min(n["aniso_matvec_pAp"], n["cross_matvec_pAp"], n["axpby_inplace"]) > 0
+               and k8 == cg_iters and k8b == 0,
+               "K8 and K9 once per CG iteration, K10 launched, no K8b", run)
     expect(n["blend_rhs"] == n["rkm_attempt"] == 0, "no RHS kernels", run)
     expect(n["cross_residual"] == n["aniso_residual"] == n["heat_residual"] == 0,
            "no refinement at float32", run)
@@ -981,12 +1182,13 @@ def si_path(overrides, name):
             raise AssertionError(f"step residual columns {h[12:]} not all present and finite")
         extra = {"step_res_columns": len(res_cols),
                  "step_res_L1_last_iter_mean": float(rows[:, res_cols[-4]].mean())}
-    summary = dict(run["summary"], cg_iterations=cg_iters, **cg_means(run))
+    summary = dict(run["summary"], cg_variant=variant, cg_iterations=cg_iters,
+                   **cg_means(run))
     phase(name, **summary,
           max_Phi_iters=int(rows[:, h.index("Phi_iters")].max()),
           max_T_iters=int(rows[:, h.index("T_iters")].max()),
           host_reads=run["host_reads"], host_reads_per_step=run["host_reads"] / steps,
-          cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE)), **extra)
+          cg_branch=branch, **extra)
     return n, summary
 
 
@@ -2170,6 +2372,7 @@ def main() -> None:
     args = ap.parse_args()
     kind = card()
     rng = np.random.default_rng(args.seed)
+    k8b_rng = np.random.default_rng([args.seed, 0x8B])
 
     t0 = time.perf_counter()
     lib = cuda_build.build()
@@ -2192,7 +2395,8 @@ def main() -> None:
     k3 = check_k3(rng)
     k6 = check_k6(rng)
     k7 = check_k7(rng)
-    k8_10 = check_cg_kernels(rng, si_cfg.params)
+    k8_10 = check_cg_kernels(rng, si_cfg.params, k8b_rng=k8b_rng)
+    k11 = check_k11()
     mesh_k = check_mesh_kernels(rng)
     mesh_fixed_k = check_mesh_fixed_kernels(rng)
     mesh_si_k = check_mesh_si_kernels(rng)
@@ -2205,7 +2409,7 @@ def main() -> None:
     d3 = check_k3(rng, "float64")
     d6 = check_k6(rng, "float64")
     d7 = check_k7(rng, "float64")
-    d8_10 = check_cg_kernels(rng, f64["semi-implicit"].params, "float64")
+    d8_10 = check_cg_kernels(rng, f64["semi-implicit"].params, "float64", k8b_rng=k8b_rng)
     mesh64_k = time_mesh_f64_kernels(rng, check_mesh_f64_kernels(rng))
 
     check_lockstep(cfg, F0, U0)
@@ -2213,6 +2417,7 @@ def main() -> None:
     check_mesh_fixed_locksteps(F0, U0)
     check_mesh_si_lockstep(si_cfg, F0, U0)
     check_si_lockstep(si_cfg, F0, U0)
+    check_fused_si_lockstep(si_cfg, F0, U0)
     check_rk4_lockstep([("512^2, staged", load_config(CONFIG, [RK4])),
                         ("4096^2 cut, K3", load_config(CONFIG, [RK4, CUT]))])
     tol64 = PRECISION["float64"]["field_tol"]
@@ -2228,7 +2433,12 @@ def main() -> None:
     mesh_runs = {name: mesh_path(f"main path (RKM) on a {name} mesh", *shape, rkm_one)
                  for name, shape in MESHES.items()}
     cut = mesh_path("RKM, 2048^2 cut on a y(4) mesh", 4, 1, None, [CUT_2048], grow=False)
-    si, _ = si_path([SEMI], "semi-implicit path")
+    bench_hook = benchmarks_hook_path(rkm_one)
+    microbench_path()
+    # the shipped semi-implicit run under both CG variants, whatever the gate
+    si, _ = si_path([SEMI], "semi-implicit path, pAp CG variant (K8, K9, K10)", "pAp")
+    si_fused, _ = si_path([SEMI], "semi-implicit path, fused CG variant (K8 once a solve, "
+                          "K9, K8b)", "fused")
     _, si_corrector_one = si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
     euler, euler_one = euler_path()
     euler_fast, euler_fast_one = euler_blocks_path([EULER, NO_STATS], 4,
@@ -2319,6 +2529,14 @@ def main() -> None:
                      f"{pallas_cg}:310", si["update_xr_rr"], k8_10["K9"]),
         kernel_entry("K10 axpby_inplace (CG direction update)", cg_src,
                      f"{pallas_cg}:274", si["axpby_inplace"], k8_10["K10"]),
+        kernel_entry("K8b advance_p_matvec (CG direction update folded into the matvec, "
+                     "cross and aniso; semi-implicit path, fused CG variant)", cg_src,
+                     f"{pallas_cg}:258",
+                     si_fused["cross_advance_p_matvec"] + si_fused["aniso_advance_p_matvec"],
+                     k8_10["K8b"]),
+        kernel_entry("K11 field_stats (sum, L1, L2, min, max in one read; the reduction "
+                     "microbench of the run_benchmarks hook)", "stats.cu",
+                     "bachelors_tpu/ops/pallas_stats.py:38", bench_hook["field_stats"], k11),
         kernel_entry("K5 rkm_final_stage (Merson stage 5 + update + error maxima, with "
                      "ghosts; RKM on x(2) and 2x2 meshes)", rhs_src, f"{pallas_rhs}:441",
                      sum(mesh_runs[m]["rkm_final_stage"] for m in ("x(2)", "2x2")),
@@ -2383,6 +2601,11 @@ def main() -> None:
                      f"{pallas_cg}:310", si64["update_xr_rr"], d8_10["K9"]),
         kernel_entry("K10 axpby_inplace at float64 (float64 CG)", cg_src,
                      f"{pallas_cg}:274", si64["axpby_inplace"], d8_10["K10"]),
+        kernel_entry("K8b advance_p_matvec at float64 (checked against its plain version "
+                     "only: no float64 path takes the fused CG variant)", cg_src,
+                     f"{pallas_cg}:258",
+                     si64["cross_advance_p_matvec"] + si64["aniso_advance_p_matvec"],
+                     d8_10["K8b"]),
         kernel_entry("K14 si_residual at float64 (refinement residual r0 - A e, cross "
                      "and heat forms; float64 semi-implicit path)", cg_src,
                      "bachelors_tpu/ops/pallas_dd.py:749",

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams
-from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs
+from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs, cuda_stats
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix, cross_matvec
 from bachelors_tpu_torch.solvers import cg, semi_implicit
 from torch_parity import assert_match, cuda_device, random_fields, seed_fields  # noqa: F401
@@ -244,6 +244,119 @@ def test_cg_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
         cuda_cg.axpby_inplace(1.0, torch.tensor(0.5, device=cuda_device), v, v.clone())
     with pytest.raises(TypeError, match="share a dtype"):
         cuda_cg.cross_matvec_pAp(A_U, v.double(), out=v.clone())
+
+
+# K8b at every BC pair of the matvec (one field: the CG vector's own BC)
+K8B_SHAPES = ((512, 512), (33, 129))
+
+
+def _k8b_close(got, want, dtype):
+    """p' and A p' at the dtype's field tolerance, <p', A p'> at its dot
+    tolerance."""
+    if dtype == "float32":
+        assert_match(got[0], want[0])
+        assert_match(got[1], want[1])
+        np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=1e-5)
+    else:
+        _f64_close(got[:2], want[:2])
+        np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=F64_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+def test_advance_p_matvec_kernel_matches_plain(bc, dtype, gen, cuda_device):  # noqa: F811
+    """K8b, cross and anisotropy forms, against its plain version; p' and
+    A p' go into the buffers passed in, and r and p are left alone."""
+    A_U, A_F = _operators(bc)
+    for ny, nx in K8B_SHAPES:
+        r, p = (torch.from_numpy(gen.normal(size=(ny, nx)).astype(dtype)).to(cuda_device)
+                for _ in range(2))
+        s = torch.from_numpy((0.33 + 0.08 * gen.uniform(-1, 1, size=(ny, nx)))
+                             .astype(dtype)).to(cuda_device)
+        beta = torch.tensor(0.43, dtype=getattr(torch, dtype), device=cuda_device)
+        r0, p0 = r.clone(), p.clone()
+        for form in ("cross", "aniso"):
+            out, p_out = torch.empty_like(p), torch.empty_like(p)
+            name = f"{form}_advance_p_matvec"
+            before = cuda_cg.LAUNCHES[name]
+            if form == "cross":
+                got = cuda_cg.cross_advance_p_matvec(A_U, r, p, beta, out=out, p_out=p_out)
+                want = cuda_cg.cross_advance_p_matvec_plain(A_U, r, p, beta)
+            else:
+                got = cuda_cg.aniso_advance_p_matvec(A_F, s, r, p, beta, out=out, p_out=p_out)
+                want = cuda_cg.aniso_advance_p_matvec_plain(A_F, s, r, p, beta)
+            assert cuda_cg.LAUNCHES[name] == before + 1
+            assert got[0] is p_out and got[1] is out
+            _k8b_close(got, want, dtype)
+        assert torch.equal(r, r0) and torch.equal(p, p0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+def test_cg_solve_fused_through_kernels_matches_cg_solve(bc, dtype, gen, cuda_device):  # noqa: F811
+    """``cg_solve_fused`` on K8, K9 and K8b against ``cg_solve`` on K8-K10:
+    the same recurrence, so the same iterations (float32: within one, the
+    dot products of different kernels adding in other orders) and
+    solutions within the tolerance; no K10 in the fused loop."""
+    A_U, _ = _operators(bc)
+    b = torch.from_numpy(gen.normal(size=(512, 512)).astype(dtype)).to(cuda_device)
+    kw = dict(tolerance=1e-5, max_iters=100, epsilon=1e-12)
+    mv = lambda v: cross_matvec(A_U, v)  # noqa: E731
+    mv_pAp = lambda v, out=None: cuda_cg.cross_matvec_pAp(A_U, v, out=out)  # noqa: E731
+    cuda_cg.reset_launch_counts()
+    xf, rf = cg.cg_solve_fused(mv, mv_pAp, lambda r, p, beta, out=None, p_out=None:
+                               cuda_cg.cross_advance_p_matvec(A_U, r, p, beta, out=out,
+                                                              p_out=p_out), b, **kw)
+    n = dict(cuda_cg.LAUNCHES)
+    assert n["cross_matvec_pAp"] == 1 and n["axpby_inplace"] == 0
+    assert n["cross_advance_p_matvec"] == rf.iters and n["update_xr_rr"] == rf.iters + 1
+    xk, rk = cg.cg_solve(mv, b, matvec_pAp=mv_pAp, **kw)
+    assert rf.converged and rk.converged and abs(rf.iters - rk.iters) <= (
+        1 if dtype == "float32" else 0)
+    if dtype == "float32":
+        assert_match(xf, xk)
+    else:
+        _f64_close([xf], [xk])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256 * 256, 2 * 4096 * 4096, 1000, 1, 4099])
+def test_field_stats_kernel_matches_plain(n, cuda_device):  # noqa: F811
+    """K11 against its plain version on the microbench's data (uniform in
+    [0, 1)): min and max exact, sum, L1 and L2 at rtol 1e-5; a misaligned
+    view and a NaN too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand(n, generator=gen, device=cuda_device)
+    for v in (x, x[1:] if n > 1 else x):
+        before = cuda_stats.LAUNCHES["field_stats"]
+        got = cuda_stats.cuda_field_stats(v)
+        assert cuda_stats.LAUNCHES["field_stats"] == before + 1
+        want = cuda_stats.field_stats_plain(v)
+        assert got.min.item() == want.min.item() and got.max.item() == want.max.item()
+        for k in ("sum", "L1", "L2"):
+            np.testing.assert_allclose(getattr(got, k).item(), getattr(want, k).item(),
+                                       rtol=1e-5, err_msg=k)
+    y = x.clone()
+    y[n // 2] = float("nan")
+    got = cuda_stats.cuda_field_stats(y)
+    assert all(np.isnan(getattr(got, k).item()) for k in ("sum", "L1", "L2", "min", "max"))
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
+    A_U, _ = _operators("neumann")
+    r, p = torch.zeros(8, 8, device=cuda_device), torch.ones(8, 8, device=cuda_device)
+    beta = torch.tensor(0.5, device=cuda_device)
+    with pytest.raises(ValueError, match="alias"):
+        cuda_cg.cross_advance_p_matvec(A_U, r, p, beta, p_out=p)
+    with pytest.raises(TypeError, match="scalars"):
+        cuda_cg.cross_advance_p_matvec(A_U, r, p, 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_stats.cuda_field_stats(r.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_stats.cuda_field_stats(torch.zeros(8, 8, device=cuda_device).t()[:, :3])
 
 
 # ------------------------------------------------------------- float64
