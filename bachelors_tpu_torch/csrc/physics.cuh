@@ -6,8 +6,12 @@
 // atan2f/cosf, as the oracle has it, so the integer-m0 recurrence
 // `_g_theta_vpu` (:199) and its gate on m0 are gone.  Built without
 // --use_fast_math: atan2f, cosf, sqrtf and the division are the accurate
-// versions.  nvcc contracts float mul+add into FMA, so the float32 results
-// differ from the CPU's in the last bits; compare with tolerances.
+// versions.  rhs.cu is built with -fmad=false (ops/cuda_build.py), so nvcc
+// contracts no float mul+add into an FMA there: the float32 kernels round
+// every operation as the plain version does on the card, where a whole
+// Merson attempt on stiff fields amplified the two roundings' difference
+// to 2.7e-5 of scale (tools/margins.py).  cg.cu, which includes this file
+// too, keeps its contractions.
 //
 // Everything here is a template on the arithmetic type Real: `float` for
 // the float32 kernels, `Rn` (below) for the float64 ones.  The float code

@@ -27,6 +27,12 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libbt_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source beyond NVCC_FLAGS.  rhs.cu: no contraction of a
+# multiply and an add into an FMA, so the float kernels round every
+# operation as their plain torch versions do (the double ones already do,
+# through `Rn`): a whole Merson attempt on stiff fields amplifies the
+# difference of the two roundings far past an ulp (ROADMAP §3).
+SOURCE_FLAGS = {"rhs.cu": ("-fmad=false",)}
 
 _LOADED: Optional[ctypes.CDLL] = None
 
@@ -47,6 +53,7 @@ def _source_hash(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sources:
         h.update(path.name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(path.name, ())).encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
@@ -66,7 +73,8 @@ def build() -> Path:
     nvcc = find_nvcc()
     tag = os.getpid()
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    cmds = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c", "-o", str(obj),
+             str(src)]
             for src, obj in zip(sources, objs)]
     tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
     cmds.append([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)])

@@ -6,7 +6,8 @@ Builds every ``csrc/*.cu`` from scratch into a fresh temporary directory,
 in the order single, parallel, parallel, single:
 
   * single: one ``nvcc -shared`` over all sources, which compiles them one
-    after another;
+    after another (without ``cuda_build.SOURCE_FLAGS``, which one command
+    cannot give per source);
   * parallel: ``ops/cuda_build.build``, one ``nvcc -c`` per source, all
     started together, then a link.
 

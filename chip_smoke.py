@@ -93,7 +93,19 @@ non-zero without printing the final line:
 Before the paths, K8b and K11 are held to their plain versions as the
 other kernels are (K8b at both dtypes, every BC pair; K11 at each sweep
 size, 2*4096^2 and a ragged size), and a lockstep of the fused variant
-against the plain step.
+against the plain step.  The float32 K2 and K12.2 checks also hold each
+kernel's attempt against a float64 evaluation of the same attempt: no
+farther from it than 2x the plain version plus 2 ulp of scale
+(``tools/margins.py``).
+
+Last, the tutorial's six kernels (K15.1-K15.6, ``csrc/tutorial.cu``, the
+counterparts of ``examples/pallas_tutorial.py``'s Pallas kernels) against
+their plain versions at 256^2, 257x263, 1x5000 and 4096^2 (saxpy and the
+Laplacian bit for bit, the sums within 1e-6 of sum|x|, min and max
+exactly, a NaN reaching them), timed at 4096^2 beside their plain versions
+and the PyTorch call that computes the same function; and their path, the
+tutorial's entry point ``python -m bachelors_tpu_torch.examples.
+cuda_tutorial``, every kernel launched and every check passed.
 
 The line before it lists each kernel, at each dtype, with its launches on
 its path, its largest disagreement with the plain version, both times, its
@@ -105,7 +117,9 @@ beside it, the script fails.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -127,7 +141,9 @@ from bachelors_tpu_torch.io.config import load_config  # noqa: E402
 from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
 from bachelors_tpu_torch.bench import microbench  # noqa: E402
-from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs, cuda_stats  # noqa: E402
+from bachelors_tpu_torch.examples import cuda_tutorial as tutorial  # noqa: E402
+from bachelors_tpu_torch.ops import (cuda_build, cuda_cg, cuda_rhs, cuda_stats,  # noqa: E402
+                                     cuda_tutorial)
 from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos  # noqa: E402
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix  # noqa: E402
 from bachelors_tpu_torch.parallel.mesh import (gather_state, make_mesh, shard_field,  # noqa: E402
@@ -136,6 +152,7 @@ from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper  # noqa: E
 from bachelors_tpu_torch.solvers import cg, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.base import make_stepper  # noqa: E402
 from bachelors_tpu_torch.solvers.explicit import make_euler_pair_stepper  # noqa: E402
+from bachelors_tpu_torch.tools import margins  # noqa: E402
 from bachelors_tpu_torch.utils.logging import SYSTEM  # noqa: E402
 
 DEVICE = "cuda"
@@ -293,7 +310,9 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        # under the byte bound), min, max
        "K11": 6,
        "K12.8 cross": 9, "K12.8 aniso": 13,  # K8 on a shard
-       "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11}
+       "K14 cross": 8, "K14 aniso": 12, "K14 heat": 11,
+       # the tutorial: a x + y; a sum; N + S + E + W - 4 c; sum, sum|x|, min, max
+       "K15.1": 2, "K15.2": 2, "K15.3": 2, "K15.4": 1, "K15.5": 5, "K15.6": 4}
 PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1,
                     "K5": 1, "K12.1": 1, "K12.2": 5, "K12.3": 1, "K12.4": 1, "K12.7": 1}
 # Fields per cell: each input read once, each output written once.
@@ -304,7 +323,9 @@ FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
           "K12.7": 2 + 3, "K12.8 cross": 1 + 1, "K12.8 aniso": 2 + 1,
           "K9": 4 + 2, "K10": 2 + 1, "K14 cross": 2 + 1, "K14 aniso": 3 + 1,
           "K8b cross": 2 + 2, "K8b aniso": 3 + 2, "K11": 1,
-          "K14 heat": 4 + 1}
+          "K14 heat": 4 + 1,
+          "K15.1": 2 + 1, "K15.2": 2 + 1, "K15.3": 2 + 1, "K15.4": 1, "K15.5": 1 + 1,
+          "K15.6": 1}
 
 
 def bound(name: str, cells: int, dtype: str = "float32") -> dict:
@@ -503,12 +524,30 @@ def check_k1(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 20
     return entry_numbers("K1", times, timed[0], worst[1], dtype=dtype)
 
 
+def f64_margin(name, got, want, F, U, tau, p, d, what, worst) -> None:
+    """A float32 Merson attempt's second check: the kernel no farther from
+    the float64 evaluation of the same attempt (``margins.f64_attempt``)
+    than 2x its plain version plus 2 ulp of scale (``margins.within_margin``),
+    so a draw that fails FIELD_TOL shows at once whether the kernel strays;
+    the largest distances of both go into ``worst``."""
+    ref = margins.f64_attempt(F, U, tau, p, 0.03, d)[:2]
+    k, pl = margins.gap(got, ref, ref), margins.gap(want, ref, ref)
+    worst[0], worst[1] = max(worst[0], k), max(worst[1], pl)
+    if not margins.within_margin(k, pl):
+        raise AssertionError(f"{name} is {k:.3g} of scale from the float64 attempt, its plain "
+                             f"version {pl:.3g} ({what})")
+
+
 def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129)),
              timed=(512, 2048)) -> dict:
+    """K2 against its plain version at every BC pair and physics case, and
+    on the main path's initial fields; at float32 also against the float64
+    evaluation of the same attempt (``f64_margin``)."""
     prec = PRECISION[dtype]
     c = np.dtype(dtype).type
     worst = [0.0, 0.0]
     worst_e = 0.0
+    worst_f64 = [0.0, 0.0]  # the kernel's and the plain version's distance
     cases = [(p, fields(rng, p.ny, p.nx, 1, dtype)[0], c(TAU), d, what)
              for p, d, what in check_cases(dtype, sizes)]
     # the main path's own input: its config's initial fields and first tau
@@ -518,6 +557,8 @@ def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129))
         got = cuda_rhs.rkm_attempt(F, U, tau, p, 0.03, d)
         want = cuda_rhs.rkm_attempt_plain(F, U, tau, p, 0.03, d)
         hold("K2 field", got[:2], want[:2], what, worst, prec["field_tol"])
+        if dtype == "float32":
+            f64_margin("K2", got[:2], want[:2], F, U, tau, p, d, what, worst_f64)
         ge, we = got[2].cpu().numpy(), want[2].cpu().numpy()
         rel = float((np.abs(ge - we) / np.maximum(np.abs(we), 1e-30)).max())
         if not rel <= prec["err_rtol"]:
@@ -532,9 +573,11 @@ def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129))
         times[size] = time_pair(lambda: cuda_rhs.rkm_attempt(F, U, tau, p),
                                 lambda: cuda_rhs.rkm_attempt_plain(F, U, tau, p),
                                 reps=50 if size == 512 else 10)
+    f64 = ({"f64_gap_kernel": worst_f64[0], "f64_gap_plain": worst_f64[1],
+            "f64_margin": "kernel <= 2 plain + 2 ulp of scale"} if dtype == "float32" else {})
     phase(titled("K2 rkm_attempt vs plain", dtype), cases=len(cases), max_rel_err=worst[0],
           max_abs_err=worst[1], max_err_maxima_rel=worst_e, tol=prec["field_tol"],
-          err_rtol=prec["err_rtol"], ms=ms_table(times))
+          err_rtol=prec["err_rtol"], **f64, ms=ms_table(times))
     return entry_numbers("K2", times, timed[0], worst[1], dtype=dtype)
 
 
@@ -988,6 +1031,137 @@ def microbench_path() -> dict:
     return {"field_stats": launches}
 
 
+# K15, the tutorial's six kernels: each at these shapes (the tutorial's, a
+# ragged one, one long row, and where it is timed), the sums held to
+# K15_SUM_RTOL * sum|x| (float32 sums in another order), everything else
+# bit for bit (each kernel rounds every operation on its own, as its plain
+# version does)
+K15_SIZES = ((256, 256), (257, 263), (1, 5000), (4096, 4096))
+K15_SUM_RTOL = 1e-6
+# each K15 kernel: its wrapper in ops/cuda_tutorial, its name in the
+# profiler's events, and the line of the Pallas call it replaces in
+# examples/pallas_tutorial.py
+K15 = {"K15.1": ("saxpy_whole", "tut_saxpy_flat_kernel", 44),
+       "K15.2": ("saxpy_gridded", "tut_saxpy_rows_kernel<false>", 61),
+       "K15.3": ("saxpy_device_scalar", "tut_saxpy_rows_kernel<true>", 77),
+       "K15.4": ("block_sum", "bt::SumAcc", 95),
+       "K15.5": ("laplacian_halo", "tut_laplacian_kernel", 127),
+       "K15.6": ("fused_stats", "bt::StatsAcc4", 157)}
+TUTORIAL_PASSES = ["1 whole-array saxpy", "2 gridded saxpy", "3 smem-scalar saxpy",
+                   "4 block-parallel sum", "5 halo stencil laplacian", "6 fused stats sum",
+                   "6 fused stats L1", "6 fused stats min", "6 fused stats max"]
+
+
+def k15_calls(x, y, a_dev):
+    """Each K15 kernel's call and its plain version's on the same inputs."""
+    t = cuda_tutorial
+    return {"K15.1": (lambda: t.saxpy_whole(2.5, x, y), lambda: t.saxpy_plain(2.5, x, y)),
+            "K15.2": (lambda: t.saxpy_gridded(2.5, x, y), lambda: t.saxpy_plain(2.5, x, y)),
+            "K15.3": (lambda: t.saxpy_device_scalar(a_dev, x, y),
+                      lambda: t.saxpy_plain(a_dev, x, y)),
+            "K15.4": (lambda: (t.block_sum(x),), lambda: (t.block_sum_plain(x),)),
+            "K15.5": (lambda: t.laplacian_halo(x), lambda: t.laplacian_halo_plain(x)),
+            "K15.6": (lambda: t.fused_stats(x), lambda: t.fused_stats_plain(x))}
+
+
+def check_k15(seed: int) -> dict:
+    """K15.1-K15.6 against their plain versions at each of ``K15_SIZES``,
+    on standard-normal fields from their own generator (no other check's
+    fields move): saxpy and the Laplacian bit for bit, the sums within
+    ``K15_SUM_RTOL`` of sum|x|, min and max exactly, and a NaN reaching the
+    sums, min and max.  Each timed at 4096^2 beside its plain version and
+    the one PyTorch call that computes the same function, where there is
+    one; device µs per call under torch.profiler."""
+    rng = np.random.default_rng([seed, 0x15])
+    worst = {k: 0.0 for k in K15}
+    for ny, nx in K15_SIZES:
+        x, y = (torch.from_numpy(rng.normal(size=(ny, nx)).astype(np.float32)).to(DEVICE)
+                for _ in range(2))
+        a_dev = torch.full((1,), 1.7, device=DEVICE)
+        tol = K15_SUM_RTOL * torch.sum(torch.abs(x)).item()
+        for k, (kernel, plain) in k15_calls(x, y, a_dev).items():
+            got, want = kernel(), plain()
+            if k in ("K15.1", "K15.2", "K15.3", "K15.5"):
+                ok = torch.equal(got, want)
+                worst[k] = max(worst[k], (got - want).abs().max().item())
+            else:  # the sums, then min and max
+                gaps = [abs(g.item() - w.item()) for g, w in zip(got, want)]
+                worst[k] = max(worst[k], *gaps)
+                ok = (max(gaps[:2]) <= tol
+                      and all(g.item() == w.item() for g, w in zip(got[2:], want[2:])))
+            if not ok:
+                raise AssertionError(f"{k} {K15[k][0]} disagrees with its plain version at "
+                                     f"{ny}x{nx}: max|gap| {worst[k]:.3g}")
+        x[ny // 2, nx // 2] = float("nan")
+        if not (np.isnan(cuda_tutorial.block_sum(x).item())
+                and all(np.isnan(v.item()) for v in cuda_tutorial.fused_stats(x))):
+            raise AssertionError(f"K15.4 or K15.6 dropped a NaN at {ny}x{nx}")
+    torch.cuda.synchronize()
+    n = 4096
+    x, y = (torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32)).to(DEVICE)
+            for _ in range(2))
+    a_dev = torch.full((1,), 1.7, device=DEVICE)
+    library = {"K15.1": ("torch.add(y, x, alpha=a)", lambda: torch.add(y, x, alpha=2.5)),
+               "K15.2": ("torch.add(y, x, alpha=a)", lambda: torch.add(y, x, alpha=2.5)),
+               "K15.3": ("torch.add(y, x, alpha=a)", lambda: torch.add(y, x, alpha=1.7)),
+               "K15.4": ("torch.sum", lambda: torch.sum(x)),
+               "K15.6": ("torch.aminmax (two of the four)", lambda: torch.aminmax(x))}
+    entries, table = {}, {}
+    for k, (kernel, plain) in k15_calls(x, y, a_dev).items():
+        ms, plain_ms = time_pair(kernel, plain, reps=20)
+        lib_ms = time_ms(library[k][1], 20) if k in library else None
+        entries[k] = {"max_abs_err": worst[k], "ms": ms, "plain_ms": plain_ms,
+                      **bound(k, n * n), "library_ms": lib_ms}
+        table[k] = {"ms": ms, "device_us_per_call": device_us(kernel, 20, K15[k][1]),
+                    "plain_ms": plain_ms, "bound_ms": entries[k]["bound_ms"],
+                    "share_of_bound": entries[k]["bound_ms"] / ms,
+                    "library": library[k][0] if k in library else "none: the replicate pad "
+                    "and the stencil take two calls", "library_ms": lib_ms}
+    phase("K15 tutorial kernels vs plain", sizes=[f"{a}x{b}" for a, b in K15_SIZES],
+          max_abs_err=worst, saxpy_laplacian="bit for bit", sum_rtol=K15_SUM_RTOL,
+          min_max="exact", nan="propagated", card=card_limit(), timed=f"{n}x{n}", times=table)
+    return entries
+
+
+def tutorial_path() -> dict:
+    """The tutorial as a user runs it, ``python -m
+    bachelors_tpu_torch.examples.cuda_tutorial`` (its ``main``, on the
+    card): every K15 kernel launched (counted from 0 around the run), no
+    plain version called, every PASS line printed."""
+    names = ("saxpy_plain", "block_sum_plain", "laplacian_halo_plain", "fused_stats_plain")
+    originals = {name: getattr(cuda_tutorial, name) for name in names}
+    calls = {}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(cuda_tutorial, name, counted(name, fn))
+    cuda_tutorial.reset_launch_counts()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            tutorial.main(["--device", "cuda"])
+    except AssertionError as e:
+        raise AssertionError(f"the tutorial failed: {out.getvalue()}") from e
+    finally:
+        for name, fn in originals.items():
+            setattr(cuda_tutorial, name, fn)
+    launches = dict(cuda_tutorial.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    passes = [line.split(None, 1)[1] for line in lines if line.startswith("  PASS")]
+    if (calls or min(launches.values()) < 1 or passes != TUTORIAL_PASSES
+            or lines[-1] != "all tutorial kernels verified"):
+        raise AssertionError(f"tutorial: launches {launches}, plain calls {calls}, "
+                             f"output {lines}")
+    phase("tutorial path (python -m bachelors_tpu_torch.examples.cuda_tutorial)",
+          card=card_limit(), passed=passes, launches=launches, plain_calls=calls)
+    return launches
+
+
 def benchmarks_hook_path(rkm_one) -> dict:
     """The shipped config with ``[program] run_benchmarks = true``: the
     reduction sweep up to its 512^2 cells through K11, then the RKM run,
@@ -1288,6 +1462,7 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     K12.1 (3 states, k3's and k4's) and its gather on x(2), K12.2 on y(2)."""
     worst = {k: [0.0, 0.0] for k in ("K5", "K12.1", "K12.1 gather", "K12.2")}
     worst_e, k2_gap, cases = 0.0, 0.0, 0
+    worst_f64 = [0.0, 0.0]  # K12.2's and its plain version's distance, joined
     tau = np.float32(TAU)
     w = cuda_rhs.k5_weights(tau)
 
@@ -1326,7 +1501,7 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
             if sx == 1:
                 F, U = states[0]
                 aprons = topo.apron(F, U, cuda_rhs.SLAB_ROWS)
-                out = []
+                out, plain = [], []
                 for k, (f, u, ap) in enumerate(zip(F.blocks, U.blocks, aprons)):
                     got = cuda_rhs.rkm_attempt_sharded(f, u, ap, tau, p, 0.03, d)
                     want = cuda_rhs.rkm_attempt_sharded_plain(f, u, ap, tau, p, 0.03, d)
@@ -1334,8 +1509,11 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                          worst["K12.2"])
                     maxima(got[2], want[2], f"K12.2 {what} {mname}")
                     out.append(got)
+                    plain.append(want)
                 whole = cuda_rhs.rkm_attempt(x[0], x[1], tau, p, 0.03, d)
                 joined = [torch.cat([o[i] for o in out]) for i in (0, 1)]
+                f64_margin("K12.2", joined, [torch.cat([o[i] for o in plain]) for i in (0, 1)],
+                           *x, tau, p, d, f"{what} {mname}", worst_f64)
                 k2_gap = max([k2_gap, *((a - b).abs().max().item()
                                         for a, b in zip(joined, whole[:2])),
                               (topo.allmax([o[2] for o in out]) - whole[2]).abs().max().item()])
@@ -1374,6 +1552,8 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
           meshes=list(MESHES), max_rel_err={k: v[0] for k, v in worst.items()},
           max_abs_err={k: v[1] for k, v in worst.items()}, max_err_maxima_rel=worst_e,
           tol=FIELD_TOL, err_rtol=ERR_RTOL, k12_2_joined_vs_k2_max_abs=k2_gap,
+          k12_2_f64_gap_kernel=worst_f64[0], k12_2_f64_gap_plain=worst_f64[1],
+          f64_margin="kernel <= 2 plain + 2 ulp of scale, joined over the shards",
           library="none: no PyTorch call computes them",
           ms_one_shard_512={k: {"kernel": v["ms"], "plain": v["plain_ms"]}
                             for k, v in entries.items()})
@@ -2171,15 +2351,17 @@ def time_mesh_f64_kernels(rng, worst_abs) -> dict:
     }
     bound_as = {"K14 twin": "K14 cross", "K12.8": "K12.8 cross", "K2 twin": "K2",
                 "K3 twin": "K3", "K6 twin T=4": "K6", "K6 twin T=8": "K6 T=8"}
-    entries = {}
+    entries, dev_us = {}, {}
     for name, (kernel, plain, cells, reps) in timed.items():
         ms, plain_ms = time_pair(kernel, plain, reps=reps)
         entries[name] = {"max_abs_err": worst_abs[name], "ms": ms, "plain_ms": plain_ms,
                          **bound(bound_as.get(name, name), cells, "float64"),
                          "library_ms": None}
+        dev_us[name] = device_us(kernel, reps, "bt::")  # every kernel of the call
     phase("float64 mesh kernel times, one shard", card=card_limit(),
           library="none: no PyTorch call computes a ghosted stencil step",
-          ms_one_shard={k: {"kernel": v["ms"], "plain": v["plain_ms"], "cells": timed[k][2],
+          ms_one_shard={k: {"kernel": v["ms"], "device_us_per_call": dev_us[k],
+                            "plain": v["plain_ms"], "cells": timed[k][2],
                             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
                         for k, v in entries.items()})
     return entries
@@ -2428,6 +2610,7 @@ def main() -> None:
                         ("4096^2 cut, K3", load_config(sweep("rk4"), [CUT]))], tol=tol64,
                        name="float64 RK4 lockstep kernels vs plain")
     check_mesh_f64_locksteps(f64, F64, U64)
+    k15 = check_k15(args.seed)
 
     rkm, rkm_one = rkm_path()
     mesh_runs = {name: mesh_path(f"main path (RKM) on a {name} mesh", *shape, rkm_one)
@@ -2497,6 +2680,7 @@ def main() -> None:
     rk4_64_cut, rk4_64_cut_one = rk4_cut_path([FIRST_FRAME, CUT],
                                               "float64 RK4 path (4096^2 cut, K3)", sweep("rk4"))
     m64 = f64_mesh_runs(euler64_one, rk4_64_cut_one)
+    tut_launches = tutorial_path()
 
     def m64_sum(key, *runs):
         return sum(m64[r][key] for r in runs)
@@ -2659,6 +2843,10 @@ def main() -> None:
                      m64_sum("cross_residual_sharded", *si64_runs)
                      + m64_sum("aniso_residual_sharded", *si64_runs)
                      + m64_sum("heat_residual_sharded", *si64_runs), mesh64_k["K14 twin"]),
+        *(kernel_entry(f"{k} {wrapper} (the tutorial's step {k[-1]}; the tutorial path)",
+                       "tutorial.cu", f"examples/pallas_tutorial.py:{line}",
+                       tut_launches[wrapper], k15[k])
+          for k, (wrapper, _, line) in K15.items()),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams
-from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs, cuda_stats
+from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs, cuda_stats, cuda_tutorial as tut
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix, cross_matvec
 from bachelors_tpu_torch.solvers import cg, semi_implicit
 from torch_parity import assert_match, cuda_device, random_fields, seed_fields  # noqa: F401
@@ -959,3 +959,136 @@ def test_f64_apron_kernels_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
                     assert torch.equal(_joined(out, i, grid), whole[i]), (name, i)
                 if len(whole) == 3:
                     assert torch.equal(topo.allmax([o[2] for o in out]), whole[2])
+
+
+@pytest.mark.cuda
+def test_k2_and_k12_2_round_as_their_plain_version_on_stiff_fields(cuda_device):  # noqa: F811
+    """The draw of ``tools/margins.py`` (seed 0, 512^2, neumann/neumann,
+    the third) on which K2 built with FMA contractions differed from its
+    plain version by 2.7e-5 of scale, past FIELD_TOL, and strayed 3.7x as
+    far from the float64 attempt as the plain version: built with
+    -fmad=false, K2 and K12.2 on y(2) equal the plain versions bit for bit,
+    so they are no farther from the float64 attempt."""
+    from bachelors_tpu_torch.parallel.mesh import make_mesh, shard_field
+    from bachelors_tpu_torch.tools import margins
+
+    rng = np.random.default_rng(0)
+    for _ in range(margins.BC_PAIRS.index(("neumann", None)) * 64 + 2):
+        margins.draw(rng, 512, "cpu")
+    F, U = margins.draw(rng, 512, cuda_device)
+    p = margins.params(512, "neumann")
+    tau = np.float32(margins.TAU)
+    want = cuda_rhs.rkm_attempt_plain(F, U, tau, p, margins.FU)
+    got = cuda_rhs.rkm_attempt(F, U, tau, p, margins.FU)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    mesh, topo = make_mesh(2, 1, [cuda_device] * 2)
+    Fs, Us = shard_field(F, mesh, topo), shard_field(U, mesh, topo)
+    out = [cuda_rhs.rkm_attempt_sharded(f, u, ap, tau, p, margins.FU)
+           for f, u, ap in zip(Fs.blocks, Us.blocks, topo.apron(Fs, Us, cuda_rhs.SLAB_ROWS))]
+    joined = [torch.cat([o[i] for o in out]) for i in (0, 1)]
+    assert all(torch.equal(j, w) for j, w in zip(joined, want[:2]))
+    ref = margins.f64_attempt(F, U, tau, p)[:2]
+    assert margins.within_margin(margins.gap(joined, ref, ref), margins.gap(want[:2], ref, ref))
+
+
+# ------------------------------------------------------------- K15, the tutorial
+
+TUT_SHAPES = [(256, 256), (257, 263), (1, 1), (1, 5000), (5000, 1), (2048, 2048)]
+
+
+def _tut_counted(name, fn):
+    before = tut.LAUNCHES[name]
+    out = fn()
+    assert tut.LAUNCHES[name] == before + 1, name
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TUT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_tutorial_kernels_match_plain(shape, gen, cuda_device):  # noqa: F811
+    """K15.1-K15.6 against their plain versions: saxpy and the Laplacian bit
+    for bit (every operation rounded on its own in both), the sums within
+    1e-6 of sum |x| (another order of a float32 sum), min and max exactly;
+    a misaligned view through the row-tiled saxpy too."""
+    x, y = (torch.from_numpy(gen.normal(size=shape).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    a_dev = torch.full((1,), 1.7, device=cuda_device)
+    for name, fn, want in (
+            ("saxpy_whole", lambda: tut.saxpy_whole(2.5, x, y), tut.saxpy_plain(2.5, x, y)),
+            ("saxpy_gridded", lambda: tut.saxpy_gridded(2.5, x, y), tut.saxpy_plain(2.5, x, y)),
+            ("saxpy_device_scalar", lambda: tut.saxpy_device_scalar(a_dev, x, y),
+             tut.saxpy_plain(a_dev, x, y)),
+            ("laplacian_halo", lambda: tut.laplacian_halo(x), tut.laplacian_halo_plain(x))):
+        assert torch.equal(_tut_counted(name, fn), want), name
+    if shape[1] > 1:
+        xv, yv = x.reshape(-1)[1:shape[1]][None], y.reshape(-1)[1:shape[1]][None]
+        assert torch.equal(tut.saxpy_gridded(2.5, xv, yv), tut.saxpy_plain(2.5, xv, yv))
+    tol = 1e-6 * torch.sum(torch.abs(x)).item()
+    got = _tut_counted("block_sum", lambda: tut.block_sum(x))
+    assert got.dim() == 0 and abs(got.item() - tut.block_sum_plain(x).item()) <= tol
+    assert torch.equal(tut.block_sum(x), got)  # the same bits every call
+    got = _tut_counted("fused_stats", lambda: tut.fused_stats(x))
+    want = tut.fused_stats_plain(x)
+    for g, w in zip(got[:2], want[:2]):
+        assert abs(g.item() - w.item()) <= tol
+    assert got[2].item() == want[2].item() and got[3].item() == want[3].item()
+
+
+@pytest.mark.cuda
+def test_tutorial_reductions_keep_nan(gen, cuda_device):  # noqa: F811
+    x = torch.from_numpy(gen.normal(size=(257, 263)).astype(np.float32)).to(cuda_device)
+    x[100, 7] = float("nan")
+    assert np.isnan(tut.block_sum(x).item())
+    assert all(np.isnan(v.item()) for v in tut.fused_stats(x))
+
+
+@pytest.mark.cuda
+def test_device_scalar_saxpy_takes_a_from_the_device(gen, cuda_device):  # noqa: F811
+    """K15.3 captured once in a CUDA graph and replayed twice, ``a`` changed
+    on the device between the replays and nothing read by the host."""
+    x, y = (torch.from_numpy(gen.normal(size=(256, 256)).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    a = torch.full((1,), 1.7, device=cuda_device)
+    tut.saxpy_device_scalar(a, x, y)  # build and load the library first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tut.saxpy_device_scalar(a, x, y)
+    graph.replay()
+    first = out.clone()
+    a.mul_(-2.0)  # a kernel writes a; no host read
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, tut.saxpy_plain(1.7, x, y))
+    assert torch.equal(out, tut.saxpy_plain(a, x, y))
+    assert a.item() == np.float32(1.7) * -2
+
+
+@pytest.mark.cuda
+def test_tutorial_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
+    x = torch.zeros(8, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        tut.saxpy_whole(2.0, x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tut.laplacian_halo(x.t()[:, :3])
+    with pytest.raises(ValueError, match="shapes"):
+        tut.saxpy_gridded(2.0, x, x[:4])
+    with pytest.raises(ValueError, match="2-D"):
+        tut.saxpy_gridded(2.0, x.reshape(-1), x.reshape(-1))
+    with pytest.raises(ValueError, match="at least one"):
+        tut.block_sum(x[:0])
+    with pytest.raises(ValueError, match="one float32"):
+        tut.saxpy_device_scalar(torch.ones(2, device=cuda_device), x, x)
+
+
+@pytest.mark.cuda
+def test_tutorial_entry_point_on_the_card(capsys, cuda_device):  # noqa: F811
+    from bachelors_tpu_torch.examples import cuda_tutorial
+
+    tut.reset_launch_counts()
+    cuda_tutorial.main(["--device", "cuda"])
+    lines = capsys.readouterr().out.splitlines()
+    assert sum(line.strip().startswith("PASS") for line in lines) == 9
+    assert lines[-1] == "all tutorial kernels verified"
+    assert all(n >= 1 for n in tut.LAUNCHES.values()), tut.LAUNCHES
