@@ -3,8 +3,8 @@
 // plain C interface from bachelors_tpu_torch/ops/cuda_cg.py (ctypes).  Every
 // entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError().  Scalars that the loop computes on the device
-// (alpha, a, b) are read through pointers, so the host never fetches them.
-// Each kernel is a template on the field type: entry points `bt_*_f32` run
+// (alpha, the dot products) are read through pointers, so the host never
+// fetches them.  Each kernel is a template on the field type: entry points `bt_*_f32` run
 // it at float32, `bt_*_f64` at float64.  The float64 semi-implicit step
 // follows the JAX package's accelerator route (`bachelors_tpu/solvers/
 // semi_implicit.py:_semi_implicit_step_dd` :234): a CG solve, the true
@@ -58,8 +58,18 @@
 //     Pointwise, so in place is safe.  Bound by bytes (4 fields read, 2
 //     written).
 //
-// K10 bt_axpby: replaces `pallas_cg.py:_axpby_inplace` (:274, entry
-//     `axpby_inplace` :300).  p = a r + b p in place.  Bound by bytes.
+// K10 bt_advance_p: replaces `pallas_cg.py:_axpby_inplace` (:274, entry
+//     `axpby_inplace` :300) as the CG loop calls it, a = 1 and b = beta:
+//     p = r + beta p in place, with beta = rr_new / (rr < eps ? eps : rr)
+//     formed in the kernel from the two dot products, device scalars read
+//     through pointers, so the host runs no op between K9 and K10.  The
+//     select keeps a NaN rr, as torch.clamp does (fmax would drop it, and
+//     a NaN must never read as converged).  Every operation is rounded on
+//     its own (`__f*_rn`, `__d*_rn`; cg.cu keeps FMA contraction), in the
+//     plain version's order -- beta, then p * beta, then + r -- so K10
+//     equals it bit for bit.  Bound by bytes (r and p read, p written):
+//     16-byte loads and stores where both fields are 16-byte aligned, a
+//     scalar tail.
 //
 // K14 bt_si_residual: replaces `bachelors_tpu/ops/pallas_dd.py:
 //     _make_cross_residual_kernel` (:749, via `_cross_residual_call` :882;
@@ -92,6 +102,8 @@
 // differs from torch.sum's order by ~1e-7 relative in float32 (~1e-16 in
 // float64).
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "physics.cuh"
 
@@ -206,12 +218,38 @@ __global__ void __launch_bounds__(kCgThreads)
 
 // --------------------------------------------------------------- K10 ----
 
-template <class Real>
+// Each operation rounded on its own: cg.cu is built with FMA contraction.
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// W values of 16 bytes, loaded and stored at once
+template <class Real, int W>
+struct alignas(sizeof(Real) * W) Pack {
+  Real v[W];
+};
+
+// p[c] = r[c] + beta p[c] for W cells per thread (W = 1: one cell)
+template <int W, class Real>
 __global__ void __launch_bounds__(kCgThreads)
-    axpby_kernel(const Real* __restrict__ a, const Real* __restrict__ b,
-                 const Real* __restrict__ r, Real* __restrict__ p, int n) {
-  const int c = blockIdx.x * kCgThreads + threadIdx.x;
-  if (c < n) p[c] = (*a) * r[c] + (*b) * p[c];
+    advance_p_kernel(const Real* __restrict__ r, Real* __restrict__ p,
+                     const Real* __restrict__ rr_new, const Real* __restrict__ rr, Real eps,
+                     int n) {
+  const Real den = *rr < eps ? eps : *rr;  // a NaN rr stays NaN
+  const Real beta = div_rn(*rr_new, den);
+  const int c = (blockIdx.x * kCgThreads + threadIdx.x) * W;
+  if (c + W <= n) {
+    Pack<Real, W> rv = *reinterpret_cast<const Pack<Real, W>*>(r + c);
+    Pack<Real, W> pv = *reinterpret_cast<const Pack<Real, W>*>(p + c);
+#pragma unroll
+    for (int k = 0; k < W; ++k) pv.v[k] = add_rn(mul_rn(pv.v[k], beta), rv.v[k]);
+    *reinterpret_cast<Pack<Real, W>*>(p + c) = pv;
+  } else {
+    for (int k = c; k < n; ++k) p[k] = add_rn(mul_rn(p[k], beta), r[k]);
+  }
 }
 
 // --------------------------------------------------------------- K14 ----
@@ -311,9 +349,15 @@ int update_xr_rr(Real* x, Real* r, const Real* p, const Real* Ap, const Real* al
 }
 
 template <class Real>
-int axpby(const Real* a, const Real* b, const Real* r, Real* p, int n,
-          cudaStream_t stream) {
-  axpby_kernel<<<pointwise_blocks(n), kCgThreads, 0, stream>>>(a, b, r, p, n);
+int advance_p(const Real* r, Real* p, const Real* rr_new, const Real* rr, Real eps, int n,
+              cudaStream_t stream) {
+  constexpr int W = 16 / int(sizeof(Real));
+  if ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(p)) % 16 == 0)
+    advance_p_kernel<W><<<pointwise_blocks((n + W - 1) / W), kCgThreads, 0, stream>>>(
+        r, p, rr_new, rr, eps, n);
+  else
+    advance_p_kernel<1><<<pointwise_blocks(n), kCgThreads, 0, stream>>>(r, p, rr_new, rr,
+                                                                         eps, n);
   return int(cudaGetLastError());
 }
 
@@ -355,7 +399,8 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 //      p, s and each other.
 //   K9 bt_update_xr_rr: x += alpha p, r -= alpha Ap (in place, n cells),
 //      rr[0] = <r, r>.
-//   K10 bt_axpby: p = a r + b p in place (n cells); a, b are device scalars.
+//   K10 bt_advance_p: p = r + beta p in place (n cells), beta = rr_new[0] /
+//      (rr[0] < eps ? eps : rr[0]); rr_new and rr are device scalars.
 //   K14 bt_si_residual: out = r0 - A e for mode 0 (cross: C e + X (E+W) +
 //      Y (N+S)) and 1 (aniso with map a: (1 + C a) e + X a (E+W) + Y a
 //      (N+S)); modes 2 and 3 take r0 := L (a + b) + r0 [+ x] first, with
@@ -383,9 +428,9 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
                             S* partials, S* rr, int n, cudaStream_t stream) {         \
     return bt::update_xr_rr<S>(x, r, p, Ap, alpha, partials, rr, n, stream);         \
   }                                                                                   \
-  int bt_axpby_##SFX(const S* a, const S* b, const S* r, S* p, int n,                \
-                     cudaStream_t stream) {                                           \
-    return bt::axpby<S>(a, b, r, p, n, stream);                                      \
+  int bt_advance_p_##SFX(const S* r, S* p, const S* rr_new, const S* rr, S eps, int n, \
+                         cudaStream_t stream) {                                       \
+    return bt::advance_p<S>(r, p, rr_new, rr, eps, n, stream);                       \
   }                                                                                   \
   int bt_si_residual_##SFX(const S* e, const S* r0, const S* a, const S* b,          \
                            const S* x, S* out, int ny, int nx, int bc, int mode,      \

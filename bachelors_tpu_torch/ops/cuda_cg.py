@@ -24,8 +24,12 @@ float64 semi-implicit step:
     kernel reads their neighbours); A p' may go into a dead ``out``.
   * K9 ``update_xr_rr``: x += alpha p, r -= alpha Ap in place, and
     <r', r'> (``pallas_cg._update_xr_rr`` :310).
-  * K10 ``axpby_inplace``: p = a r + b p in place
-    (``pallas_cg._axpby_inplace`` :274).
+  * K10 ``advance_p_inplace``: the direction update p = r + beta p in
+    place (``pallas_cg._axpby_inplace`` :274 at a = 1, b = beta, the only
+    form the CG loop calls), with beta = <r', r'> / max(<r, r>, epsilon)
+    formed in the kernel from the two dot products, so no eager op runs
+    between K9 and K10.  Its plain version forms beta with the loop's two
+    torch ops and updates p as ``axpby_inplace_plain`` (JAX's a r + b p).
   * K14 ``cross_residual`` / ``aniso_residual`` / ``heat_residual``: the
     refinement residual r1 = r0 - A e, for the cross operator, the
     anisotropy operator, or the heat system with r0 = L (e1_F + e2_F) +
@@ -37,9 +41,9 @@ float64 semi-implicit step:
     on one shard of a mesh (``*_residual_dd_sharded`` :1014-1039), counted
     as ``*_residual_sharded``.
 
-alpha, a and b are 0-dim tensors on the fields' device, read by the
-kernels through pointers; the dot products come back as 0-dim tensors
-there too.  Nothing here reads a value back to the host.  The kernels sum
+alpha, beta and K10's dot products are 0-dim tensors on the fields'
+device, read by the kernels through pointers; the dot products come back
+as 0-dim tensors there too.  Nothing here reads a value back to the host.  The kernels sum
 their per-block partials with a second one-block kernel (``csrc/cg.cu``);
 the plain versions use ``torch.sum``, which adds in another order (~1e-7
 relative in float32, ~1e-16 in float64).
@@ -50,26 +54,27 @@ fields and scalars of one call share: the float64 semi-implicit step runs
 its CG and its refinement residual natively in double.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
-CUDA tensors it launches or raises, and each launch adds one to its entry
-in ``LAUNCHES``.  The plain versions update x, r and p in place as the
+CUDA tensors it launches through ``ops/cuda_launch`` or raises, and each
+launch adds one to its entry in ``LAUNCHES``.  The plain versions update x, r and p in place as the
 kernels do, so a caller sees one contract on either device.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from ..core.boundary import Halo, pad2, pad_halo
 from ..core.params import BoundaryType
 from . import cuda_rhs
+from .cuda_launch import (INT, PTR, REAL, SUFFIX, UNSUFFIXED, fields_ok, fn, launch,
+                          register, scalars_ok, scratch)
 from .stencil import (AnisotropyMatrix, CrossMatrix, aniso_from_padded, anisotropy_matvec,
                       cross_from_padded, cross_matvec)
 
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
-            "axpby_inplace": 0, "cross_residual": 0, "aniso_residual": 0,
+            "advance_p_inplace": 0, "cross_residual": 0, "aniso_residual": 0,
             "heat_residual": 0, "cross_matvec_pAp_sharded": 0,
             "aniso_matvec_pAp_sharded": 0, "cross_residual_sharded": 0,
             "aniso_residual_sharded": 0, "heat_residual_sharded": 0,
@@ -148,6 +153,15 @@ def axpby_inplace_plain(a, b, r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def advance_p_inplace_plain(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tensor,
+                            rr: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """p = r + beta p in place with beta = rr_new / max(rr, epsilon): the
+    CG loop's two torch ops for beta (``torch.clamp`` keeps a NaN), then
+    ``axpby_inplace_plain(1, beta, r, p)``; returns p."""
+    beta = rr_new / torch.clamp(rr, min=epsilon)
+    return axpby_inplace_plain(1.0, beta, r, p)
+
+
 def _padded(e: torch.Tensor, bc: BoundaryType, halo: Optional[Halo]) -> torch.Tensor:
     """e padded at Dirichlet value 0: ``pad2`` on the whole grid, on a shard
     from the halo of (e, e) (``pad_halo``, field 0)."""
@@ -188,40 +202,28 @@ def heat_residual_plain(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossM
 
 _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
             BoundaryType.DIRICHLET: 2}
-_PTR = ctypes.c_void_p
-_INT = ctypes.c_int
-_REAL = cuda_rhs._REAL
 # Each entry's arguments, as ``cuda_rhs._ENTRIES`` has them.
-_ENTRIES = {"matvec_pAp": [_PTR] * 5 + [_INT, _INT, _INT] + [_REAL] * 3 + [_PTR],
-            "advance_p_matvec": [_PTR] * 8 + [_INT, _INT, _INT] + [_REAL] * 3 + [_PTR],
-            "update_xr_rr": [_PTR] * 7 + [_INT, _PTR],
-            "axpby": [_PTR] * 4 + [_INT, _PTR],
-            "si_residual": [_PTR] * 6 + [_INT] * 4 + [_REAL] * 4 + [_PTR]}
+_ENTRIES = {"matvec_pAp": [PTR] * 5 + [INT, INT, INT] + [REAL] * 3 + [PTR],
+            "advance_p_matvec": [PTR] * 8 + [INT, INT, INT] + [REAL] * 3 + [PTR],
+            "update_xr_rr": [PTR] * 7 + [INT, PTR],
+            "advance_p": [PTR] * 4 + [REAL, INT, PTR],
+            "si_residual": [PTR] * 6 + [INT] * 4 + [REAL] * 4 + [PTR]}
+# K12.8 and K14's twin: K8's and K14's arguments and a halo's (rows, cols,
+# edges)
+_ENTRIES.update({f"{name}_halo": _ENTRIES[name][:-1] + [PTR, PTR, INT, PTR]
+                 for name in ("matvec_pAp", "si_residual")})
+_HELPERS = {"cg_num_partials": [INT, INT]}
+register(_ENTRIES)
+register(_HELPERS, UNSUFFIXED)
 # K14's modes (csrc/cg.cu)
 _RES_CROSS, _RES_ANISO, _RES_HEAT, _RES_HEAT_EXTRA = range(4)
-_LIB = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_rhs.cuda_build.load()
-        lib.bt_cg_num_partials.argtypes = [_INT, _INT]
-        lib.bt_cg_num_partials.restype = _INT
-        cuda_rhs.bind(lib, _ENTRIES)
-        # K12.8 and K14's twin: K8's and K14's arguments and a halo's (rows,
-        # cols, edges)
-        cuda_rhs.bind(lib, {f"{name}_halo": _ENTRIES[name][:-1] + [_PTR, _PTR, _INT, _PTR]
-                            for name in ("matvec_pAp", "si_residual")})
-        _LIB = lib
-    return _LIB
 
 
 def _check(fields, scalars=()) -> None:
     """What the kernels take: contiguous fields of one 2D shape and 0-dim
     scalars, all of one dtype (float32 or float64) on one CUDA device."""
     dev, shape, dtype = fields[0].device, fields[0].shape, fields[0].dtype
-    if dtype not in cuda_rhs._SUFFIX:
+    if dtype not in SUFFIX:
         raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")
     for t in fields:
         if t.device != dev:
@@ -238,15 +240,19 @@ def _check(fields, scalars=()) -> None:
             raise TypeError(f"kernel takes 0-dim {dtype} scalars on {dev}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _checked(fields, scalars=()):
+    """(dtype, device index) of a call that passes ``_check``: the cheap
+    pass first, the detailed checks (which raise) only if it fails."""
+    ok = fields_ok(fields)
+    if ok is None or not scalars_ok(scalars, *ok):
+        _check(fields, scalars)
+        ok = fields[0].dtype, fields[0].get_device()
+    return ok
 
 
-def _scratch(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The per-block partials buffer and the 0-dim result of one launch."""
-    n = _lib().bt_cg_num_partials(v.shape[0], v.shape[1])
-    return (torch.empty(n, dtype=v.dtype, device=v.device),
-            torch.empty((), dtype=v.dtype, device=v.device))
+def _partials(v: torch.Tensor, dtype: torch.dtype, index: int) -> torch.Tensor:
+    """The per-block partials of K8's and K9's sums, reused (``scratch``)."""
+    return scratch("cg_num_partials", tuple(v.shape), dtype, index)
 
 
 def _check_out(out: Optional[torch.Tensor], *inputs) -> None:
@@ -261,24 +267,20 @@ def _check_out(out: Optional[torch.Tensor], *inputs) -> None:
 
 
 def _matvec_pAp(name, v, s, out, bc, C, X, Y, halo: Optional[Halo] = None):
-    inputs = [v] if s is None else [v, s]
-    _check(inputs + ([] if out is None else [out]))
+    inputs = (v,) if s is None else (v, s)
+    dtype, index = _checked(inputs if out is None else inputs + (out,))
     if out is None:
         out = torch.empty_like(v)
-    partials, pAp = _scratch(v)
+    pAp = v.new_empty(())
     ny, nx = v.shape
     if halo is None:
         kernel, ghosts = "matvec_pAp", ()
     else:
-        cuda_rhs._check_shard(*inputs)
         kernel, ghosts = "matvec_pAp_halo", cuda_rhs._halo_args(halo, ny, nx)
-    with torch.cuda.device(v.device):
-        rc = cuda_rhs.entry(_lib(), kernel, v.dtype)(
-            v.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), pAp.data_ptr(), ny, nx, _BC_CODE[bc], float(C), float(X),
-            float(Y), *ghosts, _stream())
-    cuda_rhs._raise_on(rc, name)
-    LAUNCHES[name] += 1
+    launch(LAUNCHES, name, fn(kernel, dtype), index,
+           v.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
+           _partials(v, dtype, index).data_ptr(), pAp.data_ptr(), ny, nx, _BC_CODE[bc],
+           float(C), float(X), float(Y), *ghosts)
     return out, pAp
 
 
@@ -333,19 +335,16 @@ def _check_advance_out(r, p, s, out, p_out) -> None:
 
 
 def _advance_p_matvec(name, r, p, s, beta, out, p_out, bc, C, X, Y):
-    inputs = [r, p] if s is None else [r, p, s]
-    _check(inputs + [t for t in (out, p_out) if t is not None], [beta])
+    inputs = (r, p) if s is None else (r, p, s)
+    dtype, index = _checked(inputs + tuple(t for t in (out, p_out) if t is not None), (beta,))
     out = torch.empty_like(p) if out is None else out
     p_out = torch.empty_like(p) if p_out is None else p_out
-    partials, pAp = _scratch(p)
+    pAp = p.new_empty(())
     ny, nx = p.shape
-    with torch.cuda.device(p.device):
-        rc = cuda_rhs.entry(_lib(), "advance_p_matvec", p.dtype)(
-            r.data_ptr(), p.data_ptr(), None if s is None else s.data_ptr(), beta.data_ptr(),
-            p_out.data_ptr(), out.data_ptr(), partials.data_ptr(), pAp.data_ptr(), ny, nx,
-            _BC_CODE[bc], float(C), float(X), float(Y), _stream())
-    cuda_rhs._raise_on(rc, name)
-    LAUNCHES[name] += 1
+    launch(LAUNCHES, name, fn("advance_p_matvec", dtype), index,
+           r.data_ptr(), p.data_ptr(), None if s is None else s.data_ptr(), beta.data_ptr(),
+           p_out.data_ptr(), out.data_ptr(), _partials(p, dtype, index).data_ptr(),
+           pAp.data_ptr(), ny, nx, _BC_CODE[bc], float(C), float(X), float(Y))
     return p_out, out, pAp
 
 
@@ -381,50 +380,43 @@ def update_xr_rr(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
     with the dot product a 0-dim device tensor."""
     if not cuda_rhs._on_cuda(x, "update_xr_rr"):
         return update_xr_rr_plain(x, r, p, Ap, alpha)
-    _check([x, r, p, Ap], [alpha])
-    partials, rr = _scratch(x)
-    with torch.cuda.device(x.device):
-        rc = cuda_rhs.entry(_lib(), "update_xr_rr", x.dtype)(
-            x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(),
-            alpha.data_ptr(), partials.data_ptr(), rr.data_ptr(), x.numel(),
-            _stream())
-    cuda_rhs._raise_on(rc, "update_xr_rr")
-    LAUNCHES["update_xr_rr"] += 1
+    dtype, index = _checked((x, r, p, Ap), (alpha,))
+    rr = x.new_empty(())
+    launch(LAUNCHES, "update_xr_rr", fn("update_xr_rr", dtype), index,
+           x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(), alpha.data_ptr(),
+           _partials(x, dtype, index).data_ptr(), rr.data_ptr(), x.numel())
     return x, r, rr
 
 
-def axpby_inplace(a, b, r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """K10: p = a r + b p, in place over p; returns p."""
-    if not cuda_rhs._on_cuda(p, "axpby_inplace"):
-        return axpby_inplace_plain(a, b, r, p)
-    _check([r, p], [a, b])
-    with torch.cuda.device(p.device):
-        rc = cuda_rhs.entry(_lib(), "axpby", p.dtype)(a.data_ptr(), b.data_ptr(), r.data_ptr(),
-                                      p.data_ptr(), p.numel(), _stream())
-    cuda_rhs._raise_on(rc, "axpby_inplace")
-    LAUNCHES["axpby_inplace"] += 1
+def advance_p_inplace(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tensor,
+                      rr: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """K10: the CG direction update p = r + beta p in place over p, with
+    beta = rr_new / max(rr, epsilon) formed in the kernel from the two dot
+    products, 0-dim tensors on the fields' device (a NaN rr stays NaN);
+    returns p."""
+    if not cuda_rhs._on_cuda(p, "advance_p_inplace"):
+        return advance_p_inplace_plain(r, p, rr_new, rr, epsilon)
+    dtype, index = _checked((r, p), (rr_new, rr))
+    launch(LAUNCHES, "advance_p_inplace", fn("advance_p", dtype), index,
+           r.data_ptr(), p.data_ptr(), rr_new.data_ptr(), rr.data_ptr(), float(epsilon),
+           p.numel())
     return p
 
 
 def _residual(name, mode, e, r0, a, b, x, bc, C, X, Y, L=0.0,
               halo: Optional[Halo] = None) -> torch.Tensor:
-    inputs = [t for t in (e, r0, a, b, x) if t is not None]
-    _check(inputs)
+    dtype, index = _checked(tuple(t for t in (e, r0, a, b, x) if t is not None))
     out = torch.empty_like(e)
     ny, nx = e.shape
     if halo is None:
         kernel, ghosts = "si_residual", ()
     else:
-        cuda_rhs._check_shard(*inputs)
         kernel, ghosts = "si_residual_halo", cuda_rhs._halo_args(halo, ny, nx)
         name += "_sharded"
-    with torch.cuda.device(e.device):
-        rc = cuda_rhs.entry(_lib(), kernel, e.dtype)(
-            *(None if t is None else t.data_ptr() for t in (e, r0, a, b, x)),
-            out.data_ptr(), ny, nx, _BC_CODE[bc], mode,
-            float(C), float(X), float(Y), float(L), *ghosts, _stream())
-    cuda_rhs._raise_on(rc, name)
-    LAUNCHES[name] += 1
+    launch(LAUNCHES, name, fn(kernel, dtype), index,
+           *(None if t is None else t.data_ptr() for t in (e, r0, a, b, x)),
+           out.data_ptr(), ny, nx, _BC_CODE[bc], mode,
+           float(C), float(X), float(Y), float(L), *ghosts)
     return out
 
 

@@ -17,7 +17,9 @@ kernels are hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     (``rkm_attempt_pallas`` :1163).  2 fields read, 2 written; the stages
     live in shared memory on a tile with a 5-cell apron, so none reaches
     device memory.  It measured 18x its byte floor at 2048^2 on an H100
-    (``csrc/rhs.cu``): arithmetic, not bytes, bounds this first version.
+    (``csrc/rhs.cu``): latency and arithmetic, not bytes, bound it.  Tiles
+    inside the domain skip the edge tests, and at S = 0 the kernel's
+    isotropic instantiation skips atan2 and cos, bit for bit the same.
   * K3 ``rk4_full``: one whole RK4 step, the same kernel with scheme "rk4"
     (``rk4_full_pallas`` :1156); K2's tile with a 4-cell apron.
   * K6 ``euler_steps``: T forward-Euler steps per pass over device memory,
@@ -80,8 +82,10 @@ _make_fullstep_kernel_dd`` :272), and K6 also runs 8 steps per pass, the
 depth K13 takes from 1M cells (``K6_STEPS``).
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
-tensors it launches its kernel or raises; it never falls back.  Each launch
-adds one to the wrapper's entry in ``LAUNCHES``.
+tensors it launches its kernel through ``ops/cuda_launch`` (entries bound
+once, cheap checks, the device context only when needed, partials reused)
+or raises; it never falls back.  Each launch adds one to the wrapper's
+entry in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -97,7 +101,8 @@ from ..core.params import BoundaryType, SimParams
 from ..models.allen_cahn import blend, rhs_neighbours, rhs_padded, semi_implicit_prepare
 from .reductions import Lmax_norm
 from .stencil import lap_from_padded
-from . import cuda_build
+from .cuda_launch import (BOTH, INT, PHYS_PTR, PTR, REAL, SUFFIX, UNSUFFIXED,
+                          fields_ok, fn, launch, register, scratch)
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -519,13 +524,24 @@ def _phys(p: SimParams, dtype: torch.dtype = torch.float32):
         f32_transcendentals=int(p.f32_transcendentals))
 
 
-_PTR = ctypes.c_void_p
-_INT = ctypes.c_int
-_REAL = object()  # stands for the entry's scalar type in the tables below
-_PHYS_PTR = object()  # and for its PhysParams pointer
+_PHYS_REFS = {}
+
+
+def _phys_ref(p: SimParams, dtype: torch.dtype):
+    """A pointer to ``_phys(p, dtype)``, kept per params object by identity
+    (hashing a SimParams hashes every field of it, on every call)."""
+    hit = _PHYS_REFS.get((id(p), dtype))
+    if hit is None or hit[0] is not p:
+        if len(_PHYS_REFS) >= 64:
+            _PHYS_REFS.clear()
+        hit = _PHYS_REFS[id(p), dtype] = (p, ctypes.pointer(_phys(p, dtype)))
+    return hit[1]
+
+
+_PTR, _INT, _REAL, _PHYS_PTR = PTR, INT, REAL, PHYS_PTR
 # Each entry's arguments, in order, with the scalars of the field type as
 # _REAL: the float32 entry takes them as c_float, the float64 one as
-# c_double.  A wrong prototype would pass garbage silently.
+# c_double.  Every entry ends with the stream, which ``launch`` appends.
 _ENTRIES = {
     "blend_rhs": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _REAL,
                                                       _REAL, _INT, _PHYS_PTR, _PTR],
@@ -558,55 +574,26 @@ _F64_ENTRIES = {
     "euler_steps_apron": [_PTR] * 6 + [_INT] * 7 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
     "rk4_full_apron": [_PTR] * 6 + [_INT] * 6 + [_REAL] * 5 + [_PHYS_PTR, _PTR],
 }
-_SUFFIX = {torch.float32: ("f32", ctypes.c_float), torch.float64: ("f64", ctypes.c_double)}
-_LIB = None
-
-
-def bind(lib: ctypes.CDLL, entries, dtypes=tuple(_SUFFIX)) -> None:
-    """Declare the prototypes of the ``bt_<name>_f32`` and ``bt_<name>_f64``
-    functions (those of ``dtypes``) of each entry of ``entries`` (argument
-    lists in the form of ``_ENTRIES``)."""
-    for name, args in entries.items():
-        for dtype in dtypes:
-            sfx, real = _SUFFIX[dtype]
-            fn = getattr(lib, f"bt_{name}_{sfx}")
-            phys = ctypes.POINTER(_PHYS[dtype])
-            fn.argtypes = [real if a is _REAL else phys if a is _PHYS_PTR else a
-                           for a in args]
-            fn.restype = _INT
-
-
-def entry(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
-    """The C function ``bt_<name>_f32`` or ``bt_<name>_f64`` of ``lib``."""
-    return getattr(lib, f"bt_{name}_{_SUFFIX[dtype][0]}")
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load()
-        bind(lib, _ENTRIES)
-        bind(lib, _F32_ENTRIES, (torch.float32,))
-        bind(lib, _F64_ENTRIES, (torch.float64,))
-        for name, nargs in (("bt_rkm_num_blocks", 2), ("bt_stage_num_blocks", 2),
-                            ("bt_tile_smem_bytes", 3)):
-            getattr(lib, name).argtypes = [_INT] * nargs
-            getattr(lib, name).restype = _INT
-        _LIB = lib
-    return _LIB
+# The sizes of the partials buffers and of the tile kernels' shared memory
+_HELPERS = {"rkm_num_blocks": [_INT, _INT], "stage_num_blocks": [_INT, _INT],
+            "tile_smem_bytes": [_INT, _INT, _INT]}
+register(_ENTRIES, BOTH, _PHYS)
+register(_F32_ENTRIES, (torch.float32,), _PHYS)
+register(_F64_ENTRIES, (torch.float64,), _PHYS)
+register(_HELPERS, UNSUFFIXED)
 
 
 def tile_smem_bytes(kernel: int, steps: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of tile kernel K2, K3 or K6 (``kernel`` 2, 3
     or 6; ``steps`` for K6) at ``dtype``: ptxas does not report it."""
-    return _lib().bt_tile_smem_bytes(kernel, steps, int(dtype == torch.float64))
+    return fn("tile_smem_bytes")(kernel, steps, int(dtype == torch.float64))
 
 
 def _check_fields(p: SimParams, *tensors: torch.Tensor) -> None:
     """What the kernels take: contiguous (ny, nx) tensors of one dtype,
     float32 or float64, on one CUDA device."""
     dev, dtype = tensors[0].device, tensors[0].dtype
-    if dtype not in _SUFFIX:
+    if dtype not in SUFFIX:
         raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")
     for t in tensors:
         if t.device != dev:
@@ -619,9 +606,14 @@ def _check_fields(p: SimParams, *tensors: torch.Tensor) -> None:
             raise ValueError("kernel takes contiguous fields")
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+def _fields(p: SimParams, *tensors: torch.Tensor):
+    """(dtype, device index) of fields that pass ``_check_fields``: the
+    cheap pass first, the detailed checks (which raise) only if it fails."""
+    ok = fields_ok(tensors, (p.ny, p.nx))
+    if ok is None:
+        _check_fields(p, *tensors)
+        ok = tensors[0].dtype, tensors[0].get_device()
+    return ok
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -631,6 +623,18 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{what}: no kernel or plain path for device {t.device}")
+
+
+def _blend_args(states: Sequence[Pair], weights: Sequence):
+    """K1's blend arguments: 8 field pointers, the number of states and the
+    3 extra weights."""
+    n = len(states)
+    ptrs = []
+    for k in range(4):
+        F, U = states[k] if k < n else (None, None)
+        ptrs += [F.data_ptr() if F is not None else None,
+                 U.data_ptr() if U is not None else None]
+    return (*ptrs, n, *[float(x) for x in weights[1:]], *[0.0] * (4 - n))
 
 
 def blend_rhs(states: Sequence[Pair], weights: Sequence, p: SimParams, fu=0.0,
@@ -647,24 +651,12 @@ def blend_rhs(states: Sequence[Pair], weights: Sequence, p: SimParams, fu=0.0,
                          "integrator stage has this form")
     if not _on_cuda(states[0][0], "blend_rhs"):
         return blend_rhs_plain(states, weights, p, fu, dirichlet_value, is_euler)
-    flat = [t for s in states for t in s]
-    _check_fields(p, *flat)
-    ptrs = []
-    for k in range(4):
-        F, U = states[k] if k < n else (None, None)
-        ptrs += [F.data_ptr() if F is not None else None,
-                 U.data_ptr() if U is not None else None]
-    w = [float(x) for x in weights[1:]] + [0.0] * (4 - n)
+    dtype, index = _fields(p, *(t for s in states for t in s))
     out_F = torch.empty_like(states[0][0])
     out_U = torch.empty_like(states[0][1])
-    dtype = out_F.dtype
-    with torch.cuda.device(out_F.device):
-        rc = entry(_lib(), "blend_rhs", dtype)(
-            *ptrs, n, *w, out_F.data_ptr(), out_U.data_ptr(), p.ny, p.nx,
-            float(dirichlet_value), float(fu), int(is_euler),
-            ctypes.byref(_phys(p, dtype)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "blend_rhs")
-    LAUNCHES["blend_rhs"] += 1
+    launch(LAUNCHES, "blend_rhs", fn("blend_rhs", dtype), index,
+           *_blend_args(states, weights), out_F.data_ptr(), out_U.data_ptr(), p.ny, p.nx,
+           float(dirichlet_value), float(fu), int(is_euler), _phys_ref(p, dtype))
     return out_F, out_U
 
 
@@ -675,20 +667,14 @@ def rkm_attempt(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
     ``rkm_attempt_plain``: returns (next_F, next_U, emax (2,))."""
     if not _on_cuda(F, "rkm_attempt"):
         return rkm_attempt_plain(F, U, tau, p, fu, dirichlet_value)
-    _check_fields(p, F, U)
-    out_F = torch.empty_like(F)
-    out_U = torch.empty_like(U)
-    partials = torch.empty(2 * _lib().bt_rkm_num_blocks(p.ny, p.nx),
-                           dtype=F.dtype, device=F.device)
-    emax = torch.empty(2, dtype=F.dtype, device=F.device)
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), "rkm_attempt", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            partials.data_ptr(), emax.data_ptr(), p.ny, p.nx, float(tau),
-            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "rkm_attempt")
-    LAUNCHES["rkm_attempt"] += 1
+    dtype, index = _fields(p, F, U)
+    out_F, out_U = torch.empty_like(F), torch.empty_like(U)
+    emax = F.new_empty(2)
+    partials = scratch("rkm_num_blocks", (p.ny, p.nx), dtype, index, per=2)
+    launch(LAUNCHES, "rkm_attempt", fn("rkm_attempt", dtype), index,
+           F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+           partials.data_ptr(), emax.data_ptr(), p.ny, p.nx, float(tau),
+           float(dirichlet_value), float(fu), _phys_ref(p, dtype))
     return out_F, out_U, emax
 
 
@@ -697,15 +683,11 @@ def si_prepare(F: torch.Tensor, U: torch.Tensor, p: SimParams):
     ``si_prepare_plain``: (r0_F, uterm[, s])."""
     if not _on_cuda(F, "si_prepare"):
         return si_prepare_plain(F, U, p)
-    _check_fields(p, F, U)
+    dtype, index = _fields(p, F, U)
     outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), "si_prepare", F.dtype)(
-            F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr() if len(outs) == 3 else None, p.ny, p.nx,
-            ctypes.byref(_phys(p, F.dtype)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "si_prepare")
-    LAUNCHES["si_prepare"] += 1
+    launch(LAUNCHES, "si_prepare", fn("si_prepare", dtype), index,
+           F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+           outs[2].data_ptr() if len(outs) == 3 else None, p.ny, p.nx, _phys_ref(p, dtype))
     return tuple(outs)
 
 
@@ -719,22 +701,18 @@ def rk4_final_stage(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
         return rk4_final_stage_plain(x, k1, k2, k3, p, fu, dirichlet_value, halo)
     fields = [*x, *k1, *k2, *k3]
     if halo is None:
-        _check_fields(p, *fields)
-        name, ny, nx, ghosts = "rk4_final", p.ny, p.nx, ()
+        dtype, index = _fields(p, *fields)
+        name, count, ny, nx, ghosts = "rk4_final", "rk4_final_stage", p.ny, p.nx, ()
     else:
-        _check_shard(*fields)
+        dtype, index = _shard(*fields)
         ny, nx = x[0].shape
-        name, ghosts = "rk4_final_halo", _halo_args(halo, ny, nx)
+        name, count = "rk4_final_halo", "rk4_final_stage_sharded"
+        ghosts = _halo_args(halo, ny, nx)
     out_F, out_U = torch.empty_like(x[0]), torch.empty_like(x[1])
-    with torch.cuda.device(out_F.device):
-        rc = entry(_lib(), name, out_F.dtype)(
-            *(t.data_ptr() for t in fields), out_F.data_ptr(), out_U.data_ptr(),
-            ny, nx, float(p.dt), float(p.dt / 6), float(dirichlet_value),
-            float(fu), *ghosts, ctypes.byref(_phys(p, out_F.dtype)),
-            torch.cuda.current_stream().cuda_stream)
-    count = "rk4_final_stage" if halo is None else "rk4_final_stage_sharded"
-    _raise_on(rc, count)
-    LAUNCHES[count] += 1
+    launch(LAUNCHES, count, fn(name, dtype), index,
+           *(t.data_ptr() for t in fields), out_F.data_ptr(), out_U.data_ptr(),
+           ny, nx, float(p.dt), float(p.dt / 6), float(dirichlet_value),
+           float(fu), *ghosts, _phys_ref(p, dtype))
     return out_F, out_U
 
 
@@ -744,16 +722,12 @@ def rk4_full(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
     ``rk4_full_plain``."""
     if not _on_cuda(F, "rk4_full"):
         return rk4_full_plain(F, U, p, fu, dirichlet_value)
-    _check_fields(p, F, U)
+    dtype, index = _fields(p, F, U)
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), "rk4_full", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            p.ny, p.nx, float(p.dt / 2), float(p.dt), float(p.dt / 6),
-            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "rk4_full")
-    LAUNCHES["rk4_full"] += 1
+    launch(LAUNCHES, "rk4_full", fn("rk4_full", dtype), index,
+           F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+           p.ny, p.nx, float(p.dt / 2), float(p.dt), float(p.dt / 6),
+           float(dirichlet_value), float(fu), _phys_ref(p, dtype))
     return out_F, out_U
 
 
@@ -765,19 +739,15 @@ def euler_steps(F: torch.Tensor, U: torch.Tensor, p: SimParams, steps: int,
     _check_steps(steps, F.dtype)
     if not _on_cuda(F, "euler_steps"):
         return euler_steps_plain(F, U, p, steps, fu, dirichlet_value)
-    _check_fields(p, F, U)
-    built = K6_STEPS[F.dtype]
+    dtype, index = _fields(p, F, U)
+    built = K6_STEPS[dtype]
     if steps not in built:
-        raise ValueError(f"K6 is built for {built} steps per pass at {F.dtype}, "
+        raise ValueError(f"K6 is built for {built} steps per pass at {dtype}, "
                          f"got {steps}")
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), "euler_steps", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            p.ny, p.nx, steps, float(dirichlet_value), float(fu),
-            ctypes.byref(_phys(p, F.dtype)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "euler_steps")
-    LAUNCHES["euler_steps"] += 1
+    launch(LAUNCHES, "euler_steps", fn("euler_steps", dtype), index,
+           F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+           p.ny, p.nx, steps, float(dirichlet_value), float(fu), _phys_ref(p, dtype))
     return out_F, out_U
 
 
@@ -788,7 +758,7 @@ def _check_shard(*tensors: torch.Tensor) -> None:
     """What the mesh kernels take: contiguous float32 or float64 tensors of
     one dtype and shape on one CUDA device."""
     dev, shape, dtype = tensors[0].device, tuple(tensors[0].shape), tensors[0].dtype
-    if dtype not in _SUFFIX:
+    if dtype not in SUFFIX:
         raise TypeError(f"the mesh kernels take float32 or float64 fields, got {dtype}")
     for t in tensors:
         if t.device != dev or tuple(t.shape) != shape or t.dtype != dtype:
@@ -798,14 +768,14 @@ def _check_shard(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel takes contiguous fields")
 
 
-def _state_ptrs(states: Sequence[Pair]):
-    """The 8 field pointers and 3 extra weights of K1's blend arguments."""
-    ptrs = []
-    for k in range(4):
-        F, U = states[k] if k < len(states) else (None, None)
-        ptrs += [F.data_ptr() if F is not None else None,
-                 U.data_ptr() if U is not None else None]
-    return ptrs
+def _shard(*tensors: torch.Tensor):
+    """(dtype, device index) of shard fields that pass ``_check_shard``,
+    the cheap pass first."""
+    ok = fields_ok(tensors)
+    if ok is None:
+        _check_shard(*tensors)
+        ok = tensors[0].dtype, tensors[0].get_device()
+    return ok
 
 
 def _halo_args(halo: Halo, ny: int, nx: int):
@@ -828,19 +798,14 @@ def halo_edges(states: Sequence[Pair], weights: Sequence, rows: bool, cols: bool
     blend is K1's, so a seam sees what the shard's own K1 would."""
     if not _on_cuda(states[0][0], "halo_edges"):
         return halo_edges_plain(states, weights, rows, cols)
-    _check_shard(*(t for s in states for t in s))
+    dtype, index = _shard(*(t for s in states for t in s))
     F0 = states[0][0]
     ny, nx = F0.shape
     out_r = F0.new_empty((2, 2, nx)) if rows else None
     out_c = F0.new_empty((2, 2, ny)) if cols else None
-    w = [float(x) for x in weights[1:]] + [0.0] * (4 - len(states))
-    with torch.cuda.device(F0.device):
-        rc = entry(_lib(), "halo_edges", F0.dtype)(
-            *_state_ptrs(states), len(states), *w,
-            out_r.data_ptr() if rows else None, out_c.data_ptr() if cols else None,
-            ny, nx, torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "halo_edges")
-    LAUNCHES["halo_edges"] += 1
+    launch(LAUNCHES, "halo_edges", fn("halo_edges", dtype), index,
+           *_blend_args(states, weights), out_r.data_ptr() if rows else None,
+           out_c.data_ptr() if cols else None, ny, nx)
     return out_r, out_c
 
 
@@ -859,19 +824,15 @@ def blend_rhs_sharded(states: Sequence[Pair], weights: Sequence, p: SimParams,
     if not _on_cuda(states[0][0], "blend_rhs_sharded"):
         return blend_rhs_sharded_plain(states, weights, p, halo, fu, dirichlet_value,
                                        is_euler)
-    _check_shard(*(t for s in states for t in s))
+    dtype, index = _shard(*(t for s in states for t in s))
     F0 = states[0][0]
     ny, nx = F0.shape
     out_F, out_U = torch.empty_like(F0), torch.empty_like(F0)
-    w = [float(x) for x in weights[1:]] + [0.0] * (4 - n)
-    with torch.cuda.device(F0.device):
-        rc = entry(_lib(), "blend_rhs_halo", F0.dtype)(
-            *_state_ptrs(states), n, *w, out_F.data_ptr(), out_U.data_ptr(), ny, nx,
-            float(dirichlet_value), float(fu), int(is_euler), *_halo_args(halo, ny, nx),
-            ctypes.byref(_phys(p, F0.dtype)), torch.cuda.current_stream().cuda_stream)
-    count = "blend_rhs_sharded_euler" if is_euler else "blend_rhs_sharded"
-    _raise_on(rc, count)
-    LAUNCHES[count] += 1
+    launch(LAUNCHES, "blend_rhs_sharded_euler" if is_euler else "blend_rhs_sharded",
+           fn("blend_rhs_halo", dtype), index,
+           *_blend_args(states, weights), out_F.data_ptr(), out_U.data_ptr(), ny, nx,
+           float(dirichlet_value), float(fu), int(is_euler), *_halo_args(halo, ny, nx),
+           _phys_ref(p, dtype))
     return out_F, out_U
 
 
@@ -885,7 +846,7 @@ def rkm_final_stage(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
     if not _on_cuda(x[0], "rkm_final_stage"):
         return rkm_final_stage_plain(x, k1, k3, k4, tau, p, fu, dirichlet_value, halo)
     fields = [*x, *k1, *k3, *k4]
-    _check_shard(*fields)
+    dtype, index = _shard(*fields)
     ny, nx = x[0].shape
     if halo is None:
         if (ny, nx) != (p.ny, p.nx):
@@ -894,16 +855,13 @@ def rkm_final_stage(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
     w = k5_weights(tau)
     c6 = tau / type(tau)(6)
     out_F, out_U = torch.empty_like(x[0]), torch.empty_like(x[0])
-    partials = x[0].new_empty(2 * _lib().bt_stage_num_blocks(ny, nx))
     emax = x[0].new_empty(2)
-    with torch.cuda.device(out_F.device):
-        rc = entry(_lib(), "rkm_final", out_F.dtype)(
-            *(t.data_ptr() for t in fields), *(float(v) for v in w[1:]), float(c6),
-            out_F.data_ptr(), out_U.data_ptr(), partials.data_ptr(), emax.data_ptr(),
-            ny, nx, float(dirichlet_value), float(fu), *_halo_args(halo, ny, nx),
-            ctypes.byref(_phys(p, out_F.dtype)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "rkm_final_stage")
-    LAUNCHES["rkm_final_stage"] += 1
+    partials = scratch("stage_num_blocks", (ny, nx), dtype, index, per=2)
+    launch(LAUNCHES, "rkm_final_stage", fn("rkm_final", dtype), index,
+           *(t.data_ptr() for t in fields), *(float(v) for v in w[1:]), float(c6),
+           out_F.data_ptr(), out_U.data_ptr(), partials.data_ptr(), emax.data_ptr(),
+           ny, nx, float(dirichlet_value), float(fu), *_halo_args(halo, ny, nx),
+           _phys_ref(p, dtype))
     return out_F, out_U, emax
 
 
@@ -954,17 +912,14 @@ def rkm_attempt_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, tau: np.flo
     if not _on_cuda(F, "rkm_attempt_sharded"):
         return rkm_attempt_sharded_plain(F, U, ap, tau, p, fu, dirichlet_value)
     sfx, count, ghosts = _apron_args(F, U, ap, SLAB_ROWS, p)
+    dtype, index = F.dtype, F.get_device()
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
-    partials = F.new_empty(2 * _lib().bt_rkm_num_blocks(*F.shape))
     emax = F.new_empty(2)
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), f"rkm_attempt_{sfx}", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
-            partials.data_ptr(), emax.data_ptr(), *ghosts, float(tau),
-            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, f"rkm_attempt_{count}")
-    LAUNCHES[f"rkm_attempt_{count}"] += 1
+    partials = scratch("rkm_num_blocks", tuple(F.shape), dtype, index, per=2)
+    launch(LAUNCHES, f"rkm_attempt_{count}", fn(f"rkm_attempt_{sfx}", dtype), index,
+           F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
+           partials.data_ptr(), emax.data_ptr(), *ghosts, float(tau),
+           float(dirichlet_value), float(fu), _phys_ref(p, dtype))
     return out_F, out_U, emax
 
 
@@ -981,17 +936,14 @@ def euler_steps_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParam
     if not _on_cuda(F, "euler_steps_sharded"):
         return euler_steps_sharded_plain(F, U, ap, p, steps, fu, dirichlet_value)
     sfx, count, ghosts = _apron_args(F, U, ap, steps, p)
-    if steps not in K6_STEPS[F.dtype]:
-        raise ValueError(f"K6's twins are built for {K6_STEPS[F.dtype]} steps per pass at "
-                         f"{F.dtype}, got {steps}")
+    dtype, index = F.dtype, F.get_device()
+    if steps not in K6_STEPS[dtype]:
+        raise ValueError(f"K6's twins are built for {K6_STEPS[dtype]} steps per pass at "
+                         f"{dtype}, got {steps}")
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), f"euler_steps_{sfx}", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(), *ghosts, steps,
-            float(dirichlet_value), float(fu), ctypes.byref(_phys(p, F.dtype)),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, f"euler_steps_{count}")
-    LAUNCHES[f"euler_steps_{count}"] += 1
+    launch(LAUNCHES, f"euler_steps_{count}", fn(f"euler_steps_{sfx}", dtype), index,
+           F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(), *ghosts, steps,
+           float(dirichlet_value), float(fu), _phys_ref(p, dtype))
     return out_F, out_U
 
 
@@ -1003,17 +955,13 @@ def si_prepare_sharded(F: torch.Tensor, U: torch.Tensor, p: SimParams, halo: Hal
     ``si_prepare_sharded_plain``."""
     if not _on_cuda(F, "si_prepare_sharded"):
         return si_prepare_sharded_plain(F, U, p, halo)
-    _check_shard(F, U)
+    dtype, index = _shard(F, U)
     ny, nx = F.shape
     outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), "si_prepare_halo", F.dtype)(
-            F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr() if len(outs) == 3 else None, ny, nx,
-            *_halo_args(halo, ny, nx), ctypes.byref(_phys(p, F.dtype)),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "si_prepare_sharded")
-    LAUNCHES["si_prepare_sharded"] += 1
+    launch(LAUNCHES, "si_prepare_sharded", fn("si_prepare_halo", dtype), index,
+           F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+           outs[2].data_ptr() if len(outs) == 3 else None, ny, nx,
+           *_halo_args(halo, ny, nx), _phys_ref(p, dtype))
     return tuple(outs)
 
 
@@ -1028,12 +976,10 @@ def rk4_full_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams, 
     if not _on_cuda(F, "rk4_full_sharded"):
         return rk4_full_sharded_plain(F, U, ap, p, fu, dirichlet_value)
     sfx, count, ghosts = _apron_args(F, U, ap, RK4_SLAB_ROWS, p)
+    dtype, index = F.dtype, F.get_device()
     out_F, out_U = torch.empty_like(F), torch.empty_like(U)
-    with torch.cuda.device(F.device):
-        rc = entry(_lib(), f"rk4_full_{sfx}", F.dtype)(
-            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(), *ghosts,
-            float(p.dt / 2), float(p.dt), float(p.dt / 6), float(dirichlet_value), float(fu),
-            ctypes.byref(_phys(p, F.dtype)), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, f"rk4_full_{count}")
-    LAUNCHES[f"rk4_full_{count}"] += 1
+    launch(LAUNCHES, f"rk4_full_{count}", fn(f"rk4_full_{sfx}", dtype), index,
+           F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(), *ghosts,
+           float(p.dt / 2), float(p.dt), float(p.dt / 6), float(dirichlet_value), float(fu),
+           _phys_ref(p, dtype))
     return out_F, out_U

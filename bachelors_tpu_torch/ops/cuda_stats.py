@@ -16,17 +16,17 @@ device; the plain version sums in float32 as the JAX package does, so the
 two differ by float32's rounding of a long sum (~1e-7 relative).
 
 ``cuda_field_stats`` takes its plain version only for a tensor on the CPU;
-for a CUDA tensor it launches or raises, and each launch adds one to
-``LAUNCHES["field_stats"]``.
+for a CUDA tensor it launches (through ``ops/cuda_launch``) or raises, and
+each launch adds one to ``LAUNCHES["field_stats"]``.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
-from . import cuda_build, cuda_rhs
+from . import cuda_rhs
+from .cuda_launch import LONG, PTR, UNSUFFIXED, fn, launch, register, scratch
 
 LAUNCHES = {"field_stats": 0}
 
@@ -59,20 +59,10 @@ def field_stats_plain(x: torch.Tensor) -> FieldStats:
                       min=torch.amin(v), max=torch.amax(v))
 
 
-_LIB = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load()
-        lib.bt_field_stats_num_partials.argtypes = [ctypes.c_longlong]
-        lib.bt_field_stats_num_partials.restype = ctypes.c_int
-        lib.bt_field_stats_f32.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                                           ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.bt_field_stats_f32.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_ENTRIES = {"field_stats": [PTR, LONG, PTR, PTR, PTR]}
+_HELPERS = {"field_stats_num_partials": [LONG]}
+register(_ENTRIES, (torch.float32,))
+register(_HELPERS, UNSUFFIXED)
 
 
 def cuda_field_stats(x: torch.Tensor) -> FieldStats:
@@ -88,12 +78,9 @@ def cuda_field_stats(x: torch.Tensor) -> FieldStats:
     n = x.numel()
     if n < 1:
         raise ValueError("K11 takes at least one value")
-    partials = torch.empty(_lib().bt_field_stats_num_partials(n), dtype=torch.float64,
-                           device=x.device)
+    index = x.get_device()
+    partials = scratch("field_stats_num_partials", (n,), torch.float64, index)
     out = torch.empty(5, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _lib().bt_field_stats_f32(x.data_ptr(), n, partials.data_ptr(), out.data_ptr(),
-                                       torch.cuda.current_stream().cuda_stream)
-    cuda_rhs._raise_on(rc, "cuda_field_stats")
-    LAUNCHES["field_stats"] += 1
+    launch(LAUNCHES, "field_stats", fn("field_stats", torch.float32), index,
+           x.data_ptr(), n, partials.data_ptr(), out.data_ptr())
     return FieldStats(*out.unbind())

@@ -30,13 +30,13 @@ differ by the order of a float32 sum.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as tnf
 
-from . import cuda_build, cuda_rhs
+from . import cuda_rhs
+from .cuda_launch import FLOAT, INT, LONG, PTR, UNSUFFIXED, fn, launch, register, scratch
 
 LAUNCHES = {"saxpy_whole": 0, "saxpy_gridded": 0, "saxpy_device_scalar": 0, "block_sum": 0,
             "laplacian_halo": 0, "fused_stats": 0}
@@ -81,25 +81,15 @@ def fused_stats_plain(x: torch.Tensor) -> Stats4:
 
 # ------------------------------------------------------------------ kernels
 
-_LIB = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = cuda_build.load()
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        for name, args in (("bt_tut_saxpy_whole", [f, p, p, p, ll, p]),
-                           ("bt_tut_saxpy_rows", [f, p, p, p, i, i, p]),
-                           ("bt_tut_saxpy_rows_dev", [p, p, p, p, i, i, p]),
-                           ("bt_tut_num_partials", [ll, i]),
-                           ("bt_tut_block_sum", [p, ll, p, p, p]),
-                           ("bt_tut_fused_stats", [p, ll, p, p, p]),
-                           ("bt_tut_laplacian", [p, p, i, i, p])):
-            getattr(lib, name).argtypes = args
-            getattr(lib, name).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+# The entry points of csrc/tutorial.cu (float32 only, no dtype suffix)
+_ENTRIES = {"tut_saxpy_whole": [FLOAT, PTR, PTR, PTR, LONG, PTR],
+            "tut_saxpy_rows": [FLOAT, PTR, PTR, PTR, INT, INT, PTR],
+            "tut_saxpy_rows_dev": [PTR, PTR, PTR, PTR, INT, INT, PTR],
+            "tut_num_partials": [LONG, INT],
+            "tut_block_sum": [PTR, LONG, PTR, PTR, PTR],
+            "tut_fused_stats": [PTR, LONG, PTR, PTR, PTR],
+            "tut_laplacian": [PTR, PTR, INT, INT, PTR]}
+register(_ENTRIES, UNSUFFIXED)
 
 
 def _check(what: str, *tensors: torch.Tensor, two_d: bool = False) -> None:
@@ -120,13 +110,11 @@ def _check(what: str, *tensors: torch.Tensor, two_d: bool = False) -> None:
         raise ValueError(f"{what} takes a 2-D array, got shape {tuple(x.shape)}")
 
 
-def _launch(name: str, entry: str, device: torch.device, *args) -> None:
-    """``entry`` of the library on ``device``'s current stream; counts the
-    launch under ``name``, or raises on the CUDA error it returns."""
-    with torch.cuda.device(device):
-        rc = getattr(_lib(), entry)(*args, torch.cuda.current_stream().cuda_stream)
-    cuda_rhs._raise_on(rc, name)
-    LAUNCHES[name] += 1
+def _launch(name: str, entry: str, x: torch.Tensor, *args) -> None:
+    """``entry`` of the library on ``x``'s device and its current stream;
+    counts the launch under ``name``, or raises on the CUDA error it
+    returns."""
+    launch(LAUNCHES, name, fn(entry), x.get_device(), *args)
 
 
 def saxpy_whole(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -135,7 +123,7 @@ def saxpy_whole(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return saxpy_plain(a, x, y)
     _check("saxpy_whole", x, y)
     o = torch.empty_like(x)
-    _launch("saxpy_whole", "bt_tut_saxpy_whole", x.device, float(a), x.data_ptr(),
+    _launch("saxpy_whole", "tut_saxpy_whole", x, float(a), x.data_ptr(),
             y.data_ptr(), o.data_ptr(), x.numel())
     return o
 
@@ -146,7 +134,7 @@ def saxpy_gridded(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return saxpy_plain(a, x, y)
     _check("saxpy_gridded", x, y, two_d=True)
     o = torch.empty_like(x)
-    _launch("saxpy_gridded", "bt_tut_saxpy_rows", x.device, float(a), x.data_ptr(),
+    _launch("saxpy_gridded", "tut_saxpy_rows", x, float(a), x.data_ptr(),
             y.data_ptr(), o.data_ptr(), *x.shape)
     return o
 
@@ -163,14 +151,14 @@ def saxpy_device_scalar(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
         raise ValueError(f"saxpy_device_scalar takes a as one float32 on {x.device}, got "
                          f"{a.numel()} {a.dtype} on {a.device}")
     o = torch.empty_like(x)
-    _launch("saxpy_device_scalar", "bt_tut_saxpy_rows_dev", x.device, a.data_ptr(),
+    _launch("saxpy_device_scalar", "tut_saxpy_rows_dev", x, a.data_ptr(),
             x.data_ptr(), y.data_ptr(), o.data_ptr(), *x.shape)
     return o
 
 
 def _partials(x: torch.Tensor, width: int) -> torch.Tensor:
-    return torch.empty(_lib().bt_tut_num_partials(x.numel(), width), dtype=torch.float32,
-                       device=x.device)
+    """The per-block partials of a reduction, reused (``scratch``)."""
+    return scratch("tut_num_partials", (x.numel(), width), torch.float32, x.get_device())
 
 
 def block_sum(x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +168,7 @@ def block_sum(x: torch.Tensor) -> torch.Tensor:
         return block_sum_plain(x)
     _check("block_sum", x)
     out = torch.empty((), dtype=torch.float32, device=x.device)
-    _launch("block_sum", "bt_tut_block_sum", x.device, x.data_ptr(), x.numel(),
+    _launch("block_sum", "tut_block_sum", x, x.data_ptr(), x.numel(),
             _partials(x, 1).data_ptr(), out.data_ptr())
     return out
 
@@ -191,7 +179,7 @@ def laplacian_halo(x: torch.Tensor) -> torch.Tensor:
         return laplacian_halo_plain(x)
     _check("laplacian_halo", x, two_d=True)
     o = torch.empty_like(x)
-    _launch("laplacian_halo", "bt_tut_laplacian", x.device, x.data_ptr(), o.data_ptr(),
+    _launch("laplacian_halo", "tut_laplacian", x, x.data_ptr(), o.data_ptr(),
             *x.shape)
     return o
 
@@ -203,6 +191,6 @@ def fused_stats(x: torch.Tensor) -> Stats4:
         return fused_stats_plain(x)
     _check("fused_stats", x)
     out = torch.empty(STATS_WIDTH, dtype=torch.float32, device=x.device)
-    _launch("fused_stats", "bt_tut_fused_stats", x.device, x.data_ptr(), x.numel(),
+    _launch("fused_stats", "tut_fused_stats", x, x.data_ptr(), x.numel(),
             _partials(x, STATS_WIDTH).data_ptr(), out.data_ptr())
     return tuple(out.unbind())

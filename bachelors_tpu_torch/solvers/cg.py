@@ -24,9 +24,10 @@ instead (a ``lax.while_loop``); a sync-free loop is later work for the port
 On a mesh every vector operation runs shard by shard (K9 and K10 per
 shard on the kernel path), the dot products are combined on the first
 shard's device (``topo.dot``, ``topo.allsum`` of the kernels' shard-local
-partials: JAX :111-114), alpha and beta are formed there and moved to each
-shard's device, and the loop still reads one value per iteration, the
-combined <r', r'>.
+partials: JAX :111-114), alpha is formed there, and alpha and the
+combined dot products that K10 forms beta from are moved to each shard's
+device; the loop still reads one value per iteration, the combined
+<r', r'>.
 
 ``cg_solve_fused`` (JAX :263) is the same recurrence with the direction
 update folded into the matvec, on one device: per iteration K9 and K8b
@@ -86,6 +87,18 @@ def _update_xr_rr(x: Field, r: Field, p: Field, Ap: Field, alpha: torch.Tensor,
     return Shards(xs, x.grid), Shards(rs, x.grid), topo.allsum(rrs)
 
 
+def _advance_p(r: Field, p: Field, rr_new: torch.Tensor, rr: torch.Tensor,
+               epsilon: float) -> Field:
+    """K10 (per shard on a mesh, each given the combined dot products on
+    its own device): p = r + beta p in place, beta = rr_new / max(rr,
+    epsilon) formed in the kernel."""
+    if not isinstance(p, Shards):
+        return cuda_cg.advance_p_inplace(r, p, rr_new, rr, epsilon)
+    return Shards([cuda_cg.advance_p_inplace(rb, pb, rr_new.to(pb.device), rr.to(pb.device),
+                                             epsilon)
+                   for rb, pb in zip(r.blocks, p.blocks)], p.grid)
+
+
 def _tolerance(b: Field, tolerance: float):
     """(N, tol^2 * N) in the field dtype, as numpy scalars; N counts every
     shard's cells."""
@@ -119,8 +132,10 @@ def cg_solve(
     in one pass and accepting a dead ``out`` buffer for A p (K8,
     ``ops/cuda_cg``; on a mesh K12.8, whose <p, A p> are the shards' own,
     combined here); the x/r update then runs as the fused in-place K9 and
-    the direction update as the in-place K10, so a steady-state iteration
-    allocates no field.  Without it the loop runs plain torch ops.
+    the direction update as the in-place K10, which forms beta from
+    <r', r'> and <r, r> itself, so nothing runs between K9 and K10 and a
+    steady-state iteration allocates no field.  Without it the loop runs
+    plain torch ops.
 
     ``diag`` enables Jacobi preconditioning (``_pcg_solve``); it excludes
     ``matvec_pAp``, whose kernels are wired for the plain recurrence.
@@ -149,7 +164,6 @@ def cg_solve(
         if r is b:
             r = each(torch.clone, b)
         p = each(torch.clone, r)
-        one = torch.ones((), dtype=b.dtype, device=b.device)
         Ap = None  # last iteration's Ap, dead once x and r are updated
         while it < max_iters:
             Ap, pAp = matvec_pAp(p, out=Ap)
@@ -160,9 +174,7 @@ def cg_solve(
                 # after the loop, so the launch is skipped
                 rr = rr_new
                 break
-            beta = rr_new / torch.clamp(rr, min=epsilon)
-            p = each(lambda rb, pb: cuda_cg.axpby_inplace(
-                one.to(pb.device), beta.to(pb.device), rb, pb), r, p)
+            p = _advance_p(r, p, rr_new, rr, epsilon)
             rr = rr_new
             it += 1
     else:

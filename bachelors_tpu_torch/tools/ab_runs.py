@@ -1,17 +1,30 @@
 """Full runs of two checkouts of the repo on one card, in turns.
 
-    python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER [--kernels] [--out FILE]
+    python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER [--runs R,...] [--kernels]
+                                                [--out FILE]
 
-Runs the shipped ``config.ini`` (the RKM path) of each checkout through
-its own ``run_config_file`` in the order BEFORE, AFTER, AFTER, BEFORE,
-each in a fresh process started in that checkout's root, with its kernels
-built before the clock starts.  Each run prints one JSON line (run time, steps,
-attempts, ms/step); ``--out`` gets them all.  With ``--kernels`` each
-process instead times the one-device tile kernels -- K2, K3 and K6 (T = 4,
-and 8 at float64) -- through its checkout's own wrappers, at float32 and
-float64, at 512^2 and 2048^2 from the config's initial fields: the
+Runs configs of each checkout through its own ``run_config_file`` in the
+order BEFORE, AFTER, AFTER, BEFORE, each turn a fresh process started in
+that checkout's root, with its kernels built before the clock starts.
+``--runs`` names them (default ``rkm``): ``rkm``, the shipped
+``config.ini`` (the RKM path); ``si``, the same config on the
+semi-implicit solver at the CG tolerance 5e-9 (8000 steps, stats on);
+``rkm-f64`` and ``si-f64``, the reference's float64 sweep configs
+``bench_sweep_f64/config_explicit-rk4-adaptive_512_f64.ini`` and
+``config_semi-implicit_512_f64.ini`` as they ship.  Each turn prints one
+JSON line with, per run, the run time, steps, attempts, ms/step, CG
+iterations (K9 launches) and CG host reads: the work counts of two
+checkouts whose kernels round alike must be equal.  ``--out`` gets them
+all.  With ``--kernels`` each process instead times the one-device tile
+kernels -- K2 (also at S = 0, the float64 sweep's physics), K3 and K6 (T =
+4, and 8 at float64) -- through its checkout's own wrappers, at float32
+and float64, at 512^2 and 2048^2 from the config's initial fields: the
 kernel's device µs per traced launch under ``torch.profiler`` and the
-host ms per call over back-to-back calls.
+host ms per call over back-to-back calls; the CG kernels K8 (both forms),
+K9 and K10 at 512^2, host ms per call and CUDA-event ms per call; and the
+ptxas registers, spills and shared memory and the SASS instruction count
+of each K2 and K10 instantiation of the checkout's build (``cuobjdump
+-sass``, where the toolkit has it).
 
     python -m bachelors_tpu_torch.tools.ab_runs --cg-variant [CHECKOUT] [--out FILE]
 
@@ -33,18 +46,35 @@ import json
 import subprocess
 import sys
 
+RUNS = {
+    "rkm": ("config.ini", ""),
+    "si": ("config.ini", "[simulation]\nsolver = semi-implicit\nT_tolerance = 5e-9\n"
+                         "Phi_tolerance = 5e-9\n"),
+    "rkm-f64": ("bench_sweep_f64/config_explicit-rk4-adaptive_512_f64.ini", ""),
+    "si-f64": ("bench_sweep_f64/config_semi-implicit_512_f64.ini", ""),
+}
+
 RUN = r"""
 import json, sys, tempfile
 sys.path.insert(0, ".")
 from bachelors_tpu_torch.app.driver import run_config_file
-from bachelors_tpu_torch.ops import cuda_build
+from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs
+from bachelors_tpu_torch.solvers import cg
 from bachelors_tpu_torch.utils.logging import SYSTEM
 cuda_build.load()
-with tempfile.TemporaryDirectory() as out:
-    res = run_config_file("config.ini", ["[snapshot]\nfolder = %s\n" % out])
-    SYSTEM.set_file(None)
-print(json.dumps({"runtime_s": res.runtime, "steps": res.iters,
-                  "attempts": res.attempts, "ms_per_step": res.avg_step_ms}))
+out = {}
+for name, (config, override) in json.loads(sys.argv[1]).items():
+    cuda_rhs.reset_launch_counts()
+    cuda_cg.reset_launch_counts()
+    cg.reset_host_reads()
+    with tempfile.TemporaryDirectory() as folder:
+        res = run_config_file(config, [override, "[snapshot]\nfolder = %s\n" % folder])
+        SYSTEM.set_file(None)
+    out[name] = {"runtime_s": res.runtime, "steps": res.iters, "attempts": res.attempts,
+                 "ms_per_step": res.avg_step_ms,
+                 "cg_iterations": cuda_cg.LAUNCHES["update_xr_rr"],
+                 "cg_host_reads": cg.HOST_READS["cg_stop_test"]}
+print(json.dumps(out))
 """
 
 KERNELS = r"""
@@ -64,7 +94,10 @@ for dtype in ("float32", "float64"):
         p = cfg.params
         F, U = make_initial_fields(p, cfg.initial, device="cuda")
         tau = np.dtype(dtype).type(p.dt)
+        p0 = p.replace(S=0.0)
         calls = {"K2": ("rkm_attempt_kernel", lambda: cuda_rhs.rkm_attempt(F, U, tau, p)),
+                 "K2 S=0": ("rkm_attempt_kernel",
+                            lambda: cuda_rhs.rkm_attempt(F, U, tau, p0)),
                  "K3": ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p))}
         for T in cuda_rhs.K6_STEPS[F.dtype]:
             calls["K6 T=%d" % T] = ("euler_steps_kernel",
@@ -93,6 +126,67 @@ for dtype in ("float32", "float64"):
             out["%s %s %d^2" % (name, dtype, n)] = {
                 "device_us": sum(e.self_device_time_total for e in ev) / traced,
                 "traced": traced, "host_ms": host_ms}
+# the CG kernels at 512^2: host and event ms per call of each wrapper
+from bachelors_tpu_torch.core.params import BoundaryType
+from bachelors_tpu_torch.ops import cuda_cg
+from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix
+rng = np.random.default_rng(0)
+A_U = CrossMatrix(C=1.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
+A_F = AnisotropyMatrix(Cm1=0.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
+for dtype in (torch.float32, torch.float64):
+    r, p, x, Ap = (torch.from_numpy(rng.normal(size=(512, 512))).to("cuda", dtype)
+                   for _ in range(4))
+    s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(512, 512))).to("cuda", dtype)
+    rr_new, rr, alpha = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61, 1e-3))
+    if hasattr(cuda_cg, "advance_p_inplace"):
+        k10 = lambda: cuda_cg.advance_p_inplace(r, p, rr_new, rr, 1e-10)
+    else:  # the checkout before K10 formed beta: the loop's two ops, then K10
+        one = torch.ones((), dtype=dtype, device="cuda")
+        k10 = lambda: cuda_cg.axpby_inplace(one, rr_new / torch.clamp(rr, min=1e-10), r, p)
+    calls = {"K8 cross": lambda: cuda_cg.cross_matvec_pAp(A_U, p, out=Ap),
+             "K8 aniso": lambda: cuda_cg.aniso_matvec_pAp(A_F, s, p, out=Ap),
+             "K9": lambda: cuda_cg.update_xr_rr(x, r, p, Ap, alpha),
+             "K10 (with beta)": k10,
+             "torch.addcmul": lambda: torch.addcmul(r, rr, p)}
+    for name, call in calls.items():
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 200
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(200):
+            call()
+        end.record()
+        end.synchronize()
+        out["%s %s 512^2" % (name, str(dtype).split(".")[1])] = {
+            "host_ms": host_ms, "event_ms": start.elapsed_time(end) / 200}
+# ptxas and SASS of K2's and K10's instantiations
+import os, re, shutil, subprocess
+log = cuda_build.build_log()
+ptxas, name = {}, None
+for line in log.splitlines():
+    if "Compiling entry function" in line:
+        name = line.split("'")[1]
+    elif name and ("registers" in line or "spill" in line):
+        ptxas.setdefault(name, []).append(line.split("info    :")[-1].strip())
+cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+sass = {}
+if os.path.exists(cuobjdump):
+    dump = subprocess.run([cuobjdump, "-sass", str(cuda_build.build())], capture_output=True,
+                          text=True).stdout
+    for part in dump.split("Function : ")[1:]:
+        sass[part.split("\n", 1)[0].strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
+keep = [k for k in set(ptxas) | set(sass)
+        if any(w in k for w in ("rkm_attempt_kernel", "axpby_kernel", "advance_p_kernel"))]
+names = subprocess.run(["c++filt"], input="\n".join(keep), capture_output=True,
+                       text=True).stdout.splitlines()
+out["build"] = {d: {"ptxas": " | ".join(ptxas.get(k, [])), "sass_instructions": sass.get(k)}
+                for k, d in zip(keep, names if len(names) == len(keep) else keep)}
 print(json.dumps(out))
 """
 
@@ -157,7 +251,7 @@ print(json.dumps(out))
 """
 
 
-def run(checkout: str, script: str = RUN, *args: str) -> dict:
+def run(checkout: str, script: str, *args: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", script, *args],
                           cwd=checkout, capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
@@ -170,8 +264,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before", nargs="?", default=".")
     ap.add_argument("after", nargs="?")
+    ap.add_argument("--runs", default="rkm",
+                    help=f"comma-separated runs, of {', '.join(RUNS)} (default rkm)")
     ap.add_argument("--kernels", action="store_true",
-                    help="time the one-device tile kernels instead of the RKM run")
+                    help="time the one-device tile kernels and the CG kernels instead of "
+                         "whole runs")
     ap.add_argument("--cg-variant", action="store_true",
                     help="semi-implicit with the CG variant forced to pAp and fused, in "
                          "one checkout (BEFORE, default .)")
@@ -185,10 +282,13 @@ def main() -> None:
     else:
         if args.after is None:
             ap.error("two checkouts are needed without --cg-variant")
+        runs = {name: RUNS[name] for name in args.runs.split(",")}
         for label, checkout in (("before", args.before), ("after", args.after),
                                 ("after", args.after), ("before", args.before)):
-            results.append({"checkout": label,
-                            **run(checkout, KERNELS if args.kernels else RUN)})
+            if args.kernels:
+                results.append({"checkout": label, **run(checkout, KERNELS)})
+            else:
+                results.append({"checkout": label, **run(checkout, RUN, json.dumps(runs))})
             print(json.dumps(results[-1]), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -12,7 +12,7 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
   * RKM, the shipped solver: K2 (the whole Merson attempt);
   * semi-implicit at the CG tolerance 5e-9, under both CG variants: "pAp",
     K7 (the prepare) and the CG kernels K8 (matvec + <p, Ap>), K9 (x/r
-    update + <r, r>) and K10 (axpby); "fused", K8 once per solve, then K9
+    update + <r, r>) and K10 (the direction update); "fused", K8 once per solve, then K9
     and K8b (the direction update folded into the matvec) per iteration;
     then, with the gate's variant, the corrector loop and step residuals,
     cut to 800 steps;
@@ -163,6 +163,7 @@ TAU = 3.7e-6   # a Merson step size of the order the 512^2 run takes
 FIELD_TOL = 2e-5  # max|kernel - plain| <= FIELD_TOL * max(|plain|, 1)
 ERR_RTOL = 2e-4   # on the two error maxima
 SUM_RTOL = 1e-5   # on the CG dot products (summed in another order)
+K10_EPS = 1e-10   # the CG's epsilon guard in K10's checks (below it: the guard binds)
 # Per field dtype: the physics of the kernel checks, the numbers of blended
 # states K1 is held at, and the tolerances.  At
 # float64 the RHS kernels round every operation as the plain version does
@@ -267,7 +268,8 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                     "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine",
                     "si_prepare_sharded_plain", "si_terms"),
          cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
-                   "update_xr_rr_plain", "axpby_inplace_plain", "cross_residual_plain",
+                   "update_xr_rr_plain", "axpby_inplace_plain", "advance_p_inplace_plain",
+                   "cross_residual_plain",
                    "aniso_residual_plain", "heat_residual_plain",
                    "cross_matvec_pAp_sharded_plain", "aniso_matvec_pAp_sharded_plain",
                    "cross_advance_p_matvec_plain", "aniso_advance_p_matvec_plain"),
@@ -538,11 +540,15 @@ def f64_margin(name, got, want, F, U, tau, p, d, what, worst) -> None:
                              f"version {pl:.3g} ({what})")
 
 
-def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129)),
+def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (100, 170), (33, 129)),
              timed=(512, 2048)) -> dict:
-    """K2 against its plain version at every BC pair and physics case, and
-    on the main path's initial fields; at float32 also against the float64
-    evaluation of the same attempt (``f64_margin``)."""
+    """K2 against its plain version at every BC pair and physics case (S =
+    0.25 and S = 0 at both dtypes), and on the main path's initial fields:
+    bit for bit, fields and error maxima, on tiles inside the domain and
+    across its edges (512^2, 100x170 ragged with interior tiles, 33x129);
+    at float32 also against the float64 evaluation of the same attempt
+    (``f64_margin``).  Device µs per launch at 512^2 at S = 0.25 and S = 0
+    (the float64 sweep's physics, the isotropic instantiation)."""
     prec = PRECISION[dtype]
     c = np.dtype(dtype).type
     worst = [0.0, 0.0]
@@ -556,12 +562,12 @@ def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129))
     for p, (F, U), tau, d, what in cases:
         got = cuda_rhs.rkm_attempt(F, U, tau, p, 0.03, d)
         want = cuda_rhs.rkm_attempt_plain(F, U, tau, p, 0.03, d)
-        hold("K2 field", got[:2], want[:2], what, worst, prec["field_tol"])
+        hold("K2 field", got[:2], want[:2], what, worst, 0.0)
         if dtype == "float32":
             f64_margin("K2", got[:2], want[:2], F, U, tau, p, d, what, worst_f64)
         ge, we = got[2].cpu().numpy(), want[2].cpu().numpy()
         rel = float((np.abs(ge - we) / np.maximum(np.abs(we), 1e-30)).max())
-        if not rel <= prec["err_rtol"]:
+        if not rel == 0.0:
             raise AssertionError(f"K2 error maxima disagree: {ge} vs {we} ({what})")
         worst_e = max(worst_e, rel)
     torch.cuda.synchronize()
@@ -573,11 +579,14 @@ def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (33, 129))
         times[size] = time_pair(lambda: cuda_rhs.rkm_attempt(F, U, tau, p),
                                 lambda: cuda_rhs.rkm_attempt_plain(F, U, tau, p),
                                 reps=50 if size == 512 else 10)
+        if size == timed[0]:
+            dev_us = {f"S={S}": device_us(lambda q=p.replace(S=S): cuda_rhs.rkm_attempt(
+                F, U, tau, q), 50, "rkm_attempt_kernel") for S in (0.25, 0.0)}
     f64 = ({"f64_gap_kernel": worst_f64[0], "f64_gap_plain": worst_f64[1],
             "f64_margin": "kernel <= 2 plain + 2 ulp of scale"} if dtype == "float32" else {})
     phase(titled("K2 rkm_attempt vs plain", dtype), cases=len(cases), max_rel_err=worst[0],
-          max_abs_err=worst[1], max_err_maxima_rel=worst_e, tol=prec["field_tol"],
-          err_rtol=prec["err_rtol"], **f64, ms=ms_table(times))
+          max_abs_err=worst[1], max_err_maxima_rel=worst_e, tol="bit for bit",
+          **f64, ms=ms_table(times), device_us_512=dev_us)
     return entry_numbers("K2", times, timed[0], worst[1], dtype=dtype)
 
 
@@ -659,9 +668,11 @@ def check_k3(rng, dtype="float32", sizes=((512, 512), (33, 129)),
         times[size] = time_pair(lambda: cuda_rhs.rk4_full(F, U, p),
                                 lambda: cuda_rhs.rk4_full_plain(F, U, p),
                                 reps={512: 50, 2048: 10}.get(size, 5))
+    dev_us = device_us(lambda: cuda_rhs.rk4_full(F, U, p), 5, "rk4_full_kernel")
     phase(titled("K3 rk4_full vs plain", dtype), cases=cases, max_rel_err=worst[0],
           max_abs_err=worst[1], tol=prec["field_tol"],
-          library="none: no PyTorch call computes it", ms=ms_table(times))
+          library="none: no PyTorch call computes it", ms=ms_table(times),
+          **{f"device_us_{timed[-1]}": dev_us})
     return entry_numbers("K3", times, timed[-1], worst[1], dtype=dtype)
 
 
@@ -771,9 +782,16 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
             compare("K9", got[0], want[0], what)
             compare("K9", got[1], want[1], what)
             compare_sum("K9", got[2], want[2], what)
-            a, b = scalar(1.0), scalar(-0.61)
-            compare("K10", cuda_cg.axpby_inplace(a, b, r, v.clone()),
-                    cuda_cg.axpby_inplace_plain(a, b, r, v.clone()), what)
+            for rr_new, rr in ((0.37, 0.61), (0.37, 1e-13), (0.37, 0.0), (0.37, np.nan)):
+                a, b = scalar(rr_new), scalar(rr)
+                got = cuda_cg.advance_p_inplace(r, v.clone(), a, b, K10_EPS)
+                want = cuda_cg.advance_p_inplace_plain(r, v.clone(), a, b, K10_EPS)
+                if rr == rr:
+                    compare("K10", got, want, f"{what} rr={rr}")
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"K10 not bit for bit ({what} rr={rr})")
+                elif not (torch.isnan(got).all() and torch.isnan(want).all()):
+                    raise AssertionError(f"K10 dropped a NaN <r, r> ({what})")
             e2 = 1e-4 * Ap
             for form, got, want in (
                     ("cross", cuda_cg.cross_residual(r, v, A_U),
@@ -818,11 +836,11 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
         s, dead = s_map(rng, size, size, dtype), torch.empty_like(v)
         dead_p, beta = torch.empty_like(v), scalar(0.43)
         alpha = scalar(1e-3)
-        a, b = scalar(1.0), scalar(0.5)
+        rr_new, rr = scalar(0.37), scalar(0.61)
         reps = 50 if size == 512 else 10
         if size == timed[0]:
-            # K10 at a = 1, its only call site (solvers/cg.py), is r + b p
-            library_k10 = time_ms(lambda: torch.addcmul(r, b, Ap), reps)
+            # K10 is r + beta p, beta = rr_new / max(rr, eps) formed on the device
+            library_k10 = time_ms(lambda: torch.addcmul(r, rr, Ap), reps)
         for name, kernel, plain in (
                 ("K8 cross", lambda: cuda_cg.cross_matvec_pAp(A_U, v, out=dead),
                  lambda: cuda_cg.cross_matvec_pAp_plain(A_U, v)),
@@ -830,8 +848,8 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                  lambda: cuda_cg.aniso_matvec_pAp_plain(A_F, s, v)),
                 ("K9", lambda: cuda_cg.update_xr_rr(x, r, v, Ap, alpha),
                  lambda: cuda_cg.update_xr_rr_plain(x, r, v, Ap, alpha)),
-                ("K10", lambda: cuda_cg.axpby_inplace(a, b, r, Ap),
-                 lambda: cuda_cg.axpby_inplace_plain(a, b, r, Ap)),
+                ("K10", lambda: cuda_cg.advance_p_inplace(r, Ap, rr_new, rr, K10_EPS),
+                 lambda: cuda_cg.advance_p_inplace_plain(r, Ap, rr_new, rr, K10_EPS)),
                 ("K14 cross", lambda: cuda_cg.cross_residual(r, v, A_U),
                  lambda: cuda_cg.cross_residual_plain(r, v, A_U)),
                 ("K14 heat", lambda: cuda_cg.heat_residual(r, (x, Ap), v, A_U, p.L),
@@ -855,7 +873,7 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
           max_abs_err={k: w[1] for k, w in worst.items()},
           max_dot_rel_err=worst_sum, tol=prec["field_tol"], dot_rtol=prec["sum_rtol"],
           ms={name: ms_table(t) for name, t in times.items()},
-          library={"K10": f"torch.addcmul(r, b, p): {library_k10} ms at {timed[0]}^2",
+          library={"K10": f"torch.addcmul(r, beta, p): {library_k10} ms at {timed[0]}^2",
                    "K8, K8b, K9, K14": "none: no PyTorch call computes them"},
           K8b_device_us_per_call=k8b_us, card=card_limit())
     first = timed[0]
@@ -969,7 +987,7 @@ def check_fused_si_lockstep(cfg, F0, U0, steps=5) -> None:
         semi_implicit._FORCE_CG_VARIANT = forced
     n = cuda_cg.LAUNCHES
     if not (min(n["aniso_advance_p_matvec"], n["cross_advance_p_matvec"]) > 0
-            and n["axpby_inplace"] == 0):
+            and n["advance_p_inplace"] == 0):
         raise AssertionError(f"the fused lockstep did not run K8b without K10: {n}")
 
 
@@ -1337,10 +1355,10 @@ def si_path(overrides, name, variant=None):
     if variant == "fused":
         expect(min(n["aniso_matvec_pAp"], n["cross_matvec_pAp"], n["aniso_advance_p_matvec"],
                    n["cross_advance_p_matvec"]) > 0 and k8 == 2 * n["si_prepare"]
-               and k8 + k8b == cg_iters and n["axpby_inplace"] == 0,
+               and k8 + k8b == cg_iters and n["advance_p_inplace"] == 0,
                "K8 once per solve, K8b and K9 once per CG iteration, no K10", run)
     else:
-        expect(min(n["aniso_matvec_pAp"], n["cross_matvec_pAp"], n["axpby_inplace"]) > 0
+        expect(min(n["aniso_matvec_pAp"], n["cross_matvec_pAp"], n["advance_p_inplace"]) > 0
                and k8 == cg_iters and k8b == 0,
                "K8 and K9 once per CG iteration, K10 launched, no K8b", run)
     expect(n["blend_rhs"] == n["rkm_attempt"] == 0, "no RHS kernels", run)
@@ -1466,11 +1484,11 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     tau = np.float32(TAU)
     w = cuda_rhs.k5_weights(tau)
 
-    def maxima(got, want, what):
+    def maxima(got, want, what, rtol=ERR_RTOL):
         nonlocal worst_e
         ge, we = got.cpu().numpy(), want.cpu().numpy()
         rel = float((np.abs(ge - we) / np.maximum(np.abs(we), 1e-30)).max())
-        if not rel <= ERR_RTOL:
+        if not rel <= rtol:
             raise AssertionError(f"error maxima disagree: {ge} vs {we} ({what})")
         worst_e = max(worst_e, rel)
 
@@ -1506,8 +1524,8 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                     got = cuda_rhs.rkm_attempt_sharded(f, u, ap, tau, p, 0.03, d)
                     want = cuda_rhs.rkm_attempt_sharded_plain(f, u, ap, tau, p, 0.03, d)
                     hold("K12.2", got[:2], want[:2], f"{what} {mname} shard {k}",
-                         worst["K12.2"])
-                    maxima(got[2], want[2], f"K12.2 {what} {mname}")
+                         worst["K12.2"], 0.0)
+                    maxima(got[2], want[2], f"K12.2 {what} {mname}", 0.0)
                     out.append(got)
                     plain.append(want)
                 whole = cuda_rhs.rkm_attempt(x[0], x[1], tau, p, 0.03, d)
@@ -1946,8 +1964,8 @@ def si_mesh_path(name, sy, sx, overrides, single) -> dict:
     want = {"si_prepare_sharded": passes * steps * n, "halo_edges": (passes * steps + iters) * n,
             "update_xr_rr": k9, **matvecs}
     expect(min(matvecs.values()) > 0 and sum(matvecs.values()) == k9
-           and {k: v for k, v in L.items() if v and k != "axpby_inplace"} == want
-           and 0 < L["axpby_inplace"] <= k9, f"launches {want}, K10 in (0, {k9}]", run)
+           and {k: v for k, v in L.items() if v and k != "advance_p_inplace"} == want
+           and 0 < L["advance_p_inplace"] <= k9, f"launches {want}, K10 in (0, {k9}]", run)
     diff = iters - single["cg_iterations"]
     expect(abs(diff) <= SI_CG_ITERS_RTOL * single["cg_iterations"],
            f"CG iterations {iters} within {SI_CG_ITERS_RTOL:.0%} of one device's "
@@ -2047,7 +2065,7 @@ def si_f64_path() -> dict:
     n, steps = run["launches"], run["res"].iters
     cg_iters = n["update_xr_rr"]
     expect(steps == 8000 and n["si_prepare"] == steps, "K7 once per step", run)
-    expect(n["cross_matvec_pAp"] == cg_iters > 0 and n["axpby_inplace"] > 0
+    expect(n["cross_matvec_pAp"] == cg_iters > 0 and n["advance_p_inplace"] > 0
            and n["aniso_matvec_pAp"] == n["blend_rhs"] == n["rkm_attempt"] == 0,
            "K8 (cross) and K9 once per CG iteration, K10 launched, nothing else", run)
     expect(n["cross_residual"] == n["heat_residual"] == steps and n["aniso_residual"] == 0,
@@ -2177,9 +2195,13 @@ def check_mesh_f64_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
             for name, (depth, call, kernel, plain) in twins.items():
                 for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, depth)):
                     got, want = call(f, u, ap, kernel), call(f, u, ap, plain)
-                    close(name, got[:2], want[:2], on)
+                    # K2's twin shares K2's tile loop: bit for bit, maxima too
+                    hold(name, got[:2], want[:2], on, worst[name],
+                         0.0 if name == "K2 twin" else tol)
                     if len(got) == 3:
                         scalar("maxima", got[2], want[2], f"{name} {on}")
+                        if not torch.equal(got[2], want[2]):
+                            raise AssertionError(f"{name} maxima differ ({on})")
                     out[name].append(got)
             for name, want in one.items():
                 for i in (0, 1):
@@ -2440,8 +2462,8 @@ def si_f64_mesh_path(name, sy, sx, overrides, single) -> dict:
     want = {"si_prepare_sharded": pairs, "cross_residual_sharded": pairs,
             "heat_residual_sharded": pairs, "halo_edges": 3 * pairs + iters * n,
             "cross_matvec_pAp_sharded": iters * n, "update_xr_rr": iters * n}
-    expect({k: v for k, v in L.items() if v and k != "axpby_inplace"} == want
-           and 0 < L["axpby_inplace"] <= iters * n, f"launches {want}, K10 in (0, K9]", out)
+    expect({k: v for k, v in L.items() if v and k != "advance_p_inplace"} == want
+           and 0 < L["advance_p_inplace"] <= iters * n, f"launches {want}, K10 in (0, K9]", out)
     one_iters = single["host_reads"]
     expect(abs(iters - one_iters) <= SI_CG_ITERS_RTOL * one_iters,
            f"CG iterations {iters} within {SI_CG_ITERS_RTOL:.0%} of one device's {one_iters}",
@@ -2711,8 +2733,8 @@ def main() -> None:
                      k8_10["K8"]),
         kernel_entry("K9 update_xr_rr (CG x/r update + <r,r>)", cg_src,
                      f"{pallas_cg}:310", si["update_xr_rr"], k8_10["K9"]),
-        kernel_entry("K10 axpby_inplace (CG direction update)", cg_src,
-                     f"{pallas_cg}:274", si["axpby_inplace"], k8_10["K10"]),
+        kernel_entry("K10 advance_p_inplace (CG direction update, beta on the device)", cg_src,
+                     f"{pallas_cg}:274", si["advance_p_inplace"], k8_10["K10"]),
         kernel_entry("K8b advance_p_matvec (CG direction update folded into the matvec, "
                      "cross and aniso; semi-implicit path, fused CG variant)", cg_src,
                      f"{pallas_cg}:258",
@@ -2783,8 +2805,8 @@ def main() -> None:
                      d8_10["K8"]),
         kernel_entry("K9 update_xr_rr at float64 (float64 CG)", cg_src,
                      f"{pallas_cg}:310", si64["update_xr_rr"], d8_10["K9"]),
-        kernel_entry("K10 axpby_inplace at float64 (float64 CG)", cg_src,
-                     f"{pallas_cg}:274", si64["axpby_inplace"], d8_10["K10"]),
+        kernel_entry("K10 advance_p_inplace at float64 (float64 CG)", cg_src,
+                     f"{pallas_cg}:274", si64["advance_p_inplace"], d8_10["K10"]),
         kernel_entry("K8b advance_p_matvec at float64 (checked against its plain version "
                      "only: no float64 path takes the fused CG variant)", cg_src,
                      f"{pallas_cg}:258",

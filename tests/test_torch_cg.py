@@ -94,7 +94,8 @@ def test_plain_update_and_axpby_match_pallas_interpret(rng):
 
     jp_new = pallas_cg.axpby_inplace(a, b, jnp.asarray(r), jnp.asarray(p), interpret=True)
     tp_ = torch.from_numpy(p.copy())
-    got = cuda_cg.axpby_inplace(torch.tensor(a), torch.tensor(b), torch.from_numpy(r), tp_)
+    got = cuda_cg.axpby_inplace_plain(torch.tensor(a), torch.tensor(b), torch.from_numpy(r),
+                                      tp_)
     assert got is tp_
     assert_match(got, jp_new)
 
@@ -110,7 +111,7 @@ def test_wrapper_contract(rng):
     cuda_cg.reset_launch_counts()
     Av, _ = cuda_cg.cross_matvec_pAp(A_U, v, out=torch.empty_like(v))
     cuda_cg.update_xr_rr(v.clone(), v.clone(), v, Av, torch.tensor(0.5))
-    cuda_cg.axpby_inplace(torch.tensor(1.0), torch.tensor(0.5), v, v.clone())
+    cuda_cg.advance_p_inplace(v, v.clone(), torch.tensor(0.5), torch.tensor(1.0), 1e-10)
     assert not any(cuda_cg.LAUNCHES.values())
 
 

@@ -225,7 +225,7 @@ def spy(monkeypatch):
         return wrapper
 
     for name in ("cross_matvec_pAp", "aniso_matvec_pAp", "cross_advance_p_matvec",
-                 "aniso_advance_p_matvec", "update_xr_rr", "axpby_inplace"):
+                 "aniso_advance_p_matvec", "update_xr_rr", "advance_p_inplace"):
         monkeypatch.setattr(cuda_cg, name, counted(name, getattr(cuda_cg, name)))
     return calls
 
@@ -267,10 +267,10 @@ def test_fused_step_matches_pap_step(physics, kernel_routes, spy, monkeypatch):
         solves = 3 * (1 if jacobi else 2)
         if variant == "fused":
             assert k8 == solves and k8b == kernel_its
-            assert calls.get("axpby_inplace", 0) == 0
+            assert calls.get("advance_p_inplace", 0) == 0
         else:
             assert k8 == kernel_its + solves and k8b == 0
-            assert calls.get("axpby_inplace", 0) == kernel_its
+            assert calls.get("advance_p_inplace", 0) == kernel_its
         assert calls["update_xr_rr"] == kernel_its + solves
         form = "aniso_advance_p_matvec" if "aniso" in physics else "cross_advance_p_matvec"
         if variant == "fused" and not jacobi:

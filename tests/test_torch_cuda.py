@@ -95,6 +95,73 @@ def test_rkm_attempt_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa
                                    rtol=2e-4)
 
 
+# K2 at tiles inside the domain and across its edges: 512^2 (interior and
+# edge tiles), 100x170 (ragged, with interior tiles), 33x129 (edge tiles only)
+K2_SIZES = ((512, 512), (100, 170), (33, 129))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k2_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen, cuda_device):  # noqa: F811
+    """K2 -- its interior tiles without edge tests, its isotropic
+    instantiation at S = 0 -- equals its plain version bit for bit, fields
+    and error maxima, at both dtypes (float64 with float and with double
+    transcendentals), every BC pair and tiles inside and across the edges."""
+    for ny, nx in K2_SIZES:
+        for f32t in ((True,) if dtype == "float32" else (True, False)):
+            p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype,
+                          f32_transcendentals=f32t, Phi_boundary=BoundaryType(f_bc),
+                          T_boundary=BoundaryType(u_bc))
+            (F, U), = _on(random_fields(gen, ny, nx, dtype), cuda_device)
+            d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+            tau = np.dtype(dtype).type(TAU)
+            got = cuda_rhs.rkm_attempt(F, U, tau, p, 0.03, d)
+            want = cuda_rhs.rkm_attempt_plain(F, U, tau, p, 0.03, d)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (ny, nx, f32t)
+
+
+@pytest.mark.cuda
+def test_every_wrapper_refuses_bad_fields_before_launching(cuda_device):  # noqa: F811
+    """Through the shared launch path every wrapper still refuses a field of
+    another dtype, shape or device, or one that is not contiguous, before
+    any launch."""
+    p = _params(8, 8, "neumann", "neumann", 0.25, 6.0)
+    F = torch.zeros(8, 8, device=cuda_device)
+    bad = {"dtype": F.double(), "shape": torch.zeros(8, 9, device=cuda_device),
+           "device": torch.zeros(8, 8),
+           "contiguous": torch.zeros(8, 16, device=cuda_device)[:, ::2]}
+    A_U, A_F = _operators("neumann")
+    rr = torch.tensor(0.5, device=cuda_device)
+    tau = np.float32(TAU)
+    calls = {
+        "K1": lambda B: cuda_rhs.blend_rhs([(F, B)], [1.0], p),
+        "K2": lambda B: cuda_rhs.rkm_attempt(F, B, tau, p),
+        "K3": lambda B: cuda_rhs.rk4_full(F, B, p),
+        "K4": lambda B: cuda_rhs.rk4_final_stage((F, F), (F, F), (F, F), (F, B), p),
+        "K5": lambda B: cuda_rhs.rkm_final_stage((F, F), (F, F), (F, F), (F, B), tau, p),
+        "K6": lambda B: cuda_rhs.euler_steps(F, B, p, 4),
+        "K7": lambda B: cuda_rhs.si_prepare(F, B, p),
+        "K12.1 gather": lambda B: cuda_rhs.halo_edges([(F, B)], [1.0], True, False),
+        "K8 cross": lambda B: cuda_cg.cross_matvec_pAp(A_U, F, out=B),
+        "K8 aniso": lambda B: cuda_cg.aniso_matvec_pAp(A_F, B, F),
+        "K8b": lambda B: cuda_cg.cross_advance_p_matvec(A_U, B, F, rr),
+        "K9": lambda B: cuda_cg.update_xr_rr(F.clone(), F.clone(), F, B, rr),
+        "K10": lambda B: cuda_cg.advance_p_inplace(B, F.clone(), rr, rr, 1e-10),
+        "K14": lambda B: cuda_cg.cross_residual(B, F, A_U),
+    }
+    before = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}
+    for name, call in calls.items():
+        for what, B in bad.items():
+            with pytest.raises((TypeError, ValueError)):
+                call(B)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cuda_rhs.rkm_attempt(F.half(), F.half(), tau, p)
+    assert {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES} == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
 def test_rk4_final_stage_kernel_matches_plain(f_bc, u_bc, gen, cuda_device):  # noqa: F811
@@ -189,6 +256,29 @@ def _operators(bc, dt_dx2=0.08):
             AnisotropyMatrix(Cm1=4 * dt_dx2, X=-dt_dx2, Y=-dt_dx2, boundary=bc))
 
 
+def _hold_k10(r, v, dtype, device):
+    """K10 forms beta from the dot products on the card and equals its
+    plain version bit for bit, at rr above epsilon, below it, at 0 and at a
+    NaN rr (which stays NaN: it must never read as converged)."""
+    eps = 1e-10
+    for rr_new, rr in ((0.37, 0.61), (0.37, 1e-13), (0.37, 0.0), (0.37, float("nan")),
+                       (1e-11, 3e-11)):
+        a, b = (torch.tensor(x, dtype=dtype, device=device) for x in (rr_new, rr))
+        p_k, p_p = v.clone(), v.clone()
+        assert cuda_cg.advance_p_inplace(r, p_k, a, b, eps) is p_k
+        want = cuda_cg.advance_p_inplace_plain(r, p_p, a, b, eps)
+        assert torch.equal(p_k, want) or (rr != rr and torch.isnan(p_k).all()
+                                          and torch.isnan(want).all())
+    # fields off the 16-byte grid take the scalar path
+    ro, po = (torch.empty(v.numel() + 1, dtype=dtype, device=device)[1:].view(v.shape)
+              for _ in range(2))
+    ro.copy_(r)
+    po.copy_(v)
+    a, b = (torch.tensor(x, dtype=dtype, device=device) for x in (0.37, 0.61))
+    cuda_cg.advance_p_inplace(ro, po, a, b, eps)
+    assert torch.equal(po, cuda_cg.advance_p_inplace_plain(r, v.clone(), a, b, eps))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bc", BCS)
 def test_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
@@ -210,10 +300,7 @@ def test_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
         assert_match(got[0], want[0])
         assert_match(got[1], want[1])
         np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=1e-5)
-        a, b = torch.tensor(1.0, device=cuda_device), torch.tensor(-0.61, device=cuda_device)
-        p_k, p_p = v.clone(), v.clone()
-        assert cuda_cg.axpby_inplace(a, b, r, p_k) is p_k
-        assert_match(p_k, cuda_cg.axpby_inplace_plain(a, b, r, p_p))
+        _hold_k10(r, v, torch.float32, cuda_device)
 
 
 @pytest.mark.cuda
@@ -241,7 +328,12 @@ def test_cg_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
     with pytest.raises(ValueError, match="alias"):
         cuda_cg.cross_matvec_pAp(A_U, v, out=v.view(64).view(8, 8))
     with pytest.raises(TypeError, match="scalars"):
-        cuda_cg.axpby_inplace(1.0, torch.tensor(0.5, device=cuda_device), v, v.clone())
+        cuda_cg.advance_p_inplace(v, v.clone(), 0.5, torch.tensor(0.5, device=cuda_device),
+                                  1e-10)
+    with pytest.raises(TypeError, match="scalars"):
+        cuda_cg.advance_p_inplace(v, v.clone(), torch.tensor(0.5, device=cuda_device),
+                                  torch.tensor(0.5, dtype=torch.float64, device=cuda_device),
+                                  1e-10)
     with pytest.raises(TypeError, match="share a dtype"):
         cuda_cg.cross_matvec_pAp(A_U, v.double(), out=v.clone())
 
@@ -310,7 +402,7 @@ def test_cg_solve_fused_through_kernels_matches_cg_solve(bc, dtype, gen, cuda_de
                                cuda_cg.cross_advance_p_matvec(A_U, r, p, beta, out=out,
                                                               p_out=p_out), b, **kw)
     n = dict(cuda_cg.LAUNCHES)
-    assert n["cross_matvec_pAp"] == 1 and n["axpby_inplace"] == 0
+    assert n["cross_matvec_pAp"] == 1 and n["advance_p_inplace"] == 0
     assert n["cross_advance_p_matvec"] == rf.iters and n["update_xr_rr"] == rf.iters + 1
     xk, rk = cg.cg_solve(mv, b, matvec_pAp=mv_pAp, **kw)
     assert rf.converged and rk.converged and abs(rf.iters - rk.iters) <= (
@@ -431,9 +523,7 @@ def test_f64_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
         want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
         _f64_close(got[:2], want[:2])
         np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=F64_RTOL)
-        a, b = (torch.tensor(c, dtype=torch.float64, device=cuda_device) for c in (1.0, -0.61))
-        _f64_close([cuda_cg.axpby_inplace(a, b, r, v.clone())],
-                   [cuda_cg.axpby_inplace_plain(a, b, r, v.clone())])
+        _hold_k10(r, v, torch.float64, cuda_device)
 
 
 @pytest.mark.cuda
@@ -558,15 +648,16 @@ def test_k5_kernel_matches_plain_whole_grid(f_bc, u_bc, gen, cuda_device):  # no
 def test_k12_2_matches_plain_and_k2(f_bc, u_bc, shards, gen, cuda_device):  # noqa: F811
     """K12.2 on a y-mesh against its plain version, and the y-mesh's joined
     result against K2 on the whole grid: the same arithmetic per cell, so
-    equal bit for bit (the maxima too)."""
+    equal bit for bit (the maxima too), at S = 0.25 and S = 0 (the
+    isotropic instantiation)."""
     from bachelors_tpu_torch.core.state import Shards
     from bachelors_tpu_torch.parallel.topology import Topology
 
     topo = Topology(shards, 1)
-    for ny, nx in MESH_SIZES:
+    for (ny, nx), S in ((size, S) for size in MESH_SIZES for S in (0.25, 0.0)):
         if ny % shards:
             continue
-        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+        p = _params(ny, nx, f_bc, u_bc, S, 6.0)
         (F, U), = _mesh_states(gen, ny, nx, shards, 1, 1, cuda_device)
         d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
         tau = np.float32(TAU)

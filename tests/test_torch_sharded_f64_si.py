@@ -182,7 +182,7 @@ def spy(monkeypatch):
     for name in ("halo_edges", "si_prepare", "si_prepare_sharded"):
         counted(cuda_rhs, name)
     for name in ("cross_matvec_pAp", "aniso_matvec_pAp", "cross_matvec_pAp_sharded",
-                 "aniso_matvec_pAp_sharded", "update_xr_rr", "axpby_inplace",
+                 "aniso_matvec_pAp_sharded", "update_xr_rr", "advance_p_inplace",
                  "cross_residual", "aniso_residual", "heat_residual"):
         counted(cuda_cg, name)
     return calls
@@ -208,12 +208,12 @@ def test_refined_route_on_a_mesh(sy, sx, S, kernel_routes, spy):
     n = sy * sx
     k9 = spy["update_xr_rr"]
     reads = cg.HOST_READS["cg_stop_test"]
-    assert k9 == reads * n and 0 < spy["axpby_inplace"] <= k9
+    assert k9 == reads * n and 0 < spy["advance_p_inplace"] <= k9
     phase = "aniso" if S else "cross"
     matvecs = {f"{f}_matvec_pAp_sharded": spy.get(f"{f}_matvec_pAp_sharded", 0)
                for f in ("cross", "aniso")}
     assert sum(matvecs.values()) == k9 and matvecs[f"{phase}_matvec_pAp_sharded"] > 0
-    assert {k: v for k, v in spy.items() if k != "axpby_inplace"} == {
+    assert {k: v for k, v in spy.items() if k != "advance_p_inplace"} == {
         "si_prepare_sharded": n, "halo_edges": (1 + reads + 2) * n, "update_xr_rr": k9,
         f"{phase}_residual_sharded": n, "heat_residual_sharded": n,
         **{k: v for k, v in matvecs.items() if v}}

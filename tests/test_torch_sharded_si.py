@@ -245,7 +245,7 @@ def spy(monkeypatch):
     for mod, names in ((cuda_rhs, ("halo_edges", "si_prepare", "si_prepare_sharded")),
                        (cuda_cg, ("cross_matvec_pAp", "aniso_matvec_pAp",
                                   "cross_matvec_pAp_sharded", "aniso_matvec_pAp_sharded",
-                                  "update_xr_rr", "axpby_inplace"))):
+                                  "update_xr_rr", "advance_p_inplace"))):
         for name in names:
             monkeypatch.setattr(mod, name, counted(name, getattr(mod, name)))
     return calls
@@ -289,7 +289,7 @@ def test_kernel_route_matches_one_device(sy, sx, physics, kernel_routes, spy):
     assert_match(joined.F, one.F)
     assert_match(joined.U, one.U)
     k9 = mesh_calls["update_xr_rr"]
-    assert k9 % n == 0 and 0 < mesh_calls["axpby_inplace"] <= k9
+    assert k9 % n == 0 and 0 < mesh_calls["advance_p_inplace"] <= k9
     kernel_iters = k9 // n
     form = "aniso_matvec_pAp_sharded" if physics.startswith("S=0.25") else None
     matvecs = {"cross_matvec_pAp_sharded": mesh_calls.get("cross_matvec_pAp_sharded", 0)}
@@ -297,7 +297,7 @@ def test_kernel_route_matches_one_device(sy, sx, physics, kernel_routes, spy):
         matvecs[form] = mesh_calls[form]
         assert min(matvecs.values()) > 0
     assert sum(matvecs.values()) == k9
-    assert {k: v for k, v in mesh_calls.items() if k not in ("axpby_inplace",)} == {
+    assert {k: v for k, v in mesh_calls.items() if k not in ("advance_p_inplace",)} == {
         "si_prepare_sharded": 3 * n, "halo_edges": (3 + kernel_iters) * n,
         "update_xr_rr": k9, **matvecs}
     if jacobi:
