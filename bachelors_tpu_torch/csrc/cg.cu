@@ -20,9 +20,16 @@
 //     p.  Ghosts take Dirichlet value 0: the CG vectors are deltas.  Bound
 //     by bytes (1 or 2 fields read, 1 written, ~10 flops per cell).  Design:
 //     one thread per cell, neighbours from device memory (L1/L2 catch the
-//     stencil's reuse), a shared-memory block sum of p Ap into one partial
-//     per block, then a one-block kernel adds the partials.  The output may
-//     be a dead buffer the caller passes in, never p (the wrapper checks).
+//     stencil's reuse), a block sum of p Ap per 32x8 tile, and the dot
+//     product finished in the same launch, in the order of the one-block
+//     sum kernel it replaces: at most 1024 blocks, each adding its tiles'
+//     sums into its lane of that kernel's 1024, and the block that finishes
+//     last adding the lanes by that kernel's tree.  One launch per call:
+//     the call's host time fell from 13.1 to 5.2 µs at 512^2, its device
+//     time rose from 4.1 to 5.1 µs there (the last block's fence, ticket
+//     and tree follow the last tile; H100 80GB HBM3, 700 W, PERF.md §6).
+//     The output may be a dead buffer the caller passes in, never p (the
+//     wrapper checks).
 //
 // K12.8 bt_matvec_pAp_halo: replaces `pallas_cg.py:
 //     cross_matvec_pAp_sharded` (:238) and `aniso_matvec_pAp_sharded` (:249),
@@ -96,11 +103,13 @@
 //     K14's arithmetic on the values K14 reads, so a mesh equals K14 on the
 //     whole grid bit for bit.  Bound by bytes like K14.
 //
-// The partial sums are added by a second kernel (`sum_partials_kernel`),
-// as K2's error maxima are, never by a library reduction.  Block sums run
-// in a fixed tree order, so a result does not change from run to run; it
-// differs from torch.sum's order by ~1e-7 relative in float32 (~1e-16 in
-// float64).
+// The partial sums are added in a fixed order, never by a library
+// reduction: K9's by a second kernel (`sum_partials_kernel`), as K2's error
+// maxima are; K8's, K12.8's and K8b's by their own last block in that
+// kernel's exact order, so a K8 dot product has the bits it had as two
+// launches.  Block sums run in a fixed tree order, so a result does not
+// change from run to run; it differs from torch.sum's order by ~1e-7
+// relative in float32 (~1e-16 in float64).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -133,6 +142,43 @@ __device__ __forceinline__ Real block_sum(Real v, Real* red) {
 
 // ---------------------------------------------------------------- K8 ----
 
+// A fence with acquire and release semantics at device scope: what the
+// ticket protocol needs, and lighter than __threadfence()'s sequentially
+// consistent one.  Before a relaxed atomic it releases this thread's writes
+// to whoever reads the atomic's result; after one, it acquires what the
+// writers released.
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// The tree of sum_partials_kernel's kSumThreads lane sums (block_sum
+// <kSumThreads>: warp shuffles, then over the warps), lanes[0:n] and 0
+// past them, by a kCgThreads block; valid in thread 0.  Thread t carries
+// lanes t + q kCgThreads (q < 4), so warp w's shuffles of register q are
+// lane-warp w + 8q's, and warp 0 finishes over the 32 lane-warp sums.  The
+// other blocks' lanes are read past L1 (`__ldcg`).
+template <class Real>
+__device__ __forceinline__ Real lane_tree(const Real* lanes, int n, Real* red) {
+  constexpr int kLanes = kSumThreads / kCgThreads;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < kLanes; ++q) {
+    const int L = tid + q * kCgThreads;
+    Real v = L < n ? __ldcg(lanes + L) : Real(0);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if ((tid & 31) == 0) red[(tid >> 5) + q * (kCgThreads / 32)] = v;
+  }
+  __syncthreads();
+  Real total = Real(0);
+  if (tid < 32) {
+    total = red[tid];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_down_sync(0xffffffffu, total, off);
+  }
+  return total;
+}
+
 // r + beta p: at float with its FMA, at double rounded at each operation,
 // as the plain version's two tensor ops are.
 __device__ __forceinline__ float blend_of(float r, float beta, float p) { return r + beta * p; }
@@ -155,43 +201,68 @@ struct BlendLoad {
 // ghosts is p's), K12.8 on a shard; the partials then sum the shard's own
 // cells only.  BLEND: K8b, which reads p' = r + *beta p through `BlendLoad`
 // and writes it to p_out (whole grid only).
+//
+// <p, Ap> in the order of the one-block sum launch this kernel replaces:
+// the field's kCgBlockY x kCgBlockX tiles, row-major, each summed by
+// block_sum into a partial; lane L of kSumThreads adding partials L, L +
+// kSumThreads, ... from 0; then the lanes' tree.  The grid is min(tiles,
+// kSumThreads) blocks and block b takes tiles b, b + kSumThreads, ...: lane
+// b's partials, in its order, so thread 0 adds them into lane b as they
+// come and writes only the lane.  Then it draws a ticket; the block that
+// draws the last one adds the lanes by the tree into *pAp.  `atomicInc`
+// wraps the ticket counter back to 0 with that last draw, so a counter
+// zeroed once serves every launch on its stream.
 template <bool WITH_S, bool BLEND, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     matvec_pAp_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
                       const Real* __restrict__ r, const Real* __restrict__ beta,
-                      Real* __restrict__ p_out, Real* __restrict__ out,
-                      Real* __restrict__ partials, int ny, int nx, int bc, Real C, Real X,
-                      Real Y, Halo<Real> h) {
-  __shared__ Real red[kCgThreads / 32];
-  const int j = blockIdx.x * kCgBlockX + threadIdx.x;
-  const int i = blockIdx.y * kCgBlockY + threadIdx.y;
-  Real pAp = Real(0);
-  if (i < ny && j < nx) {
-    const int c = i * nx + j;
-    Real pc;
-    Cross<Real> n;
-    if (BLEND) {
-      const BlendLoad<Real> at{r, p, *beta};
-      pc = at(c);
-      n = cross_at(at, bc, 0, pc, Real(0), h, i, j, ny, nx);
-      p_out[c] = pc;
-    } else {
-      pc = p[c];
-      n = cross_at(Load<Real>{p}, bc, 0, pc, Real(0), h, i, j, ny, nx);
+                      Real* __restrict__ p_out, Real* __restrict__ out, Real* lanes,
+                      unsigned* ticket, Real* __restrict__ pAp_out, int ny, int nx,
+                      int tiles_x, int tiles, int bc, Real C, Real X, Real Y, Halo<Real> h) {
+  __shared__ Real red[kSumThreads / 32];  // two tiles' warp sums in turns, then the tree's
+  __shared__ bool last;
+  Real lane = Real(0);  // in thread 0
+  int half = 0;
+  for (int t = blockIdx.x; t < tiles; t += kSumThreads, half ^= kCgThreads / 32) {
+    const int j = (t % tiles_x) * kCgBlockX + threadIdx.x;
+    const int i = (t / tiles_x) * kCgBlockY + threadIdx.y;
+    Real pAp = Real(0);
+    if (i < ny && j < nx) {
+      const int c = i * nx + j;
+      Real pc;
+      Cross<Real> n;
+      if (BLEND) {
+        const BlendLoad<Real> at{r, p, *beta};
+        pc = at(c);
+        n = cross_at(at, bc, 0, pc, Real(0), h, i, j, ny, nx);
+        p_out[c] = pc;
+      } else {
+        pc = p[c];
+        n = cross_at(Load<Real>{p}, bc, 0, pc, Real(0), h, i, j, ny, nx);
+      }
+      Real Av;
+      if (WITH_S) {
+        const Real sv = s[c];
+        Av = (Real(1) + C * sv) * pc + (X * sv) * (n.E + n.W) + (Y * sv) * (n.N + n.S);
+      } else {
+        Av = C * pc + X * (n.E + n.W) + Y * (n.N + n.S);
+      }
+      out[c] = Av;
+      pAp = pc * Av;
     }
-    Real Av;
-    if (WITH_S) {
-      const Real sv = s[c];
-      Av = (Real(1) + C * sv) * pc + (X * sv) * (n.E + n.W) + (Y * sv) * (n.N + n.S);
-    } else {
-      Av = C * pc + X * (n.E + n.W) + Y * (n.N + n.S);
-    }
-    out[c] = Av;
-    pAp = pc * Av;
+    lane += block_sum<kCgThreads>(pAp, red + half);
   }
-  const Real total = block_sum<kCgThreads>(pAp, red);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = total;
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    lanes[blockIdx.x] = lane;
+    fence_acq_rel_gpu();  // releases the lane with the ticket
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+    if (last) fence_acq_rel_gpu();  // acquires every block's lane
+  }
+  __syncthreads();
+  if (last) {
+    const Real sum = lane_tree(lanes, int(gridDim.x), red);
+    if (threadIdx.x == 0 && threadIdx.y == 0) *pAp_out = sum;
+  }
 }
 
 // ---------------------------------------------------------------- K9 ----
@@ -307,17 +378,29 @@ inline dim3 matvec_grid(int ny, int nx) {
 
 inline int pointwise_blocks(int n) { return (n + kCgThreads - 1) / kCgThreads; }
 
+// Partials K9 writes (and K8's at most kSumThreads lanes) for a (ny, nx)
+// field; K8's ticket counter sits in the slot after them
+// (`bt_cg_num_partials` counts it).
+inline int cg_partials(int ny, int nx) {
+  dim3 g = matvec_grid(ny, nx);
+  int a = int(g.x * g.y), b = pointwise_blocks(ny * nx);
+  return a > b ? a : b;
+}
+
 // K8 (r null) or K8b (r, beta and p_out given): out = A p (or A p', p_out
-// = p'), *pAp = the dot product.
+// = p'), *pAp = the dot product; its lanes and ticket in `partials`.
 template <class Real>
 int matvec_pAp(const Real* p, const Real* s, const Real* r, const Real* beta, Real* p_out,
                Real* out, Real* partials, Real* pAp, int ny, int nx, int bc, Real C, Real X,
                Real Y, Halo<Real> h, cudaStream_t stream) {
-  dim3 grid = matvec_grid(ny, nx);
-  dim3 block(kCgBlockX, kCgBlockY);
-#define BT_MATVEC(WS, BL)                                                                  \
+  const dim3 g = matvec_grid(ny, nx);
+  const int tiles = int(g.x * g.y);
+  const dim3 grid(tiles < kSumThreads ? tiles : kSumThreads), block(kCgBlockX, kCgBlockY);
+  unsigned* ticket = reinterpret_cast<unsigned*>(partials + cg_partials(ny, nx));
+#define BT_MATVEC(WS, BL)                                                                    \
   matvec_pAp_kernel<WS, BL><<<grid, block, 0, stream>>>(p, s, r, beta, p_out, out, partials, \
-                                                        ny, nx, bc, C, X, Y, h)
+                                                        ticket, pAp, ny, nx, int(g.x), tiles, \
+                                                        bc, C, X, Y, h)
   if (r != nullptr) {
     if (s != nullptr)
       BT_MATVEC(true, true);
@@ -329,10 +412,6 @@ int matvec_pAp(const Real* p, const Real* s, const Real* r, const Real* beta, Re
     BT_MATVEC(false, false);
   }
 #undef BT_MATVEC
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(static_cast<const Real*>(partials),
-                                                     int(grid.x * grid.y), pAp);
   return int(cudaGetLastError());
 }
 
@@ -393,7 +472,9 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 //   K8 bt_matvec_pAp: out = A p and pAp[0] = <p, A p>.  s null: the cross
 //      operator C p + X (E+W) + Y (N+S); s given: (1 + C s) p + X s (E+W) +
 //      Y s (N+S).  bc: the field's BoundaryType (0 periodic, 1 Neumann, 2
-//      Dirichlet at 0).  out must not overlap p.
+//      Dirichlet at 0).  out must not overlap p.  partials holds
+//      bt_cg_num_partials values, its ticket counter zeroed before the
+//      first launch; launches that share it run on one stream.
 //   K8b bt_advance_p_matvec: p_out = p' = r + beta[0] p, out = A p' and
 //      pAp[0] = <p', A p'>, A as for K8.  p_out and out overlap none of r,
 //      p, s and each other.
@@ -454,12 +535,10 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 
 extern "C" {
 
-// Values the partials buffer of K8 and K9 must hold for a (ny, nx) field.
-int bt_cg_num_partials(int ny, int nx) {
-  dim3 g = bt::matvec_grid(ny, nx);
-  int a = int(g.x * g.y), b = bt::pointwise_blocks(ny * nx);
-  return a > b ? a : b;
-}
+// Values the partials buffer of K8 and K9 must hold for a (ny, nx) field:
+// their partials, then one slot whose first 4 bytes are K8's ticket
+// counter, which must be zeroed once, when the buffer is allocated.
+int bt_cg_num_partials(int ny, int nx) { return bt::cg_partials(ny, nx) + 1; }
 
 BT_CG_ENTRIES(f32, float)
 BT_CG_ENTRIES(f64, double)

@@ -50,11 +50,17 @@
 //     "rk4" (entry `rk4_full_pallas` :1156): one whole RK4 step,
 //     x + dt/6 (k1 + 2 k2 + 2 k3 + k4).  It reads 2 fields and writes 2 (the
 //     staged route moves 4, 6, 6 and 10 fields for its four launches).
-//     Design: K2's tile with A = 4 and the RK4 tableau; shared memory holds
-//     x, k1, k2, k3 and the blend for both fields, 10 arrays of 40x24
-//     floats, 38.4 KB.  Like K2 it is likely bound by what it computes:
-//     4 stages of atan2f + cosf + ~50 flops per cell on 1.31x the owned
-//     cells.
+//     Far from its byte floor (0.080 ms at 4096^2), like K2: 4 stages of
+//     ~50 flops (and atan2f + cosf unless S = 0) per cell on 5.23x the
+//     owned cells, through shared memory, with barriers between.  Design:
+//     K2's tile with A = 4 and the RK4 tableau; shared memory holds x, k1,
+//     k2 and k3 for both fields, 8 arrays of 40x24 values, 30.7 KB at float
+//     and 61.4 KB at double (three blocks an SM); each stage forms its state
+//     x + w k at its reads.  As K2, interior tiles skip the edge tests and
+//     S = 0 takes the isotropic instantiation.  Measured at 4096^2 (H100
+//     80GB HBM3, 700 W; device time a launch, PERF.md §6): 700 us at float32
+//     S = 0.25 and 401 at S = 0, both 1112 before; 677 at double S = 0, 1407
+//     before.
 //
 // K6  bt_euler_steps_f32: replaces `_make_euler2_kernel` (:797, entry
 //     `euler2_pallas` :1272): T forward-Euler steps per pass over device
@@ -488,15 +494,27 @@ __device__ __forceinline__ bool interior(const Tile& T) {
          T.gx0 + Region<A>::W <= T.nx;
 }
 
+// A stage's state read as x + w k, formed at each read of region cell c
+// (`operator[]`), never stored: the sum eval_blend would have stored, in
+// its order and rounding.
+template <class Real>
+struct XPlusWK {
+  const Real* x;
+  const Real* k;
+  Real w;
+  __device__ __forceinline__ Real operator[](int c) const { return x[c] + k[c] * w; }
+};
+
 // The RHS of the state (bF, bU) at region cell (ry, rx), with the boundary
-// rule at Dirichlet value dv.  Without EDGES (an `interior` tile) every
-// neighbour is the region's own cell: no wrap, no edge flags, no selects,
-// the values `neighbour` would have passed through.  ISO: S = 0
-// (`physics`).
-template <int A, bool EDGES = true, bool ISO = false, class Real>
-__device__ __forceinline__ void rhs_at(const Tile& T, const PhysParams<Real>& P,
-                                       const Real* bF, const Real* bU, int ry, int rx,
-                                       Real dv, Real fu, Real& dF, Real& dU) {
+// rule at Dirichlet value dv; the state is read by index, from shared
+// memory or formed at the read (`XPlusWK`).  Without EDGES (an `interior`
+// tile) every neighbour is the region's own cell: no wrap, no edge flags,
+// no selects, the values `neighbour` would have passed through.  ISO: S =
+// 0 (`physics`).
+template <int A, bool EDGES = true, bool ISO = false, class Real, class State>
+__device__ __forceinline__ void rhs_at(const Tile& T, const PhysParams<Real>& P, State bF,
+                                       State bU, int ry, int rx, Real dv, Real fu, Real& dF,
+                                       Real& dU) {
   constexpr int W = Region<A>::W;
   if constexpr (!EDGES) {
     const int c = ry * W + rx;
@@ -522,10 +540,10 @@ __device__ __forceinline__ void rhs_at(const Tile& T, const PhysParams<Real>& P,
 // k = f(b) -- with EULER, k = b + dt f(b) -- on the tile grown by `depth`
 // cells; b must be valid one cell deeper.
 template <int A, bool EULER = false, bool EDGES = true, bool ISO = false,
-          int NT = kTileThreads, class Real>
+          int NT = kTileThreads, class Real, class State>
 __device__ __forceinline__ void eval_stage(const Tile& T, const PhysParams<Real>& P,
-                                           const Real* bF, const Real* bU, Real* kF,
-                                           Real* kU, int depth, Real dv, Real fu) {
+                                           State bF, State bU, Real* kF, Real* kU, int depth,
+                                           Real dv, Real fu) {
   const int w = kTX + 2 * depth, h = kTY + 2 * depth, lo = A - depth;
   for (int t = threadIdx.x; t < w * h; t += NT) {
     int ry = lo + t / w, rx = lo + t % w;
@@ -771,22 +789,66 @@ __global__ void __launch_bounds__(kReduceThreads)
 constexpr int kK3Apron = 4;  // RK4 reads 4 stages deep
 constexpr int kK3N = Region<kK3Apron>::N;
 
+// x, k1, k2 and k3 of both fields on the tile's region: 8 arrays, 30,720 B
+// at float and 61,440 B at double (three blocks an SM).  No stage's state
+// x + w k is stored: each stage forms it at its reads (`XPlusWK`).
 template <class Real>
 struct Rk4Smem {
   Real xF[kK3N], xU[kK3N];  // the step's start state
   Real k1F[kK3N], k1U[kK3N];
   Real k2F[kK3N], k2U[kK3N];
   Real k3F[kK3N], k3U[kK3N];
-  Real bF[kK3N], bU[kK3N];  // the current stage's blend
 };
 
-// RK4 (`simulation.cu:313-348`): k1 = f(x), k2 = f(x + h k1),
-// k3 = f(x + h k2), k4 = f(x + dt k3) with h = dt/2, then
-// x + c6 (k1 + 2 k2 + 2 k3 + k4), c6 = dt/6 -- the weights as the host
-// rounds them, as the JAX kernel takes them.
+// RK4's four stages on a loaded tile and the combination
+// (`simulation.cu:313-348`): k1 = f(x), k2 = f(x + h k1), k3 = f(x + h k2),
+// k4 = f(x + dt k3) with h = dt/2, then x + c6 (k1 + 2 k2 + 2 k3 + k4),
+// c6 = dt/6 -- the weights as the host rounds them, as the JAX kernel
+// takes them.  EDGES: the tile's region crosses a domain edge; ISO: S = 0.
+template <bool EDGES, bool ISO, class Real>
+__device__ __forceinline__ void rk4_stages(const Tile& T, Rk4Smem<Real>& s,
+                                           const PhysParams<Real>& P, Real h, Real dt,
+                                           Real c6, Real d, Real fu, Real* __restrict__ outF,
+                                           Real* __restrict__ outU) {
+  constexpr int A = kK3Apron;
+  using X = XPlusWK<Real>;
+  eval_stage<A, false, EDGES, ISO>(T, P, s.xF, s.xU, s.k1F, s.k1U, 3, d, fu);
+  __syncthreads();
+  const Real dh = d * (Real(1) + h);
+  eval_stage<A, false, EDGES, ISO>(T, P, X{s.xF, s.k1F, h}, X{s.xU, s.k1U, h}, s.k2F, s.k2U,
+                                   2, dh, fu);
+  __syncthreads();
+  eval_stage<A, false, EDGES, ISO>(T, P, X{s.xF, s.k2F, h}, X{s.xU, s.k2U, h}, s.k3F, s.k3U,
+                                   1, dh, fu);
+  __syncthreads();
+
+  // k4 on the owned cells and the combination
+  const Real dv = d * (Real(1) + dt);
+  const X bF{s.xF, s.k3F, dt}, bU{s.xU, s.k3U, dt};
+  for_owned<A>(T, [&](int ry, int rx, int g) {
+    const int c = ry * Region<A>::W + rx;
+    Real k4F, k4U;
+    rhs_at<A, EDGES, ISO>(T, P, bF, bU, ry, rx, dv, fu, k4F, k4U);
+    outF[g] = s.xF[c] + c6 * (s.k1F[c] + Real(2) * s.k2F[c] + Real(2) * s.k3F[c] + k4F);
+    outU[g] = s.xU[c] + c6 * (s.k1U[c] + Real(2) * s.k2U[c] + Real(2) * s.k3U[c] + k4U);
+  });
+}
+
+// One whole RK4 step on one tile.  Where K3's time went (PERF.md §6): every
+// evaluation tested four neighbours against the domain edges with integer
+// modulos, evaluated atan2 and cos even at S = 0, and each stage first
+// stored its blend for the next to read.  As K2 now: a tile whose region
+// lies inside the domain (97.7% of them at 4096^2) runs its stages without
+// edge tests, and at S = 0 the host launches the isotropic instantiation
+// (no atan2, no cos); and each stage forms x + w k at its reads, three
+// fewer passes and barriers.  256 threads a block and 32x16 tiles: 512
+// threads were slower from 2048^2 in every instantiation, stored blends at
+// 2048^2 in every one, 32x32 and 64x16 tiles at double (PERF.md §6).  Every
+// cell runs the same operations in the same order on the same values as
+// the plain version, so the result is the same bit for bit.
 // With ghosts 4 deep (K3's apron), K12.6 on a y-mesh shard and the K13
 // twin on any shard, as K12.2 is K2 on a y-mesh shard.
-template <bool GHOSTS, class Real>
+template <bool GHOSTS, bool ISO, class Real>
 __global__ void __launch_bounds__(kTileThreads)
     rk4_full_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                     Real* __restrict__ outF, Real* __restrict__ outU,
@@ -797,43 +859,10 @@ __global__ void __launch_bounds__(kTileThreads)
   const Tile T = block_tile<A>(ny, nx, ap);
   load_region<A, GHOSTS>(T, F, U, ap, s.xF, s.xU);
   __syncthreads();
-
-  eval_stage<A>(T, P, s.xF, s.xU, s.k1F, s.k1U, 3, d, fu);
-  __syncthreads();
-  const Real wh[1] = {h}, wdt[1] = {dt};
-  const Real dh = d * (Real(1) + h);
-  {
-    const Real* kF[1] = {s.k1F};
-    const Real* kU[1] = {s.k1U};
-    eval_blend<A, 1>(s.xF, s.xU, kF, kU, wh, s.bF, s.bU, 3);
-    __syncthreads();
-    eval_stage<A>(T, P, s.bF, s.bU, s.k2F, s.k2U, 2, dh, fu);
-    __syncthreads();
-  }
-  {
-    const Real* kF[1] = {s.k2F};
-    const Real* kU[1] = {s.k2U};
-    eval_blend<A, 1>(s.xF, s.xU, kF, kU, wh, s.bF, s.bU, 2);
-    __syncthreads();
-    eval_stage<A>(T, P, s.bF, s.bU, s.k3F, s.k3U, 1, dh, fu);
-    __syncthreads();
-  }
-  {
-    const Real* kF[1] = {s.k3F};
-    const Real* kU[1] = {s.k3U};
-    eval_blend<A, 1>(s.xF, s.xU, kF, kU, wdt, s.bF, s.bU, 1);
-    __syncthreads();
-  }
-
-  // k4 on the owned cells and the combination
-  const Real dv = d * (Real(1) + dt);
-  for_owned<A>(T, [&](int ry, int rx, int g) {
-    const int c = ry * Region<A>::W + rx;
-    Real k4F, k4U;
-    rhs_at<A>(T, P, s.bF, s.bU, ry, rx, dv, fu, k4F, k4U);
-    outF[g] = s.xF[c] + c6 * (s.k1F[c] + Real(2) * s.k2F[c] + Real(2) * s.k3F[c] + k4F);
-    outU[g] = s.xU[c] + c6 * (s.k1U[c] + Real(2) * s.k2U[c] + Real(2) * s.k3U[c] + k4U);
-  });
+  if (interior<A>(T))
+    rk4_stages<false, ISO>(T, s, P, h, dt, c6, d, fu, outF, outU);
+  else
+    rk4_stages<true, ISO>(T, s, P, h, dt, c6, d, fu, outF, outU);
 }
 
 // ---------------------------------------------------------------- K6 ----
@@ -1070,16 +1099,16 @@ int rkm_attempt(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
 }
 
 // K3 on the whole grid or on a shard: K12.6 (float32) or the K13 twin
-// (float64)
-template <class S, bool GHOSTS>
+// (float64); the isotropic instantiation when S = 0
+template <class S, bool GHOSTS, bool ISO>
 int rk4_full_on(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
                 int nx, S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P,
                 cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = int(sizeof(bt::Rk4Smem<R>));
-  static const cudaError_t attr = allow_smem(bt::rk4_full_kernel<GHOSTS, R>, smem);
+  static const cudaError_t attr = allow_smem(bt::rk4_full_kernel<GHOSTS, ISO, R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  bt::rk4_full_kernel<GHOSTS>
+  bt::rk4_full_kernel<GHOSTS, ISO>
       <<<tile_grid(ap.ny_l, ap.nx_l), bt::kTileThreads, smem, stream>>>(
           ar(F), ar(U), ar(outF), ar(outU), ap, ny, nx, R(h), R(dt), R(c6), R(d), R(fu),
           *P);
@@ -1089,8 +1118,10 @@ int rk4_full_on(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, i
 template <class S>
 int rk4_full(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny, int nx,
              S h, S dt, S c6, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
-  return (has_ghosts(ap) ? rk4_full_on<S, true> : rk4_full_on<S, false>)(
-      F, U, outF, outU, ap, ny, nx, h, dt, c6, d, fu, P, stream);
+  const bool iso = is_zero(P->S);
+  auto on = has_ghosts(ap) ? (iso ? rk4_full_on<S, true, true> : rk4_full_on<S, true, false>)
+                           : (iso ? rk4_full_on<S, false, true> : rk4_full_on<S, false, false>);
+  return on(F, U, outF, outU, ap, ny, nx, h, dt, c6, d, fu, P, stream);
 }
 
 template <class S, int STEPS, bool GHOSTS>

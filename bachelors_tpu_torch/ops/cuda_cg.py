@@ -44,9 +44,11 @@ float64 semi-implicit step:
 alpha, beta and K10's dot products are 0-dim tensors on the fields'
 device, read by the kernels through pointers; the dot products come back
 as 0-dim tensors there too.  Nothing here reads a value back to the host.  The kernels sum
-their per-block partials with a second one-block kernel (``csrc/cg.cu``);
-the plain versions use ``torch.sum``, which adds in another order (~1e-7
-relative in float32, ~1e-16 in float64).
+their per-block partials in a fixed order (``csrc/cg.cu``): K8, K12.8 and
+K8b in the same launch, K9 with a second one-block kernel.  The plain
+versions use ``torch.sum``, which adds in another order (~1e-7 relative in
+float32, ~1e-16 in float64); ``pAp_in_kernel_order`` adds K8's products in
+the kernel's own order, bit for bit.
 
 Every kernel runs on float32 and on float64 tensors (``bt_*_f32`` and
 ``bt_*_f64`` in ``csrc/cg.cu``), dispatched on their dtype, which the
@@ -95,6 +97,49 @@ def cross_matvec_pAp_plain(A: CrossMatrix, v: torch.Tensor,
     into; the plain version leaves it alone and returns a new tensor."""
     Av = cross_matvec(A, v)
     return Av, torch.sum(v * Av)
+
+
+# K8's block of (y, x) cells, one warp per row, and the lanes of the sum of
+# its partials (``csrc/cg.cu``: kCgBlockY x kCgBlockX, kSumThreads)
+_K8_BLOCK = (8, 32)
+_SUM_LANES = 1024
+
+
+def _warp_sum(v: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of a warp's shuffle-down sum over the last axis (32 lanes):
+    lanes [0, off) add lanes [off, 2 off) for off = 16, 8, 4, 2, 1."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """``block_sum`` over the last two axes (warps, 32 lanes): each warp's
+    shuffle sum, then warp 0's over the warp sums padded with zeros to 32."""
+    warps = _warp_sum(v)
+    return _warp_sum(torch.nn.functional.pad(warps, (0, 32 - warps.shape[-1])))
+
+
+def pAp_in_kernel_order(p: torch.Tensor, Ap: torch.Tensor) -> torch.Tensor:
+    """<p, Ap> added in K8's fixed order (K12.8's and K8b's too), from the
+    products p * Ap of the kernel's own output Ap (K8b: p' and A p'): each
+    8x32 block's tree of its cells' products (0 past the field's edge),
+    the partials in block order, then ``sum_partials_kernel``'s 1024
+    lanes, lane L adding partials L, L + 1024, ... from 0, and their
+    tree.  A 0-dim tensor of p's dtype on p's device, equal to the kernel's
+    bit for bit wherever each operation rounds alike."""
+    (ny, nx), (by, bx) = p.shape, _K8_BLOCK
+    rows, cols = -(-ny // by), -(-nx // bx)
+    prod = p.new_zeros(rows * by, cols * bx)
+    prod[:ny, :nx] = p * Ap
+    partials = _block_sum(prod.reshape(rows, by, cols, bx).transpose(1, 2)).reshape(-1)
+    n = partials.numel()
+    lanes = p.new_zeros(-(-n // _SUM_LANES) * _SUM_LANES)
+    lanes[:n] = partials
+    v = p.new_zeros(_SUM_LANES)
+    for row in lanes.reshape(-1, _SUM_LANES):
+        v = v + row
+    return _block_sum(v.reshape(-1, 32))
 
 
 def aniso_matvec_pAp_plain(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
@@ -251,7 +296,8 @@ def _checked(fields, scalars=()):
 
 
 def _partials(v: torch.Tensor, dtype: torch.dtype, index: int) -> torch.Tensor:
-    """The per-block partials of K8's and K9's sums, reused (``scratch``)."""
+    """The per-block partials of K8's and K9's sums and K8's ticket counter,
+    reused (``scratch``, zeroed once)."""
     return scratch("cg_num_partials", tuple(v.shape), dtype, index)
 
 

@@ -23,9 +23,10 @@ it is paid once for all of them:
     (``torch._C._cuda_getCurrentRawStream``, the raw handle PyTorch's own
     generated code launches on).
   * **Scratch reused, results not.**  ``scratch`` hands out per-launch
-    scratch (the per-block partials of a reduction) from a cache keyed by
-    (what, size, dtype, device, stream): a launch on one stream is ordered
-    after the last one that used the buffer.  Results are always new
+    scratch (the per-block partials of a reduction, and K8's ticket
+    counter) from a cache keyed by (what, size, dtype, device, stream),
+    zeroed once: a launch on one stream is ordered after the last one that
+    used the buffer.  Results are always new
     tensors: a 0-dim dot product of one CG iteration is read again in the
     next.
 
@@ -143,12 +144,14 @@ def scratch(size: str, args: tuple, dtype: torch.dtype, index: int,
     """Scratch of ``per * bt_<size>(*args)`` values of ``dtype`` on CUDA
     device ``index``, one buffer per (size, args, dtype, device, stream),
     reused by every launch on that stream: stream order puts each launch
-    after the last one that read it.  Never hand out a result from here."""
+    after the last one that read it.  Zeroed when it is allocated, once: K8
+    keeps a ticket counter there that each launch leaves at 0.  Never hand
+    out a result from here."""
     stream = (_HOOKS or _hooks())[1](index)
     key = (size, args, dtype, index, stream)
     buf = _SCRATCH.get(key)
     if buf is None:
-        buf = _SCRATCH[key] = torch.empty(per * fn(size)(*args), dtype=dtype,
+        buf = _SCRATCH[key] = torch.zeros(per * fn(size)(*args), dtype=dtype,
                                           device=torch.device("cuda", index))
     return buf
 

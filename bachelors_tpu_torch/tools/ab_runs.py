@@ -1,11 +1,13 @@
 """Full runs of two checkouts of the repo on one card, in turns.
 
-    python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER [--runs R,...] [--kernels]
-                                                [--out FILE]
+    python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER [AFTER ...] [--runs R,...]
+                                                [--kernels] [--out FILE]
 
 Runs configs of each checkout through its own ``run_config_file`` in the
-order BEFORE, AFTER, AFTER, BEFORE, each turn a fresh process started in
-that checkout's root, with its kernels built before the clock starts.
+order BEFORE, AFTER, AFTER, BEFORE (with several AFTERs, BEFORE, each
+AFTER, each AFTER in reverse, BEFORE: variants of one change in one
+call), each turn a fresh process started in that checkout's root, with
+its kernels built before the clock starts.
 ``--runs`` names them (default ``rkm``): ``rkm``, the shipped
 ``config.ini`` (the RKM path); ``si``, the same config on the
 semi-implicit solver at the CG tolerance 5e-9 (8000 steps, stats on);
@@ -16,15 +18,23 @@ JSON line with, per run, the run time, steps, attempts, ms/step, CG
 iterations (K9 launches) and CG host reads: the work counts of two
 checkouts whose kernels round alike must be equal.  ``--out`` gets them
 all.  With ``--kernels`` each process instead times the one-device tile
-kernels -- K2 (also at S = 0, the float64 sweep's physics), K3 and K6 (T =
-4, and 8 at float64) -- through its checkout's own wrappers, at float32
-and float64, at 512^2 and 2048^2 from the config's initial fields: the
-kernel's device µs per traced launch under ``torch.profiler`` and the
-host ms per call over back-to-back calls; the CG kernels K8 (both forms),
-K9 and K10 at 512^2, host ms per call and CUDA-event ms per call; and the
-ptxas registers, spills and shared memory and the SASS instruction count
-of each K2 and K10 instantiation of the checkout's build (``cuobjdump
--sass``, where the toolkit has it).
+kernels -- K2 and K6 (T = 4, and 8 at float64) at 512^2 and 2048^2, K3 at
+512^2, 2048^2 and 4096^2, K2 and K3 also at S = 0 (the float64 sweep's
+physics, their isotropic instantiations), and at 2048^2 and 4096^2 K3 on
+one shard of a y(2) mesh (K12.6 at float32, the K13 twin at float64) --
+through its checkout's own wrappers, at float32 and float64, from the
+config's initial fields: the kernel's device µs per traced launch under
+``torch.profiler`` and the host ms per call over back-to-back calls; the
+CG kernels K8 (both forms), K9 and K10 at 512^2, host ms per call and
+CUDA-event ms per call; K8 (both forms) and K12.8 (both forms, one shard
+of y(2)) at 512^2, 2048^2 and 4096^2, device µs per call summed over
+every kernel a call launches (the matvec and any sum after it), with the
+kernels it launched, and the device's wall time per call, gaps between
+its launches included, by CUDA events around the replay of a CUDA graph
+of back-to-back calls (no host in it); and the ptxas registers, spills and shared memory
+and the SASS instruction count of each K2, K3, K8 and K10 instantiation
+of the checkout's build (``cuobjdump -sass``, where the toolkit has
+it).
 
     python -m bachelors_tpu_torch.tools.ab_runs --cg-variant [CHECKOUT] [--out FILE]
 
@@ -82,27 +92,37 @@ import json, sys, time
 sys.path.insert(0, ".")
 import numpy as np, torch
 from torch.autograd import DeviceType
+from bachelors_tpu_torch.core.state import Shards
 from bachelors_tpu_torch.io.config import load_config
 from bachelors_tpu_torch.models.initial import make_initial_fields
 from bachelors_tpu_torch.ops import cuda_build, cuda_rhs
+from bachelors_tpu_torch.parallel.topology import Topology
 cuda_build.load()
 out = {}
 for dtype in ("float32", "float64"):
-    for n in (512, 2048):
+    for n in (512, 2048, 4096):
         cfg = load_config("config.ini", ["[simulation]\nmesh_size_x = %d\nmesh_size_y = %d\n"
                                          "[tpu]\ndtype = %s\n" % (n, n, dtype)])
         p = cfg.params
         F, U = make_initial_fields(p, cfg.initial, device="cuda")
         tau = np.dtype(dtype).type(p.dt)
         p0 = p.replace(S=0.0)
-        calls = {"K2": ("rkm_attempt_kernel", lambda: cuda_rhs.rkm_attempt(F, U, tau, p)),
-                 "K2 S=0": ("rkm_attempt_kernel",
-                            lambda: cuda_rhs.rkm_attempt(F, U, tau, p0)),
-                 "K3": ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p))}
-        for T in cuda_rhs.K6_STEPS[F.dtype]:
-            calls["K6 T=%d" % T] = ("euler_steps_kernel",
-                                    lambda T=T: cuda_rhs.euler_steps(F, U, p, T))
-        reps = 50 if n == 512 else 20
+        calls = {"K3": ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p)),
+                 "K3 S=0": ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p0))}
+        if n < 4096:
+            calls["K2"] = ("rkm_attempt_kernel", lambda: cuda_rhs.rkm_attempt(F, U, tau, p))
+            calls["K2 S=0"] = ("rkm_attempt_kernel",
+                               lambda: cuda_rhs.rkm_attempt(F, U, tau, p0))
+            for T in cuda_rhs.K6_STEPS[F.dtype]:
+                calls["K6 T=%d" % T] = ("euler_steps_kernel",
+                                        lambda T=T: cuda_rhs.euler_steps(F, U, p, T))
+        if n > 512:  # K3 on the first shard of y(2): K12.6, or the K13 twin at float64
+            Fs, Us = (Shards(tuple(b.contiguous() for b in a.split(n // 2)), (2, 1))
+                      for a in (F, U))
+            ap = Topology(2, 1).apron(Fs, Us, cuda_rhs.RK4_SLAB_ROWS)[0]
+            calls["K3 y(2) shard"] = ("rk4_full_kernel", lambda: cuda_rhs.rk4_full_sharded(
+                Fs.blocks[0], Us.blocks[0], ap, p))
+        reps = {512: 50, 2048: 20}.get(n, 10)
         for name, (kernel, call) in calls.items():
             for _ in range(3):
                 call()
@@ -165,7 +185,55 @@ for dtype in (torch.float32, torch.float64):
         end.synchronize()
         out["%s %s 512^2" % (name, str(dtype).split(".")[1])] = {
             "host_ms": host_ms, "event_ms": start.elapsed_time(end) / 200}
-# ptxas and SASS of K2's and K10's instantiations
+# K8 and K12.8 at 512^2-4096^2: device µs per call, every kernel the call
+# launches summed (the matvec and any sum kernel after it)
+from bachelors_tpu_torch.ops.rhs import stage_halos
+for dtype in (torch.float32, torch.float64):
+    for n in (512, 2048, 4096):
+        p, Ap = (torch.from_numpy(rng.normal(size=(n, n))).to("cuda", dtype) for _ in range(2))
+        s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(n, n))).to("cuda", dtype)
+        P, Sm = (Shards(tuple(b.contiguous() for b in a.split(n // 2)), (2, 1)) for a in (p, s))
+        halo = stage_halos([(P, P)], [1.0], Topology(2, 1))[0]
+        dead = torch.empty_like(P.blocks[0])
+        calls = {"K8 cross": lambda: cuda_cg.cross_matvec_pAp(A_U, p, out=Ap),
+                 "K8 aniso": lambda: cuda_cg.aniso_matvec_pAp(A_F, s, p, out=Ap),
+                 "K12.8 cross": lambda: cuda_cg.cross_matvec_pAp_sharded(
+                     A_U, P.blocks[0], halo, out=dead),
+                 "K12.8 aniso": lambda: cuda_cg.aniso_matvec_pAp_sharded(
+                     A_F, Sm.blocks[0], P.blocks[0], halo, out=dead)}
+        reps = {512: 200, 2048: 50}.get(n, 20)
+        for name, call in calls.items():
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    call()
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.key.startswith("void bt::")]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # the capture stream's own scratch, before capture
+                call()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(reps):
+                    call()
+            graph.replay()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            out["%s %s %d^2 per call" % (name, str(dtype).split(".")[1], n)] = {
+                "device_us_per_call": sum(e.self_device_time_total for e in ev) / reps,
+                "launches_per_call": {e.key.split("(")[0].replace("void bt::", ""):
+                                      e.count / reps for e in ev},
+                "graph_us_per_call": start.elapsed_time(end) * 1e3 / reps}
+# ptxas and SASS of K2's, K3's, K8's and K10's instantiations
 import os, re, shutil, subprocess
 log = cuda_build.build_log()
 ptxas, name = {}, None
@@ -182,7 +250,8 @@ if os.path.exists(cuobjdump):
     for part in dump.split("Function : ")[1:]:
         sass[part.split("\n", 1)[0].strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
 keep = [k for k in set(ptxas) | set(sass)
-        if any(w in k for w in ("rkm_attempt_kernel", "axpby_kernel", "advance_p_kernel"))]
+        if any(w in k for w in ("rkm_attempt_kernel", "rk4_full_kernel", "matvec_pAp_kernel",
+                                "axpby_kernel", "advance_p_kernel"))]
 names = subprocess.run(["c++filt"], input="\n".join(keep), capture_output=True,
                        text=True).stdout.splitlines()
 out["build"] = {d: {"ptxas": " | ".join(ptxas.get(k, [])), "sass_instructions": sass.get(k)}
@@ -263,7 +332,7 @@ def run(checkout: str, script: str, *args: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before", nargs="?", default=".")
-    ap.add_argument("after", nargs="?")
+    ap.add_argument("after", nargs="*")
     ap.add_argument("--runs", default="rkm",
                     help=f"comma-separated runs, of {', '.join(RUNS)} (default rkm)")
     ap.add_argument("--kernels", action="store_true",
@@ -280,11 +349,12 @@ def main() -> None:
             results.append({"variant": variant, **run(args.before, CG_VARIANT, variant)})
             print(json.dumps(results[-1]), flush=True)
     else:
-        if args.after is None:
+        if not args.after:
             ap.error("two checkouts are needed without --cg-variant")
         runs = {name: RUNS[name] for name in args.runs.split(",")}
-        for label, checkout in (("before", args.before), ("after", args.after),
-                                ("after", args.after), ("before", args.before)):
+        afters = [("after" if len(args.after) == 1 else a, a) for a in args.after]
+        for label, checkout in [("before", args.before), *afters, *afters[::-1],
+                                ("before", args.before)]:
             if args.kernels:
                 results.append({"checkout": label, **run(checkout, KERNELS)})
             else:

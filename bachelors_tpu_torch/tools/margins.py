@@ -80,6 +80,15 @@ def f64_attempt(F: torch.Tensor, U: torch.Tensor, tau, p: SimParams, fu=FU,
                                       p64, fu, dirichlet)
 
 
+def f64_rk4_step(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=FU, dirichlet=0.0):
+    """One RK4 step (K3's) from the same float32 inputs evaluated in
+    float64, as ``f64_attempt`` evaluates a Merson attempt: dt cast from
+    its float32 value, float64 transcendentals.  Returns (F, U)."""
+    p64 = p.replace(dtype="float64", f32_transcendentals=False,
+                    dt=float(np.float32(p.dt)))
+    return cuda_rhs.rk4_full_plain(F.double(), U.double(), p64, fu, dirichlet)
+
+
 def gap(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
         ref: Sequence[torch.Tensor]) -> float:
     """max over the two fields of max|a - b| / max(max|ref|, 1), in float64;

@@ -44,7 +44,10 @@ device sync, and device µs/step under ``torch.profiler`` (and each
 kernel's device µs per launch).
 
 Prints one JSON line per path and per route table, and writes them all to
-``--out`` as one JSON object.  Imports nothing of JAX.
+``--out`` as one JSON object.  A window whose trace holds no device event
+(CUPTI drops them now and then on that machine) is traced once more; if
+that trace is empty too, its row is written null with the reason, and the
+tool goes on to the next.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -151,17 +154,31 @@ def run_window(stepper, state, n: int, collect: bool) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def traced_ms(fn, window: int):
+class NoDeviceEvents(RuntimeError):
+    """Every trace of a window came back without a device event."""
+
+
+def null_row(row: dict, err: NoDeviceEvents) -> dict:
+    """A row whose window was never traced with its device events: what it
+    names, no measurement, and the reason."""
+    return {**row, "measured": None, "reason": str(err)}
+
+
+def traced_ms(fn, window: int, tries: int = 2):
     """(device ms per step, the device events by time) of ``fn``, which
-    takes ``window`` steps, under torch.profiler."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
-    if device_ms <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
+    takes ``window`` steps, under torch.profiler; a trace without device
+    events is taken again, up to ``tries`` in all, then NoDeviceEvents."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in device) / 1e3 / window
+        if device_ms > 0:
+            break
+    else:
+        raise NoDeviceEvents(f"torch.profiler recorded no device time in {tries} traces")
     device.sort(key=lambda e: -e.self_device_time_total)
     return device_ms, [[e.key[:90], e.self_device_time_total / window, e.count / window,
                         e.self_device_time_total / e.count] for e in device[:TOP]]
@@ -219,11 +236,15 @@ def profile_f64_paths(name: str, window: int) -> dict:
         launches = {k: v / steps for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items()
                     if v}
         host_reads = cg.HOST_READS["cg_stop_test"] / steps
-        dev_ms, top = traced_ms(run, steps)
-        rows[where] = {"path": name, "config": f"bench_sweep_f64/{path}",
-                       "grid": f"{p.ny}x{p.nx}", "shards": list(shards), "dtype": p.dtype,
-                       "window_after_steps": warm, "window_steps": steps,
-                       "steps_per_call": per_call, "ms_per_step_stats_off": ms,
+        row = {"path": name, "config": f"bench_sweep_f64/{path}", "grid": f"{p.ny}x{p.nx}",
+               "shards": list(shards), "dtype": p.dtype, "window_after_steps": warm,
+               "window_steps": steps}
+        try:
+            dev_ms, top = traced_ms(run, steps)
+        except NoDeviceEvents as err:
+            rows[where] = null_row(row, err)
+            continue
+        rows[where] = {**row, "steps_per_call": per_call, "ms_per_step_stats_off": ms,
                        "launches_per_step": launches, "host_reads_per_step": host_reads,
                        "device_ms_per_step": dev_ms, "busy_share": dev_ms / ms,
                        "top_device_us_per_step": top}
@@ -258,14 +279,17 @@ def profile_path(name: str, window: int, shards=(1, 1)) -> dict:
     off_ms = run_window(off_stepper, state, window, collect=False)
 
     profiled = []
-    device_ms, top = traced_ms(
-        lambda: profiled.append(run_window(stepper, state, window, collect=True)), window)
+    row = {"path": name, "grid": f"{p.ny}x{p.nx}", "shards": list(shards),
+           "window_after_steps": warm, "window_steps": window}
+    try:
+        device_ms, top = traced_ms(
+            lambda: profiled.append(run_window(stepper, state, window, collect=True)), window)
+    except NoDeviceEvents as err:
+        return null_row(row, err)
     return {
-        "path": name, "grid": f"{p.ny}x{p.nx}", "shards": list(shards),
-        "window_after_steps": warm,
-        "window_steps": window, "ms_per_step_stats_on": on_ms,
+        **row, "ms_per_step_stats_on": on_ms,
         "ms_per_step_stats_off": off_ms, "launches_per_step": launches,
-        "host_reads_per_step": host_reads, "profiled_ms_per_step": profiled[0],
+        "host_reads_per_step": host_reads, "profiled_ms_per_step": profiled[-1],
         "device_ms_per_step": device_ms, "busy_share": device_ms / on_ms,
         "top_device_us_per_step": top,
     }
@@ -276,7 +300,7 @@ def device_ms(fn, calls: int, tries: int = 3):
     summed over device-side events only; the device µs per launch of each
     of the port's kernels among them, by name).  A trace that recorded no
     device event (CUPTI drops one now and then) is taken
-    again, up to ``tries`` traces in all."""
+    again, up to ``tries`` traces in all, then NoDeviceEvents."""
     for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -286,6 +310,8 @@ def device_ms(fn, calls: int, tries: int = 3):
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if any(e.self_device_time_total > 0 for e in events):
             break
+    else:
+        raise NoDeviceEvents(f"torch.profiler recorded no device time in {tries} traces")
     kernels = {e.key.split("(")[0].replace("void ", ""): e.self_device_time_total / e.count
                for e in events if e.key.startswith("void bt::") and e.count}
     return sum(e.self_device_time_total for e in events) / 1e3, kernels
@@ -320,9 +346,11 @@ def profile_routes(solver: str) -> dict:
                 step()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / (calls * per_call)
-            dev_ms, kernels = device_ms(step, calls)
-            if dev_ms <= 0:
-                raise RuntimeError("torch.profiler recorded no device time")
+            try:
+                dev_ms, kernels = device_ms(step, calls)
+            except NoDeviceEvents as err:
+                row[route] = null_row({"ms_per_step": ms}, err)
+                continue
             row[route] = {"ms_per_step": ms, "device_us_per_step":
                           dev_ms * 1e3 / (calls * per_call),
                           "kernel_device_us_per_launch": kernels}

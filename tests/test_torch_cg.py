@@ -8,6 +8,8 @@ operators and the solver are held to the JAX package's XLA path at float64
 (rtol 1e-12, with equal iteration counts).  The kernels themselves are held
 to the plain versions on the card in tests/test_torch_cuda.py.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,6 +78,30 @@ def test_plain_matvec_pAp_matches_pallas_interpret(bc, rng):
     for (Av, pAp), (jAv, jpAp) in cases:
         assert_match(Av, jAv)
         np.testing.assert_allclose(float(pAp), float(jpAp), rtol=SUM_RTOL)
+
+
+# K8's grid of 8x32-cell blocks at 1, 7, 1024, 1025 and 65536 blocks (the
+# last one column wide: 8 cells a block)
+K8_BLOCK_SHAPES = [(8, 32), (8, 224), (256, 1024), (1640, 160), (524288, 1)]
+
+
+@pytest.mark.parametrize("shape", K8_BLOCK_SHAPES)
+def test_fixed_order_pAp_is_the_dot_product(shape, rng):
+    """``pAp_in_kernel_order``, the order in which K8, K12.8 and K8b add
+    <p, Ap> (held to the kernels bit for bit in tests/test_torch_cuda.py),
+    is the dot product: within 1e-15 of math.fsum of the same products at
+    float64, within 1e-6 of the plain matvec's torch.sum at float32."""
+    A = _systems("neumann", *shape, "float64")[4]
+    v = torch.from_numpy(rng.normal(size=shape))
+    Av = stencil.cross_matvec(A, v)
+    got = float(cuda_cg.pAp_in_kernel_order(v, Av))
+    want = math.fsum((v * Av).numpy().ravel())
+    assert abs(got - want) <= 1e-15 * abs(want)
+    A32 = _systems("neumann", *shape, "float32")[4]
+    Av32, pAp32 = cuda_cg.cross_matvec_pAp_plain(A32, v.float())
+    got32 = cuda_cg.pAp_in_kernel_order(v.float(), Av32)
+    assert got32.dtype == torch.float32 and got32.dim() == 0
+    assert abs(float(got32) - float(pAp32)) <= 1e-6 * abs(float(pAp32))
 
 
 def test_plain_update_and_axpby_match_pallas_interpret(rng):

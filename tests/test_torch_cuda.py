@@ -124,6 +124,81 @@ def test_k2_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen, cuda_device):  #
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k3_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen, cuda_device):  # noqa: F811
+    """K3 -- its interior tiles without edge tests, its isotropic
+    instantiation at S = 0, each stage's blend formed at its reads --
+    equals its plain version bit for bit from a seeded state, at both
+    dtypes (float64 with float and with double transcendentals), every BC
+    pair and tiles inside and across the edges, in one launch."""
+    for ny, nx in K2_SIZES:
+        for f32t in ((True,) if dtype == "float32" else (True, False)):
+            p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype, dt=1e-5,
+                          f32_transcendentals=f32t, Phi_boundary=BoundaryType(f_bc),
+                          T_boundary=BoundaryType(u_bc))
+            F, U = (torch.from_numpy(a).to(cuda_device) for a in seed_fields(gen, ny, nx, dtype))
+            d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+            before = cuda_rhs.LAUNCHES["rk4_full"]
+            got = cuda_rhs.rk4_full(F, U, p, 0.03, d)
+            assert cuda_rhs.LAUNCHES["rk4_full"] == before + 1
+            want = cuda_rhs.rk4_full_plain(F, U, p, 0.03, d)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (ny, nx, f32t)
+
+
+# K8's grid of 8x32-cell blocks at 1, 7, 1024, 1025 and 65536 blocks
+K8_BLOCK_SHAPES = ((8, 32), (8, 224), (256, 1024), (1640, 160), (4096, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k8_finishes_its_dot_in_one_launch_in_fixed_order(dtype, gen, cuda_device):  # noqa: F811
+    """K8 (both forms), K12.8 (one shard of y(2)) and K8b add <p, Ap> in
+    their own launch, bit for bit in the fixed order of
+    ``cuda_cg.pAp_in_kernel_order`` (the order of the one-block sum kernel
+    they launched before), at 1, 7, 1024, 1025 and 65536 blocks: each
+    twice in a row and after calls at another size (its ticket counter
+    wraps back to 0 at every launch), one kernel per call and no sum
+    kernel in the trace."""
+    from torch.autograd import DeviceType
+
+    from bachelors_tpu_torch.core.state import Shards
+    from bachelors_tpu_torch.ops.rhs import stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    A_U, A_F = _operators("neumann")
+    tdt = getattr(torch, dtype)
+    beta = torch.tensor(0.43, dtype=tdt, device=cuda_device)
+    calls = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for ny, nx in K8_BLOCK_SHAPES:
+            r, v = (torch.from_numpy(gen.normal(size=(ny, nx))).to(cuda_device, tdt)
+                    for _ in range(2))
+            s = torch.from_numpy(0.33 + 0.08 * gen.uniform(-1, 1, size=(ny, nx))).to(
+                cuda_device, tdt)
+            ys = 2 if ny % 2 == 0 else 1
+            V = Shards(tuple(b.contiguous() for b in v.split(ny // ys)), (ys, 1))
+            halo = stage_halos([(V, V)], [1.0], Topology(ys, 1))[0]
+            for _ in range(2):
+                for Av, pAp in (cuda_cg.cross_matvec_pAp(A_U, v),
+                                cuda_cg.aniso_matvec_pAp(A_F, s, v)):
+                    assert torch.equal(pAp, cuda_cg.pAp_in_kernel_order(v, Av)), (ny, nx)
+                Av, pAp = cuda_cg.cross_matvec_pAp_sharded(A_U, V.blocks[0], halo)
+                assert torch.equal(pAp, cuda_cg.pAp_in_kernel_order(V.blocks[0], Av))
+                pn, Av, pAp = cuda_cg.aniso_advance_p_matvec(A_F, s, r, v, beta)
+                assert torch.equal(pAp, cuda_cg.pAp_in_kernel_order(pn, Av)), (ny, nx)
+                calls += 4
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key.startswith("void bt::")}
+    assert not any("sum_partials" in k for k in kernels), kernels
+    assert sum(n for k, n in kernels.items() if "matvec_pAp_kernel" in k) == calls, kernels
+
+
+@pytest.mark.cuda
 def test_every_wrapper_refuses_bad_fields_before_launching(cuda_device):  # noqa: F811
     """Through the shared launch path every wrapper still refuses a field of
     another dtype, shape or device, or one that is not contiguous, before
@@ -719,16 +794,17 @@ def test_k12_5_and_k12_6_match_plain_and_whole_grid(f_bc, u_bc, shards, gen,
     """K12.5 (4 Euler steps) and K12.6 (an RK4 step) on a y-mesh from ghost
     slabs against their plain versions, and the y-mesh's joined result
     against K6 and K3 on the whole grid: the same arithmetic per cell, so
-    equal bit for bit."""
+    equal bit for bit, at S = 0.25 and at S = 0 (K12.6's isotropic
+    instantiation)."""
     from bachelors_tpu_torch.core.state import Shards
     from bachelors_tpu_torch.parallel.topology import Topology
 
     topo = Topology(shards, 1)
     d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
-    for ny, nx in MESH_SIZES:
+    for (ny, nx), S in ((size, S) for size in MESH_SIZES for S in (0.25, 0.0)):
         if ny % shards:
             continue
-        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+        p = _params(ny, nx, f_bc, u_bc, S, 6.0)
         F0, U0 = _seeded(gen, ny, nx, cuda_device)
         F, U = (Shards(tuple(a.split(ny // shards)), (shards, 1)) for a in (F0, U0))
         F, U = (Shards(tuple(b.contiguous() for b in S.blocks), S.grid) for S in (F, U))
