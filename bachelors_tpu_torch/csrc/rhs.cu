@@ -10,12 +10,15 @@
 //     (:344) in modes "rhs" and "euler" (entry `blend_rhs_pallas` :555).
 //     Blend of 1-4 states + boundary image + physics in one pass.
 //     Bound on the card by bytes: it reads 2 fields per state and writes 2,
-//     with ~100 flops per cell.  Design: one thread per cell, neighbours read
-//     straight from device memory -- the 5-point stencil's reuse is caught by
-//     L1/L2, and the blend of the k states happens in registers, so no
-//     blended state is ever stored.  Measured with 4 states at 2048^2:
-//     0.082 ms against a 0.050 ms byte floor (168 MB at 3.35 TB/s) on an
-//     H100 80GB HBM3 at 700 W.
+//     with ~100 flops per cell.  Design: one thread per cell, the blend of
+//     the k states formed in registers and never stored to device memory.
+//     A block whose cells and one-cell ring lie inside the fields (all but
+//     the edge blocks) reads its neighbours without the edge rule; the
+//     others take the edge rule per cell; at S = 0 the isotropic
+//     instantiation (see blend_rhs_kernel).
+//     Measured with 4 states at 2048^2 before that: 0.082 ms against a
+//     0.050 ms byte floor (168 MB at 3.35 TB/s) on an H100 80GB HBM3 at
+//     700 W.
 //
 // K4  bt_rk4_final_f32: replaces `_make_kernel` in mode "rk4_combine"
 //     (:433-440, entry `rk4_final_stage_pallas` :1359): k4 = f(x + dt k3)
@@ -72,6 +75,8 @@
 //     at T = 4), so no intermediate step leaves the SM.  The JAX kernel
 //     resets each field's ghost rows to its own boundary image before every
 //     step; here the boundary rule below applies at every step instead.
+//     As K2 and K3, interior tiles step without edge tests and S = 0 takes
+//     the isotropic instantiation (see euler_steps_kernel).
 //
 // K7  bt_si_prepare_f32: replaces `_make_kernel` in mode "si_prepare"
 //     (`_make_si_terms` :292, entry `si_prepare_pallas` :612): the
@@ -208,6 +213,10 @@ namespace bt {
 
 // ------------------------------------------------------------- K1, K4 ----
 
+// K1's block (and K4's, K5's, K7's): 32 x 8 threads, one cell each.  For
+// K1, two rows a thread (32 x 16 cells a block) was 11-16% faster with 4
+// states from 2048^2, but up to a third slower at 512^2 and on a 512 x 256
+// shard, the shapes its paths run (PERF.md §6).
 constexpr int kK1BlockX = 32;
 constexpr int kK1BlockY = 8;
 
@@ -226,14 +235,20 @@ __device__ __forceinline__ Real blend_at(const Real* const* A, const Real* w, in
   return v;
 }
 
-// The blend sum_k w_k (F_k, U_k) at cell (i, j), as (Fc, Uc), and the RHS
-// there, as (dF, dU), with the boundary rule applied to the blend, or the
-// halo's ghosts (physics.cuh) at a shard's seams.
+// The five values of each field that K1's physics reads at cell (i, j):
+// the blend at the cell and at its four neighbours.
+template <class Real>
+struct Stencil {
+  Real fc, fn, fs, fe, fw, uc, un, us, ue, uw;
+};
+
+// The stencil at cell (i, j) with the boundary rule applied to the blend,
+// or the halo's ghosts (physics.cuh) at a shard's seams.
 template <int NS, class Real>
-__device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Halo<Real>& h,
-                                             int i, int j, int ny, int nx, Real d, Real fu,
-                                             const PhysParams<Real>& P, Real& Fc,
-                                             Real& Uc, Real& dF, Real& dU) {
+__device__ __forceinline__ Stencil<Real> edge_stencil(const BlendArgs<Real>& a,
+                                                      const Halo<Real>& h, int i, int j,
+                                                      int ny, int nx, Real d,
+                                                      const PhysParams<Real>& P) {
   const int c = i * nx + j;
   const Real fc = blend_at<NS>(a.F, a.w, c);
   const Real uc = blend_at<NS>(a.U, a.w, c);
@@ -241,25 +256,64 @@ __device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Hal
                                  P.f_bc, 0, fc, d, h, i, j, ny, nx);
   const Cross<Real> u = cross_at([&](int idx) { return blend_at<NS>(a.U, a.w, idx); },
                                  P.u_bc, 1, uc, d, h, i, j, ny, nx);
-  physics(P, fc, f.N, f.S, f.E, f.W, uc, u.N, u.S, u.E, u.W, fu, dF, dU);
-  Fc = fc;
-  Uc = uc;
+  return {fc, f.N, f.S, f.E, f.W, uc, u.N, u.S, u.E, u.W};
 }
 
-// K1 and, with a halo, K12.1
+// The stencil of a block whose cells and one-cell ring lie inside the
+// fields (i0 >= 1, i0 + 8 < ny, j0 >= 1, j0 + 32 < nx): no neighbour
+// crosses a shard's or the domain's edge, so each is the field's own cell,
+// read without `cross_at`'s edge rule.
 template <int NS, class Real>
+__device__ __forceinline__ Stencil<Real> inner_stencil(const BlendArgs<Real>& a, int i0, int j0,
+                                                       int nx) {
+  const int c = (i0 + threadIdx.y) * nx + j0 + threadIdx.x;
+  auto F = [&](int idx) { return blend_at<NS>(a.F, a.w, idx); };
+  auto U = [&](int idx) { return blend_at<NS>(a.U, a.w, idx); };
+  return {F(c), F(c + nx), F(c - nx), F(c + 1), F(c - 1),
+          U(c), U(c + nx), U(c - nx), U(c + 1), U(c - 1)};
+}
+
+// The blend sum_k w_k (F_k, U_k) at cell (i, j), as (Fc, Uc), and the RHS
+// there, as (dF, dU), from `edge_stencil`.
+template <int NS, class Real>
+__device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Halo<Real>& h,
+                                             int i, int j, int ny, int nx, Real d, Real fu,
+                                             const PhysParams<Real>& P, Real& Fc,
+                                             Real& Uc, Real& dF, Real& dU) {
+  const Stencil<Real> v = edge_stencil<NS>(a, h, i, j, ny, nx, d, P);
+  physics(P, v.fc, v.fn, v.fs, v.fe, v.fw, v.uc, v.un, v.us, v.ue, v.uw, fu, dF, dU);
+  Fc = v.fc;
+  Uc = v.uc;
+}
+
+// K1 and, with a halo, K12.1 (K12.3 in euler mode).  Where K1's time went
+// (PERF.md §6): every cell ran `cross_at`'s compares and selects for each
+// neighbour, and evaluated atan2 and cos even at S = 0.  Here a block whose
+// cells and ring lie inside the fields (a test uniform over the block)
+// reads its neighbours directly (`inner_stencil`), and at S = 0 the host
+// launches the isotropic instantiation.  Every other block keeps the
+// per-cell edge rule.  Both feed one physics body, so the kernel holds one
+// copy of atan2 and cos, as before.  Every cell runs the same operations
+// on the same values, so the result is the same bit for bit.
+template <int NS, bool ISO, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     blend_rhs_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
                      Real* __restrict__ outU, int ny, int nx, Real d, Real fu,
                      int is_euler, Halo<Real> h, PhysParams<Real> P) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  Real Fc, Uc, dF, dU;
-  blend_rhs_at<NS>(a, h, i, j, ny, nx, d, fu, P, Fc, Uc, dF, dU);
+  const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
+  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
+  Stencil<Real> v;
+  if (i0 >= 1 && i0 + kK1BlockY < ny && j0 >= 1 && j0 + kK1BlockX < nx) {
+    v = inner_stencil<NS>(a, i0, j0, nx);
+  } else {
+    if (i >= ny || j >= nx) return;
+    v = edge_stencil<NS>(a, h, i, j, ny, nx, d, P);
+  }
+  Real dF, dU;
+  physics<ISO>(P, v.fc, v.fn, v.fs, v.fe, v.fw, v.uc, v.un, v.us, v.ue, v.uw, fu, dF, dU);
   if (is_euler) {
-    dF = Fc + P.dt * dF;
-    dU = Uc + P.dt * dU;
+    dF = v.fc + P.dt * dF;
+    dU = v.uc + P.dt * dU;
   }
   outF[i * nx + j] = dF;
   outU[i * nx + j] = dU;
@@ -873,9 +927,39 @@ constexpr int euler_smem_bytes() {
   return 4 * Region<STEPS>::N * int(sizeof(Real));
 }
 
+// STEPS Euler steps on a loaded tile, buf[0..1] the start state; the last
+// step's state is left in buf[2 (STEPS & 1)..].  EDGES: the tile's region
+// crosses a domain edge, so every neighbour read takes the boundary rule;
+// ISO: S = 0.
+template <int STEPS, bool EDGES, bool ISO, class Real>
+__device__ __forceinline__ void euler_chain(const Tile& T, Real (*buf)[Region<STEPS>::N],
+                                            const PhysParams<Real>& P, Real d, Real fu) {
+#pragma unroll
+  for (int step = 0; step < STEPS; ++step) {
+    const int cur = 2 * (step & 1), nxt = 2 - cur;
+    eval_stage<STEPS, true, EDGES, ISO>(T, P, buf[cur], buf[cur + 1], buf[nxt],
+                                        buf[nxt + 1], STEPS - 1 - step, d, fu);
+    __syncthreads();
+  }
+}
+
+// STEPS Euler steps on one tile.  Where K6's time went (PERF.md §6): every
+// evaluation of every step tested four neighbours against the domain edges
+// with integer modulos, and evaluated atan2 and cos even at S = 0.  As K2
+// and K3 now: a tile whose region lies inside the domain (420 of 512 at
+// 512^2, T = 4) steps without edge tests, and at S = 0 the host launches
+// the isotropic instantiation.  Every cell runs the same operations in the
+// same order on the same values as the plain version, so the result is the
+// same bit for bit.  256 threads a block, as measured at 512^2-4096^2
+// (PERF.md §6): 512 were slower in every instantiation (up to 25% at
+// S = 0) but double with atan2 and cos at T = 8, within the spread there.
+// Each thread stepping down a column of 2 cells on interior tiles, the
+// centre and south values kept in registers (3 shared loads a field a
+// cell instead of 5), gained 5-8% at S = 0 from 1024^2 but lost up to 19%
+// with atan2 and cos and 12% at double S = 0 at 512^2: not kept.
 // With ghosts STEPS deep (its apron), K12.5 on a y-mesh shard and the K13
 // twin on any shard, as K12.2 is K2 on a y-mesh shard.
-template <int STEPS, bool GHOSTS, class Real>
+template <int STEPS, bool GHOSTS, bool ISO, class Real>
 __global__ void __launch_bounds__(kTileThreads)
     euler_steps_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                        Real* __restrict__ outF, Real* __restrict__ outU,
@@ -887,13 +971,10 @@ __global__ void __launch_bounds__(kTileThreads)
   const Tile T = block_tile<STEPS>(ny, nx, ap);
   load_region<STEPS, GHOSTS>(T, F, U, ap, buf[0], buf[1]);
   __syncthreads();
-#pragma unroll
-  for (int step = 0; step < STEPS; ++step) {
-    const int cur = 2 * (step & 1), nxt = 2 - cur;
-    eval_stage<STEPS, true>(T, P, buf[cur], buf[cur + 1], buf[nxt], buf[nxt + 1],
-                            STEPS - 1 - step, d, fu);
-    __syncthreads();
-  }
+  if (interior<STEPS>(T))
+    euler_chain<STEPS, false, ISO>(T, buf, P, d, fu);
+  else
+    euler_chain<STEPS, true, ISO>(T, buf, P, d, fu);
   constexpr int last = 2 * (STEPS & 1);
   for_owned<STEPS>(T, [&](int ry, int rx, int g) {
     const int c = ry * Region<STEPS>::W + rx;
@@ -1011,7 +1092,26 @@ bt::BlendArgs<Ar<S>> blend_args(const S* F0, const S* U0, const S* F1, const S* 
                           {R(1), R(w1), R(w2), R(w3)}};
 }
 
-// K1 on the whole grid (h = whole_grid) or, with a halo, K12.1 on a shard
+// Whether a coefficient is 0 (on the host: Rn's operators are the device's)
+inline bool is_zero(float x) { return x == 0.0f; }
+inline bool is_zero(bt::Rn x) { return x.v == 0.0; }
+
+// K1 for NS states: the isotropic instantiation when S = 0
+template <int NS, class R>
+void blend_rhs_for(const bt::BlendArgs<R>& a, R* outF, R* outU, int ny, int nx, R d, R fu,
+                   int is_euler, const bt::Halo<R>& h, const PhysParams<R>& P,
+                   cudaStream_t stream) {
+  const dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
+  if (is_zero(P.S))
+    bt::blend_rhs_kernel<NS, true><<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu,
+                                                               is_euler, h, P);
+  else
+    bt::blend_rhs_kernel<NS, false><<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu,
+                                                                is_euler, h, P);
+}
+
+// K1 on the whole grid (h = whole_grid) or, with a halo, K12.1 on a shard;
+// the isotropic instantiation when S = 0
 template <class S>
 int blend_rhs(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
               const S* U2, const S* F3, const S* U3, int n_states, S w1, S w2, S w3,
@@ -1019,14 +1119,15 @@ int blend_rhs(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
               bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, F3, U3, w1, w2, w3);
-  dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
+  decltype(&blend_rhs_for<1, R>) launch;
   switch (n_states) {
-    case 1: bt::blend_rhs_kernel<1><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
-    case 2: bt::blend_rhs_kernel<2><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
-    case 3: bt::blend_rhs_kernel<3><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
-    case 4: bt::blend_rhs_kernel<4><<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P); break;
+    case 1: launch = blend_rhs_for<1, R>; break;
+    case 2: launch = blend_rhs_for<2, R>; break;
+    case 3: launch = blend_rhs_for<3, R>; break;
+    case 4: launch = blend_rhs_for<4, R>; break;
     default: return int(cudaErrorInvalidValue);
   }
+  launch(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P, stream);
   return int(cudaGetLastError());
 }
 
@@ -1053,10 +1154,6 @@ template <class S>
 bt::Apron<Ar<S>> apron_of(const S* rows, const S* cols, int y0, int ny_l, int x0, int nx_l) {
   return bt::Apron<Ar<S>>{ar(rows), ar(cols), y0, ny_l, x0, nx_l};
 }
-
-// Whether a coefficient is 0 (on the host: Rn's operators are the device's)
-inline bool is_zero(float x) { return x == 0.0f; }
-inline bool is_zero(bt::Rn x) { return x.v == 0.0; }
 
 // Whether a tile kernel's apron holds ghosts: the whole grid (null ghosts)
 // takes the kernel instantiation built without the ghost branches.
@@ -1124,24 +1221,31 @@ int rk4_full(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int 
   return on(F, U, outF, outU, ap, ny, nx, h, dt, c6, d, fu, P, stream);
 }
 
-template <class S, int STEPS, bool GHOSTS>
+template <class S, int STEPS, bool GHOSTS, bool ISO>
 int euler_steps_on(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
                    int nx, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   constexpr int smem = bt::euler_smem_bytes<R, STEPS>();
-  static const cudaError_t attr = allow_smem(bt::euler_steps_kernel<STEPS, GHOSTS, R>, smem);
+  static const cudaError_t attr =
+      allow_smem(bt::euler_steps_kernel<STEPS, GHOSTS, ISO, R>, smem);
   if (attr != cudaSuccess) return int(attr);
-  bt::euler_steps_kernel<STEPS, GHOSTS>
+  bt::euler_steps_kernel<STEPS, GHOSTS, ISO>
       <<<tile_grid(ap.ny_l, ap.nx_l), bt::kTileThreads, smem, stream>>>(
           ar(F), ar(U), ar(outF), ar(outU), ap, ny, nx, R(d), R(fu), *P);
   return int(cudaGetLastError());
 }
 
+// K6 on the whole grid or on a shard: K12.5 (float32) or the K13 twin
+// (float64); the isotropic instantiation when S = 0
 template <class S, int STEPS>
 int euler_steps_at(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, int ny,
                    int nx, S d, S fu, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
-  return (has_ghosts(ap) ? euler_steps_on<S, STEPS, true> : euler_steps_on<S, STEPS, false>)(
-      F, U, outF, outU, ap, ny, nx, d, fu, P, stream);
+  const bool iso = is_zero(P->S);
+  auto on = has_ghosts(ap) ? (iso ? euler_steps_on<S, STEPS, true, true>
+                                  : euler_steps_on<S, STEPS, true, false>)
+                           : (iso ? euler_steps_on<S, STEPS, false, true>
+                                  : euler_steps_on<S, STEPS, false, false>);
+  return on(F, U, outF, outU, ap, ny, nx, d, fu, P, stream);
 }
 
 // K6 (and its twins on a shard) is built for the depths its paths take: 4

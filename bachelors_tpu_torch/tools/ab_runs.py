@@ -1,7 +1,7 @@
 """Full runs of two checkouts of the repo on one card, in turns.
 
     python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER [AFTER ...] [--runs R,...]
-                                                [--kernels] [--out FILE]
+                                                [--kernels [--groups G,...]] [--out FILE]
 
 Runs configs of each checkout through its own ``run_config_file`` in the
 order BEFORE, AFTER, AFTER, BEFORE (with several AFTERs, BEFORE, each
@@ -17,24 +17,36 @@ semi-implicit solver at the CG tolerance 5e-9 (8000 steps, stats on);
 JSON line with, per run, the run time, steps, attempts, ms/step, CG
 iterations (K9 launches) and CG host reads: the work counts of two
 checkouts whose kernels round alike must be equal.  ``--out`` gets them
-all.  With ``--kernels`` each process instead times the one-device tile
-kernels -- K2 and K6 (T = 4, and 8 at float64) at 512^2 and 2048^2, K3 at
-512^2, 2048^2 and 4096^2, K2 and K3 also at S = 0 (the float64 sweep's
-physics, their isotropic instantiations), and at 2048^2 and 4096^2 K3 on
-one shard of a y(2) mesh (K12.6 at float32, the K13 twin at float64) --
-through its checkout's own wrappers, at float32 and float64, from the
-config's initial fields: the kernel's device µs per traced launch under
-``torch.profiler`` and the host ms per call over back-to-back calls; the
-CG kernels K8 (both forms), K9 and K10 at 512^2, host ms per call and
-CUDA-event ms per call; K8 (both forms) and K12.8 (both forms, one shard
-of y(2)) at 512^2, 2048^2 and 4096^2, device µs per call summed over
-every kernel a call launches (the matvec and any sum after it), with the
-kernels it launched, and the device's wall time per call, gaps between
-its launches included, by CUDA events around the replay of a CUDA graph
-of back-to-back calls (no host in it); and the ptxas registers, spills and shared memory
-and the SASS instruction count of each K2, K3, K8 and K10 instantiation
-of the checkout's build (``cuobjdump -sass``, where the toolkit has
-it).
+all.  With ``--kernels`` each process instead times kernels through its
+checkout's own wrappers, at float32 and float64, from the config's
+initial fields, each by its device µs per traced launch under
+``torch.profiler`` and its host ms per call over back-to-back calls;
+``--groups`` picks which (default all):
+
+  * ``tile``: K2 at 512^2 and 2048^2, K3 at 512^2, 2048^2 and 4096^2, both
+    also at S = 0 (the float64 sweep's physics, their isotropic
+    instantiations), and at 2048^2 and 4096^2 K3 on one shard of a y(2)
+    mesh (K12.6 at float32, the K13 twin at float64);
+  * ``euler``: K6 at each depth it is built for (T = 4, and 8 at float64)
+    at 512^2, 1024^2, 2048^2 and 4096^2, at S = 0.25 and S = 0, beside
+    K1's single Euler step (1 state, euler mode) at the same size and S:
+    the device µs a step of each route;
+  * ``k1``: K1 with 1 state in euler mode and with 4 states in rhs mode at
+    512^2-4096^2, with 2 states (the staged RK4 path's k2 and k3) at
+    512^2, at both S; K12.1 (3 states) and K12.3 (1 state, euler
+    mode) on the first shard of a y(2) and of an x(2) mesh of 512^2, from
+    the ghost gather's halo, at both S;
+  * ``cg``: the CG kernels K8 (both forms), K9 and K10 at 512^2, host ms
+    per call and CUDA-event ms per call; K8 (both forms) and K12.8 (both
+    forms, one shard of y(2)) at 512^2, 2048^2 and 4096^2, device µs per
+    call summed over every kernel a call launches (the matvec and any sum
+    after it), with the kernels it launched, and the device's wall time
+    per call, gaps between its launches included, by CUDA events around
+    the replay of a CUDA graph of back-to-back calls (no host in it);
+
+and the ptxas registers, spills and shared memory and the SASS
+instruction count of each K1, K2, K3, K6, K8 and K10 instantiation of
+the checkout's build (``cuobjdump -sass``, where the toolkit has it).
 
     python -m bachelors_tpu_torch.tools.ab_runs --cg-variant [CHECKOUT] [--out FILE]
 
@@ -96,144 +108,195 @@ from bachelors_tpu_torch.core.state import Shards
 from bachelors_tpu_torch.io.config import load_config
 from bachelors_tpu_torch.models.initial import make_initial_fields
 from bachelors_tpu_torch.ops import cuda_build, cuda_rhs
+from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
 from bachelors_tpu_torch.parallel.topology import Topology
 cuda_build.load()
+groups = sys.argv[1].split(",")
 out = {}
+
+
+def timed(name, kernel, call, reps):
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    for _ in range(3):  # the profiler drops every event of a trace now and then
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and kernel in e.key]
+        traced = sum(e.count for e in ev)
+        if traced:
+            break
+    else:
+        raise RuntimeError("%s: torch.profiler traced no launch of %s" % (name, kernel))
+    # per traced launch: the profiler drops a device event now and then
+    out[name] = {"device_us": sum(e.self_device_time_total for e in ev) / traced,
+                 "traced": traced, "host_ms": host_ms}
+
+
+rng = np.random.default_rng(0)
 for dtype in ("float32", "float64"):
-    for n in (512, 2048, 4096):
+    for n in (512, 1024, 2048, 4096):
         cfg = load_config("config.ini", ["[simulation]\nmesh_size_x = %d\nmesh_size_y = %d\n"
                                          "[tpu]\ndtype = %s\n" % (n, n, dtype)])
         p = cfg.params
         F, U = make_initial_fields(p, cfg.initial, device="cuda")
         tau = np.dtype(dtype).type(p.dt)
         p0 = p.replace(S=0.0)
-        calls = {"K3": ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p)),
-                 "K3 S=0": ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p0))}
-        if n < 4096:
-            calls["K2"] = ("rkm_attempt_kernel", lambda: cuda_rhs.rkm_attempt(F, U, tau, p))
-            calls["K2 S=0"] = ("rkm_attempt_kernel",
-                               lambda: cuda_rhs.rkm_attempt(F, U, tau, p0))
-            for T in cuda_rhs.K6_STEPS[F.dtype]:
-                calls["K6 T=%d" % T] = ("euler_steps_kernel",
-                                        lambda T=T: cuda_rhs.euler_steps(F, U, p, T))
-        if n > 512:  # K3 on the first shard of y(2): K12.6, or the K13 twin at float64
-            Fs, Us = (Shards(tuple(b.contiguous() for b in a.split(n // 2)), (2, 1))
-                      for a in (F, U))
-            ap = Topology(2, 1).apron(Fs, Us, cuda_rhs.RK4_SLAB_ROWS)[0]
-            calls["K3 y(2) shard"] = ("rk4_full_kernel", lambda: cuda_rhs.rk4_full_sharded(
-                Fs.blocks[0], Us.blocks[0], ap, p))
-        reps = {512: 50, 2048: 20}.get(n, 10)
+        calls = {}
+        if "tile" in groups and n != 1024:
+            calls["K3"] = ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p))
+            calls["K3 S=0"] = ("rk4_full_kernel", lambda: cuda_rhs.rk4_full(F, U, p0))
+            if n < 4096:
+                calls["K2"] = ("rkm_attempt_kernel", lambda: cuda_rhs.rkm_attempt(F, U, tau, p))
+                calls["K2 S=0"] = ("rkm_attempt_kernel",
+                                   lambda: cuda_rhs.rkm_attempt(F, U, tau, p0))
+            if n > 512:  # K3 on the first shard of y(2): K12.6, or the K13 twin at float64
+                Fs, Us = (Shards(tuple(b.contiguous() for b in a.split(n // 2)), (2, 1))
+                          for a in (F, U))
+                ap = Topology(2, 1).apron(Fs, Us, cuda_rhs.RK4_SLAB_ROWS)[0]
+                calls["K3 y(2) shard"] = ("rk4_full_kernel", lambda: cuda_rhs.rk4_full_sharded(
+                    Fs.blocks[0], Us.blocks[0], ap, p))
+        # K6 at each depth beside K1's single Euler step (1 state, euler mode)
+        # and K1 with 4 states in rhs mode, at S = 0.25 and S = 0
+        ks = [(F + 1e-3 * torch.randn_like(F), U + 1e-3 * torch.randn_like(U))
+              for _ in range(3)]
+        for q, tag in ((p, ""), (p0, " S=0")):
+            if "euler" in groups:
+                for T in cuda_rhs.K6_STEPS[F.dtype]:
+                    calls["K6 T=%d%s" % (T, tag)] = (
+                        "euler_steps_kernel", lambda T=T, q=q: cuda_rhs.euler_steps(F, U, q, T))
+            if "euler" in groups or "k1" in groups:
+                calls["K1 1 state euler" + tag] = (
+                    "blend_rhs_kernel",
+                    lambda q=q: cuda_rhs.blend_rhs([(F, U)], [1.0], q, is_euler=True))
+            if "k1" in groups:
+                calls["K1 4 states" + tag] = (
+                    "blend_rhs_kernel", lambda q=q: cuda_rhs.blend_rhs(
+                        [(F, U), *ks], [1.0, 1e-6, -2e-6, 3e-6], q))
+            if "k1" in groups and n == 512:  # the staged RK4 path's k2 and k3
+                calls["K1 2 states" + tag] = (
+                    "blend_rhs_kernel", lambda q=q: cuda_rhs.blend_rhs(
+                        [(F, U), ks[0]], [1.0, 1e-6], q))
+        # K12.1 (3 states, rhs mode) and K12.3 (1 state, euler mode) on the
+        # first shard of y(2) and of x(2) at 512^2, from the gather's ghosts
+        if "k1" in groups and n == 512:
+            for mesh, (sy, sx) in (("y(2)", (2, 1)), ("x(2)", (1, 2))):
+                topo = Topology(sy, sx)
+                st = [tuple(Shards(tuple(b.contiguous() for r in a.split(n // sy)
+                                         for b in r.split(n // sx, dim=1)), (sy, sx))
+                            for a in pair) for pair in [(F, U), *ks[:2]]]
+                w3 = [1.0, 1e-6, -2e-6]
+                h3 = stage_halos(st, w3, topo)[0]
+                h1 = stage_halos(st[:1], [1.0], topo)[0]
+                s3, s1 = shard_states(st, 0), shard_states(st[:1], 0)
+                for q, tag in ((p, ""), (p0, " S=0")):
+                    calls["K12.1 3 states %s shard%s" % (mesh, tag)] = (
+                        "blend_rhs_kernel",
+                        lambda q=q, s3=s3, h3=h3: cuda_rhs.blend_rhs_sharded(s3, w3, q, h3))
+                    calls["K12.3 %s shard%s" % (mesh, tag)] = (
+                        "blend_rhs_kernel", lambda q=q, s1=s1, h1=h1: cuda_rhs.blend_rhs_sharded(
+                            s1, [1.0], q, h1, is_euler=True))
+        reps = {512: 50, 1024: 30, 2048: 20}.get(n, 10)
         for name, (kernel, call) in calls.items():
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / reps
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    call()
-                torch.cuda.synchronize()
-            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  and kernel in e.key]
-            traced = sum(e.count for e in ev)
-            if not traced:
-                raise RuntimeError("%s: torch.profiler traced no launch of %s" % (name, kernel))
-            # per traced launch: the profiler drops a device event now and then
-            out["%s %s %d^2" % (name, dtype, n)] = {
-                "device_us": sum(e.self_device_time_total for e in ev) / traced,
-                "traced": traced, "host_ms": host_ms}
-# the CG kernels at 512^2: host and event ms per call of each wrapper
-from bachelors_tpu_torch.core.params import BoundaryType
-from bachelors_tpu_torch.ops import cuda_cg
-from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix
-rng = np.random.default_rng(0)
-A_U = CrossMatrix(C=1.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
-A_F = AnisotropyMatrix(Cm1=0.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
-for dtype in (torch.float32, torch.float64):
-    r, p, x, Ap = (torch.from_numpy(rng.normal(size=(512, 512))).to("cuda", dtype)
-                   for _ in range(4))
-    s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(512, 512))).to("cuda", dtype)
-    rr_new, rr, alpha = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61, 1e-3))
-    if hasattr(cuda_cg, "advance_p_inplace"):
-        k10 = lambda: cuda_cg.advance_p_inplace(r, p, rr_new, rr, 1e-10)
-    else:  # the checkout before K10 formed beta: the loop's two ops, then K10
-        one = torch.ones((), dtype=dtype, device="cuda")
-        k10 = lambda: cuda_cg.axpby_inplace(one, rr_new / torch.clamp(rr, min=1e-10), r, p)
-    calls = {"K8 cross": lambda: cuda_cg.cross_matvec_pAp(A_U, p, out=Ap),
-             "K8 aniso": lambda: cuda_cg.aniso_matvec_pAp(A_F, s, p, out=Ap),
-             "K9": lambda: cuda_cg.update_xr_rr(x, r, p, Ap, alpha),
-             "K10 (with beta)": k10,
-             "torch.addcmul": lambda: torch.addcmul(r, rr, p)}
-    for name, call in calls.items():
-        for _ in range(3):
-            call()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            call()
-        host_ms = (time.perf_counter() - t0) * 1e3 / 200
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(200):
-            call()
-        end.record()
-        end.synchronize()
-        out["%s %s 512^2" % (name, str(dtype).split(".")[1])] = {
-            "host_ms": host_ms, "event_ms": start.elapsed_time(end) / 200}
-# K8 and K12.8 at 512^2-4096^2: device µs per call, every kernel the call
-# launches summed (the matvec and any sum kernel after it)
-from bachelors_tpu_torch.ops.rhs import stage_halos
-for dtype in (torch.float32, torch.float64):
-    for n in (512, 2048, 4096):
-        p, Ap = (torch.from_numpy(rng.normal(size=(n, n))).to("cuda", dtype) for _ in range(2))
-        s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(n, n))).to("cuda", dtype)
-        P, Sm = (Shards(tuple(b.contiguous() for b in a.split(n // 2)), (2, 1)) for a in (p, s))
-        halo = stage_halos([(P, P)], [1.0], Topology(2, 1))[0]
-        dead = torch.empty_like(P.blocks[0])
+            timed("%s %s %d^2" % (name, dtype, n), kernel, call, reps)
+if "cg" in groups:
+    # the CG kernels at 512^2: host and event ms per call of each wrapper
+    from bachelors_tpu_torch.core.params import BoundaryType
+    from bachelors_tpu_torch.ops import cuda_cg
+    from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix
+    rng = np.random.default_rng(0)
+    A_U = CrossMatrix(C=1.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
+    A_F = AnisotropyMatrix(Cm1=0.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
+    for dtype in (torch.float32, torch.float64):
+        r, p, x, Ap = (torch.from_numpy(rng.normal(size=(512, 512))).to("cuda", dtype)
+                       for _ in range(4))
+        s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(512, 512))).to("cuda", dtype)
+        rr_new, rr, alpha = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61, 1e-3))
+        if hasattr(cuda_cg, "advance_p_inplace"):
+            k10 = lambda: cuda_cg.advance_p_inplace(r, p, rr_new, rr, 1e-10)
+        else:  # the checkout before K10 formed beta: the loop's two ops, then K10
+            one = torch.ones((), dtype=dtype, device="cuda")
+            k10 = lambda: cuda_cg.axpby_inplace(one, rr_new / torch.clamp(rr, min=1e-10), r, p)
         calls = {"K8 cross": lambda: cuda_cg.cross_matvec_pAp(A_U, p, out=Ap),
                  "K8 aniso": lambda: cuda_cg.aniso_matvec_pAp(A_F, s, p, out=Ap),
-                 "K12.8 cross": lambda: cuda_cg.cross_matvec_pAp_sharded(
-                     A_U, P.blocks[0], halo, out=dead),
-                 "K12.8 aniso": lambda: cuda_cg.aniso_matvec_pAp_sharded(
-                     A_F, Sm.blocks[0], P.blocks[0], halo, out=dead)}
-        reps = {512: 200, 2048: 50}.get(n, 20)
+                 "K9": lambda: cuda_cg.update_xr_rr(x, r, p, Ap, alpha),
+                 "K10 (with beta)": k10,
+                 "torch.addcmul": lambda: torch.addcmul(r, rr, p)}
         for name, call in calls.items():
             for _ in range(3):
                 call()
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    call()
-                torch.cuda.synchronize()
-            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  and e.key.startswith("void bt::")]
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):  # the capture stream's own scratch, before capture
+            t0 = time.perf_counter()
+            for _ in range(200):
                 call()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                for _ in range(reps):
-                    call()
-            graph.replay()
+            host_ms = (time.perf_counter() - t0) * 1e3 / 200
+            torch.cuda.synchronize()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            graph.replay()
+            for _ in range(200):
+                call()
             end.record()
             end.synchronize()
-            out["%s %s %d^2 per call" % (name, str(dtype).split(".")[1], n)] = {
-                "device_us_per_call": sum(e.self_device_time_total for e in ev) / reps,
-                "launches_per_call": {e.key.split("(")[0].replace("void bt::", ""):
-                                      e.count / reps for e in ev},
-                "graph_us_per_call": start.elapsed_time(end) * 1e3 / reps}
-# ptxas and SASS of K2's, K3's, K8's and K10's instantiations
+            out["%s %s 512^2" % (name, str(dtype).split(".")[1])] = {
+                "host_ms": host_ms, "event_ms": start.elapsed_time(end) / 200}
+    # K8 and K12.8 at 512^2-4096^2: device µs per call, every kernel the call
+    # launches summed (the matvec and any sum kernel after it)
+    from bachelors_tpu_torch.ops.rhs import stage_halos
+    for dtype in (torch.float32, torch.float64):
+        for n in (512, 2048, 4096):
+            p, Ap = (torch.from_numpy(rng.normal(size=(n, n))).to("cuda", dtype) for _ in range(2))
+            s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(n, n))).to("cuda", dtype)
+            P, Sm = (Shards(tuple(b.contiguous() for b in a.split(n // 2)), (2, 1)) for a in (p, s))
+            halo = stage_halos([(P, P)], [1.0], Topology(2, 1))[0]
+            dead = torch.empty_like(P.blocks[0])
+            calls = {"K8 cross": lambda: cuda_cg.cross_matvec_pAp(A_U, p, out=Ap),
+                     "K8 aniso": lambda: cuda_cg.aniso_matvec_pAp(A_F, s, p, out=Ap),
+                     "K12.8 cross": lambda: cuda_cg.cross_matvec_pAp_sharded(
+                         A_U, P.blocks[0], halo, out=dead),
+                     "K12.8 aniso": lambda: cuda_cg.aniso_matvec_pAp_sharded(
+                         A_F, Sm.blocks[0], P.blocks[0], halo, out=dead)}
+            reps = {512: 200, 2048: 50}.get(n, 20)
+            for name, call in calls.items():
+                for _ in range(3):
+                    call()
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        call()
+                    torch.cuda.synchronize()
+                ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and e.key.startswith("void bt::")]
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):  # the capture stream's own scratch, before capture
+                    call()
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=side):
+                    for _ in range(reps):
+                        call()
+                graph.replay()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                end.synchronize()
+                out["%s %s %d^2 per call" % (name, str(dtype).split(".")[1], n)] = {
+                    "device_us_per_call": sum(e.self_device_time_total for e in ev) / reps,
+                    "launches_per_call": {e.key.split("(")[0].replace("void bt::", ""):
+                                          e.count / reps for e in ev},
+                    "graph_us_per_call": start.elapsed_time(end) * 1e3 / reps}
+# ptxas and SASS of K1's, K2's, K3's, K6's, K8's and K10's instantiations
 import os, re, shutil, subprocess
 log = cuda_build.build_log()
 ptxas, name = {}, None
@@ -250,8 +313,9 @@ if os.path.exists(cuobjdump):
     for part in dump.split("Function : ")[1:]:
         sass[part.split("\n", 1)[0].strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
 keep = [k for k in set(ptxas) | set(sass)
-        if any(w in k for w in ("rkm_attempt_kernel", "rk4_full_kernel", "matvec_pAp_kernel",
-                                "axpby_kernel", "advance_p_kernel"))]
+        if any(w in k for w in ("rkm_attempt_kernel", "rk4_full_kernel", "euler_steps_kernel",
+                                "blend_rhs_kernel", "matvec_pAp_kernel", "axpby_kernel",
+                                "advance_p_kernel"))]
 names = subprocess.run(["c++filt"], input="\n".join(keep), capture_output=True,
                        text=True).stdout.splitlines()
 out["build"] = {d: {"ptxas": " | ".join(ptxas.get(k, [])), "sass_instructions": sass.get(k)}
@@ -338,6 +402,10 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true",
                     help="time the one-device tile kernels and the CG kernels instead of "
                          "whole runs")
+    ap.add_argument("--groups", default="tile,euler,k1,cg",
+                    help="with --kernels, the kernels to time, of tile (K2, K3, K12.6), "
+                         "euler (K6 beside K1's Euler step), k1 (K1, K12.1, K12.3) and cg "
+                         "(K8-K10, K12.8); default all")
     ap.add_argument("--cg-variant", action="store_true",
                     help="semi-implicit with the CG variant forced to pAp and fused, in "
                          "one checkout (BEFORE, default .)")
@@ -356,7 +424,7 @@ def main() -> None:
         for label, checkout in [("before", args.before), *afters, *afters[::-1],
                                 ("before", args.before)]:
             if args.kernels:
-                results.append({"checkout": label, **run(checkout, KERNELS)})
+                results.append({"checkout": label, **run(checkout, KERNELS, args.groups)})
             else:
                 results.append({"checkout": label, **run(checkout, RUN, json.dumps(runs))})
             print(json.dumps(results[-1]), flush=True)

@@ -1,6 +1,6 @@
 """Where the time goes on the card, for each path of ``chip_smoke.py``.
 
-    python -m bachelors_tpu_torch.tools.profile_paths [--out FILE]
+    python -m bachelors_tpu_torch.tools.profile_paths [--out FILE] [--routes-only]
 
 Steps the shipped 512x512 ``config.ini`` on the card to a point mid-run
 (RKM as shipped; semi-implicit at the CG tolerance 5e-9; forward Euler;
@@ -40,8 +40,11 @@ steps at 512^2, 1024^2 and 2048^2; on a y(2) mesh of the one card, RK4's
 staged route (K12.1 x 3 + K12.4) against its whole step per shard (K12.6)
 and Euler in blocks of 4 (K12.5, the pair stepper) against single steps
 (K12.3), at 512^2, 2048^2 and 4096^2 -- ms/step on the host clock to a
-device sync, and device µs/step under ``torch.profiler`` (and each
-kernel's device µs per launch).
+device sync, device µs/step under ``torch.profiler`` (and each kernel's
+device µs per launch), and device µs/step from the replay of a CUDA graph
+of the same calls (the profiler drops events now and then; a replay
+cannot); the Euler routes again at S = 0, the float64 sweep's physics.
+``--routes-only`` measures the routes alone.
 
 Prints one JSON line per path and per route table, and writes them all to
 ``--out`` as one JSON object.  A window whose trace holds no device event
@@ -317,14 +320,43 @@ def device_ms(fn, calls: int, tries: int = 3):
     return sum(e.self_device_time_total for e in events) / 1e3, kernels
 
 
-def profile_routes(solver: str) -> dict:
+def graph_us(fn, calls: int) -> float:
+    """Device wall time in µs of ``calls`` calls of ``fn`` captured in one
+    CUDA graph and replayed: the gaps between launches included, no host
+    in it, and no trace that could drop an event."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the capture stream's own scratch, before capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3
+
+
+def profile_routes(solver: str, S=None) -> dict:
     """Each route of ``solver`` at each of its sizes: ms/step on the host
-    clock and device µs/step, from the config's initial fields."""
+    clock, device µs/step summed over the traced events and, robust to
+    events the trace drops, from the replay of a CUDA graph of the same
+    calls, from the config's initial fields (at anisotropy ``S`` if
+    given)."""
     dtype = "float64" if solver.endswith("f64") else "float32"
     out = {"solver": solver, "dtype": dtype, "steps": ROUTE_STEPS, "sizes": {}}
+    if S is not None:
+        out["S"] = S
     for n in ROUTE_SIZES[solver]:
         cfg = load_config(CONFIG, [f"[simulation]\nmesh_size_x = {n}\nmesh_size_y = {n}\n"
-                                   f"dt = {5e-6 * (512 / n) ** 2!r}\n[tpu]\ndtype = {dtype}\n"])
+                                   f"dt = {5e-6 * (512 / n) ** 2!r}\n"
+                                   + (f"S = {S!r}\n" if S is not None else "")
+                                   + f"[tpu]\ndtype = {dtype}\n"])
         p = cfg.params
         F0, U0 = make_initial_fields(p, cfg.initial, device="cuda")
         if solver in MESH_ROUTES:
@@ -346,13 +378,21 @@ def profile_routes(solver: str) -> dict:
                 step()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / (calls * per_call)
+            keep = list(state)  # the graph reads these: keep them alive
+            try:
+                graph = graph_us(step, calls) / (calls * per_call)
+            except Exception as err:  # a route that cannot be captured
+                graph = f"not measured: {err}"[:200]
+            del keep
             try:
                 dev_ms, kernels = device_ms(step, calls)
             except NoDeviceEvents as err:
-                row[route] = null_row({"ms_per_step": ms}, err)
+                row[route] = null_row({"ms_per_step": ms, "graph_device_us_per_step": graph},
+                                      err)
                 continue
             row[route] = {"ms_per_step": ms, "device_us_per_step":
                           dev_ms * 1e3 / (calls * per_call),
+                          "graph_device_us_per_step": graph,
                           "kernel_device_us_per_launch": kernels}
         out["sizes"][f"{n}^2"] = row
     return out
@@ -361,6 +401,8 @@ def profile_routes(solver: str) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="write all paths' results here")
+    ap.add_argument("--routes-only", action="store_true",
+                    help="only the route tables, not the paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch sees no CUDA device")
@@ -369,14 +411,14 @@ def main() -> None:
                           check=True, timeout=60).stdout.strip()
     cuda_build.load()
     results = {"card": card}
-    for name in PATHS:
+    for name in () if args.routes_only else PATHS:
         results[name] = profile_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)
-    for name in MESH_PATHS:
+    for name in () if args.routes_only else MESH_PATHS:
         for mname, shards in MESHES.items():
             results[f"{name} on {mname}"] = profile_path(name, WINDOW, shards)
             print(json.dumps({"card": card, **results[f"{name} on {mname}"]}), flush=True)
-    for name in F64_PATHS:
+    for name in () if args.routes_only else F64_PATHS:
         for where, row in profile_f64_paths(name, WINDOW).items():
             key = name if where == "one device" else f"{name} on {where}"
             results[key] = row
@@ -384,6 +426,9 @@ def main() -> None:
     for solver in ROUTES:
         results[f"{solver} routes"] = profile_routes(solver)
         print(json.dumps({"card": card, **results[f"{solver} routes"]}), flush=True)
+    for solver in ("euler", "euler f64"):  # the isotropic instantiations (the f64 sweep's S)
+        results[f"{solver} routes, S = 0"] = profile_routes(solver, S=0.0)
+        print(json.dumps({"card": card, **results[f"{solver} routes, S = 0"]}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

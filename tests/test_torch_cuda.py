@@ -148,6 +148,63 @@ def test_k3_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen, cuda_device):  #
                 assert torch.equal(g, w), (ny, nx, f32t)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k6_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen, cuda_device):  # noqa: F811
+    """K6 -- its interior tiles without edge tests, its isotropic
+    instantiation at S = 0 -- at each depth it is built for equals as many
+    plain Euler steps bit for bit from a seeded state, at both dtypes
+    (float64 with float and with double transcendentals), every BC pair and
+    tiles inside and across the edges (K2's sizes, and 1024^2, where a
+    float64 run takes 8 steps a pass), in one launch."""
+    for T in cuda_rhs.K6_STEPS[getattr(torch, dtype)]:
+        for ny, nx in K2_SIZES + (((1024, 1024),) if T == 8 else ()):
+            for f32t in ((True,) if dtype == "float32" else (True, False)):
+                p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype,
+                              f32_transcendentals=f32t, Phi_boundary=BoundaryType(f_bc),
+                              T_boundary=BoundaryType(u_bc))
+                F, U = (torch.from_numpy(a).to(cuda_device)
+                        for a in seed_fields(gen, ny, nx, dtype))
+                d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+                before = cuda_rhs.LAUNCHES["euler_steps"]
+                got = cuda_rhs.euler_steps(F, U, p, T, 0.03, d)
+                assert cuda_rhs.LAUNCHES["euler_steps"] == before + 1
+                want = cuda_rhs.euler_steps_plain(F, U, p, T, 0.03, d)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (T, ny, nx, f32t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_euler", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k1_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, n, is_euler, gen,
+                                     cuda_device):  # noqa: F811
+    """K1 -- its interior blocks reading their neighbours without the edge
+    rule, its isotropic instantiation at S = 0 -- equals its plain version
+    bit for bit, at both dtypes (float64 with float and with double
+    transcendentals), every BC pair, 1-4 states in both modes, on blocks
+    inside and across the edges, at K2's sizes and 1024^2, in one launch."""
+    for ny, nx in K2_SIZES + ((1024, 1024),):
+        for f32t in ((True,) if dtype == "float32" else (True, False)):
+            p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype,
+                          f32_transcendentals=f32t, Phi_boundary=BoundaryType(f_bc),
+                          T_boundary=BoundaryType(u_bc))
+            states = _on(random_fields(gen, ny, nx, dtype, n), cuda_device)
+            w = [1.0] + [float(x) * 1e-2 for x in gen.normal(size=n - 1)]
+            d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+            before = cuda_rhs.LAUNCHES["blend_rhs"]
+            got = cuda_rhs.blend_rhs(states, w, p, 0.03, d, is_euler)
+            assert cuda_rhs.LAUNCHES["blend_rhs"] == before + 1
+            want = cuda_rhs.blend_rhs_plain(states, w, p, 0.03, d, is_euler)
+            for g, wt in zip(got, want):
+                assert torch.equal(g, wt), (ny, nx, f32t)
+
+
 # K8's grid of 8x32-cell blocks at 1, 7, 1024, 1025 and 65536 blocks
 K8_BLOCK_SHAPES = ((8, 32), (8, 224), (256, 1024), (1640, 160), (4096, 4096))
 
@@ -669,19 +726,23 @@ def _mesh_states(gen, ny, nx, sy, sx, n, device):
 @pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
 @pytest.mark.parametrize("f_bc,u_bc", MESH_PAIRS)
 def test_mesh_stage_kernels_match_plain(f_bc, u_bc, sy, sx, gen, cuda_device):  # noqa: F811
-    """K12.1's ghost gather, K12.1 and K5 with ghosts, shard by shard."""
+    """K12.1's ghost gather, K12.1 and K5 with ghosts, shard by shard, at S
+    = 0.25 and at S = 0 (K12.1's isotropic instantiation): K12.1 bit for
+    bit with its plain version, and joined over the mesh with K1 on the
+    whole grid (its interior blocks and its seams alike)."""
     from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
     from bachelors_tpu_torch.parallel.topology import Topology
 
-    topo = Topology(sy, sx)
+    topo, grid = Topology(sy, sx), (sy, sx)
     d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
-    for ny, nx in MESH_SIZES:
-        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+    for (ny, nx), S in ((size, S) for size in MESH_SIZES for S in (0.25, 0.0)):
+        p = _params(ny, nx, f_bc, u_bc, S, 6.0)
         states = _mesh_states(gen, ny, nx, sy, sx, 4, cuda_device)
         w = [1.0, 1e-2, -2e-2, 3e-2]
         before = dict(cuda_rhs.LAUNCHES)
         halos = stage_halos(states, w, topo)
         assert cuda_rhs.LAUNCHES["halo_edges"] == before["halo_edges"] + sy * sx
+        out = []
         for k, h in enumerate(halos):
             st = shard_states(states, k)
             for got, want in zip(cuda_rhs.halo_edges(st, w, sy > 1, sx > 1),
@@ -689,9 +750,15 @@ def test_mesh_stage_kernels_match_plain(f_bc, u_bc, sy, sx, gen, cuda_device):  
                 assert (got is None) == (want is None)
                 if got is not None:
                     assert_match(got, want)
-            for g, wt in zip(cuda_rhs.blend_rhs_sharded(st, w, p, h, 0.03, d),
-                             cuda_rhs.blend_rhs_sharded_plain(st, w, p, h, 0.03, d)):
-                assert_match(g, wt)
+            got = cuda_rhs.blend_rhs_sharded(st, w, p, h, 0.03, d)
+            for g, wt in zip(got, cuda_rhs.blend_rhs_sharded_plain(st, w, p, h, 0.03, d)):
+                assert torch.equal(g, wt), (ny, nx, S)
+            out.append(got)
+        whole = cuda_rhs.blend_rhs([(F.gather(), U.gather()) for F, U in states], w, p, 0.03, d)
+        for i in (0, 1):
+            assert torch.equal(_joined(out, i, grid), whole[i]), (ny, nx, S)
+        for k, h in enumerate(halos):
+            st = shard_states(states, k)
             tau = np.float32(TAU)
             got = cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h)
             want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
@@ -762,11 +829,12 @@ def test_mesh_euler_and_rk4_stage_kernels_match_plain(f_bc, u_bc, sy, sx, gen,
     from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
     from bachelors_tpu_torch.parallel.topology import Topology
 
-    topo = Topology(sy, sx)
+    topo, grid = Topology(sy, sx), (sy, sx)
     d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
-    for ny, nx in MESH_SIZES:
-        p = _params(ny, nx, f_bc, u_bc, 0.25, 6.0)
+    for (ny, nx), S in ((size, S) for size in MESH_SIZES for S in (0.25, 0.0)):
+        p = _params(ny, nx, f_bc, u_bc, S, 6.0)
         x, k1, k2, k3 = _mesh_states(gen, ny, nx, sy, sx, 4, cuda_device)
+        out = []
         for k, h in enumerate(stage_halos([x], [1.0], topo)):
             st = shard_states([x], k)
             before = cuda_rhs.LAUNCHES["blend_rhs_sharded_euler"]
@@ -774,7 +842,11 @@ def test_mesh_euler_and_rk4_stage_kernels_match_plain(f_bc, u_bc, sy, sx, gen,
             assert cuda_rhs.LAUNCHES["blend_rhs_sharded_euler"] == before + 1
             want = cuda_rhs.blend_rhs_sharded_plain(st, [1.0], p, h, 0.03, d, is_euler=True)
             for g, wt in zip(got, want):
-                assert_match(g, wt)
+                assert torch.equal(g, wt), (ny, nx, S)
+            out.append(got)
+        whole = cuda_rhs.blend_rhs([(x[0].gather(), x[1].gather())], [1.0], p, 0.03, d, True)
+        for i in (0, 1):
+            assert torch.equal(_joined(out, i, grid), whole[i]), (ny, nx, S)
         states = [x, k1, k2, k3]
         for k, h in enumerate(stage_halos([x, k3], [1.0, p.dt], topo)):
             st = shard_states(states, k)
@@ -794,8 +866,8 @@ def test_k12_5_and_k12_6_match_plain_and_whole_grid(f_bc, u_bc, shards, gen,
     """K12.5 (4 Euler steps) and K12.6 (an RK4 step) on a y-mesh from ghost
     slabs against their plain versions, and the y-mesh's joined result
     against K6 and K3 on the whole grid: the same arithmetic per cell, so
-    equal bit for bit, at S = 0.25 and at S = 0 (K12.6's isotropic
-    instantiation)."""
+    equal bit for bit, at S = 0.25 and at S = 0 (their isotropic
+    instantiations)."""
     from bachelors_tpu_torch.core.state import Shards
     from bachelors_tpu_torch.parallel.topology import Topology
 
@@ -820,7 +892,7 @@ def test_k12_5_and_k12_6_match_plain_and_whole_grid(f_bc, u_bc, shards, gen,
             for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, depth)):
                 got = kernel(f, u, ap, p)
                 for g, wt in zip(got, plain(f, u, ap, p)):
-                    assert_match(g, wt)
+                    assert torch.equal(g, wt), (depth, ny, nx, S)
                 out.append(got)
             for i in (0, 1):
                 assert torch.equal(torch.cat([o[i] for o in out]), whole[i])
@@ -1082,10 +1154,11 @@ def test_f64_apron_kernels_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
     """The K13 twins -- K2, K3 and K6 (4 and 8 steps) at double on a shard
     from its apron (``Topology.apron``: ghost rows and columns, the rows
     carrying the diagonal shards' corners on 2x2) -- against their plain
-    versions (F64_TOL; F64_RTOL on the maxima), each counted under its own
-    name, and joined over the mesh against K2, K3 and K6 on the whole grid:
-    bit for bit, the maxima too, Dirichlet corners included.  66x258 tiles
-    each shard raggedly along both axes."""
+    versions (fields bit for bit, F64_RTOL on the maxima), each counted
+    under its own name, at S = 0.25 and at S = 0 (their isotropic
+    instantiations), and joined over the mesh against K2, K3 and K6 on the
+    whole grid: bit for bit, the maxima too, Dirichlet corners included.
+    66x258 tiles each shard raggedly along both axes."""
     from bachelors_tpu_torch.parallel.topology import Topology
 
     topo, grid = Topology(sy, sx), (sy, sx)
@@ -1117,7 +1190,8 @@ def test_f64_apron_kernels_match_plain_and_whole_grid(f_bc, u_bc, sy, sx, gen,
                 for f, u, ap in zip(F.blocks, U.blocks, topo.apron(F, U, depth)):
                     got = _counted(cuda_rhs.LAUNCHES, name, lambda: call(f, u, ap, kernel))
                     want = call(f, u, ap, plain)
-                    _f64_close(got[:2], want[:2])
+                    for g, w in zip(got[:2], want[:2]):
+                        assert torch.equal(g, w), (name, depth)
                     if len(got) == 3:
                         np.testing.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
                                                    rtol=F64_RTOL)

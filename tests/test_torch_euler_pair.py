@@ -27,7 +27,7 @@ from bachelors_tpu_torch.ops import cuda_rhs
 from bachelors_tpu_torch.solvers import explicit
 from bachelors_tpu_torch.solvers.base import make_stepper
 from bachelors_tpu_torch.solvers.run import advance_n
-from torch_parity import assert_match, both_params, random_fields, seed_fields
+from torch_parity import RTOL, assert_close, assert_match, both_params, random_fields, seed_fields
 
 torch.set_num_threads(2)
 
@@ -36,8 +36,8 @@ MIXED = [("periodic", "neumann"), ("neumann", "periodic"), ("periodic", "dirichl
 FU = 0.03
 
 
-def _params(f_bc, u_bc, **kw):
-    return both_params(ny=64, nx=128, S=0.3, m0=6.0, theta0=0.1, dtype="float32",
+def _params(f_bc, u_bc, S=0.3, dtype="float32", **kw):
+    return both_params(ny=64, nx=128, S=S, m0=6.0, theta0=0.1, dtype=dtype,
                        Phi_boundary=JBC(f_bc), T_boundary=JBC(u_bc), **kw)
 
 
@@ -54,10 +54,13 @@ def _rel(got, want):
                for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("S", [0.3, 0.0])
 @pytest.mark.parametrize("T", [2, 4])
 @pytest.mark.parametrize("bc", BCS)
-def test_euler_steps_plain_matches_pallas_interpret(bc, T, rng):
-    jp, tp = _params(bc, bc)
+def test_euler_steps_plain_matches_pallas_interpret(bc, T, S, rng):
+    """At S = 0.3 and at S = 0, the physics of K6's isotropic
+    instantiation."""
+    jp, tp = _params(bc, bc, S=S)
     F, U = seed_fields(rng, 64, 128, "float32")
     d = 0.3 if bc == "dirichlet" else 0.0
     want = euler2_pallas(jnp.asarray(F), jnp.asarray(U), jp, fu=FU, dirichlet_value=d,
@@ -65,6 +68,22 @@ def test_euler_steps_plain_matches_pallas_interpret(bc, T, rng):
     got = cuda_rhs.euler_steps(torch.from_numpy(F), torch.from_numpy(U), tp, T, FU, d)
     for g, w in zip(got, want):
         assert_match(g, w)
+
+
+@pytest.mark.parametrize("T", [4, 8])
+@pytest.mark.parametrize("bc", BCS)
+def test_euler_steps_plain_f64_isotropic_matches_jax_xla(bc, T, rng):
+    """float64 at S = 0 (K6's isotropic instantiation at double, the
+    float64 sweep's physics): the plain version against T single steps of
+    the JAX package's XLA path with x64 on, at the float64 contract."""
+    jp, tp = _params(bc, bc, S=0.0, dtype="float64", backend="xla")
+    F, U = seed_fields(rng, 64, 128, "float64")
+    d = 0.3 if bc == "dirichlet" else 0.0
+    want = _jax_singles(F, U, jp, T, d)
+    got = cuda_rhs.euler_steps(torch.from_numpy(F), torch.from_numpy(U), tp, T, FU, d)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        assert_close(g, w, RTOL["float64"])
 
 
 @pytest.mark.parametrize("T", [2, 4])

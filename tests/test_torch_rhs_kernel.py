@@ -12,6 +12,7 @@ import torch
 
 from bachelors_tpu.core.params import BoundaryType as JBC
 from bachelors_tpu.ops.pallas_rhs import blend_rhs_pallas
+from bachelors_tpu.ops.rhs import euler_eval as jax_euler_eval
 from bachelors_tpu.ops.rhs import eval_rhs as jax_eval_rhs
 from bachelors_tpu.parallel.topology import Topology
 from bachelors_tpu_torch.ops import cuda_rhs
@@ -33,10 +34,16 @@ def _t(states, device="cpu"):
             for F, U in states]
 
 
-@pytest.mark.parametrize("bc,n", [("neumann", 1), ("neumann", 2), ("neumann", 3),
-                                  ("neumann", 4), ("periodic", 1), ("dirichlet", 3)])
-def test_plain_blend_rhs_matches_pallas_interpret(bc, n, rng):
-    jp, tp = both_params(ny=32, nx=128, S=0.3, m0=6.0, theta0=0.1,
+BLEND_CASES = [("neumann", 1), ("neumann", 2), ("neumann", 3), ("neumann", 4), ("periodic", 1),
+               ("dirichlet", 3)]
+
+
+@pytest.mark.parametrize("S", [0.3, 0.0])
+@pytest.mark.parametrize("bc,n", BLEND_CASES)
+def test_plain_blend_rhs_matches_pallas_interpret(bc, n, S, rng):
+    """At S = 0.3 and at S = 0, the physics of K1's isotropic
+    instantiation."""
+    jp, tp = both_params(ny=32, nx=128, S=S, m0=6.0, theta0=0.1,
                          Phi_boundary=JBC(bc), T_boundary=JBC(bc), dtype="float32")
     states = random_fields(rng, 32, 128, "float32", n)
     w = _weights(rng, n)
@@ -46,6 +53,30 @@ def test_plain_blend_rhs_matches_pallas_interpret(bc, n, rng):
     got = cuda_rhs.blend_rhs(_t(states), w, tp, fu=0.03, dirichlet_value=d)
     for g, wt in zip(got, want):
         assert_match(g.numpy(), wt)
+
+
+@pytest.mark.parametrize("is_euler", [False, True])
+@pytest.mark.parametrize("bc,n", BLEND_CASES)
+def test_plain_blend_rhs_f64_isotropic_matches_jax_xla(bc, n, is_euler, rng):
+    """float64 at S = 0 (K1's isotropic instantiation at double, the
+    float64 sweep's physics), both modes: the wrapper's plain version
+    against the JAX package's XLA path with x64 on, at the float64
+    contract."""
+    jp, tp = both_params(ny=32, nx=128, S=0.0, m0=6.0, theta0=0.1, backend="xla",
+                         Phi_boundary=JBC(bc), T_boundary=JBC(bc), dtype="float64")
+    states = random_fields(rng, 32, 128, "float64", n)
+    w = _weights(rng, n)
+    d = 0.25 if bc == "dirichlet" else 0.0
+    want = (jax_euler_eval if is_euler else jax_eval_rhs)(
+        [(jnp.asarray(F), jnp.asarray(U)) for F, U in states], w, jp, Topology(), fu=0.03,
+        dirichlet_value=d)
+    # JAX's eval_rhs takes the states' Dirichlet value, euler_eval and K1
+    # the blend's
+    dv = d if is_euler else cuda_rhs.effective_dirichlet(d, w)
+    got = cuda_rhs.blend_rhs(_t(states), w, tp, fu=0.03, dirichlet_value=dv, is_euler=is_euler)
+    for g, wt in zip(got, want):
+        assert g.dtype == torch.float64
+        assert_close(g, wt, RTOL["float64"])
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
