@@ -45,6 +45,12 @@ class Shards:
 
     blocks: Tuple[torch.Tensor, ...]
     grid: Tuple[int, int]
+    # Per shard, the edges of the (F, U) pair this field belongs to, as
+    # ``ops/rhs.stage_halos`` gathers them at weight 1, written by the kernel
+    # that made the pair (``ops/cuda_rhs.Fold``): the same object on both
+    # fields of the pair, else None.  A field made any other way carries
+    # none, so a stage reading it gathers its edges.
+    edges: Optional[tuple] = dataclasses.field(default=None, compare=False, repr=False)
 
     def block(self, i: int, j: int) -> torch.Tensor:
         return self.blocks[i * self.grid[1] + j]

@@ -25,8 +25,10 @@
 //     and x + dt/6 (k1 + 2 k2 + 2 k3 + k4) in one pass; k4 is never stored.
 //     Bound by bytes: it reads 8 fields and writes 2 (40 B per cell).
 //     Design: K1's, one thread per cell; the blend [x, k3] is formed in
-//     registers at the cell and its four neighbours (`blend_rhs_at`, shared
-//     with K1) and the combination is done in the same thread.
+//     registers at the cell and its four neighbours and the combination is
+//     done in the same thread; interior blocks read their neighbours
+//     without the edge rule, and S = 0 takes the isotropic instantiation
+//     (see rk4_final_kernel).
 //
 // K2  bt_rkm_attempt_f32: replaces `_make_fullstep_kernel` (:941) with
 //     scheme "rkm" (entry `rkm_attempt_pallas` :1163): one whole Merson
@@ -110,6 +112,9 @@
 //     halo_edges per shard and stage (both fields, rows and columns; the
 //     strided columns never go through a torch copy) and exchanged by tensor
 //     copies.  Bound by bytes like K1; the gather moves 2 rows or columns.
+//     The kernels that make a stage's state (K12.1, K12.3, K12.4, K5 on a
+//     shard) write the next stage's edges themselves (`Fold`), so the
+//     explicit mesh paths gather only where no kernel made the state.
 //
 // K12.2 bt_rkm_attempt_slabs_f32: replaces `_fullstep_call_sharded` (:1185,
 //     via `rkm_attempt_pallas_sharded` :1245).  K2's kernel itself, its
@@ -235,6 +240,99 @@ __device__ __forceinline__ Real blend_at(const Real* const* A, const Real* w, in
   return v;
 }
 
+// K12.1's ghost gather folded into the kernel that makes a stage's state
+// (K12.1, K12.3, K12.4, K5 on a shard): the next stage's blend is the
+// kernel's first m input states, then its own output, at weights w (w[0] =
+// 1 is not multiplied; m = 0: the output alone).  Its edge cells write that
+// blend's first and last row into `rows` (2 sides, 2 fields, nx) and first
+// and last column into `cols` (2, 2, ny), each null when not wanted: what
+// halo_edges_kernel would write from the same states, in blend_at's order
+// with the output as the last term, so bit for bit the same.
+template <class Real>
+struct Fold {
+  Real* rows;
+  Real* cols;
+  int m;
+  Real w[4];
+};
+
+template <class Real>
+__host__ __device__ __forceinline__ Fold<Real> no_fold() {
+  return Fold<Real>{nullptr, nullptr, 0, {Real(1), Real(0), Real(0), Real(0)}};
+}
+
+// Whether a block of K1's shape at (i0, j0) lies with its one-cell ring
+// inside the (ny, nx) fields (a test uniform over the block): no neighbour
+// of its cells crosses an edge, and it holds no edge cell to fold.
+__device__ __forceinline__ bool inner_block(int i0, int j0, int ny, int nx) {
+  return i0 >= 1 && i0 + kK1BlockY < ny && j0 >= 1 && j0 + kK1BlockX < nx;
+}
+
+// What a folding kernel's cell (i, j) of a (ny, nx) shard contributes to
+// the next blend: whether it lies on an edge that `fo` asks for and, if
+// so, the blend of the first m input states there (blend_at's order), read
+// before the physics so that the loads overlap it; the output is added
+// after it, as the blend's last term (fold_end).
+template <class Real>
+struct FoldCell {
+  bool on;
+  Real pF, pU, wl;
+};
+
+template <class Real>
+__device__ __forceinline__ FoldCell<Real> fold_begin(const BlendArgs<Real>& a,
+                                                     const Fold<Real>& fo, int i, int j,
+                                                     int ny, int nx) {
+  FoldCell<Real> fc{(fo.rows != nullptr && (i == 0 || i + 1 == ny)) ||
+                        (fo.cols != nullptr && (j == 0 || j + 1 == nx)),
+                    Real(0), Real(0), Real(1)};
+  if (fc.on && fo.m > 0) {  // indices known at compile time: no local copy of a or fo
+    const int c = i * nx + j;
+    fc.pF = a.F[0][c];
+    fc.pU = a.U[0][c];
+    fc.wl = fo.w[1];
+#pragma unroll
+    for (int k = 1; k < 3; ++k) {
+      if (k < fo.m) {
+        fc.pF = fc.pF + a.F[k][c] * fo.w[k];
+        fc.pU = fc.pU + a.U[k][c] * fo.w[k];
+        fc.wl = fo.w[k + 1];
+      }
+    }
+  }
+  return fc;
+}
+
+// The next blend at cell (i, j) whose output is (f, u), into each side it
+// holds (a shard one row or column across holds both).
+template <class Real>
+__device__ __forceinline__ void fold_end(const Fold<Real>& fo, const FoldCell<Real>& fc, int i,
+                                         int j, int ny, int nx, Real f, Real u) {
+  if (!fc.on) return;
+  const Real vF = fo.m > 0 ? fc.pF + f * fc.wl : f;
+  const Real vU = fo.m > 0 ? fc.pU + u * fc.wl : u;
+  if (fo.rows != nullptr) {
+    if (i == 0) {
+      fo.rows[j] = vF;
+      fo.rows[nx + j] = vU;
+    }
+    if (i + 1 == ny) {
+      fo.rows[2 * nx + j] = vF;
+      fo.rows[3 * nx + j] = vU;
+    }
+  }
+  if (fo.cols != nullptr) {
+    if (j == 0) {
+      fo.cols[i] = vF;
+      fo.cols[ny + i] = vU;
+    }
+    if (j + 1 == nx) {
+      fo.cols[2 * ny + i] = vF;
+      fo.cols[3 * ny + i] = vU;
+    }
+  }
+}
+
 // The five values of each field that K1's physics reads at cell (i, j):
 // the blend at the cell and at its four neighbours.
 template <class Real>
@@ -295,20 +393,28 @@ __device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Hal
 // per-cell edge rule.  Both feed one physics body, so the kernel holds one
 // copy of atan2 and cos, as before.  Every cell runs the same operations
 // on the same values, so the result is the same bit for bit.
-template <int NS, bool ISO, class Real>
+//
+// On a shard (K12.1, K12.3) the FOLD instantiation also writes the next
+// stage's ghosts (`fo`, see Fold): only edge blocks hold edge cells, so
+// interior blocks pay nothing for it, and a launch without a fold takes the
+// instantiation built without it.
+template <int NS, bool ISO, bool FOLD, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     blend_rhs_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
                      Real* __restrict__ outU, int ny, int nx, Real d, Real fu,
-                     int is_euler, Halo<Real> h, PhysParams<Real> P) {
+                     int is_euler, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
+  const bool inner = inner_block(i0, j0, ny, nx);
   Stencil<Real> v;
-  if (i0 >= 1 && i0 + kK1BlockY < ny && j0 >= 1 && j0 + kK1BlockX < nx) {
+  if (inner) {
     v = inner_stencil<NS>(a, i0, j0, nx);
   } else {
     if (i >= ny || j >= nx) return;
     v = edge_stencil<NS>(a, h, i, j, ny, nx, d, P);
   }
+  FoldCell<Real> fc{};
+  if (FOLD && !inner) fc = fold_begin(a, fo, i, j, ny, nx);
   Real dF, dU;
   physics<ISO>(P, v.fc, v.fn, v.fs, v.fe, v.fw, v.uc, v.un, v.us, v.ue, v.uw, fu, dF, dU);
   if (is_euler) {
@@ -317,26 +423,45 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   }
   outF[i * nx + j] = dF;
   outU[i * nx + j] = dU;
+  if (FOLD && !inner) fold_end(fo, fc, i, j, ny, nx, dF, dU);
 }
 
 // K4: a = {x, k3} with weights {1, dt}; the combination in the JAX
 // kernel's order, x + c6 (((k1 + 2 k2) + 2 k3) + k4).  With a halo, K12.4 on
-// a shard: the ghosts are those of the blend [x, k3].
-template <class Real>
+// a shard: the ghosts are those of the blend [x, k3], and the FOLD
+// instantiation writes its output's own edges, the next step's first ghosts
+// (`fo`, m = 0).
+// K1's structure (PR 13): where K4's time went, every cell ran the edge
+// rule's compares and selects for each neighbour, and atan2 and cos even at
+// S = 0.  Here a block whose cells and ring lie inside the fields reads its
+// neighbours directly, the others keep the edge rule, both feed one physics
+// body, and S = 0 takes the isotropic instantiation: the same operations
+// on the same values, so the same bits.
+template <bool ISO, bool FOLD, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     rk4_final_kernel(BlendArgs<Real> a, const Real* __restrict__ k1F,
                      const Real* __restrict__ k1U, const Real* __restrict__ k2F,
                      const Real* __restrict__ k2U, Real* __restrict__ outF,
                      Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
-                     Real fu, Halo<Real> h, PhysParams<Real> P) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  Real Fc, Uc, k4F, k4U;
-  blend_rhs_at<2>(a, h, i, j, ny, nx, d, fu, P, Fc, Uc, k4F, k4U);
+                     Real fu, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
+  const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
+  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
+  const bool inner = inner_block(i0, j0, ny, nx);
+  Stencil<Real> v;
+  if (inner) {
+    v = inner_stencil<2>(a, i0, j0, nx);
+  } else {
+    if (i >= ny || j >= nx) return;
+    v = edge_stencil<2>(a, h, i, j, ny, nx, d, P);
+  }
+  Real k4F, k4U;
+  physics<ISO>(P, v.fc, v.fn, v.fs, v.fe, v.fw, v.uc, v.un, v.us, v.ue, v.uw, fu, k4F, k4U);
   const int c = i * nx + j;
-  outF[c] = a.F[0][c] + c6 * (k1F[c] + Real(2) * k2F[c] + Real(2) * a.F[1][c] + k4F);
-  outU[c] = a.U[0][c] + c6 * (k1U[c] + Real(2) * k2U[c] + Real(2) * a.U[1][c] + k4U);
+  const Real nF = a.F[0][c] + c6 * (k1F[c] + Real(2) * k2F[c] + Real(2) * a.F[1][c] + k4F);
+  const Real nU = a.U[0][c] + c6 * (k1U[c] + Real(2) * k2U[c] + Real(2) * a.U[1][c] + k4U);
+  outF[c] = nF;
+  outU[c] = nU;
+  if (FOLD && !inner) fold_end(fo, fold_begin(a, fo, i, j, ny, nx), i, j, ny, nx, nF, nU);
 }
 
 // ------------------------------------------------- K5, K12.1's ghost gather ----
@@ -345,16 +470,20 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 // cell, the update x + c6 (k1 + 4 k4 + k5) and the error |0.2 k1 - 0.9 k3 +
 // 0.8 k4 - 0.1 k5| in the JAX kernel's order (`pallas_rhs.py:441-454`), its
 // per-block maxima (NaN kept) into `partials` for reduce_partials_kernel.
-template <class Real>
+// On a shard the FOLD instantiation writes its output's own edges, the next
+// step's first ghosts (`fo`, m = 0), kept by the host only if it accepts
+// the attempt.
+template <bool FOLD, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     rkm_final_kernel(BlendArgs<Real> a, Real c6, Real* __restrict__ outF,
                      Real* __restrict__ outU, Real* __restrict__ partials, int ny, int nx,
-                     Real d, Real fu, Halo<Real> h, PhysParams<Real> P) {
+                     Real d, Real fu, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
   constexpr int kThreads = kK1BlockX * kK1BlockY;
   __shared__ Real redF[kThreads], redU[kThreads];
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const int i = blockIdx.y * blockDim.y + threadIdx.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const bool fold = FOLD && !inner_block(blockIdx.y * kK1BlockY, blockIdx.x * kK1BlockX, ny, nx);
   Real eF = Real(0), eU = Real(0);
   if (i < ny && j < nx) {  // no early return: every thread joins the reduction
     Real Fc, Uc, k5F, k5U;
@@ -362,8 +491,11 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     const int c = i * nx + j;
     const Real k1F = a.F[1][c], k3F = a.F[2][c], k4F = a.F[3][c];
     const Real k1U = a.U[1][c], k3U = a.U[2][c], k4U = a.U[3][c];
-    outF[c] = a.F[0][c] + c6 * (k1F + Real(4) * k4F + k5F);
-    outU[c] = a.U[0][c] + c6 * (k1U + Real(4) * k4U + k5U);
+    const Real nF = a.F[0][c] + c6 * (k1F + Real(4) * k4F + k5F);
+    const Real nU = a.U[0][c] + c6 * (k1U + Real(4) * k4U + k5U);
+    outF[c] = nF;
+    outU[c] = nU;
+    if (fold) fold_end(fo, fold_begin(a, fo, i, j, ny, nx), i, j, ny, nx, nF, nU);
     eF = abs_of(Real(0.2) * k1F - Real(0.9) * k3F + Real(0.8) * k4F - Real(0.1) * k5F);
     eU = abs_of(Real(0.2) * k1U - Real(0.9) * k3U + Real(0.8) * k4U - Real(0.1) * k5U);
   }
@@ -1099,25 +1231,36 @@ inline bool is_zero(bt::Rn x) { return x.v == 0.0; }
 // K1 for NS states: the isotropic instantiation when S = 0
 template <int NS, class R>
 void blend_rhs_for(const bt::BlendArgs<R>& a, R* outF, R* outU, int ny, int nx, R d, R fu,
-                   int is_euler, const bt::Halo<R>& h, const PhysParams<R>& P,
-                   cudaStream_t stream) {
+                   int is_euler, const bt::Halo<R>& h, const bt::Fold<R>& fo,
+                   const PhysParams<R>& P, cudaStream_t stream) {
   const dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
-  if (is_zero(P.S))
-    bt::blend_rhs_kernel<NS, true><<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu,
-                                                               is_euler, h, P);
-  else
-    bt::blend_rhs_kernel<NS, false><<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu,
-                                                                is_euler, h, P);
+  const bool iso = is_zero(P.S), fold = fo.rows != nullptr || fo.cols != nullptr;
+  auto kernel = iso ? (fold ? bt::blend_rhs_kernel<NS, true, true, R>
+                            : bt::blend_rhs_kernel<NS, true, false, R>)
+                    : (fold ? bt::blend_rhs_kernel<NS, false, true, R>
+                            : bt::blend_rhs_kernel<NS, false, false, R>);
+  kernel<<<grid, block, 0, stream>>>(a, outF, outU, ny, nx, d, fu, is_euler, h, fo, P);
 }
 
-// K1 on the whole grid (h = whole_grid) or, with a halo, K12.1 on a shard;
-// the isotropic instantiation when S = 0
+// The fold of a kernel on a shard: the next blend's first m input states
+// and its weights w1..w3 (after the leading 1), into rows and cols; none
+// when both are null.
+template <class S>
+bt::Fold<Ar<S>> fold_of(S* rows, S* cols, int m, S w1, S w2, S w3) {
+  using R = Ar<S>;
+  return bt::Fold<R>{ar(rows), ar(cols), m, {R(1), R(w1), R(w2), R(w3)}};
+}
+
+// K1 on the whole grid (h = whole_grid, no fold) or, with a halo, K12.1 on
+// a shard; the isotropic instantiation when S = 0
 template <class S>
 int blend_rhs(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
               const S* U2, const S* F3, const S* U3, int n_states, S w1, S w2, S w3,
               S* outF, S* outU, int ny, int nx, S d, S fu, int is_euler,
-              bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+              bt::Halo<Ar<S>> h, bt::Fold<Ar<S>> fo, const PhysParams<Ar<S>>* P,
+              cudaStream_t stream) {
   using R = Ar<S>;
+  if (fo.m < 0 || fo.m >= n_states + 1 || fo.m > 3) return int(cudaErrorInvalidValue);
   bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, F3, U3, w1, w2, w3);
   decltype(&blend_rhs_for<1, R>) launch;
   switch (n_states) {
@@ -1127,23 +1270,30 @@ int blend_rhs(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
     case 4: launch = blend_rhs_for<4, R>; break;
     default: return int(cudaErrorInvalidValue);
   }
-  launch(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, *P, stream);
+  launch(a, ar(outF), ar(outU), ny, nx, R(d), R(fu), is_euler, h, fo, *P, stream);
   return int(cudaGetLastError());
 }
 
-// K4 on the whole grid (h = whole_grid) or, with a halo, K12.4 on a shard
+// K4 on the whole grid (h = whole_grid, no fold) or, with a halo, K12.4 on
+// a shard, its output's edges into fold_rows/fold_cols unless null; the
+// isotropic instantiation when S = 0
 template <class S>
 int rk4_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k2F,
               const S* k2U, const S* k3F, const S* k3U, S* outF, S* outU, int ny, int nx,
-              S dt, S c6, S d, S fu, bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P,
-              cudaStream_t stream) {
+              S dt, S c6, S d, S fu, bt::Halo<Ar<S>> h, S* fold_rows, S* fold_cols,
+              const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   bt::BlendArgs<R> a{{ar(xF), ar(k3F), nullptr, nullptr}, {ar(xU), ar(k3U), nullptr, nullptr},
                      {R(1), R(dt), R(0), R(0)}};
-  dim3 block(bt::kK1BlockX, bt::kK1BlockY);
-  bt::rk4_final_kernel<<<k1_grid(ny, nx), block, 0, stream>>>(
-      a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU), ny, nx, R(c6), R(d),
-      R(fu), h, *P);
+  const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, 0, S(0), S(0), S(0));
+  const dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
+  const bool iso = is_zero(P->S), fold = fold_rows != nullptr || fold_cols != nullptr;
+  auto kernel = iso ? (fold ? bt::rk4_final_kernel<true, true, R>
+                            : bt::rk4_final_kernel<true, false, R>)
+                    : (fold ? bt::rk4_final_kernel<false, true, R>
+                            : bt::rk4_final_kernel<false, false, R>);
+  kernel<<<grid, block, 0, stream>>>(a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU),
+                                     ny, nx, R(c6), R(d), R(fu), h, fo, *P);
   return int(cudaGetLastError());
 }
 
@@ -1272,17 +1422,21 @@ int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
   return int(cudaGetLastError());
 }
 
-// K5 on the whole grid (h = whole_grid) or on a shard: a = {x, k1, k3, k4}
+// K5 on the whole grid (h = whole_grid) or on a shard: a = {x, k1, k3, k4};
+// its output's edges into fold_rows/fold_cols unless null
 template <class S>
 int rkm_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k3F,
               const S* k3U, const S* k4F, const S* k4U, S w1, S w2, S w3, S c6, S* outF,
               S* outU, S* partials, S* err, int ny, int nx, S d, S fu, bt::Halo<Ar<S>> h,
-              const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+              S* fold_rows, S* fold_cols, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   bt::BlendArgs<R> a = blend_args(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3);
+  const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, 0, S(0), S(0), S(0));
   dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
-  bt::rkm_final_kernel<<<grid, block, 0, stream>>>(a, R(c6), ar(outF), ar(outU),
-                                                   ar(partials), ny, nx, R(d), R(fu), h, *P);
+  auto kernel = fold_rows != nullptr || fold_cols != nullptr ? bt::rkm_final_kernel<true, R>
+                                                              : bt::rkm_final_kernel<false, R>;
+  kernel<<<grid, block, 0, stream>>>(a, R(c6), ar(outF), ar(outU), ar(partials), ny, nx, R(d),
+                                     R(fu), h, fo, *P);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
@@ -1342,15 +1496,16 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
                          int nx, S d, S fu, int is_euler, const PhysParams<Ar<S>>* P, \
                          cudaStream_t stream) {                                       \
     return blend_rhs<S>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,  \
-                        outU, ny, nx, d, fu, is_euler, bt::whole_grid<Ar<S>>(), P,   \
-                        stream);                                                      \
+                        outU, ny, nx, d, fu, is_euler, bt::whole_grid<Ar<S>>(),      \
+                        bt::no_fold<Ar<S>>(), P, stream);                             \
   }                                                                                   \
   int bt_rk4_final_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,       \
                          const S* k2F, const S* k2U, const S* k3F, const S* k3U,     \
                          S* outF, S* outU, int ny, int nx, S dt, S c6, S d, S fu,    \
                          const PhysParams<Ar<S>>* P, cudaStream_t stream) {          \
     return rk4_final<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx,    \
-                        dt, c6, d, fu, bt::whole_grid<Ar<S>>(), P, stream);           \
+                        dt, c6, d, fu, bt::whole_grid<Ar<S>>(), nullptr, nullptr, P,  \
+                        stream);                                                      \
   }                                                                                   \
   int bt_rkm_attempt_##SFX(const S* F, const S* U, S* outF, S* outU, S* partials,    \
                            S* err, int ny, int nx, S tau, S d, S fu,                 \
@@ -1384,13 +1539,18 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
 //   K12.1 ghost gather bt_halo_edges: the blend's first and last rows into
 //      rows, first and last columns into cols (each skipped if null).
 //   K12.1 bt_blend_rhs_halo: K1 on a shard, in rhs mode (K12.1) or in euler
-//      mode (K12.3).
+//      mode (K12.3); unless fold_rows and fold_cols are both null it writes
+//      the edges of the next blend, its first fold_m states (0..3) and then
+//      its output at weights {1, fw1, fw2, fw3} (the first fold_m + 1 used),
+//      as bt_halo_edges would write them.
 //   K12.4 bt_rk4_final_halo: K4 on a shard, the halo that of the blend [x, k3]
-//      with weights [1, dt].
+//      with weights [1, dt]; its output's edges into fold_rows/fold_cols
+//      unless null (as K5's).
 //   K12.7 bt_si_prepare_halo: K7 on a shard, the halo that of (F, U).
 //   K5 bt_rkm_final: a = {x, k1, k3, k4} with weights {1, w1, w2, w3} =
 //      {1, tau/2, -3 tau/2, 2 tau}: outF/outU = x + c6 (k1 + 4 k4 + k5),
-//      err as K2's; partials holds 2 * bt_stage_num_blocks values.  On the
+//      err as K2's; partials holds 2 * bt_stage_num_blocks values; the
+//      output's own edges into fold_rows/fold_cols unless null.  On the
 //      whole grid: null ghosts and all four edge bits.
 #define BT_MESH_ENTRIES(SFX, S)                                                          \
   int bt_halo_edges_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,           \
@@ -1404,10 +1564,12 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
                               const S* F2, const S* U2, const S* F3, const S* U3,       \
                               int n_states, S w1, S w2, S w3, S* outF, S* outU, int ny, \
                               int nx, S d, S fu, int is_euler, const S* rows,           \
-                              const S* cols, int edges, const PhysParams<Ar<S>>* P,     \
-                              cudaStream_t stream) {                                     \
+                              const S* cols, int edges, int fold_m, S fw1, S fw2,       \
+                              S fw3, S* fold_rows, S* fold_cols,                        \
+                              const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
     return blend_rhs<S>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3, outF,     \
-                        outU, ny, nx, d, fu, is_euler, halo_of(rows, cols, edges), P,   \
+                        outU, ny, nx, d, fu, is_euler, halo_of(rows, cols, edges),      \
+                        fold_of(fold_rows, fold_cols, fold_m, fw1, fw2, fw3), P,        \
                         stream);                                                         \
   }                                                                                      \
   int bt_si_prepare_halo_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s, int ny,   \
@@ -1419,19 +1581,22 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
   int bt_rk4_final_halo_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,     \
                               const S* k2F, const S* k2U, const S* k3F, const S* k3U,   \
                               S* outF, S* outU, int ny, int nx, S dt, S c6, S d, S fu,  \
-                              const S* rows, const S* cols, int edges,                  \
-                              const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
+                              const S* rows, const S* cols, int edges, S* fold_rows,    \
+                              S* fold_cols, const PhysParams<Ar<S>>* P,                 \
+                              cudaStream_t stream) {                                     \
     return rk4_final<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx, dt,   \
-                        c6, d, fu, halo_of(rows, cols, edges), P, stream);               \
+                        c6, d, fu, halo_of(rows, cols, edges), fold_rows, fold_cols, P, \
+                        stream);                                                         \
   }                                                                                      \
   int bt_rkm_final_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,          \
                          const S* k3F, const S* k3U, const S* k4F, const S* k4U, S w1,  \
                          S w2, S w3, S c6, S* outF, S* outU, S* partials, S* err,       \
                          int ny, int nx, S d, S fu, const S* rows, const S* cols,       \
-                         int edges, const PhysParams<Ar<S>>* P, cudaStream_t stream) {  \
+                         int edges, S* fold_rows, S* fold_cols,                         \
+                         const PhysParams<Ar<S>>* P, cudaStream_t stream) {             \
     return rkm_final<S>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3, c6, outF,     \
                         outU, partials, err, ny, nx, d, fu, halo_of(rows, cols, edges), \
-                        P, stream);                                                      \
+                        fold_rows, fold_cols, P, stream);                                \
   }
 
 // The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +

@@ -15,7 +15,11 @@ The port never picks the plain version for a CUDA tensor on its own.
 
 On a mesh every stage also takes the mesh's ``Topology`` (``eval_rhs``'s
 and ``euler_eval``'s ``topo``): fields are then ``Shards``, and each shard
-reads its neighbours' edges through a halo exchange.
+reads its neighbours' edges through a halo exchange.  On the kernel route
+the kernel that makes a stage's state writes the next stage's edges
+itself (``folded_stage``; ``cuda_rhs.Fold``), and a pair made by K12.3,
+K12.4 or K5 carries its own (``Shards.edges``): K12.1's ghost gather runs
+only for a stage whose blend no kernel wrote.
 
 Blend-vs-pad ordering: the reference applies the BC to each state and then
 blends the samples (`simulation.cu:193-197`); the Dirichlet image is affine,
@@ -80,31 +84,78 @@ def shard_states(states, k: int):
     return [(F.blocks[k], U.blocks[k]) for F, U in states]
 
 
-def stage_halos(states, weights, topo: Topology) -> List[Halo]:
-    """Each shard's ghosts for the stage blending ``states``: every shard
-    gathers its blend's edge rows and columns (K12.1's ghost gather, one
-    launch per shard; blending before the exchange keeps it two copies
-    per shard per sharded axis, whatever the number of states,
-    ``pallas_rhs.py:639-641``), then the ring exchange."""
-    n = len(states[0][0].blocks)
-    edges = [cuda_rhs.halo_edges(shard_states(states, k), weights,
-                                 topo.axis_y is not None, topo.axis_x is not None)
-             for k in range(n)]
+def carried_edges(states):
+    """The edges that the kernel which made a stage's one state left on
+    it (``Shards.edges``, on both fields of the pair), or None."""
+    if len(states) != 1:
+        return None
+    F, U = states[0]
+    edges = F.edges
+    return edges if edges is not None and edges is U.edges else None
+
+
+def stage_halos(states, weights, topo: Topology, edges=None) -> List[Halo]:
+    """Each shard's ghosts for the stage blending ``states``, from its
+    blend's edge rows and columns, then the ring exchange (blending before
+    the exchange keeps it two copies per shard per sharded axis, whatever
+    the number of states, ``pallas_rhs.py:639-641``).  The edges are
+    ``edges`` (per shard, as the previous kernel folded them), else those a
+    single state carries, else K12.1's ghost gather, one launch per
+    shard."""
+    if edges is None:
+        edges = carried_edges(states)
+    if edges is None:
+        edges = [cuda_rhs.halo_edges(shard_states(states, k), weights,
+                                     topo.axis_y is not None, topo.axis_x is not None)
+                 for k in range(len(states[0][0].blocks))]
     return topo.exchange(edges)
+
+
+def fold_for(topo: Topology, weights=(1.0,)) -> cuda_rhs.Fold:
+    """The fold of a kernel on ``topo``'s shards whose next blend takes
+    ``weights`` (``cuda_rhs.Fold``; the default: its output alone)."""
+    return cuda_rhs.Fold(tuple(weights), topo.axis_y is not None, topo.axis_x is not None)
+
+
+def carried_pair(out, grid):
+    """(F, U) ``Shards`` of per-shard (F, U, edges) outputs of a folding
+    kernel, both fields carrying the edges (``Shards.edges``)."""
+    F, U, edges = zip(*out)
+    return Shards(F, grid, edges), Shards(U, grid, edges)
+
+
+def folded_stage(states, weights, nxt, p: SimParams, fu, topo: Topology, edges=None,
+                 dirichlet_value=0.0):
+    """A stage on every shard on the kernel route, K12.1 from ghosts
+    exchanged from ``edges`` (``stage_halos``'s rule when None), writing the
+    edges of the next stage's blend, ``states[:len(nxt) - 1]`` and then
+    this stage, at weights ``nxt`` (``cuda_rhs.Fold``): ((dF, dU) as
+    ``Shards``, the next stage's edges per shard)."""
+    d = cuda_rhs.effective_dirichlet(dirichlet_value, weights)
+    fold = fold_for(topo, nxt)
+    out = [cuda_rhs.blend_rhs_sharded(shard_states(states, k), weights, p, h, fu, d,
+                                      fold=fold)
+           for k, h in enumerate(stage_halos(states, weights, topo, edges))]
+    dF, dU, nxt_edges = zip(*out)
+    grid = states[0][0].grid
+    return (Shards(dF, grid), Shards(dU, grid)), list(nxt_edges)
 
 
 def _eval_rhs_sharded(states, weights, p, fu, d, topo: Topology, kernel: bool,
                       is_euler: bool = False):
     """A stage on every shard, padded at Dirichlet value ``d``: K12.1 (in
-    euler mode K12.3) after the ghost gather on the kernel backend, else
-    each shard's blend padded by ``topo.pad`` (``bachelors_tpu/ops/rhs.py:
-    83-86, 108-112``)."""
+    euler mode K12.3, whose new state carries its own edges) from
+    ``stage_halos`` on the kernel backend, else each shard's blend padded
+    by ``topo.pad`` (``bachelors_tpu/ops/rhs.py:83-86, 108-112``)."""
     grid = states[0][0].grid
     if kernel:
         halos = stage_halos(states, weights, topo)
+        fold = fold_for(topo) if is_euler else None
         out = [cuda_rhs.blend_rhs_sharded(shard_states(states, k), weights, p, h, fu, d,
-                                          is_euler)
+                                          is_euler, fold=fold)
                for k, h in enumerate(halos)]
+        if is_euler:
+            return carried_pair(out, grid)
     else:
         blends = [cuda_rhs.blend_states(shard_states(states, k), weights)
                   for k in range(len(states[0][0].blocks))]

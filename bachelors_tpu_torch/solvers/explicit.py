@@ -44,7 +44,8 @@ import torch
 from ..core.params import SimParams, SolverType
 from ..core.state import Field, Shards, SimState, each, numpy_dtype
 from ..ops import cuda_rhs
-from ..ops.rhs import euler_eval, eval_rhs, resolve_backend, shard_states, stage_halos
+from ..ops.rhs import (carried_pair, euler_eval, eval_rhs, fold_for, folded_stage,
+                       resolve_backend, shard_states)
 from ..parallel.topology import ONE_DEVICE, Topology
 
 
@@ -214,25 +215,30 @@ def rk4_staged(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0):
 
 def _rk4_staged_mesh(F: Shards, U: Shards, p: SimParams, fu, topo: Topology, kernel: bool):
     """RK4's staged route on a mesh: K12.1 for k1..k3 and K12.4 per shard,
-    each after a ghost gather; with ``kernel`` false the plain stages
-    padded by ``topo.pad`` and the combination per shard."""
+    each kernel writing the next stage's ghosts (``folded_stage``) and
+    K12.4 the new state's own, so a step gathers only if no kernel made
+    its state; with ``kernel`` false the plain stages padded by
+    ``topo.pad`` and the combination per shard."""
     x, h = (F, U), p.dt / 2
+    if kernel:
+        k1, e = folded_stage([x], [1.0], [1.0, h], p, fu, topo)
+        k2, e = folded_stage([x, k1], [1.0, h], [1.0, h], p, fu, topo, e)
+        k3, e = folded_stage([x, k2], [1.0, h], [1.0, p.dt], p, fu, topo, e)
+        fold = fold_for(topo)
+        out = [cuda_rhs.rk4_final_stage(*shard_states([x, k1, k2, k3], k), p, fu, halo=hk,
+                                        fold=fold)
+               for k, hk in enumerate(topo.exchange(e))]
+        return carried_pair(out, F.grid)
     k1 = eval_rhs([x], [1.0], p, fu, topo=topo)
     k2 = eval_rhs([x, k1], [1.0, h], p, fu, topo=topo)
     k3 = eval_rhs([x, k2], [1.0, h], p, fu, topo=topo)
-    states = [x, k1, k2, k3]
-    if kernel:
-        halos = stage_halos([x, k3], [1.0, p.dt], topo)
-        out = [cuda_rhs.rk4_final_stage(*shard_states(states, k), p, fu, halo=h)
-               for k, h in enumerate(halos)]
-    else:
-        k4 = eval_rhs([x, k3], [1.0, p.dt], p, fu, topo=topo)
-        out = [cuda_rhs.rk4_combine(*shard_states(states + [k4], k), p.dt)
-               for k in range(len(F.blocks))]
+    k4 = eval_rhs([x, k3], [1.0, p.dt], p, fu, topo=topo)
+    out = [cuda_rhs.rk4_combine(*shard_states([x, k1, k2, k3, k4], k), p.dt)
+           for k in range(len(F.blocks))]
     return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
 
 
-def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
+def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology, tau0):
     """attempt(tau) -> (next_F, next_U, emax) on a mesh, routed as the JAX
     package routes (``bachelors_tpu/solvers/explicit.py:386-460``):
 
@@ -244,7 +250,11 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
       * kernel backend otherwise -- a float32 x or 2D mesh, thinner shards
         (:386-393): the staged attempt, k1 once per step and k2..k4 by
         K12.1, then K5 with ghosts for k5, the update and the shard's
-        error maxima (:449-460);
+        error maxima (:449-460).  Each kernel writes the next stage's
+        ghosts (``folded_stage``): k1's are those of the step's first
+        attempt, at ``tau0``, so a retry gathers its second stage's; K5
+        writes the update's own, which go with the attempt's fields, so
+        only an accepted attempt's reach the next step;
       * plain backend: the staged attempt padded by ``topo.pad``.
 
     The shards' maxima are combined on the first shard's device
@@ -265,6 +275,26 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
         return attempt
 
     x = (F, U)
+    if kernel:
+        # k1 once per step (it does not depend on tau), folding stage 2's
+        # ghosts at the step's first tau
+        k1, e2 = folded_stage([x], [1.0], [1.0, *cuda_rhs.merson_weights(tau0)[0]], p, fu,
+                              topo)
+
+        def attempt(tau):
+            w2, w3, w4, w5 = cuda_rhs.merson_weights(tau)
+            e = e2 if tau == tau0 else None
+            k2, e = folded_stage([x, k1], [1.0, *w2], [1.0, *w3], p, fu, topo, e)
+            k3, e = folded_stage([x, k1, k2], [1.0, *w3], [1.0, *w4], p, fu, topo, e)
+            k4, e = folded_stage([x, k1, k3], [1.0, *w4], [1.0, *w5], p, fu, topo, e)
+            fold = fold_for(topo)
+            out = [cuda_rhs.rkm_final_stage(*shard_states([x, k1, k3, k4], k), tau, p, fu,
+                                            halo=h, fold=fold)
+                   for k, h in enumerate(topo.exchange(e))]
+            nF, nU, emax, edges = zip(*out)
+            return (*carried_pair(zip(nF, nU, edges), F.grid), topo.allmax(emax))
+
+        return attempt
 
     def stage(ks, ws):
         return eval_rhs([x] + ks, [1.0] + ws, p, fu, topo=topo)
@@ -273,16 +303,9 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology):
 
     def attempt(tau):
         _, k3, k4 = cuda_rhs.merson_stages(stage, tau, k1)
-        states = [x, k1, k3, k4]
-        if kernel:
-            halos = stage_halos(states, cuda_rhs.k5_weights(tau), topo)
-            out = [cuda_rhs.rkm_final_stage(*shard_states(states, k), tau, p, fu, halo=h)
-                   for k, h in enumerate(halos)]
-        else:
-            k5 = stage([k1, k3, k4], cuda_rhs.k5_weights(tau)[1:])
-            out = [cuda_rhs.merson_finish(*shard_states(states + [k5], k), tau)
-                   for k in range(len(F.blocks))]
-        return joined(out)
+        k5 = stage([k1, k3, k4], cuda_rhs.k5_weights(tau)[1:])
+        return joined([cuda_rhs.merson_finish(*shard_states([x, k1, k3, k4, k5], k), tau)
+                       for k in range(len(F.blocks))])
 
     return attempt
 
@@ -324,7 +347,7 @@ def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
     tiny = c(1e-20)
 
     if topo.is_sharded:
-        attempt = _mesh_attempt(F, U, p, fu, topo)
+        attempt = _mesh_attempt(F, U, p, fu, topo, c(tau0))
     elif resolve_backend(p, F.device) == "kernel":
         def attempt(tau):
             return cuda_rhs.rkm_attempt(F, U, tau, p, fu)

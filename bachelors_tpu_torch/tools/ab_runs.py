@@ -36,6 +36,17 @@ initial fields, each by its device µs per traced launch under
     512^2, at both S; K12.1 (3 states) and K12.3 (1 state, euler
     mode) on the first shard of a y(2) and of an x(2) mesh of 512^2, from
     the ghost gather's halo, at both S;
+  * ``k4``: K4 at 512^2-4096^2 and K12.4 on the first shard of an x(2)
+    (512x256) and a y(2) (256x512) mesh of 512^2, at both S, on the
+    staged RK4 step's own k1, k2 and k3 from the config's initial fields;
+    where the checkout folds the gather (``cuda_rhs.Fold``), K12.4 and, in
+    ``k1``, K12.1 and K12.3 on the shards also with their folds, as the
+    paths run them;
+  * ``k15``: the tutorial's three saxpys (K15.1-K15.3) and
+    ``torch.add(y, x, alpha=a)`` at 4096^2, back to back: ms per call by
+    CUDA events over 200 calls and by the replay of a CUDA graph of 200
+    calls, in turns (add, K15.1, K15.2, K15.3, K15.3, K15.2, K15.1, add),
+    twice;
   * ``cg``: the CG kernels K8 (both forms), K9 and K10 at 512^2, host ms
     per call and CUDA-event ms per call; K8 (both forms) and K12.8 (both
     forms, one shard of y(2)) at 512^2, 2048^2 and 4096^2, device µs per
@@ -45,8 +56,20 @@ initial fields, each by its device µs per traced launch under
     the replay of a CUDA graph of back-to-back calls (no host in it);
 
 and the ptxas registers, spills and shared memory and the SASS
-instruction count of each K1, K2, K3, K6, K8 and K10 instantiation of
+instruction count of each K1, K2, K3, K4, K6, K8 and K10 instantiation of
 the checkout's build (``cuobjdump -sass``, where the toolkit has it).
+
+    python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER --mesh-steps [--out FILE]
+
+imports both checkouts' packages into one process (under the names
+``bt_before`` and ``bt_after``: the package imports itself relatively) and
+steps the staged mesh paths of each -- RKM on x(2) and 2x2, RK4 and Euler
+on y(2), x(2) and 2x2 (the shipped ``config.ini``), and the float64 RK4
+sweep config on x(2) and 2x2, every shard on the one card, stats off,
+from the config's initial fields after 20 steps -- in windows of 100
+steps, the two trees in turns (before, after; then after, before) six
+times each: host ms per step to a device sync.  One process drives both,
+so the host's drift between processes is out of the comparison.
 
     python -m bachelors_tpu_torch.tools.ab_runs --cg-variant [CHECKOUT] [--out FILE]
 
@@ -186,6 +209,31 @@ for dtype in ("float32", "float64"):
                 calls["K1 2 states" + tag] = (
                     "blend_rhs_kernel", lambda q=q: cuda_rhs.blend_rhs(
                         [(F, U), ks[0]], [1.0, 1e-6], q))
+        if "k4" in groups:  # on the staged RK4 step's own stages
+            x, h = (F, U), p.dt / 2
+            k1 = cuda_rhs.blend_rhs([x], [1.0], p)
+            k2 = cuda_rhs.blend_rhs([x, k1], [1.0, h], p)
+            k3 = cuda_rhs.blend_rhs([x, k2], [1.0, h], p)
+            for q, tag in ((p, ""), (p0, " S=0")):
+                calls["K4" + tag] = ("rk4_final_kernel",
+                                     lambda q=q: cuda_rhs.rk4_final_stage(x, k1, k2, k3, q))
+            if n == 512:  # K12.4 on the first shard of x(2) and y(2)
+                for mesh, (sy, sx) in (("x(2)", (1, 2)), ("y(2)", (2, 1))):
+                    topo = Topology(sy, sx)
+                    st = [tuple(Shards(tuple(b.contiguous() for r in a.split(n // sy)
+                                             for b in r.split(n // sx, dim=1)), (sy, sx))
+                                for a in pair) for pair in (x, k1, k2, k3)]
+                    h4 = stage_halos([st[0], st[3]], [1.0, p.dt], topo)[0]
+                    s4 = shard_states(st, 0)
+                    for q, tag in ((p, ""), (p0, " S=0")):
+                        calls["K12.4 %s shard%s" % (mesh, tag)] = (
+                            "rk4_final_kernel",
+                            lambda q=q, s4=s4, h4=h4: cuda_rhs.rk4_final_stage(*s4, q, halo=h4))
+                        if hasattr(cuda_rhs, "Fold"):  # as the paths run it since the fold
+                            f1 = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
+                            calls["K12.4 %s shard, folding%s" % (mesh, tag)] = (
+                                "rk4_final_kernel", lambda q=q, s4=s4, h4=h4, f1=f1: (
+                                    cuda_rhs.rk4_final_stage(*s4, q, halo=h4, fold=f1)))
         # K12.1 (3 states, rhs mode) and K12.3 (1 state, euler mode) on the
         # first shard of y(2) and of x(2) at 512^2, from the gather's ghosts
         if "k1" in groups and n == 512:
@@ -205,9 +253,59 @@ for dtype in ("float32", "float64"):
                     calls["K12.3 %s shard%s" % (mesh, tag)] = (
                         "blend_rhs_kernel", lambda q=q, s1=s1, h1=h1: cuda_rhs.blend_rhs_sharded(
                             s1, [1.0], q, h1, is_euler=True))
+                    if hasattr(cuda_rhs, "Fold"):  # as the paths run them since the fold
+                        f4, f1 = (cuda_rhs.Fold(w, sy > 1, sx > 1)
+                                  for w in ((1.0, 1e-6, 2e-6, 3e-6), (1.0,)))
+                        calls["K12.1 3 states %s shard, folding%s" % (mesh, tag)] = (
+                            "blend_rhs_kernel", lambda q=q, s3=s3, h3=h3, f4=f4: (
+                                cuda_rhs.blend_rhs_sharded(s3, w3, q, h3, fold=f4)))
+                        calls["K12.3 %s shard, folding%s" % (mesh, tag)] = (
+                            "blend_rhs_kernel", lambda q=q, s1=s1, h1=h1, f1=f1: (
+                                cuda_rhs.blend_rhs_sharded(s1, [1.0], q, h1, is_euler=True,
+                                                           fold=f1)))
         reps = {512: 50, 1024: 30, 2048: 20}.get(n, 10)
         for name, (kernel, call) in calls.items():
             timed("%s %s %d^2" % (name, dtype, n), kernel, call, reps)
+if "k15" in groups:
+    # the tutorial's saxpys against torch.add at 4096^2, back to back
+    from bachelors_tpu_torch.ops import cuda_tutorial as tut
+    x, y = (torch.from_numpy(rng.normal(size=(4096, 4096)).astype(np.float32)).cuda()
+            for _ in range(2))
+    a_dev = torch.full((1,), 1.7, device="cuda")
+    k15 = {"torch.add(y, x, alpha=a)": lambda: torch.add(y, x, alpha=2.5),
+           "K15.1": lambda: tut.saxpy_whole(2.5, x, y),
+           "K15.2": lambda: tut.saxpy_gridded(2.5, x, y),
+           "K15.3": lambda: tut.saxpy_device_scalar(a_dev, x, y)}
+    order = list(k15) + list(k15)[:0:-1] + list(k15)[:1]
+    reps = 200
+    graphs = {}
+    for name, call in k15.items():
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(reps):
+                call()
+    rows = {name: {"event_ms": [], "graph_ms": []} for name in k15}
+    for _ in range(2):
+        for name in order:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(reps):
+                k15[name]()
+            end.record()
+            end.synchronize()
+            rows[name]["event_ms"].append(start.elapsed_time(end) / reps)
+            graphs[name].replay()
+            start.record()
+            graphs[name].replay()
+            end.record()
+            end.synchronize()
+            rows[name]["graph_ms"].append(start.elapsed_time(end) / reps)
+    for name, row in rows.items():
+        out["%s 4096^2 back to back" % name] = row
 if "cg" in groups:
     # the CG kernels at 512^2: host and event ms per call of each wrapper
     from bachelors_tpu_torch.core.params import BoundaryType
@@ -296,7 +394,7 @@ if "cg" in groups:
                     "launches_per_call": {e.key.split("(")[0].replace("void bt::", ""):
                                           e.count / reps for e in ev},
                     "graph_us_per_call": start.elapsed_time(end) * 1e3 / reps}
-# ptxas and SASS of K1's, K2's, K3's, K6's, K8's and K10's instantiations
+# ptxas and SASS of K1's, K2's, K3's, K4's, K6's, K8's and K10's instantiations
 import os, re, shutil, subprocess
 log = cuda_build.build_log()
 ptxas, name = {}, None
@@ -314,8 +412,8 @@ if os.path.exists(cuobjdump):
         sass[part.split("\n", 1)[0].strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
 keep = [k for k in set(ptxas) | set(sass)
         if any(w in k for w in ("rkm_attempt_kernel", "rk4_full_kernel", "euler_steps_kernel",
-                                "blend_rhs_kernel", "matvec_pAp_kernel", "axpby_kernel",
-                                "advance_p_kernel"))]
+                                "blend_rhs_kernel", "rk4_final_kernel", "matvec_pAp_kernel",
+                                "axpby_kernel", "advance_p_kernel"))]
 names = subprocess.run(["c++filt"], input="\n".join(keep), capture_output=True,
                        text=True).stdout.splitlines()
 out["build"] = {d: {"ptxas": " | ".join(ptxas.get(k, [])), "sass_instructions": sass.get(k)}
@@ -384,6 +482,66 @@ print(json.dumps(out))
 """
 
 
+MESH_STEPS = r"""
+import importlib, importlib.util, json, os, sys, time
+import torch
+device = sys.argv[3]
+trees = {}
+for label, path in (("before", sys.argv[1]), ("after", sys.argv[2])):
+    pkg = os.path.join(os.path.abspath(path), "bachelors_tpu_torch")
+    name = "bt_" + label
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    trees[label] = {m: importlib.import_module(name + "." + m) for m in (
+        "io.config", "models.initial", "core.state", "parallel.mesh", "parallel.sharded")}
+CASES = [("rkm", "config.ini", "", (1, 2)), ("rkm", "config.ini", "", (2, 2)),
+         ("rk4", "config.ini", "[simulation]\nsolver = explicit-rk4\n", (2, 1)),
+         ("rk4", "config.ini", "[simulation]\nsolver = explicit-rk4\n", (1, 2)),
+         ("rk4", "config.ini", "[simulation]\nsolver = explicit-rk4\n", (2, 2)),
+         ("euler", "config.ini", "[simulation]\nsolver = explicit\n", (2, 1)),
+         ("euler", "config.ini", "[simulation]\nsolver = explicit\n", (1, 2)),
+         ("euler", "config.ini", "[simulation]\nsolver = explicit\n", (2, 2)),
+         ("rk4 f64", "bench_sweep_f64/config_explicit-rk4_512_f64.ini", "", (1, 2)),
+         ("rk4 f64", "bench_sweep_f64/config_explicit-rk4_512_f64.ini", "", (2, 2))]
+WARM, WINDOW, ROUNDS = 20, 100, 6
+
+
+def sync():
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+out = {}
+for name, config, override, shards in CASES:
+    runs = {}
+    for label, t in trees.items():
+        p = t["io.config"].load_config(config, [override]).params.replace(do_stats=False)
+        F, U = t["models.initial"].make_initial_fields(
+            p, t["io.config"].load_config(config, [override]).initial, device=device)
+        mesh, topo = t["parallel.mesh"].make_mesh(*shards, [device] * (shards[0] * shards[1]))
+        step = t["parallel.sharded"].make_sharded_stepper(p, mesh, topo)
+        state = t["parallel.mesh"].shard_state(t["core.state"].make_state(F, U, p, device=device),
+                                               mesh, topo)
+        for _ in range(WARM):
+            state, _ = step(state)
+        runs[label] = [step, state, []]
+    for r in range(ROUNDS):
+        for label in (("before", "after") if r % 2 == 0 else ("after", "before")):
+            step, state, ms = runs[label]
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(WINDOW):
+                state, _ = step(state)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3 / WINDOW)
+            runs[label][1] = state
+    out["%s on %dx%d" % (name, *shards)] = {label: ms for label, (_, _, ms) in runs.items()}
+print(json.dumps(out))
+"""
+
+
 def run(checkout: str, script: str, *args: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", script, *args],
                           cwd=checkout, capture_output=True, text=True, timeout=1200)
@@ -402,17 +560,25 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true",
                     help="time the one-device tile kernels and the CG kernels instead of "
                          "whole runs")
-    ap.add_argument("--groups", default="tile,euler,k1,cg",
+    ap.add_argument("--groups", default="tile,euler,k1,k4,k15,cg",
                     help="with --kernels, the kernels to time, of tile (K2, K3, K12.6), "
-                         "euler (K6 beside K1's Euler step), k1 (K1, K12.1, K12.3) and cg "
+                         "euler (K6 beside K1's Euler step), k1 (K1, K12.1, K12.3), k4 (K4, "
+                         "K12.4), k15 (the tutorial's saxpys beside torch.add) and cg "
                          "(K8-K10, K12.8); default all")
+    ap.add_argument("--mesh-steps", action="store_true",
+                    help="the staged mesh paths of BEFORE and AFTER in turns in one process")
     ap.add_argument("--cg-variant", action="store_true",
                     help="semi-implicit with the CG variant forced to pAp and fused, in "
                          "one checkout (BEFORE, default .)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     results = []
-    if args.cg_variant:
+    if args.mesh_steps:
+        if len(args.after) != 1:
+            ap.error("--mesh-steps takes one BEFORE and one AFTER checkout")
+        results.append(run(".", MESH_STEPS, args.before, args.after[0], "cuda"))
+        print(json.dumps(results[-1]), flush=True)
+    elif args.cg_variant:
         for variant in ("pAp", "fused", "fused", "pAp"):
             results.append({"variant": variant, **run(args.before, CG_VARIANT, variant)})
             print(json.dumps(results[-1]), flush=True)

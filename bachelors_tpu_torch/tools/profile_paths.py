@@ -1,6 +1,7 @@
 """Where the time goes on the card, for each path of ``chip_smoke.py``.
 
     python -m bachelors_tpu_torch.tools.profile_paths [--out FILE] [--routes-only]
+                                                      [--paths NAME,...]
 
 Steps the shipped 512x512 ``config.ini`` on the card to a point mid-run
 (RKM as shipped; semi-implicit at the CG tolerance 5e-9; forward Euler;
@@ -44,7 +45,9 @@ device sync, device µs/step under ``torch.profiler`` (and each kernel's
 device µs per launch), and device µs/step from the replay of a CUDA graph
 of the same calls (the profiler drops events now and then; a replay
 cannot); the Euler routes again at S = 0, the float64 sweep's physics.
-``--routes-only`` measures the routes alone.
+``--routes-only`` measures the routes alone; ``--paths`` only the paths
+named (of rkm, euler, rk4, semi-implicit and their float64 rows, "rkm
+f64" ...), each on one card and on the meshes, and no route table.
 
 Prints one JSON line per path and per route table, and writes them all to
 ``--out`` as one JSON object.  A window whose trace holds no device event
@@ -403,7 +406,20 @@ def main() -> None:
     ap.add_argument("--out", default=None, help="write all paths' results here")
     ap.add_argument("--routes-only", action="store_true",
                     help="only the route tables, not the paths")
+    ap.add_argument("--paths", default=None,
+                    help="comma-separated paths to profile, on one card and the meshes, "
+                         f"of {', '.join([*PATHS, *F64_PATHS])}; no route table")
     args = ap.parse_args()
+    only = None if args.paths is None else set(args.paths.split(","))
+    unknown = (only or set()) - set(PATHS) - set(F64_PATHS)
+    if unknown:
+        ap.error(f"unknown paths {sorted(unknown)}")
+
+    def wanted(table):
+        if args.routes_only:
+            return ()
+        return [name for name in table if only is None or name in only]
+
     if not torch.cuda.is_available():
         raise SystemExit("profile_paths: torch sees no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -411,22 +427,22 @@ def main() -> None:
                           check=True, timeout=60).stdout.strip()
     cuda_build.load()
     results = {"card": card}
-    for name in () if args.routes_only else PATHS:
+    for name in wanted(PATHS):
         results[name] = profile_path(name, WINDOW)
         print(json.dumps({"card": card, **results[name]}), flush=True)
-    for name in () if args.routes_only else MESH_PATHS:
+    for name in wanted(MESH_PATHS):
         for mname, shards in MESHES.items():
             results[f"{name} on {mname}"] = profile_path(name, WINDOW, shards)
             print(json.dumps({"card": card, **results[f"{name} on {mname}"]}), flush=True)
-    for name in () if args.routes_only else F64_PATHS:
+    for name in wanted(F64_PATHS):
         for where, row in profile_f64_paths(name, WINDOW).items():
             key = name if where == "one device" else f"{name} on {where}"
             results[key] = row
             print(json.dumps({"card": card, **row}), flush=True)
-    for solver in ROUTES:
+    for solver in ROUTES if only is None else ():
         results[f"{solver} routes"] = profile_routes(solver)
         print(json.dumps({"card": card, **results[f"{solver} routes"]}), flush=True)
-    for solver in ("euler", "euler f64"):  # the isotropic instantiations (the f64 sweep's S)
+    for solver in ("euler", "euler f64") if only is None else ():  # the f64 sweep's S = 0
         results[f"{solver} routes, S = 0"] = profile_routes(solver, S=0.0)
         print(json.dumps({"card": card, **results[f"{solver} routes, S = 0"]}), flush=True)
     if args.out:

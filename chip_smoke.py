@@ -261,11 +261,12 @@ F64_CORRECTOR = ("[simulation]\nstop_after = 0.001\ndo_corrector_loop = true\n"
                  "corrector_max_iters = 3\n")
 # joined over a mesh, these float64 kernels must equal their one-device
 # kernels bit for bit (each cell runs the same arithmetic on the same values)
-F64_MESH_EXACT = ("K12.1", "K12.3", "K12.7", "K12.8", "K14 twin", "K2 twin", "K3 twin",
-                  "K6 twin T=4", "K6 twin T=8")
+F64_MESH_EXACT = ("K12.1", "K12.3", "K12.4", "K12.7", "K12.8", "K14 twin", "K2 twin",
+                  "K3 twin", "K6 twin T=4", "K6 twin T=8")
 # and these float64 mesh kernels must equal their plain versions bit for bit
-# (K1's, K2's and K6's kernels: every operation rounded as the plain version)
-F64_MESH_EXACT_VS_PLAIN = ("K12.1", "K12.3", "K2 twin", "K6 twin T=4", "K6 twin T=8")
+# (K1's, K4's, K2's and K6's kernels: every operation rounded as the plain
+# version)
+F64_MESH_EXACT_VS_PLAIN = ("K12.1", "K12.3", "K12.4", "K2 twin", "K6 twin T=4", "K6 twin T=8")
 # RKM on a 32-row cut on y(8): 4-row shards, thinner than the apron (5):
 # the staged route, K12.1 + K5 at double; a seed wide enough for the rows
 F64_THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
@@ -510,6 +511,21 @@ def hold(name, got, want, what, worst, tol=FIELD_TOL) -> None:
             raise AssertionError(f"{name} disagrees: {e:.3g} > {tol} ({what})")
 
 
+def hold_fold(name, out, states, fold, what, worst) -> None:
+    """A folding kernel's edges (the last element of ``out``) against K12.1's
+    ghost gather on the next blend they stand for -- the first
+    ``len(fold.weights) - 1`` of ``states``, then the kernel's output -- at
+    max|Δ| = 0."""
+    m = len(fold.weights) - 1
+    want = cuda_rhs.halo_edges([*states[:m], tuple(out[:2])], fold.weights, fold.rows,
+                               fold.cols)
+    for g, w in zip(out[-1], want):
+        if (g is None) != (w is None):
+            raise AssertionError(f"{name} folded other axes than the gather's ({what})")
+        if g is not None:
+            hold(f"{name}'s folded edges", [g], [w], what, worst, 0.0)
+
+
 def check_cases(dtype, sizes, pairs=BC_PAIRS, physics=None):
     """(p, Dirichlet value, description) for each size, BC pair and physics
     case (by default ``dtype``'s)."""
@@ -663,17 +679,18 @@ def check_k7(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 20
     return entry_numbers("K7", times, timed[0], worst[1], dtype=dtype)
 
 
-def check_k4(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
-    """K4 against its plain version: every BC pair and physics case, fu !=
-    0, a Dirichlet value where a field has one."""
-    prec = PRECISION[dtype]
+def check_k4(rng, dtype="float32", sizes=((512, 512), (100, 170), (33, 129)),
+             timed=(512, 2048)) -> dict:
+    """K4 against its plain version, bit for bit: every BC pair and physics
+    case (S = 0.25 and S = 0, its isotropic instantiation), fu != 0, a
+    Dirichlet value where a field has one, on blocks inside the fields
+    (neighbours read directly) and across their edges."""
     worst = [0.0, 0.0]
     cases = 0
     for p, d, what in check_cases(dtype, sizes):
         x, k1, k2, k3 = fields(rng, p.ny, p.nx, 4, dtype)
         hold("K4", cuda_rhs.rk4_final_stage(x, k1, k2, k3, p, 0.03, d),
-             cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p, 0.03, d), what, worst,
-             prec["field_tol"])
+             cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p, 0.03, d), what, worst, 0.0)
         cases += 1
     torch.cuda.synchronize()
     times = {}
@@ -684,7 +701,7 @@ def check_k4(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 20
                                 lambda: cuda_rhs.rk4_final_stage_plain(x, k1, k2, k3, p),
                                 reps=50 if size == 512 else 10)
     phase(titled("K4 rk4_final_stage vs plain", dtype), cases=cases, max_rel_err=worst[0],
-          max_abs_err=worst[1], tol=prec["field_tol"],
+          max_abs_err=worst[1], tol="bit for bit",
           library="none: no PyTorch call computes it", ms=ms_table(times))
     return entry_numbers("K4", times, timed[0], worst[1], dtype=dtype)
 
@@ -1578,13 +1595,20 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     and K12.2 against their plain versions, shard by shard, on y(2), x(2)
     and 2x2 meshes of the one card, at every BC pair, S = 0.25 and S = 0,
     512^2 and 66x258 (uneven tiles per shard); K12.1 and K12.2 bit for bit;
-    K12.2's joined result also against K2 on the whole grid.  Timed on one shard of the 512^2 mesh each runs on: K5,
+    K12.2's joined result also against K2 on the whole grid.  Each producer
+    of the staged attempt -- K12.1 for k1..k4, K5 -- folds the next
+    stage's edges, held to the gather on the same states at max|Δ| = 0.
+    Timed on one shard of the 512^2 mesh each runs on: K5,
     K12.1 (3 states, k3's and k4's) and its gather on x(2), K12.2 on y(2)."""
-    worst = {k: [0.0, 0.0] for k in ("K5", "K12.1", "K12.1 gather", "K12.2")}
+    worst = {k: [0.0, 0.0] for k in ("K5", "K12.1", "K12.1 gather", "K12.2", "K12.1 fold",
+                                     "K5 fold")}
     worst_e, k2_gap, cases = 0.0, 0.0, 0
     worst_f64 = [0.0, 0.0]  # K12.2's and its plain version's distance, joined
     tau = np.float32(TAU)
     w = cuda_rhs.k5_weights(tau)
+    w2, w3, w4, w5 = ([1.0, *v] for v in cuda_rhs.merson_weights(tau))
+    # the staged attempt's K12.1 producers: (their states, weights, the next blend's)
+    producers = ((1, [1.0], w2), (2, w2, w3), (3, w3, w4), (3, w4, w5))
 
     def maxima(got, want, what, rtol=ERR_RTOL):
         nonlocal worst_e
@@ -1618,6 +1642,15 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                 want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
                 hold("K5 with ghosts", got[:2], want[:2], on, worst["K5"])
                 maxima(got[2], want[2], f"K5 {on}")
+                for n_in, w_in, nxt in producers:
+                    fold = cuda_rhs.Fold(tuple(nxt), sy > 1, sx > 1)
+                    hold_fold("K12.1", cuda_rhs.blend_rhs_sharded(st[:n_in], w_in, p, h, 0.03, d,
+                                                                  fold=fold),
+                              st, fold, on, worst["K12.1 fold"])
+                fold = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
+                got = cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h, fold=fold)
+                hold("K5 folding", got[:2], want[:2], on, worst["K5"])
+                hold_fold("K5", (*got[:2], got[3]), st, fold, on, worst["K5 fold"])
             if sx == 1:
                 F, U = states[0]
                 aprons = topo.apron(F, U, cuda_rhs.SLAB_ROWS)
@@ -1653,11 +1686,15 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     F, U = (shard_field(t, ymesh, ytopo) for t in x)
     slab = ytopo.apron(F, U, cuda_rhs.SLAB_ROWS)[0]
     f0, u0 = F.blocks[0], U.blocks[0]
+    # as the path runs them: each producer folding the next stage's edges
+    one, f4 = (cuda_rhs.Fold(nxt, False, True) for nxt in ((1.0,), (1.0, 1e-6, 2e-6, 3e-6)))
     timed = {
-        "K5": (lambda: cuda_rhs.rkm_final_stage(*st, tau, p, halo=h),
-               lambda: cuda_rhs.rkm_final_stage_plain(*st, tau, p, halo=h), 512 * 256),
-        "K12.1": (lambda: cuda_rhs.blend_rhs_sharded(st[:3], w3, p, h),
-                  lambda: cuda_rhs.blend_rhs_sharded_plain(st[:3], w3, p, h), 512 * 256),
+        "K5": (lambda: cuda_rhs.rkm_final_stage(*st, tau, p, halo=h, fold=one),
+               lambda: cuda_rhs.rkm_final_stage_plain(*st, tau, p, halo=h, fold=one),
+               512 * 256),
+        "K12.1": (lambda: cuda_rhs.blend_rhs_sharded(st[:3], w3, p, h, fold=f4),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(st[:3], w3, p, h, fold=f4),
+                  512 * 256),
         "K12.1 gather": (lambda: cuda_rhs.halo_edges(st[:3], w3, False, True),
                          lambda: cuda_rhs.halo_edges_plain(st[:3], w3, False, True), 2 * 512),
         "K12.2": (lambda: cuda_rhs.rkm_attempt_sharded(f0, u0, slab, tau, p),
@@ -1669,10 +1706,11 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
         ms, plain_ms = time_pair(kernel, plain, reps=50)
         entries[name] = {"max_abs_err": worst[name][1], "ms": ms, "plain_ms": plain_ms,
                          **bound(name, cells), "library_ms": None}
-    phase("mesh kernels K5, K12.1 (+ ghost gather), K12.2 vs plain", cases=cases,
-          meshes=list(MESHES), max_rel_err={k: v[0] for k, v in worst.items()},
+    phase("mesh kernels K5, K12.1 (+ ghost gather, folded edges), K12.2 vs plain",
+          cases=cases, meshes=list(MESHES), max_rel_err={k: v[0] for k, v in worst.items()},
           max_abs_err={k: v[1] for k, v in worst.items()}, max_err_maxima_rel=worst_e,
-          tol=FIELD_TOL, err_rtol=ERR_RTOL, k12_2_joined_vs_k2_max_abs=k2_gap,
+          tol=FIELD_TOL, err_rtol=ERR_RTOL, folded_edges_vs_gather="bit for bit",
+          k12_2_joined_vs_k2_max_abs=k2_gap,
           k12_2_f64_gap_kernel=worst_f64[0], k12_2_f64_gap_plain=worst_f64[1],
           f64_margin="kernel <= 2 plain + 2 ulp of scale, joined over the shards",
           library="none: no PyTorch call computes them",
@@ -1721,8 +1759,9 @@ def mesh_path(name, sy, sx, single, overrides=(), grow=True) -> dict:
     """The shipped config (or a cut of it) through ``run_config_file`` on a
     (sy, sx) mesh of the one card: on a y-mesh K12.2 once per attempt per
     shard; on x and 2D meshes K12.1 for k1 once per step and k2..k4 per
-    attempt, K5 once per attempt, and the ghost gather before each of
-    them, per shard; nothing else.  ``single``: the one-device run's
+    attempt, K5 once per attempt, each writing the next stage's edges, so
+    the ghost gather only in the first step and for each retry's second
+    stage, per shard; nothing else.  ``single``: the one-device run's
     summary, whose step count (and 2769) it must be within 1% of; without
     it (the 2048^2 cut), at least CUT_2048_STEPS steps."""
     n = sy * sx
@@ -1736,11 +1775,11 @@ def mesh_path(name, sy, sx, single, overrides=(), grow=True) -> dict:
     else:
         expect(L["blend_rhs_sharded"] == (steps + 3 * attempts) * n
                and L["rkm_final_stage"] == attempts * n > 0
-               and L["halo_edges"] == (steps + 4 * attempts) * n
+               and L["halo_edges"] == (1 + attempts - steps) * n
                and sum(L.values()) == sum(L[k] for k in ("blend_rhs_sharded", "rkm_final_stage",
                                                           "halo_edges")),
-               "K12.1 (steps + 3 attempts), K5 (attempts), the gather (steps + 4 "
-               "attempts), per shard; nothing else", run)
+               "K12.1 (steps + 3 attempts), K5 (attempts), the gather (the first step and "
+               "each retry), per shard; nothing else", run)
     extra = {}
     if single is not None:
         for want in (single["steps"], RKM_STEPS):
@@ -1760,13 +1799,16 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     (66 rows do not split in 4), against their plain versions shard by
     shard, at every BC pair, 512^2 and 66x258, from a seeded state; K12.5's
     and K12.6's joined results also against K6 and K3 on the whole grid.
-    K12.3, K12.5 and K12.6, K1's, K6's and K3's kernels, are held bit for
-    bit there (at S = 0.25 and S = 0, their isotropic instantiations).  Timed on one shard of the mesh each runs
+    K12.3, K12.4, K12.5 and K12.6, K1's, K4's, K6's and K3's kernels, are
+    held bit for bit there (at S = 0.25 and S = 0, their isotropic
+    instantiations); K12.1 for RK4's k1..k3, K12.3 and K12.4 fold the next
+    stage's edges, held to the gather on the same states at max|Δ| = 0.
+    Timed on one shard of the mesh each runs
     on in a run: K12.3 and K12.4 on x(2) at 512^2 (512x256), K12.5 on y(2)
     at 512^2 (256x512), K12.6 on y(2) of the 4096^2 cut (2048x4096), with
     its device µs per launch."""
     names = ("K12.3", "K12.4", "K12.5", "K12.6")
-    worst = {k: [0.0, 0.0] for k in names}
+    worst = {k: [0.0, 0.0] for k in (*names, "K12.1 fold", "K12.3 fold", "K12.4 fold")}
     joined = {"K12.5 vs K6": [0.0, 0.0], "K12.6 vs K3": [0.0, 0.0]}
     cases = 0
     slab_kernels = (  # name, joined name, slab depth, tolerance, kernel, plain, whole grid
@@ -1785,17 +1827,31 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
         for mname, (sy, sx) in MESHES.items():
             mesh, topo = on_mesh(sy, sx)
             sh = [tuple(shard_field(t, mesh, topo) for t in pair) for pair in (x, k1, k2, k3)]
+            one = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
             for k, h in enumerate(stage_halos(sh[:1], [1.0], topo)):
-                st = shard_states(sh[:1], k)
-                hold("K12.3",
-                     cuda_rhs.blend_rhs_sharded(st, [1.0], p, h, 0.03, d, is_euler=True),
+                st, on = shard_states(sh[:1], k), f"{what} {mname} shard {k}"
+                got = cuda_rhs.blend_rhs_sharded(st, [1.0], p, h, 0.03, d, is_euler=True,
+                                                 fold=one)
+                hold("K12.3", got[:2],
                      cuda_rhs.blend_rhs_sharded_plain(st, [1.0], p, h, 0.03, d, is_euler=True),
-                     f"{what} {mname} shard {k}", worst["K12.3"], 0.0)
-            for k, h in enumerate(stage_halos([sh[0], sh[3]], [1.0, p.dt], topo)):
+                     on, worst["K12.3"], 0.0)
+                hold_fold("K12.3", got, st, one, on, worst["K12.3 fold"])
+                # RK4's k1, k2 and k3 producers: [x] -> [x, k1] at dt/2, [x, k1] ->
+                # [x, k2] at dt/2, [x, k2] -> [x, k3] at dt
                 st = shard_states(sh, k)
-                hold("K12.4", cuda_rhs.rk4_final_stage(*st, p, 0.03, d, halo=h),
-                     cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d, halo=h),
-                     f"{what} {mname} shard {k}", worst["K12.4"])
+                for ins, w_in, nxt in (([st[0]], [1.0], (1.0, p.dt / 2)),
+                                       (st[:2], [1.0, p.dt / 2], (1.0, p.dt / 2)),
+                                       ([st[0], st[2]], [1.0, p.dt / 2], (1.0, p.dt))):
+                    fold = cuda_rhs.Fold(nxt, sy > 1, sx > 1)
+                    hold_fold("K12.1", cuda_rhs.blend_rhs_sharded(ins, w_in, p, h, 0.03, d,
+                                                                  fold=fold),
+                              ins, fold, on, worst["K12.1 fold"])
+            for k, h in enumerate(stage_halos([sh[0], sh[3]], [1.0, p.dt], topo)):
+                st, on = shard_states(sh, k), f"{what} {mname} shard {k}"
+                got = cuda_rhs.rk4_final_stage(*st, p, 0.03, d, halo=h, fold=one)
+                hold("K12.4", got[:2], cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d, halo=h),
+                     on, worst["K12.4"], 0.0)
+                hold_fold("K12.4", got, st, one, on, worst["K12.4 fold"])
         for sy in (2, 4):
             if p.ny % sy:
                 continue
@@ -1829,12 +1885,16 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     Fb, Ub = (shard_field(t, ymesh, ytopo) for t in seeded(rng, big.ny, big.nx))
     fb, ub = Fb.blocks[0], Ub.blocks[0]
     big_slab = ytopo.apron(Fb, Ub, cuda_rhs.RK4_SLAB_ROWS)[0]
+    one = cuda_rhs.Fold((1.0,), False, True)  # as the path runs them: folding the new edges
     timed = {
-        "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(st1, [1.0], p, h1, is_euler=True),
-                  lambda: cuda_rhs.blend_rhs_sharded_plain(st1, [1.0], p, h1, is_euler=True),
+        "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(st1, [1.0], p, h1, is_euler=True,
+                                                     fold=one),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(st1, [1.0], p, h1, is_euler=True,
+                                                           fold=one),
                   512 * 256, 50),
-        "K12.4": (lambda: cuda_rhs.rk4_final_stage(*st4, p, halo=h4),
-                  lambda: cuda_rhs.rk4_final_stage_plain(*st4, p, halo=h4), 512 * 256, 50),
+        "K12.4": (lambda: cuda_rhs.rk4_final_stage(*st4, p, halo=h4, fold=one),
+                  lambda: cuda_rhs.rk4_final_stage_plain(*st4, p, halo=h4, fold=one),
+                  512 * 256, 50),
         "K12.5": (lambda: cuda_rhs.euler_steps_sharded(f0, u0, slab, p, 4),
                   lambda: cuda_rhs.euler_steps_sharded_plain(f0, u0, slab, p, 4),
                   256 * 512, 50),
@@ -1854,7 +1914,7 @@ def check_mesh_fixed_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
           cases=cases, meshes=list(MESHES) + ["y(4)"],
           max_rel_err={k: v[0] for k, v in worst.items()},
           max_abs_err={k: v[1] for k, v in worst.items()},
-          tol={"K12.3, K12.5, K12.6": "bit for bit", "K12.4": FIELD_TOL},
+          tol={"K12.3, K12.4, K12.5, K12.6, folded edges": "bit for bit"},
           K12_6_device_2048x4096=k12_6_device,
           joined_over_y_mesh_vs_whole_grid_max_abs={k: v[1] for k, v in joined.items()},
           library="none: no PyTorch call computes them",
@@ -2133,14 +2193,15 @@ def mesh_fixed_path(name, sy, sx, overrides, single, want, grow=True, frames=Fal
 def thin_shards_path() -> dict:
     """ROADMAP §3 fault 1: RKM on a 32-row cut on y(8), shards of 4 rows,
     thinner than K12.2's 5-row slabs: the staged attempt (K12.1 for k1
-    once per step and k2..k4 per attempt, K5 per attempt, the gather before
-    each, per shard), within 1% of the one-device run's steps."""
+    once per step and k2..k4 per attempt, K5 per attempt, each folding the
+    next stage's edges; the gather in the first step and for each retry,
+    per shard), within 1% of the one-device run's steps."""
     one = drive([THIN])
     expect(one["launches"]["rkm_attempt"] == one["res"].attempts > 0, "K2 per attempt", one)
     run = drive(["[tpu]\nshards_y = 8\n", THIN], device=[DEVICE] * 8)
     L, steps, attempts = run["launches"], run["res"].iters, run["res"].attempts
     want = {"blend_rhs_sharded": (steps + 3 * attempts) * 8,
-            "rkm_final_stage": attempts * 8, "halo_edges": (steps + 4 * attempts) * 8}
+            "rkm_final_stage": attempts * 8, "halo_edges": (1 + attempts - steps) * 8}
     expect({k: v for k, v in L.items() if v} == want, f"the staged attempt: {want}", run)
     expect(abs(steps - one["res"].iters) <= 0.01 * one["res"].iters,
            f"within 1% of the one-device {one['res'].iters} steps", run)
@@ -2204,10 +2265,13 @@ def check_mesh_f64_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     forms) and K14's twin (cross, aniso, heat + extra) against their plain
     versions shard by shard, and the K13 twins -- K2, K3 and K6 (T = 4, 8)
     on the apron -- from seeded fields; tolerance 1e-11 of max(|plain|, 1),
-    rtol 1e-9 on maxima and dots; K12.1, K12.3 and K2's and K6's twins bit
-    for bit.  Joined over each mesh, each against its one-device kernel:
-    the apron kernels (maxima included), K12.1, K12.3, K12.7, K12.8's A v
-    and K14's twin must be equal bit for bit; the other joins are printed.  Timed on one shard of the mesh each runs on in a run: the
+    rtol 1e-9 on maxima and dots; K12.1, K12.3, K12.4 and K2's and K6's
+    twins bit for bit; the edges K12.1 (RKM's k4 and RK4's k3 producers),
+    K12.3, K12.4 and K5 fold, against the gather on the same states at
+    max|Δ| = 0.  Joined over each mesh, each against its one-device kernel:
+    the apron kernels (maxima included), K12.1, K12.3, K12.4, K12.7, K12.8's
+    A v and K14's twin must be equal bit for bit; the other joins are
+    printed.  Timed on one shard of the mesh each runs on in a run: the
     stage kernels, K12.7, K12.8, K14's twin, K2's and K6 T=4's twins on
     x(2) at 512^2 (512x256), K6 T=8's on 2x2 at 2048^2 (1024^2), K3's on
     x(2) of the 4096^2 cut (4096x2048)."""
@@ -2216,6 +2280,7 @@ def check_mesh_f64_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     names = ("K12.1", "K12.1 gather", "K12.3", "K12.4", "K5", "K12.7", "K12.8", "K14 twin",
              "K2 twin", "K3 twin", "K6 twin T=4", "K6 twin T=8")
     worst = {k: [0.0, 0.0] for k in names}
+    worst_fold = [0.0, 0.0]
     joined = {k: 0.0 for k in names if k != "K12.1 gather"}
     exact = F64_MESH_EXACT
     rel = {"maxima": 0.0, "dots": 0.0}
@@ -2274,24 +2339,35 @@ def check_mesh_f64_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                 out["K12.1"].append(cuda_rhs.blend_rhs_sharded(sk, w3, p, h, 0.03, d))
                 close("K12.1", out["K12.1"][-1],
                       cuda_rhs.blend_rhs_sharded_plain(sk, w3, p, h, 0.03, d), on)
+                for nxt in (cuda_rhs.k5_weights(tau), (1.0, p.dt)):  # RKM's k4, RK4's k3
+                    fold = cuda_rhs.Fold(tuple(nxt), sy > 1, sx > 1)
+                    hold_fold("K12.1", cuda_rhs.blend_rhs_sharded(sk, w3, p, h, 0.03, d,
+                                                                  fold=fold),
+                              sk, fold, on, worst_fold)
+            one_fold = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
             for k, h in enumerate(stage_halos(st[:1], [1.0], topo)):
                 sk = shard_states(st[:1], k)
-                out["K12.3"].append(cuda_rhs.blend_rhs_sharded(sk, [1.0], p, h, 0.03, d,
-                                                               is_euler=True))
+                got = cuda_rhs.blend_rhs_sharded(sk, [1.0], p, h, 0.03, d, is_euler=True,
+                                                 fold=one_fold)
+                hold_fold("K12.3", got, sk, one_fold, on, worst_fold)
+                out["K12.3"].append(got[:2])
                 close("K12.3", out["K12.3"][-1], cuda_rhs.blend_rhs_sharded_plain(
                     sk, [1.0], p, h, 0.03, d, is_euler=True), on)
             for k, h in enumerate(stage_halos([st[0], st[3]], [1.0, p.dt], topo)):
                 sk = shard_states(st, k)
-                out["K12.4"].append(cuda_rhs.rk4_final_stage(*sk, p, 0.03, d, halo=h))
+                got = cuda_rhs.rk4_final_stage(*sk, p, 0.03, d, halo=h, fold=one_fold)
+                hold_fold("K12.4", got, sk, one_fold, on, worst_fold)
+                out["K12.4"].append(got[:2])
                 close("K12.4", out["K12.4"][-1],
                       cuda_rhs.rk4_final_stage_plain(*sk, p, 0.03, d, halo=h), on)
             for k, h in enumerate(stage_halos(st, cuda_rhs.k5_weights(tau), topo)):
                 sk = shard_states(st, k)
-                got = cuda_rhs.rkm_final_stage(*sk, tau, p, 0.03, d, halo=h)
+                got = cuda_rhs.rkm_final_stage(*sk, tau, p, 0.03, d, halo=h, fold=one_fold)
+                hold_fold("K5", (*got[:2], got[3]), sk, one_fold, on, worst_fold)
                 want = cuda_rhs.rkm_final_stage_plain(*sk, tau, p, 0.03, d, halo=h)
                 close("K5", got[:2], want[:2], on)
                 scalar("maxima", got[2], want[2], f"K5 {on}")
-                out["K5"].append(got)
+                out["K5"].append(got[:3])
             F, U = (shard_field(t, mesh, topo) for t in seed)
             twins = {"K2 twin": (cuda_rhs.SLAB_ROWS,
                                  lambda f, u, ap, fn: fn(f, u, ap, tau, p, 0.03, d),
@@ -2370,6 +2446,7 @@ def check_mesh_f64_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
           max_rel_err={k: v[0] for k, v in worst.items()},
           max_abs_err={k: v[1] for k, v in worst.items()}, tol=tol,
           max_rel_err_maxima_and_dots=rel, rtol=prec["err_rtol"],
+          folded_edges_vs_gather_max_abs=worst_fold[1],
           joined_over_mesh_vs_one_device_max_abs=joined, held_exact=list(exact))
     return {k: v[1] for k, v in worst.items()}
 
@@ -2453,18 +2530,23 @@ def time_mesh_f64_kernels(rng, worst_abs) -> dict:
     worst_abs = {**worst_abs, **{k: max(worst_abs[k], v) for k, v in held.items()}}
     apb, ap8 = apb[0], ap8[0]
     half, quarter = 512 * 256, 1024 * 1024
+    # the stage kernels as the paths run them, each folding the next stage's edges
+    one, f2 = (cuda_rhs.Fold(nxt, False, True) for nxt in ((1.0,), (1.0, p.dt)))
     timed = {
-        "K12.1": (lambda: cuda_rhs.blend_rhs_sharded(s3, w3, p, h3),
-                  lambda: cuda_rhs.blend_rhs_sharded_plain(s3, w3, p, h3), half, 50),
+        "K12.1": (lambda: cuda_rhs.blend_rhs_sharded(s3, w3, p, h3, fold=f2),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(s3, w3, p, h3, fold=f2), half, 50),
         "K12.1 gather": (lambda: cuda_rhs.halo_edges(s3, w3, False, True),
                          lambda: cuda_rhs.halo_edges_plain(s3, w3, False, True), 2 * 512, 50),
-        "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(s1, [1.0], p, h1, is_euler=True),
-                  lambda: cuda_rhs.blend_rhs_sharded_plain(s1, [1.0], p, h1, is_euler=True),
+        "K12.3": (lambda: cuda_rhs.blend_rhs_sharded(s1, [1.0], p, h1, is_euler=True,
+                                                     fold=one),
+                  lambda: cuda_rhs.blend_rhs_sharded_plain(s1, [1.0], p, h1, is_euler=True,
+                                                           fold=one),
                   half, 50),
-        "K12.4": (lambda: cuda_rhs.rk4_final_stage(*s4, p, halo=h4),
-                  lambda: cuda_rhs.rk4_final_stage_plain(*s4, p, halo=h4), half, 50),
-        "K5": (lambda: cuda_rhs.rkm_final_stage(*s4, tau, p, halo=h5),
-               lambda: cuda_rhs.rkm_final_stage_plain(*s4, tau, p, halo=h5), half, 50),
+        "K12.4": (lambda: cuda_rhs.rk4_final_stage(*s4, p, halo=h4, fold=one),
+                  lambda: cuda_rhs.rk4_final_stage_plain(*s4, p, halo=h4, fold=one), half, 50),
+        "K5": (lambda: cuda_rhs.rkm_final_stage(*s4, tau, p, halo=h5, fold=one),
+               lambda: cuda_rhs.rkm_final_stage_plain(*s4, tau, p, halo=h5, fold=one), half,
+               50),
         "K12.7": (lambda: cuda_rhs.si_prepare_sharded(*s1[0], p, h1),
                   lambda: cuda_rhs.si_prepare_sharded_plain(*s1[0], p, h1), half, 50),
         "K12.8": (lambda: cuda_cg.cross_matvec_pAp_sharded(A_U, v0, hv, out=dead),
@@ -2606,7 +2688,7 @@ def f64_mesh_runs(euler64_one, rk4_cut_one) -> dict:
                                config=sweep(run), **kw)
     staged = (lambda steps, n, attempts: {"blend_rhs_sharded": (steps + 3 * attempts) * n,
                                           "rkm_final_stage": attempts * n,
-                                          "halo_edges": (steps + 4 * attempts) * n})
+                                          "halo_edges": (1 + attempts - steps) * n})
     twin = lambda steps, n, attempts: {"rkm_attempt_apron": attempts * n}  # noqa: E731
     one = f64_one("rkm", [F64_RKM_CUT], "float64 RKM, 512^2 cut, one device")
     if one["steps"] < F64_RKM_CUT_STEPS:
@@ -2661,7 +2743,7 @@ def f64_mesh_runs(euler64_one, rk4_cut_one) -> dict:
             *shape, "rk4", [F64_RK4_CUT], one,
             lambda steps, n, attempts: {"blend_rhs_sharded": 3 * steps * n,
                                         "rk4_final_stage_sharded": steps * n,
-                                        "halo_edges": 4 * steps * n})["launches"]
+                                        "halo_edges": n})["launches"]
     L["rk4 4096 x(2)"] = f64_mesh_path(
         "float64 RK4, 4096^2 cut, on an x(2) mesh (K3 twin: 8M local cells)", 1, 2, "rk4",
         [CUT], rk4_cut_one, lambda steps, n, attempts: {"rk4_full_apron": steps * n},
@@ -2769,7 +2851,7 @@ def main() -> None:
     # one-device step count
     euler_mesh = {m: mesh_fixed_path(
         f"Euler path on a {m} mesh", *shape, [EULER], euler_one,
-        lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n, "halo_edges": steps * n})
+        lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n, "halo_edges": n})
         for m, shape in MESHES.items()}
     euler_pair_mesh = mesh_fixed_path(
         "Euler path, stats off, on a y(2) mesh", 2, 1, [EULER, NO_STATS], euler_fast_one,
@@ -2781,7 +2863,7 @@ def main() -> None:
     rk4_mesh = {m: mesh_fixed_path(
         f"RK4 path on a {m} mesh (staged)", *shape, [RK4], rk4_one,
         lambda steps, n, _: {"blend_rhs_sharded": 3 * steps * n,
-                          "rk4_final_stage_sharded": steps * n, "halo_edges": 4 * steps * n})
+                          "rk4_final_stage_sharded": steps * n, "halo_edges": n})
         for m, shape in MESHES.items()}
     rk4_cut_mesh = mesh_fixed_path(
         "RK4 path, 4096^2 cut on a y(2) mesh (whole step per shard)", 2, 1, [RK4, CUT],
@@ -2795,7 +2877,7 @@ def main() -> None:
         raise AssertionError("the exact solver's mesh frames differ from one device's")
     phase("exact solver on a mesh: frames equal to one device's", mesh=EXACT_MESH,
           frames=sorted(exact["frames"]), equal="bit for bit")
-    thin_shards_path()
+    thin = thin_shards_path()
     # semi-implicit on the meshes, each against a one-device run in this call
     _, si_cut_one = si_path([SEMI, SI_CUT], "semi-implicit path, 1000-step cut")
     si_mesh = [si_mesh_path(f"semi-implicit path, 1000-step cut, on a {m} mesh", *shape,
@@ -2865,9 +2947,13 @@ def main() -> None:
                      sum(mesh_runs[m]["blend_rhs_sharded"] for m in ("x(2)", "2x2")),
                      mesh_k["K12.1"]),
         kernel_entry("K12.1 ghost gather halo_edges (the blend's edge rows/columns that "
-                     "_ghost_rows/_ghost_cols send; same runs)", rhs_src, f"{pallas_rhs}:634",
-                     sum(mesh_runs[m]["halo_edges"] for m in ("x(2)", "2x2")),
-                     mesh_k["K12.1 gather"]),
+                     "_ghost_rows/_ghost_cols send, where no kernel folded them: every float32 "
+                     "mesh run's first step, RKM retries, corrector passes, CG iterations)",
+                     rhs_src, f"{pallas_rhs}:634",
+                     sum(mesh_runs[m]["halo_edges"] for m in ("x(2)", "2x2")) + thin["halo_edges"]
+                     + sum(r["launches"]["halo_edges"]
+                           for r in [*euler_mesh.values(), corrector_mesh, *rk4_mesh.values()])
+                     + sum(L["halo_edges"] for L in si_mesh), mesh_k["K12.1 gather"]),
         kernel_entry("K12.2 rkm_attempt_sharded (K2 with ghost slabs; RKM on y(2) and the "
                      "2048^2 y(4) cut)", rhs_src, f"{pallas_rhs}:1185",
                      mesh_runs["y(2)"]["rkm_attempt_sharded"] + cut["rkm_attempt_sharded"],

@@ -1333,3 +1333,168 @@ def test_tutorial_entry_point_on_the_card(capsys, cuda_device):  # noqa: F811
     assert sum(line.strip().startswith("PASS") for line in lines) == 9
     assert lines[-1] == "all tutorial kernels verified"
     assert all(n >= 1 for n in tut.LAUNCHES.values()), tut.LAUNCHES
+
+
+# ------------------------------------- K4's template and the folded ghost gather
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k4_and_k12_4_equal_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen,
+                                              cuda_device):  # noqa: F811
+    """K4 -- interior blocks reading their neighbours without the edge rule,
+    the isotropic instantiation at S = 0 -- equals its plain version bit for
+    bit at both dtypes (float64 with float and double transcendentals),
+    every BC pair, 512^2, 100x170 and 33x129; so does K12.4 shard by shard
+    on y(2), x(2) and 2x2 where the size splits, joined it equals K4 on the
+    whole grid, and the new state's edges it folds equal the gather's at
+    max|Δ| = 0."""
+    from bachelors_tpu_torch.convert import shards_from_numpy
+    from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    for ny, nx in K2_SIZES:
+        for f32t in ((True,) if dtype == "float32" else (True, False)):
+            p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype,
+                          f32_transcendentals=f32t, Phi_boundary=BoundaryType(f_bc),
+                          T_boundary=BoundaryType(u_bc))
+            arrays = random_fields(gen, ny, nx, dtype, 4)
+            states = _on(arrays, cuda_device)
+            whole = _counted(cuda_rhs.LAUNCHES, "rk4_final_stage",
+                             lambda: cuda_rhs.rk4_final_stage(*states, p, 0.03, d))
+            for g, wt in zip(whole, cuda_rhs.rk4_final_stage_plain(*states, p, 0.03, d)):
+                assert torch.equal(g, wt), (ny, nx, f32t)
+            for sy, sx in ((2, 1), (1, 2), (2, 2)):
+                if ny % sy or nx % sx:
+                    continue
+                topo = Topology(sy, sx)
+                sh = [tuple(shards_from_numpy(a, sy, sx, [cuda_device] * (sy * sx))
+                            for a in pair) for pair in arrays]
+                fold = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
+                out = []
+                for k, h in enumerate(stage_halos([sh[0], sh[3]], [1.0, p.dt], topo)):
+                    st = shard_states(sh, k)
+                    got = _counted(cuda_rhs.LAUNCHES, "rk4_final_stage_sharded",
+                                   lambda: cuda_rhs.rk4_final_stage(*st, p, 0.03, d, halo=h,
+                                                                    fold=fold))
+                    want = cuda_rhs.rk4_final_stage_plain(*st, p, 0.03, d, halo=h)
+                    for g, wt in zip(got[:2], want):
+                        assert torch.equal(g, wt), (ny, nx, sy, sx, f32t)
+                    for g, wt in zip(got[2], cuda_rhs.halo_edges([tuple(got[:2])], [1.0],
+                                                                 sy > 1, sx > 1)):
+                        assert (g is None) == (wt is None)
+                        assert g is None or torch.equal(g, wt)
+                    out.append(got)
+                for i in (0, 1):
+                    assert torch.equal(_joined(out, i, (sy, sx)), whole[i]), (ny, nx, sy, sx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
+def test_folding_kernels_write_what_the_gather_would(sy, sx, dtype, S, gen,
+                                                     cuda_device):  # noqa: F811
+    """Each producer of the staged mesh paths, given a fold, writes the next
+    stage's edges exactly as ``halo_edges`` gathers them from the same
+    states (max|Δ| = 0), and the output it gives without one: K12.1 with
+    1-4 states and each prefix 0..3 of them, K12.3 and K5, at 64x256 and
+    66x258, every BC pair."""
+    from bachelors_tpu_torch.convert import shards_from_numpy
+    from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    topo = Topology(sy, sx)
+    tau = np.dtype(dtype).type(TAU)
+
+    def holds(bare, got, nxt_states, nxt):
+        for b, g in zip(bare, got):
+            assert torch.equal(b, g)
+        want = cuda_rhs.halo_edges(nxt_states, nxt, sy > 1, sx > 1)
+        for g, wt in zip(got[-1], want):
+            assert (g is None) == (wt is None)
+            assert g is None or torch.equal(g, wt)
+
+    for (ny, nx), (f_bc, u_bc) in ((size, pair) for size in MESH_SIZES for pair in ALL_PAIRS):
+        p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype,
+                      Phi_boundary=BoundaryType(f_bc), T_boundary=BoundaryType(u_bc))
+        d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+        sh = [tuple(shards_from_numpy(a, sy, sx, [cuda_device] * (sy * sx)) for a in pair)
+              for pair in random_fields(gen, ny, nx, dtype, 4)]
+        for n in (1, 2, 3, 4):
+            w = [1.0] + [float(x) * 1e-2 for x in gen.normal(size=n - 1)]
+            for k, h in enumerate(stage_halos(sh[:n], w, topo)):
+                st = shard_states(sh[:n], k)
+                bare = cuda_rhs.blend_rhs_sharded(st, w, p, h, 0.03, d)
+                for m in range(min(n, 3) + 1):
+                    nxt = (1.0, *(float(x) * 1e-2 for x in gen.normal(size=m)))
+                    fold = cuda_rhs.Fold(nxt, sy > 1, sx > 1)
+                    got = _counted(cuda_rhs.LAUNCHES, "blend_rhs_sharded", lambda: (
+                        cuda_rhs.blend_rhs_sharded(st, w, p, h, 0.03, d, fold=fold)))
+                    holds(bare, got, [*st[:m], tuple(got[:2])], nxt)
+        one = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
+        for k, h in enumerate(stage_halos(sh[:1], [1.0], topo)):
+            st = shard_states(sh[:1], k)
+            got = _counted(cuda_rhs.LAUNCHES, "blend_rhs_sharded_euler", lambda: (
+                cuda_rhs.blend_rhs_sharded(st, [1.0], p, h, 0.03, d, True, fold=one)))
+            holds(cuda_rhs.blend_rhs_sharded(st, [1.0], p, h, 0.03, d, True), got,
+                  [tuple(got[:2])], (1.0,))
+        for k, h in enumerate(stage_halos(sh, cuda_rhs.k5_weights(tau), topo)):
+            st = shard_states(sh, k)
+            got = _counted(cuda_rhs.LAUNCHES, "rkm_final_stage", lambda: (
+                cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h, fold=one)))
+            holds(cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h), got,
+                  [tuple(got[:2])], (1.0,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_staged_mesh_steps_gather_only_where_no_kernel_made_the_state(dtype,
+                                                                      cuda_device):  # noqa: F811
+    """The launches of a few staged mesh steps on the card: RKM's staged
+    attempt (x(2) at float32, 4-row shards of y(8) at float64) gathers in
+    the first step and once per retry, RK4 (K12.1 x 3 + K12.4) and Euler
+    (K12.3) in the first step only, the Euler corrector in every pass;
+    each run (32x64) equals its plain route on the CPU."""
+    from bachelors_tpu_torch.convert import state_from_numpy
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_state
+    from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper
+
+    rkm_mesh = (1, 2) if dtype == "float32" else (8, 1)
+    cases = (  # solver, mesh, extra params, gathers per shard
+        (SolverType.EXPLICIT_RK4_ADAPTIVE, rkm_mesh, {}, lambda steps, att: 1 + att - steps),
+        (SolverType.EXPLICIT_RK4, (2, 2), {}, lambda steps, att: 1),
+        (SolverType.EXPLICIT_EULER, (2, 1), {}, lambda steps, att: 1),
+        (SolverType.EXPLICIT_EULER, (1, 2), dict(do_corrector_loop=True, corrector_max_iters=3),
+         lambda steps, att: 4 * steps))
+    for solver, (sy, sx), extra, gathers in cases:
+        p = SimParams(nx=64, ny=32, L0=4.0, dt=1e-4 if solver == SolverType.EXPLICIT_RK4_ADAPTIVE
+                      else 1e-5, dtype=dtype, S=0.25, m0=6.0, Phi_tolerance=1e-5,
+                      T_tolerance=1e-5, min_dt=1e-12, solver=solver,
+                      f32_transcendentals=dtype == "float32", **extra)
+        F, U = seed_fields(np.random.default_rng(3), 32, 64, dtype)
+        start = state_from_numpy(F, U, 0.0, 0, p.dt, device=cuda_device)
+        start = start.replace(tau=start.tau * 4)  # the first attempt too long: a retry
+        runs = []
+        for dev in (cuda_device, "cpu"):
+            mesh, topo = make_mesh(sy, sx, [dev] * (sy * sx))
+            step = make_sharded_stepper(p, mesh, topo)
+            s = shard_state(start, mesh, topo)
+            cuda_rhs.reset_launch_counts()
+            attempts = 0
+            for _ in range(4):
+                s, stats = step(s)
+                attempts += stats.attempts
+            runs.append((gather_state(s, torch.device("cpu")), attempts,
+                         dict(cuda_rhs.LAUNCHES)))
+        (got, attempts, launches), (want, want_attempts, _) = runs
+        assert attempts == want_attempts
+        if solver == SolverType.EXPLICIT_RK4_ADAPTIVE:
+            assert attempts > 4
+        assert launches["halo_edges"] == gathers(4, attempts) * sy * sx, (solver, launches)
+        for g, wt in ((got.F, want.F), (got.U, want.U)):
+            assert_match(g, wt, atol=1e-6 if dtype == "float32" else 1e-12)

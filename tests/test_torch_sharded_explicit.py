@@ -272,14 +272,15 @@ def _held(one, got):
 
 @pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
 def test_euler_kernel_route_matches_one_device(sy, sx, kernel_routes, spy):
-    """Euler with stats: K12.3 once per shard and step, after one ghost
-    gather per shard, and nothing else."""
+    """Euler with stats: K12.3 once per shard and step, each writing its
+    new state's edges, so one ghost gather per shard in the first step,
+    and nothing else."""
     tp = _f32_params(solver=JST.EXPLICIT_EULER, do_stats=True)
     one, got = _one_and_mesh(tp, sy, sx, 3)
     _held(one, got)
     n = sy * sx
     assert {k: v for k, v in spy.items() if k != "blend_rhs"} == {
-        "blend_rhs_sharded_euler": 3 * n, "halo_edges": 3 * n}
+        "blend_rhs_sharded_euler": 3 * n, "halo_edges": n}
 
 
 def test_euler_pair_kernel_route_matches_one_device(kernel_routes, spy):
@@ -295,14 +296,15 @@ def test_euler_pair_kernel_route_matches_one_device(kernel_routes, spy):
 @pytest.mark.parametrize("sy,sx", [(1, 2), (2, 2)])
 def test_rk4_staged_kernel_route_matches_one_device(sy, sx, kernel_routes, spy):
     """RK4 on x and 2D meshes: K12.1 for k1..k3 and K12.4, per shard and
-    step, each after a ghost gather."""
+    step, each writing the next stage's edges, so a ghost gather per shard
+    in the first step only."""
     tp = _f32_params(solver=JST.EXPLICIT_RK4)
     one, got = _one_and_mesh(tp, sy, sx, 3)
     _held(one, got)
     n = sy * sx
     mesh_calls = {k: v for k, v in spy.items() if k not in ("blend_rhs", "rk4_final_stage")}
     assert mesh_calls == {"blend_rhs_sharded": 3 * 3 * n, "rk4_final_stage_sharded": 3 * n,
-                          "halo_edges": 4 * 3 * n}
+                          "halo_edges": n}
 
 
 def test_rk4_whole_step_kernel_route_matches_one_device(monkeypatch, kernel_routes, spy):

@@ -352,7 +352,8 @@ def _held(one, got):
 def test_euler_routes_on_a_mesh(sy, sx, kernel_routes, spy):
     """Without stats, 9 steps are 2 passes of K6's twin per shard (T = 4 at
     16^2 local cells, one apron exchange each) and one single step (K12.3
-    after one gather per shard); with stats every step is K12.3."""
+    after one gather per shard); with stats every step is K12.3, and only
+    the first gathers: each K12.3 writes its new state's edges."""
     n = sy * sx
     one, pair, mesh_run = _one_and_mesh(_params(SolverType.EXPLICIT_EULER), sy, sx, 9, True)
     assert pair is not None and pair.block_steps == 4
@@ -364,14 +365,15 @@ def test_euler_routes_on_a_mesh(sy, sx, kernel_routes, spy):
                                      sy, sx, 3)
     spy.clear()
     _held(one, mesh_run())
-    assert spy == {"blend_rhs_sharded_euler": 3 * n, "halo_edges": 3 * n}
+    assert spy == {"blend_rhs_sharded_euler": 3 * n, "halo_edges": n}
 
 
 @pytest.mark.parametrize("sy,sx", [(2, 1), (1, 2), (2, 2)])
 def test_rk4_routes_on_a_mesh(sy, sx, kernel_routes, spy, monkeypatch):
     """From RK4_FULLSTEP_MIN_CELLS local cells (patched down to a shard's)
     K3's twin once per shard and step from one apron exchange; below it the
-    staged route, K12.1 x 3 and K12.4 after a gather each."""
+    staged route, K12.1 x 3 and K12.4, each writing the next stage's
+    edges, so only the first step gathers."""
     n = sy * sx
     tp = _params(SolverType.EXPLICIT_RK4)
     monkeypatch.setattr(explicit, "RK4_FULLSTEP_MIN_CELLS", 32 * 32 // n)
@@ -383,7 +385,7 @@ def test_rk4_routes_on_a_mesh(sy, sx, kernel_routes, spy, monkeypatch):
     spy.clear()
     _held(one, mesh_run())
     assert spy == {"blend_rhs_sharded": 3 * 3 * n, "rk4_final_stage_sharded": 3 * n,
-                   "halo_edges": 4 * 3 * n}
+                   "halo_edges": n}
 
 
 # ------------------------------------------------------------------- the driver
