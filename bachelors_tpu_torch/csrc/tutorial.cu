@@ -6,23 +6,42 @@
 // examples/pallas_tutorial.py, and teach what a CUDA kernel does where the
 // Pallas one leans on BlockSpecs, VMEM and SMEM:
 //
-// K15.1 bt_tut_saxpy_whole (`saxpy_whole` :40, pallas_call :44): o = a x + y,
-//     one thread per element over a flat grid of ceil(n / 256) blocks with a
-//     bounds check; `a` passed by value.  The TPU kernel holds the whole
-//     array in VMEM at once; here every thread reads its own element.
+// K15.1 bt_tut_saxpy_whole (`saxpy_whole` :40, pallas_call :44): o = a x + y
+//     over a flat grid, one range of values per block, `a` passed by value.
+//     The TPU kernel holds the whole array in VMEM at once; here the grid
+//     covers it.
 // K15.2 bt_tut_saxpy_rows (`saxpy_gridded` :54, :61): the same over a grid
-//     of row tiles, one block per kRowTile rows, the threads striding over
-//     columns with 16-byte float4 loads and stores where the row is aligned
-//     (a scalar head up to alignment and a scalar tail).  The grid walking
-//     tiles with coalesced vector loads is the CUDA analogue of a BlockSpec
-//     pipeline copying (128, nx) tiles HBM -> VMEM.  Any number of rows: the
-//     TPU kernel drops rows past the last whole 128-row block.
+//     of row tiles.  The grid walking tiles with coalesced 16-byte loads is
+//     the CUDA analogue of a BlockSpec pipeline copying (128, nx) tiles HBM
+//     -> VMEM.  The rows are contiguous, so a tile of R rows is one range
+//     of R nx values: R is as many rows as a block takes (at least one), and
+//     a longer tile is cut into block-sized pieces, consecutive blocks on
+//     consecutive memory.  Any number of rows, the last tile ragged: the TPU
+//     kernel drops rows past the last whole 128-row block.
 // K15.3 bt_tut_saxpy_rows_dev (`saxpy_smem` :70, :77): K15.2 with `a` read
-//     through a pointer from a one-element device tensor, the analogue of
-//     the (1, 1) SMEM operand.  One launch configuration (or one captured
-//     CUDA graph) serves every `a`, and an earlier kernel can write `a`
-//     without a host sync, which is how the port's CG keeps alpha and beta
-//     on the device (K9, K8b).
+//     through a pointer from a one-element device tensor, once per thread,
+//     the analogue of the (1, 1) SMEM operand.  One launch configuration
+//     (or one captured CUDA graph) serves every `a`, and an earlier kernel
+//     can write `a` without a host sync, which is how the port's CG keeps
+//     alpha and beta on the device (K9, K8b).
+//     The three saxpys are bound by bytes: 12 a value, 201 MB and 60.1 us at
+//     4096^2 at 3.35 TB/s.  Their first design (one 4-byte value a thread
+//     for K15.1; for K15.2/K15.3 4-row tiles walked row by row, one float4
+//     pair a thread in flight, 1024 blocks at 4096^2, most threads idle on
+//     rows under 1024 values, a whole misaligned row in scalar code) lost
+//     5-9% to torch.add's vectorized loop there.  Now each block walks one
+//     range in one routine (`saxpy_range`): 256 threads, one 16-byte vector
+//     of each input a thread per pass, alignment reckoned once a range, and
+//     where x, y and o differ in 16-byte phase (a view at an odd storage
+//     offset) a scalar pass as deep, so as many bytes stay in flight.  A block takes one pass (1024
+//     values), fewer where that would leave under two blocks an SM (down to
+//     a warp's 128 values).  An array that fits in one wave of the card's
+//     threads is launch- and latency-bound: there K15.1 gives each thread
+//     one value (`tut_saxpy_wave_kernel`), the shortest chain from launch
+//     to store.  Measured and not kept (PERF.md): two or four vectors a
+//     thread, 128 threads, evict-first loads and stores, a persistent grid.
+//     Each value is __fadd_rn(__fmul_rn(a, x), y), two roundings as
+//     saxpy_plain and the JAX tutorial: no FMA.
 // K15.4 bt_tut_block_sum (`block_sum` :88, :95): sum x.  A float32
 //     grid-stride sum per thread (float4 loads where aligned), then warp
 //     shuffles and shared memory give one partial per block; a second,
@@ -48,71 +67,171 @@
 // value, the sums read 4 bytes for 1 or 4 operations, the Laplacian 8 bytes
 // for 5; at 4096^2 that is 60 us (saxpy), 20 us (sums) and 40 us
 // (Laplacian) at 3.35 TB/s.  Each takes any size of at least one float32
-// value, contiguous.
+// value, contiguous (a view at any storage offset).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace bt {
 
-constexpr int kTutThreads = 256;
-constexpr int kTutRowTile = 4;  // rows per block of K15.2 and K15.3
+constexpr int kTutThreads = 256;  // K15.4, K15.6
 constexpr int kTutMaxBlocks = 1024;
 constexpr int kTutFinishThreads = 1024;
 constexpr int kTutStats = 4;  // sum, sum|x|, min, max
 constexpr int kLapTile = 32;  // output tile of K15.5, 32 x 32
 constexpr int kLapRowsPerThread = 4;  // blocks of 32 x 8 threads
 
-// K15.1 ----------------------------------------------------------------
+// K15.1-K15.3 ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(kTutThreads)
-    tut_saxpy_flat_kernel(float a, const float* __restrict__ x, const float* __restrict__ y,
-                          float* __restrict__ o, long long n) {
-  const long long i = (long long)blockIdx.x * kTutThreads + threadIdx.x;
-  if (i < n) o[i] = __fadd_rn(__fmul_rn(a, x[i]), y[i]);
+constexpr int kSaxpyThreads = 256;
+constexpr int kSaxpyWork = 4 * kSaxpyThreads;  // values a block takes per pass
+constexpr int kSaxpyFillBlocks = 2 * 132;  // two blocks for each of the H100's 132 SMs
+constexpr int kSaxpyWave = 132 * 2048;  // K15.1: one value for each thread the card holds
+
+__device__ __forceinline__ float saxpy1(float a, float x, float y) {
+  return __fadd_rn(__fmul_rn(a, x), y);
 }
-
-// K15.2, K15.3 ------------------------------------------------------------
 
 __device__ __forceinline__ float4 saxpy4(float a, float4 x, float4 y) {
-  return make_float4(__fadd_rn(__fmul_rn(a, x.x), y.x), __fadd_rn(__fmul_rn(a, x.y), y.y),
-                     __fadd_rn(__fmul_rn(a, x.z), y.z), __fadd_rn(__fmul_rn(a, x.w), y.w));
+  return make_float4(saxpy1(a, x.x, y.x), saxpy1(a, x.y, y.y), saxpy1(a, x.z, y.z),
+                     saxpy1(a, x.w, y.w));
 }
 
-// One block per kTutRowTile rows of an (ny, nx) array; `a` by value
-// (K15.2), or with A_ON_DEVICE read from a_dev (K15.3).
-template <bool A_ON_DEVICE>
-__global__ void __launch_bounds__(kTutThreads)
+// o[0:len] = a x[0:len] + y[0:len] by the block's kSaxpyThreads threads, a
+// pass of kSaxpyWork values at a time, neighbouring threads on
+// neighbouring addresses.  VEC (x, y and o share their 16-byte phase, which
+// the launch checks): a float4 of each input a thread from the first
+// 16-byte boundary, then the scalar head before it and the tail after the
+// last float4.  Else 4 values a thread, all 8 loads issued before the first
+// store, so as many bytes stay in flight.
+template <bool VEC>
+__device__ __forceinline__ void saxpy_range(float a, const float* __restrict__ x,
+                                            const float* __restrict__ y,
+                                            float* __restrict__ o, int len) {
+  const int t = threadIdx.x;
+  if constexpr (VEC) {
+    const int head = min(len, int((16 - (reinterpret_cast<uintptr_t>(x) & 15)) & 15) / 4);
+    const int n4 = (len - head) / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x + head);
+    const float4* y4 = reinterpret_cast<const float4*>(y + head);
+    float4* o4 = reinterpret_cast<float4*>(o + head);
+    for (int k = t; k < n4; k += kSaxpyThreads) o4[k] = saxpy4(a, x4[k], y4[k]);
+    const int tail = head + 4 * n4;
+    if (t < head) o[t] = saxpy1(a, x[t], y[t]);
+    if (tail + t < len) o[tail + t] = saxpy1(a, x[tail + t], y[tail + t]);
+  } else {
+    for (int k0 = t; k0 < len; k0 += kSaxpyWork) {
+      float xv[4], yv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + j * kSaxpyThreads;
+        if (k < len) {
+          xv[j] = x[k];
+          yv[j] = y[k];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + j * kSaxpyThreads;
+        if (k < len) o[k] = saxpy1(a, xv[j], yv[j]);
+      }
+    }
+  }
+}
+
+// K15.1 where x[0:n] fills no more than one wave of the card's threads
+// (kSaxpyWave): one value a thread, the shortest chain from launch to
+// store, which there sets the time.  The index is 64-bit: from a 32-bit
+// one nvcc forms the addresses against pointers fetched by LDC, ahead of
+// the first load.
+__global__ void __launch_bounds__(kSaxpyThreads)
+    tut_saxpy_wave_kernel(float a, const float* __restrict__ x, const float* __restrict__ y,
+                          float* __restrict__ o, long long n) {
+  const long long i = (long long)blockIdx.x * kSaxpyThreads + threadIdx.x;
+  if (i < n) o[i] = saxpy1(a, x[i], y[i]);
+}
+
+// K15.1 beyond one wave: block b takes the range [b w, (b + 1) w) of
+// x[0:n].
+template <bool VEC>
+__global__ void __launch_bounds__(kSaxpyThreads)
+    tut_saxpy_flat_kernel(float a, const float* __restrict__ x, const float* __restrict__ y,
+                          float* __restrict__ o, long long n, int w) {
+  const long long begin = (long long)blockIdx.x * w;
+  saxpy_range<VEC>(a, x + begin, y + begin, o + begin, int(n - begin < w ? n - begin : w));
+}
+
+// K15.2, K15.3: block (j, i) takes piece j of tile i, the tiles `rows`
+// rows of an (ny, nx) array, each one range of rows nx values cut into
+// pieces of at most w values (consecutive blocks, consecutive memory); `a`
+// by value (K15.2), or with A_ON_DEVICE read from a_dev (K15.3).
+template <bool A_ON_DEVICE, bool VEC>
+__global__ void __launch_bounds__(kSaxpyThreads)
     tut_saxpy_rows_kernel(float a, const float* __restrict__ a_dev,
                           const float* __restrict__ x, const float* __restrict__ y,
-                          float* __restrict__ o, int ny, int nx) {
+                          float* __restrict__ o, int ny, int nx, int rows, int w) {
   if constexpr (A_ON_DEVICE) a = *a_dev;
-  const int row0 = blockIdx.x * kTutRowTile;
-  const int rows = min(kTutRowTile, ny - row0);
-  for (int r = 0; r < rows; ++r) {
-    const long long base = (long long)(row0 + r) * nx;
-    const float* xr = x + base;
-    const float* yr = y + base;
-    float* orow = o + base;
-    // the three rows share their misalignment when the tensors do (each
-    // starts 16-byte aligned, as torch allocates them): peel a scalar head
-    // up to the next 16-byte boundary, then float4s, then a scalar tail
-    const uintptr_t mis = reinterpret_cast<uintptr_t>(xr) & 15;
-    int head = nx, body = 0;
-    if (mis % 4 == 0 && (reinterpret_cast<uintptr_t>(yr) & 15) == mis &&
-        (reinterpret_cast<uintptr_t>(orow) & 15) == mis) {
-      head = min(nx, int((16 - mis) % 16) / 4);
-      body = (nx - head) / 4;
-    }
-    for (int k = threadIdx.x; k < head; k += kTutThreads)
-      orow[k] = __fadd_rn(__fmul_rn(a, xr[k]), yr[k]);
-    const float4* x4 = reinterpret_cast<const float4*>(xr + head);
-    const float4* y4 = reinterpret_cast<const float4*>(yr + head);
-    float4* o4 = reinterpret_cast<float4*>(orow + head);
-    for (int k = threadIdx.x; k < body; k += kTutThreads) o4[k] = saxpy4(a, x4[k], y4[k]);
-    for (int k = head + 4 * body + threadIdx.x; k < nx; k += kTutThreads)
-      orow[k] = __fadd_rn(__fmul_rn(a, xr[k]), yr[k]);
+  const int row0 = blockIdx.y * rows, first = blockIdx.x * w;
+  const long long begin = (long long)row0 * nx + first;
+  const int len = min(rows, ny - row0) * nx - first;
+  saxpy_range<VEC>(a, x + begin, y + begin, o + begin, min(len, w));
+}
+
+// True where x, y and o share their 16-byte phase (a whole number of
+// floats into it): the vector path.
+inline bool saxpy_vec(const float* x, const float* y, const float* o) {
+  const uintptr_t phase = reinterpret_cast<uintptr_t>(x) & 15;
+  return phase % 4 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == phase &&
+         (reinterpret_cast<uintptr_t>(o) & 15) == phase;
+}
+
+// Values a block of K15.1-K15.3 takes: one pass of its threads
+// (kSaxpyWork), fewer where that would leave under kSaxpyFillBlocks
+// blocks, down to a warp's float4s.
+inline int saxpy_block_values(long long n) {
+  const long long w = ((n - 1) / kSaxpyFillBlocks / 128 + 1) * 128;
+  return int(w < kSaxpyWork ? w : kSaxpyWork);
+}
+
+int saxpy_flat(float a, const float* x, const float* y, float* o, long long n,
+               cudaStream_t stream) {
+  if (n < 1) return int(cudaErrorInvalidValue);
+  if (n <= kSaxpyWave) {
+    tut_saxpy_wave_kernel<<<unsigned((n - 1) / kSaxpyThreads + 1), kSaxpyThreads, 0, stream>>>(
+        a, x, y, o, n);
+    return int(cudaGetLastError());
   }
+  const int w = saxpy_block_values(n);
+  const long long blocks = (n - 1) / w + 1;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  if (saxpy_vec(x, y, o))
+    tut_saxpy_flat_kernel<true><<<unsigned(blocks), kSaxpyThreads, 0, stream>>>(a, x, y, o, n, w);
+  else
+    tut_saxpy_flat_kernel<false><<<unsigned(blocks), kSaxpyThreads, 0, stream>>>(a, x, y, o, n,
+                                                                                  w);
+  return int(cudaGetLastError());
+}
+
+// K15.2/K15.3 of an (ny, nx) array: tiles of as many rows as a block takes
+// (at least one, and more where there would be over 65535 tiles, the
+// grid's y limit), each cut into pieces of a block's values.
+template <bool A_ON_DEVICE>
+int saxpy_rows(float a, const float* a_dev, const float* x, const float* y, float* o, int ny,
+               int nx, cudaStream_t stream) {
+  if (ny < 1 || nx < 1) return int(cudaErrorInvalidValue);
+  const int w = saxpy_block_values((long long)ny * nx);
+  const int fit = (ny - 1) / 65535 + 1;
+  const int rows = w / nx > fit ? w / nx : fit;
+  const long long tile = (long long)rows * nx;
+  if (tile > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  const dim3 grid(unsigned((tile - 1) / w + 1), (ny - 1) / rows + 1);
+  if (saxpy_vec(x, y, o))
+    tut_saxpy_rows_kernel<A_ON_DEVICE, true><<<grid, kSaxpyThreads, 0, stream>>>(
+        a, a_dev, x, y, o, ny, nx, rows, w);
+  else
+    tut_saxpy_rows_kernel<A_ON_DEVICE, false><<<grid, kSaxpyThreads, 0, stream>>>(
+        a, a_dev, x, y, o, ny, nx, rows, w);
+  return int(cudaGetLastError());
 }
 
 // K15.4, K15.6: block partials, then a one-block finish -------------------
@@ -281,31 +400,19 @@ extern "C" {
 // K15.1: o[0:n] = a * x + y, float32, n >= 1.
 int bt_tut_saxpy_whole(float a, const float* x, const float* y, float* o, long long n,
                        cudaStream_t stream) {
-  if (n < 1) return int(cudaErrorInvalidValue);
-  const long long blocks = (n + bt::kTutThreads - 1) / bt::kTutThreads;
-  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
-  bt::tut_saxpy_flat_kernel<<<unsigned(blocks), bt::kTutThreads, 0, stream>>>(a, x, y, o, n);
-  return int(cudaGetLastError());
+  return bt::saxpy_flat(a, x, y, o, n, stream);
 }
 
 // K15.2: o = a * x + y over (ny, nx) row-major float32 arrays.
 int bt_tut_saxpy_rows(float a, const float* x, const float* y, float* o, int ny, int nx,
                       cudaStream_t stream) {
-  if (ny < 1 || nx < 1) return int(cudaErrorInvalidValue);
-  const int blocks = (ny + bt::kTutRowTile - 1) / bt::kTutRowTile;
-  bt::tut_saxpy_rows_kernel<false><<<blocks, bt::kTutThreads, 0, stream>>>(a, nullptr, x, y, o,
-                                                                           ny, nx);
-  return int(cudaGetLastError());
+  return bt::saxpy_rows<false>(a, nullptr, x, y, o, ny, nx, stream);
 }
 
 // K15.3: the same with a = *a_dev, one float32 on the device.
 int bt_tut_saxpy_rows_dev(const float* a_dev, const float* x, const float* y, float* o, int ny,
                           int nx, cudaStream_t stream) {
-  if (ny < 1 || nx < 1) return int(cudaErrorInvalidValue);
-  const int blocks = (ny + bt::kTutRowTile - 1) / bt::kTutRowTile;
-  bt::tut_saxpy_rows_kernel<true><<<blocks, bt::kTutThreads, 0, stream>>>(0.0f, a_dev, x, y, o,
-                                                                          ny, nx);
-  return int(cudaGetLastError());
+  return bt::saxpy_rows<true>(0.0f, a_dev, x, y, o, ny, nx, stream);
 }
 
 // The floats the partials buffer of K15.4 (width 1) or K15.6 (width 4)

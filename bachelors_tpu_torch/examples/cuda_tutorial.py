@@ -18,13 +18,16 @@ the default device is the card, and without one the script raises.
 What each step replaces, and what it teaches instead:
 
   1. whole-array saxpy (Pallas: the whole array in VMEM, one kernel
-     instance): one thread per element over a flat grid with a bounds
-     check.  The grid, not a memory space, covers the array.
+     instance): a flat grid, one range of values per block, each thread
+     loading 16 bytes of each input before it stores (one value a thread
+     where the array fits in one wave of the card's threads).  The grid,
+     not a memory space, covers the array.
   2. gridded saxpy (Pallas: BlockSpecs pipelining (128, nx) row tiles
-     HBM -> VMEM): one block per tile of rows, threads striding over the
-     columns with 16-byte float4 loads and stores.  Coalesced vector
-     loads take the place of the pipelined copy, and any number of rows is
-     taken (the Pallas grid drops a ragged tail).
+     HBM -> VMEM): a grid of row tiles, each tile's rows one contiguous
+     range cut into blocks walked as in step 1.  Coalesced vector loads take
+     the place of the pipelined copy, the tile's height follows the row
+     width so that every block gets about the same bytes, and any number of
+     rows is taken (the Pallas grid drops a ragged tail).
   3. runtime scalar (Pallas: a (1, 1) SMEM operand, compiled once for
      every a): ``a`` is a one-element tensor on the device that the kernel
      reads through a pointer.  One launch, or one captured CUDA graph,

@@ -4,10 +4,11 @@ The port's counterpart of the six Pallas kernels of
 ``examples/pallas_tutorial.py`` (K15.1-K15.6), hand-written in CUDA C++ for
 Hopper (``csrc/tutorial.cu``, built by ``ops/cuda_build.py``):
 
-  * ``saxpy_whole`` (K15.1, ``saxpy_whole`` :40): o = a x + y, one thread
-    per element;
+  * ``saxpy_whole`` (K15.1, ``saxpy_whole`` :40): o = a x + y over a flat
+    grid of 16-byte loads and stores (one value a thread where the array
+    fits in one wave of the card's threads);
   * ``saxpy_gridded`` (K15.2, ``saxpy_gridded`` :54): the same over a grid
-    of row tiles with 16-byte loads;
+    of row tiles, each tile one contiguous range cut into blocks;
   * ``saxpy_device_scalar`` (K15.3, ``saxpy_smem`` :70): K15.2 with ``a`` a
     one-element float32 tensor on the device, read by the kernel;
   * ``block_sum`` (K15.4, ``block_sum`` :88): sum x, block partials and a
@@ -18,8 +19,8 @@ Hopper (``csrc/tutorial.cu``, built by ``ops/cuda_build.py``):
     max} in one read.
 
 ``bachelors_tpu_torch/examples/cuda_tutorial.py`` is their path.  Each
-takes float32 of any size of at least one value, contiguous (the
-row-tiled ones and the Laplacian a 2-D array); the Pallas kernels drop the
+takes float32 of any size of at least one value, contiguous at any
+storage offset (the row-tiled ones and the Laplacian a 2-D array); the Pallas kernels drop the
 rows past their last whole block (ROADMAP §3, a standing difference).
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a

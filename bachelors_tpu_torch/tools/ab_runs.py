@@ -42,18 +42,25 @@ initial fields, each by its device µs per traced launch under
     where the checkout folds the gather (``cuda_rhs.Fold``), K12.4 and, in
     ``k1``, K12.1 and K12.3 on the shards also with their folds, as the
     paths run them;
-  * ``k15``: the tutorial's three saxpys (K15.1-K15.3) and
-    ``torch.add(y, x, alpha=a)`` at 4096^2, back to back: ms per call by
-    CUDA events over 200 calls and by the replay of a CUDA graph of 200
-    calls, in turns (add, K15.1, K15.2, K15.3, K15.3, K15.2, K15.1, add),
-    twice;
+  * ``k15``: rule 2's first test for the tutorial's kernels that have a
+    PyTorch rival: K15.1-K15.3 beside ``torch.add(y, x, alpha=a)`` at
+    256^2, 512^2, 1024^2, 2048^2 and 4096^2, K15.4 beside ``torch.sum`` at
+    512^2 and 4096^2;
   * ``cg``: the CG kernels K8 (both forms), K9 and K10 at 512^2, host ms
     per call and CUDA-event ms per call; K8 (both forms) and K12.8 (both
     forms, one shard of y(2)) at 512^2, 2048^2 and 4096^2, device µs per
     call summed over every kernel a call launches (the matvec and any sum
     after it), with the kernels it launched, and the device's wall time
     per call, gaps between its launches included, by CUDA events around
-    the replay of a CUDA graph of back-to-back calls (no host in it);
+    the replay of a CUDA graph of back-to-back calls (no host in it); and
+    rule 2's first test for K10 at float32 and float64 beside
+    ``torch.addcmul(r, rr, p)`` at 512^2 and 4096^2;
+
+where rule 2's first test times each kernel and its rival on the same
+standard-normal inputs by the replay of a CUDA graph of ``RIVAL_REPS``
+back-to-back calls (and by CUDA events over as many eager calls): ms per
+call, each in turns with its rival (``rival_turns``: the rival, each
+kernel, each kernel in reverse, the rival; twice);
 
 and the ptxas registers, spills and shared memory and the SASS
 instruction count of each K1, K2, K3, K4, K6, K8 and K10 instantiation of
@@ -88,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 
@@ -98,6 +106,45 @@ RUNS = {
     "rkm-f64": ("bench_sweep_f64/config_explicit-rk4-adaptive_512_f64.ini", ""),
     "si-f64": ("bench_sweep_f64/config_semi-implicit_512_f64.ini", ""),
 }
+
+# rule 2's first test: (case, rival, kernels, dtype, sizes) of each group
+RIVALS = {
+    "k15": [("saxpy", "torch.add(y, x, alpha=a)", ("K15.1", "K15.2", "K15.3"), "float32",
+             (256, 512, 1024, 2048, 4096)),
+            ("sum", "torch.sum", ("K15.4",), "float32", (512, 4096))],
+    "cg": [("advance_p", "torch.addcmul(r, rr, p)", ("K10",), dtype, (512, 4096))
+           for dtype in ("float32", "float64")],
+}
+RIVAL_REPS = 200
+
+
+def rival_turns(rival: str, kernels) -> list:
+    """One case's turns: the rival, each kernel, each kernel in reverse, the
+    rival; twice."""
+    return [rival, *kernels, *kernels[::-1], rival] * 2
+
+
+def rival_plan(groups) -> list:
+    """The rival cases of ``groups``, each with its turns, as ``KERNELS``
+    takes them."""
+    return [{"case": case, "dtype": dtype, "n": n, "turns": rival_turns(rival, kernels)}
+            for group in groups for case, rival, kernels, dtype, sizes in RIVALS.get(group, ())
+            for n in sizes]
+
+
+def rival_summary(results) -> dict:
+    """Per checkout label and rival-test row, the [min, median, max] of its
+    graph-replay and event µs per call over every turn of every process."""
+    samples = {}
+    for res in results:
+        for key, row in res.items():
+            if isinstance(row, dict) and "graph_ms" in row:
+                for clock in ("graph", "event"):
+                    samples.setdefault(res["checkout"], {}).setdefault(
+                        f"{key}, {clock} µs", []).extend(1e3 * v for v in row[f"{clock}_ms"])
+    return {label: {key: [min(v), statistics.median(v), max(v)] for key, v in rows.items()}
+            for label, rows in samples.items()}
+
 
 RUN = r"""
 import json, sys, tempfile
@@ -135,6 +182,7 @@ from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
 from bachelors_tpu_torch.parallel.topology import Topology
 cuda_build.load()
 groups = sys.argv[1].split(",")
+plan, RIVAL_REPS = json.loads(sys.argv[2]), int(sys.argv[3])
 out = {}
 
 
@@ -266,46 +314,55 @@ for dtype in ("float32", "float64"):
         reps = {512: 50, 1024: 30, 2048: 20}.get(n, 10)
         for name, (kernel, call) in calls.items():
             timed("%s %s %d^2" % (name, dtype, n), kernel, call, reps)
-if "k15" in groups:
-    # the tutorial's saxpys against torch.add at 4096^2, back to back
-    from bachelors_tpu_torch.ops import cuda_tutorial as tut
-    x, y = (torch.from_numpy(rng.normal(size=(4096, 4096)).astype(np.float32)).cuda()
-            for _ in range(2))
-    a_dev = torch.full((1,), 1.7, device="cuda")
-    k15 = {"torch.add(y, x, alpha=a)": lambda: torch.add(y, x, alpha=2.5),
-           "K15.1": lambda: tut.saxpy_whole(2.5, x, y),
-           "K15.2": lambda: tut.saxpy_gridded(2.5, x, y),
-           "K15.3": lambda: tut.saxpy_device_scalar(a_dev, x, y)}
-    order = list(k15) + list(k15)[:0:-1] + list(k15)[:1]
-    reps = 200
-    graphs = {}
-    for name, call in k15.items():
+# rule 2's first test: each kernel beside its PyTorch rival, in turns
+if plan:
+    from bachelors_tpu_torch.ops import cuda_cg, cuda_tutorial as tut
+for case in plan:
+    n, dtype = case["n"], getattr(torch, case["dtype"])
+    x, y = (torch.from_numpy(rng.normal(size=(n, n))).to("cuda", dtype) for _ in range(2))
+    if case["case"] == "saxpy":
+        a_dev = torch.full((1,), 2.5, device="cuda")
+        calls = {"torch.add(y, x, alpha=a)": lambda: torch.add(y, x, alpha=2.5),
+                 "K15.1": lambda: tut.saxpy_whole(2.5, x, y),
+                 "K15.2": lambda: tut.saxpy_gridded(2.5, x, y),
+                 "K15.3": lambda: tut.saxpy_device_scalar(a_dev, x, y)}
+    elif case["case"] == "sum":
+        calls = {"torch.sum": lambda: torch.sum(x), "K15.4": lambda: tut.block_sum(x)}
+    else:  # K10: p = r + (rr_new / rr) p in place, beside r + rr p
+        rr_new, rr = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61))
+        calls = {"torch.addcmul(r, rr, p)": lambda: torch.addcmul(x, rr, y),
+                 "K10": lambda: cuda_cg.advance_p_inplace(x, y, rr_new, rr, 1e-10)}
+    side, graphs = torch.cuda.Stream(), {}
+    for name in dict.fromkeys(case["turns"]):
         for _ in range(3):
-            call()
-        torch.cuda.synchronize()
+            calls[name]()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # the capture stream's own scratch, before capture
+            calls[name]()
+        torch.cuda.current_stream().wait_stream(side)
         graphs[name] = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graphs[name]):
-            for _ in range(reps):
-                call()
-    rows = {name: {"event_ms": [], "graph_ms": []} for name in k15}
-    for _ in range(2):
-        for name in order:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(reps):
-                k15[name]()
-            end.record()
-            end.synchronize()
-            rows[name]["event_ms"].append(start.elapsed_time(end) / reps)
-            graphs[name].replay()
-            start.record()
-            graphs[name].replay()
-            end.record()
-            end.synchronize()
-            rows[name]["graph_ms"].append(start.elapsed_time(end) / reps)
+        with torch.cuda.graph(graphs[name], stream=side):
+            for _ in range(RIVAL_REPS):
+                calls[name]()
+    rows = {name: {"event_ms": [], "graph_ms": []} for name in graphs}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for name in case["turns"]:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(RIVAL_REPS):
+            calls[name]()
+        end.record()
+        end.synchronize()
+        rows[name]["event_ms"].append(start.elapsed_time(end) / RIVAL_REPS)
+        graphs[name].replay()
+        start.record()
+        graphs[name].replay()
+        end.record()
+        end.synchronize()
+        rows[name]["graph_ms"].append(start.elapsed_time(end) / RIVAL_REPS)
     for name, row in rows.items():
-        out["%s 4096^2 back to back" % name] = row
+        out["%s %s %d^2 back to back" % (name, case["dtype"], n)] = row
+    del graphs
 if "cg" in groups:
     # the CG kernels at 512^2: host and event ms per call of each wrapper
     from bachelors_tpu_torch.core.params import BoundaryType
@@ -413,7 +470,7 @@ if os.path.exists(cuobjdump):
 keep = [k for k in set(ptxas) | set(sass)
         if any(w in k for w in ("rkm_attempt_kernel", "rk4_full_kernel", "euler_steps_kernel",
                                 "blend_rhs_kernel", "rk4_final_kernel", "matvec_pAp_kernel",
-                                "axpby_kernel", "advance_p_kernel"))]
+                                "axpby_kernel", "advance_p_kernel", "tut_saxpy"))]
 names = subprocess.run(["c++filt"], input="\n".join(keep), capture_output=True,
                        text=True).stdout.splitlines()
 out["build"] = {d: {"ptxas": " | ".join(ptxas.get(k, [])), "sass_instructions": sass.get(k)}
@@ -563,8 +620,8 @@ def main() -> None:
     ap.add_argument("--groups", default="tile,euler,k1,k4,k15,cg",
                     help="with --kernels, the kernels to time, of tile (K2, K3, K12.6), "
                          "euler (K6 beside K1's Euler step), k1 (K1, K12.1, K12.3), k4 (K4, "
-                         "K12.4), k15 (the tutorial's saxpys beside torch.add) and cg "
-                         "(K8-K10, K12.8); default all")
+                         "K12.4), k15 (K15.1-K15.4 beside torch.add and torch.sum) and cg "
+                         "(K8-K10, K12.8, K10 beside torch.addcmul); default all")
     ap.add_argument("--mesh-steps", action="store_true",
                     help="the staged mesh paths of BEFORE and AFTER in turns in one process")
     ap.add_argument("--cg-variant", action="store_true",
@@ -590,10 +647,14 @@ def main() -> None:
         for label, checkout in [("before", args.before), *afters, *afters[::-1],
                                 ("before", args.before)]:
             if args.kernels:
-                results.append({"checkout": label, **run(checkout, KERNELS, args.groups)})
+                plan = rival_plan(args.groups.split(","))
+                results.append({"checkout": label, **run(checkout, KERNELS, args.groups,
+                                                         json.dumps(plan), str(RIVAL_REPS))})
             else:
                 results.append({"checkout": label, **run(checkout, RUN, json.dumps(runs))})
             print(json.dumps(results[-1]), flush=True)
+        if args.kernels and rival_summary(results):
+            print(json.dumps({"rival_summary": rival_summary(results)}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

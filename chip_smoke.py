@@ -109,10 +109,13 @@ Last, the tutorial's six kernels (K15.1-K15.6, ``csrc/tutorial.cu``, the
 counterparts of ``examples/pallas_tutorial.py``'s Pallas kernels) against
 their plain versions at 256^2, 257x263, 1x5000 and 4096^2 (saxpy and the
 Laplacian bit for bit, the sums within 1e-6 of sum|x|, min and max
-exactly, a NaN reaching them), timed at 4096^2 beside their plain versions
-and the PyTorch call that computes the same function; and their path, the
-tutorial's entry point ``python -m bachelors_tpu_torch.examples.
-cuda_tutorial``, every kernel launched and every check passed.
+exactly, a NaN reaching them; the three saxpys also from views at storage
+offsets that put x, y and o at other 16-byte phases, at lengths 1-9 and
+around a block's work, and over ragged last row tiles, bit for bit), timed
+at 4096^2 beside their plain versions and the PyTorch call that computes
+the same function; and their path, the tutorial's entry point ``python -m
+bachelors_tpu_torch.examples.cuda_tutorial``, every kernel launched and
+every check passed.
 
 The line before it lists each kernel, at each dtype, with its launches on
 its path, its largest disagreement with the plain version, both times, its
@@ -1175,15 +1178,28 @@ def microbench_path() -> dict:
 # version does)
 K15_SIZES = ((256, 256), (257, 263), (1, 5000), (4096, 4096))
 K15_SUM_RTOL = 1e-6
-# each K15 kernel: its wrapper in ops/cuda_tutorial, its name in the
-# profiler's events, and the line of the Pallas call it replaces in
+# each K15 kernel: its wrapper in ops/cuda_tutorial, the start of its name
+# in the profiler's events (a saxpy's vector and scalar instantiations
+# alike), and the line of the Pallas call it replaces in
 # examples/pallas_tutorial.py
 K15 = {"K15.1": ("saxpy_whole", "tut_saxpy_flat_kernel", 44),
-       "K15.2": ("saxpy_gridded", "tut_saxpy_rows_kernel<false>", 61),
-       "K15.3": ("saxpy_device_scalar", "tut_saxpy_rows_kernel<true>", 77),
+       "K15.2": ("saxpy_gridded", "tut_saxpy_rows_kernel<false", 61),
+       "K15.3": ("saxpy_device_scalar", "tut_saxpy_rows_kernel<true", 77),
        "K15.4": ("block_sum", "bt::SumAcc", 95),
        "K15.5": ("laplacian_halo", "tut_laplacian_kernel", 127),
        "K15.6": ("fused_stats", "bt::StatsAcc4", 157)}
+# the three saxpys also at their edges, each bit for bit: views at storage
+# offsets (x, y) in floats, so that x, y and the fresh output o take their
+# own 16-byte phases or share one; lengths 1-9 and around a block's work
+# (128 to 1024 values; K15.1 256 values, one a thread, up to 132 * 2048
+# values); tiles of rows whose last is ragged, and rows cut into several
+# blocks; and the timed size
+K15_SAXPY_OFFSETS = ((0, 0), (1, 1), (1, 2), (3, 0), (4, 4), (2, 3))
+K15_SAXPY_SHAPES = (*((1, n) for n in range(1, 10)),
+                    *((1, w + d) for w in (512, 1024, 2048, 4096, 8192, 2 ** 20)
+                      for d in (-1, 0, 1)),
+                    (1025, 1025), (3, 5000), (1001, 64), (601, 100), (3001, 7), (37, 263),
+                    (257, 263), (4096, 4096))
 TUTORIAL_PASSES = ["1 whole-array saxpy", "2 gridded saxpy", "3 smem-scalar saxpy",
                    "4 block-parallel sum", "5 halo stencil laplacian", "6 fused stats sum",
                    "6 fused stats L1", "6 fused stats min", "6 fused stats max"]
@@ -1201,16 +1217,45 @@ def k15_calls(x, y, a_dev):
             "K15.6": (lambda: t.fused_stats(x), lambda: t.fused_stats_plain(x))}
 
 
+def k15_saxpy_edges(rng) -> int:
+    """K15.1-K15.3 at each of ``K15_SAXPY_SHAPES`` from views at each of
+    ``K15_SAXPY_OFFSETS``, bit for bit to ``saxpy_plain``, one launch a
+    call; the number of cases."""
+    t, cases = cuda_tutorial, 0
+    for shape in K15_SAXPY_SHAPES:
+        n = shape[0] * shape[1]
+        for ox, oy in K15_SAXPY_OFFSETS:
+            x, y = (torch.from_numpy(rng.normal(size=n + off).astype(np.float32)).to(DEVICE)
+                    [off:].view(shape) for off in (ox, oy))
+            a_dev = torch.full((1,), -1.3, device=DEVICE)
+            for k, call, want in (
+                    ("K15.1", lambda: t.saxpy_whole(2.5, x, y), t.saxpy_plain(2.5, x, y)),
+                    ("K15.2", lambda: t.saxpy_gridded(2.5, x, y), t.saxpy_plain(2.5, x, y)),
+                    ("K15.3", lambda: t.saxpy_device_scalar(a_dev, x, y),
+                     t.saxpy_plain(a_dev, x, y))):
+                before = t.LAUNCHES[K15[k][0]]
+                got = call()
+                if t.LAUNCHES[K15[k][0]] != before + 1 or not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{k} {K15[k][0]} at {shape[0]}x{shape[1]} from offsets ({ox}, {oy}): "
+                        f"{t.LAUNCHES[K15[k][0]] - before} launches, max|gap| "
+                        f"{(got - want).abs().max().item():.3g}")
+                cases += 1
+    return cases
+
+
 def check_k15(seed: int) -> dict:
     """K15.1-K15.6 against their plain versions at each of ``K15_SIZES``,
     on standard-normal fields from their own generator (no other check's
     fields move): saxpy and the Laplacian bit for bit, the sums within
     ``K15_SUM_RTOL`` of sum|x|, min and max exactly, and a NaN reaching the
-    sums, min and max.  Each timed at 4096^2 beside its plain version and
-    the one PyTorch call that computes the same function, where there is
-    one; device µs per call under torch.profiler."""
+    sums, min and max; the saxpys also at their edges
+    (``k15_saxpy_edges``).  Each timed at 4096^2 beside its plain version
+    and the one PyTorch call that computes the same function, where there
+    is one; device µs per call under torch.profiler."""
     rng = np.random.default_rng([seed, 0x15])
     worst = {k: 0.0 for k in K15}
+    edges = k15_saxpy_edges(np.random.default_rng([seed, 0x15, 1]))
     for ny, nx in K15_SIZES:
         x, y = (torch.from_numpy(rng.normal(size=(ny, nx)).astype(np.float32)).to(DEVICE)
                 for _ in range(2))
@@ -1256,6 +1301,8 @@ def check_k15(seed: int) -> dict:
                     "and the stencil take two calls", "library_ms": lib_ms}
     phase("K15 tutorial kernels vs plain", sizes=[f"{a}x{b}" for a, b in K15_SIZES],
           max_abs_err=worst, saxpy_laplacian="bit for bit", sum_rtol=K15_SUM_RTOL,
+          saxpy_edges={"cases": edges, "offsets": K15_SAXPY_OFFSETS,
+                       "shapes": [f"{a}x{b}" for a, b in K15_SAXPY_SHAPES]},
           min_max="exact", nan="propagated", card=card_limit(), timed=f"{n}x{n}", times=table)
     return entries
 

@@ -1235,7 +1235,17 @@ def test_k2_and_k12_2_round_as_their_plain_version_on_stiff_fields(cuda_device):
 
 # ------------------------------------------------------------- K15, the tutorial
 
-TUT_SHAPES = [(256, 256), (257, 263), (1, 1), (1, 5000), (5000, 1), (2048, 2048)]
+# the tutorial's shapes, ragged ones, lengths 1-9 and around a block's work
+# (128 to 1024 values; K15.1 256 values, one a thread, up to 132 * 2048
+# values), tiles of rows whose last is ragged, rows cut into several blocks
+TUT_SHAPES = [(256, 256), (257, 263), (1, 1), (1, 5000), (5000, 1), (2048, 2048),
+              *((1, n) for n in range(2, 10)),
+              *((1, w + d) for w in (512, 1024, 2048, 4096, 8192, 2 ** 20)
+                for d in (-1, 0, 1)),
+              (1025, 1025), (3, 5000), (1001, 64), (601, 100), (3001, 7), (37, 263)]
+# storage offsets (x, y) in floats of the saxpys' views: x, y and the fresh
+# output at their own 16-byte phases, or sharing one
+TUT_OFFSETS = [(1, 1), (1, 2), (3, 0), (4, 4), (2, 3)]
 
 
 def _tut_counted(name, fn):
@@ -1245,26 +1255,33 @@ def _tut_counted(name, fn):
     return out
 
 
+def _tut_saxpys(x, y, a_dev):
+    return (("saxpy_whole", lambda: tut.saxpy_whole(2.5, x, y), tut.saxpy_plain(2.5, x, y)),
+            ("saxpy_gridded", lambda: tut.saxpy_gridded(2.5, x, y), tut.saxpy_plain(2.5, x, y)),
+            ("saxpy_device_scalar", lambda: tut.saxpy_device_scalar(a_dev, x, y),
+             tut.saxpy_plain(a_dev, x, y)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", TUT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_tutorial_kernels_match_plain(shape, gen, cuda_device):  # noqa: F811
     """K15.1-K15.6 against their plain versions: saxpy and the Laplacian bit
     for bit (every operation rounded on its own in both), the sums within
     1e-6 of sum |x| (another order of a float32 sum), min and max exactly;
-    a misaligned view through the row-tiled saxpy too."""
+    the three saxpys also from views at storage offsets, bit for bit."""
     x, y = (torch.from_numpy(gen.normal(size=shape).astype(np.float32)).to(cuda_device)
             for _ in range(2))
     a_dev = torch.full((1,), 1.7, device=cuda_device)
-    for name, fn, want in (
-            ("saxpy_whole", lambda: tut.saxpy_whole(2.5, x, y), tut.saxpy_plain(2.5, x, y)),
-            ("saxpy_gridded", lambda: tut.saxpy_gridded(2.5, x, y), tut.saxpy_plain(2.5, x, y)),
-            ("saxpy_device_scalar", lambda: tut.saxpy_device_scalar(a_dev, x, y),
-             tut.saxpy_plain(a_dev, x, y)),
-            ("laplacian_halo", lambda: tut.laplacian_halo(x), tut.laplacian_halo_plain(x))):
+    for name, fn, want in (*_tut_saxpys(x, y, a_dev),
+                           ("laplacian_halo", lambda: tut.laplacian_halo(x),
+                            tut.laplacian_halo_plain(x))):
         assert torch.equal(_tut_counted(name, fn), want), name
-    if shape[1] > 1:
-        xv, yv = x.reshape(-1)[1:shape[1]][None], y.reshape(-1)[1:shape[1]][None]
-        assert torch.equal(tut.saxpy_gridded(2.5, xv, yv), tut.saxpy_plain(2.5, xv, yv))
+    n = shape[0] * shape[1]
+    for offsets in TUT_OFFSETS:
+        xv, yv = (torch.from_numpy(gen.normal(size=n + off).astype(np.float32)).to(cuda_device)
+                  [off:].view(shape) for off in offsets)
+        for name, fn, want in _tut_saxpys(xv, yv, a_dev):
+            assert torch.equal(_tut_counted(name, fn), want), (name, offsets)
     tol = 1e-6 * torch.sum(torch.abs(x)).item()
     got = _tut_counted("block_sum", lambda: tut.block_sum(x))
     assert got.dim() == 0 and abs(got.item() - tut.block_sum_plain(x).item()) <= tol
@@ -1274,6 +1291,22 @@ def test_tutorial_kernels_match_plain(shape, gen, cuda_device):  # noqa: F811
     for g, w in zip(got[:2], want[:2]):
         assert abs(g.item() - w.item()) <= tol
     assert got[2].item() == want[2].item() and got[3].item() == want[3].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 65535 * 1024 + 5), (66000, 1100)],
+                         ids=["a row of 64M", "66000 rows"])
+def test_tutorial_saxpys_past_the_grid_limit(shape, gen, cuda_device):  # noqa: F811
+    """A row of over 65535 blocks' values, and more rows than 65535 tiles
+    of one (the grid's y limit: tiles of more rows): the three saxpys bit
+    for bit, aligned and from views at storage offsets."""
+    n = shape[0] * shape[1]
+    a_dev = torch.full((1,), 1.7, device=cuda_device)
+    for offsets in [(0, 0), (1, 2)]:
+        x, y = (torch.from_numpy(gen.normal(size=n + off).astype(np.float32)).to(cuda_device)
+                [off:].view(shape) for off in offsets)
+        for name, fn, want in _tut_saxpys(x, y, a_dev):
+            assert torch.equal(_tut_counted(name, fn), want), (name, offsets)
 
 
 @pytest.mark.cuda

@@ -34,6 +34,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 import pallas_tutorial  # noqa: E402
 
 SHAPES = [(256, 256), (384, 256)]
+# storage offsets (x, y) in floats of the saxpys' views (as on the card)
+OFFSETS = [(1, 1), (1, 2), (3, 0), (4, 4)]
 RAGGED = [(257, 263), (1, 1), (1, 5000), (5000, 1)]
 SUM_RTOL = 1e-6
 PASS_LINES = ["1 whole-array saxpy", "2 gridded saxpy", "3 smem-scalar saxpy",
@@ -82,6 +84,34 @@ def test_saxpy_matches_jax(step, a, shape, rng):
     assert got.dtype == np.float32 and got.shape == shape
     assert np.array_equal(got, tut.saxpy_plain(a, _t(x), _t(y)).numpy())
     ulp = np.spacing(np.abs(np.float32(a) * x) + np.abs(y))
+    assert np.all(np.abs(got.astype(np.float64) - want) <= ulp), step
+
+
+def _view(a, offset):
+    """``a``'s values in a tensor viewed ``offset`` floats into its storage."""
+    buf = torch.zeros(a.size + offset, dtype=torch.float32)
+    buf[offset:] = torch.from_numpy(a.reshape(-1))
+    return buf[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("offsets", OFFSETS, ids=lambda o: f"x{o[0]}y{o[1]}")
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("step", list(SAXPY))
+def test_saxpy_offset_views_match_jax(step, shape, offsets, rng):
+    """Steps 1-3 on x and y viewed at storage offsets (x, y and the fresh
+    output at their own 16-byte phases, or sharing one), the wrapper (its
+    plain version on the CPU) against the Pallas kernel on the same values,
+    within 1 ulp of |a x| + |y|, and bit for bit to the plain version on
+    contiguous copies."""
+    x, y = _inputs(rng, shape)
+    xv, yv = _view(x, offsets[0]), _view(y, offsets[1])
+    assert (xv.storage_offset(), yv.storage_offset()) == offsets and xv.is_contiguous()
+    jax_fn, port_fn = SAXPY[step]
+    want = np.asarray(jax_fn(-1.3, jnp.asarray(x), jnp.asarray(y)))
+    got = port_fn(-1.3, xv, yv).numpy()
+    assert got.dtype == np.float32 and got.shape == shape
+    assert np.array_equal(got, tut.saxpy_plain(-1.3, _t(x), _t(y)).numpy())
+    ulp = np.spacing(np.abs(np.float32(-1.3) * x) + np.abs(y))
     assert np.all(np.abs(got.astype(np.float64) - want) <= ulp), step
 
 
