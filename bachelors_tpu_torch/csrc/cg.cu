@@ -60,10 +60,28 @@
 //     and no path wires ghost rows.
 //
 // K9  bt_update_xr_rr: replaces `pallas_cg.py:_update_xr_rr` (:310,
-//     entry `update_xr_rr` :343).  x += alpha p and r -= alpha Ap in place,
-//     and <r', r'> of the new r: block partials, then the one-block sum.
-//     Pointwise, so in place is safe.  Bound by bytes (4 fields read, 2
-//     written).
+//     entry `update_xr_rr` :343) with the alpha the JAX loop forms before
+//     it (`solvers/cg.py:112`): alpha = rr / (pAp < eps ? eps : pAp) from
+//     the two device scalars, x += alpha p and r -= alpha Ap in place, and
+//     <r', r'> of the new r.  Pointwise, so in place is safe.  Bound by
+//     bytes: 4 fields read, 2 written, 1.88 us at float32 512^2 and 3.76 at
+//     float64 (3.35 TB/s).  What held it back: two launches a call (the
+//     update with one partial per 256-cell chunk, then the one-block sum
+//     of the partials), and before them two eager torch ops of the loop
+//     (a clamp and a division) that formed alpha, so three host
+//     dispatches and four launches a CG iteration sat between K8 and the
+//     host read.  Design: alpha formed in the kernel with the loop's
+//     rounding (`div_rn`, the select keeping a NaN pAp as torch.clamp
+//     does), one cell a thread in chunk order, and the sum finished in the
+//     same launch as K8's (`matvec_pAp_kernel`): at most kSumThreads
+//     blocks, block b adding chunks b, b + kSumThreads, ... into its lane,
+//     the last block to draw the ticket adding the lanes by `lane_tree`.
+//     That is the one-block sum's order, so x, r and <r', r'> keep the bits
+//     of the two launches, and nothing runs between K8 and K9.  A block's
+//     warps run through a pass of up to kK9Pass chunks without a barrier.
+//     At 512^2, the semi-implicit path's size, a call takes 4.7 us on the
+//     device against 6.7 for the two launches and the two ops; at float64
+//     4096^2 it runs 4% slower than they do (PERF.md §6).
 //
 // K10 bt_advance_p: replaces `pallas_cg.py:_axpby_inplace` (:274, entry
 //     `axpby_inplace` :300) as the CG loop calls it, a = 1 and b = beta:
@@ -104,10 +122,10 @@
 //     whole grid bit for bit.  Bound by bytes like K14.
 //
 // The partial sums are added in a fixed order, never by a library
-// reduction: K9's by a second kernel (`sum_partials_kernel`), as K2's error
-// maxima are; K8's, K12.8's and K8b's by their own last block in that
-// kernel's exact order, so a K8 dot product has the bits it had as two
-// launches.  Block sums run in a fixed tree order, so a result does not
+// reduction: K8's, K12.8's, K8b's and K9's by their own last block, in the
+// exact order of the one-block sum kernel each launched after it before,
+// so a dot product has the bits it had as two launches.  Block sums run in
+// a fixed tree order, so a result does not
 // change from run to run; it differs from torch.sum's order by ~1e-7
 // relative in float32 (~1e-16 in float64).
 #include <cuda_runtime.h>
@@ -142,17 +160,9 @@ __device__ __forceinline__ Real block_sum(Real v, Real* red) {
 
 // ---------------------------------------------------------------- K8 ----
 
-// A fence with acquire and release semantics at device scope: what the
-// ticket protocol needs, and lighter than __threadfence()'s sequentially
-// consistent one.  Before a relaxed atomic it releases this thread's writes
-// to whoever reads the atomic's result; after one, it acquires what the
-// writers released.
-__device__ __forceinline__ void fence_acq_rel_gpu() {
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");
-}
-
-// The tree of sum_partials_kernel's kSumThreads lane sums (block_sum
-// <kSumThreads>: warp shuffles, then over the warps), lanes[0:n] and 0
+// The tree of the one-block sum kernel that K8 and K9 each launched after
+// their blocks before (block_sum<kSumThreads> over kSumThreads lane sums:
+// warp shuffles, then over the warps), lanes[0:n] and 0
 // past them, by a kCgThreads block; valid in thread 0.  Thread t carries
 // lanes t + q kCgThreads (q < 4), so warp w's shuffles of register q are
 // lane-warp w + 8q's, and warp 0 finishes over the 32 lane-warp sums.  The
@@ -267,28 +277,6 @@ __global__ void __launch_bounds__(kCgThreads)
 
 // ---------------------------------------------------------------- K9 ----
 
-template <class Real>
-__global__ void __launch_bounds__(kCgThreads)
-    update_xr_rr_kernel(Real* __restrict__ x, Real* __restrict__ r,
-                        const Real* __restrict__ p, const Real* __restrict__ Ap,
-                        const Real* __restrict__ alpha, Real* __restrict__ partials,
-                        int n) {
-  __shared__ Real red[kCgThreads / 32];
-  const int c = blockIdx.x * kCgThreads + threadIdx.x;
-  Real rr = Real(0);
-  if (c < n) {
-    const Real a = *alpha;
-    x[c] = x[c] + a * p[c];
-    const Real rn = r[c] - a * Ap[c];
-    r[c] = rn;
-    rr = rn * rn;
-  }
-  const Real total = block_sum<kCgThreads>(rr, red);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
-}
-
-// --------------------------------------------------------------- K10 ----
-
 // Each operation rounded on its own: cg.cu is built with FMA contraction.
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
@@ -296,6 +284,82 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+// Chunks of a block's pass of K9: their warp sums wait in shared memory,
+// and the block meets at one barrier a pass, not one a chunk.
+constexpr int kK9Pass = 64;
+static_assert(kK9Pass <= kCgThreads, "one thread a chunk forms the pass's partials");
+
+// x += a p and r -= a Ap for the n cells, a = *rr / max(*pAp, eps), and
+// <r', r'> into *rr_out, in the order of the one-block sum launch this
+// kernel replaces: chunks of kCgThreads cells, each summed by block_sum
+// into a partial; lane L of kSumThreads adding partials L, L + kSumThreads,
+// ... from 0; then the lanes' tree.  The grid is min(chunks, kSumThreads)
+// blocks and block b takes chunks b, b + kSumThreads, ...: lane b's
+// partials.  Each warp runs through up to kK9Pass of them without a
+// barrier, keeping each chunk's shuffle sum (block_sum's first stage);
+// then each chunk's partial is block_sum's second stage over its eight
+// warp sums, ((w0 + w4) + (w2 + w6)) + ((w1 + w5) + (w3 + w7)) (the lanes
+// past them add 0, and a square is never -0), and thread 0 adds the
+// partials into lane b in chunk order.  The ticket as K8's: the block that
+// draws the last one adds the lanes into *rr_out.  The update keeps the
+// two launches' expressions, contracted to the same FMAs, so x and r keep
+// their bits too.
+template <class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    update_xr_rr_kernel(Real* __restrict__ x, Real* __restrict__ r,
+                        const Real* __restrict__ p, const Real* __restrict__ Ap,
+                        const Real* __restrict__ rr, const Real* __restrict__ pAp, Real eps,
+                        Real* lanes, unsigned* ticket, Real* __restrict__ rr_out, int n,
+                        int chunks) {
+  constexpr int kWarps = kCgThreads / 32;
+  __shared__ Real warp_sums[kK9Pass][kWarps];
+  __shared__ Real partials[kK9Pass];
+  __shared__ Real red[kSumThreads / 32];  // the lanes' tree
+  __shared__ bool last;
+  const Real den = *pAp < eps ? eps : *pAp;  // a NaN pAp stays NaN, as torch.clamp keeps it
+  const Real a = div_rn(*rr, den);
+  const int warp = threadIdx.x >> 5;
+  Real lane = Real(0);  // in thread 0
+  for (int k0 = blockIdx.x; k0 < chunks; k0 += kK9Pass * kSumThreads) {
+    const int left = (chunks - 1 - k0) / kSumThreads + 1;
+    const int m = left < kK9Pass ? left : kK9Pass;  // this pass's chunks
+    for (int q = 0; q < m; ++q) {
+      const int c = (k0 + q * kSumThreads) * kCgThreads + threadIdx.x;
+      Real v = Real(0);
+      if (c < n) {
+        x[c] = x[c] + a * p[c];
+        const Real rn = r[c] - a * Ap[c];
+        r[c] = rn;
+        v = rn * rn;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+      if ((threadIdx.x & 31) == 0) warp_sums[q][warp] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < m) {
+      const Real* w = warp_sums[threadIdx.x];
+      partials[threadIdx.x] = ((w[0] + w[4]) + (w[2] + w[6])) + ((w[1] + w[5]) + (w[3] + w[7]));
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int q = 0; q < m; ++q) lane += partials[q];
+  }
+  if (threadIdx.x == 0) {
+    lanes[blockIdx.x] = lane;
+    fence_acq_rel_gpu();  // releases the lane with the ticket
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+    if (last) fence_acq_rel_gpu();  // acquires every block's lane
+  }
+  __syncthreads();
+  if (last) {
+    const Real sum = lane_tree(lanes, int(gridDim.x), red);
+    if (threadIdx.x == 0) *rr_out = sum;
+  }
+}
+
+// --------------------------------------------------------------- K10 ----
 
 // W values of 16 bytes, loaded and stored at once
 template <class Real, int W>
@@ -359,18 +423,7 @@ __global__ void __launch_bounds__(kCgThreads)
   out[c] = r - Ae;
 }
 
-// ------------------------------------------------------- partial sums ----
-
-// out[0] = sum of partials[0:n], in one block and a fixed order.
-template <class Real>
-__global__ void __launch_bounds__(kSumThreads)
-    sum_partials_kernel(const Real* __restrict__ partials, int n, Real* __restrict__ out) {
-  __shared__ Real red[kSumThreads / 32];
-  Real v = Real(0);
-  for (int k = threadIdx.x; k < n; k += kSumThreads) v += partials[k];
-  const Real total = block_sum<kSumThreads>(v, red);
-  if (threadIdx.x == 0) out[0] = total;
-}
+// ------------------------------------------------------------ launches ----
 
 inline dim3 matvec_grid(int ny, int nx) {
   return dim3((nx + kCgBlockX - 1) / kCgBlockX, (ny + kCgBlockY - 1) / kCgBlockY);
@@ -378,13 +431,12 @@ inline dim3 matvec_grid(int ny, int nx) {
 
 inline int pointwise_blocks(int n) { return (n + kCgThreads - 1) / kCgThreads; }
 
-// Partials K9 writes (and K8's at most kSumThreads lanes) for a (ny, nx)
-// field; K8's ticket counter sits in the slot after them
-// (`bt_cg_num_partials` counts it).
+// Values past which K8's and K9's lanes never reach for a (ny, nx) field:
+// K8's 8x32 tiles, at least as many as K9's 256-cell chunks; their ticket
+// counter sits in the slot after them (`bt_cg_num_partials` counts it).
 inline int cg_partials(int ny, int nx) {
-  dim3 g = matvec_grid(ny, nx);
-  int a = int(g.x * g.y), b = pointwise_blocks(ny * nx);
-  return a > b ? a : b;
+  const dim3 g = matvec_grid(ny, nx);
+  return int(g.x * g.y);
 }
 
 // K8 (r null) or K8b (r, beta and p_out given): out = A p (or A p', p_out
@@ -415,15 +467,15 @@ int matvec_pAp(const Real* p, const Real* s, const Real* r, const Real* beta, Re
   return int(cudaGetLastError());
 }
 
+// K9: its lanes and ticket in `partials`, as K8's
 template <class Real>
-int update_xr_rr(Real* x, Real* r, const Real* p, const Real* Ap, const Real* alpha,
-                 Real* partials, Real* rr, int n, cudaStream_t stream) {
-  int blocks = pointwise_blocks(n);
-  update_xr_rr_kernel<<<blocks, kCgThreads, 0, stream>>>(x, r, p, Ap, alpha, partials, n);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  sum_partials_kernel<<<1, kSumThreads, 0, stream>>>(static_cast<const Real*>(partials),
-                                                     blocks, rr);
+int update_xr_rr(Real* x, Real* r, const Real* p, const Real* Ap, const Real* rr,
+                 const Real* pAp, Real eps, Real* partials, Real* rr_out, int ny, int nx,
+                 cudaStream_t stream) {
+  const int n = ny * nx, chunks = pointwise_blocks(n);
+  unsigned* ticket = reinterpret_cast<unsigned*>(partials + cg_partials(ny, nx));
+  update_xr_rr_kernel<<<chunks < kSumThreads ? chunks : kSumThreads, kCgThreads, 0, stream>>>(
+      x, r, p, Ap, rr, pAp, eps, partials, ticket, rr_out, n, chunks);
   return int(cudaGetLastError());
 }
 
@@ -478,8 +530,10 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 //   K8b bt_advance_p_matvec: p_out = p' = r + beta[0] p, out = A p' and
 //      pAp[0] = <p', A p'>, A as for K8.  p_out and out overlap none of r,
 //      p, s and each other.
-//   K9 bt_update_xr_rr: x += alpha p, r -= alpha Ap (in place, n cells),
-//      rr[0] = <r, r>.
+//   K9 bt_update_xr_rr: x += alpha p, r -= alpha Ap (in place, (ny, nx)
+//      fields) with alpha = rr[0] / (pAp[0] < eps ? eps : pAp[0]), and
+//      rr_out[0] = <r, r> of the new r; rr and pAp are device scalars,
+//      rr_out another.  partials as K8's, shared with it on one stream.
 //   K10 bt_advance_p: p = r + beta p in place (n cells), beta = rr_new[0] /
 //      (rr[0] < eps ? eps : rr[0]); rr_new and rr are device scalars.
 //   K14 bt_si_residual: out = r0 - A e for mode 0 (cross: C e + X (E+W) +
@@ -505,9 +559,11 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
     return bt::matvec_pAp<S>(p, s, r, beta, p_out, out, partials, pAp, ny, nx, bc, C, \
                              X, Y, bt::whole_grid<S>(), stream);                      \
   }                                                                                   \
-  int bt_update_xr_rr_##SFX(S* x, S* r, const S* p, const S* Ap, const S* alpha,     \
-                            S* partials, S* rr, int n, cudaStream_t stream) {         \
-    return bt::update_xr_rr<S>(x, r, p, Ap, alpha, partials, rr, n, stream);         \
+  int bt_update_xr_rr_##SFX(S* x, S* r, const S* p, const S* Ap, const S* rr,        \
+                            const S* pAp, S eps, S* partials, S* rr_out, int ny, int nx, \
+                            cudaStream_t stream) {                                    \
+    return bt::update_xr_rr<S>(x, r, p, Ap, rr, pAp, eps, partials, rr_out, ny, nx,  \
+                               stream);                                               \
   }                                                                                   \
   int bt_advance_p_##SFX(const S* r, S* p, const S* rr_new, const S* rr, S eps, int n, \
                          cudaStream_t stream) {                                       \
@@ -536,8 +592,8 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 extern "C" {
 
 // Values the partials buffer of K8 and K9 must hold for a (ny, nx) field:
-// their partials, then one slot whose first 4 bytes are K8's ticket
-// counter, which must be zeroed once, when the buffer is allocated.
+// their lanes, then one slot whose first 4 bytes are their ticket counter,
+// which must be zeroed once, when the buffer is allocated.
 int bt_cg_num_partials(int ny, int nx) { return bt::cg_partials(ny, nx) + 1; }
 
 BT_CG_ENTRIES(f32, float)

@@ -241,6 +241,15 @@ __device__ __forceinline__ void physics(const PhysParams<Real>& P, Real Fc, Real
   dU = lapU + P.L * dF + fu;
 }
 
+// A fence with acquire and release semantics at device scope: what the
+// ticket protocol of a launch that finishes its own reduction needs (K5,
+// K8, K9), and lighter than __threadfence()'s sequentially consistent one.
+// Before a relaxed atomic it releases this thread's writes to whoever reads
+// the atomic's result; after one, it acquires what the writers released.
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
 // max that keeps a NaN from either side (fmaxf would drop it): an error
 // estimate that is NaN must never read as converged.
 template <class Real>

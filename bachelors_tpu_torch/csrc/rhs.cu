@@ -97,12 +97,23 @@
 // K5  bt_rkm_final: replaces `_make_kernel` in mode "rkm_final" (:441,
 //     entry `rkm_final_stage_pallas` :1373; on a mesh
 //     `rkm_final_stage_pallas_sharded` :767): k5 = f(x + tau/2 k1 - 3tau/2 k3
-//     + 2tau k4), x + tau/6 (k1 + 4 k4 + k5) and the per-block maxima of
-//     |0.2 k1 - 0.9 k3 + 0.8 k4 - 0.1 k5|, reduced as K2's.  Bound by bytes:
-//     it reads 8 fields and writes 2.  Design: K1's, one thread per cell,
-//     k5 in registers (never stored); the block's maxima through shared
-//     memory.  On one device no path launches it (K2 takes every grid); the
-//     x and 2D meshes do, with ghosts.
+//     + 2tau k4), x + tau/6 (k1 + 4 k4 + k5) and the maxima of
+//     |0.2 k1 - 0.9 k3 + 0.8 k4 - 0.1 k5| per field.  Bound by bytes: it
+//     reads 8 fields and writes 2 (40 B per cell at float, 1.57 us on a
+//     512x256 shard).  What held it back (6.14 us on an x(2) shard with
+//     its fold, plus a ~2 us second launch; PERF.md §6): every cell ran the edge
+//     rule's compares and selects on each of the four-state blends and
+//     atan2 and cos even at S = 0, the block's maxima went through a
+//     256-wide shared-memory tree of eight barriers, and a one-block kernel
+//     reduced the partials in a second launch.  Design: K1's, one thread
+//     per cell, k5 in registers (never stored); interior blocks read their
+//     neighbours without the edge rule, S = 0 takes the isotropic
+//     instantiation, and each block's maxima go by warp shuffles and one
+//     atomicMax a field into a pair that the block finishing last moves
+//     into err, in the same launch (see rkm_final_kernel).  On one device
+//     no path launches it (K2 takes every grid); the x and 2D meshes do,
+//     with ghosts, and the float64 staged route on shards thinner than
+//     K2's apron.
 //
 // K12.1 bt_blend_rhs_halo and bt_halo_edges: replaces
 //     `_stage_call_sharded` (:705) -> `_call` (:539) with ghost rows and
@@ -371,19 +382,6 @@ __device__ __forceinline__ Stencil<Real> inner_stencil(const BlendArgs<Real>& a,
           U(c), U(c + nx), U(c - nx), U(c + 1), U(c - 1)};
 }
 
-// The blend sum_k w_k (F_k, U_k) at cell (i, j), as (Fc, Uc), and the RHS
-// there, as (dF, dU), from `edge_stencil`.
-template <int NS, class Real>
-__device__ __forceinline__ void blend_rhs_at(const BlendArgs<Real>& a, const Halo<Real>& h,
-                                             int i, int j, int ny, int nx, Real d, Real fu,
-                                             const PhysParams<Real>& P, Real& Fc,
-                                             Real& Uc, Real& dF, Real& dU) {
-  const Stencil<Real> v = edge_stencil<NS>(a, h, i, j, ny, nx, d, P);
-  physics(P, v.fc, v.fn, v.fs, v.fe, v.fw, v.uc, v.un, v.us, v.ue, v.uw, fu, dF, dU);
-  Fc = v.fc;
-  Uc = v.uc;
-}
-
 // K1 and, with a halo, K12.1 (K12.3 in euler mode).  Where K1's time went
 // (PERF.md §6): every cell ran `cross_at`'s compares and selects for each
 // neighbour, and evaluated atan2 and cos even at S = 0.  Here a block whose
@@ -466,28 +464,96 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 
 // ------------------------------------------------- K5, K12.1's ghost gather ----
 
+__device__ __forceinline__ float shfl_down(float v, int off) {
+  return __shfl_down_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ Rn shfl_down(Rn v, int off) {
+  return __shfl_down_sync(0xffffffffu, v.v, off);
+}
+
+// The block's maxima of a and b (NaN kept), valid in thread 0: across each
+// warp by shuffles, then across the warps; `tid` is the thread's index in
+// the block (NT threads, warps of consecutive indices).  A max is exact in
+// any order.
+template <int NT, class Real>
+__device__ __forceinline__ void block_max2(Real& a, Real& b, Real* red, int tid) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a = nan_max(a, shfl_down(a, off));
+    b = nan_max(b, shfl_down(b, off));
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane == 0) {
+    red[warp] = a;
+    red[NT / 32 + warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    a = lane < NT / 32 ? red[lane] : Real(0);
+    b = lane < NT / 32 ? red[NT / 32 + lane] : Real(0);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      a = nan_max(a, shfl_down(a, off));
+      b = nan_max(b, shfl_down(b, off));
+    }
+  }
+}
+
+// A maximum of values that are never negative (|.|, NaN included) kept
+// as the unsigned integer of the value's bits: those integers order as the
+// values do, +0 is 0, and every NaN with its sign bit clear lies above +inf,
+// so an atomicMax over them is nan_max, exact in any order.
+template <class Real>
+struct MaxBits;
+template <>
+struct MaxBits<float> {
+  using T = unsigned int;
+  __device__ static T of(float v) { return __float_as_uint(v); }
+  __device__ static float value(T b) { return __uint_as_float(b); }
+};
+template <>
+struct MaxBits<Rn> {
+  using T = unsigned long long;
+  __device__ static T of(Rn v) { return static_cast<T>(__double_as_longlong(v.v)); }
+  __device__ static Rn value(T b) { return __longlong_as_double(static_cast<long long>(b)); }
+};
+
 // K5: a = {x, k1, k3, k4} with weights {1, tau/2, -3 tau/2, 2 tau}; k5 at the
 // cell, the update x + c6 (k1 + 4 k4 + k5) and the error |0.2 k1 - 0.9 k3 +
-// 0.8 k4 - 0.1 k5| in the JAX kernel's order (`pallas_rhs.py:441-454`), its
-// per-block maxima (NaN kept) into `partials` for reduce_partials_kernel.
-// On a shard the FOLD instantiation writes its output's own edges, the next
-// step's first ghosts (`fo`, m = 0), kept by the host only if it accepts
-// the attempt.
-template <bool FOLD, class Real>
+// 0.8 k4 - 0.1 k5| in the JAX kernel's order (`pallas_rhs.py:441-454`), and
+// its maxima over the grid (NaN kept) into err[0], err[1].  On a shard the
+// FOLD instantiation writes its output's own edges, the next step's first
+// ghosts (`fo`, m = 0), kept by the host only if it accepts the attempt.
+// K1's structure: a block whose cells and ring lie inside the fields reads
+// its neighbours without the edge rule, the others keep it, both feed one
+// physics body, and S = 0 takes the isotropic instantiation: the same
+// operations on the same values, so the same bits.  Each block's maxima go
+// by warp shuffles, then by one atomicMax each (`MaxBits`) into
+// the pair `acc`, zero between launches; thread 0 of the block that draws
+// the last ticket (K8's protocol, the counter after the pair, left at 0)
+// moves the pair into err and zeroes it.  A max is exact in any order, so
+// err is what the one-block reduction launched after it gave.
+template <bool ISO, bool FOLD, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     rkm_final_kernel(BlendArgs<Real> a, Real c6, Real* __restrict__ outF,
-                     Real* __restrict__ outU, Real* __restrict__ partials, int ny, int nx,
-                     Real d, Real fu, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
+                     Real* __restrict__ outU, typename MaxBits<Real>::T* acc, unsigned* ticket,
+                     Real* __restrict__ err, int ny, int nx, Real d, Real fu, Halo<Real> h,
+                     Fold<Real> fo, PhysParams<Real> P) {
   constexpr int kThreads = kK1BlockX * kK1BlockY;
-  __shared__ Real redF[kThreads], redU[kThreads];
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = blockIdx.y * blockDim.y + threadIdx.y;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const bool fold = FOLD && !inner_block(blockIdx.y * kK1BlockY, blockIdx.x * kK1BlockX, ny, nx);
+  __shared__ Real red[2 * kThreads / 32];
+  const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
+  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
+  const int tid = threadIdx.y * kK1BlockX + threadIdx.x;
+  const bool inner = inner_block(i0, j0, ny, nx);
   Real eF = Real(0), eU = Real(0);
-  if (i < ny && j < nx) {  // no early return: every thread joins the reduction
-    Real Fc, Uc, k5F, k5U;
-    blend_rhs_at<4>(a, h, i, j, ny, nx, d, fu, P, Fc, Uc, k5F, k5U);
+  if (inner || (i < ny && j < nx)) {  // no early return: every thread joins the maxima
+    Stencil<Real> v;
+    if (inner)
+      v = inner_stencil<4>(a, i0, j0, nx);
+    else
+      v = edge_stencil<4>(a, h, i, j, ny, nx, d, P);
+    Real k5F, k5U;
+    physics<ISO>(P, v.fc, v.fn, v.fs, v.fe, v.fw, v.uc, v.un, v.us, v.ue, v.uw, fu, k5F, k5U);
     const int c = i * nx + j;
     const Real k1F = a.F[1][c], k3F = a.F[2][c], k4F = a.F[3][c];
     const Real k1U = a.U[1][c], k3U = a.U[2][c], k4U = a.U[3][c];
@@ -495,24 +561,24 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     const Real nU = a.U[0][c] + c6 * (k1U + Real(4) * k4U + k5U);
     outF[c] = nF;
     outU[c] = nU;
-    if (fold) fold_end(fo, fold_begin(a, fo, i, j, ny, nx), i, j, ny, nx, nF, nU);
+    if (FOLD && !inner) fold_end(fo, fold_begin(a, fo, i, j, ny, nx), i, j, ny, nx, nF, nU);
     eF = abs_of(Real(0.2) * k1F - Real(0.9) * k3F + Real(0.8) * k4F - Real(0.1) * k5F);
     eU = abs_of(Real(0.2) * k1U - Real(0.9) * k3U + Real(0.8) * k4U - Real(0.1) * k5U);
   }
-  redF[tid] = eF;
-  redU[tid] = eU;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (tid < half) {
-      redF[tid] = nan_max(redF[tid], redF[tid + half]);
-      redU[tid] = nan_max(redU[tid], redU[tid + half]);
-    }
-    __syncthreads();
-  }
+  block_max2<kThreads>(eF, eU, red, tid);
   if (tid == 0) {
-    const int b = blockIdx.y * gridDim.x + blockIdx.x;
-    partials[b] = redF[0];
-    partials[gridDim.x * gridDim.y + b] = redU[0];
+    using Bits = MaxBits<Real>;
+    atomicMax(acc, Bits::of(eF));
+    atomicMax(acc + 1, Bits::of(eU));
+    const unsigned blocks = gridDim.x * gridDim.y;
+    fence_acq_rel_gpu();  // releases the block's maxima with the ticket
+    if (atomicInc(ticket, blocks - 1) == blocks - 1) {
+      fence_acq_rel_gpu();  // acquires every block's
+      err[0] = Bits::value(__ldcg(acc));
+      err[1] = Bits::value(__ldcg(acc + 1));
+      acc[0] = 0;
+      acc[1] = 0;
+    }
   }
 }
 
@@ -807,39 +873,6 @@ struct RkmSmem {
   Real red[2 * NT / 32];      // the error maxima of each warp
 };
 
-__device__ __forceinline__ float shfl_down(float v, int off) {
-  return __shfl_down_sync(0xffffffffu, v, off);
-}
-__device__ __forceinline__ Rn shfl_down(Rn v, int off) {
-  return __shfl_down_sync(0xffffffffu, v.v, off);
-}
-
-// The block's maxima of a and b (NaN kept), valid in thread 0: across each
-// warp by shuffles, then across the warps.  A max is exact in any order.
-template <int NT, class Real>
-__device__ __forceinline__ void block_max2(Real& a, Real& b, Real* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a = nan_max(a, shfl_down(a, off));
-    b = nan_max(b, shfl_down(b, off));
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red[warp] = a;
-    red[NT / 32 + warp] = b;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < NT / 32 ? red[lane] : Real(0);
-    b = lane < NT / 32 ? red[NT / 32 + lane] : Real(0);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a = nan_max(a, shfl_down(a, off));
-      b = nan_max(b, shfl_down(b, off));
-    }
-  }
-}
-
 // Merson's five stages on a loaded tile, the update and the block's error
 // maxima (`simulation.cu:400-404`); weights in the field type, as the
 // staged path computes them from a tau of that type.  EDGES: the tile's
@@ -907,7 +940,7 @@ __device__ __forceinline__ void rkm_stages(const Tile& T, RkmSmem<Real, NT>& s,
     eU = nan_max(eU, abs_of(Real(0.2) * s.k1U[c] - Real(0.9) * s.kaU[c] +
                             Real(0.8) * s.k4U[c] - Real(0.1) * k5U));
   });
-  block_max2<NT>(eF, eU, s.red);
+  block_max2<NT>(eF, eU, s.red, threadIdx.x);
   if (threadIdx.x == 0) {
     int b = blockIdx.y * gridDim.x + blockIdx.x;
     partials[b] = eF;
@@ -1423,24 +1456,28 @@ int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
 }
 
 // K5 on the whole grid (h = whole_grid) or on a shard: a = {x, k1, k3, k4};
-// its output's edges into fold_rows/fold_cols unless null
+// its output's edges into fold_rows/fold_cols unless null; the isotropic
+// instantiation when S = 0; the maxima finished in the launch through
+// `scratch` (bt_rkm_final_scratch values: the pair of maxima, then the
+// ticket counter)
 template <class S>
 int rkm_final(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k3F,
               const S* k3U, const S* k4F, const S* k4U, S w1, S w2, S w3, S c6, S* outF,
-              S* outU, S* partials, S* err, int ny, int nx, S d, S fu, bt::Halo<Ar<S>> h,
+              S* outU, S* scratch, S* err, int ny, int nx, S d, S fu, bt::Halo<Ar<S>> h,
               S* fold_rows, S* fold_cols, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   bt::BlendArgs<R> a = blend_args(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3);
   const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, 0, S(0), S(0), S(0));
-  dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
-  auto kernel = fold_rows != nullptr || fold_cols != nullptr ? bt::rkm_final_kernel<true, R>
-                                                              : bt::rkm_final_kernel<false, R>;
-  kernel<<<grid, block, 0, stream>>>(a, R(c6), ar(outF), ar(outU), ar(partials), ny, nx, R(d),
-                                     R(fu), h, fo, *P);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  bt::reduce_partials_kernel<<<1, bt::kReduceThreads, 0, stream>>>(
-      ar(static_cast<const S*>(partials)), int(grid.x * grid.y), ar(err));
+  const dim3 block(bt::kK1BlockX, bt::kK1BlockY), grid = k1_grid(ny, nx);
+  const bool iso = is_zero(P->S), fold = fold_rows != nullptr || fold_cols != nullptr;
+  auto kernel = iso ? (fold ? bt::rkm_final_kernel<true, true, R>
+                            : bt::rkm_final_kernel<true, false, R>)
+                    : (fold ? bt::rkm_final_kernel<false, true, R>
+                            : bt::rkm_final_kernel<false, false, R>);
+  auto* acc = reinterpret_cast<typename bt::MaxBits<R>::T*>(scratch);
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + 2);
+  kernel<<<grid, block, 0, stream>>>(a, R(c6), ar(outF), ar(outU), acc, ticket, ar(err), ny,
+                                     nx, R(d), R(fu), h, fo, *P);
   return int(cudaGetLastError());
 }
 
@@ -1549,8 +1586,10 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
 //   K12.7 bt_si_prepare_halo: K7 on a shard, the halo that of (F, U).
 //   K5 bt_rkm_final: a = {x, k1, k3, k4} with weights {1, w1, w2, w3} =
 //      {1, tau/2, -3 tau/2, 2 tau}: outF/outU = x + c6 (k1 + 4 k4 + k5),
-//      err as K2's; partials holds 2 * bt_stage_num_blocks values; the
-//      output's own edges into fold_rows/fold_cols unless null.  On the
+//      err[0], err[1] the maxima as K2's, finished in the launch; scratch
+//      holds bt_rkm_final_scratch values, zeroed once when allocated, which
+//      each launch leaves at 0 (launches that share it run on one stream);
+//      the output's own edges into fold_rows/fold_cols unless null.  On the
 //      whole grid: null ghosts and all four edge bits.
 #define BT_MESH_ENTRIES(SFX, S)                                                          \
   int bt_halo_edges_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,           \
@@ -1590,12 +1629,12 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
   }                                                                                      \
   int bt_rkm_final_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,          \
                          const S* k3F, const S* k3U, const S* k4F, const S* k4U, S w1,  \
-                         S w2, S w3, S c6, S* outF, S* outU, S* partials, S* err,       \
+                         S w2, S w3, S c6, S* outF, S* outU, S* scratch, S* err,        \
                          int ny, int nx, S d, S fu, const S* rows, const S* cols,       \
                          int edges, S* fold_rows, S* fold_cols,                         \
                          const PhysParams<Ar<S>>* P, cudaStream_t stream) {             \
     return rkm_final<S>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, w1, w2, w3, c6, outF,     \
-                        outU, partials, err, ny, nx, d, fu, halo_of(rows, cols, edges), \
+                        outU, scratch, err, ny, nx, d, fu, halo_of(rows, cols, edges),  \
                         fold_rows, fold_cols, P, stream);                                \
   }
 
@@ -1669,11 +1708,10 @@ int bt_rk4_full_apron_f64(const double* F, const double* U, double* outF, double
                           ny, nx, h, dt, c6, d, fu, P, stream);
 }
 
-// Number of value pairs the K5 partials buffer holds (2 * this many values).
-int bt_stage_num_blocks(int ny, int nx) {
-  dim3 g = k1_grid(ny, nx);
-  return int(g.x * g.y);
-}
+// Number of values K5's scratch holds: the pair of maxima it gathers, then
+// one whose first 4 bytes are its ticket counter; all must be zeroed once,
+// when the buffer is allocated.
+int bt_rkm_final_scratch() { return 3; }
 
 // Number of value pairs the K2 partials buffer holds (2 * this many values).
 int bt_rkm_num_blocks(int ny, int nx) {

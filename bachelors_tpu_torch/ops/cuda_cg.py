@@ -23,7 +23,11 @@ float64 semi-implicit step:
     for ``cg_solve_fused``.  p' goes into ``p_out``, never into p or r (the
     kernel reads their neighbours); A p' may go into a dead ``out``.
   * K9 ``update_xr_rr``: x += alpha p, r -= alpha Ap in place, and
-    <r', r'> (``pallas_cg._update_xr_rr`` :310).
+    <r', r'> (``pallas_cg._update_xr_rr`` :310), with alpha = <r, r> /
+    max(<p, A p>, epsilon) formed in the kernel from the two dot products,
+    as the JAX loop forms it before the kernel (``solvers/cg.py:112``), so
+    no eager op runs between K8 and K9.  Its plain version forms alpha
+    with the loop's two torch ops.
   * K10 ``advance_p_inplace``: the direction update p = r + beta p in
     place (``pallas_cg._axpby_inplace`` :274 at a = 1, b = beta, the only
     form the CG loop calls), with beta = <r', r'> / max(<r, r>, epsilon)
@@ -41,14 +45,14 @@ float64 semi-implicit step:
     on one shard of a mesh (``*_residual_dd_sharded`` :1014-1039), counted
     as ``*_residual_sharded``.
 
-alpha, beta and K10's dot products are 0-dim tensors on the fields'
-device, read by the kernels through pointers; the dot products come back
-as 0-dim tensors there too.  Nothing here reads a value back to the host.  The kernels sum
-their per-block partials in a fixed order (``csrc/cg.cu``): K8, K12.8 and
-K8b in the same launch, K9 with a second one-block kernel.  The plain
-versions use ``torch.sum``, which adds in another order (~1e-7 relative in
-float32, ~1e-16 in float64); ``pAp_in_kernel_order`` adds K8's products in
-the kernel's own order, bit for bit.
+beta and the dot products that K9 and K10 take are 0-dim tensors on the
+fields' device, read by the kernels through pointers; the dot products
+come back as 0-dim tensors there too.  Nothing here reads a value back to
+the host.  The kernels sum their per-block partials in a fixed order, each
+in its own launch (``csrc/cg.cu``).  The plain versions use ``torch.sum``,
+which adds in another order (~1e-7 relative in float32, ~1e-16 in
+float64); ``pAp_in_kernel_order`` and ``rr_in_kernel_order`` add K8's and
+K9's terms in the kernels' own orders, bit for bit.
 
 Every kernel runs on float32 and on float64 tensors (``bt_*_f32`` and
 ``bt_*_f64`` in ``csrc/cg.cu``), dispatched on their dtype, which the
@@ -120,26 +124,43 @@ def _block_sum(v: torch.Tensor) -> torch.Tensor:
     return _warp_sum(torch.nn.functional.pad(warps, (0, 32 - warps.shape[-1])))
 
 
+def _lanes_tree(partials: torch.Tensor) -> torch.Tensor:
+    """The sum of the partials in the order of the one-block sum kernel
+    that K8 and K9 launched before they finished their own: 1024 lanes,
+    lane L adding partials L, L + 1024, ... from 0, then their tree."""
+    n = partials.numel()
+    lanes = partials.new_zeros(-(-n // _SUM_LANES) * _SUM_LANES)
+    lanes[:n] = partials
+    v = partials.new_zeros(_SUM_LANES)
+    for row in lanes.reshape(-1, _SUM_LANES):
+        v = v + row
+    return _block_sum(v.reshape(-1, 32))
+
+
 def pAp_in_kernel_order(p: torch.Tensor, Ap: torch.Tensor) -> torch.Tensor:
     """<p, Ap> added in K8's fixed order (K12.8's and K8b's too), from the
     products p * Ap of the kernel's own output Ap (K8b: p' and A p'): each
     8x32 block's tree of its cells' products (0 past the field's edge),
-    the partials in block order, then ``sum_partials_kernel``'s 1024
-    lanes, lane L adding partials L, L + 1024, ... from 0, and their
-    tree.  A 0-dim tensor of p's dtype on p's device, equal to the kernel's
-    bit for bit wherever each operation rounds alike."""
+    the partials in block order, then the lanes' tree (``_lanes_tree``).
+    A 0-dim tensor of p's dtype on p's device, equal to the kernel's bit for
+    bit wherever each operation rounds alike."""
     (ny, nx), (by, bx) = p.shape, _K8_BLOCK
     rows, cols = -(-ny // by), -(-nx // bx)
     prod = p.new_zeros(rows * by, cols * bx)
     prod[:ny, :nx] = p * Ap
-    partials = _block_sum(prod.reshape(rows, by, cols, bx).transpose(1, 2)).reshape(-1)
-    n = partials.numel()
-    lanes = p.new_zeros(-(-n // _SUM_LANES) * _SUM_LANES)
-    lanes[:n] = partials
-    v = p.new_zeros(_SUM_LANES)
-    for row in lanes.reshape(-1, _SUM_LANES):
-        v = v + row
-    return _block_sum(v.reshape(-1, 32))
+    return _lanes_tree(_block_sum(prod.reshape(rows, by, cols, bx).transpose(1, 2)).reshape(-1))
+
+
+def rr_in_kernel_order(r: torch.Tensor) -> torch.Tensor:
+    """<r, r> added in K9's fixed order, from the kernel's own output r:
+    each chunk of 256 cells in flat order summed by its block's tree (0
+    past the field's end), the chunks' sums in order, then the lanes' tree
+    (``_lanes_tree``).  A 0-dim tensor of r's dtype on r's device, equal to
+    the kernel's bit for bit wherever each operation rounds alike."""
+    n, chunk = r.numel(), _K8_BLOCK[0] * _K8_BLOCK[1]
+    sq = r.new_zeros(-(-n // chunk) * chunk)
+    sq[:n] = (r * r).reshape(-1)
+    return _lanes_tree(_block_sum(sq.reshape(-1, chunk // 32, 32)))
 
 
 def aniso_matvec_pAp_plain(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
@@ -184,8 +205,12 @@ def aniso_advance_p_matvec_plain(A: AnisotropyMatrix, s: torch.Tensor, r: torch.
 
 
 def update_xr_rr_plain(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
-                       Ap: torch.Tensor, alpha):
-    """x += alpha p and r -= alpha Ap, in place; returns (x, r, <r, r>)."""
+                       Ap: torch.Tensor, rr: torch.Tensor, pAp: torch.Tensor,
+                       epsilon: float):
+    """x += alpha p and r -= alpha Ap, in place, with alpha = rr /
+    max(pAp, epsilon): the CG loop's two torch ops (``torch.clamp`` keeps a
+    NaN); returns (x, r, <r, r>)."""
+    alpha = rr / torch.clamp(pAp, min=epsilon)
     x += alpha * p
     r -= alpha * Ap
     return x, r, torch.sum(r * r)
@@ -250,7 +275,7 @@ _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
 # Each entry's arguments, as ``cuda_rhs._ENTRIES`` has them.
 _ENTRIES = {"matvec_pAp": [PTR] * 5 + [INT, INT, INT] + [REAL] * 3 + [PTR],
             "advance_p_matvec": [PTR] * 8 + [INT, INT, INT] + [REAL] * 3 + [PTR],
-            "update_xr_rr": [PTR] * 7 + [INT, PTR],
+            "update_xr_rr": [PTR] * 6 + [REAL, PTR, PTR, INT, INT, PTR],
             "advance_p": [PTR] * 4 + [REAL, INT, PTR],
             "si_residual": [PTR] * 6 + [INT] * 4 + [REAL] * 4 + [PTR]}
 # K12.8 and K14's twin: K8's and K14's arguments and a halo's (rows, cols,
@@ -296,8 +321,8 @@ def _checked(fields, scalars=()):
 
 
 def _partials(v: torch.Tensor, dtype: torch.dtype, index: int) -> torch.Tensor:
-    """The per-block partials of K8's and K9's sums and K8's ticket counter,
-    reused (``scratch``, zeroed once)."""
+    """The lanes of K8's and K9's sums and their ticket counter, reused
+    (``scratch``, zeroed once)."""
     return scratch("cg_num_partials", tuple(v.shape), dtype, index)
 
 
@@ -421,17 +446,21 @@ def aniso_advance_p_matvec(A: AnisotropyMatrix, s: torch.Tensor, r: torch.Tensor
 
 
 def update_xr_rr(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
-                 Ap: torch.Tensor, alpha):
-    """K9: x += alpha p and r -= alpha Ap in place; returns (x, r, <r, r>)
-    with the dot product a 0-dim device tensor."""
+                 Ap: torch.Tensor, rr: torch.Tensor, pAp: torch.Tensor, epsilon: float):
+    """K9: x += alpha p and r -= alpha Ap in place, with alpha = rr /
+    max(pAp, epsilon) formed in the kernel from the two dot products, 0-dim
+    tensors on the fields' device (a NaN pAp stays NaN); returns (x, r,
+    <r', r'>) with the new dot product a 0-dim device tensor."""
     if not cuda_rhs._on_cuda(x, "update_xr_rr"):
-        return update_xr_rr_plain(x, r, p, Ap, alpha)
-    dtype, index = _checked((x, r, p, Ap), (alpha,))
-    rr = x.new_empty(())
+        return update_xr_rr_plain(x, r, p, Ap, rr, pAp, epsilon)
+    dtype, index = _checked((x, r, p, Ap), (rr, pAp))
+    rr_new = x.new_empty(())
+    ny, nx = x.shape
     launch(LAUNCHES, "update_xr_rr", fn("update_xr_rr", dtype), index,
-           x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(), alpha.data_ptr(),
-           _partials(x, dtype, index).data_ptr(), rr.data_ptr(), x.numel())
-    return x, r, rr
+           x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(), rr.data_ptr(),
+           pAp.data_ptr(), float(epsilon), _partials(x, dtype, index).data_ptr(),
+           rr_new.data_ptr(), ny, nx)
+    return x, r, rr_new
 
 
 def advance_p_inplace(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tensor,

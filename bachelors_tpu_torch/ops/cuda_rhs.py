@@ -33,8 +33,9 @@ kernels are hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
   * K5 ``rkm_final_stage``: Merson's fifth stage, the update and the error
     maxima in one pass, replacing ``_make_kernel`` in mode "rkm_final"
     (:441, ``rkm_final_stage_pallas`` :1373); K1's design, 8 fields read,
-    2 written, k5 never stored.  With a ``Halo`` it runs on one shard of a
-    mesh (``rkm_final_stage_pallas_sharded`` :767).
+    2 written, k5 never stored, its maxima finished in the same launch.
+    With a ``Halo`` it runs on one shard of a mesh
+    (``rkm_final_stage_pallas_sharded`` :767).
   * K12.1 ``blend_rhs_sharded``: K1 in rhs mode on a shard, its seams read
     from ghost rows and columns (``_stage_call_sharded`` :705), and
     ``halo_edges``, its ghost gather: the blend's edge rows and columns in
@@ -628,8 +629,8 @@ _F64_ENTRIES = {
     "euler_steps_apron": [_PTR] * 6 + [_INT] * 7 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
     "rk4_full_apron": [_PTR] * 6 + [_INT] * 6 + [_REAL] * 5 + [_PHYS_PTR, _PTR],
 }
-# The sizes of the partials buffers and of the tile kernels' shared memory
-_HELPERS = {"rkm_num_blocks": [_INT, _INT], "stage_num_blocks": [_INT, _INT],
+# The sizes of the scratch buffers and of the tile kernels' shared memory
+_HELPERS = {"rkm_num_blocks": [_INT, _INT], "rkm_final_scratch": [],
             "tile_smem_bytes": [_INT, _INT, _INT]}
 register(_ENTRIES, BOTH, _PHYS)
 register(_F32_ENTRIES, (torch.float32,), _PHYS)
@@ -926,7 +927,7 @@ def rkm_final_stage(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
                     p: SimParams, fu=0.0, dirichlet_value=0.0, halo: Halo = None,
                     fold: Fold = None):
     """K5: Merson's fifth stage, the update and the error maxima in one
-    pass (plus K2's one-block reduction of the per-block maxima), on the
+    launch (the last block to finish reduces every block's maxima), on the
     whole grid or, with a ``halo``, on one shard (``rkm_final_stage_pallas``
     :1373 and its sharded form :767); with a ``fold`` (weights (1,)) also
     the update's own edges, returned fourth.  Same contract as
@@ -947,10 +948,10 @@ def rkm_final_stage(x: Pair, k1: Pair, k3: Pair, k4: Pair, tau: np.floating,
     out_F, out_U = torch.empty_like(x[0]), torch.empty_like(x[0])
     emax = x[0].new_empty(2)
     edges = _fold_edges(fold, x[0], 0)
-    partials = scratch("stage_num_blocks", (ny, nx), dtype, index, per=2)
+    acc = scratch("rkm_final_scratch", (), dtype, index)  # its maxima and ticket
     launch(LAUNCHES, "rkm_final_stage", fn("rkm_final", dtype), index,
            *(t.data_ptr() for t in fields), *(float(v) for v in w[1:]), float(c6),
-           out_F.data_ptr(), out_U.data_ptr(), partials.data_ptr(), emax.data_ptr(),
+           out_F.data_ptr(), out_U.data_ptr(), acc.data_ptr(), emax.data_ptr(),
            ny, nx, float(dirichlet_value), float(fu), *_halo_args(halo, ny, nx),
            *_edge_ptrs(edges), _phys_ref(p, dtype))
     if fold is None:

@@ -24,10 +24,9 @@ instead (a ``lax.while_loop``); a sync-free loop is later work for the port
 On a mesh every vector operation runs shard by shard (K9 and K10 per
 shard on the kernel path), the dot products are combined on the first
 shard's device (``topo.dot``, ``topo.allsum`` of the kernels' shard-local
-partials: JAX :111-114), alpha is formed there, and alpha and the
-combined dot products that K10 forms beta from are moved to each shard's
-device; the loop still reads one value per iteration, the combined
-<r', r'>.
+partials: JAX :111-114), and the combined dot products that K9 forms
+alpha from and K10 beta from are moved to each shard's device; the loop
+still reads one value per iteration, the combined <r', r'>.
 
 ``cg_solve_fused`` (JAX :263) is the same recurrence with the direction
 update folded into the matvec, on one device: per iteration K9 and K8b
@@ -75,13 +74,16 @@ def _axpy(a: Field, c: torch.Tensor, b: Field) -> Field:
     return each(lambda x, y: x + c.to(x.device) * y, a, b)
 
 
-def _update_xr_rr(x: Field, r: Field, p: Field, Ap: Field, alpha: torch.Tensor,
-                  topo: Topology):
-    """K9 (per shard on a mesh, its partials combined): x += alpha p and
-    r -= alpha Ap in place; returns (x, r, <r, r>)."""
+def _update_xr_rr(x: Field, r: Field, p: Field, Ap: Field, rr: torch.Tensor,
+                  pAp: torch.Tensor, epsilon: float, topo: Topology):
+    """K9 (per shard on a mesh, each given the combined dot products on its
+    own device, its partials combined): x += alpha p and r -= alpha Ap in
+    place, alpha = rr / max(pAp, epsilon) formed in the kernel; returns (x,
+    r, <r', r'>)."""
     if not isinstance(x, Shards):
-        return cuda_cg.update_xr_rr(x, r, p, Ap, alpha)
-    out = [cuda_cg.update_xr_rr(*blocks, alpha.to(blocks[0].device))
+        return cuda_cg.update_xr_rr(x, r, p, Ap, rr, pAp, epsilon)
+    out = [cuda_cg.update_xr_rr(*blocks, rr.to(blocks[0].device), pAp.to(blocks[0].device),
+                                epsilon)
            for blocks in zip(x.blocks, r.blocks, p.blocks, Ap.blocks)]
     xs, rs, rrs = zip(*out)
     return Shards(xs, x.grid), Shards(rs, x.grid), topo.allsum(rrs)
@@ -131,9 +133,10 @@ def cg_solve(
     ``matvec_pAp``, when given, is a fused operator returning (A p, <p, A p>)
     in one pass and accepting a dead ``out`` buffer for A p (K8,
     ``ops/cuda_cg``; on a mesh K12.8, whose <p, A p> are the shards' own,
-    combined here); the x/r update then runs as the fused in-place K9 and
-    the direction update as the in-place K10, which forms beta from
-    <r', r'> and <r, r> itself, so nothing runs between K9 and K10 and a
+    combined here); the x/r update then runs as the fused in-place K9,
+    which forms alpha from <r, r> and <p, A p> itself, and the direction
+    update as the in-place K10, which forms beta from <r', r'> and <r, r>
+    itself, so on one device nothing runs between K8, K9 and K10 and a
     steady-state iteration allocates no field.  Without it the loop runs
     plain torch ops.
 
@@ -167,8 +170,7 @@ def cg_solve(
         Ap = None  # last iteration's Ap, dead once x and r are updated
         while it < max_iters:
             Ap, pAp = matvec_pAp(p, out=Ap)
-            alpha = rr / torch.clamp(topo.allsum(pAp), min=epsilon)
-            x, r, rr_new = _update_xr_rr(x, r, p, Ap, alpha, topo)
+            x, r, rr_new = _update_xr_rr(x, r, p, Ap, rr, topo.allsum(pAp), epsilon, topo)
             if _stop(rr_new, scaled_tol2):
                 # the JAX loop keeps p here (a = 0, b = 1); nothing reads p
                 # after the loop, so the launch is skipped
@@ -232,8 +234,7 @@ def cg_solve_fused(
 
     it = 0
     while it < max_iters:
-        alpha = rr / torch.clamp(pAp, min=epsilon)
-        x, r, rr_new = cuda_cg.update_xr_rr(x, r, p, Ap, alpha)
+        x, r, rr_new = cuda_cg.update_xr_rr(x, r, p, Ap, rr, pAp, epsilon)
         if _stop(rr_new, scaled_tol2):
             rr = rr_new  # the JAX loop keeps p, Ap here
             break

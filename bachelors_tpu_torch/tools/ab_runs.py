@@ -46,21 +46,31 @@ initial fields, each by its device µs per traced launch under
     PyTorch rival: K15.1-K15.3 beside ``torch.add(y, x, alpha=a)`` at
     256^2, 512^2, 1024^2, 2048^2 and 4096^2, K15.4 beside ``torch.sum`` at
     512^2 and 4096^2;
+  * ``k5``: K5 as the staged RKM path runs it, on a Merson attempt's own
+    x, k1, k3 and k4 from the config's initial fields at 512^2: on the
+    first shard of an x(2) and of a 2x2 mesh, writing its update's edges
+    (``cuda_rhs.Fold``), and on the whole grid without a fold, at S = 0.25
+    and S = 0, at float32 and float64;
   * ``cg``: the CG kernels K8 (both forms), K9 and K10 at 512^2, host ms
     per call and CUDA-event ms per call; K8 (both forms) and K12.8 (both
     forms, one shard of y(2)) at 512^2, 2048^2 and 4096^2, device µs per
     call summed over every kernel a call launches (the matvec and any sum
     after it), with the kernels it launched, and the device's wall time
     per call, gaps between its launches included, by CUDA events around
-    the replay of a CUDA graph of back-to-back calls (no host in it); and
-    rule 2's first test for K10 at float32 and float64 beside
-    ``torch.addcmul(r, rr, p)`` at 512^2 and 4096^2;
+    the replay of a CUDA graph of back-to-back calls (no host in it); K9
+    at float32 and float64 at 512^2 and 4096^2 as the CG loop calls it,
+    alpha formed from <r, r> and <p, A p> (where the checkout's K9 takes
+    alpha, the loop's two torch ops before it); and rule 2's first test
+    for K10 at float32 and float64 beside ``torch.addcmul(r, rr, p)`` at
+    512^2 and 4096^2;
 
-where rule 2's first test times each kernel and its rival on the same
-standard-normal inputs by the replay of a CUDA graph of ``RIVAL_REPS``
-back-to-back calls (and by CUDA events over as many eager calls): ms per
-call, each in turns with its rival (``rival_turns``: the rival, each
-kernel, each kernel in reverse, the rival; twice);
+where a replayed case (rule 2's first test, and K5's and K9's cases) times
+each kernel, and its rival where it has one, on the same inputs by the
+replay of a CUDA graph of ``RIVAL_REPS`` back-to-back calls (and by CUDA
+events over as many eager calls): ms per call, in turns (``rival_turns``:
+the rival, each kernel, each kernel in reverse, the rival; twice), and
+each kernel's device µs per traced launch of every kernel a call launches
+(``launches``);
 
 and the ptxas registers, spills and shared memory and the SASS
 instruction count of each K1, K2, K3, K4, K6, K8 and K10 instantiation of
@@ -107,21 +117,28 @@ RUNS = {
     "si-f64": ("bench_sweep_f64/config_semi-implicit_512_f64.ini", ""),
 }
 
-# rule 2's first test: (case, rival, kernels, dtype, sizes) of each group
+# the replayed cases: (case, rival or None, kernels, dtype, sizes) of each
+# group; rule 2's first test where a kernel has a PyTorch rival
+K5_CASES = tuple(f"K5 {where}{tag}" for where in ("x(2) shard, folding", "2x2 shard, folding",
+                                                   "whole grid") for tag in ("", " S=0"))
 RIVALS = {
     "k15": [("saxpy", "torch.add(y, x, alpha=a)", ("K15.1", "K15.2", "K15.3"), "float32",
              (256, 512, 1024, 2048, 4096)),
             ("sum", "torch.sum", ("K15.4",), "float32", (512, 4096))],
+    "k5": [("k5", None, K5_CASES, dtype, (512,)) for dtype in ("float32", "float64")],
     "cg": [("advance_p", "torch.addcmul(r, rr, p)", ("K10",), dtype, (512, 4096))
-           for dtype in ("float32", "float64")],
+           for dtype in ("float32", "float64")]
+          + [("k9", None, ("K9 (with alpha)",), dtype, (512, 4096))
+             for dtype in ("float32", "float64")],
 }
 RIVAL_REPS = 200
 
 
-def rival_turns(rival: str, kernels) -> list:
+def rival_turns(rival, kernels) -> list:
     """One case's turns: the rival, each kernel, each kernel in reverse, the
-    rival; twice."""
-    return [rival, *kernels, *kernels[::-1], rival] * 2
+    rival; twice.  Without a rival, the kernels alone."""
+    ends = [] if rival is None else [rival]
+    return [*ends, *kernels, *kernels[::-1], *ends] * 2
 
 
 def rival_plan(groups) -> list:
@@ -211,6 +228,52 @@ def timed(name, kernel, call, reps):
     # per traced launch: the profiler drops a device event now and then
     out[name] = {"device_us": sum(e.self_device_time_total for e in ev) / traced,
                  "traced": traced, "host_ms": host_ms}
+
+
+# Each of the port's kernels that ``reps`` calls launched: device µs per
+# traced launch and launches a call (a dropped event lowers neither time);
+# a trace without them is taken again.
+def launches(call, reps):
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        got = {e.key.split("(")[0].replace("void bt::", ""):
+               {"us_per_launch": e.self_device_time_total / e.count,
+                "launches_per_call": e.count / reps}
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key.startswith("void bt::") and e.count}
+        if got:
+            return got
+    raise RuntimeError("torch.profiler traced no launch of the port's kernels")
+
+
+# K5 on a Merson attempt's own states from the config's initial fields at
+# 512^2: on the first shard of x(2) and 2x2, folding, and on the whole grid,
+# at S = 0.25 and S = 0.
+def k5_calls(dtype):
+    cfg = load_config("config.ini", ["[tpu]\ndtype = %s\n" % dtype])
+    p = cfg.params
+    x = make_initial_fields(p, cfg.initial, device="cuda")
+    tau = np.dtype(dtype).type(p.dt)
+    k1, k3, k4 = cuda_rhs.merson_stages(
+        lambda ks, ws: cuda_rhs.blend_rhs([x, *ks], [1.0, *ws], p), tau)
+    calls = {}
+    for q, tag in ((p, ""), (p.replace(S=0.0), " S=0")):
+        for mesh, (sy, sx) in (("x(2)", (1, 2)), ("2x2", (2, 2))):
+            n = p.ny
+            st = [tuple(Shards(tuple(b.contiguous() for r in a.split(n // sy)
+                                     for b in r.split(n // sx, dim=1)), (sy, sx))
+                        for a in pair) for pair in (x, k1, k3, k4)]
+            h = stage_halos(st, cuda_rhs.k5_weights(tau), Topology(sy, sx))[0]
+            s0, one = shard_states(st, 0), cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
+            calls["K5 %s shard, folding%s" % (mesh, tag)] = (
+                lambda q=q, s0=s0, h=h, one=one: cuda_rhs.rkm_final_stage(
+                    *s0, tau, q, halo=h, fold=one))
+        calls["K5 whole grid" + tag] = lambda q=q: cuda_rhs.rkm_final_stage(x, k1, k3, k4, tau, q)
+    return calls
 
 
 rng = np.random.default_rng(0)
@@ -328,6 +391,17 @@ for case in plan:
                  "K15.3": lambda: tut.saxpy_device_scalar(a_dev, x, y)}
     elif case["case"] == "sum":
         calls = {"torch.sum": lambda: torch.sum(x), "K15.4": lambda: tut.block_sum(x)}
+    elif case["case"] == "k5":
+        calls = k5_calls(case["dtype"])
+    elif case["case"] == "k9":  # as the CG loop calls it, alpha from the two dots
+        r, p, Ap = (torch.from_numpy(rng.normal(size=(n, n))).to("cuda", dtype)
+                    for _ in range(3))
+        rr, pAp = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 370.0))
+        if hasattr(cuda_cg, "rr_in_kernel_order"):  # K9 forms alpha itself
+            k9 = lambda: cuda_cg.update_xr_rr(x, r, p, Ap, rr, pAp, 1e-10)
+        else:  # the checkout whose K9 takes alpha: the loop's two ops, then K9
+            k9 = lambda: cuda_cg.update_xr_rr(x, r, p, Ap, rr / torch.clamp(pAp, min=1e-10))
+        calls = {"K9 (with alpha)": k9}
     else:  # K10: p = r + (rr_new / rr) p in place, beside r + rr p
         rr_new, rr = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61))
         calls = {"torch.addcmul(r, rr, p)": lambda: torch.addcmul(x, rr, y),
@@ -361,6 +435,8 @@ for case in plan:
         end.synchronize()
         rows[name]["graph_ms"].append(start.elapsed_time(end) / RIVAL_REPS)
     for name, row in rows.items():
+        if case["case"] in ("k5", "k9"):
+            row["launches"] = launches(calls[name], 50)
         out["%s %s %d^2 back to back" % (name, case["dtype"], n)] = row
     del graphs
 if "cg" in groups:
@@ -375,15 +451,19 @@ if "cg" in groups:
         r, p, x, Ap = (torch.from_numpy(rng.normal(size=(512, 512))).to("cuda", dtype)
                        for _ in range(4))
         s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(512, 512))).to("cuda", dtype)
-        rr_new, rr, alpha = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61, 1e-3))
+        rr_new, rr, pAp = (torch.tensor(v, dtype=dtype, device="cuda") for v in (0.37, 0.61, 370.0))
         if hasattr(cuda_cg, "advance_p_inplace"):
             k10 = lambda: cuda_cg.advance_p_inplace(r, p, rr_new, rr, 1e-10)
         else:  # the checkout before K10 formed beta: the loop's two ops, then K10
             one = torch.ones((), dtype=dtype, device="cuda")
             k10 = lambda: cuda_cg.axpby_inplace(one, rr_new / torch.clamp(rr, min=1e-10), r, p)
+        if hasattr(cuda_cg, "rr_in_kernel_order"):  # K9 forms alpha from the two dots
+            k9 = lambda: cuda_cg.update_xr_rr(x, r, p, Ap, rr_new, pAp, 1e-10)
+        else:  # the checkout whose K9 takes alpha: the loop's two ops, then K9
+            k9 = lambda: cuda_cg.update_xr_rr(x, r, p, Ap, rr_new / torch.clamp(pAp, min=1e-10))
         calls = {"K8 cross": lambda: cuda_cg.cross_matvec_pAp(A_U, p, out=Ap),
                  "K8 aniso": lambda: cuda_cg.aniso_matvec_pAp(A_F, s, p, out=Ap),
-                 "K9": lambda: cuda_cg.update_xr_rr(x, r, p, Ap, alpha),
+                 "K9 (with alpha)": k9,
                  "K10 (with beta)": k10,
                  "torch.addcmul": lambda: torch.addcmul(r, rr, p)}
         for name, call in calls.items():
@@ -617,11 +697,12 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true",
                     help="time the one-device tile kernels and the CG kernels instead of "
                          "whole runs")
-    ap.add_argument("--groups", default="tile,euler,k1,k4,k15,cg",
+    ap.add_argument("--groups", default="tile,euler,k1,k4,k5,k15,cg",
                     help="with --kernels, the kernels to time, of tile (K2, K3, K12.6), "
                          "euler (K6 beside K1's Euler step), k1 (K1, K12.1, K12.3), k4 (K4, "
-                         "K12.4), k15 (K15.1-K15.4 beside torch.add and torch.sum) and cg "
-                         "(K8-K10, K12.8, K10 beside torch.addcmul); default all")
+                         "K12.4), k5 (K5 on x(2) and 2x2 shards and the whole grid), k15 "
+                         "(K15.1-K15.4 beside torch.add and torch.sum) and cg (K8-K10, K12.8, "
+                         "K9 replayed, K10 beside torch.addcmul); default all")
     ap.add_argument("--mesh-steps", action="store_true",
                     help="the staged mesh paths of BEFORE and AFTER in turns in one process")
     ap.add_argument("--cg-variant", action="store_true",

@@ -139,7 +139,7 @@ def main() -> None:
 
         r, p, x, Ap = field(), field(), field(), field()
         s = torch.from_numpy(0.33 + 0.08 * rng.uniform(-1, 1, size=(n, n))).to(dev, dtype)
-        rr_new, rr, alpha = scalar(0.37), scalar(0.61), scalar(1e-3)
+        rr_new, rr, pAp = scalar(0.37), scalar(0.61), scalar(370.0)
         A_U = CrossMatrix(C=1.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
         A_F = AnisotropyMatrix(Cm1=0.32, X=-0.08, Y=-0.08, boundary=BoundaryType.NEUMANN)
         part = cuda_launch.scratch("cg_num_partials", (n, n), dtype, p.get_device())
@@ -153,10 +153,10 @@ def main() -> None:
             lambda: torch.addcmul(r, rr, p))
         out.update(costs(
             "K9", dtype, "update_xr_rr", (x.data_ptr(), r.data_ptr(), p.data_ptr(),
-                                          Ap.data_ptr(), alpha.data_ptr(), part.data_ptr(),
-                                          dot.data_ptr(), n * n),
-            lambda: cuda_cg._checked((x, r, p, Ap), (alpha,)),
-            lambda: cuda_cg.update_xr_rr(x, r, p, Ap, alpha),
+                                          Ap.data_ptr(), rr.data_ptr(), pAp.data_ptr(), 1e-10,
+                                          part.data_ptr(), dot.data_ptr(), n, n),
+            lambda: cuda_cg._checked((x, r, p, Ap), (rr, pAp)),
+            lambda: cuda_cg.update_xr_rr(x, r, p, Ap, rr, pAp, 1e-10),
             ("cg_num_partials", (n, n), 1)))
         for form, s_arg, C, checks, wrapper in (
                 ("cross", None, A_U.C, lambda: (cuda_cg._check_out(Ap, p),

@@ -397,21 +397,30 @@ def time_pair(kernel, plain, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_us(fn, reps: int, kernel: str):
-    """Device µs per launch of the kernels whose name holds ``kernel``, over
-    ``reps`` calls of ``fn`` under torch.profiler (device events only), or
-    None where the trace recorded none of them (CUPTI drops events now and
-    then on that machine)."""
+def device_us(fn, reps: int, kernel: str, tries: int = 3):
+    """Device µs per call of the kernels whose name holds ``kernel``, over
+    ``reps`` calls of ``fn`` under torch.profiler (device events only):
+    each such kernel's µs per traced launch times its launches a call
+    (rounded, at least one), summed.  A launch whose event the trace
+    dropped (CUPTI drops one now and then on that machine) counts in
+    neither its time nor its count, so the result holds where a total
+    divided by ``reps`` would read short; a trace that recorded none of
+    them is taken again, up to ``tries`` traces in all, and None is
+    returned if none did."""
     from torch.autograd import DeviceType
 
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and kernel in e.key]
-    return (sum(e.self_device_time_total for e in ev) / reps) if ev else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key and e.count]
+        if ev:
+            return sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+                       for e in ev)
+    return None
 
 
 def device_kernels(fn, reps: int, tries: int = 3) -> dict:
@@ -814,6 +823,16 @@ def check_k6(rng, dtype="float32", sizes=((512, 512), (100, 170), (33, 129))) ->
                              dtype=dtype) for T in depths}
 
 
+def one_kernel(name, launched: dict, kernel: str) -> dict:
+    """The kernels a call launched under torch.profiler (``launched``, as
+    ``device_kernels`` gives them): ``kernel`` alone, and no reduction
+    launched after it."""
+    if (len(launched) != 1 or kernel not in next(iter(launched))
+            or any(k.startswith(("reduce_partials", "sum_partials")) for k in launched)):
+        raise AssertionError(f"{name} launched {sorted(launched)}, not {kernel} alone")
+    return launched
+
+
 def hold_fixed_order(name, pAp, p, Ap, what) -> None:
     """A matvec's <p, Ap> (K8, K12.8, K8b) bit for bit the sum of p * Ap in
     the kernel's fixed order, ``cuda_cg.pAp_in_kernel_order``: the order of
@@ -845,10 +864,11 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
     operator at the T boundary and the phase operator at the Phi one.
     Fields at the dtype's field tolerance, dot products at its sum
     tolerance, K8's and K8b's also bit for bit in their fixed order
-    (``hold_fixed_order``); K8 must write its dead output buffer and never
-    p, K8b its two buffers and never r or p.  Each K8 and K8b call is one
-    launch: its device µs per launch at each timed size, no sum kernel
-    after it.  K8b's fields come from ``k8b_rng``, so
+    (``hold_fixed_order``), K9's in its own (``rr_in_kernel_order``), K9
+    also with <p, Ap> below epsilon and NaN (then all NaN); K8 must write
+    its dead output buffer and never p, K8b its two buffers and never r or
+    p.  Each K8, K8b and K9 call is one launch: its device µs per launch at
+    each timed size, no sum kernel after it.  K8b's fields come from ``k8b_rng``, so
     the checks of the other kernels, here and after, see the fields they
     saw before K8b was added."""
     prec = PRECISION[dtype]
@@ -893,12 +913,23 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                 raise AssertionError("K8 did not write its output buffer")
             if not torch.equal(v, v0):
                 raise AssertionError("K8 wrote into p")
-            alpha = scalar(0.37)
-            got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, alpha)
-            want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
-            compare("K9", got[0], want[0], what)
-            compare("K9", got[1], want[1], what)
-            compare_sum("K9", got[2], want[2], what)
+            # K9 forms alpha = rr / max(pAp, eps) itself: above eps, below
+            # it, and a NaN pAp, which must come out NaN
+            for pAp in (0.61, 1e-13, np.nan):
+                a, b = scalar(0.37), scalar(pAp)
+                got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, a, b, K10_EPS)
+                want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, a, b, K10_EPS)
+                if pAp != pAp:
+                    if not all(torch.isnan(t).all() for t in got + want):
+                        raise AssertionError(f"K9 dropped a NaN <p, Ap> ({what})")
+                    continue
+                compare("K9", got[0], want[0], f"{what} pAp={pAp}")
+                compare("K9", got[1], want[1], f"{what} pAp={pAp}")
+                compare_sum("K9", got[2], want[2], f"{what} pAp={pAp}")
+                want_rr = cuda_cg.rr_in_kernel_order(got[1])
+                if not torch.equal(got[2], want_rr):
+                    raise AssertionError(f"K9 <r, r> {got[2].item()!r} is not the fixed-order "
+                                         f"{want_rr.item()!r} ({what} pAp={pAp})")
             for rr_new, rr in ((0.37, 0.61), (0.37, 1e-13), (0.37, 0.0), (0.37, np.nan)):
                 a, b = scalar(rr_new), scalar(rr)
                 got = cuda_cg.advance_p_inplace(r, v.clone(), a, b, K10_EPS)
@@ -953,8 +984,8 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
         v, x, r, Ap = fields(rng, size, size, 1, dtype)[0] + fields(rng, size, size, 1, dtype)[0]
         s, dead = s_map(rng, size, size, dtype), torch.empty_like(v)
         dead_p, beta = torch.empty_like(v), scalar(0.43)
-        alpha = scalar(1e-3)
         rr_new, rr = scalar(0.37), scalar(0.61)
+        pAp = scalar(370.0)  # K9's alpha = rr_new / pAp = 1e-3
         reps = 50 if size == 512 else 10
         if size == timed[0]:
             # K10 is r + beta p, beta = rr_new / max(rr, eps) formed on the device
@@ -964,8 +995,8 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                  lambda: cuda_cg.cross_matvec_pAp_plain(A_U, v)),
                 ("K8 aniso", lambda: cuda_cg.aniso_matvec_pAp(A_F, s, v, out=dead),
                  lambda: cuda_cg.aniso_matvec_pAp_plain(A_F, s, v)),
-                ("K9", lambda: cuda_cg.update_xr_rr(x, r, v, Ap, alpha),
-                 lambda: cuda_cg.update_xr_rr_plain(x, r, v, Ap, alpha)),
+                ("K9", lambda: cuda_cg.update_xr_rr(x, r, v, Ap, rr_new, pAp, K10_EPS),
+                 lambda: cuda_cg.update_xr_rr_plain(x, r, v, Ap, rr_new, pAp, K10_EPS)),
                 ("K10", lambda: cuda_cg.advance_p_inplace(r, Ap, rr_new, rr, K10_EPS),
                  lambda: cuda_cg.advance_p_inplace_plain(r, Ap, rr_new, rr, K10_EPS)),
                 ("K14 cross", lambda: cuda_cg.cross_residual(r, v, A_U),
@@ -979,8 +1010,9 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                                                                      out=dead, p_out=dead_p),
                  lambda: cuda_cg.aniso_advance_p_matvec_plain(A_F, s, r, v, beta))):
             times[name][size] = time_pair(kernel, plain, reps)
-        # K8's and K8b's one launch a call: the matvec finishes its own dot
+        # K8's, K8b's and K9's one launch a call: each finishes its own dot
         for name, call in (
+                ("K9", lambda: cuda_cg.update_xr_rr(x, r, v, Ap, rr_new, pAp, K10_EPS)),
                 ("K8 cross", lambda: cuda_cg.cross_matvec_pAp(A_U, v, out=dead)),
                 ("K8 aniso", lambda: cuda_cg.aniso_matvec_pAp(A_F, s, v, out=dead)),
                 ("K8b cross", lambda: cuda_cg.cross_advance_p_matvec(A_U, r, v, beta, out=dead,
@@ -989,7 +1021,8 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                                                                      out=dead, p_out=dead_p))):
             k8_device[f"{name} {size}^2"] = launched = device_kernels(call, reps)
             if len(launched) != 1 or any("sum_partials" in k for k in launched):
-                raise AssertionError(f"{name} launched {sorted(launched)}, not its matvec alone")
+                raise AssertionError(f"{name} launched {sorted(launched)}, not its own kernel "
+                                     "alone")
     phase(titled("CG kernels K8-K10, K14 and K8b vs plain", dtype), cases=cases,
           max_rel_err={k: w[0] for k, w in worst.items()},
           max_abs_err={k: w[1] for k, w in worst.items()},
@@ -997,7 +1030,7 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
           ms={name: ms_table(t) for name, t in times.items()},
           library={"K10": f"torch.addcmul(r, beta, p): {library_k10} ms at {timed[0]}^2",
                    "K8, K8b, K9, K14": "none: no PyTorch call computes them"},
-          K8_K8b_device=k8_device, card=card_limit())
+          K8_K8b_K9_device=k8_device, card=card_limit())
     first = timed[0]
 
     def mean(values):
@@ -1641,12 +1674,14 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
     """K5 (on the whole grid and with ghosts), K12.1 and its ghost gather,
     and K12.2 against their plain versions, shard by shard, on y(2), x(2)
     and 2x2 meshes of the one card, at every BC pair, S = 0.25 and S = 0,
-    512^2 and 66x258 (uneven tiles per shard); K12.1 and K12.2 bit for bit;
-    K12.2's joined result also against K2 on the whole grid.  Each producer
-    of the staged attempt -- K12.1 for k1..k4, K5 -- folds the next
-    stage's edges, held to the gather on the same states at max|Δ| = 0.
-    Timed on one shard of the 512^2 mesh each runs on: K5,
-    K12.1 (3 states, k3's and k4's) and its gather on x(2), K12.2 on y(2)."""
+    512^2 and 66x258 (uneven tiles per shard); K5, K12.1 and K12.2 bit for
+    bit, K5's error maxima exactly; K12.2's joined result also against K2
+    on the whole grid.  Each producer of the staged attempt -- K12.1 for
+    k1..k4, K5 -- folds the next stage's edges, held to the gather on the
+    same states at max|Δ| = 0.  Timed on one shard of the 512^2 mesh each
+    runs on: K5, K12.1 (3 states, k3's and k4's) and its gather on x(2),
+    K12.2 on y(2); K5 launches one kernel a call, its maxima finished in
+    it (``one_kernel``)."""
     worst = {k: [0.0, 0.0] for k in ("K5", "K12.1", "K12.1 gather", "K12.2", "K12.1 fold",
                                      "K5 fold")}
     worst_e, k2_gap, cases = 0.0, 0.0, 0
@@ -1670,8 +1705,8 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
         x, k1, k3, k4 = fields(rng, p.ny, p.nx, 4)
         got = cuda_rhs.rkm_final_stage(x, k1, k3, k4, tau, p, 0.03, d)
         want = cuda_rhs.rkm_final_stage_plain(x, k1, k3, k4, tau, p, 0.03, d)
-        hold("K5", got[:2], want[:2], what, worst["K5"])
-        maxima(got[2], want[2], f"K5 {what}")
+        hold("K5", got[:2], want[:2], what, worst["K5"], 0.0)
+        maxima(got[2], want[2], f"K5 {what}", 0.0)
         for mname, (sy, sx) in MESHES.items():
             mesh, topo = on_mesh(sy, sx)
             states = [tuple(shard_field(t, mesh, topo) for t in pair)
@@ -1687,8 +1722,8 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                      worst["K12.1"], 0.0)
                 got = cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h)
                 want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
-                hold("K5 with ghosts", got[:2], want[:2], on, worst["K5"])
-                maxima(got[2], want[2], f"K5 {on}")
+                hold("K5 with ghosts", got[:2], want[:2], on, worst["K5"], 0.0)
+                maxima(got[2], want[2], f"K5 {on}", 0.0)
                 for n_in, w_in, nxt in producers:
                     fold = cuda_rhs.Fold(tuple(nxt), sy > 1, sx > 1)
                     hold_fold("K12.1", cuda_rhs.blend_rhs_sharded(st[:n_in], w_in, p, h, 0.03, d,
@@ -1696,7 +1731,7 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
                               st, fold, on, worst["K12.1 fold"])
                 fold = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
                 got = cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h, fold=fold)
-                hold("K5 folding", got[:2], want[:2], on, worst["K5"])
+                hold("K5 folding", got[:2], want[:2], on, worst["K5"], 0.0)
                 hold_fold("K5", (*got[:2], got[3]), st, fold, on, worst["K5 fold"])
             if sx == 1:
                 F, U = states[0]
@@ -1753,10 +1788,12 @@ def check_mesh_kernels(rng, sizes=((512, 512), (66, 258))) -> dict:
         ms, plain_ms = time_pair(kernel, plain, reps=50)
         entries[name] = {"max_abs_err": worst[name][1], "ms": ms, "plain_ms": plain_ms,
                          **bound(name, cells), "library_ms": None}
+    k5_device = one_kernel("K5", device_kernels(timed["K5"][0], 20), "rkm_final_kernel")
     phase("mesh kernels K5, K12.1 (+ ghost gather, folded edges), K12.2 vs plain",
           cases=cases, meshes=list(MESHES), max_rel_err={k: v[0] for k, v in worst.items()},
           max_abs_err={k: v[1] for k, v in worst.items()}, max_err_maxima_rel=worst_e,
           tol=FIELD_TOL, err_rtol=ERR_RTOL, folded_edges_vs_gather="bit for bit",
+          k5="bit for bit, error maxima exact", k5_x2_shard_folding=k5_device,
           k12_2_joined_vs_k2_max_abs=k2_gap,
           k12_2_f64_gap_kernel=worst_f64[0], k12_2_f64_gap_plain=worst_f64[1],
           f64_margin="kernel <= 2 plain + 2 ulp of scale, joined over the shards",
@@ -2622,6 +2659,7 @@ def time_mesh_f64_kernels(rng, worst_abs) -> dict:
         # every kernel of the call, its device µs a launch (a dropped event
         # would lower a per-call sum)
         dev_us[name] = device_kernels(kernel, reps)
+    one_kernel("K5 at float64", dev_us["K5"], "rkm_final_kernel")
     phase("float64 mesh kernel times, one shard", card=card_limit(),
           library="none: no PyTorch call computes a ghosted stencil step",
           ms_one_shard={k: {"kernel": v["ms"], "device": dev_us[k],

@@ -22,7 +22,7 @@ from bachelors_tpu.parallel.topology import Topology
 from bachelors_tpu.solvers import cg as jcg
 from bachelors_tpu_torch.ops import cuda_cg, stencil
 from bachelors_tpu_torch.solvers import cg
-from torch_parity import RTOL, assert_close, assert_match, both_params
+from torch_parity import RTOL, assert_close, assert_match, both_params, to_np
 
 torch.set_num_threads(2)
 
@@ -104,19 +104,58 @@ def test_fixed_order_pAp_is_the_dot_product(shape, rng):
     assert abs(float(got32) - float(pAp32)) <= 1e-6 * abs(float(pAp32))
 
 
+# K9's chunks of 256 cells: 1, 2, 4, 1024, 1028 (past one a block, the
+# last ragged) and 4080 (about four a block)
+K9_SHAPES = [(1, 1), (1, 257), (33, 31), (512, 512), (1000, 263), (4096, 255)]
+
+
+@pytest.mark.parametrize("shape", K9_SHAPES)
+def test_fixed_order_rr_is_the_dot_product(shape, rng):
+    """``rr_in_kernel_order``, the order in which K9 adds <r, r> (held to
+    the kernel bit for bit in tests/test_torch_cuda.py), is the dot
+    product: within 1e-15 of math.fsum of the same squares at float64,
+    within 1e-6 of the plain update's torch.sum at float32."""
+    r = torch.from_numpy(rng.normal(size=shape))
+    got = float(cuda_cg.rr_in_kernel_order(r))
+    want = math.fsum((r * r).numpy().ravel())
+    assert abs(got - want) <= 1e-15 * abs(want)
+    x, p, Ap = (torch.from_numpy(rng.normal(size=shape)).float() for _ in range(3))
+    _, r32, rr32 = cuda_cg.update_xr_rr_plain(x, r.float(), p, Ap, torch.tensor(0.37),
+                                              torch.tensor(0.61), K9_EPS)
+    got32 = cuda_cg.rr_in_kernel_order(r32)
+    assert got32.dtype == torch.float32 and got32.dim() == 0
+    assert abs(float(got32) - float(rr32)) <= 1e-6 * abs(float(rr32))
+
+
+# K9's guard: <p, A p> above epsilon, below it (alpha from epsilon), NaN
+# (alpha NaN, as torch.clamp and jnp.maximum keep it)
+K9_PAP = (0.61, 1e-13, float("nan"))
+K9_EPS = 1e-10
+
+
 def test_plain_update_and_axpby_match_pallas_interpret(rng):
-    """K9 and K10's plain versions at float32; both update in place."""
+    """K9 and K10's plain versions at float32; both update in place.  K9
+    forms alpha from <r, r> and <p, A p> as the JAX loop does before its
+    kernel (``rr / jnp.maximum(pAp, eps)``, ``bachelors_tpu/solvers/
+    cg.py:112``), at each of K9_PAP."""
     x, r, p, Ap = (rng.normal(size=(32, 128)).astype(np.float32) for _ in range(4))
-    alpha, a, b = np.float32(0.37), np.float32(1.0), np.float32(-0.61)
-    jx, jr, jrr = pallas_cg.update_xr_rr(*map(jnp.asarray, (x, r, p, Ap)), alpha,
-                                         interpret=True)
-    tx, tr = torch.from_numpy(x.copy()), torch.from_numpy(r.copy())
-    gx, gr, grr = cuda_cg.update_xr_rr(tx, tr, torch.from_numpy(p), torch.from_numpy(Ap),
-                                       torch.tensor(alpha))
-    assert gx is tx and gr is tr
-    assert_match(gx, jx)
-    assert_match(gr, jr)
-    np.testing.assert_allclose(float(grr), float(jrr), rtol=SUM_RTOL)
+    a, b = np.float32(1.0), np.float32(-0.61)
+    rr = np.float32(0.37)
+    for pAp in map(np.float32, K9_PAP):
+        alpha = jnp.asarray(rr) / jnp.maximum(jnp.asarray(pAp), np.float32(K9_EPS))
+        jx, jr, jrr = pallas_cg.update_xr_rr(*map(jnp.asarray, (x, r, p, Ap)), alpha,
+                                             interpret=True)
+        tx, tr = torch.from_numpy(x.copy()), torch.from_numpy(r.copy())
+        gx, gr, grr = cuda_cg.update_xr_rr(tx, tr, torch.from_numpy(p), torch.from_numpy(Ap),
+                                           torch.tensor(rr), torch.tensor(pAp), K9_EPS)
+        assert gx is tx and gr is tr
+        if np.isnan(pAp):
+            for g, w in ((gx, jx), (gr, jr), (grr, jrr)):
+                assert np.isnan(to_np(g)).all() and np.isnan(np.asarray(w)).all()
+            continue
+        assert_match(gx, jx)
+        assert_match(gr, jr)
+        np.testing.assert_allclose(float(grr), float(jrr), rtol=SUM_RTOL)
 
     jp_new = pallas_cg.axpby_inplace(a, b, jnp.asarray(r), jnp.asarray(p), interpret=True)
     tp_ = torch.from_numpy(p.copy())
@@ -136,7 +175,8 @@ def test_wrapper_contract(rng):
     # CPU tensors: the plain versions, and no launch counted
     cuda_cg.reset_launch_counts()
     Av, _ = cuda_cg.cross_matvec_pAp(A_U, v, out=torch.empty_like(v))
-    cuda_cg.update_xr_rr(v.clone(), v.clone(), v, Av, torch.tensor(0.5))
+    cuda_cg.update_xr_rr(v.clone(), v.clone(), v, Av, torch.tensor(0.5), torch.tensor(2.0),
+                         1e-10)
     cuda_cg.advance_p_inplace(v, v.clone(), torch.tensor(0.5), torch.tensor(1.0), 1e-10)
     assert not any(cuda_cg.LAUNCHES.values())
 

@@ -255,6 +255,76 @@ def test_k8_finishes_its_dot_in_one_launch_in_fixed_order(dtype, gen, cuda_devic
     assert sum(n for k, n in kernels.items() if "matvec_pAp_kernel" in k) == calls, kernels
 
 
+# K9's chunks of 256 cells: 1, 1, 2, 3903 (about four a block, the last
+# ragged), 1024 and 65536 (64 a block)
+K9_SHAPES = ((1, 1), (1, 255), (1, 257), (1000, 999), (512, 512), (4096, 4096))
+
+
+def _powers_of_two(gen, shape, device, tdt):
+    """Signed powers of two, 2^-8 to 2^8: alpha times one is exact, so the
+    FMA the kernel contracts x + alpha p and r - alpha Ap to rounds as
+    torch's multiply and add do."""
+    sign = np.where(gen.uniform(size=shape) < 0.5, -1.0, 1.0)
+    return torch.from_numpy(np.ldexp(sign, gen.integers(-8, 9, size=shape))).to(device, tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k9_forms_alpha_and_finishes_its_dot_in_one_launch(dtype, gen, cuda_device):  # noqa: F811
+    """K9 forms alpha = rr / max(pAp, eps) as the CG loop's two torch ops
+    did before it, updates x and r with the two launches' arithmetic, and
+    adds <r', r'> in its own launch in ``cuda_cg.rr_in_kernel_order``'s
+    order: x and r bit for bit with alpha from the two ops, then x + alpha
+    p and r - alpha Ap (p and Ap signed powers of two, so the product is
+    exact and the kernel's FMA rounds as the two ops do), and rr bit for
+    bit, at 1 to 65536 chunks, pAp above and below eps; a NaN pAp makes
+    all three NaN.  Then K8, K9, K8, K9 on one stream, sharing the scratch
+    and its ticket (which wraps to 0 at every launch), each dot bit for bit
+    in its kernel's order, two sizes in a row; one kernel a call, and no
+    sum kernel in the trace."""
+    from torch.autograd import DeviceType
+
+    tdt = getattr(torch, dtype)
+    eps = 1e-10
+    A_U, _ = _operators("neumann")
+    calls = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for ny, nx in K9_SHAPES:
+            x, r = (torch.from_numpy(gen.normal(size=(ny, nx))).to(cuda_device, tdt)
+                    for _ in range(2))
+            p, Ap = (_powers_of_two(gen, (ny, nx), cuda_device, tdt) for _ in range(2))
+            rr = torch.tensor(0.37, dtype=tdt, device=cuda_device)
+            for pv in (0.61, 1e-13, float("nan")):
+                pAp = torch.tensor(pv, dtype=tdt, device=cuda_device)
+                got = _counted(cuda_cg.LAUNCHES, "update_xr_rr", lambda: cuda_cg.update_xr_rr(
+                    x.clone(), r.clone(), p, Ap, rr, pAp, eps))
+                calls += 1
+                alpha = rr / torch.clamp(pAp, min=eps)
+                if pv != pv:
+                    assert all(torch.isnan(t).all() for t in got), (ny, nx)
+                    continue
+                assert torch.equal(got[0], x + alpha * p), (ny, nx, pv)
+                assert torch.equal(got[1], r - alpha * Ap), (ny, nx, pv)
+                assert torch.equal(got[2], cuda_cg.rr_in_kernel_order(got[1])), (ny, nx, pv)
+            if ny > 1:
+                xk, rk, rr_k = x.clone(), r.clone(), rr
+                for _ in range(2):
+                    Av, pAp = cuda_cg.cross_matvec_pAp(A_U, p)
+                    assert torch.equal(pAp, cuda_cg.pAp_in_kernel_order(p, Av)), (ny, nx)
+                    want_x = xk + (rr_k / torch.clamp(pAp, min=eps)) * p
+                    xk, rk, rr_k = cuda_cg.update_xr_rr(xk, rk, p, Av, rr_k, pAp, eps)
+                    assert torch.equal(rr_k, cuda_cg.rr_in_kernel_order(rk)), (ny, nx)
+                    assert torch.allclose(xk, want_x, rtol=1e-6 if dtype == "float32" else 1e-14)
+                    calls += 1
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key.startswith("void bt::")}
+    assert not any("sum_partials" in k for k in kernels), kernels
+    # at most one a call (the profiler drops an event now and then)
+    assert 0 < sum(n for k, n in kernels.items() if "update_xr_rr_kernel" in k) <= calls, kernels
+
+
 @pytest.mark.cuda
 def test_every_wrapper_refuses_bad_fields_before_launching(cuda_device):  # noqa: F811
     """Through the shared launch path every wrapper still refuses a field of
@@ -280,7 +350,7 @@ def test_every_wrapper_refuses_bad_fields_before_launching(cuda_device):  # noqa
         "K8 cross": lambda B: cuda_cg.cross_matvec_pAp(A_U, F, out=B),
         "K8 aniso": lambda B: cuda_cg.aniso_matvec_pAp(A_F, B, F),
         "K8b": lambda B: cuda_cg.cross_advance_p_matvec(A_U, B, F, rr),
-        "K9": lambda B: cuda_cg.update_xr_rr(F.clone(), F.clone(), F, B, rr),
+        "K9": lambda B: cuda_cg.update_xr_rr(F.clone(), F.clone(), F, B, rr, rr, 1e-10),
         "K10": lambda B: cuda_cg.advance_p_inplace(B, F.clone(), rr, rr, 1e-10),
         "K14": lambda B: cuda_cg.cross_residual(B, F, A_U),
     }
@@ -426,9 +496,9 @@ def test_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
                            cuda_cg.aniso_matvec_pAp_plain(A_F, s, v))):
             assert_match(got[0], want[0])
             np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=1e-5)
-        alpha = torch.tensor(0.37, device=cuda_device)
-        got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, alpha)
-        want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
+        rr, pAp = (torch.tensor(t, device=cuda_device) for t in (0.37, 0.61))
+        got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, rr, pAp, 1e-10)
+        want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, rr, pAp, 1e-10)
         assert_match(got[0], want[0])
         assert_match(got[1], want[1])
         np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=1e-5)
@@ -650,9 +720,10 @@ def test_f64_cg_kernels_match_plain(bc, gen, cuda_device):  # noqa: F811
                            cuda_cg.aniso_matvec_pAp_plain(A_F, s, v))):
             _f64_close(got[:1], want[:1])
             np.testing.assert_allclose(got[1].item(), want[1].item(), rtol=F64_RTOL)
-        alpha = torch.tensor(0.37, dtype=torch.float64, device=cuda_device)
-        got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, alpha)
-        want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, alpha)
+        rr, pAp = (torch.tensor(t, dtype=torch.float64, device=cuda_device)
+                   for t in (0.37, 0.61))
+        got = cuda_cg.update_xr_rr(x.clone(), r.clone(), v, Ap, rr, pAp, 1e-10)
+        want = cuda_cg.update_xr_rr_plain(x.clone(), r.clone(), v, Ap, rr, pAp, 1e-10)
         _f64_close(got[:2], want[:2])
         np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=F64_RTOL)
         _hold_k10(r, v, torch.float64, cuda_device)
@@ -1369,6 +1440,78 @@ def test_tutorial_entry_point_on_the_card(capsys, cuda_device):  # noqa: F811
 
 
 # ------------------------------------- K4's template and the folded ghost gather
+
+# K5's sizes: every block an edge block (9x33, 8x32, 1x7), ragged grids
+# (100x170, 33x129) and 512^2
+K5_SIZES = ((9, 33), (8, 32), (1, 7), (100, 170), (33, 129), (512, 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k5_equals_plain_bit_for_bit(f_bc, u_bc, dtype, S, gen, cuda_device):  # noqa: F811
+    """K5 -- interior blocks reading their neighbours without the edge rule,
+    the isotropic instantiation at S = 0, the error maxima finished in the
+    same launch -- equals its plain version bit for bit and its maxima
+    exactly, at both dtypes (float64 with float and double
+    transcendentals), every BC pair, grids of edge blocks only, ragged
+    grids and 512^2, each call twice in a row (the ticket wraps to 0); so
+    does each shard on y(2), x(2) and 2x2 where the size splits, with and
+    without its fold (the folded edges equal the gather's), and joined the
+    shards equal the whole grid.  A NaN in k3 makes both maxima NaN."""
+    from bachelors_tpu_torch.convert import shards_from_numpy
+    from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+    tau = np.dtype(dtype).type(TAU)
+
+    def holds(got, want):
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+
+    for ny, nx in K5_SIZES:
+        for f32t in ((True,) if dtype == "float32" else (True, False)):
+            p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype,
+                          f32_transcendentals=f32t, Phi_boundary=BoundaryType(f_bc),
+                          T_boundary=BoundaryType(u_bc))
+            arrays = random_fields(gen, ny, nx, dtype, 4)
+            states = _on(arrays, cuda_device)
+            want = cuda_rhs.rkm_final_stage_plain(*states, tau, p, 0.03, d)
+            for _ in range(2):
+                whole = _counted(cuda_rhs.LAUNCHES, "rkm_final_stage",
+                                 lambda: cuda_rhs.rkm_final_stage(*states, tau, p, 0.03, d))
+                holds(whole, want)
+            nan = [tuple(t.clone() for t in pair) for pair in states]
+            nan[2][0][ny // 2, nx // 2] = float("nan")
+            assert torch.isnan(cuda_rhs.rkm_final_stage(*nan, tau, p, 0.03, d)[2]).all()
+            assert torch.isnan(cuda_rhs.rkm_final_stage_plain(*nan, tau, p, 0.03, d)[2]).all()
+            for sy, sx in ((2, 1), (1, 2), (2, 2)):
+                if ny % sy or nx % sx or ny < 2 * sy or nx < 2 * sx:
+                    continue
+                topo = Topology(sy, sx)
+                sh = [tuple(shards_from_numpy(a, sy, sx, [cuda_device] * (sy * sx))
+                            for a in pair) for pair in arrays]
+                fold = cuda_rhs.Fold((1.0,), sy > 1, sx > 1)
+                out = []
+                for k, h in enumerate(stage_halos(sh, cuda_rhs.k5_weights(tau), topo)):
+                    st = shard_states(sh, k)
+                    want = cuda_rhs.rkm_final_stage_plain(*st, tau, p, 0.03, d, halo=h)
+                    bare = _counted(cuda_rhs.LAUNCHES, "rkm_final_stage", lambda: (
+                        cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h)))
+                    holds(bare, want)
+                    got = _counted(cuda_rhs.LAUNCHES, "rkm_final_stage", lambda: (
+                        cuda_rhs.rkm_final_stage(*st, tau, p, 0.03, d, halo=h, fold=fold)))
+                    holds(got, want)
+                    for g, wt in zip(got[3], cuda_rhs.halo_edges([tuple(got[:2])], [1.0],
+                                                                 sy > 1, sx > 1)):
+                        assert (g is None) == (wt is None)
+                        assert g is None or torch.equal(g, wt)
+                    out.append(got)
+                for i in (0, 1):
+                    assert torch.equal(_joined(out, i, (sy, sx)), whole[i]), (ny, nx, sy, sx)
+                assert torch.equal(topo.allmax([o[2] for o in out]), whole[2])
 
 
 @pytest.mark.cuda

@@ -162,8 +162,37 @@ def test_k10_plain_equals_the_former_update_bit_for_bit(rr, dtype, rng):
         assert bool(torch.isnan(got).all())  # a NaN never reads as converged
 
 
+def _former_update_xr_rr(x, r, p, Ap, alpha):
+    """K9's plain update as it was before K9 formed alpha: alpha given."""
+    x += alpha * p
+    r -= alpha * Ap
+    return x, r, torch.sum(r * r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("pAp", [0.61, 1e-13, 0.0, float("nan")],
+                         ids=["pAp", "pAp<eps", "0", "nan"])
+def test_k9_plain_equals_the_former_alpha_and_update_bit_for_bit(pAp, dtype, rng):
+    """K9's plain version, which forms alpha = rr / max(pAp, eps) itself,
+    against the loop's two torch ops for alpha and the former update:
+    x, r and <r, r> bit for bit, in place; a NaN pAp makes all three NaN."""
+    x, r, p, Ap = (torch.from_numpy(rng.normal(size=(33, 129))).to(dtype) for _ in range(4))
+    rr, pAp_t = torch.tensor(0.37, dtype=dtype), torch.tensor(pAp, dtype=dtype)
+    want = _former_update_xr_rr(x.clone(), r.clone(), p, Ap,
+                                rr / torch.clamp(pAp_t, min=1e-10))
+    gx, gr = x.clone(), r.clone()
+    got = cuda_cg.update_xr_rr(gx, gr, p, Ap, rr, pAp_t, 1e-10)
+    assert got[0] is gx and got[1] is gr
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) or (pAp != pAp and bool(torch.isnan(g).all())
+                                     and bool(torch.isnan(w).all()))
+    if pAp != pAp:
+        assert all(bool(torch.isnan(g).all()) for g in got)  # a NaN never reads as converged
+
+
 def _former_cg_solve(matvec_pAp, b, tolerance, max_iters, epsilon):
-    """``cg_solve``'s kernel loop as it was before K10 formed beta."""
+    """``cg_solve``'s kernel loop as it was before K10 formed beta and K9
+    alpha."""
     N = np.float64(np.float32(b.numel()))
     scaled_tol2 = np.float64(tolerance) ** 2 * N
     x, r = torch.zeros_like(b), b.clone()
@@ -174,7 +203,7 @@ def _former_cg_solve(matvec_pAp, b, tolerance, max_iters, epsilon):
     while it < max_iters:
         Ap, pAp = matvec_pAp(p, out=Ap)
         alpha = rr / torch.clamp(pAp, min=epsilon)
-        x, r, rr_new = cuda_cg.update_xr_rr_plain(x, r, p, Ap, alpha)
+        x, r, rr_new = _former_update_xr_rr(x, r, p, Ap, alpha)
         if np.float64(rr_new.item()) < scaled_tol2:
             break
         beta = rr_new / torch.clamp(rr, min=epsilon)

@@ -47,7 +47,8 @@ def test_ab_runs_times_each_kernel_in_turns_with_its_rival(monkeypatch):
     groups, each in turns with its rival (the rival, each kernel, each
     kernel in reverse, the rival; twice): K15.1-K15.3 beside torch.add at
     256^2-4096^2, K15.4 beside torch.sum at 512^2 and 4096^2, K10 at both
-    dtypes beside torch.addcmul at 512^2 and 4096^2."""
+    dtypes beside torch.addcmul at 512^2 and 4096^2; then K9, which has no
+    rival, alone at both dtypes at 512^2 and 4096^2."""
     calls = []
     monkeypatch.setattr(ab_runs, "run", lambda checkout, script, *a: calls.append(a) or {})
     monkeypatch.setattr(sys, "argv", ["ab_runs", "A", "B", "--kernels", "--groups", "k15,cg"])
@@ -64,9 +65,76 @@ def test_ab_runs_times_each_kernel_in_turns_with_its_rival(monkeypatch):
                 "turns": ["torch.sum", "K15.4", "K15.4", "torch.sum"] * 2} for n in (512, 4096)]
             + [{"case": "advance_p", "dtype": dtype, "n": n,
                 "turns": ["torch.addcmul(r, rr, p)", "K10", "K10", "torch.addcmul(r, rr, p)"] * 2}
+               for dtype in ("float32", "float64") for n in (512, 4096)]
+            + [{"case": "k9", "dtype": dtype, "n": n, "turns": ["K9 (with alpha)"] * 4}
                for dtype in ("float32", "float64") for n in (512, 4096)])
     assert json.loads(plan) == want
     assert ab_runs.rival_plan(["tile", "euler", "k1", "k4"]) == []
+
+
+def test_ab_runs_replays_k5_in_turns(monkeypatch):
+    """The k5 group: K5 on an x(2) and a 2x2 shard (folding) and on the
+    whole grid, at S = 0.25 and S = 0, each replayed in turns (each case,
+    each case in reverse; twice), at float32 and float64, 512^2; with the
+    default groups every process gets them beside the other groups'
+    cases."""
+    cases = ["K5 x(2) shard, folding", "K5 x(2) shard, folding S=0",
+             "K5 2x2 shard, folding", "K5 2x2 shard, folding S=0", "K5 whole grid",
+             "K5 whole grid S=0"]
+    want = [{"case": "k5", "dtype": dtype, "n": 512, "turns": (cases + cases[::-1]) * 2}
+            for dtype in ("float32", "float64")]
+    assert ab_runs.rival_plan(["k5"]) == want
+    calls = []
+    monkeypatch.setattr(ab_runs, "run", lambda checkout, script, *a: calls.append(a) or {})
+    monkeypatch.setattr(sys, "argv", ["ab_runs", "A", "B", "--kernels"])
+    ab_runs.main()
+    groups, plan, _ = calls[0]
+    assert "k5" in groups.split(",")
+    assert [c for c in json.loads(plan) if c["case"] == "k5"] == want
+
+
+class _Event:
+    """What torch.profiler's key_averages() gives for one kernel."""
+
+    def __init__(self, key, count, total_us):
+        from torch.autograd import DeviceType
+        self.key, self.count, self.self_device_time_total = key, count, total_us
+        self.device_type = DeviceType.CUDA
+
+
+def test_chip_smoke_device_us_counts_per_traced_launch(monkeypatch):
+    """``chip_smoke.device_us``: µs per traced launch of each kernel the
+    name matches, times its launches a call, so a dropped event lowers
+    neither; a trace without the kernel is taken again, and None comes
+    back when no trace of three has it."""
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
+    import chip_smoke
+
+    traces = iter([[], [_Event("void tut_partials_kernel<bt::SumAcc>(float)", 17, 17 * 20.0),
+                        _Event("void tut_finish_kernel<bt::SumAcc>(float)", 20, 20 * 2.0),
+                        _Event("void other_kernel()", 20, 99.0)]])
+
+    class Profile:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            self.events = next(traces, [])
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def key_averages(self):
+            return self.events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    # 20 calls, 3 of the first kernel's 20 events dropped: 20 + 2 µs a call
+    assert chip_smoke.device_us(lambda: calls.append(1), 20, "SumAcc") == pytest.approx(22.0)
+    assert len(calls) == 40
+    assert chip_smoke.device_us(lambda: None, 20, "SumAcc") is None
 
 
 def test_ab_runs_summarises_each_rival_row_over_turns_and_processes():
