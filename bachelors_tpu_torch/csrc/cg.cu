@@ -106,9 +106,15 @@
 //     L (e1_F + e2_F) + uterm (mode 2) plus the corrector/gamma terms
 //     (mode 3).  The TPU kernel carries r0 and the products in float32
 //     pairs; here they are Real.  Ghosts take Dirichlet value 0, as K8's.
-//     Bound by bytes (2-5 fields read, 1 written).  Design: K8's matvec,
-//     one thread per cell, without the dot product.  The output must not
-//     overlap e, whose neighbours it reads.
+//     Bound by bytes: 2 fields read and 1 written in cross mode, 3 + 1 in
+//     aniso, 4 + 1 in heat, 5 + 1 in heat with the extra terms (at float64
+//     512^2 1.88, 2.50, 3.13 and 3.76 us at 3.35 TB/s).  Design: K8's
+//     matvec, one thread per cell, without the dot product; in the cross
+//     and heat modes a block whose cells and ring lie inside the fields
+//     reads e's neighbours directly, the edge blocks through `cross_at`,
+//     and the aniso mode keeps `cross_at` on every cell (see
+//     si_residual_kernel).  The output must not overlap e, whose
+//     neighbours it reads.
 //
 // K14 twin bt_si_residual_halo: replaces `pallas_dd.py:
 //     cross_residual_dd_sharded` (:1014), `aniso_residual_dd_sharded` (:1027)
@@ -119,7 +125,12 @@
 //     at value 0 (-e for Dirichlet, `_ghost_cols_e`'s sign), or the ghost
 //     for a periodic field.  The other planes are pointwise.  Each cell runs
 //     K14's arithmetic on the values K14 reads, so a mesh equals K14 on the
-//     whole grid bit for bit.  Bound by bytes like K14.
+//     whole grid bit for bit.  Bound by bytes like K14 (0.94 us in cross
+//     mode on a 256x512 shard at float64).  On a shard of 512^2 the launch
+//     is 256-512 blocks, one partial wave whose edge blocks set the time,
+//     and a launch that small takes ~1.3 us by graph replay on the H100
+//     whatever it moves (K15.1 at 256^2, 0.79 MB, PERF.md §6), so the
+//     interior blocks' direct reads take off a few percent at most.
 //
 // The partial sums are added in a fixed order, never by a library
 // reduction: K8's, K12.8's, K8b's and K9's by their own last block, in the
@@ -397,19 +408,30 @@ constexpr int kResHeatExtra = 3;
 // a: the map s (aniso) or e1_F (heat); b: e2_F (heat); x: the extra heat
 // terms (heat + extra)
 // On the whole grid (h = whole_grid) or, with a halo (field 0 of its ghosts
-// is e's), the K14 twin on a shard.
+// is e's), the K14 twin on a shard.  A block whose cells and ring lie
+// inside the fields (`inner_block`, physics.cuh) reads e's four neighbours
+// directly; the others keep `cross_at` with the halo and the Dirichlet
+// image -e; both feed one body, so every cell runs the same operations on
+// the same values as before, with the same contractions.  The aniso mode
+// keeps the edge rule on every cell: with the interior branch it ran
+// 3.4-4.0% slower on a 512x256 shard (H100, PERF.md §6).
 template <int MODE, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     si_residual_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
                        const Real* __restrict__ a, const Real* __restrict__ b,
                        const Real* __restrict__ x, Real* __restrict__ out, int ny, int nx,
                        int bc, Real C, Real X, Real Y, Real L, Halo<Real> h) {
-  const int j = blockIdx.x * kCgBlockX + threadIdx.x;
-  const int i = blockIdx.y * kCgBlockY + threadIdx.y;
-  if (i >= ny || j >= nx) return;
+  const int i0 = blockIdx.y * kCgBlockY, j0 = blockIdx.x * kCgBlockX;
+  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
+  const bool inner = MODE != kResAniso && inner_block<kCgBlockY, kCgBlockX>(i0, j0, ny, nx);
+  if (!inner && (i >= ny || j >= nx)) return;
   const int c = i * nx + j;
   const Real ec = e[c];
-  const Cross<Real> n = cross_at(Load<Real>{e}, bc, 0, ec, Real(0), h, i, j, ny, nx);
+  Cross<Real> n;
+  if (inner)
+    n = {e[c + nx], e[c - nx], e[c + 1], e[c - 1]};
+  else
+    n = cross_at(Load<Real>{e}, bc, 0, ec, Real(0), h, i, j, ny, nx);
   Real Ae;
   if (MODE == kResAniso) {
     const Real sv = a[c];

@@ -86,13 +86,27 @@
 //     phase residual r0_F = b_F - A_F Phi, the heat term uterm = dt lap(U)
 //     and, only when the anisotropy map varies per cell (S != 0 or the
 //     corrector guess, `si_s_varies` :283), the map s itself.  Bound by
-//     bytes: 2 fields read, 2 or 3 written, one atan2f + cosf per cell.
-//     Design: K1's, one thread per cell with neighbours from device memory;
-//     the arithmetic is the plain version's
-//     (models/allen_cahn.py:semi_implicit_prepare + solvers/
-//     semi_implicit.py:_lap_from_padded), not the TPU kernel's square-cell
-//     fold, so the two round alike.  Ghosts take Dirichlet value 0, as the
-//     JAX package's prepare does.
+//     bytes: 2 fields read, 3 written at S != 0 or with the guess, else 2
+//     (1.57 and 1.25 us at float32 512^2, 3.13 and 2.50 at float64, at
+//     3.35 TB/s), one atan2f + cosf per cell at S != 0.  What held it back
+//     (4.29 us at float32 512^2, S = 0.25; 5.15 at float64 S = 0, the
+//     float64 sweep's physics; 2.53-2.95 on the shards of 512^2; H100
+//     80GB HBM3, 700 W, PERF.md §6): every cell ran `cross_at`'s compares
+//     and selects and the halo's reads for both fields, and atan2 and cos
+//     even at S = 0, where g = 1 exactly.  Design: K1's, one thread per
+//     cell with neighbours from device memory; S = 0 takes the isotropic
+//     instantiation, and a block whose cells and ring lie inside the
+//     fields reads them directly, the others keep the edge rule, both feed
+//     one body -- except in the float instantiation with atan2 and cos,
+//     which keeps the rule on every cell because the branch cost it on the
+//     shards (see si_prepare_kernel).  The phase terms are the plain
+//     version's arithmetic (models/allen_cahn.py:semi_implicit_prepare),
+//     not the TPU kernel's square-cell fold; dt lap(U) is taken in the
+//     phase Laplacian's order (W first, times 1/dx^2) where the plain
+//     version's `ops/stencil.lap_from_padded` adds E first and divides by
+//     dx^2, so uterm, and r0 with the corrector guess, part from it by an
+//     ulp.  Ghosts take Dirichlet value 0, as the JAX package's prepare
+//     does.
 //
 // K5  bt_rkm_final: replaces `_make_kernel` in mode "rkm_final" (:441,
 //     entry `rkm_final_stage_pallas` :1373; on a mesh
@@ -272,13 +286,6 @@ __host__ __device__ __forceinline__ Fold<Real> no_fold() {
   return Fold<Real>{nullptr, nullptr, 0, {Real(1), Real(0), Real(0), Real(0)}};
 }
 
-// Whether a block of K1's shape at (i0, j0) lies with its one-cell ring
-// inside the (ny, nx) fields (a test uniform over the block): no neighbour
-// of its cells crosses an edge, and it holds no edge cell to fold.
-__device__ __forceinline__ bool inner_block(int i0, int j0, int ny, int nx) {
-  return i0 >= 1 && i0 + kK1BlockY < ny && j0 >= 1 && j0 + kK1BlockX < nx;
-}
-
 // What a folding kernel's cell (i, j) of a (ny, nx) shard contributes to
 // the next blend: whether it lies on an edge that `fo` asks for and, if
 // so, the blend of the first m input states there (blend_at's order), read
@@ -403,7 +410,7 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
                      int is_euler, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
-  const bool inner = inner_block(i0, j0, ny, nx);
+  const bool inner = inner_block<kK1BlockY, kK1BlockX>(i0, j0, ny, nx);
   Stencil<Real> v;
   if (inner) {
     v = inner_stencil<NS>(a, i0, j0, nx);
@@ -444,7 +451,7 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
                      Real fu, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
-  const bool inner = inner_block(i0, j0, ny, nx);
+  const bool inner = inner_block<kK1BlockY, kK1BlockX>(i0, j0, ny, nx);
   Stencil<Real> v;
   if (inner) {
     v = inner_stencil<2>(a, i0, j0, nx);
@@ -544,7 +551,7 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
   const int tid = threadIdx.y * kK1BlockX + threadIdx.x;
-  const bool inner = inner_block(i0, j0, ny, nx);
+  const bool inner = inner_block<kK1BlockY, kK1BlockX>(i0, j0, ny, nx);
   Real eF = Real(0), eU = Real(0);
   if (inner || (i < ny && j < nx)) {  // no early return: every thread joins the maxima
     Stencil<Real> v;
@@ -1152,38 +1159,54 @@ __global__ void __launch_bounds__(kTileThreads)
 
 // K7 on the whole grid (h = whole_grid) or, with a halo (the ghosts of F and
 // U), K12.7 on a shard.  Ghosts and images take Dirichlet value 0, as the
-// JAX package's prepare does.
-template <class Real>
+// JAX package's prepare does.  K1's structure: a block whose cells and ring
+// lie inside the fields reads its neighbours directly (K1's `inner_stencil`
+// with one state at weight 1, which reads exactly F[c] and U[c]), the
+// others keep the edge rule (`edge_stencil`, `cross_at` at Dirichlet value
+// 0 with the halo), both feed one body, and S = 0 takes the isotropic
+// instantiation (`g_and_norm`): the same operations on the same values, so
+// the same bits.  The float instantiation with atan2 and cos keeps the edge
+// rule on every cell: with the interior branch it ran 2.6-6.7% slower on
+// the shards of 512^2, the mesh path's shapes (H100, PERF.md §6).
+template <bool ISO, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     si_prepare_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                       Real* __restrict__ r0, Real* __restrict__ uterm,
                       Real* __restrict__ s_out, int ny, int nx, Halo<Real> h,
                       PhysParams<Real> P) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  const int c = i * nx + j;
-  const Real Fc = F[c], Uc = U[c];
-  const Cross<Real> f = cross_at(Load<Real>{F}, P.f_bc, 0, Fc, Real(0), h, i, j, ny, nx);
-  const Cross<Real> u = cross_at(Load<Real>{U}, P.u_bc, 1, Uc, Real(0), h, i, j, ny, nx);
+  const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
+  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
+  const BlendArgs<Real> a{{F, nullptr, nullptr, nullptr}, {U, nullptr, nullptr, nullptr},
+                          {Real(1), Real(0), Real(0), Real(0)}};
+  constexpr bool kInner = ISO || !std::is_same<Real, float>::value;
+  Stencil<Real> v;
+  if (kInner && inner_block<kK1BlockY, kK1BlockX>(i0, j0, ny, nx)) {
+    v = inner_stencil<1>(a, i0, j0, nx);
+  } else {
+    if (i >= ny || j >= nx) return;
+    v = edge_stencil<1>(a, h, i, j, ny, nx, Real(0), P);
+  }
 
   Real g, norm;
-  anisotropy(P, (f.E - f.W) * P.inv_2dx, (f.N - f.S) * P.inv_2dy, g, norm);
-  Real lapF = (f.W - Real(2) * Fc + f.E) * P.inv_dx2 + (f.S - Real(2) * Fc + f.N) * P.inv_dy2;
-  Real lapU = (u.W - Real(2) * Uc + u.E) * P.inv_dx2 + (u.S - Real(2) * Uc + u.N) * P.inv_dy2;
-  Real k0 = g * (Fc * (Real(1) - Fc) * (Fc - Real(0.5))) * P.k0_factor;
+  g_and_norm<ISO>(P, (v.fe - v.fw) * P.inv_2dx, (v.fn - v.fs) * P.inv_2dy, g, norm);
+  Real lapF = (v.fw - Real(2) * v.fc + v.fe) * P.inv_dx2 +
+              (v.fs - Real(2) * v.fc + v.fn) * P.inv_dy2;
+  Real lapU = (v.uw - Real(2) * v.uc + v.ue) * P.inv_dx2 +
+              (v.us - Real(2) * v.uc + v.un) * P.inv_dy2;
+  Real k0 = g * (v.fc * (Real(1) - v.fc) * (v.fc - Real(0.5))) * P.k0_factor;
   Real k2 = norm * P.k2_factor;
   Real k1 = g * P.k1_factor;
 
   Real r, sv;
   if (P.corrector_guess) {
     Real corr = Real(1) + k2 * P.dt * P.L;
-    r = P.dt / corr * (k1 * lapF + k0 - k2 * (Uc - P.Tm + P.dt * lapU));
+    r = P.dt / corr * (k1 * lapF + k0 - k2 * (v.uc - P.Tm + P.dt * lapU));
     sv = P.gamma / corr * k1;
   } else {
-    r = P.dt * (k1 * lapF + k0 - k2 * (Uc - P.Tm));
+    r = P.dt * (k1 * lapF + k0 - k2 * (v.uc - P.Tm));
     sv = P.gamma * k1;
   }
+  const int c = i * nx + j;
   r0[c] = r;
   uterm[c] = P.dt * lapU;
   if (s_out != nullptr) s_out[c] = sv;
@@ -1445,13 +1468,16 @@ int euler_steps(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap, i
   return int(cudaErrorInvalidValue);
 }
 
-// K7 on the whole grid (h = whole_grid) or, with a halo, K12.7 on a shard
+// K7 on the whole grid (h = whole_grid) or, with a halo, K12.7 on a shard;
+// the isotropic instantiation when S = 0
 template <class S>
 int si_prepare(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
                bt::Halo<Ar<S>> h, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
-  dim3 block(bt::kK1BlockX, bt::kK1BlockY);
-  bt::si_prepare_kernel<<<k1_grid(ny, nx), block, 0, stream>>>(
-      ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx, h, *P);
+  using R = Ar<S>;
+  const dim3 block(bt::kK1BlockX, bt::kK1BlockY);
+  auto kernel = is_zero(P->S) ? bt::si_prepare_kernel<true, R> : bt::si_prepare_kernel<false, R>;
+  kernel<<<k1_grid(ny, nx), block, 0, stream>>>(ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx,
+                                                h, *P);
   return int(cudaGetLastError());
 }
 

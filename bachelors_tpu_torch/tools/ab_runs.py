@@ -63,6 +63,18 @@ initial fields, each by its device µs per traced launch under
     alpha, the loop's two torch ops before it); and rule 2's first test
     for K10 at float32 and float64 beside ``torch.addcmul(r, rr, p)`` at
     512^2 and 4096^2;
+  * ``si``: the semi-implicit step's kernels outside the CG loop: K7 (the
+    prepare) at 512^2 and 2048^2, at S = 0.25 and S = 0 (its isotropic
+    instantiation), the corrector guess off and on, at float32 and
+    float64, from the config's initial fields; K12.7 on the first shard of
+    y(2), x(2) and 2x2 meshes of 512^2 at both S and dtypes, from the
+    ghost gather's halo; and at float64, 512^2, K14 (the refinement
+    residual) in its four modes (cross, aniso, heat, heat with the extra
+    terms) and its twin in each mode on the same three shards, from
+    seeded normal fields.  Each is replayed with no rival, like ``k5``,
+    and each output's SHA-256 is kept (``digest``): two checkouts whose
+    kernels give the same bits on the card give the same digests, which
+    the summary line compares (``digests_differ``);
 
 where a replayed case (rule 2's first test, and K5's and K9's cases) times
 each kernel, and its rival where it has one, on the same inputs by the
@@ -73,8 +85,9 @@ each kernel's device µs per traced launch of every kernel a call launches
 (``launches``);
 
 and the ptxas registers, spills and shared memory and the SASS
-instruction count of each K1, K2, K3, K4, K6, K8 and K10 instantiation of
-the checkout's build (``cuobjdump -sass``, where the toolkit has it).
+instruction count of each K1, K2, K3, K4, K6, K7, K8, K10 and K14
+instantiation of the checkout's build (``cuobjdump -sass``, where the
+toolkit has it).
 
     python -m bachelors_tpu_torch.tools.ab_runs BEFORE AFTER --mesh-steps [--out FILE]
 
@@ -121,6 +134,15 @@ RUNS = {
 # group; rule 2's first test where a kernel has a PyTorch rival
 K5_CASES = tuple(f"K5 {where}{tag}" for where in ("x(2) shard, folding", "2x2 shard, folding",
                                                    "whole grid") for tag in ("", " S=0"))
+SI_MESHES = (("y(2)", (2, 1)), ("x(2)", (1, 2)), ("2x2", (2, 2)))
+K7_CASES = tuple(f"K7{tag}{guess}" for tag in ("", " S=0") for guess in ("", ", guess"))
+K12_7_CASES = tuple(f"K12.7 {mesh} shard{tag}" for mesh, _ in SI_MESHES for tag in ("", " S=0"))
+K14_MODES = ("cross", "aniso", "heat", "heat + extra")
+K14_CASES = (tuple(f"K14 {mode}" for mode in K14_MODES)
+             + tuple(f"K14 twin {mesh} shard, {mode}" for mesh, _ in SI_MESHES
+                     for mode in K14_MODES))
+# the cases whose outputs are kept as digests, to compare checkouts bit for bit
+DIGESTED = ("k7", "k12.7", "k14")
 RIVALS = {
     "k15": [("saxpy", "torch.add(y, x, alpha=a)", ("K15.1", "K15.2", "K15.3"), "float32",
              (256, 512, 1024, 2048, 4096)),
@@ -130,6 +152,9 @@ RIVALS = {
            for dtype in ("float32", "float64")]
           + [("k9", None, ("K9 (with alpha)",), dtype, (512, 4096))
              for dtype in ("float32", "float64")],
+    "si": [("k7", None, K7_CASES, dtype, (512, 2048)) for dtype in ("float32", "float64")]
+          + [("k12.7", None, K12_7_CASES, dtype, (512,)) for dtype in ("float32", "float64")]
+          + [("k14", None, K14_CASES, "float64", (512,))],
 }
 RIVAL_REPS = 200
 
@@ -147,6 +172,18 @@ def rival_plan(groups) -> list:
     return [{"case": case, "dtype": dtype, "n": n, "turns": rival_turns(rival, kernels)}
             for group in groups for case, rival, kernels, dtype, sizes in RIVALS.get(group, ())
             for n in sizes]
+
+
+def digests_differ(results) -> list:
+    """The digested rows (``DIGESTED``) whose output digest is not the same
+    in every process of every checkout: empty when the checkouts' kernels
+    gave the same bits."""
+    seen = {}
+    for res in results:
+        for key, row in res.items():
+            if isinstance(row, dict) and "digest" in row:
+                seen.setdefault(key, set()).add(row["digest"])
+    return sorted(key for key, digests in seen.items() if len(digests) > 1)
 
 
 def rival_summary(results) -> dict:
@@ -186,8 +223,10 @@ for name, (config, override) in json.loads(sys.argv[1]).items():
 print(json.dumps(out))
 """
 
-KERNELS = r"""
-import json, sys, time
+# the si group's meshes and digested cases, written into the script that
+# each checkout's process runs
+KERNELS = f"SI_MESHES = {SI_MESHES!r}\nDIGESTED = {DIGESTED!r}\n" + r"""
+import hashlib, json, sys, time
 sys.path.insert(0, ".")
 import numpy as np, torch
 from torch.autograd import DeviceType
@@ -274,6 +313,68 @@ def k5_calls(dtype):
                     *s0, tau, q, halo=h, fold=one))
         calls["K5 whole grid" + tag] = lambda q=q: cuda_rhs.rkm_final_stage(x, k1, k3, k4, tau, q)
     return calls
+
+
+# The semi-implicit step's kernels outside the CG loop (the si group): K7
+# from the config's initial fields at n^2, K12.7 on the first shard of each
+# mesh, K14 and its twin on seeded normal fields.
+def si_calls(case, dtype, n):
+    from bachelors_tpu_torch.ops import cuda_cg
+    from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix
+    cfg = load_config("config.ini", ["[simulation]\nmesh_size_x = %d\nmesh_size_y = %d\n"
+                                     "[tpu]\ndtype = %s\n" % (n, n, dtype)])
+    p = cfg.params
+    F, U = make_initial_fields(p, cfg.initial, device="cuda")
+    calls = {}
+    physics = ((p, ""), (p.replace(S=0.0), " S=0"))
+    if case == "k7":
+        for q, tag in physics:
+            for guess in (False, True):
+                qg = q.replace(do_corrector_guess=guess)
+                calls["K7%s%s" % (tag, ", guess" if guess else "")] = (
+                    lambda qg=qg: cuda_rhs.si_prepare(F, U, qg))
+    elif case == "k12.7":
+        for mesh, (sy, sx) in SI_MESHES:
+            Fs, Us = (Shards(tuple(b.contiguous() for r in a.split(n // sy)
+                                   for b in r.split(n // sx, dim=1)), (sy, sx)) for a in (F, U))
+            h = stage_halos([(Fs, Us)], [1.0], Topology(sy, sx))[0]
+            for q, tag in physics:
+                calls["K12.7 %s shard%s" % (mesh, tag)] = (
+                    lambda q=q, f=Fs.blocks[0], u=Us.blocks[0], h=h: (
+                        cuda_rhs.si_prepare_sharded(f, u, q, h)))
+    else:  # K14 and its twin at the float64 step's operators
+        g = np.random.default_rng(17)
+        e, r0, e1, e2, x = (torch.from_numpy(g.normal(size=(n, n))).to("cuda",
+                                                                       getattr(torch, dtype))
+                            for _ in range(5))
+        s = 0.33 + 0.08 * torch.tanh(e1)
+        A_U, A_F = CrossMatrix.implicit_heat(p), AnisotropyMatrix.implicit_phase(p)
+        modes = {"cross": lambda e, r0, s, e1, e2, x, h: cuda_cg.cross_residual(r0, e, A_U, halo=h),
+                 "aniso": lambda e, r0, s, e1, e2, x, h: cuda_cg.aniso_residual(r0, e, A_F, s,
+                                                                                halo=h),
+                 "heat": lambda e, r0, s, e1, e2, x, h: cuda_cg.heat_residual(
+                     r0, (e1, e2), e, A_U, p.L, halo=h),
+                 "heat + extra": lambda e, r0, s, e1, e2, x, h: cuda_cg.heat_residual(
+                     r0, (e1, e2), e, A_U, p.L, x, halo=h)}
+        for mode, fn in modes.items():
+            calls["K14 " + mode] = lambda fn=fn: fn(e, r0, s, e1, e2, x, None)
+        for mesh, (sy, sx) in SI_MESHES:
+            sh = [Shards(tuple(b.contiguous() for r in a.split(n // sy)
+                               for b in r.split(n // sx, dim=1)), (sy, sx))
+                  for a in (e, r0, s, e1, e2, x)]
+            h = stage_halos([(sh[0], sh[0])], [1.0], Topology(sy, sx))[0]
+            first = [a.blocks[0] for a in sh]
+            for mode, fn in modes.items():
+                calls["K14 twin %s shard, %s" % (mesh, mode)] = (
+                    lambda fn=fn, first=first, h=h: fn(*first, h))
+    return calls
+
+
+def digest(out):
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, tuple) else (out,)):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 rng = np.random.default_rng(0)
@@ -393,6 +494,8 @@ for case in plan:
         calls = {"torch.sum": lambda: torch.sum(x), "K15.4": lambda: tut.block_sum(x)}
     elif case["case"] == "k5":
         calls = k5_calls(case["dtype"])
+    elif case["case"] in DIGESTED:
+        calls = si_calls(case["case"], case["dtype"], n)
     elif case["case"] == "k9":  # as the CG loop calls it, alpha from the two dots
         r, p, Ap = (torch.from_numpy(rng.normal(size=(n, n))).to("cuda", dtype)
                     for _ in range(3))
@@ -435,8 +538,10 @@ for case in plan:
         end.synchronize()
         rows[name]["graph_ms"].append(start.elapsed_time(end) / RIVAL_REPS)
     for name, row in rows.items():
-        if case["case"] in ("k5", "k9"):
+        if case["case"] in ("k5", "k9", *DIGESTED):
             row["launches"] = launches(calls[name], 50)
+        if case["case"] in DIGESTED:
+            row["digest"] = digest(calls[name]())
         out["%s %s %d^2 back to back" % (name, case["dtype"], n)] = row
     del graphs
 if "cg" in groups:
@@ -531,7 +636,8 @@ if "cg" in groups:
                     "launches_per_call": {e.key.split("(")[0].replace("void bt::", ""):
                                           e.count / reps for e in ev},
                     "graph_us_per_call": start.elapsed_time(end) * 1e3 / reps}
-# ptxas and SASS of K1's, K2's, K3's, K4's, K6's, K8's and K10's instantiations
+# ptxas and SASS of K1's, K2's, K3's, K4's, K6's, K7's, K8's, K10's and K14's
+# instantiations
 import os, re, shutil, subprocess
 log = cuda_build.build_log()
 ptxas, name = {}, None
@@ -550,7 +656,8 @@ if os.path.exists(cuobjdump):
 keep = [k for k in set(ptxas) | set(sass)
         if any(w in k for w in ("rkm_attempt_kernel", "rk4_full_kernel", "euler_steps_kernel",
                                 "blend_rhs_kernel", "rk4_final_kernel", "matvec_pAp_kernel",
-                                "axpby_kernel", "advance_p_kernel", "tut_saxpy"))]
+                                "axpby_kernel", "advance_p_kernel", "tut_saxpy",
+                                "si_prepare_kernel", "si_residual_kernel"))]
 names = subprocess.run(["c++filt"], input="\n".join(keep), capture_output=True,
                        text=True).stdout.splitlines()
 out["build"] = {d: {"ptxas": " | ".join(ptxas.get(k, [])), "sass_instructions": sass.get(k)}
@@ -697,12 +804,13 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true",
                     help="time the one-device tile kernels and the CG kernels instead of "
                          "whole runs")
-    ap.add_argument("--groups", default="tile,euler,k1,k4,k5,k15,cg",
+    ap.add_argument("--groups", default="tile,euler,k1,k4,k5,k15,cg,si",
                     help="with --kernels, the kernels to time, of tile (K2, K3, K12.6), "
                          "euler (K6 beside K1's Euler step), k1 (K1, K12.1, K12.3), k4 (K4, "
                          "K12.4), k5 (K5 on x(2) and 2x2 shards and the whole grid), k15 "
-                         "(K15.1-K15.4 beside torch.add and torch.sum) and cg (K8-K10, K12.8, "
-                         "K9 replayed, K10 beside torch.addcmul); default all")
+                         "(K15.1-K15.4 beside torch.add and torch.sum), cg (K8-K10, K12.8, "
+                         "K9 replayed, K10 beside torch.addcmul) and si (K7, K12.7, K14 and "
+                         "its twin replayed, their outputs' digests compared); default all")
     ap.add_argument("--mesh-steps", action="store_true",
                     help="the staged mesh paths of BEFORE and AFTER in turns in one process")
     ap.add_argument("--cg-variant", action="store_true",
@@ -735,7 +843,8 @@ def main() -> None:
                 results.append({"checkout": label, **run(checkout, RUN, json.dumps(runs))})
             print(json.dumps(results[-1]), flush=True)
         if args.kernels and rival_summary(results):
-            print(json.dumps({"rival_summary": rival_summary(results)}), flush=True)
+            print(json.dumps({"rival_summary": rival_summary(results),
+                              "digests_differ": digests_differ(results)}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

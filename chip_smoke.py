@@ -103,7 +103,11 @@ hold each kernel's step against a float64 evaluation of the same step: no
 farther from it than 2x the plain version plus 2 ulp of scale
 (``tools/margins.py``).  K8's, K12.8's and K8b's <p, Ap> are held bit for
 bit to the sum of p * Ap in their fixed order
-(``cuda_cg.pAp_in_kernel_order``), each call one launch.
+(``cuda_cg.pAp_in_kernel_order``), each call one launch.  K7 is held at
+both S (S = 0: its isotropic instantiation) on grids with and without
+interior blocks, with its device µs a launch at 512^2; K14's cross and
+heat forms report their device µs per traced launch beside K8's, K8b's
+and K9's, and its twin on a shard the same way.
 
 Last, the tutorial's six kernels (K15.1-K15.6, ``csrc/tutorial.cu``, the
 counterparts of ``examples/pallas_tutorial.py``'s Pallas kernels) against
@@ -660,9 +664,16 @@ def check_k2(rng, initial_fields, dtype="float32", sizes=((512, 512), (100, 170)
     return entry_numbers("K2", times, timed[0], worst[1], dtype=dtype)
 
 
-def check_k7(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 2048)) -> dict:
+def check_k7(rng, dtype="float32", sizes=((512, 512), (100, 170), (33, 129), (9, 33)),
+             timed=(512, 2048)) -> dict:
     """K7 against the plain prepare: every BC pair and physics case (S !=
-    0: the map s is emitted; S = 0: not), the corrector guess on and off."""
+    0: the map s is emitted; S = 0: not, and the isotropic instantiation
+    runs), the corrector guess on and off, on blocks inside the fields
+    (neighbours read directly) and across their edges, a grid of edge
+    blocks only among them.  Within the field tolerance, not bit for bit:
+    K7 takes dt lap(U) in the phase Laplacian's order, an ulp from the
+    plain version's.  Its device µs a launch at the first timed size, at
+    S = 0.25 and S = 0, one kernel a call."""
     prec = PRECISION[dtype]
     worst = [0.0, 0.0]
     cases = 0
@@ -679,15 +690,21 @@ def check_k7(rng, dtype="float32", sizes=((512, 512), (33, 129)), timed=(512, 20
             hold("K7", got, want, f"{what} guess={guess}", worst, prec["field_tol"])
             cases += 1
     torch.cuda.synchronize()
-    times = {}
+    times, dev_us = {}, {}
     for size in timed:
         p = params(size, size, "neumann", dtype=dtype)
         (F, U), = fields(rng, size, size, 1, dtype)
         times[size] = time_pair(lambda: cuda_rhs.si_prepare(F, U, p),
                                 lambda: cuda_rhs.si_prepare_plain(F, U, p),
                                 reps=50 if size == 512 else 10)
+        if size == timed[0]:
+            for q, tag in ((p, "S=0.25"), (p.replace(S=0.0), "S=0")):
+                dev_us[tag] = one_kernel_us(one_kernel(
+                    "K7", device_kernels(lambda q=q: cuda_rhs.si_prepare(F, U, q), 50),
+                    "si_prepare_kernel"))
     phase(titled("K7 si_prepare vs plain", dtype), cases=cases, max_rel_err=worst[0],
-          max_abs_err=worst[1], tol=prec["field_tol"], ms=ms_table(times))
+          max_abs_err=worst[1], tol=prec["field_tol"], ms=ms_table(times),
+          **{f"device_us_a_launch_{timed[0]}": dev_us})
     return entry_numbers("K7", times, timed[0], worst[1], dtype=dtype)
 
 
@@ -977,7 +994,7 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
     torch.cuda.synchronize()
     times = {"K8 cross": {}, "K8 aniso": {}, "K9": {}, "K10": {}, "K14 cross": {},
              "K14 heat": {}, "K8b cross": {}, "K8b aniso": {}}
-    k8_device = {}  # each kernel a call launches, by kernel, size and form
+    k8_device = {}  # each kernel a call launches, by kernel, size and form: µs a launch
     for size in timed:
         p = p0.replace(ny=size, nx=size)
         A_U, A_F = cg_operators(p, "neumann")
@@ -1018,7 +1035,9 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
                 ("K8b cross", lambda: cuda_cg.cross_advance_p_matvec(A_U, r, v, beta, out=dead,
                                                                      p_out=dead_p)),
                 ("K8b aniso", lambda: cuda_cg.aniso_advance_p_matvec(A_F, s, r, v, beta,
-                                                                     out=dead, p_out=dead_p))):
+                                                                     out=dead, p_out=dead_p)),
+                ("K14 cross", lambda: cuda_cg.cross_residual(r, v, A_U)),
+                ("K14 heat", lambda: cuda_cg.heat_residual(r, (x, Ap), v, A_U, p.L))):
             k8_device[f"{name} {size}^2"] = launched = device_kernels(call, reps)
             if len(launched) != 1 or any("sum_partials" in k for k in launched):
                 raise AssertionError(f"{name} launched {sorted(launched)}, not its own kernel "
@@ -1030,7 +1049,7 @@ def check_cg_kernels(rng, p0: SimParams, dtype="float32", sizes=((512, 512), (33
           ms={name: ms_table(t) for name, t in times.items()},
           library={"K10": f"torch.addcmul(r, beta, p): {library_k10} ms at {timed[0]}^2",
                    "K8, K8b, K9, K14": "none: no PyTorch call computes them"},
-          K8_K8b_K9_device=k8_device, card=card_limit())
+          K8_K8b_K9_K14_device=k8_device, card=card_limit())
     first = timed[0]
 
     def mean(values):

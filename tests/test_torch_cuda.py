@@ -1674,3 +1674,123 @@ def test_staged_mesh_steps_gather_only_where_no_kernel_made_the_state(dtype,
         assert launches["halo_edges"] == gathers(4, attempts) * sy * sx, (solver, launches)
         for g, wt in ((got.F, want.F), (got.U, want.U)):
             assert_match(g, wt, atol=1e-6 if dtype == "float32" else 1e-12)
+
+
+# K7's and K14's sizes: grids of edge blocks only (no block of 8 x 32 cells
+# has its ring inside), ragged grids, and 512^2 (the path's size; its
+# shards have interior blocks)
+SI_SIZES = ((9, 33), (8, 32), (1, 7), (18, 66), (100, 170), (33, 129), (512, 512))
+
+
+def _mesh_pairs(arrays, ny, nx, device):
+    """(sy, sx, Topology, the arrays as Shards) of each of y(2), x(2) and 2x2
+    that splits (ny, nx) into shards of at least one cell each way."""
+    from bachelors_tpu_torch.convert import shards_from_numpy
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    for sy, sx in ((2, 1), (1, 2), (2, 2)):
+        if ny % sy or nx % sx or ny < 2 * sy or nx < 2 * sx:
+            continue
+        yield sy, sx, Topology(sy, sx), [shards_from_numpy(a, sy, sx, [device] * (sy * sx))
+                                         for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [0.0, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("f_bc,u_bc", ALL_PAIRS)
+def test_k7_and_k12_7_match_plain_and_join_bit_for_bit(f_bc, u_bc, dtype, S, gen,
+                                                        cuda_device):  # noqa: F811
+    """K7 -- interior blocks reading their neighbours without the edge rule,
+    the isotropic instantiation at S = 0 -- against the plain prepare, one
+    launch a call, at both dtypes (float64 with float and double
+    transcendentals), every BC pair, the corrector guess off and on (s
+    emitted at S != 0 or with the guess), on grids of edge blocks only,
+    ragged grids and 512^2: to the f32 kernel tolerance at float and
+    F64_TOL at double, because K7 takes dt lap(U) in the phase Laplacian's
+    order where the plain version's ``lap_from_padded`` adds E first and
+    divides by dx^2 (an ulp apart, in uterm and, with the guess, r0).  K12.7
+    shard by shard on y(2), x(2) and 2x2 where the size splits against the
+    sharded plain version, the same way; joined, the shards equal K7 on the
+    whole grid bit for bit."""
+    from bachelors_tpu_torch.ops.rhs import stage_halos
+
+    def close(got, want):
+        if dtype == "float64":
+            _f64_close(got, want)
+        else:
+            for g, wt in zip(got, want):
+                assert_match(g, wt)
+
+    for ny, nx in SI_SIZES:
+        arrays = random_fields(gen, ny, nx, dtype, 1)[0]
+        F, U = _on([arrays], cuda_device)[0]
+        for f32t in ((True,) if dtype == "float32" else (True, False)):
+            for guess in (False, True):
+                p = SimParams(ny=ny, nx=nx, S=S, m0=6.0, theta0=0.1, dtype=dtype, gamma=0.9,
+                              f32_transcendentals=f32t, do_corrector_guess=guess,
+                              Phi_boundary=BoundaryType(f_bc), T_boundary=BoundaryType(u_bc))
+                whole = _counted(cuda_rhs.LAUNCHES, "si_prepare",
+                                 lambda: cuda_rhs.si_prepare(F, U, p))
+                want = cuda_rhs.si_prepare_plain(F, U, p)
+                assert len(whole) == len(want) == (3 if S != 0.0 or guess else 2)
+                close(whole, want)
+                for sy, sx, topo, (Fs, Us) in _mesh_pairs(arrays, ny, nx, cuda_device):
+                    out = []
+                    for f, u, h in zip(Fs.blocks, Us.blocks, stage_halos([(Fs, Us)], [1.0], topo)):
+                        got = _counted(cuda_rhs.LAUNCHES, "si_prepare_sharded",
+                                       lambda: cuda_rhs.si_prepare_sharded(f, u, p, h))
+                        close(got, cuda_rhs.si_prepare_sharded_plain(f, u, p, h))
+                        out.append(got)
+                    for i, w in enumerate(whole):
+                        assert torch.equal(_joined(out, i, (sy, sx)), w), (ny, nx, sy, sx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("bc", BCS)
+def test_k14_twin_joins_to_k14_bit_for_bit(bc, dtype, gen, cuda_device):  # noqa: F811
+    """K14 -- interior blocks reading e's neighbours without the edge rule --
+    in its four modes (cross, aniso, heat, heat with the extra terms), one
+    launch a call, against its plain version (F64_TOL at double, the f32
+    kernel tolerance at float: cg.cu keeps its FMA contractions), on grids
+    of edge blocks only, ragged grids and 512^2; its twin shard by shard on
+    y(2), x(2) and 2x2 where the size splits, to the same tolerance against
+    the sharded plain version, and joined over the mesh equal to K14 on the
+    whole grid bit for bit."""
+    from bachelors_tpu_torch.ops.rhs import stage_halos
+
+    A_U, A_F = _operators(bc)
+
+    def close(got, want):
+        if dtype == "float64":
+            _f64_close([got], [want])
+        else:
+            assert_match(got, want)
+
+    for ny, nx in SI_SIZES:
+        e, r0, e1, e2, x = (gen.normal(size=(ny, nx)).astype(dtype) for _ in range(5))
+        s = (0.33 + 0.08 * gen.uniform(-1, 1, size=(ny, nx))).astype(dtype)
+        arrays = (e, r0, e1, e2, x, s)
+        w = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+        modes = {  # name, call on (e, r0, e1, e2, x, s) and a halo, its plain version
+            "cross": lambda f, t, h: f(t[1], t[0], A_U, halo=h),
+            "aniso": lambda f, t, h: f(t[1], t[0], A_F, t[5], halo=h),
+            "heat": lambda f, t, h: f(t[1], (t[2], t[3]), t[0], A_U, 0.7, halo=h),
+            "heat + extra": lambda f, t, h: f(t[1], (t[2], t[3]), t[0], A_U, 0.7, t[4], halo=h)}
+        names = {"cross": "cross_residual", "aniso": "aniso_residual", "heat": "heat_residual",
+                 "heat + extra": "heat_residual"}
+        for mode, call in modes.items():
+            name = names[mode]
+            kernel, plain = getattr(cuda_cg, name), getattr(cuda_cg, f"{name}_plain")
+            whole = _counted(cuda_cg.LAUNCHES, name, lambda: call(kernel, w, None))
+            close(whole, call(plain, w, None))
+            for sy, sx, topo, sh in _mesh_pairs(arrays, ny, nx, cuda_device):
+                out = []
+                for k, h in enumerate(stage_halos([(sh[0], sh[0])], [1.0], topo)):
+                    blocks = [a.blocks[k] for a in sh]
+                    got = _counted(cuda_cg.LAUNCHES, f"{name}_sharded",
+                                   lambda: call(kernel, blocks, h))
+                    close(got, call(plain, blocks, h))
+                    out.append((got,))
+                assert torch.equal(_joined(out, 0, (sy, sx)), whole), (ny, nx, sy, sx, mode)

@@ -155,3 +155,46 @@ def test_ab_runs_summarises_each_rival_row_over_turns_and_processes():
     assert got["after"]["K15.1 float32 4096^2 back to back, graph µs"] == pytest.approx(
         [67.2, 67.25, 67.3])
     assert ab_runs.rival_summary([{"checkout": "before", "build": {}}]) == {}
+
+
+def test_ab_runs_replays_the_si_group_in_turns(monkeypatch):
+    """The si group: K7 at 512^2 and 2048^2 (S = 0.25 and 0, the guess off
+    and on) and K12.7 on the first shard of y(2), x(2) and 2x2 at 512^2
+    (both S), each at float32 and float64, and K14 in its four modes with
+    its twin in each on the same shards at float64 512^2; each case replayed
+    in turns (each kernel, each in reverse; twice) with no rival, and every
+    process of the default groups gets them."""
+    k7 = ["K7", "K7, guess", "K7 S=0", "K7 S=0, guess"]
+    k12_7 = [f"K12.7 {m} shard{t}" for m in ("y(2)", "x(2)", "2x2") for t in ("", " S=0")]
+    modes = ["cross", "aniso", "heat", "heat + extra"]
+    k14 = [f"K14 {m}" for m in modes] + [f"K14 twin {mesh} shard, {m}"
+                                         for mesh in ("y(2)", "x(2)", "2x2") for m in modes]
+    want = ([{"case": "k7", "dtype": dtype, "n": n, "turns": (k7 + k7[::-1]) * 2}
+             for dtype in ("float32", "float64") for n in (512, 2048)]
+            + [{"case": "k12.7", "dtype": dtype, "n": 512, "turns": (k12_7 + k12_7[::-1]) * 2}
+               for dtype in ("float32", "float64")]
+            + [{"case": "k14", "dtype": "float64", "n": 512, "turns": (k14 + k14[::-1]) * 2}])
+    assert ab_runs.rival_plan(["si"]) == want
+    calls = []
+    monkeypatch.setattr(ab_runs, "run", lambda checkout, script, *a: calls.append(a) or {})
+    monkeypatch.setattr(sys, "argv", ["ab_runs", "A", "B", "--kernels"])
+    ab_runs.main()
+    groups, plan, _ = calls[0]
+    assert "si" in groups.split(",")
+    assert [c for c in json.loads(plan) if c["case"] in ab_runs.DIGESTED] == want
+
+
+def test_ab_runs_names_the_rows_whose_digests_differ():
+    """Two checkouts give the same bits on the card when each digested row
+    has one digest over every process of both: the rows with more are
+    named; rows without a digest (the other groups') are not compared."""
+    row = {"graph_ms": [0.004], "event_ms": [0.01]}
+    results = [{"checkout": "before", "K7 float32 512^2 back to back": {**row, "digest": "a"},
+                "K14 cross float64 512^2 back to back": {**row, "digest": "c"},
+                "K9 (with alpha) float32 512^2 back to back": row},
+               {"checkout": "after", "K7 float32 512^2 back to back": {**row, "digest": "a"},
+                "K14 cross float64 512^2 back to back": {**row, "digest": "d"},
+                "K9 (with alpha) float32 512^2 back to back": row}]
+    assert ab_runs.digests_differ(results) == ["K14 cross float64 512^2 back to back"]
+    results[1]["K14 cross float64 512^2 back to back"]["digest"] = "c"
+    assert ab_runs.digests_differ(results) == []
