@@ -23,6 +23,16 @@ y-meshes and float64 meshes of any shape (``make_euler_pair_stepper``).
 A float64 run
 computes in double throughout, on the same kernels instantiated for it; its
 snapshots hold the doubles.
+
+With ``[tpu] ensemble = B`` the run is B simulations at once on one device,
+member b seeded with ``noise_seed + b`` (JAX :90-132, :247-282): each
+Euler pass, RK4 stage and Merson attempt is one launch for every member
+(``solvers/base.make_ensemble_stepper``), and each member keeps its own
+clock, so members of an adaptive ensemble step at their own times and stop
+at their own first step past each event.  Snapshots write member 0 with
+the members' mean and standard deviation maps, and every member's fields
+with their (t, iter, tau) into ``members_####.bin``, from which a run
+resumes; each member's stats go to its own csv (JAX :164-229).
 """
 from __future__ import annotations
 
@@ -36,21 +46,25 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.params import SolverType
-from ..core.state import SimState, make_state, numpy_dtype
+from ..core.state import SimState, make_state, n_members, numpy_dtype, stack_states
 from ..io.config import SimConfig, load_config
 from ..io.snapshot import load_bin_maps, make_save_folder, save_bin_maps
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
-from ..parallel.sharded import make_sharded_stepper
+from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 from ..parallel.topology import Topology
-from ..solvers.base import make_stepper
+from ..solvers.base import make_stepper, unsupported_members
 from ..solvers.explicit import make_euler_pair_stepper
 from ..solvers.run import END_TOLERANCE, advance_n
 from ..solvers.semi_implicit import cg_branch
 from ..utils.logging import SYSTEM, get_logger
 
 log = get_logger("app")
+
+# the packed per-member (t, iter, tau) map of an ensemble's members_####.bin
+# (values at flat offsets 3b, 3b + 1, 3b + 2; JAX :49-51)
+ENSEMBLE_META = "ensemble_meta"
 
 
 @dataclasses.dataclass
@@ -60,7 +74,10 @@ class RunResult:
     runtime: float
     snapshots: int
     save_folder: str
-    attempts: int = 0  # integrator passes (Merson attempts) over the run
+    # integrator passes (Merson attempts) over the run; for an ensemble (whose
+    # iters and sim_time are member 0's, as JAX reports them) the batched
+    # passes, each one launch for every member it steps
+    attempts: int = 0
 
     @property
     def avg_step_ms(self) -> float:
@@ -72,9 +89,10 @@ def check_supported(cfg: SimConfig) -> None:
     ROADMAP item that brings each, instead of ignoring them."""
     cfg.params.validate()
     todo = []
-    if cfg.ensemble > 1 or cfg.batch_shards > 1:
-        todo.append("[tpu] ensemble/batch_shards > 1 (ROADMAP slice 4, "
-                    "item 13: ensembles)")
+    if cfg.batch_shards > 1 or (cfg.ensemble > 1 and cfg.shards_y * cfg.shards_x > 1):
+        todo.append("[tpu] ensembles on a mesh and batch_shards > 1 (ROADMAP item 7c)")
+    if cfg.ensemble > 1 and unsupported_members(cfg.params):
+        todo.append(unsupported_members(cfg.params))
     if cfg.multihost:
         todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")
     if cfg.interactive:
@@ -110,6 +128,37 @@ def _initial_state(cfg: SimConfig, device: torch.device) -> SimState:
     return make_state(F, U, p, device=device)
 
 
+def _initial_ensemble_state(cfg: SimConfig, ensemble: int, device: torch.device) -> SimState:
+    """The stacked state of ``ensemble`` members, member b from noise_seed
+    + b, or resumed from the members_####.bin an ensemble run wrote: each
+    member's fields and its own (t, iter, tau) (JAX :90-132)."""
+    p = cfg.params
+    if cfg.init_path:
+        snap = load_bin_maps(cfg.init_path)
+        B = sum(1 for n in snap.maps if n.startswith("F_m"))
+        if B == 0:
+            raise ValueError(
+                f"'{cfg.init_path}' is not an ensemble members snapshot; point init_path "
+                "at the members_####.bin the ensemble run wrote next to its maps_####.bin")
+        if B != ensemble:
+            raise ValueError(f"snapshot has {B} members, config wants ensemble = {ensemble}")
+        if snap.nx != p.nx or snap.ny != p.ny:
+            raise ValueError(f"resume snapshot is {snap.nx}x{snap.ny}, "
+                             f"config wants {p.nx}x{p.ny}")
+        meta = snap.maps[ENSEMBLE_META].reshape(-1)
+        state = stack_states([make_state(snap.maps[f"F_m{b:03d}"], snap.maps[f"U_m{b:03d}"], p,
+                                         t=float(meta[3 * b]), it=int(round(meta[3 * b + 1])),
+                                         device=device) for b in range(B)])
+        log.info(f"resuming ensemble of {B} from '{cfg.init_path}' "
+                 f"at t={float(meta[0]):g} iter={int(round(meta[1]))}")
+        return state.replace(tau=meta[2:3 * B:3].astype(numpy_dtype(p)))
+    members = []
+    for b in range(ensemble):
+        ic = dataclasses.replace(cfg.initial, noise_seed=cfg.initial.noise_seed + b)
+        members.append(make_state(*make_initial_fields(p, ic, device=device), p, device=device))
+    return stack_states(members)
+
+
 def _echo_config(cfg: SimConfig, device: torch.device, topo: Topology) -> None:
     p = cfg.params
     log.info(f"solver = {p.solver.value}")
@@ -125,19 +174,54 @@ def _echo_config(cfg: SimConfig, device: torch.device, topo: Topology) -> None:
         log.info(f"semi-implicit phase solve: {cg_branch(p, device, topo)}")
 
 
+def _save_members(folder: str, index: int, state: SimState, p) -> dict:
+    """An ensemble's members_####.bin: every member's F and U and the
+    packed (t, iter, tau) map (JAX :164-193).  Returns member 0's maps
+    with the members' mean and standard deviation maps."""
+    Fb, Ub = state.F.cpu().numpy(), state.U.cpu().numpy()
+    B = Fb.shape[0]
+    if 3 * B <= p.nx * p.ny:
+        mmaps = {}
+        for b in range(B):
+            mmaps[f"F_m{b:03d}"] = Fb[b]
+            mmaps[f"U_m{b:03d}"] = Ub[b]
+        meta = np.zeros((p.ny, p.nx), np.float64)
+        meta.flat[0:3 * B:3] = state.t
+        meta.flat[1:3 * B:3] = state.iter
+        meta.flat[2:3 * B:3] = state.tau
+        mmaps[ENSEMBLE_META] = meta
+        save_bin_maps(os.path.join(folder, f"members_{index:04d}.bin"), mmaps,
+                      p.nx, p.ny, p.dx, p.dy, float(state.t[0]), int(state.iter[0]))
+    else:
+        log.warn(f"ensemble of {B} too large to pack resume metadata into a "
+                 f"{p.ny}x{p.nx} map; members file skipped")
+    return {"F": Fb[0], "U": Ub[0], "F_mean": Fb.mean(axis=0), "F_std": Fb.std(axis=0),
+            "U_mean": Ub.mean(axis=0), "U_std": Ub.std(axis=0)}
+
+
 def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
-                   acc: Optional[StatsAccumulator], save_config_once: List[int]) -> None:
+                   acc, save_config_once: List[int]) -> None:
+    """maps_####.bin (and an ensemble's members_####.bin) and the stats
+    rows collected since the last write: ``acc`` is one accumulator, or an
+    ensemble's list of them, member 0's into stats.csv and member b's into
+    stats_m{b:03d}.csv (JAX :219-225)."""
     p = cfg.params
-    state = gather_state(state)  # a mesh's shards joined: the same bytes
-    maps = {"F": state.F.cpu().numpy(), "U": state.U.cpu().numpy()}
+    if n_members(state):
+        maps = _save_members(folder, index, state, p)
+        t, it, tau = state.t[0], state.iter[0], state.tau[0]
+    else:
+        state = gather_state(state)  # a mesh's shards joined: the same bytes
+        maps = {"F": state.F.cpu().numpy(), "U": state.U.cpu().numpy()}
+        t, it, tau = state.t, state.iter, state.tau
     if p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE:
         # the adaptive step size as a constant full map (the .bin header
         # fixes every map to nx*ny), so a resume continues the controller
-        maps["tau"] = np.full((p.ny, p.nx), float(state.tau))
+        maps["tau"] = np.full((p.ny, p.nx), float(tau))
     save_bin_maps(os.path.join(folder, f"maps_{index:04d}.bin"), maps,
-                  p.nx, p.ny, p.dx, p.dy, float(state.t), int(state.iter))
-    if acc is not None:
-        acc.save_csv(os.path.join(folder, "stats.csv"), p.nx, p.ny, p.dt)
+                  p.nx, p.ny, p.dx, p.dy, float(t), int(it))
+    for b, a in enumerate(acc if isinstance(acc, list) else [acc] if acc else []):
+        name = "stats.csv" if b == 0 else f"stats_m{b:03d}.csv"
+        a.save_csv(os.path.join(folder, name), p.nx, p.ny, p.dt)
     if save_config_once[0] == 0:
         with open(os.path.join(folder, "config.ini"), "w") as f:
             f.write(cfg.entire_config_text)
@@ -184,10 +268,16 @@ def run_simulation(cfg: SimConfig, device="cuda",
     check_supported(cfg)
     dev, mesh, topo = _devices(cfg, device)
     p = cfg.params
-    state = _initial_state(cfg, dev)
-    if mesh is None:
+    ensemble = max(cfg.ensemble, 1)
+    if ensemble > 1:
+        state = _initial_ensemble_state(cfg, ensemble, dev)
+        stepper = make_ensemble_stepper(p)
+        log.info(f"ensemble of {ensemble} members (vary noise_seed)")
+    elif mesh is None:
+        state = _initial_state(cfg, dev)
         stepper = make_stepper(p)
     else:
+        state = _initial_state(cfg, dev)
         stepper = make_sharded_stepper(p, mesh, topo)
         state = shard_state(state, mesh, topo)
 
@@ -203,7 +293,8 @@ def run_simulation(cfg: SimConfig, device="cuda",
         log.info(f"sharding over a {topo.shards_y}x{topo.shards_x} mesh on "
                  f"{[str(d) for d in mesh.devices]}")
 
-    acc = StatsAccumulator() if cfg.collect_stats else None
+    accs = [StatsAccumulator() for _ in range(ensemble)] if cfg.collect_stats else []
+    acc = accs[0] if accs else None
     save_config_once = [0]
     snapshots = 0
     if cfg.snapshot_initial_conditions and make_folder:
@@ -225,12 +316,16 @@ def run_simulation(cfg: SimConfig, device="cuda",
 
     stop = cfg.stop_time
     last_stats_save = 0.0
+    last_stats_m = [0.0] * ensemble
     attempts = 0
     t_start = time.perf_counter()
     last_notif = t_start
     for target in snapshot_events(stop, cfg.snapshot_times, cfg.snapshot_every):
-        t_now = state.iter * p.dt
-        if fast and target - t_now >= p.dt * 1e-9:
+        if ensemble > 1:
+            state, n = _advance_members(stepper, state, target, fast, accs, last_stats_m, cfg)
+            attempts += n
+        elif fast and target - state.iter * p.dt >= p.dt * 1e-9:
+            t_now = state.iter * p.dt
             n = max(int(np.ceil((target - t_now) / p.dt - 1e-9)), 1)
             state = advance_n(stepper, state, n, pair)
             attempts += n
@@ -250,18 +345,51 @@ def run_simulation(cfg: SimConfig, device="cuda",
         snapshots += 1
         if make_folder:
             log.info(f"saving snapshot {snapshots}")
-            _save_snapshot(folder, snapshots, state, cfg, acc, save_config_once)
+            _save_snapshot(folder, snapshots, state, cfg, accs if ensemble > 1 else acc,
+                           save_config_once)
 
     for d in set(mesh.devices if mesh is not None else [dev]):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
     runtime = time.perf_counter() - t_start
+    # an ensemble reports member 0's clock (JAX :542-546)
+    iters, t = (int(state.iter[0]), float(state.t[0])) if ensemble > 1 else (state.iter, state.t)
     log.info("Finished!")
-    log.info(f"runtime: {runtime:.2f}s | iters: {state.iter} | attempts: "
+    log.info(f"runtime: {runtime:.2f}s | iters: {iters} | attempts: "
              f"{attempts} | average step time: "
-             f"{runtime / max(state.iter, 1) * 1000:.3f} ms")
-    return RunResult(iters=state.iter, sim_time=state.t, runtime=runtime,
+             f"{runtime / max(iters, 1) * 1000:.3f} ms")
+    return RunResult(iters=iters, sim_time=t, runtime=runtime,
                      snapshots=snapshots, save_folder=folder, attempts=attempts)
+
+
+def _advance_members(stepper, state: SimState, target: float, fast: bool,
+                     accs: List[StatsAccumulator], last_stats_m: List[float], cfg: SimConfig):
+    """An ensemble to the event ``target``: with ``fast`` (fixed dt, no
+    stats) the host-counted steps of member 0's clock for every member, as
+    JAX's vmapped ``advance_n``; else each step the members still below
+    the target by 1e-16 (JAX's ``advance_until_members`` and masked
+    ``advance_collect``), each member's stats row collected on its own
+    cadence (JAX :510-520).  Returns the state and the batched passes."""
+    p = cfg.params
+    passes = 0
+    if fast:
+        t_now = int(state.iter[0]) * p.dt
+        if target - t_now >= p.dt * 1e-9:
+            for _ in range(max(int(np.ceil((target - t_now) / p.dt - 1e-9)), 1)):
+                state, _stats = stepper(state)
+                passes += 1
+        return state, passes
+    while True:
+        live = target - state.t >= END_TOLERANCE
+        if not live.any():
+            return state, passes
+        state, stats = stepper(state, live)
+        passes += stepper.rounds
+        for b in np.flatnonzero(live) if accs else ():
+            t_post = float(np.float32(state.t[b]))
+            if t_post >= last_stats_m[b] + cfg.collect_stats_every:
+                accs[b].collect(stats.member(b))
+                last_stats_m[b] = t_post
 
 
 def run_config_file(path: str, overrides: Optional[List[str]] = None,

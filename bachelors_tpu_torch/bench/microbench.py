@@ -24,7 +24,8 @@ seeded 0, as the JAX sweep's is from ``PRNGKey(0)``.
 
 writes the results as JSON (the bandwidth figure of the JAX package's
 ``main`` waits for the plots: ROADMAP item 16).  ``run_ensemble_benchmark``
-waits for ensembles (item 13).
+(JAX :111) times an RKM ensemble's member-steps a second at several member
+counts.
 """
 from __future__ import annotations
 
@@ -78,6 +79,51 @@ def run_reduction_benchmark(n_max: int = DEFAULT_N_MAX, device=None,
         log.info(f"reduce n={n} on {dev}: max {r['max_gbps']:.1f} GB/s, "
                  f"fused stats {r['fused_stats_gbps']:.1f} GB/s, "
                  f"K11 {r['pallas_stats_gbps']:.1f} GB/s")
+    return results
+
+
+def run_ensemble_benchmark(mesh_size: int = 256, batches=(1, 4, 16, 64), steps: int = 200,
+                           device=None) -> list:
+    """Data-parallel throughput (JAX :111): B copies of one RKM simulation
+    advanced as one ensemble (``[tpu] ensemble``, each attempt one batched
+    K2 launch for every member), member-steps a second and ms a step at
+    each B, by the host clock around ``steps`` steps after a warm-up
+    (synchronised on the card).  ``device`` None means the card."""
+    import time
+
+    from ..core.params import SimParams, SolverType
+    from ..core.state import make_state, stack_states
+    from ..models.initial import InitialConditions, make_initial_fields
+    from ..parallel.sharded import make_ensemble_stepper
+
+    dev = resolve_device("cuda" if device is None else device)
+    p = SimParams(nx=mesh_size, ny=mesh_size, L0=4.0 * mesh_size / 512,
+                  solver=SolverType.EXPLICIT_RK4_ADAPTIVE, dt=5e-6, S=0.0,
+                  dtype="float32", min_dt=1e-9)
+    F, U = make_initial_fields(p, InitialConditions(
+        circle_center=(p.L0 / 2, p.L0 / 2), circle_radius=p.L0 / 80), device=dev)
+    base = make_state(F, U, p, device=dev)
+    step = make_ensemble_stepper(p)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    results = []
+    for B in batches:
+        state = stack_states([base] * B)
+        for _ in range(max(2, steps // 8)):
+            state, _ = step(state)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        sync()
+        t = (time.perf_counter() - t0) / steps
+        results.append(dict(batch=B, mesh=mesh_size, member_steps_per_s=B / t,
+                            step_ms=t * 1e3))
+        log.info(f"ensemble B={B} {mesh_size}^2 RKM on {dev}: {t * 1e3:.4f} ms/step "
+                 f"({B / t:.0f} member-steps/s)")
     return results
 
 

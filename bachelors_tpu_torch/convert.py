@@ -39,18 +39,27 @@ def params_from_jax_fields(d: Mapping[str, Any]) -> SimParams:
     return SimParams(**kw)
 
 
-def state_from_numpy(F: np.ndarray, U: np.ndarray, t: float, iter: int,
-                     tau: float, device=DEFAULT_DEVICE) -> SimState:
+def state_from_numpy(F: np.ndarray, U: np.ndarray, t, iter, tau,
+                     device=DEFAULT_DEVICE) -> SimState:
     """A state on ``device`` (the card unless the caller asks for the CPU)
     with the fields' own dtype (float32 or float64); ``tau`` becomes a numpy
-    scalar of that dtype."""
+    scalar of that dtype.  Stacked (B, ny, nx) fields make an ensemble's
+    state (JAX's vmapped ``SimState``): ``t``, ``iter`` and ``tau`` then
+    hold one value per member (or one for all), kept as float64, int64 and
+    field-dtype arrays."""
     F = np.asarray(F)
     dtype = F.dtype.name
     if dtype not in ("float32", "float64"):
         raise TypeError(f"fields must be float32 or float64, got {dtype}")
-    state = make_state(F, np.asarray(U, F.dtype), SimParams(dtype=dtype),
-                       t=t, it=iter, device=device)
+    U = np.asarray(U, F.dtype)
+    if F.ndim == 3:
+        B, ny, nx = F.shape
+        state = make_state(F, U, SimParams(dtype=dtype, nx=nx, ny=ny), t=np.asarray(t),
+                           it=np.asarray(iter), device=device, members=B)
+        return state.replace(tau=np.broadcast_to(np.asarray(tau, F.dtype), B).copy())
+    state = make_state(F, U, SimParams(dtype=dtype), t=t, it=iter, device=device)
     return state.replace(tau=F.dtype.type(tau))
+
 
 
 def shards_from_numpy(A: np.ndarray, shards_y: int, shards_x: int,

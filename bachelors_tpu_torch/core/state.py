@@ -12,6 +12,11 @@
     ``np.float64``): the adaptive controller computes in the state dtype
     (`bachelors_tpu/solvers/explicit.py:485-489`), and a Python float would
     round differently.
+
+An ensemble of B members (``[tpu] ensemble``, JAX's vmapped state) stacks
+the fields (B, ny, nx) on one device, and its clock is host numpy arrays
+of B: ``t`` float64, ``iter`` int64 and ``tau`` of the field dtype, so
+member b's entries are exactly what its single run would hold.
 """
 from __future__ import annotations
 
@@ -121,18 +126,44 @@ class SimState:
 
 
 def make_state(F, U, p: SimParams, t: float = 0.0, it: int = 0,
-               device=DEFAULT_DEVICE) -> SimState:
+               device=DEFAULT_DEVICE, members: Optional[int] = None) -> SimState:
     """A state with the fields on ``device`` (the card unless the caller
-    asks for the CPU; see ``core/device.py``)."""
+    asks for the CPU; see ``core/device.py``).  With ``members`` = B the
+    fields are an ensemble's, stacked (B, ny, nx), and ``t`` and ``it`` are
+    one value for all or one per member."""
     dtype = torch_dtype(p)
     device = resolve_device(device)
-    return SimState(
-        F=torch.as_tensor(F, dtype=dtype, device=device).contiguous(),
-        U=torch.as_tensor(U, dtype=dtype, device=device).contiguous(),
-        t=float(t),
-        iter=int(it),
-        tau=numpy_dtype(p)(p.dt),
-    )
+    F = torch.as_tensor(F, dtype=dtype, device=device).contiguous()
+    U = torch.as_tensor(U, dtype=dtype, device=device).contiguous()
+    if members is None:
+        return SimState(F=F, U=U, t=float(t), iter=int(it), tau=numpy_dtype(p)(p.dt))
+    if F.shape != (members, p.ny, p.nx) or U.shape != F.shape:
+        raise ValueError(f"an ensemble of {members} takes fields of shape "
+                         f"{(members, p.ny, p.nx)}, got {tuple(F.shape)}, {tuple(U.shape)}")
+    return SimState(F=F, U=U, t=np.broadcast_to(np.asarray(t, np.float64), members).copy(),
+                    iter=np.broadcast_to(np.asarray(it, np.int64), members).copy(),
+                    tau=np.full(members, p.dt, numpy_dtype(p)))
+
+
+def n_members(state: SimState) -> Optional[int]:
+    """B for an ensemble's state, None for a single simulation's."""
+    return len(state.t) if isinstance(state.t, np.ndarray) else None
+
+
+def member(state: SimState, b: int) -> SimState:
+    """Member b of an ensemble's state as a single simulation's (its fields
+    views of the stack)."""
+    return SimState(F=state.F[b], U=state.U[b], t=float(state.t[b]),
+                    iter=int(state.iter[b]), tau=state.tau[b])
+
+
+def stack_states(states) -> SimState:
+    """An ensemble's state from its members' single states, in order."""
+    return SimState(F=torch.stack([s.F for s in states]),
+                    U=torch.stack([s.U for s in states]),
+                    t=np.array([s.t for s in states], np.float64),
+                    iter=np.array([s.iter for s in states], np.int64),
+                    tau=np.array([s.tau for s in states], type(states[0].tau)))
 
 
 # Order of the eight per-step delta statistics in ``StepStats.deltas``: the
@@ -162,6 +193,11 @@ class StepStats:
     recorded iteration in the column order of ``STEP_RES_NAMES``, as a
     float32 tensor on the fields' device; ``None`` when none were recorded
     (the JAX package's fixed ``step_res_*`` slots and ``step_res_count``).
+
+    An ensemble's step stacks its members' stats: ``t`` (float32),
+    ``iter``, ``Phi_iters``, ``T_iters`` and ``attempts`` are numpy arrays
+    of B, ``deltas`` is (B, 8) and ``step_res`` (B, n, 4); ``member(b)``
+    is member b's row.
     """
 
     t: float
@@ -172,7 +208,21 @@ class StepStats:
     deltas: Optional[torch.Tensor] = None
     step_res: Optional[torch.Tensor] = None
 
+    def member(self, b: int) -> "StepStats":
+        """Member b's stats of an ensemble's step."""
+        return StepStats(t=float(self.t[b]), iter=int(self.iter[b]),
+                         Phi_iters=int(self.Phi_iters[b]), T_iters=int(self.T_iters[b]),
+                         attempts=int(self.attempts[b]),
+                         deltas=None if self.deltas is None else self.deltas[b],
+                         step_res=None if self.step_res is None else self.step_res[b])
 
-def empty_stats(state: SimState) -> StepStats:
-    return StepStats(t=float(np.float32(state.t)), iter=state.iter,
-                     Phi_iters=0, T_iters=0)
+
+def empty_stats(state: SimState, members: Optional[int] = None) -> StepStats:
+    """The stats of a step from ``state`` before anything is recorded; with
+    ``members`` = B, an ensemble's (its state's clock is per member)."""
+    if members is None:
+        return StepStats(t=float(np.float32(state.t)), iter=state.iter,
+                         Phi_iters=0, T_iters=0)
+    zero = np.zeros(members, np.int64)
+    return StepStats(t=state.t.astype(np.float32), iter=state.iter.copy(),
+                     Phi_iters=zero, T_iters=zero.copy(), attempts=np.ones(members, np.int64))

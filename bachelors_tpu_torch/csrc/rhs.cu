@@ -404,10 +404,10 @@ __device__ __forceinline__ Stencil<Real> inner_stencil(const BlendArgs<Real>& a,
 // interior blocks pay nothing for it, and a launch without a fold takes the
 // instantiation built without it.
 template <int NS, bool ISO, bool FOLD, class Real>
-__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
-    blend_rhs_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
-                     Real* __restrict__ outU, int ny, int nx, Real d, Real fu,
-                     int is_euler, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
+__device__ __forceinline__ void blend_rhs_block(const BlendArgs<Real>& a, Real* __restrict__ outF,
+                                                Real* __restrict__ outU, int ny, int nx, Real d,
+                                                Real fu, int is_euler, const Halo<Real>& h,
+                                                const Fold<Real>& fo, const PhysParams<Real>& P) {
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
   const bool inner = inner_block<kK1BlockY, kK1BlockX>(i0, j0, ny, nx);
@@ -431,6 +431,64 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   if (FOLD && !inner) fold_end(fo, fc, i, j, ny, nx, dF, dU);
 }
 
+template <int NS, bool ISO, bool FOLD, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    blend_rhs_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
+                     Real* __restrict__ outU, int ny, int nx, Real d, Real fu,
+                     int is_euler, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
+  blend_rhs_block<NS, ISO, FOLD>(a, outF, outU, ny, nx, d, fu, is_euler, h, fo, P);
+}
+
+// ---------------------------------------------------------- ensembles ----
+//
+// The batched kernels step the members of an ensemble in one launch, as the
+// JAX package's `jax.vmap` of the stepper lifts each pallas_call's grid by a
+// leading member dimension (`tests/test_pallas_dd.py:85-90`).  The fields
+// are stacked (B, ny, nx); blockIdx.z indexes the members the launch steps
+// (`Members`), so a member the host froze or that finished its retries
+// costs nothing and its rows are left as they are.  Each member's block
+// runs the unbatched kernel's body on its own (ny, nx) slice: member b's
+// output equals the unbatched kernel's on member b's fields bit for bit.
+
+// At most this many members a launch (a parameter of 1.3 KB at double);
+// the host splits a larger live set into several launches.
+constexpr int kMaxMembers = 64;
+
+// The members a batched launch steps: member z of the launch (blockIdx.z)
+// is ensemble member id[z], whose fields start at id[z] * ny * nx, with
+// its own step size tau[z] (K2) and forcing fu[z] (every batched kernel:
+// the forcing reads the member's iteration count).  Passed by value as a
+// __grid_constant__ parameter, so no copy to the card precedes a launch
+// and a block reads its member's entries from the parameter bank.
+template <class Real>
+struct Members {
+  int id[kMaxMembers];
+  Real tau[kMaxMembers];
+  Real fu[kMaxMembers];
+};
+
+template <class Real>
+__device__ __forceinline__ size_t member_offset(const Members<Real>& m, int ny, int nx) {
+  return size_t(m.id[blockIdx.z]) * size_t(ny) * size_t(nx);
+}
+
+// K1 over members: the same weights for all (Euler and RK4 have a fixed
+// dt), each member's forcing its own.  Bound like K1, B times the bytes.
+template <int NS, bool ISO, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    blend_rhs_members_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
+                             Real* __restrict__ outU, int ny, int nx, Real d, int is_euler,
+                             const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const size_t off = member_offset(m, ny, nx);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    a.F[k] += off;
+    a.U[k] += off;
+  }
+  blend_rhs_block<NS, ISO, false>(a, outF + off, outU + off, ny, nx, d, m.fu[blockIdx.z],
+                                  is_euler, whole_grid<Real>(), no_fold<Real>(), P);
+}
+
 // K4: a = {x, k3} with weights {1, dt}; the combination in the JAX
 // kernel's order, x + c6 (((k1 + 2 k2) + 2 k3) + k4).  With a halo, K12.4 on
 // a shard: the ghosts are those of the blend [x, k3], and the FOLD
@@ -443,12 +501,11 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 // body, and S = 0 takes the isotropic instantiation: the same operations
 // on the same values, so the same bits.
 template <bool ISO, bool FOLD, class Real>
-__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
-    rk4_final_kernel(BlendArgs<Real> a, const Real* __restrict__ k1F,
-                     const Real* __restrict__ k1U, const Real* __restrict__ k2F,
-                     const Real* __restrict__ k2U, Real* __restrict__ outF,
-                     Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
-                     Real fu, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
+__device__ __forceinline__ void rk4_final_block(
+    const BlendArgs<Real>& a, const Real* __restrict__ k1F, const Real* __restrict__ k1U,
+    const Real* __restrict__ k2F, const Real* __restrict__ k2U, Real* __restrict__ outF,
+    Real* __restrict__ outU, int ny, int nx, Real c6, Real d, Real fu, const Halo<Real>& h,
+    const Fold<Real>& fo, const PhysParams<Real>& P) {
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
   const bool inner = inner_block<kK1BlockY, kK1BlockX>(i0, j0, ny, nx);
@@ -467,6 +524,36 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   outF[c] = nF;
   outU[c] = nU;
   if (FOLD && !inner) fold_end(fo, fold_begin(a, fo, i, j, ny, nx), i, j, ny, nx, nF, nU);
+}
+
+template <bool ISO, bool FOLD, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    rk4_final_kernel(BlendArgs<Real> a, const Real* __restrict__ k1F,
+                     const Real* __restrict__ k1U, const Real* __restrict__ k2F,
+                     const Real* __restrict__ k2U, Real* __restrict__ outF,
+                     Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
+                     Real fu, Halo<Real> h, Fold<Real> fo, PhysParams<Real> P) {
+  rk4_final_block<ISO, FOLD>(a, k1F, k1U, k2F, k2U, outF, outU, ny, nx, c6, d, fu, h, fo, P);
+}
+
+// K4 over members (a = {x, k3} stacked, k1 and k2 too): dt shared, each
+// member's forcing its own.  Bound like K4, B times the bytes.
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    rk4_final_members_kernel(BlendArgs<Real> a, const Real* __restrict__ k1F,
+                             const Real* __restrict__ k1U, const Real* __restrict__ k2F,
+                             const Real* __restrict__ k2U, Real* __restrict__ outF,
+                             Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
+                             const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const size_t off = member_offset(m, ny, nx);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    a.F[k] += off;
+    a.U[k] += off;
+  }
+  rk4_final_block<ISO, false>(a, k1F + off, k1U + off, k2F + off, k2U + off, outF + off,
+                              outU + off, ny, nx, c6, d, m.fu[blockIdx.z], whole_grid<Real>(),
+                              no_fold<Real>(), P);
 }
 
 // ------------------------------------------------- K5, K12.1's ghost gather ----
@@ -966,12 +1053,12 @@ __device__ __forceinline__ void rkm_stages(const Tile& T, RkmSmem<Real, NT>& s,
 // same order on the same values as the plain version, so the result is the
 // same bit for bit.
 template <bool GHOSTS, bool ISO, class Real>
-__global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
-                                  K2Block<Real, ISO>::kMinBlocks)
-    rkm_attempt_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
-                       Real* __restrict__ outF, Real* __restrict__ outU,
-                       Real* __restrict__ partials, Apron<Real> ap, int ny, int nx,
-                       Real tau, Real d, Real fu, PhysParams<Real> P) {
+__device__ __forceinline__ void rkm_attempt_tile(const Real* __restrict__ F,
+                                                 const Real* __restrict__ U,
+                                                 Real* __restrict__ outF, Real* __restrict__ outU,
+                                                 Real* __restrict__ partials,
+                                                 const Apron<Real>& ap, int ny, int nx, Real tau,
+                                                 Real d, Real fu, const PhysParams<Real>& P) {
   constexpr int A = kK2Apron, NT = K2Block<Real, ISO>::kThreads;
   RkmSmem<Real, NT>& s = *reinterpret_cast<RkmSmem<Real, NT>*>(tile_smem);
   const Tile T = block_tile<A>(ny, nx, ap);
@@ -983,11 +1070,38 @@ __global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
     rkm_stages<true, ISO, NT>(T, s, P, tau, d, fu, outF, outU, partials);
 }
 
+template <bool GHOSTS, bool ISO, class Real>
+__global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
+                                  K2Block<Real, ISO>::kMinBlocks)
+    rkm_attempt_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                       Real* __restrict__ outF, Real* __restrict__ outU,
+                       Real* __restrict__ partials, Apron<Real> ap, int ny, int nx,
+                       Real tau, Real d, Real fu, PhysParams<Real> P) {
+  rkm_attempt_tile<GHOSTS, ISO>(F, U, outF, outU, partials, ap, ny, nx, tau, d, fu, P);
+}
+
+// K2 over members: one Merson attempt of every member the launch steps,
+// each at its own tau and forcing, on K2's tiles (blockIdx.x, .y) of its
+// own fields; the block's error maxima go to the launch member's slice of
+// the partials (2 * tiles values each).  Bound like K2, B times the work.
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
+                                  K2Block<Real, ISO>::kMinBlocks)
+    rkm_attempt_members_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                               Real* __restrict__ outF, Real* __restrict__ outU,
+                               Real* __restrict__ partials, int ny, int nx, Real d,
+                               const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const size_t off = member_offset(m, ny, nx);
+  const size_t tiles = size_t(gridDim.x) * gridDim.y;
+  rkm_attempt_tile<false, ISO>(F + off, U + off, outF + off, outU + off,
+                               partials + 2 * tiles * blockIdx.z, whole_apron<Real>(ny, nx), ny,
+                               nx, m.tau[blockIdx.z], d, m.fu[blockIdx.z], P);
+}
+
 // err[0] = max of partials[0:n], err[1] = max of partials[n:2n]
 template <class Real>
-__global__ void __launch_bounds__(kReduceThreads)
-    reduce_partials_kernel(const Real* __restrict__ partials, int n,
-                           Real* __restrict__ err) {
+__device__ __forceinline__ void reduce_partials_block(const Real* __restrict__ partials, int n,
+                                                      Real* __restrict__ err) {
   __shared__ Real rF[kReduceThreads], rU[kReduceThreads];
   Real mF = Real(0), mU = Real(0);
   for (int i = threadIdx.x; i < n; i += kReduceThreads) {
@@ -1008,6 +1122,23 @@ __global__ void __launch_bounds__(kReduceThreads)
     err[0] = rF[0];
     err[1] = rU[0];
   }
+}
+
+template <class Real>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_partials_kernel(const Real* __restrict__ partials, int n,
+                           Real* __restrict__ err) {
+  reduce_partials_block(partials, n, err);
+}
+
+// The members' maxima: block z reduces launch member z's 2n partials into
+// err[2 id[z]], err[2 id[z] + 1] of the (B, 2) maxima.
+template <class Real>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_partials_members_kernel(const Real* __restrict__ partials, int n,
+                                   Real* __restrict__ err,
+                                   const __grid_constant__ Members<Real> m) {
+  reduce_partials_block(partials + size_t(2) * n * blockIdx.z, n, err + 2 * m.id[blockIdx.z]);
 }
 
 // ---------------------------------------------------------------- K3 ----
@@ -1530,6 +1661,86 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
   return bt::Halo<Ar<S>>{ar(rows), ar(cols), edges};
 }
 
+// A batched launch's grid: the unbatched kernel's, its z the launch's
+// members, 1..kMaxMembers (below gridDim.z's cap of 65535).
+bool members_ok(int count) { return count >= 1 && count <= bt::kMaxMembers; }
+
+// K1 over members: the isotropic instantiation when S = 0
+template <class S>
+int blend_rhs_members(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
+                      const S* U2, const S* F3, const S* U3, int n_states, S w1, S w2, S w3,
+                      S* outF, S* outU, int ny, int nx, S d, int is_euler,
+                      const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                      cudaStream_t stream) {
+  using R = Ar<S>;
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, F3, U3, w1, w2, w3);
+  dim3 grid = k1_grid(ny, nx);
+  grid.z = count;
+  const dim3 block(bt::kK1BlockX, bt::kK1BlockY);
+  const bool iso = is_zero(P->S);
+  decltype(&bt::blend_rhs_members_kernel<1, true, R>) kernel;
+  switch (n_states) {
+    case 1: kernel = iso ? bt::blend_rhs_members_kernel<1, true, R> : bt::blend_rhs_members_kernel<1, false, R>; break;
+    case 2: kernel = iso ? bt::blend_rhs_members_kernel<2, true, R> : bt::blend_rhs_members_kernel<2, false, R>; break;
+    case 3: kernel = iso ? bt::blend_rhs_members_kernel<3, true, R> : bt::blend_rhs_members_kernel<3, false, R>; break;
+    case 4: kernel = iso ? bt::blend_rhs_members_kernel<4, true, R> : bt::blend_rhs_members_kernel<4, false, R>; break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  kernel<<<grid, block, 0, stream>>>(a, ar(outF), ar(outU), ny, nx, R(d), is_euler, *m, *P);
+  return int(cudaGetLastError());
+}
+
+// K4 over members: the isotropic instantiation when S = 0
+template <class S>
+int rk4_final_members(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k2F,
+                      const S* k2U, const S* k3F, const S* k3U, S* outF, S* outU, int ny,
+                      int nx, S dt, S c6, S d, const bt::Members<Ar<S>>* m, int count,
+                      const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  using R = Ar<S>;
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  bt::BlendArgs<R> a{{ar(xF), ar(k3F), nullptr, nullptr}, {ar(xU), ar(k3U), nullptr, nullptr},
+                     {R(1), R(dt), R(0), R(0)}};
+  dim3 grid = k1_grid(ny, nx);
+  grid.z = count;
+  auto kernel = is_zero(P->S) ? bt::rk4_final_members_kernel<true, R>
+                              : bt::rk4_final_members_kernel<false, R>;
+  kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(
+      a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU), ny, nx, R(c6), R(d), *m, *P);
+  return int(cudaGetLastError());
+}
+
+// K2 over members, then the members' one-block reductions in one launch
+template <class S, bool ISO>
+int rkm_attempt_members_on(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
+                           int ny, int nx, S d, const bt::Members<Ar<S>>* m, int count,
+                           const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  using R = Ar<S>;
+  constexpr int threads = bt::K2Block<R, ISO>::kThreads;
+  constexpr int smem = int(sizeof(bt::RkmSmem<R, threads>));
+  static const cudaError_t attr = allow_smem(bt::rkm_attempt_members_kernel<ISO, R>, smem);
+  if (attr != cudaSuccess) return int(attr);
+  dim3 grid = tile_grid(ny, nx);
+  const int tiles = int(grid.x * grid.y);
+  grid.z = count;
+  bt::rkm_attempt_members_kernel<ISO><<<grid, threads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ar(partials), ny, nx, R(d), *m, *P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  bt::reduce_partials_members_kernel<<<dim3(1, 1, count), bt::kReduceThreads, 0, stream>>>(
+      ar(static_cast<const S*>(partials)), tiles, ar(err), *m);
+  return int(cudaGetLastError());
+}
+
+template <class S>
+int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S* err, int ny,
+                        int nx, S d, const bt::Members<Ar<S>>* m, int count,
+                        const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  auto on = is_zero(P->S) ? rkm_attempt_members_on<S, true> : rkm_attempt_members_on<S, false>;
+  return on(F, U, outF, outU, partials, err, ny, nx, d, m, count, P, stream);
+}
+
 }  // namespace
 
 // The C interface: one set of entry points per field type, `bt_*_f32` on
@@ -1664,6 +1875,42 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
                         fold_rows, fold_cols, P, stream);                                \
   }
 
+// The batched kernels over the members of an ensemble, at both field types:
+// fields stacked (B, ny, nx), `m` the launch's members (bt::Members: ids,
+// and per member tau and fu), `count` of them, 1..bt_members_max().
+//   K1 bt_blend_rhs_members: K1 on each member's fields, the weights
+//      shared.
+//   K4 bt_rk4_final_members: K4 on each member's fields, dt shared.
+//   K2 bt_rkm_attempt_members: one Merson attempt of each member at its
+//      tau; err is the (B, 2) maxima, of which rows id[0..count) are
+//      written; partials holds 2 * count * bt_rkm_num_blocks(ny, nx)
+//      values.
+#define BT_MEMBERS_ENTRIES(SFX, S)                                                       \
+  int bt_blend_rhs_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,   \
+                                 const S* F2, const S* U2, const S* F3, const S* U3,   \
+                                 int n_states, S w1, S w2, S w3, S* outF, S* outU,     \
+                                 int ny, int nx, S d, int is_euler,                    \
+                                 const bt::Members<Ar<S>>* m, int count,               \
+                                 const PhysParams<Ar<S>>* P, cudaStream_t stream) {    \
+    return blend_rhs_members<S>(F0, U0, F1, U1, F2, U2, F3, U3, n_states, w1, w2, w3,  \
+                                outF, outU, ny, nx, d, is_euler, m, count, P, stream); \
+  }                                                                                     \
+  int bt_rk4_final_members_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U, \
+                                 const S* k2F, const S* k2U, const S* k3F,             \
+                                 const S* k3U, S* outF, S* outU, int ny, int nx, S dt, \
+                                 S c6, S d, const bt::Members<Ar<S>>* m, int count,    \
+                                 const PhysParams<Ar<S>>* P, cudaStream_t stream) {    \
+    return rk4_final_members<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny,  \
+                                nx, dt, c6, d, m, count, P, stream);                   \
+  }                                                                                     \
+  int bt_rkm_attempt_members_##SFX(const S* F, const S* U, S* outF, S* outU,           \
+                                   S* partials, S* err, int ny, int nx, S d,           \
+                                   const bt::Members<Ar<S>>* m, int count,             \
+                                   const PhysParams<Ar<S>>* P, cudaStream_t stream) {  \
+    return rkm_attempt_members<S>(F, U, outF, outU, partials, err, ny, nx, d, m, count, \
+                                  P, stream);                                          \
+  }
+
 // The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +
 // ny_l) and columns [x0, x0 + nx_l), from its ghosts (bt::Apron):
 //   float32, y-meshes (x0 = 0, nx_l = nx, `slabs` the ghost rows):
@@ -1682,6 +1929,8 @@ BT_RHS_ENTRIES(f32, float)
 BT_RHS_ENTRIES(f64, double)
 BT_MESH_ENTRIES(f32, float)
 BT_MESH_ENTRIES(f64, double)
+BT_MEMBERS_ENTRIES(f32, float)
+BT_MEMBERS_ENTRIES(f64, double)
 
 int bt_rkm_attempt_slabs_f32(const float* F, const float* U, float* outF, float* outU,
                              float* partials, float* err, const float* slabs, int y0,
@@ -1738,6 +1987,9 @@ int bt_rk4_full_apron_f64(const double* F, const double* U, double* outF, double
 // one whose first 4 bytes are its ticket counter; all must be zeroed once,
 // when the buffer is allocated.
 int bt_rkm_final_scratch() { return 3; }
+
+// The most members one batched launch steps (bt::kMaxMembers).
+int bt_members_max() { return bt::kMaxMembers; }
 
 // Number of value pairs the K2 partials buffer holds (2 * this many values).
 int bt_rkm_num_blocks(int ny, int nx) {

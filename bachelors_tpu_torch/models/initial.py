@@ -3,7 +3,8 @@
 The port's copy of ``bachelors_tpu/models/initial.py`` (the reference's CPU
 fill loop `main.cpp:93-136`): a circular seed with a linear transition band
 of width ``fade * xi``, blended (max) with an axis-aligned box, with
-inside/outside values for both fields.  Built directly on the target device.
+inside/outside values for both fields, plus optional multi-octave Perlin
+noise on either field (JAX :92-105).  Built directly on the target device.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from ..core.device import DEFAULT_DEVICE, resolve_device, warm_cpu_math
 from ..core.params import SimParams
 from ..core.state import torch_dtype
+from ..ops import random
 from . import exact as exact_mod
 
 
@@ -29,8 +31,10 @@ class InitialConditions:
     square_from: tuple = (0.0, 0.0)
     square_to: tuple = (0.0, 0.0)
 
-    # Perlin-noise perturbations (`cuda_random.cuh:242-364`): parsed so a
-    # config round-trips, but not ported yet -- nonzero amplitudes raise.
+    # Perlin-noise perturbations (`cuda_random.cuh:242-364`): additive,
+    # mean-centred multi-octave noise on T and/or Phi, from the key
+    # PRNGKey(uint32(noise_seed)) split into (kT, kF), as the JAX package
+    # draws it (``ops/random.py``: the same threefry bits).
     noise_T: float = 0.0
     noise_phi: float = 0.0
     noise_cells: int = 8
@@ -45,10 +49,6 @@ def make_initial_fields(p: SimParams, ic: InitialConditions,
     device = resolve_device(device)
     if device.type == "cpu":
         warm_cpu_math()
-    if ic.noise_T != 0.0 or ic.noise_phi != 0.0:
-        raise NotImplementedError(
-            "noise initial conditions (noise_T / noise_phi) are not ported "
-            "yet (ROADMAP slice 4, item 14: noise initial conditions)")
     dtype = torch_dtype(p)
     # cell-center coordinates pos = (i + 0.5)/n * L0  (`main.cpp:101`)
     xs = (torch.arange(p.nx, dtype=dtype, device=device) + 0.5) / p.nx * p.L0
@@ -79,4 +79,20 @@ def make_initial_fields(p: SimParams, ic: InitialConditions,
 
     F = factor * ic.inside_phi + (1 - factor) * ic.outside_phi
     U = factor * ic.inside_T + (1 - factor) * ic.outside_T
-    return F.to(dtype).contiguous(), U.to(dtype).contiguous()
+    F, U = F.to(dtype), U.to(dtype)
+
+    if ic.noise_T != 0.0 or ic.noise_phi != 0.0:
+        # JAX :92-105; the seed is a uint32 there, which refuses others
+        if not 0 <= ic.noise_seed <= 0xFFFFFFFF:
+            raise OverflowError(f"noise_seed {ic.noise_seed} is out of bounds for uint32")
+        kT, kF = random.split(random.prng_key(ic.noise_seed, device))
+        cells = (ic.noise_cells, ic.noise_cells)
+        if ic.noise_T != 0.0:
+            nz = random.perlin2d_octaves(kT, (p.ny, p.nx), octaves=ic.noise_octaves,
+                                         base_cells=cells, dtype=dtype)
+            U = U + ic.noise_T * (nz - torch.mean(nz))
+        if ic.noise_phi != 0.0:
+            nz = random.perlin2d_octaves(kF, (p.ny, p.nx), octaves=ic.noise_octaves,
+                                         base_cells=cells, dtype=dtype)
+            F = torch.clamp(F + ic.noise_phi * (nz - torch.mean(nz)), 0.0, 1.0)
+    return F.contiguous(), U.contiguous()

@@ -148,7 +148,7 @@ def scratch(size: str, args: tuple, dtype: torch.dtype, index: int,
     keeps a ticket counter there that each launch leaves at 0.  Never hand
     out a result from here."""
     stream = (_HOOKS or _hooks())[1](index)
-    key = (size, args, dtype, index, stream)
+    key = (size, args, per, dtype, index, stream)
     buf = _SCRATCH.get(key)
     if buf is None:
         buf = _SCRATCH[key] = torch.zeros(per * fn(size)(*args), dtype=dtype,
@@ -158,12 +158,12 @@ def scratch(size: str, args: tuple, dtype: torch.dtype, index: int,
 
 def fields_ok(tensors, shape=None):
     """(dtype, device index) of tensors that share a float32 or float64
-    dtype, a device and a 2-D shape (``shape`` when given) and are
-    contiguous, in one pass of attribute reads; None sends a wrapper to its
-    detailed checks, which raise with their messages."""
+    dtype, a device and a shape (``shape`` when given, else any 2-D one)
+    and are contiguous, in one pass of attribute reads; None sends a
+    wrapper to its detailed checks, which raise with their messages."""
     t = tensors[0]
     dtype, index, first = t.dtype, t.get_device(), t.shape
-    if (dtype not in SUFFIX or len(first) != 2 or (shape is not None and first != shape)
+    if (dtype not in SUFFIX or (len(first) != 2 if shape is None else first != shape)
             or not t.is_contiguous()):
         return None
     for t in tensors[1:]:

@@ -120,7 +120,8 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rkm_attempt_sharded": 0, "blend_rhs_sharded_euler": 0,
             "rk4_final_stage_sharded": 0, "euler_steps_sharded": 0,
             "rk4_full_sharded": 0, "si_prepare_sharded": 0, "rkm_attempt_apron": 0,
-            "euler_steps_apron": 0, "rk4_full_apron": 0}
+            "euler_steps_apron": 0, "rk4_full_apron": 0, "blend_rhs_members": 0,
+            "rk4_final_stage_members": 0, "rkm_attempt_members": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -319,6 +320,74 @@ def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
     k1, k3, k4 = merson_stages(stage, tau, k1)
     return rkm_final_stage_plain(x, k1, k3, k4, tau, p, fu,
                                  effective_dirichlet(dirichlet_value, k5_weights(tau)))
+
+
+# --------------------------------------------- plain versions over members
+#
+# An ensemble's fields are stacked (B, ny, nx).  The batched wrappers step
+# the members ``ids`` (all of them by default) into ``out`` (new tensors by
+# default), whose other rows they leave as they are; per-member scalars
+# (``fu``, K2's ``taus``) are sequences indexed by member, or one value for
+# all.  Each plain version runs the single-member plain version on each
+# member's (ny, nx) slice, so member b's result is that function's on
+# member b's fields bit for bit.
+
+
+def member_ids(B: int, ids=None) -> list:
+    """The members a batched call steps: ``ids`` in order, or 0..B-1."""
+    return list(range(B)) if ids is None else [int(b) for b in ids]
+
+
+def per_member(v, b: int):
+    """Member b's value of a per-member argument (a sequence) or the value
+    shared by all."""
+    return v[b] if isinstance(v, (list, tuple, np.ndarray)) else v
+
+
+def _member_outputs(like: torch.Tensor, out):
+    return (torch.empty_like(like), torch.empty_like(like)) if out is None else out
+
+
+def blend_rhs_members_plain(states: Sequence[Pair], weights: Sequence, p: SimParams, fu=0.0,
+                            dirichlet_value=0.0, is_euler: bool = False, ids=None,
+                            out=None) -> Pair:
+    """``blend_rhs_plain`` on each member of ``ids``, into ``out``."""
+    oF, oU = _member_outputs(states[0][0], out)
+    for b in member_ids(oF.shape[0], ids):
+        oF[b], oU[b] = blend_rhs_plain([(F[b], U[b]) for F, U in states], weights, p,
+                                       per_member(fu, b), dirichlet_value, is_euler)
+    return oF, oU
+
+
+def rk4_final_stage_members_plain(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
+                                  fu=0.0, dirichlet_value=0.0, ids=None, out=None) -> Pair:
+    """``rk4_final_stage_plain`` on each member of ``ids``, into ``out``."""
+    oF, oU = _member_outputs(x[0], out)
+    for b in member_ids(oF.shape[0], ids):
+        oF[b], oU[b] = rk4_final_stage_plain(*[(A[b], B[b]) for A, B in (x, k1, k2, k3)], p,
+                                             per_member(fu, b), dirichlet_value)
+    return oF, oU
+
+
+def rkm_attempt_members_plain(F: torch.Tensor, U: torch.Tensor, taus, p: SimParams, fu=0.0,
+                              dirichlet_value=0.0, ids=None, out=None, emax=None,
+                              k1s: dict = None):
+    """``rkm_attempt_plain`` on each member of ``ids`` at its own tau
+    (``taus[b]``, a numpy scalar of the field dtype), into ``out`` and the
+    rows of ``emax`` (B, 2); ``k1s`` caches each member's k1 across the
+    attempts of a step.  Returns (out_F, out_U, emax)."""
+    oF, oU = _member_outputs(F, out)
+    emax = F.new_empty((F.shape[0], 2)) if emax is None else emax
+    for b in member_ids(F.shape[0], ids):
+        f = per_member(fu, b)
+        k1 = None
+        if k1s is not None:
+            k1 = k1s.get(b)
+            if k1 is None:
+                k1 = k1s[b] = blend_rhs_plain([(F[b], U[b])], [1.0], p, f)
+        oF[b], oU[b], emax[b] = rkm_attempt_plain(F[b], U[b], taus[b], p, f, dirichlet_value,
+                                                  k1=k1)
+    return oF, oU, emax
 
 
 # ------------------------------------------------- plain versions on a mesh
@@ -555,6 +624,25 @@ class _Phys64(ctypes.Structure):
 
 _PHYS = {torch.float32: _Phys, torch.float64: _Phys64}
 
+# The most members one batched launch steps (``bt::kMaxMembers``, checked
+# against the library before the first launch); a larger live set is split
+# into launches of at most this many.
+MAX_MEMBERS = 64
+
+
+def _members_struct(real):
+    class Members(ctypes.Structure):
+        """Mirror of ``bt::Members`` in ``csrc/rhs.cu``: the launch's member
+        ids and each one's tau and forcing."""
+
+        _fields_ = [("id", ctypes.c_int * MAX_MEMBERS), ("tau", real * MAX_MEMBERS),
+                    ("fu", real * MAX_MEMBERS)]
+    return Members
+
+
+_MEMBERS = {torch.float32: _members_struct(ctypes.c_float),
+            torch.float64: _members_struct(ctypes.c_double)}
+
 
 @functools.lru_cache(maxsize=16)
 def _phys(p: SimParams, dtype: torch.dtype = torch.float32):
@@ -629,10 +717,20 @@ _F64_ENTRIES = {
     "euler_steps_apron": [_PTR] * 6 + [_INT] * 7 + [_REAL] * 2 + [_PHYS_PTR, _PTR],
     "rk4_full_apron": [_PTR] * 6 + [_INT] * 6 + [_REAL] * 5 + [_PHYS_PTR, _PTR],
 }
+# The batched kernels over an ensemble's members: each ends with its
+# members (a pointer to a ``_Members``) and their count.
+_MEMBERS_ENTRIES = {
+    "blend_rhs_members": [_PTR] * 8 + [_INT] + [_REAL] * 3 + [_PTR, _PTR, _INT, _INT, _REAL,
+                                                              _INT, _PTR, _INT, _PHYS_PTR, _PTR],
+    "rk4_final_members": [_PTR] * 10 + [_INT, _INT] + [_REAL] * 3 + [_PTR, _INT, _PHYS_PTR,
+                                                                      _PTR],
+    "rkm_attempt_members": [_PTR] * 6 + [_INT, _INT, _REAL, _PTR, _INT, _PHYS_PTR, _PTR],
+}
 # The sizes of the scratch buffers and of the tile kernels' shared memory
 _HELPERS = {"rkm_num_blocks": [_INT, _INT], "rkm_final_scratch": [],
-            "tile_smem_bytes": [_INT, _INT, _INT]}
+            "tile_smem_bytes": [_INT, _INT, _INT], "members_max": []}
 register(_ENTRIES, BOTH, _PHYS)
+register(_MEMBERS_ENTRIES, BOTH, _PHYS)
 register(_F32_ENTRIES, (torch.float32,), _PHYS)
 register(_F64_ENTRIES, (torch.float64,), _PHYS)
 register(_HELPERS, UNSUFFIXED)
@@ -811,6 +909,134 @@ def euler_steps(F: torch.Tensor, U: torch.Tensor, p: SimParams, steps: int,
            F.data_ptr(), U.data_ptr(), out_F.data_ptr(), out_U.data_ptr(),
            p.ny, p.nx, steps, float(dirichlet_value), float(fu), _phys_ref(p, dtype))
     return out_F, out_U
+
+
+# ------------------------------------------------- kernels over members
+
+
+@functools.lru_cache(maxsize=1)
+def _members_cap() -> int:
+    """MAX_MEMBERS, checked once against the built ``bt::kMaxMembers``:
+    ``_Members`` mirrors that struct's layout."""
+    cap = fn("members_max")()
+    if cap != MAX_MEMBERS:
+        raise RuntimeError(f"rhs.cu takes {cap} members a launch, cuda_rhs.py {MAX_MEMBERS}")
+    return cap
+
+
+def _check_members(p: SimParams, B: int, tensors) -> tuple:
+    """(dtype, device index) of stacked member fields: contiguous (B, ny,
+    nx) tensors of one float dtype on one CUDA device, else raise (the
+    cheap pass first, as ``_fields``); the first call checks the
+    library's member cap."""
+    _members_cap()
+    ok = fields_ok(tensors, (B, p.ny, p.nx))
+    if ok is not None:
+        return ok
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dtype not in SUFFIX:
+        raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")
+    for t in tensors:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"member fields on {t.device}/{t.dtype} and {dev}/{dtype}")
+        if tuple(t.shape) != (B, p.ny, p.nx):
+            raise ValueError(f"member fields {tuple(t.shape)} != {(B, p.ny, p.nx)}")
+        if not t.is_contiguous():
+            raise ValueError("kernel takes contiguous fields")
+    return dtype, dev.index
+
+
+# One ``_Members`` per (dtype, launch of a call), refilled by each call: a
+# launch copies its parameters when it is made, so the next may reuse it.
+_MEMBER_ARGS = {}
+
+
+def _member_launches(dtype: torch.dtype, ids, taus, fu):
+    """The ``_Members`` of each launch that steps ``ids``: at most
+    MAX_MEMBERS a launch, in order."""
+    out = []
+    for k in range(0, len(ids), MAX_MEMBERS):
+        chunk = ids[k:k + MAX_MEMBERS]
+        m = _MEMBER_ARGS.get((dtype, k))
+        if m is None:
+            m = _MEMBER_ARGS[dtype, k] = _MEMBERS[dtype]()
+        for z, b in enumerate(chunk):
+            m.id[z] = b
+            m.tau[z] = float(taus[b]) if taus is not None else 0.0
+            m.fu[z] = float(per_member(fu, b))
+        out.append((m, len(chunk)))
+    return out
+
+
+def blend_rhs_members(states: Sequence[Pair], weights: Sequence, p: SimParams, fu=0.0,
+                      dirichlet_value=0.0, is_euler: bool = False, ids=None,
+                      out=None) -> Pair:
+    """K1 over the members ``ids`` of stacked (B, ny, nx) states, one launch
+    for up to MAX_MEMBERS of them, the weights shared and ``fu`` per member
+    (or one for all): member b's rows of the result are ``blend_rhs`` of
+    member b's fields, bit for bit, written into ``out`` (new tensors by
+    default) whose other rows are left as they are."""
+    n = len(states)
+    if not 1 <= n <= 4:
+        raise ValueError(f"1..4 blend states supported, got {n}")
+    if float(weights[0]) != 1.0:
+        raise ValueError("first blend weight must be 1.0 (base state)")
+    if not _on_cuda(states[0][0], "blend_rhs_members"):
+        return blend_rhs_members_plain(states, weights, p, fu, dirichlet_value, is_euler, ids,
+                                       out)
+    B = states[0][0].shape[0]
+    oF, oU = _member_outputs(states[0][0], out)
+    dtype, index = _check_members(p, B, [t for s in states for t in s] + [oF, oU])
+    args = _blend_args(states, weights)
+    for m, count in _member_launches(dtype, member_ids(B, ids), None, fu):
+        launch(LAUNCHES, "blend_rhs_members", fn("blend_rhs_members", dtype), index, *args,
+               oF.data_ptr(), oU.data_ptr(), p.ny, p.nx, float(dirichlet_value),
+               int(is_euler), ctypes.addressof(m), count, _phys_ref(p, dtype))
+    return oF, oU
+
+
+def rk4_final_stage_members(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams, fu=0.0,
+                            dirichlet_value=0.0, ids=None, out=None) -> Pair:
+    """K4 over the members ``ids`` of stacked states, one launch for up to
+    MAX_MEMBERS of them, dt shared and ``fu`` per member: member b's rows
+    are ``rk4_final_stage`` of its fields, bit for bit, into ``out``."""
+    if not _on_cuda(x[0], "rk4_final_stage_members"):
+        return rk4_final_stage_members_plain(x, k1, k2, k3, p, fu, dirichlet_value, ids, out)
+    B = x[0].shape[0]
+    oF, oU = _member_outputs(x[0], out)
+    fields = [*x, *k1, *k2, *k3]
+    dtype, index = _check_members(p, B, fields + [oF, oU])
+    for m, count in _member_launches(dtype, member_ids(B, ids), None, fu):
+        launch(LAUNCHES, "rk4_final_stage_members", fn("rk4_final_members", dtype), index,
+               *(t.data_ptr() for t in fields), oF.data_ptr(), oU.data_ptr(), p.ny, p.nx,
+               float(p.dt), float(p.dt / 6), float(dirichlet_value), ctypes.addressof(m),
+               count, _phys_ref(p, dtype))
+    return oF, oU
+
+
+def rkm_attempt_members(F: torch.Tensor, U: torch.Tensor, taus, p: SimParams, fu=0.0,
+                        dirichlet_value=0.0, ids=None, out=None, emax=None, k1s=None):
+    """K2 over the members ``ids`` of stacked (B, ny, nx) fields: one
+    Merson attempt of each at its own tau (``taus[b]``) and forcing, in one
+    launch for up to MAX_MEMBERS of them (plus one launch of their one-block
+    reductions); member b's rows of ``out`` and of the (B, 2) maxima
+    ``emax`` are ``rkm_attempt`` of its fields bit for bit, the other rows
+    left as they are.  ``k1s`` is the plain version's cache of k1.
+    Returns (out_F, out_U, emax)."""
+    if not _on_cuda(F, "rkm_attempt_members"):
+        return rkm_attempt_members_plain(F, U, taus, p, fu, dirichlet_value, ids, out, emax,
+                                         k1s)
+    B = F.shape[0]
+    oF, oU = _member_outputs(F, out)
+    dtype, index = _check_members(p, B, [F, U, oF, oU])
+    emax = F.new_empty((B, 2)) if emax is None else emax
+    for m, count in _member_launches(dtype, member_ids(B, ids), taus, fu):
+        partials = scratch("rkm_num_blocks", (p.ny, p.nx), dtype, index, per=2 * count)
+        launch(LAUNCHES, "rkm_attempt_members", fn("rkm_attempt_members", dtype), index,
+               F.data_ptr(), U.data_ptr(), oF.data_ptr(), oU.data_ptr(), partials.data_ptr(),
+               emax.data_ptr(), p.ny, p.nx, float(dirichlet_value), ctypes.addressof(m),
+               count, _phys_ref(p, dtype))
+    return oF, oU, emax
 
 
 # ------------------------------------------------------------ mesh kernels

@@ -32,7 +32,16 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
 
     L1 and L2 are *mean* norms, matching the reference's convention
     (`cuda_reduction.cuh:390-406`): L1 = sum|x|/N, L2 = sqrt(sum x^2 / N).
+    An ensemble's stacked (B, ny, nx) fields reduce per member over their
+    last two dimensions, one torch call per statistic for all members (as
+    XLA reduces under vmap): each statistic is then a (B,) tensor.
     """
+    if isinstance(A, torch.Tensor) and A.dim() == 3:
+        n = A.shape[1] * A.shape[2]
+        dims = (1, 2)
+        return Stats(L1=torch.sum(torch.abs(A), dim=dims) / n,
+                     L2=torch.sqrt(torch.sum(A * A, dim=dims) / n),
+                     min=torch.amin(A, dim=dims), max=torch.amax(A, dim=dims))
     n = topo.count(A)
     return Stats(
         L1=topo.sum(_map(A, torch.abs)) / n,

@@ -3,16 +3,20 @@
 The port of ``bachelors_tpu/parallel/sharded.make_sharded_stepper`` (:44).
 The JAX package wraps its stepper in ``shard_map``; here the stepper itself
 takes ``Shards`` fields and drives every shard (``solvers/base.make_stepper``
-with the mesh's ``Topology``).  ``make_ensemble_stepper`` waits for
-ensembles (ROADMAP item 13).
+with the mesh's ``Topology``).  ``make_ensemble_stepper`` (JAX :56, from
+``solvers/base``) steps an ensemble on one device, the JAX driver's
+``jax.vmap(make_stepper(p))`` without a mesh (``bachelors_tpu/app/
+driver.py:281-282``); ensembles on a mesh wait for ROADMAP item 7c.
 """
 from __future__ import annotations
 
 from ..core.params import SimParams
 from ..core.state import Shards, SimState
-from ..solvers.base import Stepper, make_stepper
+from ..solvers.base import Stepper, make_ensemble_stepper, make_stepper
 from .mesh import Mesh
 from .topology import Topology
+
+__all__ = ["make_ensemble_stepper", "make_sharded_stepper"]
 
 
 def make_sharded_stepper(p: SimParams, mesh: Mesh, topo: Topology) -> Stepper:

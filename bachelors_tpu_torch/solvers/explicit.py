@@ -27,6 +27,14 @@ y, x and 2D meshes (``topo``; fields are then ``Shards``):
     as the reference does (`simulation.cu:427-435`); the JAX package runs
     the same loop as a device ``while_loop``.
 
+An ensemble's members (stacked (B, ny, nx) fields, ``*_members``) take
+the one-device routes batched over members: each Euler pass, RK4 stage and
+Merson attempt is one launch for every member it steps (K1, K4, K2 with a
+member axis, ``ops/cuda_rhs.py``), and the retry loop reads the maxima of
+all its live members once per attempt.  JAX runs the same steps as
+``jax.vmap`` of the stepper, the retry loop a ``while_loop`` whose members
+keep their carry once they stop (:476-521).
+
 The whole-step twins take meshes whose shards are at least as deep as
 their apron along each sharded axis (``_takes_apron``); a thinner shard
 takes the staged route, as JAX sends a shard that fails
@@ -47,6 +55,15 @@ from ..ops import cuda_rhs
 from ..ops.rhs import (carried_pair, euler_eval, eval_rhs, fold_for, folded_stage,
                        resolve_backend, shard_states)
 from ..parallel.topology import ONE_DEVICE, Topology
+
+# Host reads of the Merson error maxima since the last reset_host_reads():
+# one per attempt of a single run, one per batched attempt of an ensemble.
+HOST_READS = {"rkm_attempt": 0, "rkm_attempt_members": 0}
+
+
+def reset_host_reads() -> None:
+    for key in HOST_READS:
+        HOST_READS[key] = 0
 
 
 def _axpy(A: Field, c: float, B: Field) -> Field:
@@ -311,7 +328,7 @@ def _mesh_attempt(F: Shards, U: Shards, p: SimParams, fu, topo: Topology, tau0):
 
 
 def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
-                      topo: Topology = ONE_DEVICE):
+                      topo: Topology = ONE_DEVICE, control: "Controller" = None):
     """Adaptive Runge-Kutta-Merson step (`simulation.cu:350-497`).
 
     Tableau (`simulation.cu:400-404`):
@@ -336,15 +353,11 @@ def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
 
     Returns (next_F, next_U, used_tau, next_tau, iters, attempts, converged);
     ``next_tau`` seeds the following step (`simulation.cu:363-365,486`),
-    ``attempts`` counts every attempt made.
+    ``attempts`` counts every attempt made.  ``control`` is
+    ``Controller(p)``, made once by a stepper.
     """
-    c = numpy_dtype(p)
-    max_iters = max(max(p.T_max_iters, p.Phi_max_iters), 1)
-    min_dt = c(p.min_dt)
-    delta = c(max(min(p.Phi_tolerance, p.T_tolerance), 1e-20))
-    tol_F = c(p.Phi_tolerance)
-    tol_U = c(p.T_tolerance)
-    tiny = c(1e-20)
+    control = Controller(p) if control is None else control
+    c = control.c
 
     if topo.is_sharded:
         attempt = _mesh_attempt(F, U, p, fu, topo, c(tau0))
@@ -364,19 +377,131 @@ def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
     iters = attempts = 0
     converged = False
     next_F = next_U = None
-    while iters < max_iters:
+    while iters < control.max_iters:
         next_F, next_U, emax = attempt(tau)
         attempts += 1
         emax_F, emax_U = emax.cpu().numpy()  # the attempt's one host read
-        eps_F = tau / c(3) * emax_F
-        eps_U = tau / c(3) * emax_U
-        converged = bool(eps_F < tol_F and eps_U < tol_U)
-        eps = np.maximum(np.maximum(eps_F, eps_U), tiny)
-        used = tau
-        tau = np.maximum((delta / eps) ** c(0.2) * c(4) / c(5) * used, min_dt)
-        floor_hit = bool(tau <= min_dt and used <= min_dt)
+        HOST_READS["rkm_attempt"] += 1
+        converged, used, tau, floor_hit = control(tau, emax_F, emax_U)
         if not floor_hit:
             iters += 1
         if converged or floor_hit:
             break
     return next_F, next_U, used, tau, iters, attempts, converged
+
+
+class Controller:
+    """Merson's step-size control in the field dtype (`simulation.cu:
+    426-467`), one attempt's worth: from the attempt's tau and error
+    maxima, (converged, the tau used, the next tau, the min_dt floor hit).
+    A single run and each member of an ensemble take the same numpy scalar
+    arithmetic, so a member's taus are its single run's bit for bit."""
+
+    def __init__(self, p: SimParams):
+        c = self.c = numpy_dtype(p)
+        self.max_iters = max(max(p.T_max_iters, p.Phi_max_iters), 1)
+        self.min_dt = c(p.min_dt)
+        self.delta = c(max(min(p.Phi_tolerance, p.T_tolerance), 1e-20))
+        self.tol_F = c(p.Phi_tolerance)
+        self.tol_U = c(p.T_tolerance)
+        self.tiny = c(1e-20)
+
+    def __call__(self, tau, emax_F, emax_U):
+        c = self.c
+        eps_F = tau / c(3) * emax_F
+        eps_U = tau / c(3) * emax_U
+        converged = bool(eps_F < self.tol_F and eps_U < self.tol_U)
+        eps = np.maximum(np.maximum(eps_F, eps_U), self.tiny)
+        used = tau
+        tau = np.maximum((self.delta / eps) ** c(0.2) * c(4) / c(5) * used, self.min_dt)
+        floor_hit = bool(tau <= self.min_dt and used <= self.min_dt)
+        return converged, used, tau, floor_hit
+
+
+# ------------------------------------------------------------- ensembles
+
+
+def members_rhs(states, weights, p: SimParams, fu, ids, is_euler: bool = False):
+    """``eval_rhs`` (or ``euler_eval``) on the members ``ids`` of stacked
+    states, at Dirichlet value 0 as the one-device steps take it: one K1
+    launch on the kernel backend, else the plain version per member."""
+    if resolve_backend(p, states[0][0].device) == "kernel":
+        return cuda_rhs.blend_rhs_members(states, weights, p, fu, 0.0, is_euler, ids)
+    return cuda_rhs.blend_rhs_members_plain(states, weights, p, fu, 0.0, is_euler, ids)
+
+
+def euler_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor, p: SimParams,
+                       fu, ids, same_base: bool = True):
+    """``euler_step_based`` for the members ``ids``: one K1 launch in euler
+    mode, or in rhs mode for the corrector's re-steps, then the update of
+    the stack (rows of other members are not read back)."""
+    if same_base:
+        return members_rhs([(F, U)], [1.0], p, fu, ids, is_euler=True)
+    dF, dU = members_rhs([(F, U)], [1.0], p, fu, ids)
+    return F + p.dt * dF, U_base + p.dt * dU
+
+
+def rk4_step_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu, ids):
+    """``rk4_step`` for the members ``ids``: on the kernel backend the
+    staged route batched, K1 for k1, k2 and k3 and K4, each one launch for
+    every member (below ``RK4_FULLSTEP_MIN_CELLS`` cells a member: the
+    whole-step route waits for K3 over members, ROADMAP item 7b, and
+    ``solvers/base.make_ensemble_stepper`` refuses it); the plain backend
+    takes the plain step per member, as one device does."""
+    if resolve_backend(p, F.device) != "kernel":
+        oF, oU = torch.empty_like(F), torch.empty_like(U)
+        for b in ids:
+            oF[b], oU[b] = cuda_rhs.rk4_full_plain(F[b], U[b], p, cuda_rhs.per_member(fu, b))
+        return oF, oU
+    x, h = (F, U), p.dt / 2
+    k1 = members_rhs([x], [1.0], p, fu, ids)
+    k2 = members_rhs([x, k1], [1.0, h], p, fu, ids)
+    k3 = members_rhs([x, k2], [1.0, h], p, fu, ids)
+    return cuda_rhs.rk4_final_stage_members(x, k1, k2, k3, p, fu, 0.0, ids)
+
+
+def rkm_adaptive_members(F: torch.Tensor, U: torch.Tensor, taus: np.ndarray, p: SimParams,
+                         fu, ids, control: "Controller" = None):
+    """``rkm_adaptive_step`` for the members ``ids`` of stacked fields,
+    each from its own tau (``taus``, indexed by member).  Each attempt is
+    one K2 launch over the members still attempting (with its reduction)
+    and one host read of their maxima; each member's controller is the
+    single run's (``Controller``).  A member that converged or hit the
+    floor keeps its candidate while the others retry: the kernel writes
+    only the rows of the members it steps.
+
+    Returns (next_F, next_U, used, next_tau, iters, attempts, converged,
+    rounds): per member arrays indexed by member (entries of members not
+    in ``ids`` untouched: used and next_tau their tau, counts 0), and the
+    number of attempts made for any member, the launches.  ``control`` is
+    ``Controller(p)``, made once by a stepper."""
+    control = Controller(p) if control is None else control
+    B = F.shape[0]
+    kernel = resolve_backend(p, F.device) == "kernel"
+    out = (torch.empty_like(F), torch.empty_like(U))
+    emax = F.new_empty((B, 2))
+    k1s = None if kernel else {}  # the plain version's k1, once a member and step
+    tau = np.array(taus, copy=True)
+    used = tau.copy()
+    iters = np.zeros(B, np.int64)
+    attempts = np.zeros(B, np.int64)
+    converged = np.zeros(B, bool)
+    live, rounds = [int(b) for b in ids], 0
+    while live:
+        if kernel:
+            cuda_rhs.rkm_attempt_members(F, U, tau, p, fu, 0.0, live, out, emax)
+        else:
+            cuda_rhs.rkm_attempt_members_plain(F, U, tau, p, fu, 0.0, live, out, emax, k1s)
+        rounds += 1
+        e = emax.cpu().numpy()  # the attempt's one host read, for every member
+        HOST_READS["rkm_attempt_members"] += 1
+        still = []
+        for b in live:
+            attempts[b] += 1
+            converged[b], used[b], tau[b], floor_hit = control(tau[b], e[b, 0], e[b, 1])
+            if not floor_hit:
+                iters[b] += 1
+            if not (converged[b] or floor_hit) and iters[b] < control.max_iters:
+                still.append(b)
+        live = still
+    return (*out, used, tau, iters, attempts, converged, rounds)

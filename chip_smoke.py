@@ -85,6 +85,20 @@ reference's A100 time (``BASELINE.md:14-20``), plus an initial frame:
     bit, 2x2 Dirichlet corners included), and locksteps of RKM, refined
     semi-implicit, the Euler pair and RK4 on each mesh against one device.
 
+Ensembles on the one card (``[tpu] ensemble``, members seeded noise_seed
++ b): the batched kernels K1 (1-4 states, both modes), K4 and K2 with a
+member axis against their plain versions and against the unbatched kernel
+on each member, bit for bit, at 512^2, 100x170 and 33x129, B = 1, 3 and 8,
+at both dtypes, with device µs a launch by graph replay at B = 1, 4 and 8;
+the shipped config with ``ensemble = 4`` and ``noise_T = 0.02`` cut to
+0.004 through ``run_config_file`` (maps, members and per-member stats
+files; one batched K2 launch per attempt with any member live; member b
+bit for bit the single run with noise_seed + b in fields, t, iter and tau);
+Euler with the corrector loop and RK4 ensembles at 512^2, in lockstep with
+the single steppers and through the driver; RKM and RK4 ensembles of the
+float64 sweep configs; and the RKM ensemble's host and device ms a step,
+member-steps a second and the card's busy share at B = 1, 2, 4 and 8.
+
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
 
@@ -150,7 +164,7 @@ sys.path.insert(0, ROOT)
 
 from bachelors_tpu_torch.app.driver import run_config_file, snapshot_events  # noqa: E402
 from bachelors_tpu_torch.core.params import BoundaryType, SimParams  # noqa: E402
-from bachelors_tpu_torch.core.state import Shards, make_state  # noqa: E402
+from bachelors_tpu_torch.core.state import Shards, make_state, member, stack_states  # noqa: E402
 from bachelors_tpu_torch.io.config import load_config  # noqa: E402
 from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
@@ -162,8 +176,9 @@ from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos  # noqa: E402
 from bachelors_tpu_torch.ops.stencil import AnisotropyMatrix, CrossMatrix  # noqa: E402
 from bachelors_tpu_torch.parallel.mesh import (gather_state, make_mesh, shard_field,  # noqa: E402
                                                shard_state)
-from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper  # noqa: E402
-from bachelors_tpu_torch.solvers import cg, semi_implicit  # noqa: E402
+from bachelors_tpu_torch.parallel.sharded import (make_ensemble_stepper,  # noqa: E402
+                                                  make_sharded_stepper)
+from bachelors_tpu_torch.solvers import cg, explicit, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.base import make_stepper  # noqa: E402
 from bachelors_tpu_torch.solvers.explicit import make_euler_pair_stepper  # noqa: E402
 from bachelors_tpu_torch.tools import margins  # noqa: E402
@@ -280,6 +295,8 @@ F64_THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
             "circle_radius = 0.3\n")
 # every plain version a path could fall back to, by module
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
+                    "blend_rhs_members_plain", "rk4_final_stage_members_plain",
+                    "rkm_attempt_members_plain",
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
                     "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
                     "rkm_attempt_sharded_plain", "merson_finish",
@@ -294,6 +311,16 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
          cuda_stats: ("field_stats_plain",),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
 
+
+# Ensembles: the shipped config with 4 noise-seeded members, cut to 0.004
+# (about 280 steps a member) with 2 frames; the batched kernels' sizes and
+# member counts, and the counts timed.
+ENSEMBLE = "[tpu]\nensemble = 4\n[initial]\nnoise_T = 0.02\n"
+ENSEMBLE_CUT = "[simulation]\nstop_after = 0.004\n[snapshot]\ntimes = 2\n"
+MEMBER_SIZES = ((512, 512), (100, 170), (33, 129))
+MEMBER_COUNTS = (1, 3, 8)
+MEMBER_TIMED = (1, 4, 8)
+ENSEMBLE_TIMED = (1, 2, 4, 8)
 
 # The card's published peaks (H100 SXM at 700 W): device memory, and float32
 # and float64 outside the tensor cores.
@@ -1446,7 +1473,8 @@ def check_run(res, cfg, grow=True) -> tuple:
     stats header and rows (None without stats), the first and last solid
     fraction and the number of frames."""
     p = cfg.params
-    frames = sorted(f for f in os.listdir(res.save_folder) if f.endswith(".bin"))
+    frames = sorted(f for f in os.listdir(res.save_folder)
+                    if f.startswith("maps_") and f.endswith(".bin"))
     want = int(cfg.snapshot_initial_conditions) + len(snapshot_events(
         cfg.stop_time, cfg.snapshot_times, cfg.snapshot_every))
     if len(frames) != want or len(frames) < 2:
@@ -1479,12 +1507,15 @@ def check_run(res, cfg, grow=True) -> tuple:
     return header, rows, [solid[0], solid[-1]], len(frames)
 
 
-def drive(overrides, grow=True, config=CONFIG, device=None, frames=False) -> dict:
+def drive(overrides, grow=True, config=CONFIG, device=None, frames=False,
+          files=()) -> dict:
     """``run_config_file`` on the card with every kernel launch, every CG
-    host read and every call of a plain version counted (each count set to 0
+    and Merson host read and every call of a plain version counted (each count set to 0
     just before the run and read just after), then what it wrote checked.
     Any plain call fails: a path on the card runs its kernels.  With
-    ``frames``, the result also holds every frame's maps by file name."""
+    ``frames``, the result also holds every frame's maps by file name (an
+    ensemble's members files too), and the text of each of ``files``
+    (None for one not written)."""
     cfg = load_config(config, overrides)
     plain_calls = {}
     originals = {(mod, name): getattr(mod, name) for mod, names in PLAIN.items()
@@ -1503,24 +1534,32 @@ def drive(overrides, grow=True, config=CONFIG, device=None, frames=False) -> dic
         cuda_cg.reset_launch_counts()
         cuda_stats.reset_launch_counts()
         cg.reset_host_reads()
+        explicit.reset_host_reads()
         try:
             res = run_config_file(config, overrides + [f"[snapshot]\nfolder = {out}\n"],
                                   device=device or DEVICE)
         finally:
             launches = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES, **cuda_stats.LAUNCHES}
             host_reads = cg.HOST_READS["cg_stop_test"]
+            rkm_reads = dict(explicit.HOST_READS)
             for (mod, name), fn in originals.items():
                 setattr(mod, name, fn)
             SYSTEM.set_file(None)  # the run's log.txt lives in the temp folder
         header, rows, solid, n_frames = check_run(res, cfg, grow)
-        maps = ({name: load_bin_maps(os.path.join(res.save_folder, name)).maps
-                 for name in os.listdir(res.save_folder) if name.endswith(".bin")}
-                if frames else None)
+        snaps = ({name: load_bin_maps(os.path.join(res.save_folder, name))
+                  for name in os.listdir(res.save_folder) if name.endswith(".bin")}
+                 if frames else None)
+        texts = {}
+        for name in files:
+            path = os.path.join(res.save_folder, name)
+            texts[name] = open(path).read() if os.path.exists(path) else None
     if plain_calls:
         raise AssertionError(f"the path left the kernels: {plain_calls}")
     p = cfg.params
+    maps = None if snaps is None else {name: snap.maps for name, snap in snaps.items()}
     return dict(cfg=cfg, res=res, launches=launches, host_reads=host_reads,
-                header=header, rows=rows, frames=maps,
+                rkm_host_reads=rkm_reads,
+                header=header, rows=rows, frames=maps, snaps=snaps, texts=texts,
                 summary=dict(config=os.path.relpath(config, ROOT), grid=f"{p.ny}x{p.nx}",
                              dtype=p.dtype, solver=p.solver.value,
                              stop_after=cfg.stop_time, steps=res.iters,
@@ -1543,6 +1582,9 @@ def rkm_path() -> dict:
     n = run["launches"]
     expect(n["rkm_attempt"] > 0 and n["rkm_attempt"] == run["res"].attempts
            and sum(n.values()) == n["rkm_attempt"], "K2 once per attempt, nothing else", run)
+    expect(run["rkm_host_reads"] == {"rkm_attempt": run["res"].attempts,
+                                     "rkm_attempt_members": 0},
+           f"one host read per attempt, read {run['rkm_host_reads']}", run)
     phase("main path (RKM)", attempts=run["res"].attempts, **run["summary"])
     return n, run["summary"]
 
@@ -2864,6 +2906,301 @@ def f64_mesh_runs(euler64_one, rk4_cut_one) -> dict:
     return L
 
 
+# ------------------------------------------------------------ ensembles
+
+
+def graph_us(call, reps: int = 100) -> float:
+    """Device µs a call of ``call``, by the replay of a CUDA graph of
+    ``reps`` back-to-back calls (no host in it), timed by CUDA events."""
+    for _ in range(3):
+        call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the capture stream's own scratch, before capture
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            call()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    us = start.elapsed_time(end) * 1e3 / reps
+    del graph
+    return us
+
+
+def stacked(rng, B, ny, nx, n=1, dtype="float32"):
+    """n (F, U) pairs of stacked (B, ny, nx) standard-normal fields."""
+    return [tuple(torch.from_numpy(rng.normal(size=(B, ny, nx)).astype(dtype)).to(DEVICE)
+                  for _ in range(2)) for _ in range(n)]
+
+
+def one_launch(name, call):
+    """``call()`` and that it launched ``name`` exactly once."""
+    before = cuda_rhs.LAUNCHES[name]
+    out = call()
+    if cuda_rhs.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"{name}: {cuda_rhs.LAUNCHES[name] - before} launches, want 1")
+    return out
+
+
+def check_members(rng, dtype="float32") -> dict:
+    """K1 (1-4 states, both modes), K4 and K2 over members against their
+    plain versions and against the unbatched kernel on each member, bit for
+    bit (the existing kernels' tolerance: 0), at MEMBER_SIZES, S = 0.25 and
+    S = 0, for B in MEMBER_COUNTS, each member's forcing (and K2's tau) its
+    own, the members a launch steps a subset out of order where B > 1, and
+    each batched call one launch.  Device µs a launch by graph replay at
+    512^2 for B in MEMBER_TIMED, beside B times the unbatched kernel's and
+    the bound of B members; the kernels line's numbers at B = 4."""
+    worst = {k: [0.0, 0.0] for k in ("K1", "K4", "K2")}
+    cases = 0
+    for ny, nx in MEMBER_SIZES:
+        for S in (0.25, 0.0):
+            p = params(ny, nx, "neumann", S=S, u_bc="dirichlet", dtype=dtype)
+            for B in MEMBER_COUNTS:
+                ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+                fu = [0.03 + 0.01 * b for b in range(B)]
+                what = f"{ny}x{nx} S={S} B={B} {dtype}"
+                for n in (1, 2, 3, 4):
+                    states = stacked(rng, B, ny, nx, n, dtype)
+                    w = [1.0] + [float(x) * 1e-2 for x in rng.normal(size=n - 1)]
+                    for is_euler in (False, True):
+                        got = one_launch("blend_rhs_members", lambda: cuda_rhs.blend_rhs_members(
+                            states, w, p, fu, 0.25, is_euler, ids))
+                        for b in ids:
+                            mine = [(F[b], U[b]) for F, U in states]
+                            hold("K1 members", [got[0][b], got[1][b]], cuda_rhs.blend_rhs(
+                                [tuple(t.contiguous() for t in s) for s in mine], w, p, fu[b],
+                                0.25, is_euler), f"{what} n={n} vs K1", worst["K1"], 0.0)
+                            hold("K1 members", [got[0][b], got[1][b]], cuda_rhs.blend_rhs_plain(
+                                mine, w, p, fu[b], 0.25, is_euler), f"{what} n={n} vs plain",
+                                worst["K1"], 0.0)
+                        cases += 1
+                x, k1, k2, k3 = stacked(rng, B, ny, nx, 4, dtype)
+                got = one_launch("rk4_final_stage_members", lambda: cuda_rhs.rk4_final_stage_members(
+                    x, k1, k2, k3, p, fu, 0.25, ids))
+                for b in ids:
+                    mine = [(A[b].contiguous(), C[b].contiguous()) for A, C in (x, k1, k2, k3)]
+                    for want, vs in ((cuda_rhs.rk4_final_stage(*mine, p, fu[b], 0.25), "K4"),
+                                     (cuda_rhs.rk4_final_stage_plain(*mine, p, fu[b], 0.25),
+                                      "plain")):
+                        hold("K4 members", [got[0][b], got[1][b]], want, f"{what} vs {vs}",
+                             worst["K4"], 0.0)
+                (F, U), = stacked(rng, B, ny, nx, 1, dtype)
+                taus = np.array([TAU * (1 + 0.1 * b) for b in range(B)], dtype)
+                oF, oU, emax = one_launch("rkm_attempt_members", lambda: cuda_rhs.rkm_attempt_members(
+                    F, U, taus, p, fu, 0.25, ids))
+                for b in ids:
+                    for want, vs in ((cuda_rhs.rkm_attempt(F[b].contiguous(), U[b].contiguous(),
+                                                           taus[b], p, fu[b], 0.25), "K2"),
+                                     (cuda_rhs.rkm_attempt_plain(F[b], U[b], taus[b], p, fu[b],
+                                                                 0.25), "plain")):
+                        hold("K2 members", [oF[b], oU[b]], want[:2], f"{what} vs {vs}",
+                             worst["K2"], 0.0)
+                        if not torch.equal(emax[b], want[2]):
+                            raise AssertionError(f"K2 members' maxima {emax[b].tolist()} vs "
+                                                 f"{vs} {want[2].tolist()} ({what})")
+                cases += 2
+    torch.cuda.synchronize()
+    # device µs a launch at 512^2 (K1 with 4 states), by graph replay, beside
+    # B launches of the unbatched kernel and the bound of B members
+    p = params(512, 512, "neumann", dtype=dtype)
+    c = np.dtype(dtype).type
+    w = [1.0, 1e-6, -2e-6, 3e-6]
+    timed, entries = {}, {}
+    for B in MEMBER_TIMED:
+        states = stacked(rng, B, 512, 512, 4, dtype)
+        x, k1, k2, k3 = states
+        taus = np.full(B, c(TAU))
+        out = tuple(torch.empty_like(x[0]) for _ in range(2))
+        emax = x[0].new_empty((B, 2))
+        one = [tuple(t[0].contiguous() for t in s) for s in states]
+        calls = {
+            "K1": (lambda: cuda_rhs.blend_rhs_members(states, w, p, 0.0, 0.0, False, None, out),
+                   lambda: cuda_rhs.blend_rhs(one, w, p),
+                   lambda: cuda_rhs.blend_rhs_members_plain(states, w, p, 0.0, 0.0, False,
+                                                            None, out)),
+            "K4": (lambda: cuda_rhs.rk4_final_stage_members(x, k1, k2, k3, p, 0.0, 0.0, None, out),
+                   lambda: cuda_rhs.rk4_final_stage(*one, p),
+                   lambda: cuda_rhs.rk4_final_stage_members_plain(x, k1, k2, k3, p, 0.0, 0.0,
+                                                                  None, out)),
+            "K2": (lambda: cuda_rhs.rkm_attempt_members(x[0], x[1], taus, p, 0.0, 0.0, None, out,
+                                                        emax),
+                   lambda: cuda_rhs.rkm_attempt(*one[0], c(TAU), p),
+                   lambda: cuda_rhs.rkm_attempt_members_plain(x[0], x[1], taus, p, 0.0, 0.0, None,
+                                                              out, emax)),
+        }
+        row = {}
+        for k, (batched, single, plain) in calls.items():
+            us, one_us = graph_us(batched), graph_us(single)
+            row[k] = {"device_us_a_launch": us, "unbatched_us_times_B": one_us * B,
+                      "bound_us": bound(k, B * 512 * 512, dtype)["bound_ms"] * 1e3}
+            if B == 4:
+                ms, plain_ms = time_pair(batched, plain, reps=20)
+                entries[k] = {"max_abs_err": worst[k][1], "ms": ms, "plain_ms": plain_ms,
+                              **bound(k, B * 512 * 512, dtype), "library_ms": None}
+        timed[f"B={B}"] = row
+    phase(titled("batched K1, K4, K2 over members vs plain and vs the unbatched kernels",
+                 dtype), cases=cases, sizes=[f"{a}x{b}" for a, b in MEMBER_SIZES],
+          members=list(MEMBER_COUNTS), max_abs_err={k: v[1] for k, v in worst.items()},
+          tol="bit for bit", card=card_limit(), graph_replay_512=timed,
+          kernels_line_at="B=4, 512^2")
+    return entries
+
+
+def member_states(cfg, B: int):
+    """An ensemble's initial members on the card, member b from noise_seed
+    + b, and the stacked state."""
+    p = cfg.params
+    singles = [make_state(*make_initial_fields(
+        p, dataclasses.replace(cfg.initial, noise_seed=cfg.initial.noise_seed + b),
+        device=DEVICE), p, device=DEVICE) for b in range(B)]
+    return singles, stack_states(singles)
+
+
+def check_members_lockstep(cases, steps=5, name="ensemble locksteps vs the single "
+                           "steppers, member by member") -> None:
+    """Each ensemble's first steps through the members stepper against each
+    member's single stepper on the card, bit for bit in fields, t, iter and
+    tau; each step one batched launch per stage (RKM: per attempt)."""
+    out = {}
+    for label, cfg, per_step in cases:
+        p = cfg.params
+        singles, ens = member_states(cfg, cfg.ensemble)
+        single, members = make_stepper(p), make_ensemble_stepper(p)
+        cuda_rhs.reset_launch_counts()
+        rounds = 0
+        for _ in range(steps):
+            ens, _ = members(ens)
+            rounds += members.rounds
+            for b in range(cfg.ensemble):
+                singles[b], _ = single(singles[b])
+                m = member(ens, b)
+                if not (torch.equal(m.F, singles[b].F) and torch.equal(m.U, singles[b].U)
+                        and (m.t, m.iter, m.tau) == (singles[b].t, singles[b].iter,
+                                                     singles[b].tau)):
+                    raise AssertionError(f"{label}: member {b} parts from its single run")
+        want = per_step(steps, rounds)
+        got = {k: v for k, v in cuda_rhs.LAUNCHES.items() if v and k.endswith("_members")}
+        if got != want:
+            raise AssertionError(f"{label}: batched launches {got}, want {want}")
+        out[label] = {"members": cfg.ensemble, "batched_launches": got}
+    phase(name, steps=steps, equal="bit for bit", cases=out)
+
+
+def ensemble_path() -> dict:
+    """The shipped config with ``ensemble = 4`` and ``noise_T = 0.02``, cut
+    to 0.004: through ``run_config_file``, its frames (member 0 with the
+    mean and std maps), members files and per-member stats; one batched K2
+    launch and one host read per attempt with any member live, nothing
+    else; and member b
+    equal, frame by frame, to the single run with noise_seed + b on this
+    card, bit for bit in fields, t, iter and tau."""
+    stats = [f"stats_m{b:03d}.csv" for b in range(1, 4)]
+    run = drive([ENSEMBLE, ENSEMBLE_CUT], frames=True, files=stats)
+    n, res = run["launches"], run["res"]
+    expect(n["rkm_attempt_members"] == res.attempts > 0
+           and sum(n.values()) == n["rkm_attempt_members"],
+           "one batched K2 launch per attempt, nothing else", run)
+    expect(run["rkm_host_reads"] == {"rkm_attempt": 0, "rkm_attempt_members": res.attempts},
+           f"one host read per batched attempt, read {run['rkm_host_reads']}", run)
+    snaps = run["snaps"]
+    maps = sorted(f for f in snaps if f.startswith("maps_"))
+    members = sorted(f for f in snaps if f.startswith("members_"))
+    if [f.replace("maps_", "members_") for f in maps] != members:
+        raise AssertionError(f"frames {maps}, members files {members}")
+    if not {"F_mean", "F_std", "U_mean", "U_std", "tau"} <= set(snaps[maps[-1]].maps):
+        raise AssertionError(f"{maps[-1]} holds {sorted(snaps[maps[-1]].maps)}")
+    for name, text in run["texts"].items():
+        if text is None or len(text.splitlines()) < 3:
+            raise AssertionError(f"{name} missing or empty")
+    seeds = {}
+    for b in range(4):
+        one = drive([ENSEMBLE.replace("ensemble = 4", "ensemble = 1"), ENSEMBLE_CUT,
+                     f"[initial]\nnoise_seed = {b}\n"], frames=True)
+        for frame in maps:
+            mine, meta = snaps[frame.replace("maps_", "members_")], None
+            meta = mine.maps["ensemble_meta"].reshape(-1)[3 * b:3 * b + 3]
+            theirs = one["snaps"][frame]
+            if not (np.array_equal(mine.maps[f"F_m{b:03d}"], theirs.maps["F"])
+                    and np.array_equal(mine.maps[f"U_m{b:03d}"], theirs.maps["U"])
+                    and (meta[0], meta[1], meta[2]) == (theirs.time, theirs.iter,
+                                                        theirs.maps["tau"][0, 0])):
+                raise AssertionError(f"member {b} parts from its single run at {frame}")
+        rows = len(run["texts"][stats[b - 1]].splitlines()) - 2 if b else len(run["rows"])
+        seeds[f"member {b}"] = {"steps": one["res"].iters, "stats_rows": rows}
+        if rows != one["res"].iters:
+            raise AssertionError(f"member {b}: {rows} stats rows, its run {one['res'].iters} "
+                                 "steps")
+    phase("RKM ensemble path (config.ini, ensemble = 4, noise_T = 0.02, to 0.004)",
+          batched_attempts=res.attempts, host_reads=res.attempts,
+          members_equal_single_runs="bit for bit",
+          members=seeds, members_files=members, **run["summary"])
+    return n
+
+
+def ensemble_run(overrides, name, per_step, config=CONFIG) -> dict:
+    """An ensemble of 4 through ``run_config_file``: its launches are
+    ``per_step(steps, batched passes)``, nothing else, and with stats on
+    each member wrote its own csv."""
+    run = drive([ENSEMBLE, *overrides], grow=False, config=config, files=("stats_m003.csv",))
+    res, n = run["res"], run["launches"]
+    want = per_step(res.iters, res.attempts)
+    expect({k: v for k, v in n.items() if v} == want, f"launches {want}", run)
+    if run["cfg"].collect_stats and run["texts"]["stats_m003.csv"] is None:
+        raise AssertionError(f"{name}: no stats_m003.csv")
+    phase(name, batched_passes=res.attempts, **run["summary"])
+    return n
+
+
+def ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
+    """The RKM ensemble of the shipped config (stats every step, as the
+    driver computes them) at B members: host ms a step (wall clock over
+    ``steps`` steps, synchronised), device ms a step (the kernels' time
+    under torch.profiler over ``traced`` steps), member-steps a second and
+    the device's busy share (device over host time), beside the single
+    stepper's; each from the members' initial state after 20 warm steps."""
+    from torch.autograd import DeviceType
+
+    cfg = load_config(CONFIG, [ENSEMBLE])
+    rows = {}
+    for B in ("single", *Bs):
+        singles, state = member_states(cfg, 1 if B == "single" else B)
+        if B == "single":
+            step, state = make_stepper(cfg.params), singles[0]
+        else:
+            step = make_ensemble_stepper(cfg.params)
+        for _ in range(20):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / traced / 1e3
+        host_ms = wall / steps * 1e3
+        members = 1 if B == "single" else B
+        rows["single stepper" if B == "single" else f"B={B}"] = {
+            "host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+            "member_steps_per_s": members * steps / wall, "device_busy_share": device_ms / host_ms}
+    phase("RKM ensemble timing (config.ini, noise_T = 0.02, stats every step)", card=card_limit(),
+          steps=steps, traced_steps=traced, rows=rows)
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
     return {"name": name, "route": "cuda", "source": f"bachelors_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, **measured}
@@ -3001,6 +3338,35 @@ def main() -> None:
     rk4_64_cut, rk4_64_cut_one = rk4_cut_path([FIRST_FRAME, CUT],
                                               "float64 RK4 path (4096^2 cut, K3)", sweep("rk4"))
     m64 = f64_mesh_runs(euler64_one, rk4_64_cut_one)
+
+    # ensembles on the one card: the batched kernels, the locksteps, the paths
+    members32 = check_members(rng)
+    members64 = check_members(rng, "float64")
+    rkm_rounds = lambda steps, rounds: {"rkm_attempt_members": rounds}  # noqa: E731
+    euler_corrector = lambda steps, _: {"blend_rhs_members": 4 * steps}  # noqa: E731
+    rk4_staged = lambda steps, _: {"blend_rhs_members": 3 * steps,  # noqa: E731
+                                   "rk4_final_stage_members": steps}
+    short = "[simulation]\nstop_after = 0.002\n"
+    check_members_lockstep([
+        ("RKM, 512^2", load_config(CONFIG, [ENSEMBLE]), rkm_rounds),
+        ("Euler, corrector loop, 512^2", load_config(CONFIG, [EULER, CORRECTOR, ENSEMBLE]),
+         euler_corrector),
+        ("RK4, 512^2", load_config(CONFIG, [RK4, ENSEMBLE]), rk4_staged),
+        ("float64 RKM (sweep config)", load_config(sweep("rkm"), [ENSEMBLE]), rkm_rounds),
+        ("float64 RK4 (sweep config)", load_config(sweep("rk4"), [ENSEMBLE]), rk4_staged)])
+    ens_rkm = ensemble_path()
+    ens_euler = ensemble_run([EULER, CORRECTOR], "Euler ensemble path, corrector loop (512^2, "
+                             "ensemble = 4: K1 over members, 4 launches a step)",
+                             euler_corrector)
+    ens_rk4 = ensemble_run([RK4, short], "RK4 ensemble path (512^2, ensemble = 4: K1 x 3 + K4 "
+                           "over members)", rk4_staged)
+    ens_rkm64 = ensemble_run([FIRST_FRAME, "[simulation]\nstop_after = 0.0004\n"],
+                             "float64 RKM ensemble "
+                             "path (sweep config, ensemble = 4, to 0.0004)", rkm_rounds,
+                             sweep("rkm"))
+    ens_rk4_64 = ensemble_run([FIRST_FRAME, short], "float64 RK4 ensemble path (sweep config, ensemble = 4, "
+                              "to 0.002)", rk4_staged, sweep("rk4"))
+    ensemble_timing()
     tut_launches = tutorial_path()
 
     def m64_sum(key, *runs):
@@ -3168,6 +3534,23 @@ def main() -> None:
                      m64_sum("cross_residual_sharded", *si64_runs)
                      + m64_sum("aniso_residual_sharded", *si64_runs)
                      + m64_sum("heat_residual_sharded", *si64_runs), mesh64_k["K14 twin"]),
+        kernel_entry("K2 rkm_attempt_members (K2 over an ensemble's members, one launch for "
+                     "all; the RKM ensemble path)", rhs_src, f"{pallas_rhs}:941",
+                     ens_rkm["rkm_attempt_members"], members32["K2"]),
+        kernel_entry("K1 blend_rhs_members (K1 over members; the Euler ensemble with the "
+                     "corrector loop, RK4 ensemble k1-k3)", rhs_src, f"{pallas_rhs}:344",
+                     ens_euler["blend_rhs_members"] + ens_rk4["blend_rhs_members"],
+                     members32["K1"]),
+        kernel_entry("K4 rk4_final_stage_members (K4 over members; the RK4 ensemble)", rhs_src,
+                     f"{pallas_rhs}:433", ens_rk4["rk4_final_stage_members"], members32["K4"]),
+        kernel_entry("K2 rkm_attempt_members at float64 (K13's scheme rkm over members; "
+                     "float64 RKM ensemble)", rhs_src, k13, ens_rkm64["rkm_attempt_members"],
+                     members64["K2"]),
+        kernel_entry("K1 blend_rhs_members at float64 (float64 RK4 ensemble k1-k3)", rhs_src,
+                     f"{pallas_rhs}:344", ens_rk4_64["blend_rhs_members"], members64["K1"]),
+        kernel_entry("K4 rk4_final_stage_members at float64 (float64 RK4 ensemble)", rhs_src,
+                     f"{pallas_rhs}:433", ens_rk4_64["rk4_final_stage_members"],
+                     members64["K4"]),
         *(kernel_entry(f"{k} {wrapper} (the tutorial's step {k[-1]}; the tutorial path)",
                        "tutorial.cu", f"examples/pallas_tutorial.py:{line}",
                        tut_launches[wrapper], k15[k])

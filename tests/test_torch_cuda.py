@@ -1794,3 +1794,76 @@ def test_k14_twin_joins_to_k14_bit_for_bit(bc, dtype, gen, cuda_device):  # noqa
                     close(got, call(plain, blocks, h))
                     out.append((got,))
                 assert torch.equal(_joined(out, 0, (sy, sx)), whole), (ny, nx, sy, sx, mode)
+
+
+# The batched kernels over an ensemble's members (K1, K4, K2 with a member
+# axis): each member's rows equal the unbatched kernel on that member's
+# fields bit for bit, rows of members a launch does not step stay as they
+# were, and B members (up to the cap) cost one launch.
+MEMBER_SIZES = ((512, 512), (100, 170), (33, 129))
+
+
+def _stacked(gen, B, ny, nx, dtype, device, n=1):
+    return [tuple(torch.from_numpy(gen.normal(size=(B, ny, nx)).astype(dtype)).to(device)
+                  for _ in range(2)) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("S", [0.0, 0.25])
+def test_batched_k1_k4_k2_equal_unbatched_per_member(B, dtype, S, gen,
+                                                     cuda_device):  # noqa: F811
+    for ny, nx in MEMBER_SIZES:
+        p = _params(ny, nx, "neumann", "dirichlet", S, 6.0).replace(dtype=dtype)
+        ids = list(range(B)) if B < 3 else [B - 1, 0, 1]  # a subset, out of order
+        fu = [0.01 * (b + 1) for b in range(B)]
+        for n in (1, 2, 3, 4):
+            states = _stacked(gen, B, ny, nx, dtype, cuda_device, n)
+            w = [1.0] + [float(x) * 1e-2 for x in gen.normal(size=n - 1)]
+            for is_euler in (False, True):
+                keep = tuple(t.clone() for t in _stacked(gen, B, ny, nx, dtype, cuda_device)[0])
+                before = cuda_rhs.LAUNCHES["blend_rhs_members"]
+                got = cuda_rhs.blend_rhs_members(states, w, p, fu, 0.25, is_euler, ids,
+                                                 tuple(t.clone() for t in keep))
+                assert cuda_rhs.LAUNCHES["blend_rhs_members"] == before + 1
+                for b in range(B):
+                    want = (cuda_rhs.blend_rhs([(F[b].contiguous(), U[b].contiguous())
+                                                for F, U in states], w, p, fu[b], 0.25,
+                                               is_euler) if b in ids else (keep[0][b], keep[1][b]))
+                    assert torch.equal(got[0][b], want[0]) and torch.equal(got[1][b], want[1])
+                    if b in ids:  # and so its plain version, as K1 does (csrc/rhs.cu)
+                        plain = cuda_rhs.blend_rhs_plain([(F[b], U[b]) for F, U in states], w,
+                                                         p, fu[b], 0.25, is_euler)
+                        assert torch.equal(got[0][b], plain[0])
+                        assert torch.equal(got[1][b], plain[1])
+        x, k1, k2, k3 = _stacked(gen, B, ny, nx, dtype, cuda_device, 4)
+        got = cuda_rhs.rk4_final_stage_members(x, k1, k2, k3, p, fu, 0.25, ids)
+        for b in ids:
+            want = cuda_rhs.rk4_final_stage(*[(A[b].contiguous(), C[b].contiguous())
+                                              for A, C in (x, k1, k2, k3)], p, fu[b], 0.25)
+            assert torch.equal(got[0][b], want[0]) and torch.equal(got[1][b], want[1])
+        (F, U), = _stacked(gen, B, ny, nx, dtype, cuda_device)
+        taus = np.array([TAU * (1 + 0.1 * b) for b in range(B)], dtype)
+        before = cuda_rhs.LAUNCHES["rkm_attempt_members"]
+        oF, oU, emax = cuda_rhs.rkm_attempt_members(F, U, taus, p, fu, 0.25, ids)
+        assert cuda_rhs.LAUNCHES["rkm_attempt_members"] == before + 1
+        for b in ids:
+            wF, wU, we = cuda_rhs.rkm_attempt(F[b].contiguous(), U[b].contiguous(), taus[b],
+                                              p, fu[b], 0.25)
+            assert torch.equal(oF[b], wF) and torch.equal(oU[b], wU)
+            assert torch.equal(emax[b], we)
+
+
+@pytest.mark.cuda
+def test_batched_k2_splits_a_live_set_above_the_cap(gen, cuda_device):  # noqa: F811
+    B = cuda_rhs.MAX_MEMBERS + 3
+    p = _params(33, 129, "neumann", "neumann", 0.25, 6.0)
+    (F, U), = _stacked(gen, B, 33, 129, "float32", cuda_device)
+    taus = np.full(B, TAU, np.float32)
+    before = cuda_rhs.LAUNCHES["rkm_attempt_members"]
+    oF, _, emax = cuda_rhs.rkm_attempt_members(F, U, taus, p, 0.0)
+    assert cuda_rhs.LAUNCHES["rkm_attempt_members"] == before + 2
+    for b in (0, cuda_rhs.MAX_MEMBERS - 1, cuda_rhs.MAX_MEMBERS, B - 1):
+        wF, _, we = cuda_rhs.rkm_attempt(F[b].contiguous(), U[b].contiguous(), taus[b], p)
+        assert torch.equal(oF[b], wF) and torch.equal(emax[b], we)

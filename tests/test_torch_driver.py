@@ -207,12 +207,12 @@ def test_resume_continues_the_run(tmp_path):
 
 @pytest.mark.parametrize("key,value,match", [
     ("[tpu]\nbatch_shards", "2", "ensembles"),
-    ("[tpu]\nensemble", "4", "ensembles"),
+    ("[tpu]\nensemble", "4\nshards_y = 2", "ensembles on a mesh"),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),
     ("[program]\ndebug", "true", "debug"),
     ("[snapshot]\nnetcdf", "true", "netcdf"),
-    ("[initial]\nnoise_T", "0.1", "noise"),
+    ("[tpu]\nensemble", "4\n[simulation]\nsolver = semi-implicit", "item 7b"),
     ("[tpu]\ndtype", "bfloat16", "bfloat16"),
 ])
 def test_unported_keys_raise(tmp_path, key, value, match):
