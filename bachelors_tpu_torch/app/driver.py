@@ -171,7 +171,8 @@ def _echo_config(cfg: SimConfig, device: torch.device, topo: Topology) -> None:
               "S", "m0", "theta0", "dtype", "backend"):
         log.info(f"{k} = {getattr(p, k)}")
     if p.solver == SolverType.SEMI_IMPLICIT:
-        log.info(f"semi-implicit phase solve: {cg_branch(p, device, topo)}")
+        log.info("semi-implicit phase solve: "
+                 + cg_branch(p, device, topo, members=cfg.ensemble > 1))
 
 
 def _save_members(folder: str, index: int, state: SimState, p) -> dict:

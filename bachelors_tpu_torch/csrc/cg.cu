@@ -132,6 +132,18 @@
 //     whatever it moves (K15.1 at 256^2, 0.79 MB, PERF.md §6), so the
 //     interior blocks' direct reads take off a few percent at most.
 //
+// K8, K9, K10 and K14 over members: the same sites as `jax.vmap` of the
+//     semi-implicit step runs them, each pallas_call's grid lifted by a
+//     leading member dimension.  Each kernel's body runs unchanged on the
+//     (ny, nx) slice of the member its blocks serve (physics.cuh:
+//     `Members`; y in K8, K9 and K10's 1D grids, z in K14's 2D grid), so
+//     a member's outputs and dot products equal the unbatched kernel's bit
+//     for bit; the per-member scalars are (B,) device vectors indexed by
+//     member id, and K8's and K9's lanes and ticket are one set per launch
+//     slot.  One launch serves every member the CG loop still iterates,
+//     which the host chooses each round.  Bound like the unbatched
+//     kernels, B times the bytes.
+//
 // The partial sums are added in a fixed order, never by a library
 // reduction: K8's, K12.8's, K8b's and K9's by their own last block, in the
 // exact order of the one-block sum kernel each launched after it before,
@@ -234,12 +246,11 @@ struct BlendLoad {
 // wraps the ticket counter back to 0 with that last draw, so a counter
 // zeroed once serves every launch on its stream.
 template <bool WITH_S, bool BLEND, class Real>
-__global__ void __launch_bounds__(kCgThreads)
-    matvec_pAp_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
-                      const Real* __restrict__ r, const Real* __restrict__ beta,
-                      Real* __restrict__ p_out, Real* __restrict__ out, Real* lanes,
-                      unsigned* ticket, Real* __restrict__ pAp_out, int ny, int nx,
-                      int tiles_x, int tiles, int bc, Real C, Real X, Real Y, Halo<Real> h) {
+__device__ __forceinline__ void matvec_pAp_block(
+    const Real* __restrict__ p, const Real* __restrict__ s, const Real* __restrict__ r,
+    const Real* __restrict__ beta, Real* __restrict__ p_out, Real* __restrict__ out,
+    Real* lanes, unsigned* ticket, Real* __restrict__ pAp_out, int ny, int nx, int tiles_x,
+    int tiles, int bc, Real C, Real X, Real Y, const Halo<Real>& h) {
   __shared__ Real red[kSumThreads / 32];  // two tiles' warp sums in turns, then the tree's
   __shared__ bool last;
   Real lane = Real(0);  // in thread 0
@@ -286,6 +297,39 @@ __global__ void __launch_bounds__(kCgThreads)
   }
 }
 
+template <bool WITH_S, bool BLEND, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    matvec_pAp_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
+                      const Real* __restrict__ r, const Real* __restrict__ beta,
+                      Real* __restrict__ p_out, Real* __restrict__ out, Real* lanes,
+                      unsigned* ticket, Real* __restrict__ pAp_out, int ny, int nx,
+                      int tiles_x, int tiles, int bc, Real C, Real X, Real Y, Halo<Real> h) {
+  matvec_pAp_block<WITH_S, BLEND>(p, s, r, beta, p_out, out, lanes, ticket, pAp_out, ny, nx,
+                                  tiles_x, tiles, bc, C, X, Y, h);
+}
+
+// K8 over members (physics.cuh: `Members`): blockIdx.y is the launch's
+// member z, ensemble member id[z], whose blocks run K8's body on its own
+// fields, p, s (aniso form) and out at id[z] * ny * nx, with launch slot
+// z's lanes and ticket, `stride` values a slot (the unbatched kernel's
+// buffer), and its <p, A p> into pAp[id[z]].  Each slot's counter wraps
+// back to 0 with its member's last draw, so a launch over any subset of
+// the members leaves every counter as it found it.
+template <bool WITH_S, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    matvec_pAp_members_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
+                              Real* __restrict__ out, Real* partials, Real* __restrict__ pAp,
+                              int ny, int nx, int tiles_x, int tiles, int stride, int bc,
+                              Real C, Real X, Real Y, const __grid_constant__ Members<Real> m) {
+  const size_t off = member_offset(m, blockIdx.y, ny, nx);
+  Real* lanes = partials + size_t(blockIdx.y) * size_t(stride);
+  unsigned* ticket = reinterpret_cast<unsigned*>(lanes + stride - 1);
+  matvec_pAp_block<WITH_S, false, Real>(p + off, WITH_S ? s + off : nullptr, nullptr, nullptr,
+                                        nullptr, out + off, lanes, ticket,
+                                        pAp + m.id[blockIdx.y], ny, nx, tiles_x, tiles, bc, C,
+                                        X, Y, whole_grid<Real>());
+}
+
 // ---------------------------------------------------------------- K9 ----
 
 // Each operation rounded on its own: cg.cu is built with FMA contraction.
@@ -317,12 +361,10 @@ static_assert(kK9Pass <= kCgThreads, "one thread a chunk forms the pass's partia
 // two launches' expressions, contracted to the same FMAs, so x and r keep
 // their bits too.
 template <class Real>
-__global__ void __launch_bounds__(kCgThreads)
-    update_xr_rr_kernel(Real* __restrict__ x, Real* __restrict__ r,
-                        const Real* __restrict__ p, const Real* __restrict__ Ap,
-                        const Real* __restrict__ rr, const Real* __restrict__ pAp, Real eps,
-                        Real* lanes, unsigned* ticket, Real* __restrict__ rr_out, int n,
-                        int chunks) {
+__device__ __forceinline__ void update_xr_rr_block(
+    Real* __restrict__ x, Real* __restrict__ r, const Real* __restrict__ p,
+    const Real* __restrict__ Ap, const Real* __restrict__ rr, const Real* __restrict__ pAp,
+    Real eps, Real* lanes, unsigned* ticket, Real* __restrict__ rr_out, int n, int chunks) {
   constexpr int kWarps = kCgThreads / 32;
   __shared__ Real warp_sums[kK9Pass][kWarps];
   __shared__ Real partials[kK9Pass];
@@ -370,6 +412,36 @@ __global__ void __launch_bounds__(kCgThreads)
   }
 }
 
+template <class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    update_xr_rr_kernel(Real* __restrict__ x, Real* __restrict__ r,
+                        const Real* __restrict__ p, const Real* __restrict__ Ap,
+                        const Real* __restrict__ rr, const Real* __restrict__ pAp, Real eps,
+                        Real* lanes, unsigned* ticket, Real* __restrict__ rr_out, int n,
+                        int chunks) {
+  update_xr_rr_block(x, r, p, Ap, rr, pAp, eps, lanes, ticket, rr_out, n, chunks);
+}
+
+// K9 over members: blockIdx.y is launch member z (ensemble member id[z]),
+// its blocks K9's body on its own x, r, p and Ap, alpha from rr[id[z]] and
+// pAp[id[z]], <r', r'> into rr_out[id[z]], slot z's lanes and ticket as
+// K8's over members.
+template <class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    update_xr_rr_members_kernel(Real* __restrict__ x, Real* __restrict__ r,
+                                const Real* __restrict__ p, const Real* __restrict__ Ap,
+                                const Real* __restrict__ rr, const Real* __restrict__ pAp,
+                                Real eps, Real* partials, int stride,
+                                Real* __restrict__ rr_out, int ny, int nx, int chunks,
+                                const __grid_constant__ Members<Real> m) {
+  const int id = m.id[blockIdx.y];
+  const size_t off = member_offset(m, blockIdx.y, ny, nx);
+  Real* lanes = partials + size_t(blockIdx.y) * size_t(stride);
+  unsigned* ticket = reinterpret_cast<unsigned*>(lanes + stride - 1);
+  update_xr_rr_block(x + off, r + off, p + off, Ap + off, rr + id, pAp + id, eps, lanes, ticket,
+                     rr_out + id, ny * nx, chunks);
+}
+
 // --------------------------------------------------------------- K10 ----
 
 // W values of 16 bytes, loaded and stored at once
@@ -380,10 +452,10 @@ struct alignas(sizeof(Real) * W) Pack {
 
 // p[c] = r[c] + beta p[c] for W cells per thread (W = 1: one cell)
 template <int W, class Real>
-__global__ void __launch_bounds__(kCgThreads)
-    advance_p_kernel(const Real* __restrict__ r, Real* __restrict__ p,
-                     const Real* __restrict__ rr_new, const Real* __restrict__ rr, Real eps,
-                     int n) {
+__device__ __forceinline__ void advance_p_block(const Real* __restrict__ r,
+                                                Real* __restrict__ p,
+                                                const Real* __restrict__ rr_new,
+                                                const Real* __restrict__ rr, Real eps, int n) {
   const Real den = *rr < eps ? eps : *rr;  // a NaN rr stays NaN
   const Real beta = div_rn(*rr_new, den);
   const int c = (blockIdx.x * kCgThreads + threadIdx.x) * W;
@@ -396,6 +468,28 @@ __global__ void __launch_bounds__(kCgThreads)
   } else {
     for (int k = c; k < n; ++k) p[k] = add_rn(mul_rn(p[k], beta), r[k]);
   }
+}
+
+template <int W, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    advance_p_kernel(const Real* __restrict__ r, Real* __restrict__ p,
+                     const Real* __restrict__ rr_new, const Real* __restrict__ rr, Real eps,
+                     int n) {
+  advance_p_block<W>(r, p, rr_new, rr, eps, n);
+}
+
+// K10 over members: blockIdx.y is launch member z (ensemble member id[z]),
+// its blocks K10's body on its own r and p, beta from rr_new[id[z]] and
+// rr[id[z]].
+template <int W, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    advance_p_members_kernel(const Real* __restrict__ r, Real* __restrict__ p,
+                             const Real* __restrict__ rr_new, const Real* __restrict__ rr,
+                             Real eps, int ny, int nx,
+                             const __grid_constant__ Members<Real> m) {
+  const int id = m.id[blockIdx.y];
+  const size_t off = member_offset(m, blockIdx.y, ny, nx);
+  advance_p_block<W>(r + off, p + off, rr_new + id, rr + id, eps, ny * nx);
 }
 
 // --------------------------------------------------------------- K14 ----
@@ -416,11 +510,10 @@ constexpr int kResHeatExtra = 3;
 // keeps the edge rule on every cell: with the interior branch it ran
 // 3.4-4.0% slower on a 512x256 shard (H100, PERF.md §6).
 template <int MODE, class Real>
-__global__ void __launch_bounds__(kCgThreads)
-    si_residual_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
-                       const Real* __restrict__ a, const Real* __restrict__ b,
-                       const Real* __restrict__ x, Real* __restrict__ out, int ny, int nx,
-                       int bc, Real C, Real X, Real Y, Real L, Halo<Real> h) {
+__device__ __forceinline__ void si_residual_block(
+    const Real* __restrict__ e, const Real* __restrict__ r0, const Real* __restrict__ a,
+    const Real* __restrict__ b, const Real* __restrict__ x, Real* __restrict__ out, int ny,
+    int nx, int bc, Real C, Real X, Real Y, Real L, const Halo<Real>& h) {
   const int i0 = blockIdx.y * kCgBlockY, j0 = blockIdx.x * kCgBlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
   const bool inner = MODE != kResAniso && inner_block<kCgBlockY, kCgBlockX>(i0, j0, ny, nx);
@@ -443,6 +536,31 @@ __global__ void __launch_bounds__(kCgThreads)
   if (MODE >= kResHeat) r = L * (a[c] + b[c]) + r;
   if (MODE == kResHeatExtra) r = r + x[c];
   out[c] = r - Ae;
+}
+
+template <int MODE, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    si_residual_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
+                       const Real* __restrict__ a, const Real* __restrict__ b,
+                       const Real* __restrict__ x, Real* __restrict__ out, int ny, int nx,
+                       int bc, Real C, Real X, Real Y, Real L, Halo<Real> h) {
+  si_residual_block<MODE>(e, r0, a, b, x, out, ny, nx, bc, C, X, Y, L, h);
+}
+
+// K14 over members: blockIdx.z is launch member z (ensemble member id[z]),
+// its blocks K14's body on its own e, r0, a, b, x and out (the planes its
+// mode reads).
+template <int MODE, class Real>
+__global__ void __launch_bounds__(kCgThreads)
+    si_residual_members_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
+                               const Real* __restrict__ a, const Real* __restrict__ b,
+                               const Real* __restrict__ x, Real* __restrict__ out, int ny,
+                               int nx, int bc, Real C, Real X, Real Y, Real L,
+                               const __grid_constant__ Members<Real> m) {
+  const size_t off = member_offset(m, blockIdx.z, ny, nx);
+  si_residual_block<MODE>(e + off, r0 + off, a != nullptr ? a + off : nullptr,
+                          b != nullptr ? b + off : nullptr, x != nullptr ? x + off : nullptr,
+                          out + off, ny, nx, bc, C, X, Y, L, whole_grid<Real>());
 }
 
 // ------------------------------------------------------------ launches ----
@@ -539,6 +657,82 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------- over members ----
+// The launches of K8, K9, K10 and K14 over the members m.id[0..count) of
+// stacked (B, ny, nx) fields: the unbatched grid, its y (K8, K9, K10) or z
+// (K14) the launch's members.  K8's and K9's partials hold `count` slots
+// of bt_cg_num_partials(ny, nx) values, each slot's ticket zeroed once.
+
+template <class Real>
+int matvec_pAp_members(const Real* p, const Real* s, Real* out, Real* partials, Real* pAp,
+                       int ny, int nx, int bc, Real C, Real X, Real Y, const Members<Real>* m,
+                       int count, cudaStream_t stream) {
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  const dim3 g = matvec_grid(ny, nx);
+  const int tiles = int(g.x * g.y), stride = cg_partials(ny, nx) + 1;
+  const dim3 grid(tiles < kSumThreads ? tiles : kSumThreads, count), block(kCgBlockX, kCgBlockY);
+  if (s != nullptr)
+    matvec_pAp_members_kernel<true><<<grid, block, 0, stream>>>(
+        p, s, out, partials, pAp, ny, nx, int(g.x), tiles, stride, bc, C, X, Y, *m);
+  else
+    matvec_pAp_members_kernel<false><<<grid, block, 0, stream>>>(
+        p, s, out, partials, pAp, ny, nx, int(g.x), tiles, stride, bc, C, X, Y, *m);
+  return int(cudaGetLastError());
+}
+
+template <class Real>
+int update_xr_rr_members(Real* x, Real* r, const Real* p, const Real* Ap, const Real* rr,
+                         const Real* pAp, Real eps, Real* partials, Real* rr_out, int ny,
+                         int nx, const Members<Real>* m, int count, cudaStream_t stream) {
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  const int chunks = pointwise_blocks(ny * nx), stride = cg_partials(ny, nx) + 1;
+  const dim3 grid(chunks < kSumThreads ? chunks : kSumThreads, count);
+  update_xr_rr_members_kernel<<<grid, kCgThreads, 0, stream>>>(
+      x, r, p, Ap, rr, pAp, eps, partials, stride, rr_out, ny, nx, chunks, *m);
+  return int(cudaGetLastError());
+}
+
+// 16-byte passes where every member's r and p start 16-byte aligned
+template <class Real>
+int advance_p_members(const Real* r, Real* p, const Real* rr_new, const Real* rr, Real eps,
+                      int ny, int nx, const Members<Real>* m, int count, cudaStream_t stream) {
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  constexpr int W = 16 / int(sizeof(Real));
+  const int n = ny * nx;
+  if ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(p)) % 16 == 0 &&
+      size_t(n) * sizeof(Real) % 16 == 0)
+    advance_p_members_kernel<W><<<dim3(pointwise_blocks((n + W - 1) / W), count), kCgThreads, 0,
+                                  stream>>>(r, p, rr_new, rr, eps, ny, nx, *m);
+  else
+    advance_p_members_kernel<1><<<dim3(pointwise_blocks(n), count), kCgThreads, 0, stream>>>(
+        r, p, rr_new, rr, eps, ny, nx, *m);
+  return int(cudaGetLastError());
+}
+
+template <class Real>
+int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real* b,
+                        const Real* x, Real* out, int ny, int nx, int bc, int mode, Real C,
+                        Real X, Real Y, Real L, const Members<Real>* m, int count,
+                        cudaStream_t stream) {
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  dim3 grid = matvec_grid(ny, nx);
+  grid.z = count;
+  const dim3 block(kCgBlockX, kCgBlockY);
+#define BT_RES_MEMBERS(MODE)                                                               \
+  si_residual_members_kernel<MODE><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, \
+                                                               bc, C, X, Y, L, *m)
+  switch (mode) {
+    case kResCross: BT_RES_MEMBERS(kResCross); break;
+    case kResAniso: BT_RES_MEMBERS(kResAniso); break;
+    case kResHeat: BT_RES_MEMBERS(kResHeat); break;
+    case kResHeatExtra: BT_RES_MEMBERS(kResHeatExtra); break;
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+#undef BT_RES_MEMBERS
+  return int(cudaGetLastError());
+}
+
 }  // namespace bt
 
 // The C interface: `bt_*_f32` on float32 fields and scalars, `bt_*_f64` on
@@ -611,6 +805,49 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
                               bt::Halo<S>{rows, cols, edges}, stream);                \
   }
 
+// K8, K9, K10 and K14 over the members of stacked (B, ny, nx) fields: `m`
+// the launch's members (bt::Members, only its ids read), `count` of them,
+// 1..bt_members_max().  Member id[z]'s rows are the unbatched entry's on
+// its own fields; the per-member scalars are (B,) device vectors indexed
+// by member id.
+//   K8 bt_matvec_pAp_members: out = A p and pAp[id] = <p, A p> (s null:
+//      the cross form; else the stacked maps); partials holds count *
+//      bt_cg_num_partials(ny, nx) values, each slot's ticket zeroed once.
+//   K9 bt_update_xr_rr_members: x, r of member id with alpha = rr[id] /
+//      (pAp[id] < eps ? eps : pAp[id]), rr_out[id] = <r', r'>; partials as
+//      K8's, shared with it on one stream.
+//   K10 bt_advance_p_members: p = r + beta p of member id, beta = rr_new[id]
+//      / (rr[id] < eps ? eps : rr[id]).
+//   K14 bt_si_residual_members: K14 in `mode` on each member's planes.
+#define BT_CG_MEMBERS_ENTRIES(SFX, S)                                                  \
+  int bt_matvec_pAp_members_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp, \
+                                  int ny, int nx, int bc, S C, S X, S Y,              \
+                                  const bt::Members<S>* m, int count,                 \
+                                  cudaStream_t stream) {                              \
+    return bt::matvec_pAp_members<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y, m, \
+                                     count, stream);                                  \
+  }                                                                                    \
+  int bt_update_xr_rr_members_##SFX(S* x, S* r, const S* p, const S* Ap, const S* rr, \
+                                    const S* pAp, S eps, S* partials, S* rr_out,      \
+                                    int ny, int nx, const bt::Members<S>* m,          \
+                                    int count, cudaStream_t stream) {                 \
+    return bt::update_xr_rr_members<S>(x, r, p, Ap, rr, pAp, eps, partials, rr_out,   \
+                                       ny, nx, m, count, stream);                     \
+  }                                                                                    \
+  int bt_advance_p_members_##SFX(const S* r, S* p, const S* rr_new, const S* rr,      \
+                                 S eps, int ny, int nx, const bt::Members<S>* m,      \
+                                 int count, cudaStream_t stream) {                    \
+    return bt::advance_p_members<S>(r, p, rr_new, rr, eps, ny, nx, m, count, stream); \
+  }                                                                                    \
+  int bt_si_residual_members_##SFX(const S* e, const S* r0, const S* a, const S* b,   \
+                                   const S* x, S* out, int ny, int nx, int bc,        \
+                                   int mode, S C, S X, S Y, S L,                      \
+                                   const bt::Members<S>* m, int count,                \
+                                   cudaStream_t stream) {                             \
+    return bt::si_residual_members<S>(e, r0, a, b, x, out, ny, nx, bc, mode, C, X, Y, \
+                                      L, m, count, stream);                           \
+  }
+
 extern "C" {
 
 // Values the partials buffer of K8 and K9 must hold for a (ny, nx) field:
@@ -620,5 +857,7 @@ int bt_cg_num_partials(int ny, int nx) { return bt::cg_partials(ny, nx) + 1; }
 
 BT_CG_ENTRIES(f32, float)
 BT_CG_ENTRIES(f64, double)
+BT_CG_MEMBERS_ENTRIES(f32, float)
+BT_CG_MEMBERS_ENTRIES(f64, double)
 
 }  // extern "C"

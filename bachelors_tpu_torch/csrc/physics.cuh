@@ -284,4 +284,45 @@ __device__ __forceinline__ int wrap(int a, int n) {
   return m < 0 ? m + n : m;
 }
 
+// ---------------------------------------------------------- ensembles ----
+//
+// The batched kernels of rhs.cu and cg.cu step the members of an ensemble
+// in one launch, as the JAX package's `jax.vmap` of the stepper lifts each
+// pallas_call's grid by a leading member dimension
+// (`tests/test_pallas_dd.py:85-90`).  The fields are stacked (B, ny, nx);
+// one grid dimension indexes the members the launch steps (`Members`), so
+// a member the host froze, that finished its retries or whose CG solve
+// stopped costs nothing and its rows are left as they are.  Each member's
+// blocks run the unbatched kernel's body on its own (ny, nx) slice: member
+// b's output equals the unbatched kernel's on member b's fields bit for
+// bit.
+
+// At most this many members a launch (a parameter of 1.3 KB at double);
+// the host splits a larger live set into several launches.
+constexpr int kMaxMembers = 64;
+
+// The members a batched launch steps: member z of the launch is ensemble
+// member id[z], whose fields start at id[z] * ny * nx, with its own step
+// size tau[z] (K2) and forcing fu[z] (the explicit kernels: the forcing
+// reads the member's iteration count; the CG kernels read neither).
+// Passed by value as a __grid_constant__ parameter, so no copy to the card
+// precedes a launch and a block reads its member's entries from the
+// parameter bank.  Mirrored by ops/cuda_rhs.py:_Members.
+template <class Real>
+struct Members {
+  int id[kMaxMembers];
+  Real tau[kMaxMembers];
+  Real fu[kMaxMembers];
+};
+
+// A batched launch's member count, 1..kMaxMembers (far below the grid's
+// caps of 65535 in y and z)
+inline bool members_ok(int count) { return count >= 1 && count <= kMaxMembers; }
+
+// Where launch member z's (ny, nx) fields start in the stack
+template <class Real>
+__device__ __forceinline__ size_t member_offset(const Members<Real>& m, int z, int ny, int nx) {
+  return size_t(m.id[z]) * size_t(ny) * size_t(nx);
+}
+
 }  // namespace bt

@@ -173,6 +173,10 @@
 //     with the same loader, slabs 4 rows deep (K3's apron): a y-mesh equals
 //     K3 on the whole grid bit for bit.  Bound like K3.
 //
+// K7 over members bt_si_prepare_members: K7's body on each member's fields
+//     of a stack (blockIdx.z), as `jax.vmap` of the semi-implicit step
+//     runs `si_prepare_pallas`; bit for bit K7 per member.
+//
 // K12.7 bt_si_prepare_halo: replaces `si_prepare_pallas_sharded` (:625,
 //     through `_stage_call_sharded` :705 -> `_call` :539 in mode si_prepare).
 //     K7 with a Halo: at a seam it reads the neighbour's edge row or column
@@ -441,36 +445,9 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 
 // ---------------------------------------------------------- ensembles ----
 //
-// The batched kernels step the members of an ensemble in one launch, as the
-// JAX package's `jax.vmap` of the stepper lifts each pallas_call's grid by a
-// leading member dimension (`tests/test_pallas_dd.py:85-90`).  The fields
-// are stacked (B, ny, nx); blockIdx.z indexes the members the launch steps
-// (`Members`), so a member the host froze or that finished its retries
-// costs nothing and its rows are left as they are.  Each member's block
-// runs the unbatched kernel's body on its own (ny, nx) slice: member b's
-// output equals the unbatched kernel's on member b's fields bit for bit.
-
-// At most this many members a launch (a parameter of 1.3 KB at double);
-// the host splits a larger live set into several launches.
-constexpr int kMaxMembers = 64;
-
-// The members a batched launch steps: member z of the launch (blockIdx.z)
-// is ensemble member id[z], whose fields start at id[z] * ny * nx, with
-// its own step size tau[z] (K2) and forcing fu[z] (every batched kernel:
-// the forcing reads the member's iteration count).  Passed by value as a
-// __grid_constant__ parameter, so no copy to the card precedes a launch
-// and a block reads its member's entries from the parameter bank.
-template <class Real>
-struct Members {
-  int id[kMaxMembers];
-  Real tau[kMaxMembers];
-  Real fu[kMaxMembers];
-};
-
-template <class Real>
-__device__ __forceinline__ size_t member_offset(const Members<Real>& m, int ny, int nx) {
-  return size_t(m.id[blockIdx.z]) * size_t(ny) * size_t(nx);
-}
+// The batched kernels (physics.cuh: `Members`): blockIdx.z indexes the
+// members the launch steps, and each member's blocks run the unbatched
+// kernel's body on its own (ny, nx) slice, bit for bit.
 
 // K1 over members: the same weights for all (Euler and RK4 have a fixed
 // dt), each member's forcing its own.  Bound like K1, B times the bytes.
@@ -479,7 +456,7 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     blend_rhs_members_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
                              Real* __restrict__ outU, int ny, int nx, Real d, int is_euler,
                              const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
-  const size_t off = member_offset(m, ny, nx);
+  const size_t off = member_offset(m, blockIdx.z, ny, nx);
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     a.F[k] += off;
@@ -545,7 +522,7 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
                              const Real* __restrict__ k2U, Real* __restrict__ outF,
                              Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
                              const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
-  const size_t off = member_offset(m, ny, nx);
+  const size_t off = member_offset(m, blockIdx.z, ny, nx);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     a.F[k] += off;
@@ -1091,7 +1068,7 @@ __global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
                                Real* __restrict__ outF, Real* __restrict__ outU,
                                Real* __restrict__ partials, int ny, int nx, Real d,
                                const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
-  const size_t off = member_offset(m, ny, nx);
+  const size_t off = member_offset(m, blockIdx.z, ny, nx);
   const size_t tiles = size_t(gridDim.x) * gridDim.y;
   rkm_attempt_tile<false, ISO>(F + off, U + off, outF + off, outU + off,
                                partials + 2 * tiles * blockIdx.z, whole_apron<Real>(ny, nx), ny,
@@ -1300,11 +1277,11 @@ __global__ void __launch_bounds__(kTileThreads)
 // rule on every cell: with the interior branch it ran 2.6-6.7% slower on
 // the shards of 512^2, the mesh path's shapes (H100, PERF.md §6).
 template <bool ISO, class Real>
-__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
-    si_prepare_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
-                      Real* __restrict__ r0, Real* __restrict__ uterm,
-                      Real* __restrict__ s_out, int ny, int nx, Halo<Real> h,
-                      PhysParams<Real> P) {
+__device__ __forceinline__ void si_prepare_block(const Real* __restrict__ F,
+                                                 const Real* __restrict__ U,
+                                                 Real* __restrict__ r0, Real* __restrict__ uterm,
+                                                 Real* __restrict__ s_out, int ny, int nx,
+                                                 const Halo<Real>& h, const PhysParams<Real>& P) {
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
   const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
   const BlendArgs<Real> a{{F, nullptr, nullptr, nullptr}, {U, nullptr, nullptr, nullptr},
@@ -1341,6 +1318,28 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   r0[c] = r;
   uterm[c] = P.dt * lapU;
   if (s_out != nullptr) s_out[c] = sv;
+}
+
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    si_prepare_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                      Real* __restrict__ r0, Real* __restrict__ uterm,
+                      Real* __restrict__ s_out, int ny, int nx, Halo<Real> h,
+                      PhysParams<Real> P) {
+  si_prepare_block<ISO>(F, U, r0, uterm, s_out, ny, nx, h, P);
+}
+
+// K7 over members: each member's prepare on its own fields (blockIdx.z).
+// Bound like K7, B times the bytes.
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    si_prepare_members_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                              Real* __restrict__ r0, Real* __restrict__ uterm,
+                              Real* __restrict__ s_out, int ny, int nx,
+                              const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const size_t off = member_offset(m, blockIdx.z, ny, nx);
+  si_prepare_block<ISO>(F + off, U + off, r0 + off, uterm + off,
+                        s_out != nullptr ? s_out + off : nullptr, ny, nx, whole_grid<Real>(), P);
 }
 
 }  // namespace bt
@@ -1662,8 +1661,8 @@ bt::Halo<Ar<S>> halo_of(const S* rows, const S* cols, int edges) {
 }
 
 // A batched launch's grid: the unbatched kernel's, its z the launch's
-// members, 1..kMaxMembers (below gridDim.z's cap of 65535).
-bool members_ok(int count) { return count >= 1 && count <= bt::kMaxMembers; }
+// members (bt::members_ok).
+using bt::members_ok;
 
 // K1 over members: the isotropic instantiation when S = 0
 template <class S>
@@ -1707,6 +1706,22 @@ int rk4_final_members(const S* xF, const S* xU, const S* k1F, const S* k1U, cons
                               : bt::rk4_final_members_kernel<false, R>;
   kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(
       a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU), ny, nx, R(c6), R(d), *m, *P);
+  return int(cudaGetLastError());
+}
+
+// K7 over members: the isotropic instantiation when S = 0
+template <class S>
+int si_prepare_members(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
+                       const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                       cudaStream_t stream) {
+  using R = Ar<S>;
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  dim3 grid = k1_grid(ny, nx);
+  grid.z = count;
+  auto kernel = is_zero(P->S) ? bt::si_prepare_members_kernel<true, R>
+                              : bt::si_prepare_members_kernel<false, R>;
+  kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(
+      ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx, *m, *P);
   return int(cudaGetLastError());
 }
 
@@ -1885,6 +1900,8 @@ int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S
 //      tau; err is the (B, 2) maxima, of which rows id[0..count) are
 //      written; partials holds 2 * count * bt_rkm_num_blocks(ny, nx)
 //      values.
+//   K7 bt_si_prepare_members: K7 on each member's fields; s null when the
+//      map does not vary per cell, as for K7.
 #define BT_MEMBERS_ENTRIES(SFX, S)                                                       \
   int bt_blend_rhs_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,   \
                                  const S* F2, const S* U2, const S* F3, const S* U3,   \
@@ -1909,6 +1926,12 @@ int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S
                                    const PhysParams<Ar<S>>* P, cudaStream_t stream) {  \
     return rkm_attempt_members<S>(F, U, outF, outU, partials, err, ny, nx, d, m, count, \
                                   P, stream);                                          \
+  }                                                                                     \
+  int bt_si_prepare_members_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s,       \
+                                  int ny, int nx, const bt::Members<Ar<S>>* m,         \
+                                  int count, const PhysParams<Ar<S>>* P,               \
+                                  cudaStream_t stream) {                               \
+    return si_prepare_members<S>(F, U, r0, uterm, s, ny, nx, m, count, P, stream);     \
   }
 
 // The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +

@@ -66,6 +66,7 @@ kernels do, so a caller sees one contract on either device.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -84,7 +85,11 @@ LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
             "heat_residual": 0, "cross_matvec_pAp_sharded": 0,
             "aniso_matvec_pAp_sharded": 0, "cross_residual_sharded": 0,
             "aniso_residual_sharded": 0, "heat_residual_sharded": 0,
-            "cross_advance_p_matvec": 0, "aniso_advance_p_matvec": 0}
+            "cross_advance_p_matvec": 0, "aniso_advance_p_matvec": 0,
+            "cross_matvec_pAp_members": 0, "aniso_matvec_pAp_members": 0,
+            "update_xr_rr_members": 0, "advance_p_members": 0,
+            "cross_residual_members": 0, "aniso_residual_members": 0,
+            "heat_residual_members": 0}
 
 
 def reset_launch_counts() -> None:
@@ -268,6 +273,105 @@ def heat_residual_plain(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossM
     return heat_rhs(uterm, eF_pair, L, extra) - cross_from_padded(A, _padded(e, A.boundary, halo))
 
 
+# --------------------------------------------- plain versions over members
+#
+# An ensemble's CG vectors are stacked (B, ny, nx) and its per-member
+# scalars (<p, A p>, <r, r>) are (B,) vectors, indexed by member.  Each
+# plain version runs the unbatched plain version on the (ny, nx) slice of
+# each member of ``ids`` (all by default), so member b's result is that
+# function's on member b's fields bit for bit; the rows and entries of the
+# other members are left as they are.  The dot products stay per member:
+# ``torch.sum(a * b, dim=(-2, -1))`` adds in another order than the single
+# plain version's ``torch.sum`` at some sizes.
+
+
+def _vec(like: torch.Tensor, v: Optional[torch.Tensor]) -> torch.Tensor:
+    return like.new_empty(like.shape[0]) if v is None else v
+
+
+def _row(a, b: int):
+    """Member b's part of an argument: row b of a stack (a tensor, or each
+    tensor of a tuple); anything else is shared."""
+    if isinstance(a, torch.Tensor):
+        return a[b]
+    if isinstance(a, tuple):
+        return tuple(_row(t, b) for t in a)
+    return a
+
+
+def _each_member(fn, ids, outs: tuple, *args) -> tuple:
+    """``fn`` on each member b of ``ids`` (all by default) with member b's
+    part of each of ``args``, its results written to row b of ``outs``
+    (None for a result ``fn`` writes in place); returns ``outs``."""
+    B = next(a for a in args if isinstance(a, torch.Tensor)).shape[0]
+    for b in cuda_rhs.member_ids(B, ids):
+        got = fn(*(_row(a, b) for a in args))
+        for out, g in zip(outs, got if isinstance(got, tuple) else (got,)):
+            if out is not None:
+                out[b] = g
+    return outs
+
+
+def cross_matvec_pAp_members_plain(A: CrossMatrix, v: torch.Tensor,
+                                   pAp: Optional[torch.Tensor] = None, ids=None,
+                                   out: Optional[torch.Tensor] = None):
+    """``cross_matvec_pAp_plain`` on each member of ``ids``: (out, pAp)
+    with out[b] = A v[b] and pAp[b] = <v[b], A v[b]>."""
+    return _each_member(lambda vb: cross_matvec_pAp_plain(A, vb), ids,
+                        (torch.empty_like(v) if out is None else out, _vec(v, pAp)), v)
+
+
+def aniso_matvec_pAp_members_plain(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
+                                   pAp: Optional[torch.Tensor] = None, ids=None,
+                                   out: Optional[torch.Tensor] = None):
+    """``aniso_matvec_pAp_plain`` on each member of ``ids``, member b with
+    its own map s[b]."""
+    return _each_member(lambda sb, vb: aniso_matvec_pAp_plain(A, sb, vb), ids,
+                        (torch.empty_like(v) if out is None else out, _vec(v, pAp)), s, v)
+
+
+def update_xr_rr_members_plain(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
+                               Ap: torch.Tensor, rr: torch.Tensor, pAp: torch.Tensor,
+                               epsilon: float, ids=None, rr_out: Optional[torch.Tensor] = None):
+    """``update_xr_rr_plain`` on each member of ``ids``, in place, alpha
+    from rr[b] and pAp[b]; returns (x, r, rr_out) with rr_out[b] = <r'[b],
+    r'[b]>."""
+    rr_out, = _each_member(lambda *a: update_xr_rr_plain(*a, epsilon)[2], ids,
+                           (_vec(x, rr_out),), x, r, p, Ap, rr, pAp)
+    return x, r, rr_out
+
+
+def advance_p_members_plain(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tensor,
+                            rr: torch.Tensor, epsilon: float, ids=None) -> torch.Tensor:
+    """``advance_p_inplace_plain`` on each member of ``ids``, beta from
+    rr_new[b] and rr[b]; returns p."""
+    _each_member(lambda *a: advance_p_inplace_plain(*a, epsilon), ids, (None,), r, p, rr_new, rr)
+    return p
+
+
+def cross_residual_members_plain(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
+                                 ids=None) -> torch.Tensor:
+    """``cross_residual_plain`` on each member of ``ids``, in a new stack."""
+    return _each_member(lambda *a: cross_residual_plain(*a, A), ids, (torch.empty_like(e),),
+                        r0, e)[0]
+
+
+def aniso_residual_members_plain(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
+                                 s: torch.Tensor, ids=None) -> torch.Tensor:
+    """``aniso_residual_plain`` on each member of ``ids``, member b with
+    its own map s[b]."""
+    return _each_member(lambda r0b, eb, sb: aniso_residual_plain(r0b, eb, A, sb), ids,
+                        (torch.empty_like(e),), r0, e, s)[0]
+
+
+def heat_residual_members_plain(uterm: torch.Tensor, eF_pair, e: torch.Tensor,
+                                A: CrossMatrix, L: float, extra: Optional[torch.Tensor] = None,
+                                ids=None) -> torch.Tensor:
+    """``heat_residual_plain`` on each member of ``ids``."""
+    return _each_member(lambda u, pair, eb, x: heat_residual_plain(u, pair, eb, A, L, x), ids,
+                        (torch.empty_like(e),), uterm, tuple(eF_pair), e, extra)[0]
+
+
 # ------------------------------------------------------------ kernels
 
 _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
@@ -282,6 +386,14 @@ _ENTRIES = {"matvec_pAp": [PTR] * 5 + [INT, INT, INT] + [REAL] * 3 + [PTR],
 # edges)
 _ENTRIES.update({f"{name}_halo": _ENTRIES[name][:-1] + [PTR, PTR, INT, PTR]
                  for name in ("matvec_pAp", "si_residual")})
+# K8, K9, K10 and K14 over members: each ends with its members (a pointer
+# to a ``cuda_rhs._Members``, only its ids read) and their count.
+_MEMBERS_ENTRIES = {
+    "matvec_pAp_members": [PTR] * 5 + [INT, INT, INT] + [REAL] * 3 + [PTR, INT, PTR],
+    "update_xr_rr_members": [PTR] * 6 + [REAL, PTR, PTR, INT, INT, PTR, INT, PTR],
+    "advance_p_members": [PTR] * 4 + [REAL, INT, INT, PTR, INT, PTR],
+    "si_residual_members": [PTR] * 6 + [INT] * 4 + [REAL] * 4 + [PTR, INT, PTR]}
+_ENTRIES.update(_MEMBERS_ENTRIES)
 _HELPERS = {"cg_num_partials": [INT, INT]}
 register(_ENTRIES)
 register(_HELPERS, UNSUFFIXED)
@@ -530,3 +642,169 @@ def heat_residual(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
     mode = _RES_HEAT if extra is None else _RES_HEAT_EXTRA
     return _residual("heat_residual", mode, e, uterm, eF_pair[0], eF_pair[1], extra,
                      A.boundary, A.C, A.X, A.Y, L, halo=halo)
+
+
+# ------------------------------------------------- kernels over members
+
+
+def _members_checked(fields, vecs=()):
+    """(dtype, device index) of a batched call: contiguous (B, ny, nx)
+    fields and (B,) vectors, one float dtype on one CUDA device (the cheap
+    pass first, the detailed checks only if it fails); the first call
+    checks the library's member cap."""
+    cuda_rhs._members_cap()
+    shape = fields[0].shape
+    ok = fields_ok(fields, shape) if len(shape) == 3 else None
+    if ok is not None and all(v.shape == shape[:1] and v.dtype is ok[0]
+                              and v.get_device() == ok[1] and v.is_contiguous() for v in vecs):
+        return ok
+    dev, dtype = fields[0].device, fields[0].dtype
+    if dtype not in SUFFIX:
+        raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")
+    if len(shape) != 3:
+        raise ValueError(f"member fields are stacked (B, ny, nx), got {tuple(shape)}")
+    for t in (*fields, *vecs):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"member tensors on {t.device}/{t.dtype} and {dev}/{dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel takes contiguous tensors")
+    for t in fields:
+        if t.shape != shape:
+            raise ValueError(f"member fields {tuple(t.shape)} != {tuple(shape)}")
+    for v in vecs:
+        if tuple(v.shape) != (shape[0],):
+            raise ValueError(f"per-member scalars are ({shape[0]},), got {tuple(v.shape)}")
+    return dtype, dev.index
+
+
+def _member_partials(v: torch.Tensor, dtype: torch.dtype, index: int) -> torch.Tensor:
+    """K8's and K9's lanes and ticket counters over members: one slot of
+    ``_partials``' size per member of a launch, reused (``scratch``)."""
+    B, ny, nx = v.shape
+    return scratch("cg_num_partials", (ny, nx), dtype, index, per=min(B, cuda_rhs.MAX_MEMBERS))
+
+
+def _matvec_pAp_members(name, v, s, pAp, ids, out, bc, C, X, Y):
+    out = torch.empty_like(v) if out is None else out
+    pAp = _vec(v, pAp)
+    fields = (v, out) if s is None else (v, s, out)
+    dtype, index = _members_checked(fields, (pAp,))
+    B, ny, nx = v.shape
+    partials = _member_partials(v, dtype, index)
+    for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, name, fn("matvec_pAp_members", dtype), index,
+               v.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
+               partials.data_ptr(), pAp.data_ptr(), ny, nx, _BC_CODE[bc], float(C), float(X),
+               float(Y), ctypes.addressof(m), count)
+    return out, pAp
+
+
+def cross_matvec_pAp_members(A: CrossMatrix, v: torch.Tensor,
+                             pAp: Optional[torch.Tensor] = None, ids=None,
+                             out: Optional[torch.Tensor] = None):
+    """K8 over the members ``ids`` of a stacked (B, ny, nx) ``v``, cross
+    form, one launch for up to MAX_MEMBERS of them: out[b] = A v[b] and
+    pAp[b] = <v[b], A v[b]> (a (B,) device vector, new when not given),
+    each K8's bit for bit; the other rows and entries are left as they
+    are.  ``out`` as for K8: a dead buffer, never v."""
+    _check_out(out, v)
+    if not cuda_rhs._on_cuda(v, "cross_matvec_pAp_members"):
+        return cross_matvec_pAp_members_plain(A, v, pAp, ids, out)
+    return _matvec_pAp_members("cross_matvec_pAp_members", v, None, pAp, ids, out, A.boundary,
+                               A.C, A.X, A.Y)
+
+
+def aniso_matvec_pAp_members(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
+                             pAp: Optional[torch.Tensor] = None, ids=None,
+                             out: Optional[torch.Tensor] = None):
+    """K8 over members, per-cell form: ``cross_matvec_pAp_members`` with
+    each member's own map s[b] (s stacked as v)."""
+    _check_out(out, v, s)
+    if not cuda_rhs._on_cuda(v, "aniso_matvec_pAp_members"):
+        return aniso_matvec_pAp_members_plain(A, s, v, pAp, ids, out)
+    return _matvec_pAp_members("aniso_matvec_pAp_members", v, s, pAp, ids, out, A.boundary,
+                               A.Cm1, A.X, A.Y)
+
+
+def update_xr_rr_members(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor, Ap: torch.Tensor,
+                         rr: torch.Tensor, pAp: torch.Tensor, epsilon: float, ids=None,
+                         rr_out: Optional[torch.Tensor] = None):
+    """K9 over the members ``ids`` of stacked fields, one launch for up to
+    MAX_MEMBERS of them: member b's x and r updated in place with alpha =
+    rr[b] / max(pAp[b], epsilon) formed in the kernel, rr_out[b] = <r'[b],
+    r'[b]> (a (B,) device vector, new when not given), each K9's bit for
+    bit; returns (x, r, rr_out)."""
+    if not cuda_rhs._on_cuda(x, "update_xr_rr_members"):
+        return update_xr_rr_members_plain(x, r, p, Ap, rr, pAp, epsilon, ids, rr_out)
+    rr_out = _vec(x, rr_out)
+    dtype, index = _members_checked((x, r, p, Ap), (rr, pAp, rr_out))
+    B, ny, nx = x.shape
+    partials = _member_partials(x, dtype, index)
+    for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, "update_xr_rr_members", fn("update_xr_rr_members", dtype), index,
+               x.data_ptr(), r.data_ptr(), p.data_ptr(), Ap.data_ptr(), rr.data_ptr(),
+               pAp.data_ptr(), float(epsilon), partials.data_ptr(), rr_out.data_ptr(), ny, nx,
+               ctypes.addressof(m), count)
+    return x, r, rr_out
+
+
+def advance_p_members(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tensor,
+                      rr: torch.Tensor, epsilon: float, ids=None) -> torch.Tensor:
+    """K10 over the members ``ids`` of stacked fields, one launch for up to
+    MAX_MEMBERS of them: p[b] = r[b] + beta p[b] in place, beta = rr_new[b]
+    / max(rr[b], epsilon) formed in the kernel, K10's bit for bit; returns
+    p."""
+    if not cuda_rhs._on_cuda(p, "advance_p_members"):
+        return advance_p_members_plain(r, p, rr_new, rr, epsilon, ids)
+    dtype, index = _members_checked((r, p), (rr_new, rr))
+    B, ny, nx = p.shape
+    for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, "advance_p_members", fn("advance_p_members", dtype), index,
+               r.data_ptr(), p.data_ptr(), rr_new.data_ptr(), rr.data_ptr(), float(epsilon),
+               ny, nx, ctypes.addressof(m), count)
+    return p
+
+
+def _residual_members(name, mode, e, r0, a, b, x, ids, bc, C, X, Y, L=0.0) -> torch.Tensor:
+    dtype, index = _members_checked(tuple(t for t in (e, r0, a, b, x) if t is not None))
+    out = torch.empty_like(e)
+    B, ny, nx = e.shape
+    for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, name, fn("si_residual_members", dtype), index,
+               *(None if t is None else t.data_ptr() for t in (e, r0, a, b, x)),
+               out.data_ptr(), ny, nx, _BC_CODE[bc], mode, float(C), float(X), float(Y),
+               float(L), ctypes.addressof(m), count)
+    return out
+
+
+def cross_residual_members(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
+                           ids=None) -> torch.Tensor:
+    """K14 over the members ``ids`` of stacked fields, cross form, one
+    launch for up to MAX_MEMBERS of them: out[b] = r0[b] - A e[b] in a new
+    stack, K14's bit for bit; the other members' rows are left unwritten."""
+    if not cuda_rhs._on_cuda(e, "cross_residual_members"):
+        return cross_residual_members_plain(r0, e, A, ids)
+    return _residual_members("cross_residual_members", _RES_CROSS, e, r0, None, None, None,
+                             ids, A.boundary, A.C, A.X, A.Y)
+
+
+def aniso_residual_members(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
+                           s: torch.Tensor, ids=None) -> torch.Tensor:
+    """K14 over members, per-cell form, each member with its own map s[b]
+    (see ``cross_residual_members``)."""
+    if not cuda_rhs._on_cuda(e, "aniso_residual_members"):
+        return aniso_residual_members_plain(r0, e, A, s, ids)
+    return _residual_members("aniso_residual_members", _RES_ANISO, e, r0, s, None, None, ids,
+                             A.boundary, A.Cm1, A.X, A.Y)
+
+
+def heat_residual_members(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
+                          L: float, extra: Optional[torch.Tensor] = None,
+                          ids=None) -> torch.Tensor:
+    """K14 over members, heat form (``heat_residual`` on each member's
+    planes; see ``cross_residual_members``)."""
+    if not cuda_rhs._on_cuda(e, "heat_residual_members"):
+        return heat_residual_members_plain(uterm, eF_pair, e, A, L, extra, ids)
+    mode = _RES_HEAT if extra is None else _RES_HEAT_EXTRA
+    return _residual_members("heat_residual_members", mode, e, uterm, eF_pair[0], eF_pair[1],
+                             extra, ids, A.boundary, A.C, A.X, A.Y, L)

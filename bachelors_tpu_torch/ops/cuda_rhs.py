@@ -121,7 +121,8 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rk4_final_stage_sharded": 0, "euler_steps_sharded": 0,
             "rk4_full_sharded": 0, "si_prepare_sharded": 0, "rkm_attempt_apron": 0,
             "euler_steps_apron": 0, "rk4_full_apron": 0, "blend_rhs_members": 0,
-            "rk4_final_stage_members": 0, "rkm_attempt_members": 0}
+            "rk4_final_stage_members": 0, "rkm_attempt_members": 0,
+            "si_prepare_members": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -390,6 +391,16 @@ def rkm_attempt_members_plain(F: torch.Tensor, U: torch.Tensor, taus, p: SimPara
     return oF, oU, emax
 
 
+def si_prepare_members_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, ids=None):
+    """``si_prepare_plain`` on each member of ``ids``: (r0_F, uterm[, s])
+    stacked, the rows of other members left unwritten."""
+    outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
+    for b in member_ids(F.shape[0], ids):
+        for o, t in zip(outs, si_prepare_plain(F[b], U[b], p)):
+            o[b] = t
+    return tuple(outs)
+
+
 # ------------------------------------------------- plain versions on a mesh
 
 # The apron a whole-step kernel takes on a shard: the depth of its stage
@@ -632,8 +643,8 @@ MAX_MEMBERS = 64
 
 def _members_struct(real):
     class Members(ctypes.Structure):
-        """Mirror of ``bt::Members`` in ``csrc/rhs.cu``: the launch's member
-        ids and each one's tau and forcing."""
+        """Mirror of ``bt::Members`` in ``csrc/physics.cuh``: the launch's
+        member ids and each one's tau and forcing."""
 
         _fields_ = [("id", ctypes.c_int * MAX_MEMBERS), ("tau", real * MAX_MEMBERS),
                     ("fu", real * MAX_MEMBERS)]
@@ -725,6 +736,7 @@ _MEMBERS_ENTRIES = {
     "rk4_final_members": [_PTR] * 10 + [_INT, _INT] + [_REAL] * 3 + [_PTR, _INT, _PHYS_PTR,
                                                                       _PTR],
     "rkm_attempt_members": [_PTR] * 6 + [_INT, _INT, _REAL, _PTR, _INT, _PHYS_PTR, _PTR],
+    "si_prepare_members": [_PTR] * 5 + [_INT, _INT, _PTR, _INT, _PHYS_PTR, _PTR],
 }
 # The sizes of the scratch buffers and of the tile kernels' shared memory
 _HELPERS = {"rkm_num_blocks": [_INT, _INT], "rkm_final_scratch": [],
@@ -1037,6 +1049,24 @@ def rkm_attempt_members(F: torch.Tensor, U: torch.Tensor, taus, p: SimParams, fu
                emax.data_ptr(), p.ny, p.nx, float(dirichlet_value), ctypes.addressof(m),
                count, _phys_ref(p, dtype))
     return oF, oU, emax
+
+
+def si_prepare_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, ids=None):
+    """K7 over the members ``ids`` of stacked (B, ny, nx) fields, one launch
+    for up to MAX_MEMBERS of them: member b's rows of (r0_F, uterm[, s])
+    (new tensors) are ``si_prepare`` of its fields bit for bit; the rows of
+    members not stepped are left unwritten."""
+    if not _on_cuda(F, "si_prepare_members"):
+        return si_prepare_members_plain(F, U, p, ids)
+    B = F.shape[0]
+    dtype, index = _check_members(p, B, [F, U])
+    outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
+    for m, count in _member_launches(dtype, member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, "si_prepare_members", fn("si_prepare_members", dtype), index,
+               F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+               outs[2].data_ptr() if len(outs) == 3 else None, p.ny, p.nx,
+               ctypes.addressof(m), count, _phys_ref(p, dtype))
+    return tuple(outs)
 
 
 # ------------------------------------------------------------ mesh kernels

@@ -21,7 +21,8 @@ from ..parallel.topology import ONE_DEVICE, Topology
 from .corrector import corrector_step
 from .explicit import (RK4_FULLSTEP_MIN_CELLS, Controller, euler_step_based, euler_step_members,
                        rk4_step, rk4_step_members, rkm_adaptive_members, rkm_adaptive_step)
-from .semi_implicit import semi_implicit_step_based
+from .semi_implicit import (FUSED_MEMBERS_TODO, _cg_variant, semi_implicit_step_based,
+                            semi_implicit_step_members)
 
 Stepper = Callable[[SimState], Tuple[SimState, StepStats]]
 
@@ -47,13 +48,13 @@ def exact_fields(p: SimParams, F: torch.Tensor, t: float, y0: int = 0, x0: int =
 
 def unsupported_members(p: SimParams):
     """What an ensemble on one device does not take yet, with the ROADMAP
-    item that brings it, or None."""
-    if p.solver == SolverType.SEMI_IMPLICIT:
-        return ("semi-implicit ensembles (the CG loop with convergence per member; "
-                "ROADMAP item 7b)")
+    item that brings it, or None: the members stepper never switches
+    quietly to another route."""
+    if p.solver == SolverType.SEMI_IMPLICIT and _cg_variant(p.ny * p.nx) == "fused":
+        return FUSED_MEMBERS_TODO
     if p.solver == SolverType.EXPLICIT_RK4 and p.N >= RK4_FULLSTEP_MIN_CELLS:
         return (f"RK4 ensembles from {RK4_FULLSTEP_MIN_CELLS} cells a member (K3 over "
-                "members; ROADMAP item 7b)")
+                "members; ROADMAP item 7d)")
     return None
 
 
@@ -157,13 +158,17 @@ MembersStepper = Callable[..., Tuple[SimState, StepStats]]
 
 def make_ensemble_stepper(p: SimParams) -> MembersStepper:
     """The step of an ensemble of stacked (B, ny, nx) members on one
-    device, JAX's ``jax.vmap(make_stepper(p))``: every solver but
-    semi-implicit (``unsupported_members``), each pass over the members one
-    batched launch (``solvers/explicit.py``).  Member b of the result is
+    device, JAX's ``jax.vmap(make_stepper(p))``: every solver (but the
+    cases of ``unsupported_members``), each pass over the members one
+    batched launch (``solvers/explicit.py``), and for semi-implicit each CG
+    round one launch of each kernel over the members still live
+    (``solvers/semi_implicit.py``).  Member b of the result is
     ``make_stepper(p)`` of member b bit for bit: t, iter and tau per member
-    as its single run takes them.  The stats are the members' stacked
-    (``StepStats``), ``attempts`` each member's passes; ``.rounds`` on the
-    stepper counts the batched attempts of its last call, the launches."""
+    as its single run takes them, and its CG iteration counts.  The stats
+    are the members' stacked (``StepStats``), ``attempts`` each member's
+    passes; ``.rounds`` on the stepper counts the batched attempts of its
+    last call, the launches (one a step but for RKM's retries).  Members
+    frozen by ``live`` take no part in any launch or solve."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
@@ -173,7 +178,7 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
     adaptive = p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE
 
     def finish(state, ids, nF, nU, phi_iters=None, attempts=None, used=None, tau_next=None,
-               residuals=()):
+               residuals=(), t_iters=None):
         B = len(state.t)
         if len(ids) < B:  # the frozen members keep their rows
             keep = np.ones(B, bool)
@@ -181,7 +186,9 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
             rows = torch.as_tensor(np.flatnonzero(keep), device=nF.device)
             nF[rows], nU[rows] = state.F[rows], state.U[rows]
         stats = empty_stats(state, B)
-        if phi_iters is not None:
+        if t_iters is not None:  # semi-implicit: each system's CG iterations
+            stats.Phi_iters, stats.T_iters = phi_iters, t_iters
+        elif phi_iters is not None:
             stats.Phi_iters, stats.T_iters, stats.attempts = phi_iters, phi_iters.copy(), attempts
         else:
             stats.Phi_iters[ids] = 1
@@ -223,6 +230,20 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
                                                      step_based)
             step.rounds = 1
             return finish(state, ids, nF, nU, residuals=residuals)
+
+    elif p.solver == SolverType.SEMI_IMPLICIT:
+
+        def step(state: SimState, live=None):
+            ids = live_ids(state, live)
+
+            def step_based(F, U, U_base, same_base):
+                nF, nU, res_F, res_U = semi_implicit_step_members(F, U, U_base, p, ids)
+                return nF, nU, (res_F.iters, res_U.iters)
+
+            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, ONE_DEVICE,
+                                                    step_based)
+            step.rounds = 1
+            return finish(state, ids, nF, nU, aux[0], residuals=residuals, t_iters=aux[1])
 
     elif p.solver == SolverType.EXPLICIT_RK4:
 

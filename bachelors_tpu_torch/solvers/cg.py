@@ -34,6 +34,17 @@ update folded into the matvec, on one device: per iteration K9 and K8b
 launch fewer, and still one host read.  ``solvers/semi_implicit``'s gate
 (``_cg_variant``) chooses it.  ``cg_solve_diff`` is not ported:
 differentiable runs raise.
+
+``cg_solve_members`` and ``pcg_solve_members`` solve the systems of an
+ensemble's members at once, stacked (B, ny, nx), as ``jax.vmap`` runs the
+vmapped ``lax.while_loop`` (JAX :100-130): one body for every member, each
+member's carry frozen once its own stop test holds, so each keeps its own
+iteration count.  Here a round of the loop is one batched K8, K9 and K10
+launch over the members still live (``ops/cuda_cg.*_members``) and ONE
+host read of their (B,) <r', r'> (``HOST_READS["cg_stop_test_members"]``);
+a member that stops or reaches ``max_iters`` leaves the live set and its
+rows are never written again.  Member b's x, iteration count and stop
+equal ``cg_solve`` on member b's system bit for bit.
 """
 from __future__ import annotations
 
@@ -49,11 +60,14 @@ from ..parallel.topology import ONE_DEVICE, Topology
 
 # One-value device-to-host reads made by the CG stop tests since the last
 # reset_host_reads().
-HOST_READS = {"cg_stop_test": 0}
+# One read a round of an ensemble's solves (``cg_solve_members``), for all
+# its live members.
+HOST_READS = {"cg_stop_test": 0, "cg_stop_test_members": 0}
 
 
 def reset_host_reads() -> None:
-    HOST_READS["cg_stop_test"] = 0
+    for key in HOST_READS:
+        HOST_READS[key] = 0
 
 
 @dataclasses.dataclass
@@ -292,3 +306,163 @@ def _pcg_solve(
         it += 1
     return x, CGResult(error=torch.sqrt(rr / float(N)), iters=it,
                        converged=it != max_iters)
+
+
+# ------------------------------------------------------------- ensembles
+
+
+@dataclasses.dataclass
+class CGMembersResult:
+    """An ensemble's solves: per member (indexed by member; entries of
+    members not solved are 0, and their error undefined)."""
+    error: torch.Tensor      # (B,) sqrt(<r,r> / N) on the device
+    iters: np.ndarray        # (B,) int64
+    converged: np.ndarray    # (B,) bool
+    rounds: int              # batched rounds, one host read each
+
+
+def _going_members(rr: torch.Tensor, live, scaled_tol2) -> list:
+    """A round's one host read: the (B,) <r', r'> of every member, each
+    live one compared with tol^2 N in the field dtype (a NaN never stops
+    it); returns the live members that go on."""
+    HOST_READS["cg_stop_test_members"] += 1
+    vals = rr.tolist()
+    c = type(scaled_tol2)
+    return [m for m in live if not c(vals[m]) < scaled_tol2]
+
+
+def _start_rr(r: torch.Tensor, ids) -> torch.Tensor:
+    """The (B,) <r, r> a solve starts from, each member's as the single
+    solve forms it (``torch.sum`` of its own product; entries of members
+    not in ``ids`` 0)."""
+    B = r.shape[0]
+    if len(ids) == B:
+        return torch.stack([torch.sum(r[b] * r[b]) for b in range(B)])
+    rr = r.new_zeros(B)
+    for b in ids:
+        rr[b] = torch.sum(r[b] * r[b])
+    return rr
+
+
+def cg_solve_members(
+    matvec_pAp: Callable,
+    b: torch.Tensor,
+    ids,
+    *,
+    tolerance: float = 1.0e-5,
+    max_iters: int = 10,
+    epsilon: float = 1.0e-10,
+    kernel: bool = True,
+):
+    """Solve A_m x_m = b_m for the members m of ``ids`` of a stacked (B,
+    ny, nx) ``b`` from zero guesses: ``cg_solve``'s recurrence with
+    ``matvec_pAp`` for each member, batched.  Returns (x, CGMembersResult);
+    the rows of members not in ``ids`` of x are 0.  ``b`` is not modified.
+
+    ``matvec_pAp(p, pAp, live, out)`` -> (A p, pAp) runs each member of
+    ``live`` (K8 over members, writing <p_m, A p_m> into the (B,) vector
+    pAp; ``out`` a dead buffer or None); the x/r update is K9 over members
+    and the direction update K10 over members (``ops/cuda_cg``), or their
+    plain versions with ``kernel`` false, which run ``cg_solve``'s plain
+    torch ops member by member.  A round: one call of each over the live
+    members, then one host read of the (B,) <r', r'>.  The two (B,) <r, r>
+    vectors alternate round by round: every live member is at the same
+    round, so round k reads one and writes the other."""
+    update = cuda_cg.update_xr_rr_members if kernel else cuda_cg.update_xr_rr_members_plain
+    advance = cuda_cg.advance_p_members if kernel else cuda_cg.advance_p_members_plain
+    B = b.shape[0]
+    ids = [int(m) for m in ids]
+    # N counts one member's cells, as topo.count sees one member under jax.vmap
+    N, scaled_tol2 = _tolerance(b[0], tolerance)
+    x = torch.zeros_like(b)
+    r = b.clone()  # K9 updates r in place
+    bufs = (_start_rr(r, ids), b.new_empty(B))
+    p = r.clone()
+    pAp = b.new_empty(B)
+    Ap = None  # last round's Ap, dead once x and r are updated
+    iters = [0] * B
+    last = [0] * B  # which buffer holds each member's final <r, r>
+    live, k = (ids if max_iters > 0 else []), 0
+    while live:
+        odd = k & 1
+        rr, rr_new = bufs[odd], bufs[1 - odd]
+        Ap, pAp = matvec_pAp(p, pAp, live, Ap)
+        update(x, r, p, Ap, rr, pAp, epsilon, live, rr_new)
+        go = _going_members(rr_new, live, scaled_tol2)
+        if go:  # the JAX loop keeps a stopped member's p; nothing reads it
+            advance(r, p, rr_new, rr, epsilon, go)
+        for m in live:
+            last[m] = 1 - odd
+        for m in go:
+            iters[m] += 1
+        live = [m for m in go if iters[m] < max_iters]
+        k += 1
+    if len(set(last)) == 1:
+        rr = bufs[last[0]]
+    else:
+        rr = torch.where(torch.tensor(last, dtype=torch.bool, device=b.device), bufs[1], bufs[0])
+    iters = np.array(iters, np.int64)
+    on = np.zeros(B, bool)
+    on[ids] = True
+    return x, CGMembersResult(error=torch.sqrt(rr / float(N)), iters=iters,
+                              converged=on & (iters != max_iters), rounds=k)
+
+
+def pcg_solve_members(
+    matvec: Callable,
+    b: torch.Tensor,
+    ids,
+    *,
+    diag: torch.Tensor,
+    tolerance: float = 1.0e-5,
+    max_iters: int = 10,
+    epsilon: float = 1.0e-10,
+):
+    """``_pcg_solve`` (Jacobi) for the members of ``ids`` of a stacked
+    ``b`` and ``diag``, in plain torch ops on any device, as the JAX
+    package runs this branch in XLA: each member's vectors are ``_pcg_solve``'s
+    own, and a round makes one host read of the live members' <r, r>.
+    ``matvec(m, v)`` is member m's operator.  Returns (x, CGMembersResult)
+    with member m's x and count ``_pcg_solve``'s bit for bit."""
+    B = b.shape[0]
+    ids = [int(m) for m in ids]
+    N, scaled_tol2 = _tolerance(b[0], tolerance)  # one member's cells
+    st = {}
+    for m in ids:
+        inv_d = 1.0 / diag[m]
+        r = b[m]
+        z = r * inv_d
+        st[m] = dict(inv_d=inv_d, x=torch.zeros_like(r), r=r, p=z,
+                     rr=torch.sum(r * r), rz=torch.sum(r * z))
+    iters = np.zeros(B, np.int64)
+    live, k = (ids if max_iters > 0 else []), 0
+    while live:
+        for m in live:
+            v = st[m]
+            Ap = matvec(m, v["p"])
+            alpha = v["rz"] / torch.clamp(torch.sum(v["p"] * Ap), min=epsilon)
+            v["x"] = v["x"] + alpha * v["p"]
+            v["r"] = v["r"] + (-alpha) * Ap
+            v["rr"] = torch.sum(v["r"] * v["r"])
+        HOST_READS["cg_stop_test_members"] += 1
+        vals = torch.stack([st[m]["rr"] for m in live]).cpu().numpy()
+        c = type(scaled_tol2)
+        go = [m for m, val in zip(live, vals) if not c(val) < scaled_tol2]
+        for m in go:
+            v = st[m]
+            z = v["r"] * v["inv_d"]
+            rz_new = torch.sum(v["r"] * z)
+            v["p"] = z + (rz_new / torch.clamp(v["rz"], min=epsilon)) * v["p"]
+            v["rz"] = rz_new
+        iters[go] += 1
+        live = [m for m in go if iters[m] < max_iters]
+        k += 1
+    x = torch.zeros_like(b)
+    err = b.new_zeros(B)
+    on = np.zeros(B, bool)
+    for m in ids:
+        x[m] = st[m]["x"]
+        err[m] = torch.sqrt(st[m]["rr"] / float(N))
+        on[m] = True
+    return x, CGMembersResult(error=err, iters=iters, converged=on & (iters != max_iters),
+                              rounds=k)

@@ -445,7 +445,7 @@ def rk4_step_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu, ids):
     """``rk4_step`` for the members ``ids``: on the kernel backend the
     staged route batched, K1 for k1, k2 and k3 and K4, each one launch for
     every member (below ``RK4_FULLSTEP_MIN_CELLS`` cells a member: the
-    whole-step route waits for K3 over members, ROADMAP item 7b, and
+    whole-step route waits for K3 over members, ROADMAP item 7d, and
     ``solvers/base.make_ensemble_stepper`` refuses it); the plain backend
     takes the plain step per member, as one device does."""
     if resolve_backend(p, F.device) != "kernel":

@@ -43,6 +43,18 @@ the true residual.  Everywhere else -- float32, float64 on the CPU,
 ``backend = xla`` -- the step is the JAX package's
 ``semi_implicit_step_based`` as its XLA path runs it (two solves), as the
 JAX package itself does off its accelerator, on one device or a mesh.
+
+An ensemble's members (stacked (B, ny, nx) fields, ``*_members``) take
+the one-device routes batched over members, as JAX runs ``jax.vmap`` of
+the step: one K7 launch a pass for every member stepped, the solves of
+all members at once (``cg_solve_members``: per round one K8, one K9 and
+at most one K10 launch for the members still live, and one host read),
+the phase solves before the heat solves, and on the refined route one
+K14 launch a refinement.  Member b equals the single step of member b
+bit for bit, its CG iteration counts included.  The fused CG variant
+over members (K8b) waits for ROADMAP item 7d.  Each route's scheme is
+written once (``_step_based``, ``_step_refined``) and reaches its prepare,
+solves and residuals through ``_Fields`` (one state) or ``_Members``.
 """
 from __future__ import annotations
 
@@ -56,7 +68,7 @@ from ..ops.rhs import resolve_backend, stage_halos
 from ..ops.stencil import (AnisotropyMatrix, CrossMatrix, anisotropy_matvec,
                            cross_matvec, lap_from_padded)
 from ..parallel.topology import ONE_DEVICE, Topology
-from .cg import cg_solve, cg_solve_fused
+from .cg import cg_solve, cg_solve_fused, cg_solve_members, pcg_solve_members
 
 EPSILON = 1.0e-12  # the CG alpha/beta guard of the semi-implicit solves
 
@@ -108,9 +120,11 @@ def refines(p: SimParams, device: torch.device) -> bool:
 
 
 def cg_branch(p: SimParams, device: torch.device = torch.device("cpu"),
-              topo: Topology = ONE_DEVICE) -> str:
+              topo: Topology = ONE_DEVICE, members: bool = False) -> str:
     """Which phase-system CG a configuration runs on ``device`` (its first
-    shard's on a mesh), in words."""
+    shard's on a mesh; with ``members``, an ensemble's), in words."""
+    if members:
+        return cg_branch(p, device, topo) + ", batched over the ensemble's live members"
     kernel = "K12.8, per shard after a ghost gather," if topo.is_sharded else "K8"
     if refines(p, device):
         form = "aniso form" if cuda_rhs.si_s_varies(p) else "cross form"
@@ -189,70 +203,6 @@ def _advance_p_matvec(A, s):
     return adv
 
 
-def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
-                             topo: Topology = ONE_DEVICE):
-    """One semi-implicit step, on one device or, with a sharded ``topo``,
-    on its mesh.  Returns (next_F, next_U, res_F, res_U)."""
-    if refines(p, F.device):
-        return semi_implicit_step_refined(F, U, U_base, p, topo)
-    kernel = resolve_backend(p, F.device) == "kernel"
-    s_const = not cuda_rhs.si_s_varies(p)
-    prep = _prepare(F, U, p, topo, kernel)
-    if s_const:
-        r0_F, uterm = prep
-        # g == 1 everywhere: s is the scalar gamma/alpha, which the plain
-        # prepare's map holds in every cell
-        s = p.gamma / p.alpha
-    else:
-        r0_F, uterm, s = prep
-
-    A_F = AnisotropyMatrix.implicit_phase(p)
-    jacobi = _wants_jacobi(p)
-    # the fused variant's gate (JAX :163-224): one device, the kernel route
-    # (never differentiable: such params raise), and for the phase system no
-    # Jacobi
-    fused = kernel and not topo.is_sharded and _cg_variant(F.numel()) == "fused"
-    adv_F = None
-    if jacobi or not kernel:
-        mv_F = None
-    elif s_const:
-        # the constant s folded into the stencil coefficients: the matvec
-        # reads one map less per CG iteration
-        A_Fc = CrossMatrix(C=1 + A_F.Cm1 * s, X=A_F.X * s, Y=A_F.Y * s,
-                           boundary=p.Phi_boundary)
-        mv_F = _matvec_pAp(A_Fc, None, topo)
-        adv_F = _advance_p_matvec(A_Fc, None)
-    else:
-        mv_F = _matvec_pAp(A_F, s, topo)
-        adv_F = _advance_p_matvec(A_F, s)
-    mvx_F = lambda v: anisotropy_matvec(A_F, s, v, topo)  # noqa: E731
-    if fused and adv_F is not None:
-        e_F, res_F = cg_solve_fused(mvx_F, mv_F, adv_F, r0_F, tolerance=p.Phi_tolerance,
-                                    max_iters=p.Phi_max_iters, epsilon=EPSILON)
-    else:
-        e_F, res_F = cg_solve(
-            mvx_F, r0_F, tolerance=p.Phi_tolerance, max_iters=p.Phi_max_iters,
-            epsilon=EPSILON, matvec_pAp=mv_F,
-            diag=each(lambda m: 1 + A_F.Cm1 * m, s) if jacobi else None, topo=topo)
-    next_F = each(torch.add, F, e_F)
-
-    r0_U = each(lambda *a: _heat_rhs(*a, p), U_base, U, e_F, uterm)
-
-    A_U = CrossMatrix.implicit_heat(p)
-    mv_U = _matvec_pAp(A_U, None, topo) if kernel else None
-    mvx_U = lambda v: cross_matvec(A_U, v, topo)  # noqa: E731
-    if fused:  # heat always in the cross form
-        e_U, res_U = cg_solve_fused(mvx_U, mv_U, _advance_p_matvec(A_U, None), r0_U,
-                                    tolerance=p.T_tolerance, max_iters=p.T_max_iters,
-                                    epsilon=EPSILON)
-    else:
-        e_U, res_U = cg_solve(mvx_U, r0_U, tolerance=p.T_tolerance,
-                              max_iters=p.T_max_iters, epsilon=EPSILON, matvec_pAp=mv_U,
-                              topo=topo)
-    next_U = each(torch.add, U, e_U)
-    return next_F, next_U, res_F, res_U
-
-
 def _block(a, k):
     """Shard ``k``'s block of a ``Shards`` (the field itself on one device,
     ``k`` None; anything else as it is)."""
@@ -270,6 +220,139 @@ def _per_shard(e: Field, topo: Topology, fn) -> Field:
                   e.grid)
 
 
+def _apply(A, s, v: Field, topo: Topology = ONE_DEVICE) -> Field:
+    """A v in plain torch ops: the cross operator ``A`` (``s`` None) or the
+    anisotropy operator ``A`` with the map (or constant) ``s``."""
+    return cross_matvec(A, v, topo) if s is None else anisotropy_matvec(A, s, v, topo)
+
+
+class _Fields:
+    """Where a step's prepare, solves and residuals run for one state's
+    fields: on one device or, with a sharded ``topo``, on its mesh.  An
+    operator is a pair (A, s): the cross operator A (s None) or the
+    anisotropy operator A with the map (or constant) s."""
+
+    def __init__(self, p: SimParams, topo: Topology, kernel: bool, fused: bool = False):
+        self.p, self.topo, self.kernel, self.fused = p, topo, kernel, fused
+
+    def prepare(self, F: Field, U: Field):
+        return _prepare(F, U, self.p, self.topo, self.kernel)
+
+    def solve(self, op, plain, b: Field, tolerance: float, max_iters: int, diag=None):
+        """A e = b from a zero guess: the kernels (K8-K10, or K8 and K8b when
+        ``fused``) take the operator ``op``, plain torch ops ``plain`` (the
+        same operator, unfolded); ``diag``: the Jacobi branch."""
+        topo = self.topo
+        matvec = lambda v: _apply(*plain, v, topo)  # noqa: E731
+        kw = dict(tolerance=tolerance, max_iters=max_iters, epsilon=EPSILON)
+        if diag is None and self.kernel and self.fused:
+            return cg_solve_fused(matvec, _matvec_pAp(*op, topo), _advance_p_matvec(*op), b,
+                                  **kw)
+        mv = _matvec_pAp(*op, topo) if diag is None and self.kernel else None
+        return cg_solve(matvec, b, matvec_pAp=mv, diag=diag, topo=topo, **kw)
+
+    def residual(self, r0: Field, e: Field, op) -> Field:
+        """r0 - A e (K14; on a mesh its twin per shard)."""
+        A, s = op
+        if s is None:
+            fn = cuda_cg.cross_residual if self.kernel else cuda_cg.cross_residual_plain
+            return _per_shard(e, self.topo, lambda k, b, h: fn(_block(r0, k), b, A, halo=h))
+        fn = cuda_cg.aniso_residual if self.kernel else cuda_cg.aniso_residual_plain
+        return _per_shard(e, self.topo,
+                          lambda k, b, h: fn(_block(r0, k), b, A, _block(s, k), halo=h))
+
+    def heat_residual(self, uterm: Field, eF_pair, e: Field, A, extra) -> Field:
+        """heat_rhs(uterm, eF_pair, L, extra) - A e (K14's heat mode)."""
+        fn = cuda_cg.heat_residual if self.kernel else cuda_cg.heat_residual_plain
+        return _per_shard(e, self.topo, lambda k, b, h: fn(
+            _block(uterm, k), tuple(_block(x, k) for x in eF_pair), b, A, self.p.L,
+            _block(extra, k), halo=h))
+
+    @staticmethod
+    def join(first, res) -> None:
+        """``res`` carries both solves: their iterations, and converged when
+        both are."""
+        res.iters += first.iters
+        res.converged = res.converged and first.converged
+
+
+def _phase_operators(prep, A_F: AnisotropyMatrix, p: SimParams):
+    """The phase system's operators (kernels', plain) from the prepare's
+    result.  Where s is constant (the prepare returned no map), g == 1
+    everywhere and s is the scalar gamma/alpha, which the plain prepare's
+    map holds in every cell; the kernels take it folded into the cross
+    stencil's coefficients, one map less per CG iteration."""
+    if len(prep) == 3:
+        return (A_F, prep[2]), (A_F, prep[2])
+    s = p.gamma / p.alpha
+    folded = CrossMatrix(C=1 + A_F.Cm1 * s, X=A_F.X * s, Y=A_F.Y * s, boundary=p.Phi_boundary)
+    return (folded, None), (A_F, s)
+
+
+def _step_based(F, U, U_base, p: SimParams, fields):
+    """The scheme of the module doc (steps 1-4) through ``fields``: one
+    state's (``_Fields``) or an ensemble's (``_Members``)."""
+    prep = fields.prepare(F, U)
+    r0_F, uterm = prep[0], prep[1]
+    A_F = AnisotropyMatrix.implicit_phase(p)
+    op_F, plain_F = _phase_operators(prep, A_F, p)
+    diag = each(lambda m: 1 + A_F.Cm1 * m, plain_F[1]) if _wants_jacobi(p) else None
+    e_F, res_F = fields.solve(op_F, plain_F, r0_F, p.Phi_tolerance, p.Phi_max_iters, diag)
+    r0_U = each(lambda *a: _heat_rhs(*a, p), U_base, U, e_F, uterm)
+    heat = (CrossMatrix.implicit_heat(p), None)  # heat always in the cross form
+    e_U, res_U = fields.solve(heat, heat, r0_U, p.T_tolerance, p.T_max_iters)
+    return each(torch.add, F, e_F), each(torch.add, U, e_U), res_F, res_U
+
+
+def _step_refined(F, U, U_base, p: SimParams, fields):
+    """The refined route through ``fields``: per system a solve, the true
+    residual of its result, a second solve, and x + e1 + e2."""
+    prep = fields.prepare(F, U)
+    r0_F, uterm = prep[0], prep[1]
+    # the corrector / gamma heat-rhs terms (none on the plain path: U_base
+    # IS U there and gamma == 1)
+    extra = None
+    if U_base is not U:
+        extra = each(torch.sub, U_base, U)
+    if p.gamma != 1.0:
+        g_term = each(lambda u: p.dt * (1.0 - p.gamma) * u, U_base)
+        extra = g_term if extra is None else each(torch.add, extra, g_term)
+
+    op_F, plain_F = _phase_operators(prep, AnisotropyMatrix.implicit_phase(p), p)
+    A_U = CrossMatrix.implicit_heat(p)
+    heat = (A_U, None)
+    e1_F, res1_F = fields.solve(op_F, plain_F, r0_F, p.Phi_tolerance, p.Phi_max_iters)
+    e2_F, res_F = fields.solve(op_F, plain_F, fields.residual(r0_F, e1_F, op_F),
+                               p.Phi_tolerance, p.Phi_max_iters)
+    b_U = each(lambda u, a, b, *x: cuda_cg.heat_rhs(u, (a, b), p.L, *x), uterm, e1_F, e2_F,
+               *(() if extra is None else (extra,)))
+    e1_U, res1_U = fields.solve(heat, heat, b_U, p.T_tolerance, p.T_max_iters)
+    e2_U, res_U = fields.solve(heat, heat,
+                               fields.heat_residual(uterm, (e1_F, e2_F), e1_U, A_U, extra),
+                               p.T_tolerance, p.T_max_iters)
+
+    # add back x + e1 + e2 in that order, as the JAX package's pair sums do
+    next_F = each(lambda x, a, b: (x + a) + b, F, e1_F, e2_F)
+    next_U = each(lambda x, a, b: (x + a) + b, U, e1_U, e2_U)
+    fields.join(res1_F, res_F)
+    fields.join(res1_U, res_U)
+    return next_F, next_U, res_F, res_U
+
+
+def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
+                             topo: Topology = ONE_DEVICE):
+    """One semi-implicit step, on one device or, with a sharded ``topo``,
+    on its mesh.  Returns (next_F, next_U, res_F, res_U)."""
+    if refines(p, F.device):
+        return semi_implicit_step_refined(F, U, U_base, p, topo)
+    kernel = resolve_backend(p, F.device) == "kernel"
+    # the fused variant's gate (JAX :163-224): one device, the kernel route
+    # (never differentiable: such params raise), and for the phase system no
+    # Jacobi
+    fused = kernel and not topo.is_sharded and _cg_variant(F.numel()) == "fused"
+    return _step_based(F, U, U_base, p, _Fields(p, topo, kernel, fused))
+
+
 def semi_implicit_step_refined(F: Field, U: Field, U_base: Field, p: SimParams,
                                topo: Topology = ONE_DEVICE):
     """One semi-implicit step with one round of iterative refinement per
@@ -282,62 +365,109 @@ def semi_implicit_step_refined(F: Field, U: Field, U_base: Field, p: SimParams,
     carries the second solve's error, the two solves' iterations, and
     converged when both are."""
     kernel = resolve_backend(p, F.device) == "kernel"
-    prep = _prepare(F, U, p, topo, kernel)
-    r0_F, uterm = prep[0], prep[1]
+    return _step_refined(F, U, U_base, p, _Fields(p, topo, kernel))
 
-    # the corrector / gamma heat-rhs terms (none on the plain path: U_base
-    # IS U there and gamma == 1)
-    extra = None
-    if U_base is not U:
-        extra = each(torch.sub, U_base, U)
-    if p.gamma != 1.0:
-        g_term = each(lambda u: p.dt * (1.0 - p.gamma) * u, U_base)
-        extra = g_term if extra is None else each(torch.add, extra, g_term)
 
-    A_F = AnisotropyMatrix.implicit_phase(p)
-    A_U = CrossMatrix.implicit_heat(p)
-    if len(prep) == 2:
-        s = p.gamma / p.alpha  # constant: no anisotropy, no corrector guess
-        A_Fc = CrossMatrix(C=1 + A_F.Cm1 * s, X=A_F.X * s, Y=A_F.Y * s,
-                           boundary=p.Phi_boundary)
-        mv_F = _matvec_pAp(A_Fc, None, topo)
-        residual = cuda_cg.cross_residual if kernel else cuda_cg.cross_residual_plain
-        refine_F = lambda k, e1, h: residual(_block(r0_F, k), e1, A_Fc, halo=h)  # noqa: E731
-    else:
-        s = prep[2]
-        mv_F = _matvec_pAp(A_F, s, topo)
-        residual = cuda_cg.aniso_residual if kernel else cuda_cg.aniso_residual_plain
-        refine_F = lambda k, e1, h: residual(_block(r0_F, k), e1, A_F, _block(s, k),  # noqa: E731
-                                             halo=h)
-    mv_U = _matvec_pAp(A_U, None, topo)
-    heat_residual = cuda_cg.heat_residual if kernel else cuda_cg.heat_residual_plain
+# ------------------------------------------------------------- ensembles
 
-    def solve(matvec, mv, b, tol, iters):
-        return cg_solve(matvec, b, tolerance=tol, max_iters=iters, epsilon=EPSILON,
-                        matvec_pAp=mv if kernel else None, topo=topo)
+FUSED_MEMBERS_TODO = ("semi-implicit ensembles on the fused CG variant (K8b over members; "
+                      "ROADMAP item 7d)")
 
-    def refine_U(k, e1, h):
-        pair = (_block(e1_F, k), _block(e2_F, k))
-        return heat_residual(_block(uterm, k), pair, e1, A_U, p.L, _block(extra, k), halo=h)
 
-    mvx_F = lambda v: anisotropy_matvec(A_F, s, v, topo)  # noqa: E731
-    mvx_U = lambda v: cross_matvec(A_U, v, topo)  # noqa: E731
-    e1_F, res1_F = solve(mvx_F, mv_F, r0_F, p.Phi_tolerance, p.Phi_max_iters)
-    e2_F, res_F = solve(mvx_F, mv_F, _per_shard(e1_F, topo, refine_F), p.Phi_tolerance,
-                        p.Phi_max_iters)
-    b_U = each(lambda u, a, b, *x: cuda_cg.heat_rhs(u, (a, b), p.L, *x), uterm, e1_F, e2_F,
-               *(() if extra is None else (extra,)))
-    e1_U, res1_U = solve(mvx_U, mv_U, b_U, p.T_tolerance, p.T_max_iters)
-    e2_U, res_U = solve(mvx_U, mv_U, _per_shard(e1_U, topo, refine_U), p.T_tolerance,
-                        p.T_max_iters)
+def _members_matvec_pAp(kernel: bool, A, s, plain_matvec):
+    """(v, pAp, ids, out) -> (A v, pAp) over the members ``ids`` of a
+    stacked v: K8 over members for the cross operator ``A`` (``s`` None)
+    or the anisotropy operator ``A`` with the stacked maps ``s``; off the
+    kernel route ``plain_matvec(m, v_m)`` per member and its dot product as
+    ``cg_solve``'s plain loop forms it."""
+    if kernel:
+        if s is None:
+            return lambda v, pAp, ids, out: cuda_cg.cross_matvec_pAp_members(A, v, pAp, ids, out)
+        return lambda v, pAp, ids, out: cuda_cg.aniso_matvec_pAp_members(A, s, v, pAp, ids, out)
 
-    # add back x + e1 + e2 in that order, as the JAX package's pair sums do
-    next_F = each(lambda x, a, b: (x + a) + b, F, e1_F, e2_F)
-    next_U = each(lambda x, a, b: (x + a) + b, U, e1_U, e2_U)
-    for first, res in ((res1_F, res_F), (res1_U, res_U)):
-        res.iters += first.iters
-        res.converged = res.converged and first.converged
-    return next_F, next_U, res_F, res_U
+    def mv(v, pAp, ids, out):
+        out = torch.empty_like(v) if out is None else out
+        for m in ids:
+            Av = plain_matvec(m, v[m])
+            out[m] = Av
+            pAp[m] = torch.sum(v[m] * Av)
+        return out, pAp
+
+    return mv
+
+
+class _Members:
+    """``_Fields`` for the members ``ids`` of an ensemble's stacked (B, ny,
+    nx) fields on one device: K7 over members, the solves of every member
+    at once (``cg_solve_members``; Jacobi: ``pcg_solve_members``) and K14
+    over members, or their plain versions."""
+
+    def __init__(self, p: SimParams, ids, kernel: bool):
+        self.p, self.ids, self.kernel = p, ids, kernel
+
+    def prepare(self, F: torch.Tensor, U: torch.Tensor):
+        return (cuda_rhs.si_prepare_members if self.kernel
+                else cuda_rhs.si_prepare_members_plain)(F, U, self.p, self.ids)
+
+    def solve(self, op, plain, b: torch.Tensor, tolerance: float, max_iters: int, diag=None):
+        A, s = plain
+
+        def one(m, v):  # member m's operator, plain
+            return _apply(A, s[m] if isinstance(s, torch.Tensor) else s, v)
+
+        kw = dict(tolerance=tolerance, max_iters=max_iters, epsilon=EPSILON)
+        if diag is not None:
+            return pcg_solve_members(one, b, self.ids, diag=diag, **kw)
+        return cg_solve_members(_members_matvec_pAp(self.kernel, *op, one), b, self.ids,
+                                kernel=self.kernel, **kw)
+
+    def residual(self, r0: torch.Tensor, e: torch.Tensor, op) -> torch.Tensor:
+        A, s = op
+        if s is None:
+            fn = (cuda_cg.cross_residual_members if self.kernel
+                  else cuda_cg.cross_residual_members_plain)
+            return fn(r0, e, A, self.ids)
+        fn = (cuda_cg.aniso_residual_members if self.kernel
+              else cuda_cg.aniso_residual_members_plain)
+        return fn(r0, e, A, s, self.ids)
+
+    def heat_residual(self, uterm, eF_pair, e, A, extra) -> torch.Tensor:
+        fn = (cuda_cg.heat_residual_members if self.kernel
+              else cuda_cg.heat_residual_members_plain)
+        return fn(uterm, eF_pair, e, A, self.p.L, extra, self.ids)
+
+    @staticmethod
+    def join(first, res) -> None:
+        res.iters = res.iters + first.iters
+        res.converged = res.converged & first.converged
+        res.rounds += first.rounds
+
+
+def semi_implicit_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
+                               p: SimParams, ids):
+    """``semi_implicit_step_based`` for the members ``ids`` of stacked (B,
+    ny, nx) fields on one device: K7 over members, then the phase solves of
+    every member, then the heat solves, as ``jax.vmap`` of the step orders
+    them.  Returns (next_F, next_U, res_F, res_U) with per-member results;
+    rows of members not in ``ids`` are not meaningful (the stepper keeps
+    theirs)."""
+    if refines(p, F.device):
+        return semi_implicit_step_refined_members(F, U, U_base, p, ids)
+    if _cg_variant(p.ny * p.nx) == "fused":
+        raise NotImplementedError(f"not ported yet: {FUSED_MEMBERS_TODO}")
+    kernel = resolve_backend(p, F.device) == "kernel"
+    return _step_based(F, U, U_base, p, _Members(p, ids, kernel))
+
+
+def semi_implicit_step_refined_members(F: torch.Tensor, U: torch.Tensor,
+                                       U_base: torch.Tensor, p: SimParams, ids):
+    """``semi_implicit_step_refined`` for the members ``ids`` of stacked
+    fields on one device: per system a solve of every member, K14 over
+    members for the true residuals, a second solve; each member's result
+    carries the second solve's error, the sum of its two solves'
+    iterations, and converged when both are."""
+    kernel = resolve_backend(p, F.device) == "kernel"
+    return _step_refined(F, U, U_base, p, _Members(p, ids, kernel))
 
 
 def _heat_rhs(U_base, U, e_F, uterm, p: SimParams):

@@ -98,6 +98,20 @@ Euler with the corrector loop and RK4 ensembles at 512^2, in lockstep with
 the single steppers and through the driver; RKM and RK4 ensembles of the
 float64 sweep configs; and the RKM ensemble's host and device ms a step,
 member-steps a second and the card's busy share at B = 1, 2, 4 and 8.
+Semi-implicit ensembles: K7 (S = 0.25 and 0), K8 (cross and aniso), K9,
+K10 and K14 (its four modes) over members against their plain versions
+and the unbatched kernels on each member (bit for bit, dot products
+included; the rows and dots of members a launch does not step untouched)
+at both dtypes, the same sizes and counts, with device µs a launch by
+graph replay; the members stepper in lockstep with the single steppers at
+512^2 (both dtypes, S = 0.25 and 0); the shipped config with the
+semi-implicit solver and ``ensemble = 4`` cut to 1000 steps, the float64
+sweep config's ensemble cut to 500 steps (the refined route, K14 over
+members) and the corrector loop's ensemble at 200 steps, through
+``run_config_file``: per CG round one batched K8, one K9 and at most one
+K10 launch and one host read, one batched K7 a pass, member b bit for bit
+the single run with noise_seed + b in every frame and CG count; and the
+float32 semi-implicit ensemble's timing at B = 1, 2, 4 and 8.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
@@ -296,13 +310,17 @@ F64_THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
 # every plain version a path could fall back to, by module
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
                     "blend_rhs_members_plain", "rk4_final_stage_members_plain",
-                    "rkm_attempt_members_plain",
+                    "rkm_attempt_members_plain", "si_prepare_members_plain",
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
                     "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
                     "rkm_attempt_sharded_plain", "merson_finish",
                     "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine",
                     "si_prepare_sharded_plain", "si_terms"),
-         cuda_cg: ("cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
+         cuda_cg: ("cross_matvec_pAp_members_plain", "aniso_matvec_pAp_members_plain",
+                   "update_xr_rr_members_plain", "advance_p_members_plain",
+                   "cross_residual_members_plain", "aniso_residual_members_plain",
+                   "heat_residual_members_plain",
+                   "cross_matvec_pAp_plain", "aniso_matvec_pAp_plain",
                    "update_xr_rr_plain", "axpby_inplace_plain", "advance_p_inplace_plain",
                    "cross_residual_plain",
                    "aniso_residual_plain", "heat_residual_plain",
@@ -321,6 +339,25 @@ MEMBER_SIZES = ((512, 512), (100, 170), (33, 129))
 MEMBER_COUNTS = (1, 3, 8)
 MEMBER_TIMED = (1, 4, 8)
 ENSEMBLE_TIMED = (1, 2, 4, 8)
+# Semi-implicit ensembles: config.ini's semi-implicit run with 4 members,
+# cut to 1000 steps (SI_CUT) with 2 frames; the float64 sweep config's cut
+# to 500 steps (F64_SI_CUT) with stats on, so that each member's CG counts
+# are held to its single run's; the corrector loop (3 passes, step
+# residuals) to 200 steps with 10 frames, one each 20 steps.  With the
+# noise, that loop's Phi overshoots 1.1 in its first ~25 steps (JAX's step
+# on the CPU peaks at 1.2314 at step 6) and settles: the JAX package's own
+# step does the same, as test_si_corrector_noise_overshoot_is_the_schemes
+# in tests/test_torch_ensemble_si.py holds on the CPU (the port's Phi maxima
+# JAX's, step by step, over the first 30 steps, below SI_CORRECTOR_PHI_MAX),
+# so this phase holds its frames to that bound in place of check_run's 1.1
+SI_ENSEMBLE = SEMI + ENSEMBLE
+SI_ENSEMBLE_CUT = SI_CUT + "[snapshot]\ntimes = 2\n"
+F64_SI_MEMBERS = F64_SI_CUT + "[program]\ncollect_stats = true\n" + FIRST_FRAME
+SI_CORRECTOR_MEMBERS = "[simulation]\nstop_after = 0.001\n[snapshot]\ntimes = 10\n"
+SI_CORRECTOR_PHI_MAX = 1.25
+CG_MEMBER_KEYS = ("cross_matvec_pAp_members", "aniso_matvec_pAp_members",
+                  "update_xr_rr_members", "advance_p_members", "cross_residual_members",
+                  "aniso_residual_members", "heat_residual_members")
 
 # The card's published peaks (H100 SXM at 700 W): device memory, and float32
 # and float64 outside the tensor cores.
@@ -1465,9 +1502,9 @@ def check_rk4_lockstep(routes, steps=5, tol=FIELD_TOL,
           increment_tol="tol * max|increment| + 2 ulp(max|field|)", routes=out)
 
 
-def check_run(res, cfg, grow=True) -> tuple:
+def check_run(res, cfg, grow=True, phi_max=1.1) -> tuple:
     """What a run wrote: a frame of the config's size per snapshot event
-    (and the initial one when asked), finite, Phi in [-0.1, 1.1], a seed
+    (and the initial one when asked), finite, Phi in [-0.1, phi_max], a seed
     that grew (with ``grow`` false: that did not shrink), and one stats row
     per step, or no stats.csv when the run collects no stats.  Returns the
     stats header and rows (None without stats), the first and last solid
@@ -1487,7 +1524,7 @@ def check_run(res, cfg, grow=True) -> tuple:
             raise AssertionError(f"{name}: {snap.nx}x{snap.ny}")
         if not (np.isfinite(F).all() and np.isfinite(U).all()):
             raise AssertionError(f"{name}: non-finite fields")
-        if not (F.min() >= -0.1 and F.max() <= 1.1):
+        if not (F.min() >= -0.1 and F.max() <= phi_max):
             raise AssertionError(f"{name}: Phi in [{F.min()}, {F.max()}]")
         solid.append(float(F.astype(np.float64).mean()))
     if not (solid[-1] > solid[0] if grow else solid[-1] >= solid[0]):
@@ -1508,7 +1545,7 @@ def check_run(res, cfg, grow=True) -> tuple:
 
 
 def drive(overrides, grow=True, config=CONFIG, device=None, frames=False,
-          files=()) -> dict:
+          files=(), phi_max=1.1) -> dict:
     """``run_config_file`` on the card with every kernel launch, every CG
     and Merson host read and every call of a plain version counted (each count set to 0
     just before the run and read just after), then what it wrote checked.
@@ -1541,11 +1578,12 @@ def drive(overrides, grow=True, config=CONFIG, device=None, frames=False,
         finally:
             launches = {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES, **cuda_stats.LAUNCHES}
             host_reads = cg.HOST_READS["cg_stop_test"]
+            member_reads = cg.HOST_READS["cg_stop_test_members"]
             rkm_reads = dict(explicit.HOST_READS)
             for (mod, name), fn in originals.items():
                 setattr(mod, name, fn)
             SYSTEM.set_file(None)  # the run's log.txt lives in the temp folder
-        header, rows, solid, n_frames = check_run(res, cfg, grow)
+        header, rows, solid, n_frames = check_run(res, cfg, grow, phi_max)
         snaps = ({name: load_bin_maps(os.path.join(res.save_folder, name))
                   for name in os.listdir(res.save_folder) if name.endswith(".bin")}
                  if frames else None)
@@ -1558,7 +1596,7 @@ def drive(overrides, grow=True, config=CONFIG, device=None, frames=False,
     p = cfg.params
     maps = None if snaps is None else {name: snap.maps for name, snap in snaps.items()}
     return dict(cfg=cfg, res=res, launches=launches, host_reads=host_reads,
-                rkm_host_reads=rkm_reads,
+                member_reads=member_reads, rkm_host_reads=rkm_reads,
                 header=header, rows=rows, frames=maps, snaps=snaps, texts=texts,
                 summary=dict(config=os.path.relpath(config, ROOT), grid=f"{p.ny}x{p.nx}",
                              dtype=p.dtype, solver=p.solver.value,
@@ -3201,6 +3239,382 @@ def ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
     return rows
 
 
+# --------------------------------------------------- semi-implicit ensembles
+
+
+def one_launch_of(mod, name, call):
+    """``call()`` and that it launched ``mod``'s ``name`` exactly once."""
+    before = mod.LAUNCHES[name]
+    out = call()
+    if mod.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"{name}: {mod.LAUNCHES[name] - before} launches, want 1")
+    return out
+
+
+def hold_dot(name, got, want, what, rtol) -> None:
+    """A dot product within ``rtol`` of ``want`` (relative, 0 when exact)."""
+    g, w = float(got), float(want)
+    if not (g == w or abs(g - w) <= rtol * abs(w)):
+        raise AssertionError(f"{name} dot {g!r} vs {w!r} ({what})")
+
+
+def hold_frozen(name, t, before, frozen, what) -> None:
+    """The rows (or entries) of the members a launch did not step, as they
+    were."""
+    for b in frozen:
+        if not torch.equal(t[b], before[b]):
+            raise AssertionError(f"{name} wrote frozen member {b} ({what})")
+
+
+def stacked_maps(rng, B, ny, nx, dtype="float32"):
+    return torch.stack([s_map(rng, ny, nx, dtype) for _ in range(B)])
+
+
+def check_si_members(rng, dtype="float32") -> dict:
+    """K7 (S = 0.25 and S = 0), K8 (cross and aniso forms), K9, K10 and K14
+    (cross, aniso, heat, heat with the extra terms) over members against the
+    unbatched kernel on each member, bit for bit, dot products included, and
+    against their plain versions (fields within the field tolerance, dots
+    within the sum tolerance), at MEMBER_SIZES for B in MEMBER_COUNTS, the
+    members of a launch a subset out of order where B > 1: the rows and
+    dots of the others untouched (K8's out and dots, K9's x, r and
+    <r', r'>, K10's p; K7 and K14 write new tensors), each batched call one
+    launch.  Device µs a launch by graph replay at 512^2 for B in
+    MEMBER_TIMED beside B times the unbatched kernel's and the bound of B
+    members; the kernels line's numbers at B = 4."""
+    prec = PRECISION[dtype]
+    tol, rtol = prec["field_tol"], prec["sum_rtol"]
+    worst = {k: [0.0, 0.0] for k in ("K7", "K8", "K9", "K10", "K14")}
+    sentinel, eps, cases = 7.0, 1e-12, 0
+    for ny, nx in MEMBER_SIZES:
+        for B in MEMBER_COUNTS:
+            ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+            frozen = [b for b in range(B) if b not in ids]
+            what = f"{ny}x{nx} B={B} {dtype}"
+            for S in (0.25, 0.0):
+                p = params(ny, nx, "neumann", S=S, u_bc="dirichlet", dtype=dtype)
+                (F, U), = stacked(rng, B, ny, nx, 1, dtype)
+                got = one_launch_of(cuda_rhs, "si_prepare_members",
+                                    lambda: cuda_rhs.si_prepare_members(F, U, p, ids))
+                for b in ids:
+                    Fb, Ub = F[b].contiguous(), U[b].contiguous()
+                    mine = [g[b] for g in got]
+                    hold("K7 members", mine, cuda_rhs.si_prepare(Fb, Ub, p),
+                         f"{what} S={S} vs K7", [0.0, 0.0], 0.0)
+                    hold("K7 members", mine, cuda_rhs.si_prepare_plain(Fb, Ub, p),
+                         f"{what} S={S} vs plain", worst["K7"], tol)
+                cases += 1
+            A, Aa = cg_operators(params(ny, nx, "neumann", dtype=dtype), "neumann")
+            (v, _), = stacked(rng, B, ny, nx, 1, dtype)
+            s = stacked_maps(rng, B, ny, nx, dtype)
+            for form in ("cross", "aniso"):
+                out, dots = torch.full_like(v, sentinel), v.new_full((B,), sentinel)
+                name = f"{form}_matvec_pAp_members"
+                if form == "cross":
+                    call = lambda: cuda_cg.cross_matvec_pAp_members(A, v, dots, ids, out)  # noqa: E731,E501
+                else:
+                    call = lambda: cuda_cg.aniso_matvec_pAp_members(Aa, s, v, dots, ids, out)  # noqa: E731,E501
+                one_launch_of(cuda_cg, name, call)
+                for b in ids:
+                    vb, sb = v[b].contiguous(), s[b].contiguous()
+                    single = (cuda_cg.cross_matvec_pAp(A, vb) if form == "cross"
+                              else cuda_cg.aniso_matvec_pAp(Aa, sb, vb))
+                    plain = (cuda_cg.cross_matvec_pAp_plain(A, vb) if form == "cross"
+                             else cuda_cg.aniso_matvec_pAp_plain(Aa, sb, vb))
+                    hold("K8 members", [out[b]], [single[0]], f"{what} {form} vs K8",
+                         [0.0, 0.0], 0.0)
+                    hold_dot("K8 members", dots[b], single[1], f"{what} {form} vs K8", 0.0)
+                    hold("K8 members", [out[b]], [plain[0]], f"{what} {form} vs plain",
+                         worst["K8"], tol)
+                    hold_dot("K8 members", dots[b], plain[1], f"{what} {form} vs plain", rtol)
+                hold_frozen("K8 members", out, torch.full_like(v, sentinel), frozen, what)
+                hold_frozen("K8 members", dots, v.new_full((B,), sentinel), frozen, what)
+                cases += 1
+            (x0, r0), (pv, Ap) = stacked(rng, B, ny, nx, 2, dtype)
+            rr = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(dtype)).to(DEVICE)
+            pAp = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(dtype)).to(DEVICE)
+            x, r, rr_out = x0.clone(), r0.clone(), v.new_full((B,), sentinel)
+            one_launch_of(cuda_cg, "update_xr_rr_members", lambda: cuda_cg.update_xr_rr_members(
+                x, r, pv, Ap, rr, pAp, eps, ids, rr_out))
+            for b in ids:
+                xs, rs = x0[b].clone(), r0[b].clone()
+                _, _, want = cuda_cg.update_xr_rr(xs, rs, pv[b].contiguous(), Ap[b].contiguous(),
+                                                  rr[b], pAp[b], eps)
+                hold("K9 members", [x[b], r[b]], [xs, rs], f"{what} vs K9", [0.0, 0.0], 0.0)
+                hold_dot("K9 members", rr_out[b], want, f"{what} vs K9", 0.0)
+                xp, rp = x0[b].clone(), r0[b].clone()
+                _, _, want = cuda_cg.update_xr_rr_plain(xp, rp, pv[b], Ap[b], rr[b], pAp[b], eps)
+                hold("K9 members", [x[b], r[b]], [xp, rp], f"{what} vs plain", worst["K9"], tol)
+                hold_dot("K9 members", rr_out[b], want, f"{what} vs plain", rtol)
+            hold_frozen("K9 members", x, x0, frozen, what)
+            hold_frozen("K9 members", r, r0, frozen, what)
+            hold_frozen("K9 members", rr_out, v.new_full((B,), sentinel), frozen, what)
+            p0 = pv.clone()
+            one_launch_of(cuda_cg, "advance_p_members", lambda: cuda_cg.advance_p_members(
+                r, pv, rr_out, rr, eps, ids))
+            for b in ids:
+                want = cuda_cg.advance_p_inplace(r[b].contiguous(), p0[b].clone(), rr_out[b],
+                                                 rr[b], eps)
+                hold("K10 members", [pv[b]], [want], f"{what} vs K10", [0.0, 0.0], 0.0)
+                want = cuda_cg.advance_p_inplace_plain(r[b], p0[b].clone(), rr_out[b], rr[b], eps)
+                hold("K10 members", [pv[b]], [want], f"{what} vs plain", worst["K10"], tol)
+            hold_frozen("K10 members", pv, p0, frozen, what)
+            (e, q0), (a, a2), (xx, _) = stacked(rng, B, ny, nx, 3, dtype)
+            modes = {
+                "cross": (lambda: cuda_cg.cross_residual_members(q0, e, A, ids),
+                          lambda b, k: (cuda_cg.cross_residual, cuda_cg.cross_residual_plain)[k](
+                              q0[b].contiguous(), e[b].contiguous(), A)),
+                "aniso": (lambda: cuda_cg.aniso_residual_members(q0, e, Aa, s, ids),
+                          lambda b, k: (cuda_cg.aniso_residual, cuda_cg.aniso_residual_plain)[k](
+                              q0[b].contiguous(), e[b].contiguous(), Aa, s[b].contiguous())),
+                "heat": (lambda: cuda_cg.heat_residual_members(q0, (a, a2), e, A, 2.0, None, ids),
+                         lambda b, k: (cuda_cg.heat_residual, cuda_cg.heat_residual_plain)[k](
+                             q0[b].contiguous(), (a[b].contiguous(), a2[b].contiguous()),
+                             e[b].contiguous(), A, 2.0)),
+                "heat extra": (lambda: cuda_cg.heat_residual_members(q0, (a, a2), e, A, 2.0, xx,
+                                                                     ids),
+                               lambda b, k: (cuda_cg.heat_residual,
+                                             cuda_cg.heat_residual_plain)[k](
+                                   q0[b].contiguous(), (a[b].contiguous(), a2[b].contiguous()),
+                                   e[b].contiguous(), A, 2.0, xx[b].contiguous()))}
+            for mode, (call, single) in modes.items():
+                name = ("heat" if mode.startswith("heat") else mode) + "_residual_members"
+                got = one_launch_of(cuda_cg, name, call)
+                for b in ids:
+                    hold("K14 members", [got[b]], [single(b, 0)], f"{what} {mode} vs K14",
+                         [0.0, 0.0], 0.0)
+                    hold("K14 members", [got[b]], [single(b, 1)], f"{what} {mode} vs plain",
+                         worst["K14"], tol)
+                cases += 1
+    torch.cuda.synchronize()
+    # device µs a launch at 512^2, by graph replay, beside B launches of the
+    # unbatched kernel and the bound of B members
+    n = 512
+    p = params(n, n, "neumann", dtype=dtype)
+    A, Aa = cg_operators(p, "neumann")
+    timed, entries = {}, {}
+    for B in MEMBER_TIMED:
+        (F, U), (v, x), (r, Ap) = stacked(rng, B, n, n, 3, dtype)
+        s = stacked_maps(rng, B, n, n, dtype)
+        out, dots = torch.empty_like(v), v.new_empty(B)
+        rr = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(dtype)).to(DEVICE)
+        pAp, rr_new = rr.clone(), rr.clone()
+        one = [t[0].contiguous() for t in (F, U, v, x, r, Ap, s)]
+        calls = {
+            "K7": (lambda: cuda_rhs.si_prepare_members(F, U, p),
+                   lambda: cuda_rhs.si_prepare(one[0], one[1], p),
+                   lambda: cuda_rhs.si_prepare_members_plain(F, U, p), "K7"),
+            "K8": (lambda: cuda_cg.aniso_matvec_pAp_members(Aa, s, v, dots, None, out),
+                   lambda: cuda_cg.aniso_matvec_pAp(Aa, one[6], one[2]),
+                   lambda: cuda_cg.aniso_matvec_pAp_members_plain(Aa, s, v, dots, None, out),
+                   "K8 aniso"),
+            "K9": (lambda: cuda_cg.update_xr_rr_members(x, r, v, Ap, rr, pAp, eps, None, rr_new),
+                   lambda: cuda_cg.update_xr_rr(one[3], one[4], one[2], one[5], rr[0], pAp[0],
+                                                eps),
+                   lambda: cuda_cg.update_xr_rr_members_plain(x, r, v, Ap, rr, pAp, eps, None,
+                                                              rr_new), "K9"),
+            "K10": (lambda: cuda_cg.advance_p_members(r, v, rr_new, rr, eps),
+                    lambda: cuda_cg.advance_p_inplace(one[4], one[2], rr_new[0], rr[0], eps),
+                    lambda: cuda_cg.advance_p_members_plain(r, v, rr_new, rr, eps), "K10"),
+            "K14": (lambda: cuda_cg.cross_residual_members(r, v, A),
+                    lambda: cuda_cg.cross_residual(one[4], one[2], A),
+                    lambda: cuda_cg.cross_residual_members_plain(r, v, A), "K14 cross"),
+        }
+        # K10's PyTorch rival, as the unbatched K10's: one torch.addcmul(r,
+        # beta, p), here with each member's beta
+        beta = (rr_new / rr.clamp(min=eps)).view(-1, 1, 1)
+        library = {"K10": lambda: torch.addcmul(r, beta, v)}
+        row = {}
+        for k, (batched, single, plain, bname) in calls.items():
+            us, one_us = graph_us(batched), graph_us(single)
+            row[k] = {"device_us_a_launch": us, "unbatched_us_times_B": one_us * B,
+                      "bound_us": bound(bname, B * n * n, dtype)["bound_ms"] * 1e3}
+            if k in library:
+                row[k]["library_us_a_call"] = graph_us(library[k])
+            if B == 4:
+                ms, plain_ms = time_pair(batched, plain, reps=20)
+                entries[k] = {"max_abs_err": worst[k][1], "ms": ms, "plain_ms": plain_ms,
+                              **bound(bname, B * n * n, dtype),
+                              "library_ms": time_ms(library[k], 20) if k in library else None}
+        timed[f"B={B}"] = row
+    phase(titled("semi-implicit kernels over members (K7, K8, K9, K10, K14) vs plain and vs "
+                 "the unbatched kernels", dtype), cases=cases,
+          sizes=[f"{a}x{b}" for a, b in MEMBER_SIZES], members=list(MEMBER_COUNTS),
+          max_abs_err={k: v[1] for k, v in worst.items()}, tol=tol, sum_rtol=rtol,
+          vs_unbatched="bit for bit, dots included", card=card_limit(),
+          graph_replay_512=timed, kernels_line_at="B=4, 512^2",
+          library={"K10": "torch.addcmul(r, beta.view(B, 1, 1), p)",
+                   "K7, K8, K9, K14": "none: no PyTorch call computes them"})
+    return entries
+
+
+def member_launches() -> dict:
+    """The batched launches counted so far (the unbatched ones apart)."""
+    return {k: v for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items()
+            if v and k.endswith("_members")}
+
+
+def check_si_members_lockstep(cases, steps=5) -> None:
+    """Each semi-implicit ensemble's first steps through the members stepper
+    against each member's single stepper on the card, bit for bit in fields,
+    t and iter, the same Phi and T CG iterations; one batched K7 a step,
+    one batched K8 and K9 a CG round, at most one K10, one host read a
+    round, and at float64 two batched K14 a step."""
+    out = {}
+    for label, cfg in cases:
+        p = cfg.params
+        singles, ens = member_states(cfg, cfg.ensemble)
+        single, members = make_stepper(p), make_ensemble_stepper(p)
+        cuda_rhs.reset_launch_counts()
+        cuda_cg.reset_launch_counts()
+        cg.reset_host_reads()
+        iters = []
+        for _ in range(steps):
+            ens, stats = members(ens)
+            for b in range(cfg.ensemble):
+                singles[b], s1 = single(singles[b])
+                m, got = member(ens, b), stats.member(b)
+                if not (torch.equal(m.F, singles[b].F) and torch.equal(m.U, singles[b].U)
+                        and (m.t, m.iter) == (singles[b].t, singles[b].iter)
+                        and (got.Phi_iters, got.T_iters) == (s1.Phi_iters, s1.T_iters)):
+                    raise AssertionError(f"{label}: member {b} parts from its single run")
+                iters.append((got.Phi_iters, got.T_iters))
+        n, reads = member_launches(), cg.HOST_READS["cg_stop_test_members"]
+        k8 = n.get("cross_matvec_pAp_members", 0) + n.get("aniso_matvec_pAp_members", 0)
+        k14 = sum(n.get(f"{f}_residual_members", 0) for f in ("cross", "aniso", "heat"))
+        if not (n.get("si_prepare_members") == steps and k8 == n.get("update_xr_rr_members")
+                == reads > 0 and n.get("advance_p_members", 0) <= reads
+                and k14 == (2 * steps if p.dtype == "float64" else 0)):
+            raise AssertionError(f"{label}: batched launches {n}, {reads} host reads")
+        out[label] = {"members": cfg.ensemble, "batched_launches": n, "host_reads": reads,
+                      "Phi_T_iters_seen": sorted(set(iters))}
+    phase("semi-implicit ensemble locksteps vs the single steppers, member by member",
+          steps=steps, equal="bit for bit, CG counts included", cases=out)
+
+
+def stats_iters(header, rows) -> list:
+    """(Phi_iters, T_iters) of each row of a stats.csv."""
+    return [(int(r[header.index("Phi_iters")]), int(r[header.index("T_iters")])) for r in rows]
+
+
+def csv_rows(text):
+    lines = text.splitlines()
+    header = [c.strip('"') for c in lines[1].split(",")]
+    return header, [[float(v) if v else np.nan for v in ln.split(",")] for ln in lines[2:]]
+
+
+def si_ensemble_path(overrides, name, config=CONFIG, grow=True, phi_max=1.1) -> dict:
+    """A semi-implicit ensemble of 4 through ``run_config_file``: one batched
+    K7 a pass, per CG round one batched K8 and K9 and at most one K10 for
+    every live member, and one host read (the reads equal the rounds,
+    counted per solve); on the refined route one batched K14 a system and
+    pass; no other launch.  Its frames (member 0 with the mean and std
+    maps), members files and per-member stats; member b equal, frame by
+    frame, to the single run with noise_seed + b on this card, bit for bit
+    in fields, t and iter, and in each step's Phi and T CG iterations."""
+    stats = [f"stats_m{b:03d}.csv" for b in range(1, 4)]
+    run = drive([ENSEMBLE, *overrides], grow, config=config, frames=True, files=stats,
+                phi_max=phi_max)
+    n, res, p = run["launches"], run["res"], run["cfg"].params
+    passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
+    k8 = n["cross_matvec_pAp_members"] + n["aniso_matvec_pAp_members"]
+    k9, k10 = n["update_xr_rr_members"], n["advance_p_members"]
+    k14 = n["cross_residual_members"] + n["aniso_residual_members"] + n["heat_residual_members"]
+    refined = semi_implicit.refines(p, torch.device(DEVICE))
+    expect(n["si_prepare_members"] == passes * res.iters > 0, "one batched K7 a pass", run)
+    expect(k8 == k9 == run["member_reads"] > 0 and k10 <= k9,
+           f"one batched K8 and K9 and at most one K10 a CG round, one host read a round "
+           f"(read {run['member_reads']})", run)
+    expect(k14 == (2 * passes * res.iters if refined else 0),
+           "one batched K14 a system and pass on the refined route", run)
+    expect(run["host_reads"] == 0 and set(k for k, v in n.items() if v)
+           <= {"si_prepare_members", *CG_MEMBER_KEYS}, "nothing but the batched kernels", run)
+    snaps = run["snaps"]
+    maps = sorted(f for f in snaps if f.startswith("maps_"))
+    members = sorted(f for f in snaps if f.startswith("members_"))
+    if [f.replace("maps_", "members_") for f in maps] != members:
+        raise AssertionError(f"frames {maps}, members files {members}")
+    if not {"F_mean", "F_std", "U_mean", "U_std"} <= set(snaps[maps[-1]].maps):
+        raise AssertionError(f"{maps[-1]} holds {sorted(snaps[maps[-1]].maps)}")
+    seeds = {}
+    for b in range(4):
+        one = drive([ENSEMBLE.replace("ensemble = 4", "ensemble = 1"), *overrides,
+                     f"[initial]\nnoise_seed = {b}\n"], grow, config=config, frames=True,
+                    phi_max=phi_max)
+        for frame in maps:
+            mine = snaps[frame.replace("maps_", "members_")]
+            meta = mine.maps["ensemble_meta"].reshape(-1)[3 * b:3 * b + 3]
+            theirs = one["snaps"][frame]
+            if not (np.array_equal(mine.maps[f"F_m{b:03d}"], theirs.maps["F"])
+                    and np.array_equal(mine.maps[f"U_m{b:03d}"], theirs.maps["U"])
+                    and (meta[0], meta[1]) == (theirs.time, theirs.iter)):
+                raise AssertionError(f"member {b} parts from its single run at {frame}")
+        mine_iters = (stats_iters(run["header"], run["rows"]) if b == 0
+                      else stats_iters(*csv_rows(run["texts"][stats[b - 1]])))
+        theirs_iters = stats_iters(one["header"], one["rows"])
+        if mine_iters != theirs_iters:
+            raise AssertionError(f"member {b}'s CG counts part from its single run's")
+        seeds[f"member {b}"] = {"steps": one["res"].iters, "cg_iterations":
+                                one["launches"]["update_xr_rr"],
+                                "mean_Phi_T_iters": np.mean(theirs_iters, axis=0).tolist()}
+    phase(name, cg_rounds=k9, host_reads=run["member_reads"],
+          host_reads_per_step=run["member_reads"] / res.iters, k10=k10,
+          refinement_residual_launches=k14,
+          members_equal_single_runs="bit for bit, CG counts included", members=seeds,
+          members_files=members, cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE),
+                                                                   members=True),
+          **run["summary"])
+    return n
+
+
+def si_ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
+    """The float32 semi-implicit ensemble of the shipped config (stats every
+    step, as the driver computes them) at B members, beside the single
+    stepper: host ms a step (wall clock over ``steps`` steps,
+    synchronised), device ms a step (the kernels' time under torch.profiler
+    over ``traced`` steps), member-steps a second, the device's busy share,
+    and the CG rounds and host reads a step; each from the members'
+    initial state after 20 warm steps."""
+    from torch.autograd import DeviceType
+
+    cfg = load_config(CONFIG, [SI_ENSEMBLE])
+    rows = {}
+    for B in ("single", *Bs):
+        singles, state = member_states(cfg, 1 if B == "single" else B)
+        if B == "single":
+            step, state = make_stepper(cfg.params), singles[0]
+        else:
+            step = make_ensemble_stepper(cfg.params)
+        for _ in range(20):
+            state, _ = step(state)
+        cuda_cg.reset_launch_counts()
+        cg.reset_host_reads()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reads = sum(cg.HOST_READS.values())
+        k9 = cuda_cg.LAUNCHES["update_xr_rr"] + cuda_cg.LAUNCHES["update_xr_rr_members"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / traced / 1e3
+        host_ms = wall / steps * 1e3
+        members = 1 if B == "single" else B
+        rows["single stepper" if B == "single" else f"B={B}"] = {
+            "host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+            "member_steps_per_s": members * steps / wall, "device_busy_share": device_ms / host_ms,
+            "cg_rounds_per_step": k9 / steps, "host_reads_per_step": reads / steps}
+    phase("semi-implicit ensemble timing (config.ini, solver = semi-implicit, noise_T = 0.02, "
+          "stats every step)", card=card_limit(), steps=steps, traced_steps=traced, rows=rows)
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
     return {"name": name, "route": "cuda", "source": f"bachelors_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, **measured}
@@ -3367,6 +3781,25 @@ def main() -> None:
     ens_rk4_64 = ensemble_run([FIRST_FRAME, short], "float64 RK4 ensemble path (sweep config, ensemble = 4, "
                               "to 0.002)", rk4_staged, sweep("rk4"))
     ensemble_timing()
+    # semi-implicit ensembles: the batched CG kernels, the locksteps, the paths
+    si_members32 = check_si_members(rng)
+    si_members64 = check_si_members(rng, "float64")
+    check_si_members_lockstep([
+        ("float32, S = 0.25 (aniso form)", load_config(CONFIG, [SI_ENSEMBLE])),
+        ("float32, S = 0 (cross form)", load_config(CONFIG, [SI_ENSEMBLE, "[simulation]\nS = 0\n"])),
+        ("float64, S = 0.25 (refined route, aniso form)",
+         load_config(CONFIG, [SI_ENSEMBLE, "[tpu]\ndtype = float64\n"])),
+        ("float64 sweep config, S = 0 (refined route, cross form)",
+         load_config(sweep("semi-implicit"), [ENSEMBLE]))])
+    ens_si = si_ensemble_path([SEMI, SI_ENSEMBLE_CUT], "semi-implicit ensemble path (config.ini, "
+                              "ensemble = 4, noise_T = 0.02, 1000 steps)")
+    ens_si64 = si_ensemble_path([F64_SI_MEMBERS], "float64 semi-implicit ensemble path (sweep "
+                                "config, refined route, ensemble = 4, 500 steps)",
+                                sweep("semi-implicit"), grow=False)
+    ens_si_corr = si_ensemble_path([SEMI, CORRECTOR, SI_CORRECTOR_MEMBERS], "semi-implicit "
+                                   "ensemble corrector path (3 passes, step residuals, 200 "
+                                   "steps)", grow=False, phi_max=SI_CORRECTOR_PHI_MAX)
+    si_ensemble_timing()
     tut_launches = tutorial_path()
 
     def m64_sum(key, *runs):
@@ -3551,6 +3984,41 @@ def main() -> None:
         kernel_entry("K4 rk4_final_stage_members at float64 (float64 RK4 ensemble)", rhs_src,
                      f"{pallas_rhs}:433", ens_rk4_64["rk4_final_stage_members"],
                      members64["K4"]),
+        kernel_entry("K7 si_prepare_members (K7 over members; the semi-implicit ensembles)",
+                     rhs_src, f"{pallas_rhs}:612",
+                     ens_si["si_prepare_members"] + ens_si_corr["si_prepare_members"],
+                     si_members32["K7"]),
+        kernel_entry("K8 matvec_pAp_members (K8 over members, cross and aniso forms; the "
+                     "semi-implicit ensembles; timed in the aniso form)", cg_src,
+                     f"{pallas_cg}:49",
+                     sum(r[f"{f}_matvec_pAp_members"] for r in (ens_si, ens_si_corr)
+                         for f in ("cross", "aniso")), si_members32["K8"]),
+        kernel_entry("K9 update_xr_rr_members (K9 over members; the semi-implicit ensembles)",
+                     cg_src, f"{pallas_cg}:310",
+                     ens_si["update_xr_rr_members"] + ens_si_corr["update_xr_rr_members"],
+                     si_members32["K9"]),
+        kernel_entry("K10 advance_p_members (K10 over members; the semi-implicit ensembles)",
+                     cg_src, f"{pallas_cg}:274",
+                     ens_si["advance_p_members"] + ens_si_corr["advance_p_members"],
+                     si_members32["K10"]),
+        kernel_entry("K7 si_prepare_members at float64 (K13's scheme si over members; the "
+                     "float64 semi-implicit ensemble)", rhs_src, k13,
+                     ens_si64["si_prepare_members"], si_members64["K7"]),
+        kernel_entry("K8 matvec_pAp_members at float64 (the float64 semi-implicit ensemble, "
+                     "cross form; timed in the aniso form)", cg_src, f"{pallas_cg}:49",
+                     ens_si64["cross_matvec_pAp_members"] + ens_si64["aniso_matvec_pAp_members"],
+                     si_members64["K8"]),
+        kernel_entry("K9 update_xr_rr_members at float64 (the float64 semi-implicit ensemble)",
+                     cg_src, f"{pallas_cg}:310", ens_si64["update_xr_rr_members"],
+                     si_members64["K9"]),
+        kernel_entry("K10 advance_p_members at float64 (the float64 semi-implicit ensemble)",
+                     cg_src, f"{pallas_cg}:274", ens_si64["advance_p_members"],
+                     si_members64["K10"]),
+        kernel_entry("K14 si_residual_members at float64 (K14 over members, cross and heat "
+                     "forms; the float64 semi-implicit ensemble's refinements; timed in the "
+                     "cross form)", cg_src, "bachelors_tpu/ops/pallas_dd.py:749",
+                     sum(ens_si64[f"{f}_residual_members"] for f in ("cross", "aniso", "heat")),
+                     si_members64["K14"]),
         *(kernel_entry(f"{k} {wrapper} (the tutorial's step {k[-1]}; the tutorial path)",
                        "tutorial.cu", f"examples/pallas_tutorial.py:{line}",
                        tut_launches[wrapper], k15[k])

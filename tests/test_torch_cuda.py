@@ -1867,3 +1867,141 @@ def test_batched_k2_splits_a_live_set_above_the_cap(gen, cuda_device):  # noqa: 
     for b in (0, cuda_rhs.MAX_MEMBERS - 1, cuda_rhs.MAX_MEMBERS, B - 1):
         wF, _, we = cuda_rhs.rkm_attempt(F[b].contiguous(), U[b].contiguous(), taus[b], p)
         assert torch.equal(oF[b], wF) and torch.equal(emax[b], we)
+
+
+# The semi-implicit kernels over members (K7, K8, K9, K10, K14 with a member
+# index): each member's rows and dot products equal the unbatched kernel's
+# on that member's fields bit for bit, rows and entries of members a launch
+# does not step stay as they were, and B members (up to the cap) cost one
+# launch.
+def _one_launch(mod, name, call):
+    before = mod.LAUNCHES[name]
+    out = call()
+    assert mod.LAUNCHES[name] == before + 1, name
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_cg_kernels_equal_unbatched_per_member(B, dtype, gen,
+                                                       cuda_device):  # noqa: F811
+    def st(n=1):
+        return _stacked(gen, B, ny, nx, dtype, cuda_device, n)
+
+    for ny, nx in MEMBER_SIZES:
+        ids = list(range(B)) if B < 3 else [B - 1, 0, 1]
+        frozen = [b for b in range(B) if b not in ids]
+        for S in (0.25, 0.0):
+            p = _params(ny, nx, "neumann", "dirichlet", S, 6.0).replace(dtype=dtype)
+            (F, U), = st()
+            got = _one_launch(cuda_rhs, "si_prepare_members",
+                              lambda: cuda_rhs.si_prepare_members(F, U, p, ids))
+            for b in ids:
+                want = cuda_rhs.si_prepare(F[b].contiguous(), U[b].contiguous(), p)
+                assert all(torch.equal(g[b], w) for g, w in zip(got, want))
+        A = CrossMatrix(C=1.3, X=-0.1, Y=-0.12, boundary=BoundaryType.NEUMANN)
+        Aa = AnisotropyMatrix(Cm1=0.3, X=-0.1, Y=-0.12, boundary=BoundaryType.NEUMANN)
+        (v, s), = st()
+        s = s.abs()
+        for name, call, single in (
+                ("cross_matvec_pAp_members",
+                 lambda o, d: cuda_cg.cross_matvec_pAp_members(A, v, d, ids, o),
+                 lambda b: cuda_cg.cross_matvec_pAp(A, v[b].contiguous())),
+                ("aniso_matvec_pAp_members",
+                 lambda o, d: cuda_cg.aniso_matvec_pAp_members(Aa, s, v, d, ids, o),
+                 lambda b: cuda_cg.aniso_matvec_pAp(Aa, s[b].contiguous(), v[b].contiguous()))):
+            out, pAp = torch.full_like(v, 7.0), v.new_full((B,), 7.0)
+            _one_launch(cuda_cg, name, lambda: call(out, pAp))
+            for b in ids:
+                Av, d = single(b)
+                assert torch.equal(out[b], Av) and torch.equal(pAp[b], d)
+            for b in frozen:
+                assert (out[b] == 7.0).all() and pAp[b] == 7.0
+        x, r = (t.clone() for t in st()[0])
+        (p_, Ap), = st()
+        rr = v.new_tensor(gen.uniform(0.5, 2.0, B))
+        pAp = v.new_tensor(gen.uniform(0.5, 2.0, B))
+        x0, r0 = x.clone(), r.clone()
+        rr_out = v.new_full((B,), 7.0)
+        _one_launch(cuda_cg, "update_xr_rr_members", lambda: cuda_cg.update_xr_rr_members(
+            x, r, p_, Ap, rr, pAp, 1e-12, ids, rr_out))
+        for b in ids:
+            xs, rs = x0[b].clone(), r0[b].clone()
+            _, _, want = cuda_cg.update_xr_rr(xs, rs, p_[b].contiguous(), Ap[b].contiguous(),
+                                              rr[b], pAp[b], 1e-12)
+            assert torch.equal(x[b], xs) and torch.equal(r[b], rs) and torch.equal(rr_out[b], want)
+        for b in frozen:
+            assert torch.equal(x[b], x0[b]) and torch.equal(r[b], r0[b]) and rr_out[b] == 7.0
+        p0 = p_.clone()
+        _one_launch(cuda_cg, "advance_p_members", lambda: cuda_cg.advance_p_members(
+            r, p_, rr_out, rr, 1e-12, ids))
+        for b in ids:
+            want = cuda_cg.advance_p_inplace(r[b].contiguous(), p0[b].clone(), rr_out[b], rr[b],
+                                             1e-12)
+            assert torch.equal(p_[b], want)
+        for b in frozen:
+            assert torch.equal(p_[b], p0[b])
+        (e, r0_), (a, b2), (xx, _) = st(3)
+        for name, call, single in (
+                ("cross_residual_members", lambda: cuda_cg.cross_residual_members(r0_, e, A, ids),
+                 lambda b: cuda_cg.cross_residual(r0_[b].contiguous(), e[b].contiguous(), A)),
+                ("aniso_residual_members",
+                 lambda: cuda_cg.aniso_residual_members(r0_, e, Aa, s, ids),
+                 lambda b: cuda_cg.aniso_residual(r0_[b].contiguous(), e[b].contiguous(), Aa,
+                                                  s[b].contiguous())),
+                ("heat_residual_members",
+                 lambda: cuda_cg.heat_residual_members(r0_, (a, b2), e, A, 2.0, None, ids),
+                 lambda b: cuda_cg.heat_residual(r0_[b].contiguous(), (a[b].contiguous(),
+                                                 b2[b].contiguous()), e[b].contiguous(), A, 2.0)),
+                ("heat_residual_members",
+                 lambda: cuda_cg.heat_residual_members(r0_, (a, b2), e, A, 2.0, xx, ids),
+                 lambda b: cuda_cg.heat_residual(r0_[b].contiguous(), (a[b].contiguous(),
+                                                 b2[b].contiguous()), e[b].contiguous(), A, 2.0,
+                                                 xx[b].contiguous()))):
+            got = _one_launch(cuda_cg, name, call)
+            for b in ids:
+                assert torch.equal(got[b], single(b)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("S", [0.25, 0.0])
+def test_semi_implicit_members_equal_single_steps_on_the_card(dtype, S,
+                                                             cuda_device):  # noqa: F811
+    """The members stepper against each member's single stepper on the
+    card (float64: the refined route), bit for bit in fields and CG counts,
+    member 0 without noise so that the counts differ; each CG round one
+    launch of K8 and K9 and one host read."""
+    import dataclasses
+
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.core.state import make_state, member, stack_states
+    from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
+    from bachelors_tpu_torch.solvers.base import make_ensemble_stepper, make_stepper
+
+    p = SimParams(nx=40, ny=32, S=S, dtype=dtype, solver=SolverType.SEMI_IMPLICIT, dt=2e-5,
+                  T_tolerance=5e-9, Phi_tolerance=5e-9, do_stats=True)
+    ic = InitialConditions(circle_center=(2, 2), circle_radius=0.5)
+    singles = [make_state(*make_initial_fields(p, dataclasses.replace(
+        ic, noise_seed=b, noise_T=0.05 * b, noise_phi=0.1 * b), device=cuda_device), p,
+        device=cuda_device) for b in range(3)]
+    ens = stack_states(singles)
+    single, members = make_stepper(p), make_ensemble_stepper(p)
+    counts = set()
+    for k in range(3):
+        cuda_cg.reset_launch_counts()
+        cg.reset_host_reads()
+        ens, stats = members(ens)
+        rounds = cg.HOST_READS["cg_stop_test_members"]
+        k8 = cuda_cg.LAUNCHES["cross_matvec_pAp_members"] + cuda_cg.LAUNCHES["aniso_matvec_pAp_members"]
+        assert k8 == cuda_cg.LAUNCHES["update_xr_rr_members"] == rounds > 0
+        assert cuda_cg.LAUNCHES["advance_p_members"] <= rounds
+        for b in range(3):
+            singles[b], s1 = single(singles[b])
+            m = member(ens, b)
+            assert torch.equal(m.F, singles[b].F) and torch.equal(m.U, singles[b].U)
+            got = stats.member(b)
+            assert (got.Phi_iters, got.T_iters) == (s1.Phi_iters, s1.T_iters)
+            counts.add((got.Phi_iters, got.T_iters))
+    assert len(counts) > 1

@@ -212,7 +212,8 @@ def test_resume_continues_the_run(tmp_path):
     ("[program]\ninteractive", "true", "viewer"),
     ("[program]\ndebug", "true", "debug"),
     ("[snapshot]\nnetcdf", "true", "netcdf"),
-    ("[tpu]\nensemble", "4\n[simulation]\nsolver = semi-implicit", "item 7b"),
+    ("[tpu]\nensemble", "4\n[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\n"
+     "mesh_size_y = 2048", "item 7d"),
     ("[tpu]\ndtype", "bfloat16", "bfloat16"),
 ])
 def test_unported_keys_raise(tmp_path, key, value, match):

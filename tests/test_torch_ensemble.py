@@ -2,7 +2,8 @@
 against the port's single runs (bit for bit, member by member) and against
 the JAX package's vmapped ones (``jax.vmap(make_stepper(p))``,
 ``advance_until_members``, the ensemble driver), on the CPU, where every
-batched wrapper takes its plain version."""
+batched wrapper takes its plain version.  The semi-implicit solver's
+ensembles: tests/test_torch_ensemble_si.py."""
 import dataclasses
 import os
 import re
@@ -261,7 +262,7 @@ def test_member_launches_split_at_the_kernels_cap():
     (a __grid_constant__ parameter, far below gridDim.z's 65535): the
     wrappers' cap is the source's, and a larger live set is split, in
     order, with each member's tau and forcing."""
-    src = (CSRC / "rhs.cu").read_text()
+    src = (CSRC / "physics.cuh").read_text()
     assert int(re.search(r"constexpr int kMaxMembers = (\d+);", src).group(1)) == \
         cuda_rhs.MAX_MEMBERS
     ids = list(range(cuda_rhs.MAX_MEMBERS * 2 + 2))
@@ -519,21 +520,31 @@ def test_ensemble_member_equals_single_run_with_its_seed(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    ("[simulation]\nsolver = semi-implicit\n", "item 7b"),
+    # semi-implicit ensembles are supported (the fused CG variant, item 7d,
+    # apart: tests/test_torch_ensemble_si.py)
+    ("[simulation]\nsolver = semi-implicit\n", None),
     ("[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\nmesh_size_y = 2048\n",
-     "item 7b"),
+     "item 7d"),
     ("[tpu]\nshards_y = 2\n", "item 7c"),
     ("[tpu]\nbatch_shards = 2\n", "item 7c"),
 ])
 def test_unsupported_ensembles_raise_with_their_roadmap_item(extra, match):
     cfg = parse_config(_text(), [extra])
+    if match is None:
+        check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match=match):
         check_supported(cfg)
 
 
-def test_semi_implicit_members_stepper_raises():
+def test_semi_implicit_members_stepper_raises(monkeypatch):
+    """The members stepper takes semi-implicit runs; it raises, naming
+    ROADMAP item 7d, only where the CG gate says "fused" (K8b has no
+    members form yet), and never switches quietly to another variant."""
     p = _port_params("euler", "float64").replace(solver=SolverType.SEMI_IMPLICIT)
-    with pytest.raises(NotImplementedError, match="7b"):
+    assert callable(make_ensemble_stepper(p))
+    monkeypatch.setattr("bachelors_tpu_torch.solvers.semi_implicit._FORCE_CG_VARIANT", "fused")
+    with pytest.raises(NotImplementedError, match="7d"):
         make_ensemble_stepper(p)
 
 
