@@ -114,7 +114,8 @@ class SimParams:
     f32_transcendentals: bool = True
     # one of BACKENDS, see above
     backend: str = "auto"
-    # Reverse-mode differentiability through the solves (not ported yet).
+    # Reverse-mode differentiability through the semi-implicit solves:
+    # adjoint CG solves (``solvers/cg.cg_solve_diff``), on one device.
     differentiable: bool = False
 
     # ---- derived helpers (not fields) ----
@@ -147,10 +148,6 @@ class SimParams:
                 "dtype bfloat16 is not ported; use float32 or float64")
         if self.backend not in BACKENDS:
             raise ValueError(f"bad backend {self.backend!r}; one of {BACKENDS}")
-        if self.differentiable:
-            raise NotImplementedError(
-                "differentiable runs are not ported yet (ROADMAP slice 6, "
-                "item 18: differentiable runs)")
 
 
 def rewire_params_for_exact(p: SimParams) -> SimParams:

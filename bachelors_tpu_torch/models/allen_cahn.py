@@ -63,10 +63,44 @@ def _anisotropy(gx, gy, p: SimParams):
         gx32, gy32 = gx, gy
     r2 = gx32 * gx32 + gy32 * gy32
     zero = r2 == 0
-    theta = torch.atan2(gy32, torch.where(zero, 1.0, gx32))
+    theta = _Atan2.apply(gy32, torch.where(zero, 1.0, gx32))
     g = 1 - p.S * torch.cos(p.m0 * theta + p.theta0)
     norm = torch.where(zero, 0.0, sqrt_rounded(torch.where(zero, 1.0, r2)))
     return g.to(gx.dtype), norm.to(gx.dtype)
+
+
+class _Atan2(torch.autograd.Function):
+    """``torch.atan2(y, x)`` with the derivative of JAX's ``lax.atan2``:
+    x / (y^2 + x^2) and -y / (y^2 + x^2), each one division.  torch's own
+    backward multiplies by the reciprocal of y^2 + x^2, which overflows in
+    float32 once that sum is below 1/FLT_MAX ~ 2.9e-39 (|grad Phi| ~ 1e-20,
+    far from the interface) and turns the gradient into inf and NaN where
+    JAX's stays finite.  The value is torch.atan2's."""
+
+    @staticmethod
+    def forward(y, x):
+        return torch.atan2(y, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def _partials(ctx):
+        y, x = ctx.saved_tensors
+        d = y * y + x * x
+        return x / d, -y / d
+
+    @staticmethod
+    def backward(ctx, g):
+        dy, dx = _Atan2._partials(ctx)
+        return g * dy, g * dx
+
+    @staticmethod
+    def jvp(ctx, ty, tx):
+        dy, dx = _Atan2._partials(ctx)
+        return ty * dy + tx * dx
 
 
 def sqrt_rounded(x: torch.Tensor) -> torch.Tensor:

@@ -70,7 +70,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd import forward_ad
 
+from ..core.autodiff import refuse_kernel
 from ..core.boundary import Halo, pad2, pad_halo
 from ..core.params import BoundaryType
 from . import cuda_rhs
@@ -656,8 +658,12 @@ def _members_checked(fields, vecs=()):
     shape = fields[0].shape
     ok = fields_ok(fields, shape) if len(shape) == 3 else None
     if ok is not None and all(v.shape == shape[:1] and v.dtype is ok[0]
-                              and v.get_device() == ok[1] and v.is_contiguous() for v in vecs):
+                              and v.get_device() == ok[1] and v.is_contiguous()
+                              and not v.requires_grad for v in vecs):
+        if forward_ad._current_level >= 0:
+            refuse_kernel(vecs)
         return ok
+    refuse_kernel((*fields, *vecs))
     dev, dtype = fields[0].device, fields[0].dtype
     if dtype not in SUFFIX:
         raise TypeError(f"kernel takes float32 or float64 fields, got {dtype}")

@@ -15,7 +15,8 @@ it is paid once for all of them:
     "C"`` definitions of ``csrc/*.cu``.
   * **Cheap checks.**  ``fields_ok`` is one pass of attribute reads; only a
     call that fails it takes the wrappers' detailed checks, which raise
-    with their messages.
+    with their messages.  The same pass refuses an input whose gradient a
+    kernel would drop (``core/autodiff.refuse_kernel``).
   * **The device context only when needed.**  ``launch`` enters
     ``torch.cuda.device`` only when the tensors' device is not the current
     one.
@@ -39,7 +40,9 @@ import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd import forward_ad
 
+from ..core.autodiff import refuse_kernel
 from . import cuda_build
 
 PTR = ctypes.c_void_p
@@ -160,25 +163,39 @@ def fields_ok(tensors, shape=None):
     """(dtype, device index) of tensors that share a float32 or float64
     dtype, a device and a shape (``shape`` when given, else any 2-D one)
     and are contiguous, in one pass of attribute reads; None sends a
-    wrapper to its detailed checks, which raise with their messages."""
+    wrapper to its detailed checks, which raise with their messages.  In
+    the same pass the autodiff guard: an input that requires grad under
+    grad mode, or one inside a forward-mode dual level, sends the call to
+    ``core/autodiff.refuse_kernel``, which raises if a gradient would be
+    dropped."""
     t = tensors[0]
     dtype, index, first = t.dtype, t.get_device(), t.shape
     if (dtype not in SUFFIX or (len(first) != 2 if shape is None else first != shape)
             or not t.is_contiguous()):
+        refuse_kernel(tensors)
         return None
+    tracked = t.requires_grad
     for t in tensors[1:]:
         if (t.dtype is not dtype or t.get_device() != index or t.shape != first
                 or not t.is_contiguous()):
+            refuse_kernel(tensors)
             return None
+        if t.requires_grad:
+            tracked = True
+    if (tracked and torch.is_grad_enabled()) or forward_ad._current_level >= 0:
+        refuse_kernel(tensors)
     return dtype, index
 
 
 def scalars_ok(scalars, dtype: torch.dtype, index: int) -> bool:
-    """Every scalar a 0-dim tensor of ``dtype`` on device ``index``."""
+    """Every scalar a 0-dim tensor of ``dtype`` on device ``index``, and
+    none that a kernel would drop a gradient of (``fields_ok``'s guard)."""
     try:
         for t in scalars:
             if t.dtype is not dtype or t.get_device() != index or t.dim() != 0:
                 return False
+            if t.requires_grad or forward_ad._current_level >= 0:
+                refuse_kernel(scalars)
     except AttributeError:  # not a tensor
         return False
     return True

@@ -103,6 +103,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.autodiff import refuse_kernel
 from ..core.boundary import Apron, Halo, edge_image, pad2, pad_axis, pad_halo
 from ..core.params import BoundaryType, SimParams
 from ..models.allen_cahn import blend, rhs_neighbours, rhs_padded, semi_implicit_prepare
@@ -150,14 +151,23 @@ def effective_dirichlet(dirichlet_value, weights):
     acc = weights[0]
     for w in weights[1:]:
         acc = acc + w
-    return type(acc)(dirichlet_value) * acc
+    return _scalar(acc)(dirichlet_value) * acc
+
+
+def _scalar(tau):
+    """The constructor of ``tau``'s precision for the Merson weights: its
+    numpy type, or for a 0-dim tensor (a step size that carries a
+    forward-mode tangent, ``solvers/explicit.rkm_adaptive_step``) plain
+    Python numbers, which torch computes in the tensor's dtype."""
+    return (lambda v: v) if isinstance(tau, torch.Tensor) else type(tau)
 
 
 def blend_states(states: Sequence[Pair], weights):
     if len(states) == 1:
         # the single-state weight is exactly 1 at every call site
         return states[0]
-    w = [float(x) for x in weights]
+    # a 0-dim tensor weight carries a step size's tangent
+    w = [x if isinstance(x, torch.Tensor) else float(x) for x in weights]
     return (blend([s[0] for s in states], w), blend([s[1] for s in states], w))
 
 
@@ -240,8 +250,9 @@ def merson_weights(tau: np.floating):
     """The weights of the states after x in the blends of Merson's stages
     2..5 (`simulation.cu:400-404`): [tau/3] on k1; [tau/6, tau/6] on k1,
     k2; [tau/8, 3 tau/8] on k1, k3; [tau/2, -3 tau/2, 2 tau] on k1, k3, k4;
-    in the precision of ``tau``, a numpy scalar of the field dtype."""
-    c = type(tau)
+    in the precision of ``tau``, a numpy scalar of the field dtype (or a
+    0-dim tensor of it, ``_scalar``)."""
+    c = _scalar(tau)
     return ([tau / c(3)], [tau / c(6), tau / c(6)], [tau / c(8), c(3) * tau / c(8)],
             [tau / c(2), c(-3) * tau / c(2), c(2) * tau])
 
@@ -262,13 +273,13 @@ def merson_stages(stage, tau: np.floating, k1: Pair = None):
 def k5_weights(tau: np.floating):
     """The blend weights of Merson's fifth stage, [1, tau/2, -3 tau/2,
     2 tau], in the precision of ``tau``."""
-    return [type(tau)(1), *merson_weights(tau)[3]]
+    return [_scalar(tau)(1), *merson_weights(tau)[3]]
 
 
 def merson_finish(x: Pair, k1: Pair, k3: Pair, k4: Pair, k5: Pair, tau: np.floating):
     """(x + tau/6 (k1 + 4 k4 + k5), max|0.2 k1 - 0.9 k3 + 0.8 k4 - 0.1 k5|
     per field as a (2,) tensor), in the order of `pallas_rhs.py:441-454`."""
-    c6 = float(tau / type(tau)(6))
+    c6 = tau / 6 if isinstance(tau, torch.Tensor) else float(tau / type(tau)(6))
     nF = x[0] + c6 * (k1[0] + 4 * k4[0] + k5[0])
     nU = x[1] + c6 * (k1[1] + 4 * k4[1] + k5[1])
     emax = torch.stack([
@@ -303,14 +314,15 @@ def rkm_attempt_plain(F: torch.Tensor, U: torch.Tensor, tau: np.floating,
                       k1: Pair = None):
     """One Merson attempt, stage by stage (`simulation.cu:400-409`).
 
-    ``tau`` is a numpy scalar of the field dtype: the stage weights are
-    computed in that precision.  ``k1`` may be passed in, since it does not
+    ``tau`` is a numpy scalar of the field dtype, or a 0-dim tensor of it
+    that carries a forward-mode tangent: the stage weights are computed in
+    that precision.  ``k1`` may be passed in, since it does not
     depend on tau (the adaptive solver computes it once per step).
     Returns (next_F, next_U, emax) with ``emax`` a (2,) tensor holding
     max|0.2 k1 - 0.9 k3 + 0.8 k4 - 0.1 k5| for Phi and T; the caller
     scales it by tau/3.
     """
-    c = type(tau)
+    c = _scalar(tau)
     x = (F, U)
 
     def stage(ks, ws):
@@ -1223,6 +1235,7 @@ def _apron_args(F: torch.Tensor, U: torch.Tensor, ap: Apron, depth: int, p: SimP
     the ghosts of its sharded axes (the K13 twins: rows, cols, y0, ny_l, x0,
     nx_l, ny, nx)."""
     _check_shard(F, U)
+    refuse_kernel([F, U] + [g for g in (ap.rows, ap.cols) if g is not None])
     ny_l, nx_l = F.shape
     shapes = {"rows": (ap.rows, (2, 2, depth, nx_l + 2 * depth if ap.cols is not None
                                   else nx_l), ny_l, p.ny),

@@ -25,6 +25,7 @@ import dataclasses
 
 import torch
 
+from ..core.autodiff import refuse_kernel
 from . import cuda_rhs
 from .cuda_launch import LONG, PTR, UNSUFFIXED, fn, launch, register, scratch
 
@@ -71,6 +72,7 @@ def cuda_field_stats(x: torch.Tensor) -> FieldStats:
     device, and nothing is read back to the host."""
     if not cuda_rhs._on_cuda(x, "cuda_field_stats"):
         return field_stats_plain(x)
+    refuse_kernel([x])
     if x.dtype != torch.float32:
         raise TypeError(f"K11 takes float32, got {x.dtype}")
     if not x.is_contiguous():

@@ -36,6 +36,7 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as tnf
 
+from ..core.autodiff import refuse_kernel
 from . import cuda_rhs
 from .cuda_launch import FLOAT, INT, LONG, PTR, UNSUFFIXED, fn, launch, register, scratch
 
@@ -95,7 +96,9 @@ register(_ENTRIES, UNSUFFIXED)
 
 def _check(what: str, *tensors: torch.Tensor, two_d: bool = False) -> None:
     """float32, contiguous, at least one value, on one device and of one
-    shape; a 2-D array where ``two_d``."""
+    shape; a 2-D array where ``two_d``; none whose gradient the kernel
+    would drop (``core/autodiff.refuse_kernel``)."""
+    refuse_kernel(tensors)
     x = tensors[0]
     for t in tensors:
         if t.dtype != torch.float32:
@@ -148,6 +151,7 @@ def saxpy_device_scalar(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
     if not cuda_rhs._on_cuda(x, "saxpy_device_scalar"):
         return saxpy_plain(a, x, y)
     _check("saxpy_device_scalar", x, y, two_d=True)
+    refuse_kernel([a])
     if a.numel() != 1 or a.dtype != torch.float32 or a.device != x.device:
         raise ValueError(f"saxpy_device_scalar takes a as one float32 on {x.device}, got "
                          f"{a.numel()} {a.dtype} on {a.device}")

@@ -58,13 +58,27 @@ def unsupported_members(p: SimParams):
     return None
 
 
+DIFFERENTIABLE_TODO = ("differentiable runs on meshes and over ensembles (JAX's cg_solve_diff "
+                       "takes topo, and jax.vmap lifts it; ROADMAP item 9b)")
+
+
 def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
     """Build the per-step function for ``p.solver``; with a sharded
     ``topo``, for states whose fields are ``Shards`` over that mesh
-    (``parallel/sharded.make_sharded_stepper``)."""
+    (``parallel/sharded.make_sharded_stepper``).
+
+    Gradients pass where the JAX package's pass (``core/autodiff``): both
+    modes through Euler and RK4 on the plain backend, forward mode through
+    RKM and the semi-implicit step, and with ``p.differentiable`` reverse
+    mode through the semi-implicit step too (adjoint solves, one device).
+    ``finish`` keeps the fields' graph, and the stats are plain torch ops
+    on the step's fields, so they carry a gradient exactly where the
+    fields do."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
+    if p.differentiable and topo.is_sharded:
+        raise NotImplementedError(f"not ported yet: {DIFFERENTIABLE_TODO}")
 
     def finish(state: SimState, next_F, next_U, dt_used, phi_iters, t_iters,
                attempts=1, tau_next=None, residuals=()) -> Tuple[SimState, StepStats]:
@@ -172,6 +186,8 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
+    if p.differentiable:
+        raise NotImplementedError(f"not ported yet: {DIFFERENTIABLE_TODO}")
     todo = unsupported_members(p)
     if todo:
         raise NotImplementedError(f"not ported yet: {todo}")

@@ -32,8 +32,18 @@ still reads one value per iteration, the combined <r', r'>.
 update folded into the matvec, on one device: per iteration K9 and K8b
 (``ops/cuda_cg.*_advance_p_matvec``) in place of K8, K9 and K10, one
 launch fewer, and still one host read.  ``solvers/semi_implicit``'s gate
-(``_cg_variant``) chooses it.  ``cg_solve_diff`` is not ported:
-differentiable runs raise.
+(``_cg_variant``) chooses it.
+
+These loops run on the host, where autograd would record every
+iteration; JAX refuses reverse mode through its ``lax.while_loop``, and so
+do they (``core/autodiff.refuse_reverse``).  Forward mode passes through
+the plain loops, as ``jax.jvp`` passes through JAX's.  ``cg_solve_diff``
+(JAX :216-256, ``lax.custom_linear_solve``) is the reverse-mode
+differentiable solve, a ``torch.autograd.Function``: its forward solve,
+its adjoint solve and its tangent solve are ``cg_solve`` with grad mode
+off, on the kernels (K8, K9, K10) where the caller passes them, and the
+gradients come from the implicit function theorem, never from the
+iterations.
 
 ``cg_solve_members`` and ``pcg_solve_members`` solve the systems of an
 ensemble's members at once, stacked (B, ny, nx), as ``jax.vmap`` runs the
@@ -54,6 +64,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.autodiff import refuse_reverse
 from ..core.state import Field, Shards, each
 from ..ops import cuda_cg
 from ..parallel.topology import ONE_DEVICE, Topology
@@ -68,6 +79,22 @@ HOST_READS = {"cg_stop_test": 0, "cg_stop_test_members": 0}
 def reset_host_reads() -> None:
     for key in HOST_READS:
         HOST_READS[key] = 0
+
+
+# Solves made by ``cg_solve_diff`` since the last reset_diff_solves(), by
+# kind, and the iterations they counted (``CGResult.iters`` summed).
+DIFF_SOLVES = {"forward": 0, "adjoint": 0, "tangent": 0}
+DIFF_ITERS = {"forward": 0, "adjoint": 0, "tangent": 0}
+
+
+def reset_diff_solves() -> None:
+    for key in DIFF_SOLVES:
+        DIFF_SOLVES[key] = DIFF_ITERS[key] = 0
+
+
+LOOP_WAY_OUT = ("set SimParams(differentiable=True) for adjoint CG solves "
+                "(solvers/cg.cg_solve_diff), or differentiate in forward mode "
+                "(torch.autograd.forward_ad)")
 
 
 @dataclasses.dataclass
@@ -156,8 +183,10 @@ def cg_solve(
 
     ``diag`` enables Jacobi preconditioning (``_pcg_solve``); it excludes
     ``matvec_pAp``, whose kernels are wired for the plain recurrence.
-    ``topo``: the mesh of ``b`` (``Shards``), or one device.
+    ``topo``: the mesh of ``b`` (``Shards``), or one device.  Reverse mode
+    through the loop raises (``LOOP_WAY_OUT``).
     """
+    refuse_reverse("the CG loop", LOOP_WAY_OUT, b, x0, diag)
     if diag is not None:
         if matvec_pAp is not None:
             raise ValueError("diag preconditioning and fused matvec_pAp "
@@ -234,6 +263,7 @@ def cg_solve_fused(
     goes over the dead A p, p' into a spare buffer allocated once per solve,
     and the two directions swap, so a steady iteration allocates no field.
     ``b`` is not modified."""
+    refuse_reverse("the CG loop", LOOP_WAY_OUT, b, x0)
     N, scaled_tol2 = _tolerance(b, tolerance)
     if x0 is not None:
         x = x0.clone()
@@ -277,6 +307,7 @@ def _pcg_solve(
     on <r, r> (`simulation.cu:608,656`).  Plain torch ops on any device,
     shard by shard on a mesh: the JAX package runs this branch in XLA, with
     no Pallas kernel."""
+    refuse_reverse("the CG loop", LOOP_WAY_OUT, b, x0, diag)
     N, scaled_tol2 = _tolerance(b, tolerance)
     inv_d = each(lambda d: 1.0 / d, diag)
     if x0 is not None:
@@ -306,6 +337,134 @@ def _pcg_solve(
         it += 1
     return x, CGResult(error=torch.sqrt(rr / float(N)), iters=it,
                        converged=it != max_iters)
+
+
+class _AdjointSolve(torch.autograd.Function):
+    """x = A(θ)^-1 b with the gradients of ``lax.custom_linear_solve``
+    (symmetric A): ``apply(solve, b, x0, *θ)``, ``solve`` the ``_DiffSolve``
+    that holds the operator and the CG settings."""
+
+    @staticmethod
+    def forward(solve, b, x0, *theta):
+        return solve.cg("forward", b, x0, theta)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        solve, _b, x0, *theta = inputs
+        ctx.solve, ctx.x0 = solve, x0
+        ctx.save_for_backward(output, *theta)
+        ctx.save_for_forward(output, *theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        solve = ctx.solve
+        x, *theta = ctx.saved_tensors
+        # A λ = ḡ by the same CG from a zero guess (JAX's transpose_solve)
+        lam = solve.cg("adjoint", g.contiguous(), None, theta)
+        grads = [None] * len(theta)
+        wanted = [k for k, need in enumerate(ctx.needs_input_grad[3:]) if need]
+        if wanted:
+            # θ receives -∂<λ, A(θ) x>/∂θ, by autograd through the plain matvec
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(k in wanted) for k, t in enumerate(theta)]
+                Ax = solve.matvec(x, *leaves)
+                got = torch.autograd.grad(Ax, [leaves[k] for k in wanted], grad_outputs=lam)
+            for k, gk in zip(wanted, got):
+                grads[k] = -gk
+        return (None, lam if ctx.needs_input_grad[1] else None, None, *grads)
+
+    @staticmethod
+    def jvp(ctx, solve_t, b_t, x0_t, *theta_t):
+        solve = ctx.solve
+        x, *theta = ctx.saved_tensors
+        rhs = torch.zeros_like(x) if b_t is None else b_t
+        moving = [k for k, t in enumerate(theta_t) if t is not None]
+        if moving:
+            # Ȧ x = J θ̇, J = ∂(A(θ) x)/∂θ through the plain matvec, by two
+            # reverse passes (forward mode does not nest): J^T u for a
+            # variable u, then the gradient of <J^T u, θ̇> in u
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(k in moving) for k, t in enumerate(theta)]
+                Ax = solve.matvec(x, *leaves)
+                u = torch.zeros_like(Ax, requires_grad=True)
+                JTu = torch.autograd.grad(Ax, [leaves[k] for k in moving], grad_outputs=u,
+                                          create_graph=True)
+                Adot_x, = torch.autograd.grad(JTu, u, grad_outputs=[theta_t[k] for k in moving])
+            rhs = rhs - Adot_x
+        # ẋ = A^-1 (ḃ - Ȧ x), one more solve (JAX's custom_linear_solve jvp)
+        return solve.cg("tangent", rhs.contiguous(), ctx.x0, theta)
+
+
+class _DiffSolve:
+    """The operator and the CG settings of one ``cg_solve_diff``:
+    ``matvec(v, *θ)`` the plain operator, ``matvec_pAp(v, *θ, out=None)``
+    its kernel (or None), each given the operator's tensors θ."""
+
+    def __init__(self, matvec, matvec_pAp, kw):
+        self.matvec, self.matvec_pAp, self.kw = matvec, matvec_pAp, kw
+
+    def cg(self, kind: str, b: torch.Tensor, x0, theta) -> torch.Tensor:
+        """One solve of A(θ) x = b by ``cg_solve`` with grad mode off, counted
+        in ``DIFF_SOLVES`` and ``DIFF_ITERS``."""
+        mv_pAp = None
+        if self.matvec_pAp is not None:
+            mv_pAp = lambda v, out=None: self.matvec_pAp(v, *theta, out=out)  # noqa: E731
+        with torch.no_grad():
+            x, res = cg_solve(lambda v: self.matvec(v, *theta), b, x0,
+                              matvec_pAp=mv_pAp, **self.kw)
+        DIFF_SOLVES[kind] += 1
+        DIFF_ITERS[kind] += res.iters
+        return x
+
+
+def cg_solve_diff(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tolerance: float = 1.0e-5,
+    max_iters: int = 10,
+    epsilon: float = 1.0e-10,
+    matvec_pAp: Optional[Callable] = None,
+    operands: tuple = (),
+    topo: Topology = ONE_DEVICE,
+):
+    """Solve A x = b, differentiable in reverse and forward mode
+    (``bachelors_tpu/solvers/cg.cg_solve_diff`` :216, JAX's
+    ``lax.custom_linear_solve`` with ``symmetric=True``).  Returns (x,
+    CGResult), as ``cg_solve`` does, on one device.
+
+    ``operands`` are the tensors θ the operator depends on (the anisotropy
+    map s): ``matvec(v, *operands)`` is the plain operator and
+    ``matvec_pAp(v, *operands, out=None)`` its kernel (K8) or None, so the
+    operator closes over no tensor whose gradient would be lost.
+
+      * forward: ``cg_solve`` from ``x0`` with ``matvec_pAp``, the default
+        route's solve bit for bit (K8, K9 and K10 on the kernels);
+      * backward: A λ = ḡ by the same CG from a zero guess, at the same
+        tolerance, ``max_iters`` and ``epsilon`` (A is symmetric: JAX's
+        ``transpose_solve``); b receives λ, each θ receives -∂<λ, A(θ)
+        x>/∂θ through the plain matvec, x0 nothing;
+      * forward mode: ẋ = A^-1 (ḃ - Ȧ x), by one more solve from ``x0``.
+
+    Each solve runs with grad mode off, so the kernels take it; no
+    iteration is differentiated.  As in JAX, ``iters`` is -1,
+    ``converged`` True, and ``error`` sqrt(<r, r>/N) of the true residual r
+    = b - A x, from the plain matvec.  The stop test is JAX's: absolute,
+    <r, r> < tol^2 N, after at least one iteration; an adjoint right-hand
+    side of a mean over N cells is ~1/N a cell, so at a loose tolerance the
+    adjoint solve stops after that one iteration, as JAX's does."""
+    if topo.is_sharded:
+        raise NotImplementedError("not ported yet: differentiable solves on a mesh "
+                                  "(ROADMAP item 9b)")
+    kw = dict(tolerance=tolerance, max_iters=max_iters, epsilon=epsilon)
+    solve = _DiffSolve(matvec, matvec_pAp, kw)
+    x = _AdjointSolve.apply(solve, b, x0, *operands)
+    with torch.no_grad():
+        r = b - matvec(x, *operands)
+        N, _ = _tolerance(b, tolerance)
+        error = torch.sqrt(torch.sum(r * r) / float(N))
+    return x, CGResult(error=error, iters=-1, converged=True)
 
 
 # ------------------------------------------------------------- ensembles
@@ -368,6 +527,7 @@ def cg_solve_members(
     members, then one host read of the (B,) <r', r'>.  The two (B,) <r, r>
     vectors alternate round by round: every live member is at the same
     round, so round k reads one and writes the other."""
+    refuse_reverse("the CG loop", LOOP_WAY_OUT, b)
     update = cuda_cg.update_xr_rr_members if kernel else cuda_cg.update_xr_rr_members_plain
     advance = cuda_cg.advance_p_members if kernel else cuda_cg.advance_p_members_plain
     B = b.shape[0]
@@ -424,6 +584,7 @@ def pcg_solve_members(
     own, and a round makes one host read of the live members' <r, r>.
     ``matvec(m, v)`` is member m's operator.  Returns (x, CGMembersResult)
     with member m's x and count ``_pcg_solve``'s bit for bit."""
+    refuse_reverse("the CG loop", LOOP_WAY_OUT, b, diag)
     B = b.shape[0]
     ids = [int(m) for m in ids]
     N, scaled_tol2 = _tolerance(b[0], tolerance)  # one member's cells

@@ -48,7 +48,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.autograd import forward_ad
 
+from ..core.autodiff import carries_tangent, recording, refuse_reverse
 from ..core.params import SimParams, SolverType
 from ..core.state import Field, Shards, SimState, each, numpy_dtype
 from ..ops import cuda_rhs
@@ -64,6 +66,12 @@ HOST_READS = {"rkm_attempt": 0, "rkm_attempt_members": 0}
 def reset_host_reads() -> None:
     for key in HOST_READS:
         HOST_READS[key] = 0
+
+
+# What a caller differentiating RKM in reverse mode can do instead.
+RKM_WAY_OUT = ("differentiate it in forward mode (torch.autograd.forward_ad), or take a "
+               "fixed-step solver (explicit Euler or RK4) on the plain backend "
+               "(backend = \"xla\")")
 
 
 def _axpy(A: Field, c: float, B: Field) -> Field:
@@ -351,6 +359,14 @@ def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
     The controller computes in the field dtype with numpy scalars, as the
     JAX package computes it in device scalars of that dtype.
 
+    Autodiff: reverse mode raises, as JAX's ``while_loop`` refuses it.  In
+    forward mode (fields that carry a tangent, on the plain backend of one
+    device) the step sizes carry the tangent JAX's carry: each attempt's
+    tau, the tau used and the next tau are 0-dim tensors whose tangent
+    ``Controller.dual`` forms from the error maxima's in torch ops, their
+    values the host decision's; the decisions keep their one host read.
+    Without a tangent the path is unchanged.
+
     Returns (next_F, next_U, used_tau, next_tau, iters, attempts, converged);
     ``next_tau`` seeds the following step (`simulation.cu:363-365,486`),
     ``attempts`` counts every attempt made.  ``control`` is
@@ -358,6 +374,11 @@ def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
     """
     control = Controller(p) if control is None else control
     c = control.c
+    refuse_reverse("the adaptive RKM retry loop", RKM_WAY_OUT, F, U)
+    dual = carries_tangent(F, U, tau0)
+    if dual and topo.is_sharded:
+        raise NotImplementedError(f"not ported yet: forward mode through RKM on a mesh "
+                                  "(ROADMAP item 9b)")
 
     if topo.is_sharded:
         attempt = _mesh_attempt(F, U, p, fu, topo, c(tau0))
@@ -374,19 +395,27 @@ def rkm_adaptive_step(F: Field, U: Field, tau0, p: SimParams, fu=0.0,
 
     tau = c(tau0)
     used = tau
+    if dual:
+        tau_d = (tau0 if isinstance(tau0, torch.Tensor)
+                 else torch.tensor(tau, dtype=F.dtype, device=F.device))
+        used_d = tau_d
     iters = attempts = 0
     converged = False
     next_F = next_U = None
     while iters < control.max_iters:
-        next_F, next_U, emax = attempt(tau)
+        next_F, next_U, emax = attempt(tau_d if dual else tau)
         attempts += 1
         emax_F, emax_U = emax.cpu().numpy()  # the attempt's one host read
         HOST_READS["rkm_attempt"] += 1
         converged, used, tau, floor_hit = control(tau, emax_F, emax_U)
+        if dual:
+            used_d, tau_d = tau_d, control.dual(tau_d, emax, tau)
         if not floor_hit:
             iters += 1
         if converged or floor_hit:
             break
+    if dual:
+        return next_F, next_U, used_d, tau_d, iters, attempts, converged
     return next_F, next_U, used, tau, iters, attempts, converged
 
 
@@ -416,6 +445,20 @@ class Controller:
         tau = np.maximum((self.delta / eps) ** c(0.2) * c(4) / c(5) * used, self.min_dt)
         floor_hit = bool(tau <= self.min_dt and used <= self.min_dt)
         return converged, used, tau, floor_hit
+
+    def dual(self, tau: torch.Tensor, emax: torch.Tensor, value) -> torch.Tensor:
+        """The next tau as a 0-dim tensor whose value is ``value`` (the host
+        decision's, ``__call__``'s) and whose forward-mode tangent is that
+        of JAX's controller (:485-489): the same formula in torch ops on the
+        attempt's tau and its error maxima ``emax`` (the device tensor), so
+        the tangent of every later step carries theirs."""
+        tiny, delta, min_dt = (torch.tensor(float(v), dtype=tau.dtype, device=tau.device)
+                               for v in (self.tiny, self.delta, self.min_dt))
+        eps = torch.maximum(torch.maximum(tau / 3 * emax[0], tau / 3 * emax[1]), tiny)
+        nxt = torch.maximum((delta / eps) ** 0.2 * 4 / 5 * tau, min_dt)
+        tangent = forward_ad.unpack_dual(nxt).tangent
+        primal = torch.tensor(value, dtype=tau.dtype, device=tau.device)
+        return primal if tangent is None else forward_ad.make_dual(primal, tangent)
 
 
 # ------------------------------------------------------------- ensembles
@@ -476,6 +519,9 @@ def rkm_adaptive_members(F: torch.Tensor, U: torch.Tensor, taus: np.ndarray, p: 
     number of attempts made for any member, the launches.  ``control`` is
     ``Controller(p)``, made once by a stepper."""
     control = Controller(p) if control is None else control
+    if recording(F, U) or carries_tangent(F, U):
+        raise NotImplementedError("not ported yet: differentiating an ensemble's RKM steps "
+                                  "(ROADMAP item 9b)")
     B = F.shape[0]
     kernel = resolve_backend(p, F.device) == "kernel"
     out = (torch.empty_like(F), torch.empty_like(U))

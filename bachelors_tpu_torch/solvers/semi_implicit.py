@@ -55,11 +55,22 @@ bit for bit, its CG iteration counts included.  The fused CG variant
 over members (K8b) waits for ROADMAP item 7d.  Each route's scheme is
 written once (``_step_based``, ``_step_refined``) and reaches its prepare,
 solves and residuals through ``_Fields`` (one state) or ``_Members``.
+
+``SimParams.differentiable`` takes JAX's differentiable route (:93,
+:131-136, :184-188, :217, :229) on one device: the plain prepare, so that
+gradients reach r0, uterm and the map s, and ``cg_solve_diff`` for both
+systems, its forward, adjoint and tangent solves on K8 (the kernels' form
+of each operator), K9 and K10 on the kernel route; never the fused
+variant, Jacobi or the refined route (``wants_dd_si`` is False there), so
+float64 takes the based route.  Without it, reverse mode through a step
+raises, as JAX's ``while_loop`` does; forward mode passes through the
+plain route.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.autodiff import refuse_reverse
 from ..core.params import SimParams
 from ..core.state import Field, Shards, each
 from ..models.allen_cahn import semi_implicit_prepare
@@ -68,7 +79,8 @@ from ..ops.rhs import resolve_backend, stage_halos
 from ..ops.stencil import (AnisotropyMatrix, CrossMatrix, anisotropy_matvec,
                            cross_matvec, lap_from_padded)
 from ..parallel.topology import ONE_DEVICE, Topology
-from .cg import cg_solve, cg_solve_fused, cg_solve_members, pcg_solve_members
+from .cg import (LOOP_WAY_OUT, cg_solve, cg_solve_diff, cg_solve_fused, cg_solve_members,
+                 pcg_solve_members)
 
 EPSILON = 1.0e-12  # the CG alpha/beta guard of the semi-implicit solves
 
@@ -81,7 +93,11 @@ SI_FUSED_CG_MIN_CELLS = None
 _FORCE_CG_VARIANT = None  # A/B and test hook: None | "pAp" | "fused"
 
 
-def _cg_variant(n_cells: int) -> str:
+def _cg_variant(n_cells: int, differentiable: bool = False) -> str:
+    """"pAp" or "fused" for a grid of ``n_cells`` cells; never "fused" for a
+    differentiable run (JAX :217), whose solves are ``cg_solve_diff``'s."""
+    if differentiable:
+        return "pAp"
     if _FORCE_CG_VARIANT is not None:
         return _FORCE_CG_VARIANT
     if SI_FUSED_CG_MIN_CELLS is not None and n_cells >= SI_FUSED_CG_MIN_CELLS:
@@ -115,8 +131,11 @@ def refines(p: SimParams, device: torch.device) -> bool:
     (``semi_implicit_step_refined``).  The JAX gate (``pallas_dd.wants_dd``
     via ``wants_dd_si``): float64, not ``backend = xla``, on the
     accelerator; the plain backend on the card takes the route too, in
-    plain torch ops, so the kernels can be held to it."""
-    return p.dtype == "float64" and p.backend != "xla" and device.type == "cuda"
+    plain torch ops, so the kernels can be held to it.  Never under
+    ``differentiable``, as ``wants_dd_si`` (``pallas_dd.py:126``): float64
+    then takes the based route, one solve a system and no K14."""
+    return (p.dtype == "float64" and p.backend != "xla" and device.type == "cuda"
+            and not p.differentiable)
 
 
 def cg_branch(p: SimParams, device: torch.device = torch.device("cpu"),
@@ -126,6 +145,12 @@ def cg_branch(p: SimParams, device: torch.device = torch.device("cpu"),
     if members:
         return cg_branch(p, device, topo) + ", batched over the ensemble's live members"
     kernel = "K12.8, per shard after a ghost gather," if topo.is_sharded else "K8"
+    if p.differentiable:
+        form = "aniso form" if cuda_rhs.si_s_varies(p) else "cross form"
+        where = (f"K8 {form} for the phase system, cross form for heat, then K9 and K10,"
+                 if resolve_backend(p, device) == "kernel" else "plain torch ops")
+        return (f"adjoint-differentiable CG ({where} in the forward, adjoint and tangent "
+                "solves; the plain prepare)")
     if refines(p, device):
         form = "aniso form" if cuda_rhs.si_s_varies(p) else "cross form"
         k14 = "K14's twin per shard" if topo.is_sharded else "K14"
@@ -236,20 +261,45 @@ class _Fields:
         self.p, self.topo, self.kernel, self.fused = p, topo, kernel, fused
 
     def prepare(self, F: Field, U: Field):
-        return _prepare(F, U, self.p, self.topo, self.kernel)
+        # differentiable: the plain prepare, so gradients flow through r0,
+        # uterm and s (JAX :136)
+        return _prepare(F, U, self.p, self.topo, self.kernel and not self.p.differentiable)
 
     def solve(self, op, plain, b: Field, tolerance: float, max_iters: int, diag=None):
         """A e = b from a zero guess: the kernels (K8-K10, or K8 and K8b when
         ``fused``) take the operator ``op``, plain torch ops ``plain`` (the
         same operator, unfolded); ``diag``: the Jacobi branch."""
         topo = self.topo
-        matvec = lambda v: _apply(*plain, v, topo)  # noqa: E731
         kw = dict(tolerance=tolerance, max_iters=max_iters, epsilon=EPSILON)
+        if self.p.differentiable:
+            return self._solve_diff(op, plain, b, kw)
+        matvec = lambda v: _apply(*plain, v, topo)  # noqa: E731
         if diag is None and self.kernel and self.fused:
             return cg_solve_fused(matvec, _matvec_pAp(*op, topo), _advance_p_matvec(*op), b,
                                   **kw)
         mv = _matvec_pAp(*op, topo) if diag is None and self.kernel else None
         return cg_solve(matvec, b, matvec_pAp=mv, diag=diag, topo=topo, **kw)
+
+    def _solve_diff(self, op, plain, b: torch.Tensor, kw):
+        """``cg_solve_diff`` on one device: the map s (where it varies) an
+        operand of the solve, so its gradient reaches the prepare; on the
+        kernel route K8 in the kernels' form of ``op``, then K9 and K10."""
+        A, s = plain
+        operands = (s,) if isinstance(s, torch.Tensor) else ()
+
+        def matvec(v, *o):
+            return _apply(A, o[0] if o else s, v)
+
+        mv = None
+        if self.kernel:
+            Ak = op[0]
+            if op[1] is None:
+                mv = lambda v, out=None: cuda_cg.cross_matvec_pAp(Ak, v, out=out)  # noqa: E731
+            else:
+                mv = lambda v, s_, out=None: cuda_cg.aniso_matvec_pAp(  # noqa: E731
+                    Ak, s_, v, out=out)
+        return cg_solve_diff(matvec, b, matvec_pAp=mv, operands=operands, topo=self.topo,
+                             **kw)
 
     def residual(self, r0: Field, e: Field, op) -> Field:
         """r0 - A e (K14; on a mesh its twin per shard)."""
@@ -342,14 +392,21 @@ def _step_refined(F, U, U_base, p: SimParams, fields):
 def semi_implicit_step_based(F: Field, U: Field, U_base: Field, p: SimParams,
                              topo: Topology = ONE_DEVICE):
     """One semi-implicit step, on one device or, with a sharded ``topo``,
-    on its mesh.  Returns (next_F, next_U, res_F, res_U)."""
+    on its mesh.  Returns (next_F, next_U, res_F, res_U).
+
+    With ``p.differentiable`` (one device) the step is JAX's differentiable
+    route: the plain prepare and ``cg_solve_diff`` for both systems, whose
+    results carry iters -1.  Without it, reverse mode through the step
+    raises, as JAX's ``while_loop`` does."""
+    if not p.differentiable:
+        refuse_reverse("the semi-implicit step's CG loops", LOOP_WAY_OUT, F, U, U_base)
     if refines(p, F.device):
         return semi_implicit_step_refined(F, U, U_base, p, topo)
     kernel = resolve_backend(p, F.device) == "kernel"
-    # the fused variant's gate (JAX :163-224): one device, the kernel route
-    # (never differentiable: such params raise), and for the phase system no
-    # Jacobi
-    fused = kernel and not topo.is_sharded and _cg_variant(F.numel()) == "fused"
+    # the fused variant's gate (JAX :163-224): one device, the kernel route,
+    # not differentiable, and for the phase system no Jacobi
+    fused = (kernel and not topo.is_sharded
+             and _cg_variant(F.numel(), p.differentiable) == "fused")
     return _step_based(F, U, U_base, p, _Fields(p, topo, kernel, fused))
 
 
@@ -364,6 +421,7 @@ def semi_implicit_step_refined(F: Field, U: Field, U_base: Field, p: SimParams,
     over the shards.  Returns (next_F, next_U, res_F, res_U): each result
     carries the second solve's error, the two solves' iterations, and
     converged when both are."""
+    refuse_reverse("the semi-implicit step's CG loops", LOOP_WAY_OUT, F, U, U_base)
     kernel = resolve_backend(p, F.device) == "kernel"
     return _step_refined(F, U, U_base, p, _Fields(p, topo, kernel))
 
@@ -451,6 +509,7 @@ def semi_implicit_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.T
     them.  Returns (next_F, next_U, res_F, res_U) with per-member results;
     rows of members not in ``ids`` are not meaningful (the stepper keeps
     theirs)."""
+    refuse_reverse("the semi-implicit step's CG loops", LOOP_WAY_OUT, F, U, U_base)
     if refines(p, F.device):
         return semi_implicit_step_refined_members(F, U, U_base, p, ids)
     if _cg_variant(p.ny * p.nx) == "fused":

@@ -113,6 +113,21 @@ K10 launch and one host read, one batched K7 a pass, member b bit for bit
 the single run with noise_seed + b in every frame and CG count; and the
 float32 semi-implicit ensemble's timing at B = 1, 2, 4 and 8.
 
+Differentiable runs (``SimParams.differentiable``) on the one card, at
+512^2 with config.ini's physics and at both dtypes: the gradient of the
+mean Phi after 2 steps with respect to U0 at CG 1e-12 / 60 iterations,
+finite and nonzero, held to the card's plain backend and float32 to
+float64, every forward and adjoint solve on K8, K9 and K10 (a K8, a K9 and
+a host read a pass, K10 the iterations, no plain CG iteration); its
+central finite difference at float64 (held at S = 0 on the sum of Phi,
+reported at the shipped S = 0.25); the primal against the default step;
+one backward and one tangent through a step, one adjoint and one tangent
+solve a system; the refusals (a tensor that requires grad or carries a
+tangent on a kernel route, reverse mode through RKM and the default
+semi-implicit route); forward and forward + backward ms a step and the
+peak memory of a 20-step rollout; and the inverse-design example at 512^2
+(20 steps, 10 iterations: the loss falls).
+
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
 
@@ -183,7 +198,9 @@ from bachelors_tpu_torch.io.config import load_config  # noqa: E402
 from bachelors_tpu_torch.io.snapshot import load_bin_maps  # noqa: E402
 from bachelors_tpu_torch.models.initial import make_initial_fields  # noqa: E402
 from bachelors_tpu_torch.bench import microbench  # noqa: E402
+from bachelors_tpu_torch.core.autodiff import SilentGradientError  # noqa: E402
 from bachelors_tpu_torch.examples import cuda_tutorial as tutorial  # noqa: E402
+from bachelors_tpu_torch.examples import inverse_design  # noqa: E402
 from bachelors_tpu_torch.ops import (cuda_build, cuda_cg, cuda_rhs, cuda_stats,  # noqa: E402
                                      cuda_tutorial)
 from bachelors_tpu_torch.ops.rhs import shard_states, stage_halos  # noqa: E402
@@ -3615,6 +3632,339 @@ def si_ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
     return rows
 
 
+# Differentiable runs (SimParams.differentiable): the shipped physics at
+# 512^2 (config.ini's semi-implicit run: S = 0.25, m0 = 6, Neumann), the
+# gradient of the mean Phi after DIFF_STEPS steps with respect to U0.  The
+# checks take the tolerances of the JAX package's test
+# (tests/test_autodiff.py:91-115): CG tolerance 1e-12, 60 iterations.
+DIFF_STEPS = 2
+DIFF_CHECK = "[simulation]\nT_tolerance = 1e-12\nPhi_tolerance = 1e-12\nT_max_iters = 60\nPhi_max_iters = 60\n"
+# the card's kernel route against its plain backend, and float32 against
+# float64, as max|a - b| / max|b|: the sums add in other orders over 60
+# iterations a solve that never reach 1e-12 (the epsilon guard stalls them).
+# Each limit is ~100 times its reading on an H100 (PERF.md, §6): 1.70e-7,
+# 3.17e-16 (held at 1e-12, float64's rounding over the run) and 7.25e-7.
+DIFF_PLAIN_RTOL = {"float32": 1e-5, "float64": 1e-12}
+DIFF_F32_VS_F64_RTOL = 1e-4
+# JAX's finite-difference check: eps 1e-4, rel 1e-3 at the largest-gradient
+# cell, on the sum of Phi (N times the mean: an adjoint right-hand side of
+# O(1) a cell, which the absolute stop test and the epsilon guard do not cut
+# short) at S = 0, JAX's test's anisotropy, where A = I + diag(s) L is
+# symmetric as the adjoint solve assumes (JAX's symmetric=True).  The
+# shipped S = 0.25 and the mean are reported beside it, not held: there the
+# symmetric adjoint misses the finite difference in JAX by as much as in the
+# port, and an adjoint with A's transpose closes the gap
+# (tests/test_torch_autodiff.py::
+# test_symmetric_adjoint_gap_is_jaxs_and_the_transpose_closes_it).
+DIFF_FD_EPS, DIFF_FD_RTOL = 1e-4, 1e-3
+DIFF_ROLLOUT = 20  # steps of the rollout whose peak memory is reported
+DIFF_PLAIN_MATVECS = ("anisotropy_matvec", "cross_matvec")
+
+
+def must_raise(what: str, fn, exc, match: str) -> str:
+    """``fn()`` must raise ``exc`` with ``match`` in its message; returns the
+    message.  Anything else that it raises goes on up."""
+    try:
+        fn()
+    except exc as e:
+        if match not in str(e):
+            raise AssertionError(f"{what}: raised without naming {match!r}: {e}") from e
+        return str(e)
+    raise AssertionError(f"{what}: did not raise")
+
+
+class DiffCounts:
+    """Around a block: the CG kernels' launches, the CG host reads,
+    ``cg_solve_diff``'s solves and iterations, the plain matvecs and the
+    plain CG loop's updates (``cg._axpy``), each from 0."""
+
+    def __enter__(self):
+        self.plain = {}
+        self.originals = {(semi_implicit, n): getattr(semi_implicit, n) for n in DIFF_PLAIN_MATVECS}
+        self.originals[(cg, "_axpy")] = cg._axpy
+        for (mod, name), fn in self.originals.items():
+            setattr(mod, name, self._counted(name, fn))
+        cuda_cg.reset_launch_counts()
+        cuda_rhs.reset_launch_counts()
+        cg.reset_host_reads()
+        cg.reset_diff_solves()
+        return self
+
+    def _counted(self, name, fn):
+        def wrapper(*a, **kw):
+            self.plain[name] = self.plain.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        for (mod, name), fn in self.originals.items():
+            setattr(mod, name, fn)
+        n = cuda_cg.LAUNCHES
+        self.k8 = n["cross_matvec_pAp"] + n["aniso_matvec_pAp"]
+        self.launches = {k: v for k, v in {**cuda_rhs.LAUNCHES, **n}.items() if v}
+        self.reads = cg.HOST_READS["cg_stop_test"]
+        self.solves, self.iters = dict(cg.DIFF_SOLVES), dict(cg.DIFF_ITERS)
+        return False
+
+    def hold_cg(self, what: str, solves: dict) -> None:
+        """Every solve on K8, K9 and K10 (``cg_solve``'s kernel loop): a pass
+        is one K8, one K9 and one host read, and one K10 unless the stop
+        test ends the solve there, so K10 counts the iterations and K8 at
+        most one pass more a solve; nothing else launched and no plain CG
+        iteration (``cg._axpy``); ``solves`` the solves of each kind."""
+        n = self.launches
+        k9, k10 = n.get("update_xr_rr", 0), n.get("advance_p_inplace", 0)
+        others = set(n) - {"cross_matvec_pAp", "aniso_matvec_pAp", "update_xr_rr",
+                           "advance_p_inplace"}
+        if not (self.solves == {**{"forward": 0, "adjoint": 0, "tangent": 0}, **solves}
+                and self.k8 == k9 == self.reads > 0 and k10 == sum(self.iters.values())
+                and k10 <= self.k8 <= k10 + sum(solves.values()) and not others
+                and "_axpy" not in self.plain):
+            raise AssertionError(f"{what}: solves {self.solves}, iterations {self.iters}, "
+                                 f"launches {n}, host reads {self.reads}, plain {self.plain}")
+
+
+def diff_setup(dtype: str, extra=(), S=None):
+    """(params of the differentiable run, F0, U0) at 512^2 on the card."""
+    cfg = load_config(CONFIG, [SEMI, *extra])
+    p = cfg.params.replace(dtype=dtype, differentiable=True)
+    if S is not None:
+        p = p.replace(S=S)
+    F0, U0 = make_initial_fields(p, cfg.initial, device=DEVICE)
+    return p, F0, U0
+
+
+def diff_rollout(p, F0, steps=DIFF_STEPS, loss=torch.mean):
+    step = make_stepper(p)
+
+    def f(u):
+        st = make_state(F0, u, p, device=DEVICE)
+        for _ in range(steps):
+            st, _ = step(st)
+        return loss(st.F)
+    return f
+
+
+def diff_grad(f, U0):
+    u = U0.clone().requires_grad_()
+    g, = torch.autograd.grad(f(u), u)
+    return g
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b|, in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-300)).item()
+
+
+def check_differentiable() -> dict:
+    """The differentiable semi-implicit step at 512^2 (config.ini's physics)
+    on the card, at both dtypes: the gradient of the mean Phi after
+    DIFF_STEPS steps with respect to U0, finite and nonzero, its forward,
+    adjoint and tangent solves all on K8, K9 and K10 (``DiffCounts``), and
+    held to the card's plain backend (``DIFF_PLAIN_RTOL``), float32 to
+    float64 (``DIFF_F32_VS_F64_RTOL``); the float64 gradient's finite
+    difference (``DIFF_FD_*``); the primal against the default step; one
+    backward through a step: one adjoint solve a system, a K8, a K9 and a
+    host read a pass, at most one K10; the tangent through a step: one
+    tangent solve a system.  Returns the gradient runs' launches by dtype."""
+    grads, launches, report = {}, {}, {}
+    for dtype in ("float32", "float64"):
+        p, F0, U0 = diff_setup(dtype, [DIFF_CHECK])
+        with DiffCounts() as c:
+            g = diff_grad(diff_rollout(p, F0), U0)
+        c.hold_cg(f"{dtype} gradient", {"forward": 2 * DIFF_STEPS, "adjoint": 2 * DIFF_STEPS - 1})
+        if min(c.launches.get(k, 0) for k in ("cross_matvec_pAp", "aniso_matvec_pAp",
+                                              "update_xr_rr", "advance_p_inplace")) < 1:
+            raise AssertionError(f"{dtype} gradient: a CG kernel was not launched: {c.launches}")
+        if not (torch.isfinite(g).all() and g.abs().max() > 0):
+            raise AssertionError(f"{dtype} gradient not finite and nonzero")
+        launches[dtype] = c.launches
+        g_plain = diff_grad(diff_rollout(p.replace(backend="xla"), F0), U0)
+        gap = rel_gap(g, g_plain)
+        if not gap <= DIFF_PLAIN_RTOL[dtype]:
+            raise AssertionError(f"{dtype} gradient: kernels vs plain {gap:.3g}")
+        grads[dtype] = g
+        report[dtype] = dict(max_abs_grad=g.abs().max().item(), kernel_vs_plain=gap,
+                             tol=DIFF_PLAIN_RTOL[dtype], solves=c.solves, cg_iterations=c.iters,
+                             host_reads=c.reads, launches=c.launches, plain_calls=c.plain)
+    f32_gap = rel_gap(grads["float32"], grads["float64"])
+    if not f32_gap <= DIFF_F32_VS_F64_RTOL:
+        raise AssertionError(f"float32 gradient vs float64 {f32_gap:.3g}")
+    phase("differentiable semi-implicit gradient at 512^2 (d mean Phi / d U0 after "
+          f"{DIFF_STEPS} steps, CG 1e-12, 60 iterations; kernels vs the card's plain backend)",
+          card=card_limit(), float32_vs_float64=f32_gap, f32_vs_f64_tol=DIFF_F32_VS_F64_RTOL,
+          **report)
+
+    # the finite difference at the largest-gradient cell, float64 on the kernels
+    fd = {}
+    for name, S, loss, held in (("S = 0, sum Phi (held)", 0.0, torch.sum, True),
+                                ("S = 0.25, sum Phi", None, torch.sum, False),
+                                ("S = 0.25, mean Phi", None, torch.mean, False)):
+        p, F0, U0 = diff_setup("float64", [DIFF_CHECK], S)
+        f = diff_rollout(p, F0, loss=loss)
+        g = diff_grad(f, U0)
+        iy, ix = np.unravel_index(g.abs().argmax().item(), g.shape)
+        up, dn = U0.clone(), U0.clone()
+        up[iy, ix] += DIFF_FD_EPS
+        dn[iy, ix] -= DIFF_FD_EPS
+        with torch.no_grad():
+            num = (f(up).item() - f(dn).item()) / (2 * DIFF_FD_EPS)
+        rel = abs(g[iy, ix].item() - num) / abs(num)
+        fd[name] = dict(cell=[int(iy), int(ix)], grad=g[iy, ix].item(), fd=num, rel=rel)
+        if held and not rel <= DIFF_FD_RTOL:
+            raise AssertionError(f"finite difference {name}: {fd[name]}")
+    phase("differentiable semi-implicit gradient vs central finite difference (float64, "
+          f"512^2, eps {DIFF_FD_EPS}, rel {DIFF_FD_RTOL} held on the first case)", cases=fd)
+
+    # the primal: the differentiable step's fields against the default step's
+    p, F0, U0 = diff_setup("float64", ["[simulation]\nT_tolerance = 1e-10\nPhi_tolerance = "
+                                       "1e-10\nT_max_iters = 60\nPhi_max_iters = 60\n"])
+    p = p.replace(backend="xla")
+    st = make_state(F0, U0, p, device=DEVICE)
+    a, _ = make_stepper(p.replace(differentiable=False))(st)
+    b, stats = make_stepper(p)(st)
+    torch.testing.assert_close(b.F, a.F, rtol=1e-12, atol=1e-14)
+    p32, F32, U32 = diff_setup("float32")
+    st = make_state(F32, U32, p32, device=DEVICE)
+    a32, _ = make_stepper(p32.replace(differentiable=False))(st)
+    b32, _ = make_stepper(p32)(st)
+    err32 = max(field_err(b32.F, a32.F), field_err(b32.U, a32.U))
+    if not (err32 <= FIELD_TOL and stats.Phi_iters == -1):
+        raise AssertionError(f"differentiable primal at float32: {err32:.3g}")
+    phase("differentiable step's primal vs the default step", float64_plain_backend_max_rel=(
+        (b.F - a.F).abs().max() / a.F.abs().max()).item(), float64_rtol=1e-12,
+          float32_kernels_max_rel=err32, float32_tol=FIELD_TOL)
+
+    # one backward and one tangent through one step: a solve per system each
+    rows = {}
+    for dtype in ("float32", "float64"):
+        p, F0, U0 = diff_setup(dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        w = torch.randn(F0.shape, generator=gen, device=DEVICE, dtype=F0.dtype)
+        f, u = F0.clone().requires_grad_(), U0.clone().requires_grad_()
+        st, _ = make_stepper(p)(make_state(f, u, p, device=DEVICE))
+        y = torch.sum(st.F * w) + torch.sum(st.U * w.flip(0))
+        with DiffCounts() as back:  # to (Phi0, U0): the map s carries a graph
+            g = torch.cat(torch.autograd.grad(y, (f, u)))
+        back.hold_cg(f"{dtype} backward through a step", {"adjoint": 2})
+        if back.plain.get("anisotropy_matvec", 0) != 1 or "cross_matvec" in back.plain:
+            raise AssertionError(f"backward: plain matvecs {back.plain} (the map's gradient "
+                                 "once, nothing else)")
+        with DiffCounts() as tan, torch.autograd.forward_ad.dual_level():
+            ud = torch.autograd.forward_ad.make_dual(U0, w)
+            st, _ = make_stepper(p)(make_state(F0, ud, p, device=DEVICE))
+            dy = torch.autograd.forward_ad.unpack_dual(torch.sum(st.F * w)).tangent
+        tan.hold_cg(f"{dtype} tangent through a step", {"forward": 2, "tangent": 2})
+        if not (torch.isfinite(g).all() and torch.isfinite(dy)):
+            raise AssertionError(f"{dtype}: gradient or tangent not finite")
+        rows[dtype] = dict(adjoint_solves=back.solves["adjoint"],
+                           adjoint_iterations=back.iters["adjoint"], backward=back.launches,
+                           backward_host_reads=back.reads, tangent_solves=tan.solves["tangent"],
+                           tangent=tan.launches, tangent_host_reads=tan.reads)
+    phase("differentiable step's solves on the kernels (one backward and one tangent through a "
+          "step, config.ini's tolerances)", cg_branch=semi_implicit.cg_branch(
+              p, torch.device(DEVICE)), **rows)
+    return launches
+
+
+def check_autodiff_guards() -> None:
+    """No silent gradient on the card: a state that requires grad stepped
+    on a kernel route, a forward-mode tangent into a kernel, reverse mode
+    through RKM and through the default semi-implicit route, each raises
+    with the way out in its message."""
+    cfg = load_config(CONFIG)
+    F0, U0 = make_initial_fields(cfg.params, cfg.initial, device=DEVICE)
+    u = U0.clone().requires_grad_()
+    msgs = {}
+    euler = load_config(CONFIG, [EULER]).params
+    msgs["Euler, kernel route, requires grad"] = must_raise(
+        "Euler on K1", lambda: make_stepper(euler)(make_state(F0, u, euler, device=DEVICE)),
+        SilentGradientError, 'backend = "xla"')
+    with torch.autograd.forward_ad.dual_level():
+        ud = torch.autograd.forward_ad.make_dual(U0, torch.ones_like(U0))
+        msgs["Euler, kernel route, tangent"] = must_raise(
+            "Euler on K1 with a tangent",
+            lambda: make_stepper(euler)(make_state(F0, ud, euler, device=DEVICE)),
+            SilentGradientError, "differentiable=True")
+    msgs["RKM, reverse mode"] = must_raise(
+        "RKM", lambda: make_stepper(cfg.params)(make_state(F0, u, cfg.params, device=DEVICE)),
+        SilentGradientError, "forward_ad")
+    si = load_config(CONFIG, [SEMI]).params
+    msgs["semi-implicit default route, reverse mode"] = must_raise(
+        "semi-implicit", lambda: make_stepper(si)(make_state(F0, u, si, device=DEVICE)),
+        SilentGradientError, "differentiable=True")
+    phase("no silent gradient on the card (each raised)", messages=msgs)
+
+
+def differentiable_timing() -> dict:
+    """The differentiable step at 512^2 with config.ini's semi-implicit
+    tolerances: forward ms a step (beside the default step's, same rollout,
+    same process), forward + backward ms a step of a DIFF_ROLLOUT-step
+    rollout of the mean Phi, the adjoint solves' passes (host reads) a
+    step, and torch.cuda.max_memory_allocated over that rollout and its
+    backward, at both dtypes, each after a short warm rollout."""
+    rows = {}
+    for dtype in ("float32", "float64"):
+        p, F0, U0 = diff_setup(dtype)
+        f = diff_rollout(p, F0, DIFF_ROLLOUT)
+        diff_grad(diff_rollout(p, F0), U0)  # warm: a short rollout and its backward
+        default = diff_rollout(p.replace(differentiable=False), F0, DIFF_ROLLOUT)
+        fwd = {}
+        for name, g in (("differentiable", f), ("default", default)):
+            with torch.no_grad():
+                g(U0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                g(U0)
+            torch.cuda.synchronize()
+            fwd[name] = (time.perf_counter() - t0) / DIFF_ROLLOUT * 1e3
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with DiffCounts() as fwd_counts:
+            u = U0.clone().requires_grad_()
+            y = f(u)
+        with DiffCounts() as back:
+            g, = torch.autograd.grad(y, u)
+        both = (time.perf_counter() - t0) / DIFF_ROLLOUT * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        back.hold_cg(f"{dtype} rollout backward", {"adjoint": 2 * DIFF_ROLLOUT - 1})
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{dtype} rollout gradient not finite")
+        rows[dtype] = dict(forward_ms_per_step=fwd["differentiable"],
+                           default_step_forward_ms_per_step=fwd["default"],
+                           forward_backward_ms_per_step=both,
+                           adjoint_solves_per_step=back.solves["adjoint"] / DIFF_ROLLOUT,
+                           adjoint_iterations_per_step=back.iters["adjoint"] / DIFF_ROLLOUT,
+                           adjoint_passes_per_step=back.reads / DIFF_ROLLOUT,
+                           forward_passes_per_step=fwd_counts.reads / DIFF_ROLLOUT,
+                           max_memory_allocated_bytes=peak,
+                           peak_above_start_bytes=peak - base)
+    phase(f"differentiable step timing (512^2, config.ini's semi-implicit tolerances, "
+          f"{DIFF_ROLLOUT}-step rollout of the mean Phi)", card=card_limit(), **rows)
+    return rows
+
+
+def inverse_design_path() -> dict:
+    """The ported inverse-design example at 512^2, 20 steps, 10 iterations
+    on the card: the loss falls; ms an iteration."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = inverse_design.main(["--size", "512", "--steps", "20", "--iters", "10"])
+    losses = res["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"inverse design: the loss did not fall: {losses}")
+    phase("inverse-design example (python -m bachelors_tpu_torch.examples.inverse_design "
+          "--size 512 --steps 20 --iters 10)", card=card_limit(), losses=losses,
+          ms_per_iter=res["ms_per_iter"], frac0=res["frac0"], frac=res["frac"],
+          max_dU=res["max_dU"], output=out.getvalue().splitlines())
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
     return {"name": name, "route": "cuda", "source": f"bachelors_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, **measured}
@@ -3800,6 +4150,11 @@ def main() -> None:
                                    "ensemble corrector path (3 passes, step residuals, 200 "
                                    "steps)", grow=False, phi_max=SI_CORRECTOR_PHI_MAX)
     si_ensemble_timing()
+    # differentiable runs on the one card: the adjoint solves on K8-K10
+    diff = check_differentiable()
+    check_autodiff_guards()
+    differentiable_timing()
+    inverse_design_path()
     tut_launches = tutorial_path()
 
     def m64_sum(key, *runs):
@@ -4019,6 +4374,16 @@ def main() -> None:
                      "cross form)", cg_src, "bachelors_tpu/ops/pallas_dd.py:749",
                      sum(ens_si64[f"{f}_residual_members"] for f in ("cross", "aniso", "heat")),
                      si_members64["K14"]),
+        *(kernel_entry(f"{k} {label} at {dtype} (the port's differentiable semi-implicit "
+                       f"path, which runs the default route's {k} where JAX's runs XLA's CG: "
+                       "forward and adjoint CG solves of d mean Phi / d U0 at 512^2)", cg_src,
+                       f"{pallas_cg}:{line}", sum(diff[dtype].get(c, 0) for c in counts),
+                       measured[k])
+          for dtype, measured in (("float32", k8_10), ("float64", d8_10))
+          for k, label, line, counts in (
+              ("K8", "matvec_pAp", 49, ("cross_matvec_pAp", "aniso_matvec_pAp")),
+              ("K9", "update_xr_rr", 310, ("update_xr_rr",)),
+              ("K10", "advance_p_inplace", 274, ("advance_p_inplace",)))),
         *(kernel_entry(f"{k} {wrapper} (the tutorial's step {k[-1]}; the tutorial path)",
                        "tutorial.cu", f"examples/pallas_tutorial.py:{line}",
                        tut_launches[wrapper], k15[k])

@@ -2005,3 +2005,91 @@ def test_semi_implicit_members_equal_single_steps_on_the_card(dtype, S,
             assert (got.Phi_iters, got.T_iters) == (s1.Phi_iters, s1.T_iters)
             counts.add((got.Phi_iters, got.T_iters))
     assert len(counts) > 1
+
+
+def _diff_problem(dtype, device, S=0.25, n=64):
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
+
+    p = SimParams(nx=n, ny=n, S=S, dtype=dtype, solver=SolverType.SEMI_IMPLICIT, dt=1e-5,
+                  T_tolerance=1e-12, Phi_tolerance=1e-12, T_max_iters=60, Phi_max_iters=60,
+                  differentiable=True, f32_transcendentals=False)
+    F0, U0 = make_initial_fields(p, InitialConditions(circle_center=(2.0, 2.0),
+                                                      circle_radius=0.5, circle_fade=8.0),
+                                 device=device)
+    return p, F0, U0
+
+
+def _diff_rollout(p, F0, device, steps=2):
+    from bachelors_tpu_torch.core.state import make_state
+    from bachelors_tpu_torch.solvers.base import make_stepper
+
+    step = make_stepper(p)
+
+    def f(u):
+        st = make_state(F0, u, p, device=device)
+        for _ in range(steps):
+            st, _ = step(st)
+        return torch.sum(st.F * st.F) + torch.mean(st.U)
+    return f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("S", [0.25, 0.0])
+def test_differentiable_step_on_the_kernels_matches_plain(dtype, S, cuda_device):  # noqa: F811
+    """``SimParams.differentiable`` on the card: the forward, adjoint and
+    tangent solves run on K8, K9 and K10 (a K8, a K9 and a host read a
+    pass, no plain CG iteration), and the gradient and the tangent equal
+    the card's plain backend's within 1e-8 (float64) and 1e-3 (float32) of
+    their largest value: the kernels and torch.sum add in other orders."""
+    from torch.autograd import forward_ad
+
+    p, F0, U0 = _diff_problem(dtype, cuda_device, S)
+    rtol = 1e-8 if dtype == "float64" else 1e-3
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    w = torch.randn(U0.shape, generator=gen, device=cuda_device, dtype=U0.dtype)
+    grads, tangents = [], []
+    for backend in ("auto", "xla"):
+        f = _diff_rollout(p.replace(backend=backend), F0, cuda_device)
+        cuda_cg.reset_launch_counts()
+        cg.reset_host_reads()
+        cg.reset_diff_solves()
+        u = U0.clone().requires_grad_()
+        grads.append(torch.autograd.grad(f(u), u)[0])
+        with forward_ad.dual_level():
+            y = f(forward_ad.make_dual(U0, w))
+            tangents.append(forward_ad.unpack_dual(y).tangent)
+        k8 = cuda_cg.LAUNCHES["cross_matvec_pAp"] + cuda_cg.LAUNCHES["aniso_matvec_pAp"]
+        if backend == "auto":
+            assert cg.DIFF_SOLVES == {"forward": 8, "adjoint": 4, "tangent": 4}
+            assert k8 == cuda_cg.LAUNCHES["update_xr_rr"] == cg.HOST_READS["cg_stop_test"] > 0
+            assert cuda_cg.LAUNCHES["advance_p_inplace"] == sum(cg.DIFF_ITERS.values())
+        else:
+            assert k8 == 0
+    for got, want in ((grads[0], grads[1]), (tangents[0], tangents[1])):
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs().max() / want.abs().max()).item() <= rtol
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda_device):  # noqa: F811
+    """A CUDA tensor that requires grad (or carries a tangent) is refused
+    before the launch; under torch.no_grad the same call launches."""
+    from torch.autograd import forward_ad
+
+    from bachelors_tpu_torch.core.autodiff import SilentGradientError
+
+    A = CrossMatrix(C=1.5, X=-0.1, Y=-0.1, boundary=BoundaryType.PERIODIC)
+    v = torch.randn(64, 64, device=cuda_device).requires_grad_()
+    with pytest.raises(SilentGradientError, match="backend"):
+        cuda_cg.cross_matvec_pAp(A, v)
+    before = cuda_cg.LAUNCHES["cross_matvec_pAp"]
+    with torch.no_grad():
+        Av, _ = cuda_cg.cross_matvec_pAp(A, v)
+    assert cuda_cg.LAUNCHES["cross_matvec_pAp"] == before + 1
+    torch.testing.assert_close(Av, cuda_cg.cross_matvec_pAp_plain(A, v.detach())[0])
+    with forward_ad.dual_level():
+        d = forward_ad.make_dual(v.detach(), torch.ones_like(v))
+        with pytest.raises(SilentGradientError, match="differentiable=True"):
+            cuda_cg.cross_matvec_pAp(A, d)
