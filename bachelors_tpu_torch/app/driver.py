@@ -33,6 +33,11 @@ at their own first step past each event.  Snapshots write member 0 with
 the members' mean and standard deviation maps, and every member's fields
 with their (t, iter, tau) into ``members_####.bin``, from which a run
 resumes; each member's stats go to its own csv (JAX :164-229).
+
+With ``[program] debug = true`` every frame also carries the debug maps
+``grad_Phi``, ``grad_T`` and ``aniso`` after F and U (``app/viewer.
+available_maps``; an ensemble's are member 0's, a mesh's the gathered
+state's), as the JAX driver writes them (JAX :194-209).
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.params import SolverType
-from ..core.state import SimState, make_state, n_members, numpy_dtype, stack_states
+from ..core.state import SimState, make_state, member, n_members, numpy_dtype, stack_states
 from ..io.config import SimConfig, load_config
 from ..io.snapshot import load_bin_maps, make_save_folder, save_bin_maps
 from ..io.stats_io import StatsAccumulator
@@ -54,11 +59,12 @@ from ..models.initial import make_initial_fields
 from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
 from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 from ..parallel.topology import Topology
-from ..solvers.base import make_stepper, unsupported_members
+from ..solvers.base import make_stepper
 from ..solvers.explicit import make_euler_pair_stepper
 from ..solvers.run import END_TOLERANCE, advance_n
 from ..solvers.semi_implicit import cg_branch
 from ..utils.logging import SYSTEM, get_logger
+from .viewer import available_maps
 
 log = get_logger("app")
 
@@ -91,8 +97,6 @@ def check_supported(cfg: SimConfig) -> None:
     todo = []
     if cfg.batch_shards > 1 or (cfg.ensemble > 1 and cfg.shards_y * cfg.shards_x > 1):
         todo.append("[tpu] ensembles on a mesh and batch_shards > 1 (ROADMAP item 7c)")
-    if cfg.ensemble > 1 and unsupported_members(cfg.params):
-        todo.append(unsupported_members(cfg.params))
     if cfg.multihost:
         todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")
     if cfg.interactive:
@@ -102,9 +106,6 @@ def check_supported(cfg: SimConfig) -> None:
         todo.append("[program] run_tests (ROADMAP slice 6, item 17: the selftests)")
     if cfg.snapshot_netcdf:
         todo.append("[snapshot] netcdf (ROADMAP slice 6, item 17: io/netcdf)")
-    if cfg.debug:
-        todo.append("[program] debug maps (ROADMAP slice 1, item 3: "
-                    "debug_maps)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -177,8 +178,8 @@ def _echo_config(cfg: SimConfig, device: torch.device, topo: Topology) -> None:
 
 def _save_members(folder: str, index: int, state: SimState, p) -> dict:
     """An ensemble's members_####.bin: every member's F and U and the
-    packed (t, iter, tau) map (JAX :164-193).  Returns member 0's maps
-    with the members' mean and standard deviation maps."""
+    packed (t, iter, tau) map (JAX :164-193).  Returns the members' mean
+    and standard deviation maps."""
     Fb, Ub = state.F.cpu().numpy(), state.U.cpu().numpy()
     B = Fb.shape[0]
     if 3 * B <= p.nx * p.ny:
@@ -196,7 +197,7 @@ def _save_members(folder: str, index: int, state: SimState, p) -> dict:
     else:
         log.warn(f"ensemble of {B} too large to pack resume metadata into a "
                  f"{p.ny}x{p.nx} map; members file skipped")
-    return {"F": Fb[0], "U": Ub[0], "F_mean": Fb.mean(axis=0), "F_std": Fb.std(axis=0),
+    return {"F_mean": Fb.mean(axis=0), "F_std": Fb.std(axis=0),
             "U_mean": Ub.mean(axis=0), "U_std": Ub.std(axis=0)}
 
 
@@ -208,18 +209,21 @@ def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
     stats_m{b:03d}.csv (JAX :219-225)."""
     p = cfg.params
     if n_members(state):
-        maps = _save_members(folder, index, state, p)
-        t, it, tau = state.t[0], state.iter[0], state.tau[0]
+        extra = _save_members(folder, index, state, p)
+        state = member(state, 0)  # the frame's maps are member 0's (JAX :194)
     else:
+        extra = {}
         state = gather_state(state)  # a mesh's shards joined: the same bytes
-        maps = {"F": state.F.cpu().numpy(), "U": state.U.cpu().numpy()}
-        t, it, tau = state.t, state.iter, state.tau
+    # F, U, the debug maps, an ensemble's mean and std maps, RKM's tau: JAX's
+    # names in JAX's order (JAX :199-209)
+    maps = available_maps(state, cfg, cfg.debug)
+    maps.update(extra)
     if p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE:
         # the adaptive step size as a constant full map (the .bin header
         # fixes every map to nx*ny), so a resume continues the controller
-        maps["tau"] = np.full((p.ny, p.nx), float(tau))
+        maps["tau"] = np.full((p.ny, p.nx), float(state.tau))
     save_bin_maps(os.path.join(folder, f"maps_{index:04d}.bin"), maps,
-                  p.nx, p.ny, p.dx, p.dy, float(t), int(it))
+                  p.nx, p.ny, p.dx, p.dy, float(state.t), int(state.iter))
     for b, a in enumerate(acc if isinstance(acc, list) else [acc] if acc else []):
         name = "stats.csv" if b == 0 else f"stats_m{b:03d}.csv"
         a.save_csv(os.path.join(folder, name), p.nx, p.ny, p.dt)

@@ -132,11 +132,13 @@
 //     whatever it moves (K15.1 at 256^2, 0.79 MB, PERF.md §6), so the
 //     interior blocks' direct reads take off a few percent at most.
 //
-// K8, K9, K10 and K14 over members: the same sites as `jax.vmap` of the
-//     semi-implicit step runs them, each pallas_call's grid lifted by a
-//     leading member dimension.  Each kernel's body runs unchanged on the
-//     (ny, nx) slice of the member its blocks serve (physics.cuh:
-//     `Members`; y in K8, K9 and K10's 1D grids, z in K14's 2D grid), so
+// K8, K8b, K9, K10 and K14 over members: the same sites as `jax.vmap` of
+//     the semi-implicit step runs them (K8b where it runs `cg_solve_fused`,
+//     JAX's `solvers/semi_implicit.py:186-193`, :217-218), each
+//     pallas_call's grid lifted by a leading member dimension.  Each
+//     kernel's body runs unchanged on the (ny, nx) slice of the member its
+//     blocks serve (physics.cuh: `Members`; y in K8's, K8b's, K9's and
+//     K10's 1D grids, z in K14's 2D grid), so
 //     a member's outputs and dot products equal the unbatched kernel's bit
 //     for bit; the per-member scalars are (B,) device vectors indexed by
 //     member id, and K8's and K9's lanes and ticket are one set per launch
@@ -180,6 +182,14 @@ __device__ __forceinline__ Real block_sum(Real v, Real* red) {
   }
   return v;
 }
+
+// Each operation rounded on its own: cg.cu is built with FMA contraction.
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // ---------------------------------------------------------------- K8 ----
 
@@ -315,30 +325,36 @@ __global__ void __launch_bounds__(kCgThreads)
 // buffer), and its <p, A p> into pAp[id[z]].  Each slot's counter wraps
 // back to 0 with its member's last draw, so a launch over any subset of
 // the members leaves every counter as it found it.
-template <bool WITH_S, class Real>
+//
+// BLEND: K8b over members, the same body reading p' = r + beta p of its
+// member (r and p_out at the member's offset too), beta = rr_new[id] /
+// (rr[id] < eps ? eps : rr[id]) formed by each block from the two (B,)
+// <r, r> vectors, rounded as the single fused loop's two torch ops
+// (`div_rn`, the select keeping a NaN rr as torch.clamp does), as K10 over
+// members forms it.  So p', A p' and <p', A p'> equal the single K8b's
+// launched with that loop's beta, bit for bit.
+template <bool WITH_S, bool BLEND, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     matvec_pAp_members_kernel(const Real* __restrict__ p, const Real* __restrict__ s,
+                              const Real* __restrict__ r, const Real* __restrict__ rr_new,
+                              const Real* __restrict__ rr, Real eps, Real* __restrict__ p_out,
                               Real* __restrict__ out, Real* partials, Real* __restrict__ pAp,
                               int ny, int nx, int tiles_x, int tiles, int stride, int bc,
                               Real C, Real X, Real Y, const __grid_constant__ Members<Real> m) {
+  const int id = m.id[blockIdx.y];
   const size_t off = member_offset(m, blockIdx.y, ny, nx);
   Real* lanes = partials + size_t(blockIdx.y) * size_t(stride);
   unsigned* ticket = reinterpret_cast<unsigned*>(lanes + stride - 1);
-  matvec_pAp_block<WITH_S, false, Real>(p + off, WITH_S ? s + off : nullptr, nullptr, nullptr,
-                                        nullptr, out + off, lanes, ticket,
-                                        pAp + m.id[blockIdx.y], ny, nx, tiles_x, tiles, bc, C,
-                                        X, Y, whole_grid<Real>());
+  Real beta = Real(0);
+  if (BLEND) beta = div_rn(rr_new[id], rr[id] < eps ? eps : rr[id]);
+  matvec_pAp_block<WITH_S, BLEND, Real>(p + off, WITH_S ? s + off : nullptr,
+                                        BLEND ? r + off : nullptr, &beta,
+                                        BLEND ? p_out + off : nullptr, out + off, lanes, ticket,
+                                        pAp + id, ny, nx, tiles_x, tiles, bc, C, X, Y,
+                                        whole_grid<Real>());
 }
 
 // ---------------------------------------------------------------- K9 ----
-
-// Each operation rounded on its own: cg.cu is built with FMA contraction.
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // Chunks of a block's pass of K9: their warp sums wait in shared memory,
 // and the block meets at one barrier a pass, not one a chunk.
@@ -663,20 +679,32 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 // (K14) the launch's members.  K8's and K9's partials hold `count` slots
 // of bt_cg_num_partials(ny, nx) values, each slot's ticket zeroed once.
 
+// K8 over members (r null) or K8b over members (r, rr_new, rr and p_out
+// given)
 template <class Real>
-int matvec_pAp_members(const Real* p, const Real* s, Real* out, Real* partials, Real* pAp,
-                       int ny, int nx, int bc, Real C, Real X, Real Y, const Members<Real>* m,
-                       int count, cudaStream_t stream) {
+int matvec_pAp_members(const Real* p, const Real* s, const Real* r, const Real* rr_new,
+                       const Real* rr, Real eps, Real* p_out, Real* out, Real* partials,
+                       Real* pAp, int ny, int nx, int bc, Real C, Real X, Real Y,
+                       const Members<Real>* m, int count, cudaStream_t stream) {
   if (!members_ok(count)) return int(cudaErrorInvalidValue);
   const dim3 g = matvec_grid(ny, nx);
   const int tiles = int(g.x * g.y), stride = cg_partials(ny, nx) + 1;
   const dim3 grid(tiles < kSumThreads ? tiles : kSumThreads, count), block(kCgBlockX, kCgBlockY);
-  if (s != nullptr)
-    matvec_pAp_members_kernel<true><<<grid, block, 0, stream>>>(
-        p, s, out, partials, pAp, ny, nx, int(g.x), tiles, stride, bc, C, X, Y, *m);
-  else
-    matvec_pAp_members_kernel<false><<<grid, block, 0, stream>>>(
-        p, s, out, partials, pAp, ny, nx, int(g.x), tiles, stride, bc, C, X, Y, *m);
+#define BT_MATVEC_MEMBERS(WS, BL)                                                             \
+  matvec_pAp_members_kernel<WS, BL><<<grid, block, 0, stream>>>(                              \
+      p, s, r, rr_new, rr, eps, p_out, out, partials, pAp, ny, nx, int(g.x), tiles, stride, bc, \
+      C, X, Y, *m)
+  if (r != nullptr) {
+    if (s != nullptr)
+      BT_MATVEC_MEMBERS(true, true);
+    else
+      BT_MATVEC_MEMBERS(false, true);
+  } else if (s != nullptr) {
+    BT_MATVEC_MEMBERS(true, false);
+  } else {
+    BT_MATVEC_MEMBERS(false, false);
+  }
+#undef BT_MATVEC_MEMBERS
   return int(cudaGetLastError());
 }
 
@@ -813,6 +841,10 @@ int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real
 //   K8 bt_matvec_pAp_members: out = A p and pAp[id] = <p, A p> (s null:
 //      the cross form; else the stacked maps); partials holds count *
 //      bt_cg_num_partials(ny, nx) values, each slot's ticket zeroed once.
+//   K8b bt_advance_p_matvec_members: p_out = p' = r + beta p of member id,
+//      beta = rr_new[id] / (rr[id] < eps ? eps : rr[id]), out = A p' and
+//      pAp[id] = <p', A p'>; partials as K8's, shared with it and K9 on one
+//      stream.  p_out and out overlap none of r, p, s and each other.
 //   K9 bt_update_xr_rr_members: x, r of member id with alpha = rr[id] /
 //      (pAp[id] < eps ? eps : pAp[id]), rr_out[id] = <r', r'>; partials as
 //      K8's, shared with it on one stream.
@@ -824,8 +856,18 @@ int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real
                                   int ny, int nx, int bc, S C, S X, S Y,              \
                                   const bt::Members<S>* m, int count,                 \
                                   cudaStream_t stream) {                              \
-    return bt::matvec_pAp_members<S>(p, s, out, partials, pAp, ny, nx, bc, C, X, Y, m, \
-                                     count, stream);                                  \
+    return bt::matvec_pAp_members<S>(p, s, nullptr, nullptr, nullptr, S(0), nullptr, out, \
+                                     partials, pAp, ny, nx, bc, C, X, Y, m, count,    \
+                                     stream);                                         \
+  }                                                                                    \
+  int bt_advance_p_matvec_members_##SFX(const S* r, const S* p, const S* s,            \
+                                        const S* rr_new, const S* rr, S eps,           \
+                                        S* p_out, S* out, S* partials, S* pAp, int ny, \
+                                        int nx, int bc, S C, S X, S Y,                 \
+                                        const bt::Members<S>* m, int count,            \
+                                        cudaStream_t stream) {                         \
+    return bt::matvec_pAp_members<S>(p, s, r, rr_new, rr, eps, p_out, out, partials,  \
+                                     pAp, ny, nx, bc, C, X, Y, m, count, stream);     \
   }                                                                                    \
   int bt_update_xr_rr_members_##SFX(S* x, S* r, const S* p, const S* Ap, const S* rr, \
                                     const S* pAp, S eps, S* partials, S* rr_out,      \

@@ -177,6 +177,13 @@
 //     of a stack (blockIdx.z), as `jax.vmap` of the semi-implicit step
 //     runs `si_prepare_pallas`; bit for bit K7 per member.
 //
+// K3 over members bt_rk4_full_members: K3's body on each member's fields
+//     of a stack (blockIdx.z), as `jax.vmap` of the RK4 step runs
+//     `rk4_full_pallas` (:1156; at float64 `pallas_dd.rk4_full_dd` through
+//     `_fullstep_impl_dd` :607) from RK4_FULLSTEP_MIN_CELLS cells a member;
+//     each member's forcing its own, bit for bit K3 per member.  Bound like
+//     K3, B times the work.
+//
 // K12.7 bt_si_prepare_halo: replaces `si_prepare_pallas_sharded` (:625,
 //     through `_stage_call_sharded` :705 -> `_call` :539 in mode si_prepare).
 //     K7 with a Halo: at a seam it reads the neighbour's edge row or column
@@ -1183,11 +1190,12 @@ __device__ __forceinline__ void rk4_stages(const Tile& T, Rk4Smem<Real>& s,
 // With ghosts 4 deep (K3's apron), K12.6 on a y-mesh shard and the K13
 // twin on any shard, as K12.2 is K2 on a y-mesh shard.
 template <bool GHOSTS, bool ISO, class Real>
-__global__ void __launch_bounds__(kTileThreads)
-    rk4_full_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
-                    Real* __restrict__ outF, Real* __restrict__ outU,
-                    Apron<Real> ap, int ny, int nx, Real h, Real dt, Real c6, Real d,
-                    Real fu, PhysParams<Real> P) {
+__device__ __forceinline__ void rk4_full_tile(const Real* __restrict__ F,
+                                              const Real* __restrict__ U,
+                                              Real* __restrict__ outF, Real* __restrict__ outU,
+                                              const Apron<Real>& ap, int ny, int nx, Real h,
+                                              Real dt, Real c6, Real d, Real fu,
+                                              const PhysParams<Real>& P) {
   constexpr int A = kK3Apron;
   Rk4Smem<Real>& s = *reinterpret_cast<Rk4Smem<Real>*>(tile_smem);
   const Tile T = block_tile<A>(ny, nx, ap);
@@ -1197,6 +1205,34 @@ __global__ void __launch_bounds__(kTileThreads)
     rk4_stages<false, ISO>(T, s, P, h, dt, c6, d, fu, outF, outU);
   else
     rk4_stages<true, ISO>(T, s, P, h, dt, c6, d, fu, outF, outU);
+}
+
+template <bool GHOSTS, bool ISO, class Real>
+__global__ void __launch_bounds__(kTileThreads)
+    rk4_full_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                    Real* __restrict__ outF, Real* __restrict__ outU,
+                    Apron<Real> ap, int ny, int nx, Real h, Real dt, Real c6, Real d,
+                    Real fu, PhysParams<Real> P) {
+  rk4_full_tile<GHOSTS, ISO>(F, U, outF, outU, ap, ny, nx, h, dt, c6, d, fu, P);
+}
+
+// K3 over members: one RK4 step of every member the launch steps, each with
+// its own forcing, on K3's tiles (blockIdx.x, .y) of its own fields, the
+// launch's member z in blockIdx.z (`rkm_attempt_members_kernel`'s layout).
+// Each block runs K3's body on its member's slice, so member b's step is
+// K3's on member b's fields bit for bit.  Bound like K3, B times the work:
+// at 4096x2048, the size from which the RK4 path takes it, one member is
+// 16384 tiles, some 41 waves at three blocks an SM, so the member axis adds
+// no parallelism the card lacks and B members take about B times K3's time.
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(kTileThreads)
+    rk4_full_members_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                            Real* __restrict__ outF, Real* __restrict__ outU, int ny, int nx,
+                            Real h, Real dt, Real c6, Real d,
+                            const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const size_t off = member_offset(m, blockIdx.z, ny, nx);
+  rk4_full_tile<false, ISO>(F + off, U + off, outF + off, outU + off, whole_apron<Real>(ny, nx),
+                            ny, nx, h, dt, c6, d, m.fu[blockIdx.z], P);
 }
 
 // ---------------------------------------------------------------- K6 ----
@@ -1747,6 +1783,32 @@ int rkm_attempt_members_on(const S* F, const S* U, S* outF, S* outU, S* partials
   return int(cudaGetLastError());
 }
 
+// K3 over members
+template <class S, bool ISO>
+int rk4_full_members_on(const S* F, const S* U, S* outF, S* outU, int ny, int nx, S h, S dt,
+                        S c6, S d, const bt::Members<Ar<S>>* m, int count,
+                        const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  using R = Ar<S>;
+  constexpr int smem = int(sizeof(bt::Rk4Smem<R>));
+  static const cudaError_t attr = allow_smem(bt::rk4_full_members_kernel<ISO, R>, smem);
+  if (attr != cudaSuccess) return int(attr);
+  dim3 grid = tile_grid(ny, nx);
+  grid.z = count;
+  bt::rk4_full_members_kernel<ISO><<<grid, bt::kTileThreads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ny, nx, R(h), R(dt), R(c6), R(d), *m, *P);
+  return int(cudaGetLastError());
+}
+
+// K3 over members: the isotropic instantiation when S = 0
+template <class S>
+int rk4_full_members(const S* F, const S* U, S* outF, S* outU, int ny, int nx, S h, S dt, S c6,
+                     S d, const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                     cudaStream_t stream) {
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  auto on = is_zero(P->S) ? rk4_full_members_on<S, true> : rk4_full_members_on<S, false>;
+  return on(F, U, outF, outU, ny, nx, h, dt, c6, d, m, count, P, stream);
+}
+
 template <class S>
 int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S* err, int ny,
                         int nx, S d, const bt::Members<Ar<S>>* m, int count,
@@ -1902,6 +1964,8 @@ int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S
 //      values.
 //   K7 bt_si_prepare_members: K7 on each member's fields; s null when the
 //      map does not vary per cell, as for K7.
+//   K3 bt_rk4_full_members: one RK4 step of each member, h, dt, c6 and d
+//      shared and each member's forcing its own.
 #define BT_MEMBERS_ENTRIES(SFX, S)                                                       \
   int bt_blend_rhs_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,   \
                                  const S* F2, const S* U2, const S* F3, const S* U3,   \
@@ -1932,6 +1996,13 @@ int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S
                                   int count, const PhysParams<Ar<S>>* P,               \
                                   cudaStream_t stream) {                               \
     return si_prepare_members<S>(F, U, r0, uterm, s, ny, nx, m, count, P, stream);     \
+  }                                                                                     \
+  int bt_rk4_full_members_##SFX(const S* F, const S* U, S* outF, S* outU, int ny,      \
+                                int nx, S h, S dt, S c6, S d,                          \
+                                const bt::Members<Ar<S>>* m, int count,                \
+                                const PhysParams<Ar<S>>* P, cudaStream_t stream) {     \
+    return rk4_full_members<S>(F, U, outF, outU, ny, nx, h, dt, c6, d, m, count, P,    \
+                               stream);                                                \
   }
 
 // The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +

@@ -169,6 +169,24 @@ def rhs_neighbours(F5, U5, p: SimParams, fu=0.0):
     return dt_F, dt_U
 
 
+def debug_maps(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams):
+    """The gradient-norm and anisotropy debug maps (`simulation.cu:245-281`)
+    from BC-padded fields: (|grad Phi|, |grad T|, g(theta)), line for line
+    ``bachelors_tpu/models/allen_cahn.debug_maps`` (:133).  The reference's
+    debug kernel takes *unscaled* central differences (no 1/2dx), and so do
+    both packages.  |grad T| is a float32 sqrt cast back to the field dtype,
+    correctly rounded as XLA's (``sqrt_rounded``).  Plain torch ops on any
+    device: the JAX package leaves this to XLA, and a run computes it once a
+    frame, not once a step."""
+    gFx = Fp[1:-1, 2:] - Fp[1:-1, :-2]
+    gFy = Fp[2:, 1:-1] - Fp[:-2, 1:-1]
+    gUx = Up[1:-1, 2:] - Up[1:-1, :-2]
+    gUy = Up[2:, 1:-1] - Up[:-2, 1:-1]
+    g_theta, grad_F = _anisotropy(gFx, gFy, p)
+    grad_U = sqrt_rounded(gUx.float() ** 2 + gUy.float() ** 2).to(Up.dtype)
+    return grad_F, grad_U, g_theta
+
+
 def semi_implicit_prepare(Fp: torch.Tensor, Up: torch.Tensor, p: SimParams):
     """The semi-implicit phase system in DELTA form: residual r0 and
     anisotropy map s, from BC-padded fields (`simulation.cu:798-871`).

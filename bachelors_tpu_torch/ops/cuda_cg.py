@@ -91,7 +91,8 @@ LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
             "cross_matvec_pAp_members": 0, "aniso_matvec_pAp_members": 0,
             "update_xr_rr_members": 0, "advance_p_members": 0,
             "cross_residual_members": 0, "aniso_residual_members": 0,
-            "heat_residual_members": 0}
+            "heat_residual_members": 0, "cross_advance_p_matvec_members": 0,
+            "aniso_advance_p_matvec_members": 0}
 
 
 def reset_launch_counts() -> None:
@@ -351,6 +352,43 @@ def advance_p_members_plain(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tens
     return p
 
 
+def _member_beta(rr_new: torch.Tensor, rr: torch.Tensor, epsilon: float) -> torch.Tensor:
+    """A member's beta as the single fused loop forms it (``solvers/cg.py``):
+    rr_new / max(rr, epsilon), ``torch.clamp`` keeping a NaN."""
+    return rr_new / torch.clamp(rr, min=epsilon)
+
+
+def cross_advance_p_matvec_members_plain(A: CrossMatrix, r: torch.Tensor, p: torch.Tensor,
+                                         rr_new: torch.Tensor, rr: torch.Tensor,
+                                         epsilon: float, pAp: Optional[torch.Tensor] = None,
+                                         ids=None, out: Optional[torch.Tensor] = None,
+                                         p_out: Optional[torch.Tensor] = None):
+    """``cross_advance_p_matvec_plain`` on each member b of ``ids`` with
+    beta = rr_new[b] / max(rr[b], epsilon): (p_out, out, pAp) with p_out[b]
+    = p'[b] = r[b] + beta p[b], out[b] = A p'[b] and pAp[b] = <p'[b],
+    A p'[b]>."""
+    return _each_member(
+        lambda rb, pb, nb, ob: cross_advance_p_matvec_plain(A, rb, pb, _member_beta(nb, ob,
+                                                                                    epsilon)),
+        ids, (torch.empty_like(p) if p_out is None else p_out,
+              torch.empty_like(p) if out is None else out, _vec(p, pAp)), r, p, rr_new, rr)
+
+
+def aniso_advance_p_matvec_members_plain(A: AnisotropyMatrix, s: torch.Tensor, r: torch.Tensor,
+                                         p: torch.Tensor, rr_new: torch.Tensor,
+                                         rr: torch.Tensor, epsilon: float,
+                                         pAp: Optional[torch.Tensor] = None, ids=None,
+                                         out: Optional[torch.Tensor] = None,
+                                         p_out: Optional[torch.Tensor] = None):
+    """``cross_advance_p_matvec_members_plain`` for the anisotropy operator,
+    member b with its own map s[b]."""
+    return _each_member(
+        lambda sb, rb, pb, nb, ob: aniso_advance_p_matvec_plain(
+            A, sb, rb, pb, _member_beta(nb, ob, epsilon)),
+        ids, (torch.empty_like(p) if p_out is None else p_out,
+              torch.empty_like(p) if out is None else out, _vec(p, pAp)), s, r, p, rr_new, rr)
+
+
 def cross_residual_members_plain(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
                                  ids=None) -> torch.Tensor:
     """``cross_residual_plain`` on each member of ``ids``, in a new stack."""
@@ -392,6 +430,8 @@ _ENTRIES.update({f"{name}_halo": _ENTRIES[name][:-1] + [PTR, PTR, INT, PTR]
 # to a ``cuda_rhs._Members``, only its ids read) and their count.
 _MEMBERS_ENTRIES = {
     "matvec_pAp_members": [PTR] * 5 + [INT, INT, INT] + [REAL] * 3 + [PTR, INT, PTR],
+    "advance_p_matvec_members": [PTR] * 5 + [REAL] + [PTR] * 4 + [INT, INT, INT] + [REAL] * 3
+    + [PTR, INT, PTR],
     "update_xr_rr_members": [PTR] * 6 + [REAL, PTR, PTR, INT, INT, PTR, INT, PTR],
     "advance_p_members": [PTR] * 4 + [REAL, INT, INT, PTR, INT, PTR],
     "si_residual_members": [PTR] * 6 + [INT] * 4 + [REAL] * 4 + [PTR, INT, PTR]}
@@ -730,6 +770,62 @@ def aniso_matvec_pAp_members(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tens
         return aniso_matvec_pAp_members_plain(A, s, v, pAp, ids, out)
     return _matvec_pAp_members("aniso_matvec_pAp_members", v, s, pAp, ids, out, A.boundary,
                                A.Cm1, A.X, A.Y)
+
+
+def _advance_p_matvec_members(name, r, p, s, rr_new, rr, epsilon, pAp, ids, out, p_out, bc, C,
+                              X, Y):
+    out = torch.empty_like(p) if out is None else out
+    p_out = torch.empty_like(p) if p_out is None else p_out
+    pAp = _vec(p, pAp)
+    fields = (r, p, out, p_out) if s is None else (r, p, s, out, p_out)
+    dtype, index = _members_checked(fields, (rr_new, rr, pAp))
+    B, ny, nx = p.shape
+    partials = _member_partials(p, dtype, index)
+    for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, name, fn("advance_p_matvec_members", dtype), index,
+               r.data_ptr(), p.data_ptr(), None if s is None else s.data_ptr(),
+               rr_new.data_ptr(), rr.data_ptr(), float(epsilon), p_out.data_ptr(),
+               out.data_ptr(), partials.data_ptr(), pAp.data_ptr(), ny, nx, _BC_CODE[bc],
+               float(C), float(X), float(Y), ctypes.addressof(m), count)
+    return p_out, out, pAp
+
+
+def cross_advance_p_matvec_members(A: CrossMatrix, r: torch.Tensor, p: torch.Tensor,
+                                   rr_new: torch.Tensor, rr: torch.Tensor, epsilon: float,
+                                   pAp: Optional[torch.Tensor] = None, ids=None,
+                                   out: Optional[torch.Tensor] = None,
+                                   p_out: Optional[torch.Tensor] = None):
+    """K8b over the members ``ids`` of stacked (B, ny, nx) r and p, cross
+    form, one launch for up to MAX_MEMBERS of them: p_out[b] = p'[b] = r[b]
+    + beta p[b] with beta = rr_new[b] / max(rr[b], epsilon) formed in the
+    kernel from the two (B,) device vectors, out[b] = A p'[b] and pAp[b] =
+    <p'[b], A p'[b]> (a (B,) device vector, new when not given), each the
+    single K8b's with the fused loop's beta, bit for bit; the other rows
+    and entries are left as they are.  Returns (p_out, out, pAp).  ``out``
+    and ``p_out`` as for K8b: dead buffers sharing no storage with r, p or
+    each other."""
+    _check_advance_out(r, p, None, out, p_out)
+    if not cuda_rhs._on_cuda(p, "cross_advance_p_matvec_members"):
+        return cross_advance_p_matvec_members_plain(A, r, p, rr_new, rr, epsilon, pAp, ids,
+                                                    out, p_out)
+    return _advance_p_matvec_members("cross_advance_p_matvec_members", r, p, None, rr_new, rr,
+                                     epsilon, pAp, ids, out, p_out, A.boundary, A.C, A.X, A.Y)
+
+
+def aniso_advance_p_matvec_members(A: AnisotropyMatrix, s: torch.Tensor, r: torch.Tensor,
+                                   p: torch.Tensor, rr_new: torch.Tensor, rr: torch.Tensor,
+                                   epsilon: float, pAp: Optional[torch.Tensor] = None,
+                                   ids=None, out: Optional[torch.Tensor] = None,
+                                   p_out: Optional[torch.Tensor] = None):
+    """K8b over members, per-cell form: ``cross_advance_p_matvec_members``
+    with each member's own map s[b] (s stacked as p)."""
+    _check_advance_out(r, p, s, out, p_out)
+    if not cuda_rhs._on_cuda(p, "aniso_advance_p_matvec_members"):
+        return aniso_advance_p_matvec_members_plain(A, s, r, p, rr_new, rr, epsilon, pAp, ids,
+                                                    out, p_out)
+    return _advance_p_matvec_members("aniso_advance_p_matvec_members", r, p, s, rr_new, rr,
+                                     epsilon, pAp, ids, out, p_out, A.boundary, A.Cm1, A.X,
+                                     A.Y)
 
 
 def update_xr_rr_members(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor, Ap: torch.Tensor,

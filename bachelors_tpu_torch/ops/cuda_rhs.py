@@ -123,7 +123,7 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rk4_full_sharded": 0, "si_prepare_sharded": 0, "rkm_attempt_apron": 0,
             "euler_steps_apron": 0, "rk4_full_apron": 0, "blend_rhs_members": 0,
             "rk4_final_stage_members": 0, "rkm_attempt_members": 0,
-            "si_prepare_members": 0}
+            "si_prepare_members": 0, "rk4_full_members": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -401,6 +401,15 @@ def rkm_attempt_members_plain(F: torch.Tensor, U: torch.Tensor, taus, p: SimPara
         oF[b], oU[b], emax[b] = rkm_attempt_plain(F[b], U[b], taus[b], p, f, dirichlet_value,
                                                   k1=k1)
     return oF, oU, emax
+
+
+def rk4_full_members_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
+                           dirichlet_value=0.0, ids=None, out=None) -> Pair:
+    """``rk4_full_plain`` on each member of ``ids``, into ``out``."""
+    oF, oU = _member_outputs(F, out)
+    for b in member_ids(F.shape[0], ids):
+        oF[b], oU[b] = rk4_full_plain(F[b], U[b], p, per_member(fu, b), dirichlet_value)
+    return oF, oU
 
 
 def si_prepare_members_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, ids=None):
@@ -749,6 +758,7 @@ _MEMBERS_ENTRIES = {
                                                                       _PTR],
     "rkm_attempt_members": [_PTR] * 6 + [_INT, _INT, _REAL, _PTR, _INT, _PHYS_PTR, _PTR],
     "si_prepare_members": [_PTR] * 5 + [_INT, _INT, _PTR, _INT, _PHYS_PTR, _PTR],
+    "rk4_full_members": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 4 + [_PTR, _INT, _PHYS_PTR, _PTR],
 }
 # The sizes of the scratch buffers and of the tile kernels' shared memory
 _HELPERS = {"rkm_num_blocks": [_INT, _INT], "rkm_final_scratch": [],
@@ -1061,6 +1071,26 @@ def rkm_attempt_members(F: torch.Tensor, U: torch.Tensor, taus, p: SimParams, fu
                emax.data_ptr(), p.ny, p.nx, float(dirichlet_value), ctypes.addressof(m),
                count, _phys_ref(p, dtype))
     return oF, oU, emax
+
+
+def rk4_full_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu=0.0,
+                     dirichlet_value=0.0, ids=None, out=None) -> Pair:
+    """K3 over the members ``ids`` of stacked (B, ny, nx) fields: one whole
+    RK4 step of each, in one launch for up to MAX_MEMBERS of them, dt shared
+    and ``fu`` per member (or one for all); member b's rows of ``out`` (new
+    tensors by default) are ``rk4_full`` of its fields bit for bit, the
+    other rows left as they are."""
+    if not _on_cuda(F, "rk4_full_members"):
+        return rk4_full_members_plain(F, U, p, fu, dirichlet_value, ids, out)
+    B = F.shape[0]
+    oF, oU = _member_outputs(F, out)
+    dtype, index = _check_members(p, B, [F, U, oF, oU])
+    for m, count in _member_launches(dtype, member_ids(B, ids), None, fu):
+        launch(LAUNCHES, "rk4_full_members", fn("rk4_full_members", dtype), index,
+               F.data_ptr(), U.data_ptr(), oF.data_ptr(), oU.data_ptr(), p.ny, p.nx,
+               float(p.dt / 2), float(p.dt), float(p.dt / 6), float(dirichlet_value),
+               ctypes.addressof(m), count, _phys_ref(p, dtype))
+    return oF, oU
 
 
 def si_prepare_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, ids=None):

@@ -19,10 +19,9 @@ from ..models import exact as exact_mod
 from ..ops.reductions import stats_delta
 from ..parallel.topology import ONE_DEVICE, Topology
 from .corrector import corrector_step
-from .explicit import (RK4_FULLSTEP_MIN_CELLS, Controller, euler_step_based, euler_step_members,
-                       rk4_step, rk4_step_members, rkm_adaptive_members, rkm_adaptive_step)
-from .semi_implicit import (FUSED_MEMBERS_TODO, _cg_variant, semi_implicit_step_based,
-                            semi_implicit_step_members)
+from .explicit import (Controller, euler_step_based, euler_step_members, rk4_step,
+                       rk4_step_members, rkm_adaptive_members, rkm_adaptive_step)
+from .semi_implicit import semi_implicit_step_based, semi_implicit_step_members
 
 Stepper = Callable[[SimState], Tuple[SimState, StepStats]]
 
@@ -44,18 +43,6 @@ def exact_fields(p: SimParams, F: torch.Tensor, t: float, y0: int = 0, x0: int =
                               y0=y0, x0=x0, shape=F.shape)
     tt = torch.tensor(t, dtype=F.dtype, device=F.device)
     return exact_mod.exact_phi(tt, r), exact_mod.exact_u(tt, r)
-
-
-def unsupported_members(p: SimParams):
-    """What an ensemble on one device does not take yet, with the ROADMAP
-    item that brings it, or None: the members stepper never switches
-    quietly to another route."""
-    if p.solver == SolverType.SEMI_IMPLICIT and _cg_variant(p.ny * p.nx) == "fused":
-        return FUSED_MEMBERS_TODO
-    if p.solver == SolverType.EXPLICIT_RK4 and p.N >= RK4_FULLSTEP_MIN_CELLS:
-        return (f"RK4 ensembles from {RK4_FULLSTEP_MIN_CELLS} cells a member (K3 over "
-                "members; ROADMAP item 7d)")
-    return None
 
 
 DIFFERENTIABLE_TODO = ("differentiable runs on meshes and over ensembles (JAX's cg_solve_diff "
@@ -172,12 +159,11 @@ MembersStepper = Callable[..., Tuple[SimState, StepStats]]
 
 def make_ensemble_stepper(p: SimParams) -> MembersStepper:
     """The step of an ensemble of stacked (B, ny, nx) members on one
-    device, JAX's ``jax.vmap(make_stepper(p))``: every solver (but the
-    cases of ``unsupported_members``), each pass over the members one
-    batched launch (``solvers/explicit.py``), and for semi-implicit each CG
-    round one launch of each kernel over the members still live
-    (``solvers/semi_implicit.py``).  Member b of the result is
-    ``make_stepper(p)`` of member b bit for bit: t, iter and tau per member
+    device, JAX's ``jax.vmap(make_stepper(p))``: every solver, each pass
+    over the members one batched launch (``solvers/explicit.py``), and for
+    semi-implicit each CG round one launch of each kernel over the members
+    still live (``solvers/semi_implicit.py``), on either CG variant.
+    Member b of the result is ``make_stepper(p)`` of member b bit for bit: t, iter and tau per member
     as its single run takes them, and its CG iteration counts.  The stats
     are the members' stacked (``StepStats``), ``attempts`` each member's
     passes; ``.rounds`` on the stepper counts the batched attempts of its
@@ -188,9 +174,6 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
         raise ValueError(f"unsupported solver {p.solver}")
     if p.differentiable:
         raise NotImplementedError(f"not ported yet: {DIFFERENTIABLE_TODO}")
-    todo = unsupported_members(p)
-    if todo:
-        raise NotImplementedError(f"not ported yet: {todo}")
     adaptive = p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE
 
     def finish(state, ids, nF, nU, phi_iters=None, attempts=None, used=None, tau_next=None,

@@ -45,16 +45,18 @@ off, on the kernels (K8, K9, K10) where the caller passes them, and the
 gradients come from the implicit function theorem, never from the
 iterations.
 
-``cg_solve_members`` and ``pcg_solve_members`` solve the systems of an
-ensemble's members at once, stacked (B, ny, nx), as ``jax.vmap`` runs the
-vmapped ``lax.while_loop`` (JAX :100-130): one body for every member, each
-member's carry frozen once its own stop test holds, so each keeps its own
-iteration count.  Here a round of the loop is one batched K8, K9 and K10
-launch over the members still live (``ops/cuda_cg.*_members``) and ONE
-host read of their (B,) <r', r'> (``HOST_READS["cg_stop_test_members"]``);
-a member that stops or reaches ``max_iters`` leaves the live set and its
-rows are never written again.  Member b's x, iteration count and stop
-equal ``cg_solve`` on member b's system bit for bit.
+``cg_solve_members``, ``cg_solve_fused_members`` and ``pcg_solve_members``
+solve the systems of an ensemble's members at once, stacked (B, ny, nx),
+as ``jax.vmap`` runs the vmapped ``lax.while_loop`` (JAX :100-130): one
+body for every member, each member's carry frozen once its own stop test
+holds, so each keeps its own iteration count.  Here a round of the loop is
+one batched K8, K9 and K10 launch over the members still live (the fused
+variant: K9 and K8b, after one K8 a solve; ``ops/cuda_cg.*_members``) and
+ONE host read of their (B,) <r', r'>
+(``HOST_READS["cg_stop_test_members"]``); a member that stops or reaches
+``max_iters`` leaves the live set and its rows are never written again.
+Member b's x, iteration count and stop equal ``cg_solve`` (or
+``cg_solve_fused``) on member b's system bit for bit.
 """
 from __future__ import annotations
 
@@ -557,15 +559,80 @@ def cg_solve_members(
             iters[m] += 1
         live = [m for m in go if iters[m] < max_iters]
         k += 1
+    return x, _members_result(b, ids, bufs, last, iters, N, max_iters, k)
+
+
+def _members_result(b: torch.Tensor, ids, bufs, last, iters, N, max_iters: int,
+                    rounds: int) -> "CGMembersResult":
+    """A batched solve's result: each member's error from the <r, r> buffer
+    its last round wrote (``last``), its count and stop."""
     if len(set(last)) == 1:
         rr = bufs[last[0]]
     else:
         rr = torch.where(torch.tensor(last, dtype=torch.bool, device=b.device), bufs[1], bufs[0])
     iters = np.array(iters, np.int64)
-    on = np.zeros(B, bool)
+    on = np.zeros(b.shape[0], bool)
     on[ids] = True
-    return x, CGMembersResult(error=torch.sqrt(rr / float(N)), iters=iters,
-                              converged=on & (iters != max_iters), rounds=k)
+    return CGMembersResult(error=torch.sqrt(rr / float(N)), iters=iters,
+                           converged=on & (iters != max_iters), rounds=rounds)
+
+
+def cg_solve_fused_members(
+    matvec_pAp: Callable,
+    advance_p_matvec: Callable,
+    b: torch.Tensor,
+    ids,
+    *,
+    tolerance: float = 1.0e-5,
+    max_iters: int = 10,
+    epsilon: float = 1.0e-10,
+):
+    """``cg_solve_fused`` for the members m of ``ids`` of a stacked (B, ny,
+    nx) ``b`` from zero guesses, as ``jax.vmap`` runs JAX's
+    ``cg_solve_fused`` (:263) over an ensemble: ``cg_solve_members``' loop
+    with the direction update folded into the matvec.  Returns (x,
+    CGMembersResult); member m's x, error, count and stop equal
+    ``cg_solve_fused`` on member m's system bit for bit.  ``b`` is not
+    modified.
+
+    ``matvec_pAp(p, pAp, live, out)`` -> (A p, pAp) runs once, before the
+    loop (K8 over members); a round is K9 over the live members, one host
+    read of the (B,) <r', r'>, and ``advance_p_matvec(r, p, rr_new, rr, epsilon, pAp, go,
+    out, p_out)`` -> (p', A p', pAp) for the members ``go`` that do not stop
+    (K8b over members, beta formed from each member's two <r, r>), A p'
+    over the dead A p and p' into a spare stack allocated once, the two
+    directions swapping.  A member that stops or reaches ``max_iters``
+    leaves the live set; its rows are never read again.  The wrappers take
+    their plain versions on CPU tensors, as ``cg_solve_fused``'s do."""
+    refuse_reverse("the CG loop", LOOP_WAY_OUT, b)
+    B = b.shape[0]
+    ids = [int(m) for m in ids]
+    N, scaled_tol2 = _tolerance(b[0], tolerance)  # one member's cells
+    x = torch.zeros_like(b)
+    r = b.clone()  # K9 updates r in place
+    bufs = (_start_rr(r, ids), b.new_empty(B))
+    p = r.clone()
+    iters = [0] * B
+    last = [0] * B
+    live, k = (ids if max_iters > 0 else []), 0
+    if live:
+        Ap, pAp = matvec_pAp(p, b.new_empty(B), live, None)
+        spare = torch.empty_like(p)
+    while live:
+        odd = k & 1
+        rr, rr_new = bufs[odd], bufs[1 - odd]
+        cuda_cg.update_xr_rr_members(x, r, p, Ap, rr, pAp, epsilon, live, rr_new)
+        go = _going_members(rr_new, live, scaled_tol2)
+        if go:  # the JAX loop keeps a stopped member's p and A p; nothing reads them
+            p_new, Ap, pAp = advance_p_matvec(r, p, rr_new, rr, epsilon, pAp, go, Ap, spare)
+            p, spare = p_new, p
+        for m in live:
+            last[m] = 1 - odd
+        for m in go:
+            iters[m] += 1
+        live = [m for m in go if iters[m] < max_iters]
+        k += 1
+    return x, _members_result(b, ids, bufs, last, iters, N, max_iters, k)
 
 
 def pcg_solve_members(

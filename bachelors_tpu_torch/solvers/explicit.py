@@ -28,12 +28,12 @@ y, x and 2D meshes (``topo``; fields are then ``Shards``):
     the same loop as a device ``while_loop``.
 
 An ensemble's members (stacked (B, ny, nx) fields, ``*_members``) take
-the one-device routes batched over members: each Euler pass, RK4 stage and
-Merson attempt is one launch for every member it steps (K1, K4, K2 with a
-member axis, ``ops/cuda_rhs.py``), and the retry loop reads the maxima of
-all its live members once per attempt.  JAX runs the same steps as
-``jax.vmap`` of the stepper, the retry loop a ``while_loop`` whose members
-keep their carry once they stop (:476-521).
+the one-device routes batched over members: each Euler pass, RK4 stage or
+whole RK4 step and Merson attempt is one launch for every member it steps
+(K1, K4, K3, K2 with a member axis, ``ops/cuda_rhs.py``), and the retry
+loop reads the maxima of all its live members once per attempt.  JAX runs
+the same steps as ``jax.vmap`` of the stepper, the retry loop a
+``while_loop`` whose members keep their carry once they stop (:476-521).
 
 The whole-step twins take meshes whose shards are at least as deep as
 their apron along each sharded axis (``_takes_apron``); a thinner shard
@@ -485,17 +485,16 @@ def euler_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor, p
 
 
 def rk4_step_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu, ids):
-    """``rk4_step`` for the members ``ids``: on the kernel backend the
-    staged route batched, K1 for k1, k2 and k3 and K4, each one launch for
-    every member (below ``RK4_FULLSTEP_MIN_CELLS`` cells a member: the
-    whole-step route waits for K3 over members, ROADMAP item 7d, and
-    ``solvers/base.make_ensemble_stepper`` refuses it); the plain backend
-    takes the plain step per member, as one device does."""
+    """``rk4_step`` for the members ``ids``, routed as one device routes a
+    member: on the kernel backend from ``RK4_FULLSTEP_MIN_CELLS`` cells a
+    member K3 over members, one launch for every member (JAX vmaps
+    ``rk4_full_pallas`` there, :270-275), below it the staged route
+    batched, K1 for k1, k2 and k3 and K4, each one launch for every member;
+    the plain backend takes the plain step per member, as one device does."""
     if resolve_backend(p, F.device) != "kernel":
-        oF, oU = torch.empty_like(F), torch.empty_like(U)
-        for b in ids:
-            oF[b], oU[b] = cuda_rhs.rk4_full_plain(F[b], U[b], p, cuda_rhs.per_member(fu, b))
-        return oF, oU
+        return cuda_rhs.rk4_full_members_plain(F, U, p, fu, 0.0, ids)
+    if p.N >= RK4_FULLSTEP_MIN_CELLS:
+        return cuda_rhs.rk4_full_members(F, U, p, fu, 0.0, ids)
     x, h = (F, U), p.dt / 2
     k1 = members_rhs([x], [1.0], p, fu, ids)
     k2 = members_rhs([x, k1], [1.0, h], p, fu, ids)

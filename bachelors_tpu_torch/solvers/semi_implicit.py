@@ -48,13 +48,15 @@ An ensemble's members (stacked (B, ny, nx) fields, ``*_members``) take
 the one-device routes batched over members, as JAX runs ``jax.vmap`` of
 the step: one K7 launch a pass for every member stepped, the solves of
 all members at once (``cg_solve_members``: per round one K8, one K9 and
-at most one K10 launch for the members still live, and one host read),
-the phase solves before the heat solves, and on the refined route one
-K14 launch a refinement.  Member b equals the single step of member b
-bit for bit, its CG iteration counts included.  The fused CG variant
-over members (K8b) waits for ROADMAP item 7d.  Each route's scheme is
-written once (``_step_based``, ``_step_refined``) and reaches its prepare,
-solves and residuals through ``_Fields`` (one state) or ``_Members``.
+at most one K10 launch for the members still live, and one host read;
+where ``_cg_variant`` says "fused", ``cg_solve_fused_members``: one K8
+launch a solve, then per round one K9 and at most one K8b launch and one
+host read), the phase solves before the heat solves, and on the refined
+route one K14 launch a refinement.  Member b equals the single step of
+member b bit for bit, its CG iteration counts included.  Each route's
+scheme is written once (``_step_based``, ``_step_refined``) and reaches its
+prepare, solves and residuals through ``_Fields`` (one state) or
+``_Members``.
 
 ``SimParams.differentiable`` takes JAX's differentiable route (:93,
 :131-136, :184-188, :217, :229) on one device: the plain prepare, so that
@@ -79,8 +81,8 @@ from ..ops.rhs import resolve_backend, stage_halos
 from ..ops.stencil import (AnisotropyMatrix, CrossMatrix, anisotropy_matvec,
                            cross_matvec, lap_from_padded)
 from ..parallel.topology import ONE_DEVICE, Topology
-from .cg import (LOOP_WAY_OUT, cg_solve, cg_solve_diff, cg_solve_fused, cg_solve_members,
-                 pcg_solve_members)
+from .cg import (LOOP_WAY_OUT, cg_solve, cg_solve_diff, cg_solve_fused, cg_solve_fused_members,
+                 cg_solve_members, pcg_solve_members)
 
 EPSILON = 1.0e-12  # the CG alpha/beta guard of the semi-implicit solves
 
@@ -428,10 +430,6 @@ def semi_implicit_step_refined(F: Field, U: Field, U_base: Field, p: SimParams,
 
 # ------------------------------------------------------------- ensembles
 
-FUSED_MEMBERS_TODO = ("semi-implicit ensembles on the fused CG variant (K8b over members; "
-                      "ROADMAP item 7d)")
-
-
 def _members_matvec_pAp(kernel: bool, A, s, plain_matvec):
     """(v, pAp, ids, out) -> (A v, pAp) over the members ``ids`` of a
     stacked v: K8 over members for the cross operator ``A`` (``s`` None)
@@ -454,14 +452,25 @@ def _members_matvec_pAp(kernel: bool, A, s, plain_matvec):
     return mv
 
 
+def _members_advance_p_matvec(A, s):
+    """(r, p, rr_new, rr, epsilon, pAp, ids, out, p_out) -> (p', A p', pAp)
+    over the members ``ids``: K8b over members for the cross operator ``A``
+    (``s`` None) or the anisotropy operator ``A`` with the stacked maps
+    ``s``."""
+    if s is None:
+        return lambda r, p, *a: cuda_cg.cross_advance_p_matvec_members(A, r, p, *a)
+    return lambda r, p, *a: cuda_cg.aniso_advance_p_matvec_members(A, s, r, p, *a)
+
+
 class _Members:
     """``_Fields`` for the members ``ids`` of an ensemble's stacked (B, ny,
     nx) fields on one device: K7 over members, the solves of every member
-    at once (``cg_solve_members``; Jacobi: ``pcg_solve_members``) and K14
-    over members, or their plain versions."""
+    at once (``cg_solve_members``, with ``fused`` ``cg_solve_fused_members``;
+    Jacobi: ``pcg_solve_members``) and K14 over members, or their plain
+    versions."""
 
-    def __init__(self, p: SimParams, ids, kernel: bool):
-        self.p, self.ids, self.kernel = p, ids, kernel
+    def __init__(self, p: SimParams, ids, kernel: bool, fused: bool = False):
+        self.p, self.ids, self.kernel, self.fused = p, ids, kernel, fused
 
     def prepare(self, F: torch.Tensor, U: torch.Tensor):
         return (cuda_rhs.si_prepare_members if self.kernel
@@ -476,6 +485,9 @@ class _Members:
         kw = dict(tolerance=tolerance, max_iters=max_iters, epsilon=EPSILON)
         if diag is not None:
             return pcg_solve_members(one, b, self.ids, diag=diag, **kw)
+        if self.fused:  # the kernel route only (semi_implicit_step_members)
+            return cg_solve_fused_members(_members_matvec_pAp(True, *op, one),
+                                          _members_advance_p_matvec(*op), b, self.ids, **kw)
         return cg_solve_members(_members_matvec_pAp(self.kernel, *op, one), b, self.ids,
                                 kernel=self.kernel, **kw)
 
@@ -512,10 +524,11 @@ def semi_implicit_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.T
     refuse_reverse("the semi-implicit step's CG loops", LOOP_WAY_OUT, F, U, U_base)
     if refines(p, F.device):
         return semi_implicit_step_refined_members(F, U, U_base, p, ids)
-    if _cg_variant(p.ny * p.nx) == "fused":
-        raise NotImplementedError(f"not ported yet: {FUSED_MEMBERS_TODO}")
     kernel = resolve_backend(p, F.device) == "kernel"
-    return _step_based(F, U, U_base, p, _Members(p, ids, kernel))
+    # the single step's gate for the fused variant: the kernel route (JAX
+    # :163-224 under jax.vmap)
+    fused = kernel and _cg_variant(p.ny * p.nx) == "fused"
+    return _step_based(F, U, U_base, p, _Members(p, ids, kernel, fused))
 
 
 def semi_implicit_step_refined_members(F: torch.Tensor, U: torch.Tensor,

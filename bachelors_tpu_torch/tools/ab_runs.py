@@ -101,7 +101,7 @@ steps, the two trees in turns (before, after; then after, before) six
 times each: host ms per step to a device sync.  One process drives both,
 so the host's drift between processes is out of the comparison.
 
-    python -m bachelors_tpu_torch.tools.ab_runs --cg-variant [CHECKOUT] [--out FILE]
+    python -m bachelors_tpu_torch.tools.ab_runs --cg-variant [CHECKOUT] [--ensemble 4,8] [--out FILE]
 
 runs one checkout's semi-implicit float32 config (``config.ini`` at the CG
 tolerance 5e-9) with the CG variant forced (``solvers/semi_implicit.
@@ -111,8 +111,12 @@ process steps 512^2, 1024^2, 2048^2 and 4096^2 grids (dt 5e-6 (512/n)^2,
 stats off) from the config's initial fields through 1000 steps, then times
 200 steps on the host clock to a device sync, counts their CG iterations,
 host reads and launches, and traces them again under ``torch.profiler``
-for the device µs per step and per launch of each kernel.  Imports
-nothing of JAX.
+for the device µs per step and per launch of each kernel.  With
+``--ensemble``, each process steps an ensemble of each size given (members
+from noise_seed + b at ``noise_T = 0.02``, the members stepper: K8 and K9
+over members with K10 or K8b over members) on the 512^2, 1024^2 and 2048^2
+grids instead; host reads and CG rounds are then a step for all members.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -666,27 +670,38 @@ print(json.dumps(out))
 """
 
 CG_VARIANT = r"""
-import json, sys, time
+import dataclasses, json, sys, time
 sys.path.insert(0, ".")
 import torch
 from torch.autograd import DeviceType
-from bachelors_tpu_torch.core.state import make_state
+from bachelors_tpu_torch.core.state import make_state, stack_states
 from bachelors_tpu_torch.io.config import load_config
 from bachelors_tpu_torch.models.initial import make_initial_fields
 from bachelors_tpu_torch.ops import cuda_build, cuda_cg, cuda_rhs
 from bachelors_tpu_torch.solvers import cg, semi_implicit
-from bachelors_tpu_torch.solvers.base import make_stepper
+from bachelors_tpu_torch.solvers.base import make_ensemble_stepper, make_stepper
 cuda_build.load()
 semi_implicit._FORCE_CG_VARIANT = sys.argv[1]
+ENSEMBLES = [int(b) for b in sys.argv[2].split(",")] if len(sys.argv) > 2 else []
 WARM, WINDOW = 1000, 200
 out = {}
-for n in (512, 1024, 2048, 4096):
+cases = [(n, B) for n in (512, 1024, 2048) for B in ENSEMBLES] or [
+    (n, None) for n in (512, 1024, 2048, 4096)]
+for n, B in cases:
     cfg = load_config("config.ini", [
         "[simulation]\nsolver = semi-implicit\nT_tolerance = 5e-9\nPhi_tolerance = 5e-9\n"
-        "mesh_size_x = %d\nmesh_size_y = %d\ndt = %r\n" % (n, n, 5e-6 * (512 / n) ** 2)])
+        "mesh_size_x = %d\nmesh_size_y = %d\ndt = %r\n" % (n, n, 5e-6 * (512 / n) ** 2)
+        + ("[initial]\nnoise_T = 0.02\n" if B else "")])
     p = cfg.params.replace(do_stats=False)
-    step = make_stepper(p)
-    state = make_state(*make_initial_fields(p, cfg.initial, device="cuda"), p, device="cuda")
+
+    def member(b):
+        init = dataclasses.replace(cfg.initial, noise_seed=cfg.initial.noise_seed + b)
+        return make_state(*make_initial_fields(p, init, device="cuda"), p, device="cuda")
+
+    if B:
+        step, state = make_ensemble_stepper(p), stack_states([member(b) for b in range(B)])
+    else:
+        step, state = make_stepper(p), member(0)
     for _ in range(WARM):
         state, _ = step(state)
     cuda_rhs.reset_launch_counts()
@@ -701,15 +716,19 @@ for n in (512, 1024, 2048, 4096):
         t0 = time.perf_counter()
         for _ in range(WINDOW):
             s, stats = step(s)
-            iters += stats.Phi_iters + stats.T_iters
+            iters += int((stats.Phi_iters + stats.T_iters).sum()) if B else (
+                stats.Phi_iters + stats.T_iters)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / WINDOW
 
     ms = window()
     launches = {k: v / WINDOW for k, v in {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES}.items() if v}
+    # with B members: every member's iterations, summed
     row = {"ms_per_step": ms, "cg_iterations_per_step": iters / WINDOW,
-           "host_reads_per_step": cg.HOST_READS["cg_stop_test"] / WINDOW,
+           "host_reads_per_step": sum(cg.HOST_READS.values()) / WINDOW,
            "launches_per_step": launches}
+    if B:
+        row["member_steps_per_s"] = B * 1e3 / ms
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         row["profiled_ms_per_step"] = window()
@@ -721,7 +740,7 @@ for n in (512, 1024, 2048, 4096):
     # each of the port's kernels: device µs per traced launch
     row["kernel_us"] = {e.key.split("(")[0].replace("void ", ""): e.self_device_time_total / e.count
                         for e in events if e.key.startswith("void bt::") and e.count}
-    out["%d^2" % n] = row
+    out["%d^2" % n + (", B=%d" % B if B else "")] = row
 print(json.dumps(out))
 """
 
@@ -816,6 +835,9 @@ def main() -> None:
     ap.add_argument("--cg-variant", action="store_true",
                     help="semi-implicit with the CG variant forced to pAp and fused, in "
                          "one checkout (BEFORE, default .)")
+    ap.add_argument("--ensemble", default=None,
+                    help="with --cg-variant, comma-separated ensemble sizes to step instead "
+                         "of the single run (512^2 to 2048^2)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     results = []
@@ -826,7 +848,8 @@ def main() -> None:
         print(json.dumps(results[-1]), flush=True)
     elif args.cg_variant:
         for variant in ("pAp", "fused", "fused", "pAp"):
-            results.append({"variant": variant, **run(args.before, CG_VARIANT, variant)})
+            extra = (args.ensemble,) if args.ensemble else ()
+            results.append({"variant": variant, **run(args.before, CG_VARIANT, variant, *extra)})
             print(json.dumps(results[-1]), flush=True)
     else:
         if not args.after:

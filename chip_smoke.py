@@ -33,11 +33,13 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
     then a 2048^2 cut on a y(4) mesh.  Before them, K5, K12.1, the gather
     and K12.2 against their plain versions on those meshes, and a lockstep
     of each mesh against the single-device K2 stepper;
-  * Euler on the same meshes: K12.3 (K12.1 in euler mode) after one ghost
-    gather per shard and step; without stats on y(2), K12.5 (K6 with ghost
+  * Euler on the same meshes, cut to 2000 steps beside a one-device run of
+    the same cut: K12.3 (K12.1 in euler mode) after one ghost gather per
+    shard and step; without stats on y(2), K12.5 (K6 with ghost
     slabs, 4 steps per launch); with the corrector loop on x(2), K12.3 and
-    K12.1 for the re-steps; RK4 on the same meshes, K12.1 for k1..k3 and
-    K12.4 (K4 with ghosts); RK4 on the 4096^2 cut on y(2), K12.6 (K3 with
+    K12.1 for the re-steps; RK4 on the same meshes (the same 2000-step
+    cut), K12.1 for k1..k3 and K12.4 (K4 with ghosts); RK4 on the 4096^2
+    cut on y(2), K12.6 (K3 with
     ghost slabs); the exact solver on 2x2, no kernel, frames equal to one
     device's; and RKM on a 32-row cut on y(8), whose 4-row shards are
     thinner than K12.2's slabs, on the staged route (K12.1 + K5).  Each
@@ -112,6 +114,24 @@ members) and the corrector loop's ensemble at 200 steps, through
 K10 launch and one host read, one batched K7 a pass, member b bit for bit
 the single run with noise_seed + b in every frame and CG count; and the
 float32 semi-implicit ensemble's timing at B = 1, 2, 4 and 8.
+K3 over members (one whole RK4 step of every member in one launch) against
+its plain version and the unbatched K3 on each member, bit for bit, at
+512^2, 100x170, 33x129 (B = 3, a member frozen) and 4096x2048 (B = 2), at
+every BC pair and physics case and both dtypes, with device µs a launch
+at 4096x2048 for B = 1 and 2; the RK4 ensemble of 2 members of 4096x2048
+cells (8M, from which RK4 routes to K3) through ``run_config_file`` at
+float32 and float64, one K3 over members a step and nothing else, member
+b bit for bit the single run with noise_seed + b; its host and device ms a
+step at B = 1 and 2.  K8b over members (cross and aniso) against the
+single K8b with the fused loop's beta (bit for bit, dots included and in
+their fixed order) and its plain version at 512^2 and 33x129, both dtypes;
+the semi-implicit ensemble lockstep with the CG variant forced to "fused"
+(K8 over members once a solve, then K9 and K8b over members, no K10),
+member by member bit for bit with the single fused stepper, CG counts
+included, and that ensemble through ``run_config_file`` (200 steps).
+``[program] debug = true`` on the shipped config: every frame carries
+grad_Phi, grad_T and aniso in the JAX package's order, held to
+``debug_maps`` of the frame's own F and U recomputed on the CPU.
 
 Differentiable runs (``SimParams.differentiable``) on the one card, at
 512^2 with config.ini's physics and at both dtypes: the gradient of the
@@ -256,6 +276,10 @@ CUT = ("[simulation]\nmesh_size_x = 4096\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
 EXACT = "[simulation]\nsolver = exact\ndo_exact = true\nstop_after = 0.0005\n[snapshot]\ntimes = 1\n"
 # the semi-implicit path cut to 1000 steps, on one device and on the meshes
 SI_CUT = "[simulation]\nstop_after = 0.005\n"
+# Euler and RK4 on the float32 meshes cut to 2000 steps (stop 0.01), each
+# beside a one-device run of the same cut: a quarter of the whole runs'
+# 8000, which kept the script inside half its time limit as phases grew
+MESH_FIXED_CUT = "[simulation]\nstop_after = 0.01\n"
 SI_CG_ITERS_RTOL = 0.02  # a mesh run's CG iterations against one device's
 # K11 and the reduction microbench: the sweep's sizes up to 2 * 4096^2, that
 # size itself and a ragged one; sum, L1 and L2 held at K11_RTOL (the plain
@@ -328,6 +352,7 @@ F64_THIN = ("[simulation]\nmesh_size_y = 32\nstop_after = 0.004\n[initial]\n"
 PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_plain",
                     "blend_rhs_members_plain", "rk4_final_stage_members_plain",
                     "rkm_attempt_members_plain", "si_prepare_members_plain",
+                    "rk4_full_members_plain",
                     "rk4_full_plain", "euler_steps_plain", "si_prepare_plain",
                     "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
                     "rkm_attempt_sharded_plain", "merson_finish",
@@ -342,7 +367,9 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                    "cross_residual_plain",
                    "aniso_residual_plain", "heat_residual_plain",
                    "cross_matvec_pAp_sharded_plain", "aniso_matvec_pAp_sharded_plain",
-                   "cross_advance_p_matvec_plain", "aniso_advance_p_matvec_plain"),
+                   "cross_advance_p_matvec_plain", "aniso_advance_p_matvec_plain",
+                   "cross_advance_p_matvec_members_plain",
+                   "aniso_advance_p_matvec_members_plain"),
          cuda_stats: ("field_stats_plain",),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
 
@@ -375,6 +402,24 @@ SI_CORRECTOR_PHI_MAX = 1.25
 CG_MEMBER_KEYS = ("cross_matvec_pAp_members", "aniso_matvec_pAp_members",
                   "update_xr_rr_members", "advance_p_members", "cross_residual_members",
                   "aniso_residual_members", "heat_residual_members")
+K8B_MEMBER_KEYS = ("cross_advance_p_matvec_members", "aniso_advance_p_matvec_members")
+# K3 over members: the batched kernels' sizes and, from RK4_FULLSTEP_MIN_CELLS
+# (8M) cells a member, 4096 x 2048 at B = 2, where the RK4 path routes an
+# ensemble to it, at the 4096^2 cut's dt (CUT); the counts timed there
+K3_MEMBER_SIZES = (*MEMBER_SIZES, (4096, 2048))
+K3_BIG_MEMBERS = 2
+K3_MEMBER_TIMED = (1, 2)
+# the RK4 ensemble path there: 2 members of 4096 x 2048, 40 steps at CUT's
+# dt, the initial and the final frame
+RK4_MEMBERS = ("[simulation]\nmesh_size_x = 2048\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
+               "stop_after = 3.125e-6\n[snapshot]\ntimes = 1\n"
+               "[tpu]\nensemble = 2\n[initial]\nnoise_T = 0.02\n")
+# the fused CG variant's semi-implicit ensemble: config.ini's semi-implicit
+# run with 4 members cut to 200 steps, 2 frames
+SI_FUSED_MEMBERS = "[simulation]\nstop_after = 0.001\n[snapshot]\ntimes = 2\n"
+# [program] debug = true on the shipped config to 0.0005, 2 frames
+DEBUG = "[program]\ndebug = true\n[simulation]\nstop_after = 0.0005\n[snapshot]\ntimes = 2\n"
+DEBUG_NAMES = ["grad_Phi", "grad_T", "aniso"]
 
 # The card's published peaks (H100 SXM at 700 W): device memory, and float32
 # and float64 outside the tensor cores.
@@ -508,7 +553,7 @@ def device_us(fn, reps: int, kernel: str, tries: int = 3):
     return None
 
 
-def device_kernels(fn, reps: int, tries: int = 3) -> dict:
+def device_kernels(fn, reps: int, tries: int = 5) -> dict:
     """Each of the port's kernels that ``reps`` calls of ``fn`` launched,
     under torch.profiler: {name: {"launches_per_call", "us_per_launch"}}.
     A launch whose event the trace dropped (CUPTI drops one now and then on
@@ -519,6 +564,7 @@ def device_kernels(fn, reps: int, tries: int = 3) -> dict:
     from torch.autograd import DeviceType
 
     for _ in range(tries):
+        torch.cuda.synchronize()  # no earlier work in the trace
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1779,6 +1825,38 @@ def exact_path() -> dict:
 
 
 # ------------------------------------------------------------------ the mesh
+
+
+def debug_path() -> dict:
+    """``[program] debug = true`` on the shipped config (RKM, float32, to
+    0.0005): every frame holds F, U, grad_Phi, grad_T, aniso and tau, in
+    the JAX package's order, and the three debug maps are ``debug_maps``
+    of the frame's own F and U recomputed on the CPU at float64 (with the
+    run's float32 transcendentals, as a float64 run takes them), within the
+    field tolerance of their scale: the card computed them at float32.
+    The run is RKM's: K2 once per attempt, nothing else."""
+    from bachelors_tpu_torch.app.viewer import available_maps
+
+    run = drive([DEBUG], frames=True)
+    n, res, cfg = run["launches"], run["res"], run["cfg"]
+    expect(n["rkm_attempt"] == res.attempts > 0 and sum(n.values()) == n["rkm_attempt"],
+           "K2 once per attempt, nothing else", run)
+    p64 = cfg.params.replace(dtype="float64")
+    cpu = dataclasses.replace(cfg, params=p64)
+    worst, names = [0.0, 0.0], None
+    for frame, snap in sorted(run["snaps"].items()):
+        names = list(snap.maps)
+        if names != ["F", "U", *DEBUG_NAMES, "tau"]:
+            raise AssertionError(f"{frame} holds {names}")
+        state = make_state(snap.maps["F"], snap.maps["U"], p64, device="cpu")
+        want = available_maps(state, cpu, True)
+        hold("debug maps", [torch.from_numpy(snap.maps[k]) for k in DEBUG_NAMES],
+             [torch.from_numpy(want[k]) for k in DEBUG_NAMES], frame, worst)
+    phase("debug maps path ([program] debug = true, config.ini to 0.0005)", map_names=names,
+          max_rel_err=worst[0], max_abs_err=worst[1], tol=FIELD_TOL,
+          against="debug_maps of each frame's F and U on the CPU at float64",
+          **run["summary"])
+    return n
 
 
 def on_mesh(sy: int, sx: int):
@@ -3149,6 +3227,151 @@ def check_members_lockstep(cases, steps=5, name="ensemble locksteps vs the singl
     phase(name, steps=steps, equal="bit for bit", cases=out)
 
 
+def stacked_seeded(rng, B, ny, nx, dtype="float32"):
+    """B members of ``seeded`` fields, stacked (B, ny, nx) on the card."""
+    return tuple(torch.stack(t) for t in zip(*(seeded(rng, ny, nx, dtype) for _ in range(B))))
+
+
+def check_k3_members(rng, dtype="float32") -> dict:
+    """K3 over members against ``rk4_full_members_plain`` and against the
+    unbatched K3 on each member, bit for bit, at K3_MEMBER_SIZES (4096 x
+    2048 at B = 2, the others at B = 3), every BC pair and physics case
+    (S = 0.25 and S = 0, its isotropic instantiation), each member's
+    forcing its own, the members a launch steps out of order and at B = 3
+    a subset (the frozen member's rows untouched), each call one launch.
+    Device µs a launch by graph replay at 4096 x 2048 for B in
+    K3_MEMBER_TIMED, beside B times the unbatched K3's and the bound of B
+    members; the kernels line's numbers at B = 2 there."""
+    worst, cases, sentinel = [0.0, 0.0], 0, 7.0
+    for ny, nx in K3_MEMBER_SIZES:
+        big = ny * nx >= explicit.RK4_FULLSTEP_MIN_CELLS
+        B = K3_BIG_MEMBERS if big else 3
+        ids = [1, 0] if big else [2, 0]
+        frozen = [b for b in range(B) if b not in ids]
+        fu = [0.03 + 0.01 * b for b in range(B)]
+        for p, d, what in check_cases(dtype, [(ny, nx)]):
+            if big:  # CUT's dt: explicit RK4 at the default dt is unstable there
+                p = p.replace(dt=7.8125e-8)
+            F, U = stacked_seeded(rng, B, ny, nx, dtype)
+            out = (torch.full_like(F, sentinel), torch.full_like(U, sentinel))
+            got = one_launch("rk4_full_members", lambda: cuda_rhs.rk4_full_members(
+                F, U, p, fu, d, ids, out))
+            for b in ids:
+                mine = [got[0][b], got[1][b]]
+                hold("K3 members", mine, cuda_rhs.rk4_full(F[b], U[b], p, fu[b], d),
+                     f"{what} B={B} vs K3", [0.0, 0.0], 0.0)
+                hold("K3 members", mine, cuda_rhs.rk4_full_plain(F[b], U[b], p, fu[b], d),
+                     f"{what} B={B} vs plain", worst, 0.0)
+            for t in got:
+                hold_frozen("K3 members", t, torch.full_like(t, sentinel), frozen, what)
+            cases += 1
+    torch.cuda.synchronize()
+    ny, nx = K3_MEMBER_SIZES[-1]
+    p = params(ny, nx, "neumann", dtype=dtype).replace(dt=7.8125e-8)
+    timed, entry = {}, None
+    for B in K3_MEMBER_TIMED:
+        F, U = stacked_seeded(rng, B, ny, nx, dtype)
+        out = (torch.empty_like(F), torch.empty_like(U))
+        batched = lambda: cuda_rhs.rk4_full_members(F, U, p, 0.0, 0.0, None, out)  # noqa: E731
+        us = graph_us(batched, reps=20)
+        one_us = graph_us(lambda: cuda_rhs.rk4_full(F[0], U[0], p), reps=20)
+        timed[f"B={B}"] = {"device_us_a_launch": us, "unbatched_us_times_B": one_us * B,
+                           "bound_us": bound("K3", B * ny * nx, dtype)["bound_ms"] * 1e3}
+        if B == K3_BIG_MEMBERS:
+            ms, plain_ms = time_pair(batched, lambda: cuda_rhs.rk4_full_members_plain(
+                F, U, p, 0.0, 0.0, None, out), reps=5)
+            entry = {"max_abs_err": worst[1], "ms": ms, "plain_ms": plain_ms,
+                     **bound("K3", B * ny * nx, dtype), "library_ms": None}
+    phase(titled("K3 over members (rk4_full_members) vs plain and vs the unbatched K3",
+                 dtype), cases=cases, sizes=[f"{a}x{b}" for a, b in K3_MEMBER_SIZES],
+          members={"4096x2048": K3_BIG_MEMBERS, "others": 3}, max_abs_err=worst[1],
+          tol="bit for bit", card=card_limit(), graph_replay_4096x2048=timed,
+          kernels_line_at=f"B={K3_BIG_MEMBERS}, 4096x2048",
+          library="none: no PyTorch call computes it")
+    return entry
+
+
+def rk4_members_path(name, config=CONFIG, overrides=()) -> dict:
+    """An RK4 ensemble of 2 members of 4096 x 2048 cells through
+    ``run_config_file``: one ``rk4_full_members`` launch a step (the members
+    fit one launch: ceil(B / 64) = 1), no K1 or K4 over members, nothing
+    else; member b equal, frame by frame, to the single run with
+    noise_seed + b on this card (K3 a step), bit for bit in fields, t and
+    iter."""
+    over = [RK4, *overrides, RK4_MEMBERS, FIRST_FRAME]
+    run = drive(over, grow=False, config=config, frames=True)
+    n, res = run["launches"], run["res"]
+    B = run["cfg"].ensemble
+    launches = res.iters * -(-B // cuda_rhs.MAX_MEMBERS)
+    expect(n["rk4_full_members"] == launches > 0 and sum(n.values()) == launches,
+           "one K3 over members a step, nothing else", run)
+    snaps = run["snaps"]
+    maps = sorted(f for f in snaps if f.startswith("maps_"))
+    seeds = {}
+    for b in range(B):
+        one = drive([RK4, *overrides, RK4_MEMBERS.replace("ensemble = 2", "ensemble = 1"),
+                     FIRST_FRAME, f"[initial]\nnoise_seed = {b}\n"], grow=False, config=config,
+                    frames=True)
+        expect(one["launches"]["rk4_full"] == one["res"].iters == res.iters,
+               "the single run: K3 a step", one)
+        for frame in maps:
+            mine = snaps[frame.replace("maps_", "members_")]
+            meta = mine.maps["ensemble_meta"].reshape(-1)[3 * b:3 * b + 3]
+            theirs = one["snaps"][frame]
+            if not (np.array_equal(mine.maps[f"F_m{b:03d}"], theirs.maps["F"])
+                    and np.array_equal(mine.maps[f"U_m{b:03d}"], theirs.maps["U"])
+                    and (meta[0], meta[1]) == (theirs.time, theirs.iter)):
+                raise AssertionError(f"member {b} parts from its single run at {frame}")
+        seeds[f"member {b}"] = {"steps": one["res"].iters,
+                                "single_run_ms_per_step": one["summary"]["ms_per_step"]}
+    phase(name, members=B, rk4_full_members_launches=n["rk4_full_members"],
+          members_equal_single_runs="bit for bit", members_runs=seeds, **run["summary"])
+    return n
+
+
+def rk4_members_timing(steps=200, traced=50) -> dict:
+    """The RK4 ensemble of 4096 x 2048 members (RK4_MEMBERS, stats every
+    step, as the driver computes them) at B = 1 and 2 beside the single
+    stepper: host ms a step (wall clock over ``steps`` steps, synchronised),
+    device ms a step (the kernels' time under torch.profiler over
+    ``traced`` steps), member-steps a second and the device's busy share;
+    each after 20 warm steps."""
+    from torch.autograd import DeviceType
+
+    cfg = load_config(CONFIG, [RK4, RK4_MEMBERS])
+    rows = {}
+    for B in ("single", *K3_MEMBER_TIMED):
+        singles, state = member_states(cfg, 1 if B == "single" else B)
+        if B == "single":
+            step, state = make_stepper(cfg.params), singles[0]
+        else:
+            step = make_ensemble_stepper(cfg.params)
+        for _ in range(20):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(traced):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / traced / 1e3
+        host_ms = wall / steps * 1e3
+        members = 1 if B == "single" else B
+        rows["single stepper" if B == "single" else f"B={B}"] = {
+            "host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+            "member_steps_per_s": members * steps / wall, "device_busy_share": device_ms / host_ms}
+        del singles, state
+    phase("RK4 ensemble timing (config.ini's RK4 at 4096x2048 a member, stats every step)",
+          card=card_limit(), steps=steps, traced_steps=traced, rows=rows)
+    return rows
+
+
 def ensemble_path() -> dict:
     """The shipped config with ``ensemble = 4`` and ``noise_T = 0.02``, cut
     to 0.004: through ``run_config_file``, its frames (member 0 with the
@@ -3509,6 +3732,161 @@ def check_si_members_lockstep(cases, steps=5) -> None:
           steps=steps, equal="bit for bit, CG counts included", cases=out)
 
 
+def check_k8b_members(rng, dtype="float32") -> dict:
+    """K8b over members (cross and anisotropy forms) against the single
+    K8b on each member with the fused loop's beta (rr_new / torch.clamp(rr,
+    min=eps), torch ops on the card), bit for bit in p', A p' and <p', A p'>,
+    the dot also bit for bit its fixed order (``pAp_in_kernel_order``), and
+    against the plain version (fields at the field tolerance, dots at the
+    sum tolerance), at 512^2 and 33x129 for B in MEMBER_COUNTS, each BC, a
+    member whose rr is below eps and, where B > 1, the members a launch
+    steps a subset out of order, the others' rows and dots untouched; each
+    call one launch.  Device µs a launch by graph replay at 512^2 for B in
+    MEMBER_TIMED beside B times the single K8b's and the bound of B
+    members; the kernels line's numbers at B = 4, the mean of the two
+    forms."""
+    prec = PRECISION[dtype]
+    tol, rtol, eps, sentinel = prec["field_tol"], prec["sum_rtol"], 1e-12, 7.0
+    worst, cases = [0.0, 0.0], 0
+    for ny, nx in ((512, 512), (33, 129)):
+        for B in MEMBER_COUNTS:
+            ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+            frozen = [b for b in range(B) if b not in ids]
+            for bc in BCS:
+                what = f"{ny}x{nx} B={B} {bc} {dtype}"
+                A, Aa = cg_operators(params(ny, nx, "neumann", dtype=dtype), bc)
+                (r, v), = stacked(rng, B, ny, nx, 1, dtype)
+                s = stacked_maps(rng, B, ny, nx, dtype)
+                rr_new = torch.from_numpy(rng.uniform(0.1, 1.0, B).astype(dtype)).to(DEVICE)
+                rr = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(dtype)).to(DEVICE)
+                rr[ids[0]], rr_new[ids[0]] = 1e-14, 1e-13  # beta = 0.1 divides by eps
+                for form in ("cross", "aniso"):
+                    out, p_out = torch.full_like(v, sentinel), torch.full_like(v, sentinel)
+                    dots = v.new_full((B,), sentinel)
+                    name = f"{form}_advance_p_matvec_members"
+                    if form == "cross":
+                        call = lambda: cuda_cg.cross_advance_p_matvec_members(  # noqa: E731
+                            A, r, v, rr_new, rr, eps, dots, ids, out, p_out)
+                    else:
+                        call = lambda: cuda_cg.aniso_advance_p_matvec_members(  # noqa: E731
+                            Aa, s, r, v, rr_new, rr, eps, dots, ids, out, p_out)
+                    one_launch_of(cuda_cg, name, call)
+                    for b in ids:
+                        beta = rr_new[b] / torch.clamp(rr[b], min=eps)
+                        single = (cuda_cg.cross_advance_p_matvec(A, r[b], v[b], beta)
+                                  if form == "cross" else
+                                  cuda_cg.aniso_advance_p_matvec(Aa, s[b], r[b], v[b], beta))
+                        plain = (cuda_cg.cross_advance_p_matvec_plain(A, r[b], v[b], beta)
+                                 if form == "cross" else
+                                 cuda_cg.aniso_advance_p_matvec_plain(Aa, s[b], r[b], v[b],
+                                                                      beta))
+                        mine = [p_out[b], out[b]]
+                        hold("K8b members", mine, single[:2], f"{what} {form} vs K8b",
+                             [0.0, 0.0], 0.0)
+                        hold_dot("K8b members", dots[b], single[2], f"{what} {form} vs K8b",
+                                 0.0)
+                        hold_fixed_order("K8b members", dots[b], p_out[b], out[b],
+                                         f"{what} {form}")
+                        hold("K8b members", mine, plain[:2], f"{what} {form} vs plain", worst,
+                             tol)
+                        hold_dot("K8b members", dots[b], plain[2], f"{what} {form} vs plain",
+                                 rtol)
+                    for t in (out, p_out):
+                        hold_frozen("K8b members", t, torch.full_like(v, sentinel), frozen,
+                                    what)
+                    hold_frozen("K8b members", dots, v.new_full((B,), sentinel), frozen, what)
+                    cases += 1
+    torch.cuda.synchronize()
+    n = 512
+    A, Aa = cg_operators(params(n, n, "neumann", dtype=dtype), "neumann")
+    timed, entry = {}, {}
+    for B in MEMBER_TIMED:
+        (r, v), = stacked(rng, B, n, n, 1, dtype)
+        s = stacked_maps(rng, B, n, n, dtype)
+        out, p_out, dots = torch.empty_like(v), torch.empty_like(v), v.new_empty(B)
+        rr_new = torch.full((B,), 0.37, dtype=v.dtype, device=DEVICE)
+        rr = torch.full((B,), 0.61, dtype=v.dtype, device=DEVICE)
+        beta = rr_new[0] / rr[0]
+        one_out, one_p = torch.empty_like(v[0]), torch.empty_like(v[0])
+        calls = {
+            "K8b cross": (lambda: cuda_cg.cross_advance_p_matvec_members(
+                A, r, v, rr_new, rr, eps, dots, None, out, p_out),
+                lambda: cuda_cg.cross_advance_p_matvec(A, r[0], v[0], beta, one_out, one_p),
+                lambda: cuda_cg.cross_advance_p_matvec_members_plain(
+                    A, r, v, rr_new, rr, eps, dots, None, out, p_out)),
+            "K8b aniso": (lambda: cuda_cg.aniso_advance_p_matvec_members(
+                Aa, s, r, v, rr_new, rr, eps, dots, None, out, p_out),
+                lambda: cuda_cg.aniso_advance_p_matvec(Aa, s[0], r[0], v[0], beta, one_out,
+                                                       one_p),
+                lambda: cuda_cg.aniso_advance_p_matvec_members_plain(
+                    Aa, s, r, v, rr_new, rr, eps, dots, None, out, p_out))}
+        row = {}
+        for k, (batched, single, plain) in calls.items():
+            us, one_us = graph_us(batched), graph_us(single)
+            row[k] = {"device_us_a_launch": us, "unbatched_us_times_B": one_us * B,
+                      "bound_us": bound(k, B * n * n, dtype)["bound_ms"] * 1e3}
+            if B == 4:
+                entry[k] = (*time_pair(batched, plain, reps=20),
+                            bound(k, B * n * n, dtype)["bound_ms"])
+        timed[f"B={B}"] = row
+    phase(titled("K8b over members (cross and aniso advance_p_matvec_members) vs plain and "
+                 "vs the unbatched K8b", dtype), cases=cases, sizes=["512x512", "33x129"],
+          members=list(MEMBER_COUNTS), max_abs_err=worst[1], tol=tol, sum_rtol=rtol,
+          vs_unbatched="bit for bit, dots included", card=card_limit(),
+          graph_replay_512=timed, kernels_line_at="B=4, 512^2, mean of the two forms",
+          library="none: no PyTorch call computes it")
+    return {"max_abs_err": worst[1], "ms": np.mean([e[0] for e in entry.values()]),
+            "plain_ms": np.mean([e[1] for e in entry.values()]),
+            "bound_ms": np.mean([e[2] for e in entry.values()]),
+            "bound_by": bound("K8b cross", 4 * n * n, dtype)["bound_by"], "library_ms": None}
+
+
+def check_fused_si_members_lockstep(cases, steps=5) -> None:
+    """The semi-implicit ensemble with the CG variant forced to "fused":
+    each member's first steps through the members stepper against its
+    single fused stepper on the card, bit for bit in fields, t and iter,
+    the same Phi and T CG iterations; one batched K7 a step, one batched K8
+    a solve, then per round one batched K9 and at most one K8b and one host
+    read, no K10 over members."""
+    forced = semi_implicit._FORCE_CG_VARIANT
+    semi_implicit._FORCE_CG_VARIANT = "fused"
+    out = {}
+    try:
+        for label, cfg in cases:
+            p = cfg.params
+            singles, ens = member_states(cfg, cfg.ensemble)
+            single, members = make_stepper(p), make_ensemble_stepper(p)
+            cuda_rhs.reset_launch_counts()
+            cuda_cg.reset_launch_counts()
+            cg.reset_host_reads()
+            iters = []
+            for _ in range(steps):
+                ens, stats = members(ens)
+                for b in range(cfg.ensemble):
+                    singles[b], s1 = single(singles[b])
+                    m, got = member(ens, b), stats.member(b)
+                    if not (torch.equal(m.F, singles[b].F) and torch.equal(m.U, singles[b].U)
+                            and (m.t, m.iter) == (singles[b].t, singles[b].iter)
+                            and (got.Phi_iters, got.T_iters) == (s1.Phi_iters, s1.T_iters)):
+                        raise AssertionError(f"{label}: member {b} parts from its single "
+                                             "fused run")
+                    iters.append((got.Phi_iters, got.T_iters))
+            n, reads = member_launches(), cg.HOST_READS["cg_stop_test_members"]
+            k8 = n.get("cross_matvec_pAp_members", 0) + n.get("aniso_matvec_pAp_members", 0)
+            k8b = sum(n.get(k, 0) for k in K8B_MEMBER_KEYS)
+            if not (n.get("si_prepare_members") == steps and k8 == 2 * steps
+                    and n.get("update_xr_rr_members") == reads > 0 and 0 < k8b <= reads
+                    and "advance_p_members" not in n):
+                raise AssertionError(f"{label}: batched launches {n}, {reads} host reads")
+            out[label] = {"members": cfg.ensemble, "batched_launches": n, "host_reads": reads,
+                          "Phi_T_iters_seen": sorted(set(iters))}
+    finally:
+        semi_implicit._FORCE_CG_VARIANT = forced
+    phase("semi-implicit ensemble locksteps, fused CG variant (K8b over members), vs the "
+          "single fused steppers, member by member", steps=steps,
+          equal="bit for bit, CG counts included", cases=out)
+
+
 def stats_iters(header, rows) -> list:
     """(Phi_iters, T_iters) of each row of a stats.csv."""
     return [(int(r[header.index("Phi_iters")]), int(r[header.index("T_iters")])) for r in rows]
@@ -3520,32 +3898,53 @@ def csv_rows(text):
     return header, [[float(v) if v else np.nan for v in ln.split(",")] for ln in lines[2:]]
 
 
-def si_ensemble_path(overrides, name, config=CONFIG, grow=True, phi_max=1.1) -> dict:
+def si_ensemble_path(overrides, name, config=CONFIG, grow=True, phi_max=1.1,
+                     variant=None) -> dict:
     """A semi-implicit ensemble of 4 through ``run_config_file``: one batched
     K7 a pass, per CG round one batched K8 and K9 and at most one K10 for
     every live member, and one host read (the reads equal the rounds,
-    counted per solve); on the refined route one batched K14 a system and
-    pass; no other launch.  Its frames (member 0 with the mean and std
-    maps), members files and per-member stats; member b equal, frame by
-    frame, to the single run with noise_seed + b on this card, bit for bit
-    in fields, t and iter, and in each step's Phi and T CG iterations."""
+    counted per solve); with ``variant`` "fused" forced (for this run and
+    its single runs), one batched K8 a solve, then per round one batched K9
+    and at most one K8b, no K10; on the refined route one batched K14 a
+    system and pass; no other launch.  Its frames (member 0 with the mean
+    and std maps), members files and per-member stats; member b equal,
+    frame by frame, to the single run with noise_seed + b on this card, bit
+    for bit in fields, t and iter, and in each step's Phi and T CG
+    iterations."""
+    forced = semi_implicit._FORCE_CG_VARIANT
+    semi_implicit._FORCE_CG_VARIANT = variant
+    try:
+        return _si_ensemble_path(overrides, name, config, grow, phi_max, variant == "fused")
+    finally:
+        semi_implicit._FORCE_CG_VARIANT = forced
+
+
+def _si_ensemble_path(overrides, name, config, grow, phi_max, fused) -> dict:
     stats = [f"stats_m{b:03d}.csv" for b in range(1, 4)]
     run = drive([ENSEMBLE, *overrides], grow, config=config, frames=True, files=stats,
                 phi_max=phi_max)
     n, res, p = run["launches"], run["res"], run["cfg"].params
     passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
     k8 = n["cross_matvec_pAp_members"] + n["aniso_matvec_pAp_members"]
+    k8b = sum(n[k] for k in K8B_MEMBER_KEYS)
     k9, k10 = n["update_xr_rr_members"], n["advance_p_members"]
     k14 = n["cross_residual_members"] + n["aniso_residual_members"] + n["heat_residual_members"]
     refined = semi_implicit.refines(p, torch.device(DEVICE))
     expect(n["si_prepare_members"] == passes * res.iters > 0, "one batched K7 a pass", run)
-    expect(k8 == k9 == run["member_reads"] > 0 and k10 <= k9,
-           f"one batched K8 and K9 and at most one K10 a CG round, one host read a round "
-           f"(read {run['member_reads']})", run)
+    if fused:
+        expect(k8 == 2 * passes * res.iters and k9 == run["member_reads"] > 0
+               and 0 < k8b <= k9 and k10 == 0,
+               f"one batched K8 a solve, one K9 and at most one K8b a CG round, no K10, one "
+               f"host read a round (read {run['member_reads']})", run)
+    else:
+        expect(k8 == k9 == run["member_reads"] > 0 and k10 <= k9 and k8b == 0,
+               f"one batched K8 and K9 and at most one K10 a CG round, one host read a round "
+               f"(read {run['member_reads']})", run)
     expect(k14 == (2 * passes * res.iters if refined else 0),
            "one batched K14 a system and pass on the refined route", run)
     expect(run["host_reads"] == 0 and set(k for k, v in n.items() if v)
-           <= {"si_prepare_members", *CG_MEMBER_KEYS}, "nothing but the batched kernels", run)
+           <= {"si_prepare_members", *CG_MEMBER_KEYS, *K8B_MEMBER_KEYS},
+           "nothing but the batched kernels", run)
     snaps = run["snaps"]
     maps = sorted(f for f in snaps if f.startswith("maps_"))
     members = sorted(f for f in snaps if f.startswith("members_"))
@@ -3575,7 +3974,7 @@ def si_ensemble_path(overrides, name, config=CONFIG, grow=True, phi_max=1.1) -> 
                                 one["launches"]["update_xr_rr"],
                                 "mean_Phi_T_iters": np.mean(theirs_iters, axis=0).tolist()}
     phase(name, cg_rounds=k9, host_reads=run["member_reads"],
-          host_reads_per_step=run["member_reads"] / res.iters, k10=k10,
+          host_reads_per_step=run["member_reads"] / res.iters, k10=k10, k8b=k8b,
           refinement_residual_launches=k14,
           members_equal_single_runs="bit for bit, CG counts included", members=seeds,
           members_files=members, cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE),
@@ -4045,17 +4444,21 @@ def main() -> None:
     si_fused, _ = si_path([SEMI], "semi-implicit path, fused CG variant (K8 once a solve, "
                           "K9, K8b)", "fused")
     _, si_corrector_one = si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
-    euler, euler_one = euler_path()
+    euler, _ = euler_path()
     euler_fast, euler_fast_one = euler_blocks_path([EULER, NO_STATS], 4,
                                                    "Euler path, stats off")
-    rk4, rk4_one = rk4_staged_path([RK4], "RK4 path (512^2, staged route)")
+    rk4, _ = rk4_staged_path([RK4], "RK4 path (512^2, staged route)")
     rk4_cut, rk4_cut_one = rk4_cut_path([RK4, CUT], "RK4 path (4096^2 cut, whole-step route)")
     exact = exact_path()
+    debug_path()
 
     # the same fixed-dt paths on meshes of the one card, each to the
     # one-device step count
+    euler_cut_one = drive([EULER, MESH_FIXED_CUT])["summary"]
+    rk4_cut_one_device = drive([RK4, MESH_FIXED_CUT])["summary"]
     euler_mesh = {m: mesh_fixed_path(
-        f"Euler path on a {m} mesh", *shape, [EULER], euler_one,
+        f"Euler path, 2000-step cut, on a {m} mesh", *shape, [EULER, MESH_FIXED_CUT],
+        euler_cut_one,
         lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n, "halo_edges": n})
         for m, shape in MESHES.items()}
     euler_pair_mesh = mesh_fixed_path(
@@ -4066,7 +4469,8 @@ def main() -> None:
         lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n,
                           "blend_rhs_sharded": 3 * steps * n, "halo_edges": 4 * steps * n})
     rk4_mesh = {m: mesh_fixed_path(
-        f"RK4 path on a {m} mesh (staged)", *shape, [RK4], rk4_one,
+        f"RK4 path, 2000-step cut, on a {m} mesh (staged)", *shape, [RK4, MESH_FIXED_CUT],
+        rk4_cut_one_device,
         lambda steps, n, _: {"blend_rhs_sharded": 3 * steps * n,
                           "rk4_final_stage_sharded": steps * n, "halo_edges": n})
         for m, shape in MESHES.items()}
@@ -4106,6 +4510,8 @@ def main() -> None:
     # ensembles on the one card: the batched kernels, the locksteps, the paths
     members32 = check_members(rng)
     members64 = check_members(rng, "float64")
+    k3_members32 = check_k3_members(rng)
+    k3_members64 = check_k3_members(rng, "float64")
     rkm_rounds = lambda steps, rounds: {"rkm_attempt_members": rounds}  # noqa: E731
     euler_corrector = lambda steps, _: {"blend_rhs_members": 4 * steps}  # noqa: E731
     rk4_staged = lambda steps, _: {"blend_rhs_members": 3 * steps,  # noqa: E731
@@ -4130,10 +4536,17 @@ def main() -> None:
                              sweep("rkm"))
     ens_rk4_64 = ensemble_run([FIRST_FRAME, short], "float64 RK4 ensemble path (sweep config, ensemble = 4, "
                               "to 0.002)", rk4_staged, sweep("rk4"))
+    ens_rk4_8m = rk4_members_path("RK4 ensemble path (config.ini's RK4, 4096x2048 members, "
+                                  "ensemble = 2: K3 over members)")
+    ens_rk4_8m64 = rk4_members_path("float64 RK4 ensemble path (sweep config, 4096x2048 "
+                                    "members, ensemble = 2: K3 over members)", sweep("rk4"))
     ensemble_timing()
+    rk4_members_timing()
     # semi-implicit ensembles: the batched CG kernels, the locksteps, the paths
     si_members32 = check_si_members(rng)
     si_members64 = check_si_members(rng, "float64")
+    k8b_members32 = check_k8b_members(rng)
+    k8b_members64 = check_k8b_members(rng, "float64")
     check_si_members_lockstep([
         ("float32, S = 0.25 (aniso form)", load_config(CONFIG, [SI_ENSEMBLE])),
         ("float32, S = 0 (cross form)", load_config(CONFIG, [SI_ENSEMBLE, "[simulation]\nS = 0\n"])),
@@ -4141,6 +4554,10 @@ def main() -> None:
          load_config(CONFIG, [SI_ENSEMBLE, "[tpu]\ndtype = float64\n"])),
         ("float64 sweep config, S = 0 (refined route, cross form)",
          load_config(sweep("semi-implicit"), [ENSEMBLE]))])
+    check_fused_si_members_lockstep([
+        ("float32, S = 0.25 (aniso form)", load_config(CONFIG, [SI_ENSEMBLE])),
+        ("float32, S = 0 (cross form)",
+         load_config(CONFIG, [SI_ENSEMBLE, "[simulation]\nS = 0\n"]))])
     ens_si = si_ensemble_path([SEMI, SI_ENSEMBLE_CUT], "semi-implicit ensemble path (config.ini, "
                               "ensemble = 4, noise_T = 0.02, 1000 steps)")
     ens_si64 = si_ensemble_path([F64_SI_MEMBERS], "float64 semi-implicit ensemble path (sweep "
@@ -4149,6 +4566,9 @@ def main() -> None:
     ens_si_corr = si_ensemble_path([SEMI, CORRECTOR, SI_CORRECTOR_MEMBERS], "semi-implicit "
                                    "ensemble corrector path (3 passes, step residuals, 200 "
                                    "steps)", grow=False, phi_max=SI_CORRECTOR_PHI_MAX)
+    ens_si_fused = si_ensemble_path([SEMI, SI_FUSED_MEMBERS], "semi-implicit ensemble path, "
+                                    "fused CG variant (K8 once a solve, K9 and K8b over "
+                                    "members; ensemble = 4, 200 steps)", variant="fused")
     si_ensemble_timing()
     # differentiable runs on the one card: the adjoint solves on K8-K10
     diff = check_differentiable()
@@ -4374,6 +4794,21 @@ def main() -> None:
                      "cross form)", cg_src, "bachelors_tpu/ops/pallas_dd.py:749",
                      sum(ens_si64[f"{f}_residual_members"] for f in ("cross", "aniso", "heat")),
                      si_members64["K14"]),
+        kernel_entry("K3 rk4_full_members (K3 over members, one launch a step for all; the "
+                     "RK4 ensemble path at 4096x2048, B = 2)", rhs_src, f"{pallas_rhs}:1156",
+                     ens_rk4_8m["rk4_full_members"], k3_members32),
+        kernel_entry("K3 rk4_full_members at float64 (K13's scheme rk4 over members; the "
+                     "float64 RK4 ensemble path at 4096x2048, B = 2)", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:667", ens_rk4_8m64["rk4_full_members"],
+                     k3_members64),
+        kernel_entry("K8b advance_p_matvec_members (K8b over members, cross and aniso forms; "
+                     "the semi-implicit ensemble path on the fused CG variant; timed as the "
+                     "mean of the two forms)", cg_src, f"{pallas_cg}:49",
+                     sum(ens_si_fused[k] for k in K8B_MEMBER_KEYS), k8b_members32),
+        kernel_entry("K8b advance_p_matvec_members at float64 (checked against its plain "
+                     "version and the single K8b only: no float64 path takes the fused CG "
+                     "variant)", cg_src, f"{pallas_cg}:49",
+                     sum(ens_si64[k] for k in K8B_MEMBER_KEYS), k8b_members64),
         *(kernel_entry(f"{k} {label} at {dtype} (the port's differentiable semi-implicit "
                        f"path, which runs the default route's {k} where JAX's runs XLA's CG: "
                        "forward and adjoint CG solves of d mean Phi / d U0 at 512^2)", cg_src,

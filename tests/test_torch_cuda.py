@@ -2007,6 +2007,155 @@ def test_semi_implicit_members_equal_single_steps_on_the_card(dtype, S,
     assert len(counts) > 1
 
 
+# K3 and K8b over members: each member's rows (and K8b's dot) equal the
+# unbatched kernel's on that member's fields bit for bit, rows of members a
+# launch does not step stay as they were, B members cost one launch.
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("S", [0.0, 0.25])
+def test_batched_k3_equals_unbatched_per_member(B, dtype, S, gen, cuda_device):  # noqa: F811
+    for ny, nx in MEMBER_SIZES:
+        for f_bc, u_bc in ALL_PAIRS:
+            p = _params(ny, nx, f_bc, u_bc, S, 6.0).replace(dtype=dtype)
+            ids = list(range(B)) if B < 3 else [2, 0]
+            fu = [0.01 * (b + 1) for b in range(B)]
+            d = 0.25 if "dirichlet" in (f_bc, u_bc) else 0.0
+            (F, U), = _stacked(gen, B, ny, nx, dtype, cuda_device)
+            out = (torch.full_like(F, 7.0), torch.full_like(U, 7.0))
+            got = _one_launch(cuda_rhs, "rk4_full_members",
+                              lambda: cuda_rhs.rk4_full_members(F, U, p, fu, d, ids, out))
+            for b in range(B):
+                if b not in ids:
+                    assert (got[0][b] == 7.0).all() and (got[1][b] == 7.0).all()
+                    continue
+                Fb, Ub = F[b].contiguous(), U[b].contiguous()
+                for want in (cuda_rhs.rk4_full(Fb, Ub, p, fu[b], d),
+                             cuda_rhs.rk4_full_plain(Fb, Ub, p, fu[b], d)):
+                    assert torch.equal(got[0][b], want[0]) and torch.equal(got[1][b], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_k8b_equals_unbatched_per_member(B, dtype, gen, cuda_device):  # noqa: F811
+    """K8b over members against the single K8b with the fused loop's beta
+    (rr_new / torch.clamp(rr, min=eps), torch ops on the card), p', A p'
+    and <p', A p'> bit for bit, the dot also to ``pAp_in_kernel_order``;
+    a member whose rr is below eps divides by eps."""
+    eps = 1e-12
+    for ny, nx in ((512, 512), (33, 129)):
+        ids = list(range(B)) if B < 3 else [3, 0, 1]
+        frozen = [b for b in range(B) if b not in ids]
+        A = CrossMatrix(C=1.3, X=-0.1, Y=-0.12, boundary=BoundaryType.NEUMANN)
+        Aa = AnisotropyMatrix(Cm1=0.3, X=-0.1, Y=-0.12, boundary=BoundaryType.PERIODIC)
+        (r, p_), (s, _) = _stacked(gen, B, ny, nx, dtype, cuda_device, 2)
+        s = s.abs()
+        rr_new = r.new_tensor(gen.uniform(0.1, 1.0, B))
+        rr = r.new_tensor(gen.uniform(0.5, 2.0, B))
+        rr[0] = 1e-14
+        for name, call, single in (
+                ("cross_advance_p_matvec_members",
+                 lambda o, q, d: cuda_cg.cross_advance_p_matvec_members(A, r, p_, rr_new, rr,
+                                                                        eps, d, ids, o, q),
+                 lambda b, beta: cuda_cg.cross_advance_p_matvec(A, r[b].contiguous(),
+                                                                p_[b].contiguous(), beta)),
+                ("aniso_advance_p_matvec_members",
+                 lambda o, q, d: cuda_cg.aniso_advance_p_matvec_members(Aa, s, r, p_, rr_new, rr,
+                                                                        eps, d, ids, o, q),
+                 lambda b, beta: cuda_cg.aniso_advance_p_matvec(Aa, s[b].contiguous(),
+                                                                r[b].contiguous(),
+                                                                p_[b].contiguous(), beta))):
+            out, p_out, dots = (torch.full_like(r, 7.0), torch.full_like(r, 7.0),
+                                r.new_full((B,), 7.0))
+            _one_launch(cuda_cg, name, lambda: call(out, p_out, dots))
+            for b in ids:
+                pn, Apn, d = single(b, rr_new[b] / torch.clamp(rr[b], min=eps))
+                assert torch.equal(p_out[b], pn) and torch.equal(out[b], Apn), (name, b)
+                assert torch.equal(dots[b], d), (name, b)
+                assert torch.equal(dots[b], cuda_cg.pAp_in_kernel_order(p_out[b], out[b]))
+            for b in frozen:
+                assert (out[b] == 7.0).all() and (p_out[b] == 7.0).all() and dots[b] == 7.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_fused_cg_solve_equals_cg_solve_fused(dtype, gen, cuda_device):  # noqa: F811
+    """``cg_solve_fused_members`` on K8, K9 and K8b over members against
+    ``cg_solve_fused`` on each member's system on the single kernels: x,
+    error and count bit for bit, the counts differing, one member at
+    max_iters; one K8 over members, then per round one K9 and at most one
+    K8b over members and one host read."""
+    from bachelors_tpu_torch.ops.stencil import anisotropy_matvec
+
+    B, n, tol, max_iters, eps = 3, 512, 1e-6, 5, 1e-12
+    A = AnisotropyMatrix(Cm1=0.33, X=-0.08, Y=-0.09, boundary=BoundaryType.NEUMANN)
+    b = torch.from_numpy(gen.normal(size=(B, n, n)).astype(dtype)).to(cuda_device)
+    b *= b.new_tensor(10.0 ** -np.arange(B))[:, None, None]
+    b[2] *= 1e3
+    s = torch.from_numpy(gen.uniform(0.2, 0.5, size=(B, n, n)).astype(dtype)).to(cuda_device)
+    mv = semi_implicit._members_matvec_pAp(True, A, s, None)
+    adv = semi_implicit._members_advance_p_matvec(A, s)
+    cuda_cg.reset_launch_counts()
+    cg.reset_host_reads()
+    x, res = cg.cg_solve_fused_members(mv, adv, b, [0, 1, 2], tolerance=tol,
+                                       max_iters=max_iters, epsilon=eps)
+    rounds = cg.HOST_READS["cg_stop_test_members"]
+    assert cuda_cg.LAUNCHES["aniso_matvec_pAp_members"] == 1
+    assert cuda_cg.LAUNCHES["update_xr_rr_members"] == rounds == res.rounds > 0
+    assert 0 < cuda_cg.LAUNCHES["aniso_advance_p_matvec_members"] <= rounds
+    assert cuda_cg.LAUNCHES["advance_p_members"] == 0
+    for m in range(B):
+        want_x, want = cg.cg_solve_fused(
+            lambda v, m=m: anisotropy_matvec(A, s[m], v),
+            lambda v, out=None, m=m: cuda_cg.aniso_matvec_pAp(A, s[m], v, out),
+            lambda r, p, beta, out=None, p_out=None, m=m: cuda_cg.aniso_advance_p_matvec(
+                A, s[m], r, p, beta, out=out, p_out=p_out),
+            b[m].contiguous(), tolerance=tol, max_iters=max_iters, epsilon=eps)
+        assert torch.equal(x[m], want_x), m
+        assert (res.iters[m], res.converged[m]) == (want.iters, want.converged)
+        assert torch.equal(res.error[m], want.error)
+    assert len(set(res.iters.tolist())) > 1 and not res.converged.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_rk4_full_members_route_at_8m_cells(dtype, cuda_device):  # noqa: F811
+    """An RK4 ensemble of 2 members of 4096 x 2048 cells (RK4_FULLSTEP_MIN_CELLS
+    a member) on the card: each step one ``rk4_full_members`` launch and no
+    K1 or K4 over members, each member its single stepper's step (K3) bit
+    for bit."""
+    import dataclasses
+
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.core.state import make_state, member, stack_states
+    from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
+    from bachelors_tpu_torch.solvers.base import make_ensemble_stepper, make_stepper
+    from bachelors_tpu_torch.solvers.explicit import RK4_FULLSTEP_MIN_CELLS
+
+    p = SimParams(nx=2048, ny=4096, L0=4.0, S=0.25, m0=6.0, dtype=dtype, dt=7.8125e-8,
+                  solver=SolverType.EXPLICIT_RK4)
+    assert p.N == RK4_FULLSTEP_MIN_CELLS
+    ic = InitialConditions(circle_center=(2.0, 2.0), circle_radius=0.5, noise_T=0.02)
+    singles = [make_state(*make_initial_fields(p, dataclasses.replace(ic, noise_seed=b),
+                                               device=cuda_device), p, device=cuda_device)
+               for b in range(2)]
+    ens = stack_states(singles)
+    single, members = make_stepper(p), make_ensemble_stepper(p)
+    cuda_rhs.reset_launch_counts()
+    for _ in range(2):
+        ens, _ = members(ens)
+    n = {k: v for k, v in cuda_rhs.LAUNCHES.items() if v}
+    assert n == {"rk4_full_members": 2}
+    for b in range(2):
+        st = singles[b]
+        for _ in range(2):
+            st, _ = single(st)
+        m = member(ens, b)
+        assert torch.equal(m.F, st.F) and torch.equal(m.U, st.U)
+    assert cuda_rhs.LAUNCHES["rk4_full"] == 4
+
+
 def _diff_problem(dtype, device, S=0.25, n=64):
     from bachelors_tpu_torch.core.params import SolverType
     from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
@@ -2041,12 +2190,13 @@ def test_differentiable_step_on_the_kernels_matches_plain(dtype, S, cuda_device)
     """``SimParams.differentiable`` on the card: the forward, adjoint and
     tangent solves run on K8, K9 and K10 (a K8, a K9 and a host read a
     pass, no plain CG iteration), and the gradient and the tangent equal
-    the card's plain backend's within 1e-8 (float64) and 1e-3 (float32) of
-    their largest value: the kernels and torch.sum add in other orders."""
+    the card's plain backend's within 1e-12 (float64) and 1e-5 (float32)
+    of their largest value, chip_smoke.py's limits: the kernels and
+    torch.sum add in other orders."""
     from torch.autograd import forward_ad
 
     p, F0, U0 = _diff_problem(dtype, cuda_device, S)
-    rtol = 1e-8 if dtype == "float64" else 1e-3
+    rtol = 1e-12 if dtype == "float64" else 1e-5
     gen = torch.Generator(device=cuda_device).manual_seed(11)
     w = torch.randn(U0.shape, generator=gen, device=cuda_device, dtype=U0.dtype)
     grads, tangents = [], []

@@ -210,16 +210,75 @@ def test_resume_continues_the_run(tmp_path):
     ("[tpu]\nensemble", "4\nshards_y = 2", "ensembles on a mesh"),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),
-    ("[program]\ndebug", "true", "debug"),
     ("[snapshot]\nnetcdf", "true", "netcdf"),
-    ("[tpu]\nensemble", "4\n[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\n"
-     "mesh_size_y = 2048", "item 7d"),
     ("[tpu]\ndtype", "bfloat16", "bfloat16"),
 ])
 def test_unported_keys_raise(tmp_path, key, value, match):
     with pytest.raises(NotImplementedError, match=match):
         run_config_file(CONFIG, _overrides(tmp_path) + [f"{key} = {value}\n"],
                         device="cpu")
+
+
+def _frames(res):
+    return {f: load_bin_maps(os.path.join(res.save_folder, f))
+            for f in sorted(os.listdir(res.save_folder)) if f.endswith(".bin")}
+
+
+def _debug_runs(tmp_path, monkeypatch):
+    """[program] debug = true, which raised before the debug maps were
+    ported: the run's frames carry grad_Phi, grad_T and aniso after F and
+    U (RKM's tau last), and its F, U and tau are the run without debug's,
+    bit for bit (tests/test_torch_debug_maps.py holds the maps to JAX's)."""
+    plain = run_config_file(CONFIG, _overrides(tmp_path / "plain"), device="cpu")
+    debug = run_config_file(CONFIG, _overrides(tmp_path / "debug") + ["[program]\ndebug = true\n"],
+                            device="cpu")
+    a, b = _frames(plain), _frames(debug)
+    assert list(a) == list(b) and len(a) == 3
+    for f in a:
+        assert list(b[f].maps) == ["F", "U", "grad_Phi", "grad_T", "aniso", "tau"]
+        assert (a[f].time, a[f].iter) == (b[f].time, b[f].iter)
+        for k in a[f].maps:
+            np.testing.assert_array_equal(a[f].maps[k], b[f].maps[k])
+
+
+def _rk4_members_runs(tmp_path, monkeypatch):
+    """An RK4 ensemble from RK4_FULLSTEP_MIN_CELLS cells a member, which
+    raised before K3 over members was ported: config.ini's RK4 at 4096 x
+    2048 with ensemble = 4 passes ``check_supported``; and at 64^2 with the
+    routing module's threshold patched to its cells and the kernel backend
+    forced, the run takes one ``rk4_full_members`` call a step and member b
+    equals the single run with noise_seed + b bit for bit."""
+    from bachelors_tpu_torch.app.driver import check_supported
+    from bachelors_tpu_torch.ops import cuda_rhs
+    from bachelors_tpu_torch.solvers import explicit
+
+    rk4 = ["[simulation]\nsolver = explicit-rk4\n"]
+    check_supported(tconfig.load_config(CONFIG, rk4 + [
+        "[simulation]\nmesh_size_x = 4096\nmesh_size_y = 2048\n", "[tpu]\nensemble = 4\n"]))
+    monkeypatch.setattr(explicit, "RK4_FULLSTEP_MIN_CELLS", 64 * 64)
+    monkeypatch.setattr(explicit, "resolve_backend", lambda p, device: "kernel")
+    calls = []
+    whole = cuda_rhs.rk4_full_members
+    monkeypatch.setattr(cuda_rhs, "rk4_full_members",
+                        lambda *a, **kw: calls.append(1) or whole(*a, **kw))
+    noise = ["[initial]\nnoise_T = 0.02\n"]
+    ens = run_config_file(CONFIG, _overrides(tmp_path / "ens") + rk4 + noise
+                          + ["[tpu]\nensemble = 3\n"], device="cpu")
+    assert len(calls) == ens.iters > 0
+    members = _frames(ens)["members_0002.bin"]
+    for b in range(3):
+        one = run_config_file(CONFIG, _overrides(tmp_path / f"s{b}") + rk4 + noise
+                              + [f"[initial]\nnoise_seed = {b}\n"], device="cpu")
+        last = _frames(one)["maps_0002.bin"]
+        np.testing.assert_array_equal(members.maps[f"F_m{b:03d}"], last.maps["F"])
+        np.testing.assert_array_equal(members.maps[f"U_m{b:03d}"], last.maps["U"])
+
+
+@pytest.mark.parametrize("case", ["debug", "item 7d"])
+def test_keys_that_raised_now_run(tmp_path, monkeypatch, case):
+    """The two cases ``test_unported_keys_raise`` held until their modules
+    were ported: each now runs and matches its single run."""
+    {"debug": _debug_runs, "item 7d": _rk4_members_runs}[case](tmp_path, monkeypatch)
 
 
 def test_cuda_device_without_card_is_an_error(tmp_path, monkeypatch):

@@ -520,11 +520,12 @@ def test_ensemble_member_equals_single_run_with_its_seed(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    # semi-implicit ensembles are supported (the fused CG variant, item 7d,
-    # apart: tests/test_torch_ensemble_si.py)
+    # semi-implicit ensembles are supported, on both CG variants
+    # (tests/test_torch_ensemble_si.py, tests/test_torch_cg_fused_members.py),
+    # and RK4 ensembles from RK4_FULLSTEP_MIN_CELLS cells a member (K3 over
+    # members, tests/test_torch_rk4_members.py)
     ("[simulation]\nsolver = semi-implicit\n", None),
-    ("[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\nmesh_size_y = 2048\n",
-     "item 7d"),
+    ("[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\nmesh_size_y = 2048\n", None),
     ("[tpu]\nshards_y = 2\n", "item 7c"),
     ("[tpu]\nbatch_shards = 2\n", "item 7c"),
 ])
@@ -537,15 +538,26 @@ def test_unsupported_ensembles_raise_with_their_roadmap_item(extra, match):
         check_supported(cfg)
 
 
-def test_semi_implicit_members_stepper_raises(monkeypatch):
-    """The members stepper takes semi-implicit runs; it raises, naming
-    ROADMAP item 7d, only where the CG gate says "fused" (K8b has no
-    members form yet), and never switches quietly to another variant."""
+def test_semi_implicit_members_stepper_takes_both_cg_variants(monkeypatch):
+    """The members stepper takes semi-implicit runs under either CG
+    variant; where the gate says "fused" (which raised until K8b had a
+    members form) a step of the stack equals the single step of each member
+    bit for bit, on the kernel route's wrappers (their plain versions
+    here)."""
+    from bachelors_tpu_torch.ops import rhs as ops_rhs
+    from bachelors_tpu_torch.solvers import semi_implicit
+
     p = _port_params("euler", "float64").replace(solver=SolverType.SEMI_IMPLICIT)
     assert callable(make_ensemble_stepper(p))
-    monkeypatch.setattr("bachelors_tpu_torch.solvers.semi_implicit._FORCE_CG_VARIANT", "fused")
-    with pytest.raises(NotImplementedError, match="7d"):
-        make_ensemble_stepper(p)
+    monkeypatch.setattr(semi_implicit, "_FORCE_CG_VARIANT", "fused")
+    for mod in (semi_implicit, ops_rhs):
+        monkeypatch.setattr(mod, "resolve_backend", lambda p, device: "kernel")
+    ens = stack_states(_members(p))
+    got, _ = make_ensemble_stepper(p)(ens)
+    single = make_stepper(p)
+    for b in range(3):
+        want, _ = single(member(ens, b))
+        assert torch.equal(got.F[b], want.F) and torch.equal(got.U[b], want.U)
 
 
 def test_ensemble_noise_example_writes_mean_and_std(tmp_path):

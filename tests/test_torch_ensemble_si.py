@@ -376,18 +376,22 @@ def test_si_ensemble_reads_the_host_once_a_round():
     assert 0 < ens_reads["cg_stop_test_members"] < cg.HOST_READS["cg_stop_test"]
 
 
-def test_fused_cg_ensembles_raise_with_item_7d(monkeypatch):
-    """The fused CG variant has no members form yet (K8b over members): an
-    ensemble that the gate sends to it raises, naming ROADMAP item 7d,
-    rather than switching quietly to the pAp variant."""
+def test_fused_cg_ensembles_run(monkeypatch, kernel_routes):
+    """The fused CG variant over members (K8b over members), which raised
+    until it was ported: an ensemble that the gate sends to it builds and
+    passes ``check_supported``, a stepper built before the gate turned
+    takes it too, and each member equals its single fused step bit for
+    bit, CG counts included (tests/test_torch_cg_fused_members.py holds
+    the rest)."""
     monkeypatch.setattr(semi_implicit, "_FORCE_CG_VARIANT", "fused")
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        make_ensemble_stepper(_params("float32"))
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        check_supported(parse_config(_text("semi-implicit")))
+    check_supported(parse_config(_text("semi-implicit")))
     p = _params("float32")
     monkeypatch.setattr(semi_implicit, "_FORCE_CG_VARIANT", None)
     step = make_ensemble_stepper(p)
     monkeypatch.setattr(semi_implicit, "_FORCE_CG_VARIANT", "fused")
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        step(stack_states(_singles(p, B=2)))
+    singles = _singles(p, B=2)
+    got, stats = step(stack_states(singles))
+    for b in range(2):
+        want, s1 = make_stepper(p)(singles[b])
+        assert torch.equal(got.F[b], want.F) and torch.equal(got.U[b], want.U)
+        assert (stats.Phi_iters[b], stats.T_iters[b]) == (s1.Phi_iters, s1.T_iters)
