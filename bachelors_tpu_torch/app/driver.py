@@ -24,12 +24,17 @@ A float64 run
 computes in double throughout, on the same kernels instantiated for it; its
 snapshots hold the doubles.
 
-With ``[tpu] ensemble = B`` the run is B simulations at once on one device,
-member b seeded with ``noise_seed + b`` (JAX :90-132, :247-282): each
-Euler pass, RK4 stage and Merson attempt is one launch for every member
+With ``[tpu] ensemble = B`` the run is B simulations at once, member b
+seeded with ``noise_seed + b`` (JAX :90-132, :247-282): each Euler pass,
+RK4 stage and Merson attempt is one launch for every member
 (``solvers/base.make_ensemble_stepper``), and each member keeps its own
 clock, so members of an adaptive ensemble step at their own times and stop
-at their own first step past each event.  Snapshots write member 0 with
+at their own first step past each event.  On a mesh (JAX's dp x spatial
+decomposition) ``[tpu] batch_shards = G`` splits the members into G groups,
+each on its own devices, and ``shards_y``/``shards_x`` split each member's
+grid: RKM and exact ensembles on every mesh, every solver with batch groups
+alone; each Merson attempt is then one launch per shard for the group's
+live members.  Snapshots write member 0 with
 the members' mean and standard deviation maps, and every member's fields
 with their (t, iter, tau) into ``members_####.bin``, from which a run
 resumes; each member's stats go to its own csv (JAX :164-229).
@@ -59,7 +64,7 @@ from ..models.initial import make_initial_fields
 from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
 from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 from ..parallel.topology import Topology
-from ..solvers.base import make_stepper
+from ..solvers.base import MESH_MEMBERS_TODO, make_stepper
 from ..solvers.explicit import make_euler_pair_stepper
 from ..solvers.run import END_TOLERANCE, advance_n
 from ..solvers.semi_implicit import cg_branch
@@ -94,9 +99,13 @@ def check_supported(cfg: SimConfig) -> None:
     """Raise for config keys this port does not implement yet, naming the
     ROADMAP item that brings each, instead of ignoring them."""
     cfg.params.validate()
+    if cfg.ensemble > 1 and cfg.batch_shards > 1 and cfg.ensemble % cfg.batch_shards:
+        raise ValueError(f"[tpu] ensemble={cfg.ensemble} must be divisible "
+                         f"by batch_shards={cfg.batch_shards}")
     todo = []
-    if cfg.batch_shards > 1 or (cfg.ensemble > 1 and cfg.shards_y * cfg.shards_x > 1):
-        todo.append("[tpu] ensembles on a mesh and batch_shards > 1 (ROADMAP item 7c)")
+    if (cfg.ensemble > 1 and cfg.shards_y * cfg.shards_x > 1
+            and cfg.params.solver not in (SolverType.EXPLICIT_RK4_ADAPTIVE, SolverType.EXACT)):
+        todo.append(f"[tpu] {MESH_MEMBERS_TODO}")
     if cfg.multihost:
         todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")
     if cfg.interactive:
@@ -208,12 +217,12 @@ def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
     ensemble's list of them, member 0's into stats.csv and member b's into
     stats_m{b:03d}.csv (JAX :219-225)."""
     p = cfg.params
+    state = gather_state(state)  # a mesh's shards joined: the same bytes
     if n_members(state):
         extra = _save_members(folder, index, state, p)
         state = member(state, 0)  # the frame's maps are member 0's (JAX :194)
     else:
         extra = {}
-        state = gather_state(state)  # a mesh's shards joined: the same bytes
     # F, U, the debug maps, an ensemble's mean and std maps, RKM's tau: JAX's
     # names in JAX's order (JAX :199-209)
     maps = available_maps(state, cfg, cfg.debug)
@@ -253,14 +262,17 @@ def snapshot_events(stop: float, times: int, every: float) -> List[float]:
 def _devices(cfg: SimConfig, device) -> Tuple[torch.device, Optional[Mesh], Topology]:
     """The run's first device, and its mesh and Topology (None and
     ``Topology()`` on one device).  ``device`` is one device or a list; a
-    mesh takes one device per shard from the list, and ``"cuda"`` alone
-    stands for every visible card.  Too few raise."""
+    mesh takes one device per shard from the list, for each of its member
+    groups (``[tpu] batch_shards``, taken by an ensemble and ignored by a
+    single run, as JAX does), and ``"cuda"`` alone stands for every visible
+    card.  Too few raise."""
     names = list(device) if isinstance(device, (list, tuple)) else [device]
-    if cfg.shards_y * cfg.shards_x == 1:
+    batch = cfg.batch_shards if cfg.ensemble > 1 else 1
+    if cfg.shards_y * cfg.shards_x * batch == 1:
         return resolve_device(names[0]), None, Topology()
     devices = [resolve_device(d) for d in names]
     mesh, topo = make_mesh(cfg.shards_y, cfg.shards_x,
-                           None if names == ["cuda"] else devices)
+                           None if names == ["cuda"] else devices, batch=batch)
     return mesh.devices[0], mesh, topo
 
 
@@ -276,7 +288,11 @@ def run_simulation(cfg: SimConfig, device="cuda",
     ensemble = max(cfg.ensemble, 1)
     if ensemble > 1:
         state = _initial_ensemble_state(cfg, ensemble, dev)
-        stepper = make_ensemble_stepper(p)
+        stepper = make_ensemble_stepper(p, mesh, topo)
+        if mesh is not None:
+            # dp x spatial: the members split over the batch groups, each
+            # member's grid over its group's shards (JAX :262-277)
+            state = shard_state(state, mesh, topo)
         log.info(f"ensemble of {ensemble} members (vary noise_seed)")
     elif mesh is None:
         state = _initial_state(cfg, dev)
@@ -295,8 +311,9 @@ def run_simulation(cfg: SimConfig, device="cuda",
     log.info(f"device = {dev}"
              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
     if mesh is not None:
-        log.info(f"sharding over a {topo.shards_y}x{topo.shards_x} mesh on "
-                 f"{[str(d) for d in mesh.devices]}")
+        log.info(f"sharding over a {topo.shards_y}x{topo.shards_x} mesh"
+                 + (f" x {mesh.batch} member groups" if mesh.batch > 1 else "")
+                 + f" on {[str(d) for d in mesh.devices]}")
 
     accs = [StatsAccumulator() for _ in range(ensemble)] if cfg.collect_stats else []
     acc = accs[0] if accs else None

@@ -63,17 +63,29 @@ def state_from_numpy(F: np.ndarray, U: np.ndarray, t, iter, tau,
 
 
 def shards_from_numpy(A: np.ndarray, shards_y: int, shards_x: int,
-                      devices=None) -> Shards:
+                      devices=None, batch: int = 1) -> Shards:
     """A (ny, nx) array split over a ``shards_y x shards_x`` mesh, block
     (i, j) on ``devices[i * shards_x + j]`` (every shard on the card by
-    default), as ``parallel/mesh.shard_state`` splits a field."""
+    default), as ``parallel/mesh.shard_state`` splits a field; an
+    ensemble's (B, ny, nx) members in ``batch`` groups of member-major
+    blocks, group g's on ``devices[g * n:(g + 1) * n]`` (n = shards_y *
+    shards_x), as JAX's ``shard_state(..., batched=True)`` places them."""
     n = shards_y * shards_x
-    devices = [resolve_device(d) for d in (devices or [DEFAULT_DEVICE] * n)]
-    spec = field_spec(Topology(shards_y, shards_x), *A.shape)
-    return Shards(tuple(torch.from_numpy(np.ascontiguousarray(A[r, c])).to(d)
-                        for (r, c), d in zip(spec, devices)), (shards_y, shards_x))
+    devices = [resolve_device(d) for d in (devices or [DEFAULT_DEVICE] * n * batch)]
+    spec = field_spec(Topology(shards_y, shards_x), *A.shape[-2:])
+    if A.ndim == 2:
+        return Shards(tuple(torch.from_numpy(np.ascontiguousarray(A[r, c])).to(d)
+                            for (r, c), d in zip(spec, devices)), (shards_y, shards_x))
+    if A.shape[0] % batch:
+        raise ValueError(f"{A.shape[0]} members do not split into {batch} groups")
+    Bg = A.shape[0] // batch
+    return Shards(tuple(torch.from_numpy(np.ascontiguousarray(A[g * Bg:(g + 1) * Bg, r, c]))
+                        .to(devices[g * n + k])
+                        for g in range(batch) for k, (r, c) in enumerate(spec)),
+                  (shards_y, shards_x), batch=batch)
 
 
 def shards_to_numpy(A: Shards) -> np.ndarray:
-    """The whole (ny, nx) field of a ``Shards`` as one numpy array."""
+    """The whole (ny, nx) field of a ``Shards`` as one numpy array; an
+    ensemble's (B, ny, nx) members."""
     return A.gather(torch.device("cpu")).numpy()

@@ -71,12 +71,18 @@ class Halo:
     a global edge a Neumann or Dirichlet field takes its boundary image and
     ignores the ghost; a periodic field reads the ghost, which the ring
     exchange filled from the shard on the other side of the domain
-    (``bachelors_tpu/parallel/topology.py:_halo_pad_1d`` :30-66).
+    (``bachelors_tpu/parallel/topology.py:_halo_pad_1d`` :30-66).  An
+    ensemble's ghosts are member-major, (B, 2, k, n) (``member``).
     """
 
     rows: Optional[torch.Tensor] = None
     cols: Optional[torch.Tensor] = None
     edges: Tuple[bool, bool, bool, bool] = (True, True, True, True)
+
+    def member(self, b: int) -> "Halo":
+        """Member b's halo of an ensemble's member-major one."""
+        return Halo(None if self.rows is None else self.rows[b],
+                    None if self.cols is None else self.cols[b], self.edges)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +99,8 @@ class Apron:
     that is not sharded.  Unlike a ``Halo``, ghosts are raw neighbour cells
     whatever the boundary type: the kernel applies the boundary rule at
     global edges itself, at every stage (``parallel/topology.Topology.apron``
-    fills it)."""
+    fills it).  An ensemble's is member-major: each ghost tensor with a
+    leading member axis (``member``)."""
 
     rows: Optional[torch.Tensor]
     cols: Optional[torch.Tensor]
@@ -102,7 +109,13 @@ class Apron:
 
     @property
     def depth(self) -> int:
-        return (self.rows.shape[2] if self.rows is not None else self.cols.shape[3])
+        return (self.rows.shape[-2] if self.rows is not None else self.cols.shape[-1])
+
+    def member(self, b: int) -> "Apron":
+        """Member b's apron of an ensemble's member-major one (rows (B, 2,
+        2, A, W), cols (B, 2, 2, ny_l, A))."""
+        return Apron(None if self.rows is None else self.rows[b],
+                     None if self.cols is None else self.cols[b], self.y0, self.x0)
 
 
 def edge_image(edge: torch.Tensor, bc: BoundaryType, dirichlet_value) -> torch.Tensor:

@@ -14,9 +14,10 @@
     round differently.
 
 An ensemble of B members (``[tpu] ensemble``, JAX's vmapped state) stacks
-the fields (B, ny, nx) on one device, and its clock is host numpy arrays
-of B: ``t`` float64, ``iter`` int64 and ``tau`` of the field dtype, so
-member b's entries are exactly what its single run would hold.
+the fields (B, ny, nx) on one device, or on a mesh as ``Shards`` of
+member-major blocks, and its clock is host numpy arrays of B: ``t``
+float64, ``iter`` int64 and ``tau`` of the field dtype, so member b's
+entries are exactly what its single run would hold.
 """
 from __future__ import annotations
 
@@ -46,16 +47,25 @@ class Shards:
     """A field split over a mesh of ``grid`` = (shards_y, shards_x) blocks,
     each a (ny_l, nx_l) tensor on its shard's device, in row-major order
     (``parallel/mesh.shard_state`` makes one, ``gather`` joins it).  The
-    port's counterpart of a JAX array sharded by ``field_spec``."""
+    port's counterpart of a JAX array sharded by ``field_spec``.
+
+    An ensemble's members on a mesh make member-major (B_g, ny_l, nx_l)
+    blocks: each shard holds the same block of every member of its group.
+    With ``batch`` = G groups (``[tpu] batch_shards``, JAX's ``batch``
+    mesh axis) the members split into G contiguous groups of B_g = B / G,
+    each on its own shards, and ``blocks`` holds group 0's shards, then
+    group 1's, and so on (``group``)."""
 
     blocks: Tuple[torch.Tensor, ...]
     grid: Tuple[int, int]
     # Per shard, the edges of the (F, U) pair this field belongs to, as
     # ``ops/rhs.stage_halos`` gathers them at weight 1, written by the kernel
     # that made the pair (``ops/cuda_rhs.Fold``): the same object on both
-    # fields of the pair, else None.  A field made any other way carries
-    # none, so a stage reading it gathers its edges.
+    # fields of the pair, else None; member-major (B_g, 2, 2, n) for an
+    # ensemble's.  A field made any other way carries none, so a stage
+    # reading it gathers its edges.
     edges: Optional[tuple] = dataclasses.field(default=None, compare=False, repr=False)
+    batch: int = 1
 
     def block(self, i: int, j: int) -> torch.Tensor:
         return self.blocks[i * self.grid[1] + j]
@@ -63,13 +73,25 @@ class Shards:
     def map(self, fn, *others: "Shards") -> "Shards":
         """Shards of ``fn(block, *other blocks)``, shard by shard."""
         return Shards(tuple(fn(*bs) for bs in zip(self.blocks, *(o.blocks for o in others))),
-                      self.grid)
+                      self.grid, batch=self.batch)
 
     @property
-    def shape(self) -> Tuple[int, int]:
+    def members(self) -> Optional[int]:
+        """B for an ensemble's members (every group's), None for a single
+        field."""
+        if self.blocks[0].dim() == 2:
+            return None
+        n = self.grid[0] * self.grid[1]
+        return sum(self.blocks[g * n].shape[0] for g in range(self.batch))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """(ny, nx), or (B, ny, nx) for an ensemble's members."""
         sy, sx = self.grid
-        return (sum(self.block(i, 0).shape[0] for i in range(sy)),
-                sum(self.block(0, j).shape[1] for j in range(sx)))
+        ny_nx = (sum(self.block(i, 0).shape[-2] for i in range(sy)),
+                 sum(self.block(0, j).shape[-1] for j in range(sx)))
+        B = self.members
+        return ny_nx if B is None else (B, *ny_nx)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -83,13 +105,44 @@ class Shards:
     def numel(self) -> int:
         return sum(b.numel() for b in self.blocks)
 
+    def group(self, g: int) -> "Shards":
+        """Member group g's shards (its edges with them), one group."""
+        n = self.grid[0] * self.grid[1]
+        edges = None if self.edges is None else self.edges[g * n:(g + 1) * n]
+        return Shards(self.blocks[g * n:(g + 1) * n], self.grid, edges)
+
     def gather(self, device=None) -> torch.Tensor:
         """The whole (ny, nx) field on ``device`` (the first shard's by
-        default)."""
+        default); (B, ny, nx) for an ensemble's members, in member order."""
         device = self.device if device is None else device
+        if self.batch > 1:
+            return torch.cat([self.group(g).gather(device) for g in range(self.batch)], 0)
         sy, sx = self.grid
-        return torch.cat([torch.cat([self.block(i, j).to(device) for j in range(sx)], 1)
-                          for i in range(sy)], 0)
+        return torch.cat([torch.cat([self.block(i, j).to(device) for j in range(sx)], -1)
+                          for i in range(sy)], -2)
+
+    def member(self, b: int) -> "Shards":
+        """Member b of an ensemble's shards as a single field's: views of
+        its rows of each block, with its rows of the carried edges."""
+        if self.batch > 1:
+            Bg = self.blocks[0].shape[0]
+            return self.group(b // Bg).member(b % Bg)
+        edges = None
+        if self.edges is not None:
+            edges = tuple(tuple(None if e is None else e[b] for e in pair)
+                          for pair in self.edges)
+        return Shards(tuple(blk[b] for blk in self.blocks), self.grid, edges)
+
+
+def join_groups(groups) -> Shards:
+    """One ``Shards`` of member groups, each the ``Shards`` of one group on
+    its own shards (the inverse of ``Shards.group``); the edges kept if
+    every group carries them."""
+    groups = list(groups)
+    edges = (None if any(g.edges is None for g in groups)
+             else tuple(e for g in groups for e in g.edges))
+    return Shards(tuple(b for g in groups for b in g.blocks), groups[0].grid, edges,
+                  batch=len(groups))
 
 
 Field = Union[torch.Tensor, Shards]
@@ -152,15 +205,30 @@ def n_members(state: SimState) -> Optional[int]:
 
 def member(state: SimState, b: int) -> SimState:
     """Member b of an ensemble's state as a single simulation's (its fields
-    views of the stack)."""
-    return SimState(F=state.F[b], U=state.U[b], t=float(state.t[b]),
-                    iter=int(state.iter[b]), tau=state.tau[b])
+    views of the stack; on a mesh its ``Shards.member``)."""
+    if isinstance(state.F, Shards):
+        F, U = state.F.member(b), state.U.member(b)
+        if F.edges is not None and state.F.edges is state.U.edges:
+            U = dataclasses.replace(U, edges=F.edges)  # one pair: one edges object
+    else:
+        F, U = state.F[b], state.U[b]
+    return SimState(F=F, U=U, t=float(state.t[b]), iter=int(state.iter[b]), tau=state.tau[b])
+
+
+def _stack(fields) -> Field:
+    """Single fields stacked into members: tensors, or ``Shards`` of one
+    group whose blocks stack shard by shard (no edges: a stage gathers)."""
+    if isinstance(fields[0], Shards):
+        return Shards(tuple(torch.stack(bs) for bs in zip(*(f.blocks for f in fields))),
+                      fields[0].grid)
+    return torch.stack(fields)
 
 
 def stack_states(states) -> SimState:
-    """An ensemble's state from its members' single states, in order."""
-    return SimState(F=torch.stack([s.F for s in states]),
-                    U=torch.stack([s.U for s in states]),
+    """An ensemble's state from its members' single states, in order (on
+    one device, or on a mesh of one member group)."""
+    return SimState(F=_stack([s.F for s in states]),
+                    U=_stack([s.U for s in states]),
                     t=np.array([s.t for s in states], np.float64),
                     iter=np.array([s.iter for s in states], np.int64),
                     tau=np.array([s.tau for s in states], type(states[0].tau)))

@@ -612,11 +612,12 @@ struct MaxBits<Rn> {
 // moves the pair into err and zeroes it.  A max is exact in any order, so
 // err is what the one-block reduction launched after it gave.
 template <bool ISO, bool FOLD, class Real>
-__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
-    rkm_final_kernel(BlendArgs<Real> a, Real c6, Real* __restrict__ outF,
-                     Real* __restrict__ outU, typename MaxBits<Real>::T* acc, unsigned* ticket,
-                     Real* __restrict__ err, int ny, int nx, Real d, Real fu, Halo<Real> h,
-                     Fold<Real> fo, PhysParams<Real> P) {
+__device__ __forceinline__ void rkm_final_block(const BlendArgs<Real>& a, Real c6,
+                                                Real* __restrict__ outF, Real* __restrict__ outU,
+                                                typename MaxBits<Real>::T* acc, unsigned* ticket,
+                                                Real* __restrict__ err, int ny, int nx, Real d,
+                                                Real fu, const Halo<Real>& h, const Fold<Real>& fo,
+                                                const PhysParams<Real>& P) {
   constexpr int kThreads = kK1BlockX * kK1BlockY;
   __shared__ Real red[2 * kThreads / 32];
   const int i0 = blockIdx.y * kK1BlockY, j0 = blockIdx.x * kK1BlockX;
@@ -660,6 +661,15 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   }
 }
 
+template <bool ISO, bool FOLD, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    rkm_final_kernel(BlendArgs<Real> a, Real c6, Real* __restrict__ outF,
+                     Real* __restrict__ outU, typename MaxBits<Real>::T* acc, unsigned* ticket,
+                     Real* __restrict__ err, int ny, int nx, Real d, Real fu, Halo<Real> h,
+                     Fold<Real> fo, PhysParams<Real> P) {
+  rkm_final_block<ISO, FOLD>(a, c6, outF, outU, acc, ticket, err, ny, nx, d, fu, h, fo, P);
+}
+
 constexpr int kEdgeThreads = 256;
 
 // K12.1's ghost gather: the blend's first and last row (into `rows`, (2
@@ -667,9 +677,9 @@ constexpr int kEdgeThreads = 256;
 // null if not wanted; one thread per edge cell, K1's blend_at, so a seam
 // reads exactly the blend the neighbour's own K1 forms.
 template <int NS, class Real>
-__global__ void __launch_bounds__(kEdgeThreads)
-    halo_edges_kernel(BlendArgs<Real> a, Real* __restrict__ rows,
-                      Real* __restrict__ cols, int ny, int nx) {
+__device__ __forceinline__ void halo_edges_block(const BlendArgs<Real>& a,
+                                                 Real* __restrict__ rows,
+                                                 Real* __restrict__ cols, int ny, int nx) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int n_rows = rows != nullptr ? 2 * nx : 0;
   if (t < n_rows) {
@@ -686,6 +696,13 @@ __global__ void __launch_bounds__(kEdgeThreads)
     cols[(side * 2) * ny + i] = blend_at<NS>(a.F, a.w, idx);
     cols[(side * 2 + 1) * ny + i] = blend_at<NS>(a.U, a.w, idx);
   }
+}
+
+template <int NS, class Real>
+__global__ void __launch_bounds__(kEdgeThreads)
+    halo_edges_kernel(BlendArgs<Real> a, Real* __restrict__ rows,
+                      Real* __restrict__ cols, int ny, int nx) {
+  halo_edges_block<NS>(a, rows, cols, ny, nx);
 }
 
 // -------------------------------------------------- apron tiles: K2, K3, K6 ----
@@ -1378,6 +1395,153 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
                         s_out != nullptr ? s_out + off : nullptr, ny, nx, whole_grid<Real>(), P);
 }
 
+// ---------------------------------------- the mesh kernels over members ----
+//
+// An ensemble on a mesh (solvers/explicit.rkm_adaptive_members_mesh): each
+// shard holds member-major (B_g, ny_l, nx_l) blocks of its group's members,
+// and every ghost tensor is member-major too -- a Halo's rows (B_g, 2, 2,
+// nx_l) and cols (B_g, 2, 2, ny_l), an Apron's rows (B_g, 2, 2, A, W) and
+// cols (B_g, 2, 2, ny_l, A), a fold's edges as a Halo's -- so member b's
+// ghosts start at b times one member's.  blockIdx.z indexes the launch's
+// members (`Members`), and each member's blocks run the single-shard
+// kernel's body on its own slices, at its own step size and forcing: member
+// b's output equals the single-shard kernel's on member b's fields and
+// ghosts bit for bit.  Members the host froze, that converged or that hit
+// the floor are not in the launch, and their rows are left as they are.
+
+// The blend weights of Merson's stage s (1..5) after the leading 1, at step
+// size tau, in rkm_stages' expressions, which round as the host's
+// merson_weights does in the field type: stage 1 none, 2 {tau/3}, 3 {tau/6,
+// tau/6}, 4 {tau/8, 3 tau/8}, 5 {tau/2, -3 tau/2, 2 tau}.  K2 forms its
+// weights the same way on the card and equals its plain version, which
+// forms them on the host, bit for bit.
+template <class Real>
+__device__ __forceinline__ void merson_weights(int s, Real tau, Real* w) {
+  switch (s) {
+    case 2: w[0] = tau / Real(3); break;
+    case 3: w[0] = tau / Real(6); w[1] = tau / Real(6); break;
+    case 4: w[0] = tau / Real(8); w[1] = Real(3) * tau / Real(8); break;
+    case 5:
+      w[0] = tau / Real(2);
+      w[1] = Real(-3) * tau / Real(2);
+      w[2] = Real(2) * tau;
+      break;
+    default: break;
+  }
+}
+
+// Launch member z's Halo and Fold: its ghosts and edges in the member-major
+// buffers (2 sides x 2 fields of n values a member).
+template <class Real>
+__device__ __forceinline__ Halo<Real> member_halo(Halo<Real> h, int id, int ny, int nx) {
+  if (h.rows != nullptr) h.rows += size_t(id) * 4 * nx;
+  if (h.cols != nullptr) h.cols += size_t(id) * 4 * ny;
+  return h;
+}
+
+template <class Real>
+__device__ __forceinline__ Fold<Real> member_fold(Fold<Real> fo, int id, int ny, int nx) {
+  if (fo.rows != nullptr) fo.rows += size_t(id) * 4 * nx;
+  if (fo.cols != nullptr) fo.cols += size_t(id) * 4 * ny;
+  return fo;
+}
+
+// The K2 twin over members (K12.2 at float32 on a y-mesh shard, the K13 twin
+// at float64 on any shard): one Merson attempt of each launch member on its
+// own block, from its own apron (`ap`'s ghosts at member id[z]: rows_stride
+// and cols_stride values a member), each block's error maxima into the
+// member's slice of the partials (2 * tiles values each), as K2 over
+// members.  Bound like K12.2 (the K13 twin), B times the work.
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
+                                  K2Block<Real, ISO>::kMinBlocks)
+    rkm_attempt_members_apron_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                                     Real* __restrict__ outF, Real* __restrict__ outU,
+                                     Real* __restrict__ partials, Apron<Real> ap,
+                                     size_t rows_stride, size_t cols_stride, int ny, int nx,
+                                     Real d, const __grid_constant__ Members<Real> m,
+                                     PhysParams<Real> P) {
+  const int z = blockIdx.z, id = m.id[z];
+  const size_t off = member_offset(m, z, ap.ny_l, ap.nx_l);
+  const size_t tiles = size_t(gridDim.x) * gridDim.y;
+  if (ap.rows != nullptr) ap.rows += id * rows_stride;
+  if (ap.cols != nullptr) ap.cols += id * cols_stride;
+  rkm_attempt_tile<true, ISO>(F + off, U + off, outF + off, outU + off,
+                              partials + 2 * tiles * z, ap, ny, nx, m.tau[z], d, m.fu[z], P);
+}
+
+// K12.1 over members: Merson's stage s (1..4) on a shard, the blend of
+// a's first NS states at the stage's weights at each member's tau, its
+// seams from the member's ghosts; with FOLD it writes the member's edges of
+// stage s + 1's blend (its first fo.m input states, then its output, at
+// that stage's weights), as K12.1 with the same weights would.  Dirichlet
+// value 0, as the mesh Merson step pads.  Bound like K12.1, B times the
+// bytes.
+template <int NS, bool ISO, bool FOLD, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    merson_stage_members_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
+                                Real* __restrict__ outU, int ny, int nx, int stage,
+                                Halo<Real> h, Fold<Real> fo,
+                                const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const int z = blockIdx.z, id = m.id[z];
+  const size_t off = member_offset(m, z, ny, nx);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    a.F[k] += off;
+    a.U[k] += off;
+  }
+  merson_weights(stage, m.tau[z], a.w + 1);
+  if (FOLD) merson_weights(stage + 1, m.tau[z], fo.w + 1);
+  blend_rhs_block<NS, ISO, FOLD>(a, outF + off, outU + off, ny, nx, Real(0), m.fu[z], 0,
+                                 member_halo(h, id, ny, nx), member_fold(fo, id, ny, nx), P);
+}
+
+// K5 over members: a = {x, k1, k3, k4} stacked, k5 at each member's tau,
+// the update and the member's error maxima, finished in the launch as K5's
+// (each member's blocks draw its own ticket: acc + 2z is its pair, tickets
+// + z its counter) into err[2 id[z]], err[2 id[z] + 1] of the (B, 2) maxima;
+// with FOLD the member's update edges (fo.m = 0).  Dirichlet value 0.
+template <bool ISO, bool FOLD, class Real>
+__global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
+    rkm_final_members_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
+                             Real* __restrict__ outU, typename MaxBits<Real>::T* acc,
+                             unsigned* tickets, Real* __restrict__ err, int ny, int nx,
+                             Halo<Real> h, Fold<Real> fo, const __grid_constant__ Members<Real> m,
+                             PhysParams<Real> P) {
+  const int z = blockIdx.z, id = m.id[z];
+  const size_t off = member_offset(m, z, ny, nx);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    a.F[k] += off;
+    a.U[k] += off;
+  }
+  const Real tau = m.tau[z];
+  merson_weights(5, tau, a.w + 1);
+  rkm_final_block<ISO, FOLD>(a, tau / Real(6), outF + off, outU + off, acc + 2 * z, tickets + z,
+                             err + 2 * id, ny, nx, Real(0), m.fu[z], member_halo(h, id, ny, nx),
+                             member_fold(fo, id, ny, nx), P);
+}
+
+// K12.1's ghost gather over members: each launch member's edges of the
+// blend of a's first NS states at Merson stage s's weights at its tau,
+// into its rows and cols of the member-major edge buffers.
+template <int NS, class Real>
+__global__ void __launch_bounds__(kEdgeThreads)
+    halo_edges_members_kernel(BlendArgs<Real> a, int stage, Real* __restrict__ rows,
+                              Real* __restrict__ cols, int ny, int nx,
+                              const __grid_constant__ Members<Real> m) {
+  const int z = blockIdx.z, id = m.id[z];
+  const size_t off = member_offset(m, z, ny, nx);
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    a.F[k] += off;
+    a.U[k] += off;
+  }
+  merson_weights(stage, m.tau[z], a.w + 1);
+  halo_edges_block<NS>(a, rows != nullptr ? rows + size_t(id) * 4 * nx : nullptr,
+                       cols != nullptr ? cols + size_t(id) * 4 * ny : nullptr, ny, nx);
+}
+
 }  // namespace bt
 
 namespace {
@@ -1818,6 +1982,138 @@ int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S
   return on(F, U, outF, outU, partials, err, ny, nx, d, m, count, P, stream);
 }
 
+// The number of states of Merson stage s's blend (x and the k's before it)
+// and of the input states its fold's next blend takes before the output.
+inline int merson_states(int stage) { return stage == 1 ? 1 : stage == 2 ? 2 : stage < 5 ? 3 : 4; }
+inline int merson_fold_prefix(int stage) { return stage == 1 ? 1 : stage < 4 ? 2 : 3; }
+
+// The K2 twin over members on a shard with its member-major apron: the
+// isotropic instantiation when S = 0, then the members' one-block
+// reductions in one launch
+template <class S, bool ISO>
+int rkm_attempt_members_apron_on(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
+                                 bt::Apron<Ar<S>> ap, int ny, int nx, S d,
+                                 const bt::Members<Ar<S>>* m, int count,
+                                 const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  using R = Ar<S>;
+  constexpr int A = bt::kK2Apron, threads = bt::K2Block<R, ISO>::kThreads;
+  constexpr int smem = int(sizeof(bt::RkmSmem<R, threads>));
+  static const cudaError_t attr = allow_smem(bt::rkm_attempt_members_apron_kernel<ISO, R>, smem);
+  if (attr != cudaSuccess) return int(attr);
+  const size_t row_w = ap.cols != nullptr ? size_t(ap.nx_l) + 2 * A : size_t(ap.nx_l);
+  const size_t rows_stride = 4 * A * row_w, cols_stride = size_t(4) * ap.ny_l * A;
+  dim3 grid = tile_grid(ap.ny_l, ap.nx_l);
+  const int tiles = int(grid.x * grid.y);
+  grid.z = count;
+  bt::rkm_attempt_members_apron_kernel<ISO><<<grid, threads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ar(partials), ap, rows_stride, cols_stride, ny, nx, R(d),
+      *m, *P);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  bt::reduce_partials_members_kernel<<<dim3(1, 1, count), bt::kReduceThreads, 0, stream>>>(
+      ar(static_cast<const S*>(partials)), tiles, ar(err), *m);
+  return int(cudaGetLastError());
+}
+
+template <class S>
+int rkm_attempt_members_apron(const S* F, const S* U, S* outF, S* outU, S* partials, S* err,
+                              bt::Apron<Ar<S>> ap, int ny, int nx, S d,
+                              const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                              cudaStream_t stream) {
+  if (!members_ok(count) || (ap.rows == nullptr && ap.cols == nullptr))
+    return int(cudaErrorInvalidValue);
+  auto on = is_zero(P->S) ? rkm_attempt_members_apron_on<S, true>
+                          : rkm_attempt_members_apron_on<S, false>;
+  return on(F, U, outF, outU, partials, err, ap, ny, nx, d, m, count, P, stream);
+}
+
+// K12.1 over members at Merson stage `stage` (1..4): the isotropic
+// instantiation when S = 0, the folding one when fold_rows or fold_cols is
+// set
+template <int NS, class R>
+void merson_stage_members_for(const bt::BlendArgs<R>& a, R* outF, R* outU, int ny, int nx,
+                              int stage, const bt::Halo<R>& h, const bt::Fold<R>& fo,
+                              const bt::Members<R>& m, int count, const PhysParams<R>& P,
+                              cudaStream_t stream) {
+  dim3 grid = k1_grid(ny, nx);
+  grid.z = count;
+  const bool iso = is_zero(P.S), fold = fo.rows != nullptr || fo.cols != nullptr;
+  auto kernel = iso ? (fold ? bt::merson_stage_members_kernel<NS, true, true, R>
+                            : bt::merson_stage_members_kernel<NS, true, false, R>)
+                    : (fold ? bt::merson_stage_members_kernel<NS, false, true, R>
+                            : bt::merson_stage_members_kernel<NS, false, false, R>);
+  kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(a, outF, outU, ny, nx, stage,
+                                                                   h, fo, m, P);
+}
+
+template <class S>
+int merson_stage_members(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
+                         const S* U2, int stage, S* outF, S* outU, int ny, int nx,
+                         bt::Halo<Ar<S>> h, S* fold_rows, S* fold_cols,
+                         const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                         cudaStream_t stream) {
+  using R = Ar<S>;
+  if (!members_ok(count) || stage < 1 || stage > 4) return int(cudaErrorInvalidValue);
+  const bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, static_cast<const S*>(nullptr),
+                                        static_cast<const S*>(nullptr), S(0), S(0), S(0));
+  const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, merson_fold_prefix(stage), S(0), S(0),
+                                    S(0));
+  switch (merson_states(stage)) {
+    case 1: merson_stage_members_for<1>(a, ar(outF), ar(outU), ny, nx, stage, h, fo, *m, count, *P, stream); break;
+    case 2: merson_stage_members_for<2>(a, ar(outF), ar(outU), ny, nx, stage, h, fo, *m, count, *P, stream); break;
+    default: merson_stage_members_for<3>(a, ar(outF), ar(outU), ny, nx, stage, h, fo, *m, count, *P, stream); break;
+  }
+  return int(cudaGetLastError());
+}
+
+// K5 over members: the isotropic instantiation when S = 0; `scratch` holds
+// bt_rkm_final_members_scratch values (each launch member's pair of maxima,
+// then the members' ticket counters), zeroed once when allocated
+template <class S>
+int rkm_final_members(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k3F,
+                      const S* k3U, const S* k4F, const S* k4U, S* outF, S* outU, S* scratch,
+                      S* err, int ny, int nx, bt::Halo<Ar<S>> h, S* fold_rows, S* fold_cols,
+                      const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                      cudaStream_t stream) {
+  using R = Ar<S>;
+  if (!members_ok(count)) return int(cudaErrorInvalidValue);
+  const bt::BlendArgs<R> a = blend_args(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, S(0), S(0), S(0));
+  const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, 0, S(0), S(0), S(0));
+  dim3 grid = k1_grid(ny, nx);
+  grid.z = count;
+  const bool iso = is_zero(P->S), fold = fold_rows != nullptr || fold_cols != nullptr;
+  auto kernel = iso ? (fold ? bt::rkm_final_members_kernel<true, true, R>
+                            : bt::rkm_final_members_kernel<true, false, R>)
+                    : (fold ? bt::rkm_final_members_kernel<false, true, R>
+                            : bt::rkm_final_members_kernel<false, false, R>);
+  auto* acc = reinterpret_cast<typename bt::MaxBits<R>::T*>(scratch);
+  unsigned* tickets = reinterpret_cast<unsigned*>(scratch + 2 * bt::kMaxMembers);
+  kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(
+      a, ar(outF), ar(outU), acc, tickets, ar(err), ny, nx, h, fo, *m, *P);
+  return int(cudaGetLastError());
+}
+
+// K12.1's ghost gather over members at Merson stage `stage` (1..5)
+template <class S>
+int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
+                       const S* U2, const S* F3, const S* U3, int stage, S* rows, S* cols,
+                       int ny, int nx, const bt::Members<Ar<S>>* m, int count,
+                       cudaStream_t stream) {
+  using R = Ar<S>;
+  if (!members_ok(count) || stage < 1 || stage > 5) return int(cudaErrorInvalidValue);
+  const bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, F3, U3, S(0), S(0), S(0));
+  const int n = (rows ? 2 * nx : 0) + (cols ? 2 * ny : 0);
+  if (n == 0) return int(cudaSuccess);
+  const dim3 grid((n + bt::kEdgeThreads - 1) / bt::kEdgeThreads, 1, count);
+  switch (merson_states(stage)) {
+    case 1: bt::halo_edges_members_kernel<1><<<grid, bt::kEdgeThreads, 0, stream>>>(a, stage, ar(rows), ar(cols), ny, nx, *m); break;
+    case 2: bt::halo_edges_members_kernel<2><<<grid, bt::kEdgeThreads, 0, stream>>>(a, stage, ar(rows), ar(cols), ny, nx, *m); break;
+    case 3: bt::halo_edges_members_kernel<3><<<grid, bt::kEdgeThreads, 0, stream>>>(a, stage, ar(rows), ar(cols), ny, nx, *m); break;
+    default: bt::halo_edges_members_kernel<4><<<grid, bt::kEdgeThreads, 0, stream>>>(a, stage, ar(rows), ar(cols), ny, nx, *m); break;
+  }
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // The C interface: one set of entry points per field type, `bt_*_f32` on
@@ -2005,6 +2301,53 @@ int rkm_attempt_members(const S* F, const S* U, S* outF, S* outU, S* partials, S
                                stream);                                                \
   }
 
+// The mesh kernels over an ensemble's members on a shard, at both field
+// types: fields stacked (B, ny, nx) (ny, nx the shard's), `m` the launch's
+// members (ids, and per member tau and fu), `count` of them; every ghost and
+// edge buffer member-major, (B, 2 sides, 2 fields, n); `edges` the shard's
+// global edge bits.  Each runs Merson's stage at each member's tau, its
+// weights formed on the card (bt::merson_weights), at Dirichlet value 0.
+//   K12.1 bt_merson_stage_members: stage `stage` (1..4) of a's states (x;
+//      x, k1; x, k1, k2; x, k1, k3), its seams from rows/cols; unless
+//      fold_rows and fold_cols are both null, the edges of stage + 1's
+//      blend (the first 1, 2, 2, 3 input states, then the output).
+//   K5 bt_rkm_final_members: k5, the update and each member's maxima into
+//      its row of the (B, 2) err, finished in the launch through `scratch`
+//      (bt_rkm_final_members_scratch values, zeroed once when allocated;
+//      each launch leaves it at 0); the update's edges into
+//      fold_rows/fold_cols unless null.
+//   K12.1 ghost gather bt_halo_edges_members: the edges of stage `stage`'s
+//      blend (1..5 states: x; x, k1; ...; x, k1, k3, k4).
+#define BT_MESH_MEMBERS_ENTRIES(SFX, S)                                                     \
+  int bt_merson_stage_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,    \
+                                    const S* F2, const S* U2, int stage, S* outF, S* outU, \
+                                    int ny, int nx, const S* rows, const S* cols,          \
+                                    int edges, S* fold_rows, S* fold_cols,                 \
+                                    const bt::Members<Ar<S>>* m, int count,                \
+                                    const PhysParams<Ar<S>>* P, cudaStream_t stream) {     \
+    return merson_stage_members<S>(F0, U0, F1, U1, F2, U2, stage, outF, outU, ny, nx,      \
+                                   halo_of(rows, cols, edges), fold_rows, fold_cols, m,    \
+                                   count, P, stream);                                      \
+  }                                                                                         \
+  int bt_rkm_final_members_##SFX(const S* xF, const S* xU, const S* k1F, const S* k1U,     \
+                                 const S* k3F, const S* k3U, const S* k4F, const S* k4U,   \
+                                 S* outF, S* outU, S* scratch, S* err, int ny, int nx,     \
+                                 const S* rows, const S* cols, int edges, S* fold_rows,    \
+                                 S* fold_cols, const bt::Members<Ar<S>>* m, int count,     \
+                                 const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
+    return rkm_final_members<S>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, outF, outU, scratch, \
+                                err, ny, nx, halo_of(rows, cols, edges), fold_rows,        \
+                                fold_cols, m, count, P, stream);                           \
+  }                                                                                         \
+  int bt_halo_edges_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,      \
+                                  const S* F2, const S* U2, const S* F3, const S* U3,      \
+                                  int stage, S* rows, S* cols, int ny, int nx,             \
+                                  const bt::Members<Ar<S>>* m, int count,                  \
+                                  cudaStream_t stream) {                                   \
+    return halo_edges_members<S>(F0, U0, F1, U1, F2, U2, F3, U3, stage, rows, cols, ny,    \
+                                 nx, m, count, stream);                                    \
+  }
+
 // The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +
 // ny_l) and columns [x0, x0 + nx_l), from its ghosts (bt::Apron):
 //   float32, y-meshes (x0 = 0, nx_l = nx, `slabs` the ghost rows):
@@ -2025,6 +2368,8 @@ BT_MESH_ENTRIES(f32, float)
 BT_MESH_ENTRIES(f64, double)
 BT_MEMBERS_ENTRIES(f32, float)
 BT_MEMBERS_ENTRIES(f64, double)
+BT_MESH_MEMBERS_ENTRIES(f32, float)
+BT_MESH_MEMBERS_ENTRIES(f64, double)
 
 int bt_rkm_attempt_slabs_f32(const float* F, const float* U, float* outF, float* outU,
                              float* partials, float* err, const float* slabs, int y0,
@@ -2061,6 +2406,31 @@ int bt_rkm_attempt_apron_f64(const double* F, const double* U, double* outF, dou
                              fu, P, stream);
 }
 
+// The K2 twin over members on a shard: K12.2's (float32, y-mesh; slabs
+// (B, 2, 2, 5, nx)) and the K13 twin's (float64, any mesh; rows (B, 2, 2, 5,
+// W), cols (B, 2, 2, ny_l, 5)), `m` the launch's members; partials holds 2 *
+// count * bt_rkm_num_blocks(ny_l, nx_l) values, err is the (B, 2) maxima.
+int bt_rkm_attempt_members_slabs_f32(const float* F, const float* U, float* outF, float* outU,
+                                     float* partials, float* err, const float* slabs, int y0,
+                                     int ny_l, int ny, int nx, float d,
+                                     const bt::Members<float>* m, int count,
+                                     const PhysParams<float>* P, cudaStream_t stream) {
+  return rkm_attempt_members_apron<float>(F, U, outF, outU, partials, err,
+                                          apron_of<float>(slabs, nullptr, y0, ny_l, 0, nx), ny,
+                                          nx, d, m, count, P, stream);
+}
+
+int bt_rkm_attempt_members_apron_f64(const double* F, const double* U, double* outF,
+                                     double* outU, double* partials, double* err,
+                                     const double* rows, const double* cols, int y0, int ny_l,
+                                     int x0, int nx_l, int ny, int nx, double d,
+                                     const bt::Members<bt::Rn>* m, int count,
+                                     const PhysParams<bt::Rn>* P, cudaStream_t stream) {
+  return rkm_attempt_members_apron<double>(F, U, outF, outU, partials, err,
+                                           apron_of<double>(rows, cols, y0, ny_l, x0, nx_l), ny,
+                                           nx, d, m, count, P, stream);
+}
+
 int bt_euler_steps_apron_f64(const double* F, const double* U, double* outF, double* outU,
                              const double* rows, const double* cols, int y0, int ny_l,
                              int x0, int nx_l, int ny, int nx, int steps, double d, double fu,
@@ -2081,6 +2451,11 @@ int bt_rk4_full_apron_f64(const double* F, const double* U, double* outF, double
 // one whose first 4 bytes are its ticket counter; all must be zeroed once,
 // when the buffer is allocated.
 int bt_rkm_final_scratch() { return 3; }
+
+// Number of values K5 over members' scratch holds: a pair of maxima per
+// launch member, then the members' ticket counters (4 bytes each); zeroed
+// once, when the buffer is allocated.
+int bt_rkm_final_members_scratch() { return 3 * bt::kMaxMembers; }
 
 // The most members one batched launch steps (bt::kMaxMembers).
 int bt_members_max() { return bt::kMaxMembers; }

@@ -123,7 +123,10 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "rk4_full_sharded": 0, "si_prepare_sharded": 0, "rkm_attempt_apron": 0,
             "euler_steps_apron": 0, "rk4_full_apron": 0, "blend_rhs_members": 0,
             "rk4_final_stage_members": 0, "rkm_attempt_members": 0,
-            "si_prepare_members": 0, "rk4_full_members": 0}
+            "si_prepare_members": 0, "rk4_full_members": 0,
+            "rkm_attempt_members_sharded": 0, "rkm_attempt_members_apron": 0,
+            "blend_rhs_sharded_members": 0, "rkm_final_stage_members": 0,
+            "halo_edges_members": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -629,6 +632,116 @@ def si_prepare_sharded_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams, hal
     return si_terms(pad_halo(F, p.Phi_boundary, halo, 0), pad_halo(U, p.T_boundary, halo, 1), p)
 
 
+# -------------------------------------- plain versions on a mesh over members
+#
+# An ensemble's members on a mesh (``solvers/explicit.rkm_adaptive_members_
+# mesh``): each shard's member-major (B, ny_l, nx_l) blocks, with member-
+# major ghosts and edges (``core/boundary.Halo.member``, ``Apron.member``;
+# edge buffers (B, 2, 2, n)), each member at Merson's stage weights at its
+# own tau (``taus[b]``, a numpy scalar of the field dtype) and at Dirichlet
+# value 0, as the mesh Merson step takes it.  The members ``ids`` are
+# stepped into ``out`` (and the rows of ``emax`` and of the edge buffers),
+# whose other rows are left as they are.  Each runs the single-shard plain
+# version on each member's slices, so member b's result is that function's
+# on member b's fields bit for bit.
+
+# Merson's stages by the states each blends: x; x, k1; x, k1, k2; x, k1,
+# k3; x, k1, k3, k4 (stage 5 is K5's)
+MERSON_STATES = {1: 1, 2: 2, 3: 3, 4: 3, 5: 4}
+
+
+def merson_stage_weights(stage: int, tau: np.floating) -> list:
+    """The blend weights of Merson's stage ``stage`` (1..5) at ``tau``, the
+    leading 1 first: what the mesh path's stages blend at
+    (``merson_weights``)."""
+    return [1.0] if stage == 1 else [1.0, *merson_weights(tau)[stage - 2]]
+
+
+def member_edges(like: torch.Tensor, rows: bool, cols: bool):
+    """Member-major edge buffers (B, 2, 2, nx_l) and (B, 2, 2, ny_l) of
+    blocks like ``like`` (B, ny_l, nx_l), each None where not asked."""
+    B, ny, nx = like.shape
+    return (like.new_empty((B, 2, 2, nx)) if rows else None,
+            like.new_empty((B, 2, 2, ny)) if cols else None)
+
+
+def _write_edges(dst, b: int, src) -> None:
+    for d, e in zip(dst, src):
+        if d is not None:
+            d[b] = e
+
+
+def _member_fold(stage: int, tau, edges):
+    """The fold of stage ``stage``'s kernel into ``edges``: the next stage's
+    blend at ``tau``; None without edge buffers."""
+    if edges is None:
+        return None
+    return Fold(tuple(merson_stage_weights(stage + 1, tau)), edges[0] is not None,
+                edges[1] is not None)
+
+
+def blend_rhs_sharded_members_plain(states: Sequence[Pair], stage: int, taus, p: SimParams,
+                                    halo: Halo, fu=0.0, ids=None, out=None, edges=None) -> Pair:
+    """``blend_rhs_sharded_plain`` at Merson stage ``stage`` (1..4) on each
+    member of ``ids``, into ``out``; with ``edges`` the member's edges of
+    the next stage's blend into its rows (``folded``)."""
+    oF, oU = _member_outputs(states[0][0], out)
+    for b in member_ids(oF.shape[0], ids):
+        res = blend_rhs_sharded_plain([(F[b], U[b]) for F, U in states],
+                                      merson_stage_weights(stage, taus[b]), p, halo.member(b),
+                                      per_member(fu, b), 0.0, False,
+                                      _member_fold(stage, taus[b], edges))
+        oF[b], oU[b] = res[:2]
+        if edges is not None:
+            _write_edges(edges, b, res[2])
+    return oF, oU
+
+
+def rkm_final_stage_members_plain(x: Pair, k1: Pair, k3: Pair, k4: Pair, taus, p: SimParams,
+                                  halo: Halo, fu=0.0, ids=None, out=None, emax=None,
+                                  edges=None):
+    """``rkm_final_stage_plain`` on one shard for each member of ``ids`` at
+    its tau, into ``out`` and the rows of ``emax`` (B, 2) (the shard's own
+    maxima); with ``edges`` the member's update edges into its rows.
+    Returns (out_F, out_U, emax)."""
+    oF, oU = _member_outputs(x[0], out)
+    emax = x[0].new_empty((x[0].shape[0], 2)) if emax is None else emax
+    for b in member_ids(oF.shape[0], ids):
+        fold = None if edges is None else Fold((1.0,), edges[0] is not None,
+                                                edges[1] is not None)
+        res = rkm_final_stage_plain(*[(A[b], C[b]) for A, C in (x, k1, k3, k4)], taus[b], p,
+                                    per_member(fu, b), 0.0, halo.member(b), fold)
+        oF[b], oU[b], emax[b] = res[:3]
+        if edges is not None:
+            _write_edges(edges, b, res[3])
+    return oF, oU, emax
+
+
+def halo_edges_members_plain(states: Sequence[Pair], stage: int, taus, ids=None, out=None):
+    """``halo_edges_plain`` of Merson stage ``stage``'s blend (1..5) for
+    each member of ``ids`` at its tau, into its rows of the member-major
+    buffers ``out`` = (rows, cols) (``member_edges``)."""
+    for b in member_ids(states[0][0].shape[0], ids):
+        _write_edges(out, b, halo_edges_plain([(F[b], U[b]) for F, U in states],
+                                              merson_stage_weights(stage, taus[b]),
+                                              out[0] is not None, out[1] is not None))
+    return out
+
+
+def rkm_attempt_members_sharded_plain(F: torch.Tensor, U: torch.Tensor, ap: Apron, taus,
+                                      p: SimParams, fu=0.0, dirichlet_value=0.0, ids=None,
+                                      out=None, emax=None):
+    """``rkm_attempt_sharded_plain`` for each member of ``ids`` from its
+    apron (``Apron.member``) at its tau, into ``out`` and the rows of
+    ``emax`` (B, 2).  Returns (out_F, out_U, emax)."""
+    oF, oU = _member_outputs(F, out)
+    emax = F.new_empty((F.shape[0], 2)) if emax is None else emax
+    for b in member_ids(F.shape[0], ids):
+        oF[b], oU[b], emax[b] = rkm_attempt_sharded_plain(F[b], U[b], ap.member(b), taus[b], p,
+                                                          per_member(fu, b), dirichlet_value)
+    return oF, oU, emax
+
+
 # ------------------------------------------------------------ kernels
 
 _BC_CODE = {BoundaryType.PERIODIC: 0, BoundaryType.NEUMANN: 1,
@@ -760,13 +873,33 @@ _MEMBERS_ENTRIES = {
     "si_prepare_members": [_PTR] * 5 + [_INT, _INT, _PTR, _INT, _PHYS_PTR, _PTR],
     "rk4_full_members": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 4 + [_PTR, _INT, _PHYS_PTR, _PTR],
 }
+# The mesh kernels over members, on a shard's member-major blocks: K12.1 at
+# a Merson stage, K5 and the ghost gather at both dtypes, and the K2 twin --
+# K12.2's at float32, the K13 twin's at float64.
+_MESH_MEMBERS_ENTRIES = {
+    "merson_stage_members": [_PTR] * 6 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR] * 2
+    + [_INT] + [_PTR] * 2 + [_PTR, _INT, _PHYS_PTR, _PTR],
+    "rkm_final_members": [_PTR] * 12 + [_INT] * 2 + [_PTR] * 2 + [_INT] + [_PTR] * 2
+    + [_PTR, _INT, _PHYS_PTR, _PTR],
+    "halo_edges_members": [_PTR] * 8 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR, _INT, _PTR],
+}
+_F32_MEMBERS_ENTRIES = {
+    "rkm_attempt_members_slabs": [_PTR] * 7 + [_INT] * 4 + [_REAL, _PTR, _INT, _PHYS_PTR, _PTR],
+}
+_F64_MEMBERS_ENTRIES = {
+    "rkm_attempt_members_apron": [_PTR] * 8 + [_INT] * 6 + [_REAL, _PTR, _INT, _PHYS_PTR, _PTR],
+}
 # The sizes of the scratch buffers and of the tile kernels' shared memory
 _HELPERS = {"rkm_num_blocks": [_INT, _INT], "rkm_final_scratch": [],
-            "tile_smem_bytes": [_INT, _INT, _INT], "members_max": []}
+            "rkm_final_members_scratch": [], "tile_smem_bytes": [_INT, _INT, _INT],
+            "members_max": []}
 register(_ENTRIES, BOTH, _PHYS)
 register(_MEMBERS_ENTRIES, BOTH, _PHYS)
 register(_F32_ENTRIES, (torch.float32,), _PHYS)
 register(_F64_ENTRIES, (torch.float64,), _PHYS)
+register(_MESH_MEMBERS_ENTRIES, BOTH, _PHYS)
+register(_F32_MEMBERS_ENTRIES, (torch.float32,), _PHYS)
+register(_F64_MEMBERS_ENTRIES, (torch.float64,), _PHYS)
 register(_HELPERS, UNSUFFIXED)
 
 
@@ -1263,13 +1396,14 @@ def _apron_args(F: torch.Tensor, U: torch.Tensor, ap: Apron, depth: int, p: SimP
     the whole grid's width with ghost rows ``depth`` deep (the slab twins
     K12.2, K12.5, K12.6: slabs, y0, ny_l, ny, nx); at float64 any shard with
     the ghosts of its sharded axes (the K13 twins: rows, cols, y0, ny_l, x0,
-    nx_l, ny, nx)."""
+    nx_l, ny, nx).  Member-major (B, ny_l, nx_l) blocks take member-major
+    ghosts (``Topology.apron``)."""
     _check_shard(F, U)
     refuse_kernel([F, U] + [g for g in (ap.rows, ap.cols) if g is not None])
-    ny_l, nx_l = F.shape
-    shapes = {"rows": (ap.rows, (2, 2, depth, nx_l + 2 * depth if ap.cols is not None
+    lead, (ny_l, nx_l) = tuple(F.shape[:-2]), F.shape[-2:]
+    shapes = {"rows": (ap.rows, (*lead, 2, 2, depth, nx_l + 2 * depth if ap.cols is not None
                                   else nx_l), ny_l, p.ny),
-              "cols": (ap.cols, (2, 2, ny_l, depth), nx_l, p.nx)}
+              "cols": (ap.cols, (*lead, 2, 2, ny_l, depth), nx_l, p.nx)}
     for what, (g, shape, n, whole) in shapes.items():
         if g is None:
             if n != whole:
@@ -1376,3 +1510,141 @@ def rk4_full_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams, 
            float(p.dt / 2), float(p.dt), float(p.dt / 6), float(dirichlet_value), float(fu),
            _phys_ref(p, dtype))
     return out_F, out_U
+
+
+# ------------------------------------------------ mesh kernels over members
+
+
+def _member_ghosts(what: str, ghosts, B: int, ny: int, nx: int) -> tuple:
+    """(rows pointer, cols pointer) of member-major ghosts or edges, each
+    (B, 2, 2, nx) and (B, 2, 2, ny) contiguous or None, checked."""
+    out = []
+    for g, n in zip(ghosts, (nx, ny)):
+        if g is not None and (tuple(g.shape) != (B, 2, 2, n) or not g.is_contiguous()):
+            raise ValueError(f"{what} must be contiguous {(B, 2, 2, n)}, got {tuple(g.shape)}")
+        out.append(None if g is None else g.data_ptr())
+    return tuple(out)
+
+
+def _members_on_shard(tensors, what: str):
+    """(dtype, device index, B, ny_l, nx_l) of member-major shard blocks:
+    contiguous (B, ny_l, nx_l) tensors of one float dtype and shape on one
+    CUDA device, else raise; the first call checks the library's member
+    cap."""
+    _members_cap()
+    if tensors[0].dim() != 3:
+        raise ValueError(f"{what} takes member-major (B, ny_l, nx_l) blocks, got "
+                         f"{tuple(tensors[0].shape)}")
+    dtype, index = _shard(*tensors)
+    return (dtype, index, *tensors[0].shape)
+
+
+def rkm_attempt_members_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, taus,
+                                p: SimParams, fu=0.0, dirichlet_value=0.0, ids=None, out=None,
+                                emax=None):
+    """The K2 twin over members on a shard: one Merson attempt of each
+    member of ``ids`` from its own apron (member-major, ``Topology.apron``
+    on the shard's (B, ny_l, nx_l) blocks, SLAB_ROWS deep) at its own tau
+    and forcing, in one launch for up to MAX_MEMBERS of them (plus one
+    launch of their one-block reductions): at float32 K12.2's on a y-mesh
+    shard, counted as ``rkm_attempt_members_sharded``; at float64 the K13
+    twin's on a shard of any mesh, counted as ``rkm_attempt_members_apron``.
+    Member b's rows of ``out`` and of the (B, 2) maxima ``emax`` (the
+    shard's own) are ``rkm_attempt_sharded`` of its fields and apron bit
+    for bit, the other rows left as they are.  Returns (out_F, out_U,
+    emax)."""
+    if not _on_cuda(F, "rkm_attempt_members_sharded"):
+        return rkm_attempt_members_sharded_plain(F, U, ap, taus, p, fu, dirichlet_value, ids,
+                                                 out, emax)
+    oF, oU = _member_outputs(F, out)
+    dtype, index, B, ny_l, nx_l = _members_on_shard([F, U, oF, oU],
+                                                    "rkm_attempt_members_sharded")
+    sfx, count, ghosts = _apron_args(F, U, ap, SLAB_ROWS, p)
+    emax = F.new_empty((B, 2)) if emax is None else emax
+    for m, n in _member_launches(dtype, member_ids(B, ids), taus, fu):
+        partials = scratch("rkm_num_blocks", (ny_l, nx_l), dtype, index, per=2 * n)
+        launch(LAUNCHES, f"rkm_attempt_members_{count}", fn(f"rkm_attempt_members_{sfx}", dtype),
+               index, F.data_ptr(), U.data_ptr(), oF.data_ptr(), oU.data_ptr(),
+               partials.data_ptr(), emax.data_ptr(), *ghosts, float(dirichlet_value),
+               ctypes.addressof(m), n, _phys_ref(p, dtype))
+    return oF, oU, emax
+
+
+def blend_rhs_sharded_members(states: Sequence[Pair], stage: int, taus, p: SimParams,
+                              halo: Halo, fu=0.0, ids=None, out=None, edges=None) -> Pair:
+    """K12.1 over members: Merson's stage ``stage`` (1..4) on a shard for
+    each member of ``ids``, the blend of ``states`` (x; x, k1; x, k1, k2;
+    x, k1, k3) at the stage's weights at the member's tau, its seams from
+    its rows of the member-major ``halo``, one launch for up to MAX_MEMBERS
+    of them; with ``edges`` (``member_edges`` buffers) it also writes each
+    member's edges of the next stage's blend into its rows, as K12.1's
+    fold.  Member b's rows of ``out`` (and of ``edges``) are
+    ``blend_rhs_sharded`` of its fields at its stage weights bit for bit,
+    the other rows left as they are."""
+    if len(states) != MERSON_STATES.get(stage, 0) or stage == 5:
+        raise ValueError(f"Merson stage {stage} (1..4) blends {MERSON_STATES.get(stage)} "
+                         f"states, got {len(states)}")
+    if not _on_cuda(states[0][0], "blend_rhs_sharded_members"):
+        return blend_rhs_sharded_members_plain(states, stage, taus, p, halo, fu, ids, out,
+                                               edges)
+    oF, oU = _member_outputs(states[0][0], out)
+    fields = [t for s in states for t in s]
+    dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU], "blend_rhs_sharded_members")
+    ghosts = _member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx)
+    fold = _member_ghosts("fold edges", edges or (None, None), B, ny, nx)
+    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
+    ptrs = [t.data_ptr() for t in fields] + [None] * (6 - len(fields))
+    for m, n in _member_launches(dtype, member_ids(B, ids), taus, fu):
+        launch(LAUNCHES, "blend_rhs_sharded_members", fn("merson_stage_members", dtype), index,
+               *ptrs, stage, oF.data_ptr(), oU.data_ptr(), ny, nx, *ghosts, bits, *fold,
+               ctypes.addressof(m), n, _phys_ref(p, dtype))
+    return oF, oU
+
+
+def rkm_final_stage_members(x: Pair, k1: Pair, k3: Pair, k4: Pair, taus, p: SimParams,
+                            halo: Halo, fu=0.0, ids=None, out=None, emax=None, edges=None):
+    """K5 over members on a shard: Merson's fifth stage, the update and
+    each member's error maxima (the shard's own) at its tau, one launch for
+    up to MAX_MEMBERS of them (each member's maxima finished in it); with
+    ``edges`` each member's update edges into its rows.  Member b's rows of
+    ``out``, ``emax`` (B, 2) and ``edges`` are ``rkm_final_stage`` of its
+    fields with its halo bit for bit, the other rows left as they are.
+    Returns (out_F, out_U, emax)."""
+    if not _on_cuda(x[0], "rkm_final_stage_members"):
+        return rkm_final_stage_members_plain(x, k1, k3, k4, taus, p, halo, fu, ids, out, emax,
+                                             edges)
+    oF, oU = _member_outputs(x[0], out)
+    fields = [*x, *k1, *k3, *k4]
+    dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU], "rkm_final_stage_members")
+    ghosts = _member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx)
+    fold = _member_ghosts("fold edges", edges or (None, None), B, ny, nx)
+    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
+    emax = x[0].new_empty((B, 2)) if emax is None else emax
+    acc = scratch("rkm_final_members_scratch", (), dtype, index)  # maxima and tickets
+    for m, n in _member_launches(dtype, member_ids(B, ids), taus, fu):
+        launch(LAUNCHES, "rkm_final_stage_members", fn("rkm_final_members", dtype), index,
+               *(t.data_ptr() for t in fields), oF.data_ptr(), oU.data_ptr(), acc.data_ptr(),
+               emax.data_ptr(), ny, nx, *ghosts, bits, *fold, ctypes.addressof(m), n,
+               _phys_ref(p, dtype))
+    return oF, oU, emax
+
+
+def halo_edges_members(states: Sequence[Pair], stage: int, taus, ids=None, out=None):
+    """K12.1's ghost gather over members: each member of ``ids``'s edges of
+    Merson stage ``stage``'s blend (1..5 states) at its tau into its rows of
+    the member-major buffers ``out`` = (rows, cols) (``member_edges``), one
+    launch for up to MAX_MEMBERS of them; member b's rows are
+    ``halo_edges`` of its blend bit for bit.  Returns ``out``."""
+    if len(states) != MERSON_STATES.get(stage, 0):
+        raise ValueError(f"Merson stage {stage} blends {MERSON_STATES.get(stage)} states, got "
+                         f"{len(states)}")
+    if not _on_cuda(states[0][0], "halo_edges_members"):
+        return halo_edges_members_plain(states, stage, taus, ids, out)
+    fields = [t for s in states for t in s]
+    dtype, index, B, ny, nx = _members_on_shard(fields, "halo_edges_members")
+    rows, cols = _member_ghosts("edge buffers", out, B, ny, nx)
+    ptrs = [t.data_ptr() for t in fields] + [None] * (8 - len(fields))
+    for m, n in _member_launches(dtype, member_ids(B, ids), taus, 0.0):
+        launch(LAUNCHES, "halo_edges_members", fn("halo_edges_members", dtype), index, *ptrs,
+               stage, rows, cols, ny, nx, ctypes.addressof(m), n)
+    return out

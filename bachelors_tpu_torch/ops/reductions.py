@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from ..core.state import Field
+from ..core.state import Field, Shards
 from ..parallel.topology import ONE_DEVICE, Topology
 
 
@@ -34,7 +34,8 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
     (`cuda_reduction.cuh:390-406`): L1 = sum|x|/N, L2 = sqrt(sum x^2 / N).
     An ensemble's stacked (B, ny, nx) fields reduce per member over their
     last two dimensions, one torch call per statistic for all members (as
-    XLA reduces under vmap): each statistic is then a (B,) tensor.
+    XLA reduces under vmap): each statistic is then a (B,) tensor, also
+    for an ensemble's member-major ``Shards`` on a mesh.
     """
     if isinstance(A, torch.Tensor) and A.dim() == 3:
         n = A.shape[1] * A.shape[2]
@@ -42,6 +43,8 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
         return Stats(L1=torch.sum(torch.abs(A), dim=dims) / n,
                      L2=torch.sqrt(torch.sum(A * A, dim=dims) / n),
                      min=torch.amin(A, dim=dims), max=torch.amax(A, dim=dims))
+    if isinstance(A, Shards) and A.members is not None:
+        return _member_shards_stats(A)
     n = topo.count(A)
     return Stats(
         L1=topo.sum(_map(A, torch.abs)) / n,
@@ -49,6 +52,23 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
         min=topo.min(A),
         max=topo.max(A),
     )
+
+
+def _member_shards_stats(A: Shards) -> Stats:
+    """``field_stats`` of an ensemble's member-major shards: each shard
+    reduces its (B, ny_l, nx_l) block per member, and the (B,) partials
+    combine over the shards on the first shard's device."""
+    ny, nx = A.shape[-2:]
+    n, dims = ny * nx, (1, 2)
+
+    def over(reduce, combine):
+        parts = [reduce(b) for b in A.blocks]
+        return combine(torch.stack([v.to(parts[0].device) for v in parts]), 0)
+
+    return Stats(L1=over(lambda b: torch.sum(torch.abs(b), dim=dims), torch.sum) / n,
+                 L2=torch.sqrt(over(lambda b: torch.sum(b * b, dim=dims), torch.sum) / n),
+                 min=over(lambda b: torch.amin(b, dim=dims), torch.amin),
+                 max=over(lambda b: torch.amax(b, dim=dims), torch.amax))
 
 
 def stats_delta(A: Field, B: Field, topo: Topology = ONE_DEVICE) -> Stats:

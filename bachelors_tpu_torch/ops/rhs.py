@@ -141,6 +141,36 @@ def folded_stage(states, weights, nxt, p: SimParams, fu, topo: Topology, edges=N
     return (Shards(dF, grid), Shards(dU, grid)), list(nxt_edges)
 
 
+def stage_halos_members(states, stage: int, taus, topo: Topology, ids, edges):
+    """``stage_halos`` for an ensemble's member-major shards at Merson stage
+    ``stage``: each shard's member-major ghosts from ``edges`` (per shard,
+    ``cuda_rhs.member_edges`` buffers), whose rows of the members ``ids``
+    K12.1's ghost gather over members writes first, one launch per shard,
+    unless ``ids`` is empty; then the ring exchange, whose copies each
+    carry every member."""
+    if len(ids):
+        for k, e in enumerate(edges):
+            cuda_rhs.halo_edges_members(shard_states(states, k), stage, taus, ids, e)
+    return topo.exchange(edges)
+
+
+def folded_stage_members(states, stage: int, taus, p: SimParams, fus, topo: Topology, ids,
+                         edges, out, nxt_edges, gather=()):
+    """``folded_stage`` for an ensemble's member-major shards: Merson's
+    stage ``stage`` (1..4) for the members ``ids`` on every shard, K12.1
+    over members from the ghosts exchanged from ``edges`` (per shard; the
+    rows of the members ``gather`` gathered first, ``stage_halos_members``),
+    writing each member's rows of ``out`` (per shard (dF, dU) blocks) and
+    of ``nxt_edges`` (the next stage's edges, per shard): ((dF, dU) as
+    ``Shards``, ``nxt_edges``)."""
+    for k, h in enumerate(stage_halos_members(states, stage, taus, topo, gather, edges)):
+        cuda_rhs.blend_rhs_sharded_members(shard_states(states, k), stage, taus, p, h, fus, ids,
+                                           out[k], nxt_edges[k])
+    grid = states[0][0].grid
+    return (Shards(tuple(o[0] for o in out), grid), Shards(tuple(o[1] for o in out), grid)), \
+        nxt_edges
+
+
 def _eval_rhs_sharded(states, weights, p, fu, d, topo: Topology, kernel: bool,
                       is_euler: bool = False):
     """A stage on every shard, padded at Dirichlet value ``d``: K12.1 (in

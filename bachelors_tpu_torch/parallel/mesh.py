@@ -7,6 +7,11 @@ row-major order, driven by one process.  A device may repeat: on a machine
 with one card every shard sits on that card, the counterpart of the JAX
 package's virtual CPU devices (``tests/conftest.py:12-14``), and the seam
 kernels, halo exchanges and reductions all run there.
+
+An ensemble's members take a mesh too (``make_mesh(..., batch=G)``, JAX's
+dp x spatial decomposition, ``bachelors_tpu/parallel/mesh.py:19-90``): the
+members split into G groups, each on its own (shards_y, shards_x) shards,
+and each shard holds its block of every member of its group.
 """
 from __future__ import annotations
 
@@ -21,25 +26,36 @@ from .topology import Topology
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Devices of a (shards_y, shards_x) mesh, row-major."""
+    """Devices of a (shards_y, shards_x) mesh, row-major; with ``batch`` =
+    G member groups (JAX's ``batch`` axis, ``[tpu] batch_shards``), G such
+    meshes one after another, group g's shards on ``devices[g * n:(g + 1)
+    * n]`` (n = shards_y * shards_x)."""
 
     devices: Tuple[torch.device, ...]
     shape: Tuple[int, int]
+    batch: int = 1
+
+    def group_devices(self, g: int) -> Tuple[torch.device, ...]:
+        n = self.shape[0] * self.shape[1]
+        return self.devices[g * n:(g + 1) * n]
 
 
-def make_mesh(shards_y: int = 1, shards_x: int = 1,
-              devices: Optional[Sequence] = None) -> Tuple[Mesh, Topology]:
-    """A mesh of ``shards_y x shards_x`` shards, one per entry of the first
-    ``shards_y * shards_x`` of ``devices``
-    (every visible CUDA device by default) and its Topology.  Too few
-    devices raise; nothing falls back to the CPU or to fewer shards."""
+def make_mesh(shards_y: int = 1, shards_x: int = 1, devices: Optional[Sequence] = None,
+              batch: int = 1) -> Tuple[Mesh, Topology]:
+    """A mesh of ``batch`` groups of ``shards_y x shards_x`` shards, one
+    per entry of the first ``batch * shards_y * shards_x`` of ``devices``
+    (every visible CUDA device by default; an entry may repeat) and its
+    Topology (the spatial mesh: each group steps on its own shards).  Too
+    few devices raise; nothing falls back to the CPU or to fewer shards.
+    JAX's keywords (``make_mesh(shards_y=2, batch=2)``) mean the same here;
+    ``devices`` comes third, as the port's callers pass it."""
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
-    need = shards_y * shards_x
+    need = shards_y * shards_x * batch
     if need > len(devices):
         raise ValueError(f"need {need} devices, have {len(devices)}")
-    return (Mesh(tuple(devices[:need]), (shards_y, shards_x)),
+    return (Mesh(tuple(devices[:need]), (shards_y, shards_x), batch),
             Topology(shards_y=shards_y, shards_x=shards_x))
 
 
@@ -57,22 +73,38 @@ def field_spec(topo: Topology, ny: int, nx: int) -> List[Tuple[slice, slice]]:
 
 def shard_field(A: torch.Tensor, mesh: Mesh, topo: Topology) -> Shards:
     """A (ny, nx) field split over the mesh, each block contiguous on its
-    shard's device."""
-    blocks = tuple(A[rows, cols].to(dev).contiguous()
-                   for (rows, cols), dev in zip(field_spec(topo, *A.shape), mesh.devices))
-    return Shards(blocks, topo.grid)
+    shard's device; an ensemble's (B, ny, nx) members split into the
+    mesh's ``batch`` groups of B / batch, each group's member-major
+    (B_g, ny_l, nx_l) blocks on its own shards (``Shards``)."""
+    if A.dim() == 2:
+        if mesh.batch != 1:
+            raise ValueError("a mesh with member groups takes an ensemble's members")
+        return Shards(tuple(A[rows, cols].to(dev).contiguous()
+                            for (rows, cols), dev in zip(field_spec(topo, *A.shape),
+                                                         mesh.devices)), topo.grid)
+    B, ny, nx = A.shape
+    if B % mesh.batch:
+        raise ValueError(f"[tpu] ensemble={B} must be divisible by "
+                         f"batch_shards={mesh.batch}")
+    Bg, spec = B // mesh.batch, field_spec(topo, ny, nx)
+    return Shards(tuple(A[g * Bg:(g + 1) * Bg, rows, cols].to(dev).contiguous()
+                        for g in range(mesh.batch)
+                        for (rows, cols), dev in zip(spec, mesh.group_devices(g))),
+                  topo.grid, batch=mesh.batch)
 
 
 def shard_state(state: SimState, mesh: Mesh, topo: Topology) -> SimState:
-    """Place a SimState's fields on the mesh; the clock and tau stay host
-    scalars."""
+    """Place a SimState's fields on the mesh (an ensemble's stacked members
+    too, ``shard_field``); the clock and tau stay host scalars (an
+    ensemble's host arrays)."""
     return state.replace(F=shard_field(state.F, mesh, topo),
                          U=shard_field(state.U, mesh, topo))
 
 
 def gather_state(state: SimState, device=None) -> SimState:
     """The state with whole fields on ``device`` (the first shard's by
-    default); a state that is not sharded comes back as it is."""
+    default), an ensemble's stacked (B, ny, nx); a state that is not
+    sharded comes back as it is."""
     if not isinstance(state.F, Shards):
         return state
     return state.replace(F=state.F.gather(device), U=state.U.gather(device))

@@ -1,12 +1,15 @@
 """The stepper on a mesh.
 
-The port of ``bachelors_tpu/parallel/sharded.make_sharded_stepper`` (:44).
-The JAX package wraps its stepper in ``shard_map``; here the stepper itself
-takes ``Shards`` fields and drives every shard (``solvers/base.make_stepper``
-with the mesh's ``Topology``).  ``make_ensemble_stepper`` (JAX :56, from
-``solvers/base``) steps an ensemble on one device, the JAX driver's
-``jax.vmap(make_stepper(p))`` without a mesh (``bachelors_tpu/app/
-driver.py:281-282``); ensembles on a mesh wait for ROADMAP item 7c.
+The port of ``bachelors_tpu/parallel/sharded.py``.  The JAX package wraps
+its stepper in ``shard_map``; here the stepper itself takes ``Shards``
+fields and drives every shard (``solvers/base.make_stepper`` with the
+mesh's ``Topology``).  ``make_sharded_stepper`` (JAX :44) steps a single
+simulation on a spatial mesh; ``make_ensemble_stepper(p, mesh, topo)``
+(JAX :56, from ``solvers/base``) an ensemble, its members split over the
+mesh's ``batch`` groups and each group's members over its spatial shards
+(JAX's dp x spatial decomposition); without a mesh an ensemble on one
+device, the JAX driver's ``jax.vmap(make_stepper(p))``
+(``bachelors_tpu/app/driver.py:247-282``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ def make_sharded_stepper(p: SimParams, mesh: Mesh, topo: Topology) -> Stepper:
     their plain versions."""
     if mesh.shape != topo.grid:
         raise ValueError(f"mesh {mesh.shape} and topology {topo.grid} differ")
+    if mesh.batch != 1:
+        raise ValueError("a mesh with member groups steps an ensemble: make_ensemble_stepper")
     inner = make_stepper(p, topo)
 
     def step(state: SimState):

@@ -40,9 +40,15 @@ def _combine(values: Sequence[torch.Tensor], op) -> torch.Tensor:
     return op(torch.stack([v.to(dev) for v in values]), 0)
 
 
+def _side(edges: torch.Tensor, side: int) -> torch.Tensor:
+    """Side ``side`` of edges or ghosts laid out (..., 2 sides, k fields,
+    n): a single shard's, or member-major (B, 2, k, n) for an ensemble's."""
+    return edges.select(-3, side)
+
+
 def _ring_copy(buf: torch.Tensor, sources: Sequence[torch.Tensor]) -> torch.Tensor:
     for k, src in enumerate(sources):
-        buf[k].copy_(src)
+        _side(buf, k).copy_(src)
     return buf
 
 
@@ -82,7 +88,9 @@ class Topology:
         predecessor's last row, the one above its successor's first row
         (the first shard's predecessor is the last shard), and likewise
         for columns.  Two copies per shard per sharded axis, each carrying
-        every field of the edges."""
+        every field of the edges.  An ensemble's member-major edges (B, 2,
+        k, n) make member-major ghosts with the same copies, each carrying
+        every member."""
         sy, sx = self.grid
         halos = []
         for i in range(sy):
@@ -90,12 +98,12 @@ class Topology:
                 rows, cols = edges[i * sx + j]
                 if rows is not None:
                     rows = _ring_copy(torch.empty_like(rows),
-                                      (edges[(i - 1) % sy * sx + j][0][1],
-                                       edges[(i + 1) % sy * sx + j][0][0]))
+                                      (_side(edges[(i - 1) % sy * sx + j][0], 1),
+                                       _side(edges[(i + 1) % sy * sx + j][0], 0)))
                 if cols is not None:
                     cols = _ring_copy(torch.empty_like(cols),
-                                      (edges[i * sx + (j - 1) % sx][1][1],
-                                       edges[i * sx + (j + 1) % sx][1][0]))
+                                      (_side(edges[i * sx + (j - 1) % sx][1], 1),
+                                       _side(edges[i * sx + (j + 1) % sx][1], 0)))
                 halos.append(Halo(rows, cols, self.shard_edges(i, j)))
         return halos
 
@@ -122,9 +130,13 @@ class Topology:
         corners and 4 columns, all strided).  The kernels apply the
         boundary rule at the global edges themselves.  A sharded axis needs
         shards at least ``depth`` cells across: a neighbour's neighbour is
-        never read."""
+        never read.
+
+        An ensemble's member-major (B, ny_l, nx_l) blocks make member-major
+        aprons, rows (B, 2, 2, depth, W) and columns (B, 2, 2, ny_l, depth),
+        with the same copies, each carrying every member."""
         sy, sx = self.grid
-        ny_l, nx_l = F.blocks[0].shape
+        lead, (ny_l, nx_l) = F.blocks[0].shape[:-2], F.blocks[0].shape[-2:]
         if (sy > 1 and ny_l < depth) or (sx > 1 and nx_l < depth):
             raise ValueError(f"an apron {depth} cells deep needs shards of at least {depth} "
                              f"cells along each sharded axis, got {ny_l}x{nx_l}")
@@ -136,23 +148,25 @@ class Topology:
             for j in range(sx):
                 rows = cols = None
                 if sy > 1:
-                    rows = F.blocks[0].new_empty((2, 2, d, nx_l + 2 * d if sx > 1 else nx_l))
+                    rows = F.blocks[0].new_empty(
+                        (*lead, 2, 2, d, nx_l + 2 * d if sx > 1 else nx_l))
                     for side, ii in enumerate(((i - 1) % sy, (i + 1) % sy)):
                         for f, A in enumerate((F, U)):
-                            src = A.block(ii, j)[near[side]]
+                            dst = rows[..., side, f, :, :]
+                            src = A.block(ii, j)[..., near[side], :]
                             if sx == 1:
-                                rows[side, f].copy_(src)
+                                dst.copy_(src)
                                 continue
-                            rows[side, f, :, d:d + nx_l].copy_(src)
-                            rows[side, f, :, :d].copy_(
-                                A.block(ii, (j - 1) % sx)[near[side], near_x[0]])
-                            rows[side, f, :, d + nx_l:].copy_(
-                                A.block(ii, (j + 1) % sx)[near[side], near_x[1]])
+                            dst[..., d:d + nx_l].copy_(src)
+                            dst[..., :d].copy_(
+                                A.block(ii, (j - 1) % sx)[..., near[side], near_x[0]])
+                            dst[..., d + nx_l:].copy_(
+                                A.block(ii, (j + 1) % sx)[..., near[side], near_x[1]])
                 if sx > 1:
-                    cols = F.blocks[0].new_empty((2, 2, ny_l, d))
+                    cols = F.blocks[0].new_empty((*lead, 2, 2, ny_l, d))
                     for side, jj in enumerate(((j - 1) % sx, (j + 1) % sx)):
                         for f, A in enumerate((F, U)):
-                            cols[side, f].copy_(A.block(i, jj)[:, near_x[side]])
+                            cols[..., side, f, :, :].copy_(A.block(i, jj)[..., near_x[side]])
                 out.append(Apron(rows, cols, i * ny_l, j * nx_l))
         return out
 

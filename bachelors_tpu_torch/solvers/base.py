@@ -3,24 +3,27 @@
 The port of ``bachelors_tpu/solvers/base.make_stepper`` (reference
 ``sim_step``, `simulation.cu:1091-1156`): Euler and semi-implicit through
 the corrector loop, fixed-step RK4, adaptive RKM, and the exact solver.
-``make_ensemble_stepper`` is its counterpart for an ensemble on one device,
-JAX's ``jax.vmap(make_stepper(p))`` (``bachelors_tpu/app/driver.py:282``).
+``make_ensemble_stepper`` is its counterpart for an ensemble, on one device
+JAX's ``jax.vmap(make_stepper(p))`` (``bachelors_tpu/app/driver.py:282``),
+on a mesh JAX's ``parallel/sharded.make_ensemble_stepper`` (:56).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
 from ..core.params import SimParams, SolverType
-from ..core.state import Shards, SimState, StepStats, empty_stats, numpy_dtype
+from ..core.state import Shards, SimState, StepStats, empty_stats, join_groups, numpy_dtype
 from ..models import exact as exact_mod
 from ..ops.reductions import stats_delta
 from ..parallel.topology import ONE_DEVICE, Topology
 from .corrector import corrector_step
 from .explicit import (Controller, euler_step_based, euler_step_members, rk4_step,
-                       rk4_step_members, rkm_adaptive_members, rkm_adaptive_step)
+                       rk4_step_members, rkm_adaptive_members, rkm_adaptive_members_mesh,
+                       rkm_adaptive_step)
 from .semi_implicit import semi_implicit_step_based, semi_implicit_step_members
 
 Stepper = Callable[[SimState], Tuple[SimState, StepStats]]
@@ -156,24 +159,113 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
 # B, None for all) says which members step; the others are left untouched.
 MembersStepper = Callable[..., Tuple[SimState, StepStats]]
 
+# What an ensemble on a spatial mesh does not run yet.
+MESH_MEMBERS_TODO = ("Euler, RK4 and semi-implicit ensembles on a spatial mesh (their mesh "
+                     "kernels over members: ROADMAP item 7e)")
 
-def make_ensemble_stepper(p: SimParams) -> MembersStepper:
-    """The step of an ensemble of stacked (B, ny, nx) members on one
-    device, JAX's ``jax.vmap(make_stepper(p))``: every solver, each pass
-    over the members one batched launch (``solvers/explicit.py``), and for
-    semi-implicit each CG round one launch of each kernel over the members
-    still live (``solvers/semi_implicit.py``), on either CG variant.
-    Member b of the result is ``make_stepper(p)`` of member b bit for bit: t, iter and tau per member
-    as its single run takes them, and its CG iteration counts.  The stats
-    are the members' stacked (``StepStats``), ``attempts`` each member's
-    passes; ``.rounds`` on the stepper counts the batched attempts of its
-    last call, the launches (one a step but for RKM's retries).  Members
-    frozen by ``live`` take no part in any launch or solve."""
+
+def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> MembersStepper:
+    """The step of an ensemble, JAX's ``make_ensemble_stepper(p, mesh,
+    topo)`` (``bachelors_tpu/parallel/sharded.py:56``, ``jax.vmap`` of the
+    stepper inside ``shard_map``).
+
+    Without a mesh: stacked (B, ny, nx) members on one device, JAX's
+    ``jax.vmap(make_stepper(p))``: every solver, each pass over the members
+    one batched launch (``solvers/explicit.py``), and for semi-implicit
+    each CG round one launch of each kernel over the members still live
+    (``solvers/semi_implicit.py``), on either CG variant.
+
+    With a mesh (``parallel/mesh.make_mesh``, its ``batch`` groups and
+    spatial shards) the state's fields are ``Shards`` from
+    ``parallel/mesh.shard_state``: the members split into ``mesh.batch``
+    contiguous groups, each stepped on its own devices, one group after
+    another.  A group without spatial shards is a one-device ensemble, so
+    every solver runs; one with spatial shards takes the mesh routes over
+    members, for RKM (``explicit.rkm_adaptive_members_mesh``) and the exact
+    solver (each member's shard from its offset); the other solvers raise
+    (ROADMAP item 7e).
+
+    Member b of the result is ``make_stepper(p, topo)`` of member b (its
+    single mesh state on a mesh) bit for bit: t, iter and tau per member as
+    its single run takes them, and its iteration counts.  The stats are the
+    members' stacked (``StepStats``), ``attempts`` each member's passes;
+    ``.rounds`` on the stepper counts the batched attempts of its last
+    call, summed over the groups (per group and shard, the launches: one a
+    step but for RKM's retries).  Members frozen by ``live`` take no part
+    in any launch or solve."""
+    if mesh is None:
+        return _members_stepper(p, ONE_DEVICE)
+    topo = Topology(*mesh.shape) if topo is None else topo
+    if mesh.shape != topo.grid:
+        raise ValueError(f"mesh {mesh.shape} and topology {topo.grid} differ")
+    inner = _members_stepper(p, topo)
+    if mesh.batch == 1 and topo.is_sharded:
+        return inner
+    return _grouped(inner, mesh.batch, topo)
+
+
+def _grouped(inner, groups: int, topo: Topology) -> MembersStepper:
+    """``inner`` on each of ``groups`` member groups in turn (``Shards.
+    group``; without spatial shards a group's one block is a one-device
+    stack), the results joined again (``core/state.join_groups``)."""
+    def group_fields(A, g):
+        return A.group(g) if topo.is_sharded else A.blocks[g]
+
+    def joined(parts):
+        if topo.is_sharded:
+            return join_groups(parts)
+        return Shards(tuple(parts), topo.grid, batch=groups)
+
+    def step(state: SimState, live=None):
+        Bg = len(state.t) // groups
+        news, stats, rounds = [], [], 0
+        for g in range(groups):
+            sl = slice(g * Bg, (g + 1) * Bg)
+            sub = SimState(F=group_fields(state.F, g), U=group_fields(state.U, g),
+                           t=state.t[sl], iter=state.iter[sl], tau=state.tau[sl])
+            new, st = inner(sub, None if live is None else live[sl])
+            rounds += inner.rounds
+            news.append(new)
+            stats.append(st)
+        step.rounds = rounds
+        F = joined([n.F for n in news])
+        U = joined([n.U for n in news])
+        if F.edges is not None:
+            U = dataclasses.replace(U, edges=F.edges)  # one pair: one edges object
+        return (SimState(F=F, U=U, t=np.concatenate([n.t for n in news]),
+                         iter=np.concatenate([n.iter for n in news]),
+                         tau=np.concatenate([n.tau for n in news])),
+                join_stats(stats))
+
+    step.rounds = 0
+    return step
+
+
+def join_stats(parts) -> StepStats:
+    """The stats of member groups' steps as one ensemble's, in member order
+    (tensors moved to the first group's device)."""
+    def cat(name):
+        vals = [getattr(s, name) for s in parts]
+        if vals[0] is None:
+            return None
+        if isinstance(vals[0], torch.Tensor):
+            return torch.cat([v.to(vals[0].device) for v in vals])
+        return np.concatenate(vals)
+
+    return StepStats(**{f.name: cat(f.name) for f in dataclasses.fields(StepStats)})
+
+
+def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
+    """The members stepper of one group: stacked (B, ny, nx) members on one
+    device (``topo`` unsharded), or member-major ``Shards`` on ``topo``'s
+    spatial mesh (RKM and the exact solver)."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
     if p.differentiable:
         raise NotImplementedError(f"not ported yet: {DIFFERENTIABLE_TODO}")
+    if topo.is_sharded and p.solver not in (SolverType.EXPLICIT_RK4_ADAPTIVE, SolverType.EXACT):
+        raise NotImplementedError(f"not ported yet: {MESH_MEMBERS_TODO}")
     adaptive = p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE
 
     def finish(state, ids, nF, nU, phi_iters=None, attempts=None, used=None, tau_next=None,
@@ -182,8 +274,9 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
         if len(ids) < B:  # the frozen members keep their rows
             keep = np.ones(B, bool)
             keep[ids] = False
-            rows = torch.as_tensor(np.flatnonzero(keep), device=nF.device)
-            nF[rows], nU[rows] = state.F[rows], state.U[rows]
+            for new, old in _member_blocks(nF, nU, state):
+                rows = torch.as_tensor(np.flatnonzero(keep), device=new.device)
+                new[rows] = old[rows]
         stats = empty_stats(state, B)
         if t_iters is not None:  # semi-implicit: each system's CG iterations
             stats.Phi_iters, stats.T_iters = phi_iters, t_iters
@@ -193,8 +286,8 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
             stats.Phi_iters[ids] = 1
             stats.T_iters[ids] = 1
         if p.do_stats:
-            f = stats_delta(state.F, nF)
-            u = stats_delta(state.U, nU)
+            f = stats_delta(state.F, nF, topo)
+            u = stats_delta(state.U, nU, topo)
             stats.deltas = torch.stack([u.L1, u.L2, u.max, u.min,
                                         f.L1, f.L2, f.max, f.min], dim=1).float()
         if residuals:
@@ -255,10 +348,20 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
 
         def step(state: SimState, live=None):
             ids = live_ids(state, live)
-            nF, nU = torch.empty_like(state.F), torch.empty_like(state.U)
-            for b in ids:
-                nF[b], nU[b] = exact_fields(p, state.F[b], float(state.t[b]))
             step.rounds = 1
+            if not topo.is_sharded:
+                nF, nU = torch.empty_like(state.F), torch.empty_like(state.U)
+                for b in ids:
+                    nF[b], nU[b] = exact_fields(p, state.F[b], float(state.t[b]))
+                return finish(state, ids, nF, nU)
+            sy, sx = topo.grid
+            ly, lx = state.F.blocks[0].shape[-2:]
+            nF, nU = state.F.map(torch.empty_like), state.U.map(torch.empty_like)
+            for i in range(sy):
+                for j in range(sx):
+                    for b in ids:
+                        nF.block(i, j)[b], nU.block(i, j)[b] = exact_fields(
+                            p, state.F.block(i, j)[b], float(state.t[b]), i * ly, j * lx)
             return finish(state, ids, nF, nU)
 
     else:
@@ -266,10 +369,23 @@ def make_ensemble_stepper(p: SimParams) -> MembersStepper:
 
         def step(state: SimState, live=None):
             ids = live_ids(state, live)
-            nF, nU, used, tau, iters, attempts, _conv, rounds = rkm_adaptive_members(
-                state.F, state.U, state.tau, p, fus(state), ids, control)
+            if topo.is_sharded:
+                out = rkm_adaptive_members_mesh(state.F, state.U, state.tau, p, fus(state), ids,
+                                                topo, control)
+            else:
+                out = rkm_adaptive_members(state.F, state.U, state.tau, p, fus(state), ids,
+                                           control)
+            nF, nU, used, tau, iters, attempts, _conv, rounds = out
             step.rounds = rounds
             return finish(state, ids, nF, nU, iters, attempts, used, tau)
 
     step.rounds = 0
     return step
+
+
+def _member_blocks(nF, nU, state: SimState):
+    """(new, old) member-major tensors of a step's fields, shard by shard
+    on a mesh."""
+    if isinstance(nF, Shards):
+        return [*zip(nF.blocks, state.F.blocks), *zip(nU.blocks, state.U.blocks)]
+    return [(nF, state.F), (nU, state.U)]

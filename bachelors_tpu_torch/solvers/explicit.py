@@ -31,7 +31,10 @@ An ensemble's members (stacked (B, ny, nx) fields, ``*_members``) take
 the one-device routes batched over members: each Euler pass, RK4 stage or
 whole RK4 step and Merson attempt is one launch for every member it steps
 (K1, K4, K3, K2 with a member axis, ``ops/cuda_rhs.py``), and the retry
-loop reads the maxima of all its live members once per attempt.  JAX runs
+loop reads the maxima of all its live members once per attempt.  On a mesh
+(``rkm_adaptive_members_mesh``, member-major shards) RKM takes the mesh
+routes batched the same way: the K2 twin, or K12.1 and K5 with the ghost
+gather, each one launch per shard for every member it steps.  JAX runs
 the same steps as ``jax.vmap`` of the stepper, the retry loop a
 ``while_loop`` whose members keep their carry once they stop (:476-521).
 
@@ -54,8 +57,8 @@ from ..core.autodiff import carries_tangent, recording, refuse_reverse
 from ..core.params import SimParams, SolverType
 from ..core.state import Field, Shards, SimState, each, numpy_dtype
 from ..ops import cuda_rhs
-from ..ops.rhs import (carried_pair, euler_eval, eval_rhs, fold_for, folded_stage,
-                       resolve_backend, shard_states)
+from ..ops.rhs import (carried_edges, carried_pair, euler_eval, eval_rhs, fold_for,
+                       folded_stage, folded_stage_members, resolve_backend, shard_states)
 from ..parallel.topology import ONE_DEVICE, Topology
 
 # Host reads of the Merson error maxima since the last reset_host_reads():
@@ -502,30 +505,17 @@ def rk4_step_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu, ids):
     return cuda_rhs.rk4_final_stage_members(x, k1, k2, k3, p, fu, 0.0, ids)
 
 
-def rkm_adaptive_members(F: torch.Tensor, U: torch.Tensor, taus: np.ndarray, p: SimParams,
-                         fu, ids, control: "Controller" = None):
-    """``rkm_adaptive_step`` for the members ``ids`` of stacked fields,
-    each from its own tau (``taus``, indexed by member).  Each attempt is
-    one K2 launch over the members still attempting (with its reduction)
-    and one host read of their maxima; each member's controller is the
-    single run's (``Controller``).  A member that converged or hit the
-    floor keeps its candidate while the others retry: the kernel writes
-    only the rows of the members it steps.
-
-    Returns (next_F, next_U, used, next_tau, iters, attempts, converged,
-    rounds): per member arrays indexed by member (entries of members not
-    in ``ids`` untouched: used and next_tau their tau, counts 0), and the
-    number of attempts made for any member, the launches.  ``control`` is
-    ``Controller(p)``, made once by a stepper."""
-    control = Controller(p) if control is None else control
-    if recording(F, U) or carries_tangent(F, U):
-        raise NotImplementedError("not ported yet: differentiating an ensemble's RKM steps "
-                                  "(ROADMAP item 9b)")
-    B = F.shape[0]
-    kernel = resolve_backend(p, F.device) == "kernel"
-    out = (torch.empty_like(F), torch.empty_like(U))
-    emax = F.new_empty((B, 2))
-    k1s = None if kernel else {}  # the plain version's k1, once a member and step
+def _members_retry(attempt, taus: np.ndarray, ids, control: "Controller"):
+    """An ensemble's Merson retry loop: ``attempt(live, tau)`` makes one
+    attempt of the members ``live`` at their entries of ``tau`` and returns
+    the (B, 2) maxima (their rows valid), read on the host once per
+    attempt for all of them; each member's controller is the single run's
+    (``Controller``), and a member that converged or hit the floor leaves
+    the loop while the others retry.  Returns (used, next_tau, iters,
+    attempts, converged, rounds), per member arrays indexed by member
+    (members not in ``ids``: used and next_tau their tau, counts 0) and the
+    number of attempts made for any member."""
+    B = len(taus)
     tau = np.array(taus, copy=True)
     used = tau.copy()
     iters = np.zeros(B, np.int64)
@@ -533,12 +523,8 @@ def rkm_adaptive_members(F: torch.Tensor, U: torch.Tensor, taus: np.ndarray, p: 
     converged = np.zeros(B, bool)
     live, rounds = [int(b) for b in ids], 0
     while live:
-        if kernel:
-            cuda_rhs.rkm_attempt_members(F, U, tau, p, fu, 0.0, live, out, emax)
-        else:
-            cuda_rhs.rkm_attempt_members_plain(F, U, tau, p, fu, 0.0, live, out, emax, k1s)
+        e = attempt(live, tau).cpu().numpy()  # the attempt's one host read, for every member
         rounds += 1
-        e = emax.cpu().numpy()  # the attempt's one host read, for every member
         HOST_READS["rkm_attempt_members"] += 1
         still = []
         for b in live:
@@ -549,4 +535,156 @@ def rkm_adaptive_members(F: torch.Tensor, U: torch.Tensor, taus: np.ndarray, p: 
             if not (converged[b] or floor_hit) and iters[b] < control.max_iters:
                 still.append(b)
         live = still
-    return (*out, used, tau, iters, attempts, converged, rounds)
+    return used, tau, iters, attempts, converged, rounds
+
+
+def _refuse_differentiating_members(*fields) -> None:
+    if recording(*fields) or carries_tangent(*fields):
+        raise NotImplementedError("not ported yet: differentiating an ensemble's RKM steps "
+                                  "(ROADMAP item 9b)")
+
+
+def rkm_adaptive_members(F: torch.Tensor, U: torch.Tensor, taus: np.ndarray, p: SimParams,
+                         fu, ids, control: "Controller" = None):
+    """``rkm_adaptive_step`` for the members ``ids`` of stacked fields,
+    each from its own tau (``taus``, indexed by member).  Each attempt is
+    one K2 launch over the members still attempting (with its reduction)
+    and one host read of their maxima (``_members_retry``).  A member that
+    converged or hit the floor keeps its candidate while the others retry:
+    the kernel writes only the rows of the members it steps.
+
+    Returns (next_F, next_U, used, next_tau, iters, attempts, converged,
+    rounds): per member arrays indexed by member (entries of members not
+    in ``ids`` untouched: used and next_tau their tau, counts 0), and the
+    number of attempts made for any member, the launches.  ``control`` is
+    ``Controller(p)``, made once by a stepper."""
+    control = Controller(p) if control is None else control
+    _refuse_differentiating_members(F, U)
+    kernel = resolve_backend(p, F.device) == "kernel"
+    out = (torch.empty_like(F), torch.empty_like(U))
+    emax = F.new_empty((F.shape[0], 2))
+    k1s = None if kernel else {}  # the plain version's k1, once a member and step
+
+    def attempt(live, tau):
+        if kernel:
+            cuda_rhs.rkm_attempt_members(F, U, tau, p, fu, 0.0, live, out, emax)
+        else:
+            cuda_rhs.rkm_attempt_members_plain(F, U, tau, p, fu, 0.0, live, out, emax, k1s)
+        return emax
+
+    return (*out, *_members_retry(attempt, taus, ids, control))
+
+
+def _mesh_members_attempt(F: Shards, U: Shards, p: SimParams, fus, topo: Topology,
+                          tau0: np.ndarray, ids):
+    """(attempt, result) of an ensemble's Merson step on a mesh, routed per
+    member as ``_mesh_attempt`` routes a single run: ``attempt(live, tau)``
+    writes each live member's candidate into its rows of the shards' output
+    blocks and returns the (B, 2) maxima combined over the shards
+    (``topo.allmax``); ``result()`` is the (next_F, next_U) ``Shards``.
+
+      * kernel backend, shards at least SLAB_ROWS across each sharded axis,
+        on a float32 y-mesh or any float64 mesh: the K2 twin over members
+        per shard (K12.2's or the K13 twin's), from one member-major apron
+        exchanged once per step, here, outside the retry loop;
+      * kernel backend otherwise: the staged attempt over members, K12.1
+        for k1 once per step (stage 1, folding stage 2's edges at each
+        member's first tau) and k2..k4 per attempt, then K5, each one launch
+        per shard for the live members and each writing the next stage's
+        edges.  A retrying member's stage 2 gathers its own edges (its tau
+        is no longer the one k1 folded at); the others keep theirs.  K5
+        writes each member's update edges into its rows, so a member that
+        stopped keeps those of its accepted attempt; the result carries
+        them (``Shards.edges``) when every member's are known;
+      * plain backend: each member's ``_mesh_attempt``, k1 once per step."""
+    kernel = resolve_backend(p, F.device) == "kernel"
+    B, grid, n = F.members, F.grid, len(F.blocks)
+    out = [(torch.empty_like(f), torch.empty_like(u)) for f, u in zip(F.blocks, U.blocks)]
+    emax = [f.new_zeros((B, 2)) for f in F.blocks]
+
+    def joined(edges=None):
+        return (Shards(tuple(o[0] for o in out), grid, edges),
+                Shards(tuple(o[1] for o in out), grid, edges))
+
+    if not kernel:
+        single = {b: _mesh_attempt(F.member(b), U.member(b), p, fus[b], topo, tau0[b])
+                  for b in ids}
+
+        def attempt(live, tau):
+            for b in live:
+                nF, nU, emax[0][b] = single[b](tau[b])
+                for k in range(n):
+                    out[k][0][b], out[k][1][b] = nF.blocks[k], nU.blocks[k]
+            return emax[0]
+
+        return attempt, joined
+
+    if _takes_apron(topo, *F.blocks[0].shape[-2:], cuda_rhs.SLAB_ROWS, p.dtype):
+        aprons = topo.apron(F, U, cuda_rhs.SLAB_ROWS)
+
+        def attempt(live, tau):
+            for k in range(n):
+                cuda_rhs.rkm_attempt_members_sharded(F.blocks[k], U.blocks[k], aprons[k], tau, p,
+                                                     fus, 0.0, live, out[k], emax[k])
+            return topo.allmax(emax)
+
+        return attempt, joined
+
+    axes = (topo.axis_y is not None, topo.axis_x is not None)
+
+    def edges():
+        return [cuda_rhs.member_edges(f, *axes) for f in F.blocks]
+
+    def blocks():
+        return [(torch.empty_like(f), torch.empty_like(u)) for f, u in zip(F.blocks, U.blocks)]
+
+    x = (F, U)
+    carried = carried_edges([x])
+    k1, e2 = folded_stage_members([x], 1, tau0, p, fus, topo, ids,
+                                  edges() if carried is None else carried, blocks(), edges(),
+                                  ids if carried is None else ())
+    k2s, k3s, k4s = blocks(), blocks(), blocks()
+    e3, e4, e5, update = edges(), edges(), edges(), edges()
+
+    def attempt(live, tau):
+        retry = [b for b in live if tau[b] != tau0[b]]
+        k2, _ = folded_stage_members([x, k1], 2, tau, p, fus, topo, live, e2, k2s, e3, retry)
+        k3, _ = folded_stage_members([x, k1, k2], 3, tau, p, fus, topo, live, e3, k3s, e4)
+        k4, _ = folded_stage_members([x, k1, k3], 4, tau, p, fus, topo, live, e4, k4s, e5)
+        for k, h in enumerate(topo.exchange(e5)):
+            cuda_rhs.rkm_final_stage_members(*shard_states([x, k1, k3, k4], k), tau, p, h, fus,
+                                             live, out[k], emax[k], update[k])
+        return topo.allmax(emax)
+
+    def result():
+        frozen = np.setdiff1d(np.arange(B), np.asarray(ids, np.int64))
+        if len(frozen) and carried is None:
+            return joined()  # a frozen member's edges are unknown: the next step gathers
+        if len(frozen):
+            rows = torch.as_tensor(frozen, device=F.device)
+            for mine, theirs in zip(update, carried):
+                for a, c in zip(mine, theirs):
+                    if a is not None:
+                        a[rows.to(a.device)] = c[rows.to(a.device)]
+        return joined([tuple(e) for e in update])
+
+    return attempt, result
+
+
+def rkm_adaptive_members_mesh(F: Shards, U: Shards, taus: np.ndarray, p: SimParams, fus, ids,
+                              topo: Topology, control: "Controller" = None):
+    """``rkm_adaptive_members`` for an ensemble's members on a mesh, their
+    fields ``Shards`` of member-major (B, ny_l, nx_l) blocks: each member's
+    attempts as its single mesh run routes them (``_mesh_members_attempt``),
+    each attempt one launch per shard for every live member (the K2 twin
+    over members, or the staged route's kernels over members, each one a
+    stage), and one host read of the maxima combined over the shards.
+    Member b of the result is ``rkm_adaptive_step`` of member b's single
+    mesh state bit for bit: fields, used and next tau, counts.  ``fus``:
+    the forcing per member.  Returns ``rkm_adaptive_members``'s tuple, the
+    fields as ``Shards`` (rows of members not in ``ids`` unwritten)."""
+    control = Controller(p) if control is None else control
+    _refuse_differentiating_members(F, U)
+    attempt, result = _mesh_members_attempt(F, U, p, fus, topo, np.array(taus, copy=True), ids)
+    retry = _members_retry(attempt, taus, ids, control)
+    return (*result(), *retry)

@@ -129,6 +129,21 @@ the semi-implicit ensemble lockstep with the CG variant forced to "fused"
 (K8 over members once a solve, then K9 and K8b over members, no K10),
 member by member bit for bit with the single fused stepper, CG counts
 included, and that ensemble through ``run_config_file`` (200 steps).
+RKM ensembles on meshes of the one card (``make_ensemble_stepper(p, mesh,
+topo)``, member-major shards): the K2 twin over members (K12.2 at float32
+on y(2), the K13 twin at float64 on y(2), x(2) and 2x2), and K12.1 at
+Merson stages 1-4, K5 and the ghost gather over members on float32 x(2)
+and 2x2, each against its plain members version and against one
+single-shard launch per member, bit for bit, at 512^2 and B = 1, 4 and 8,
+with device µs a launch by graph replay on a 256x512 y-shard and a 512x256
+x-shard beside B single launches and the byte bound; the shipped config
+with ``ensemble = 4`` and ``noise_T = 0.02`` cut to 0.003 on y(2) with
+``batch_shards = 2``, on x(2) and on 2x2, and the float64 sweep config's
+ensemble on 2x2 cut to 0.0006, through ``run_config_file``: one launch of
+the members attempt per shard and batched attempt, one host read, member
+b bit for bit its single mesh run with noise_seed + b; and the mesh
+ensemble's member-steps a second and busy share at B = 1, 2, 4 and 8
+beside the single mesh stepper on each mesh.
 ``[program] debug = true`` on the shipped config: every frame carries
 grad_Phi, grad_T and aniso in the JAX package's order, held to
 ``debug_maps`` of the frame's own F and U recomputed on the CPU.
@@ -357,7 +372,9 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                     "rkm_final_stage_plain", "halo_edges_plain", "blend_rhs_sharded_plain",
                     "rkm_attempt_sharded_plain", "merson_finish",
                     "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine",
-                    "si_prepare_sharded_plain", "si_terms"),
+                    "si_prepare_sharded_plain", "si_terms",
+                    "rkm_attempt_members_sharded_plain", "blend_rhs_sharded_members_plain",
+                    "rkm_final_stage_members_plain", "halo_edges_members_plain"),
          cuda_cg: ("cross_matvec_pAp_members_plain", "aniso_matvec_pAp_members_plain",
                    "update_xr_rr_members_plain", "advance_p_members_plain",
                    "cross_residual_members_plain", "aniso_residual_members_plain",
@@ -474,11 +491,13 @@ FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
           "K15.6": 1}
 
 
-def bound(name: str, cells: int, dtype: str = "float32") -> dict:
+def bound(name: str, cells: int, dtype: str = "float32", extra_bytes: int = 0) -> dict:
     """The least time the card could take for kernel ``name`` on ``cells``
-    cells: the larger of its bytes over the memory rate and its operations
-    over the rate of their type."""
-    t_bytes = cells * FIELDS[name] * np.dtype(dtype).itemsize / HBM_BYTES_PER_S * 1e3
+    cells: the larger of its bytes (its fields, and ``extra_bytes`` more:
+    ghosts a kernel on a shard reads) over the memory rate and its
+    operations over the rate of their type."""
+    t_bytes = ((cells * FIELDS[name] * np.dtype(dtype).itemsize + extra_bytes)
+               / HBM_BYTES_PER_S * 1e3)
     if dtype == "float32":
         t_ops = cells * OPS[name] / F32_OPS_PER_S * 1e3
     else:
@@ -4031,6 +4050,391 @@ def si_ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
     return rows
 
 
+# --------------------------------------------------- ensembles on meshes
+#
+# The shipped RKM config as an ensemble on meshes of the one card
+# (``make_ensemble_stepper(p, mesh, topo)``): the K2 twin over members
+# (K12.2 at float32 on y-meshes, the K13 twin at float64 on every mesh),
+# and on float32 x and 2D meshes K12.1, K5 and the ghost gather over
+# members; each checked at these member counts and timed at the shapes
+# of a y(2) and an x(2) shard of 512^2.
+MESH_MEMBER_COUNTS = (1, 4, 8)
+MESH_MEMBER_SIZE = 512
+# (mesh, dtype) of each route's check: the whole attempt, the staged one
+MESH_MEMBER_WHOLE = (("y(2)", "float32"), ("y(2)", "float64"), ("x(2)", "float64"),
+                     ("2x2", "float64"))
+MESH_MEMBER_STAGED = (("x(2)", "float32"), ("2x2", "float32"))
+# The paths: ensemble = 4 with noise, cut to about 200 steps a member, 2
+# frames; y(2) with its members in 2 batch groups
+MESH_ENSEMBLE_CUT = "[simulation]\nstop_after = 0.003\n[snapshot]\ntimes = 2\n"
+MESH_ENSEMBLE_CUT64 = "[simulation]\nstop_after = 0.0006\n[snapshot]\ntimes = 2\n"
+MESH_ENSEMBLE_TIMED = (1, 2, 4, 8)
+
+
+def mesh_of(name: str, batch: int = 1):
+    """The named mesh of the one card with ``batch`` member groups."""
+    sy, sx = MESHES[name]
+    return make_mesh(sy, sx, [DEVICE] * (sy * sx * batch), batch=batch)
+
+
+def member_shards(rng, B, name, dtype, n=1):
+    """n (F, U) pairs of stacked (B, MESH_MEMBER_SIZE^2) standard-normal
+    fields split over the named mesh: member-major ``Shards``."""
+    mesh, topo = mesh_of(name)
+    size = MESH_MEMBER_SIZE
+    return [tuple(shard_field(t, mesh, topo) for t in pair)
+            for pair in stacked(rng, B, size, size, n, dtype)], topo
+
+
+def check_mesh_members_kernels(rng) -> dict:
+    """The four mesh kernels over members against their plain members
+    versions and against one single-shard launch per member, bit for bit
+    (fields, error maxima, folded and gathered edges), on every shard of
+    512^2 at MESH_MEMBER_COUNTS members (a subset out of order stepped
+    where B > 1, the rest left as they were), S = 0.25: the K2 twin on y(2)
+    at float32 (K12.2) and on y(2), x(2) and 2x2 at float64 (the K13 twin);
+    K12.1 at Merson stages 1-4 with its fold, K5 with its fold and the
+    ghost gather at stages 1-5 on x(2) and 2x2 at float32; each call one
+    launch.  Device µs a launch by graph replay on the first shard of y(2)
+    (256x512) and of x(2) (512x256) at each B, beside B single-shard
+    launches and the byte bound of B members (fields and ghosts read once,
+    outputs written once); the kernels line's numbers at B = 4."""
+    worst = {k: 0.0 for k in ("K12.2", "K2 twin f64", "K12.1", "K5", "gather")}
+    cases = 0
+
+    def same(name, got, want, what):
+        for g, w in zip(got, want):
+            if g is None and w is None:
+                continue
+            err = (g - w).abs().max().item() if g.numel() else 0.0
+            worst[name] = max(worst[name], err)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} over members parts from {what}: {err}")
+
+    for B in MESH_MEMBER_COUNTS:
+        ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+        fu = [0.03 + 0.01 * b for b in range(B)]
+        for mname, dtype in MESH_MEMBER_WHOLE:
+            name = "K12.2" if dtype == "float32" else "K2 twin f64"
+            key = "rkm_attempt_members_" + ("sharded" if dtype == "float32" else "apron")
+            p = params(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE, "neumann", u_bc="periodic", dtype=dtype)
+            ((F, U),), topo = member_shards(rng, B, mname, dtype)
+            aprons = topo.apron(F, U, cuda_rhs.SLAB_ROWS)
+            taus = np.array([TAU * (1 + 0.1 * b) for b in range(B)], dtype)
+            singles = {b: topo.apron(F.member(b), U.member(b), cuda_rhs.SLAB_ROWS) for b in ids}
+            for k, (f, u) in enumerate(zip(F.blocks, U.blocks)):
+                what = f"{mname} {dtype} B={B} shard {k}"
+                keep = (torch.randn_like(f), torch.randn_like(u))
+                out = tuple(t.clone() for t in keep)
+                got = one_launch(key, lambda: cuda_rhs.rkm_attempt_members_sharded(
+                    f, u, aprons[k], taus, p, fu, 0.0, ids, out))
+                plain = cuda_rhs.rkm_attempt_members_sharded_plain(f, u, aprons[k], taus, p, fu,
+                                                                   0.0, ids)
+                for b in range(B):
+                    if b not in ids:
+                        same(name, (got[0][b], got[1][b]), (keep[0][b], keep[1][b]),
+                             f"its untouched rows ({what})")
+                        continue
+                    mine = (got[0][b], got[1][b], got[2][b])
+                    same(name, mine, cuda_rhs.rkm_attempt_sharded(
+                        f[b].contiguous(), u[b].contiguous(), singles[b][k], taus[b], p, fu[b]),
+                        f"the single-shard kernel, member {b} ({what})")
+                    same(name, mine, (plain[0][b], plain[1][b], plain[2][b]),
+                         f"its plain version, member {b} ({what})")
+                cases += 1
+        for mname, dtype in MESH_MEMBER_STAGED:
+            p = params(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE, "neumann", u_bc="dirichlet",
+                       dtype=dtype)
+            (x, k1, ka, k4), topo = member_shards(rng, B, mname, dtype, 4)
+            axes = (topo.axis_y is not None, topo.axis_x is not None)
+            taus = np.array([TAU * (1 + 0.1 * b) for b in range(B)], dtype)
+            e = [cuda_rhs.member_edges(f, *axes) for f in x[0].blocks]
+            for k in range(len(x[0].blocks)):
+                cuda_rhs.halo_edges_members(shard_states([x], k), 1, taus, None, e[k])
+            halos = topo.exchange(e)
+            for k, h in enumerate(halos):
+                shard = shard_states([x, k1, ka, k4], k)
+                for stage in (1, 2, 3, 4, 5):
+                    states = ([shard[0], shard[1], shard[3]] if stage == 4
+                              else shard[:cuda_rhs.MERSON_STATES[stage]])
+                    what = f"{mname} {dtype} B={B} shard {k} stage {stage}"
+                    mine_states = {b: [(F[b].contiguous(), U[b].contiguous()) for F, U in states]
+                                   for b in ids}
+                    edges = cuda_rhs.member_edges(states[0][0], *axes)
+                    one_launch("halo_edges_members", lambda: cuda_rhs.halo_edges_members(
+                        states, stage, taus, ids, edges))
+                    plain = cuda_rhs.halo_edges_members_plain(
+                        states, stage, taus, ids, cuda_rhs.member_edges(states[0][0], *axes))
+                    for b in ids:
+                        want = cuda_rhs.halo_edges(
+                            mine_states[b], cuda_rhs.merson_stage_weights(stage, taus[b]), *axes)
+                        same("gather", [g[b] for g in edges if g is not None],
+                             [w for w in want if w is not None], f"the single gather, {what}")
+                        same("gather", [g[b] for g in edges if g is not None],
+                             [g[b] for g in plain if g is not None], f"its plain version, {what}")
+                    keep = tuple(torch.randn_like(states[0][0]) for _ in range(2))
+                    out = tuple(t.clone() for t in keep)
+                    fold = cuda_rhs.member_edges(states[0][0], *axes)
+                    pfold = cuda_rhs.member_edges(states[0][0], *axes)
+                    if stage == 5:
+                        emax = states[0][0].new_zeros((B, 2))
+                        one_launch("rkm_final_stage_members",
+                                   lambda: cuda_rhs.rkm_final_stage_members(
+                                       *states, taus, p, h, fu, ids, out, emax, fold))
+                        plain = cuda_rhs.rkm_final_stage_members_plain(
+                            *states, taus, p, h, fu, ids, None, None, pfold)
+                        name, got = "K5", lambda b: (out[0][b], out[1][b], emax[b])
+                    else:
+                        one_launch("blend_rhs_sharded_members",
+                                   lambda: cuda_rhs.blend_rhs_sharded_members(
+                                       states, stage, taus, p, h, fu, ids, out, fold))
+                        plain = cuda_rhs.blend_rhs_sharded_members_plain(
+                            states, stage, taus, p, h, fu, ids, None, pfold)
+                        name, got = "K12.1", lambda b: (out[0][b], out[1][b])
+                    for b in range(B):
+                        if b not in ids:
+                            same(name, (out[0][b], out[1][b]), (keep[0][b], keep[1][b]),
+                                 f"its untouched rows ({what})")
+                            continue
+                        if stage == 5:
+                            want = cuda_rhs.rkm_final_stage(
+                                *mine_states[b], taus[b], p, fu[b], 0.0, h.member(b),
+                                cuda_rhs.Fold((1.0,), *axes))
+                            wedges = want[3]
+                        else:
+                            want = cuda_rhs.blend_rhs_sharded(
+                                mine_states[b], cuda_rhs.merson_stage_weights(stage, taus[b]), p,
+                                h.member(b), fu[b], 0.0, fold=cuda_rhs.Fold(tuple(
+                                    cuda_rhs.merson_stage_weights(stage + 1, taus[b])), *axes))
+                            wedges = want[2]
+                        same(name, got(b), want, f"the single-shard kernel, member {b} ({what})")
+                        same(name, got(b), tuple(t[b] for t in plain[:len(got(b))]),
+                             f"its plain version, member {b} ({what})")
+                        same(name, [g[b] for g in fold if g is not None],
+                             [w for w in wedges if w is not None],
+                             f"the single kernel's folded edges, member {b} ({what})")
+                        same(name, [g[b] for g in fold if g is not None],
+                             [g[b] for g in pfold if g is not None],
+                             f"the plain folded edges, member {b} ({what})")
+                    cases += 1
+    torch.cuda.synchronize()
+
+    # device µs a launch by graph replay on the first shard of y(2) and x(2)
+    timed, entries = {}, {}
+    for B in MESH_MEMBER_COUNTS:
+        row = {}
+        for mname in ("y(2)", "x(2)"):
+            for dtype in ("float32", "float64"):
+                p = params(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE, "neumann", dtype=dtype)
+                c = np.dtype(dtype).type
+                (x, k1, ka, k4), topo = member_shards(rng, B, mname, dtype, 4)
+                axes = (topo.axis_y is not None, topo.axis_x is not None)
+                f, u = x[0].blocks[0], x[1].blocks[0]
+                ny_l, nx_l = f.shape[-2:]
+                taus = np.full(B, c(TAU))
+                out = (torch.empty_like(f), torch.empty_like(u))
+                emax = f.new_zeros((B, 2))
+                itemsize = np.dtype(dtype).itemsize
+                # the staged kernels, at float32 only: float64 x and 2D meshes take the twin
+                calls = {}
+                if dtype == "float64" or mname == "y(2)":
+                    ap = topo.apron(*x, cuda_rhs.SLAB_ROWS)[0]
+                    one_ap = topo.apron(x[0].member(0), x[1].member(0), cuda_rhs.SLAB_ROWS)[0]
+                    ghosts = sum(g[0].numel() for g in (ap.rows, ap.cols) if g is not None)
+                    calls["K12.2" if dtype == "float32" else "K2 twin f64"] = (
+                        lambda: cuda_rhs.rkm_attempt_members_sharded(f, u, ap, taus, p, 0.0, 0.0,
+                                                                     None, out, emax),
+                        lambda: cuda_rhs.rkm_attempt_sharded(f[0].contiguous(),
+                                                             u[0].contiguous(), one_ap,
+                                                             c(TAU), p),
+                        lambda: cuda_rhs.rkm_attempt_members_sharded_plain(
+                            f, u, ap, taus, p, 0.0, 0.0, None, out, emax),
+                        bound("K12.2", B * ny_l * nx_l, dtype, B * ghosts * itemsize))
+                if dtype == "float32":
+                    e = [cuda_rhs.member_edges(b, *axes) for b in x[0].blocks]
+                    for kk in range(len(e)):
+                        cuda_rhs.halo_edges_members(shard_states([x], kk), 1, taus, None, e[kk])
+                    h = topo.exchange(e)[0]
+                    st3 = shard_states([x, k1, ka], 0)
+                    st4 = shard_states([x, k1, ka, k4], 0)
+                    one3 = [(a[0].contiguous(), b_[0].contiguous()) for a, b_ in st3]
+                    one4 = [(a[0].contiguous(), b_[0].contiguous()) for a, b_ in st4]
+                    fold = cuda_rhs.member_edges(f, *axes)
+                    halo_vals = sum(g[0].numel() for g in (h.rows, h.cols) if g is not None)
+                    w3 = cuda_rhs.merson_stage_weights(3, c(TAU))
+                    w4 = cuda_rhs.merson_stage_weights(4, c(TAU))
+                    edge_cells = (2 * nx_l if axes[0] else 0) + (2 * ny_l if axes[1] else 0)
+                    calls["K12.1"] = (
+                        lambda: cuda_rhs.blend_rhs_sharded_members(st3, 3, taus, p, h, 0.0, None,
+                                                                   out, fold),
+                        lambda: cuda_rhs.blend_rhs_sharded(one3, w3, p, h.member(0), fold=(
+                            cuda_rhs.Fold(tuple(w4), *axes))),
+                        lambda: cuda_rhs.blend_rhs_sharded_members_plain(
+                            st3, 3, taus, p, h, 0.0, None, out, fold),
+                        bound("K12.1", B * ny_l * nx_l, dtype, B * 2 * halo_vals * itemsize))
+                    calls["K5"] = (
+                        lambda: cuda_rhs.rkm_final_stage_members(*st4, taus, p, h, 0.0, None,
+                                                                 out, emax, fold),
+                        lambda: cuda_rhs.rkm_final_stage(*one4, c(TAU), p, 0.0, 0.0,
+                                                         h.member(0),
+                                                         cuda_rhs.Fold((1.0,), *axes)),
+                        lambda: cuda_rhs.rkm_final_stage_members_plain(
+                            *st4, taus, p, h, 0.0, None, out, emax, fold),
+                        bound("K5", B * ny_l * nx_l, dtype, B * 2 * halo_vals * itemsize))
+                    calls["gather"] = (
+                        lambda: cuda_rhs.halo_edges_members(st3, 3, taus, None, fold),
+                        lambda: cuda_rhs.halo_edges(one3, w3, *axes),
+                        lambda: cuda_rhs.halo_edges_members_plain(st3, 3, taus, None, fold),
+                        bound("K12.1 gather", B * edge_cells, dtype))
+                for name, (batched, single, plain, bnd) in calls.items():
+                    us, one_us = graph_us(batched), graph_us(single)
+                    row[f"{name} on {mname}"] = {
+                        "device_us_a_launch": us, "single_launches_us_times_B": one_us * B,
+                        "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"]}
+                    path_shard = "y(2)" if name == "K12.2" else "x(2)"
+                    if B == 4 and mname == path_shard:
+                        ms, plain_ms = time_pair(batched, plain, reps=10)
+                        entries[name] = {"max_abs_err": worst[name], "ms": ms,
+                                         "plain_ms": plain_ms, **bnd, "library_ms": None}
+        timed[f"B={B}"] = row
+    phase("mesh kernels over members (K2 twin: K12.2 and the K13 twin; K12.1, K5, ghost "
+          "gather) vs plain and vs single-shard launches", cases=cases,
+          members=list(MESH_MEMBER_COUNTS), max_abs_err=worst, tol="bit for bit",
+          card=card_limit(), graph_replay_first_shard_512=timed,
+          kernels_line_at="B=4, K12.2 on a y(2) shard (256x512), the others on an x(2) "
+                          "shard (512x256)",
+          library="none: no PyTorch call computes them")
+    return entries
+
+
+def mesh_ensemble_path(name, mesh, overrides, batch=1, config=CONFIG) -> dict:
+    """An RKM ensemble of 4 through ``run_config_file`` on the named mesh
+    of the one card (with ``batch`` member groups): on the whole-attempt
+    route (a float32 y-mesh, any float64 mesh) the K2 twin over members
+    once per shard and batched attempt, nothing else; on the staged route
+    K12.1 over members (k1 once a step, k2-k4 per attempt), K5 over members
+    per attempt and the gather over members only in each group's first
+    step and for retries, per shard; one host read per batched attempt;
+    its frames, members files and per-member stats; and member b, frame by
+    frame, its single run on the same mesh with noise_seed + b, bit for bit
+    in fields, t, iter and tau."""
+    from bachelors_tpu_torch.solvers import base
+
+    sy, sx = MESHES[mesh]
+    shards = sy * sx
+    where = f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\nbatch_shards = {batch}\n"
+    calls = [0]
+    inner = base.rkm_adaptive_members_mesh
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    base.rkm_adaptive_members_mesh = counted
+    grow = config == CONFIG  # the float64 sweep config's sharp seed holds over the cut
+    try:
+        run = drive([ENSEMBLE, where, *overrides], config=config, frames=True, grow=grow,
+                    device=[DEVICE] * (shards * batch), files=("stats_m003.csv",))
+    finally:
+        base.rkm_adaptive_members_mesh = inner
+    n, res = run["launches"], run["res"]
+    rounds = res.attempts  # the batched attempts of every group
+    got = {k: v for k, v in n.items() if v}
+    p = run["cfg"].params
+    whole = p.dtype == "float64" or sx == 1
+    if whole:
+        key = "rkm_attempt_members_" + ("apron" if p.dtype == "float64" else "sharded")
+        expect(got == {key: rounds * shards}, f"{key} once per shard and batched attempt", run)
+    else:
+        gathers = n["halo_edges_members"]
+        expect(n["blend_rhs_sharded_members"] == (calls[0] + 3 * rounds) * shards
+               and n["rkm_final_stage_members"] == rounds * shards > 0
+               and batch * shards <= gathers <= (batch + rounds - calls[0]) * shards
+               and set(got) == {"blend_rhs_sharded_members", "rkm_final_stage_members",
+                                "halo_edges_members"},
+               "K12.1 over members (group steps + 3 attempts), K5 over members (attempts), "
+               "the gather (first steps, retries), per shard; nothing else", run)
+    expect(run["rkm_host_reads"] == {"rkm_attempt": 0, "rkm_attempt_members": rounds},
+           f"one host read per batched attempt, read {run['rkm_host_reads']}", run)
+    if p.do_stats and run["texts"]["stats_m003.csv"] is None:
+        raise AssertionError(f"{name}: no stats_m003.csv")
+    snaps = run["snaps"]
+    maps = sorted(f for f in snaps if f.startswith("maps_"))
+    if not {"F_mean", "F_std", "U_mean", "U_std", "tau"} <= set(snaps[maps[-1]].maps):
+        raise AssertionError(f"{maps[-1]} holds {sorted(snaps[maps[-1]].maps)}")
+    one_where = f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n"
+    seeds = {}
+    for b in range(4):
+        one = drive([ENSEMBLE.replace("ensemble = 4", "ensemble = 1"), one_where, *overrides,
+                     f"[initial]\nnoise_seed = {b}\n"], config=config, frames=True, grow=grow,
+                    device=[DEVICE] * shards)
+        for frame in maps:
+            mine = snaps[frame.replace("maps_", "members_")]
+            meta = mine.maps["ensemble_meta"].reshape(-1)[3 * b:3 * b + 3]
+            theirs = one["snaps"][frame]
+            if not (np.array_equal(mine.maps[f"F_m{b:03d}"], theirs.maps["F"])
+                    and np.array_equal(mine.maps[f"U_m{b:03d}"], theirs.maps["U"])
+                    and (meta[0], meta[1], meta[2]) == (theirs.time, theirs.iter,
+                                                        theirs.maps["tau"][0, 0])):
+                raise AssertionError(f"{name}: member {b} parts from its single mesh run at "
+                                     f"{frame}")
+        seeds[f"member {b}"] = {"steps": one["res"].iters, "attempts": one["res"].attempts}
+    phase(name, shards=[sy, sx], batch_groups=batch, batched_attempts=rounds,
+          host_reads=rounds, group_steps=calls[0],
+          attempt_launches_per_shard_per_round=1, members_equal_single_mesh_runs="bit for bit",
+          members=seeds, **run["summary"])
+    return n
+
+
+def mesh_ensemble_timing(Bs=MESH_ENSEMBLE_TIMED, steps=100, traced=30) -> dict:
+    """The RKM ensemble of the shipped config (stats every step) on y(2),
+    x(2) and 2x2 meshes of the one card at B members, beside the single
+    mesh stepper: host ms a step (wall clock over ``steps`` steps,
+    synchronised), device ms a step (the kernels' time under torch.profiler
+    over ``traced`` steps), member-steps a second and the device's busy
+    share; each from the members' initial state after 10 warm steps."""
+    from torch.autograd import DeviceType
+
+    cfg = load_config(CONFIG, [ENSEMBLE])
+    out = {}
+    for mname in MESHES:
+        mesh, topo = mesh_of(mname)
+        rows = {}
+        for B in ("single", *Bs):
+            singles, state = member_states(cfg, 1 if B == "single" else B)
+            if B == "single":
+                step = make_sharded_stepper(cfg.params, mesh, topo)
+                state = shard_state(singles[0], mesh, topo)
+            else:
+                step = make_ensemble_stepper(cfg.params, mesh, topo)
+                state = shard_state(state, mesh, topo)
+            for _ in range(10):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(traced):
+                    state, _ = step(state)
+                torch.cuda.synchronize()
+            device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA) / traced / 1e3
+            host_ms = wall / steps * 1e3
+            members = 1 if B == "single" else B
+            rows["single mesh stepper" if B == "single" else f"B={B}"] = {
+                "host_ms_per_step": host_ms, "device_ms_per_step": device_ms,
+                "member_steps_per_s": members * steps / wall,
+                "device_busy_share": device_ms / host_ms}
+        out[mname] = rows
+    phase("RKM ensemble on meshes timing (config.ini, noise_T = 0.02, stats every step)",
+          card=card_limit(), steps=steps, traced_steps=traced, meshes=out)
+    return out
+
+
 # Differentiable runs (SimParams.differentiable): the shipped physics at
 # 512^2 (config.ini's semi-implicit run: S = 0.25, m0 = 6, Neumann), the
 # gradient of the mean Phi after DIFF_STEPS steps with respect to U0.  The
@@ -4570,6 +4974,24 @@ def main() -> None:
                                     "fused CG variant (K8 once a solve, K9 and K8b over "
                                     "members; ensemble = 4, 200 steps)", variant="fused")
     si_ensemble_timing()
+    # RKM ensembles on meshes of the one card: the mesh kernels over
+    # members, the shipped config on each mesh, their timing
+    t_mesh_members = time.perf_counter()
+    mesh_members_k = check_mesh_members_kernels(rng)
+    ens_mesh = {
+        "y(2)": mesh_ensemble_path("RKM ensemble path on a y(2) mesh, batch_shards = 2 "
+                                   "(config.ini, ensemble = 4, noise_T = 0.02, to 0.003)",
+                                   "y(2)", [MESH_ENSEMBLE_CUT], batch=2),
+        "x(2)": mesh_ensemble_path("RKM ensemble path on an x(2) mesh (config.ini, "
+                                   "ensemble = 4, to 0.003)", "x(2)", [MESH_ENSEMBLE_CUT]),
+        "2x2": mesh_ensemble_path("RKM ensemble path on a 2x2 mesh (config.ini, ensemble = 4, "
+                                  "to 0.003)", "2x2", [MESH_ENSEMBLE_CUT]),
+        "2x2 f64": mesh_ensemble_path("float64 RKM ensemble path on a 2x2 mesh (sweep config, "
+                                      "ensemble = 4, to 0.0006)", "2x2",
+                                      [FIRST_FRAME, MESH_ENSEMBLE_CUT64], config=sweep("rkm")),
+    }
+    mesh_ensemble_timing()
+    phase("ensembles on meshes: the phases' time", seconds=time.perf_counter() - t_mesh_members)
     # differentiable runs on the one card: the adjoint solves on K8-K10
     diff = check_differentiable()
     check_autodiff_guards()
@@ -4809,6 +5231,28 @@ def main() -> None:
                      "version and the single K8b only: no float64 path takes the fused CG "
                      "variant)", cg_src, f"{pallas_cg}:49",
                      sum(ens_si64[k] for k in K8B_MEMBER_KEYS), k8b_members64),
+        kernel_entry("K12.2 rkm_attempt_members_sharded (K12.2 over an ensemble's members, "
+                     "one launch a shard for all live members; the RKM ensemble on y(2) with "
+                     "batch_shards = 2)", rhs_src, f"{pallas_rhs}:1204",
+                     ens_mesh["y(2)"]["rkm_attempt_members_sharded"], mesh_members_k["K12.2"]),
+        kernel_entry("K2 twin rkm_attempt_members_apron at float64 (K13's twin over members; "
+                     "the float64 RKM ensemble on 2x2)", rhs_src, "bachelors_tpu/ops/pallas_dd.py:667",
+                     ens_mesh["2x2 f64"]["rkm_attempt_members_apron"],
+                     mesh_members_k["K2 twin f64"]),
+        kernel_entry("K12.1 blend_rhs_sharded_members (K12.1 over members at a Merson stage, "
+                     "each member's weights from its tau, folding the next stage's edges; the "
+                     "RKM ensembles on x(2) and 2x2)", rhs_src, f"{pallas_rhs}:539",
+                     sum(ens_mesh[m]["blend_rhs_sharded_members"] for m in ("x(2)", "2x2")),
+                     mesh_members_k["K12.1"]),
+        kernel_entry("K5 rkm_final_stage_members (K5 over members with ghosts, each member's "
+                     "maxima and update edges; the same runs)", rhs_src, f"{pallas_rhs}:539",
+                     sum(ens_mesh[m]["rkm_final_stage_members"] for m in ("x(2)", "2x2")),
+                     mesh_members_k["K5"]),
+        kernel_entry("K12.1 ghost gather halo_edges_members (over the live members: each "
+                     "group's first step and each retry's stage 2; the same runs)", rhs_src,
+                     f"{pallas_rhs}:539",
+                     sum(ens_mesh[m]["halo_edges_members"] for m in ("x(2)", "2x2")),
+                     mesh_members_k["gather"]),
         *(kernel_entry(f"{k} {label} at {dtype} (the port's differentiable semi-implicit "
                        f"path, which runs the default route's {k} where JAX's runs XLA's CG: "
                        "forward and adjoint CG solves of d mean Phi / d U0 at 512^2)", cg_src,

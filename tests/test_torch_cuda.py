@@ -2243,3 +2243,213 @@ def test_kernel_wrappers_refuse_a_gradient_on_the_card(cuda_device):  # noqa: F8
         d = forward_ad.make_dual(v.detach(), torch.ones_like(v))
         with pytest.raises(SilentGradientError, match="differentiable=True"):
             cuda_cg.cross_matvec_pAp(A, d)
+
+
+# The mesh kernels over members (the K2 twin -- K12.2 at float32 on a
+# y-mesh, the K13 twin at float64 on every mesh -- and K12.1, K5 and the
+# ghost gather at a Merson stage): on each shard of member-major blocks,
+# each member's rows (and edges and maxima) equal the single-shard kernel
+# on that member's fields and ghosts bit for bit, and its plain members
+# version, rows of members a launch does not step stay as they were, and B
+# members cost one launch.
+MESH_MEMBER_CASES = [((2, 1), "float32"), ((2, 1), "float64"), ((1, 2), "float64"),
+                     ((2, 2), "float64")]
+STAGED_MEMBER_CASES = [((1, 2), "float32"), ((2, 2), "float32"), ((2, 1), "float64"),
+                       ((2, 2), "float64")]
+
+
+def _member_shards(gen, B, sy, sx, ny, nx, dtype, device, n=1):
+    from bachelors_tpu_torch.convert import shards_from_numpy
+
+    return [tuple(shards_from_numpy(gen.normal(size=(B, ny, nx)).astype(dtype), sy, sx,
+                                    [device] * (sy * sx)) for _ in range(2))
+            for _ in range(n)]
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mesh,dtype", MESH_MEMBER_CASES)
+def test_mesh_members_k2_twin_equals_single_shard_per_member(B, mesh, dtype, gen,
+                                                             cuda_device):  # noqa: F811
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    sy, sx = mesh
+    topo = Topology(sy, sx)
+    key = "rkm_attempt_members_" + ("sharded" if dtype == "float32" else "apron")
+    for S in (0.25, 0.0):
+        p = _params(64, 96, "neumann", "periodic", S, 6.0).replace(dtype=dtype)
+        (Fs, Us), = _member_shards(gen, B, sy, sx, 64, 96, dtype, cuda_device)
+        aprons = topo.apron(Fs, Us, cuda_rhs.SLAB_ROWS)
+        ids = list(range(B)) if B < 3 else [B - 1, 0, 1]
+        taus = np.array([TAU * (1 + 0.1 * b) for b in range(B)], dtype)
+        fu = [0.01 * (b + 1) for b in range(B)]
+        singles = {b: topo.apron(Fs.member(b), Us.member(b), cuda_rhs.SLAB_ROWS) for b in ids}
+        for k, (F, U) in enumerate(zip(Fs.blocks, Us.blocks)):
+            keep = (torch.randn_like(F), torch.randn_like(U))
+            got = _one_launch(cuda_rhs, key, lambda: cuda_rhs.rkm_attempt_members_sharded(
+                F, U, aprons[k], taus, p, fu, 0.0, ids, tuple(t.clone() for t in keep)))
+            plain = cuda_rhs.rkm_attempt_members_sharded_plain(F, U, aprons[k], taus, p, fu, 0.0,
+                                                               ids)
+            for b in range(B):
+                if b not in ids:
+                    assert torch.equal(got[0][b], keep[0][b]) and torch.equal(got[1][b], keep[1][b])
+                    continue
+                want = cuda_rhs.rkm_attempt_sharded(F[b].contiguous(), U[b].contiguous(),
+                                                    singles[b][k], taus[b], p, fu[b])
+                assert _same((got[0][b], got[1][b], got[2][b]), want), (S, k, b)
+                assert _same((got[0][b], got[1][b], got[2][b]),
+                             (plain[0][b], plain[1][b], plain[2][b])), (S, k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mesh,dtype", STAGED_MEMBER_CASES)
+def test_mesh_members_staged_kernels_equal_single_shard_per_member(B, mesh, dtype, gen,
+                                                                   cuda_device):  # noqa: F811
+    """K12.1 over members at Merson stages 1-4 with its fold, the ghost
+    gather over members at stages 1-5, and K5 over members with its fold and
+    maxima, on every shard: each member as the single-shard kernel at its
+    stage weights (``merson_stage_weights`` at its tau) with its ghosts."""
+    from bachelors_tpu_torch.core.boundary import Halo
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    sy, sx = mesh
+    topo = Topology(sy, sx)
+    axes = (sy > 1, sx > 1)
+    ny, nx = 66, 130
+    for S in (0.25, 0.0):
+        p = _params(ny, nx, "dirichlet", "neumann", S, 6.0).replace(dtype=dtype)
+        ids = list(range(B)) if B < 3 else [B - 1, 0, 1]
+        taus = np.array([TAU * (1 + 0.1 * b) for b in range(B)], dtype)
+        fu = [0.01 * (b + 1) for b in range(B)]
+        x, k1, ka, k4 = _member_shards(gen, B, sy, sx, ny, nx, dtype, cuda_device, 4)
+        for k in range(sy * sx):
+            i, j = divmod(k, sx)
+            shard = [(A.blocks[k], C.blocks[k]) for A, C in (x, k1, ka, k4)]
+            ny_l, nx_l = shard[0][0].shape[-2:]
+            halo = Halo(*(None if not on else torch.randn((B, 2, 2, n), dtype=getattr(torch, dtype),
+                                                          device=cuda_device)
+                          for on, n in zip(axes, (nx_l, ny_l))), topo.shard_edges(i, j))
+            for stage in (1, 2, 3, 4, 5):
+                states = shard[:cuda_rhs.MERSON_STATES[stage]]
+                if stage == 4:
+                    states = [shard[0], shard[1], shard[3]]
+                edges = cuda_rhs.member_edges(states[0][0], *axes)
+                _one_launch(cuda_rhs, "halo_edges_members", lambda: cuda_rhs.halo_edges_members(
+                    states, stage, taus, ids, edges))
+                plain = cuda_rhs.halo_edges_members_plain(
+                    states, stage, taus, ids, cuda_rhs.member_edges(states[0][0], *axes))
+                for b in ids:
+                    w = cuda_rhs.merson_stage_weights(stage, taus[b])
+                    mine = [(F[b].contiguous(), U[b].contiguous()) for F, U in states]
+                    want = cuda_rhs.halo_edges(mine, w, *axes)
+                    for e, pe, we in zip(edges, plain, want):
+                        if we is not None:
+                            assert torch.equal(e[b], we) and torch.equal(pe[b], we), (stage, b)
+                if stage == 5:
+                    out = (torch.randn_like(x[0].blocks[k]), torch.randn_like(x[0].blocks[k]))
+                    keep = tuple(t.clone() for t in out)
+                    emax = torch.zeros((B, 2), dtype=out[0].dtype, device=cuda_device)
+                    fold = cuda_rhs.member_edges(states[0][0], *axes)
+                    _one_launch(cuda_rhs, "rkm_final_stage_members",
+                                lambda: cuda_rhs.rkm_final_stage_members(
+                                    *states, taus, p, halo, fu, ids, out, emax, fold))
+                    pl = cuda_rhs.rkm_final_stage_members_plain(
+                        *states, taus, p, halo, fu, ids, None, None,
+                        cuda_rhs.member_edges(states[0][0], *axes))
+                    for b in range(B):
+                        if b not in ids:
+                            assert torch.equal(out[0][b], keep[0][b])
+                            continue
+                        mine = [(F[b].contiguous(), U[b].contiguous()) for F, U in states]
+                        want = cuda_rhs.rkm_final_stage(*mine, taus[b], p, fu[b], 0.0,
+                                                        halo.member(b),
+                                                        cuda_rhs.Fold((1.0,), *axes))
+                        assert _same((out[0][b], out[1][b], emax[b]), want[:3]), b
+                        assert _same((out[0][b], out[1][b], emax[b]),
+                                     (pl[0][b], pl[1][b], pl[2][b])), b
+                        for e, we in zip(fold, want[3]):
+                            if we is not None:
+                                assert torch.equal(e[b], we)
+                    continue
+                out = (torch.randn_like(x[0].blocks[k]), torch.randn_like(x[0].blocks[k]))
+                keep = tuple(t.clone() for t in out)
+                fold = cuda_rhs.member_edges(states[0][0], *axes)
+                _one_launch(cuda_rhs, "blend_rhs_sharded_members",
+                            lambda: cuda_rhs.blend_rhs_sharded_members(
+                                states, stage, taus, p, halo, fu, ids, out, fold))
+                pl = cuda_rhs.blend_rhs_sharded_members_plain(
+                    states, stage, taus, p, halo, fu, ids, None,
+                    cuda_rhs.member_edges(states[0][0], *axes))
+                for b in range(B):
+                    if b not in ids:
+                        assert torch.equal(out[0][b], keep[0][b])
+                        continue
+                    mine = [(F[b].contiguous(), U[b].contiguous()) for F, U in states]
+                    want = cuda_rhs.blend_rhs_sharded(
+                        mine, cuda_rhs.merson_stage_weights(stage, taus[b]), p, halo.member(b),
+                        fu[b], 0.0, fold=cuda_rhs.Fold(
+                            tuple(cuda_rhs.merson_stage_weights(stage + 1, taus[b])), *axes))
+                    assert _same((out[0][b], out[1][b]), want[:2]), (stage, b)
+                    assert _same((out[0][b], out[1][b]), (pl[0][b], pl[1][b])), (stage, b)
+                    for e, we in zip(fold, want[2]):
+                        if we is not None:
+                            assert torch.equal(e[b], we), (stage, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,dtype", [((2, 1), "float32"), ((1, 2), "float32"),
+                                        ((2, 2), "float32"), ((2, 1), "float64"),
+                                        ((2, 2), "float64"), ((8, 1), "float64")])
+def test_mesh_members_rkm_steps_equal_single_mesh_steps(mesh, dtype, cuda_device):  # noqa: F811
+    """The RKM ensemble on a mesh of the card (``make_ensemble_stepper(p,
+    mesh, topo)``): each member's step equals its single mesh stepper's bit
+    for bit (fields, t, iter, tau, attempts) through a retry and a frozen
+    member, on the whole-attempt route (y-meshes, float64) and the staged
+    one (float32 x and 2D meshes, thin float64 shards), each attempt one
+    launch per shard."""
+    import dataclasses
+
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.core.state import make_state, member, stack_states
+    from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
+    from bachelors_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from bachelors_tpu_torch.parallel.sharded import make_ensemble_stepper, make_sharded_stepper
+
+    sy, sx = mesh
+    p = SimParams(nx=128, ny=128 if sy < 8 else 32, L0=4.0, S=0.25, m0=6.0, dtype=dtype, dt=2e-5,
+                  solver=SolverType.EXPLICIT_RK4_ADAPTIVE, T_tolerance=1e-6,
+                  Phi_tolerance=1e-6, do_stats=True)
+    ic = InitialConditions(circle_center=(2.0, 2.0), circle_radius=0.5, noise_T=0.05)
+    m, topo = make_mesh(sy, sx, [cuda_device] * (sy * sx))
+    singles = [shard_state(make_state(*make_initial_fields(p, dataclasses.replace(
+        ic, noise_seed=b), device=cuda_device), p, device=cuda_device), m, topo)
+        for b in range(3)]
+    ens = shard_state(stack_states([s.replace(F=s.F.gather(), U=s.U.gather())
+                                    for s in singles]), m, topo)
+    step, one = make_ensemble_stepper(p, m, topo), make_sharded_stepper(p, m, topo)
+    retried = False
+    for k in range(4):
+        live = np.array([True, False, True]) if k == 2 else None
+        cuda_rhs.reset_launch_counts()
+        ens, stats = step(ens, live)
+        launched = {key: v for key, v in cuda_rhs.LAUNCHES.items() if v}
+        assert launched and all(key.endswith("_members") or "members_" in key
+                                for key in launched), launched
+        attempt = [v for key, v in launched.items() if key.startswith("rkm_")]
+        assert attempt == [step.rounds * sy * sx], launched
+        for b in range(3):
+            if live is not None and not live[b]:
+                continue
+            singles[b], s1 = one(singles[b])
+            mb = member(ens, b)
+            assert torch.equal(mb.F.gather(), singles[b].F.gather()), (k, b)
+            assert torch.equal(mb.U.gather(), singles[b].U.gather()), (k, b)
+            assert (mb.t, mb.iter, mb.tau) == (singles[b].t, singles[b].iter, singles[b].tau)
+            assert stats.member(b).attempts == s1.attempts
+            retried |= s1.attempts > 1
+    assert retried

@@ -206,8 +206,9 @@ def test_resume_continues_the_run(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("[tpu]\nbatch_shards", "2", "ensembles"),
-    ("[tpu]\nensemble", "4\nshards_y = 2", "ensembles on a mesh"),
+    ("[tpu]\nensemble", "4\nshards_y = 2\n[simulation]\nsolver = explicit-rk4",
+     "ensembles on a spatial mesh"),
+    ("[tpu]\nensemble", "4\nshards_x = 2\n[simulation]\nsolver = semi-implicit", "item 7e"),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),
     ("[snapshot]\nnetcdf", "true", "netcdf"),
@@ -274,10 +275,34 @@ def _rk4_members_runs(tmp_path, monkeypatch):
         np.testing.assert_array_equal(members.maps[f"U_m{b:03d}"], last.maps["U"])
 
 
-@pytest.mark.parametrize("case", ["debug", "item 7d"])
+def _mesh_members_runs(tmp_path, monkeypatch, extra):
+    """An RKM ensemble on a mesh, or an ensemble in ``batch_shards`` groups,
+    which raised before item 7c: config.ini at 64^2 (float64) with
+    ``ensemble = 4``, noise and ``extra``, on four CPU devices, each frame
+    and members file equal to the one-device ensemble's bit for bit."""
+    ens = ["[tpu]\nensemble = 4\n", "[initial]\nnoise_T = 0.02\n"]
+    mesh = run_config_file(CONFIG, _overrides(tmp_path / "mesh") + ens + [extra],
+                           device=["cpu"] * 4)
+    one = run_config_file(CONFIG, _overrides(tmp_path / "one") + ens, device="cpu")
+    a, b = _frames(mesh), _frames(one)
+    assert list(a) == list(b) and "members_0002.bin" in a
+    for f in a:
+        assert (a[f].time, a[f].iter) == (b[f].time, b[f].iter)
+        for k in b[f].maps:
+            np.testing.assert_array_equal(a[f].maps[k], b[f].maps[k])
+
+
+@pytest.mark.parametrize("case", ["debug", "item 7d", "item 7c: 2x2 mesh",
+                                  "item 7c: y(2) x 2 groups"])
 def test_keys_that_raised_now_run(tmp_path, monkeypatch, case):
-    """The two cases ``test_unported_keys_raise`` held until their modules
-    were ported: each now runs and matches its single run."""
+    """The cases ``test_unported_keys_raise`` held until their modules
+    were ported: each now runs and matches its single (or one-device)
+    run."""
+    if case.startswith("item 7c"):
+        extra = ("[tpu]\nshards_y = 2\nshards_x = 2\n" if "2x2" in case
+                 else "[tpu]\nshards_y = 2\nbatch_shards = 2\n")
+        _mesh_members_runs(tmp_path, monkeypatch, extra)
+        return
     {"debug": _debug_runs, "item 7d": _rk4_members_runs}[case](tmp_path, monkeypatch)
 
 

@@ -526,8 +526,13 @@ def test_ensemble_member_equals_single_run_with_its_seed(tmp_path, monkeypatch):
     # members, tests/test_torch_rk4_members.py)
     ("[simulation]\nsolver = semi-implicit\n", None),
     ("[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\nmesh_size_y = 2048\n", None),
-    ("[tpu]\nshards_y = 2\n", "item 7c"),
-    ("[tpu]\nbatch_shards = 2\n", "item 7c"),
+    # on a spatial mesh an ensemble runs RKM and the exact solver
+    # (tests/test_torch_ensemble_mesh.py); Euler, RK4 and semi-implicit wait
+    # for their mesh kernels over members (item 7e)
+    ("[tpu]\nshards_y = 2\n", "item 7e"),
+    # batch_shards alone splits the members into groups, each a one-device
+    # ensemble: every solver runs
+    ("[tpu]\nbatch_shards = 2\n", None),
 ])
 def test_unsupported_ensembles_raise_with_their_roadmap_item(extra, match):
     cfg = parse_config(_text(), [extra])
