@@ -104,7 +104,7 @@ def check_supported(cfg: SimConfig) -> None:
                          f"by batch_shards={cfg.batch_shards}")
     todo = []
     if (cfg.ensemble > 1 and cfg.shards_y * cfg.shards_x > 1
-            and cfg.params.solver not in (SolverType.EXPLICIT_RK4_ADAPTIVE, SolverType.EXACT)):
+            and cfg.params.solver == SolverType.SEMI_IMPLICIT):
         todo.append(f"[tpu] {MESH_MEMBERS_TODO}")
     if cfg.multihost:
         todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")

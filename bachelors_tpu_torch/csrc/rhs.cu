@@ -456,6 +456,22 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 // members the launch steps, and each member's blocks run the unbatched
 // kernel's body on its own (ny, nx) slice, bit for bit.
 
+// Launch member z's Halo and Fold: its ghosts and edges in the member-major
+// buffers (2 sides x 2 fields of n values a member).
+template <class Real>
+__device__ __forceinline__ Halo<Real> member_halo(Halo<Real> h, int id, int ny, int nx) {
+  if (h.rows != nullptr) h.rows += size_t(id) * 4 * nx;
+  if (h.cols != nullptr) h.cols += size_t(id) * 4 * ny;
+  return h;
+}
+
+template <class Real>
+__device__ __forceinline__ Fold<Real> member_fold(Fold<Real> fo, int id, int ny, int nx) {
+  if (fo.rows != nullptr) fo.rows += size_t(id) * 4 * nx;
+  if (fo.cols != nullptr) fo.cols += size_t(id) * 4 * ny;
+  return fo;
+}
+
 // K1 over members: the same weights for all (Euler and RK4 have a fixed
 // dt), each member's forcing its own.  Bound like K1, B times the bytes.
 template <int NS, bool ISO, class Real>
@@ -521,23 +537,30 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 }
 
 // K4 over members (a = {x, k3} stacked, k1 and k2 too): dt shared, each
-// member's forcing its own.  Bound like K4, B times the bytes.
-template <bool ISO, class Real>
+// member's forcing its own.  Bound like K4, B times the bytes.  With
+// member-major ghosts (`h`, those of each member's blend [x, k3]), K12.4
+// over members on a shard, as K12.4 is K4 on a shard: launch member z
+// reads its ghosts and, in the FOLD instantiation, writes its output's own
+// edges (fo.m = 0) into its rows of the member-major edge buffers; on one
+// device h is the whole grid and there is no fold.
+template <bool ISO, bool FOLD, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     rk4_final_members_kernel(BlendArgs<Real> a, const Real* __restrict__ k1F,
                              const Real* __restrict__ k1U, const Real* __restrict__ k2F,
                              const Real* __restrict__ k2U, Real* __restrict__ outF,
                              Real* __restrict__ outU, int ny, int nx, Real c6, Real d,
-                             const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+                             Halo<Real> h, Fold<Real> fo, const __grid_constant__ Members<Real> m,
+                             PhysParams<Real> P) {
+  const int id = m.id[blockIdx.z];
   const size_t off = member_offset(m, blockIdx.z, ny, nx);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     a.F[k] += off;
     a.U[k] += off;
   }
-  rk4_final_block<ISO, false>(a, k1F + off, k1U + off, k2F + off, k2U + off, outF + off,
-                              outU + off, ny, nx, c6, d, m.fu[blockIdx.z], whole_grid<Real>(),
-                              no_fold<Real>(), P);
+  rk4_final_block<ISO, FOLD>(a, k1F + off, k1U + off, k2F + off, k2U + off, outF + off,
+                             outU + off, ny, nx, c6, d, m.fu[blockIdx.z],
+                             member_halo(h, id, ny, nx), member_fold(fo, id, ny, nx), P);
 }
 
 // ------------------------------------------------- K5, K12.1's ghost gather ----
@@ -1430,22 +1453,6 @@ __device__ __forceinline__ void merson_weights(int s, Real tau, Real* w) {
   }
 }
 
-// Launch member z's Halo and Fold: its ghosts and edges in the member-major
-// buffers (2 sides x 2 fields of n values a member).
-template <class Real>
-__device__ __forceinline__ Halo<Real> member_halo(Halo<Real> h, int id, int ny, int nx) {
-  if (h.rows != nullptr) h.rows += size_t(id) * 4 * nx;
-  if (h.cols != nullptr) h.cols += size_t(id) * 4 * ny;
-  return h;
-}
-
-template <class Real>
-__device__ __forceinline__ Fold<Real> member_fold(Fold<Real> fo, int id, int ny, int nx) {
-  if (fo.rows != nullptr) fo.rows += size_t(id) * 4 * nx;
-  if (fo.cols != nullptr) fo.cols += size_t(id) * 4 * ny;
-  return fo;
-}
-
 // The K2 twin over members (K12.2 at float32 on a y-mesh shard, the K13 twin
 // at float64 on any shard): one Merson attempt of each launch member on its
 // own block, from its own apron (`ap`'s ghosts at member id[z]: rows_stride
@@ -1470,19 +1477,42 @@ __global__ void __launch_bounds__(K2Block<Real, ISO>::kThreads,
                               partials + 2 * tiles * z, ap, ny, nx, m.tau[z], d, m.fu[z], P);
 }
 
-// K12.1 over members: Merson's stage s (1..4) on a shard, the blend of
-// a's first NS states at the stage's weights at each member's tau, its
-// seams from the member's ghosts; with FOLD it writes the member's edges of
-// stage s + 1's blend (its first fo.m input states, then its output, at
-// that stage's weights), as K12.1 with the same weights would.  Dirichlet
-// value 0, as the mesh Merson step pads.  Bound like K12.1, B times the
-// bytes.
+// The K3 twin over members (K12.6 at float32 on a y-mesh shard, the K13
+// twin at float64 on any shard): one RK4 step of each launch member on its
+// own block from its own apron (`ap`'s ghosts at member id[z]: rows_stride
+// and cols_stride values a member), as K3 over members is to K3 and the K2
+// twin over members to K12.2.  Bound like K12.6 (the K13 twin), B times the
+// work.
+template <bool ISO, class Real>
+__global__ void __launch_bounds__(kTileThreads)
+    rk4_full_members_apron_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
+                                  Real* __restrict__ outF, Real* __restrict__ outU,
+                                  Apron<Real> ap, size_t rows_stride, size_t cols_stride, int ny,
+                                  int nx, Real h, Real dt, Real c6, Real d,
+                                  const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+  const int z = blockIdx.z, id = m.id[z];
+  const size_t off = member_offset(m, z, ap.ny_l, ap.nx_l);
+  if (ap.rows != nullptr) ap.rows += id * rows_stride;
+  if (ap.cols != nullptr) ap.cols += id * cols_stride;
+  rk4_full_tile<true, ISO>(F + off, U + off, outF + off, outU + off, ap, ny, nx, h, dt, c6, d,
+                           m.fu[z], P);
+}
+
+// K12.1 over members: a stage on a shard, the blend of a's first NS
+// states, its seams from each member's ghosts, and with FOLD the member's
+// edges of the next stage's blend (its first fo.m input states, then its
+// output), as K12.1 with the same weights would.  Stage s (1..4): Merson's,
+// its weights and the next stage's at each member's tau (the RKM
+// ensembles).  Stage 0: the weights in a.w and fo.w as given, the same for
+// every member (Euler and RK4 take a fixed dt), in rhs mode or, with
+// is_euler, K12.3's euler mode.  Dirichlet value 0, as the mesh steps pad.
+// Bound like K12.1, B times the bytes.
 template <int NS, bool ISO, bool FOLD, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
-    merson_stage_members_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
-                                Real* __restrict__ outU, int ny, int nx, int stage,
-                                Halo<Real> h, Fold<Real> fo,
-                                const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
+    blend_rhs_halo_members_kernel(BlendArgs<Real> a, Real* __restrict__ outF,
+                                  Real* __restrict__ outU, int ny, int nx, int stage,
+                                  int is_euler, Halo<Real> h, Fold<Real> fo,
+                                  const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
   const int z = blockIdx.z, id = m.id[z];
   const size_t off = member_offset(m, z, ny, nx);
 #pragma unroll
@@ -1490,9 +1520,11 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     a.F[k] += off;
     a.U[k] += off;
   }
-  merson_weights(stage, m.tau[z], a.w + 1);
-  if (FOLD) merson_weights(stage + 1, m.tau[z], fo.w + 1);
-  blend_rhs_block<NS, ISO, FOLD>(a, outF + off, outU + off, ny, nx, Real(0), m.fu[z], 0,
+  if (stage > 0) {
+    merson_weights(stage, m.tau[z], a.w + 1);
+    if (FOLD) merson_weights(stage + 1, m.tau[z], fo.w + 1);
+  }
+  blend_rhs_block<NS, ISO, FOLD>(a, outF + off, outU + off, ny, nx, Real(0), m.fu[z], is_euler,
                                  member_halo(h, id, ny, nx), member_fold(fo, id, ny, nx), P);
 }
 
@@ -1890,22 +1922,30 @@ int blend_rhs_members(const S* F0, const S* U0, const S* F1, const S* U1, const 
   return int(cudaGetLastError());
 }
 
-// K4 over members: the isotropic instantiation when S = 0
+// K4 over members (h = whole_grid, no fold) or, with member-major ghosts,
+// K12.4 over members on a shard, each member's output edges into its rows
+// of fold_rows/fold_cols unless null; the isotropic instantiation when S = 0
 template <class S>
 int rk4_final_members(const S* xF, const S* xU, const S* k1F, const S* k1U, const S* k2F,
                       const S* k2U, const S* k3F, const S* k3U, S* outF, S* outU, int ny,
-                      int nx, S dt, S c6, S d, const bt::Members<Ar<S>>* m, int count,
-                      const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+                      int nx, S dt, S c6, S d, bt::Halo<Ar<S>> h, S* fold_rows, S* fold_cols,
+                      const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
+                      cudaStream_t stream) {
   using R = Ar<S>;
   if (!members_ok(count)) return int(cudaErrorInvalidValue);
   bt::BlendArgs<R> a{{ar(xF), ar(k3F), nullptr, nullptr}, {ar(xU), ar(k3U), nullptr, nullptr},
                      {R(1), R(dt), R(0), R(0)}};
+  const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, 0, S(0), S(0), S(0));
   dim3 grid = k1_grid(ny, nx);
   grid.z = count;
-  auto kernel = is_zero(P->S) ? bt::rk4_final_members_kernel<true, R>
-                              : bt::rk4_final_members_kernel<false, R>;
+  const bool iso = is_zero(P->S), fold = fold_rows != nullptr || fold_cols != nullptr;
+  auto kernel = iso ? (fold ? bt::rk4_final_members_kernel<true, true, R>
+                            : bt::rk4_final_members_kernel<true, false, R>)
+                    : (fold ? bt::rk4_final_members_kernel<false, true, R>
+                            : bt::rk4_final_members_kernel<false, false, R>);
   kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(
-      a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU), ny, nx, R(c6), R(d), *m, *P);
+      a, ar(k1F), ar(k1U), ar(k2F), ar(k2U), ar(outF), ar(outU), ny, nx, R(c6), R(d), h, fo, *m,
+      *P);
   return int(cudaGetLastError());
 }
 
@@ -2027,43 +2067,101 @@ int rkm_attempt_members_apron(const S* F, const S* U, S* outF, S* outU, S* parti
   return on(F, U, outF, outU, partials, err, ap, ny, nx, d, m, count, P, stream);
 }
 
-// K12.1 over members at Merson stage `stage` (1..4): the isotropic
-// instantiation when S = 0, the folding one when fold_rows or fold_cols is
-// set
+// K12.1 over members (K12.3 with is_euler): the isotropic instantiation
+// when S = 0, the folding one when fo has edge buffers; stage 1..4 forms
+// each member's Merson weights on the card, stage 0 takes a's and fo's
 template <int NS, class R>
-void merson_stage_members_for(const bt::BlendArgs<R>& a, R* outF, R* outU, int ny, int nx,
-                              int stage, const bt::Halo<R>& h, const bt::Fold<R>& fo,
-                              const bt::Members<R>& m, int count, const PhysParams<R>& P,
-                              cudaStream_t stream) {
+void blend_rhs_halo_members_for(const bt::BlendArgs<R>& a, R* outF, R* outU, int ny, int nx,
+                                int stage, int is_euler, const bt::Halo<R>& h,
+                                const bt::Fold<R>& fo, const bt::Members<R>& m, int count,
+                                const PhysParams<R>& P, cudaStream_t stream) {
   dim3 grid = k1_grid(ny, nx);
   grid.z = count;
   const bool iso = is_zero(P.S), fold = fo.rows != nullptr || fo.cols != nullptr;
-  auto kernel = iso ? (fold ? bt::merson_stage_members_kernel<NS, true, true, R>
-                            : bt::merson_stage_members_kernel<NS, true, false, R>)
-                    : (fold ? bt::merson_stage_members_kernel<NS, false, true, R>
-                            : bt::merson_stage_members_kernel<NS, false, false, R>);
+  auto kernel = iso ? (fold ? bt::blend_rhs_halo_members_kernel<NS, true, true, R>
+                            : bt::blend_rhs_halo_members_kernel<NS, true, false, R>)
+                    : (fold ? bt::blend_rhs_halo_members_kernel<NS, false, true, R>
+                            : bt::blend_rhs_halo_members_kernel<NS, false, false, R>);
   kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(a, outF, outU, ny, nx, stage,
-                                                                   h, fo, m, P);
+                                                                   is_euler, h, fo, m, P);
 }
 
+template <class R>
+int blend_rhs_halo_members(const bt::BlendArgs<R>& a, int n_states, R* outF, R* outU, int ny,
+                           int nx, int stage, int is_euler, const bt::Halo<R>& h,
+                           const bt::Fold<R>& fo, const bt::Members<R>* m, int count,
+                           const PhysParams<R>* P, cudaStream_t stream) {
+  if (!members_ok(count) || fo.m < 0 || fo.m > n_states) return int(cudaErrorInvalidValue);
+  switch (n_states) {
+    case 1: blend_rhs_halo_members_for<1>(a, outF, outU, ny, nx, stage, is_euler, h, fo, *m, count, *P, stream); break;
+    case 2: blend_rhs_halo_members_for<2>(a, outF, outU, ny, nx, stage, is_euler, h, fo, *m, count, *P, stream); break;
+    case 3: blend_rhs_halo_members_for<3>(a, outF, outU, ny, nx, stage, is_euler, h, fo, *m, count, *P, stream); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(cudaGetLastError());
+}
+
+// K12.1 over members at Merson stage `stage` (1..4)
 template <class S>
 int merson_stage_members(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
                          const S* U2, int stage, S* outF, S* outU, int ny, int nx,
                          bt::Halo<Ar<S>> h, S* fold_rows, S* fold_cols,
                          const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
                          cudaStream_t stream) {
+  if (stage < 1 || stage > 4) return int(cudaErrorInvalidValue);
+  const auto a = blend_args(F0, U0, F1, U1, F2, U2, static_cast<const S*>(nullptr),
+                            static_cast<const S*>(nullptr), S(0), S(0), S(0));
+  const auto fo = fold_of<S>(fold_rows, fold_cols, merson_fold_prefix(stage), S(0), S(0), S(0));
+  return blend_rhs_halo_members(a, merson_states(stage), ar(outF), ar(outU), ny, nx, stage, 0,
+                                h, fo, m, count, P, stream);
+}
+
+// K12.1 (K12.3 with is_euler) over members at weights {1, w1, w2} that
+// every member shares, and with a fold the next blend's first fold_m
+// states, then the output, at {1, fw1, fw2}
+template <class S>
+int blend_rhs_halo_members_at(const S* F0, const S* U0, const S* F1, const S* U1, const S* F2,
+                              const S* U2, int n_states, S w1, S w2, S* outF, S* outU, int ny,
+                              int nx, int is_euler, bt::Halo<Ar<S>> h, int fold_m, S fw1, S fw2,
+                              S* fold_rows, S* fold_cols, const bt::Members<Ar<S>>* m, int count,
+                              const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  const auto a = blend_args(F0, U0, F1, U1, F2, U2, static_cast<const S*>(nullptr),
+                            static_cast<const S*>(nullptr), w1, w2, S(0));
+  const auto fo = fold_of<S>(fold_rows, fold_cols, fold_m, fw1, fw2, S(0));
+  return blend_rhs_halo_members(a, n_states, ar(outF), ar(outU), ny, nx, 0, is_euler, h, fo, m,
+                                count, P, stream);
+}
+
+// The K3 twin over members on a shard with its member-major apron: the
+// isotropic instantiation when S = 0
+template <class S, bool ISO>
+int rk4_full_members_apron_on(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap,
+                              int ny, int nx, S h, S dt, S c6, S d, const bt::Members<Ar<S>>* m,
+                              int count, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
-  if (!members_ok(count) || stage < 1 || stage > 4) return int(cudaErrorInvalidValue);
-  const bt::BlendArgs<R> a = blend_args(F0, U0, F1, U1, F2, U2, static_cast<const S*>(nullptr),
-                                        static_cast<const S*>(nullptr), S(0), S(0), S(0));
-  const bt::Fold<R> fo = fold_of<S>(fold_rows, fold_cols, merson_fold_prefix(stage), S(0), S(0),
-                                    S(0));
-  switch (merson_states(stage)) {
-    case 1: merson_stage_members_for<1>(a, ar(outF), ar(outU), ny, nx, stage, h, fo, *m, count, *P, stream); break;
-    case 2: merson_stage_members_for<2>(a, ar(outF), ar(outU), ny, nx, stage, h, fo, *m, count, *P, stream); break;
-    default: merson_stage_members_for<3>(a, ar(outF), ar(outU), ny, nx, stage, h, fo, *m, count, *P, stream); break;
-  }
+  constexpr int A = bt::kK3Apron;
+  constexpr int smem = int(sizeof(bt::Rk4Smem<R>));
+  static const cudaError_t attr = allow_smem(bt::rk4_full_members_apron_kernel<ISO, R>, smem);
+  if (attr != cudaSuccess) return int(attr);
+  const size_t row_w = ap.cols != nullptr ? size_t(ap.nx_l) + 2 * A : size_t(ap.nx_l);
+  const size_t rows_stride = 4 * A * row_w, cols_stride = size_t(4) * ap.ny_l * A;
+  dim3 grid = tile_grid(ap.ny_l, ap.nx_l);
+  grid.z = count;
+  bt::rk4_full_members_apron_kernel<ISO><<<grid, bt::kTileThreads, smem, stream>>>(
+      ar(F), ar(U), ar(outF), ar(outU), ap, rows_stride, cols_stride, ny, nx, R(h), R(dt),
+      R(c6), R(d), *m, *P);
   return int(cudaGetLastError());
+}
+
+template <class S>
+int rk4_full_members_apron(const S* F, const S* U, S* outF, S* outU, bt::Apron<Ar<S>> ap,
+                           int ny, int nx, S h, S dt, S c6, S d, const bt::Members<Ar<S>>* m,
+                           int count, const PhysParams<Ar<S>>* P, cudaStream_t stream) {
+  if (!members_ok(count) || (ap.rows == nullptr && ap.cols == nullptr))
+    return int(cudaErrorInvalidValue);
+  auto on = is_zero(P->S) ? rk4_full_members_apron_on<S, true>
+                          : rk4_full_members_apron_on<S, false>;
+  return on(F, U, outF, outU, ap, ny, nx, h, dt, c6, d, m, count, P, stream);
 }
 
 // K5 over members: the isotropic instantiation when S = 0; `scratch` holds
@@ -2278,7 +2376,8 @@ int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const
                                  S c6, S d, const bt::Members<Ar<S>>* m, int count,    \
                                  const PhysParams<Ar<S>>* P, cudaStream_t stream) {    \
     return rk4_final_members<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny,  \
-                                nx, dt, c6, d, m, count, P, stream);                   \
+                                nx, dt, c6, d, bt::whole_grid<Ar<S>>(), nullptr,       \
+                                nullptr, m, count, P, stream);                         \
   }                                                                                     \
   int bt_rkm_attempt_members_##SFX(const S* F, const S* U, S* outF, S* outU,           \
                                    S* partials, S* err, int ny, int nx, S d,           \
@@ -2317,7 +2416,19 @@ int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const
 //      each launch leaves it at 0); the update's edges into
 //      fold_rows/fold_cols unless null.
 //   K12.1 ghost gather bt_halo_edges_members: the edges of stage `stage`'s
-//      blend (1..5 states: x; x, k1; ...; x, k1, k3, k4).
+//      blend (1..5 states: x; x, k1; ...; x, k1, k3, k4); stage 1, the
+//      state itself at weight 1, is also the Euler and RK4 steps' gather,
+//      and needs no tau.
+// The Euler and RK4 ensembles' kernels, whose weights every member shares
+// (a fixed dt), at Dirichlet value 0:
+//   K12.1 / K12.3 bt_blend_rhs_halo_members: K12.1 (K12.3 with is_euler)
+//      on each member, the blend of n_states (1..3) states at {1, w1, w2};
+//      unless fold_rows and fold_cols are both null, the edges of the next
+//      blend, its first fold_m (0..n_states) states and then the output at
+//      {1, fw1, fw2}.
+//   K12.4 bt_rk4_final_halo_members: K4 on each member with its ghosts (of
+//      the blend [x, k3]); its output's edges into fold_rows/fold_cols
+//      unless null.
 #define BT_MESH_MEMBERS_ENTRIES(SFX, S)                                                     \
   int bt_merson_stage_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,    \
                                     const S* F2, const S* U2, int stage, S* outF, S* outU, \
@@ -2337,6 +2448,30 @@ int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const
                                  const PhysParams<Ar<S>>* P, cudaStream_t stream) {        \
     return rkm_final_members<S>(xF, xU, k1F, k1U, k3F, k3U, k4F, k4U, outF, outU, scratch, \
                                 err, ny, nx, halo_of(rows, cols, edges), fold_rows,        \
+                                fold_cols, m, count, P, stream);                           \
+  }                                                                                         \
+  int bt_blend_rhs_halo_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,  \
+                                      const S* F2, const S* U2, int n_states, S w1, S w2,  \
+                                      S* outF, S* outU, int ny, int nx, int is_euler,      \
+                                      const S* rows, const S* cols, int edges, int fold_m, \
+                                      S fw1, S fw2, S* fold_rows, S* fold_cols,            \
+                                      const bt::Members<Ar<S>>* m, int count,              \
+                                      const PhysParams<Ar<S>>* P, cudaStream_t stream) {   \
+    return blend_rhs_halo_members_at<S>(F0, U0, F1, U1, F2, U2, n_states, w1, w2, outF,    \
+                                        outU, ny, nx, is_euler, halo_of(rows, cols, edges), \
+                                        fold_m, fw1, fw2, fold_rows, fold_cols, m, count,  \
+                                        P, stream);                                        \
+  }                                                                                         \
+  int bt_rk4_final_halo_members_##SFX(const S* xF, const S* xU, const S* k1F,              \
+                                      const S* k1U, const S* k2F, const S* k2U,            \
+                                      const S* k3F, const S* k3U, S* outF, S* outU,        \
+                                      int ny, int nx, S dt, S c6, S d, const S* rows,      \
+                                      const S* cols, int edges, S* fold_rows,              \
+                                      S* fold_cols, const bt::Members<Ar<S>>* m,           \
+                                      int count, const PhysParams<Ar<S>>* P,               \
+                                      cudaStream_t stream) {                               \
+    return rk4_final_members<S>(xF, xU, k1F, k1U, k2F, k2U, k3F, k3U, outF, outU, ny, nx,  \
+                                dt, c6, d, halo_of(rows, cols, edges), fold_rows,          \
                                 fold_cols, m, count, P, stream);                           \
   }                                                                                         \
   int bt_halo_edges_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,      \
@@ -2429,6 +2564,29 @@ int bt_rkm_attempt_members_apron_f64(const double* F, const double* U, double* o
   return rkm_attempt_members_apron<double>(F, U, outF, outU, partials, err,
                                            apron_of<double>(rows, cols, y0, ny_l, x0, nx_l), ny,
                                            nx, d, m, count, P, stream);
+}
+
+// The K3 twin over members on a shard: K12.6's (float32, y-mesh; slabs (B,
+// 2, 2, 4, nx)) and the K13 twin's (float64, any mesh; rows (B, 2, 2, 4,
+// W), cols (B, 2, 2, ny_l, 4)), `m` the launch's members, h, dt, c6 and d
+// shared and each member's forcing its own.
+int bt_rk4_full_members_slabs_f32(const float* F, const float* U, float* outF, float* outU,
+                                  const float* slabs, int y0, int ny_l, int ny, int nx, float h,
+                                  float dt, float c6, float d, const bt::Members<float>* m,
+                                  int count, const PhysParams<float>* P, cudaStream_t stream) {
+  return rk4_full_members_apron<float>(F, U, outF, outU,
+                                       apron_of<float>(slabs, nullptr, y0, ny_l, 0, nx), ny, nx,
+                                       h, dt, c6, d, m, count, P, stream);
+}
+
+int bt_rk4_full_members_apron_f64(const double* F, const double* U, double* outF, double* outU,
+                                  const double* rows, const double* cols, int y0, int ny_l,
+                                  int x0, int nx_l, int ny, int nx, double h, double dt,
+                                  double c6, double d, const bt::Members<bt::Rn>* m, int count,
+                                  const PhysParams<bt::Rn>* P, cudaStream_t stream) {
+  return rk4_full_members_apron<double>(F, U, outF, outU,
+                                        apron_of<double>(rows, cols, y0, ny_l, x0, nx_l), ny,
+                                        nx, h, dt, c6, d, m, count, P, stream);
 }
 
 int bt_euler_steps_apron_f64(const double* F, const double* U, double* outF, double* outU,

@@ -65,6 +65,15 @@ kernels are hand-written in CUDA C++ for Hopper (``csrc/rhs.cu``, built by
     ``parallel/topology.Topology.apron``; ``pallas_dd.py``'s
     ``*_dd_pair_sharded`` :1171-1198 on ``_dd_ghosts`` :1148).
 
+Over an ensemble's members on a mesh (member-major shards and ghosts, one
+launch per shard for the members it steps): K12.1 at a Merson stage
+(``blend_rhs_sharded_members``) or at weights every member shares
+(``blend_rhs_sharded_members_fixed``, its euler mode K12.3 over members),
+K12.4 (``rk4_final_stage_members`` with a ``halo``), K5
+(``rkm_final_stage_members``), the ghost gather (``halo_edges_members``),
+and the K2 and K3 twins (``rkm_attempt_members_sharded``,
+``rk4_full_members_sharded``).
+
 The mesh kernels with a ``Halo`` (K5, K12.1, K12.3, K12.4, K12.7) run at
 both dtypes; the tile kernels on a shard run at float32 on y-meshes (the
 slab twins; float32 x and 2D meshes take the staged routes, as the JAX
@@ -126,7 +135,9 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "si_prepare_members": 0, "rk4_full_members": 0,
             "rkm_attempt_members_sharded": 0, "rkm_attempt_members_apron": 0,
             "blend_rhs_sharded_members": 0, "rkm_final_stage_members": 0,
-            "halo_edges_members": 0}
+            "halo_edges_members": 0, "blend_rhs_sharded_members_fixed": 0,
+            "blend_rhs_sharded_members_euler": 0, "rk4_final_stage_members_sharded": 0,
+            "rk4_full_members_sharded": 0, "rk4_full_members_apron": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -376,12 +387,21 @@ def blend_rhs_members_plain(states: Sequence[Pair], weights: Sequence, p: SimPar
 
 
 def rk4_final_stage_members_plain(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
-                                  fu=0.0, dirichlet_value=0.0, ids=None, out=None) -> Pair:
-    """``rk4_final_stage_plain`` on each member of ``ids``, into ``out``."""
+                                  fu=0.0, dirichlet_value=0.0, ids=None, out=None,
+                                  halo: Halo = None, edges=None) -> Pair:
+    """``rk4_final_stage_plain`` on each member of ``ids``, into ``out``;
+    with a member-major ``halo`` on one shard of a mesh, each member padded
+    from its ghosts, and with ``edges`` (``member_edges`` buffers) each
+    member's output edges into its rows."""
     oF, oU = _member_outputs(x[0], out)
+    fold = None if edges is None else Fold((1.0,), edges[0] is not None, edges[1] is not None)
     for b in member_ids(oF.shape[0], ids):
-        oF[b], oU[b] = rk4_final_stage_plain(*[(A[b], B[b]) for A, B in (x, k1, k2, k3)], p,
-                                             per_member(fu, b), dirichlet_value)
+        res = rk4_final_stage_plain(*[(A[b], B[b]) for A, B in (x, k1, k2, k3)], p,
+                                    per_member(fu, b), dirichlet_value,
+                                    None if halo is None else halo.member(b), fold)
+        oF[b], oU[b] = res[:2]
+        if edges is not None:
+            _write_edges(edges, b, res[2])
     return oF, oU
 
 
@@ -720,12 +740,47 @@ def rkm_final_stage_members_plain(x: Pair, k1: Pair, k3: Pair, k4: Pair, taus, p
 def halo_edges_members_plain(states: Sequence[Pair], stage: int, taus, ids=None, out=None):
     """``halo_edges_plain`` of Merson stage ``stage``'s blend (1..5) for
     each member of ``ids`` at its tau, into its rows of the member-major
-    buffers ``out`` = (rows, cols) (``member_edges``)."""
+    buffers ``out`` = (rows, cols) (``member_edges``).  Stage 1 is the
+    state itself at weight 1, the Euler and RK4 steps' gather too: it reads
+    no tau, and ``taus`` may be None."""
     for b in member_ids(states[0][0].shape[0], ids):
+        tau = None if taus is None else taus[b]
         _write_edges(out, b, halo_edges_plain([(F[b], U[b]) for F, U in states],
-                                              merson_stage_weights(stage, taus[b]),
+                                              merson_stage_weights(stage, tau),
                                               out[0] is not None, out[1] is not None))
     return out
+
+
+def blend_rhs_sharded_members_fixed_plain(states: Sequence[Pair], weights: Sequence,
+                                          p: SimParams, halo: Halo, fu=0.0,
+                                          is_euler: bool = False, ids=None, out=None, nxt=None,
+                                          edges=None) -> Pair:
+    """``blend_rhs_sharded_plain`` at ``weights``, the same for every
+    member (Euler and RK4 take a fixed dt), on each member of ``ids`` into
+    ``out``, in euler mode with ``is_euler``, at Dirichlet value 0; with
+    ``edges`` each member's edges of the next blend, ``states[:len(nxt) -
+    1]`` and then the output at ``nxt``, into its rows (``folded``)."""
+    oF, oU = _member_outputs(states[0][0], out)
+    fold = (None if edges is None
+            else Fold(tuple(nxt), edges[0] is not None, edges[1] is not None))
+    for b in member_ids(oF.shape[0], ids):
+        res = blend_rhs_sharded_plain([(F[b], U[b]) for F, U in states], weights, p,
+                                      halo.member(b), per_member(fu, b), 0.0, is_euler, fold)
+        oF[b], oU[b] = res[:2]
+        if edges is not None:
+            _write_edges(edges, b, res[2])
+    return oF, oU
+
+
+def rk4_full_members_sharded_plain(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams,
+                                   fu=0.0, dirichlet_value=0.0, ids=None, out=None) -> Pair:
+    """``rk4_full_sharded_plain`` for each member of ``ids`` from its apron
+    (``Apron.member``), into ``out``."""
+    oF, oU = _member_outputs(F, out)
+    for b in member_ids(F.shape[0], ids):
+        oF[b], oU[b] = rk4_full_sharded_plain(F[b], U[b], ap.member(b), p, per_member(fu, b),
+                                              dirichlet_value)
+    return oF, oU
 
 
 def rkm_attempt_members_sharded_plain(F: torch.Tensor, U: torch.Tensor, ap: Apron, taus,
@@ -874,20 +929,31 @@ _MEMBERS_ENTRIES = {
     "rk4_full_members": [_PTR] * 4 + [_INT, _INT] + [_REAL] * 4 + [_PTR, _INT, _PHYS_PTR, _PTR],
 }
 # The mesh kernels over members, on a shard's member-major blocks: K12.1 at
-# a Merson stage, K5 and the ghost gather at both dtypes, and the K2 twin --
-# K12.2's at float32, the K13 twin's at float64.
+# a Merson stage or at shared weights (K12.3 too), K12.4, K5 and the ghost
+# gather at both dtypes, and the K2 and K3 twins -- K12.2's and K12.6's at
+# float32, the K13 twins' at float64.
 _MESH_MEMBERS_ENTRIES = {
     "merson_stage_members": [_PTR] * 6 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR] * 2
     + [_INT] + [_PTR] * 2 + [_PTR, _INT, _PHYS_PTR, _PTR],
     "rkm_final_members": [_PTR] * 12 + [_INT] * 2 + [_PTR] * 2 + [_INT] + [_PTR] * 2
     + [_PTR, _INT, _PHYS_PTR, _PTR],
     "halo_edges_members": [_PTR] * 8 + [_INT] + [_PTR] * 2 + [_INT] * 2 + [_PTR, _INT, _PTR],
+    # the Euler and RK4 ensembles' kernels, at weights every member shares:
+    # K12.1 / K12.3 over members and K12.4 over members
+    "blend_rhs_halo_members": [_PTR] * 6 + [_INT] + [_REAL] * 2 + [_PTR] * 2 + [_INT] * 3
+    + [_PTR] * 2 + [_INT] * 2 + [_REAL] * 2 + [_PTR] * 2 + [_PTR, _INT, _PHYS_PTR, _PTR],
+    "rk4_final_halo_members": [_PTR] * 10 + [_INT] * 2 + [_REAL] * 3 + [_PTR] * 2 + [_INT]
+    + [_PTR] * 2 + [_PTR, _INT, _PHYS_PTR, _PTR],
 }
 _F32_MEMBERS_ENTRIES = {
     "rkm_attempt_members_slabs": [_PTR] * 7 + [_INT] * 4 + [_REAL, _PTR, _INT, _PHYS_PTR, _PTR],
+    "rk4_full_members_slabs": [_PTR] * 5 + [_INT] * 4 + [_REAL] * 4 + [_PTR, _INT, _PHYS_PTR,
+                                                                       _PTR],
 }
 _F64_MEMBERS_ENTRIES = {
     "rkm_attempt_members_apron": [_PTR] * 8 + [_INT] * 6 + [_REAL, _PTR, _INT, _PHYS_PTR, _PTR],
+    "rk4_full_members_apron": [_PTR] * 6 + [_INT] * 6 + [_REAL] * 4 + [_PTR, _INT, _PHYS_PTR,
+                                                                       _PTR],
 }
 # The sizes of the scratch buffers and of the tile kernels' shared memory
 _HELPERS = {"rkm_num_blocks": [_INT, _INT], "rkm_final_scratch": [],
@@ -1163,21 +1229,39 @@ def blend_rhs_members(states: Sequence[Pair], weights: Sequence, p: SimParams, f
 
 
 def rk4_final_stage_members(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams, fu=0.0,
-                            dirichlet_value=0.0, ids=None, out=None) -> Pair:
+                            dirichlet_value=0.0, ids=None, out=None, halo: Halo = None,
+                            edges=None) -> Pair:
     """K4 over the members ``ids`` of stacked states, one launch for up to
     MAX_MEMBERS of them, dt shared and ``fu`` per member: member b's rows
-    are ``rk4_final_stage`` of its fields, bit for bit, into ``out``."""
+    are ``rk4_final_stage`` of its fields, bit for bit, into ``out``.  With
+    a member-major ``halo`` (the ghosts of each member's blend [x, k3]),
+    K12.4 over members on a shard's (B, ny_l, nx_l) blocks, counted as
+    ``rk4_final_stage_members_sharded``, and with ``edges``
+    (``member_edges`` buffers) each member's output edges into its rows,
+    the next step's first ghosts: member b's rows are ``rk4_final_stage``
+    of its fields with ``halo.member(b)`` and a fold at (1,) bit for bit."""
     if not _on_cuda(x[0], "rk4_final_stage_members"):
-        return rk4_final_stage_members_plain(x, k1, k2, k3, p, fu, dirichlet_value, ids, out)
+        return rk4_final_stage_members_plain(x, k1, k2, k3, p, fu, dirichlet_value, ids, out,
+                                             halo, edges)
     B = x[0].shape[0]
     oF, oU = _member_outputs(x[0], out)
     fields = [*x, *k1, *k2, *k3]
-    dtype, index = _check_members(p, B, fields + [oF, oU])
-    for m, count in _member_launches(dtype, member_ids(B, ids), None, fu):
-        launch(LAUNCHES, "rk4_final_stage_members", fn("rk4_final_members", dtype), index,
-               *(t.data_ptr() for t in fields), oF.data_ptr(), oU.data_ptr(), p.ny, p.nx,
-               float(p.dt), float(p.dt / 6), float(dirichlet_value), ctypes.addressof(m),
-               count, _phys_ref(p, dtype))
+    if halo is None:
+        if edges is not None:
+            raise ValueError("a fold writes a shard's edges: it needs a halo")
+        dtype, index = _check_members(p, B, fields + [oF, oU])
+        name, count, ny, nx, ghosts = "rk4_final_members", "rk4_final_stage_members", p.ny, p.nx, ()
+    else:
+        dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU], "rk4_final_stage_members")
+        name, count = "rk4_final_halo_members", "rk4_final_stage_members_sharded"
+        ghosts = (*_member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx),
+                  sum(1 << k for k, e in enumerate(halo.edges) if e),
+                  *_member_ghosts("fold edges", edges or (None, None), B, ny, nx))
+    for m, n in _member_launches(dtype, member_ids(B, ids), None, fu):
+        launch(LAUNCHES, count, fn(name, dtype), index,
+               *(t.data_ptr() for t in fields), oF.data_ptr(), oU.data_ptr(), ny, nx,
+               float(p.dt), float(p.dt / 6), float(dirichlet_value), *ghosts,
+               ctypes.addressof(m), n, _phys_ref(p, dtype))
     return oF, oU
 
 
@@ -1629,12 +1713,84 @@ def rkm_final_stage_members(x: Pair, k1: Pair, k3: Pair, k4: Pair, taus, p: SimP
     return oF, oU, emax
 
 
+def blend_rhs_sharded_members_fixed(states: Sequence[Pair], weights: Sequence, p: SimParams,
+                                    halo: Halo, fu=0.0, is_euler: bool = False, ids=None,
+                                    out=None, nxt=None, edges=None) -> Pair:
+    """K12.1 over members at ``weights`` that every member shares (Euler
+    and RK4 take a fixed dt; a Merson stage's are each member's own,
+    ``blend_rhs_sharded_members``): on a shard, each member of ``ids``'s
+    blend of 1..3 ``states``, its seams from its rows of the member-major
+    ``halo``, one launch for up to MAX_MEMBERS of them, ``fu`` per member,
+    at Dirichlet value 0; counted as ``blend_rhs_sharded_members_fixed``,
+    and in euler mode (``is_euler``, K12.3 over members) as
+    ``blend_rhs_sharded_members_euler``.  With ``edges`` (``member_edges``
+    buffers) each member's edges of the next blend, ``states[:len(nxt) -
+    1]`` and then the output at ``nxt``, into its rows.  Member b's rows of
+    ``out`` (and of ``edges``) are ``blend_rhs_sharded`` of its fields with
+    ``halo.member(b)`` and ``Fold(nxt)`` bit for bit, the other rows left
+    as they are."""
+    n = len(states)
+    if not 1 <= n <= 3 or float(weights[0]) != 1.0:
+        raise ValueError(f"1..3 blend states with a first weight of 1.0, got {n} states at "
+                         f"{list(weights)}")
+    if edges is not None and (nxt is None or float(nxt[0]) != 1.0
+                              or not 1 <= len(nxt) <= min(n, 2) + 1):
+        raise ValueError(f"a fold of {n} states takes next weights (1, ...) of at most "
+                         f"{min(n, 2) + 1}, got {nxt}")
+    if not _on_cuda(states[0][0], "blend_rhs_sharded_members_fixed"):
+        return blend_rhs_sharded_members_fixed_plain(states, weights, p, halo, fu, is_euler, ids,
+                                                     out, nxt, edges)
+    oF, oU = _member_outputs(states[0][0], out)
+    fields = [t for s in states for t in s]
+    dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU],
+                                                "blend_rhs_sharded_members_fixed")
+    ghosts = _member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx)
+    fold = _member_ghosts("fold edges", edges or (None, None), B, ny, nx)
+    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
+    ptrs = [t.data_ptr() for t in fields] + [None] * (6 - len(fields))
+    w = [float(v) for v in weights[1:]] + [0.0] * (3 - n)
+    fw = [float(v) for v in nxt[1:]] + [0.0] * (3 - len(nxt)) if edges is not None else [0.0] * 2
+    fold_m = len(nxt) - 1 if edges is not None else 0
+    count = "blend_rhs_sharded_members_euler" if is_euler else "blend_rhs_sharded_members_fixed"
+    for m, c in _member_launches(dtype, member_ids(B, ids), None, fu):
+        launch(LAUNCHES, count, fn("blend_rhs_halo_members", dtype), index, *ptrs, n, *w,
+               oF.data_ptr(), oU.data_ptr(), ny, nx, int(is_euler), *ghosts, bits, fold_m, *fw,
+               *fold, ctypes.addressof(m), c, _phys_ref(p, dtype))
+    return oF, oU
+
+
+def rk4_full_members_sharded(F: torch.Tensor, U: torch.Tensor, ap: Apron, p: SimParams,
+                             fu=0.0, dirichlet_value=0.0, ids=None, out=None) -> Pair:
+    """The K3 twin over members on a shard: one RK4 step of each member of
+    ``ids`` from its own apron (member-major, ``Topology.apron`` on the
+    shard's (B, ny_l, nx_l) blocks, RK4_SLAB_ROWS deep), in one launch for
+    up to MAX_MEMBERS of them, dt shared and ``fu`` per member: at float32
+    K12.6's on a y-mesh shard, counted as ``rk4_full_members_sharded``; at
+    float64 the K13 twin's on a shard of any mesh, counted as
+    ``rk4_full_members_apron``.  Member b's rows of ``out`` are
+    ``rk4_full_sharded`` of its fields and apron bit for bit, the other
+    rows left as they are."""
+    if not _on_cuda(F, "rk4_full_members_sharded"):
+        return rk4_full_members_sharded_plain(F, U, ap, p, fu, dirichlet_value, ids, out)
+    oF, oU = _member_outputs(F, out)
+    dtype, index, B, _, _ = _members_on_shard([F, U, oF, oU], "rk4_full_members_sharded")
+    sfx, count, ghosts = _apron_args(F, U, ap, RK4_SLAB_ROWS, p)
+    for m, n in _member_launches(dtype, member_ids(B, ids), None, fu):
+        launch(LAUNCHES, f"rk4_full_members_{count}", fn(f"rk4_full_members_{sfx}", dtype),
+               index, F.data_ptr(), U.data_ptr(), oF.data_ptr(), oU.data_ptr(), *ghosts,
+               float(p.dt / 2), float(p.dt), float(p.dt / 6), float(dirichlet_value),
+               ctypes.addressof(m), n, _phys_ref(p, dtype))
+    return oF, oU
+
+
 def halo_edges_members(states: Sequence[Pair], stage: int, taus, ids=None, out=None):
     """K12.1's ghost gather over members: each member of ``ids``'s edges of
     Merson stage ``stage``'s blend (1..5 states) at its tau into its rows of
     the member-major buffers ``out`` = (rows, cols) (``member_edges``), one
     launch for up to MAX_MEMBERS of them; member b's rows are
-    ``halo_edges`` of its blend bit for bit.  Returns ``out``."""
+    ``halo_edges`` of its blend bit for bit.  Stage 1 (the state at weight
+    1) is also the Euler and RK4 steps' gather, with ``taus`` None.
+    Returns ``out``."""
     if len(states) != MERSON_STATES.get(stage, 0):
         raise ValueError(f"Merson stage {stage} blends {MERSON_STATES.get(stage)} states, got "
                          f"{len(states)}")

@@ -160,8 +160,8 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
 MembersStepper = Callable[..., Tuple[SimState, StepStats]]
 
 # What an ensemble on a spatial mesh does not run yet.
-MESH_MEMBERS_TODO = ("Euler, RK4 and semi-implicit ensembles on a spatial mesh (their mesh "
-                     "kernels over members: ROADMAP item 7e)")
+MESH_MEMBERS_TODO = ("semi-implicit ensembles on a spatial mesh (K12.7, K12.8 and K14's twin "
+                     "over members and the mesh CG over members: ROADMAP item 7e)")
 
 
 def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> MembersStepper:
@@ -181,9 +181,10 @@ def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> Mem
     contiguous groups, each stepped on its own devices, one group after
     another.  A group without spatial shards is a one-device ensemble, so
     every solver runs; one with spatial shards takes the mesh routes over
-    members, for RKM (``explicit.rkm_adaptive_members_mesh``) and the exact
-    solver (each member's shard from its offset); the other solvers raise
-    (ROADMAP item 7e).
+    members, for RKM (``explicit.rkm_adaptive_members_mesh``), Euler and
+    RK4 (``explicit.euler_step_members`` and ``rk4_step_members`` with the
+    group's topology) and the exact solver (each member's shard from its
+    offset); semi-implicit raises (ROADMAP item 7e).
 
     Member b of the result is ``make_stepper(p, topo)`` of member b (its
     single mesh state on a mesh) bit for bit: t, iter and tau per member as
@@ -211,6 +212,14 @@ def _grouped(inner, groups: int, topo: Topology) -> MembersStepper:
     def group_fields(A, g):
         return A.group(g) if topo.is_sharded else A.blocks[g]
 
+    def group_pair(state, g):
+        """Group g's (F, U); a pair that carries one edges object keeps
+        one (``ops/rhs.carried_edges``)."""
+        F, U = group_fields(state.F, g), group_fields(state.U, g)
+        if topo.is_sharded and state.F.edges is not None and state.F.edges is state.U.edges:
+            U = dataclasses.replace(U, edges=F.edges)
+        return F, U
+
     def joined(parts):
         if topo.is_sharded:
             return join_groups(parts)
@@ -221,8 +230,8 @@ def _grouped(inner, groups: int, topo: Topology) -> MembersStepper:
         news, stats, rounds = [], [], 0
         for g in range(groups):
             sl = slice(g * Bg, (g + 1) * Bg)
-            sub = SimState(F=group_fields(state.F, g), U=group_fields(state.U, g),
-                           t=state.t[sl], iter=state.iter[sl], tau=state.tau[sl])
+            F, U = group_pair(state, g)
+            sub = SimState(F=F, U=U, t=state.t[sl], iter=state.iter[sl], tau=state.tau[sl])
             new, st = inner(sub, None if live is None else live[sl])
             rounds += inner.rounds
             news.append(new)
@@ -258,13 +267,13 @@ def join_stats(parts) -> StepStats:
 def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
     """The members stepper of one group: stacked (B, ny, nx) members on one
     device (``topo`` unsharded), or member-major ``Shards`` on ``topo``'s
-    spatial mesh (RKM and the exact solver)."""
+    spatial mesh (every solver but semi-implicit)."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
     if p.differentiable:
         raise NotImplementedError(f"not ported yet: {DIFFERENTIABLE_TODO}")
-    if topo.is_sharded and p.solver not in (SolverType.EXPLICIT_RK4_ADAPTIVE, SolverType.EXACT):
+    if topo.is_sharded and p.solver == SolverType.SEMI_IMPLICIT:
         raise NotImplementedError(f"not ported yet: {MESH_MEMBERS_TODO}")
     adaptive = p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE
 
@@ -315,11 +324,10 @@ def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
             ids, fu = live_ids(state, live), fus(state)
 
             def step_based(F, U, U_base, same_base):
-                nF, nU = euler_step_members(F, U, U_base, p, fu, ids, same_base)
+                nF, nU = euler_step_members(F, U, U_base, p, fu, ids, same_base, topo)
                 return nF, nU, None
 
-            nF, nU, _aux, residuals = corrector_step(state.F, state.U, p, ONE_DEVICE,
-                                                     step_based)
+            nF, nU, _aux, residuals = corrector_step(state.F, state.U, p, topo, step_based)
             step.rounds = 1
             return finish(state, ids, nF, nU, residuals=residuals)
 
@@ -342,7 +350,8 @@ def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
         def step(state: SimState, live=None):
             ids = live_ids(state, live)
             step.rounds = 1
-            return finish(state, ids, *rk4_step_members(state.F, state.U, p, fus(state), ids))
+            return finish(state, ids, *rk4_step_members(state.F, state.U, p, fus(state), ids,
+                                                         topo))
 
     elif p.solver == SolverType.EXACT:
 

@@ -32,11 +32,15 @@ the one-device routes batched over members: each Euler pass, RK4 stage or
 whole RK4 step and Merson attempt is one launch for every member it steps
 (K1, K4, K3, K2 with a member axis, ``ops/cuda_rhs.py``), and the retry
 loop reads the maxima of all its live members once per attempt.  On a mesh
-(``rkm_adaptive_members_mesh``, member-major shards) RKM takes the mesh
-routes batched the same way: the K2 twin, or K12.1 and K5 with the ghost
-gather, each one launch per shard for every member it steps.  JAX runs
-the same steps as ``jax.vmap`` of the stepper, the retry loop a
-``while_loop`` whose members keep their carry once they stop (:476-521).
+(member-major shards) each solver takes its mesh routes batched the same
+way, each member routed as its single mesh run: RKM
+(``rkm_adaptive_members_mesh``) the K2 twin, or K12.1 and K5 with the
+ghost gather; Euler (``euler_step_members`` with a topology) K12.3, and
+K12.1 for the corrector's re-steps; RK4 (``rk4_step_members``) the K3
+twin, or K12.1 x 3 and K12.4; each one launch per shard for every member
+it steps.  JAX runs the same steps as ``jax.vmap`` of the stepper, the
+retry loop a ``while_loop`` whose members keep their carry once they stop
+(:476-521).
 
 The whole-step twins take meshes whose shards are at least as deep as
 their apron along each sharded axis (``_takes_apron``); a thinner shard
@@ -476,24 +480,32 @@ def members_rhs(states, weights, p: SimParams, fu, ids, is_euler: bool = False):
     return cuda_rhs.blend_rhs_members_plain(states, weights, p, fu, 0.0, is_euler, ids)
 
 
-def euler_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor, p: SimParams,
-                       fu, ids, same_base: bool = True):
+def euler_step_members(F: Field, U: Field, U_base: Field, p: SimParams, fu, ids,
+                       same_base: bool = True, topo: Topology = ONE_DEVICE):
     """``euler_step_based`` for the members ``ids``: one K1 launch in euler
     mode, or in rhs mode for the corrector's re-steps, then the update of
-    the stack (rows of other members are not read back)."""
+    the stack (rows of other members are not read back).  On a mesh (``fu``
+    per member, fields member-major ``Shards``) each member as its single
+    mesh run steps (``_euler_members_mesh``)."""
+    if topo.is_sharded:
+        return _euler_members_mesh(F, U, U_base, p, fu, ids, same_base, topo)
     if same_base:
         return members_rhs([(F, U)], [1.0], p, fu, ids, is_euler=True)
     dF, dU = members_rhs([(F, U)], [1.0], p, fu, ids)
     return F + p.dt * dF, U_base + p.dt * dU
 
 
-def rk4_step_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu, ids):
+def rk4_step_members(F: Field, U: Field, p: SimParams, fu, ids, topo: Topology = ONE_DEVICE):
     """``rk4_step`` for the members ``ids``, routed as one device routes a
     member: on the kernel backend from ``RK4_FULLSTEP_MIN_CELLS`` cells a
     member K3 over members, one launch for every member (JAX vmaps
     ``rk4_full_pallas`` there, :270-275), below it the staged route
     batched, K1 for k1, k2 and k3 and K4, each one launch for every member;
-    the plain backend takes the plain step per member, as one device does."""
+    the plain backend takes the plain step per member, as one device does.
+    On a mesh (fields member-major ``Shards``) each member as its single
+    mesh run routes it (``_rk4_members_mesh``)."""
+    if topo.is_sharded:
+        return _rk4_members_mesh(F, U, p, fu, ids, topo)
     if resolve_backend(p, F.device) != "kernel":
         return cuda_rhs.rk4_full_members_plain(F, U, p, fu, 0.0, ids)
     if p.N >= RK4_FULLSTEP_MIN_CELLS:
@@ -503,6 +515,154 @@ def rk4_step_members(F: torch.Tensor, U: torch.Tensor, p: SimParams, fu, ids):
     k2 = members_rhs([x, k1], [1.0, h], p, fu, ids)
     k3 = members_rhs([x, k2], [1.0, h], p, fu, ids)
     return cuda_rhs.rk4_final_stage_members(x, k1, k2, k3, p, fu, 0.0, ids)
+
+
+def _new_member_blocks(F: Shards, U: Shards):
+    """New (F, U) blocks like a member-major step's, per shard."""
+    return [(torch.empty_like(f), torch.empty_like(u)) for f, u in zip(F.blocks, U.blocks)]
+
+
+def _members_fields(out, grid, edges=None):
+    """(F, U) ``Shards`` of per-shard (F, U) blocks, carrying ``edges``."""
+    return (Shards(tuple(o[0] for o in out), grid, edges),
+            Shards(tuple(o[1] for o in out), grid, edges))
+
+
+def _carried_members(out, update, carried, ids, B: int, grid):
+    """(F, U) ``Shards`` of a members step whose last kernel wrote each
+    stepped member's edges into its rows of ``update`` (per shard): they
+    carry them when every member's are known.  A member outside ``ids``
+    keeps its rows, and its edges are those its state carried
+    (``carried``, copied into its rows of ``update``); without those the
+    fields carry none, and the next step gathers."""
+    frozen = np.setdiff1d(np.arange(B), np.asarray(ids, np.int64))
+    if len(frozen) and carried is None:
+        return _members_fields(out, grid)
+    if len(frozen):
+        for mine, theirs in zip(update, carried):
+            for a, c in zip(mine, theirs):
+                if a is not None:
+                    rows = torch.as_tensor(frozen, device=a.device)
+                    a[rows] = c[rows]
+    return _members_fields(out, grid, [tuple(e) for e in update])
+
+
+def _each_member_mesh(F: Shards, U: Shards, ids, step, *others: Shards):
+    """The members ``ids`` of member-major ``Shards`` one at a time, each
+    by ``step(b, F_b, U_b, *others_b)``, a single mesh run's step on member
+    b's views, its result written into its rows of new blocks (the plain
+    backend's route over members)."""
+    out = _new_member_blocks(F, U)
+    for b in ids:
+        nF, nU = step(b, F.member(b), U.member(b), *(o.member(b) for o in others))
+        for k, (oF, oU) in enumerate(out):
+            oF[b], oU[b] = nF.blocks[k], nU.blocks[k]
+    return _members_fields(out, F.grid)
+
+
+def _members_edges_in(x, topo: Topology, ids):
+    """(the edges the pair ``x`` carries or None, the edges its first stage
+    reads -- those, else new ``member_edges`` buffers -- and the members
+    whose rows the stage gathers first: ``ids`` unless carried)."""
+    carried = carried_edges([x])
+    if carried is not None:
+        return carried, carried, ()
+    return None, _members_edges(x[0], topo), ids
+
+
+def _members_edges(F: Shards, topo: Topology):
+    """New member-major edge buffers per shard of ``F``."""
+    return [cuda_rhs.member_edges(f, topo.axis_y is not None, topo.axis_x is not None)
+            for f in F.blocks]
+
+
+def _shared_stage_members(states, weights, p: SimParams, fus, topo: Topology, ids, edges,
+                          out, nxt_edges, gather=(), nxt=None, is_euler: bool = False):
+    """A stage at the weights every member shares (Euler, RK4), K12.1 over
+    members (K12.3 over members with ``is_euler``) for the members ``ids``
+    on every shard, one launch per shard: the rows of the members
+    ``gather`` of ``edges`` (per shard) gathered first from the state at
+    weight 1, the ghosts exchanged from them, and each member's rows of
+    ``out`` (per shard (dF, dU) blocks) and of ``nxt_edges`` (per shard,
+    the edges of the blend at ``nxt``; None for none) written: (dF, dU) as
+    ``Shards``."""
+    if len(gather):
+        for k, e in enumerate(edges):
+            cuda_rhs.halo_edges_members(shard_states(states[:1], k), 1, None, gather, e)
+    for k, h in enumerate(topo.exchange(edges)):
+        cuda_rhs.blend_rhs_sharded_members_fixed(
+            shard_states(states, k), weights, p, h, fus, is_euler, ids, out[k], nxt,
+            None if nxt_edges is None else nxt_edges[k])
+    return _members_fields(out, states[0][0].grid)
+
+
+def _euler_members_mesh(F: Shards, U: Shards, U_base: Shards, p: SimParams, fus, ids,
+                        same_base: bool, topo: Topology):
+    """``euler_step_based`` for an ensemble's members on a mesh, member b
+    the single mesh step of member b bit for bit:
+
+      * kernel backend: K12.3 over members per shard (K12.1 over members
+        for the corrector's re-steps, then the update), each one launch for
+        the live members, from ghosts exchanged from the edges the state
+        carries, else from the gather over members at weight 1 (a run's
+        first step, after a corrector pass, and every re-step, whose pair
+        (F, cur_U) no kernel made); K12.3 folds the new state's edges, which
+        the result carries (``_carried_members``);
+      * plain backend: each member's ``euler_step_based`` on the mesh."""
+    if resolve_backend(p, F.device) != "kernel":
+        return _each_member_mesh(F, U, ids, lambda b, f, u, ub: euler_step_based(
+            f, u, ub, p, fus[b], same_base, topo), U_base)
+    x = (F, U)
+    carried, edges, gather = _members_edges_in(x, topo, ids)
+    out = _new_member_blocks(F, U)
+    if same_base:
+        update = _members_edges(F, topo)
+        _shared_stage_members([x], (1.0,), p, fus, topo, ids, edges, out, update, gather,
+                              nxt=(1.0,), is_euler=True)
+        return _carried_members(out, update, carried, ids, F.members, F.grid)
+    dF, dU = _shared_stage_members([x], (1.0,), p, fus, topo, ids, edges, out, None, gather)
+    return _axpy(F, p.dt, dF), _axpy(U_base, p.dt, dU)
+
+
+def _rk4_members_mesh(F: Shards, U: Shards, p: SimParams, fus, ids, topo: Topology):
+    """``rk4_step`` for an ensemble's members on a mesh, routed per member
+    as ``rk4_step`` routes a single mesh run, member b its step bit for
+    bit:
+
+      * kernel backend, from RK4_FULLSTEP_MIN_CELLS local cells on shards
+        that take the apron (``_takes_apron``: float32 y-meshes, any float64
+        mesh): the K3 twin over members per shard (K12.6's, the K13 twin's),
+        from one member-major apron exchange per step;
+      * kernel backend otherwise: K12.1 over members for k1..k3 and K12.4
+        over members, each one launch per shard for the live members and
+        each folding the next stage's edges (K12.4 the new state's), so a
+        step gathers only where its state carries none
+        (``_rk4_staged_mesh``'s route);
+      * plain backend: each member's ``rk4_step`` on the mesh."""
+    if resolve_backend(p, F.device) != "kernel":
+        return _each_member_mesh(F, U, ids, lambda b, f, u: rk4_step(f, u, p, fus[b], topo))
+    out = _new_member_blocks(F, U)
+    ny_l, nx_l = F.blocks[0].shape[-2:]
+    if (ny_l * nx_l >= RK4_FULLSTEP_MIN_CELLS
+            and _takes_apron(topo, ny_l, nx_l, cuda_rhs.RK4_SLAB_ROWS, p.dtype)):
+        aprons = topo.apron(F, U, cuda_rhs.RK4_SLAB_ROWS)
+        for k, (f, u) in enumerate(zip(F.blocks, U.blocks)):
+            cuda_rhs.rk4_full_members_sharded(f, u, aprons[k], p, fus, 0.0, ids, out[k])
+        return _members_fields(out, F.grid)
+    x, h = (F, U), p.dt / 2
+    carried, e, gather = _members_edges_in(x, topo, ids)
+    e1, e2, e3 = (_members_edges(F, topo) for _ in range(3))
+    k1 = _shared_stage_members([x], (1.0,), p, fus, topo, ids, e, _new_member_blocks(F, U), e1,
+                               gather, nxt=(1.0, h))
+    k2 = _shared_stage_members([x, k1], (1.0, h), p, fus, topo, ids, e1,
+                               _new_member_blocks(F, U), e2, nxt=(1.0, h))
+    k3 = _shared_stage_members([x, k2], (1.0, h), p, fus, topo, ids, e2,
+                               _new_member_blocks(F, U), e3, nxt=(1.0, p.dt))
+    update = _members_edges(F, topo)
+    for k, hk in enumerate(topo.exchange(e3)):
+        cuda_rhs.rk4_final_stage_members(*shard_states([x, k1, k2, k3], k), p, fus, 0.0, ids,
+                                         out[k], halo=hk, edges=update[k])
+    return _carried_members(out, update, carried, ids, F.members, F.grid)
 
 
 def _members_retry(attempt, taus: np.ndarray, ids, control: "Controller"):
@@ -599,12 +759,11 @@ def _mesh_members_attempt(F: Shards, U: Shards, p: SimParams, fus, topo: Topolog
       * plain backend: each member's ``_mesh_attempt``, k1 once per step."""
     kernel = resolve_backend(p, F.device) == "kernel"
     B, grid, n = F.members, F.grid, len(F.blocks)
-    out = [(torch.empty_like(f), torch.empty_like(u)) for f, u in zip(F.blocks, U.blocks)]
+    out = _new_member_blocks(F, U)
     emax = [f.new_zeros((B, 2)) for f in F.blocks]
 
-    def joined(edges=None):
-        return (Shards(tuple(o[0] for o in out), grid, edges),
-                Shards(tuple(o[1] for o in out), grid, edges))
+    def joined():
+        return _members_fields(out, grid)
 
     if not kernel:
         single = {b: _mesh_attempt(F.member(b), U.member(b), p, fus[b], topo, tau0[b])
@@ -630,19 +789,15 @@ def _mesh_members_attempt(F: Shards, U: Shards, p: SimParams, fus, topo: Topolog
 
         return attempt, joined
 
-    axes = (topo.axis_y is not None, topo.axis_x is not None)
-
     def edges():
-        return [cuda_rhs.member_edges(f, *axes) for f in F.blocks]
+        return _members_edges(F, topo)
 
     def blocks():
-        return [(torch.empty_like(f), torch.empty_like(u)) for f, u in zip(F.blocks, U.blocks)]
+        return _new_member_blocks(F, U)
 
     x = (F, U)
-    carried = carried_edges([x])
-    k1, e2 = folded_stage_members([x], 1, tau0, p, fus, topo, ids,
-                                  edges() if carried is None else carried, blocks(), edges(),
-                                  ids if carried is None else ())
+    carried, e1, gather = _members_edges_in(x, topo, ids)
+    k1, e2 = folded_stage_members([x], 1, tau0, p, fus, topo, ids, e1, blocks(), edges(), gather)
     k2s, k3s, k4s = blocks(), blocks(), blocks()
     e3, e4, e5, update = edges(), edges(), edges(), edges()
 
@@ -657,16 +812,7 @@ def _mesh_members_attempt(F: Shards, U: Shards, p: SimParams, fus, topo: Topolog
         return topo.allmax(emax)
 
     def result():
-        frozen = np.setdiff1d(np.arange(B), np.asarray(ids, np.int64))
-        if len(frozen) and carried is None:
-            return joined()  # a frozen member's edges are unknown: the next step gathers
-        if len(frozen):
-            rows = torch.as_tensor(frozen, device=F.device)
-            for mine, theirs in zip(update, carried):
-                for a, c in zip(mine, theirs):
-                    if a is not None:
-                        a[rows.to(a.device)] = c[rows.to(a.device)]
-        return joined([tuple(e) for e in update])
+        return _carried_members(out, update, carried, ids, B, grid)
 
     return attempt, result
 

@@ -144,6 +144,27 @@ the members attempt per shard and batched attempt, one host read, member
 b bit for bit its single mesh run with noise_seed + b; and the mesh
 ensemble's member-steps a second and busy share at B = 1, 2, 4 and 8
 beside the single mesh stepper on each mesh.
+Euler and RK4 ensembles on meshes of the one card: K12.1 over members at
+weights every member shares (RK4's k1-k3 with their folds, the
+corrector's unfolded re-step), its euler mode K12.3 over members, K12.4
+over members and the gather at weight 1 on y(2), x(2) and 2x2, and the K3
+twin over members (K12.6's at float32 on y(2), the K13 twin's at float64
+on the three meshes), each against its plain members version and one
+single-shard launch per member, bit for bit with folded and gathered
+edges and skipped rows, at 512^2 for B = 1, 4 and 8 and at 66x258 for 4,
+both dtypes, S = 0.25 and 0 (the K3 twin also on a shard of the 4096^2
+cut at B = 1, 4 and 8), with device µs a launch by graph replay at B
+= 1, 4 and 8 (the K3 twin on a shard of the 4096^2 cut) beside B single
+launches and the byte bound; config.ini as Euler ensembles (4 members,
+noise_T = 0.02, 200 steps) on y(2) with ``batch_shards = 2``, x(2) and
+2x2, the Euler corrector with step residuals on x(2), RK4 on the three
+meshes, the float64 sweep configs as Euler and RK4 ensembles on 2x2, and
+RK4 ensembles of 2 members at 4096^2 on y(2) (float32, K12.6 over members)
+and x(2) (float64, the K13 twin over members), through
+``run_config_file``: exactly one launch per shard and group a stage, the
+gather only where a state carries no edges, and member b bit for bit its
+single mesh run frame by frame; and their member-steps a second at B = 1,
+4 and 8 beside the single mesh stepper on each mesh.
 ``[program] debug = true`` on the shipped config: every frame carries
 grad_Phi, grad_T and aniso in the JAX package's order, held to
 ``debug_maps`` of the frame's own F and U recomputed on the CPU.
@@ -374,7 +395,8 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                     "euler_steps_sharded_plain", "rk4_full_sharded_plain", "rk4_combine",
                     "si_prepare_sharded_plain", "si_terms",
                     "rkm_attempt_members_sharded_plain", "blend_rhs_sharded_members_plain",
-                    "rkm_final_stage_members_plain", "halo_edges_members_plain"),
+                    "rkm_final_stage_members_plain", "halo_edges_members_plain",
+                    "blend_rhs_sharded_members_fixed_plain", "rk4_full_members_sharded_plain"),
          cuda_cg: ("cross_matvec_pAp_members_plain", "aniso_matvec_pAp_members_plain",
                    "update_xr_rr_members_plain", "advance_p_members_plain",
                    "cross_residual_members_plain", "aniso_residual_members_plain",
@@ -455,6 +477,8 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        "K5": PHYS_OPS + 12 + 10 + 18,    # 4-state blend, update, error maxima
        "K12.1": PHYS_OPS + 8,            # K1 on a shard, 3-state blend (k3, k4)
        "K12.1 gather": 8,                # 3-state blend of both fields, per edge cell
+       "K12.1 fixed": PHYS_OPS + 4,      # K12.1 at shared weights, 2 states (RK4's k2)
+       "K12.1 gather 1": 0,              # the state's own edges: copies
        "K12.2": 5 * PHYS_OPS + 32 + 10 + 18,  # K2 on a shard
        "K12.3": PHYS_OPS + 4,            # K1 in euler mode on a shard, 1 state
        "K12.4": PHYS_OPS + 4 + 14,       # K4 on a shard
@@ -477,10 +501,12 @@ OPS = {"K1": PHYS_OPS + 12,              # 4-state blend (the timed call)
        # the tutorial: a x + y; a sum; N + S + E + W - 4 c; sum, sum|x|, min, max
        "K15.1": 2, "K15.2": 2, "K15.3": 2, "K15.4": 1, "K15.5": 5, "K15.6": 4}
 PHYSICS_PER_CELL = {"K1": 1, "K4": 1, "K2": 5, "K3": 4, "K6": 4, "K6 T=8": 8, "K7": 1,
-                    "K5": 1, "K12.1": 1, "K12.2": 5, "K12.3": 1, "K12.4": 1, "K12.7": 1}
+                    "K5": 1, "K12.1": 1, "K12.2": 5, "K12.3": 1, "K12.4": 1, "K12.7": 1,
+                    "K12.1 fixed": 1}
 # Fields per cell: each input read once, each output written once.
 FIELDS = {"K1": 2 * 4 + 2, "K4": 8 + 2, "K5": 8 + 2, "K12.1": 2 * 3 + 2,
-          "K12.1 gather": 2 * 3 + 2, "K12.2": 2 + 2, "K12.3": 2 + 2, "K12.4": 8 + 2,
+          "K12.1 gather": 2 * 3 + 2, "K12.1 fixed": 2 * 2 + 2, "K12.1 gather 1": 2 + 2,
+          "K12.2": 2 + 2, "K12.3": 2 + 2, "K12.4": 8 + 2,
           "K12.5": 2 + 2, "K12.6": 2 + 2, "K2": 2 + 2, "K3": 2 + 2, "K6": 2 + 2,
           "K6 T=8": 2 + 2, "K7": 2 + 3, "K8 cross": 1 + 1, "K8 aniso": 2 + 1,
           "K12.7": 2 + 3, "K12.8 cross": 1 + 1, "K12.8 aniso": 2 + 1,
@@ -507,8 +533,14 @@ def bound(name: str, cells: int, dtype: str = "float32", extra_bytes: int = 0) -
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+STARTED = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's JSON line; ``at_s`` is the wall clock since the script
+    started, so that the gaps between lines show where its time goes."""
+    print(json.dumps({"phase": name, **fields,
+                      "at_s": round(time.perf_counter() - STARTED, 1)}), flush=True)
 
 
 def titled(name: str, dtype: str) -> str:
@@ -4077,13 +4109,14 @@ def mesh_of(name: str, batch: int = 1):
     return make_mesh(sy, sx, [DEVICE] * (sy * sx * batch), batch=batch)
 
 
-def member_shards(rng, B, name, dtype, n=1):
+def member_shards(rng, B, name, dtype, n=1, shape=None):
     """n (F, U) pairs of stacked (B, MESH_MEMBER_SIZE^2) standard-normal
-    fields split over the named mesh: member-major ``Shards``."""
+    fields (or of ``shape``) split over the named mesh: member-major
+    ``Shards``."""
     mesh, topo = mesh_of(name)
-    size = MESH_MEMBER_SIZE
+    ny, nx = shape or (MESH_MEMBER_SIZE, MESH_MEMBER_SIZE)
     return [tuple(shard_field(t, mesh, topo) for t in pair)
-            for pair in stacked(rng, B, size, size, n, dtype)], topo
+            for pair in stacked(rng, B, ny, nx, n, dtype)], topo
 
 
 def check_mesh_members_kernels(rng) -> dict:
@@ -4386,16 +4419,27 @@ def mesh_ensemble_path(name, mesh, overrides, batch=1, config=CONFIG) -> dict:
     return n
 
 
-def mesh_ensemble_timing(Bs=MESH_ENSEMBLE_TIMED, steps=100, traced=30) -> dict:
+def mesh_ensemble_timing(Bs=MESH_ENSEMBLE_TIMED, steps=50, traced=10) -> dict:
     """The RKM ensemble of the shipped config (stats every step) on y(2),
     x(2) and 2x2 meshes of the one card at B members, beside the single
     mesh stepper: host ms a step (wall clock over ``steps`` steps,
     synchronised), device ms a step (the kernels' time under torch.profiler
     over ``traced`` steps), member-steps a second and the device's busy
     share; each from the members' initial state after 10 warm steps."""
+    out = mesh_ensemble_rows(load_config(CONFIG, [ENSEMBLE]), Bs, steps, traced)
+    phase("RKM ensemble on meshes timing (config.ini, noise_T = 0.02, stats every step)",
+          card=card_limit(), steps=steps, traced_steps=traced, meshes=out)
+    return out
+
+
+def mesh_ensemble_rows(cfg, Bs, steps, traced) -> dict:
+    """``cfg``'s ensemble on y(2), x(2) and 2x2 of the one card at each of
+    ``Bs`` members and the single mesh stepper: host ms a step (wall clock
+    over ``steps`` steps, synchronised), device ms a step (the kernels'
+    time under torch.profiler over ``traced`` steps), member-steps a second
+    and the device's busy share, by mesh; each after 10 warm steps."""
     from torch.autograd import DeviceType
 
-    cfg = load_config(CONFIG, [ENSEMBLE])
     out = {}
     for mname in MESHES:
         mesh, topo = mesh_of(mname)
@@ -4430,8 +4474,410 @@ def mesh_ensemble_timing(Bs=MESH_ENSEMBLE_TIMED, steps=100, traced=30) -> dict:
                 "member_steps_per_s": members * steps / wall,
                 "device_busy_share": device_ms / host_ms}
         out[mname] = rows
-    phase("RKM ensemble on meshes timing (config.ini, noise_T = 0.02, stats every step)",
-          card=card_limit(), steps=steps, traced_steps=traced, meshes=out)
+    return out
+
+
+# Euler and RK4 ensembles on meshes of the one card: K12.1 over members at
+# weights every member shares (RK4's k1-k3, the Euler corrector's
+# re-steps), K12.3 over members (its euler mode), K12.4 over members, the
+# K3 twin over members (K12.6's at float32 on y-meshes, the K13 twin's at
+# float64) and the ghost gather at weight 1; checked at MESH_MEMBER_COUNTS
+# members on the shards of 512^2 (and at B = 4 of a ragged size), both
+# dtypes and S, and timed at FIXED_TIMED members.
+FIXED_MEMBER_RAGGED = (66, 258)
+K3_TWIN_MEMBERS = (("y(2)", "float32"), ("y(2)", "float64"), ("x(2)", "float64"),
+                   ("2x2", "float64"))
+# the K3 twin's timed shard: one of the 4096^2 cut's, 8M cells, on the mesh
+# where each dtype's path takes it
+K3_TWIN_TIMED = (("y(2)", "float32"), ("x(2)", "float64"))
+FIXED_TIMED = (1, 4, 8)
+# The paths: config.ini as Euler and RK4 ensembles of 4 noisy members cut
+# to 200 steps, 2 frames; the Euler corrector (3 passes, step residuals) on
+# x(2) to 0.001; the float64 sweep configs on 2x2 to 0.001 (Euler with
+# stats, so that its single mesh runs take single steps as the ensemble
+# does, not K6's twin); RK4 ensembles of 2 members at 4096^2, 20 steps at
+# the 4096^2 cut's dt, 2 frames
+FIXED_ENSEMBLE_CUT = "[simulation]\nstop_after = 0.001\n[snapshot]\ntimes = 2\n"
+FIXED_CORRECTOR = ("[simulation]\nstop_after = 0.001\ndo_corrector_loop = true\n"
+                   "corrector_max_iters = 3\n[program]\ncollect_step_residual = true\n"
+                   "[snapshot]\ntimes = 2\n")
+FIXED_F64_CUT = FIRST_FRAME + FIXED_ENSEMBLE_CUT
+FIXED_F64_STATS = "[program]\ncollect_stats = true\n"
+FIXED_BIG = ("[simulation]\nmesh_size_x = 4096\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
+             "stop_after = 1.5625e-6\n[snapshot]\ntimes = 2\n[tpu]\nensemble = 2\n")
+
+
+def euler_members_launches(steps, shards, groups) -> dict:
+    """An Euler ensemble's launches on a mesh: K12.3 over members once per
+    shard and group a step; the gather only in each group's first step."""
+    return {"blend_rhs_sharded_members_euler": steps * shards * groups,
+            "halo_edges_members": shards * groups}
+
+
+def corrector_members_launches(steps, shards, groups, passes=3) -> dict:
+    """The Euler corrector's: K12.3 and ``passes`` K12.1 re-steps over
+    members a step, each gathering (no kernel made their pairs)."""
+    n = steps * shards * groups
+    return {"blend_rhs_sharded_members_euler": n, "blend_rhs_sharded_members_fixed": passes * n,
+            "halo_edges_members": (1 + passes) * n}
+
+
+def rk4_staged_members_launches(steps, shards, groups) -> dict:
+    """RK4's staged route: K12.1 over members x 3 and K12.4 over members a
+    step, the gather only in each group's first step."""
+    return {"blend_rhs_sharded_members_fixed": 3 * steps * shards * groups,
+            "rk4_final_stage_members_sharded": steps * shards * groups,
+            "halo_edges_members": shards * groups}
+
+
+def rk4_whole_members_launches(key):
+    """RK4's whole-step route: the K3 twin over members a step per shard."""
+    return lambda steps, shards, groups: {key: steps * shards * groups}
+
+
+def check_mesh_fixed_members_kernels(rng) -> dict:
+    """K12.1 over members at shared weights (RK4's three producers, [x] ->
+    [x, k1] at dt/2, [x, k1] -> [x, k2] at dt/2, [x, k2] -> [x, k3] at dt,
+    and the corrector's unfolded re-step), K12.3 over members folding its
+    output, K12.4 over members folding its output, the gather at weight 1,
+    and the K3 twin over members (float32 on y(2), float64 on every mesh),
+    against their plain members versions and against one single-shard
+    launch per member, bit for bit (fields, folded and gathered edges, the
+    rows of members a launch skips), on every shard of y(2), x(2) and 2x2
+    at 512^2 for MESH_MEMBER_COUNTS members (a subset out of order stepped
+    where B > 1) and at 66x258 for 4, both dtypes, S = 0.25 and S = 0, and
+    the K3 twin also on the first shard of the 4096^2 cut at FIXED_TIMED
+    members, every member stepped (its main path's shape); each call one
+    launch.  Device µs a launch by graph replay at FIXED_TIMED
+    members on the first shard of y(2) and x(2) of 512^2 (the K3 twin on
+    the first shard of the 4096^2 cut, where its path takes it) beside B
+    single-shard launches and the byte bound of B members; the kernels
+    line's numbers at B = 4."""
+    keys = ("K12.1 fixed", "K12.3", "K12.4", "gather", "K3 twin")
+    worst = {f"{k} {d}": 0.0 for k in keys for d in ("float32", "float64")}
+    cases = 0
+
+    def same(name, got, want, what):
+        for g, w in zip(got, want):
+            if g is None and w is None:
+                continue
+            err = (g - w).abs().max().item() if g.numel() else 0.0
+            worst[name] = max(worst[name], err)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} over members parts from {what}: {err}")
+
+    def edge_rows(edges, b):
+        return [e[b] for e in edges if e is not None]
+
+    for B in MESH_MEMBER_COUNTS:
+        ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+        fu = [0.03 + 0.01 * b for b in range(B)]
+        shapes = [(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE)] + ([FIXED_MEMBER_RAGGED] if B == 4 else [])
+        for (ny, nx), dtype in ((s, d) for s in shapes for d in ("float32", "float64")):
+            whole = stacked(rng, B, ny, nx, 4, dtype)
+            for S in (0.25, 0.0):
+                p = params(ny, nx, "neumann", S=S, u_bc="dirichlet", dtype=dtype)
+                h = p.dt / 2
+                for mname in MESHES:
+                    mesh, topo = mesh_of(mname)
+                    axes = (topo.axis_y is not None, topo.axis_x is not None)
+                    x, k1, k2, k3 = [tuple(shard_field(t, mesh, topo) for t in pair)
+                                     for pair in whole]
+                    e = [cuda_rhs.member_edges(f, *axes) for f in x[0].blocks]
+                    for k in range(len(e)):
+                        one_launch("halo_edges_members", lambda: cuda_rhs.halo_edges_members(
+                            shard_states([x], k), 1, None, ids, e[k]))
+                    halos = topo.exchange(e)
+                    twin = (mname, dtype) in K3_TWIN_MEMBERS
+                    aprons = topo.apron(*x, cuda_rhs.RK4_SLAB_ROWS) if twin else None
+                    singles = ({b: topo.apron(x[0].member(b), x[1].member(b),
+                                              cuda_rhs.RK4_SLAB_ROWS) for b in ids}
+                               if twin else None)
+                    for k, hk in enumerate(halos):
+                        st = shard_states([x, k1, k2, k3], k)
+                        what = f"{mname} {dtype} {ny}x{nx} S={S} B={B} shard {k}"
+                        mine = {b: [(F[b].contiguous(), U[b].contiguous()) for F, U in st]
+                                for b in ids}
+                        pe = cuda_rhs.halo_edges_members_plain(st[:1], 1, None, ids,
+                                                               cuda_rhs.member_edges(st[0][0],
+                                                                                     *axes))
+                        for b in ids:
+                            want = cuda_rhs.halo_edges(mine[b][:1], [1.0], *axes)
+                            same(f"gather {dtype}", edge_rows(e[k], b),
+                                 [w for w in want if w is not None], f"the single gather, {what}")
+                            same(f"gather {dtype}", edge_rows(e[k], b), edge_rows(pe, b),
+                                 f"its plain version, {what}")
+                        stages = (([0], [1.0], (1.0, h), False),
+                                  ([0, 1], [1.0, h], (1.0, h), False),
+                                  ([0, 2], [1.0, h], (1.0, p.dt), False),
+                                  ([0], [1.0], (1.0,), True), ([0], [1.0], None, False))
+                        for pick, w, nxt, is_euler in stages:
+                            name = f"{'K12.3' if is_euler else 'K12.1 fixed'} {dtype}"
+                            key = ("blend_rhs_sharded_members_euler" if is_euler
+                                   else "blend_rhs_sharded_members_fixed")
+                            states = [st[i] for i in pick]
+                            keep = tuple(torch.randn_like(st[0][0]) for _ in range(2))
+                            out = tuple(t.clone() for t in keep)
+                            fold = None if nxt is None else cuda_rhs.member_edges(st[0][0], *axes)
+                            pfold = None if nxt is None else cuda_rhs.member_edges(st[0][0], *axes)
+                            one_launch(key, lambda: cuda_rhs.blend_rhs_sharded_members_fixed(
+                                states, w, p, hk, fu, is_euler, ids, out, nxt, fold))
+                            pl = cuda_rhs.blend_rhs_sharded_members_fixed_plain(
+                                states, w, p, hk, fu, is_euler, ids, None, nxt, pfold)
+                            for b in range(B):
+                                if b not in ids:
+                                    same(name, (out[0][b], out[1][b]), (keep[0][b], keep[1][b]),
+                                         f"its untouched rows ({what})")
+                                    continue
+                                want = cuda_rhs.blend_rhs_sharded(
+                                    [mine[b][i] for i in pick], w, p, hk.member(b), fu[b], 0.0,
+                                    is_euler, None if nxt is None else cuda_rhs.Fold(nxt, *axes))
+                                got = (out[0][b], out[1][b])
+                                same(name, got, want[:2], f"the single-shard kernel, member {b} "
+                                     f"({what}, weights {w})")
+                                same(name, got, (pl[0][b], pl[1][b]),
+                                     f"its plain version, member {b} ({what})")
+                                if nxt is not None:
+                                    wedges = [v for v in want[2] if v is not None]
+                                    same(name, edge_rows(fold, b), wedges,
+                                         f"the single kernel's folded edges, member {b} ({what})")
+                                    same(name, edge_rows(fold, b), edge_rows(pfold, b),
+                                         f"the plain folded edges, member {b} ({what})")
+                            cases += 1
+                        name = f"K12.4 {dtype}"
+                        keep = tuple(torch.randn_like(st[0][0]) for _ in range(2))
+                        out = tuple(t.clone() for t in keep)
+                        fold = cuda_rhs.member_edges(st[0][0], *axes)
+                        pfold = cuda_rhs.member_edges(st[0][0], *axes)
+                        one_launch("rk4_final_stage_members_sharded",
+                                   lambda: cuda_rhs.rk4_final_stage_members(
+                                       *st, p, fu, 0.0, ids, out, halo=hk, edges=fold))
+                        pl = cuda_rhs.rk4_final_stage_members_plain(*st, p, fu, 0.0, ids, None,
+                                                                    hk, pfold)
+                        for b in range(B):
+                            if b not in ids:
+                                same(name, (out[0][b], out[1][b]), (keep[0][b], keep[1][b]),
+                                     f"its untouched rows ({what})")
+                                continue
+                            want = cuda_rhs.rk4_final_stage(*mine[b], p, fu[b], 0.0,
+                                                            hk.member(b),
+                                                            cuda_rhs.Fold((1.0,), *axes))
+                            same(name, (out[0][b], out[1][b]), want[:2],
+                                 f"the single-shard kernel, member {b} ({what})")
+                            same(name, (out[0][b], out[1][b]), (pl[0][b], pl[1][b]),
+                                 f"its plain version, member {b} ({what})")
+                            same(name, edge_rows(fold, b), [v for v in want[2] if v is not None],
+                                 f"the single kernel's folded edges, member {b} ({what})")
+                            same(name, edge_rows(fold, b), edge_rows(pfold, b),
+                                 f"the plain folded edges, member {b} ({what})")
+                        cases += 1
+                        if not twin:
+                            continue
+                        name = f"K3 twin {dtype}"
+                        key = "rk4_full_members_" + ("sharded" if dtype == "float32" else "apron")
+                        f, u = x[0].blocks[k], x[1].blocks[k]
+                        keep = (torch.randn_like(f), torch.randn_like(u))
+                        out = tuple(t.clone() for t in keep)
+                        one_launch(key, lambda: cuda_rhs.rk4_full_members_sharded(
+                            f, u, aprons[k], p, fu, 0.0, ids, out))
+                        pl = cuda_rhs.rk4_full_members_sharded_plain(f, u, aprons[k], p, fu, 0.0,
+                                                                     ids)
+                        for b in range(B):
+                            if b not in ids:
+                                same(name, (out[0][b], out[1][b]), (keep[0][b], keep[1][b]),
+                                     f"its untouched rows ({what})")
+                                continue
+                            want = cuda_rhs.rk4_full_sharded(f[b].contiguous(), u[b].contiguous(),
+                                                             singles[b][k], p, fu[b])
+                            same(name, (out[0][b], out[1][b]), want,
+                                 f"the single-shard kernel, member {b} ({what})")
+                            same(name, (out[0][b], out[1][b]), (pl[0][b], pl[1][b]),
+                                 f"its plain version, member {b} ({what})")
+                        cases += 1
+            del whole
+    torch.cuda.synchronize()
+
+    timed, entries = {}, {}
+    for B in FIXED_TIMED:
+        row = {}
+        for mname in ("y(2)", "x(2)"):
+            for dtype in ("float32", "float64"):
+                p = params(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE, "neumann", dtype=dtype)
+                h = p.dt / 2
+                (x, k1, k2, k3), topo = member_shards(rng, B, mname, dtype, 4)
+                axes = (topo.axis_y is not None, topo.axis_x is not None)
+                f = x[0].blocks[0]
+                ny_l, nx_l = f.shape[-2:]
+                itemsize = np.dtype(dtype).itemsize
+                e = [cuda_rhs.member_edges(b_, *axes) for b_ in x[0].blocks]
+                for kk in range(len(e)):
+                    cuda_rhs.halo_edges_members(shard_states([x], kk), 1, None, None, e[kk])
+                hk = topo.exchange(e)[0]
+                st = shard_states([x, k1, k2, k3], 0)
+                one = [(a[0].contiguous(), b_[0].contiguous()) for a, b_ in st]
+                out = (torch.empty_like(f), torch.empty_like(f))
+                fold = cuda_rhs.member_edges(f, *axes)
+                halo_vals = sum(g[0].numel() for g in (hk.rows, hk.cols) if g is not None)
+                edge_cells = (2 * nx_l if axes[0] else 0) + (2 * ny_l if axes[1] else 0)
+                ghost_bytes = B * 2 * halo_vals * itemsize  # ghosts read, edges folded
+                calls = {
+                    "K12.1 fixed": (
+                        lambda: cuda_rhs.blend_rhs_sharded_members_fixed(
+                            st[:2], [1.0, h], p, hk, 0.0, False, None, out, (1.0, h), fold),
+                        lambda: cuda_rhs.blend_rhs_sharded(
+                            one[:2], [1.0, h], p, hk.member(0),
+                            fold=cuda_rhs.Fold((1.0, h), *axes)),
+                        lambda: cuda_rhs.blend_rhs_sharded_members_fixed_plain(
+                            st[:2], [1.0, h], p, hk, 0.0, False, None, out, (1.0, h), fold),
+                        bound("K12.1 fixed", B * ny_l * nx_l, dtype, ghost_bytes)),
+                    "K12.3": (
+                        lambda: cuda_rhs.blend_rhs_sharded_members_fixed(
+                            st[:1], [1.0], p, hk, 0.0, True, None, out, (1.0,), fold),
+                        lambda: cuda_rhs.blend_rhs_sharded(
+                            one[:1], [1.0], p, hk.member(0), is_euler=True,
+                            fold=cuda_rhs.Fold((1.0,), *axes)),
+                        lambda: cuda_rhs.blend_rhs_sharded_members_fixed_plain(
+                            st[:1], [1.0], p, hk, 0.0, True, None, out, (1.0,), fold),
+                        bound("K12.3", B * ny_l * nx_l, dtype, ghost_bytes)),
+                    "K12.4": (
+                        lambda: cuda_rhs.rk4_final_stage_members(*st, p, 0.0, 0.0, None, out,
+                                                                 halo=hk, edges=fold),
+                        lambda: cuda_rhs.rk4_final_stage(*one, p, halo=hk.member(0),
+                                                         fold=cuda_rhs.Fold((1.0,), *axes)),
+                        lambda: cuda_rhs.rk4_final_stage_members_plain(*st, p, 0.0, 0.0, None,
+                                                                       out, hk, fold),
+                        bound("K12.4", B * ny_l * nx_l, dtype, ghost_bytes)),
+                    "gather": (
+                        lambda: cuda_rhs.halo_edges_members(st[:1], 1, None, None, fold),
+                        lambda: cuda_rhs.halo_edges(one[:1], [1.0], *axes),
+                        lambda: cuda_rhs.halo_edges_members_plain(st[:1], 1, None, None, fold),
+                        bound("K12.1 gather 1", B * edge_cells, dtype)),
+                }
+                for name, (batched, single, plain, bnd) in calls.items():
+                    us, one_us = graph_us(batched), graph_us(single)
+                    row[f"{name} {dtype} on {mname}"] = {
+                        "device_us_a_launch": us, "single_launches_us_times_B": one_us * B,
+                        "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"]}
+                    if B == 4 and mname == "x(2)":
+                        ms, plain_ms = time_pair(batched, plain, reps=10)
+                        entries[f"{name} {dtype}"] = {
+                            "max_abs_err": worst[f"{name} {dtype}"], "ms": ms,
+                            "plain_ms": plain_ms, **bnd, "library_ms": None}
+                del x, k1, k2, k3, st, one, out
+        for mname, dtype in K3_TWIN_TIMED:
+            cut = load_config(CONFIG, [RK4, CUT, f"[tpu]\ndtype = {dtype}\n"]).params
+            mesh, topo = mesh_of(mname)
+            gen = torch.Generator(device=DEVICE).manual_seed(0x3E + B)
+            F, U = (shard_field(torch.randn((B, cut.ny, cut.nx), generator=gen, device=DEVICE,
+                                            dtype=getattr(torch, dtype)), mesh, topo)
+                    for _ in range(2))
+            ap = topo.apron(F, U, cuda_rhs.RK4_SLAB_ROWS)[0]
+            one_ap = topo.apron(F.member(0), U.member(0), cuda_rhs.RK4_SLAB_ROWS)[0]
+            f, u = F.blocks[0], U.blocks[0]
+            f0, u0 = f[0].contiguous(), u[0].contiguous()
+            out = (torch.empty_like(f), torch.empty_like(u))
+            ny_l, nx_l = f.shape[-2:]
+            ghosts = sum(g[0].numel() for g in (ap.rows, ap.cols) if g is not None)
+            bnd = bound("K12.6" if dtype == "float32" else "K3", B * ny_l * nx_l, dtype,
+                        B * ghosts * np.dtype(dtype).itemsize)
+
+            def batched():
+                return cuda_rhs.rk4_full_members_sharded(f, u, ap, cut, 0.0, 0.0, None, out)
+
+            # the main path's shape: the kernel against its plain version and
+            # against one single-shard launch per member, bit for bit
+            name, what = f"K3 twin {dtype}", f"the 4096^2 cut's {mname} shard, B={B}"
+            one_launch("rk4_full_members_" + ("sharded" if dtype == "float32" else "apron"),
+                       batched)
+            same(name, out, cuda_rhs.rk4_full_members_sharded_plain(f, u, ap, cut, 0.0, 0.0),
+                 f"its plain version ({what})")
+            for b in range(B):
+                mine = topo.apron(F.member(b), U.member(b), cuda_rhs.RK4_SLAB_ROWS)[0]
+                same(name, (out[0][b], out[1][b]),
+                     cuda_rhs.rk4_full_sharded(f[b].contiguous(), u[b].contiguous(), mine, cut),
+                     f"the single-shard kernel, member {b} ({what})")
+            cases += 1
+            us = graph_us(batched, reps=10)
+            one_us = graph_us(lambda: cuda_rhs.rk4_full_sharded(f0, u0, one_ap, cut), reps=10)
+            row[f"K3 twin {dtype} on {mname} (4096^2 cut)"] = {
+                "device_us_a_launch": us, "single_launches_us_times_B": one_us * B,
+                "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"]}
+            if B == 4:
+                ms, plain_ms = time_pair(batched, lambda: cuda_rhs.rk4_full_members_sharded_plain(
+                    f, u, ap, cut, 0.0, 0.0, None, out), reps=2)
+                entries[name] = {"ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": None}
+            del F, U, ap, f, u, out
+            torch.cuda.empty_cache()
+        timed[f"B={B}"] = row
+    for name, entry in entries.items():
+        entry["max_abs_err"] = worst[name]
+    phase("Euler and RK4 mesh kernels over members (K12.1 and K12.3 at shared weights, K12.4, "
+          "the K3 twin, the gather at weight 1) vs plain and vs single-shard launches",
+          cases=cases, members=list(MESH_MEMBER_COUNTS), max_abs_err=worst, tol="bit for bit",
+          card=card_limit(), graph_replay_first_shard=timed,
+          kernels_line_at="B=4, an x(2) shard of 512^2 (512x256); the K3 twin on the 4096^2 "
+                          "cut's first shard (y(2) at float32, x(2) at float64)",
+          library="none: no PyTorch call computes them")
+    return entries
+
+
+def fixed_mesh_ensemble_path(name, mesh, overrides, want, batch=1, config=CONFIG,
+                             grow=True) -> dict:
+    """An Euler or RK4 ensemble (4 members of ENSEMBLE unless ``overrides``
+    say otherwise) through ``run_config_file`` on the named mesh of the one
+    card, with ``batch`` member groups: exactly the launches ``want(steps,
+    shards, groups)`` and nothing else, no plain call (``drive``); its
+    frames, members files and per-member stats; and member b, frame by
+    frame, its single run on the same mesh with noise_seed + b, bit for bit
+    in fields, t and iter."""
+    sy, sx = MESHES[mesh]
+    shards = sy * sx
+    where = f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\nbatch_shards = {batch}\n"
+    run = drive([ENSEMBLE, where, *overrides], config=config, frames=True, grow=grow,
+                device=[DEVICE] * (shards * batch), files=("stats_m001.csv",))
+    n, res, cfg = run["launches"], run["res"], run["cfg"]
+    expected = want(res.iters, shards, batch)
+    expect({k: v for k, v in n.items() if v} == expected and res.iters > 0,
+           f"launches {expected}", run)
+    expect(run["rkm_host_reads"] == {"rkm_attempt": 0, "rkm_attempt_members": 0},
+           "no host read of a Merson maximum", run)
+    if cfg.collect_stats and run["texts"]["stats_m001.csv"] is None:
+        raise AssertionError(f"{name}: no stats_m001.csv")
+    snaps = run["snaps"]
+    maps = sorted(f for f in snaps if f.startswith("maps_"))
+    if not {"F_mean", "F_std", "U_mean", "U_std"} <= set(snaps[maps[-1]].maps):
+        raise AssertionError(f"{maps[-1]} holds {sorted(snaps[maps[-1]].maps)}")
+    one_where = f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\nensemble = 1\n"
+    seeds = {}
+    for b in range(cfg.ensemble):
+        one = drive([ENSEMBLE, *overrides, one_where, f"[initial]\nnoise_seed = {b}\n"],
+                    config=config, frames=True, grow=grow, device=[DEVICE] * shards)
+        for frame in maps:
+            mine = snaps[frame.replace("maps_", "members_")]
+            meta = mine.maps["ensemble_meta"].reshape(-1)[3 * b:3 * b + 3]
+            theirs = one["snaps"][frame]
+            if not (np.array_equal(mine.maps[f"F_m{b:03d}"], theirs.maps["F"])
+                    and np.array_equal(mine.maps[f"U_m{b:03d}"], theirs.maps["U"])
+                    and (meta[0], meta[1]) == (theirs.time, theirs.iter)):
+                raise AssertionError(f"{name}: member {b} parts from its single mesh run at "
+                                     f"{frame}")
+        seeds[f"member {b}"] = {"steps": one["res"].iters,
+                                "single_mesh_run_ms_per_step": one["summary"]["ms_per_step"],
+                                "single_mesh_run_launches": one["summary"]["launches"]}
+    phase(name, shards=[sy, sx], batch_groups=batch,
+          launches_per_shard_and_group={k: v / (shards * batch) for k, v in expected.items()},
+          members_equal_single_mesh_runs="bit for bit", members=seeds, **run["summary"])
+    return n
+
+
+def fixed_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=50, traced=10) -> dict:
+    """config.ini as Euler and as RK4 ensembles (stats every step, noise)
+    on y(2), x(2) and 2x2 meshes of the one card at B members, beside the
+    single mesh stepper (``mesh_ensemble_rows``)."""
+    out = {solver: mesh_ensemble_rows(load_config(CONFIG, [over, ENSEMBLE]), Bs, steps, traced)
+           for solver, over in (("Euler", EULER), ("RK4", RK4))}
+    phase("Euler and RK4 ensembles on meshes timing (config.ini, noise_T = 0.02, stats every "
+          "step)", card=card_limit(), steps=steps, traced_steps=traced, solvers=out)
     return out
 
 
@@ -4992,6 +5438,45 @@ def main() -> None:
     }
     mesh_ensemble_timing()
     phase("ensembles on meshes: the phases' time", seconds=time.perf_counter() - t_mesh_members)
+    # Euler and RK4 ensembles on meshes of the one card: their mesh kernels
+    # over members, the paths, their timing
+    t_fixed_members = time.perf_counter()
+    fixed_k = check_mesh_fixed_members_kernels(rng)
+    euler_l, corr_l = euler_members_launches, corrector_members_launches
+    rk4_l = rk4_staged_members_launches
+    ens_fixed = {
+        "euler y(2)": fixed_mesh_ensemble_path(
+            "Euler ensemble path on a y(2) mesh, batch_shards = 2 (config.ini, ensemble = 4, "
+            "noise_T = 0.02, to 0.001)", "y(2)", [EULER, FIXED_ENSEMBLE_CUT], euler_l, batch=2),
+        **{f"euler {m}": fixed_mesh_ensemble_path(
+            f"Euler ensemble path on a {m} mesh (config.ini, ensemble = 4, to 0.001)", m,
+            [EULER, FIXED_ENSEMBLE_CUT], euler_l) for m in ("x(2)", "2x2")},
+        "euler corrector x(2)": fixed_mesh_ensemble_path(
+            "Euler ensemble corrector path on an x(2) mesh (3 passes, step residuals, "
+            "ensemble = 4, to 0.001)", "x(2)", [EULER, FIXED_CORRECTOR], corr_l),
+        **{f"rk4 {m}": fixed_mesh_ensemble_path(
+            f"RK4 ensemble path on a {m} mesh (config.ini, ensemble = 4, to 0.001, staged)", m,
+            [RK4, FIXED_ENSEMBLE_CUT], rk4_l) for m in MESHES},
+        "euler f64 2x2": fixed_mesh_ensemble_path(
+            "float64 Euler ensemble path on a 2x2 mesh (sweep config, stats on, ensemble = 4, "
+            "to 0.001)", "2x2", [FIXED_F64_CUT, FIXED_F64_STATS], euler_l, config=sweep("euler"),
+            grow=False),
+        "rk4 f64 2x2": fixed_mesh_ensemble_path(
+            "float64 RK4 ensemble path on a 2x2 mesh (sweep config, ensemble = 4, to 0.001)",
+            "2x2", [FIXED_F64_CUT], rk4_l, config=sweep("rk4"), grow=False),
+        "rk4 4096 y(2)": fixed_mesh_ensemble_path(
+            "RK4 ensemble path at 4096^2 on a y(2) mesh (config.ini's RK4, ensemble = 2, 20 "
+            "steps: K12.6 over members)", "y(2)", [RK4, FIXED_BIG],
+            rk4_whole_members_launches("rk4_full_members_sharded"), grow=False),
+        "rk4 f64 4096 x(2)": fixed_mesh_ensemble_path(
+            "float64 RK4 ensemble path at 4096^2 on an x(2) mesh (sweep config, ensemble = 2, "
+            "20 steps: the K13 K3 twin over members)", "x(2)", [FIXED_BIG],
+            rk4_whole_members_launches("rk4_full_members_apron"), config=sweep("rk4"),
+            grow=False),
+    }
+    fixed_mesh_ensemble_timing()
+    phase("Euler and RK4 ensembles on meshes: the phases' time",
+          seconds=time.perf_counter() - t_fixed_members)
     # differentiable runs on the one card: the adjoint solves on K8-K10
     diff = check_differentiable()
     check_autodiff_guards()
@@ -5253,6 +5738,36 @@ def main() -> None:
                      f"{pallas_rhs}:539",
                      sum(ens_mesh[m]["halo_edges_members"] for m in ("x(2)", "2x2")),
                      mesh_members_k["gather"]),
+        *(kernel_entry(f"{label}{' at float64' if dtype == 'float64' else ''} ({desc}; {what})",
+                       rhs_src, f"{pallas_rhs}:{line}",
+                       sum(ens_fixed[r].get(key, 0) for r in ens_fixed
+                           if ("f64" in r) == (dtype == "float64")),
+                       fixed_k[f"{name} {dtype}"])
+          for dtype in ("float32", "float64")
+          for name, label, desc, key, line, what in (
+              ("K12.1 fixed", "K12.1 blend_rhs_sharded_members_fixed",
+               "K12.1 over members at weights every member shares, folding the next stage's "
+               "edges", "blend_rhs_sharded_members_fixed", 705,
+               "the RK4 ensembles' k1-k3 and the Euler corrector's re-steps on the meshes"),
+              ("K12.3", "K12.3 blend_rhs_sharded_members_fixed, euler mode",
+               "K12.3 over members, folding the new state's edges",
+               "blend_rhs_sharded_members_euler", 744, "the Euler ensembles on the meshes"),
+              ("K12.4", "K12.4 rk4_final_stage_members with ghosts",
+               "K4 over members on a shard, folding the new state's edges",
+               "rk4_final_stage_members_sharded", 756, "the staged RK4 ensembles on the meshes"),
+              ("gather", "K12.1 ghost gather halo_edges_members at weight 1",
+               "a state's own edges over the live members", "halo_edges_members", 634,
+               "each Euler and RK4 mesh ensemble's first step and every corrector pass"))),
+        kernel_entry("K12.6 rk4_full_members_sharded (the K3 twin over members on a y-mesh "
+                     "shard from the member-major apron; the RK4 ensemble at 4096^2 on y(2))",
+                     rhs_src, f"{pallas_rhs}:1204",
+                     ens_fixed["rk4 4096 y(2)"]["rk4_full_members_sharded"],
+                     fixed_k["K3 twin float32"]),
+        kernel_entry("K3 twin rk4_full_members_apron at float64 (K13's K3 twin over members; "
+                     "the float64 RK4 ensemble at 4096^2 on x(2))", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:667",
+                     ens_fixed["rk4 f64 4096 x(2)"]["rk4_full_members_apron"],
+                     fixed_k["K3 twin float64"]),
         *(kernel_entry(f"{k} {label} at {dtype} (the port's differentiable semi-implicit "
                        f"path, which runs the default route's {k} where JAX's runs XLA's CG: "
                        "forward and adjoint CG solves of d mean Phi / d U0 at 512^2)", cg_src,

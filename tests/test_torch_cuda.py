@@ -2453,3 +2453,217 @@ def test_mesh_members_rkm_steps_equal_single_mesh_steps(mesh, dtype, cuda_device
             assert stats.member(b).attempts == s1.attempts
             retried |= s1.attempts > 1
     assert retried
+
+
+# The Euler and RK4 ensembles' mesh kernels over members, at weights every
+# member shares (a fixed dt): K12.1 and K12.3 over members (the weights mode
+# of K12.1 over members), K12.4 over members with its fold, the K3 twin over
+# members (K12.6 at float32 on a y-mesh, the K13 twin at float64), and the
+# gather at weight 1; each member as the single-shard kernel on its fields
+# and ghosts bit for bit, and as the plain members version.
+FIXED_MEMBER_CASES = [((2, 1), "float32"), ((1, 2), "float32"), ((2, 2), "float32"),
+                      ((2, 1), "float64"), ((2, 2), "float64")]
+
+
+def _member_halo(gen, B, axes, ny_l, nx_l, edges, dtype, device):
+    from bachelors_tpu_torch.core.boundary import Halo
+
+    return Halo(*(None if not on else torch.from_numpy(
+        gen.normal(size=(B, 2, 2, n)).astype(dtype)).to(device)
+        for on, n in zip(axes, (nx_l, ny_l))), edges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mesh,dtype", FIXED_MEMBER_CASES)
+def test_mesh_members_fixed_weight_kernels_equal_single_shard_per_member(
+        B, mesh, dtype, gen, cuda_device):  # noqa: F811
+    """K12.1 over members at [1] and [1, dt/2] folding [1, dt/2] (RK4's
+    stages), K12.3 over members folding its output (Euler), K12.4 over
+    members folding its output, and the gather at weight 1 (taus None), on
+    every shard at both S."""
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    sy, sx = mesh
+    topo = Topology(sy, sx)
+    axes = (sy > 1, sx > 1)
+    ny, nx = 66, 130
+    for S in (0.25, 0.0):
+        p = _params(ny, nx, "dirichlet", "neumann", S, 6.0).replace(dtype=dtype, dt=2e-5)
+        h = p.dt / 2
+        ids = list(range(B)) if B < 3 else [B - 1, 0, 1]
+        fu = [0.01 * (b + 1) for b in range(B)]
+        x, k1, k2, k3 = _member_shards(gen, B, sy, sx, ny, nx, dtype, cuda_device, 4)
+        for k in range(sy * sx):
+            shard = [(A.blocks[k], C.blocks[k]) for A, C in (x, k1, k2, k3)]
+            ny_l, nx_l = shard[0][0].shape[-2:]
+            halo = _member_halo(gen, B, axes, ny_l, nx_l, topo.shard_edges(*divmod(k, sx)),
+                                dtype, cuda_device)
+
+            def mine(b, states):
+                return [(F[b].contiguous(), U[b].contiguous()) for F, U in states]
+
+            edges = cuda_rhs.member_edges(shard[0][0], *axes)
+            _one_launch(cuda_rhs, "halo_edges_members", lambda: cuda_rhs.halo_edges_members(
+                shard[:1], 1, None, ids, edges))
+            plain = cuda_rhs.halo_edges_members_plain(shard[:1], 1, None, ids,
+                                                      cuda_rhs.member_edges(shard[0][0], *axes))
+            for b in ids:
+                want = cuda_rhs.halo_edges(mine(b, shard[:1]), [1.0], *axes)
+                for e, pe, we in zip(edges, plain, want):
+                    if we is not None:
+                        assert torch.equal(e[b], we) and torch.equal(pe[b], we), b
+            for states, weights, nxt, is_euler in (
+                    (shard[:1], [1.0], (1.0, h), False), ([shard[0], shard[1]], [1.0, h],
+                                                          (1.0, p.dt), False),
+                    (shard[:1], [1.0], (1.0,), True), ([shard[0], shard[1]], [1.0, h], None,
+                                                       False)):
+                key = ("blend_rhs_sharded_members_euler" if is_euler
+                       else "blend_rhs_sharded_members_fixed")
+                out = (torch.randn_like(shard[0][0]), torch.randn_like(shard[0][0]))
+                keep = tuple(t.clone() for t in out)
+                fold = None if nxt is None else cuda_rhs.member_edges(shard[0][0], *axes)
+                _one_launch(cuda_rhs, key, lambda: cuda_rhs.blend_rhs_sharded_members_fixed(
+                    states, weights, p, halo, fu, is_euler, ids, out, nxt, fold))
+                pfold = None if nxt is None else cuda_rhs.member_edges(shard[0][0], *axes)
+                pl = cuda_rhs.blend_rhs_sharded_members_fixed_plain(
+                    states, weights, p, halo, fu, is_euler, ids, None, nxt, pfold)
+                for b in range(B):
+                    if b not in ids:
+                        assert torch.equal(out[0][b], keep[0][b]) and torch.equal(
+                            out[1][b], keep[1][b]), b
+                        continue
+                    want = cuda_rhs.blend_rhs_sharded(
+                        mine(b, states), weights, p, halo.member(b), fu[b], 0.0, is_euler,
+                        None if nxt is None else cuda_rhs.Fold(tuple(nxt), *axes))
+                    assert _same((out[0][b], out[1][b]), want[:2]), (S, k, b, weights, is_euler)
+                    assert _same((out[0][b], out[1][b]), (pl[0][b], pl[1][b])), (S, k, b)
+                    if nxt is not None:
+                        for e, pe, we in zip(fold, pfold, want[2]):
+                            if we is not None:
+                                assert torch.equal(e[b], we) and torch.equal(pe[b], we), b
+            out = (torch.randn_like(shard[0][0]), torch.randn_like(shard[0][0]))
+            keep = tuple(t.clone() for t in out)
+            fold = cuda_rhs.member_edges(shard[0][0], *axes)
+            _one_launch(cuda_rhs, "rk4_final_stage_members_sharded",
+                        lambda: cuda_rhs.rk4_final_stage_members(*shard, p, fu, 0.0, ids, out,
+                                                                 halo, fold))
+            pfold = cuda_rhs.member_edges(shard[0][0], *axes)
+            pl = cuda_rhs.rk4_final_stage_members_plain(*shard, p, fu, 0.0, ids, None, halo,
+                                                        pfold)
+            for b in range(B):
+                if b not in ids:
+                    assert torch.equal(out[0][b], keep[0][b]) and torch.equal(out[1][b], keep[1][b])
+                    continue
+                want = cuda_rhs.rk4_final_stage(*mine(b, shard), p, fu[b], 0.0, halo.member(b),
+                                                cuda_rhs.Fold((1.0,), *axes))
+                assert _same((out[0][b], out[1][b]), want[:2]), (S, k, b)
+                assert _same((out[0][b], out[1][b]), (pl[0][b], pl[1][b])), (S, k, b)
+                for e, pe, we in zip(fold, pfold, want[2]):
+                    if we is not None:
+                        assert torch.equal(e[b], we) and torch.equal(pe[b], we), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mesh,dtype", [((2, 1), "float32"), ((2, 1), "float64"),
+                                        ((1, 2), "float64"), ((2, 2), "float64")])
+def test_mesh_members_k3_twin_equals_single_shard_per_member(B, mesh, dtype, gen,
+                                                             cuda_device):  # noqa: F811
+    """The K3 twin over members (K12.6's at float32 on y(2), the K13 twin's
+    at float64) from the member-major apron: each member the single-shard
+    twin on its fields and apron bit for bit, and the plain version; rows of
+    members a launch skips untouched."""
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    sy, sx = mesh
+    topo = Topology(sy, sx)
+    key = "rk4_full_members_" + ("sharded" if dtype == "float32" else "apron")
+    for S in (0.25, 0.0):
+        p = _params(64, 96, "neumann", "periodic", S, 6.0).replace(dtype=dtype, dt=2e-6)
+        (Fs, Us), = _member_shards(gen, B, sy, sx, 64, 96, dtype, cuda_device)
+        aprons = topo.apron(Fs, Us, cuda_rhs.RK4_SLAB_ROWS)
+        ids = list(range(B)) if B < 3 else [B - 1, 0, 1]
+        fu = [0.01 * (b + 1) for b in range(B)]
+        singles = {b: topo.apron(Fs.member(b), Us.member(b), cuda_rhs.RK4_SLAB_ROWS)
+                   for b in ids}
+        for k, (F, U) in enumerate(zip(Fs.blocks, Us.blocks)):
+            keep = (torch.randn_like(F), torch.randn_like(U))
+            got = _one_launch(cuda_rhs, key, lambda: cuda_rhs.rk4_full_members_sharded(
+                F, U, aprons[k], p, fu, 0.0, ids, tuple(t.clone() for t in keep)))
+            plain = cuda_rhs.rk4_full_members_sharded_plain(F, U, aprons[k], p, fu, 0.0, ids)
+            for b in range(B):
+                if b not in ids:
+                    assert torch.equal(got[0][b], keep[0][b]) and torch.equal(got[1][b], keep[1][b])
+                    continue
+                want = cuda_rhs.rk4_full_sharded(F[b].contiguous(), U[b].contiguous(),
+                                                 singles[b][k], p, fu[b])
+                assert _same((got[0][b], got[1][b]), want), (S, k, b)
+                assert _same((got[0][b], got[1][b]), (plain[0][b], plain[1][b])), (S, k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["explicit", "explicit-rk4"])
+@pytest.mark.parametrize("mesh,dtype", [((2, 1), "float32"), ((1, 2), "float32"),
+                                        ((2, 2), "float32"), ((2, 1), "float64"),
+                                        ((2, 2), "float64")])
+def test_mesh_members_fixed_steps_equal_single_mesh_steps(solver, mesh, dtype, cuda_device,
+                                                          monkeypatch):  # noqa: F811
+    """Euler (with the corrector loop and step residuals) and RK4 ensembles
+    on a mesh of the card: each member's step equals its single mesh
+    stepper's bit for bit (fields, t, iter, carried edges), a frozen member
+    untouched; RK4 also on the whole-step route (the K3 twin over members,
+    its threshold patched down to the shard's cells); each stage one launch
+    per shard."""
+    import dataclasses
+
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.core.state import make_state, member, stack_states
+    from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
+    from bachelors_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from bachelors_tpu_torch.parallel.sharded import make_ensemble_stepper, make_sharded_stepper
+    from bachelors_tpu_torch.solvers import explicit
+
+    sy, sx = mesh
+    extra = ({"do_corrector_loop": True, "corrector_max_iters": 2,
+              "do_stats_step_residual": True} if solver == "explicit" else {})
+    p = SimParams(nx=128, ny=128, L0=4.0, S=0.25, m0=6.0, dtype=dtype, dt=1e-5,
+                  solver=SolverType(solver), do_stats=True, **extra)
+    ic = InitialConditions(circle_center=(2.0, 2.0), circle_radius=0.5, noise_T=0.05)
+    m, topo = make_mesh(sy, sx, [cuda_device] * (sy * sx))
+    routes = ["staged"]
+    if solver == "explicit-rk4" and (dtype == "float64" or sx == 1):
+        routes.append("whole")
+    for route in routes:
+        if route == "whole":
+            monkeypatch.setattr(explicit, "RK4_FULLSTEP_MIN_CELLS", (128 // sy) * (128 // sx))
+        singles = [shard_state(make_state(*make_initial_fields(p, dataclasses.replace(
+            ic, noise_seed=b), device=cuda_device), p, device=cuda_device), m, topo)
+            for b in range(3)]
+        ens = shard_state(stack_states([s.replace(F=s.F.gather(), U=s.U.gather())
+                                        for s in singles]), m, topo)
+        step, one = make_ensemble_stepper(p, m, topo), make_sharded_stepper(p, m, topo)
+        for k in range(4):
+            live = np.array([True, False, True]) if k == 2 else None
+            before = member(ens, 1)
+            cuda_rhs.reset_launch_counts()
+            ens, stats = step(ens, live)
+            launched = {key: v for key, v in cuda_rhs.LAUNCHES.items() if v}
+            assert launched and all("members" in key for key in launched), launched
+            assert all(v % (sy * sx) == 0 for v in launched.values()), launched
+            for b in range(3):
+                mb = member(ens, b)
+                if live is not None and not live[b]:
+                    assert torch.equal(mb.F.gather(), before.F.gather())
+                    continue
+                singles[b], s1 = one(singles[b])
+                assert torch.equal(mb.F.gather(), singles[b].F.gather()), (route, k, b)
+                assert torch.equal(mb.U.gather(), singles[b].U.gather()), (route, k, b)
+                assert (mb.t, mb.iter) == (singles[b].t, singles[b].iter)
+                if (mb.F.edges is None) != (singles[b].F.edges is None):
+                    raise AssertionError(f"member {b} carries edges {mb.F.edges is not None}, "
+                                         f"its single run {singles[b].F.edges is not None}")
+                if mb.F.edges is not None:
+                    for mine, theirs in zip(mb.F.edges, singles[b].F.edges):
+                        for e, w in zip(mine, theirs):
+                            assert (e is None and w is None) or torch.equal(e, w)

@@ -39,6 +39,7 @@ from bachelors_tpu_torch.solvers.explicit import rkm_adaptive_members
 from bachelors_tpu_torch.solvers.run import advance_until_members
 
 from test_io_driver import CONFIG_TEXT
+from torch_parity import own_folder
 
 torch.set_num_threads(2)
 
@@ -442,12 +443,13 @@ def test_ensemble_resume_fixed_dt(tmp_path, monkeypatch):
     full run equals half a run and its resumed half."""
     monkeypatch.chdir(tmp_path)
     base = _text()
-    Path("full.ini").write_text(base)
+    Path("full.ini").write_text(base + own_folder("full"))
     full = run_config_file("full.ini", device="cpu")
-    Path("half1.ini").write_text(base.replace("stop_after = 0.00002", "stop_after = 0.00001"))
+    Path("half1.ini").write_text(base.replace("stop_after = 0.00002", "stop_after = 0.00001")
+                                 + own_folder("half1"))
     mid = os.path.join(run_config_file("half1.ini", device="cpu").save_folder,
                        "members_0001.bin")
-    Path("half2.ini").write_text(base + f"\n[initial]\ninit_path = {mid}\n")
+    Path("half2.ini").write_text(base + f"\n[initial]\ninit_path = {mid}\n" + own_folder("half2"))
     res2 = run_config_file("half2.ini", device="cpu")
     assert res2.iters == full.iters == 4
     a, b = _frame(res2, "members_0001.bin"), _frame(full, "members_0001.bin")
@@ -527,9 +529,11 @@ def test_ensemble_member_equals_single_run_with_its_seed(tmp_path, monkeypatch):
     ("[simulation]\nsolver = semi-implicit\n", None),
     ("[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\nmesh_size_y = 2048\n", None),
     # on a spatial mesh an ensemble runs RKM and the exact solver
-    # (tests/test_torch_ensemble_mesh.py); Euler, RK4 and semi-implicit wait
-    # for their mesh kernels over members (item 7e)
-    ("[tpu]\nshards_y = 2\n", "item 7e"),
+    # (tests/test_torch_ensemble_mesh.py), Euler and RK4
+    # (tests/test_torch_ensemble_mesh_fixed.py); semi-implicit waits for its
+    # mesh kernels over members (item 7e)
+    ("[tpu]\nshards_y = 2\n", None),
+    ("[tpu]\nshards_y = 2\n[simulation]\nsolver = semi-implicit\n", "item 7e"),
     # batch_shards alone splits the members into groups, each a one-device
     # ensemble: every solver runs
     ("[tpu]\nbatch_shards = 2\n", None),

@@ -57,6 +57,7 @@ from bachelors_tpu_torch.solvers import explicit
 from bachelors_tpu_torch.solvers.base import make_stepper
 
 from test_io_driver import CONFIG_TEXT
+from torch_parity import own_folder
 
 torch.set_num_threads(2)
 
@@ -346,12 +347,13 @@ def test_resume_a_mesh_ensemble_from_its_members_file(tmp_path, monkeypatch):
     and (t, iter, tau) bit for bit."""
     monkeypatch.chdir(tmp_path)
     base = _ini(extra="[snapshot]\nsnapshot_initial_conditions = 0\n")
-    Path("full.ini").write_text(base)
+    Path("full.ini").write_text(base + own_folder("full"))
     full = run_config_file("full.ini", device=_cpu(4))
-    Path("half1.ini").write_text(base.replace("stop_after = 0.00002", "stop_after = 0.00001"))
+    Path("half1.ini").write_text(base.replace("stop_after = 0.00002", "stop_after = 0.00001")
+                                 + own_folder("half1"))
     mid = os.path.join(run_config_file("half1.ini", device=_cpu(4)).save_folder,
                        "members_0001.bin")
-    Path("half2.ini").write_text(base + f"\n[initial]\ninit_path = {mid}\n")
+    Path("half2.ini").write_text(base + f"\n[initial]\ninit_path = {mid}\n" + own_folder("half2"))
     res2 = run_config_file("half2.ini", device=_cpu(4))
     assert res2.iters == full.iters
     a = load_bin_maps(os.path.join(res2.save_folder, "members_0001.bin"))
@@ -483,12 +485,12 @@ def test_shards_hold_members_and_groups():
      None),
     ("[tpu]\nbatch_shards = 2\n", None, None),  # a single run ignores it, as JAX's
     ("[tpu]\nensemble = 3\nbatch_shards = 2\n", ValueError, "divisible by batch_shards"),
-    ("[tpu]\nensemble = 2\nshards_y = 2\n[simulation]\nsolver = explicit\n",
-     NotImplementedError, "item 7e"),
-    ("[tpu]\nensemble = 2\nshards_x = 2\n[simulation]\nsolver = explicit-rk4\n",
-     NotImplementedError, "item 7e"),
+    ("[tpu]\nensemble = 2\nshards_y = 2\n[simulation]\nsolver = explicit\n", None, None),
+    ("[tpu]\nensemble = 2\nshards_x = 2\n[simulation]\nsolver = explicit-rk4\n", None, None),
     ("[tpu]\nensemble = 2\nshards_y = 2\nshards_x = 2\n[simulation]\nsolver = semi-implicit\n",
      NotImplementedError, "item 7e"),
+    ("[tpu]\nensemble = 4\nshards_y = 2\nbatch_shards = 2\n[simulation]\n"
+     "solver = semi-implicit\n", NotImplementedError, "semi-implicit ensembles on a spatial"),
 ])
 def test_check_supported_takes_rkm_mesh_ensembles(extra, error, match):
     cfg = parse_config(CONFIG_TEXT.replace("solver = explicit",
@@ -501,12 +503,16 @@ def test_check_supported_takes_rkm_mesh_ensembles(extra, error, match):
 
 
 def test_the_steppers_refuse_what_they_do_not_run():
-    """The mesh ensemble stepper refuses Euler, RK4 and semi-implicit on a
-    spatial mesh (item 7e); the single mesh stepper refuses member groups."""
+    """The mesh ensemble stepper refuses semi-implicit on a spatial mesh
+    (item 7e) and builds Euler and RK4 ones; the single mesh stepper
+    refuses member groups."""
     mesh, topo = make_mesh(2, 1, _cpu(2))
-    for solver in ("explicit", "explicit-rk4", "semi-implicit"):
+    for solver in ("semi-implicit",):
         with pytest.raises(NotImplementedError, match="item 7e"):
             make_ensemble_stepper(_params("float64", solver=SolverType(solver)), mesh, topo)
+    for solver in ("explicit", "explicit-rk4"):
+        assert callable(make_ensemble_stepper(_params("float64", solver=SolverType(solver)),
+                                              mesh, topo))
     gmesh, gtopo = make_mesh(2, 1, _cpu(4), batch=2)
     with pytest.raises(ValueError, match="member groups"):
         make_sharded_stepper(_params("float64"), gmesh, gtopo)

@@ -36,6 +36,7 @@ from bachelors_tpu_torch.solvers.base import make_stepper
 from bachelors_tpu_torch.solvers.run import advance_until_members
 
 from test_torch_ensemble import _both, _csv, _frame, _text
+from torch_parity import own_folder
 
 torch.set_num_threads(2)
 
@@ -329,12 +330,13 @@ def test_si_ensemble_resume_is_bit_exact(tmp_path, monkeypatch):
     equals half a run and its resumed half, every member bit for bit."""
     monkeypatch.chdir(tmp_path)
     base = _text("semi-implicit")
-    Path("full.ini").write_text(base)
+    Path("full.ini").write_text(base + own_folder("full"))
     full = run_config_file("full.ini", device="cpu")
-    Path("half1.ini").write_text(base.replace("stop_after = 0.00002", "stop_after = 0.00001"))
+    Path("half1.ini").write_text(base.replace("stop_after = 0.00002", "stop_after = 0.00001")
+                                 + own_folder("half1"))
     mid = os.path.join(run_config_file("half1.ini", device="cpu").save_folder,
                        "members_0001.bin")
-    Path("half2.ini").write_text(base + f"\n[initial]\ninit_path = {mid}\n")
+    Path("half2.ini").write_text(base + f"\n[initial]\ninit_path = {mid}\n" + own_folder("half2"))
     res2 = run_config_file("half2.ini", device="cpu")
     assert res2.iters == full.iters == 4
     a, b = _frame(res2, "members_0001.bin"), _frame(full, "members_0001.bin")

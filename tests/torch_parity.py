@@ -82,3 +82,12 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA); runs on the card")
     return torch.device("cuda")
+
+
+def own_folder(name: str) -> str:
+    """An ini fragment that gives a driver run the snapshot folder ``name``
+    of its own.  A run folder is named by the wall-clock second it starts
+    in (``io/snapshot.make_save_folder``), so two runs of one test that
+    start in the same second in one folder would write the same run folder,
+    the later one's frames over the earlier one's."""
+    return f"\n[snapshot]\nfolder = {name}\n"
