@@ -64,7 +64,7 @@ from ..models.initial import make_initial_fields
 from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
 from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 from ..parallel.topology import Topology
-from ..solvers.base import MESH_MEMBERS_TODO, make_stepper
+from ..solvers.base import make_stepper
 from ..solvers.explicit import make_euler_pair_stepper
 from ..solvers.run import END_TOLERANCE, advance_n
 from ..solvers.semi_implicit import cg_branch
@@ -103,9 +103,6 @@ def check_supported(cfg: SimConfig) -> None:
         raise ValueError(f"[tpu] ensemble={cfg.ensemble} must be divisible "
                          f"by batch_shards={cfg.batch_shards}")
     todo = []
-    if (cfg.ensemble > 1 and cfg.shards_y * cfg.shards_x > 1
-            and cfg.params.solver == SolverType.SEMI_IMPLICIT):
-        todo.append(f"[tpu] {MESH_MEMBERS_TODO}")
     if cfg.multihost:
         todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")
     if cfg.interactive:

@@ -132,6 +132,21 @@
 //     whatever it moves (K15.1 at 256^2, 0.79 MB, PERF.md §6), so the
 //     interior blocks' direct reads take off a few percent at most.
 //
+// K12.8 over members bt_matvec_pAp_halo_members and K14's twin over
+//     members bt_si_residual_halo_members: replace, under `jax.vmap` of the
+//     semi-implicit step inside `shard_map` (`bachelors_tpu/parallel/
+//     sharded.py:56-71`), `pallas_cg.py:cross_/aniso_matvec_pAp_sharded`
+//     (:238, :249 -> `pallas_call` :185) and `pallas_dd.py:cross_/aniso_/
+//     heat_residual_dd_sharded` (:1014, :1027, :1039 -> `pallas_call` :930).
+//     K8 over members and K14 over members with each member's rows of
+//     member-major ghosts (the gather over members of (p, p), of (e, e), at
+//     stage 1, then the ring exchange): a member's A p, its shard-local
+//     <p, A p> (K12.8's fixed order, so `pAp_in_kernel_order` reproduces
+//     it) and its residual equal the single-shard K12.8's and K14 twin's bit
+//     for bit.  The launch slots' lanes and tickets are K8 over members':
+//     a launch over any subset of the members leaves every counter at 0.
+//     Bound by bytes like K12.8 and the K14 twin, B times them.
+//
 // K8, K8b, K9, K10 and K14 over members: the same sites as `jax.vmap` of
 //     the semi-implicit step runs them (K8b where it runs `cg_solve_fused`,
 //     JAX's `solvers/semi_implicit.py:186-193`, :217-218), each
@@ -324,7 +339,10 @@ __global__ void __launch_bounds__(kCgThreads)
 // z's lanes and ticket, `stride` values a slot (the unbatched kernel's
 // buffer), and its <p, A p> into pAp[id[z]].  Each slot's counter wraps
 // back to 0 with its member's last draw, so a launch over any subset of
-// the members leaves every counter as it found it.
+// the members leaves every counter as it found it.  With member-major
+// ghosts of (p, p) (h; whole_grid for K8), K12.8 over members on a shard:
+// member id[z]'s blocks read its rows of the ghosts (`member_halo`) and
+// sum its shard-local <p, A p> in K12.8's order.
 //
 // BLEND: K8b over members, the same body reading p' = r + beta p of its
 // member (r and p_out at the member's offset too), beta = rr_new[id] /
@@ -340,7 +358,8 @@ __global__ void __launch_bounds__(kCgThreads)
                               const Real* __restrict__ rr, Real eps, Real* __restrict__ p_out,
                               Real* __restrict__ out, Real* partials, Real* __restrict__ pAp,
                               int ny, int nx, int tiles_x, int tiles, int stride, int bc,
-                              Real C, Real X, Real Y, const __grid_constant__ Members<Real> m) {
+                              Real C, Real X, Real Y, Halo<Real> h,
+                              const __grid_constant__ Members<Real> m) {
   const int id = m.id[blockIdx.y];
   const size_t off = member_offset(m, blockIdx.y, ny, nx);
   Real* lanes = partials + size_t(blockIdx.y) * size_t(stride);
@@ -351,7 +370,7 @@ __global__ void __launch_bounds__(kCgThreads)
                                         BLEND ? r + off : nullptr, &beta,
                                         BLEND ? p_out + off : nullptr, out + off, lanes, ticket,
                                         pAp + id, ny, nx, tiles_x, tiles, bc, C, X, Y,
-                                        whole_grid<Real>());
+                                        member_halo(h, id, ny, nx));
 }
 
 // ---------------------------------------------------------------- K9 ----
@@ -565,18 +584,20 @@ __global__ void __launch_bounds__(kCgThreads)
 
 // K14 over members: blockIdx.z is launch member z (ensemble member id[z]),
 // its blocks K14's body on its own e, r0, a, b, x and out (the planes its
-// mode reads).
+// mode reads).  With member-major ghosts of (e, e) (h; whole_grid for K14),
+// K14's twin over members on a shard, each member reading its rows of them.
 template <int MODE, class Real>
 __global__ void __launch_bounds__(kCgThreads)
     si_residual_members_kernel(const Real* __restrict__ e, const Real* __restrict__ r0,
                                const Real* __restrict__ a, const Real* __restrict__ b,
                                const Real* __restrict__ x, Real* __restrict__ out, int ny,
-                               int nx, int bc, Real C, Real X, Real Y, Real L,
+                               int nx, int bc, Real C, Real X, Real Y, Real L, Halo<Real> h,
                                const __grid_constant__ Members<Real> m) {
   const size_t off = member_offset(m, blockIdx.z, ny, nx);
   si_residual_block<MODE>(e + off, r0 + off, a != nullptr ? a + off : nullptr,
                           b != nullptr ? b + off : nullptr, x != nullptr ? x + off : nullptr,
-                          out + off, ny, nx, bc, C, X, Y, L, whole_grid<Real>());
+                          out + off, ny, nx, bc, C, X, Y, L,
+                          member_halo(h, m.id[blockIdx.z], ny, nx));
 }
 
 // ------------------------------------------------------------ launches ----
@@ -680,11 +701,11 @@ int si_residual(const Real* e, const Real* r0, const Real* a, const Real* b, con
 // of bt_cg_num_partials(ny, nx) values, each slot's ticket zeroed once.
 
 // K8 over members (r null) or K8b over members (r, rr_new, rr and p_out
-// given)
+// given); with member-major ghosts h (K8 only), K12.8 over members
 template <class Real>
 int matvec_pAp_members(const Real* p, const Real* s, const Real* r, const Real* rr_new,
                        const Real* rr, Real eps, Real* p_out, Real* out, Real* partials,
-                       Real* pAp, int ny, int nx, int bc, Real C, Real X, Real Y,
+                       Real* pAp, int ny, int nx, int bc, Real C, Real X, Real Y, Halo<Real> h,
                        const Members<Real>* m, int count, cudaStream_t stream) {
   if (!members_ok(count)) return int(cudaErrorInvalidValue);
   const dim3 g = matvec_grid(ny, nx);
@@ -693,7 +714,7 @@ int matvec_pAp_members(const Real* p, const Real* s, const Real* r, const Real* 
 #define BT_MATVEC_MEMBERS(WS, BL)                                                             \
   matvec_pAp_members_kernel<WS, BL><<<grid, block, 0, stream>>>(                              \
       p, s, r, rr_new, rr, eps, p_out, out, partials, pAp, ny, nx, int(g.x), tiles, stride, bc, \
-      C, X, Y, *m)
+      C, X, Y, h, *m)
   if (r != nullptr) {
     if (s != nullptr)
       BT_MATVEC_MEMBERS(true, true);
@@ -737,18 +758,19 @@ int advance_p_members(const Real* r, Real* p, const Real* rr_new, const Real* rr
   return int(cudaGetLastError());
 }
 
+// K14 over members (h = whole_grid) or its twin over members on a shard
 template <class Real>
 int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real* b,
                         const Real* x, Real* out, int ny, int nx, int bc, int mode, Real C,
-                        Real X, Real Y, Real L, const Members<Real>* m, int count,
-                        cudaStream_t stream) {
+                        Real X, Real Y, Real L, Halo<Real> h, const Members<Real>* m,
+                        int count, cudaStream_t stream) {
   if (!members_ok(count)) return int(cudaErrorInvalidValue);
   dim3 grid = matvec_grid(ny, nx);
   grid.z = count;
   const dim3 block(kCgBlockX, kCgBlockY);
 #define BT_RES_MEMBERS(MODE)                                                               \
   si_residual_members_kernel<MODE><<<grid, block, 0, stream>>>(e, r0, a, b, x, out, ny, nx, \
-                                                               bc, C, X, Y, L, *m)
+                                                               bc, C, X, Y, L, h, *m)
   switch (mode) {
     case kResCross: BT_RES_MEMBERS(kResCross); break;
     case kResAniso: BT_RES_MEMBERS(kResAniso); break;
@@ -851,14 +873,21 @@ int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real
 //   K10 bt_advance_p_members: p = r + beta p of member id, beta = rr_new[id]
 //      / (rr[id] < eps ? eps : rr[id]).
 //   K14 bt_si_residual_members: K14 in `mode` on each member's planes.
+// On a shard of a mesh, with member-major ghosts rows (B, 2, 2, nx) and
+// cols (B, 2, 2, ny) (null along an axis that is not sharded) and the
+// shard's global edge bits, as K12.8's and the K14 twin's:
+//   K12.8 bt_matvec_pAp_halo_members: K8 over members reading each member's
+//      ghosts of (p, p); pAp[id] = the member's shard-local <p, A p>.
+//   K14 twin bt_si_residual_halo_members: K14 over members reading each
+//      member's ghosts of (e, e).
 #define BT_CG_MEMBERS_ENTRIES(SFX, S)                                                  \
   int bt_matvec_pAp_members_##SFX(const S* p, const S* s, S* out, S* partials, S* pAp, \
                                   int ny, int nx, int bc, S C, S X, S Y,              \
                                   const bt::Members<S>* m, int count,                 \
                                   cudaStream_t stream) {                              \
     return bt::matvec_pAp_members<S>(p, s, nullptr, nullptr, nullptr, S(0), nullptr, out, \
-                                     partials, pAp, ny, nx, bc, C, X, Y, m, count,    \
-                                     stream);                                         \
+                                     partials, pAp, ny, nx, bc, C, X, Y,              \
+                                     bt::whole_grid<S>(), m, count, stream);          \
   }                                                                                    \
   int bt_advance_p_matvec_members_##SFX(const S* r, const S* p, const S* s,            \
                                         const S* rr_new, const S* rr, S eps,           \
@@ -867,7 +896,8 @@ int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real
                                         const bt::Members<S>* m, int count,            \
                                         cudaStream_t stream) {                         \
     return bt::matvec_pAp_members<S>(p, s, r, rr_new, rr, eps, p_out, out, partials,  \
-                                     pAp, ny, nx, bc, C, X, Y, m, count, stream);     \
+                                     pAp, ny, nx, bc, C, X, Y, bt::whole_grid<S>(), m, \
+                                     count, stream);                                  \
   }                                                                                    \
   int bt_update_xr_rr_members_##SFX(S* x, S* r, const S* p, const S* Ap, const S* rr, \
                                     const S* pAp, S eps, S* partials, S* rr_out,      \
@@ -887,7 +917,26 @@ int si_residual_members(const Real* e, const Real* r0, const Real* a, const Real
                                    const bt::Members<S>* m, int count,                \
                                    cudaStream_t stream) {                             \
     return bt::si_residual_members<S>(e, r0, a, b, x, out, ny, nx, bc, mode, C, X, Y, \
-                                      L, m, count, stream);                           \
+                                      L, bt::whole_grid<S>(), m, count, stream);      \
+  }                                                                                    \
+  int bt_matvec_pAp_halo_members_##SFX(const S* p, const S* s, S* out, S* partials,    \
+                                       S* pAp, int ny, int nx, int bc, S C, S X, S Y,  \
+                                       const S* rows, const S* cols, int edges,        \
+                                       const bt::Members<S>* m, int count,             \
+                                       cudaStream_t stream) {                          \
+    return bt::matvec_pAp_members<S>(p, s, nullptr, nullptr, nullptr, S(0), nullptr, out, \
+                                     partials, pAp, ny, nx, bc, C, X, Y,              \
+                                     bt::Halo<S>{rows, cols, edges}, m, count, stream); \
+  }                                                                                    \
+  int bt_si_residual_halo_members_##SFX(const S* e, const S* r0, const S* a,           \
+                                        const S* b, const S* x, S* out, int ny, int nx, \
+                                        int bc, int mode, S C, S X, S Y, S L,          \
+                                        const S* rows, const S* cols, int edges,       \
+                                        const bt::Members<S>* m, int count,            \
+                                        cudaStream_t stream) {                         \
+    return bt::si_residual_members<S>(e, r0, a, b, x, out, ny, nx, bc, mode, C, X, Y, \
+                                      L, bt::Halo<S>{rows, cols, edges}, m, count,    \
+                                      stream);                                        \
   }
 
 extern "C" {

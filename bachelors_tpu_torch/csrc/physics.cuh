@@ -325,4 +325,15 @@ __device__ __forceinline__ size_t member_offset(const Members<Real>& m, int z, i
   return size_t(m.id[z]) * size_t(ny) * size_t(nx);
 }
 
+// Member id's Halo on a shard whose ghosts are member-major, rows (B, 2
+// sides, 2 fields, nx) and cols (B, 2, 2, ny): its rows start at id times
+// one member's 4 n values.  The whole grid's null ghosts stay null.  The
+// mesh kernels over members of rhs.cu and cg.cu share it.
+template <class Real>
+__device__ __forceinline__ Halo<Real> member_halo(Halo<Real> h, int id, int ny, int nx) {
+  if (h.rows != nullptr) h.rows += size_t(id) * 4 * nx;
+  if (h.cols != nullptr) h.cols += size_t(id) * 4 * ny;
+  return h;
+}
+
 }  // namespace bt

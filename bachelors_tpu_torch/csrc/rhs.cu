@@ -184,6 +184,15 @@
 //     each member's forcing its own, bit for bit K3 per member.  Bound like
 //     K3, B times the work.
 //
+// K12.7 over members bt_si_prepare_halo_members: replaces, under `jax.vmap`
+//     of the semi-implicit step inside `shard_map` (`bachelors_tpu/parallel/
+//     sharded.py:56-71`), `si_prepare_pallas_sharded` (:625 -> `pallas_call`
+//     :539) at float32 and `pallas_dd.py:si_prepare_dd_pair_sharded` (:1216
+//     -> `pallas_call` :667) at float64.  K7 over members' kernel with each
+//     member's rows of member-major ghosts of (F, U) (the gather over
+//     members at stage 1, then the ring exchange): bit for bit K12.7 per
+//     member and shard.  Bound by bytes like K12.7, B times them.
+//
 // K12.7 bt_si_prepare_halo: replaces `si_prepare_pallas_sharded` (:625,
 //     through `_stage_call_sharded` :705 -> `_call` :539 in mode si_prepare).
 //     K7 with a Halo: at a seam it reads the neighbour's edge row or column
@@ -456,15 +465,8 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
 // members the launch steps, and each member's blocks run the unbatched
 // kernel's body on its own (ny, nx) slice, bit for bit.
 
-// Launch member z's Halo and Fold: its ghosts and edges in the member-major
-// buffers (2 sides x 2 fields of n values a member).
-template <class Real>
-__device__ __forceinline__ Halo<Real> member_halo(Halo<Real> h, int id, int ny, int nx) {
-  if (h.rows != nullptr) h.rows += size_t(id) * 4 * nx;
-  if (h.cols != nullptr) h.cols += size_t(id) * 4 * ny;
-  return h;
-}
-
+// Launch member z's Fold: its edges in the member-major buffers, as its
+// Halo (physics.cuh: `member_halo`).
 template <class Real>
 __device__ __forceinline__ Fold<Real> member_fold(Fold<Real> fo, int id, int ny, int nx) {
   if (fo.rows != nullptr) fo.rows += size_t(id) * 4 * nx;
@@ -1405,17 +1407,22 @@ __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
   si_prepare_block<ISO>(F, U, r0, uterm, s_out, ny, nx, h, P);
 }
 
-// K7 over members: each member's prepare on its own fields (blockIdx.z).
-// Bound like K7, B times the bytes.
+// K7 over members (h = whole_grid): each member's prepare on its own
+// fields (blockIdx.z).  With member-major ghosts of (F, U), K12.7 over
+// members on a shard's (B, ny_l, nx_l) blocks: launch member z's blocks
+// run K12.7's body on its own slices and its rows of the ghosts
+// (`member_halo`), so its output equals the single-shard K12.7's on its
+// fields and ghosts bit for bit.  Bound like K7 (K12.7), B times the bytes.
 template <bool ISO, class Real>
 __global__ void __launch_bounds__(kK1BlockX* kK1BlockY)
     si_prepare_members_kernel(const Real* __restrict__ F, const Real* __restrict__ U,
                               Real* __restrict__ r0, Real* __restrict__ uterm,
-                              Real* __restrict__ s_out, int ny, int nx,
+                              Real* __restrict__ s_out, int ny, int nx, Halo<Real> h,
                               const __grid_constant__ Members<Real> m, PhysParams<Real> P) {
   const size_t off = member_offset(m, blockIdx.z, ny, nx);
   si_prepare_block<ISO>(F + off, U + off, r0 + off, uterm + off,
-                        s_out != nullptr ? s_out + off : nullptr, ny, nx, whole_grid<Real>(), P);
+                        s_out != nullptr ? s_out + off : nullptr, ny, nx,
+                        member_halo(h, m.id[blockIdx.z], ny, nx), P);
 }
 
 // ---------------------------------------- the mesh kernels over members ----
@@ -1949,11 +1956,12 @@ int rk4_final_members(const S* xF, const S* xU, const S* k1F, const S* k1U, cons
   return int(cudaGetLastError());
 }
 
-// K7 over members: the isotropic instantiation when S = 0
+// K7 over members (h = whole_grid) or, with member-major ghosts, K12.7 over
+// members on a shard: the isotropic instantiation when S = 0
 template <class S>
 int si_prepare_members(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, int nx,
-                       const bt::Members<Ar<S>>* m, int count, const PhysParams<Ar<S>>* P,
-                       cudaStream_t stream) {
+                       bt::Halo<Ar<S>> h, const bt::Members<Ar<S>>* m, int count,
+                       const PhysParams<Ar<S>>* P, cudaStream_t stream) {
   using R = Ar<S>;
   if (!members_ok(count)) return int(cudaErrorInvalidValue);
   dim3 grid = k1_grid(ny, nx);
@@ -1961,7 +1969,7 @@ int si_prepare_members(const S* F, const S* U, S* r0, S* uterm, S* s, int ny, in
   auto kernel = is_zero(P->S) ? bt::si_prepare_members_kernel<true, R>
                               : bt::si_prepare_members_kernel<false, R>;
   kernel<<<grid, dim3(bt::kK1BlockX, bt::kK1BlockY), 0, stream>>>(
-      ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx, *m, *P);
+      ar(F), ar(U), ar(r0), ar(uterm), ar(s), ny, nx, h, *m, *P);
   return int(cudaGetLastError());
 }
 
@@ -2390,7 +2398,8 @@ int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const
                                   int ny, int nx, const bt::Members<Ar<S>>* m,         \
                                   int count, const PhysParams<Ar<S>>* P,               \
                                   cudaStream_t stream) {                               \
-    return si_prepare_members<S>(F, U, r0, uterm, s, ny, nx, m, count, P, stream);     \
+    return si_prepare_members<S>(F, U, r0, uterm, s, ny, nx, bt::whole_grid<Ar<S>>(), m, \
+                                 count, P, stream);                                    \
   }                                                                                     \
   int bt_rk4_full_members_##SFX(const S* F, const S* U, S* outF, S* outU, int ny,      \
                                 int nx, S h, S dt, S c6, S d,                          \
@@ -2429,6 +2438,10 @@ int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const
 //   K12.4 bt_rk4_final_halo_members: K4 on each member with its ghosts (of
 //      the blend [x, k3]); its output's edges into fold_rows/fold_cols
 //      unless null.
+// The semi-implicit ensembles' prepare:
+//   K12.7 bt_si_prepare_halo_members: K7 on each member with its ghosts (of
+//      (F, U), the gather at stage 1); s null when the map does not vary per
+//      cell, as for K7.
 #define BT_MESH_MEMBERS_ENTRIES(SFX, S)                                                     \
   int bt_merson_stage_members_##SFX(const S* F0, const S* U0, const S* F1, const S* U1,    \
                                     const S* F2, const S* U2, int stage, S* outF, S* outU, \
@@ -2481,6 +2494,13 @@ int halo_edges_members(const S* F0, const S* U0, const S* F1, const S* U1, const
                                   cudaStream_t stream) {                                   \
     return halo_edges_members<S>(F0, U0, F1, U1, F2, U2, F3, U3, stage, rows, cols, ny,    \
                                  nx, m, count, stream);                                    \
+  }                                                                                         \
+  int bt_si_prepare_halo_members_##SFX(const S* F, const S* U, S* r0, S* uterm, S* s,       \
+                                       int ny, int nx, const S* rows, const S* cols,        \
+                                       int edges, const bt::Members<Ar<S>>* m, int count,   \
+                                       const PhysParams<Ar<S>>* P, cudaStream_t stream) {   \
+    return si_prepare_members<S>(F, U, r0, uterm, s, ny, nx, halo_of(rows, cols, edges), m, \
+                                 count, P, stream);                                        \
   }
 
 // The tile kernels on a shard of the (ny, nx) grid holding rows [y0, y0 +

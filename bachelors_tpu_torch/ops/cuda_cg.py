@@ -45,6 +45,15 @@ float64 semi-implicit step:
     on one shard of a mesh (``*_residual_dd_sharded`` :1014-1039), counted
     as ``*_residual_sharded``.
 
+Over an ensemble's members (stacked (B, ny, nx) fields, (B,) dots, one
+launch for the members a CG round still iterates): K8, K8b, K9, K10 and
+K14 (``*_members``); on a shard of a mesh, K12.8 over members
+(``cross_/aniso_matvec_pAp_members_sharded``) and K14's twin over members
+(``*_residual_members`` with a ``halo``, counted as ``*_members_sharded``),
+each member reading its rows of member-major ghosts, as ``jax.vmap`` of the
+semi-implicit step inside ``shard_map`` runs ``pallas_cg.py:185`` and
+``pallas_dd.py:930``.
+
 beta and the dot products that K9 and K10 take are 0-dim tensors on the
 fields' device, read by the kernels through pointers; the dot products
 come back as 0-dim tensors there too.  Nothing here reads a value back to
@@ -92,7 +101,9 @@ LAUNCHES = {"cross_matvec_pAp": 0, "aniso_matvec_pAp": 0, "update_xr_rr": 0,
             "update_xr_rr_members": 0, "advance_p_members": 0,
             "cross_residual_members": 0, "aniso_residual_members": 0,
             "heat_residual_members": 0, "cross_advance_p_matvec_members": 0,
-            "aniso_advance_p_matvec_members": 0}
+            "aniso_advance_p_matvec_members": 0, "cross_matvec_pAp_members_sharded": 0,
+            "aniso_matvec_pAp_members_sharded": 0, "cross_residual_members_sharded": 0,
+            "aniso_residual_members_sharded": 0, "heat_residual_members_sharded": 0}
 
 
 def reset_launch_counts() -> None:
@@ -294,11 +305,13 @@ def _vec(like: torch.Tensor, v: Optional[torch.Tensor]) -> torch.Tensor:
 
 def _row(a, b: int):
     """Member b's part of an argument: row b of a stack (a tensor, or each
-    tensor of a tuple); anything else is shared."""
+    tensor of a tuple), entry b of a list; anything else is shared."""
     if isinstance(a, torch.Tensor):
         return a[b]
     if isinstance(a, tuple):
         return tuple(_row(t, b) for t in a)
+    if isinstance(a, list):
+        return a[b]
     return a
 
 
@@ -389,27 +402,61 @@ def aniso_advance_p_matvec_members_plain(A: AnisotropyMatrix, s: torch.Tensor, r
               torch.empty_like(p) if out is None else out, _vec(p, pAp)), s, r, p, rr_new, rr)
 
 
+def _member_halos(halo: Optional[Halo], B: int) -> list:
+    """Each member's halo of a member-major one (``Halo.member``), or None
+    for each on the whole grid: an argument ``_each_member`` hands member b
+    its own of."""
+    return [None if halo is None else halo.member(b) for b in range(B)]
+
+
 def cross_residual_members_plain(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
-                                 ids=None) -> torch.Tensor:
-    """``cross_residual_plain`` on each member of ``ids``, in a new stack."""
-    return _each_member(lambda *a: cross_residual_plain(*a, A), ids, (torch.empty_like(e),),
-                        r0, e)[0]
+                                 ids=None, halo: Optional[Halo] = None) -> torch.Tensor:
+    """``cross_residual_plain`` on each member of ``ids``, in a new stack;
+    with a member-major ``halo``, on one shard, each member with its own
+    ghosts."""
+    return _each_member(lambda r0b, eb, h: cross_residual_plain(r0b, eb, A, h), ids,
+                        (torch.empty_like(e),), r0, e, _member_halos(halo, e.shape[0]))[0]
 
 
 def aniso_residual_members_plain(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
-                                 s: torch.Tensor, ids=None) -> torch.Tensor:
+                                 s: torch.Tensor, ids=None,
+                                 halo: Optional[Halo] = None) -> torch.Tensor:
     """``aniso_residual_plain`` on each member of ``ids``, member b with
-    its own map s[b]."""
-    return _each_member(lambda r0b, eb, sb: aniso_residual_plain(r0b, eb, A, sb), ids,
-                        (torch.empty_like(e),), r0, e, s)[0]
+    its own map s[b] (and ghosts, with a ``halo``)."""
+    return _each_member(lambda r0b, eb, sb, h: aniso_residual_plain(r0b, eb, A, sb, h), ids,
+                        (torch.empty_like(e),), r0, e, s, _member_halos(halo, e.shape[0]))[0]
 
 
 def heat_residual_members_plain(uterm: torch.Tensor, eF_pair, e: torch.Tensor,
                                 A: CrossMatrix, L: float, extra: Optional[torch.Tensor] = None,
-                                ids=None) -> torch.Tensor:
-    """``heat_residual_plain`` on each member of ``ids``."""
-    return _each_member(lambda u, pair, eb, x: heat_residual_plain(u, pair, eb, A, L, x), ids,
-                        (torch.empty_like(e),), uterm, tuple(eF_pair), e, extra)[0]
+                                ids=None, halo: Optional[Halo] = None) -> torch.Tensor:
+    """``heat_residual_plain`` on each member of ``ids`` (with its ghosts,
+    with a ``halo``)."""
+    return _each_member(lambda u, pair, eb, x, h: heat_residual_plain(u, pair, eb, A, L, x, h),
+                        ids, (torch.empty_like(e),), uterm, tuple(eF_pair), e, extra,
+                        _member_halos(halo, e.shape[0]))[0]
+
+
+def cross_matvec_pAp_members_sharded_plain(A: CrossMatrix, v: torch.Tensor, halo: Halo,
+                                           pAp: Optional[torch.Tensor] = None, ids=None,
+                                           out: Optional[torch.Tensor] = None):
+    """``cross_matvec_pAp_sharded_plain`` on one shard for each member of
+    ``ids`` with its rows of the member-major ``halo``: (out, pAp) with
+    out[b] = A v[b] and pAp[b] the member's shard-local <v[b], A v[b]>."""
+    return _each_member(lambda vb, h: cross_matvec_pAp_sharded_plain(A, vb, h), ids,
+                        (torch.empty_like(v) if out is None else out, _vec(v, pAp)), v,
+                        _member_halos(halo, v.shape[0]))
+
+
+def aniso_matvec_pAp_members_sharded_plain(A: AnisotropyMatrix, s: torch.Tensor,
+                                           v: torch.Tensor, halo: Halo,
+                                           pAp: Optional[torch.Tensor] = None, ids=None,
+                                           out: Optional[torch.Tensor] = None):
+    """``cross_matvec_pAp_members_sharded_plain`` for the anisotropy
+    operator, member b with its own map s[b]."""
+    return _each_member(lambda sb, vb, h: aniso_matvec_pAp_sharded_plain(A, sb, vb, h), ids,
+                        (torch.empty_like(v) if out is None else out, _vec(v, pAp)), s, v,
+                        _member_halos(halo, v.shape[0]))
 
 
 # ------------------------------------------------------------ kernels
@@ -435,6 +482,11 @@ _MEMBERS_ENTRIES = {
     "update_xr_rr_members": [PTR] * 6 + [REAL, PTR, PTR, INT, INT, PTR, INT, PTR],
     "advance_p_members": [PTR] * 4 + [REAL, INT, INT, PTR, INT, PTR],
     "si_residual_members": [PTR] * 6 + [INT] * 4 + [REAL] * 4 + [PTR, INT, PTR]}
+# K12.8 and K14's twin over members: K8's and K14's over members with a
+# member-major halo's (rows, cols, edges) before their members
+_MEMBERS_ENTRIES.update({f"{name}_halo_members": _MEMBERS_ENTRIES[f"{name}_members"][:-3]
+                         + [PTR, PTR, INT] + _MEMBERS_ENTRIES[f"{name}_members"][-3:]
+                         for name in ("matvec_pAp", "si_residual")})
 _ENTRIES.update(_MEMBERS_ENTRIES)
 _HELPERS = {"cg_num_partials": [INT, INT]}
 register(_ENTRIES)
@@ -730,18 +782,22 @@ def _member_partials(v: torch.Tensor, dtype: torch.dtype, index: int) -> torch.T
     return scratch("cg_num_partials", (ny, nx), dtype, index, per=min(B, cuda_rhs.MAX_MEMBERS))
 
 
-def _matvec_pAp_members(name, v, s, pAp, ids, out, bc, C, X, Y):
+def _matvec_pAp_members(name, v, s, pAp, ids, out, bc, C, X, Y, halo: Optional[Halo] = None):
     out = torch.empty_like(v) if out is None else out
     pAp = _vec(v, pAp)
     fields = (v, out) if s is None else (v, s, out)
     dtype, index = _members_checked(fields, (pAp,))
     B, ny, nx = v.shape
+    if halo is None:
+        kernel, ghosts = "matvec_pAp_members", ()
+    else:
+        kernel, ghosts = "matvec_pAp_halo_members", cuda_rhs.member_halo_args(halo, B, ny, nx)
     partials = _member_partials(v, dtype, index)
     for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
-        launch(LAUNCHES, name, fn("matvec_pAp_members", dtype), index,
+        launch(LAUNCHES, name, fn(kernel, dtype), index,
                v.data_ptr(), None if s is None else s.data_ptr(), out.data_ptr(),
                partials.data_ptr(), pAp.data_ptr(), ny, nx, _BC_CODE[bc], float(C), float(X),
-               float(Y), ctypes.addressof(m), count)
+               float(Y), *ghosts, ctypes.addressof(m), count)
     return out, pAp
 
 
@@ -770,6 +826,37 @@ def aniso_matvec_pAp_members(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tens
         return aniso_matvec_pAp_members_plain(A, s, v, pAp, ids, out)
     return _matvec_pAp_members("aniso_matvec_pAp_members", v, s, pAp, ids, out, A.boundary,
                                A.Cm1, A.X, A.Y)
+
+
+def cross_matvec_pAp_members_sharded(A: CrossMatrix, v: torch.Tensor, halo: Halo,
+                                     pAp: Optional[torch.Tensor] = None, ids=None,
+                                     out: Optional[torch.Tensor] = None):
+    """K12.8 over members, cross form: K8 over the members ``ids`` of a
+    shard's member-major (B, ny_l, nx_l) block ``v``, each member's seams
+    from its rows of the member-major ``halo`` (the gather over members of
+    (v, v) at stage 1, then ``Topology.exchange``), one launch for up to
+    MAX_MEMBERS of them: out[b] = A v[b] and pAp[b] = the member's
+    shard-local <v[b], A v[b]>, each ``cross_matvec_pAp_sharded``'s with
+    ``halo.member(b)`` bit for bit (``pAp_in_kernel_order`` reproduces the
+    dot); the other rows and entries are left as they are.  ``out`` as for
+    K8."""
+    _check_out(out, v)
+    if not cuda_rhs._on_cuda(v, "cross_matvec_pAp_members_sharded"):
+        return cross_matvec_pAp_members_sharded_plain(A, v, halo, pAp, ids, out)
+    return _matvec_pAp_members("cross_matvec_pAp_members_sharded", v, None, pAp, ids, out,
+                               A.boundary, A.C, A.X, A.Y, halo)
+
+
+def aniso_matvec_pAp_members_sharded(A: AnisotropyMatrix, s: torch.Tensor, v: torch.Tensor,
+                                     halo: Halo, pAp: Optional[torch.Tensor] = None, ids=None,
+                                     out: Optional[torch.Tensor] = None):
+    """K12.8 over members, per-cell form: ``cross_matvec_pAp_members_sharded``
+    with each member's own map s[b] (s stacked as v)."""
+    _check_out(out, v, s)
+    if not cuda_rhs._on_cuda(v, "aniso_matvec_pAp_members_sharded"):
+        return aniso_matvec_pAp_members_sharded_plain(A, s, v, halo, pAp, ids, out)
+    return _matvec_pAp_members("aniso_matvec_pAp_members_sharded", v, s, pAp, ids, out,
+                               A.boundary, A.Cm1, A.X, A.Y, halo)
 
 
 def _advance_p_matvec_members(name, r, p, s, rr_new, rr, epsilon, pAp, ids, out, p_out, bc, C,
@@ -867,46 +954,59 @@ def advance_p_members(r: torch.Tensor, p: torch.Tensor, rr_new: torch.Tensor,
     return p
 
 
-def _residual_members(name, mode, e, r0, a, b, x, ids, bc, C, X, Y, L=0.0) -> torch.Tensor:
+def _residual_members(name, mode, e, r0, a, b, x, ids, bc, C, X, Y, L=0.0,
+                      halo: Optional[Halo] = None) -> torch.Tensor:
     dtype, index = _members_checked(tuple(t for t in (e, r0, a, b, x) if t is not None))
     out = torch.empty_like(e)
     B, ny, nx = e.shape
+    if halo is None:
+        kernel, ghosts = "si_residual_members", ()
+    else:
+        kernel, ghosts = "si_residual_halo_members", cuda_rhs.member_halo_args(halo, B, ny, nx)
+        name += "_sharded"
     for m, count in cuda_rhs._member_launches(dtype, cuda_rhs.member_ids(B, ids), None, 0.0):
-        launch(LAUNCHES, name, fn("si_residual_members", dtype), index,
+        launch(LAUNCHES, name, fn(kernel, dtype), index,
                *(None if t is None else t.data_ptr() for t in (e, r0, a, b, x)),
                out.data_ptr(), ny, nx, _BC_CODE[bc], mode, float(C), float(X), float(Y),
-               float(L), ctypes.addressof(m), count)
+               float(L), *ghosts, ctypes.addressof(m), count)
     return out
 
 
 def cross_residual_members(r0: torch.Tensor, e: torch.Tensor, A: CrossMatrix,
-                           ids=None) -> torch.Tensor:
+                           ids=None, halo: Optional[Halo] = None) -> torch.Tensor:
     """K14 over the members ``ids`` of stacked fields, cross form, one
     launch for up to MAX_MEMBERS of them: out[b] = r0[b] - A e[b] in a new
-    stack, K14's bit for bit; the other members' rows are left unwritten."""
+    stack, K14's bit for bit; the other members' rows are left unwritten.
+    With a member-major ``halo`` (the gather over members of (e, e), then
+    ``Topology.exchange``), K14's twin over members on a shard's (B, ny_l,
+    nx_l) blocks, member b's rows ``cross_residual`` with ``halo.member(b)``
+    bit for bit, counted as ``cross_residual_members_sharded``
+    (``pallas_dd.cross_residual_dd_sharded`` :1014 under ``jax.vmap``)."""
     if not cuda_rhs._on_cuda(e, "cross_residual_members"):
-        return cross_residual_members_plain(r0, e, A, ids)
+        return cross_residual_members_plain(r0, e, A, ids, halo)
     return _residual_members("cross_residual_members", _RES_CROSS, e, r0, None, None, None,
-                             ids, A.boundary, A.C, A.X, A.Y)
+                             ids, A.boundary, A.C, A.X, A.Y, halo=halo)
 
 
 def aniso_residual_members(r0: torch.Tensor, e: torch.Tensor, A: AnisotropyMatrix,
-                           s: torch.Tensor, ids=None) -> torch.Tensor:
+                           s: torch.Tensor, ids=None, halo: Optional[Halo] = None) -> torch.Tensor:
     """K14 over members, per-cell form, each member with its own map s[b]
-    (see ``cross_residual_members``)."""
+    (see ``cross_residual_members``; with a ``halo`` its twin, counted as
+    ``aniso_residual_members_sharded``)."""
     if not cuda_rhs._on_cuda(e, "aniso_residual_members"):
-        return aniso_residual_members_plain(r0, e, A, s, ids)
+        return aniso_residual_members_plain(r0, e, A, s, ids, halo)
     return _residual_members("aniso_residual_members", _RES_ANISO, e, r0, s, None, None, ids,
-                             A.boundary, A.Cm1, A.X, A.Y)
+                             A.boundary, A.Cm1, A.X, A.Y, halo=halo)
 
 
 def heat_residual_members(uterm: torch.Tensor, eF_pair, e: torch.Tensor, A: CrossMatrix,
                           L: float, extra: Optional[torch.Tensor] = None,
-                          ids=None) -> torch.Tensor:
+                          ids=None, halo: Optional[Halo] = None) -> torch.Tensor:
     """K14 over members, heat form (``heat_residual`` on each member's
-    planes; see ``cross_residual_members``)."""
+    planes; see ``cross_residual_members``; with a ``halo`` its twin,
+    counted as ``heat_residual_members_sharded``)."""
     if not cuda_rhs._on_cuda(e, "heat_residual_members"):
-        return heat_residual_members_plain(uterm, eF_pair, e, A, L, extra, ids)
+        return heat_residual_members_plain(uterm, eF_pair, e, A, L, extra, ids, halo)
     mode = _RES_HEAT if extra is None else _RES_HEAT_EXTRA
     return _residual_members("heat_residual_members", mode, e, uterm, eF_pair[0], eF_pair[1],
-                             extra, ids, A.boundary, A.C, A.X, A.Y, L)
+                             extra, ids, A.boundary, A.C, A.X, A.Y, L, halo)

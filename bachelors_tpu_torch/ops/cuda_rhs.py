@@ -71,8 +71,10 @@ launch per shard for the members it steps): K12.1 at a Merson stage
 (``blend_rhs_sharded_members_fixed``, its euler mode K12.3 over members),
 K12.4 (``rk4_final_stage_members`` with a ``halo``), K5
 (``rkm_final_stage_members``), the ghost gather (``halo_edges_members``),
-and the K2 and K3 twins (``rkm_attempt_members_sharded``,
-``rk4_full_members_sharded``).
+the K2 and K3 twins (``rkm_attempt_members_sharded``,
+``rk4_full_members_sharded``), and K12.7 (``si_prepare_members_sharded``,
+the semi-implicit ensembles' prepare; ``si_prepare_pallas_sharded`` :625 and
+``pallas_dd.si_prepare_dd_pair_sharded`` :1216 under ``jax.vmap``).
 
 The mesh kernels with a ``Halo`` (K5, K12.1, K12.3, K12.4, K12.7) run at
 both dtypes; the tile kernels on a shard run at float32 on y-meshes (the
@@ -137,7 +139,8 @@ LAUNCHES = {"blend_rhs": 0, "rk4_final_stage": 0, "rkm_attempt": 0,
             "blend_rhs_sharded_members": 0, "rkm_final_stage_members": 0,
             "halo_edges_members": 0, "blend_rhs_sharded_members_fixed": 0,
             "blend_rhs_sharded_members_euler": 0, "rk4_final_stage_members_sharded": 0,
-            "rk4_full_members_sharded": 0, "rk4_full_members_apron": 0}
+            "rk4_full_members_sharded": 0, "rk4_full_members_apron": 0,
+            "si_prepare_members_sharded": 0}
 
 # Per field dtype: the depths the multi-step Euler pass takes -- 2..7 at
 # float32 (`bachelors_tpu/ops/pallas_rhs.py:822`), up to 8 at float64
@@ -751,6 +754,18 @@ def halo_edges_members_plain(states: Sequence[Pair], stage: int, taus, ids=None,
     return out
 
 
+def si_prepare_members_sharded_plain(F: torch.Tensor, U: torch.Tensor, p: SimParams,
+                                     halo: Halo, ids=None):
+    """``si_prepare_sharded_plain`` on one shard for each member of ``ids``
+    with its rows of the member-major ``halo``: (r0_F, uterm[, s]) stacked,
+    the rows of other members left unwritten."""
+    outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
+    for b in member_ids(F.shape[0], ids):
+        for o, t in zip(outs, si_prepare_sharded_plain(F[b], U[b], p, halo.member(b))):
+            o[b] = t
+    return tuple(outs)
+
+
 def blend_rhs_sharded_members_fixed_plain(states: Sequence[Pair], weights: Sequence,
                                           p: SimParams, halo: Halo, fu=0.0,
                                           is_euler: bool = False, ids=None, out=None, nxt=None,
@@ -944,6 +959,9 @@ _MESH_MEMBERS_ENTRIES = {
     + [_PTR] * 2 + [_INT] * 2 + [_REAL] * 2 + [_PTR] * 2 + [_PTR, _INT, _PHYS_PTR, _PTR],
     "rk4_final_halo_members": [_PTR] * 10 + [_INT] * 2 + [_REAL] * 3 + [_PTR] * 2 + [_INT]
     + [_PTR] * 2 + [_PTR, _INT, _PHYS_PTR, _PTR],
+    # the semi-implicit ensembles' prepare: K12.7 over members
+    "si_prepare_halo_members": [_PTR] * 5 + [_INT] * 2 + [_PTR] * 2 + [_INT]
+    + [_PTR, _INT, _PHYS_PTR, _PTR],
 }
 _F32_MEMBERS_ENTRIES = {
     "rkm_attempt_members_slabs": [_PTR] * 7 + [_INT] * 4 + [_REAL, _PTR, _INT, _PHYS_PTR, _PTR],
@@ -1254,8 +1272,7 @@ def rk4_final_stage_members(x: Pair, k1: Pair, k2: Pair, k3: Pair, p: SimParams,
     else:
         dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU], "rk4_final_stage_members")
         name, count = "rk4_final_halo_members", "rk4_final_stage_members_sharded"
-        ghosts = (*_member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx),
-                  sum(1 << k for k, e in enumerate(halo.edges) if e),
+        ghosts = (*member_halo_args(halo, B, ny, nx),
                   *_member_ghosts("fold edges", edges or (None, None), B, ny, nx))
     for m, n in _member_launches(dtype, member_ids(B, ids), None, fu):
         launch(LAUNCHES, count, fn(name, dtype), index,
@@ -1610,6 +1627,13 @@ def _member_ghosts(what: str, ghosts, B: int, ny: int, nx: int) -> tuple:
     return tuple(out)
 
 
+def member_halo_args(halo: Halo, B: int, ny: int, nx: int) -> tuple:
+    """(rows pointer, cols pointer, edge bits) of a member-major halo, rows
+    (B, 2, 2, nx) and cols (B, 2, 2, ny), checked (``_member_ghosts``)."""
+    return (*_member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx),
+            sum(1 << k for k, e in enumerate(halo.edges) if e))
+
+
 def _members_on_shard(tensors, what: str):
     """(dtype, device index, B, ny_l, nx_l) of member-major shard blocks:
     contiguous (B, ny_l, nx_l) tensors of one float dtype and shape on one
@@ -1674,13 +1698,12 @@ def blend_rhs_sharded_members(states: Sequence[Pair], stage: int, taus, p: SimPa
     oF, oU = _member_outputs(states[0][0], out)
     fields = [t for s in states for t in s]
     dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU], "blend_rhs_sharded_members")
-    ghosts = _member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx)
+    ghosts = member_halo_args(halo, B, ny, nx)
     fold = _member_ghosts("fold edges", edges or (None, None), B, ny, nx)
-    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
     ptrs = [t.data_ptr() for t in fields] + [None] * (6 - len(fields))
     for m, n in _member_launches(dtype, member_ids(B, ids), taus, fu):
         launch(LAUNCHES, "blend_rhs_sharded_members", fn("merson_stage_members", dtype), index,
-               *ptrs, stage, oF.data_ptr(), oU.data_ptr(), ny, nx, *ghosts, bits, *fold,
+               *ptrs, stage, oF.data_ptr(), oU.data_ptr(), ny, nx, *ghosts, *fold,
                ctypes.addressof(m), n, _phys_ref(p, dtype))
     return oF, oU
 
@@ -1700,15 +1723,14 @@ def rkm_final_stage_members(x: Pair, k1: Pair, k3: Pair, k4: Pair, taus, p: SimP
     oF, oU = _member_outputs(x[0], out)
     fields = [*x, *k1, *k3, *k4]
     dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU], "rkm_final_stage_members")
-    ghosts = _member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx)
+    ghosts = member_halo_args(halo, B, ny, nx)
     fold = _member_ghosts("fold edges", edges or (None, None), B, ny, nx)
-    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
     emax = x[0].new_empty((B, 2)) if emax is None else emax
     acc = scratch("rkm_final_members_scratch", (), dtype, index)  # maxima and tickets
     for m, n in _member_launches(dtype, member_ids(B, ids), taus, fu):
         launch(LAUNCHES, "rkm_final_stage_members", fn("rkm_final_members", dtype), index,
                *(t.data_ptr() for t in fields), oF.data_ptr(), oU.data_ptr(), acc.data_ptr(),
-               emax.data_ptr(), ny, nx, *ghosts, bits, *fold, ctypes.addressof(m), n,
+               emax.data_ptr(), ny, nx, *ghosts, *fold, ctypes.addressof(m), n,
                _phys_ref(p, dtype))
     return oF, oU, emax
 
@@ -1744,9 +1766,8 @@ def blend_rhs_sharded_members_fixed(states: Sequence[Pair], weights: Sequence, p
     fields = [t for s in states for t in s]
     dtype, index, B, ny, nx = _members_on_shard(fields + [oF, oU],
                                                 "blend_rhs_sharded_members_fixed")
-    ghosts = _member_ghosts("ghosts", (halo.rows, halo.cols), B, ny, nx)
+    ghosts = member_halo_args(halo, B, ny, nx)
     fold = _member_ghosts("fold edges", edges or (None, None), B, ny, nx)
-    bits = sum(1 << k for k, e in enumerate(halo.edges) if e)
     ptrs = [t.data_ptr() for t in fields] + [None] * (6 - len(fields))
     w = [float(v) for v in weights[1:]] + [0.0] * (3 - n)
     fw = [float(v) for v in nxt[1:]] + [0.0] * (3 - len(nxt)) if edges is not None else [0.0] * 2
@@ -1754,7 +1775,7 @@ def blend_rhs_sharded_members_fixed(states: Sequence[Pair], weights: Sequence, p
     count = "blend_rhs_sharded_members_euler" if is_euler else "blend_rhs_sharded_members_fixed"
     for m, c in _member_launches(dtype, member_ids(B, ids), None, fu):
         launch(LAUNCHES, count, fn("blend_rhs_halo_members", dtype), index, *ptrs, n, *w,
-               oF.data_ptr(), oU.data_ptr(), ny, nx, int(is_euler), *ghosts, bits, fold_m, *fw,
+               oF.data_ptr(), oU.data_ptr(), ny, nx, int(is_euler), *ghosts, fold_m, *fw,
                *fold, ctypes.addressof(m), c, _phys_ref(p, dtype))
     return oF, oU
 
@@ -1804,3 +1825,26 @@ def halo_edges_members(states: Sequence[Pair], stage: int, taus, ids=None, out=N
         launch(LAUNCHES, "halo_edges_members", fn("halo_edges_members", dtype), index, *ptrs,
                stage, rows, cols, ny, nx, ctypes.addressof(m), n)
     return out
+
+
+def si_prepare_members_sharded(F: torch.Tensor, U: torch.Tensor, p: SimParams, halo: Halo,
+                               ids=None):
+    """K12.7 over members: the semi-implicit prepare on a shard's
+    member-major (B, ny_l, nx_l) blocks for each member of ``ids``, its
+    seams from its rows of the member-major ``halo`` (the gather over
+    members of (F, U) at stage 1, then ``Topology.exchange``), one launch
+    for up to MAX_MEMBERS of them; counted as ``si_prepare_members_sharded``.
+    Member b's rows of (r0_F, uterm[, s]) (new tensors) are
+    ``si_prepare_sharded`` of its fields with ``halo.member(b)`` bit for
+    bit; the rows of members not stepped are left unwritten."""
+    if not _on_cuda(F, "si_prepare_members_sharded"):
+        return si_prepare_members_sharded_plain(F, U, p, halo, ids)
+    dtype, index, B, ny, nx = _members_on_shard([F, U], "si_prepare_members_sharded")
+    ghosts = member_halo_args(halo, B, ny, nx)
+    outs = [torch.empty_like(F) for _ in range(3 if si_s_varies(p) else 2)]
+    for m, n in _member_launches(dtype, member_ids(B, ids), None, 0.0):
+        launch(LAUNCHES, "si_prepare_members_sharded", fn("si_prepare_halo_members", dtype),
+               index, F.data_ptr(), U.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+               outs[2].data_ptr() if len(outs) == 3 else None, ny, nx, *ghosts,
+               ctypes.addressof(m), n, _phys_ref(p, dtype))
+    return tuple(outs)

@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from ..core.state import Field, Shards
-from ..parallel.topology import ONE_DEVICE, Topology
+from ..parallel.topology import ONE_DEVICE, Topology, add_in_order
 
 
 @dataclasses.dataclass
@@ -57,7 +57,8 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
 def _member_shards_stats(A: Shards) -> Stats:
     """``field_stats`` of an ensemble's member-major shards: each shard
     reduces its (B, ny_l, nx_l) block per member, and the (B,) partials
-    combine over the shards on the first shard's device."""
+    combine over the shards on the first shard's device, the sums in the
+    order a single field's take (``topology.add_in_order``)."""
     ny, nx = A.shape[-2:]
     n, dims = ny * nx, (1, 2)
 
@@ -65,8 +66,11 @@ def _member_shards_stats(A: Shards) -> Stats:
         parts = [reduce(b) for b in A.blocks]
         return combine(torch.stack([v.to(parts[0].device) for v in parts]), 0)
 
-    return Stats(L1=over(lambda b: torch.sum(torch.abs(b), dim=dims), torch.sum) / n,
-                 L2=torch.sqrt(over(lambda b: torch.sum(b * b, dim=dims), torch.sum) / n),
+    def summed(reduce):
+        return add_in_order([reduce(b) for b in A.blocks])
+
+    return Stats(L1=summed(lambda b: torch.sum(torch.abs(b), dim=dims)) / n,
+                 L2=torch.sqrt(summed(lambda b: torch.sum(b * b, dim=dims)) / n),
                  min=over(lambda b: torch.amin(b, dim=dims), torch.amin),
                  max=over(lambda b: torch.amax(b, dim=dims), torch.amax))
 

@@ -141,6 +141,13 @@ def folded_stage(states, weights, nxt, p: SimParams, fu, topo: Topology, edges=N
     return (Shards(dF, grid), Shards(dU, grid)), list(nxt_edges)
 
 
+def members_edges(F: Shards, topo: Topology):
+    """New member-major edge buffers (``cuda_rhs.member_edges``) per shard
+    of an ensemble's ``F``, for ``topo``'s sharded axes."""
+    return [cuda_rhs.member_edges(f, topo.axis_y is not None, topo.axis_x is not None)
+            for f in F.blocks]
+
+
 def stage_halos_members(states, stage: int, taus, topo: Topology, ids, edges):
     """``stage_halos`` for an ensemble's member-major shards at Merson stage
     ``stage``: each shard's member-major ghosts from ``edges`` (per shard,

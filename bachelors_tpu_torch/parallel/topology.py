@@ -40,6 +40,21 @@ def _combine(values: Sequence[torch.Tensor], op) -> torch.Tensor:
     return op(torch.stack([v.to(dev) for v in values]), 0)
 
 
+def add_in_order(values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The shards' partial sums added on the first shard's device in shard
+    order, one rounded add at a time: ((v0 + v1) + v2) + ...  A single
+    field's 0-dim partials and an ensemble's (B,) ones, member by member,
+    add in the same order, on any device, so member b's sum equals its
+    single mesh run's bit for bit.  ``torch.sum`` of a stack adds in an
+    order of its own, which differs between a whole reduction and one over
+    dim 0, and between the CPU and the card."""
+    dev = values[0].device
+    total = values[0].to(dev)
+    for v in values[1:]:
+        total = total + v.to(dev)
+    return total
+
+
 def _side(edges: torch.Tensor, side: int) -> torch.Tensor:
     """Side ``side`` of edges or ghosts laid out (..., 2 sides, k fields,
     n): a single shard's, or member-major (B, 2, k, n) for an ensemble's."""
@@ -189,24 +204,25 @@ class Topology:
     # ---- reductions ---------------------------------------------------------
     # The reference's device-wide reduction trees (`cuda_reduction.cuh:
     # 131-214`) as torch reductions per shard plus a combine over the mesh.
-    def _all(self, A, reduce, op):
+    # The sums add the shards' partials in shard order (``add_in_order``).
+    def _all(self, A, reduce, combine):
         if isinstance(A, Shards):
-            return _combine([reduce(b) for b in A.blocks], op)
+            return combine([reduce(b) for b in A.blocks])
         return reduce(A)
 
     def sum(self, A) -> torch.Tensor:
-        return self._all(A, torch.sum, torch.sum)
+        return self._all(A, torch.sum, add_in_order)
 
     def max(self, A) -> torch.Tensor:
-        return self._all(A, torch.max, torch.amax)
+        return self._all(A, torch.max, lambda v: _combine(v, torch.amax))
 
     def min(self, A) -> torch.Tensor:
-        return self._all(A, torch.min, torch.amin)
+        return self._all(A, torch.min, lambda v: _combine(v, torch.amin))
 
     def dot(self, A, B) -> torch.Tensor:
         if isinstance(A, Shards):
-            return _combine([torch.vdot(a.flatten(), b.flatten())
-                             for a, b in zip(A.blocks, B.blocks)], torch.sum)
+            return add_in_order([torch.vdot(a.flatten(), b.flatten())
+                                 for a, b in zip(A.blocks, B.blocks)])
         return torch.vdot(A.flatten(), B.flatten())
 
     def count(self, A) -> int:
@@ -215,8 +231,10 @@ class Topology:
     # values already reduced per shard (fused kernels' partials), one per
     # shard; NaN survives the max.  On one device the value itself, as the
     # JAX package's collectives over no axis.
+    # An ensemble's (B,) partials combine member by member in the same
+    # order as a single field's.
     def allsum(self, values) -> torch.Tensor:
-        return _combine(values, torch.sum) if self.is_sharded else values
+        return add_in_order(values) if self.is_sharded else values
 
     def allmax(self, values) -> torch.Tensor:
         return _combine(values, torch.amax) if self.is_sharded else values

@@ -159,11 +159,6 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
 # B, None for all) says which members step; the others are left untouched.
 MembersStepper = Callable[..., Tuple[SimState, StepStats]]
 
-# What an ensemble on a spatial mesh does not run yet.
-MESH_MEMBERS_TODO = ("semi-implicit ensembles on a spatial mesh (K12.7, K12.8 and K14's twin "
-                     "over members and the mesh CG over members: ROADMAP item 7e)")
-
-
 def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> MembersStepper:
     """The step of an ensemble, JAX's ``make_ensemble_stepper(p, mesh,
     topo)`` (``bachelors_tpu/parallel/sharded.py:56``, ``jax.vmap`` of the
@@ -183,8 +178,10 @@ def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> Mem
     every solver runs; one with spatial shards takes the mesh routes over
     members, for RKM (``explicit.rkm_adaptive_members_mesh``), Euler and
     RK4 (``explicit.euler_step_members`` and ``rk4_step_members`` with the
-    group's topology) and the exact solver (each member's shard from its
-    offset); semi-implicit raises (ROADMAP item 7e).
+    group's topology), semi-implicit (``semi_implicit.
+    semi_implicit_step_members`` with the group's topology: K12.7, K12.8
+    and K14's twin over members, the mesh CG over members) and the exact
+    solver (each member's shard from its offset).
 
     Member b of the result is ``make_stepper(p, topo)`` of member b (its
     single mesh state on a mesh) bit for bit: t, iter and tau per member as
@@ -267,14 +264,12 @@ def join_stats(parts) -> StepStats:
 def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
     """The members stepper of one group: stacked (B, ny, nx) members on one
     device (``topo`` unsharded), or member-major ``Shards`` on ``topo``'s
-    spatial mesh (every solver but semi-implicit)."""
+    spatial mesh."""
     p.validate()
     if p.solver == SolverType.NONE:
         raise ValueError(f"unsupported solver {p.solver}")
     if p.differentiable:
         raise NotImplementedError(f"not ported yet: {DIFFERENTIABLE_TODO}")
-    if topo.is_sharded and p.solver == SolverType.SEMI_IMPLICIT:
-        raise NotImplementedError(f"not ported yet: {MESH_MEMBERS_TODO}")
     adaptive = p.solver == SolverType.EXPLICIT_RK4_ADAPTIVE
 
     def finish(state, ids, nF, nU, phi_iters=None, attempts=None, used=None, tau_next=None,
@@ -337,11 +332,10 @@ def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
             ids = live_ids(state, live)
 
             def step_based(F, U, U_base, same_base):
-                nF, nU, res_F, res_U = semi_implicit_step_members(F, U, U_base, p, ids)
+                nF, nU, res_F, res_U = semi_implicit_step_members(F, U, U_base, p, ids, topo)
                 return nF, nU, (res_F.iters, res_U.iters)
 
-            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, ONE_DEVICE,
-                                                    step_based)
+            nF, nU, aux, residuals = corrector_step(state.F, state.U, p, topo, step_based)
             step.rounds = 1
             return finish(state, ids, nF, nU, aux[0], residuals=residuals, t_iters=aux[1])
 

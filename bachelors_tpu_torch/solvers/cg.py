@@ -57,6 +57,20 @@ ONE host read of their (B,) <r', r'>
 ``max_iters`` leaves the live set and its rows are never written again.
 Member b's x, iteration count and stop equal ``cg_solve`` (or
 ``cg_solve_fused``) on member b's system bit for bit.
+
+With a sharded ``topo`` the ensemble's vectors are member-major ``Shards``
+and ``cg_solve_members`` is the mesh CG over members, JAX's vmapped
+``cg_solve`` inside ``shard_map``: a round runs, for the live members, per
+shard one gather over members of (p, p) and the exchange and one K12.8
+over members (in ``matvec_pAp``), one combine of the shards' (B,)
+<p, A p>, per shard one K9 over members, one combine of the (B,)
+<r', r'>, ONE host read, and per shard at most one K10 over members.  The
+combines add each member's shard values in ``topo.allsum``'s order, the
+start <r, r> is ``topo.dot``'s (a ``torch.vdot`` per shard and member),
+and N counts one member's cells over every shard, so member b equals the
+single mesh ``cg_solve`` of its system bit for bit.  ``pcg_solve_members``
+runs the Jacobi branch per member and shard as ``_pcg_solve`` with
+``topo`` does, one host read a round.
 """
 from __future__ import annotations
 
@@ -507,13 +521,14 @@ def _start_rr(r: torch.Tensor, ids) -> torch.Tensor:
 
 def cg_solve_members(
     matvec_pAp: Callable,
-    b: torch.Tensor,
+    b: Field,
     ids,
     *,
     tolerance: float = 1.0e-5,
     max_iters: int = 10,
     epsilon: float = 1.0e-10,
     kernel: bool = True,
+    topo: Topology = ONE_DEVICE,
 ):
     """Solve A_m x_m = b_m for the members m of ``ids`` of a stacked (B,
     ny, nx) ``b`` from zero guesses: ``cg_solve``'s recurrence with
@@ -528,8 +543,14 @@ def cg_solve_members(
     torch ops member by member.  A round: one call of each over the live
     members, then one host read of the (B,) <r', r'>.  The two (B,) <r, r>
     vectors alternate round by round: every live member is at the same
-    round, so round k reads one and writes the other."""
+    round, so round k reads one and writes the other.
+
+    With a sharded ``topo``, ``b`` is member-major ``Shards`` and the
+    solve is the mesh CG over members (``_cg_solve_members_mesh``)."""
     refuse_reverse("the CG loop", LOOP_WAY_OUT, b)
+    if topo.is_sharded:
+        return _cg_solve_members_mesh(matvec_pAp, b, ids, tolerance, max_iters, epsilon,
+                                      kernel, topo)
     update = cuda_cg.update_xr_rr_members if kernel else cuda_cg.update_xr_rr_members_plain
     advance = cuda_cg.advance_p_members if kernel else cuda_cg.advance_p_members_plain
     B = b.shape[0]
@@ -559,22 +580,93 @@ def cg_solve_members(
             iters[m] += 1
         live = [m for m in go if iters[m] < max_iters]
         k += 1
-    return x, _members_result(b, ids, bufs, last, iters, N, max_iters, k)
+    return x, _members_result(ids, _last_rr(bufs, last), iters, N, max_iters, k)
 
 
-def _members_result(b: torch.Tensor, ids, bufs, last, iters, N, max_iters: int,
-                    rounds: int) -> "CGMembersResult":
-    """A batched solve's result: each member's error from the <r, r> buffer
-    its last round wrote (``last``), its count and stop."""
+def _last_rr(bufs, last) -> torch.Tensor:
+    """Each member's entry of the <r, r> buffer its last round wrote."""
     if len(set(last)) == 1:
-        rr = bufs[last[0]]
-    else:
-        rr = torch.where(torch.tensor(last, dtype=torch.bool, device=b.device), bufs[1], bufs[0])
+        return bufs[last[0]]
+    return torch.where(torch.tensor(last, dtype=torch.bool, device=bufs[0].device), bufs[1],
+                       bufs[0])
+
+
+def _members_result(ids, rr: torch.Tensor, iters, N, max_iters: int,
+                    rounds: int) -> "CGMembersResult":
+    """A batched solve's result: each member's error from its final <r, r>
+    (``rr``, (B,)), its count and stop."""
     iters = np.array(iters, np.int64)
-    on = np.zeros(b.shape[0], bool)
+    on = np.zeros(len(iters), bool)
     on[ids] = True
     return CGMembersResult(error=torch.sqrt(rr / float(N)), iters=iters,
                            converged=on & (iters != max_iters), rounds=rounds)
+
+
+def _start_rr_shard(r: torch.Tensor, ids) -> torch.Tensor:
+    """One shard's (B,) part of the <r, r> a mesh solve starts from: each
+    member's ``torch.vdot`` of its rows, as ``topo.dot`` forms a single
+    field's per shard (entries of members not in ``ids`` 0)."""
+    B = r.shape[0]
+    if len(ids) == B:
+        return torch.stack([torch.vdot(r[m].flatten(), r[m].flatten()) for m in range(B)])
+    rr = r.new_zeros(B)
+    for m in ids:
+        rr[m] = torch.vdot(r[m].flatten(), r[m].flatten())
+    return rr
+
+
+def _cg_solve_members_mesh(matvec_pAp: Callable, b: Shards, ids, tolerance: float,
+                           max_iters: int, epsilon: float, kernel: bool, topo: Topology):
+    """``cg_solve_members`` on a mesh: ``b`` member-major ``Shards``.
+
+    ``matvec_pAp(p, pAps, live, out)`` -> (A p, pAps) runs the members of
+    ``live`` on every shard (the gather over members of (p, p), the
+    exchange and K12.8 over members), writing each shard's (B,)
+    shard-local <p_m, A p_m> into its vector of ``pAps``; ``out`` the dead
+    A p or None.  Each shard keeps two (B,) <r', r'> partial buffers that
+    alternate round by round, as the one-device loop's; the combined
+    vectors, on the first shard's device, go to every shard's K9 and K10
+    (on its own device).  Returns (x, CGMembersResult)."""
+    update = cuda_cg.update_xr_rr_members if kernel else cuda_cg.update_xr_rr_members_plain
+    advance = cuda_cg.advance_p_members if kernel else cuda_cg.advance_p_members_plain
+    ids = [int(m) for m in ids]
+    B = b.blocks[0].shape[0]
+    # N counts one member's cells over every shard, as topo.count sees one
+    # member under jax.vmap
+    N, scaled_tol2 = _tolerance(b.member(0), tolerance)
+    x = b.map(torch.zeros_like)
+    r = b.map(torch.clone)  # K9 updates r in place
+    bufs = [(_start_rr_shard(rk, ids), rk.new_empty(B)) for rk in r.blocks]
+    rr = topo.allsum([bk[0] for bk in bufs])
+    p = r.map(torch.clone)
+    pAps = [rk.new_empty(B) for rk in r.blocks]
+    Ap = None  # last round's A p, dead once x and r are updated
+    iters = [0] * B
+    last = [0] * B
+    live, k = (ids if max_iters > 0 else []), 0
+    while live:
+        odd = k & 1
+        Ap, pAps = matvec_pAp(p, pAps, live, Ap)
+        pAp = topo.allsum(pAps)
+        for xb, rb, pb, Apb, bk in zip(x.blocks, r.blocks, p.blocks, Ap.blocks, bufs):
+            dev = xb.device
+            update(xb, rb, pb, Apb, rr.to(dev), pAp.to(dev), epsilon, live, bk[1 - odd])
+        rr_new = topo.allsum([bk[1 - odd] for bk in bufs])
+        go = _going_members(rr_new, live, scaled_tol2)
+        if go:  # the JAX loop keeps a stopped member's p; nothing reads it
+            for rb, pb in zip(r.blocks, p.blocks):
+                advance(rb, pb, rr_new.to(pb.device), rr.to(pb.device), epsilon, go)
+        for m in live:
+            last[m] = 1 - odd
+        for m in go:
+            iters[m] += 1
+        live = [m for m in go if iters[m] < max_iters]
+        rr = rr_new
+        k += 1
+    # each member's last <r, r>: its shards' entries of the buffers its last
+    # round wrote, combined again in the same order
+    final = topo.allsum([_last_rr(bk, last) for bk in bufs])
+    return x, _members_result(ids, final, iters, N, max_iters, k)
 
 
 def cg_solve_fused_members(
@@ -632,65 +724,83 @@ def cg_solve_fused_members(
             iters[m] += 1
         live = [m for m in go if iters[m] < max_iters]
         k += 1
-    return x, _members_result(b, ids, bufs, last, iters, N, max_iters, k)
+    return x, _members_result(ids, _last_rr(bufs, last), iters, N, max_iters, k)
+
+
+def _member_of(A: Field, m: int) -> Field:
+    """Member m of stacked members: its (ny, nx) slice, or on a mesh its
+    ``Shards.member`` (views of its rows of each block)."""
+    return A.member(m) if isinstance(A, Shards) else A[m]
 
 
 def pcg_solve_members(
     matvec: Callable,
-    b: torch.Tensor,
+    b: Field,
     ids,
     *,
-    diag: torch.Tensor,
+    diag: Field,
     tolerance: float = 1.0e-5,
     max_iters: int = 10,
     epsilon: float = 1.0e-10,
+    topo: Topology = ONE_DEVICE,
 ):
     """``_pcg_solve`` (Jacobi) for the members of ``ids`` of a stacked
-    ``b`` and ``diag``, in plain torch ops on any device, as the JAX
-    package runs this branch in XLA: each member's vectors are ``_pcg_solve``'s
-    own, and a round makes one host read of the live members' <r, r>.
-    ``matvec(m, v)`` is member m's operator.  Returns (x, CGMembersResult)
-    with member m's x and count ``_pcg_solve``'s bit for bit."""
+    ``b`` and ``diag`` (member-major ``Shards`` on a sharded ``topo``), in
+    plain torch ops on any device, as the JAX package runs this branch in
+    XLA: each member's vectors are ``_pcg_solve``'s own (with ``topo``,
+    shard by shard, its dot products combined over the mesh), and a round
+    makes one host read of the live members' <r, r>.  ``matvec(m, v)`` is
+    member m's operator.  Returns (x, CGMembersResult) with member m's x
+    and count ``_pcg_solve``'s bit for bit."""
     refuse_reverse("the CG loop", LOOP_WAY_OUT, b, diag)
-    B = b.shape[0]
+    B = b.members if isinstance(b, Shards) else b.shape[0]
     ids = [int(m) for m in ids]
-    N, scaled_tol2 = _tolerance(b[0], tolerance)  # one member's cells
+    N, scaled_tol2 = _tolerance(_member_of(b, 0), tolerance)  # one member's cells
     st = {}
     for m in ids:
-        inv_d = 1.0 / diag[m]
-        r = b[m]
-        z = r * inv_d
-        st[m] = dict(inv_d=inv_d, x=torch.zeros_like(r), r=r, p=z,
-                     rr=torch.sum(r * r), rz=torch.sum(r * z))
+        inv_d = each(lambda d: 1.0 / d, _member_of(diag, m))
+        r = _member_of(b, m)
+        z = each(torch.mul, r, inv_d)
+        st[m] = dict(inv_d=inv_d, x=each(torch.zeros_like, r), r=r, p=z,
+                     rr=_dot(r, r, topo), rz=_dot(r, z, topo))
     iters = np.zeros(B, np.int64)
     live, k = (ids if max_iters > 0 else []), 0
     while live:
         for m in live:
             v = st[m]
             Ap = matvec(m, v["p"])
-            alpha = v["rz"] / torch.clamp(torch.sum(v["p"] * Ap), min=epsilon)
-            v["x"] = v["x"] + alpha * v["p"]
-            v["r"] = v["r"] + (-alpha) * Ap
-            v["rr"] = torch.sum(v["r"] * v["r"])
+            alpha = v["rz"] / torch.clamp(_dot(v["p"], Ap, topo), min=epsilon)
+            v["x"] = _axpy(v["x"], alpha, v["p"])
+            v["r"] = _axpy(v["r"], -alpha, Ap)
+            v["rr"] = _dot(v["r"], v["r"], topo)
         HOST_READS["cg_stop_test_members"] += 1
         vals = torch.stack([st[m]["rr"] for m in live]).cpu().numpy()
         c = type(scaled_tol2)
         go = [m for m, val in zip(live, vals) if not c(val) < scaled_tol2]
         for m in go:
             v = st[m]
-            z = v["r"] * v["inv_d"]
-            rz_new = torch.sum(v["r"] * z)
-            v["p"] = z + (rz_new / torch.clamp(v["rz"], min=epsilon)) * v["p"]
+            z = each(torch.mul, v["r"], v["inv_d"])
+            rz_new = _dot(v["r"], z, topo)
+            v["p"] = _axpy(z, rz_new / torch.clamp(v["rz"], min=epsilon), v["p"])
             v["rz"] = rz_new
         iters[go] += 1
         live = [m for m in go if iters[m] < max_iters]
         k += 1
-    x = torch.zeros_like(b)
-    err = b.new_zeros(B)
+    x = each(torch.zeros_like, b)
+    err = b.blocks[0].new_zeros(B) if isinstance(b, Shards) else b.new_zeros(B)
     on = np.zeros(B, bool)
     for m in ids:
-        x[m] = st[m]["x"]
+        for dst, src in _member_blocks(x, m, st[m]["x"]):
+            dst.copy_(src)
         err[m] = torch.sqrt(st[m]["rr"] / float(N))
         on[m] = True
     return x, CGMembersResult(error=err, iters=iters, converged=on & (iters != max_iters),
                               rounds=k)
+
+
+def _member_blocks(A: Field, m: int, single: Field):
+    """(member m's rows of ``A``, ``single``'s tensor) pairs: one on one
+    device, one per shard on a mesh."""
+    if isinstance(A, Shards):
+        return [(blk[m], s) for blk, s in zip(A.blocks, single.blocks)]
+    return [(A[m], single)]

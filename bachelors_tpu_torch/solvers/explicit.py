@@ -62,7 +62,8 @@ from ..core.params import SimParams, SolverType
 from ..core.state import Field, Shards, SimState, each, numpy_dtype
 from ..ops import cuda_rhs
 from ..ops.rhs import (carried_edges, carried_pair, euler_eval, eval_rhs, fold_for,
-                       folded_stage, folded_stage_members, resolve_backend, shard_states)
+                       folded_stage, folded_stage_members, members_edges, resolve_backend,
+                       shard_states)
 from ..parallel.topology import ONE_DEVICE, Topology
 
 # Host reads of the Merson error maxima since the last reset_host_reads():
@@ -567,13 +568,7 @@ def _members_edges_in(x, topo: Topology, ids):
     carried = carried_edges([x])
     if carried is not None:
         return carried, carried, ()
-    return None, _members_edges(x[0], topo), ids
-
-
-def _members_edges(F: Shards, topo: Topology):
-    """New member-major edge buffers per shard of ``F``."""
-    return [cuda_rhs.member_edges(f, topo.axis_y is not None, topo.axis_x is not None)
-            for f in F.blocks]
+    return None, members_edges(x[0], topo), ids
 
 
 def _shared_stage_members(states, weights, p: SimParams, fus, topo: Topology, ids, edges,
@@ -616,7 +611,7 @@ def _euler_members_mesh(F: Shards, U: Shards, U_base: Shards, p: SimParams, fus,
     carried, edges, gather = _members_edges_in(x, topo, ids)
     out = _new_member_blocks(F, U)
     if same_base:
-        update = _members_edges(F, topo)
+        update = members_edges(F, topo)
         _shared_stage_members([x], (1.0,), p, fus, topo, ids, edges, out, update, gather,
                               nxt=(1.0,), is_euler=True)
         return _carried_members(out, update, carried, ids, F.members, F.grid)
@@ -651,14 +646,14 @@ def _rk4_members_mesh(F: Shards, U: Shards, p: SimParams, fus, ids, topo: Topolo
         return _members_fields(out, F.grid)
     x, h = (F, U), p.dt / 2
     carried, e, gather = _members_edges_in(x, topo, ids)
-    e1, e2, e3 = (_members_edges(F, topo) for _ in range(3))
+    e1, e2, e3 = (members_edges(F, topo) for _ in range(3))
     k1 = _shared_stage_members([x], (1.0,), p, fus, topo, ids, e, _new_member_blocks(F, U), e1,
                                gather, nxt=(1.0, h))
     k2 = _shared_stage_members([x, k1], (1.0, h), p, fus, topo, ids, e1,
                                _new_member_blocks(F, U), e2, nxt=(1.0, h))
     k3 = _shared_stage_members([x, k2], (1.0, h), p, fus, topo, ids, e2,
                                _new_member_blocks(F, U), e3, nxt=(1.0, p.dt))
-    update = _members_edges(F, topo)
+    update = members_edges(F, topo)
     for k, hk in enumerate(topo.exchange(e3)):
         cuda_rhs.rk4_final_stage_members(*shard_states([x, k1, k2, k3], k), p, fus, 0.0, ids,
                                          out[k], halo=hk, edges=update[k])
@@ -790,7 +785,7 @@ def _mesh_members_attempt(F: Shards, U: Shards, p: SimParams, fus, topo: Topolog
         return attempt, joined
 
     def edges():
-        return _members_edges(F, topo)
+        return members_edges(F, topo)
 
     def blocks():
         return _new_member_blocks(F, U)

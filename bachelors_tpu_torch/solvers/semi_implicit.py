@@ -55,8 +55,14 @@ host read), the phase solves before the heat solves, and on the refined
 route one K14 launch a refinement.  Member b equals the single step of
 member b bit for bit, its CG iteration counts included.  Each route's
 scheme is written once (``_step_based``, ``_step_refined``) and reaches its
-prepare, solves and residuals through ``_Fields`` (one state) or
-``_Members``.
+prepare, solves and residuals through ``_Fields`` (one state),
+``_Members`` or, for an ensemble's member-major ``Shards`` on a mesh,
+``_MembersMesh``: per shard K12.7 over members a pass, a CG round's one
+gather, K12.8, K9 and at most one K10 over the live members and one host
+read for all, and on the refined route K14's twin over members, each after
+its gather over members (JAX's ``jax.vmap`` of the step inside
+``shard_map``, ``parallel/sharded.py:56-71``).  The plain backend runs
+each member's single mesh step.
 
 ``SimParams.differentiable`` takes JAX's differentiable route (:93,
 :131-136, :184-188, :217, :229) on one device: the plain prepare, so that
@@ -70,6 +76,7 @@ plain route.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.autodiff import refuse_reverse
@@ -77,12 +84,12 @@ from ..core.params import SimParams
 from ..core.state import Field, Shards, each
 from ..models.allen_cahn import semi_implicit_prepare
 from ..ops import cuda_cg, cuda_rhs
-from ..ops.rhs import resolve_backend, stage_halos
+from ..ops.rhs import members_edges, resolve_backend, stage_halos, stage_halos_members
 from ..ops.stencil import (AnisotropyMatrix, CrossMatrix, anisotropy_matvec,
                            cross_matvec, lap_from_padded)
 from ..parallel.topology import ONE_DEVICE, Topology
-from .cg import (LOOP_WAY_OUT, cg_solve, cg_solve_diff, cg_solve_fused, cg_solve_fused_members,
-                 cg_solve_members, pcg_solve_members)
+from .cg import (LOOP_WAY_OUT, CGMembersResult, cg_solve, cg_solve_diff, cg_solve_fused,
+                 cg_solve_fused_members, cg_solve_members, pcg_solve_members)
 
 EPSILON = 1.0e-12  # the CG alpha/beta guard of the semi-implicit solves
 
@@ -145,7 +152,19 @@ def cg_branch(p: SimParams, device: torch.device = torch.device("cpu"),
     """Which phase-system CG a configuration runs on ``device`` (its first
     shard's on a mesh; with ``members``, an ensemble's), in words."""
     if members:
-        return cg_branch(p, device, topo) + ", batched over the ensemble's live members"
+        single = cg_branch(p, device, topo)
+        if not topo.is_sharded:
+            return single + ", batched over the ensemble's live members"
+        if resolve_backend(p, device) != "kernel":
+            return single + ", each member's own single mesh step"
+        if _wants_jacobi(p) and not refines(p, device):
+            return (single + ", per member and shard after K12.7 over members, one host read a "
+                    "round for the live members")
+        return (single + ", over the ensemble's live members: per shard K12.7 over members a "
+                "pass and, each CG round, one gather over members and one K12.8 over members, "
+                "then K9 and at most one K10 over members, the shards' (B,) dots combined, one "
+                "host read" + (", K14's twin over members a refinement" if refines(p, device)
+                               else ""))
     kernel = "K12.8, per shard after a ghost gather," if topo.is_sharded else "K8"
     if p.differentiable:
         form = "aniso form" if cuda_rhs.si_s_varies(p) else "cross form"
@@ -513,32 +532,147 @@ class _Members:
         res.rounds += first.rounds
 
 
-def semi_implicit_step_members(F: torch.Tensor, U: torch.Tensor, U_base: torch.Tensor,
-                               p: SimParams, ids):
+class _MembersMesh(_Members):
+    """``_Members`` on a spatial mesh, the kernel route: an ensemble's
+    member-major ``Shards`` over ``topo``, as JAX runs ``jax.vmap`` of the
+    step inside ``shard_map``.  Each shard's member-major ghosts come from
+    one gather over the members stepped (K12.1's at stage 1: of (F, U) for
+    the prepare, of (p, p) for a matvec, of (e, e) for a residual) and the
+    ring exchange; then per shard one launch over those members: K12.7 over
+    members for the prepare, K12.8 over members in each CG round
+    (``cg_solve_members`` with ``topo``: K9 and K10 over members per shard,
+    the shards' (B,) dots combined, one host read a round), K14's twin over
+    members for a refinement residual.  The Jacobi branch runs plain torch
+    ops per member and shard (``pcg_solve_members`` with ``topo``).  Member
+    b's rows equal its single mesh step's bit for bit."""
+
+    def __init__(self, p: SimParams, ids, topo: Topology):
+        super().__init__(p, ids, kernel=True)
+        self.topo = topo
+
+    def _halos(self, A: Shards, B: Shards, ids):
+        """Each shard's member-major ghosts of (A, B) for the members
+        ``ids``."""
+        return stage_halos_members([(A, B)], 1, None, self.topo, ids, members_edges(A, self.topo))
+
+    def prepare(self, F: Shards, U: Shards):
+        out = [cuda_rhs.si_prepare_members_sharded(f, u, self.p, h, self.ids)
+               for f, u, h in zip(F.blocks, U.blocks, self._halos(F, U, self.ids))]
+        return tuple(Shards(blocks, F.grid) for blocks in zip(*out))
+
+    def _matvec_pAp(self, A, s):
+        """(p, pAps, live, out) -> (A p, pAps) over the members ``live`` on
+        every shard: the gather of (p, p) and K12.8 over members, each
+        shard's (B,) shard-local <p, A p> into its vector of ``pAps``."""
+        def mv(p, pAps, live, out):
+            n = len(p.blocks)
+            outs = [None] * n if out is None else out.blocks
+            maps = [None] * n if s is None else s.blocks
+            Ap = []
+            for k, (v, m, h, o) in enumerate(zip(p.blocks, maps, self._halos(p, p, live), outs)):
+                if s is None:
+                    a, _ = cuda_cg.cross_matvec_pAp_members_sharded(A, v, h, pAps[k], live, o)
+                else:
+                    a, _ = cuda_cg.aniso_matvec_pAp_members_sharded(A, m, v, h, pAps[k], live, o)
+                Ap.append(a)
+            return Shards(tuple(Ap), p.grid), pAps
+
+        return mv
+
+    def solve(self, op, plain, b: Shards, tolerance: float, max_iters: int, diag=None):
+        topo = self.topo
+        kw = dict(tolerance=tolerance, max_iters=max_iters, epsilon=EPSILON, topo=topo)
+        if diag is not None:
+            A, s = plain
+
+            def one(m, v):  # member m's operator, plain, on the mesh
+                return _apply(A, s.member(m) if isinstance(s, Shards) else s, v, topo)
+
+            return pcg_solve_members(one, b, self.ids, diag=diag, **kw)
+        return cg_solve_members(self._matvec_pAp(*op), b, self.ids, kernel=True, **kw)
+
+    def residual(self, r0: Shards, e: Shards, op) -> Shards:
+        A, s = op
+        halos = self._halos(e, e, self.ids)
+        if s is None:
+            out = [cuda_cg.cross_residual_members(r, v, A, self.ids, halo=h)
+                   for r, v, h in zip(r0.blocks, e.blocks, halos)]
+        else:
+            out = [cuda_cg.aniso_residual_members(r, v, A, m, self.ids, halo=h)
+                   for r, v, m, h in zip(r0.blocks, e.blocks, s.blocks, halos)]
+        return Shards(tuple(out), e.grid)
+
+    def heat_residual(self, uterm: Shards, eF_pair, e: Shards, A, extra) -> Shards:
+        halos = self._halos(e, e, self.ids)
+        return Shards(tuple(cuda_cg.heat_residual_members(
+            _block(uterm, k), tuple(_block(x, k) for x in eF_pair), v, A, self.p.L,
+            _block(extra, k), self.ids, halo=h) for k, (v, h) in enumerate(zip(e.blocks, halos))),
+            e.grid)
+
+
+def _single_mesh_steps(step, F: Shards, U: Shards, U_base: Shards, p: SimParams, ids,
+                       topo: Topology):
+    """The plain backend's route over an ensemble's members on a mesh:
+    each member's single mesh ``step`` on its views (``Shards.member``),
+    its results written into its rows of new blocks (a frozen member's
+    rows those of F and U) and of the per-member results."""
+    nF, nU = F.map(torch.clone), U.map(torch.clone)
+    B = F.members
+    iters = [np.zeros(B, np.int64), np.zeros(B, np.int64)]
+    conv = [np.zeros(B, bool), np.zeros(B, bool)]
+    err = [F.blocks[0].new_zeros(B), F.blocks[0].new_zeros(B)]
+    for b in ids:
+        Ub = U.member(b)
+        # the single step reads U_base is U: its own object then
+        outs = step(F.member(b), Ub, Ub if U_base is U else U_base.member(b), p, topo)
+        for new, got in zip((nF, nU), outs[:2]):
+            for dst, src in zip(new.blocks, got.blocks):
+                dst[b] = src
+        for k, res in enumerate(outs[2:]):
+            iters[k][b], conv[k][b], err[k][b] = res.iters, res.converged, res.error
+    return nF, nU, *(CGMembersResult(error=err[k], iters=iters[k], converged=conv[k], rounds=0)
+                     for k in range(2))
+
+
+def semi_implicit_step_members(F: Field, U: Field, U_base: Field, p: SimParams, ids,
+                               topo: Topology = ONE_DEVICE):
     """``semi_implicit_step_based`` for the members ``ids`` of stacked (B,
     ny, nx) fields on one device: K7 over members, then the phase solves of
     every member, then the heat solves, as ``jax.vmap`` of the step orders
-    them.  Returns (next_F, next_U, res_F, res_U) with per-member results;
+    them.  On a sharded ``topo`` (member-major ``Shards``) the kernel route
+    is ``_MembersMesh``'s, the plain backend each member's single mesh
+    step.  Returns (next_F, next_U, res_F, res_U) with per-member results;
     rows of members not in ``ids`` are not meaningful (the stepper keeps
     theirs)."""
     refuse_reverse("the semi-implicit step's CG loops", LOOP_WAY_OUT, F, U, U_base)
     if refines(p, F.device):
-        return semi_implicit_step_refined_members(F, U, U_base, p, ids)
+        return semi_implicit_step_refined_members(F, U, U_base, p, ids, topo)
     kernel = resolve_backend(p, F.device) == "kernel"
+    if topo.is_sharded:
+        if not kernel:
+            return _single_mesh_steps(semi_implicit_step_based, F, U, U_base, p, ids, topo)
+        # the fused variant's gate: one device only, as JAX's and the single step's
+        return _step_based(F, U, U_base, p, _MembersMesh(p, ids, topo))
     # the single step's gate for the fused variant: the kernel route (JAX
     # :163-224 under jax.vmap)
     fused = kernel and _cg_variant(p.ny * p.nx) == "fused"
     return _step_based(F, U, U_base, p, _Members(p, ids, kernel, fused))
 
 
-def semi_implicit_step_refined_members(F: torch.Tensor, U: torch.Tensor,
-                                       U_base: torch.Tensor, p: SimParams, ids):
+def semi_implicit_step_refined_members(F: Field, U: Field, U_base: Field, p: SimParams, ids,
+                                       topo: Topology = ONE_DEVICE):
     """``semi_implicit_step_refined`` for the members ``ids`` of stacked
     fields on one device: per system a solve of every member, K14 over
     members for the true residuals, a second solve; each member's result
     carries the second solve's error, the sum of its two solves'
-    iterations, and converged when both are."""
+    iterations, and converged when both are.  On a sharded ``topo``, as
+    ``semi_implicit_step_members`` routes it (K14's twin over members)."""
+    refuse_reverse("the semi-implicit step's CG loops", LOOP_WAY_OUT, F, U, U_base)
     kernel = resolve_backend(p, F.device) == "kernel"
+    if topo.is_sharded:
+        if not kernel:
+            return _single_mesh_steps(semi_implicit_step_refined, F, U, U_base, p, ids, topo)
+        return _step_refined(F, U, U_base, p, _MembersMesh(p, ids, topo))
     return _step_refined(F, U, U_base, p, _Members(p, ids, kernel))
 
 

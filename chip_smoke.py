@@ -164,7 +164,27 @@ and x(2) (float64, the K13 twin over members), through
 ``run_config_file``: exactly one launch per shard and group a stage, the
 gather only where a state carries no edges, and member b bit for bit its
 single mesh run frame by frame; and their member-steps a second at B = 1,
-4 and 8 beside the single mesh stepper on each mesh.
+4 and 8 beside the single mesh stepper on each mesh.  Semi-implicit
+ensembles on meshes of the one card: K12.7 over members (the corrector
+guess off and on), K12.8 over members (cross and anisotropy forms) and
+K14's twin over members (cross, anisotropy, heat, heat with the extra
+terms), each member reading its rows of member-major ghosts, against one
+single-shard launch per member at max|Δ| = 0 (K12.8's shard-local dots
+too, and those in their fixed order) and against their plain members
+versions, with the gathered edges and the rows of skipped members, on the
+shards of 512^2 on y(2), x(2) and 2x2 for B = 1, 4 and 8 and at 66x258 for
+4, both dtypes, S = 0.25 and 0, with device µs a launch by graph replay on
+an x(2) shard at B = 1, 4 and 8 beside B single-shard launches and the
+byte bound; config.ini's semi-implicit run as ensembles of 4 noisy members
+(200 steps) on y(2) with ``batch_shards = 2``, x(2) and 2x2 and the float64
+sweep config (the refined route, 100 steps) on 2x2, through
+``run_config_file``: per shard one K12.7 over members a pass, one gather
+and one K12.8 and K9 over members a CG round and at most one K10, one
+host read a round, one K14 twin a refinement, no plain CG iteration, and
+member b bit for bit its single mesh run, frame by frame and in each
+step's CG counts; and their member-steps a second at B = 1, 4 and 8
+beside the single mesh stepper on each mesh (50 host and 10 traced steps,
+as every ensemble timing phase since).
 ``[program] debug = true`` on the shipped config: every frame carries
 grad_Phi, grad_T and aniso in the JAX package's order, held to
 ``debug_maps`` of the frame's own F and U recomputed on the CPU.
@@ -396,7 +416,8 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                     "si_prepare_sharded_plain", "si_terms",
                     "rkm_attempt_members_sharded_plain", "blend_rhs_sharded_members_plain",
                     "rkm_final_stage_members_plain", "halo_edges_members_plain",
-                    "blend_rhs_sharded_members_fixed_plain", "rk4_full_members_sharded_plain"),
+                    "blend_rhs_sharded_members_fixed_plain", "rk4_full_members_sharded_plain",
+                    "si_prepare_members_sharded_plain"),
          cuda_cg: ("cross_matvec_pAp_members_plain", "aniso_matvec_pAp_members_plain",
                    "update_xr_rr_members_plain", "advance_p_members_plain",
                    "cross_residual_members_plain", "aniso_residual_members_plain",
@@ -408,7 +429,9 @@ PLAIN = {cuda_rhs: ("blend_rhs_plain", "rk4_final_stage_plain", "rkm_attempt_pla
                    "cross_matvec_pAp_sharded_plain", "aniso_matvec_pAp_sharded_plain",
                    "cross_advance_p_matvec_plain", "aniso_advance_p_matvec_plain",
                    "cross_advance_p_matvec_members_plain",
-                   "aniso_advance_p_matvec_members_plain"),
+                   "aniso_advance_p_matvec_members_plain",
+                   "cross_matvec_pAp_members_sharded_plain",
+                   "aniso_matvec_pAp_members_sharded_plain"),
          cuda_stats: ("field_stats_plain",),
          semi_implicit: ("anisotropy_matvec", "cross_matvec")}
 
@@ -3380,7 +3403,7 @@ def rk4_members_path(name, config=CONFIG, overrides=()) -> dict:
     return n
 
 
-def rk4_members_timing(steps=200, traced=50) -> dict:
+def rk4_members_timing(steps=50, traced=10) -> dict:
     """The RK4 ensemble of 4096 x 2048 members (RK4_MEMBERS, stats every
     step, as the driver computes them) at B = 1 and 2 beside the single
     stepper: host ms a step (wall clock over ``steps`` steps, synchronised),
@@ -3488,7 +3511,7 @@ def ensemble_run(overrides, name, per_step, config=CONFIG) -> dict:
     return n
 
 
-def ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
+def ensemble_timing(Bs=ENSEMBLE_TIMED, steps=50, traced=10) -> dict:
     """The RKM ensemble of the shipped config (stats every step, as the
     driver computes them) at B members: host ms a step (wall clock over
     ``steps`` steps, synchronised), device ms a step (the kernels' time
@@ -4034,7 +4057,7 @@ def _si_ensemble_path(overrides, name, config, grow, phi_max, fused) -> dict:
     return n
 
 
-def si_ensemble_timing(Bs=ENSEMBLE_TIMED, steps=200, traced=50) -> dict:
+def si_ensemble_timing(Bs=ENSEMBLE_TIMED, steps=50, traced=10) -> dict:
     """The float32 semi-implicit ensemble of the shipped config (stats every
     step, as the driver computes them) at B members, beside the single
     stepper: host ms a step (wall clock over ``steps`` steps,
@@ -4881,6 +4904,364 @@ def fixed_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=50, traced=10) -> dict:
     return out
 
 
+# Semi-implicit ensembles on meshes of the one card: K12.7, K12.8 (cross
+# and anisotropy forms) and K14's twin over members, each member reading its
+# rows of member-major ghosts (the gather over members at stage 1, then
+# the exchange), checked at MESH_MEMBER_COUNTS members on every shard of
+# y(2), x(2) and 2x2 at 512^2 (and at B = 4 at 66x258), both dtypes and S,
+# and timed at FIXED_TIMED members on an x(2) shard; the paths: config.ini's
+# semi-implicit run as an ensemble of 4 noisy members cut to 200 steps, 2
+# frames, at float32 on y(2) (in 2 member groups), x(2) and 2x2, and the
+# float64 sweep config (the refined route) on 2x2 cut to 100 steps with
+# stats on, so that each member's CG counts are held to its single run's.
+SI_MESH_ENSEMBLE_CUT = "[simulation]\nstop_after = 0.001\n[snapshot]\ntimes = 2\n"
+SI_MESH_ENSEMBLE_CUT64 = (FIRST_FRAME + "[simulation]\nstop_after = 0.0005\n[snapshot]\n"
+                          "times = 2\n[program]\ncollect_stats = true\n")
+SI_MESH_MEMBER_KEYS = ("si_prepare_members_sharded", "halo_edges_members",
+                       "cross_matvec_pAp_members_sharded", "aniso_matvec_pAp_members_sharded",
+                       "update_xr_rr_members", "advance_p_members",
+                       "cross_residual_members_sharded", "aniso_residual_members_sharded",
+                       "heat_residual_members_sharded")
+
+
+def check_mesh_si_members_kernels(rng) -> dict:
+    """K12.7 over members (the corrector guess off and on), K12.8 over
+    members (cross and anisotropy forms) and K14's twin over members (cross,
+    anisotropy, heat, heat with the extra terms) against one single-shard
+    launch per member (K12.7, K12.8 and its shard-local dot, the K14 twin)
+    at max|Δ| = 0 and against their plain members versions (fields within
+    the field tolerance, dots within the sum tolerance: cg.cu contracts
+    FMAs and the plain dot adds in torch.sum's order), on every shard of
+    y(2), x(2) and 2x2 at 512^2 for MESH_MEMBER_COUNTS members (a subset out
+    of order stepped where B > 1) and at 66x258 for 4, both dtypes, S = 0.25
+    and S = 0; the gathered edges of (F, U), (p, p) and (e, e) equal the
+    single gather's; K12.8's dots its fixed order (``pAp_in_kernel_order``);
+    the rows and dots of skipped members untouched; each call one launch.
+    Device µs a launch by graph replay at FIXED_TIMED members on the first
+    shard of x(2) (512x256) beside B single-shard launches and the byte
+    bound of B members; the kernels line's numbers at B = 4."""
+    names = ("K12.7", "K12.8", "K14 twin")
+    worst = {f"{k} {d}": [0.0, 0.0] for k in names for d in ("float32", "float64")}
+    exact = {f"{k} {d}": 0.0 for k in (*names, "gather") for d in ("float32", "float64")}
+    sentinel, cases = 7.0, 0
+
+    def same(name, got, want, what):
+        for g, w in zip(got, want):
+            if g is None and w is None:
+                continue
+            err = (g - w).abs().max().item() if g.numel() else 0.0
+            exact[name] = max(exact[name], err)
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} over members parts from {what}: {err}")
+
+    def gathered(name, pair, topo, ids, what):
+        """The gather over members of ``pair`` on every shard, each member's
+        rows against the single gather; then the exchange."""
+        axes = (topo.axis_y is not None, topo.axis_x is not None)
+        edges = [cuda_rhs.member_edges(f, *axes) for f in pair[0].blocks]
+        for k, e in enumerate(edges):
+            st = shard_states([pair], k)
+            one_launch("halo_edges_members",
+                       lambda: cuda_rhs.halo_edges_members(st, 1, None, ids, e))
+            for b in ids:
+                want = cuda_rhs.halo_edges([(st[0][0][b].contiguous(),
+                                             st[0][1][b].contiguous())], [1.0], *axes)
+                same(name, [g[b] for g in e if g is not None],
+                     [w for w in want if w is not None], f"the single gather, {what}")
+        return topo.exchange(edges)
+
+    for B in MESH_MEMBER_COUNTS:
+        ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+        shapes = [(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE)] + ([FIXED_MEMBER_RAGGED] if B == 4 else [])
+        for (ny, nx), dtype in ((s, d) for s in shapes for d in ("float32", "float64")):
+            tol, rtol = PRECISION[dtype]["field_tol"], PRECISION[dtype]["sum_rtol"]
+            whole = stacked(rng, B, ny, nx, 3, dtype)
+            maps = stacked_maps(rng, B, ny, nx, dtype)
+            for S in (0.25, 0.0):
+                p = params(ny, nx, "neumann", S=S, u_bc="dirichlet", dtype=dtype)
+                A, Aa = cg_operators(p, "neumann")
+                for mname in MESHES:
+                    mesh, topo = mesh_of(mname)
+                    (F, U), (v, e), (a, c) = [tuple(shard_field(t, mesh, topo) for t in pair)
+                                              for pair in whole]
+                    s = shard_field(maps, mesh, topo)
+                    what = f"{mname} {dtype} {ny}x{nx} S={S} B={B}"
+                    halos = gathered(f"gather {dtype}", (F, U), topo, ids, f"(F, U), {what}")
+                    hv = gathered(f"gather {dtype}", (v, v), topo, ids, f"(p, p), {what}")
+                    he = gathered(f"gather {dtype}", (e, e), topo, ids, f"(e, e), {what}")
+                    for k in range(len(halos)):
+                        f, u, vk, ek, ak, ck, sk = (X.blocks[k] for X in (F, U, v, e, a, c, s))
+                        on = f"{what} shard {k}"
+                        mine = {b: [t[b].contiguous() for t in (f, u, vk, ek, ak, ck, sk)]
+                                for b in ids}
+                        for guess in (False, True):
+                            q = p.replace(do_corrector_guess=guess)
+                            got = one_launch("si_prepare_members_sharded",
+                                             lambda: cuda_rhs.si_prepare_members_sharded(
+                                                 f, u, q, halos[k], ids))
+                            plain = cuda_rhs.si_prepare_members_sharded_plain(f, u, q, halos[k],
+                                                                              ids)
+                            for b in ids:
+                                want = cuda_rhs.si_prepare_sharded(*mine[b][:2], q,
+                                                                   halos[k].member(b))
+                                same(f"K12.7 {dtype}", [g[b] for g in got], want,
+                                     f"the single-shard K12.7, member {b} ({on} guess={guess})")
+                                hold(f"K12.7 {dtype}", [g[b] for g in got], [t[b] for t in plain],
+                                     f"{on} guess={guess} vs plain", worst[f"K12.7 {dtype}"], tol)
+                            cases += 1
+                        for form in ("cross", "aniso"):
+                            out, dots = torch.full_like(vk, sentinel), vk.new_full((B,), sentinel)
+                            if form == "cross":
+                                call = lambda: cuda_cg.cross_matvec_pAp_members_sharded(  # noqa: E731,E501
+                                    A, vk, hv[k], dots, ids, out)
+                                plain = cuda_cg.cross_matvec_pAp_members_sharded_plain(
+                                    A, vk, hv[k], None, ids)
+                            else:
+                                call = lambda: cuda_cg.aniso_matvec_pAp_members_sharded(  # noqa: E731,E501
+                                    Aa, sk, vk, hv[k], dots, ids, out)
+                                plain = cuda_cg.aniso_matvec_pAp_members_sharded_plain(
+                                    Aa, sk, vk, hv[k], None, ids)
+                            one_launch_of(cuda_cg, f"{form}_matvec_pAp_members_sharded", call)
+                            for b in ids:
+                                vb, sb = mine[b][2], mine[b][6]
+                                single = (cuda_cg.cross_matvec_pAp_sharded(A, vb, hv[k].member(b))
+                                          if form == "cross" else cuda_cg.aniso_matvec_pAp_sharded(
+                                              Aa, sb, vb, hv[k].member(b)))
+                                same(f"K12.8 {dtype}", [out[b], dots[b]], single,
+                                     f"the single-shard K12.8, member {b} ({on} {form})")
+                                hold_fixed_order("K12.8 over members", dots[b], vb, out[b],
+                                                 f"{on} {form} member {b}")
+                                hold(f"K12.8 {dtype}", [out[b]], [plain[0][b]], f"{on} {form} "
+                                     "vs plain", worst[f"K12.8 {dtype}"], tol)
+                                hold_dot("K12.8 over members", dots[b], plain[1][b],
+                                         f"{on} {form} vs plain", rtol)
+                            hold_frozen("K12.8 over members", out, torch.full_like(vk, sentinel),
+                                        [b for b in range(B) if b not in ids], on)
+                            hold_frozen("K12.8 over members", dots, vk.new_full((B,), sentinel),
+                                        [b for b in range(B) if b not in ids], on)
+                            cases += 1
+                        modes = {
+                            "cross": (lambda: cuda_cg.cross_residual_members(
+                                ak, ek, A, ids, halo=he[k]),
+                                lambda: cuda_cg.cross_residual_members_plain(
+                                    ak, ek, A, ids, he[k]),
+                                lambda b, h: cuda_cg.cross_residual(
+                                    mine[b][4], mine[b][3], A, halo=h)),
+                            "aniso": (lambda: cuda_cg.aniso_residual_members(
+                                ak, ek, Aa, sk, ids, halo=he[k]),
+                                lambda: cuda_cg.aniso_residual_members_plain(
+                                    ak, ek, Aa, sk, ids, he[k]),
+                                lambda b, h: cuda_cg.aniso_residual(
+                                    mine[b][4], mine[b][3], Aa, mine[b][6], halo=h)),
+                            "heat": (lambda: cuda_cg.heat_residual_members(
+                                ak, (ck, sk), ek, A, 2.0, None, ids, halo=he[k]),
+                                lambda: cuda_cg.heat_residual_members_plain(
+                                    ak, (ck, sk), ek, A, 2.0, None, ids, he[k]),
+                                lambda b, h: cuda_cg.heat_residual(
+                                    mine[b][4], (mine[b][5], mine[b][6]), mine[b][3], A, 2.0,
+                                    halo=h)),
+                            "heat extra": (lambda: cuda_cg.heat_residual_members(
+                                ak, (ck, sk), ek, A, 2.0, f, ids, halo=he[k]),
+                                lambda: cuda_cg.heat_residual_members_plain(
+                                    ak, (ck, sk), ek, A, 2.0, f, ids, he[k]),
+                                lambda b, h: cuda_cg.heat_residual(
+                                    mine[b][4], (mine[b][5], mine[b][6]), mine[b][3], A, 2.0,
+                                    mine[b][0], halo=h))}
+                        for mode, (call, plain, single) in modes.items():
+                            key = ("heat" if mode.startswith("heat") else mode)
+                            got = one_launch_of(cuda_cg, f"{key}_residual_members_sharded", call)
+                            want_plain = plain()
+                            for b in ids:
+                                same(f"K14 twin {dtype}", [got[b]], [single(b, he[k].member(b))],
+                                     f"the single-shard K14 twin, member {b} ({on} {mode})")
+                                hold(f"K14 twin {dtype}", [got[b]], [want_plain[b]],
+                                     f"{on} {mode} vs plain", worst[f"K14 twin {dtype}"], tol)
+                            cases += 1
+            del whole, maps
+    torch.cuda.synchronize()
+
+    timed, entries = {}, {}
+    for B in FIXED_TIMED:
+        row = {}
+        for dtype in ("float32", "float64"):
+            p = params(MESH_MEMBER_SIZE, MESH_MEMBER_SIZE, "neumann", dtype=dtype)
+            A, Aa = cg_operators(p, "neumann")
+            ((F, U), (v, e)), topo = member_shards(rng, B, "x(2)", dtype, 2)
+            s = shard_field(stacked_maps(rng, B, MESH_MEMBER_SIZE, MESH_MEMBER_SIZE, dtype),
+                            *mesh_of("x(2)"))
+            axes = (topo.axis_y is not None, topo.axis_x is not None)
+            every = list(range(B))
+
+            def halo_of(pair):
+                edges = [cuda_rhs.member_edges(b_, *axes) for b_ in pair[0].blocks]
+                for kk, ed in enumerate(edges):
+                    cuda_rhs.halo_edges_members(shard_states([pair], kk), 1, None, every, ed)
+                return topo.exchange(edges)[0]
+
+            h, hv = halo_of((F, U)), halo_of((v, v))
+            f, u, vk, ek, sk = (X.blocks[0] for X in (F, U, v, e, s))
+            one = [t[0].contiguous() for t in (f, u, vk, ek, sk)]
+            out, dots = torch.empty_like(vk), vk.new_empty(B)
+            ny_l, nx_l = f.shape[-2:]
+            item = np.dtype(dtype).itemsize
+            halo_vals = sum(g[0].numel() for g in (h.rows, h.cols) if g is not None)
+            cells = B * ny_l * nx_l
+            calls = {
+                "K12.7": (lambda: cuda_rhs.si_prepare_members_sharded(f, u, p, h),
+                          lambda: cuda_rhs.si_prepare_sharded(one[0], one[1], p, h.member(0)),
+                          lambda: cuda_rhs.si_prepare_members_sharded_plain(f, u, p, h),
+                          bound("K12.7", cells, dtype, B * halo_vals * item)),
+                "K12.8 cross": (
+                    lambda: cuda_cg.cross_matvec_pAp_members_sharded(A, vk, hv, dots, None, out),
+                    lambda: cuda_cg.cross_matvec_pAp_sharded(A, one[2], hv.member(0)),
+                    lambda: cuda_cg.cross_matvec_pAp_members_sharded_plain(A, vk, hv, dots, None,
+                                                                           out),
+                    bound("K12.8 cross", cells, dtype, B * halo_vals // 2 * item)),
+                "K12.8 aniso": (
+                    lambda: cuda_cg.aniso_matvec_pAp_members_sharded(Aa, sk, vk, hv, dots, None,
+                                                                     out),
+                    lambda: cuda_cg.aniso_matvec_pAp_sharded(Aa, one[4], one[2], hv.member(0)),
+                    lambda: cuda_cg.aniso_matvec_pAp_members_sharded_plain(Aa, sk, vk, hv, dots,
+                                                                           None, out),
+                    bound("K12.8 aniso", cells, dtype, B * halo_vals // 2 * item)),
+                "K14 twin": (
+                    lambda: cuda_cg.cross_residual_members(ek, vk, A, halo=hv),
+                    lambda: cuda_cg.cross_residual(one[3], one[2], A, halo=hv.member(0)),
+                    lambda: cuda_cg.cross_residual_members_plain(ek, vk, A, None, hv),
+                    bound("K14 cross", cells, dtype, B * halo_vals // 2 * item)),
+            }
+            for name, (batched, single, plain, bnd) in calls.items():
+                us, one_us = graph_us(batched), graph_us(single)
+                row[f"{name} {dtype}"] = {
+                    "device_us_a_launch": us, "single_launches_us_times_B": one_us * B,
+                    "bound_us": bnd["bound_ms"] * 1e3, "bound_by": bnd["bound_by"],
+                    "share_of_bound": bnd["bound_ms"] * 1e3 / us}
+                if B == 4:
+                    ms, plain_ms = time_pair(batched, plain, reps=10)
+                    entries[f"{name} {dtype}"] = {"ms": ms, "plain_ms": plain_ms, **bnd,
+                                                  "library_ms": None}
+            del F, U, v, e, s, out
+        timed[f"B={B}"] = row
+    phase("semi-implicit mesh kernels over members (K12.7, K12.8 cross and aniso, K14's twin "
+          "cross, aniso and heat) vs single-shard launches and vs plain", cases=cases,
+          members=list(MESH_MEMBER_COUNTS), max_abs_err_vs_single_shard=exact,
+          max_err_vs_plain={k: {"rel": v[0], "abs": v[1]} for k, v in worst.items()},
+          tol_vs_single_shard="bit for bit (max|Δ| = 0)",
+          tol_vs_plain={d: {"field": PRECISION[d]["field_tol"], "dot": PRECISION[d]["sum_rtol"]}
+                        for d in ("float32", "float64")},
+          card=card_limit(), graph_replay_x2_first_shard_512=timed,
+          kernels_line_at="B=4, an x(2) shard of 512^2 (512x256); K12.8 the mean of its forms, "
+                          "the K14 twin in its cross form",
+          library="none: no PyTorch call computes them")
+    out = {}
+    for dtype in ("float32", "float64"):
+        out[f"K12.7 {dtype}"] = {"max_abs_err": worst[f"K12.7 {dtype}"][1],
+                                 **entries[f"K12.7 {dtype}"]}
+        forms = [entries[f"K12.8 {f} {dtype}"] for f in ("cross", "aniso")]
+        out[f"K12.8 {dtype}"] = {"max_abs_err": worst[f"K12.8 {dtype}"][1],
+                                 "ms": float(np.mean([e_["ms"] for e_ in forms])),
+                                 "plain_ms": float(np.mean([e_["plain_ms"] for e_ in forms])),
+                                 "bound_ms": float(np.mean([e_["bound_ms"] for e_ in forms])),
+                                 "bound_by": forms[0]["bound_by"], "library_ms": None}
+        out[f"K14 twin {dtype}"] = {"max_abs_err": worst[f"K14 twin {dtype}"][1],
+                                    **entries[f"K14 twin {dtype}"]}
+    return out
+
+
+def si_mesh_ensemble_path(name, mesh, overrides, batch=1, config=CONFIG, grow=True) -> dict:
+    """A semi-implicit ensemble of 4 (ENSEMBLE) through ``run_config_file``
+    on the named mesh of the one card, with ``batch`` member groups: per
+    shard K12.7 over members once a pass after one gather over members of
+    (F, U); each CG round, per shard, one gather over members of (p, p),
+    one K12.8 and one K9 over members and at most one K10 over members, and
+    one host read for the round (``HOST_READS["cg_stop_test_members"]``);
+    on the refined route one gather over members of (e, e) and one K14
+    twin over members a refinement; nothing else, no plain call and no
+    plain CG iteration (``drive``; no single-run host read); its frames,
+    members files and per-member stats; and member b, frame by frame, its
+    single run on the same mesh with noise_seed + b, bit for bit in fields,
+    t and iter, and in each step's Phi and T CG counts."""
+    sy, sx = MESHES[mesh]
+    shards = sy * sx
+    where = f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\nbatch_shards = {batch}\n"
+    stats = [f"stats_m{b:03d}.csv" for b in range(1, 4)]
+    run = drive([ENSEMBLE, where, *overrides], config=config, frames=True, grow=grow,
+                device=[DEVICE] * (shards * batch), files=stats)
+    n, res, p = run["launches"], run["res"], run["cfg"].params
+    passes = 1 + (p.corrector_max_iters if p.do_corrector_loop else 0)
+    rounds = run["member_reads"]
+    group_passes = passes * res.iters * batch  # every member steps every step
+    refinements = 2 * group_passes if semi_implicit.refines(p, torch.device(DEVICE)) else 0
+    k8 = n["cross_matvec_pAp_members_sharded"] + n["aniso_matvec_pAp_members_sharded"]
+    k14 = sum(n[f"{f}_residual_members_sharded"] for f in ("cross", "aniso", "heat"))
+    k10 = n["advance_p_members"]
+    expect(n["si_prepare_members_sharded"] == group_passes * shards > 0,
+           "one K12.7 over members a shard and pass", run)
+    expect(k8 == n["update_xr_rr_members"] == rounds * shards and rounds > 0,
+           f"one K12.8 and one K9 over members a shard and CG round, one host read a round "
+           f"(read {rounds})", run)
+    expect(0 < k10 <= rounds * shards and k10 % shards == 0,
+           "at most one K10 over members a shard and round", run)
+    expect(k14 == refinements * shards, "one K14 twin over members a shard and refinement", run)
+    expect(n["halo_edges_members"] == (group_passes + rounds + refinements) * shards,
+           "one gather over members before each K12.7, K12.8 and K14 twin", run)
+    expect(run["host_reads"] == 0 and set(k for k, v in n.items() if v) <= set(
+        SI_MESH_MEMBER_KEYS), "nothing but the mesh kernels over members, no plain CG "
+                              "iteration", run)
+    snaps = run["snaps"]
+    maps = sorted(f for f in snaps if f.startswith("maps_"))
+    if not {"F_mean", "F_std", "U_mean", "U_std"} <= set(snaps[maps[-1]].maps):
+        raise AssertionError(f"{maps[-1]} holds {sorted(snaps[maps[-1]].maps)}")
+    one_where = f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\nensemble = 1\n"
+    seeds = {}
+    for b in range(4):
+        one = drive([ENSEMBLE, *overrides, one_where, f"[initial]\nnoise_seed = {b}\n"],
+                    config=config, frames=True, grow=grow, device=[DEVICE] * shards)
+        for frame in maps:
+            mine = snaps[frame.replace("maps_", "members_")]
+            meta = mine.maps["ensemble_meta"].reshape(-1)[3 * b:3 * b + 3]
+            theirs = one["snaps"][frame]
+            if not (np.array_equal(mine.maps[f"F_m{b:03d}"], theirs.maps["F"])
+                    and np.array_equal(mine.maps[f"U_m{b:03d}"], theirs.maps["U"])
+                    and (meta[0], meta[1]) == (theirs.time, theirs.iter)):
+                raise AssertionError(f"{name}: member {b} parts from its single mesh run at "
+                                     f"{frame}")
+        mine_iters = (stats_iters(run["header"], run["rows"]) if b == 0
+                      else stats_iters(*csv_rows(run["texts"][stats[b - 1]])))
+        theirs_iters = stats_iters(one["header"], one["rows"])
+        if mine_iters != theirs_iters:
+            raise AssertionError(f"{name}: member {b}'s CG counts part from its single mesh "
+                                 "run's")
+        seeds[f"member {b}"] = {"steps": one["res"].iters,
+                                "single_mesh_run_host_reads": one["host_reads"],
+                                "mean_Phi_T_iters": np.mean(theirs_iters, axis=0).tolist(),
+                                "single_mesh_run_ms_per_step": one["summary"]["ms_per_step"]}
+    phase(name, shards=[sy, sx], batch_groups=batch, cg_rounds=rounds, host_reads=rounds,
+          host_reads_per_step=rounds / res.iters,
+          launches_per_shard={"K12.7 a pass": (n["si_prepare_members_sharded"]
+                                               / (group_passes * shards)),
+                              "K12.8 a round": k8 / (rounds * shards),
+                              "K9 a round": n["update_xr_rr_members"] / (rounds * shards),
+                              "K10 a round": k10 / (rounds * shards),
+                              "K14 twin a refinement": (k14 / (refinements * shards)
+                                                        if refinements else None)},
+          members_equal_single_mesh_runs="bit for bit, CG counts included", members=seeds,
+          cg_branch=semi_implicit.cg_branch(p, torch.device(DEVICE), mesh_of(mesh)[1],
+                                            members=True), **run["summary"])
+    return n
+
+
+def si_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=50, traced=10) -> dict:
+    """config.ini's semi-implicit run as an ensemble (stats every step,
+    noise) on y(2), x(2) and 2x2 meshes of the one card at B members,
+    beside the single mesh stepper (``mesh_ensemble_rows``)."""
+    out = mesh_ensemble_rows(load_config(CONFIG, [SI_ENSEMBLE]), Bs, steps, traced)
+    phase("semi-implicit ensembles on meshes timing (config.ini, solver = semi-implicit, "
+          "noise_T = 0.02, stats every step)", card=card_limit(), steps=steps,
+          traced_steps=traced, meshes=out)
+    return out
+
+
 # Differentiable runs (SimParams.differentiable): the shipped physics at
 # 512^2 (config.ini's semi-implicit run: S = 0.25, m0 = 6, Neumann), the
 # gradient of the mean Phi after DIFF_STEPS steps with respect to U0.  The
@@ -5477,6 +5858,26 @@ def main() -> None:
     fixed_mesh_ensemble_timing()
     phase("Euler and RK4 ensembles on meshes: the phases' time",
           seconds=time.perf_counter() - t_fixed_members)
+    # semi-implicit ensembles on meshes of the one card: their mesh kernels
+    # over members, the paths, their timing
+    t_si_members = time.perf_counter()
+    si_mesh_k = check_mesh_si_members_kernels(rng)
+    ens_si_mesh = {
+        "y(2)": si_mesh_ensemble_path(
+            "semi-implicit ensemble path on a y(2) mesh, batch_shards = 2 (config.ini, "
+            "ensemble = 4, noise_T = 0.02, to 0.001)", "y(2)", [SEMI, SI_MESH_ENSEMBLE_CUT],
+            batch=2),
+        **{m: si_mesh_ensemble_path(
+            f"semi-implicit ensemble path on a {m} mesh (config.ini, ensemble = 4, to 0.001)", m,
+            [SEMI, SI_MESH_ENSEMBLE_CUT]) for m in ("x(2)", "2x2")},
+        "2x2 f64": si_mesh_ensemble_path(
+            "float64 semi-implicit ensemble path on a 2x2 mesh (sweep config, the refined route, "
+            "ensemble = 4, to 0.0005)", "2x2", [SI_MESH_ENSEMBLE_CUT64],
+            config=sweep("semi-implicit"), grow=False),
+    }
+    si_mesh_ensemble_timing()
+    phase("semi-implicit ensembles on meshes: the phases' time",
+          seconds=time.perf_counter() - t_si_members)
     # differentiable runs on the one card: the adjoint solves on K8-K10
     diff = check_differentiable()
     check_autodiff_guards()
@@ -5768,6 +6169,37 @@ def main() -> None:
                      "bachelors_tpu/ops/pallas_dd.py:667",
                      ens_fixed["rk4 f64 4096 x(2)"]["rk4_full_members_apron"],
                      fixed_k["K3 twin float64"]),
+        kernel_entry("K12.7 si_prepare_members_sharded (K12.7 over members, each member's "
+                     "ghosts of (F, U); the semi-implicit ensembles on y(2) with batch_shards = "
+                     "2, x(2) and 2x2)", rhs_src, f"{pallas_rhs}:539",
+                     sum(ens_si_mesh[m]["si_prepare_members_sharded"] for m in MESHES),
+                     si_mesh_k["K12.7 float32"]),
+        kernel_entry("K12.8 matvec_pAp_members_sharded (K12.8 over members, cross and aniso "
+                     "forms, one launch a shard and CG round for the live members; the same "
+                     "runs; timed as the mean of the two forms)", cg_src, f"{pallas_cg}:185",
+                     sum(ens_si_mesh[m][f"{f}_matvec_pAp_members_sharded"] for m in MESHES
+                         for f in ("cross", "aniso")), si_mesh_k["K12.8 float32"]),
+        kernel_entry("K12.7 si_prepare_members_sharded at float64 (K12.7 over members; the "
+                     "float64 semi-implicit ensemble on 2x2)", rhs_src,
+                     "bachelors_tpu/ops/pallas_dd.py:667",
+                     ens_si_mesh["2x2 f64"]["si_prepare_members_sharded"],
+                     si_mesh_k["K12.7 float64"]),
+        kernel_entry("K12.8 matvec_pAp_members_sharded at float64 (the float64 semi-implicit "
+                     "ensemble on 2x2; timed as the mean of the two forms)", cg_src,
+                     f"{pallas_cg}:185",
+                     sum(ens_si_mesh["2x2 f64"][f"{f}_matvec_pAp_members_sharded"]
+                         for f in ("cross", "aniso")), si_mesh_k["K12.8 float64"]),
+        kernel_entry("K14 twin si_residual_halo_members at float64 (K14's twin over members, "
+                     "cross and heat forms; the float64 semi-implicit ensemble's refinements "
+                     "on 2x2; timed in the cross form)", cg_src,
+                     "bachelors_tpu/ops/pallas_dd.py:930",
+                     sum(ens_si_mesh["2x2 f64"][f"{f}_residual_members_sharded"]
+                         for f in ("cross", "aniso", "heat")), si_mesh_k["K14 twin float64"]),
+        kernel_entry("K14 twin si_residual_halo_members at float32 (checked against single-shard "
+                     "launches and its plain version only: the refined route, the one that "
+                     "takes it, is float64's)", cg_src, "bachelors_tpu/ops/pallas_dd.py:930",
+                     sum(ens_si_mesh[m][f"{f}_residual_members_sharded"] for m in MESHES
+                         for f in ("cross", "aniso", "heat")), si_mesh_k["K14 twin float32"]),
         *(kernel_entry(f"{k} {label} at {dtype} (the port's differentiable semi-implicit "
                        f"path, which runs the default route's {k} where JAX's runs XLA's CG: "
                        "forward and adjoint CG solves of d mean Phi / d U0 at 512^2)", cg_src,

@@ -2667,3 +2667,126 @@ def test_mesh_members_fixed_steps_equal_single_mesh_steps(solver, mesh, dtype, c
                     for mine, theirs in zip(mb.F.edges, singles[b].F.edges):
                         for e, w in zip(mine, theirs):
                             assert (e is None and w is None) or torch.equal(e, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("mesh,dtype", FIXED_MEMBER_CASES)
+def test_mesh_members_si_kernels_equal_single_shard_per_member(B, mesh, dtype, gen,
+                                                               cuda_device):  # noqa: F811
+    """K12.7 over members (S = 0.25 and 0, the corrector guess off and on),
+    K12.8 over members (cross and aniso) and K14's twin over members
+    (cross, aniso, heat with and without the extra terms) on every shard
+    of a mesh of the card: each member's rows (and K12.8's shard-local
+    dot) equal one single-shard launch with its ghosts bit for bit, the
+    dot K12.8's fixed order; the rows and dots of skipped members
+    untouched."""
+    from bachelors_tpu_torch.ops import rhs as ops_rhs
+    from bachelors_tpu_torch.parallel.topology import Topology
+
+    sy, sx = mesh
+    topo = Topology(sy, sx)
+    ids = [B - 1, *range(B - 2)] if B > 1 else [0]
+    (F, U), (v, e), (a, c) = _member_shards(gen, B, sy, sx, 64, 96, dtype, cuda_device, 3)
+    s = _member_shards(gen, B, sy, sx, 64, 96, dtype, cuda_device)[0][0]
+    s = s.map(lambda t: 0.3 + 0.05 * t)
+    halos, hv, he = (ops_rhs.stage_halos_members([pair], 1, None, topo, ids,
+                                                 ops_rhs.members_edges(pair[0], topo))
+                     for pair in ((F, U), (v, v), (e, e)))
+    for S in (0.25, 0.0):
+        p = SimParams(nx=96, ny=64, S=S, dtype=dtype, T_boundary=BoundaryType.DIRICHLET)
+        A_F, A_U = AnisotropyMatrix.implicit_phase(p), CrossMatrix.implicit_heat(p)
+        for k in range(sy * sx):
+            f, u, vk, ek, ak, ck, sk = (X.blocks[k] for X in (F, U, v, e, a, c, s))
+            for guess in (False, True):
+                q = p.replace(do_corrector_guess=guess)
+                got = cuda_rhs.si_prepare_members_sharded(f, u, q, halos[k], ids)
+                for b in ids:
+                    want = cuda_rhs.si_prepare_sharded(f[b].contiguous(), u[b].contiguous(), q,
+                                                       halos[k].member(b))
+                    assert _same([g[b] for g in got], want), (S, guess, k, b)
+            for form, A in (("cross", A_U), ("aniso", A_F)):
+                out, dots = torch.full_like(vk, 7.0), vk.new_full((B,), 7.0)
+                if form == "cross":
+                    cuda_cg.cross_matvec_pAp_members_sharded(A, vk, hv[k], dots, ids, out)
+                else:
+                    cuda_cg.aniso_matvec_pAp_members_sharded(A, sk, vk, hv[k], dots, ids, out)
+                for b in range(B):
+                    if b not in ids:
+                        assert (out[b] == 7.0).all() and dots[b] == 7.0
+                        continue
+                    vb = vk[b].contiguous()
+                    want = (cuda_cg.cross_matvec_pAp_sharded(A, vb, hv[k].member(b))
+                            if form == "cross" else cuda_cg.aniso_matvec_pAp_sharded(
+                                A, sk[b].contiguous(), vb, hv[k].member(b)))
+                    assert _same((out[b], dots[b]), want), (S, form, k, b)
+                    assert torch.equal(dots[b], cuda_cg.pAp_in_kernel_order(vb, out[b]))
+            for extra in (None, f):
+                got = {"cross": cuda_cg.cross_residual_members(ak, ek, A_U, ids, halo=he[k]),
+                       "aniso": cuda_cg.aniso_residual_members(ak, ek, A_F, sk, ids, halo=he[k]),
+                       "heat": cuda_cg.heat_residual_members(ak, (ck, sk), ek, A_U, p.L, extra,
+                                                             ids, halo=he[k])}
+                for b in ids:
+                    hb = he[k].member(b)
+                    r0, eb = ak[b].contiguous(), ek[b].contiguous()
+                    want = {"cross": cuda_cg.cross_residual(r0, eb, A_U, halo=hb),
+                            "aniso": cuda_cg.aniso_residual(r0, eb, A_F, sk[b].contiguous(),
+                                                            halo=hb),
+                            "heat": cuda_cg.heat_residual(
+                                r0, (ck[b].contiguous(), sk[b].contiguous()), eb, A_U, p.L,
+                                None if extra is None else extra[b].contiguous(), halo=hb)}
+                    for mode in got:
+                        assert torch.equal(got[mode][b], want[mode]), (S, mode, k, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh,dtype", [((2, 1), "float32"), ((1, 2), "float32"),
+                                        ((2, 2), "float32"), ((2, 2), "float64")])
+def test_mesh_members_si_steps_equal_single_mesh_steps(mesh, dtype, cuda_device):  # noqa: F811
+    """Semi-implicit ensembles on a mesh of the card (float64: the refined
+    route, K14's twin over members): each member's step equals its single
+    mesh stepper's bit for bit (fields, t, iter, both CG counts), a frozen
+    member untouched; one host read a CG round, no single-shard CG
+    kernel."""
+    import dataclasses
+
+    from bachelors_tpu_torch.core.params import SolverType
+    from bachelors_tpu_torch.core.state import make_state, member, stack_states
+    from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields
+    from bachelors_tpu_torch.parallel.mesh import make_mesh, shard_state
+    from bachelors_tpu_torch.parallel.sharded import make_ensemble_stepper, make_sharded_stepper
+
+    sy, sx = mesh
+    p = SimParams(nx=128, ny=128, L0=4.0, S=0.25, m0=6.0, dtype=dtype, dt=1e-5,
+                  solver=SolverType.SEMI_IMPLICIT, T_tolerance=5e-9, Phi_tolerance=5e-9,
+                  do_stats=True)
+    ic = InitialConditions(circle_center=(2.0, 2.0), circle_radius=0.5, noise_T=0.05)
+    m, topo = make_mesh(sy, sx, [cuda_device] * (sy * sx))
+    singles = [shard_state(make_state(*make_initial_fields(p, dataclasses.replace(
+        ic, noise_seed=b, noise_T=0.05 if b else 0.0), device=cuda_device), p,
+        device=cuda_device), m, topo) for b in range(3)]
+    ens = shard_state(stack_states([s.replace(F=s.F.gather(), U=s.U.gather())
+                                    for s in singles]), m, topo)
+    step, one = make_ensemble_stepper(p, m, topo), make_sharded_stepper(p, m, topo)
+    for k in range(3):
+        live = np.array([True, False, True]) if k == 1 else None
+        before = member(ens, 1)
+        cuda_cg.reset_launch_counts()
+        cg.reset_host_reads()
+        ens, stats = step(ens, live)
+        launched = {key: v for key, v in cuda_cg.LAUNCHES.items() if v}
+        rounds = cg.HOST_READS["cg_stop_test_members"]
+        assert cg.HOST_READS["cg_stop_test"] == 0 and rounds > 0
+        assert all("members" in key for key in launched), launched
+        assert launched["update_xr_rr_members"] == rounds * sy * sx
+        for b in range(3):
+            mb = member(ens, b)
+            if live is not None and not live[b]:
+                assert torch.equal(mb.F.gather(), before.F.gather())
+                continue
+            singles[b], s1 = one(singles[b])
+            assert torch.equal(mb.F.gather(), singles[b].F.gather()), (k, b)
+            assert torch.equal(mb.U.gather(), singles[b].U.gather()), (k, b)
+            assert (mb.t, mb.iter) == (singles[b].t, singles[b].iter)
+            got = stats.member(b)
+            assert (got.Phi_iters, got.T_iters) == (s1.Phi_iters, s1.T_iters), (k, b)

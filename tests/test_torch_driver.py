@@ -206,13 +206,12 @@ def test_resume_continues_the_run(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    # Euler and RK4 ensembles on a spatial mesh run (tests/test_torch_ensemble_mesh_fixed.py);
-    # semi-implicit ones wait for their mesh kernels over members (item 7e)
+    # Euler and RK4 ensembles on a spatial mesh run (tests/test_torch_ensemble_mesh_fixed.py),
+    # and semi-implicit ones (tests/test_torch_ensemble_mesh_si.py)
     ("[tpu]\nensemble", "4\nshards_y = 2\n[simulation]\nsolver = explicit-rk4", None),
     ("[tpu]\nensemble", "4\nshards_x = 2\n[simulation]\nsolver = explicit", None),
-    ("[tpu]\nensemble", "4\nshards_x = 2\n[simulation]\nsolver = semi-implicit", "item 7e"),
-    ("[tpu]\nensemble", "2\nshards_y = 2\n[simulation]\nsolver = semi-implicit",
-     "semi-implicit ensembles on a spatial mesh"),
+    ("[tpu]\nensemble", "4\nshards_x = 2\n[simulation]\nsolver = semi-implicit", None),
+    ("[tpu]\nensemble", "2\nshards_y = 2\n[simulation]\nsolver = semi-implicit", None),
     ("[tpu]\nmultihost", "true", "multihost"),
     ("[program]\ninteractive", "true", "viewer"),
     ("[snapshot]\nnetcdf", "true", "netcdf"),

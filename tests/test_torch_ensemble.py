@@ -530,10 +530,10 @@ def test_ensemble_member_equals_single_run_with_its_seed(tmp_path, monkeypatch):
     ("[simulation]\nsolver = explicit-rk4\nmesh_size_x = 4096\nmesh_size_y = 2048\n", None),
     # on a spatial mesh an ensemble runs RKM and the exact solver
     # (tests/test_torch_ensemble_mesh.py), Euler and RK4
-    # (tests/test_torch_ensemble_mesh_fixed.py); semi-implicit waits for its
-    # mesh kernels over members (item 7e)
+    # (tests/test_torch_ensemble_mesh_fixed.py) and semi-implicit
+    # (tests/test_torch_ensemble_mesh_si.py)
     ("[tpu]\nshards_y = 2\n", None),
-    ("[tpu]\nshards_y = 2\n[simulation]\nsolver = semi-implicit\n", "item 7e"),
+    ("[tpu]\nshards_y = 2\n[simulation]\nsolver = semi-implicit\n", None),
     # batch_shards alone splits the members into groups, each a one-device
     # ensemble: every solver runs
     ("[tpu]\nbatch_shards = 2\n", None),

@@ -487,10 +487,11 @@ def test_shards_hold_members_and_groups():
     ("[tpu]\nensemble = 3\nbatch_shards = 2\n", ValueError, "divisible by batch_shards"),
     ("[tpu]\nensemble = 2\nshards_y = 2\n[simulation]\nsolver = explicit\n", None, None),
     ("[tpu]\nensemble = 2\nshards_x = 2\n[simulation]\nsolver = explicit-rk4\n", None, None),
+    # semi-implicit ensembles on spatial meshes (tests/test_torch_ensemble_mesh_si.py)
     ("[tpu]\nensemble = 2\nshards_y = 2\nshards_x = 2\n[simulation]\nsolver = semi-implicit\n",
-     NotImplementedError, "item 7e"),
+     None, None),
     ("[tpu]\nensemble = 4\nshards_y = 2\nbatch_shards = 2\n[simulation]\n"
-     "solver = semi-implicit\n", NotImplementedError, "semi-implicit ensembles on a spatial"),
+     "solver = semi-implicit\n", None, None),
 ])
 def test_check_supported_takes_rkm_mesh_ensembles(extra, error, match):
     cfg = parse_config(CONFIG_TEXT.replace("solver = explicit",
@@ -503,14 +504,11 @@ def test_check_supported_takes_rkm_mesh_ensembles(extra, error, match):
 
 
 def test_the_steppers_refuse_what_they_do_not_run():
-    """The mesh ensemble stepper refuses semi-implicit on a spatial mesh
-    (item 7e) and builds Euler and RK4 ones; the single mesh stepper
-    refuses member groups."""
+    """The mesh ensemble stepper builds semi-implicit, Euler and RK4 ones on
+    a spatial mesh (semi-implicit raised until item 7e was ported); the
+    single mesh stepper refuses member groups."""
     mesh, topo = make_mesh(2, 1, _cpu(2))
-    for solver in ("semi-implicit",):
-        with pytest.raises(NotImplementedError, match="item 7e"):
-            make_ensemble_stepper(_params("float64", solver=SolverType(solver)), mesh, topo)
-    for solver in ("explicit", "explicit-rk4"):
+    for solver in ("semi-implicit", "explicit", "explicit-rk4"):
         assert callable(make_ensemble_stepper(_params("float64", solver=SolverType(solver)),
                                               mesh, topo))
     gmesh, gtopo = make_mesh(2, 1, _cpu(4), batch=2)
