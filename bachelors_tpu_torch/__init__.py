@@ -9,9 +9,11 @@ easy to find.  This package never imports jax.
 Ported so far, on one device with stats and snapshots: adaptive
 Runge-Kutta-Merson, fixed-step RK4, forward Euler (with the multi-step pass
 for runs without stats), the semi-implicit CG solver with the corrector
-loop, and the exact solver; adaptive RKM also on y, x and 2D meshes of
-devices (``parallel/``; see ROADMAP.md for the rest).  Entry points
-that make tensors run on the card unless given ``device="cpu"``.
+loop, and the exact solver; each also on y, x and 2D meshes of devices
+(``parallel/``), in one process or over the ranks of a
+``torch.distributed`` world (``launch.py``, or torchrun); see ROADMAP.md
+for the rest.  Entry points that make tensors run on the card unless given
+``device="cpu"``.
 """
 from .core.params import (BoundaryType, SimParams, SolverType,
                           rewire_params_for_exact)

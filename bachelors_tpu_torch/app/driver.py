@@ -43,10 +43,23 @@ With ``[program] debug = true`` every frame also carries the debug maps
 ``grad_Phi``, ``grad_T`` and ``aniso`` after F and U (``app/viewer.
 available_maps``; an ensemble's are member 0's, a mesh's the gathered
 state's), as the JAX driver writes them (JAX :194-209).
+
+Several processes run one simulation as the ranks of a ``torch.distributed``
+world (``parallel/multihost.py``): started by ``python -m
+bachelors_tpu_torch.launch`` (the BTPU_* variables, applied by ``main``
+before any device is touched) or by torchrun with ``[tpu] multihost =
+true``.  The mesh then spans the ranks, each stepping the shards it owns
+(``parallel/mesh.make_mesh``); only the primary (rank 0) makes the run
+folder and writes ``log.txt``, the frames and the stats, every rank taking
+part in each frame's gather (JAX :153-161, :289-290).  The ranks check at
+each frame that they hold the same clock.  In a world of more than one
+rank, a config that fails ends the process: its peers would otherwise wait
+in an exchange that never comes.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import List, Optional, Tuple
@@ -61,7 +74,9 @@ from ..io.config import SimConfig, load_config
 from ..io.snapshot import load_bin_maps, make_save_folder, save_bin_maps
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
-from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
+from ..ops import cuda_cg, cuda_rhs, cuda_stats
+from ..parallel import multihost, transport
+from ..parallel.mesh import ENSEMBLES_OVER_RANKS, Mesh, gather_state, make_mesh, shard_state
 from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 from ..parallel.topology import Topology
 from ..solvers.base import make_stepper
@@ -103,8 +118,8 @@ def check_supported(cfg: SimConfig) -> None:
         raise ValueError(f"[tpu] ensemble={cfg.ensemble} must be divisible "
                          f"by batch_shards={cfg.batch_shards}")
     todo = []
-    if cfg.multihost:
-        todo.append("[tpu] multihost (ROADMAP slice 5c, item 15: torch.distributed)")
+    if cfg.ensemble > 1 and multihost.world() > 1:
+        todo.append(ENSEMBLES_OVER_RANKS)
     if cfg.interactive:
         todo.append("[program] interactive = true (ROADMAP slice 6, item 17: "
                     "the viewer)")
@@ -214,7 +229,11 @@ def _save_snapshot(folder: str, index: int, state: SimState, cfg: SimConfig,
     ensemble's list of them, member 0's into stats.csv and member b's into
     stats_m{b:03d}.csv (JAX :219-225)."""
     p = cfg.params
-    state = gather_state(state)  # a mesh's shards joined: the same bytes
+    # a mesh's shards joined, the same bytes; over ranks onto the primary,
+    # which alone writes
+    state = gather_state(state, root=0)
+    if state is None or not folder:
+        return
     if n_members(state):
         extra = _save_members(folder, index, state, p)
         state = member(state, 0)  # the frame's maps are member 0's (JAX :194)
@@ -265,12 +284,22 @@ def _devices(cfg: SimConfig, device) -> Tuple[torch.device, Optional[Mesh], Topo
     card.  Too few raise."""
     names = list(device) if isinstance(device, (list, tuple)) else [device]
     batch = cfg.batch_shards if cfg.ensemble > 1 else 1
+    world = multihost.world()
     if cfg.shards_y * cfg.shards_x * batch == 1:
+        if world > 1:
+            raise ValueError(f"a run on one device does not split over {world} ranks: set "
+                             "[tpu] shards_y / shards_x to a mesh of a multiple of them")
         return resolve_device(names[0]), None, Topology()
     devices = [resolve_device(d) for d in names]
     mesh, topo = make_mesh(cfg.shards_y, cfg.shards_x,
                            None if names == ["cuda"] else devices, batch=batch)
     return mesh.devices[0], mesh, topo
+
+
+def _counts() -> dict:
+    """This process's kernel launches and transfers so far, by name."""
+    return {**cuda_rhs.LAUNCHES, **cuda_cg.LAUNCHES, **cuda_stats.LAUNCHES,
+            **{f"transfers {k}": v for k, v in transport.TRANSFERS.items()}}
 
 
 def run_simulation(cfg: SimConfig, device="cuda",
@@ -282,6 +311,7 @@ def run_simulation(cfg: SimConfig, device="cuda",
     check_supported(cfg)
     dev, mesh, topo = _devices(cfg, device)
     p = cfg.params
+    counts0 = _counts()
     ensemble = max(cfg.ensemble, 1)
     if ensemble > 1:
         state = _initial_ensemble_state(cfg, ensemble, dev)
@@ -300,7 +330,7 @@ def run_simulation(cfg: SimConfig, device="cuda",
         state = shard_state(state, mesh, topo)
 
     folder = ""
-    if make_folder:
+    if make_folder and multihost.is_primary():
         folder = make_save_folder(cfg.snapshot_folder, cfg.snapshot_prefix,
                                   cfg.snapshot_postfix, p.solver.value)
         SYSTEM.set_file(os.path.join(folder, "log.txt"))
@@ -308,9 +338,15 @@ def run_simulation(cfg: SimConfig, device="cuda",
     log.info(f"device = {dev}"
              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
     if mesh is not None:
+        ranks = ""
+        if topo.spans_ranks:
+            staged = multihost.backend() == "gloo" and dev.type == "cuda"
+            ranks = (f", shards {topo.owned.start}-{topo.owned.stop - 1} of rank {topo.rank} "
+                     f"of {topo.world} ({multihost.backend()}"
+                     + (", exchanges staged through host memory" if staged else "") + ")")
         log.info(f"sharding over a {topo.shards_y}x{topo.shards_x} mesh"
                  + (f" x {mesh.batch} member groups" if mesh.batch > 1 else "")
-                 + f" on {[str(d) for d in mesh.devices]}")
+                 + f" on {[str(d) for d in mesh.devices]}" + ranks)
 
     accs = [StatsAccumulator() for _ in range(ensemble)] if cfg.collect_stats else []
     acc = accs[0] if accs else None
@@ -362,6 +398,10 @@ def run_simulation(cfg: SimConfig, device="cuda",
                     last_notif = now
                     log.info(f"... completed {min(state.t / stop, 1.0) * 100:.2f}%")
         snapshots += 1
+        if multihost.backend() is not None:  # in a world, of one rank or more
+            # every host decision is read from sums every rank combines alike,
+            # so the ranks hold one clock; a rank that stepped apart ends the run
+            transport.agree(_clock(state), f"the clock at snapshot {snapshots}")
         if make_folder:
             log.info(f"saving snapshot {snapshots}")
             _save_snapshot(folder, snapshots, state, cfg, accs if ensemble > 1 else acc,
@@ -377,8 +417,19 @@ def run_simulation(cfg: SimConfig, device="cuda",
     log.info(f"runtime: {runtime:.2f}s | iters: {iters} | attempts: "
              f"{attempts} | average step time: "
              f"{runtime / max(iters, 1) * 1000:.3f} ms")
+    counts = {k: v - counts0.get(k, 0) for k, v in _counts().items() if v != counts0.get(k, 0)}
+    log.info("run counts " + json.dumps({"rank": multihost.rank(), "world": multihost.world(),
+                                         "shards": list(topo.owned), "iters": iters,
+                                         "ms_per_step": runtime / max(iters, 1) * 1000,
+                                         "counts": counts}))
     return RunResult(iters=iters, sim_time=t, runtime=runtime,
                      snapshots=snapshots, save_folder=folder, attempts=attempts)
+
+
+def _clock(state: SimState) -> List[float]:
+    """(t, iter, tau) of a run, every member's of an ensemble."""
+    return [float(v) for v in np.concatenate([np.ravel(state.t), np.ravel(state.iter),
+                                               np.ravel(state.tau)])]
 
 
 def _advance_members(stepper, state: SimState, target: float, fast: bool,
@@ -414,13 +465,19 @@ def _advance_members(stepper, state: SimState, target: float, fast: bool,
 def run_config_file(path: str, overrides: Optional[List[str]] = None,
                     make_folder: bool = True, device="cuda") -> Optional[RunResult]:
     cfg = load_config(path, overrides)
+    first = device[0] if isinstance(device, (list, tuple)) else device
+    if cfg.multihost and not multihost.initialize(device=first):
+        # torchrun's contract (JAX autodetects its cluster here, JAX :560-563)
+        raise RuntimeError("[tpu] multihost = true joins the world torchrun describes, but "
+                           f"{', '.join(multihost.TORCHRUN_VARS)} are not all set: start "
+                           "the ranks with torchrun, or with python -m "
+                           "bachelors_tpu_torch.launch (which needs no multihost key)")
     check_supported(cfg)
     if cfg.run_benchmarks:
         # the reduction sweep up to the config's cell count, on the run's
         # first device (JAX :570-573)
         from ..bench.microbench import run_reduction_benchmark
 
-        first = device[0] if isinstance(device, (list, tuple)) else device
         run_reduction_benchmark(cfg.params.nx * cfg.params.ny, first)
     if not cfg.run_simulation:
         return None
@@ -438,12 +495,26 @@ io/config.py).  The default device is cuda, and a missing card is an error.
   --device cuda:0,cuda:0              one device per shard of a [tpu]
                                       shards_y x shards_x mesh (may repeat;
                                       "cuda" alone: every visible card)
+
+Several processes, one run on a mesh that spans them (rank r owns a
+contiguous range of the shards):
+  python -m bachelors_tpu_torch.launch -n 2 [--platform cpu|cuda]
+      [--backend nccl|gloo] CONFIG.ini --set tpu.shards_y=2 ...
+                                      N ranks on this host (NCCL on the
+                                      cards, one rank a card; gloo on the CPU,
+                                      or by request on one card, staged
+                                      through host memory)
+  torchrun --nproc-per-node N -m bachelors_tpu_torch CONFIG.ini
+      --set tpu.multihost=true --set tpu.shards_y=N
+                                      the ranks torchrun starts, on any hosts
 """
 
 
 def parse_args(argv: List[str]):
-    """(config paths, --set overrides as INI fragments, device)."""
-    overrides, paths, device = [], [], "cuda"
+    """(config paths, --set overrides as INI fragments, device).  The
+    device defaults to cuda, or to the launcher's ``BTPU_PLATFORM``."""
+    overrides, paths = [], []
+    device = "cpu" if os.environ.get("BTPU_PLATFORM") == "cpu" else "cuda"
     i = 0
     while i < len(argv):
         if argv[i] == "--set" and i + 1 < len(argv):
@@ -461,6 +532,19 @@ def parse_args(argv: List[str]):
     return paths or ["config.ini"], overrides, device
 
 
+def _init_multiprocess_from_env(device) -> None:
+    """Apply the launcher's BTPU_* contract (``bachelors_tpu_torch/
+    launch.py``; JAX :584-604): join the world it describes, before any
+    device is touched."""
+    if "BTPU_COORD" not in os.environ:
+        return
+    first = device[0] if isinstance(device, (list, tuple)) else device
+    multihost.initialize(coordinator_address=os.environ["BTPU_COORD"],
+                         num_processes=int(os.environ["BTPU_NPROCS"]),
+                         process_id=int(os.environ["BTPU_PID"]),
+                         backend=os.environ.get("BTPU_DIST_BACKEND"), device=first)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import sys
 
@@ -469,11 +553,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(USAGE)
         return 0
     paths, overrides, device = parse_args(argv)
+    _init_multiprocess_from_env(device)
     ret = 0
     for path in paths:
         try:
             run_config_file(path, overrides, device=device)
         except Exception as e:  # noqa: BLE001 - mirror reference skip-on-error
+            if multihost.world() > 1:
+                # the peers would wait in an exchange that never comes
+                log.error(f"failed to run config '{path}' on rank {multihost.rank()} of "
+                          f"{multihost.world()}: {e}. Ending this rank.")
+                return 1
             log.error(f"failed to run config '{path}': {e}. Skipping to next config.")
             ret = 1
+    multihost.finalize()
     return ret

@@ -54,7 +54,13 @@ class Shards:
     With ``batch`` = G groups (``[tpu] batch_shards``, JAX's ``batch``
     mesh axis) the members split into G contiguous groups of B_g = B / G,
     each on its own shards, and ``blocks`` holds group 0's shards, then
-    group 1's, and so on (``group``)."""
+    group 1's, and so on (``group``).
+
+    On a mesh that spans ranks ``blocks`` are the calling rank's own, which
+    its ``Topology`` names (``owned``, ``block``); ``shape`` and ``numel``
+    speak of the whole field, and ``parallel/mesh.gather_state`` joins it
+    with every rank taking part.  ``block`` and ``gather`` answer for a
+    field that holds every shard."""
 
     blocks: Tuple[torch.Tensor, ...]
     grid: Tuple[int, int]
@@ -67,7 +73,15 @@ class Shards:
     edges: Optional[tuple] = dataclasses.field(default=None, compare=False, repr=False)
     batch: int = 1
 
+    @property
+    def whole(self) -> bool:
+        """Whether this holds every shard (not one rank's share)."""
+        return len(self.blocks) == self.grid[0] * self.grid[1] * self.batch
+
     def block(self, i: int, j: int) -> torch.Tensor:
+        if not self.whole:
+            raise ValueError("this field holds one rank's shards: Topology.block answers "
+                             "for them, parallel.mesh.gather_state joins them")
         return self.blocks[i * self.grid[1] + j]
 
     def map(self, fn, *others: "Shards") -> "Shards":
@@ -88,8 +102,8 @@ class Shards:
     def shape(self) -> Tuple[int, ...]:
         """(ny, nx), or (B, ny, nx) for an ensemble's members."""
         sy, sx = self.grid
-        ny_nx = (sum(self.block(i, 0).shape[-2] for i in range(sy)),
-                 sum(self.block(0, j).shape[-1] for j in range(sx)))
+        ny_l, nx_l = self.blocks[0].shape[-2:]  # equal blocks (``mesh.field_spec``)
+        ny_nx = (sy * ny_l, sx * nx_l)
         B = self.members
         return ny_nx if B is None else (B, *ny_nx)
 
@@ -103,7 +117,9 @@ class Shards:
         return self.blocks[0].device
 
     def numel(self) -> int:
-        return sum(b.numel() for b in self.blocks)
+        """The whole field's cells (every shard's, on every rank)."""
+        n = self.grid[0] * self.grid[1] * self.batch
+        return sum(b.numel() for b in self.blocks) * (n // len(self.blocks))
 
     def group(self, g: int) -> "Shards":
         """Member group g's shards (its edges with them), one group."""

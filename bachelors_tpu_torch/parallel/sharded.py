@@ -10,6 +10,12 @@ mesh's ``batch`` groups and each group's members over its spatial shards
 (JAX's dp x spatial decomposition); without a mesh an ensemble on one
 device, the JAX driver's ``jax.vmap(make_stepper(p))``
 (``bachelors_tpu/app/driver.py:247-282``).
+
+On a mesh that spans ranks (``parallel/multihost.py``) each rank steps the
+shards it owns with the same kernels, and every host decision (a Merson
+attempt's acceptance, a CG loop's stop, the corrector loop's test) is read
+from sums every rank combines alike (``Topology``), so the ranks step in
+lockstep.  Ensembles over ranks are ROADMAP item 5d.
 """
 from __future__ import annotations
 
@@ -32,11 +38,18 @@ def make_sharded_stepper(p: SimParams, mesh: Mesh, topo: Topology) -> Stepper:
         raise ValueError(f"mesh {mesh.shape} and topology {topo.grid} differ")
     if mesh.batch != 1:
         raise ValueError("a mesh with member groups steps an ensemble: make_ensemble_stepper")
+    if mesh.world != topo.world:
+        raise ValueError(f"mesh over {mesh.world} ranks and topology over {topo.world} differ")
     inner = make_stepper(p, topo)
+    owned = topo.owned
 
     def step(state: SimState):
         if not (isinstance(state.F, Shards) and state.F.grid == topo.grid):
             raise ValueError(f"the state is not sharded over the {topo.grid} mesh")
+        if len(state.F.blocks) != len(owned):
+            raise ValueError(f"the state holds {len(state.F.blocks)} shards, rank "
+                             f"{topo.rank} owns {len(owned)} ({owned.start} to "
+                             f"{owned.stop - 1}): place it with parallel.mesh.shard_state")
         return inner(state)
 
     return step

@@ -11,11 +11,20 @@ is written once against this interface:
     combines per-shard partials on the first shard's device.
 
 The JAX package runs the per-shard code inside ``shard_map`` and exchanges
-halos with ``lax.ppermute``.  Here one process drives every shard, each on
-its own device (a device may repeat: several shards on one card), and an
-exchange is a set of tensor copies, each from the neighbour's tensor into
-the receiver's ghost buffer: no kernel reads another device's memory.
-Multi-process meshes (``torch.distributed``) are ROADMAP slice 5c.
+halos with ``lax.ppermute``.  Here a process drives every shard it owns,
+each on its own device (a device may repeat: several shards on one card),
+and an exchange is a set of tensor copies, each from the neighbour's tensor
+into the receiver's ghost buffer: no kernel reads another device's memory.
+
+A mesh may span the ranks of a ``torch.distributed`` world (``world`` > 1,
+``parallel/multihost.py``): rank r owns shards [r k, (r + 1) k) of the n in
+row-major order, k = n / world, JAX's process-major device order.  A copy
+whose source shard belongs to another rank becomes a message
+(``parallel/transport.swap``), one per neighbour, side and axis, carrying
+every field and every member; the reductions all-gather each rank's
+per-shard partials and combine all n in shard order, so a run over ranks
+takes the one-process mesh run's values bit for bit, and every rank the
+same host decisions.  With one rank nothing crosses a process.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import torch
 from ..core.boundary import Apron, Halo, pad2, pad_halo
 from ..core.params import BoundaryType
 from ..core.state import Shards
+from . import transport
 
 # Per shard, the edges a stage sends to its neighbours: (rows, cols), rows
 # (2, k, nx_l) = the shard's first and last row of k fields, cols (2, k,
@@ -61,22 +71,49 @@ def _side(edges: torch.Tensor, side: int) -> torch.Tensor:
     return edges.select(-3, side)
 
 
-def _ring_copy(buf: torch.Tensor, sources: Sequence[torch.Tensor]) -> torch.Tensor:
-    for k, src in enumerate(sources):
-        _side(buf, k).copy_(src)
-    return buf
-
-
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Execution context: the mesh shape (1 x 1 = one device)."""
+    """Execution context: the mesh shape (1 x 1 = one device), and on a
+    mesh that spans ranks the world's size and this process's rank."""
 
     shards_y: int = 1   # shards along grid rows (dim 0)
     shards_x: int = 1   # shards along grid columns (dim 1)
+    world: int = 1      # ranks the mesh spans
+    rank: int = 0       # this process's rank among them
+
+    def __post_init__(self):
+        n = self.shards_y * self.shards_x
+        if n % self.world:
+            raise ValueError(f"a {self.shards_y}x{self.shards_x} mesh of {n} shards does not "
+                             f"split over {self.world} ranks")
 
     @property
     def grid(self) -> Tuple[int, int]:
         return (self.shards_y, self.shards_x)
+
+    @property
+    def owned(self) -> range:
+        """The global indices of this rank's shards (every shard in a world
+        of one)."""
+        k = self.shards_y * self.shards_x // self.world
+        return range(self.rank * k, (self.rank + 1) * k)
+
+    def owner(self, shard: int) -> int:
+        """The rank that owns global shard ``shard``."""
+        return shard // (self.shards_y * self.shards_x // self.world)
+
+    @property
+    def spans_ranks(self) -> bool:
+        return self.world > 1
+
+    def block(self, A: Shards, i: int, j: int) -> torch.Tensor:
+        """Shard (i, j)'s block of ``A``, which holds this rank's shards: a
+        shard this rank owns, else an error."""
+        g = i * self.shards_x + j
+        if g not in self.owned:
+            raise ValueError(f"shard ({i}, {j}) belongs to rank {self.owner(g)}, "
+                             f"not to rank {self.rank}")
+        return A.blocks[g - self.owned.start]
 
     @property
     def axis_y(self) -> Optional[str]:
@@ -105,22 +142,33 @@ class Topology:
         for columns.  Two copies per shard per sharded axis, each carrying
         every field of the edges.  An ensemble's member-major edges (B, 2,
         k, n) make member-major ghosts with the same copies, each carrying
-        every member."""
+        every member.  ``edges`` and the halos are this rank's shards'; on
+        a mesh that spans ranks a copy from another rank's shard is a
+        message (``transport.swap``)."""
         sy, sx = self.grid
-        halos = []
-        for i in range(sy):
-            for j in range(sx):
-                rows, cols = edges[i * sx + j]
-                if rows is not None:
-                    rows = _ring_copy(torch.empty_like(rows),
-                                      (_side(edges[(i - 1) % sy * sx + j][0], 1),
-                                       _side(edges[(i + 1) % sy * sx + j][0], 0)))
-                if cols is not None:
-                    cols = _ring_copy(torch.empty_like(cols),
-                                      (_side(edges[i * sx + (j - 1) % sx][1], 1),
-                                       _side(edges[i * sx + (j + 1) % sx][1], 0)))
-                halos.append(Halo(rows, cols, self.shard_edges(i, j)))
-        return halos
+        me, lo = self.rank, self.owned.start
+        bufs = [tuple(None if e is None else torch.empty_like(e) for e in pair)
+                for pair in edges]
+        sends, recvs = [], []
+        for g in range(sy * sx):  # every destination in global order, alike on every rank
+            i, j = divmod(g, sx)
+            for axis, ring in ((0, ((i - 1) % sy * sx + j, (i + 1) % sy * sx + j)),
+                               (1, (i * sx + (j - 1) % sx, i * sx + (j + 1) % sx))):
+                if self.grid[axis] == 1:
+                    continue
+                for side, src in enumerate(ring):
+                    to, by, tag = self.owner(g), self.owner(src), (2 * g + axis) * 2 + side
+                    if by == me:
+                        piece = _side(edges[src - lo][axis], 1 - side)
+                        if to == me:
+                            _side(bufs[g - lo][axis], side).copy_(piece)
+                        else:
+                            sends.append((to, tag, piece))
+                    elif to == me:
+                        recvs.append((by, tag, _side(bufs[g - lo][axis], side)))
+        transport.swap(sends, recvs, "exchange")
+        return [Halo(rows, cols, self.shard_edges(*divmod(g, sx)))
+                for g, (rows, cols) in zip(self.owned, bufs)]
 
     def apron(self, F: Shards, U: Shards, depth: int) -> List[Apron]:
         """Each shard's apron ``depth`` cells deep for a whole-step kernel,
@@ -138,14 +186,15 @@ class Topology:
           * ghost columns: the last ``depth`` columns of (i, j - 1) (side 0)
             and the first of (i, j + 1) (side 1).
 
-        One process drives every shard, so a corner is copied from the
-        diagonal shard directly.  Copies per shard, each of both fields
+        A process copies from each shard it owns directly, a corner from
+        the diagonal shard too.  Copies per shard, each of both fields
         apart: a y-mesh 4 (contiguous rows), an x-mesh 4 (strided
         columns), a 2D mesh 16 (4 row blocks into the widened rows, 8
-        corners and 4 columns, all strided).  The kernels apply the
-        boundary rule at the global edges themselves.  A sharded axis needs
-        shards at least ``depth`` cells across: a neighbour's neighbour is
-        never read.
+        corners and 4 columns, all strided).  A piece from another rank's
+        shard is a message carrying both fields (``transport.swap``).  The kernels
+        apply the boundary rule at the global edges themselves.  A sharded
+        axis needs shards at least ``depth`` cells across: a neighbour's
+        neighbour is never read.
 
         An ensemble's member-major (B, ny_l, nx_l) blocks make member-major
         aprons, rows (B, 2, 2, depth, W) and columns (B, 2, 2, ny_l, depth),
@@ -155,34 +204,46 @@ class Topology:
         if (sy > 1 and ny_l < depth) or (sx > 1 and nx_l < depth):
             raise ValueError(f"an apron {depth} cells deep needs shards of at least {depth} "
                              f"cells along each sharded axis, got {ny_l}x{nx_l}")
-        d = depth
+        d, lo = depth, self.owned.start
         near = (slice(ny_l - d, ny_l), slice(0, d))  # rows (columns) sent to side 0, 1
         near_x = (slice(nx_l - d, nx_l), slice(0, d))
-        out = []
-        for i in range(sy):
-            for j in range(sx):
-                rows = cols = None
-                if sy > 1:
-                    rows = F.blocks[0].new_empty(
-                        (*lead, 2, 2, d, nx_l + 2 * d if sx > 1 else nx_l))
-                    for side, ii in enumerate(((i - 1) % sy, (i + 1) % sy)):
-                        for f, A in enumerate((F, U)):
-                            dst = rows[..., side, f, :, :]
-                            src = A.block(ii, j)[..., near[side], :]
-                            if sx == 1:
-                                dst.copy_(src)
-                                continue
-                            dst[..., d:d + nx_l].copy_(src)
-                            dst[..., :d].copy_(
-                                A.block(ii, (j - 1) % sx)[..., near[side], near_x[0]])
-                            dst[..., d + nx_l:].copy_(
-                                A.block(ii, (j + 1) % sx)[..., near[side], near_x[1]])
-                if sx > 1:
-                    cols = F.blocks[0].new_empty((*lead, 2, 2, ny_l, d))
-                    for side, jj in enumerate(((j - 1) % sx, (j + 1) % sx)):
-                        for f, A in enumerate((F, U)):
-                            cols[..., side, f, :, :].copy_(A.block(i, jj)[..., near_x[side]])
-                out.append(Apron(rows, cols, i * ny_l, j * nx_l))
+        whole, width = slice(None), nx_l + 2 * d if sx > 1 else nx_l
+        out = [Apron(F.blocks[0].new_empty((*lead, 2, 2, d, width)) if sy > 1 else None,
+                     F.blocks[0].new_empty((*lead, 2, 2, ny_l, d)) if sx > 1 else None,
+                     g // sx * ny_l, g % sx * nx_l) for g in self.owned]
+        me, sends, recvs = self.rank, [], []
+        for g in range(sy * sx):  # every destination in global order, alike on every rank
+            i, j = divmod(g, sx)
+            pieces = []  # (source shard, its rows and columns, ghost axis and side, columns)
+            if sy > 1:
+                for side, ii in enumerate(((i - 1) % sy, (i + 1) % sy)):
+                    if sx == 1:
+                        pieces.append((ii * sx + j, near[side], whole, 0, side, whole))
+                        continue
+                    pieces += [(ii * sx + j, near[side], whole, 0, side, slice(d, d + nx_l)),
+                               (ii * sx + (j - 1) % sx, near[side], near_x[0], 0, side,
+                                slice(0, d)),
+                               (ii * sx + (j + 1) % sx, near[side], near_x[1], 0, side,
+                                slice(d + nx_l, None))]
+            if sx > 1:
+                for side, jj in enumerate(((j - 1) % sx, (j + 1) % sx)):
+                    pieces.append((i * sx + jj, whole, near_x[side], 1, side, whole))
+            to = self.owner(g)
+            for n, (src, rs, cs, axis, side, ds) in enumerate(pieces):
+                by, tag = self.owner(src), g * 32 + n
+                if to == me:
+                    ghost = out[g - lo].rows if axis == 0 else out[g - lo].cols
+                    ghost = ghost[..., side, :, :, ds]  # (..., 2 fields, rows, columns)
+                if by == me:
+                    cells = [A.blocks[src - lo][..., rs, cs] for A in (F, U)]
+                    if to == me:
+                        for f in range(2):
+                            ghost.select(-3, f).copy_(cells[f])
+                    else:
+                        sends.append((to, tag, torch.stack(cells, -3)))
+                elif to == me:
+                    recvs.append((by, tag, ghost))
+        transport.swap(sends, recvs, "apron")
         return out
 
     # ---- ghost-cell padding -------------------------------------------------
@@ -204,10 +265,16 @@ class Topology:
     # ---- reductions ---------------------------------------------------------
     # The reference's device-wide reduction trees (`cuda_reduction.cuh:
     # 131-214`) as torch reductions per shard plus a combine over the mesh.
-    # The sums add the shards' partials in shard order (``add_in_order``).
+    # The sums add the shards' partials in shard order (``add_in_order``);
+    # on a mesh that spans ranks every rank combines every shard's
+    # (``_partials``).
+    def _partials(self, values):
+        """Every shard's partials in shard order, from this rank's own."""
+        return transport.all_partials(values) if self.spans_ranks else values
+
     def _all(self, A, reduce, combine):
         if isinstance(A, Shards):
-            return combine([reduce(b) for b in A.blocks])
+            return combine(self._partials([reduce(b) for b in A.blocks]))
         return reduce(A)
 
     def sum(self, A) -> torch.Tensor:
@@ -221,8 +288,8 @@ class Topology:
 
     def dot(self, A, B) -> torch.Tensor:
         if isinstance(A, Shards):
-            return add_in_order([torch.vdot(a.flatten(), b.flatten())
-                                 for a, b in zip(A.blocks, B.blocks)])
+            return add_in_order(self._partials([torch.vdot(a.flatten(), b.flatten())
+                                                for a, b in zip(A.blocks, B.blocks)]))
         return torch.vdot(A.flatten(), B.flatten())
 
     def count(self, A) -> int:
@@ -234,10 +301,10 @@ class Topology:
     # An ensemble's (B,) partials combine member by member in the same
     # order as a single field's.
     def allsum(self, values) -> torch.Tensor:
-        return add_in_order(values) if self.is_sharded else values
+        return add_in_order(self._partials(values)) if self.is_sharded else values
 
     def allmax(self, values) -> torch.Tensor:
-        return _combine(values, torch.amax) if self.is_sharded else values
+        return _combine(self._partials(values), torch.amax) if self.is_sharded else values
 
 
 ONE_DEVICE = Topology()

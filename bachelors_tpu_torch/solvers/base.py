@@ -136,10 +136,10 @@ def make_stepper(p: SimParams, topo: Topology = ONE_DEVICE) -> Stepper:
         def step(state: SimState):
             if not isinstance(state.F, Shards):
                 return finish(state, *exact_fields(p, state.F, state.t), p.dt, 1, 1)
-            sy, sx = state.F.grid
-            ly, lx = state.F.blocks[0].shape
-            out = [exact_fields(p, state.F.block(i, j), state.t, i * ly, j * lx)
-                   for i in range(sy) for j in range(sx)]
+            sx, (ly, lx) = topo.shards_x, state.F.blocks[0].shape
+            # each shard this rank owns, from its global offset
+            out = [exact_fields(p, blk, state.t, g // sx * ly, g % sx * lx)
+                   for g, blk in zip(topo.owned, state.F.blocks)]
             nF, nU = (Shards(blocks, state.F.grid) for blocks in zip(*out))
             return finish(state, nF, nU, p.dt, 1, 1)
 
@@ -196,6 +196,9 @@ def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> Mem
     topo = Topology(*mesh.shape) if topo is None else topo
     if mesh.shape != topo.grid:
         raise ValueError(f"mesh {mesh.shape} and topology {topo.grid} differ")
+    if mesh.world > 1 or topo.spans_ranks:
+        raise NotImplementedError("not ported yet: ensembles on a mesh that spans ranks "
+                                  "(ROADMAP item 5d)")
     inner = _members_stepper(p, topo)
     if mesh.batch == 1 and topo.is_sharded:
         return inner
@@ -357,14 +360,12 @@ def _members_stepper(p: SimParams, topo: Topology) -> MembersStepper:
                 for b in ids:
                     nF[b], nU[b] = exact_fields(p, state.F[b], float(state.t[b]))
                 return finish(state, ids, nF, nU)
-            sy, sx = topo.grid
-            ly, lx = state.F.blocks[0].shape[-2:]
+            sx, (ly, lx) = topo.shards_x, state.F.blocks[0].shape[-2:]
             nF, nU = state.F.map(torch.empty_like), state.U.map(torch.empty_like)
-            for i in range(sy):
-                for j in range(sx):
-                    for b in ids:
-                        nF.block(i, j)[b], nU.block(i, j)[b] = exact_fields(
-                            p, state.F.block(i, j)[b], float(state.t[b]), i * ly, j * lx)
+            for g, F, oF, oU in zip(topo.owned, state.F.blocks, nF.blocks, nU.blocks):
+                for b in ids:
+                    oF[b], oU[b] = exact_fields(p, F[b], float(state.t[b]),
+                                                g // sx * ly, g % sx * lx)
             return finish(state, ids, nF, nU)
 
     else:

@@ -10,12 +10,12 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
 (stats every step, 11 snapshots):
 
   * RKM, the shipped solver: K2 (the whole Merson attempt);
-  * semi-implicit at the CG tolerance 5e-9, under both CG variants: "pAp",
-    K7 (the prepare) and the CG kernels K8 (matvec + <p, Ap>), K9 (x/r
-    update + <r, r>) and K10 (the direction update); "fused", K8 once per solve, then K9
-    and K8b (the direction update folded into the matvec) per iteration;
-    then, with the gate's variant, the corrector loop and step residuals,
-    cut to 800 steps;
+  * semi-implicit at the CG tolerance 5e-9, cut to 1000 steps, under both
+    CG variants: "pAp", K7 (the prepare) and the CG kernels K8 (matvec +
+    <p, Ap>), K9 (x/r update + <r, r>) and K10 (the direction update);
+    "fused", K8 once per solve, then K9 and K8b (the direction update
+    folded into the matvec) per iteration; then, with the gate's variant,
+    the corrector loop and step residuals, cut to 800 steps;
   * the reduction microbench (``bench/microbench``) to 2*4096^2 values:
     torch.amax, the plain stats pass and K11 (sum, L1, L2, min, max in one
     read), in GB/s; and the shipped RKM run with ``[program]
@@ -33,11 +33,11 @@ through the path's kernels.  At float32, the shipped 512x512 ``config.ini``
     then a 2048^2 cut on a y(4) mesh.  Before them, K5, K12.1, the gather
     and K12.2 against their plain versions on those meshes, and a lockstep
     of each mesh against the single-device K2 stepper;
-  * Euler on the same meshes, cut to 2000 steps beside a one-device run of
+  * Euler on the same meshes, cut to 1000 steps beside a one-device run of
     the same cut: K12.3 (K12.1 in euler mode) after one ghost gather per
     shard and step; without stats on y(2), K12.5 (K6 with ghost
     slabs, 4 steps per launch); with the corrector loop on x(2), K12.3 and
-    K12.1 for the re-steps; RK4 on the same meshes (the same 2000-step
+    K12.1 for the re-steps; RK4 on the same meshes (the same 1000-step
     cut), K12.1 for k1..k3 and K12.4 (K4 with ghosts); RK4 on the 4096^2
     cut on y(2), K12.6 (K3 with
     ghost slabs); the exact solver on 2x2, no kernel, frames equal to one
@@ -183,8 +183,8 @@ and one K12.8 and K9 over members a CG round and at most one K10, one
 host read a round, one K14 twin a refinement, no plain CG iteration, and
 member b bit for bit its single mesh run, frame by frame and in each
 step's CG counts; and their member-steps a second at B = 1, 4 and 8
-beside the single mesh stepper on each mesh (50 host and 10 traced steps,
-as every ensemble timing phase since).
+beside the single mesh stepper on each mesh (20 host and 5 traced steps,
+as every mesh ensemble timing phase; 50 and 10 on one card).
 ``[program] debug = true`` on the shipped config: every frame carries
 grad_Phi, grad_T and aniso in the JAX package's order, held to
 ``debug_maps`` of the frame's own F and U recomputed on the CPU.
@@ -203,6 +203,20 @@ tangent on a kernel route, reverse mode through RKM and the default
 semi-implicit route); forward and forward + backward ms a step and the
 peak memory of a 20-step rollout; and the inverse-design example at 512^2
 (20 steps, 10 iterations: the loss falls).
+
+Multi-process meshes (``python -m bachelors_tpu_torch.launch``): NCCL
+refuses two ranks on one device, so the one card checks them twice, each
+run beside the one-process mesh run of its config in this process, frames
+(every map, t, iter) and stats.csv bit for bit, and every rank's launches
+an equal share of the one process's.  A world of one rank over NCCL runs
+config.ini's RKM cut to 0.004 (~300 steps) on y(2), its one collective the
+ranks' clock check at each frame; a world of two ranks sharing the card
+over gloo, each exchange, reduction and gather staged through host memory,
+runs that cut on y(2) (K12.2) and 2x2 (K12.1 and K5), config.ini's
+semi-implicit run cut to 100 steps on x(2) and the float64 semi-implicit
+sweep config cut to 50 steps on 2x2 (the refined route), all in one
+launch; each run's line reports each rank's ms a step beside the one
+process's and the messages and bytes it moved a step.
 
 Each phase prints one line; any failure raises, so the script exits
 non-zero without printing the final line:
@@ -332,10 +346,10 @@ CUT = ("[simulation]\nmesh_size_x = 4096\nmesh_size_y = 4096\ndt = 7.8125e-8\n"
 EXACT = "[simulation]\nsolver = exact\ndo_exact = true\nstop_after = 0.0005\n[snapshot]\ntimes = 1\n"
 # the semi-implicit path cut to 1000 steps, on one device and on the meshes
 SI_CUT = "[simulation]\nstop_after = 0.005\n"
-# Euler and RK4 on the float32 meshes cut to 2000 steps (stop 0.01), each
-# beside a one-device run of the same cut: a quarter of the whole runs'
-# 8000, which kept the script inside half its time limit as phases grew
-MESH_FIXED_CUT = "[simulation]\nstop_after = 0.01\n"
+# Euler and RK4 on the float32 meshes cut to 1000 steps (stop 0.005), each
+# beside a one-device run of the same cut: an eighth of the whole runs'
+# 8000, which keeps the script within its time as phases grow
+MESH_FIXED_CUT = "[simulation]\nstop_after = 0.005\n"
 SI_CG_ITERS_RTOL = 0.02  # a mesh run's CG iterations against one device's
 # K11 and the reduction microbench: the sweep's sizes up to 2 * 4096^2, that
 # size itself and a ragged one; sum, L1 and L2 held at K11_RTOL (the plain
@@ -4442,7 +4456,7 @@ def mesh_ensemble_path(name, mesh, overrides, batch=1, config=CONFIG) -> dict:
     return n
 
 
-def mesh_ensemble_timing(Bs=MESH_ENSEMBLE_TIMED, steps=50, traced=10) -> dict:
+def mesh_ensemble_timing(Bs=MESH_ENSEMBLE_TIMED, steps=20, traced=5) -> dict:
     """The RKM ensemble of the shipped config (stats every step) on y(2),
     x(2) and 2x2 meshes of the one card at B members, beside the single
     mesh stepper: host ms a step (wall clock over ``steps`` steps,
@@ -4893,7 +4907,7 @@ def fixed_mesh_ensemble_path(name, mesh, overrides, want, batch=1, config=CONFIG
     return n
 
 
-def fixed_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=50, traced=10) -> dict:
+def fixed_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=20, traced=5) -> dict:
     """config.ini as Euler and as RK4 ensembles (stats every step, noise)
     on y(2), x(2) and 2x2 meshes of the one card at B members, beside the
     single mesh stepper (``mesh_ensemble_rows``)."""
@@ -5251,7 +5265,7 @@ def si_mesh_ensemble_path(name, mesh, overrides, batch=1, config=CONFIG, grow=Tr
     return n
 
 
-def si_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=50, traced=10) -> dict:
+def si_mesh_ensemble_timing(Bs=FIXED_TIMED, steps=20, traced=5) -> dict:
     """config.ini's semi-implicit run as an ensemble (stats every step,
     noise) on y(2), x(2) and 2x2 meshes of the one card at B members,
     beside the single mesh stepper (``mesh_ensemble_rows``)."""
@@ -5595,6 +5609,160 @@ def inverse_design_path() -> dict:
     return res
 
 
+# Multi-process meshes (``parallel/multihost.py``, ``launch.py``): the
+# launcher's ranks on the one card, each run beside the one-process mesh run
+# of the same config in this process, frame by frame bit for bit.  NCCL
+# refuses two ranks on one device, so the card checks it in a world of one
+# (its init and collectives) and the rank-crossing exchanges, reductions and
+# gathers in a world of two ranks over gloo, staged through host memory;
+# NCCL's send and receive between two cards is not run here.
+# The semi-implicit cuts write their frames where earlier cuts have them
+# (at 100 steps at float32, at 50 at float64): Phi overshoots 1.1 in the
+# first steps from config.ini's seed, and the frames are checked.
+MP_RKM_CUT = "[simulation]\nstop_after = 0.004\n"     # ~300 Merson steps
+MP_SI_CUT = "[simulation]\nstop_after = 0.0005\n[snapshot]\ntimes = 1\n" + FIRST_FRAME
+MP_SI64_CUT = ("[simulation]\nstop_after = 0.00025\n[program]\ncollect_stats = true\n"
+               "[snapshot]\ntimes = 1\n" + FIRST_FRAME)  # 50 steps of the sweep config
+MP_LIMIT_S = 600
+MP_RUNS = {  # name: (config, overrides, mesh)
+    "RKM y(2)": (CONFIG, [MP_RKM_CUT], "y(2)"),
+    "RKM 2x2": (CONFIG, [MP_RKM_CUT], "2x2"),
+    "semi-implicit x(2)": (CONFIG, [SEMI, MP_SI_CUT], "x(2)"),
+    "float64 semi-implicit 2x2 (refined)": (None, [MP_SI64_CUT], "2x2"),
+}
+
+
+def mp_reference(name) -> dict:
+    """The one-process mesh run of ``MP_RUNS[name]`` (``drive``), its frames
+    and stats.csv kept."""
+    config, overrides, mesh = MP_RUNS[name]
+    sy, sx = MESHES[mesh]
+    return drive([*overrides, f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n"], grow=False,
+                 config=config or sweep("semi-implicit"), device=[DEVICE] * (sy * sx),
+                 frames=True, files=("stats.csv",))
+
+
+def launch_runs(names, nprocs, backend, device=()) -> dict:
+    """``MP_RUNS[names]`` in one ``python -m bachelors_tpu_torch.launch -n
+    nprocs --backend backend``, one config file each: per run its frames,
+    stats.csv and each rank's ``run counts`` line, by name.  The launcher
+    ends its ranks at its time limit, and the process group is killed if
+    it outlives it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        inis = []
+        for k, name in enumerate(names):
+            config, overrides, mesh = MP_RUNS[name]
+            sy, sx = MESHES[mesh]
+            with open(config or sweep("semi-implicit")) as f:
+                text = f.read()
+            inis.append(os.path.join(tmp, f"run{k}.ini"))
+            with open(inis[-1], "w") as f:
+                f.write("\n".join([text, *overrides, f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n",
+                                   f"[snapshot]\nfolder = {os.path.join(tmp, f'out{k}')}\n"]))
+        cmd = [sys.executable, "-m", "bachelors_tpu_torch.launch", "-n", str(nprocs),
+               "--backend", backend, "--timeout", str(MP_LIMIT_S), *inis, *device]
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        try:
+            out = proc.communicate(timeout=MP_LIMIT_S + 60)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+            raise AssertionError("the launcher outlived its limit")
+        if proc.returncode != 0:
+            raise AssertionError(f"the launcher returned {proc.returncode}:\n{out[-6000:]}")
+        lines = [json.loads(line.split("run counts ", 1)[1]) for line in out.splitlines()
+                 if "run counts " in line]
+        runs = {}
+        for k, name in enumerate(names):
+            folders = os.listdir(os.path.join(tmp, f"out{k}"))
+            if len(folders) != 1:
+                raise AssertionError(f"{name}: run folders {folders}, want the primary's one")
+            folder = os.path.join(tmp, f"out{k}", folders[0])
+            snaps = {f: load_bin_maps(os.path.join(folder, f))
+                     for f in os.listdir(folder) if f.endswith(".bin")}
+            stats = os.path.join(folder, "stats.csv")
+            ranks = [[x for x in lines if x["rank"] == r][k] for r in range(nprocs)]
+            runs[name] = dict(snaps=snaps, ranks=ranks,
+                              stats=open(stats).read() if os.path.exists(stats) else None)
+        return runs
+
+
+def hold_launched(name, got, one, nprocs) -> dict:
+    """A launched run against its one-process mesh run: the same frames
+    (every map, t and iter) and stats.csv bit for bit, every rank's launches
+    the one process's for its shards (an equal share of each kernel's), and
+    the ranks' step counts alike.  Returns the run's numbers."""
+    if sorted(got["snaps"]) != sorted(one["snaps"]):
+        raise AssertionError(f"{name}: frames {sorted(got['snaps'])} vs {sorted(one['snaps'])}")
+    worst = 0.0
+    for f, want in one["snaps"].items():
+        snap = got["snaps"][f]
+        if (snap.time, snap.iter) != (want.time, want.iter) or snap.maps.keys() != want.maps.keys():
+            raise AssertionError(f"{name} {f}: t/iter/maps {snap.time, snap.iter, list(snap.maps)}"
+                                 f" vs {want.time, want.iter, list(want.maps)}")
+        for k, a in want.maps.items():
+            if not np.array_equal(snap.maps[k], a):
+                worst = max(worst, float(np.abs(snap.maps[k] - a).max()))
+    if worst or got["stats"] != one["texts"]["stats.csv"]:
+        raise AssertionError(f"{name}: max|delta| {worst}, stats.csv equal: "
+                             f"{got['stats'] == one['texts']['stats.csv']}")
+    want = {k: v for k, v in one["launches"].items() if v}
+    steps = one["res"].iters
+    ranks = []
+    for line in got["ranks"]:
+        counts = line["counts"]
+        launches = {k: v for k, v in counts.items() if not k.startswith("transfers ")}
+        if line["iters"] != steps or any(v % nprocs for v in want.values()) or \
+                launches != {k: v // nprocs for k, v in want.items()}:
+            raise AssertionError(f"{name} rank {line['rank']}: {line['iters']} steps, launches "
+                                 f"{launches}, the one process's {want}")
+        sent = {k.split(" ", 1)[1]: v for k, v in counts.items() if k.startswith("transfers ")}
+        messages = sum(v for k, v in sent.items() if not k.endswith("_bytes"))
+        ranks.append({"rank": line["rank"], "shards": line["shards"],
+                      "ms_per_step": line["ms_per_step"], "transfers": sent,
+                      "messages_per_step": messages / steps,
+                      "bytes_per_step": sum(v for k, v in sent.items() if k.endswith("_bytes")
+                                            and k != "staged_bytes") / steps,
+                      "staged_bytes_per_step": sent.get("staged_bytes", 0) / steps})
+    return {"config": one["summary"]["config"], "grid": one["summary"]["grid"],
+            "dtype": one["summary"]["dtype"], "solver": one["summary"]["solver"],
+            "steps": steps, "frames": len(one["snaps"]), "max_abs_delta": worst,
+            "stats_csv": "equal" if one["texts"]["stats.csv"] is not None else "none",
+            "one_process_ms_per_step": one["summary"]["ms_per_step"],
+            "launches_per_rank": {k: v // nprocs for k, v in want.items()}, "ranks": ranks}
+
+
+def multiprocess_paths() -> None:
+    """The launcher's two checks on the card (``MP_RUNS``): a world of one
+    rank over NCCL (the shipped RKM cut on y(2)), then a world of two ranks
+    sharing the card over gloo, whose exchanges are staged through host
+    memory (all four runs in one launch); each against its one-process mesh
+    run in this process."""
+    one = {name: mp_reference(name) for name in MP_RUNS}
+    name = "RKM y(2)"
+    got = launch_runs([name], 1, "nccl", ["--device", f"{DEVICE}:0,{DEVICE}:0"])[name]
+    run = hold_launched(name, got, one[name], 1)
+    sent, cfg = run["ranks"][0]["transfers"], one[name]["cfg"]
+    frames = len(snapshot_events(cfg.stop_time, cfg.snapshot_times, cfg.snapshot_every))
+    if set(sent) != {"agree", "agree_bytes"} or sent["agree"] != frames:
+        raise AssertionError(f"a world of one moves nothing but the clock check: {sent}")
+    phase("multiprocess_nccl_world1", what="python -m bachelors_tpu_torch.launch -n 1 --backend "
+          "nccl: config.ini's RKM cut to 0.004 on y(2), one rank driving both shards; frames and "
+          "stats.csv against the one-process y(2) run; the NCCL collective is the clock check "
+          "at each frame", card=card_limit(), run=run)
+    got = launch_runs(list(MP_RUNS), 2, "gloo")
+    runs = {name: hold_launched(name, got[name], one[name], 2) for name in MP_RUNS}
+    for name, run in runs.items():
+        if min(r["staged_bytes_per_step"] for r in run["ranks"]) <= 0:
+            raise AssertionError(f"{name}: no exchange was staged through host memory")
+    phase("multiprocess_gloo_two_ranks", what="python -m bachelors_tpu_torch.launch -n 2 "
+          "--backend gloo, both ranks on cuda:0, each rank its half of the shards; every "
+          "exchange, reduction and gather crossing the ranks is staged through host memory "
+          "(gloo-over-host times: they say nothing of NCCL between cards)", card=card_limit(),
+          runs=runs)
+
+
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
     return {"name": name, "route": "cuda", "source": f"bachelors_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, **measured}
@@ -5670,10 +5838,14 @@ def main() -> None:
     cut = mesh_path("RKM, 2048^2 cut on a y(4) mesh", 4, 1, None, [CUT_2048], grow=False)
     bench_hook = benchmarks_hook_path(rkm_one)
     microbench_path()
-    # the shipped semi-implicit run under both CG variants, whatever the gate
-    si, _ = si_path([SEMI], "semi-implicit path, pAp CG variant (K8, K9, K10)", "pAp")
-    si_fused, _ = si_path([SEMI], "semi-implicit path, fused CG variant (K8 once a solve, "
-                          "K9, K8b)", "fused")
+    # the shipped semi-implicit run under both CG variants, whatever the gate,
+    # cut to 1000 steps;
+    # the pAp run (the gate's variant) is also the one-device yardstick of the
+    # semi-implicit mesh runs
+    si, si_cut_one = si_path([SEMI, SI_CUT], "semi-implicit path, pAp CG variant (K8, K9, "
+                             "K10), 1000-step cut", "pAp")
+    si_fused, _ = si_path([SEMI, SI_CUT], "semi-implicit path, fused CG variant (K8 once a "
+                          "solve, K9, K8b), 1000-step cut", "fused")
     _, si_corrector_one = si_path([SEMI, CORRECTOR], "semi-implicit corrector path")
     euler, _ = euler_path()
     euler_fast, euler_fast_one = euler_blocks_path([EULER, NO_STATS], 4,
@@ -5688,7 +5860,7 @@ def main() -> None:
     euler_cut_one = drive([EULER, MESH_FIXED_CUT])["summary"]
     rk4_cut_one_device = drive([RK4, MESH_FIXED_CUT])["summary"]
     euler_mesh = {m: mesh_fixed_path(
-        f"Euler path, 2000-step cut, on a {m} mesh", *shape, [EULER, MESH_FIXED_CUT],
+        f"Euler path, 1000-step cut, on a {m} mesh", *shape, [EULER, MESH_FIXED_CUT],
         euler_cut_one,
         lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n, "halo_edges": n})
         for m, shape in MESHES.items()}
@@ -5700,7 +5872,7 @@ def main() -> None:
         lambda steps, n, _: {"blend_rhs_sharded_euler": steps * n,
                           "blend_rhs_sharded": 3 * steps * n, "halo_edges": 4 * steps * n})
     rk4_mesh = {m: mesh_fixed_path(
-        f"RK4 path, 2000-step cut, on a {m} mesh (staged)", *shape, [RK4, MESH_FIXED_CUT],
+        f"RK4 path, 1000-step cut, on a {m} mesh (staged)", *shape, [RK4, MESH_FIXED_CUT],
         rk4_cut_one_device,
         lambda steps, n, _: {"blend_rhs_sharded": 3 * steps * n,
                           "rk4_final_stage_sharded": steps * n, "halo_edges": n})
@@ -5719,7 +5891,6 @@ def main() -> None:
           frames=sorted(exact["frames"]), equal="bit for bit")
     thin = thin_shards_path()
     # semi-implicit on the meshes, each against a one-device run in this call
-    _, si_cut_one = si_path([SEMI, SI_CUT], "semi-implicit path, 1000-step cut")
     si_mesh = [si_mesh_path(f"semi-implicit path, 1000-step cut, on a {m} mesh", *shape,
                             [SEMI, SI_CUT], si_cut_one) for m, shape in MESHES.items()]
     si_mesh.append(si_mesh_path("semi-implicit corrector path on an x(2) mesh", 1, 2,
@@ -5884,6 +6055,10 @@ def main() -> None:
     differentiable_timing()
     inverse_design_path()
     tut_launches = tutorial_path()
+    # multi-process meshes: the launcher's ranks on the one card
+    t_mp = time.perf_counter()
+    multiprocess_paths()
+    phase("multi-process meshes: the phases' time", seconds=time.perf_counter() - t_mp)
 
     def m64_sum(key, *runs):
         return sum(m64[r][key] for r in runs)

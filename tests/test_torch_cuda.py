@@ -2790,3 +2790,117 @@ def test_mesh_members_si_steps_equal_single_mesh_steps(mesh, dtype, cuda_device)
             assert (mb.t, mb.iter) == (singles[b].t, singles[b].iter)
             got = stats.member(b)
             assert (got.Phi_iters, got.T_iters) == (s1.Phi_iters, s1.T_iters), (k, b)
+
+
+# ---------------------------------------------------------- multi-process meshes
+# NCCL refuses two ranks on one device: on the one card the ranks' exchanges
+# cross over gloo, staged through host memory, and NCCL runs a world of one.
+
+MULTIPROCESS_CASES = ["rkm-float32-y2-kernel", "rkm-float32-2x2-kernel",
+                      "rkm-float64-x2-kernel", "euler_corrector-float32-x2-kernel",
+                      "euler_pair-float64-2x2-kernel", "rk4_whole-float32-y2-kernel",
+                      "si-float32-x2-kernel", "si-float64-2x2-kernel"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_multiprocess_two_ranks_share_the_card_over_gloo(cuda_device, tmp_path):  # noqa: F811
+    """Two ranks of tests/torch_multihost_worker.py on the card, gloo
+    staging every crossing through host memory, each case on the kernels:
+    fields, clocks, CG counts and delta stats equal the one-process mesh
+    run's bit for bit on both ranks, each rank launches half of the one
+    process's kernels (its shards' share), and bytes were staged."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_multihost_worker.py"),
+         "--coord", coord, "--world", "2", "--rank", str(r), "--out", str(tmp_path),
+         "--device", "cuda", "--backend", "gloo", "--only", ",".join(MULTIPROCESS_CASES)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "WORKER_OK" in out, out[-4000:]
+
+    def load(name, who):
+        with np.load(os.path.join(tmp_path, f"{name}.{who}.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    for name in MULTIPROCESS_CASES:
+        one, ranks = load(name, "one"), [load(name, f"rank{r}") for r in range(2)]
+        for r, got in enumerate(ranks):
+            for key in ("F", "U", "t", "iter", "tau", "Phi_iters", "T_iters", "attempts",
+                        "deltas"):
+                assert np.array_equal(got[key], one[key], equal_nan=True), (name, r, key)
+        launched = [json.loads(str(x["launches"])) for x in ranks]
+        assert launched[0] == launched[1] and launched[0], (name, launched)
+        assert {k: 2 * v for k, v in launched[0].items()} == json.loads(str(one["launches"]))
+        for x in ranks:
+            assert json.loads(str(x["transfers"]))["staged_bytes"] > 0, name
+
+
+@pytest.mark.cuda
+def test_multiprocess_nccl_world_of_one(cuda_device):  # noqa: F811
+    """NCCL's init and collectives on the card in a world of one: the
+    partials, the blocks (onto every rank and onto rank 0) and the clock
+    check, on CUDA tensors, nothing staged."""
+    from bachelors_tpu_torch.parallel import multihost, transport
+
+    assert multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        assert multihost.backend() == "nccl" and multihost.world() == 1
+        transport.reset_transfer_counts()
+        vals = [torch.tensor(float(k), device=cuda_device) for k in range(3)]
+        got = transport.all_partials(vals)
+        assert [float(v) for v in got] == [0.0, 1.0, 2.0] and got[0].is_cuda
+        blocks = [torch.randn(4, 6, device=cuda_device) for _ in range(2)]
+        for root in (None, 0):
+            out = transport.gather_blocks(blocks, cuda_device, root)
+            assert all(torch.equal(a, b) for a, b in zip(out, blocks))
+        transport.agree([1.5, float("nan")], "a clock")
+        assert "staged_bytes" not in transport.TRANSFERS
+        assert transport.TRANSFERS["gather"] == 2 and transport.TRANSFERS["agree"] == 1
+    finally:
+        multihost.finalize()
+
+
+@pytest.mark.cuda
+def test_multiprocess_gloo_stages_through_host_memory(cuda_device):  # noqa: F811
+    """Gloo on CUDA tensors, asked for by name: every collective of the
+    transport stages its tensors through host memory and counts the bytes,
+    and the results land back on the card."""
+    from bachelors_tpu_torch.parallel import multihost, transport
+
+    assert multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="gloo",
+                                device="cuda")
+    try:
+        transport.reset_transfer_counts()
+        vals = [torch.tensor(2.5, device=cuda_device), torch.tensor(-1.0, device=cuda_device)]
+        assert transport.staged(vals[0])
+        got = transport.all_partials(vals)
+        assert [float(v) for v in got] == [2.5, -1.0] and got[0].is_cuda
+        blocks = [torch.randn(3, 5, device=cuda_device, dtype=torch.float64)]
+        out = transport.gather_blocks(blocks, cuda_device, 0)
+        assert out[0].is_cuda and torch.equal(out[0], blocks[0])
+        assert transport.TRANSFERS["staged_bytes"] == 2 * 4 + 15 * 8
+    finally:
+        multihost.finalize()

@@ -4,6 +4,7 @@ port's driver on the CPU, compared frame by frame and row by row."""
 import csv
 import dataclasses
 import os
+import socket
 import subprocess
 import sys
 import textwrap
@@ -217,8 +218,26 @@ def test_resume_continues_the_run(tmp_path):
     ("[snapshot]\nnetcdf", "true", "netcdf"),
     ("[tpu]\ndtype", "bfloat16", "bfloat16"),
 ])
-def test_unported_keys_raise(tmp_path, key, value, match):
+def test_unported_keys_raise(tmp_path, key, value, match, monkeypatch):
     overrides = _overrides(tmp_path) + [f"{key} = {value}\n"]
+    if match == "multihost":
+        # ported: torchrun's world of one (env://, gloo on the CPU) runs it;
+        # the world of two is tests/test_torch_multihost.py's
+        from bachelors_tpu_torch.parallel import multihost
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for var, v in zip(multihost.TORCHRUN_VARS, ("127.0.0.1", str(port), "0", "1", "0")):
+            monkeypatch.setenv(var, v)
+        monkeypatch.delenv("BTPU_DIST_BACKEND", raising=False)
+        try:
+            res = run_config_file(CONFIG, overrides + ["[simulation]\nstop_after = 2e-5\n"],
+                                  device="cpu")
+            assert (multihost.backend(), multihost.world(), res.iters) == ("gloo", 1, 4)
+        finally:
+            multihost.finalize()
+        return
     if match is None:  # ported: the run goes through, cut to a few steps
         res = run_config_file(CONFIG, overrides + ["[simulation]\nstop_after = 2e-5\n"],
                               device=["cpu"] * 2)
