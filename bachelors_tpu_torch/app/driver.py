@@ -44,8 +44,8 @@ With ``[program] debug = true`` every frame also carries the debug maps
 available_maps``; an ensemble's are member 0's, a mesh's the gathered
 state's), as the JAX driver writes them (JAX :194-209).
 
-Several processes run one simulation as the ranks of a ``torch.distributed``
-world (``parallel/multihost.py``): started by ``python -m
+Several processes run one simulation, or one ensemble, as the ranks of a
+``torch.distributed`` world (``parallel/multihost.py``): started by ``python -m
 bachelors_tpu_torch.launch`` (the BTPU_* variables, applied by ``main``
 before any device is touched) or by torchrun with ``[tpu] multihost =
 true``.  The mesh then spans the ranks, each stepping the shards it owns
@@ -55,6 +55,16 @@ part in each frame's gather (JAX :153-161, :289-290).  The ranks check at
 each frame that they hold the same clock.  In a world of more than one
 rank, a config that fails ends the process: its peers would otherwise wait
 in an exchange that never comes.
+
+An ensemble over ranks takes its member groups to the ranks, as JAX's
+process-major (batch, y, x) mesh does (``parallel/mesh.make_mesh``):
+whole groups a rank, whose steps then cross no rank, or a group's shards
+over its own ranks, whose exchanges and reductions stay among them.  Each
+rank steps its groups until their members reach the next frame's time;
+there the ranks meet once (``_meet``): one packed all-gather of every
+member's (t, iter, tau), of the stats rows its groups collected and of
+their passes, then the gather of the fields onto the primary, which writes
+every file.
 """
 from __future__ import annotations
 
@@ -69,14 +79,15 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.params import SolverType
-from ..core.state import SimState, make_state, member, n_members, numpy_dtype, stack_states
+from ..core.state import (SimState, StepStats, make_state, member, n_members, numpy_dtype,
+                          stack_states)
 from ..io.config import SimConfig, load_config
 from ..io.snapshot import load_bin_maps, make_save_folder, save_bin_maps
 from ..io.stats_io import StatsAccumulator
 from ..models.initial import make_initial_fields
 from ..ops import cuda_cg, cuda_rhs, cuda_stats
 from ..parallel import multihost, transport
-from ..parallel.mesh import ENSEMBLES_OVER_RANKS, Mesh, gather_state, make_mesh, shard_state
+from ..parallel.mesh import Mesh, gather_state, make_mesh, shard_state
 from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 from ..parallel.topology import Topology
 from ..solvers.base import make_stepper
@@ -118,8 +129,6 @@ def check_supported(cfg: SimConfig) -> None:
         raise ValueError(f"[tpu] ensemble={cfg.ensemble} must be divisible "
                          f"by batch_shards={cfg.batch_shards}")
     todo = []
-    if cfg.ensemble > 1 and multihost.world() > 1:
-        todo.append(ENSEMBLES_OVER_RANKS)
     if cfg.interactive:
         todo.append("[program] interactive = true (ROADMAP slice 6, item 17: "
                     "the viewer)")
@@ -337,12 +346,15 @@ def run_simulation(cfg: SimConfig, device="cuda",
     _echo_config(cfg, dev, topo)
     log.info(f"device = {dev}"
              + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
+    over_ranks = mesh is not None and mesh.world > 1
     if mesh is not None:
         ranks = ""
-        if topo.spans_ranks:
+        if over_ranks:
             staged = multihost.backend() == "gloo" and dev.type == "cuda"
-            ranks = (f", shards {topo.owned.start}-{topo.owned.stop - 1} of rank {topo.rank} "
-                     f"of {topo.world} ({multihost.backend()}"
+            groups = (f"member groups {topo.groups.start}-{topo.groups.stop - 1}, "
+                      if mesh.batch > 1 else "")
+            ranks = (f", {groups}shards {topo.owned.start}-{topo.owned.stop - 1} of rank "
+                     f"{multihost.rank()} of {multihost.world()} ({multihost.backend()}"
                      + (", exchanges staged through host memory" if staged else "") + ")")
         log.info(f"sharding over a {topo.shards_y}x{topo.shards_x} mesh"
                  + (f" x {mesh.batch} member groups" if mesh.batch > 1 else "")
@@ -372,12 +384,17 @@ def run_simulation(cfg: SimConfig, device="cuda",
     stop = cfg.stop_time
     last_stats_save = 0.0
     last_stats_m = [0.0] * ensemble
-    attempts = 0
+    attempts = own = 0  # the run's passes, and this process's groups' (an ensemble's)
     t_start = time.perf_counter()
     last_notif = t_start
     for target in snapshot_events(stop, cfg.snapshot_times, cfg.snapshot_every):
         if ensemble > 1:
-            state, n = _advance_members(stepper, state, target, fast, accs, last_stats_m, cfg)
+            mine = topo.members(ensemble) if mesh is not None else range(ensemble)
+            state, n = _advance_members(stepper, state, target, fast, accs, last_stats_m, cfg,
+                                        mine)
+            own += n
+            if over_ranks:
+                state, n = _meet(state, topo, accs, n, summed=not fast)
             attempts += n
         elif fast and target - state.iter * p.dt >= p.dt * 1e-9:
             t_now = state.iter * p.dt
@@ -418,8 +435,13 @@ def run_simulation(cfg: SimConfig, device="cuda",
              f"{attempts} | average step time: "
              f"{runtime / max(iters, 1) * 1000:.3f} ms")
     counts = {k: v - counts0.get(k, 0) for k, v in _counts().items() if v != counts0.get(k, 0)}
+    # an ensemble's groups on this process, and the passes of those it speaks
+    # for (a group over several ranks: its first); they sum to ``attempts``
+    ens = ({"groups": list(topo.groups), "passes": own if topo.leads else 0}
+           if ensemble > 1 else {})
     log.info("run counts " + json.dumps({"rank": multihost.rank(), "world": multihost.world(),
-                                         "shards": list(topo.owned), "iters": iters,
+                                         "shards": list(topo.owned), **ens, "iters": iters,
+                                         "runtime_s": runtime,
                                          "ms_per_step": runtime / max(iters, 1) * 1000,
                                          "counts": counts}))
     return RunResult(iters=iters, sim_time=t, runtime=runtime,
@@ -433,24 +455,30 @@ def _clock(state: SimState) -> List[float]:
 
 
 def _advance_members(stepper, state: SimState, target: float, fast: bool,
-                     accs: List[StatsAccumulator], last_stats_m: List[float], cfg: SimConfig):
+                     accs: List[StatsAccumulator], last_stats_m: List[float], cfg: SimConfig,
+                     mine: range):
     """An ensemble to the event ``target``: with ``fast`` (fixed dt, no
-    stats) the host-counted steps of member 0's clock for every member, as
-    JAX's vmapped ``advance_n``; else each step the members still below
-    the target by 1e-16 (JAX's ``advance_until_members`` and masked
-    ``advance_collect``), each member's stats row collected on its own
-    cadence (JAX :510-520).  Returns the state and the batched passes."""
+    stats) the host-counted steps of the clock of this process's first
+    member (member 0's in one process) for every member, as JAX's vmapped
+    ``advance_n``; else each step the members still below the target by
+    1e-16 (JAX's ``advance_until_members`` and masked ``advance_collect``),
+    each member's stats row collected on its own cadence (JAX :510-520).
+    Only the members ``mine`` (this process's groups; the stats rows the
+    stepper returns are theirs) step.  Returns the state and the batched
+    passes."""
     p = cfg.params
     passes = 0
     if fast:
-        t_now = int(state.iter[0]) * p.dt
+        t_now = int(state.iter[mine.start]) * p.dt
         if target - t_now >= p.dt * 1e-9:
             for _ in range(max(int(np.ceil((target - t_now) / p.dt - 1e-9)), 1)):
                 state, _stats = stepper(state)
                 passes += 1
         return state, passes
+    others = np.ones(len(state.t), bool)
+    others[mine.start:mine.stop] = False
     while True:
-        live = target - state.t >= END_TOLERANCE
+        live = (target - state.t >= END_TOLERANCE) & ~others
         if not live.any():
             return state, passes
         state, stats = stepper(state, live)
@@ -458,8 +486,53 @@ def _advance_members(stepper, state: SimState, target: float, fast: bool,
         for b in np.flatnonzero(live) if accs else ():
             t_post = float(np.float32(state.t[b]))
             if t_post >= last_stats_m[b] + cfg.collect_stats_every:
-                accs[b].collect(stats.member(b))
+                accs[b].collect(stats.member(b - mine.start))
                 last_stats_m[b] = t_post
+
+
+def _moved(row: StepStats, device) -> StepStats:
+    """A stats row with its tensors copied to ``device`` (the host for a
+    message: a copy of the row's values alone, not of the step's whole
+    stack it views)."""
+    def to(t):
+        return None if t is None else t.to(device, copy=True)
+
+    return dataclasses.replace(row, deltas=to(row.deltas), step_res=to(row.step_res))
+
+
+def _meet(state: SimState, topo: Topology, accs: List[StatsAccumulator], passes: int,
+          summed: bool) -> Tuple[SimState, int]:
+    """An ensemble's ranks at a frame, the one place they meet: one packed
+    all-gather (``transport.all_objects``) of each rank's members' (t, iter,
+    tau), of the stats rows its groups collected since the last frame and
+    of their passes.  Every rank then holds every member's clock; the
+    primary appends the other ranks' rows to its members' accumulators, in
+    member order, and the others drop theirs.  A group over several ranks
+    speaks once, by its first rank (``Topology.leads``).  Returns the state
+    and the passes of the whole ensemble: summed over the groups, or with
+    ``summed`` False (host-counted steps, alike on every rank) the steps."""
+    mine = topo.members(len(state.t))
+    rows = {}
+    if accs and topo.leads:
+        rows = {b: [_moved(r, "cpu") for r in accs[b].rows] for b in mine}
+    parts = transport.all_objects(dict(
+        members=(mine.start, mine.stop), t=state.t[mine.start:mine.stop],
+        iter=state.iter[mine.start:mine.stop], tau=state.tau[mine.start:mine.stop],
+        rows=rows, passes=passes if topo.leads else 0))
+    t, it, tau = state.t.copy(), state.iter.copy(), state.tau.copy()
+    for part in parts:
+        sl = slice(*part["members"])
+        t[sl], it[sl], tau[sl] = part["t"], part["iter"], part["tau"]
+    if multihost.is_primary():
+        for r, part in enumerate(parts):
+            for b, got in part["rows"].items() if r != multihost.rank() else ():
+                for row in got:
+                    accs[b].collect(_moved(row, state.F.device))
+    elif accs:
+        for b in mine:
+            accs[b].rows.clear()
+    total = sum(part["passes"] for part in parts) if summed else passes
+    return state.replace(t=t, iter=it, tau=tau), total
 
 
 def run_config_file(path: str, overrides: Optional[List[str]] = None,
@@ -507,6 +580,9 @@ contiguous range of the shards):
   torchrun --nproc-per-node N -m bachelors_tpu_torch CONFIG.ini
       --set tpu.multihost=true --set tpu.shards_y=N
                                       the ranks torchrun starts, on any hosts
+An ensemble (--set tpu.ensemble=B --set tpu.batch_shards=G) over N ranks
+takes whole member groups a rank where N divides G, or splits each group's
+shards over N / G ranks where G divides N and N / G divides the shards.
 """
 
 

@@ -57,10 +57,13 @@ class Shards:
     group 1's, and so on (``group``).
 
     On a mesh that spans ranks ``blocks`` are the calling rank's own, which
-    its ``Topology`` names (``owned``, ``block``); ``shape`` and ``numel``
-    speak of the whole field, and ``parallel/mesh.gather_state`` joins it
-    with every rank taking part.  ``block`` and ``gather`` answer for a
-    field that holds every shard."""
+    its ``Topology`` names (``owned``, ``block``): an ensemble's, the
+    blocks of the rank's whole member groups, or of its shards of its one
+    group (``Topology.groups``), ``batch`` still counting every group.
+    ``shape`` and ``numel`` speak of the whole field, ``group`` of the
+    groups held, and ``parallel/mesh.gather_state`` joins it with every
+    rank taking part.  ``block`` and ``gather`` answer for a field that
+    holds every shard."""
 
     blocks: Tuple[torch.Tensor, ...]
     grid: Tuple[int, int]
@@ -91,12 +94,11 @@ class Shards:
 
     @property
     def members(self) -> Optional[int]:
-        """B for an ensemble's members (every group's), None for a single
-        field."""
+        """B for an ensemble's members (every group's, of equal size), None
+        for a single field."""
         if self.blocks[0].dim() == 2:
             return None
-        n = self.grid[0] * self.grid[1]
-        return sum(self.blocks[g * n].shape[0] for g in range(self.batch))
+        return self.blocks[0].shape[0] * self.batch
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -122,10 +124,13 @@ class Shards:
         return sum(b.numel() for b in self.blocks) * (n // len(self.blocks))
 
     def group(self, g: int) -> "Shards":
-        """Member group g's shards (its edges with them), one group."""
-        n = self.grid[0] * self.grid[1]
-        edges = None if self.edges is None else self.edges[g * n:(g + 1) * n]
-        return Shards(self.blocks[g * n:(g + 1) * n], self.grid, edges)
+        """The g-th member group held: its shards (its edges with them), one
+        group.  Every group when the field holds them all; over ranks the
+        rank's whole groups, or its shards of its one group."""
+        held = max(len(self.blocks) // (self.grid[0] * self.grid[1]), 1)
+        k = len(self.blocks) // held
+        edges = None if self.edges is None else self.edges[g * k:(g + 1) * k]
+        return Shards(self.blocks[g * k:(g + 1) * k], self.grid, edges)
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole (ny, nx) field on ``device`` (the first shard's by
@@ -150,15 +155,16 @@ class Shards:
         return Shards(tuple(blk[b] for blk in self.blocks), self.grid, edges)
 
 
-def join_groups(groups) -> Shards:
+def join_groups(groups, batch: Optional[int] = None) -> Shards:
     """One ``Shards`` of member groups, each the ``Shards`` of one group on
     its own shards (the inverse of ``Shards.group``); the edges kept if
-    every group carries them."""
+    every group carries them.  ``batch``: the ensemble's groups, when these
+    are one rank's (all of ``groups`` by default)."""
     groups = list(groups)
     edges = (None if any(g.edges is None for g in groups)
              else tuple(e for g in groups for e in g.edges))
     return Shards(tuple(b for g in groups for b in g.blocks), groups[0].grid, edges,
-                  batch=len(groups))
+                  batch=len(groups) if batch is None else batch)
 
 
 Field = Union[torch.Tensor, Shards]

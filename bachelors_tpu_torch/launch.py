@@ -15,6 +15,10 @@ several processes:
   by the environment contract below; the primary (rank 0) writes every
   file.
 
+Either takes a single run's config or an ensemble's (``[tpu] ensemble``,
+``batch_shards``) unchanged: the member groups lie over the ranks as
+``parallel/mesh.make_mesh`` says.
+
 Environment contract (read by ``app.driver.main`` before any device is
 touched):
   BTPU_COORD / BTPU_NPROCS / BTPU_PID   the tcp rendezvous, world size, rank

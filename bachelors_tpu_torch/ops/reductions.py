@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from ..core.state import Field, Shards
-from ..parallel.topology import ONE_DEVICE, Topology, add_in_order
+from ..parallel.topology import ONE_DEVICE, Topology
 
 
 @dataclasses.dataclass
@@ -44,7 +44,7 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
                      L2=torch.sqrt(torch.sum(A * A, dim=dims) / n),
                      min=torch.amin(A, dim=dims), max=torch.amax(A, dim=dims))
     if isinstance(A, Shards) and A.members is not None:
-        return _member_shards_stats(A)
+        return _member_shards_stats(A, topo)
     n = topo.count(A)
     return Stats(
         L1=topo.sum(_map(A, torch.abs)) / n,
@@ -54,25 +54,23 @@ def field_stats(A: Field, topo: Topology = ONE_DEVICE) -> Stats:
     )
 
 
-def _member_shards_stats(A: Shards) -> Stats:
+def _member_shards_stats(A: Shards, topo: Topology) -> Stats:
     """``field_stats`` of an ensemble's member-major shards: each shard
     reduces its (B, ny_l, nx_l) block per member, and the (B,) partials
-    combine over the shards on the first shard's device, the sums in the
-    order a single field's take (``topology.add_in_order``)."""
+    combine over the mesh's shards on the first shard's device
+    (``Topology.allsum`` and friends; every shard's, where the mesh spans
+    ranks), the sums in the order a single field's take
+    (``topology.add_in_order``)."""
     ny, nx = A.shape[-2:]
     n, dims = ny * nx, (1, 2)
 
-    def over(reduce, combine):
-        parts = [reduce(b) for b in A.blocks]
-        return combine(torch.stack([v.to(parts[0].device) for v in parts]), 0)
+    def parts(reduce):
+        return [reduce(b) for b in A.blocks]
 
-    def summed(reduce):
-        return add_in_order([reduce(b) for b in A.blocks])
-
-    return Stats(L1=summed(lambda b: torch.sum(torch.abs(b), dim=dims)) / n,
-                 L2=torch.sqrt(summed(lambda b: torch.sum(b * b, dim=dims)) / n),
-                 min=over(lambda b: torch.amin(b, dim=dims), torch.amin),
-                 max=over(lambda b: torch.amax(b, dim=dims), torch.amax))
+    return Stats(L1=topo.allsum(parts(lambda b: torch.sum(torch.abs(b), dim=dims))) / n,
+                 L2=torch.sqrt(topo.allsum(parts(lambda b: torch.sum(b * b, dim=dims))) / n),
+                 min=topo.allmin(parts(lambda b: torch.amin(b, dim=dims))),
+                 max=topo.allmax(parts(lambda b: torch.amax(b, dim=dims))))
 
 
 def stats_delta(A: Field, B: Field, topo: Topology = ONE_DEVICE) -> Stats:

@@ -9,6 +9,11 @@ reductions and snapshot gathers that cross a rank boundary go through
 ``parallel/transport.py``.  A single process is a no-op, so the same entry
 points work everywhere.
 
+An ensemble's member groups take ranks too (``mesh.make_mesh(...,
+batch=G)``): whole groups a rank, or a group's shards over several ranks,
+whose collectives then go over a process group of their own
+(``rank_group``), made once, before any run starts its clock.
+
 Backends: NCCL for CUDA devices, gloo on the CPU.  Gloo on the card is
 taken only when asked (``backend="gloo"``, ``BTPU_DIST_BACKEND=gloo``, or
 the launcher's ``--backend gloo``); its exchanges are then staged through
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -36,6 +41,9 @@ BACKENDS = ("nccl", "gloo")
 # Seconds a collective may wait for its peers before the run fails
 # (``BTPU_DIST_TIMEOUT`` overrides).
 TIMEOUT_S = 300.0
+# This rank's process group among the world's contiguous groups of a size,
+# by size (``rank_group``)
+_GROUPS: Dict[int, object] = {}
 
 
 def _ready() -> bool:
@@ -152,7 +160,30 @@ def local_cuda_device() -> torch.device:
     return torch.device("cuda", local_rank() % max(torch.cuda.device_count(), 1))
 
 
+def rank_group(size: int):
+    """This rank's process group when the world splits into contiguous
+    groups of ``size`` ranks (ranks [k size, (k + 1) size), a member group
+    whose shards span them): made on the first call with every rank taking
+    part, each group's in order as ``dist.new_group`` needs, then a barrier
+    in the group and one in the world, so that the group exists on every
+    rank, and NCCL has made its communicator, before a run starts its
+    clock.  Later calls return the same group.  None for the whole world
+    (its default group), and outside a world."""
+    if not _ready() or size == world():
+        return None
+    if world() % size:
+        raise ValueError(f"a world of {world()} ranks does not split into groups of {size}")
+    if size not in _GROUPS:
+        groups = [dist.new_group(list(range(k, k + size))) for k in range(0, world(), size)]
+        mine = groups[rank() // size]
+        dist.barrier(group=mine)
+        dist.barrier()
+        _GROUPS[size] = mine
+    return _GROUPS[size]
+
+
 def finalize() -> None:
     """Leave the world, if in one."""
     if _ready():
+        _GROUPS.clear()
         dist.destroy_process_group()

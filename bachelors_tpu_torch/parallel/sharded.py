@@ -15,7 +15,10 @@ On a mesh that spans ranks (``parallel/multihost.py``) each rank steps the
 shards it owns with the same kernels, and every host decision (a Merson
 attempt's acceptance, a CG loop's stop, the corrector loop's test) is read
 from sums every rank combines alike (``Topology``), so the ranks step in
-lockstep.  Ensembles over ranks are ROADMAP item 5d.
+lockstep.  An ensemble's member groups lie over the ranks
+(``parallel/mesh.make_mesh``): a rank steps its whole groups, which cross
+no rank, or its shards of one group in lockstep with that group's ranks
+alone.
 """
 from __future__ import annotations
 

@@ -25,11 +25,22 @@ every field and every member; the reductions all-gather each rank's
 per-shard partials and combine all n in shard order, so a run over ranks
 takes the one-process mesh run's values bit for bit, and every rank the
 same host decisions.  With one rank nothing crosses a process.
+
+An ensemble's ``batch`` = G member groups (``[tpu] batch_shards``) each
+step on a (shards_y, shards_x) mesh of their own, and the Topology is that
+spatial mesh's, with the member groups this rank steps (``groups``).  Over
+ranks the G n (group, shard) slots are laid out group-major, as JAX lays
+out its (batch, y, x) mesh, and rank r of W owns slots [r G n / W, (r + 1)
+G n / W): whole groups a rank where W divides G (``world`` 1 here: a
+group's shards never cross a rank), else a group's n shards over the W / G
+ranks of its own process group (``group``), ``world`` and ``rank`` then
+the group's, its collectives the group's alone
+(``parallel/mesh.make_mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -74,18 +85,36 @@ def _side(edges: torch.Tensor, side: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class Topology:
     """Execution context: the mesh shape (1 x 1 = one device), and on a
-    mesh that spans ranks the world's size and this process's rank."""
+    mesh that spans ranks the world's size and this process's rank; for an
+    ensemble, its member groups and those this process steps."""
 
     shards_y: int = 1   # shards along grid rows (dim 0)
     shards_x: int = 1   # shards along grid columns (dim 1)
     world: int = 1      # ranks the mesh spans
     rank: int = 0       # this process's rank among them
+    batch: int = 1      # member groups (``[tpu] batch_shards``), each on such a mesh
+    groups: Optional[range] = None  # the member groups this process steps (all by default)
+    # the process group of the ranks the mesh spans (None: the world's)
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         n = self.shards_y * self.shards_x
         if n % self.world:
             raise ValueError(f"a {self.shards_y}x{self.shards_x} mesh of {n} shards does not "
                              f"split over {self.world} ranks")
+        if self.groups is None:
+            object.__setattr__(self, "groups", range(self.batch))
+
+    def members(self, B: int) -> range:
+        """The ensemble members (of ``B``) in this process's groups."""
+        Bg = B // self.batch
+        return range(self.groups.start * Bg, self.groups.stop * Bg)
+
+    @property
+    def leads(self) -> bool:
+        """Whether this process is the first of its groups' ranks: the one
+        that speaks for their steps (passes, stats rows) at a frame."""
+        return self.rank == 0
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -166,7 +195,7 @@ class Topology:
                             sends.append((to, tag, piece))
                     elif to == me:
                         recvs.append((by, tag, _side(bufs[g - lo][axis], side)))
-        transport.swap(sends, recvs, "exchange")
+        transport.swap(sends, recvs, "exchange", self.group)
         return [Halo(rows, cols, self.shard_edges(*divmod(g, sx)))
                 for g, (rows, cols) in zip(self.owned, bufs)]
 
@@ -243,7 +272,7 @@ class Topology:
                         sends.append((to, tag, torch.stack(cells, -3)))
                 elif to == me:
                     recvs.append((by, tag, ghost))
-        transport.swap(sends, recvs, "apron")
+        transport.swap(sends, recvs, "apron", self.group)
         return out
 
     # ---- ghost-cell padding -------------------------------------------------
@@ -270,7 +299,7 @@ class Topology:
     # (``_partials``).
     def _partials(self, values):
         """Every shard's partials in shard order, from this rank's own."""
-        return transport.all_partials(values) if self.spans_ranks else values
+        return transport.all_partials(values, group=self.group) if self.spans_ranks else values
 
     def _all(self, A, reduce, combine):
         if isinstance(A, Shards):
@@ -305,6 +334,9 @@ class Topology:
 
     def allmax(self, values) -> torch.Tensor:
         return _combine(self._partials(values), torch.amax) if self.is_sharded else values
+
+    def allmin(self, values) -> torch.Tensor:
+        return _combine(self._partials(values), torch.amin) if self.is_sharded else values
 
 
 ONE_DEVICE = Topology()

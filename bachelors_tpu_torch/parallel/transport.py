@@ -1,7 +1,7 @@
 """The one place where tensors cross ranks.
 
 A mesh that spans ranks (``parallel/multihost.py``) moves tensors between
-them in four places, all here:
+them in five places, all here:
 
   * halo exchanges (``Topology.exchange``, ``Topology.apron``): ``swap``,
     every send and receive of a stage posted in one
@@ -14,7 +14,9 @@ them in four places, all here:
   * the snapshot gather (``mesh.gather_field``): ``gather_blocks``, onto one
     rank (``dist.gather``) or onto every rank (``dist.all_gather``);
   * the ranks' agreement check (``agree``): the host values each rank holds
-    after a step, all-gathered and compared.
+    after a step, all-gathered and compared;
+  * an ensemble's frame (``all_objects``): each rank's members' clocks and
+    stats rows, all-gathered at once.
 
 A resume needs no transfer: every rank reads the file and places its own
 blocks (``parallel/mesh.shard_state``).
@@ -27,13 +29,22 @@ staging is explicit (``staged``), counted apart
 (``TRANSFERS["staged_bytes"]``), and only ever taken with gloo, which a run
 asks for by name (``multihost.choose_backend``).
 
+An ensemble's member groups (``[tpu] batch_shards``) each step on their
+own ranks; where a group's shards span several ranks, its exchanges and
+reductions go over the group's own process group (``group``, made once by
+``multihost.rank_group``), so one group's Merson retries and CG rounds
+never meet another's messages.  A peer is named by its rank in that group.
+At a frame the ranks meet in ``all_objects``, one packed all-gather of
+every member's clock and stats rows.
+
 ``TRANSFERS`` counts, like ``ops/cuda_rhs.LAUNCHES``, the messages and
 bytes this rank sent and received of each kind (``swap``'s ``kind``,
-``partials``, ``gather``, ``agree``).
+``partials``, ``gather``, ``frame``, ``agree``).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import pickle
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -81,16 +92,22 @@ def _nbytes(t: torch.Tensor) -> int:
 Message = Tuple[int, int, torch.Tensor]
 
 
-def swap(sends: Sequence[Message], recvs: Sequence[Message], kind: str) -> None:
+def _peer(group, rank: int) -> int:
+    """The world rank of ``group``'s rank ``rank`` (None: the world)."""
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def swap(sends: Sequence[Message], recvs: Sequence[Message], kind: str, group=None) -> None:
     """Post every send of ``sends`` and every receive of ``recvs`` (into
     its tensor, which may be a view) in one ``batch_isend_irecv``, and wait
     for all of them.  The two lists hold this rank's messages of one stage,
-    each in the stage's global order, with matching tags on both ends."""
+    each in the stage's global order, with matching tags on both ends; a
+    peer is its rank in ``group`` (None: the world)."""
     if not sends and not recvs:
         return
     ops, landings = [], []
     for (peer, tag, _), wire in zip(sends, _all_to_wire([t for _, _, t in sends])):
-        ops.append(dist.P2POp(dist.isend, wire, peer, tag=tag))
+        ops.append(dist.P2POp(dist.isend, wire, _peer(group, peer), group=group, tag=tag))
     for peer, tag, out in recvs:
         # into ``out`` itself where the backend can write it, else a buffer
         if staged(out):
@@ -99,7 +116,7 @@ def swap(sends: Sequence[Message], recvs: Sequence[Message], kind: str) -> None:
             wire = out
         else:
             wire = torch.empty_like(out, memory_format=torch.contiguous_format)
-        ops.append(dist.P2POp(dist.irecv, wire, peer, tag=tag))
+        ops.append(dist.P2POp(dist.irecv, wire, _peer(group, peer), group=group, tag=tag))
         landings.append((out, wire))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
@@ -111,14 +128,16 @@ def swap(sends: Sequence[Message], recvs: Sequence[Message], kind: str) -> None:
            sum(_nbytes(t) for _, _, t in (*sends, *recvs)), any_staged)
 
 
-def all_partials(values: Sequence[torch.Tensor], kind: str = "partials") -> List[torch.Tensor]:
+def all_partials(values: Sequence[torch.Tensor], kind: str = "partials",
+                 group=None) -> List[torch.Tensor]:
     """Every shard's partials in global shard order, on the device of this
-    rank's first: each rank holds the same number of shards, its own
-    ``values`` (one tensor of one shape per shard), and gets every rank's."""
+    rank's first: each rank of ``group`` (None: the world) holds the same
+    number of shards, its own ``values`` (one tensor of one shape per
+    shard), and gets every rank's."""
     dev = values[0].device
     mine = _to_wire(torch.stack([v.to(dev) for v in values]))
-    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, mine)
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
     _count(kind, 1, _nbytes(mine) * len(parts), staged(values[0]))
     return [v.to(dev) for part in parts for v in part.unbind(0)]
 
@@ -127,7 +146,9 @@ def gather_blocks(blocks: Sequence[torch.Tensor], device,
                   root: Optional[int] = None) -> Optional[List[torch.Tensor]]:
     """Every shard's block in global shard order on ``device``: on every
     rank (``root`` None), or on rank ``root`` alone, the others getting
-    None.  Each rank holds the same number of equal blocks."""
+    None.  Each rank holds the same number of equal blocks (an ensemble's:
+    its member groups' or its share of one group's, which join in (group,
+    shard) order)."""
     mine = _to_wire(torch.stack(list(blocks)))
     world, me = dist.get_world_size(), dist.get_rank()
     if root is None:
@@ -141,6 +162,16 @@ def gather_blocks(blocks: Sequence[torch.Tensor], device,
     if parts is None:
         return None
     return [b.to(device) for part in parts for b in part.unbind(0)]
+
+
+def all_objects(obj: Any, kind: str = "frame") -> List[Any]:
+    """Every rank's ``obj`` (host values: numpy arrays, numbers, host
+    tensors), in rank order, on every rank: one all-gather of the pickled objects
+    (``dist.all_gather_object``), counted as one message of ``kind``."""
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, obj)
+    _count(kind, 1, len(pickle.dumps(obj)) * len(parts), False)
+    return parts
 
 
 def agree(values: Sequence[float], what: str) -> None:

@@ -190,25 +190,32 @@ def make_ensemble_stepper(p: SimParams, mesh=None, topo: Topology = None) -> Mem
     ``.rounds`` on the stepper counts the batched attempts of its last
     call, summed over the groups (per group and shard, the launches: one a
     step but for RKM's retries).  Members frozen by ``live`` take no part
-    in any launch or solve."""
+    in any launch or solve, and a group whose members are all frozen is
+    not stepped.
+
+    On a mesh that spans ranks (``make_mesh(..., world=)``) a process steps
+    only its member groups (``topo.groups``; the state's fields hold their
+    blocks alone): each whole on the rank, or its share of one group's
+    shards, the group's exchanges and reductions over the group's own ranks
+    (``topo.group``).  The state's clock keeps every member's entries; those
+    of other ranks' members are left as they are, and the stats rows are
+    this process's members' (``topo.members``), in member order."""
     if mesh is None:
         return _members_stepper(p, ONE_DEVICE)
-    topo = Topology(*mesh.shape) if topo is None else topo
+    topo = Topology(*mesh.shape, batch=mesh.batch) if topo is None else topo
     if mesh.shape != topo.grid:
         raise ValueError(f"mesh {mesh.shape} and topology {topo.grid} differ")
-    if mesh.world > 1 or topo.spans_ranks:
-        raise NotImplementedError("not ported yet: ensembles on a mesh that spans ranks "
-                                  "(ROADMAP item 5d)")
     inner = _members_stepper(p, topo)
     if mesh.batch == 1 and topo.is_sharded:
         return inner
-    return _grouped(inner, mesh.batch, topo)
+    return _grouped(inner, topo)
 
 
-def _grouped(inner, groups: int, topo: Topology) -> MembersStepper:
-    """``inner`` on each of ``groups`` member groups in turn (``Shards.
-    group``; without spatial shards a group's one block is a one-device
-    stack), the results joined again (``core/state.join_groups``)."""
+def _grouped(inner, topo: Topology) -> MembersStepper:
+    """``inner`` on each of the member groups ``topo.groups`` in turn
+    (``Shards.group``; without spatial shards a group's one block is a
+    one-device stack), skipping a group whose members are all frozen, the
+    results joined again (``core/state.join_groups``)."""
     def group_fields(A, g):
         return A.group(g) if topo.is_sharded else A.blocks[g]
 
@@ -222,29 +229,33 @@ def _grouped(inner, groups: int, topo: Topology) -> MembersStepper:
 
     def joined(parts):
         if topo.is_sharded:
-            return join_groups(parts)
-        return Shards(tuple(parts), topo.grid, batch=groups)
+            return join_groups(parts, topo.batch)
+        return Shards(tuple(parts), topo.grid, batch=topo.batch)
 
     def step(state: SimState, live=None):
-        Bg = len(state.t) // groups
-        news, stats, rounds = [], [], 0
-        for g in range(groups):
+        Bg = len(state.t) // topo.batch
+        t, it, tau = state.t.copy(), state.iter.copy(), state.tau.copy()
+        pairs, stats, rounds = [], [], 0
+        for i, g in enumerate(topo.groups):
             sl = slice(g * Bg, (g + 1) * Bg)
-            F, U = group_pair(state, g)
+            F, U = group_pair(state, i)
             sub = SimState(F=F, U=U, t=state.t[sl], iter=state.iter[sl], tau=state.tau[sl])
+            if live is not None and not live[sl].any():
+                pairs.append((F, U))  # every member frozen: nothing to step
+                stats.append(empty_stats(sub, Bg))
+                stats[-1].attempts[:] = 0
+                continue
             new, st = inner(sub, None if live is None else live[sl])
             rounds += inner.rounds
-            news.append(new)
+            pairs.append((new.F, new.U))
             stats.append(st)
+            t[sl], it[sl], tau[sl] = new.t, new.iter, new.tau
         step.rounds = rounds
-        F = joined([n.F for n in news])
-        U = joined([n.U for n in news])
+        F = joined([f for f, _ in pairs])
+        U = joined([u for _, u in pairs])
         if F.edges is not None:
             U = dataclasses.replace(U, edges=F.edges)  # one pair: one edges object
-        return (SimState(F=F, U=U, t=np.concatenate([n.t for n in news]),
-                         iter=np.concatenate([n.iter for n in news]),
-                         tau=np.concatenate([n.tau for n in news])),
-                join_stats(stats))
+        return SimState(F=F, U=U, t=t, iter=it, tau=tau), join_stats(stats)
 
     step.rounds = 0
     return step
@@ -252,13 +263,17 @@ def _grouped(inner, groups: int, topo: Topology) -> MembersStepper:
 
 def join_stats(parts) -> StepStats:
     """The stats of member groups' steps as one ensemble's, in member order
-    (tensors moved to the first group's device)."""
+    (tensors moved to the first device that has them).  A group that was
+    not stepped has no tensors: its rows of them are zeros, a step's that
+    changed nothing."""
     def cat(name):
         vals = [getattr(s, name) for s in parts]
-        if vals[0] is None:
+        like = next((v for v in vals if v is not None), None)
+        if like is None:
             return None
-        if isinstance(vals[0], torch.Tensor):
-            return torch.cat([v.to(vals[0].device) for v in vals])
+        if isinstance(like, torch.Tensor):
+            return torch.cat([like.new_zeros((len(s.t), *like.shape[1:])) if v is None
+                              else v.to(like.device) for s, v in zip(parts, vals)])
         return np.concatenate(vals)
 
     return StepStats(**{f.name: cat(f.name) for f in dataclasses.fields(StepStats)})

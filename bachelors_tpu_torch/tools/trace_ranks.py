@@ -4,7 +4,10 @@
         [--runs NAME,...] [--warmup 20] [--steps 50] [--out FILE]
 
 Steps the shipped 512x512 ``config.ini`` (RKM as shipped on y(2) and 2x2,
-semi-implicit on x(2)) on meshes of the one card: first in this process,
+semi-implicit on x(2); and as ensembles of noise_T = 0.02 whose member
+groups span the ranks: RKM, 4 members in 2 groups on 1x1 shards, a group a
+rank; semi-implicit, 2 members in one group on y(2), its shards over both
+ranks) on meshes of the one card: first in this process,
 the one-process mesh run, then in ``-n`` ranks of one ``torch.distributed``
 world (with ``--backend gloo`` every rank on cuda:0 and every message that
 crosses the ranks staged through host memory), each from the config's
@@ -32,22 +35,29 @@ import subprocess
 import sys
 import time
 
+import dataclasses
+
 import torch
 from torch.autograd import DeviceType
 
-from ..core.state import make_state
+from ..core.state import make_state, stack_states
 from ..io.config import load_config
 from ..launch import find_free_port
 from ..models.initial import make_initial_fields
 from ..parallel import multihost, transport
 from ..parallel.mesh import make_mesh, shard_state
-from ..parallel.sharded import make_sharded_stepper
+from ..parallel.sharded import make_ensemble_stepper, make_sharded_stepper
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CONFIG = os.path.join(ROOT, "config.ini")
 SEMI = "[simulation]\nsolver = semi-implicit\n"
-# name: (overrides, shards_y, shards_x)
-RUNS = {"RKM y(2)": ([], 2, 1), "RKM 2x2": ([], 2, 2), "semi-implicit x(2)": ([SEMI], 1, 2)}
+NOISE = "[initial]\nnoise_T = 0.02\n"
+# name: (overrides, shards_y, shards_x, members, member groups); members 1:
+# a single run
+RUNS = {"RKM y(2)": ([], 2, 1, 1, 1), "RKM 2x2": ([], 2, 2, 1, 1),
+        "semi-implicit x(2)": ([SEMI], 1, 2, 1, 1),
+        "RKM ensemble 1x1 2 groups (A)": ([NOISE], 1, 1, 4, 2),
+        "semi-implicit ensemble y(2) 1 group (B)": ([SEMI, NOISE], 2, 1, 2, 1)}
 # the transport's calls timed, and the calls within them that stage to the host
 TIMED = ("swap", "_all_to_wire", "all_partials", "_to_wire", "gather_blocks")
 TOP = 12
@@ -89,16 +99,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _state(cfg, members: int, dev):
+    """The config's initial state, or an ensemble's of ``members``, member
+    b from noise_seed + b, as the driver makes them."""
+    p = cfg.params
+    if members == 1:
+        return make_state(*make_initial_fields(p, cfg.initial, device=dev), p, device=dev)
+    return stack_states([make_state(*make_initial_fields(p, dataclasses.replace(
+        cfg.initial, noise_seed=cfg.initial.noise_seed + b), device=dev), p, device=dev)
+        for b in range(members)])
+
+
 def measure(name: str, warmup: int, steps: int, world: int, device: str) -> dict:
-    overrides, sy, sx = RUNS[name]
+    overrides, sy, sx, members, groups = RUNS[name]
     cfg = load_config(CONFIG, overrides)
     p = cfg.params
-    mesh, topo = make_mesh(sy, sx, [device] * (sy * sx) if world == 1 or device == "cpu"
-                           else None, world=world)
+    mesh, topo = make_mesh(sy, sx, [device] * (sy * sx * groups) if world == 1 or
+                           device == "cpu" else None, batch=groups, world=world)
     dev = mesh.devices[0]
-    state = shard_state(make_state(*make_initial_fields(p, cfg.initial, device=dev), p,
-                                   device=dev), mesh, topo)
-    step = make_sharded_stepper(p, mesh, topo)
+    state = shard_state(_state(cfg, members, dev), mesh, topo)
+    # an ensemble's step: every member, each at its own clock
+    step = (make_sharded_stepper(p, mesh, topo) if members == 1
+            else make_ensemble_stepper(p, mesh, topo))
     for _ in range(warmup):
         state, _ = step(state)
     _sync(dev)
@@ -123,8 +145,9 @@ def measure(name: str, warmup: int, steps: int, world: int, device: str) -> dict
                     if e.device_type == DeviceType.CUDA)
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:TOP]
-    return {"run": name, "rank": topo.rank, "world": world,
+    return {"run": name, "rank": multihost.rank(), "world": world,
             "backend": multihost.backend(), "shards": list(topo.owned),
+            "member_groups": list(topo.groups), "members": members,
             "steps": steps, "ms_per_step": ms,
             "transport_ms_per_step": {k: timers.seconds[k] / steps * 1e3 for k in TIMED},
             "transport_calls_per_step": {k: timers.calls[k] / steps for k in TIMED},

@@ -5632,32 +5632,38 @@ MP_RUNS = {  # name: (config, overrides, mesh)
 }
 
 
-def mp_reference(name) -> dict:
-    """The one-process mesh run of ``MP_RUNS[name]`` (``drive``), its frames
-    and stats.csv kept."""
+def mp_spec(name):
+    """(config, overrides, devices of one process) of ``MP_RUNS[name]``."""
     config, overrides, mesh = MP_RUNS[name]
     sy, sx = MESHES[mesh]
-    return drive([*overrides, f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n"], grow=False,
-                 config=config or sweep("semi-implicit"), device=[DEVICE] * (sy * sx),
-                 frames=True, files=("stats.csv",))
+    return (config or sweep("semi-implicit"),
+            [*overrides, f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n"], sy * sx)
 
 
-def launch_runs(names, nprocs, backend, device=()) -> dict:
-    """``MP_RUNS[names]`` in one ``python -m bachelors_tpu_torch.launch -n
-    nprocs --backend backend``, one config file each: per run its frames,
-    stats.csv and each rank's ``run counts`` line, by name.  The launcher
-    ends its ranks at its time limit, and the process group is killed if
-    it outlives it."""
+def mp_reference(spec, files=("stats.csv",)) -> dict:
+    """The one-process mesh run of a spec (``mp_spec``) through ``drive``,
+    its frames and ``files`` kept."""
+    config, overrides, devices = spec
+    return drive(overrides, grow=False, config=config, device=[DEVICE] * devices,
+                 frames=True, files=files)
+
+
+def launch_runs(specs, nprocs, backend, device=()) -> dict:
+    """The runs of ``specs`` (name: ``mp_spec``'s triple) in one ``python -m
+    bachelors_tpu_torch.launch -n nprocs --backend backend``, one config
+    file each: per run its frames, stats files and each rank's ``run
+    counts`` line, by name.  The launcher ends its ranks at its time limit,
+    and the process group is killed if it outlives it."""
+    names = list(specs)
     with tempfile.TemporaryDirectory() as tmp:
         inis = []
         for k, name in enumerate(names):
-            config, overrides, mesh = MP_RUNS[name]
-            sy, sx = MESHES[mesh]
-            with open(config or sweep("semi-implicit")) as f:
+            config, overrides, _ = specs[name]
+            with open(config) as f:
                 text = f.read()
             inis.append(os.path.join(tmp, f"run{k}.ini"))
             with open(inis[-1], "w") as f:
-                f.write("\n".join([text, *overrides, f"[tpu]\nshards_y = {sy}\nshards_x = {sx}\n",
+                f.write("\n".join([text, *overrides,
                                    f"[snapshot]\nfolder = {os.path.join(tmp, f'out{k}')}\n"]))
         cmd = [sys.executable, "-m", "bachelors_tpu_torch.launch", "-n", str(nprocs),
                "--backend", backend, "--timeout", str(MP_LIMIT_S), *inis, *device]
@@ -5681,10 +5687,11 @@ def launch_runs(names, nprocs, backend, device=()) -> dict:
             folder = os.path.join(tmp, f"out{k}", folders[0])
             snaps = {f: load_bin_maps(os.path.join(folder, f))
                      for f in os.listdir(folder) if f.endswith(".bin")}
-            stats = os.path.join(folder, "stats.csv")
+            texts = {f: open(os.path.join(folder, f)).read()
+                     for f in os.listdir(folder) if f.startswith("stats")}
             ranks = [[x for x in lines if x["rank"] == r][k] for r in range(nprocs)]
-            runs[name] = dict(snaps=snaps, ranks=ranks,
-                              stats=open(stats).read() if os.path.exists(stats) else None)
+            runs[name] = dict(snaps=snaps, ranks=ranks, texts=texts,
+                              stats=texts.get("stats.csv"))
         return runs
 
 
@@ -5739,9 +5746,11 @@ def multiprocess_paths() -> None:
     sharing the card over gloo, whose exchanges are staged through host
     memory (all four runs in one launch); each against its one-process mesh
     run in this process."""
-    one = {name: mp_reference(name) for name in MP_RUNS}
+    specs = {name: mp_spec(name) for name in MP_RUNS}
+    one = {name: mp_reference(spec) for name, spec in specs.items()}
     name = "RKM y(2)"
-    got = launch_runs([name], 1, "nccl", ["--device", f"{DEVICE}:0,{DEVICE}:0"])[name]
+    got = launch_runs({name: specs[name]}, 1, "nccl",
+                      ["--device", f"{DEVICE}:0,{DEVICE}:0"])[name]
     run = hold_launched(name, got, one[name], 1)
     sent, cfg = run["ranks"][0]["transfers"], one[name]["cfg"]
     frames = len(snapshot_events(cfg.stop_time, cfg.snapshot_times, cfg.snapshot_every))
@@ -5751,7 +5760,7 @@ def multiprocess_paths() -> None:
           "nccl: config.ini's RKM cut to 0.004 on y(2), one rank driving both shards; frames and "
           "stats.csv against the one-process y(2) run; the NCCL collective is the clock check "
           "at each frame", card=card_limit(), run=run)
-    got = launch_runs(list(MP_RUNS), 2, "gloo")
+    got = launch_runs(specs, 2, "gloo")
     runs = {name: hold_launched(name, got[name], one[name], 2) for name in MP_RUNS}
     for name, run in runs.items():
         if min(r["staged_bytes_per_step"] for r in run["ranks"]) <= 0:
@@ -5761,6 +5770,152 @@ def multiprocess_paths() -> None:
           "exchange, reduction and gather crossing the ranks is staged through host memory "
           "(gloo-over-host times: they say nothing of NCCL between cards)", card=card_limit(),
           runs=runs)
+
+
+# Ensembles over ranks (ROADMAP item 5d): the launcher's two ranks on the one
+# card over gloo, each run beside its one-process mesh ensemble in this
+# process.  (A) whole member groups a rank: one group a rank without
+# spatial shards (data parallelism, members whose Merson retries part), and
+# float64 groups on 2x2 (the K13 K2 twin over members); (B) one group over
+# both ranks on y(2), resumed from a members file whose member 0 has no
+# noise and member 1 a noise on Phi, so the members' CG counts differ.
+MPE_RKM_CUT = "[simulation]\nstop_after = 0.002\n[snapshot]\ntimes = 2\n"
+MPE_SI_MEMBERS = "members_0000.bin"  # written by the phase into its folder
+# member 1's noise (member 0 has none): on Phi, which parts their phase
+# solves' CG counts at 512^2 (a noise on T alone leaves them alike)
+MPE_SI_NOISE = {"noise_phi": 0.3}
+
+
+def mpe_specs(folder) -> dict:
+    """name: (config, overrides, devices of one process, geometry) of the
+    phase's runs; the semi-implicit one resumes from a members file the
+    phase writes into ``folder``."""
+    groups = "[tpu]\nshards_y = {}\nshards_x = {}\nbatch_shards = {}\n"
+    resume = f"[initial]\ninit_path = {os.path.join(folder, MPE_SI_MEMBERS)}\n"
+    return {
+        "RKM ensemble, 1x1, batch_shards = 2 (A)": (
+            CONFIG, [ENSEMBLE, MPE_RKM_CUT, groups.format(1, 1, 2)], 2, "A"),
+        "float64 RKM ensemble, 2x2, batch_shards = 2 (A)": (
+            sweep("rkm"), [ENSEMBLE, FIRST_FRAME, MESH_ENSEMBLE_CUT64, groups.format(2, 2, 2)],
+            8, "A"),
+        "semi-implicit ensemble, y(2), one group over both ranks (B)": (
+            CONFIG, [SEMI, MP_SI_CUT, "[tpu]\nensemble = 2\n", resume,
+                     groups.format(2, 1, 1)], 2, "B"),
+    }
+
+
+def write_si_members(folder, noise=MPE_SI_NOISE) -> None:
+    """config.ini's semi-implicit seed as a members file of 2 at t = 0:
+    member 0 without noise, member 1 with ``noise`` (noise_seed 1)."""
+    from bachelors_tpu_torch.app.driver import ENSEMBLE_META
+    from bachelors_tpu_torch.io.snapshot import save_bin_maps
+
+    cfg = load_config(CONFIG, [SEMI])
+    p, maps = cfg.params, {}
+    for b in range(2):
+        ic = dataclasses.replace(cfg.initial, noise_seed=cfg.initial.noise_seed + b,
+                                 **(noise if b else {}))
+        F, U = make_initial_fields(p, ic, device=DEVICE)
+        maps[f"F_m{b:03d}"], maps[f"U_m{b:03d}"] = F.cpu().numpy(), U.cpu().numpy()
+    meta = np.zeros((p.ny, p.nx), np.float64)
+    meta.flat[2:6:3] = p.dt
+    maps[ENSEMBLE_META] = meta
+    save_bin_maps(os.path.join(folder, MPE_SI_MEMBERS), maps, p.nx, p.ny, p.dx, p.dy, 0.0, 0)
+
+
+def hold_launched_ensemble(name, got, one, geometry) -> dict:
+    """A launched ensemble against its one-process mesh ensemble: every
+    frame's maps and members file (each member's fields and its t, iter and
+    tau) and every stats file byte for byte; each rank's launches of every
+    kernel its share (B: half; A: its groups' passes at the one process's
+    launches a pass), summing to the one process's; in (A) no exchange,
+    apron or reduction message at all, only the frames' meeting, gather and
+    clock check.  Returns the run's numbers."""
+    if sorted(got["snaps"]) != sorted(one["snaps"]):
+        raise AssertionError(f"{name}: frames {sorted(got['snaps'])} vs {sorted(one['snaps'])}")
+    worst = 0.0
+    for f, want in one["snaps"].items():
+        snap = got["snaps"][f]
+        if (snap.time, snap.iter) != (want.time, want.iter) or snap.maps.keys() != want.maps.keys():
+            raise AssertionError(f"{name} {f}: t/iter/maps differ")
+        for k, a in want.maps.items():
+            if not np.array_equal(snap.maps[k], a):
+                worst = max(worst, float(np.abs(snap.maps[k] - a).max()))
+    texts = {f: t for f, t in one["texts"].items() if t is not None}
+    if worst or got["texts"] != texts:
+        raise AssertionError(f"{name}: max|delta| {worst}, stats files "
+                             f"{sorted(got['texts'])} vs {sorted(texts)}, equal: "
+                             f"{got['texts'] == texts}")
+    want = {k: v for k, v in one["launches"].items() if v}
+    passes = one["res"].attempts
+    lines = got["ranks"]
+    launched = [{k: v for k, v in line["counts"].items() if not k.startswith("transfers ")}
+                for line in lines]
+    if {k: sum(n.get(k, 0) for n in launched) for k in want} != want or \
+            any(set(n) - set(want) for n in launched):
+        raise AssertionError(f"{name}: the ranks' launches {launched}, the one process's {want}")
+    if sum(line["passes"] for line in lines) != passes:
+        raise AssertionError(f"{name}: the ranks' passes {[x['passes'] for x in lines]}, the one "
+                             f"process's {passes}")
+    ranks, last = [], max(f for f in one["snaps"] if f.startswith("members_"))
+    meta = one["snaps"][last].maps["ensemble_meta"].reshape(-1)
+    B = sum(1 for k in one["snaps"][last].maps if k.startswith("F_m"))
+    member_steps = int(sum(meta[1:3 * B:3]))
+    for line, n in zip(lines, launched):
+        # (B) each rank half of its group's; (A) its groups' passes at the one
+        # process's launches a pass (a whole-attempt kernel a shard)
+        share = ({k: v // 2 for k, v in want.items()} if geometry == "B"
+                 else {k: v * line["passes"] // passes for k, v in want.items()
+                       if v * line["passes"] // passes})
+        if n != share:
+            raise AssertionError(f"{name} rank {line['rank']}: launches {n}, its share {share}")
+        sent = {k.split(" ", 1)[1]: v for k, v in line["counts"].items()
+                if k.startswith("transfers ")}
+        inside = {k: v for k, v in sent.items() if k in ("exchange", "apron", "partials")}
+        if (geometry == "A") == bool(inside):
+            raise AssertionError(f"{name} rank {line['rank']}: step messages {inside}")
+        messages = sum(v for k, v in sent.items() if not k.endswith("_bytes"))
+        ranks.append({"rank": line["rank"], "groups": line["groups"], "shards": line["shards"],
+                      "passes": line["passes"], "launches": n, "runtime_s": line["runtime_s"],
+                      "transfers": sent, "messages_per_step": messages / max(line["iters"], 1),
+                      "step_messages": sum(inside.values())})
+    wall = max(line["runtime_s"] for line in lines)
+    return {"config": one["summary"]["config"], "grid": one["summary"]["grid"],
+            "dtype": one["summary"]["dtype"], "solver": one["summary"]["solver"],
+            "geometry": geometry, "member_steps": member_steps, "passes": passes,
+            "frames": len(one["snaps"]), "max_abs_delta": worst,
+            "stats_files": sorted(texts), "stats_equal": "byte for byte",
+            "one_process_runtime_s": one["res"].runtime,
+            "one_process_member_steps_per_s": member_steps / one["res"].runtime,
+            "two_ranks_member_steps_per_s": member_steps / wall,
+            "launches_one_process": want, "ranks": ranks}
+
+
+def multiprocess_ensemble_paths() -> None:
+    """Ensembles over the launcher's two ranks on the one card over gloo
+    (``mpe_specs``, all three runs in one launch), each against its
+    one-process mesh ensemble in this process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write_si_members(tmp)
+        specs = mpe_specs(tmp)
+        one = {}
+        for name, (config, overrides, devices, _) in specs.items():
+            files = ("stats.csv",) + tuple(f"stats_m{b:03d}.csv" for b in range(1, 4))
+            one[name] = mp_reference((config, overrides, devices), files)
+        got = launch_runs({name: spec[:3] for name, spec in specs.items()}, 2, "gloo")
+    runs = {name: hold_launched_ensemble(name, got[name], one[name], spec[3])
+            for name, spec in specs.items()}
+    si = one["semi-implicit ensemble, y(2), one group over both ranks (B)"]["texts"]
+    counts = [[line.split(",")[2:4] for line in si[f].splitlines()[2:]]
+              for f in ("stats.csv", "stats_m001.csv")]
+    if counts[0] == counts[1]:
+        raise AssertionError("the semi-implicit members' CG counts do not differ")
+    phase("multiprocess_ensemble_gloo_two_ranks", what="python -m bachelors_tpu_torch.launch -n 2 "
+          "--backend gloo, both ranks on cuda:0: ensembles whose member groups span the ranks, "
+          "(A) whole groups a rank, (B) one group's shards over both ranks; each member's "
+          "frames, clock and stats files against the one-process mesh ensemble "
+          "(gloo-over-host times; the two processes share the card by time-slicing)",
+          card=card_limit(), runs=runs)
 
 
 def kernel_entry(name, source, replaces, launches, measured) -> dict:
@@ -6059,6 +6214,10 @@ def main() -> None:
     t_mp = time.perf_counter()
     multiprocess_paths()
     phase("multi-process meshes: the phases' time", seconds=time.perf_counter() - t_mp)
+    # ensembles over ranks: member groups on the launcher's ranks
+    t_mpe = time.perf_counter()
+    multiprocess_ensemble_paths()
+    phase("ensembles over ranks: the phase's time", seconds=time.perf_counter() - t_mpe)
 
     def m64_sum(key, *runs):
         return sum(m64[r][key] for r in runs)

@@ -2859,6 +2859,74 @@ def test_multiprocess_two_ranks_share_the_card_over_gloo(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_multiprocess_ensembles_over_two_gloo_ranks_on_the_card(cuda_device, tmp_path):  # noqa: F811
+    """Ensembles whose member groups span two ranks of
+    tests/torch_multihost_worker.py (``--suite ensemble``, the world-of-two
+    cases on the kernel route) on the card over gloo: whole groups a rank
+    (RKM on 1x1 with retries that part, float64 RKM on 2x2, the Euler
+    corrector on x(2)) and one group over both ranks (semi-implicit on
+    y(2), CG counts that differ): each rank's members' fields, clocks, CG
+    counts, attempts and delta stats equal the one-process mesh ensemble's
+    bit for bit, and each rank launches what its groups launch alone (a
+    group over both ranks: half)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import torch_multihost_worker as worker
+
+    cases = [c for c in worker.ECASES if c.world == 2 and c.route == "kernel"]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    coord = f"127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_multihost_worker.py"),
+         "--coord", coord, "--world", "2", "--rank", str(r), "--out", str(tmp_path),
+         "--device", "cuda", "--backend", "gloo", "--suite", "ensemble",
+         "--only", ",".join(c.name for c in cases)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "WORKER_OK" in out, out[-4000:]
+
+    def load(name, who):
+        with np.load(os.path.join(tmp_path, f"{name}.{who}.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    for case in cases:
+        one = load(case.name, "one")
+        alone = [json.loads(str(load(case.name, f"g{g}")["launches"]))
+                 for g in range(case.batch)]
+        span = 1 if case.geometry == "A" else 2
+        for r in range(2):
+            got = load(case.name, f"rank{r}")
+            mine = got["mine"]
+            for key in ("t", "iter", "tau"):
+                assert np.array_equal(got[key][:, mine], one[key][:, mine]), (case.name, r, key)
+            for key in ("Phi_iters", "T_iters", "attempts", "deltas"):
+                assert np.array_equal(got[key], one[key][:, mine], equal_nan=True), \
+                    (case.name, r, key)
+            assert np.array_equal(got["F"], one["F"]) and np.array_equal(got["U"], one["U"])
+            share = {}
+            for g in sorted({int(b) // (case.members // case.batch) for b in mine}):
+                for k, v in alone[g].items():
+                    share[k] = share.get(k, 0) + v // span
+            launched = json.loads(str(got["launches"]))
+            assert launched == share and launched, (case.name, r, launched, share)
+            if case.geometry == "A":
+                assert not got["messages"].any(), (case.name, r, got["messages"])
+
+
+@pytest.mark.cuda
 def test_multiprocess_nccl_world_of_one(cuda_device):  # noqa: F811
     """NCCL's init and collectives on the card in a world of one: the
     partials, the blocks (onto every rank and onto rank 0) and the clock

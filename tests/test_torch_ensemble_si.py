@@ -284,6 +284,52 @@ def test_si_corrector_noise_overshoot_is_the_schemes():
     assert tmax.max() < bound and jmax.max() < bound
 
 
+def _chip_smoke_string(text: str, name: str) -> str:
+    """The value of ``chip_smoke.py``'s string constant ``name`` (a literal
+    on one line, ``+ FIRST_FRAME`` or not, the rest of a parenthesised one
+    joined)."""
+    m = re.search(rf"^{name} = \(?((?:\"[^\"]*\"\s*)+)", text, re.M)
+    return "".join(re.findall(r'"([^"]*)"', m.group(1))).encode().decode("unicode_escape")
+
+
+def test_si_single_run_overshoot_is_the_schemes():
+    """config.ini's noise-free semi-implicit run (chip_smoke.py's ``SEMI``)
+    at 512^2 in float32: over the first 30 steps Phi's maximum is JAX's,
+    step by step (the XLA backend against the port's plain path, from the
+    same initial state), so its overshoot past ``check_run``'s 1.1 is the
+    scheme's; it settles below 1.1 within the 30 steps, before the first
+    frame of chip_smoke.py's semi-implicit cuts over ranks (``MP_SI_CUT``,
+    ``MP_SI64_CUT``, each frame at its stop time)."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    semi = _chip_smoke_string(text, "SEMI")
+    cfg = jax_load_config(str(ROOT / "config.ini"), [semi])
+    jp = cfg.params.replace(backend="xla")
+    assert (jp.nx, jp.ny, jp.dtype, jp.solver) == (512, 512, "float32",
+                                                   JaxSolverType.SEMI_IMPLICIT)
+    js = bt.make_state(*bt.make_initial_fields(jp, cfg.initial), jp)
+    ts = state_from_numpy(np.asarray(js.F), np.asarray(js.U), 0.0, 0, jp.dt, device="cpu")
+    jstep = jax.jit(jax_make_stepper(jp))
+    tstep = make_stepper(params_from_jax_fields(dataclasses.asdict(jp)))
+    jmax, tmax = [], []
+    for _ in range(30):
+        js, _ = jstep(js)
+        ts, _ = tstep(ts)
+        jmax.append(float(np.asarray(js.F).max()))
+        tmax.append(float(ts.F.max()))
+    jmax, tmax = np.array(jmax), np.array(tmax)
+    np.testing.assert_allclose(tmax, jmax, rtol=0, atol=1e-6)
+    over = np.flatnonzero(jmax > 1.1)
+    assert len(over) and over[-1] < 29  # it overshoots, then settles within the 30 steps
+    settled = over[-1] + 2  # the first step after which every maximum is below 1.1
+    for cut, config in (("MP_SI_CUT", "config.ini"),
+                        ("MP_SI64_CUT", "bench_sweep_f64/config_semi-implicit_512_f64.ini")):
+        stop = float(re.search(r"stop_after = ([0-9.e-]+)",
+                               _chip_smoke_string(text, cut)).group(1))
+        dt = jax_load_config(str(ROOT / config)).params.dt
+        assert "times = 1" in _chip_smoke_string(text, cut)
+        assert round(stop / dt) > settled, (cut, stop / dt, settled)
+
+
 def test_si_advance_until_members_matches_jax():
     """Members at different iterations reach the target after different
     numbers of steps: the ones that reach it are frozen while the others

@@ -24,9 +24,12 @@ on the CPU over gloo.
     a resume from a frame continues
     bit for bit; a rank killed mid-run makes the launcher end the other
     and return non-zero within its limit;
-  * a world that does not divide the mesh raises, an ensemble on a mesh
-    that spans ranks raises naming ROADMAP item 5d, and ``[tpu] multihost
-    = true`` without torchrun's variables raises.
+  * a world that does not divide the mesh raises, member groups laid out
+    over ranks neither whole a rank nor split over their own ranks raise
+    naming both rules, an ensemble without a mesh over ranks raises, and
+    ``[tpu] multihost = true`` without torchrun's variables raises
+    (ensembles over ranks themselves: ``tests/test_torch_multihost_
+    ensemble.py``).
 
 Every subprocess has a time limit, and the process group its own timeout
 (``BTPU_DIST_TIMEOUT``), so a fault ends in an error, never a hang.
@@ -422,17 +425,31 @@ def test_a_world_that_does_not_divide_the_mesh_raises():
 
 
 def test_an_ensemble_on_a_mesh_over_ranks_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="5d"):
-        make_mesh(2, 1, ["cpu"], batch=2, world=2)
-    mesh, topo = make_mesh(2, 1, ["cpu"], world=2)
-    with pytest.raises(NotImplementedError, match="5d"):
-        make_ensemble_stepper(SimParams(nx=32, ny=32), mesh, topo)
-    with pytest.raises(NotImplementedError, match="5d"):
-        shard_field(torch.zeros(2, 8, 8), mesh, topo)
+    """Member groups over ranks take whole groups a rank, or split one
+    group over its own ranks; any other layout raises naming both rules,
+    and so does an ensemble without a mesh over ranks."""
+    both = "whole groups a rank.*split one group"
+    # 3 groups of 2 shards over 2 ranks: 3 slots a rank, neither rule
+    with pytest.raises(ValueError, match=both):
+        make_mesh(2, 1, ["cpu"], batch=3, world=2)
+    # 2 groups of 1 shard over 4 ranks: a group's one shard over 2 ranks
+    with pytest.raises(ValueError, match=both):
+        make_mesh(1, 1, ["cpu"], batch=2, world=4)
+    # what runs: whole groups (this process is rank 0 outside a world) ...
+    mesh, topo = make_mesh(2, 1, ["cpu"], batch=4, world=2)
+    assert (list(topo.groups), topo.world, list(topo.owned), len(mesh.devices)) == \
+        ([0, 1], 1, [0, 1], 4)
+    mine = shard_field(torch.arange(4 * 64.0).reshape(4, 8, 8), mesh, topo)
+    assert len(mine.blocks) == 4 and mine.shape == (4, 8, 8) and not mine.whole
+    assert callable(make_ensemble_stepper(SimParams(nx=8, ny=8), mesh, topo))
+    # ... and one group's shards over its ranks
+    mesh, topo = make_mesh(2, 2, ["cpu"], batch=2, world=4)
+    assert (list(topo.groups), topo.world, topo.rank, list(topo.owned)) == ([0], 2, 0, [0, 1])
     monkeypatch.setattr(multihost, "world", lambda: 2)
-    cfg = load_config(CONFIG, ["[tpu]\nensemble = 2\nshards_y = 2\n"])
-    with pytest.raises(NotImplementedError, match="5d"):
-        driver.check_supported(cfg)
+    cfg = load_config(CONFIG, ["[tpu]\nensemble = 2\n"])
+    driver.check_supported(cfg)  # an ensemble over ranks is supported ...
+    with pytest.raises(ValueError, match="does not split over 2 ranks"):
+        driver._devices(cfg, "cpu")  # ... on a mesh
 
 
 def test_multihost_without_torchruns_variables_raises(monkeypatch, tmp_path):

@@ -20,6 +20,15 @@ kernel launches and transfers it made, by name.
 run bit for bit and to JAX's mesh run; ``tests/test_torch_cuda.py`` runs it
 on the card.  Prints ``WORKER_OK <rank>`` at the end.
 
+With ``--suite ensemble`` the cases are ensembles whose member groups span
+the world (``ECASES`` of this world's size, ROADMAP item 5d): every rank
+steps its own groups (whole, or its shards of one group) of one mesh
+ensemble, and rank 0 then runs the one-process mesh ensemble of the same
+members and, for the wrappers' shares, each member group alone
+(``<case>.g<k>.npz``).  Per step each run records every member's clock,
+its own members' stats rows, the transfers the step made, and the process
+groups its collectives went over.
+
 The "kernel" route takes the card's mesh routes (``resolve_backend`` is
 "kernel" in the solver modules, the refined float64 semi-implicit route on
 any device), so on the CPU each wrapper takes its plain version through the
@@ -40,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from bachelors_tpu_torch.convert import state_from_numpy  # noqa: E402
+from bachelors_tpu_torch.core.state import empty_stats  # noqa: E402
 from bachelors_tpu_torch.core.params import (SimParams, SolverType,  # noqa: E402
                                              rewire_params_for_exact)
 from bachelors_tpu_torch.models.initial import InitialConditions, make_initial_fields  # noqa: E402
@@ -47,7 +57,8 @@ from bachelors_tpu_torch.ops import cuda_cg, cuda_rhs, cuda_stats  # noqa: E402
 from bachelors_tpu_torch.ops import rhs as ops_rhs  # noqa: E402
 from bachelors_tpu_torch.parallel import multihost, transport  # noqa: E402
 from bachelors_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_state  # noqa: E402
-from bachelors_tpu_torch.parallel.sharded import make_sharded_stepper  # noqa: E402
+from bachelors_tpu_torch.parallel.sharded import (make_ensemble_stepper,  # noqa: E402
+                                                   make_sharded_stepper)
 from bachelors_tpu_torch.solvers import explicit, semi_implicit  # noqa: E402
 from bachelors_tpu_torch.solvers.explicit import make_euler_pair_stepper  # noqa: E402
 
@@ -68,21 +79,34 @@ VARIANTS = {
                T_tolerance=1e-8, Phi_max_iters=50, T_max_iters=50, do_stats=True),
     "exact": dict(solver=SolverType.EXACT, do_exact=True, do_stats=True),
 }
+# the ensembles' semi-implicit variant: a step whose members' CG counts differ
+# (from a sharp seed, member 0 without noise)
+ENSEMBLE_VARIANTS = {"si_members": dict(solver=SolverType.SEMI_IMPLICIT, dt=2e-5, do_stats=True)}
 STEPS = {"euler_pair": 8}  # two passes of the pair (T = 4 at these sizes)
 ROUTES = ("plain", "kernel")
 # wrappers whose calls are counted (on the CPU they run their plain versions)
 SPIED = {cuda_rhs: ("halo_edges", "blend_rhs_sharded", "rk4_final_stage", "rkm_final_stage",
                     "rkm_attempt_sharded", "euler_steps_sharded", "rk4_full_sharded",
-                    "si_prepare_sharded"),
+                    "si_prepare_sharded",
+                    # over members (ensembles)
+                    "blend_rhs_members", "rk4_final_stage_members", "rkm_attempt_members",
+                    "rk4_full_members", "si_prepare_members", "rkm_attempt_members_sharded",
+                    "blend_rhs_sharded_members", "rkm_final_stage_members",
+                    "blend_rhs_sharded_members_fixed", "rk4_full_members_sharded",
+                    "halo_edges_members", "si_prepare_members_sharded"),
          cuda_cg: ("cross_matvec_pAp_sharded", "aniso_matvec_pAp_sharded", "update_xr_rr",
-                   "advance_p_inplace", "cross_residual", "aniso_residual", "heat_residual")}
+                   "advance_p_inplace", "cross_residual", "aniso_residual", "heat_residual",
+                   "cross_matvec_pAp_members", "aniso_matvec_pAp_members",
+                   "cross_matvec_pAp_members_sharded", "aniso_matvec_pAp_members_sharded",
+                   "update_xr_rr_members", "advance_p_members", "cross_residual_members",
+                   "aniso_residual_members", "heat_residual_members")}
 
 
 def params(variant: str, dtype: str) -> SimParams:
     """The case's parameters, as the JAX side builds them too."""
     kw = dict(nx=NX, ny=NY, L0=4.0, dt=1e-6, dtype=dtype, S=0.25, m0=6.0,
               f32_transcendentals=False)
-    kw.update(VARIANTS[variant])
+    kw.update({**VARIANTS, **ENSEMBLE_VARIANTS}[variant])
     p = SimParams(**kw)
     return rewire_params_for_exact(p) if p.do_exact else p
 
@@ -217,6 +241,189 @@ def run(case: Case, device: str, world=None) -> dict:
                 shards=np.asarray(list(topo.owned)))
 
 
+# ------------------------------------------ ensembles over ranks (item 5d)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnsembleCase:
+    """An ensemble of ``members`` in ``batch`` member groups on a ``mesh``
+    over a world of ``world`` ranks: (A) whole groups a rank where the
+    world divides the groups, else (B) a group's shards over its ranks."""
+    variant: str
+    dtype: str
+    mesh: str
+    route: str
+    batch: int
+    members: int
+    world: int
+
+    @property
+    def name(self) -> str:
+        return (f"ens-{self.variant}-{self.dtype}-{self.mesh}-g{self.batch}-w{self.world}-"
+                f"{self.route}")
+
+    @property
+    def geometry(self) -> str:
+        return "A" if self.batch % self.world == 0 else "B"
+
+    steps = 3
+
+
+def _ens(variant, dtypes, mesh, batch, members, world, routes=ROUTES):
+    return [EnsembleCase(variant, d, mesh, r, batch, members, world)
+            for r in routes for d in dtypes]
+
+
+EMESHES = {**MESHES, "1x1": (1, 1)}
+BOTH = ("float32", "float64")
+ECASES = [
+    # (A) one group a rank without spatial shards: data parallelism, members
+    # whose Merson retries part
+    *_ens("rkm", ("float32",), "1x1", 2, 4, 2),
+    # (A) whole groups with spatial shards: the float64 K2 twin over members
+    *_ens("rkm", ("float64",), "2x2", 2, 4, 2),
+    *_ens("euler_corrector", BOTH, "x2", 2, 4, 2),
+    *_ens("exact", ("float64",), "x2", 2, 4, 2, ("plain",)),
+    # (B) one group over both ranks, CG counts that differ by member
+    *_ens("si_members", BOTH, "y2", 1, 2, 2),
+    # (B) two groups, each over two of four ranks
+    *_ens("rk4", BOTH, "2x2", 2, 4, 4),
+    *_ens("rkm", ("float32",), "y2", 2, 4, 4),
+]
+
+
+def ensemble_initial(p: SimParams, case: EnsembleCase):
+    """The case's members (numpy, (B, ny, nx)): member b seeded with 3 + b
+    and noise 0.01 (b + 1), so their Merson retries part; a semi-implicit
+    ensemble's from a sharp seed with member 0 without noise, so their CG
+    counts differ."""
+    F, U = [], []
+    si = case.variant == "si_members"
+    for b in range(case.members):
+        noise = (0.05 if b else 0.0) if si else 0.01 * (b + 1)
+        f, u = make_initial_fields(p, InitialConditions(
+            circle_center=(2.0, 2.0), circle_radius=0.5, circle_fade=0.0 if si else 8.0,
+            noise_T=noise, noise_seed=3 + b), device="cpu")
+        F.append(f.numpy())
+        U.append(u.numpy())
+    return np.stack(F), np.stack(U)
+
+
+def live_mask(case: EnsembleCase, k: int):
+    """Which members step at step k: all, then member 1 frozen, then (with
+    several groups) every member of the last group frozen."""
+    live = np.ones(case.members, bool)
+    if k == 1:
+        live[1] = False
+    elif k == 2 and case.batch > 1:
+        live[-case.members // case.batch:] = False
+    else:
+        return None
+    return live
+
+
+class Collectives:
+    """The process groups the transport's exchanges (those with messages)
+    and reductions went over, as their sorted world ranks (the world's for
+    None)."""
+
+    def __init__(self):
+        self.seen, self.saved = set(), []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        for name, at in (("swap", 3), ("all_partials", 2)):
+            fn = getattr(transport, name)
+
+            def spy(*a, _fn=fn, _at=at, _name=name, **kw):
+                group = kw.get("group", a[_at] if len(a) > _at else None)
+                if _name != "swap" or a[0] or a[1]:  # a swap with messages
+                    self.seen.add(tuple(dist.get_process_group_ranks(group)) if group
+                                  is not None else tuple(range(dist.get_world_size())))
+                return _fn(*a, **kw)
+
+            self.saved.append((name, fn))
+            setattr(transport, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(transport, name, fn)
+
+
+def _step_transfers(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in transport.TRANSFERS.items()
+            if v != before.get(k, 0)}
+
+
+def run_members(case: EnsembleCase, device: str, world=None, group=None) -> dict:
+    """The ensemble case over the world (``world`` None), in one process
+    (``world=1``), or one member group alone in one process (``group``):
+    per step every member's clock, this process's members' stats rows, the
+    step's transfers and the collectives' groups; the fields after each
+    step on rank 0, the last ones on every rank."""
+    p = params(case.variant, case.dtype)
+    F0, U0 = ensemble_initial(p, case)
+    G, B = case.batch, case.members
+    lo, hi = 0, B
+    if group is not None:
+        lo, hi, G = group * B // G, (group + 1) * B // G, 1
+    sy, sx = EMESHES[case.mesh]
+    state = state_from_numpy(F0[lo:hi], U0[lo:hi], 0.0, 0, np.full(hi - lo, p.dt), device=device)
+    if sy * sx * G == 1:  # one group without shards: a one-device ensemble
+        mesh = topo = None
+        mine, st = range(hi - lo), state
+    else:
+        mesh, topo = make_mesh(sy, sx, [device] * (sy * sx * G), batch=G, world=world)
+        mine, st = topo.members(hi - lo), shard_state(state, mesh, topo)
+    step = make_ensemble_stepper(p, mesh, topo)
+    rec = {k: [] for k in ("t", "iter", "tau", "Phi_iters", "T_iters", "attempts", "deltas",
+                           "Fs", "Us", "messages")}
+    before, sent = launches(), dict(transport.TRANSFERS)
+    with Routes(_as_case(case)) as routes, Collectives() as groups:
+        for k in range(case.steps):
+            live = live_mask(case, k)
+            at = dict(transport.TRANSFERS)
+            if group is not None and live is not None and not live[lo:hi].any():
+                # a group whose members are all frozen is not stepped (as in
+                # the whole ensemble): no pass, deltas 0
+                stats = empty_stats(st, hi - lo)
+                stats.attempts[:] = 0
+            else:
+                st, stats = step(st, None if live is None else live[lo:hi])
+            moved = _step_transfers(at)
+            rec["messages"].append(sum(v for n, v in moved.items() if not n.endswith("_bytes")))
+            for name in ("t", "iter", "tau"):
+                rec[name].append(np.asarray(getattr(st, name)).copy())
+            for name in ("Phi_iters", "T_iters", "attempts"):
+                rec[name].append(np.asarray(getattr(stats, name)).copy())
+            # a process whose members were all frozen stepped nothing: no deltas
+            rec["deltas"].append(np.zeros((len(mine), 8), np.float32) if stats.deltas is None
+                                 else stats.deltas.cpu().numpy())
+            whole = gather_state(st, torch.device("cpu"), root=0) if mesh is not None else st
+            if whole is not None:
+                rec["Fs"].append(whole.F.cpu().numpy())
+                rec["Us"].append(whole.U.cpu().numpy())
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    whole = gather_state(st, torch.device("cpu")) if mesh is not None else st
+    after = launches()
+    return dict(F0=F0[lo:hi], U0=U0[lo:hi], F=whole.F.cpu().numpy(), U=whole.U.cpu().numpy(),
+                **{k: np.asarray(v) for k, v in rec.items()},
+                mine=np.arange(mine.start, mine.stop) + lo,
+                calls=json.dumps(routes.calls),
+                launches=json.dumps({k: v - before.get(k, 0) for k, v in after.items()
+                                     if v != before.get(k, 0)}),
+                transfers=json.dumps(_step_transfers(sent)),
+                groups=json.dumps(sorted(groups.seen)))
+
+
+def _as_case(case: EnsembleCase) -> Case:
+    """The ``Routes`` of an ensemble case: its variant and route."""
+    return Case(case.variant, case.dtype, case.mesh, case.route)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--coord", required=True)
@@ -226,6 +433,7 @@ def main() -> int:
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--backend", default=None)
     ap.add_argument("--only", default="")
+    ap.add_argument("--suite", choices=("mesh", "ensemble"), default="mesh")
     args = ap.parse_args()
     torch.set_num_threads(1)  # the one-process reference adds as the ranks do
     # rank 1 waits in its next case's first exchange while rank 0 runs the
@@ -235,7 +443,19 @@ def main() -> int:
                                 device=args.device)
     assert (multihost.rank(), multihost.world()) == (args.rank, args.world)
     only = set(filter(None, args.only.split(",")))
-    for case in CASES:
+    if args.suite == "ensemble":
+        for case in ECASES:
+            if case.world != args.world or (only and case.name not in only):
+                continue
+            np.savez(os.path.join(args.out, f"{case.name}.rank{args.rank}.npz"),
+                     **run_members(case, args.device))
+            if args.rank == 0:
+                np.savez(os.path.join(args.out, f"{case.name}.one.npz"),
+                         **run_members(case, args.device, world=1))
+                for g in range(case.batch):
+                    np.savez(os.path.join(args.out, f"{case.name}.g{g}.npz"),
+                             **run_members(case, args.device, world=1, group=g))
+    for case in CASES if args.suite == "mesh" else ():
         if only and case.name not in only:
             continue
         np.savez(os.path.join(args.out, f"{case.name}.rank{args.rank}.npz"),
